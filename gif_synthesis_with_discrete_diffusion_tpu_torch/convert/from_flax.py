@@ -1,0 +1,98 @@
+"""Flax variable trees -> the port's PyTorch state dicts.
+
+The inverse of the conventions ``gif_synthesis_with_discrete_diffusion_tpu/
+convert/common.py`` targets. The trees come in as nested dicts of numpy
+arrays (``jax.device_get`` output, or any checkpoint read as numpy); no jax
+is imported here. The port names its submodules after the flax scopes, so
+the map is per leaf:
+
+* Dense ``kernel`` (in, out)          -> Linear ``weight`` (out, in)
+* Conv ``kernel`` DHWIO               -> ``weight`` (O, I, kD, kH, kW)
+* ConvTranspose ``kernel`` DHWIO, forward orientation (scopes ``convt*``)
+                                      -> ``weight`` (I, O, kD, kH, kW), the
+  layout of ``ops/conv3d.same_pad_conv_transpose3d``
+* Embed ``embedding``                 -> ``weight``
+* LayerNorm / BatchNorm ``scale``     -> ``weight``; ``bias`` as it is
+* batch_stats ``mean`` / ``var``      -> ``running_mean`` / ``running_var``
+* other params (``null_embed``) as they are
+"""
+from __future__ import annotations
+
+from typing import Any, Iterator, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["flax_to_state_dict", "vqvae_state_dict", "linear_weight",
+           "conv3d_weight", "conv_transpose3d_weight"]
+
+
+def linear_weight(kernel: np.ndarray) -> np.ndarray:
+    return np.transpose(kernel, (1, 0))
+
+
+def conv3d_weight(kernel: np.ndarray) -> np.ndarray:
+    return np.transpose(kernel, (4, 3, 0, 1, 2))
+
+
+def conv_transpose3d_weight(kernel: np.ndarray) -> np.ndarray:
+    return np.transpose(kernel, (3, 4, 0, 1, 2))
+
+
+def _leaves(tree: Mapping[str, Any], prefix: tuple = ()
+            ) -> Iterator[tuple[tuple, np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def _map_param(path: tuple, leaf: np.ndarray) -> tuple[tuple, np.ndarray]:
+    *scope, name = path
+    if name == "kernel":
+        if leaf.ndim == 2:
+            return (*scope, "weight"), linear_weight(leaf)
+        if leaf.ndim == 5 and scope and scope[-1].startswith("convt"):
+            return (*scope, "weight"), conv_transpose3d_weight(leaf)
+        if leaf.ndim == 5:
+            return (*scope, "weight"), conv3d_weight(leaf)
+        raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
+    if name in ("embedding", "scale"):
+        return (*scope, "weight"), leaf
+    return path, leaf
+
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def flax_to_state_dict(params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any] | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """Map a flax ``params`` tree (and its ``batch_stats``) to a state dict
+    with dotted keys."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params):
+        key, value = _map_param(path, leaf)
+        out[".".join(key)] = torch.from_numpy(
+            np.ascontiguousarray(value))
+    for path, leaf in _leaves(batch_stats or {}):
+        *scope, name = path
+        out[".".join((*scope, _STATS[name]))] = torch.from_numpy(
+            np.ascontiguousarray(leaf))
+    return out
+
+
+def vqvae_state_dict(params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any],
+                     codebook: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax ``VQVAE``'s params / batch_stats / codebook collections -> the
+    port's decode-side ``VQVAE`` state dict (the encoder, ``pre_vq_conv``
+    and the codebook's EMA statistics have no counterpart yet)."""
+    keep = ("decoder", "post_vq_conv")
+    sd = flax_to_state_dict(
+        {k: v for k, v in params.items() if k in keep},
+        {k: v for k, v in batch_stats.items() if k in keep})
+    sd["codebook.embeddings"] = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(codebook["codebook"]["embeddings"], np.float32)))
+    return sd

@@ -1,0 +1,102 @@
+"""PyTorch port's same-pad convs and VQ-VAE decode vs the JAX package (CPU),
+with the flax params, batch_stats and codebook carried over by
+``convert/from_flax.py``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gif_synthesis_with_discrete_diffusion_tpu.models.vqvae import (
+    VQVAE as JaxVQVAE)
+from gif_synthesis_with_discrete_diffusion_tpu.ops import conv3d as jconv
+from gif_synthesis_with_discrete_diffusion_tpu_torch.convert.from_flax import (
+    conv3d_weight, conv_transpose3d_weight, vqvae_state_dict)
+from gif_synthesis_with_discrete_diffusion_tpu_torch.models.vqvae import VQVAE
+from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import conv3d as tconv
+
+# the tolerance of tests/test_conv3d.py (f32 convs in two frameworks)
+TOL = 2e-4
+
+
+@pytest.mark.parametrize("k,s,shape", [     # tests/test_conv3d.py:53-57
+    (4, (2, 2, 2), (2, 2, 4, 4, 3)),
+    (4, (1, 2, 2), (1, 4, 8, 8, 5)),
+    (4, (2, 1, 1), (1, 2, 3, 3, 2)),
+])
+def test_same_pad_conv_transpose3d_matches(k, s, shape):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (0.1 * rng.standard_normal((k, k, k, shape[-1], 4))).astype(
+        np.float32)                                 # DHWIO, forward
+    bias = rng.standard_normal((4,)).astype(np.float32)
+    want = jconv.same_pad_conv_transpose3d(jnp.asarray(x), jnp.asarray(w), s,
+                                           jnp.asarray(bias))
+    got = tconv.same_pad_conv_transpose3d(
+        torch.from_numpy(x), torch.from_numpy(conv_transpose3d_weight(w)), s,
+        torch.from_numpy(bias))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("k,s,shape", [     # tests/test_conv3d.py:27-32
+    (4, (2, 2, 2), (2, 4, 8, 8, 3)),
+    (4, (1, 2, 2), (1, 4, 16, 16, 5)),
+    (3, (1, 1, 1), (2, 3, 6, 6, 4)),
+    (1, (1, 1, 1), (1, 2, 4, 4, 7)),
+])
+def test_same_pad_conv3d_matches(k, s, shape):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (0.1 * rng.standard_normal((k, k, k, shape[-1], 6))).astype(
+        np.float32)
+    bias = rng.standard_normal((6,)).astype(np.float32)
+    want = jconv.same_pad_conv3d(jnp.asarray(x), jnp.asarray(w), s,
+                                 jnp.asarray(bias))
+    got = tconv.same_pad_conv3d(torch.from_numpy(x),
+                                torch.from_numpy(conv3d_weight(w)), s,
+                                torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def _flax_vqvae(rng, **kw):
+    """A flax VQVAE with every param, batch statistic and code redrawn."""
+    model = JaxVQVAE(kernel_mode="xla", **kw)
+    x = jnp.zeros((1, kw["sequence_length"], kw["resolution"],
+                   kw["resolution"], 3))
+    v = jax.device_get(jax.jit(lambda r: model.init(r, {"video": x},
+                                                   train=True))(
+        {"params": jax.random.key(1), "codebook": jax.random.key(2)}))
+    draw = lambda a, s: (s * rng.standard_normal(a.shape)).astype(  # noqa
+        np.float32)
+    params = jax.tree.map(lambda a: draw(a, 0.2), v["params"])
+    stats = jax.tree.map(lambda a: draw(a, 0.3), v["batch_stats"])
+    for bn in jax.tree_util.tree_leaves(
+            stats, is_leaf=lambda n: isinstance(n, dict) and "var" in n):
+        bn["var"] = np.abs(bn["var"]) + 0.5       # a variance is positive
+    codebook = {"codebook": dict(v["codebook"]["codebook"],
+                                 embeddings=draw(v["codebook"]["codebook"][
+                                     "embeddings"], 1.0))}
+    return model, {"params": params, "batch_stats": stats,
+                   "codebook": codebook}
+
+
+def test_vqvae_decode_matches_flax():
+    rng = np.random.default_rng(2)
+    kw = dict(embedding_dim=16, n_codes=32, n_hiddens=32, n_res_layers=1,
+              downsample=(1, 2, 2), sequence_length=4, resolution=8)
+    flax_model, variables = _flax_vqvae(rng, **kw)
+    codes = rng.integers(0, 32, (2, 4, 4, 4)).astype(np.int32)
+    want = jax.jit(lambda v, c: flax_model.apply(
+        v, c, method=JaxVQVAE.decode))(variables, jnp.asarray(codes))
+
+    model = VQVAE(**kw).eval()
+    model.load_state_dict(vqvae_state_dict(
+        variables["params"], variables["batch_stats"],
+        variables["codebook"]))
+    got = model.decode(torch.from_numpy(codes).long())
+    assert tuple(got.shape) == (2, 4, 8, 8, 3) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
