@@ -14,7 +14,10 @@ the map is per leaf:
 * Embed ``embedding``                 -> ``weight``
 * LayerNorm / BatchNorm ``scale``     -> ``weight``; ``bias`` as it is
 * batch_stats ``mean`` / ``var``      -> ``running_mean`` / ``running_var``
-* other params (``null_embed``) as they are
+* other params (``null_embed``, ``empty_text_embed``) as they are
+* other variable collections (the generator's ``diffusion`` collection:
+  ``lt_history``, ``lt_count``, ``diffusion_acc``, ``diffusion_keep``)
+  -> buffers of the same dotted name
 """
 from __future__ import annotations
 
@@ -67,19 +70,22 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def flax_to_state_dict(params: Mapping[str, Any],
-                       batch_stats: Mapping[str, Any] | None = None
+                       batch_stats: Mapping[str, Any] | None = None,
+                       buffers: Mapping[str, Any] | None = None
                        ) -> dict[str, torch.Tensor]:
-    """Map a flax ``params`` tree (and its ``batch_stats``) to a state dict
-    with dotted keys."""
+    """Map a flax ``params`` tree (with its ``batch_stats``, and other
+    collections in ``buffers`` whose leaves keep their names) to a state
+    dict with dotted keys."""
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
         key, value = _map_param(path, leaf)
-        out[".".join(key)] = torch.from_numpy(
-            np.ascontiguousarray(value))
+        out[".".join(key)] = torch.from_numpy(np.array(value))
     for path, leaf in _leaves(batch_stats or {}):
         *scope, name = path
         out[".".join((*scope, _STATS[name]))] = torch.from_numpy(
-            np.ascontiguousarray(leaf))
+            np.array(leaf))
+    for path, leaf in _leaves(buffers or {}):
+        out[".".join(path)] = torch.from_numpy(np.array(leaf))
     return out
 
 
@@ -87,12 +93,12 @@ def vqvae_state_dict(params: Mapping[str, Any],
                      batch_stats: Mapping[str, Any],
                      codebook: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A flax ``VQVAE``'s params / batch_stats / codebook collections -> the
-    port's decode-side ``VQVAE`` state dict (the encoder, ``pre_vq_conv``
-    and the codebook's EMA statistics have no counterpart yet)."""
-    keep = ("decoder", "post_vq_conv")
-    sd = flax_to_state_dict(
-        {k: v for k, v in params.items() if k in keep},
-        {k: v for k, v in batch_stats.items() if k in keep})
-    sd["codebook.embeddings"] = torch.from_numpy(np.ascontiguousarray(
-        np.asarray(codebook["codebook"]["embeddings"], np.float32)))
+    port's ``VQVAE`` state dict: encoder, ``pre_vq_conv``, ``post_vq_conv``
+    and decoder, and the codebook's ``embeddings``, ``ema_count`` and
+    ``ema_sum`` (its ``initialized`` flag belongs to stage-1 training, not
+    ported yet)."""
+    sd = flax_to_state_dict(params, batch_stats)
+    for name in ("embeddings", "ema_count", "ema_sum"):
+        sd[f"codebook.{name}"] = torch.from_numpy(
+            np.array(codebook["codebook"][name], np.float32))
     return sd

@@ -5,7 +5,11 @@
 //
 // q: (B, Lq, C), k/v: (B, Lk, C), o: (B, Lq, C), all f32 and contiguous;
 // C = H * D. Per (batch row, head): o = softmax(q k^T / sqrt(D)) v over the
-// Lk keys, softmax in f32.
+// Lk keys, softmax in f32. When lse is not null it also receives each
+// (batch row, head, query)'s log-sum-exp of the scores in base 2,
+// (B, H, Lq) f32, which the backward (csrc/fused_mha_bwd.cu) uses to
+// recompute the probabilities; the sampling path passes null and pays one
+// untaken branch per thread.
 //
 // What bounds it: at the denoiser's head dim D = 4 a tensor-core product
 // would waste 12 of its 16 deep contraction, and the score matrix, if
@@ -48,7 +52,8 @@ template <int D>
 __global__ void __launch_bounds__(kBlockQ)
 fused_mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int Lq, int Lk, int C, float q_scale) {
+                     float* __restrict__ lse, int Lq, int Lk, int C,
+                     float q_scale) {
   constexpr int V4 = D / 4;  // float4 per head row
   __shared__ float4 ks[kTileK * V4];
   __shared__ float4 vs[kTileK * V4];
@@ -125,36 +130,38 @@ fused_mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < V4; ++j)
       op[j] = make_float4(acc[4 * j + 0] * inv, acc[4 * j + 1] * inv,
                           acc[4 * j + 2] * inv, acc[4 * j + 3] * inv);
+    if (lse != nullptr) lse[(b * gridDim.y + h) * Lq + row] = m + log2f(l);
   }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int Lq, int Lk, int C, int H, cudaStream_t stream) {
+                   float* lse, int B, int Lq, int Lk, int C, int H,
+                   cudaStream_t stream) {
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
   // softmax(x) = 2^(x log2 e) / sum: fold 1/sqrt(D) and log2(e) into q
   const float q_scale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  fused_mha_fwd_kernel<D><<<grid, kBlockQ, 0, stream>>>(q, k, v, o, Lq, Lk, C,
-                                                        q_scale);
+  fused_mha_fwd_kernel<D><<<grid, kBlockQ, 0, stream>>>(q, k, v, o, lse, Lq,
+                                                        Lk, C, q_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a head dim other than
-// 4 or 8, else the launch's status.
+// 4 or 8, else the launch's status. lse may be null.
 extern "C" int fused_mha_fwd(const float* q, const float* k, const float* v,
-                             float* o, int B, int Lq, int Lk, int C, int H,
-                             void* stream) {
+                             float* o, float* lse, int B, int Lq, int Lk,
+                             int C, int H, void* stream) {
   if (H <= 0 || C % H != 0 || Lq <= 0 || Lk <= 0 || B <= 0 || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / H) {
     case 4:
-      return static_cast<int>(launch<4>(q, k, v, o, B, Lq, Lk, C, H, s));
+      return static_cast<int>(launch<4>(q, k, v, o, lse, B, Lq, Lk, C, H, s));
     case 8:
-      return static_cast<int>(launch<8>(q, k, v, o, B, Lq, Lk, C, H, s));
+      return static_cast<int>(launch<8>(q, k, v, o, lse, B, Lq, Lk, C, H, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,14 +1,26 @@
-"""D3PM core: absorbing+uniform discrete diffusion in log space (sampling).
+"""D3PM core: absorbing+uniform discrete diffusion in log space.
 
-Port of the sampling part of ``gif_synthesis_with_discrete_diffusion_tpu/
-models/d3pm.py``: the linear schedule (computed in float64 numpy, stored as
-float32 tensors), the analytic posterior of a one-hot ``x_t``, the
-classifier-free-guidance combine, and ``sample_fused``, the plain full-loop
-oracle every sampler route must be posterior-equivalent to.
+Port of ``gif_synthesis_with_discrete_diffusion_tpu/models/d3pm.py``:
+
+* sampling: the linear schedule (computed in float64 numpy, stored as
+  float32 tensors), the analytic posterior of a one-hot ``x_t``, the
+  classifier-free-guidance combine, and ``sample_fused``, the plain
+  full-loop oracle every sampler route must be posterior-equivalent to;
+* training: ``q_pred``, ``q_posterior``, the token-space
+  ``true_q_posterior`` and ``q_sample_from_indices``, importance-sampled
+  timesteps over the Lt buffers (:class:`LtState`, :func:`sample_time`),
+  ``train_loss`` and the per-timestep telemetry.
 
 The reference's quirks are kept, not fixed: the ``-70`` clamp, the
-``1e-30`` one-hot floor and the ``(t - 1 + (T + 1)) % (T + 1)`` wrap that
-makes index ``T`` of the cumulative buffers the identity transition.
+``1e-30`` one-hot floor, the ``(t - 1 + (T + 1)) % (T + 1)`` wrap that
+makes index ``T`` of the cumulative buffers the identity transition, and
+the ``bt`` leakage of ``q_pred_one_timestep`` (corrected inside
+``q_posterior`` by the mask-row substitution, as there).
+
+Every random draw of the training loss can be handed in (``t`` with ``pt``,
+and the (B, K, L) uniforms of the noising Gumbel-max), so the tests feed
+the port the JAX draws; otherwise they come from the ``torch.Generator``
+given, on its own device.
 """
 from __future__ import annotations
 
@@ -18,9 +30,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-__all__ = ["LOG_CLAMP", "D3PMSchedule", "alpha_schedule", "make_schedule",
-           "sample_fused"]
+__all__ = ["LOG_CLAMP", "D3PMSchedule", "LtState", "alpha_schedule",
+           "make_schedule", "log_add_exp", "index_to_log_onehot",
+           "log_onehot_to_index", "q_pred", "q_posterior", "true_q_posterior",
+           "log_sample_categorical", "q_sample_from_indices",
+           "predict_start_from_logits", "predict_start", "importance_probs",
+           "sample_time", "multinomial_kl", "train_loss",
+           "update_diffusion_telemetry", "sample_fused"]
 
 LOG_CLAMP = -70.0
 _LOG_EPS_ONEHOT = math.log(1.0e-30)
@@ -92,6 +110,373 @@ def make_schedule(num_timesteps: int, num_classes: int,
     return D3PMSchedule(num_timesteps=num_timesteps,
                         num_classes=num_classes, **tensors)
 
+
+# ---------------------------------------------------------------------------
+# log-space helpers and the forward process
+# ---------------------------------------------------------------------------
+
+def log_add_exp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``max + log(exp(a - max) + exp(b - max))``, as the JAX package writes
+    it (not ``torch.logaddexp``), so both round alike."""
+    maximum = torch.maximum(a, b)
+    return maximum + torch.log(torch.exp(a - maximum) + torch.exp(b - maximum))
+
+
+def index_to_log_onehot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(B, L) int -> (B, K, L) log-onehot with the log(1e-30) floor."""
+    onehot = F.one_hot(x.long(), num_classes).permute(0, 2, 1)
+    return torch.log(onehot.to(torch.float32).clamp(min=1e-30))
+
+
+def log_onehot_to_index(log_x: torch.Tensor) -> torch.Tensor:
+    """(B, K, L) -> (B, L) int64; the first maximum on ties."""
+    return torch.argmax(log_x, dim=1)
+
+
+def _extract(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """a[t] -> (B, 1, 1) for broadcasting over (B, K, L)."""
+    return a[t][:, None, None]
+
+
+def _row(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """a[t] -> (B, 1) for broadcasting over (B, L)."""
+    return a[t][:, None]
+
+
+def q_pred(sched: D3PMSchedule, log_x_start: torch.Tensor, t: torch.Tensor
+           ) -> torch.Tensor:
+    """log q(x_t | x_0); t = -1 wraps to the identity row T."""
+    t = (t + (sched.num_timesteps + 1)) % (sched.num_timesteps + 1)
+    return torch.cat([
+        log_add_exp(log_x_start[:, :-1, :] + _extract(sched.log_cumprod_at, t),
+                    _extract(sched.log_cumprod_bt, t)),
+        log_add_exp(log_x_start[:, -1:, :]
+                    + _extract(sched.log_1_min_cumprod_ct, t),
+                    _extract(sched.log_cumprod_ct, t)),
+    ], dim=1)
+
+
+def _q_posterior_index(sched: D3PMSchedule, log_x_start: torch.Tensor,
+                       x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """:func:`q_posterior` for an index ``x_t`` (B, L): the one-hot's
+    q_pred / q_pred_one_timestep rows take one value on the x_t row and one
+    elsewhere, built from per-(b, l) scalars as the JAX package does."""
+    b, _, L = log_x_start.shape
+    K = sched.num_classes
+    fl = _LOG_EPS_ONEHOT
+    mask = (x_t == K - 1)[:, None, :]                           # (B, 1, L)
+    log_zero_vector = torch.full((b, 1, L), fl, dtype=log_x_start.dtype,
+                                 device=log_x_start.device)
+    kk = torch.arange(K - 1, device=x_t.device)[None, :, None]
+    is_xt = kk == x_t[:, None, :]                                # (B, K-1, L)
+
+    A, B = _row(sched.log_cumprod_at, t), _row(sched.log_cumprod_bt, t)
+    C = _row(sched.log_cumprod_ct, t)
+    sv = log_add_exp(A, B)                                       # k == x_t
+    snv = log_add_exp(fl + A, B)                                 # k != x_t
+    log_qt = torch.where(mask, C[:, None, :],
+                         torch.where(is_xt, sv[:, None, :], snv[:, None, :]))
+
+    a_, b_ = _row(sched.log_at, t), _row(sched.log_bt, t)
+    c_ = _row(sched.log_ct, t)
+    tv = log_add_exp(a_, b_)
+    tnv = log_add_exp(fl + a_, b_)
+    lqots = torch.where(mask, c_[:, None, :],
+                        torch.where(is_xt, tv[:, None, :], tnv[:, None, :]))
+    last = torch.where(mask, torch.zeros_like(log_zero_vector),
+                       log_zero_vector)
+    log_qt_one_timestep = torch.cat([lqots, last], dim=1)
+
+    q = log_x_start[:, :-1, :] - log_qt
+    q = torch.cat([q, log_zero_vector], dim=1)
+    q_log_sum_exp = torch.logsumexp(q, dim=1, keepdim=True)
+    q = q - q_log_sum_exp
+    log_ev = q_pred(sched, q, t - 1) + log_qt_one_timestep + q_log_sum_exp
+    return torch.clamp(log_ev, LOG_CLAMP, 0.0)
+
+
+def q_posterior(sched: D3PMSchedule, log_x_start: torch.Tensor,
+                log_x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """log q(x_{t-1} | x_t, x_0-distribution), with the reference's mask-row
+    corrections; ``log_x_t`` must be a log-onehot."""
+    return _q_posterior_index(sched, log_x_start,
+                              log_onehot_to_index(log_x_t), t)
+
+
+def true_q_posterior(sched: D3PMSchedule, x_start: torch.Tensor,
+                     x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """q(x_{t-1} | x_t, x_0) for INDEX x_start and x_t: every row of the
+    dense computation takes one of four values per (b, l) (k == x_start,
+    k == x_t, other non-mask rows, the mask row)."""
+    K = sched.num_classes
+    T = sched.num_timesteps
+    fl = _LOG_EPS_ONEHOT
+    tm1 = torch.where(t > 0, t - 1, T)     # q_pred's t-1 wrap (row T = id)
+
+    A, B = _row(sched.log_cumprod_at, t), _row(sched.log_cumprod_bt, t)
+    C = _row(sched.log_cumprod_ct, t)
+    a_, b_, c_ = (_row(sched.log_at, t), _row(sched.log_bt, t),
+                  _row(sched.log_ct, t))
+    A2, B2 = _row(sched.log_cumprod_at, tm1), _row(sched.log_cumprod_bt, tm1)
+    C2 = _row(sched.log_cumprod_ct, tm1)
+    C1m2 = _row(sched.log_1_min_cumprod_ct, tm1)
+
+    sv, snv = log_add_exp(A, B), log_add_exp(fl + A, B)
+    tv, tnv = log_add_exp(a_, b_), log_add_exp(fl + a_, b_)
+
+    mask_t = x_t == K - 1                                         # (B, L)
+    same = (x_t == x_start) & ~mask_t
+    has_xt = ~mask_t & ~same
+
+    q_x0 = -torch.where(mask_t, C, torch.where(same, sv, snv))
+    q_xt = fl - sv
+    q_o = fl - torch.where(mask_t, C, snv)
+    n_o = torch.where(has_xt, float(K - 3), float(K - 2))
+
+    # logsumexp over [q_x0, q_xt?, n_o x q_o, floor]
+    neg_inf = torch.full_like(q_x0, -math.inf)
+    qxt_eff = torch.where(has_xt, q_xt, neg_inf)
+    m = torch.maximum(torch.maximum(q_x0, qxt_eff),
+                      torch.clamp(q_o, min=fl))
+    lse = m + torch.log(
+        torch.exp(q_x0 - m)
+        + torch.where(has_xt, torch.exp(qxt_eff - m), 0.0)
+        + n_o * torch.exp(q_o - m)
+        + torch.exp(fl - m))
+
+    lq_x0 = torch.where(mask_t, c_, torch.where(same, tv, tnv))
+    lq_xt = tv
+    lq_o = torch.where(mask_t, c_, tnv)
+    lq_last = torch.where(mask_t, 0.0, fl)
+
+    def post_row(q_val, lq_val):
+        return torch.clamp(log_add_exp(q_val - lse + A2, B2) + lq_val + lse,
+                           LOG_CLAMP, 0.0)
+
+    v_x0 = post_row(q_x0, lq_x0)
+    v_xt = torch.where(has_xt, post_row(q_xt, lq_xt), 0.0)
+    v_o = post_row(q_o, lq_o)
+    v_mask = torch.clamp(log_add_exp(fl - lse + C1m2, C2) + lq_last + lse,
+                         LOG_CLAMP, 0.0)
+
+    kk = torch.arange(K, device=x_t.device)[None, :, None]
+    return torch.where(
+        kk == K - 1, v_mask[:, None, :],
+        torch.where(kk == x_start[:, None, :], v_x0[:, None, :],
+                    torch.where(kk == x_t[:, None, :], v_xt[:, None, :],
+                                v_o[:, None, :])))
+
+
+def _gumbel_argmax(logits: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max over axis 1 from the (B, K, L) uniforms ``noise``."""
+    return torch.argmax(gumbel(noise.to(logits.device)) + logits, dim=1)
+
+
+def log_sample_categorical(noise: torch.Tensor, logits: torch.Tensor,
+                           num_classes: int) -> torch.Tensor:
+    """Gumbel-max sample over axis 1 -> log-onehot; ``noise`` holds the
+    uniforms, shaped like ``logits``."""
+    return index_to_log_onehot(_gumbel_argmax(logits, noise), num_classes)
+
+
+def _q_sample_index(sched: D3PMSchedule, x_start: torch.Tensor,
+                    t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """x_t ~ q(x_t | x_0) for INDEX x_start, as (B, L) indices: the logits
+    of a one-hot take three values per (b, l) (the x_start row, the other
+    non-mask rows, the mask row)."""
+    K = sched.num_classes
+    fl = _LOG_EPS_ONEHOT
+    A, B = _row(sched.log_cumprod_at, t), _row(sched.log_cumprod_bt, t)
+    C = _row(sched.log_cumprod_ct, t)
+    C1m = _row(sched.log_1_min_cumprod_ct, t)
+    sv = log_add_exp(A, B)[:, None, :]          # k == x_start
+    snv = log_add_exp(fl + A, B)[:, None, :]    # other non-mask rows
+    mv = log_add_exp(fl + C1m, C)[:, None, :]   # mask row (x0 never mask)
+    kk = torch.arange(K, device=x_start.device)[None, :, None]
+    logits = torch.where(kk == K - 1, mv,
+                         torch.where(kk == x_start[:, None, :], sv, snv))
+    return _gumbel_argmax(logits, noise)
+
+
+def q_sample_from_indices(noise: torch.Tensor, sched: D3PMSchedule,
+                          x_start: torch.Tensor, t: torch.Tensor
+                          ) -> torch.Tensor:
+    """log-onehot x_t ~ q(x_t | x_0) for INDEX x_start; ``noise`` holds the
+    (B, K, L) uniforms of the Gumbel-max draw."""
+    return index_to_log_onehot(_q_sample_index(sched, x_start, t, noise),
+                               sched.num_classes)
+
+
+def predict_start_from_logits(logits: torch.Tensor, content_seq_len: int
+                              ) -> torch.Tensor:
+    """Denoiser logits (B, K-1, L) -> clamped log p(x0 | xt) with the -70
+    MASK row; f32 log_softmax."""
+    b = logits.shape[0]
+    log_pred = torch.log_softmax(logits.float(), dim=1)
+    zero_vector = torch.full((b, 1, content_seq_len), LOG_CLAMP,
+                             dtype=torch.float32, device=logits.device)
+    return torch.clamp(torch.cat([log_pred, zero_vector], dim=1),
+                       LOG_CLAMP, 0.0)
+
+
+def predict_start(sched: D3PMSchedule, denoise_fn: DenoiseFn,
+                  log_x_t: torch.Tensor, cond_emb: Optional[torch.Tensor],
+                  t: torch.Tensor) -> torch.Tensor:
+    logits = denoise_fn(log_onehot_to_index(log_x_t), cond_emb, t)
+    return predict_start_from_logits(logits, log_x_t.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LtState:
+    """Importance-sampling buffers: the EMA of each timestep's squared loss
+    and how often it was drawn, (T,) f32 each."""
+    history: torch.Tensor
+    count: torch.Tensor
+
+
+def importance_probs(history: torch.Tensor) -> torch.Tensor:
+    """p(t) proportional to sqrt(Lt history), with t = 0 given t = 1's."""
+    lt_sqrt = torch.sqrt(history + 1e-10) + 0.0001
+    lt_sqrt = torch.cat([lt_sqrt[1:2], lt_sqrt[1:]])
+    return lt_sqrt / lt_sqrt.sum()
+
+
+def sample_time(generator: torch.Generator, lt: LtState, b: int,
+                num_timesteps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Importance-weighted t with a uniform warm-up: uniform until every
+    timestep has been drawn more than 10 times. Both draws are made and one
+    is kept on the device, so the choice costs no host sync. Returns
+    (t (B,) int64, pt (B,) f32)."""
+    device = lt.history.device
+    pt_all = importance_probs(lt.history)
+    t_imp = torch.multinomial(pt_all.to(generator.device), b,
+                              replacement=True, generator=generator
+                              ).to(device)
+    t_uni = torch.randint(0, num_timesteps, (b,), generator=generator,
+                          device=generator.device).to(device)
+    use_importance = (lt.count > 10).all()
+    t = torch.where(use_importance, t_imp, t_uni)
+    pt = torch.where(use_importance, pt_all[t_imp],
+                     torch.full((b,), 1.0 / num_timesteps, device=device))
+    return t, pt
+
+
+def multinomial_kl(log_prob1: torch.Tensor, log_prob2: torch.Tensor
+                   ) -> torch.Tensor:
+    return torch.sum(torch.exp(log_prob1) * (log_prob1 - log_prob2), dim=1)
+
+
+def _set_last(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor
+              ) -> torch.Tensor:
+    """``buf.at[idx].set(vals)`` with the last write winning on duplicate
+    indices, resolved explicitly (a CUDA index_put leaves their order
+    open)."""
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full(buf.shape, -1, dtype=torch.long, device=idx.device)
+    last = last.scatter_reduce(0, idx, pos, reduce="amax")
+    return torch.where(last >= 0, vals[last.clamp(min=0)], buf)
+
+
+def train_loss(generator: Optional[torch.Generator], sched: D3PMSchedule,
+               denoise_fn: DenoiseFn, x_start: torch.Tensor,
+               cond_emb: Optional[torch.Tensor], lt: LtState, *,
+               auxiliary_loss_weight: float = 0.0,
+               adaptive_auxiliary_loss: bool = False,
+               mask_weight: tuple[float, float] = (1.0, 1.0),
+               is_train: bool = True, t: Optional[torch.Tensor] = None,
+               pt: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None):
+    """The reference's ``_train_loss`` (the JAX ``train_loss``).
+
+    ``x_start`` (B, L) holds data tokens only (every value < K - 1). The
+    draws ``t`` with ``pt`` and the (B, K, L) uniforms ``noise`` are taken
+    from ``generator`` unless given. Returns (per-sample vb loss (B,), aux
+    dict, new :class:`LtState`); the caller averages over B * L. The
+    (B, K, L) log-onehot of x_start is never made: noising, the true
+    posterior, the decoder NLL and the auxiliary KL work in token space."""
+    b, L = x_start.shape
+    K = sched.num_classes
+    if (t is None) != (pt is None):
+        raise ValueError("train_loss: give both t and pt, or neither")
+    if t is None:
+        t, pt = sample_time(generator, lt, b, sched.num_timesteps)
+    t = t.to(x_start.device).long()
+    pt = pt.to(x_start.device)
+    x_start = x_start.long()
+    if noise is None:
+        noise = torch.rand((b, K, L), generator=generator,
+                           device=generator.device)
+
+    xt = _q_sample_index(sched, x_start, t, noise)
+    log_x0_recon = predict_start_from_logits(denoise_fn(xt, cond_emb, t), L)
+    log_model_prob = _q_posterior_index(sched, log_x0_recon, xt, t)
+
+    x0_recon = log_onehot_to_index(log_x0_recon)
+    xt_1_recon = log_onehot_to_index(log_model_prob)
+
+    log_true_prob = true_q_posterior(sched, x_start, xt, t)
+    kl = multinomial_kl(log_true_prob, log_model_prob)             # (B, L)
+    mask_region = (xt == K - 1).to(torch.float32)
+    mw = mask_region * mask_weight[0] + (1.0 - mask_region) * mask_weight[1]
+    kl = torch.sum(kl * mw, dim=-1)                                 # (B,)
+
+    # exp(log-onehot) is the one-hot: the contraction is a gather
+    x_index = x_start[:, None, :]
+    decoder_nll = -log_model_prob.gather(1, x_index)[:, 0, :].sum(dim=-1)
+
+    is_t0 = (t == 0).to(torch.float32)
+    kl_loss = is_t0 * decoder_nll + (1.0 - is_t0) * kl
+
+    # Lt EMA buffers; duplicate t: the last write wins
+    lt2 = torch.square(kl_loss.detach())
+    new_hist = _set_last(lt.history, t, 0.1 * lt2 + 0.9 * lt.history[t])
+    new_count = lt.count.index_add(0, t, torch.ones_like(lt2))
+    new_lt = LtState(history=new_hist, count=new_count)
+
+    vb_loss = kl_loss / pt
+    if auxiliary_loss_weight != 0 and is_train:
+        kl_aux = -log_x0_recon.gather(1, x_index)[:, 0, :]
+        kl_aux = torch.sum(kl_aux * mw, dim=-1)
+        kl_aux_loss = is_t0 * decoder_nll + (1.0 - is_t0) * kl_aux
+        if adaptive_auxiliary_loss:
+            addition_loss_weight = (1.0 - t.to(torch.float32)
+                                    / sched.num_timesteps) + 1.0
+        else:
+            addition_loss_weight = 1.0
+        vb_loss = vb_loss + (addition_loss_weight * auxiliary_loss_weight
+                             * kl_aux_loss / pt)
+
+    aux = dict(t=t, x0_recon=x0_recon, xt=xt, xt_1_recon=xt_1_recon,
+               log_model_prob=log_model_prob)
+    return vb_loss, aux, new_lt
+
+
+@torch.no_grad()
+def update_diffusion_telemetry(acc: torch.Tensor, keep: torch.Tensor,
+                               t: torch.Tensor, x0_recon: torch.Tensor,
+                               x_start: torch.Tensor, xt: torch.Tensor,
+                               xt_1_recon: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-timestep EMA (decay 0.9) of the x0-argmax accuracy and of the
+    posterior-argmax keep rate, updated sample by sample in batch order
+    (duplicate t compound, as in the reference). Returns (acc, keep)."""
+    same_acc = (x0_recon == x_start).to(torch.float32).mean(dim=1)
+    same_keep = (xt_1_recon == xt).to(torch.float32).mean(dim=1)
+    a, k = acc.clone(), keep.clone()
+    for i in range(x_start.shape[0]):
+        ti = t[i:i + 1]
+        a.index_put_((ti,), same_acc[i:i + 1] * 0.1 + a[ti] * 0.9)
+        k.index_put_((ti,), same_keep[i:i + 1] * 0.1 + k[ti] * 0.9)
+    return a, k
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
 
 def _analytic_posterior(sched: D3PMSchedule, log_x_recon: torch.Tensor,
                         tokens: torch.Tensor, t: int) -> torch.Tensor:

@@ -1,10 +1,14 @@
 """Stage-2 model: D3PM over VQ tokens with switchable conditioning.
 
-Port of the sampling surface of ``gif_synthesis_with_discrete_diffusion_tpu/
-models/discrete_diffusion.py``: :class:`D3PM` owns the denoiser transformer
-and the schedule, :class:`DiscreteDiffusionModel` adds the conditioner, and
+Port of ``gif_synthesis_with_discrete_diffusion_tpu/models/
+discrete_diffusion.py``: :class:`D3PM` owns the denoiser transformer, the
+schedule, the importance-sampling and telemetry buffers (the flax
+``diffusion`` collection, here registered buffers) and the optional
+learnable classifier-free embedding; its ``forward`` is the training loss.
+:class:`DiscreteDiffusionModel` adds the conditioner, and
 :func:`make_discrete_diffusion` builds both from the same nested dict as the
-JAX package's YAML. Training (the loss, the Lt buffers) is not ported yet.
+JAX package's YAML. The denoiser has no dropout, activation checkpointing or
+bf16 compute yet: configurations that ask for them raise.
 """
 from __future__ import annotations
 
@@ -24,33 +28,113 @@ __all__ = ["D3PM", "DiscreteDiffusionModel", "make_discrete_diffusion",
 
 
 class D3PM(nn.Module):
-    """Discrete diffusion over a token grid (sampling)."""
+    """Discrete diffusion over a token grid."""
 
     def __init__(self, num_embed: int, content_seq_len: int = 1024,
                  spatial_size: Sequence[int] = (32, 32),
-                 diffusion_step: int = 100, guidance_scale: float = 2.0,
+                 diffusion_step: int = 100,
+                 auxiliary_loss_weight: float = 5.0e-4,
+                 adaptive_auxiliary_loss: bool = True,
+                 mask_weight: Sequence[float] = (1.0, 1.0),
+                 guidance_scale: float = 2.0, learnable_cf: bool = False,
                  n_layer: int = 19, n_embd: int = 64, n_head: int = 16,
-                 condition_dim: int = 512, mlp_hidden_times: int = 4,
-                 block_activate: str = "GELU2"):
+                 condition_seq_len: int = 77, condition_dim: int = 512,
+                 mlp_hidden_times: int = 4, block_activate: str = "GELU2"):
         super().__init__()
         self.num_embed = num_embed            # codebook size WITHOUT mask
         self.content_seq_len = content_seq_len
         self.diffusion_step = diffusion_step
+        self.auxiliary_loss_weight = auxiliary_loss_weight
+        self.adaptive_auxiliary_loss = adaptive_auxiliary_loss
+        self.mask_weight = tuple(mask_weight)
         self.guidance_scale = guidance_scale
+        self.learnable_cf = learnable_cf
+        self.condition_dim = condition_dim
         self.transformer = DenoiserTransformer(
             num_embed=num_embed, spatial_size=spatial_size, n_layer=n_layer,
             n_embd=n_embd, n_head=n_head, condition_dim=condition_dim,
             diffusion_step=diffusion_step, mlp_hidden_times=mlp_hidden_times,
             block_activate=block_activate)
+        # the flax ``diffusion`` collection: Lt importance-sampling buffers
+        # and the per-timestep acc / keep telemetry
+        for name in ("lt_history", "lt_count", "diffusion_acc",
+                     "diffusion_keep"):
+            self.register_buffer(name, torch.zeros(diffusion_step))
+        if learnable_cf:
+            self.empty_text_embed = nn.Parameter(
+                torch.empty(condition_seq_len, condition_dim))
+        self._schedule: Optional[d3pm.D3PMSchedule] = None
 
     @property
     def num_classes(self) -> int:
         return self.num_embed + 1
 
     def schedule(self) -> d3pm.D3PMSchedule:
-        return d3pm.make_schedule(self.diffusion_step, self.num_classes,
-                                  device=self.transformer.to_logits.weight
-                                  .device)
+        """The schedule's tensors on the module's device (made once per
+        device)."""
+        device = self.lt_history.device
+        if self._schedule is None or self._schedule.device != device:
+            self._schedule = d3pm.make_schedule(
+                self.diffusion_step, self.num_classes, device=device)
+        return self._schedule
+
+    def empty_cond_embed(self, batch_size: int, seq_len: int
+                         ) -> torch.Tensor:
+        """The learnable empty-text embedding, broadcast to (B, S, D).
+        Requires ``learnable_cf``."""
+        e = self.empty_text_embed[None, :seq_len, :]
+        return e.expand(batch_size, seq_len, self.condition_dim)
+
+    def apply_learnable_cf(self, cond_emb: Optional[torch.Tensor],
+                           empty_mask: Optional[torch.Tensor]
+                           ) -> Optional[torch.Tensor]:
+        """Replace the condition rows flagged empty with the learnable CF
+        embedding. No-op unless ``learnable_cf``."""
+        if not self.learnable_cf or cond_emb is None or empty_mask is None:
+            return cond_emb
+        b, s, _ = cond_emb.shape
+        m = torch.as_tensor(empty_mask, device=cond_emb.device).reshape(
+            -1, 1, 1).to(torch.bool)
+        return torch.where(m, self.empty_cond_embed(b, s), cond_emb)
+
+    def forward(self, content_token: torch.Tensor,
+                cond_emb: Optional[torch.Tensor], *,
+                generator: Optional[torch.Generator] = None,
+                train: bool = True,
+                empty_mask: Optional[torch.Tensor] = None,
+                t: Optional[torch.Tensor] = None,
+                pt: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> dict:
+        """Training loss over the (B, L) data tokens: the mean vb loss, the
+        x0 prediction, the model posterior's log-probs (B, K, L) and this
+        batch's telemetry scalars. With ``train`` the Lt and telemetry
+        buffers are updated in place. The draws (``t`` with ``pt``, the
+        (B, K, L) uniforms ``noise``) come from ``generator`` unless
+        given."""
+        cond_emb = self.apply_learnable_cf(cond_emb, empty_mask)
+        lt = d3pm.LtState(history=self.lt_history, count=self.lt_count)
+        vb_loss, aux, new_lt = d3pm.train_loss(
+            generator, self.schedule(), self.transformer, content_token,
+            cond_emb, lt, auxiliary_loss_weight=self.auxiliary_loss_weight,
+            adaptive_auxiliary_loss=self.adaptive_auxiliary_loss,
+            mask_weight=self.mask_weight, is_train=train, t=t, pt=pt,
+            noise=noise)
+        if train:
+            acc, keep = d3pm.update_diffusion_telemetry(
+                self.diffusion_acc, self.diffusion_keep, aux["t"],
+                aux["x0_recon"], content_token, aux["xt"], aux["xt_1_recon"])
+            with torch.no_grad():
+                self.lt_history.copy_(new_lt.history)
+                self.lt_count.copy_(new_lt.count)
+                self.diffusion_acc.copy_(acc)
+                self.diffusion_keep.copy_(keep)
+        b, L = content_token.shape
+        loss = torch.sum(vb_loss) / (b * L)
+        acc = torch.mean((aux["x0_recon"] == content_token).to(torch.float32))
+        keep = torch.mean((aux["xt_1_recon"] == aux["xt"]).to(torch.float32))
+        return {"loss": loss, "pred_data": aux["x0_recon"],
+                "log_model_prob": aux["log_model_prob"],
+                "diffusion_acc": acc, "diffusion_keep": keep}
 
     @torch.no_grad()
     def sample(self, cond_emb: Optional[torch.Tensor],
@@ -72,6 +156,10 @@ class D3PM(nn.Module):
                 "ported yet: ROADMAP queue 1, item 7")
         if mode != "auto":
             raise ValueError(f"unknown sampler mode {mode!r}")
+        if self.learnable_cf and cond_emb is not None:
+            # the trained empty-text embedding is the CF branch's input
+            cf_cond_emb = self.empty_cond_embed(cond_emb.shape[0],
+                                                cond_emb.shape[1])
         return sample_tokens(generator, self.schedule(), self.transformer,
                              cond_emb, cf_cond_emb, batch_size,
                              self.content_seq_len,
@@ -89,10 +177,26 @@ class DiscreteDiffusionModel(nn.Module):
         self.conditioner = build_conditioner(conditioner_cfg)
         self.diffusion = D3PM(**self.d3pm_cfg)
 
+    def forward(self, batch: Mapping[str, Any], content_token: torch.Tensor,
+                *, generator: Optional[torch.Generator] = None,
+                train: bool = True, **draws) -> dict:
+        """Conditioner -> :meth:`D3PM.forward` (the training loss); ``draws``
+        (``t``, ``pt``, ``noise``) pass through."""
+        cond_emb, _ = self.conditioner(batch, content_token.shape[0])
+        return self.diffusion(content_token, cond_emb, generator=generator,
+                              train=train,
+                              empty_mask=batch.get("empty_text_mask"),
+                              **draws)
+
     def conditioner_embeddings(self, batch: Mapping[str, Any],
                                batch_size: int):
-        """(cond, cf_cond): the entry point for external samplers."""
-        return self.conditioner(batch, batch_size)
+        """(cond, cf_cond) with the learnable-CF override applied: the entry
+        point for external samplers."""
+        cond_emb, cf_cond_emb = self.conditioner(batch, batch_size)
+        if self.diffusion.learnable_cf and cond_emb is not None:
+            cf_cond_emb = self.diffusion.empty_cond_embed(cond_emb.shape[0],
+                                                          cond_emb.shape[1])
+        return cond_emb, cf_cond_emb
 
     @torch.no_grad()
     def sample(self, batch: Mapping[str, Any], batch_size: int, *,
@@ -114,10 +218,16 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
     dcfg = dict(g.get("diffusion_model", {}))
     tcfg = dict(dcfg.pop("transformer", {}))
     dalle = dict(tcfg.pop("dalle", {}))
-    if dcfg.get("learnable_cf"):
+    for key, off in (("attn_pdrop", 0.0), ("resid_pdrop", 0.0),
+                     ("checkpoint", False)):
+        if tcfg.get(key, off) != off:
+            raise NotImplementedError(
+                f"transformer.{key}: the port's denoiser has no dropout or "
+                f"activation checkpointing yet")
+    if str(tcfg.get("dtype", "float32")) not in ("float32", "f32"):
         raise NotImplementedError(
-            "the learnable CF embedding comes with stage-2 training: "
-            "ROADMAP queue 1, item 10")
+            "bf16 denoiser compute is not ported yet (kernels K2 and K5 are "
+            "f32): ROADMAP queue 1, item 10")
     t, h, w = latent_shape
     seq_len = int(tcfg.get("content_seq_len") or np.prod(latent_shape))
     spatial = (tcfg.get("content_spatial_size")
@@ -127,10 +237,16 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
         content_seq_len=seq_len,
         spatial_size=tuple(spatial),
         diffusion_step=int(dcfg.get("diffusion_step", 100)),
+        auxiliary_loss_weight=float(dcfg.get("auxiliary_loss_weight", 5e-4)),
+        adaptive_auxiliary_loss=bool(
+            dcfg.get("adaptive_auxiliary_loss", True)),
+        mask_weight=tuple(dcfg.get("mask_weight", (1.0, 1.0))),
         guidance_scale=float(dcfg.get("guidance_scale", 2.0)),
+        learnable_cf=bool(dcfg.get("learnable_cf", False)),
         n_layer=int(tcfg.get("n_layer", 19)),
         n_embd=int(tcfg.get("n_embd", 64)),
         n_head=int(tcfg.get("n_head", 16)),
+        condition_seq_len=int(tcfg.get("condition_seq_len", 77)),
         condition_dim=int(tcfg.get("condition_dim", 512)),
         mlp_hidden_times=int(tcfg.get("mlp_hidden_times", 4)),
         block_activate=str(tcfg.get("block_activate", "GELU2")),
@@ -143,6 +259,13 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
 def init_discrete_diffusion_(model: DiscreteDiffusionModel,
                              generator: torch.Generator) -> None:
     """The JAX package's init laws (see :func:`.denoiser.init_denoiser_`,
-    :func:`.conditioning.init_conditioner_`)."""
+    :func:`.conditioning.init_conditioner_`), N(0, 1) for the learnable CF
+    embedding, and zero Lt and telemetry buffers."""
     init_conditioner_(model.conditioner, generator)
     init_denoiser_(model.diffusion.transformer, generator)
+    diffusion = model.diffusion
+    for buf in (diffusion.lt_history, diffusion.lt_count,
+                diffusion.diffusion_acc, diffusion.diffusion_keep):
+        buf.zero_()
+    if diffusion.learnable_cf:
+        diffusion.empty_text_embed.normal_(0.0, 1.0, generator=generator)

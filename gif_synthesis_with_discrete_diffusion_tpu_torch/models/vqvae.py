@@ -1,11 +1,17 @@
-"""VideoGPT-style 3D-conv VQ-VAE, decode side.
+"""VideoGPT-style 3D-conv VQ-VAE: encode and decode, with a frozen codebook.
 
-Port of the decode path of ``gif_synthesis_with_discrete_diffusion_tpu/
-models/vqvae.py``: codebook lookup -> ``post_vq_conv`` -> decoder (attention
-residual blocks with BatchNorm in eval mode, then transposed convs). Tensors
-stay channels-last (B, T, H, W, C) as in the JAX package; ``decode`` returns
-(B, T, H, W, 3). The encoder, the codebook's training path and its kernel
-are not ported yet.
+Port of ``gif_synthesis_with_discrete_diffusion_tpu/models/vqvae.py`` with
+BatchNorm in eval mode:
+
+* encode: encoder (strided convs, attention residual blocks) ->
+  ``pre_vq_conv`` -> codebook lookup (kernel K6,
+  :func:`..ops.codebook_kernel.nearest_code_stats`) -> token grid;
+* decode: codebook lookup -> ``post_vq_conv`` -> decoder (attention residual
+  blocks, then transposed convs).
+
+Tensors stay channels-last (B, T, H, W, C) as in the JAX package. The
+codebook's training path (data-dependent init, EMA update, restarts) belongs
+to stage-1 training and is not ported yet: ``train=True`` raises.
 """
 from __future__ import annotations
 
@@ -16,10 +22,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.codebook_kernel import nearest_code_stats
 from ..ops.conv3d import SamePadConv3d, SamePadConvTranspose3d
 
-__all__ = ["VQVAE", "Decoder", "Codebook", "AxialBlock",
+__all__ = ["VQVAE", "Encoder", "Decoder", "Codebook", "AxialBlock",
            "AttentionResidualBlock", "AxialSelfAttention", "init_vqvae_"]
+
+_STAGE1 = ("the codebook's training path (EMA update, init, restarts) comes "
+           "with stage-1 training: ROADMAP queue 1, item 11")
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default, as torch's
 
@@ -113,6 +123,34 @@ def _downsample_steps(downsample: Sequence[int]) -> list[tuple[int, int, int]]:
     return steps
 
 
+class Encoder(nn.Module):
+    """Strided convs -> ``conv_last`` -> attention residual blocks ->
+    BatchNorm -> ReLU; returns (B, t, h, w, n_hiddens)."""
+
+    def __init__(self, n_hiddens: int, n_res_layers: int,
+                 downsample: Sequence[int], in_channels: int = 3):
+        super().__init__()
+        self.n_res_layers = n_res_layers
+        steps = _downsample_steps(downsample)
+        self.n_down = len(steps)
+        for i, stride in enumerate(steps):
+            self.add_module(f"conv{i}", SamePadConv3d(
+                in_channels if i == 0 else n_hiddens, n_hiddens, 4, stride))
+        self.conv_last = SamePadConv3d(n_hiddens, n_hiddens, 3)
+        for i in range(n_res_layers):
+            self.add_module(f"res{i}", AttentionResidualBlock(n_hiddens))
+        self.bn_out = BatchNorm(n_hiddens)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.n_down):
+            h = F.relu(getattr(self, f"conv{i}")(h))
+        h = self.conv_last(h)
+        for i in range(self.n_res_layers):
+            h = getattr(self, f"res{i}")(h)
+        return F.relu(self.bn_out(h))
+
+
 class Decoder(nn.Module):
     def __init__(self, n_hiddens: int, n_res_layers: int,
                  upsample: Sequence[int], out_channels: int = 3):
@@ -141,12 +179,46 @@ class Decoder(nn.Module):
 
 
 class Codebook(nn.Module):
-    """The codebook's embedding table, for ``lookup``."""
+    """EMA vector-quantisation codebook; buffers named after the flax
+    ``codebook`` collection: ``embeddings`` (K, D), ``ema_count`` (K,),
+    ``ema_sum`` (K, D)."""
 
-    def __init__(self, n_codes: int, embedding_dim: int):
+    def __init__(self, n_codes: int, embedding_dim: int,
+                 commitment_cost: float = 0.25):
         super().__init__()
+        self.n_codes = n_codes
+        self.embedding_dim = embedding_dim
+        self.commitment_cost = commitment_cost
         self.register_buffer("embeddings",
                              torch.empty(n_codes, embedding_dim))
+        self.register_buffer("ema_count", torch.empty(n_codes))
+        self.register_buffer("ema_sum", torch.empty(n_codes, embedding_dim))
+
+    def forward(self, z: torch.Tensor, *, train: bool = False) -> dict:
+        """z: (B, t, h, w, D). Nearest-code lookup (kernel K6), the
+        straight-through output and the codebook metrics; the JAX package's
+        ``Codebook.__call__`` with ``train=False``."""
+        if train:
+            raise NotImplementedError(_STAGE1)
+        d = self.embedding_dim
+        if z.shape[-1] != d:
+            raise ValueError(f"codebook: last dim {z.shape[-1]} != {d}")
+        flat = z.reshape(-1, d).float().contiguous()
+        indices, n_total, _ = nearest_code_stats(flat, self.embeddings)
+        encodings = indices.reshape(z.shape[:-1])
+        quantized = F.embedding(indices, self.embeddings).reshape(
+            z.shape).to(z.dtype)
+        commitment_loss = self.commitment_cost * torch.mean(
+            torch.square(z - quantized.detach()))
+        embeddings_st = z + (quantized - z).detach()   # straight-through
+        avg_probs = n_total / torch.clamp(n_total.sum(), min=1.0)
+        entropy = -torch.sum(avg_probs * torch.log(avg_probs + 1e-10))
+        codebook_loss = torch.mean(torch.square(
+            z.detach().float() - quantized.float()))
+        return dict(embeddings=embeddings_st, encodings=encodings,
+                    commitment_loss=commitment_loss,
+                    perplexity=torch.exp(entropy), entropy=entropy,
+                    codebook_loss=codebook_loss)
 
     def lookup(self, encodings: torch.Tensor) -> torch.Tensor:
         """Token ids -> embedding vectors."""
@@ -154,7 +226,7 @@ class Codebook(nn.Module):
 
 
 class VQVAE(nn.Module):
-    """Decode side of the two-sided VQ-VAE: token grid -> video."""
+    """Two-sided VQ-VAE: video -> token grid -> video."""
 
     def __init__(self, embedding_dim: int = 128, n_codes: int = 4096,
                  n_hiddens: int = 256, n_res_layers: int = 3,
@@ -164,6 +236,9 @@ class VQVAE(nn.Module):
         self.downsample = tuple(downsample)
         self.sequence_length = sequence_length
         self.resolution = resolution
+        self.n_codes = n_codes
+        self.encoder = Encoder(n_hiddens, n_res_layers, downsample)
+        self.pre_vq_conv = SamePadConv3d(n_hiddens, embedding_dim, 1)
         self.decoder = Decoder(n_hiddens, n_res_layers, downsample, 3)
         self.post_vq_conv = SamePadConv3d(embedding_dim, n_hiddens, 1)
         self.codebook = Codebook(n_codes, embedding_dim)
@@ -172,6 +247,17 @@ class VQVAE(nn.Module):
     def latent_shape(self) -> tuple[int, int, int]:
         shape = (self.sequence_length, self.resolution, self.resolution)
         return tuple(s // d for s, d in zip(shape, self.downsample))
+
+    def encode(self, x: torch.Tensor, *, include_embeddings: bool = False,
+               train: bool = False):
+        """video (B, T, H, W, 3) f32 -> encodings (B, t, h, w) int32, and
+        with ``include_embeddings`` the straight-through embeddings too."""
+        if train:
+            raise NotImplementedError(_STAGE1)
+        vq = self.codebook(self.pre_vq_conv(self.encoder(x)))
+        if include_embeddings:
+            return vq["encodings"], vq["embeddings"]
+        return vq["encodings"]
 
     @torch.no_grad()
     def decode(self, encodings: torch.Tensor) -> torch.Tensor:
@@ -184,7 +270,8 @@ class VQVAE(nn.Module):
 def init_vqvae_(model: VQVAE, generator: torch.Generator) -> None:
     """The JAX package's init laws: fan-in uniform convs with zero biases,
     N(0, 1/sqrt(c)) axial projections with a zero output bias, unit
-    BatchNorm (mean 0, var 1), an N(0, 1) codebook."""
+    BatchNorm (mean 0, var 1), an N(0, 1) codebook with zero EMA counts and
+    its EMA sums equal to the embeddings."""
     for m in model.modules():
         if isinstance(m, (SamePadConv3d, SamePadConvTranspose3d)):
             lim = math.sqrt(3.0 / m.fan_in())
@@ -203,3 +290,5 @@ def init_vqvae_(model: VQVAE, generator: torch.Generator) -> None:
             m.running_var.fill_(1.0)
         elif isinstance(m, Codebook):
             m.embeddings.normal_(0.0, 1.0, generator=generator)
+            m.ema_count.zero_()
+            m.ema_sum.copy_(m.embeddings)

@@ -1,0 +1,155 @@
+"""Stage 2: discrete-diffusion training over frozen VQ-VAE tokens.
+
+Port of the step functions of ``gif_synthesis_with_discrete_diffusion_tpu/
+train/stage2.py`` (``_encode_tokens``, ``_train_step``, ``_eval_step``): a
+trainable generator (conditioner + D3PM denoiser) under
+``Adam(gen_lr, betas=(0.5, 0.999))``, and a frozen VQ-VAE that turns each
+uint8 clip into its token grid under ``torch.no_grad()``. On CUDA tensors
+one step runs kernel K6 once (the codebook lookup), and K2 forward and K5
+backward once per attention call (38 each for 19 layers).
+
+    state = build_stage2(TRAIN_STEP2, "cuda", torch.Generator().manual_seed(0))
+    values = train_step(state, batch, torch.Generator("cuda").manual_seed(1))
+
+The trainer loop, checkpoints and logging are not ported yet (ROADMAP queue
+1, item 15).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional
+
+import torch
+
+from ..data.preprocess import preprocess_clip
+from ..generate import HONEST, build_models
+from ..models.discrete_diffusion import DiscreteDiffusionModel
+from ..models.vqvae import VQVAE
+from .metrics import weighted_losses
+
+__all__ = ["TRAIN_STEP2", "TRAIN_STEP2_BATCH", "Stage2State", "build_stage2",
+           "encode_tokens", "train_step", "eval_step", "synthetic_batch"]
+
+# bench.py's train_step2 configuration (label conditioning), with f32
+# denoiser compute in place of the bench's bf16: 16-frame 64 px clips -> a
+# (16, 8, 8) grid of 1024 tokens over 4096 codes (K = 4097), a 19-layer
+# n_embd-64 denoiser with 16 heads of dim 4 over 100 steps, auxiliary loss
+# 5e-4 (adaptive), Adam at 1e-4. As in the bench, no content_spatial_size:
+# the positional grid is the latent's (t * h, w) = (128, 8).
+TRAIN_STEP2: dict[str, Any] = {
+    "vqvae": dict(HONEST["vqvae"]),
+    "generator": {
+        "diffusion_model": {
+            "diffusion_step": 100,
+            "transformer": {"n_layer": 19, "n_embd": 64, "n_head": 16,
+                            "condition_dim": 512},
+        },
+        "textencoder": {"mode": "label", "n_classes": 101, "dim": 512},
+    },
+    "generator_losses": {"loss_dict": {"l_dummy": 1.0}},
+    "lr_args": {"gen_lr": 1e-4},
+}
+TRAIN_STEP2_BATCH = 16
+
+
+@dataclass
+class Stage2State:
+    generator: DiscreteDiffusionModel   # trained
+    vqvae: VQVAE                        # frozen: eval mode, no gradients
+    optimizer: torch.optim.Optimizer
+    resolution: int
+    loss_dict: dict[str, float] = field(
+        default_factory=lambda: {"l_dummy": 1.0})
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.vqvae.codebook.embeddings.device
+
+
+def build_stage2(config: Mapping[str, Any], device: torch.device | str,
+                 generator: torch.Generator) -> Stage2State:
+    """Build the generator and the frozen VQ-VAE from ``config`` (shaped like
+    :data:`TRAIN_STEP2`) with :func:`..generate.build_models` (seeded init
+    laws on the CPU, then moved to ``device``), and Adam over the
+    generator's parameters, as optax's ``adam(lr, b1=0.5, b2=0.999)``."""
+    models = build_models(config, device, generator)
+    vqvae = models.vqvae.eval().requires_grad_(False)
+    lr = float((config.get("lr_args") or {}).get("gen_lr", 1e-4))
+    optimizer = torch.optim.Adam(models.generator.parameters(), lr=lr,
+                                 betas=(0.5, 0.999), eps=1e-8)
+    loss_dict = dict((config.get("generator_losses") or {}).get(
+        "loss_dict", {"l_dummy": 1.0}))
+    return Stage2State(generator=models.generator, vqvae=vqvae,
+                       optimizer=optimizer,
+                       resolution=int(config["vqvae"]["resolution"]),
+                       loss_dict=loss_dict)
+
+
+def _on_device(batch: Mapping[str, Any], device: torch.device) -> dict:
+    """Tensors of the batch on ``device``; host-only entries (text) stay."""
+    return {k: (v if k == "text" else torch.as_tensor(v).to(device))
+            for k, v in batch.items()}
+
+
+@torch.no_grad()
+def encode_tokens(state: Stage2State, video_u8: torch.Tensor
+                  ) -> torch.Tensor:
+    """uint8 clips (B, T, H, W, 3) -> flat token grids (B, L) int64."""
+    tokens = state.vqvae.encode(preprocess_clip(video_u8, state.resolution))
+    return tokens.reshape(tokens.shape[0], -1).long()
+
+
+def _values(state: Stage2State, out: dict) -> tuple[torch.Tensor, dict]:
+    total, values = weighted_losses(state.loss_dict, {"losses": out["loss"]})
+    values["diffusion_acc"] = out["diffusion_acc"]
+    values["diffusion_keep"] = out["diffusion_keep"]
+    return total, values
+
+
+def train_step(state: Stage2State, batch: Mapping[str, Any],
+               generator: Optional[torch.Generator] = None, **draws
+               ) -> dict[str, torch.Tensor]:
+    """One optimisation step on a batch (``video`` uint8 and the
+    conditioner's keys). Returns the loss values and this batch's telemetry
+    as device tensors (no host sync); the gradients stay on the parameters
+    until the next step. ``draws`` (``t``, ``pt``, ``noise``) replace the
+    loss's random draws, else ``generator`` (on the model's device) gives
+    them."""
+    batch = _on_device(batch, state.device)
+    flat = encode_tokens(state, batch["video"])
+    state.optimizer.zero_grad(set_to_none=True)
+    out = state.generator(batch, flat, generator=generator, train=True,
+                          **draws)
+    total, values = _values(state, out)
+    total.backward()
+    state.optimizer.step()
+    state.step += 1
+    return {k: v.detach() for k, v in values.items()}
+
+
+@torch.no_grad()
+def eval_step(state: Stage2State, batch: Mapping[str, Any],
+              generator: Optional[torch.Generator] = None, **draws
+              ) -> dict[str, torch.Tensor]:
+    """The loss values on a batch without training: no update of the
+    weights or of the Lt and telemetry buffers."""
+    batch = _on_device(batch, state.device)
+    flat = encode_tokens(state, batch["video"])
+    out = state.generator(batch, flat, generator=generator, train=False,
+                          **draws)
+    return _values(state, out)[1]
+
+
+def synthetic_batch(config: Mapping[str, Any], batch_size: int,
+                    generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """A seeded batch of uniform-noise uint8 clips at the configuration's
+    size, with labels, for smoke runs and timing."""
+    vq = config["vqvae"]
+    t, r = int(vq["sequence_length"]), int(vq["resolution"])
+    video = torch.randint(0, 256, (batch_size, t, r, r, 3),
+                          generator=generator, dtype=torch.uint8)
+    n_classes = int((config["generator"].get("textencoder") or {}).get(
+        "n_classes", 2))
+    label = torch.randint(0, n_classes, (batch_size,), generator=generator)
+    return {"video": video, "label": label}

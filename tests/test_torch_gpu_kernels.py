@@ -12,7 +12,10 @@ import torch
 from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
     make_schedule)
 from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
-    fused_mha, sdpa_reference)
+    fused_mha, fused_mha_bwd, fused_mha_bwd_reference, sdpa_reference)
+from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+    import code_stats_reference, nearest_code_stats, \
+    nearest_code_stats_reference
 from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
     import (fused_sample_step, fused_sample_step_reference, schedule_rows)
 
@@ -22,6 +25,12 @@ pytestmark = pytest.mark.gpu
 K1_TOL = 1e-4
 # the rtol = atol of tests/test_attention_kernel.py
 K2_TOL = 2e-4
+# the gradients' rtol = atol of tests/test_attention_kernel.py
+K5_TOL = 5e-4
+# K6: indices where the plain top-two distance margin exceeds this (f32
+# sums in another order), statistics against the kernel's own indices
+K6_MARGIN = 1e-3
+K6_TOL = 1e-4
 
 
 @pytest.fixture
@@ -114,3 +123,79 @@ def test_small_slice_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=2e-4,
                                atol=2e-4)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,C,H", [
+    (2, 16, 16, 64, 16), (2, 300, 300, 64, 16), (3, 257, 77, 64, 16),
+    (1, 24, 77, 64, 8), (8, 1024, 1024, 64, 16), (8, 1024, 1, 64, 16),
+    (8, 1024, 77, 64, 16), (2, 2304, 2304, 64, 16)])
+def test_attention_backward_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
+    g = torch.Generator(device=cuda).manual_seed(Lq + 7 * Lk)
+    q, k, v = (torch.randn((B, n, C), generator=g, device=cuda)
+               .requires_grad_() for n in (Lq, Lk, Lk))
+    do = torch.randn((B, Lq, C), generator=g, device=cuda)
+    before = (fused_mha.launches, fused_mha_bwd.launches)
+    (fused_mha(q, k, v, n_head=H) * do).sum().backward()
+    assert (fused_mha.launches, fused_mha_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fused_mha_bwd_reference(q.detach(), k.detach(), v.detach(), do, H)
+    torch.cuda.synchronize()
+    for name, got, wnt in zip("qkv", (q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got, wnt, rtol=K5_TOL, atol=K5_TOL,
+                                   msg=f"d{name}")
+
+
+@pytest.mark.parametrize("n,k,d", [
+    (96, 16, 16), (1000, 300, 128), (64, 257, 130), (16384, 4096, 128)])
+def test_codebook_kernel_matches_plain(cuda, n, k, d):
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    emb = torch.randn((k, d), generator=g, device=cuda)
+    before = nearest_code_stats.launches
+    idx, n_total, encode_sum = nearest_code_stats(x, emb)
+    assert nearest_code_stats.launches == before + 1
+    ref_idx = nearest_code_stats_reference(x, emb)[0]
+    dist = -2.0 * (x @ emb.t()) + (emb * emb).sum(dim=-1)[None, :]
+    top2 = (-dist).topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > K6_MARGIN
+    torch.cuda.synchronize()
+    assert not ((idx != ref_idx) & decided).any()
+    want_n, want_sum = code_stats_reference(x, idx, k)
+    torch.testing.assert_close(n_total, want_n, rtol=0, atol=0)
+    torch.testing.assert_close(encode_sum, want_sum, rtol=K6_TOL, atol=K6_TOL)
+
+
+def test_small_training_step_on_the_card_matches_the_cpu(cuda):
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage2
+    config = {
+        "vqvae": {"embedding_dim": 16, "n_codes": 16, "n_hiddens": 32,
+                  "n_res_layers": 1, "downsample": (1, 2, 2),
+                  "sequence_length": 2, "resolution": 8},
+        "generator": {
+            "diffusion_model": {"diffusion_step": 8,
+                                "transformer": {"n_layer": 2, "n_embd": 64,
+                                                "n_head": 16,
+                                                "condition_dim": 32}},
+            "textencoder": {"mode": "label", "n_classes": 5, "dim": 32}},
+    }
+    batch = stage2.synthetic_batch(config, 3, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    draws = dict(t=torch.tensor([0, 5, 5]), pt=torch.full((3,), 0.125),
+                 noise=torch.rand((3, 17, 32), generator=g))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = stage2.build_stage2(config, dev,
+                                    torch.Generator().manual_seed(0))
+        loss = stage2.train_step(state, batch, **draws)["total"]
+        grads = {n: p.grad.cpu() for n, p in
+                 state.generator.named_parameters() if p.grad is not None}
+        out[dev.type] = (float(loss), grads)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    # a key bias's gradient is zero analytically: scales are floored at
+    # 1e-4 of the largest gradient
+    floor = 1e-4 * max(float(w.abs().max()) for w in out["cpu"][1].values())
+    for name, want in out["cpu"][1].items():
+        scale = max(float(want.abs().max()), floor)
+        torch.testing.assert_close(out["cuda"][1][name], want, rtol=0,
+                                   atol=1e-3 * scale, msg=name)

@@ -115,7 +115,12 @@ def test_slice_matches_jax_pieces_in_argmax_mode():
                                       jnp.asarray(labels))
 
     models = build_models(CONFIG, "cpu", torch.Generator().manual_seed(0))
-    models.generator.load_state_dict(flax_to_state_dict(gparams))
+    # the generator's diffusion collection (Lt and telemetry buffers) as a
+    # fresh flax init has it: zeros
+    diffusion = {"diffusion": {name: np.zeros(T, np.float32) for name in (
+        "lt_history", "lt_count", "diffusion_acc", "diffusion_keep")}}
+    models.generator.load_state_dict(flax_to_state_dict(gparams,
+                                                        buffers=diffusion))
     models.vqvae.load_state_dict(vqvae_state_dict(
         avars["params"], avars["batch_stats"], avars["codebook"]))
     batch = {"label": torch.from_numpy(labels)}

@@ -100,3 +100,72 @@ def test_vqvae_decode_matches_flax():
     assert tuple(got.shape) == (2, 4, 8, 8, 3) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
+
+
+ENCODE_KW = dict(embedding_dim=16, n_codes=32, n_hiddens=32, n_res_layers=1,
+                 downsample=(1, 2, 2), sequence_length=4, resolution=8)
+
+
+def _encode_pair(seed):
+    """A flax VQVAE with redrawn variables, the port's VQVAE with the same
+    state, and a normalised-looking input clip."""
+    rng = np.random.default_rng(seed)
+    flax_model, variables = _flax_vqvae(rng, **ENCODE_KW)
+    model = VQVAE(**ENCODE_KW).eval()
+    model.load_state_dict(vqvae_state_dict(
+        variables["params"], variables["batch_stats"],
+        variables["codebook"]))
+    x = rng.standard_normal((2, 4, 8, 8, 3)).astype(np.float32)
+    return flax_model, variables, model, x
+
+
+def test_encoder_features_and_tokens_match_flax():
+    flax_model, variables, model, x = _encode_pair(3)
+    want_h = jax.jit(lambda v, x: flax_model.apply(
+        v, x, method=lambda m, x: m.pre_vq_conv(m.encoder(
+            x, train=False))))(variables, jnp.asarray(x))
+    want_tok = jax.jit(lambda v, x: flax_model.apply(
+        v, x, method=JaxVQVAE.encode))(variables, jnp.asarray(x))
+    with torch.no_grad():
+        h = model.pre_vq_conv(model.encoder(torch.from_numpy(x)))
+        tok = model.encode(torch.from_numpy(x))
+    assert tuple(h.shape) == want_h.shape == (2, 4, 4, 4, 16)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), rtol=TOL,
+                               atol=TOL)
+    assert tok.dtype == torch.int32
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(want_tok))
+
+
+def test_codebook_outputs_match_flax_eval_call():
+    flax_model, variables, model, x = _encode_pair(4)
+    want = jax.jit(lambda v, x: flax_model.apply(
+        v, {"video": x}, train=False))(variables, jnp.asarray(x))
+    with torch.no_grad():
+        z = model.pre_vq_conv(model.encoder(torch.from_numpy(x)))
+        vq = model.codebook(z)
+        codes, st = model.encode(torch.from_numpy(x),
+                                 include_embeddings=True)
+    np.testing.assert_array_equal(vq["encodings"].numpy(),
+                                  np.asarray(want["encodings"]))
+    torch.testing.assert_close(codes, vq["encodings"], rtol=0, atol=0)
+    # the straight-through output's value is the quantised vector
+    torch.testing.assert_close(st, model.codebook.lookup(codes.long()),
+                               rtol=1e-6, atol=1e-6)
+    for name, got, wnt in (
+            ("commitment", vq["commitment_loss"],
+             want["losses"]["commitment_loss"]),
+            ("perplexity", vq["perplexity"], want["metrics"]["perplexity"]),
+            ("entropy", vq["entropy"], want["entropy"]),
+            ("codebook", vq["codebook_loss"], want["codebook_loss"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(wnt), rtol=TOL,
+                                   atol=TOL, err_msg=name)
+
+
+def test_codebook_state_and_training_path():
+    _, variables, model, x = _encode_pair(5)
+    cb = variables["codebook"]["codebook"]
+    for name in ("embeddings", "ema_count", "ema_sum"):
+        np.testing.assert_array_equal(
+            getattr(model.codebook, name).numpy(), np.asarray(cb[name]))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model.encode(torch.from_numpy(x), train=True)
