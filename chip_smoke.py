@@ -8,27 +8,41 @@
 
 Phases:
   1. the card (nvidia-smi name and power limit), the torch / CUDA / Triton
-     versions, TF32 off, and the builds of the three CUDA sources under
+     versions, TF32 off, and the builds of the four CUDA sources under
      ``csrc/`` (one nvcc each, started together);
   2. the Triton sampler-step kernel (K1) against its plain version, then
      both timed at the main path's shape;
   3. the CUDA attention kernel (K2) against its plain version, then both
      timed at the main path's shapes;
-  4. the serving slice at ``HONEST``: a small argmax run held against the
-     same run on the CPU, a B=4 warm-up, then the bench's B=32 batch (label
-     conditioning, 100 steps, CFG 2, sampled) and its decode, with the
-     launch counts of K1 and K2;
+  4. the serving slice at ``HONEST`` on the ``model`` route: a small argmax
+     run held against the same run on the CPU, a B=4 warm-up, then the
+     bench's B=32 batch (label conditioning, 100 steps, CFG 2, sampled) and
+     its decode, with the launch counts of K1 and K2;
   5. the CUDA attention backward (K5) against its plain version through
      the autograd Function, then both timed at the training step's shapes;
   6. the CUDA codebook lookup (K6) against its plain version, then both
      timed at the frozen encode's shape;
   7. the training slice at ``TRAIN_STEP2``: a small step held against the
      same step on the CPU, then B=16 steps (2 warm-up, 5 timed) on a fixed
-     synthetic batch, with the launch counts of K2, K5 and K6 per step.
-Then one JSON line of the kernels (``launches``: K1 from the serving run,
-K2 from the serving and the timed training runs, K5 and K6 from the timed
-training run), and the last line ``{"ok": true, "device": {...}}``. Any
-failure raises: there is no CPU run.
+     synthetic batch, with the launch counts of K2, K5 and K6 per step;
+  8. the CFG-packed whole-step kernel (K3) against its plain version: one
+     argmax step at the serving width (f32 and bf16 weights at B=2, and at
+     the main path's own B=32, where every block of the persistent grid
+     takes several work items) and at small general-cross shapes, the
+     sampled classes against the plain posterior, then both timed at the
+     honest B=32, and where a step's time goes;
+  9. the branch-grid whole-step kernel (K4) against its plain version
+     (guidance 1 at L=1024, CFG at L=2304, at B=2 and at the main path's
+     B=8, L=2304), against K3 at B=32, and timed at B=8, L=2304;
+ 10. the serving slice on the ``megakernel`` route: a small argmax run
+     against the CPU, ``HONEST`` at B=32 (a B=4 warm-up first) through K3,
+     and ``MSRVTT_GRID`` (2304 tokens) at B=8 through K4, 100 steps each.
+Then one JSON line of the kernels (``launches``: K1 from the ``model``
+serving run, K2 from that and the timed training runs, K5 and K6 from the
+timed training run, K3 and K4 from the ``megakernel`` serving runs;
+``launches_by_path`` splits the count by the run it came from), and the
+last line ``{"ok": true, "device": {...}}``. Any failure raises: there is
+no CPU run.
 """
 from __future__ import annotations
 
@@ -65,6 +79,31 @@ K6_TOL = 1e-4
 # gradient (a key bias's gradient is zero analytically)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+# K3 / K4: the final hidden state against the plain version's, relative to
+# its max-abs (f32 sums in another order; a value that lands on the other
+# side of a bf16 rounding boundary moves by one bf16 ulp), and the argmax
+# tokens wherever the plain log-posterior's top-two margin exceeds MK_MARGIN
+MK_HIDDEN_TOL = 2e-3
+MK_MARGIN = 1e-2
+# sampled classes against the plain posterior at K = 17: total variation of
+# 25600 draws (sampling noise ~0.01)
+MK_TV_TOL = 0.03
+
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense): device memory
+# bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+
+
+def _bound(nbytes: float, flops_f32: float, flops_bf16: float = 0.0
+           ) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    (each input read once, each output written once) over the memory rate
+    and the operations over the peak rate of their operands' type."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -104,10 +143,11 @@ def phase_environment(torch) -> str:
     print("phase 1: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
-        attention, codebook_kernel)
+        attention, codebook_kernel, megakernel)
     builds = {"fused_mha_fwd.cu": attention._library,
               "fused_mha_bwd.cu": attention._bwd_library,
-              "nearest_code_stats.cu": codebook_kernel._library}
+              "nearest_code_stats.cu": codebook_kernel._library,
+              "megakernel_step.cu": megakernel._library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = dict(zip(builds, pool.map(lambda f: f(), builds.values())))
@@ -117,11 +157,16 @@ def phase_environment(torch) -> str:
         print(f"phase 1: csrc/{name}: nvcc {lib.build_seconds:.2f} s; "
               + " | ".join(x.strip() for x in lib.build_log.splitlines()
                            if "registers" in x or "spill" in x))
+    lib = libs["megakernel_step.cu"]
+    print(f"phase 1: the whole-step kernels' persistent grid: "
+          f"{lib.megakernel_grid_blocks(1)} blocks (K3), "
+          f"{lib.megakernel_grid_blocks(0)} (K4)")
     return smi
 
 
-def phase_k1(torch, smi: str) -> tuple[float, float, float]:
-    """K1 against its plain version; returns (max-abs err, ms, plain ms)."""
+def phase_k1(torch, smi: str) -> dict:
+    """K1 against its plain version; returns its numbers for the kernels'
+    line."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
         make_schedule)
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
@@ -176,14 +221,22 @@ def phase_k1(torch, smi: str) -> tuple[float, float, float]:
         lambda: fused_sample_step_reference(logits2, tokens, rows[50], 3,
                                             **kw),
         lambda: fused_sample_step(logits2, tokens, rows[50], 3, **kw), 10)
+    # bound: the logits read once, the tokens read and written once; no
+    # matrix product (~60 f32 operations a logit for the four reductions)
+    nbytes = logits2.numel() * 4 + 2 * tokens.numel() * 8
+    bound_ms, bound_by = _bound(nbytes, 60.0 * logits2.numel())
     print(f"phase 2: K1 (2B=64, K=4097, L=1024) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({smi})")
-    return worst, ms, plain_ms
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s); no single "
+          f"library call ({smi})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def phase_k2(torch, smi: str) -> tuple[float, float, float]:
-    """K2 against its plain version; returns (max-abs err, ms, plain ms) with
-    the times of the self-attention at the main path's shape."""
+def phase_k2(torch, smi: str) -> dict:
+    """K2 against its plain version; returns its numbers for the kernels'
+    line, the times those of the self-attention at the main path's shape."""
+    import torch.nn.functional as F
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
         fused_mha, sdpa_reference)
 
@@ -212,10 +265,25 @@ def phase_k2(torch, smi: str) -> tuple[float, float, float]:
                 for _ in range(2))
         times[name] = _ab_ms(lambda: sdpa_reference(q, k, v, 16),
                              lambda: fused_mha(q, k, v, n_head=16), 10)
+        # the one library call that computes the same function
+        qh, kh, vh = (x.reshape(64, -1, 16, 4).transpose(1, 2).contiguous()
+                      for x in (q, k, v))
+        lib_ms = _time_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
+        # bound: 4 B H Lq Lk d f32 operations (QK^T and PV) against q, k, v
+        # read and o written once
+        flops = 4.0 * 64 * 16 * 1024 * lk * 4
+        nbytes = 4.0 * (2 * q.numel() + 2 * k.numel())
+        times[name] += (lib_ms, *_bound(nbytes, flops))
         print(f"phase 3: K2 {name} (B=64, Lq=1024, Lk={lk}) kernel "
-              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
-              f"({smi})")
-    return (worst, *times["self"])
+              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{times[name][3]:.4f} ms by {times[name][4]} "
+              f"({flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32, "
+              f"{nbytes / 1e6:.1f} MB) ({smi})")
+    ms, plain_ms, lib_ms, bound_ms, bound_by = times["self"]
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
 def phase_slice(torch, smi: str) -> dict:
@@ -244,7 +312,7 @@ def phase_slice(torch, smi: str) -> dict:
         models = build_models(small, dev, torch.Generator().manual_seed(11))
         batch = {"label": torch.tensor([0, 3, 4])}
         tok = sample_token_grid(models, batch, torch.Generator().manual_seed(
-            12), sample=False)
+            12), sample=False, sampler="model")
         out[dev] = (tok.cpu(), models.vqvae.decode(tok).cpu())
     same = torch.equal(out["cuda"][0], out["cpu"][0])
     verr = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
@@ -268,7 +336,7 @@ def phase_slice(torch, smi: str) -> dict:
         if b == 4:   # warm-up: Triton's compile and cuDNN's choices
             fused_sample_step.launches = fused_mha.launches = 0
             t0 = time.perf_counter()
-            video = sample_videos(models, batch, g)
+            video = sample_videos(models, batch, g, sampler="model")
             torch.cuda.synchronize()
             print(f"phase 4: warm-up B=4 in {time.perf_counter() - t0:.2f} s")
             launches = (fused_sample_step.launches, fused_mha.launches)
@@ -276,7 +344,7 @@ def phase_slice(torch, smi: str) -> dict:
             fused_sample_step.launches = fused_mha.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            tokens = sample_token_grid(models, batch, g)
+            tokens = sample_token_grid(models, batch, g, sampler="model")
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             video = models.vqvae.decode(tokens)
@@ -285,7 +353,7 @@ def phase_slice(torch, smi: str) -> dict:
             launches = (fused_sample_step.launches, fused_mha.launches)
             if not bool((tokens != mask_id).all()):
                 raise AssertionError("MASK tokens left in the final grid")
-            print(f"phase 4: B=32 slice {t2 - t0:.3f} s = "
+            print(f"phase 4: B=32 slice (model route) {t2 - t0:.3f} s = "
                   f"{b / (t2 - t0):.3f} clips/s (sampling {t1 - t0:.3f} s, "
                   f"{(t1 - t0) / steps * 1e3:.2f} ms/step; decode "
                   f"{t2 - t1:.3f} s) on {smi}")
@@ -302,9 +370,11 @@ def phase_slice(torch, smi: str) -> dict:
     return {"K1": launches[0], "K2": launches[1]}
 
 
-def phase_k5(torch, smi: str) -> tuple[float, float, float]:
-    """K5 against its plain version; returns (max-abs err, ms, plain ms) with
-    the times of the self-attention backward at the training step's shape."""
+def phase_k5(torch, smi: str) -> dict:
+    """K5 against its plain version; returns its numbers for the kernels'
+    line, the times those of the self-attention backward at the training
+    step's shape."""
+    import torch.nn.functional as F
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
         _fwd_kernel, fused_mha, fused_mha_bwd, fused_mha_bwd_reference)
 
@@ -341,15 +411,33 @@ def phase_k5(torch, smi: str) -> tuple[float, float, float]:
         times[name] = _ab_ms(
             lambda: fused_mha_bwd_reference(q, k, v, do, 16),
             lambda: fused_mha_bwd(q, k, v, o, lse, do, n_head=16), 10)
+        # the one library call: the autograd backward of PyTorch's fused
+        # attention (its forward runs outside the timed region)
+        qh, kh, vh = (x.reshape(16, -1, 16, 4).transpose(1, 2).contiguous()
+                      .requires_grad_() for x in (q, k, v))
+        doh = do.reshape(16, -1, 16, 4).transpose(1, 2).contiguous()
+        oh = F.scaled_dot_product_attention(qh, kh, vh)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), 10)
+        # bound: five products of 2 B H Lq Lk d f32 operations (S, dV, dP,
+        # dQ, dK) against q, k, v, o, do read and dq, dk, dv written once
+        flops = 10.0 * 16 * 16 * 1024 * lk * 4
+        nbytes = 4.0 * (4 * q.numel() + 4 * k.numel())
+        times[name] += (lib_ms, *_bound(nbytes, flops))
         print(f"phase 5: K5 {name} (B=16, Lq=1024, Lk={lk}) kernel "
-              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
-              f"({smi})")
-    return (worst, *times["self"])
+              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"sdpa autograd backward {lib_ms:.4f} ms, bound "
+              f"{times[name][3]:.4f} ms by {times[name][4]} "
+              f"({flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32, "
+              f"{nbytes / 1e6:.1f} MB) ({smi})")
+    ms, plain_ms, lib_ms, bound_ms, bound_by = times["self"]
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
-def phase_k6(torch, smi: str) -> tuple[float, float, float]:
-    """K6 against its plain version; returns (max-abs err of the statistics,
-    ms, plain ms) at the frozen encode's shape."""
+def phase_k6(torch, smi: str) -> dict:
+    """K6 against its plain version; returns its numbers for the kernels'
+    line (the error is the statistics') at the frozen encode's shape."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
         import (code_stats_reference, nearest_code_stats,
                 nearest_code_stats_reference)
@@ -384,9 +472,17 @@ def phase_k6(torch, smi: str) -> tuple[float, float, float]:
     emb = torch.randn((4096, 128), generator=g, device="cuda")
     ms, plain_ms = _ab_ms(lambda: nearest_code_stats_reference(x, emb),
                           lambda: nearest_code_stats(x, emb), 10)
+    # bound: 2 N K D f32 operations of the distances against x and E read
+    # and the indices and statistics written once
+    flops = 2.0 * 16384 * 4096 * 128
+    nbytes = 4.0 * (x.numel() + 2 * emb.numel() + 4096) + 8.0 * 16384
+    bound_ms, bound_by = _bound(nbytes, flops)
     print(f"phase 6: K6 (N=16384, K=4096, D=128) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({smi})")
-    return worst, ms, plain_ms
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32, "
+          f"{nbytes / 1e6:.1f} MB); no single library call ({smi})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def _small_train_config() -> dict:
@@ -569,6 +665,377 @@ def _profile_step(torch, state, batch, generator) -> None:
               f"{name[:90]}")
 
 
+def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
+                     dtype, seed, t=50, force_general=False):
+    """A denoiser at the kernels' width (n_embd 64, 16 heads) with every
+    parameter drawn from N(0, 0.1) (LayerNorm scales around 1), and one
+    step's arguments on the card: tokens half MASK, half data.
+    ``force_general`` sends a one-token condition through the general
+    cross-attention instead of the per-layer bias. (The card's tests,
+    ``tests/test_torch_gpu_kernels.py``, build their cases here too.)"""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
+        make_schedule)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.denoiser \
+        import DenoiserTransformer
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import schedule_rows
+
+    g = torch.Generator().manual_seed(seed)
+    tr = DenoiserTransformer(num_embed=k - 1, spatial_size=spatial,
+                             n_layer=n_layer, n_embd=64, n_head=16,
+                             condition_dim=32, diffusion_step=100)
+    with torch.no_grad():
+        for name, p in tr.named_parameters():
+            p.normal_(0.0, 0.1, generator=g)
+            if "ln" in name and name.endswith("weight") and p.ndim == 1:
+                p.add_(1.0)
+    tr = tr.to("cuda").eval()
+    packed = mk.pack_denoiser_params(tr, dtype)
+    cond = torch.randn((B, s_len, 32), generator=g).to("cuda")
+    cf = torch.randn((1, s_len, 32), generator=g).to("cuda")
+    as_bias = s_len == 1 and not force_general
+    kc, vc = mk.cross_tables(packed, cond, cf, use_cfg, as_bias)
+    tokens = torch.randint(0, k - 1, (B, L), generator=g)
+    tokens = torch.where(torch.rand((B, L), generator=g) < 0.5, k - 1,
+                         tokens).to("cuda")
+    row = schedule_rows(make_schedule(100, k, device="cuda"))[t]
+    args = (packed, tokens, mk._adaln_table(packed, torch.tensor(t), 100, 64),
+            kc, vc, mk.positions(packed, L), row, 11)
+    kw = dict(n_layer=n_layer, n_head=16, n_embd=64, num_classes=k,
+              guidance=2.0 if use_cfg else 1.0, use_cfg=use_cfg,
+              s_valid=s_len, cross_as_bias=as_bias)
+    return args, kw
+
+
+def _check_megakernel(torch, phase: str, label: str, args, kw,
+                      pack_cfg: bool):
+    """One argmax step of K3 / K4 against the plain version on the card: the
+    final hidden state the kernel leaves in its scratch, then the tokens
+    (int64, in range, equal wherever the plain log-posterior's top-two
+    margin exceeds MK_MARGIN), and one launch counted for the kernel asked
+    for. Returns (tokens, hidden max-abs error)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    tokens = args[1]
+    b, L = tokens.shape
+    scratch = mk.alloc_scratch(b, 2 if kw["use_cfg"] else 1, L,
+                               tokens.device)
+    before = _megakernel_counts()
+    got = mk.megakernel_step(*args, sample=False, pack_cfg=pack_cfg,
+                             scratch=scratch, **kw)
+    torch.cuda.synchronize()
+    counted = tuple(a - b for a, b in zip(_megakernel_counts(), before))
+    hidden_kw = {n: v for n, v in kw.items()
+                 if n not in ("num_classes", "guidance")}
+    want_x = mk.megakernel_hidden_reference(*args[:6], **hidden_kw)
+    err = (scratch["x"] - want_x).abs().max().item()
+    scale = want_x.abs().max().item()
+    del want_x
+    want, post = mk.megakernel_step_reference(
+        *args, sample=False, return_posterior=True, **kw)
+    top2 = post.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MK_MARGIN
+    wrong = int(((got != want) & decided).sum())
+    print(f"{phase}: {label}: hidden state max-abs {err:.3e} of {scale:.3e} "
+          f"(tol {MK_HIDDEN_TOL} relative); {int((~decided).sum())} of "
+          f"{got.numel()} positions under the margin {MK_MARGIN}, {wrong} "
+          f"real token mismatches, {int((got != want).sum())} in all")
+    if counted != (int(pack_cfg), int(not pack_cfg)):
+        raise AssertionError(f"{label}: launches counted {counted}")
+    if got.dtype != torch.int64 or int(got.min()) < 0 or \
+            int(got.max()) >= kw["num_classes"]:
+        raise AssertionError(f"{label}: tokens out of range")
+    if not err <= MK_HIDDEN_TOL * scale or wrong:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return got, err
+
+
+def _megakernel_work(b, n_br, L, n_layer, hidden, kv, s_len, as_bias):
+    """(bytes, f32 FLOP, bf16 FLOP) one step needs at the kernels' width:
+    QK^T and PV take operands rounded to bf16 (tensor-core rate), the other
+    products f32 activations (QKV, proj, the MLP, the cross-attention's
+    query and proj when it is not a bias, the logits, each once). Bytes:
+    the bf16 weights, the f32 tables and the tokens in and out."""
+    c, rows = 64, b * n_br * L
+    per_layer = 2 * c * 3 * c + 2 * c * c + 4 * c * hidden
+    f_bf16 = 4.0 * L * c * rows * n_layer
+    if not as_bias:
+        per_layer += 4 * c * c
+        f_bf16 += 4.0 * s_len * c * rows * n_layer
+    f_f32 = float(per_layer) * rows * n_layer + 2.0 * c * kv * rows
+    sp = 8 if as_bias else -(-s_len // 8) * 8
+    nbytes = (2.0 * n_layer * (4 * c * c + c * 3 * c + 2 * c * hidden)
+              + 2.0 * c * kv + 4.0 * (kv + 1) * c + 4.0 * L * c
+              + 4.0 * 2 * b * n_br * n_layer * sp * c + 16.0 * b * L)
+    return nbytes, f_f32, f_bf16
+
+
+def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg):
+    """Plain, kernel, kernel, plain at a serving configuration: one sampled
+    step from all-MASK tokens with the models' own weights and a label
+    condition. Returns (ms, plain ms, bound ms, bound by, tables, kw)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    d3pm = models.generator.diffusion
+    g = torch.Generator().manual_seed(3)
+    batch = {"label": torch.randint(0, 101, (b,), generator=g)}
+    cond, cf = models.generator.conditioner_embeddings(batch, b)
+    L = d3pm.content_seq_len
+    tab, kw = mk.prepare_sampling(d3pm.schedule(), d3pm.transformer, cond,
+                                  cf, b, L,
+                                  guidance_scale=d3pm.guidance_scale,
+                                  pack_cfg=pack_cfg)
+    tokens = torch.full((b, L), d3pm.num_classes - 1, dtype=torch.int64,
+                        device="cuda")
+    args = (tab["packed"], tokens, tab["adaln_all"][0], tab["kc"], tab["vc"],
+            tab["pos"], tab["rows"][99], 5)
+    ref_kw = {n: v for n, v in kw.items() if n != "pack_cfg"}
+    ms, plain_ms = _ab_ms(
+        lambda: mk.megakernel_step_reference(*args, **ref_kw),
+        lambda: mk.megakernel_step(*args, scratch=tab["scratch"], **kw), 10)
+    n_br = 2 if kw["use_cfg"] else 1
+    nbytes, f32, bf16 = _megakernel_work(
+        b, n_br, L, kw["n_layer"], tab["packed"]["wfc"].shape[2],
+        kw["num_classes"] - 1, kw["s_valid"], kw["cross_as_bias"])
+    bound_ms, bound_by = _bound(nbytes, f32, bf16)
+    print(f"{phase}: {label} (B={b}, L={L}, {kw['n_layer']} layers, K="
+          f"{kw['num_classes']}, bf16 weights, sampled) kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({f32 / 1e9:.1f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32 + "
+          f"{bf16 / 1e9:.1f} GFLOP of bf16 operands at {PEAK_BF16 / 1e12} "
+          f"TFLOP/s; {nbytes / 1e6:.1f} MB); no single library call ({smi})")
+    return ms, plain_ms, bound_ms, bound_by, (args, tab, kw)
+
+
+def _phase_times(torch, phase, label, args, tab, kw) -> None:
+    """Where one step's time goes: the device's ns clock at every grid
+    barrier, read by block 0 (3 warm launches, then the mean of 5)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    n_layer = kw["n_layer"]
+    stamps = torch.zeros(mk.stamp_count(n_layer), dtype=torch.int64,
+                         device="cuda")
+    parts = dict.fromkeys(("A: AdaLN-LN + QKV", "S: self-attention",
+                           "B: proj + cross + MLP", "tail"), 0.0)
+    names = list(parts)
+    runs = 5
+    for i in range(3 + runs):
+        mk.megakernel_step(*args, scratch=tab["scratch"], stamps=stamps,
+                           **kw)
+        torch.cuda.synchronize()
+        if i < 3:
+            continue
+        d = (stamps[1:] - stamps[:-1]).double().cpu() / 1e6 / runs
+        for j in range(3):
+            parts[names[j]] += float(d[j:3 * n_layer:3].sum())
+        parts["tail"] += float(d[3 * n_layer])
+    print(f"{phase}: {label} ms/step by phase (device clock at the grid "
+          f"barriers, mean of {runs}): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in parts.items())
+          + f"; sum {sum(parts.values()):.3f}")
+
+
+def phase_k3(torch, smi: str, honest) -> dict:
+    """K3 against its plain version, then timed at the honest B=32."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    worst = 0.0
+    # the last case is the main path's own shape: 1024 tile items and 2048
+    # attention items on a persistent grid of a few hundred blocks, so every
+    # block loops over several work items and reuses its shared memory
+    for label, dtype, L, spatial, k, n_layer, s_len, b in (
+            ("K3 f32 weights B=2 L=1024 K=4097 19 layers S=1", torch.float32,
+             1024, (32, 32), 4097, 19, 1, 2),
+            ("K3 bf16 weights B=2 L=1024 K=4097 19 layers S=1",
+             torch.bfloat16, 1024, (32, 32), 4097, 19, 1, 2),
+            ("K3 bf16 weights B=2 L=96 K=200 3 layers S=3 (general cross)",
+             torch.bfloat16, 96, (12, 8), 200, 3, 3, 2),
+            ("K3 bf16 weights B=2 L=64 K=17 2 layers S=77 (general cross)",
+             torch.bfloat16, 64, (8, 8), 17, 2, 77, 2),
+            ("K3 bf16 weights B=48 L=200 K=17 2 layers S=3 (ragged tiles, "
+             "several work items a block)", torch.bfloat16, 200, (20, 10), 17,
+             2, 3, 48),
+            ("K3 bf16 weights B=32 L=1024 K=4097 19 layers S=1 (the main "
+             "path's shape)", torch.bfloat16, 1024, (32, 32), 4097, 19, 1,
+             32)):
+        args, kw = _megakernel_case(torch, L=L, spatial=spatial, k=k,
+                                    n_layer=n_layer, s_len=s_len, B=b,
+                                    use_cfg=True, dtype=dtype, seed=L + k)
+        worst = max(worst, _check_megakernel(torch, "phase 8", label, args,
+                                             kw, True)[1])
+        del args
+        torch.cuda.empty_cache()
+
+    # sampled mode at K = 17: in range, repeatable by seed, and the classes
+    # drawn over 200 seeds against the plain posterior
+    k, n = 17, 200
+    args, kw = _megakernel_case(torch, L=64, spatial=(8, 8), k=k, n_layer=2,
+                                s_len=1, B=2, use_cfg=True,
+                                dtype=torch.bfloat16, seed=9, t=30)
+    post = mk.megakernel_step_reference(*args, sample=False,
+                                        return_posterior=True, **kw)[1]
+    want = post.exp().sum(dim=(0, 2))
+    want = want / want.sum()
+    counts = torch.zeros(k, device="cuda")
+    draws = []
+    for seed in [1000] + list(range(1000, 1000 + n)):
+        tok = mk.megakernel_step(*args[:7], seed, pack_cfg=True, **kw)
+        draws.append(tok)
+        if len(draws) > 1:
+            counts += torch.bincount(tok.flatten(), minlength=k)
+    tv = 0.5 * (counts / counts.sum() - want).abs().sum().item()
+    in_range = all(int(t.min()) >= 0 and int(t.max()) < k for t in draws)
+    by_seed = torch.equal(draws[0], draws[1]) and \
+        not torch.equal(draws[1], draws[2])
+    print(f"phase 8: K3 sampled, K={k}: {int(counts.sum())} draws in range "
+          f"{in_range}, repeatable by seed {by_seed}, total variation "
+          f"against the plain posterior {tv:.4f} (tol {MK_TV_TOL})")
+    if not in_range or not by_seed or not tv < MK_TV_TOL:
+        raise AssertionError("K3's sampled tokens do not follow the plain "
+                             "posterior")
+
+    ms, plain_ms, bound_ms, bound_by, step = _time_megakernel(
+        torch, "phase 8", smi, "K3", honest, 32, True)
+    _phase_times(torch, "phase 8", "K3 B=32 L=1024", *step)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_k4(torch, smi: str, msrvtt) -> dict:
+    """K4 against its plain version and against K3, then timed at B=8,
+    L=2304."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    worst = 0.0
+    # the last two cases give every block several work items: the main
+    # path's own shape (576 tile items, 2304 attention items), and guidance 1
+    # at the same load
+    for label, L, spatial, s_len, use_cfg, n_layer, b in (
+            ("K4 guidance 1 B=2 L=1024 K=4097 19 layers S=1", 1024, (32, 32),
+             1, False, 19, 2),
+            ("K4 CFG B=2 L=2304 K=4097 19 layers S=1", 2304, (48, 48), 1,
+             True, 19, 2),
+            ("K4 CFG B=1 L=2304 K=4097 4 layers S=77 (general cross)", 2304,
+             (48, 48), 77, True, 4, 1),
+            ("K4 guidance 1 B=32 L=1024 K=4097 19 layers S=1 (several work "
+             "items a block)", 1024, (32, 32), 1, False, 19, 32),
+            ("K4 CFG B=8 L=2304 K=4097 19 layers S=1 (the main path's "
+             "shape)", 2304, (48, 48), 1, True, 19, 8)):
+        args, kw = _megakernel_case(
+            torch, L=L, spatial=spatial, k=4097, n_layer=n_layer,
+            s_len=s_len, B=b, use_cfg=use_cfg, dtype=torch.bfloat16,
+            seed=L + s_len)
+        worst = max(worst, _check_megakernel(torch, "phase 9", label, args,
+                                             kw, False)[1])
+        del args
+        torch.cuda.empty_cache()
+    args, kw = _megakernel_case(torch, L=1024, spatial=(32, 32), k=4097,
+                                n_layer=19, s_len=1, B=32, use_cfg=True,
+                                dtype=torch.bfloat16, seed=5)
+    k3 = mk.megakernel_step(*args, sample=False, pack_cfg=True, **kw)
+    k4 = mk.megakernel_step(*args, sample=False, pack_cfg=False, **kw)
+    same = torch.equal(k3, k4)
+    print(f"phase 9: K4 (pack_cfg=False) against K3 at B=32 L=1024 K=4097 19 "
+          f"layers, argmax: tokens equal {same}")
+    if not same:
+        raise AssertionError("K4 and K3 disagree")
+    ms, plain_ms, bound_ms, bound_by, step = _time_megakernel(
+        torch, "phase 9", smi, "K4", msrvtt, 8, None)
+    _phase_times(torch, "phase 9", "K4 B=8 L=2304", *step)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def _megakernel_counts() -> tuple[int, int]:
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    return mk.megakernel_step.launches_k3, mk.megakernel_step.launches_k4
+
+
+def _reset_megakernel_counts() -> None:
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    mk.megakernel_step.launches_k3 = mk.megakernel_step.launches_k4 = 0
+
+
+def phase_megakernel_route(torch, smi: str, honest, msrvtt) -> dict:
+    """The serving slice through ``sampler="megakernel"``."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST, build_models, sample_token_grid, sample_videos)
+
+    small = _small_train_config()
+    small["generator"]["diffusion_model"]["guidance_scale"] = 2.0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        models = build_models(small, dev, torch.Generator().manual_seed(11))
+        batch = {"label": torch.tensor([0, 3, 4])}
+        tok = sample_token_grid(models, batch, torch.Generator().manual_seed(
+            12), sample=False, sampler="megakernel")
+        out[dev] = (tok.cpu(), models.vqvae.decode(tok).cpu())
+    same = torch.equal(out["cuda"][0], out["cpu"][0])
+    verr = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    print(f"phase 10: small slice (T=8, K=17, L=32) on the megakernel route, "
+          f"argmax, on the card vs the CPU's plain run: tokens equal {same}, "
+          f"video max-abs {verr:.3e} (tol {VIDEO_TOL})")
+    if not same or not verr <= VIDEO_TOL:
+        raise AssertionError("the megakernel route on the card disagrees "
+                             "with the CPU")
+
+    steps = HONEST["generator"]["diffusion_model"]["diffusion_step"]
+    mask_id = HONEST["vqvae"]["n_codes"]
+    launches = {}
+    g = torch.Generator().manual_seed(0)
+    for label, models, b, res, expect in (
+            ("HONEST warm-up", honest, 4, 64, (steps, 0)),
+            ("HONEST", honest, 32, 64, (steps, 0)),
+            ("MSRVTT_GRID", msrvtt, 8, 96, (0, steps))):
+        batch = {"label": torch.randint(0, 101, (b,), generator=g)}
+        if "warm-up" in label:
+            t0 = time.perf_counter()
+            sample_videos(models, batch, g, sampler="megakernel")
+            torch.cuda.synchronize()
+            print(f"phase 10: {label} B={b} in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            continue
+        _reset_megakernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = sample_token_grid(models, batch, g, sampler="megakernel")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        video = models.vqvae.decode(tokens)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = _megakernel_counts()
+        L = tokens[0].numel()
+        print(f"phase 10: {label} B={b} L={L} on the megakernel route "
+              f"{t2 - t0:.3f} s = {b / (t2 - t0):.3f} clips/s (sampling "
+              f"{t1 - t0:.3f} s, {(t1 - t0) / steps * 1e3:.2f} ms/step over "
+              f"{steps} steps; decode {t2 - t1:.3f} s); launches K3 "
+              f"{counts[0]}, K4 {counts[1]} = {sum(counts) / steps:.0f} per "
+              f"step (expected {expect}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        if counts != expect:
+            raise AssertionError("a kernel of the path was not launched as "
+                                 "expected")
+        if not bool((tokens != mask_id).all()) or int(tokens.min()) < 0:
+            raise AssertionError("MASK tokens left in the final grid")
+        shape = (b, 16, res, res, 3)
+        if tuple(video.shape) != shape or not bool(video.isfinite().all()):
+            raise AssertionError(f"video {tuple(video.shape)} is not a finite"
+                                 f" {shape}")
+        launches["K3" if counts[0] else "K4"] = sum(counts)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -578,37 +1045,63 @@ def main() -> int:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           str(ROOT / PKG / "_build" / "triton"))
     smi = phase_environment(torch)
-    err_k1, ms_k1, plain_ms_k1 = phase_k1(torch, smi)
-    err_k2, ms_k2, plain_ms_k2 = phase_k2(torch, smi)
+    k1 = phase_k1(torch, smi)
+    k2 = phase_k2(torch, smi)
     launches = phase_slice(torch, smi)
-    err_k5, ms_k5, plain_ms_k5 = phase_k5(torch, smi)
-    err_k6, ms_k6, plain_ms_k6 = phase_k6(torch, smi)
+    k5 = phase_k5(torch, smi)
+    k6 = phase_k6(torch, smi)
     train = phase_train(torch, smi, "--profile" in sys.argv[1:])
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST, MSRVTT_GRID, build_models)
+    t0 = time.perf_counter()
+    honest = build_models(HONEST, "cuda", torch.Generator().manual_seed(0))
+    msrvtt = build_models(MSRVTT_GRID, "cuda",
+                          torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"phase 8: built HONEST and MSRVTT_GRID models in "
+          f"{time.perf_counter() - t0:.2f} s")
+    k3 = phase_k3(torch, smi, honest)
+    k4 = phase_k4(torch, smi, msrvtt)
+    route = phase_megakernel_route(torch, smi, honest, msrvtt)
+    tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
+    serve_model = "serving, model route, B=32, 100 steps"
+    serve_mk = "serving, megakernel route, 100 steps"
+    training = "training, B=16, timed steps"
     kernels = [
-        {"name": "fused_sample_step", "route": "triton",
-         "source": f"{PKG}/ops/sampler_kernel.py",
-         "replaces": "gif_synthesis_with_discrete_diffusion_tpu/ops/"
-                     "sampler_kernel.py:33",
-         "launches": launches["K1"], "max_abs_err": err_k1,
-         "ms": ms_k1, "plain_ms": plain_ms_k1},
-        {"name": "fused_mha_fwd", "route": "cuda",
-         "source": f"{PKG}/csrc/fused_mha_fwd.cu",
-         "replaces": "gif_synthesis_with_discrete_diffusion_tpu/ops/"
-                     "attention.py:70",
-         "launches": launches["K2"] + train["K2"], "max_abs_err": err_k2,
-         "ms": ms_k2, "plain_ms": plain_ms_k2},
-        {"name": "fused_mha_bwd", "route": "cuda",
-         "source": f"{PKG}/csrc/fused_mha_bwd.cu",
-         "replaces": "gif_synthesis_with_discrete_diffusion_tpu/ops/"
-                     "attention.py:114",
-         "launches": train["K5"], "max_abs_err": err_k5,
-         "ms": ms_k5, "plain_ms": plain_ms_k5},
-        {"name": "nearest_code_stats", "route": "cuda",
-         "source": f"{PKG}/csrc/nearest_code_stats.cu",
-         "replaces": "gif_synthesis_with_discrete_diffusion_tpu/ops/"
-                     "codebook_kernel.py:56",
-         "launches": train["K6"], "max_abs_err": err_k6,
-         "ms": ms_k6, "plain_ms": plain_ms_k6},
+        dict(name="fused_sample_step", route="triton",
+             source=f"{PKG}/ops/sampler_kernel.py",
+             replaces=tpu + "ops/sampler_kernel.py:33",
+             launches=launches["K1"],
+             launches_by_path={serve_model: launches["K1"]}, **k1),
+        dict(name="fused_mha_fwd", route="cuda",
+             source=f"{PKG}/csrc/fused_mha_fwd.cu",
+             replaces=tpu + "ops/attention.py:70",
+             launches=launches["K2"] + train["K2"],
+             launches_by_path={serve_model: launches["K2"],
+                               training: train["K2"]}, **k2),
+        dict(name="megakernel_step_packed", route="cuda",
+             source=f"{PKG}/csrc/megakernel_step.cu",
+             replaces=tpu + "ops/megakernel.py:683",
+             launches=route["K3"],
+             launches_by_path={serve_mk + ", B=32, L=1024": route["K3"]},
+             **k3),
+        dict(name="megakernel_step_branch", route="cuda",
+             source=f"{PKG}/csrc/megakernel_step.cu",
+             replaces=tpu + "ops/megakernel.py:298",
+             launches=route["K4"],
+             launches_by_path={serve_mk + ", B=8, L=2304": route["K4"]},
+             **k4),
+        dict(name="fused_mha_bwd", route="cuda",
+             source=f"{PKG}/csrc/fused_mha_bwd.cu",
+             replaces=tpu + "ops/attention.py:114",
+             launches=train["K5"], launches_by_path={training: train["K5"]},
+             **k5),
+        dict(name="nearest_code_stats", route="cuda",
+             source=f"{PKG}/csrc/nearest_code_stats.cu",
+             replaces=tpu + "ops/codebook_kernel.py:56",
+             launches=train["K6"], launches_by_path={training: train["K6"]},
+             **k6),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

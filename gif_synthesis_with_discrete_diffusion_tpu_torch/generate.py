@@ -1,8 +1,12 @@
 """Serving entry: conditioner -> 100-step D3PM sampling -> VQ-VAE decode.
 
-The counterpart of the JAX package's stage-2 ``_sample_step`` on its
-``model`` route (the denoiser with fused attention, then the fused sampler
-step, per reverse step) and of ``bench.py: _build_models``.
+The counterpart of the JAX package's stage-2 ``_sample_step`` and of
+``bench.py: _build_models``. ``sampler`` picks the route, as the JAX
+trainer's ``trainer.sampler`` does: ``"megakernel"`` (one whole-step kernel
+launch per reverse step), ``"model"`` (the denoiser with fused attention,
+then the fused sampler step) or ``"auto"`` (the megakernel on a CUDA device
+for grids of at most 2304 tokens, a denoiser of the kernels' width and a
+condition sequence; else the model route).
 
     models = build_models(HONEST, "cuda", torch.Generator().manual_seed(0))
     video = sample_videos(models, {"label": labels}, generator)  # (B,T,H,W,3)
@@ -19,8 +23,8 @@ from .models.discrete_diffusion import (DiscreteDiffusionModel,
                                         make_discrete_diffusion)
 from .models.vqvae import VQVAE, init_vqvae_
 
-__all__ = ["HONEST", "GenerationModels", "build_models", "sample_token_grid",
-           "sample_videos"]
+__all__ = ["HONEST", "MSRVTT_GRID", "GenerationModels", "build_models",
+           "sample_token_grid", "sample_videos"]
 
 # bench.py's honest configuration: 16-frame 64px clips -> a (16, 8, 8) grid
 # of 1024 tokens over 4096 codes (K = 4097 with the MASK class), a 19-layer
@@ -41,6 +45,23 @@ HONEST: dict[str, Any] = {
             },
         },
         "textencoder": {"mode": "label", "n_classes": 101, "dim": 512},
+    },
+}
+
+
+# bench.py's ``msrvtt`` grid with the honest model: 16-frame 96px clips -> a
+# (16, 12, 12) grid of 2304 tokens on a 48 x 48 positional grid (the largest
+# grid the megakernel route serves; its batch is 8)
+MSRVTT_GRID: dict[str, Any] = {
+    "vqvae": dict(HONEST["vqvae"], resolution=96),
+    "generator": {
+        "diffusion_model": {
+            "diffusion_step": 100, "guidance_scale": 2.0,
+            "transformer": dict(
+                HONEST["generator"]["diffusion_model"]["transformer"],
+                content_spatial_size=(48, 48)),
+        },
+        "textencoder": HONEST["generator"]["textencoder"],
     },
 }
 
@@ -83,19 +104,20 @@ def _batch_size(batch: Mapping[str, Any]) -> int:
 
 @torch.no_grad()
 def sample_token_grid(models: GenerationModels, batch: Mapping[str, Any],
-                      generator: torch.Generator, sample: bool = True
-                      ) -> torch.Tensor:
-    """Conditioner -> D3PM reverse process. Returns (B, t, h, w) int64."""
+                      generator: torch.Generator, sample: bool = True,
+                      sampler: str = "auto") -> torch.Tensor:
+    """Conditioner -> D3PM reverse process on the route ``sampler``.
+    Returns (B, t, h, w) int64."""
     b = _batch_size(batch)
     tokens = models.generator.sample(batch, b, generator=generator,
-                                     sample=sample)
+                                     sample=sample, mode=sampler)
     return tokens.reshape(b, *models.latent_shape)
 
 
 @torch.no_grad()
 def sample_videos(models: GenerationModels, batch: Mapping[str, Any],
-                  generator: torch.Generator, sample: bool = True
-                  ) -> torch.Tensor:
+                  generator: torch.Generator, sample: bool = True,
+                  sampler: str = "auto") -> torch.Tensor:
     """Generate clips for a batch: returns (B, T, H, W, 3) f32."""
     return models.vqvae.decode(
-        sample_token_grid(models, batch, generator, sample))
+        sample_token_grid(models, batch, generator, sample, sampler))

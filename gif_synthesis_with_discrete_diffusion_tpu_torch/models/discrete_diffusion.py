@@ -18,13 +18,34 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.megakernel import (MEGAKERNEL_MAX_SEQ, kernels_fit,
+                              megakernel_sample_tokens)
 from ..ops.sampler_kernel import sample_tokens
 from . import d3pm
 from .conditioning import build_conditioner, init_conditioner_
 from .denoiser import DenoiserTransformer, init_denoiser_
 
 __all__ = ["D3PM", "DiscreteDiffusionModel", "make_discrete_diffusion",
-           "init_discrete_diffusion_"]
+           "init_discrete_diffusion_", "resolve_sampler"]
+
+
+def resolve_sampler(mode: str, device: torch.device, seq_len: int,
+                    transformer: nn.Module, has_condition: bool) -> str:
+    """'auto' -> the sampler route for a model on ``device``: the whole-step
+    kernels ('megakernel') on a CUDA device for grids of at most
+    ``MEGAKERNEL_MAX_SEQ`` tokens, else the denoiser followed by the fused
+    sampler step ('model'). The JAX package's rule with the card in the
+    TPU's place, and, since the CUDA kernels are built for one width and
+    cross-attend to a condition, only for a denoiser they fit
+    (:func:`..ops.megakernel.kernels_fit`) that is given a condition
+    sequence. A rule over the configuration, decided before anything is
+    launched; an explicit 'megakernel' on another model raises. Other modes
+    pass through."""
+    if mode != "auto":
+        return mode
+    return ("megakernel" if device.type == "cuda"
+            and seq_len <= MEGAKERNEL_MAX_SEQ and has_condition
+            and kernels_fit(transformer) else "model")
 
 
 class D3PM(nn.Module):
@@ -140,26 +161,39 @@ class D3PM(nn.Module):
     def sample(self, cond_emb: Optional[torch.Tensor],
                cf_cond_emb: Optional[torch.Tensor], batch_size: int, *,
                generator: torch.Generator, mode: str = "auto",
-               sample: bool = True, filter_ratio: float = 0.0
-               ) -> torch.Tensor:
+               sample: bool = True, filter_ratio: float = 0.0,
+               weights_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         """(B, L) int64 tokens from the 100-step reverse process.
 
-        mode 'auto': :func:`..ops.sampler_kernel.sample_tokens`, whose step
-        launches the Triton kernel for CUDA tensors and runs its plain
-        version for CPU tensors (:func:`.d3pm.sample_fused` is the plain
-        oracle the tests hold it to). ``sample=False`` takes argmax in place
-        of Gumbel-max. ``generator`` is a CPU generator (the per-step
-        seeds)."""
+        mode 'model': :func:`..ops.sampler_kernel.sample_tokens`, the
+        denoiser (attention kernel K2 on CUDA tensors) then the fused
+        sampler step (K1) per reverse step. mode 'megakernel':
+        :func:`..ops.megakernel.megakernel_sample_tokens`, one whole-step
+        kernel launch (K3 or K4) per reverse step, the packed matrices in
+        ``weights_dtype``. mode 'auto': :func:`resolve_sampler`. On CPU
+        tensors every route runs its plain version
+        (:func:`.d3pm.sample_fused` is the oracle the tests hold them to).
+        ``sample=False`` takes argmax in place of Gumbel-max. ``generator``
+        is a CPU generator (the per-step seeds)."""
         if mode == "reference" or filter_ratio != 0.0:
             raise NotImplementedError(
                 "the log-onehot reference sampler and filter_ratio are not "
                 "ported yet: ROADMAP queue 1, item 7")
-        if mode != "auto":
+        mode = resolve_sampler(mode, self.lt_history.device,
+                               self.content_seq_len, self.transformer,
+                               cond_emb is not None)
+        if mode not in ("model", "megakernel"):
             raise ValueError(f"unknown sampler mode {mode!r}")
         if self.learnable_cf and cond_emb is not None:
             # the trained empty-text embedding is the CF branch's input
             cf_cond_emb = self.empty_cond_embed(cond_emb.shape[0],
                                                 cond_emb.shape[1])
+        if mode == "megakernel":
+            return megakernel_sample_tokens(
+                generator, self.schedule(), self.transformer, cond_emb,
+                cf_cond_emb, batch_size, self.content_seq_len,
+                guidance_scale=self.guidance_scale,
+                weights_dtype=weights_dtype, sample=sample)
         return sample_tokens(generator, self.schedule(), self.transformer,
                              cond_emb, cf_cond_emb, batch_size,
                              self.content_seq_len,
@@ -200,12 +234,14 @@ class DiscreteDiffusionModel(nn.Module):
 
     @torch.no_grad()
     def sample(self, batch: Mapping[str, Any], batch_size: int, *,
-               generator: torch.Generator, sample: bool = True
-               ) -> torch.Tensor:
+               generator: torch.Generator, sample: bool = True,
+               mode: str = "auto") -> torch.Tensor:
+        """Conditioner -> :meth:`D3PM.sample` on the route ``mode``."""
         cond_emb, cf_cond_emb = self.conditioner_embeddings(batch,
                                                             batch_size)
         return self.diffusion.sample(cond_emb, cf_cond_emb, batch_size,
-                                     generator=generator, sample=sample)
+                                     generator=generator, sample=sample,
+                                     mode=mode)
 
 
 def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,

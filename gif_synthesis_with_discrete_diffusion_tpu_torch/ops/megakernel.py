@@ -1,0 +1,550 @@
+"""The whole-step sampler route: one D3PM reverse step per kernel launch.
+
+Replaces the TPU kernels ``gif_synthesis_with_discrete_diffusion_tpu/ops/
+megakernel.py: _kernel_packed`` (K3: both classifier-free-guidance branches
+of a batch row in one program) and ``_kernel`` (K4: one program per (row,
+branch); guidance 1, and CFG on grids over 1024 tokens), both reached through
+``_megakernel_step`` with the sampler tail ``_sample_block``. One step is
+
+  token embedding + positions -> n_layer x [AdaLN -> self-attention ->
+  cross-attention (or a per-layer bias for a one-token condition) -> LN ->
+  GELU2 MLP] -> LN -> logits -> log_softmax -> CFG combine -> analytic
+  posterior -> Gumbel-max
+
+and reads the packed weights, the tables and the (B, L) tokens and writes
+the (B, L) tokens: the (2B, K-1, L) logits and the (B, K, L) posterior never
+reach device memory. The CUDA source is ``csrc/megakernel_step.cu`` (its
+header says what bounds it on Hopper and how it is laid out); it is built by
+nvcc at the first launch and bound through ctypes. What the TPU package
+computes outside its kernel stays plain torch here too:
+:func:`pack_denoiser_params`, the AdaLN tables, the cross-attention K/V (or
+bias) of the condition, the positions.
+
+:func:`megakernel_step_reference` is the plain version of one step. It
+rounds where the kernels round (``q / sqrt(d)``, ``k``, ``v`` and the
+softmax probabilities, after the division by their row sum, go through
+bf16; every sum is f32), so K3, K4 and the TPU kernels all compute its
+function. CPU tensors take it; CUDA tensors launch K3 or K4 or raise.
+
+Gumbel noise comes from Philox keyed by (seed, row, position, class): the
+sampled tokens agree with the TPU kernels and the plain version in
+distribution only; ``sample=False`` (argmax) is what is compared exactly.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..models.d3pm import D3PMSchedule
+from ..models.denoiser import SinusoidalPosEmb
+from . import cuda_build
+from .sampler_kernel import fused_sample_step_reference, schedule_rows
+
+__all__ = ["MEGAKERNEL_MAX_SEQ", "pack_denoiser_params", "cross_tables",
+           "positions", "megakernel_step", "megakernel_step_reference",
+           "megakernel_hidden_reference", "kernels_fit",
+           "megakernel_sample_tokens", "prepare_sampling", "alloc_scratch",
+           "stamp_count"]
+
+# the largest grid the route serves (the MSRVTT 48 x 48 latent grid)
+MEGAKERNEL_MAX_SEQ = 2304
+# CFG runs in the packed kernel up to this many tokens, else on the
+# (row, branch) grid
+_PACK_CFG_MAX_SEQ = 1024
+_LN_EPS = 1e-6
+# the kernels' fixed widths (csrc/megakernel_step.cu)
+_KERNEL_EMBD = 64
+_KERNEL_HEAD_DIM = 4
+_KERNEL_HIDDEN_CHUNK = 64
+
+_WEIGHT_NAMES = ("wqkv", "wproj", "wq_c", "wproj_c", "wfc", "wpj", "wlog")
+# the order of the pointer table handed to the launcher (csrc: enum Ptr)
+_PTR_NAMES = ("sched", "tokens", "out", "adaln", "kc", "vc", "emb", "pos",
+              "wqkv", "bqkv", "wproj", "bproj", "wq_c", "bq_c", "wproj_c",
+              "bproj_c", "ln2_s", "ln2_b", "wfc", "bfc", "wpj", "bpj",
+              "lno_s", "lno_b", "wlog", "blog", "x", "q", "k", "v", "o",
+              "stamps")
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def kernels_fit(transformer: nn.Module) -> bool:
+    """Whether the CUDA kernels are built for this denoiser's widths
+    (n_embd 64 in heads of 4, an MLP width in chunks of 64): what 'auto'
+    route selection reads. :func:`megakernel_step` raises for the rest."""
+    block = transformer.block0
+    n_embd = transformer.ln_out.normalized_shape[0]
+    return (n_embd == _KERNEL_EMBD
+            and n_embd // block.attn1.n_head == _KERNEL_HEAD_DIM
+            and block.mlp_fc.out_features % _KERNEL_HIDDEN_CHUNK == 0)
+
+
+# ---------------------------------------------------------------------------
+# what stays outside the kernel: packing, tables, the condition's K/V
+# ---------------------------------------------------------------------------
+
+def pack_denoiser_params(transformer: nn.Module,
+                         weights_dtype: torch.dtype = torch.bfloat16
+                         ) -> dict[str, torch.Tensor]:
+    """Stack the denoiser's per-layer weights along a leading layer axis, in
+    the (in, out) layout (``nn.Linear`` holds (out, in)). The matrices the
+    kernel multiplies by (``wqkv``, ``wproj``, ``wq_c``, ``wproj_c``,
+    ``wfc``, ``wpj``, ``wlog``) take ``weights_dtype``; biases, LayerNorm
+    and AdaLN parameters, the condition's K/V projections and the embedding
+    tables stay f32."""
+    blocks = [getattr(transformer, f"block{i}")
+              for i in range(transformer.n_layer)]
+    f32 = torch.float32
+
+    def stack(fn, dtype=f32):
+        return torch.stack([fn(b).detach() for b in blocks]).to(
+            dtype).contiguous()
+
+    def w(lin):      # (out, in) -> (in, out)
+        return lin.weight.t()
+
+    wd = weights_dtype
+    ce = transformer.content_emb
+    return {
+        "wqkv": stack(lambda b: torch.cat(
+            [w(b.attn1.query), w(b.attn1.key), w(b.attn1.value)], dim=1), wd),
+        "bqkv": stack(lambda b: torch.cat(
+            [b.attn1.query.bias, b.attn1.key.bias, b.attn1.value.bias])),
+        "wproj": stack(lambda b: w(b.attn1.proj), wd),
+        "bproj": stack(lambda b: b.attn1.proj.bias),
+        "wq_c": stack(lambda b: w(b.attn2.query), wd),
+        "bq_c": stack(lambda b: b.attn2.query.bias),
+        "wproj_c": stack(lambda b: w(b.attn2.proj), wd),
+        "bproj_c": stack(lambda b: b.attn2.proj.bias),
+        "ln2_s": stack(lambda b: b.ln2.weight),
+        "ln2_b": stack(lambda b: b.ln2.bias),
+        "wfc": stack(lambda b: w(b.mlp_fc), wd),
+        "bfc": stack(lambda b: b.mlp_fc.bias),
+        "wpj": stack(lambda b: w(b.mlp_proj), wd),
+        "bpj": stack(lambda b: b.mlp_proj.bias),
+        # AdaLN linears, applied per timestep outside the kernel
+        "ada_w": stack(lambda b: torch.stack(
+            [w(b.ln1.linear), w(b.ln1_1.linear)])),
+        "ada_b": stack(lambda b: torch.stack(
+            [b.ln1.linear.bias, b.ln1_1.linear.bias])),
+        # the condition's K/V projections, applied once per sampling call
+        "wk_c": stack(lambda b: w(b.attn2.key)),
+        "bk_c": stack(lambda b: b.attn2.key.bias),
+        "wv_c": stack(lambda b: w(b.attn2.value)),
+        "bv_c": stack(lambda b: b.attn2.value.bias),
+        "emb": ce.emb.weight.detach().to(f32).contiguous(),
+        "height": ce.height_emb.weight.detach().to(f32).contiguous(),
+        "width": ce.width_emb.weight.detach().to(f32).contiguous(),
+        "lno_s": transformer.ln_out.weight.detach().to(f32).contiguous(),
+        "lno_b": transformer.ln_out.bias.detach().to(f32).contiguous(),
+        "wlog": w(transformer.to_logits).detach().to(wd).contiguous(),
+        "blog": transformer.to_logits.bias.detach().to(f32).contiguous(),
+    }
+
+
+def _adaln_table(packed: dict, t: torch.Tensor, num_steps: int,
+                 n_embd: int) -> torch.Tensor:
+    """AdaLN scale||shift rows for timestep(s) ``t``: () -> (n_layer, 2,
+    2C), (T,) -> (T, n_layer, 2, 2C); [..., :C] scales, [..., C:] shifts."""
+    t = torch.as_tensor(t, device=packed["ada_w"].device)
+    emb = F.silu(SinusoidalPosEmb(num_steps, n_embd)(t.reshape(-1)))
+    out = torch.einsum("td,lade->tlae", emb, packed["ada_w"]) \
+        + packed["ada_b"]
+    return out[0] if t.ndim == 0 else out
+
+
+def positions(packed: dict, seq_len: int) -> torch.Tensor:
+    """(seq_len, C) factorised height + width position embeddings."""
+    pos = packed["height"][:, None, :] + packed["width"][None, :, :]
+    return pos.reshape(-1, pos.shape[-1])[:seq_len].contiguous()
+
+
+def cross_tables(packed: dict, cond_emb: torch.Tensor,
+                 cf_cond_emb: Optional[torch.Tensor], use_cfg: bool,
+                 cross_as_bias: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The condition's side of cross-attention, per row, branch and layer:
+    (kc, vc), each (B, n_br, n_layer, sp, C) f32 with the condition length
+    padded to a multiple of 8. With ``cross_as_bias`` (a one-token
+    condition: softmax over one key is 1) row 0 of ``kc`` holds the whole
+    cross-attention output ``v @ wproj_c + bproj_c`` and ``vc`` is ``kc``.
+    """
+    def cross_kv(c):
+        c = c.to(torch.float32)
+        k = torch.einsum("bsd,lde->blse", c, packed["wk_c"]) \
+            + packed["bk_c"][None, :, None, :]
+        v = torch.einsum("bsd,lde->blse", c, packed["wv_c"]) \
+            + packed["bv_c"][None, :, None, :]
+        return k, v
+
+    def cross_bias(c):
+        # v goes through bf16 first, as the general path's V operand does
+        v = cross_kv(c)[1][:, :, 0].to(torch.bfloat16).to(torch.float32)
+        return (torch.einsum("blc,lce->ble", v,
+                             packed["wproj_c"].to(torch.float32))
+                + packed["bproj_c"][None])
+
+    branches = [cond_emb]
+    if use_cfg:
+        branches.append(cf_cond_emb.expand(cond_emb.shape))
+    if cross_as_bias:
+        kc = torch.stack([cross_bias(c) for c in branches], dim=1)
+        kc = F.pad(kc[:, :, :, None, :], (0, 0, 0, 7)).contiguous()
+        return kc, kc
+    kvs = [cross_kv(c) for c in branches]
+    kc = torch.stack([k for k, _ in kvs], dim=1)     # (B, n_br, n_layer, S, C)
+    vc = torch.stack([v for _, v in kvs], dim=1)
+    pad = _round_up(kc.shape[3], 8) - kc.shape[3]
+    return (F.pad(kc, (0, 0, 0, pad)).contiguous(),
+            F.pad(vc, (0, 0, 0, pad)).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the plain version of one step
+# ---------------------------------------------------------------------------
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _ln(x: torch.Tensor) -> torch.Tensor:
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + _LN_EPS)
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return a @ w.to(torch.float32)
+
+
+def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n_head: int, valid: int) -> torch.Tensor:
+    """q: (R, Lq, C); k, v: (R, Lk, C), the first ``valid`` keys real.
+    Operands through bf16, sums in f32, the probabilities through bf16 after
+    the division by their row sum."""
+    R, Lq, C = q.shape
+    d = C // n_head
+    qs = _bf16(q * (1.0 / math.sqrt(d))).reshape(R, Lq, n_head, d)
+    kb = _bf16(k[:, :valid]).reshape(R, valid, n_head, d)
+    vb = _bf16(v[:, :valid]).reshape(R, valid, n_head, d)
+    s = torch.einsum("rqhd,rkhd->rhqk", qs, kb)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = _bf16(e / e.sum(dim=-1, keepdim=True))
+    return torch.einsum("rhqk,rkhd->rqhd", p, vb).reshape(R, Lq, C)
+
+
+def megakernel_hidden_reference(
+        packed: dict, tokens: torch.Tensor, adaln: torch.Tensor,
+        kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor, *,
+        n_layer: int, n_head: int, n_embd: int, use_cfg: bool, s_valid: int,
+        cross_as_bias: bool = False) -> torch.Tensor:
+    """The denoiser's part of the plain step: the final hidden state before
+    the output LayerNorm, (B * n_br, L, C) with rows ordered (row, branch),
+    which the kernels leave in their ``x`` scratch."""
+    b, L = tokens.shape
+    n_br = 2 if use_cfg else 1
+    C = n_embd
+    x = packed["emb"][tokens] + pos                        # (B, L, C)
+    x = x[:, None].expand(b, n_br, L, C).reshape(b * n_br, L, C)
+    kc = kc.reshape(b * n_br, n_layer, -1, C)
+    vc = vc.reshape(b * n_br, n_layer, -1, C)
+    for i in range(n_layer):
+        ada = adaln[i]
+        h = _ln(x) * (1.0 + ada[0, :C]) + ada[0, C:]
+        qkv = _mm(h, packed["wqkv"][i]) + packed["bqkv"][i]
+        o = _attention_reference(qkv[..., :C], qkv[..., C:2 * C],
+                                 qkv[..., 2 * C:], n_head, L)
+        x = x + _mm(o, packed["wproj"][i]) + packed["bproj"][i]
+        if cross_as_bias:
+            x = x + kc[:, i, 0:1, :]
+        else:
+            h = _ln(x) * (1.0 + ada[1, :C]) + ada[1, C:]
+            qc = _mm(h, packed["wq_c"][i]) + packed["bq_c"][i]
+            oc = _attention_reference(qc, kc[:, i], vc[:, i], n_head,
+                                      s_valid)
+            x = x + _mm(oc, packed["wproj_c"][i]) + packed["bproj_c"][i]
+        h = _ln(x) * packed["ln2_s"][i] + packed["ln2_b"][i]
+        h = _mm(h, packed["wfc"][i]) + packed["bfc"][i]
+        h = h * torch.sigmoid(1.702 * h)                   # GELU2
+        x = x + _mm(h, packed["wpj"][i]) + packed["bpj"][i]
+    return x
+
+
+def megakernel_step_reference(
+        packed: dict, tokens: torch.Tensor, adaln: torch.Tensor,
+        kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
+        sched_row: torch.Tensor, seed: int, *, n_layer: int, n_head: int,
+        n_embd: int, num_classes: int, guidance: float, use_cfg: bool,
+        s_valid: int, sample: bool = True, cross_as_bias: bool = False,
+        return_posterior: bool = False):
+    """Plain PyTorch version of one whole reverse step (K3 and K4 compute
+    the same function). Same arguments as :func:`megakernel_step`; with
+    ``return_posterior`` also the (B, K, L) log-posterior. The Gumbel noise
+    comes from a ``torch.Generator`` seeded by ``seed``."""
+    b, L = tokens.shape
+    n_br = 2 if use_cfg else 1
+    x = megakernel_hidden_reference(
+        packed, tokens, adaln, kc, vc, pos, n_layer=n_layer, n_head=n_head,
+        n_embd=n_embd, use_cfg=use_cfg, s_valid=s_valid,
+        cross_as_bias=cross_as_bias)
+    h = _ln(x) * packed["lno_s"] + packed["lno_b"]
+    z = (_mm(h, packed["wlog"]) + packed["blog"]).reshape(b, n_br, L, -1)
+    logits2 = torch.cat([z[:, j] for j in range(n_br)], dim=0)
+    return fused_sample_step_reference(
+        logits2.transpose(1, 2), tokens, sched_row, seed, guidance=guidance,
+        num_classes=num_classes, sample=sample,
+        return_posterior=return_posterior)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrapper
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("megakernel_step.cu")
+    lib.megakernel_step.argtypes = [ctypes.c_void_p] * 4
+    lib.megakernel_step.restype = ctypes.c_int
+    lib.megakernel_grid_blocks.argtypes = [ctypes.c_int]
+    lib.megakernel_grid_blocks.restype = ctypes.c_int
+    return lib
+
+
+def stamp_count(n_layer: int) -> int:
+    """Length of the int64 ``stamps`` tensor: one device timestamp (ns) at
+    the start and after each of the step's 3 * n_layer + 1 phases."""
+    return 3 * n_layer + 2
+
+
+def alloc_scratch(batch: int, n_br: int, seq_len: int,
+                  device: torch.device) -> dict[str, torch.Tensor]:
+    """The kernels' scratch in device memory: the hidden state, the
+    rounded q/k/v (head-major) and the attention output. Allocated once per
+    sampling call."""
+    r = batch * n_br
+    c = _KERNEL_EMBD
+    bf = dict(dtype=torch.bfloat16, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"x": torch.empty((r, seq_len, c), **f32),
+            "q": torch.empty((r, c // _KERNEL_HEAD_DIM, seq_len,
+                              _KERNEL_HEAD_DIM), **bf),
+            "k": torch.empty((r, c // _KERNEL_HEAD_DIM, seq_len,
+                              _KERNEL_HEAD_DIM), **bf),
+            "v": torch.empty((r, c // _KERNEL_HEAD_DIM, seq_len,
+                              _KERNEL_HEAD_DIM), **bf),
+            "o": torch.empty((r, seq_len, c), **f32)}
+
+
+def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
+            n_head, n_embd, num_classes, guidance, use_cfg, s_valid, sample,
+            cross_as_bias, pack_cfg, scratch, stamps) -> torch.Tensor:
+    dev = tokens.device
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"megakernel_step: tokens on {dev}, the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    b, L = tokens.shape
+    n_br = 2 if use_cfg else 1
+    if pack_cfg and not use_cfg:
+        raise ValueError("megakernel_step: pack_cfg is the CFG kernel")
+    if n_embd != _KERNEL_EMBD or n_embd // n_head != _KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"megakernel_step: the kernels are built for n_embd "
+            f"{_KERNEL_EMBD} and head dim {_KERNEL_HEAD_DIM}, not "
+            f"{n_embd} / {n_head} heads")
+    hidden = packed["wfc"].shape[2]
+    if hidden % _KERNEL_HIDDEN_CHUNK:
+        raise ValueError(f"megakernel_step: MLP width {hidden} is not a "
+                         f"multiple of {_KERNEL_HIDDEN_CHUNK}")
+    kv = num_classes - 1
+    sp = kc.shape[3]
+    if tokens.dtype != torch.int64 or not tokens.is_contiguous():
+        raise TypeError("megakernel_step: tokens must be contiguous int64")
+    wd = packed["wqkv"].dtype
+    if wd not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"megakernel_step: weights of {wd}")
+    if tuple(packed["wlog"].shape) != (n_embd, kv) or \
+            packed["emb"].shape[0] != num_classes or \
+            tuple(pos.shape) != (L, n_embd) or \
+            tuple(adaln.shape) != (n_layer, 2, 2 * n_embd) or \
+            tuple(kc.shape) != (b, n_br, n_layer, sp, n_embd) or \
+            kc.shape != vc.shape or sched_row.numel() != 10 or \
+            not 1 <= s_valid <= sp:
+        raise ValueError("megakernel_step: shapes of the tables do not fit "
+                         f"tokens {tuple(tokens.shape)}, K={num_classes}")
+    if scratch is None:
+        scratch = alloc_scratch(b, n_br, L, dev)
+    if scratch["x"].shape != (b * n_br, L, n_embd):
+        raise ValueError("megakernel_step: scratch of another shape")
+    out = torch.empty_like(tokens)
+    tensors = dict(packed, sched=sched_row, tokens=tokens, out=out,
+                   adaln=adaln, kc=kc, vc=vc, pos=pos, **scratch)
+    ptrs = []
+    for name in _PTR_NAMES:
+        if name == "stamps":
+            if stamps is not None and (
+                    stamps.dtype != torch.int64 or stamps.device != dev
+                    or stamps.numel() < stamp_count(n_layer)):
+                raise ValueError("megakernel_step: stamps must be int64 on "
+                                 "the tokens' device, stamp_count long")
+            ptrs.append(stamps.data_ptr() if stamps is not None else None)
+            continue
+        x = tensors[name]
+        if x.device != dev:
+            raise ValueError(f"megakernel_step: {name} on {x.device}, "
+                             f"tokens on {dev}")
+        # the schedule row is read scalar by scalar, the rest as float4
+        if not x.is_contiguous() or \
+                x.data_ptr() % (4 if name == "sched" else 16):
+            raise TypeError(f"megakernel_step: {name} must be contiguous "
+                            f"and 16-byte aligned")
+        want = wd if name in _WEIGHT_NAMES else (
+            torch.int64 if name in ("tokens", "out") else
+            torch.bfloat16 if name in ("q", "k", "v") else torch.float32)
+        if x.dtype != want:
+            raise TypeError(f"megakernel_step: {name} is {x.dtype}, the "
+                            f"kernel reads {want}")
+        ptrs.append(x.data_ptr())
+    seed = int(seed)
+    ints = [b, L, n_br, n_layer, kv, sp, s_valid, hidden,
+            int(wd == torch.bfloat16), int(bool(sample)),
+            int(bool(cross_as_bias)), int(bool(pack_cfg)),
+            seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_uint32 * len(ints))(*ints)
+    c_floats = (ctypes.c_float * 1)(float(guidance))
+    err = _library().megakernel_step(
+        c_ptrs, c_ints, c_floats, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"megakernel_step launch failed: cudaError {err}")
+    if pack_cfg:
+        megakernel_step.launches_k3 += 1
+    else:
+        megakernel_step.launches_k4 += 1
+    return out
+
+
+def megakernel_step(
+        packed: dict, tokens: torch.Tensor, adaln: torch.Tensor,
+        kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
+        sched_row: torch.Tensor, seed: int, *, n_layer: int, n_head: int,
+        n_embd: int, num_classes: int, guidance: float, use_cfg: bool,
+        s_valid: int, sample: bool = True, cross_as_bias: bool = False,
+        pack_cfg: bool = False, scratch: Optional[dict] = None,
+        stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One whole reverse step: tokens (B, L) int64 -> tokens (B, L) int64.
+
+    packed: :func:`pack_denoiser_params`; adaln: (n_layer, 2, 2C) for this
+    timestep; kc, vc: :func:`cross_tables`; pos: :func:`positions`;
+    sched_row: (10,) row of ``schedule_rows``; seed: int. CPU tensors take
+    :func:`megakernel_step_reference`. CUDA tensors launch one cooperative
+    kernel on the current stream: K3 (``pack_cfg``: a work item owns a tile
+    of a row for both CFG branches) or K4 (a work item owns a tile of one
+    (row, branch)); each launch adds one to ``megakernel_step.launches_k3``
+    or ``.launches_k4``. ``scratch`` (:func:`alloc_scratch`) is allocated
+    per call unless given; ``stamps`` (int64, :func:`stamp_count` long)
+    receives the device's ns clock at each phase boundary."""
+    kw = dict(n_layer=n_layer, n_head=n_head, n_embd=n_embd,
+              num_classes=num_classes, guidance=guidance, use_cfg=use_cfg,
+              s_valid=s_valid, sample=sample, cross_as_bias=cross_as_bias)
+    if tokens.device.type == "cpu":
+        return megakernel_step_reference(packed, tokens, adaln, kc, vc, pos,
+                                         sched_row, seed, **kw)
+    if tokens.device.type != "cuda":
+        raise ValueError(f"megakernel_step: no kernel for {tokens.device}")
+    return _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed,
+                   pack_cfg=pack_cfg, scratch=scratch, stamps=stamps, **kw)
+
+
+megakernel_step.launches_k3 = 0
+megakernel_step.launches_k4 = 0
+
+
+# ---------------------------------------------------------------------------
+# the full reverse process
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def prepare_sampling(sched: D3PMSchedule, transformer: nn.Module,
+                     cond_emb: torch.Tensor,
+                     cf_cond_emb: Optional[torch.Tensor], batch_size: int,
+                     seq_len: int, *, guidance_scale: float = 2.0,
+                     weights_dtype: torch.dtype = torch.bfloat16,
+                     pack_cfg: Optional[bool] = None,
+                     _force_general_cross: bool = False
+                     ) -> tuple[dict, dict]:
+    """Everything of a sampling call that does not depend on the step:
+    ``(tables, kw)``. ``tables`` holds the packed weights (``packed``), the
+    positions (``pos``), the condition's cross-attention tables (``kc``,
+    ``vc``), the AdaLN tables of all T timesteps in sampling order
+    (``adaln_all``: row i is timestep T - 1 - i), the schedule rows
+    (``rows``) and, on a CUDA device, the kernels' ``scratch``; ``kw`` the
+    keyword arguments of :func:`megakernel_step` that stay fixed."""
+    if cond_emb is None:
+        raise ValueError("the megakernel route needs a condition sequence "
+                         "(B, S, D)")
+    T = sched.num_timesteps
+    device = sched.device
+    n_embd = transformer.ln_out.normalized_shape[0]
+    packed = pack_denoiser_params(transformer, weights_dtype)
+    use_cfg = abs(guidance_scale - 1.0) >= 1e-3
+    s_valid = cond_emb.shape[1]
+    if pack_cfg is None:
+        pack_cfg = use_cfg and seq_len <= _PACK_CFG_MAX_SEQ
+    cross_as_bias = s_valid == 1 and not _force_general_cross
+    kc, vc = cross_tables(packed, cond_emb, cf_cond_emb, use_cfg,
+                          cross_as_bias)
+    timesteps = torch.arange(T - 1, -1, -1, device=device)
+    tables = dict(
+        packed=packed, pos=positions(packed, seq_len), kc=kc, vc=vc,
+        adaln_all=_adaln_table(packed, timesteps,
+                               transformer.block0.ln1.emb.num_steps, n_embd),
+        rows=schedule_rows(sched),
+        scratch=(alloc_scratch(batch_size, 2 if use_cfg else 1, seq_len,
+                               device) if device.type == "cuda" else None))
+    kw = dict(n_layer=transformer.n_layer,
+              n_head=transformer.block0.attn1.n_head, n_embd=n_embd,
+              num_classes=sched.num_classes, guidance=guidance_scale,
+              use_cfg=use_cfg, s_valid=s_valid, cross_as_bias=cross_as_bias,
+              pack_cfg=bool(pack_cfg) and use_cfg)
+    return tables, kw
+
+
+@torch.no_grad()
+def megakernel_sample_tokens(
+        generator: torch.Generator, sched: D3PMSchedule,
+        transformer: nn.Module, cond_emb: torch.Tensor,
+        cf_cond_emb: Optional[torch.Tensor], batch_size: int, seq_len: int,
+        *, guidance_scale: float = 2.0,
+        weights_dtype: torch.dtype = torch.bfloat16, sample: bool = True,
+        pack_cfg: Optional[bool] = None,
+        _force_general_cross: bool = False) -> torch.Tensor:
+    """Full reverse process, one :func:`megakernel_step` per timestep.
+
+    The weights are packed, the AdaLN tables of all T timesteps and the
+    condition's cross-attention tables made (:func:`prepare_sampling`), and
+    the per-step seeds drawn from ``generator`` (a CPU generator), all
+    before the loop: the loop itself never waits on the device.
+    ``pack_cfg=None`` takes K3 when CFG is on and the grid has at most 1024
+    tokens, else K4. ``_force_general_cross`` (tests) sends a one-token
+    condition through the general cross-attention. Returns (B, L) int64."""
+    tab, kw = prepare_sampling(
+        sched, transformer, cond_emb, cf_cond_emb, batch_size, seq_len,
+        guidance_scale=guidance_scale, weights_dtype=weights_dtype,
+        pack_cfg=pack_cfg, _force_general_cross=_force_general_cross)
+    T = sched.num_timesteps
+    seeds = torch.randint(0, 2 ** 31 - 1, (T,), generator=generator).tolist()
+    tokens = torch.full((batch_size, seq_len), sched.num_classes - 1,
+                        dtype=torch.int64, device=sched.device)
+    for i, seed in enumerate(seeds):
+        tokens = megakernel_step(
+            tab["packed"], tokens, tab["adaln_all"][i], tab["kc"], tab["vc"],
+            tab["pos"], tab["rows"][T - 1 - i], seed, sample=sample,
+            scratch=tab["scratch"], **kw)
+    return tokens

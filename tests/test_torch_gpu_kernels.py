@@ -5,9 +5,18 @@ card: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py``
 Each test asks the ``cuda`` fixture for the device, and the fixture skips
 where there is none: the decision is made while the tests run, never while
 the module is imported, so every worker collects the same tests.
+
+The whole-step kernels' case builder, their check against the plain version
+and its tolerances are ``chip_smoke.py``'s, one copy for both.
 """
+import sys
+from pathlib import Path
+
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
     make_schedule)
@@ -16,6 +25,8 @@ from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
 from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
     import code_stats_reference, nearest_code_stats, \
     nearest_code_stats_reference
+from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+    megakernel as mk)
 from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
     import (fused_sample_step, fused_sample_step_reference, schedule_rows)
 
@@ -31,7 +42,7 @@ K5_TOL = 5e-4
 # sums in another order), statistics against the kernel's own indices
 K6_MARGIN = 1e-3
 K6_TOL = 1e-4
-
+MK_MARGIN = chip_smoke.MK_MARGIN
 
 @pytest.fixture
 def cuda():
@@ -113,16 +124,18 @@ def test_small_slice_on_the_card_matches_the_cpu(cuda):
                                                 "condition_dim": 32}},
             "textencoder": {"mode": "label", "n_classes": 5, "dim": 32}},
     }
-    out = {}
-    for dev in (cuda, torch.device("cpu")):
-        models = build_models(config, dev, torch.Generator().manual_seed(3))
-        tok = sample_token_grid(models, {"label": torch.tensor([1, 2])},
-                                torch.Generator().manual_seed(4),
-                                sample=False)
-        out[dev.type] = (tok.cpu(), models.vqvae.decode(tok).cpu())
-    assert torch.equal(out["cuda"][0], out["cpu"][0])
-    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=2e-4,
-                               atol=2e-4)
+    for sampler in ("model", "megakernel"):
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            models = build_models(config, dev,
+                                  torch.Generator().manual_seed(3))
+            tok = sample_token_grid(models, {"label": torch.tensor([1, 2])},
+                                    torch.Generator().manual_seed(4),
+                                    sample=False, sampler=sampler)
+            out[dev.type] = (tok.cpu(), models.vqvae.decode(tok).cpu())
+        assert torch.equal(out["cuda"][0], out["cpu"][0]), sampler
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=2e-4,
+                                   atol=2e-4)
 
 
 @pytest.mark.parametrize("B,Lq,Lk,C,H", [
@@ -199,3 +212,162 @@ def test_small_training_step_on_the_card_matches_the_cpu(cuda):
         scale = max(float(want.abs().max()), floor)
         torch.testing.assert_close(out["cuda"][1][name], want, rtol=0,
                                    atol=1e-3 * scale, msg=name)
+
+
+def _megakernel_case(device, **case):
+    """A denoiser with every parameter drawn, and one step's arguments."""
+    assert device.type == "cuda"
+    return chip_smoke._megakernel_case(torch, **case)
+
+
+def _check_megakernel(args, kw, pack_cfg):
+    """One argmax step of the kernel against the plain version: the hidden
+    state it leaves in its scratch, then the tokens. Raises AssertionError
+    where they disagree."""
+    return chip_smoke._check_megakernel(torch, "test", "case", args, kw,
+                                        pack_cfg)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,spatial,k,n_layer,s_len,B", [
+    (40, (8, 8), 17, 2, 1, 3),            # ragged tiles, one class chunk
+    (96, (12, 8), 200, 3, 3, 2),          # general cross-attention
+    (64, (8, 8), 17, 2, 77, 2),           # a text-length condition
+    (1024, (32, 32), 4097, 19, 1, 2),     # the serving width
+    # more work items than blocks of the persistent grid: every block loops
+    (200, (20, 10), 17, 2, 3, 48),        # ... over ragged tiles
+    (1024, (32, 32), 4097, 19, 1, 32),    # ... at the serving batch
+])
+def test_packed_megakernel_matches_plain(cuda, L, spatial, k, n_layer, s_len,
+                                         B, dtype):
+    args, kw = _megakernel_case(cuda, L=L, spatial=spatial, k=k,
+                                n_layer=n_layer, s_len=s_len, B=B,
+                                use_cfg=True, dtype=dtype, seed=L + k)
+    _check_megakernel(args, kw, pack_cfg=True)
+
+
+@pytest.mark.parametrize("L,spatial,k,n_layer,s_len,B,use_cfg", [
+    (40, (8, 8), 17, 2, 1, 3, False),
+    (40, (8, 8), 17, 2, 1, 3, True),
+    (96, (12, 8), 200, 3, 3, 2, True),
+    (64, (8, 8), 17, 2, 77, 2, False),
+    (1024, (32, 32), 4097, 19, 1, 2, False),     # guidance 1
+    (2304, (48, 48), 4097, 19, 1, 2, True),      # the MSRVTT grid
+    (2304, (48, 48), 4097, 4, 77, 1, True),      # ... with a text condition
+    # more work items than blocks of the persistent grid: every block loops
+    (200, (20, 10), 17, 2, 3, 48, True),
+    (1024, (32, 32), 4097, 19, 1, 32, False),
+    (2304, (48, 48), 4097, 19, 1, 8, True),      # the MSRVTT serving batch
+])
+def test_branch_megakernel_matches_plain(cuda, L, spatial, k, n_layer, s_len,
+                                         B, use_cfg):
+    args, kw = _megakernel_case(cuda, L=L, spatial=spatial, k=k,
+                                n_layer=n_layer, s_len=s_len, B=B,
+                                use_cfg=use_cfg, dtype=torch.bfloat16,
+                                seed=L + k + s_len)
+    _check_megakernel(args, kw, pack_cfg=False)
+
+
+@pytest.mark.parametrize("B", [2, 32])
+def test_branch_megakernel_equals_packed(cuda, B):
+    args, kw = _megakernel_case(cuda, L=1024, spatial=(32, 32), k=4097,
+                                n_layer=4, s_len=1, B=B, use_cfg=True,
+                                dtype=torch.bfloat16, seed=5)
+    k3 = mk.megakernel_step(*args, sample=False, pack_cfg=True, **kw)
+    k4 = mk.megakernel_step(*args, sample=False, pack_cfg=False, **kw)
+    assert torch.equal(k3, k4)
+
+
+def test_one_token_condition_as_bias_equals_general_cross(cuda):
+    a, kw = _megakernel_case(cuda, L=96, spatial=(12, 8), k=200, n_layer=3,
+                             s_len=1, B=2, use_cfg=True, dtype=torch.float32,
+                             seed=6)
+    b, kwg = _megakernel_case(cuda, L=96, spatial=(12, 8), k=200, n_layer=3,
+                              s_len=1, B=2, use_cfg=True, dtype=torch.float32,
+                              seed=6, force_general=True)
+    fast = _check_megakernel(a, kw, pack_cfg=True)
+    general = _check_megakernel(b, kwg, pack_cfg=True)
+    post = mk.megakernel_step_reference(*a, sample=False,
+                                        return_posterior=True, **kw)[1]
+    top2 = post.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MK_MARGIN
+    assert not ((fast != general) & decided).any()
+
+
+def test_megakernel_samples_in_range_and_by_seed(cuda):
+    args, kw = _megakernel_case(cuda, L=256, spatial=(16, 16), k=4097,
+                                n_layer=2, s_len=1, B=2, use_cfg=True,
+                                dtype=torch.bfloat16, seed=8)
+    for pack_cfg in (True, False):
+        draw = [mk.megakernel_step(*args[:7], s, pack_cfg=pack_cfg, **kw)
+                for s in (1, 1, 2)]
+        assert torch.equal(draw[0], draw[1])
+        assert not torch.equal(draw[0], draw[2])
+        assert draw[0].min() >= 0 and draw[0].max() < 4097
+
+
+def test_megakernel_sampled_histogram_follows_the_posterior(cuda):
+    """At K = 17 the classes drawn over many seeds follow the plain
+    posterior: the total variation between the empirical class frequencies
+    (over all positions and seeds) and the mean posterior stays under 0.03
+    (25600 draws over 17 classes: sampling noise is ~0.01)."""
+    k, L, B, n = 17, 64, 2, 200
+    args, kw = _megakernel_case(cuda, L=L, spatial=(8, 8), k=k, n_layer=2,
+                                s_len=1, B=B, use_cfg=True,
+                                dtype=torch.bfloat16, seed=9, t=30)
+    post = mk.megakernel_step_reference(*args, sample=False,
+                                        return_posterior=True, **kw)[1]
+    want = post.exp().sum(dim=(0, 2))
+    want = want / want.sum()
+    for pack_cfg in (True, False):
+        counts = torch.zeros(k, device=cuda)
+        for s in range(n):
+            tok = mk.megakernel_step(*args[:7], 1000 + s, pack_cfg=pack_cfg,
+                                     **kw)
+            counts += torch.bincount(tok.flatten(), minlength=k)
+        tv = 0.5 * (counts / counts.sum() - want).abs().sum().item()
+        print(f"pack_cfg={pack_cfg}: total variation {tv:.4f}")
+        assert tv < 0.03
+
+
+def test_more_work_items_than_blocks(cuda):
+    """The cases above marked so do exceed the persistent grid."""
+    for packed in (0, 1):
+        cap = mk._library().megakernel_grid_blocks(packed)
+        assert 0 < cap < 48 * 7                     # B=48, L=200 in tiles
+        assert cap < 8 * 2 * (2304 // 64)           # B=8, L=2304 tile items
+        assert cap < 32 * (1024 // 64)              # B=32, L=1024, one branch
+
+
+def test_auto_serves_a_width_the_kernels_are_not_built_for(cuda):
+    """The default route of the entry point on the card: a 32-wide model
+    goes through the model route, and the whole-step kernels are not
+    launched; asking for them by name raises."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        build_models, sample_token_grid)
+    cfg = chip_smoke._small_train_config()
+    cfg["generator"]["diffusion_model"]["transformer"].update(
+        n_embd=32, n_head=8)
+    models = build_models(cfg, "cuda", torch.Generator().manual_seed(11))
+    batch = {"label": torch.tensor([0, 3, 4])}
+    before = (mk.megakernel_step.launches_k3, mk.megakernel_step.launches_k4)
+    tok = sample_token_grid(models, batch, torch.Generator().manual_seed(12))
+    assert (mk.megakernel_step.launches_k3,
+            mk.megakernel_step.launches_k4) == before
+    want = sample_token_grid(models, batch, torch.Generator().manual_seed(12),
+                             sampler="model")
+    assert torch.equal(tok, want)
+    with pytest.raises(ValueError):
+        sample_token_grid(models, batch, torch.Generator().manual_seed(12),
+                          sampler="megakernel")
+
+
+def test_megakernel_refuses_other_widths(cuda):
+    args, kw = _megakernel_case(cuda, L=40, spatial=(8, 8), k=17, n_layer=2,
+                                s_len=1, B=2, use_cfg=True,
+                                dtype=torch.bfloat16, seed=1)
+    with pytest.raises(ValueError):
+        mk.megakernel_step(*args, pack_cfg=True, **dict(kw, n_head=8))
+    with pytest.raises(ValueError):     # the packed kernel is the CFG kernel
+        mk.megakernel_step(*args, pack_cfg=True, **dict(kw, use_cfg=False))
