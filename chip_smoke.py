@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
-    python3 chip_smoke.py --profile   # and a torch.profiler table of
-                                      # one training step
+    python3 chip_smoke.py --profile   # and a torch.profiler table of a
+                                      # training step of each stage
 
 Phases:
   1. the card (nvidia-smi name and power limit), the torch / CUDA / Triton
-     versions, TF32 off, and the builds of the four CUDA sources under
+     versions, TF32 off, and the builds of the five CUDA sources under
      ``csrc/`` (one nvcc each, started together);
   2. the Triton sampler-step kernel (K1) against its plain version, then
      both timed at the main path's shape;
@@ -37,9 +37,26 @@ Phases:
  10. the serving slice on the ``megakernel`` route: a small argmax run
      against the CPU, ``HONEST`` at B=32 (a B=4 warm-up first) through K3,
      and ``MSRVTT_GRID`` (2304 tokens) at B=8 through K4, 100 steps each.
+ 11. the probe product (P1) against its plain version, timed, and the
+     build-cache probe: two child processes in turn on one fresh build
+     directory and Triton cache, each building and running P1 and one K1
+     launch; their first-call times and the verdict on one line;
+ 12. the chain kernels (P2, P3) against their plain versions at ``iters``
+     <= 4 (where sum(x) is far from 0), checksums included, at the QK shape
+     and at two depth-curve shapes; both timed at the QK shape; then the
+     depth / packing probe's three measurements, each with the share of the
+     exchange and of the grid barrier alone;
+ 13. stage-1 training: a small step held against the same step on the CPU
+     (loss, every gradient, the codebook's new buffers, the running
+     statistics), then ``TRAIN_STEP1`` at B=64 on a fixed synthetic batch:
+     the first step (data-dependent init), 2 warm-up, 5 timed, the K6
+     launches per step, one more step with host synchronisation forbidden,
+     and where a step's time goes (CUDA events).
 Then one JSON line of the kernels (``launches``: K1 from the ``model``
-serving run, K2 from that and the timed training runs, K5 and K6 from the
-timed training run, K3 and K4 from the ``megakernel`` serving runs;
+serving run and the build-cache probe's children, K2 from that serving run
+and the timed stage-2 steps, K5 from those steps, K6 from the timed steps of
+both stages, K3 and K4 from the ``megakernel`` serving runs, P1 from the
+build-cache probe's children, P2 and P3 from the depth / packing probe;
 ``launches_by_path`` splits the count by the run it came from), and the
 last line ``{"ok": true, "device": {...}}``. Any failure raises: there is
 no CPU run.
@@ -79,6 +96,10 @@ K6_TOL = 1e-4
 # gradient (a key bias's gradient is zero analytically)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+# the small stage-1 step on the card against the CPU: the loss and the
+# gradients as the stage-2 step above; the codebook's new buffers and the
+# BatchNorm running statistics against each tensor's max-abs
+STAGE1_STATE_TOL = 1e-4
 # K3 / K4: the final hidden state against the plain version's, relative to
 # its max-abs (f32 sums in another order; a value that lands on the other
 # side of a bf16 rounding boundary moves by one bf16 ulp), and the argmax
@@ -88,6 +109,20 @@ MK_MARGIN = 1e-2
 # sampled classes against the plain posterior at K = 17: total variation of
 # 25600 draws (sampling noise ~0.01)
 MK_TV_TOL = 0.03
+
+# P1: f32 FMA sums of 256 terms in another order than the library's
+P1_TOL = 1e-4
+# P2 / P3 at iters <= 4 (later x is 0 in bf16 on both sides). The products
+# of bf16 values are exact; the tensor cores add them in another order than
+# the plain f32 product, so a sum can land on the other side of a bf16
+# rounding boundary (one ulp = 2^-8 of the element) and the flip feeds the
+# next iterations. Final x: each element within 2^-6 of the plain max-abs;
+# sum(x): within 2^-8 of the plain sum of |x|; each checksum entry (f32
+# sums of exact products, dominated by the first iteration, which no flip
+# touches) within 1e-3 of the plain checksum's max-abs.
+CHAIN_X_TOL = 2.0 ** -6
+CHAIN_SUM_TOL = 2.0 ** -8
+CHAIN_CHECK_TOL = 1e-3
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): device memory
 # bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
@@ -143,11 +178,12 @@ def phase_environment(torch) -> str:
     print("phase 1: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
-        attention, codebook_kernel, megakernel)
+        attention, codebook_kernel, megakernel, probe_kernels)
     builds = {"fused_mha_fwd.cu": attention._library,
               "fused_mha_bwd.cu": attention._bwd_library,
               "nearest_code_stats.cu": codebook_kernel._library,
-              "megakernel_step.cu": megakernel._library}
+              "megakernel_step.cu": megakernel._library,
+              "probe_kernels.cu": probe_kernels._library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = dict(zip(builds, pool.map(lambda f: f(), builds.values())))
@@ -608,9 +644,6 @@ def _profile_step(torch, state, batch, generator) -> None:
     the frozen encode, the forward with the loss, the backward and Adam.
     Then torch.profiler over 2 steps: device time by kernel, and the
     device's busy share of the (profiled) wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage2
     from gif_synthesis_with_discrete_diffusion_tpu_torch.train.metrics import (
         weighted_losses)
@@ -639,13 +672,22 @@ def _profile_step(torch, state, batch, generator) -> None:
               f"{n} {t:.2f}" for n, t in part_ms.items())
           + f"; sum {sum(part_ms.values()):.2f}")
 
-    steps = 2
+    _profile_kernels(torch, "phase 7",
+                     lambda: stage2.train_step(state, batch, generator))
+
+
+def _profile_kernels(torch, phase: str, step, steps: int = 2) -> None:
+    """torch.profiler over ``steps`` calls of ``step``: device time by
+    kernel, and the device's busy share of the (profiled) wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            stage2.train_step(state, batch, generator)
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels: dict[str, list] = {}
@@ -655,12 +697,12 @@ def _profile_step(torch, state, batch, generator) -> None:
             k[0] += e.device_time_total
             k[1] += 1
     device_us = sum(k[0] for k in kernels.values())
-    print(f"phase 7 profile: {steps} steps, wall {wall * 1e3 / steps:.2f} "
+    print(f"{phase} profile: {steps} steps, wall {wall * 1e3 / steps:.2f} "
           f"ms/step (profiled), device kernels {device_us / 1e3 / steps:.2f} "
           f"ms/step = {100 * device_us / 1e6 / wall:.1f} % busy")
     for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]
                                 )[:25]:
-        print(f"phase 7 profile: {us / 1e3 / steps:8.3f} ms/step "
+        print(f"{phase} profile: {us / 1e3 / steps:8.3f} ms/step "
               f"{100 * us / device_us:5.1f} % {n // steps:5d} calls/step  "
               f"{name[:90]}")
 
@@ -953,6 +995,81 @@ def phase_k4(torch, smi: str, msrvtt) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def _chain_inputs(torch, m: int, k: int, n: int, seed: int, ones: bool):
+    """x (m, k) and two w (k, n) ~ N(0, 1) / k, bf16 on the card; ``ones``
+    gives the probe's own x (all ones), else x ~ N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.ones((m, k)) if ones else torch.randn((m, k), generator=g)
+    w1, w2 = (torch.randn((k, n), generator=g) / k for _ in range(2))
+    return tuple(t.to(torch.bfloat16).to("cuda") for t in (x, w1, w2))
+
+
+def _check_chain(torch, phase: str, m: int, k: int, n: int, iters: int,
+                 pair: bool, ones: bool = False) -> float:
+    """One launch of P2 (or P3) against its plain version on the card at
+    ``iters`` <= 4: the final x, sum(x) and the checksum, and one launch
+    counted. Returns the error of sum(x)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+
+    x, w1, w2 = _chain_inputs(torch, m, k, n, m + k + n + iters, ones)
+    before = (pk.chain_matmul.launches, pk.pair_matmul.launches)
+    if pair:
+        got = pk.pair_matmul(x, w1, w2, iters, return_x=True)
+        want = pk.pair_reference(x, w1, w2, iters, return_x=True)
+    else:
+        got = pk.chain_matmul(x, w1, iters, return_x=True)
+        want = pk.chain_reference(x, w1, iters, return_x=True)
+    torch.cuda.synchronize()
+    counted = (pk.chain_matmul.launches - before[0],
+               pk.pair_matmul.launches - before[1])
+    xw = want[2].float()
+    x_err = (got[2].float() - xw).abs().max().item()
+    s_err = (got[0] - want[0]).abs().item()
+    c_err = (got[1] - want[1]).abs().max().item()
+    x_scale, l1 = xw.abs().max().item(), xw.abs().sum().item()
+    c_scale = want[1].abs().max().item()
+    name = "P3 pair" if pair else "P2 chain"
+    print(f"{phase}: {name} ({m}, {k}) x ({k}, {n}), iters {iters}, x "
+          f"{'ones' if ones else 'N(0, 1)'}: sum(x) {got[0].item():.6g} vs "
+          f"plain {want[0].item():.6g} (error {s_err:.3e}, tol "
+          f"{CHAIN_SUM_TOL * l1:.3e} = 2^-8 of sum |x|); final x max-abs "
+          f"error {x_err:.3e} of {x_scale:.3e} (tol 2^-6 relative); checksum "
+          f"max-abs error {c_err:.3e} of {c_scale:.3e} (tol "
+          f"{CHAIN_CHECK_TOL} relative)")
+    if counted != (int(not pair), int(pair)):
+        raise AssertionError(f"{name}: launches counted {counted}")
+    if iters and (want[0].item() == 0.0 or l1 == 0.0 or c_scale == 0.0):
+        raise AssertionError(f"{name}: the plain sum is 0: nothing compared")
+    if not x_err <= CHAIN_X_TOL * x_scale or \
+            not s_err <= CHAIN_SUM_TOL * l1 or \
+            not c_err <= CHAIN_CHECK_TOL * c_scale:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return s_err
+
+
+def _check_probe_matmul(torch, phase: str, n: int) -> float:
+    """P1 against its plain version on the card."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    a = torch.randn((n, n), generator=g, device="cuda")
+    before = pk.probe_matmul.launches
+    got = pk.probe_matmul(a)
+    want = pk.probe_matmul_reference(a)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"{phase}: P1 ({n}, {n}) f32: max-abs error {err:.3e} of "
+          f"{scale:.3e} (tol {P1_TOL} relative)")
+    if pk.probe_matmul.launches != before + 1:
+        raise AssertionError("P1: the launch was not counted")
+    if not err <= P1_TOL * scale:
+        raise AssertionError("P1 disagrees with its plain version")
+    return err
+
+
 def _megakernel_counts() -> tuple[int, int]:
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
@@ -1036,6 +1153,294 @@ def phase_megakernel_route(torch, smi: str, honest, msrvtt) -> dict:
     return launches
 
 
+def phase_p1(torch, smi: str) -> tuple[dict, dict]:
+    """P1 against its plain version, timed; then the build-cache probe.
+    Returns P1's numbers for the kernels' line and the launches its
+    children counted ({"P1": n, "K1": n})."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        build_cache_probe)
+
+    worst = max(_check_probe_matmul(torch, "phase 11", n) for n in (100, 256))
+    a = torch.ones((256, 256), device="cuda")
+    zero = torch.zeros_like(a)
+    ms, plain_ms = _ab_ms(lambda: pk.probe_matmul_reference(a),
+                          lambda: pk.probe_matmul(a), 20)
+    lib_ms = _time_ms(lambda: torch.addmm(zero, a, a, beta=0.0, alpha=2.0),
+                      20)
+    flops, nbytes = 2.0 * 256 ** 3, 2.0 * 4 * 256 * 256
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(f"phase 11: P1 (256, 256) f32 kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.addmm(beta=0, alpha=2) {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms by {bound_by} ({flops / 1e6:.1f} MFLOP "
+          f"at {PEAK_F32 / 1e12} TFLOP/s f32, {nbytes / 1e6:.2f} MB) ({smi})")
+
+    res = build_cache_probe.probe(timeout=300.0, hang_dump_s=240,
+                                  log=lambda line: None)
+    pa, pb = res["a"], res["b"]
+    for name, ph in (("A", pa), ("B", pb)):
+        if not ph.get("ok"):
+            raise AssertionError(f"build-cache probe, phase {name}: "
+                                 f"{ph.get('tail')}")
+    print("phase 11: build-cache probe: "
+          + "; ".join(
+              f"phase {name} nvcc {ph['nvcc_build_s']:.2f} s, P1 first call "
+              f"{ph['p1_first_call_s']:.2f} s, K1 first call "
+              f"{ph['k1_first_call_s']:.2f} s, second calls "
+              f"{ph['second_calls_s']:.4f} s, {ph['build_files']} build and "
+              f"{ph['triton_cache_files']} Triton cache files, process "
+              f"{ph['wall_s']:.1f} s" for name, ph in (("A", pa), ("B", pb)))
+          + f": {res['verdict']} ({smi})")
+    if not all(ph["p1_right"] and ph["k1_right"] for ph in (pa, pb)):
+        raise AssertionError("build-cache probe: wrong values")
+    launches = {"P1": pa["p1_launches"] + pb["p1_launches"],
+                "K1": pa["k1_launches"] + pb["k1_launches"]}
+    return (dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms),
+            launches)
+
+
+def phase_chains(torch, smi: str) -> tuple[dict, dict, dict]:
+    """P2 and P3 against their plain versions, timed at the QK shape, then
+    the depth / packing probe. Returns (P2's numbers, P3's numbers, the
+    probe's launches {"P2": n, "P3": n})."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        depth_pack_probe)
+
+    worst = {False: 0.0, True: 0.0}
+    for m, k, n, iters, ones in ((256, 64, 16384, 4, True),
+                                 (256, 64, 16384, 3, False),
+                                 (256, 128, 2048, 4, False),
+                                 (256, 512, 2048, 2, False),
+                                 (256, 128, 32768, 2, False)):
+        for pair in (False, True):
+            worst[pair] = max(worst[pair], _check_chain(
+                torch, "phase 12", m, k, n, iters, pair, ones))
+
+    # timed at the QK shape with the probe's own operands and iterations
+    m, k, n, iters = 256, 64, 16384, depth_pack_probe.ITERS
+    x, w1, w2 = (torch.from_numpy(a).to(torch.bfloat16).to("cuda")
+                 for a in depth_pack_probe.probe_inputs(m, k, n))
+
+    def library(ws):
+        # the yardstick: a loop of the library's bf16 product (its output
+        # rounded to bf16 before the scale), one chain after the other
+        for w in ws:
+            y = x
+            for _ in range(iters):
+                y = torch.matmul(y, w)[:, :k] * 0.01
+        return y
+
+    numbers = {}
+    for name, ws, kernel, plain in (
+            ("P2", (w1,), lambda: pk.chain_matmul(x, w1, iters),
+             lambda: pk.chain_reference(x, w1, iters)),
+            ("P3", (w1, w2), lambda: pk.pair_matmul(x, w1, w2, iters),
+             lambda: pk.pair_reference(x, w1, w2, iters))):
+        ms, plain_ms = _ab_ms(plain, kernel, 2)
+        lib_ms = _time_ms(lambda: library(ws), 2)
+        flops = 2.0 * m * k * n * iters * len(ws)
+        nbytes = 2.0 * (m * k + len(ws) * k * n) + 4.0 * (
+            1 + len(ws) * n // pk.CHECKSUM_GROUP)
+        bound_ms, bound_by = _bound(nbytes, 0.0, flops)
+        print(f"phase 12: {name} ({m}, {k}) x ({k}, {n}), {iters} "
+              f"iterations, {len(ws)} chain(s): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, a loop of torch.matmul (bf16) "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops / 1e9:.1f} GFLOP of bf16 operands at "
+              f"{PEAK_BF16 / 1e12} TFLOP/s, {nbytes / 1e6:.2f} MB) ({smi})")
+        numbers[name] = dict(max_abs_err=worst[name == "P3"], ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms)
+
+    pk.chain_matmul.launches = pk.pair_matmul.launches = 0
+    results = depth_pack_probe.measure(
+        log=lambda line: print(f"phase 12: probe: {line}"))
+    launches = {"P2": pk.chain_matmul.launches,
+                "P3": pk.pair_matmul.launches}
+    print("phase 12: probe result: " + json.dumps(results))
+    print(f"phase 12: the probe launched P2 {launches['P2']} and P3 "
+          f"{launches['P3']} times ({smi})")
+    return numbers["P2"], numbers["P3"], launches
+
+
+def _small_stage1_config() -> dict:
+    return {"generator": {"embedding_dim": 16, "n_codes": 32,
+                          "n_hiddens": 32, "n_res_layers": 1,
+                          "downsample": (1, 2, 2), "sequence_length": 4,
+                          "resolution": 8},
+            "losses": {"loss_dict": {"l_dummy": 1.0}},
+            "lr_args": {"gen_lr": 4e-4}}
+
+
+def _small_stage1_step(torch, device) -> dict:
+    """One stage-1 step (the codebook's first: init, EMA update, restarts
+    of the unused codes) at a small width on ``device`` with injected
+    candidate rows: the loss, every gradient, the VQ-VAE's buffers after
+    the step. (The card's tests run it too.)"""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage1
+
+    config = _small_stage1_config()
+    state = stage1.build_stage1(config, device,
+                                torch.Generator().manual_seed(0))
+    batch = stage1.synthetic_batch(config, 2)
+    g = torch.Generator().manual_seed(3)
+    draws = dict(init_rows=torch.randn((32, 16), generator=g),
+                 restart_rows=torch.randn((32, 16), generator=g))
+    values = stage1.train_step(state, batch, **draws)
+    return dict(
+        loss=float(values["total"]),
+        grads={n: p.grad.cpu() for n, p in state.vqvae.named_parameters()},
+        buffers={n: b.cpu() for n, b in state.vqvae.named_buffers()})
+
+
+def _compare_stage1_steps(torch, got: dict, want: dict
+                          ) -> tuple[float, float, float]:
+    """(loss, gradient, buffer) errors of a step against another: relative;
+    each gradient and buffer against its tensor's max-abs, the gradients'
+    scale floored at 1e-2 of the largest gradient (a bias in front of a
+    training-mode BatchNorm has a zero gradient analytically: what comes
+    back is the rounding noise of cancelling sums of large terms)."""
+    lerr = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    floor = 1e-2 * max(float(w.abs().max()) for w in want["grads"].values())
+    gerr = max(float((got["grads"][n] - w).abs().max())
+               / max(float(w.abs().max()), floor)
+               for n, w in want["grads"].items())
+    berr = 0.0
+    for n, w in want["buffers"].items():
+        b = got["buffers"][n]
+        if w.dtype == torch.bool:
+            if not torch.equal(b, w):
+                raise AssertionError(f"buffer {n} differs")
+            continue
+        berr = max(berr, float((b - w).abs().max())
+                   / max(float(w.abs().max()), 1e-6))
+    return lerr, gerr, berr
+
+
+def phase_stage1(torch, smi: str, profile: bool) -> dict:
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import nearest_code_stats
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage1
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.metrics import (
+        weighted_losses)
+
+    lerr, gerr, berr = _compare_stage1_steps(
+        torch, _small_stage1_step(torch, "cuda"),
+        _small_stage1_step(torch, "cpu"))
+    print(f"phase 13: small stage-1 step (B=2, 4 x 8 x 8 px, 32 codes of "
+          f"dim 16; init, EMA update and restarts) on the card vs the CPU: "
+          f"loss relative {lerr:.3e} (tol {TRAIN_LOSS_RTOL}); gradients "
+          f"within {gerr:.3e} of their max-abs (tol {TRAIN_GRAD_TOL}); "
+          f"codebook buffers and running statistics within {berr:.3e} (tol "
+          f"{STAGE1_STATE_TOL})")
+    if not lerr <= TRAIN_LOSS_RTOL or not gerr <= TRAIN_GRAD_TOL or \
+            not berr <= STAGE1_STATE_TOL:
+        raise AssertionError("the stage-1 step on the card disagrees with "
+                             "the CPU")
+
+    b = stage1.TRAIN_STEP1_BATCH
+    t0 = time.perf_counter()
+    state = stage1.build_stage1(stage1.TRAIN_STEP1, "cuda",
+                                torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"phase 13: built TRAIN_STEP1 in {time.perf_counter() - t0:.2f} s; "
+          f"{sum(p.numel() for p in state.vqvae.parameters())} trained "
+          f"parameters")
+    batch = {"video": torch.from_numpy(
+        stage1.synthetic_batch(stage1.TRAIN_STEP1, b)["video"]).to("cuda")}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cb = state.vqvae.codebook
+    # the perplexity rides along as a monitor of weight 0
+    state.loss_dict = dict(state.loss_dict, l_perplexity=0.0)
+    losses, seconds, k6 = [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(8):
+        nearest_code_stats.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values = stage1.train_step(state, batch, g)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        count = nearest_code_stats.launches
+        restarted = int((cb.ema_count < 1.0).sum())
+        kind = ("init" if i == 0 else "warm-up" if i < 3 else "timed")
+        loss = float(values["total"])
+        print(f"phase 13: TRAIN_STEP1 B={b} step {i} ({kind}): {dt:.4f} s, "
+              f"loss {loss:.6f}, perplexity "
+              f"{float(values['l_perplexity']):.2f}, {restarted} codes "
+              f"restarted; K6 launches {count}")
+        if count != 1:
+            raise AssertionError(f"step {i}: K6 launched {count} times, "
+                                 f"expected 1")
+        if not math.isfinite(loss):
+            raise AssertionError("the stage-1 loss is not finite")
+        losses.append(loss)
+        if i >= 3:
+            seconds.append(dt)
+            k6 += count
+    per_step = sum(seconds) / len(seconds)
+    print(f"phase 13: TRAIN_STEP1 B={b}: {per_step * 1e3:.2f} ms/step = "
+          f"{1 / per_step:.3f} steps/s over {len(seconds)} timed steps (min "
+          f"{min(seconds) * 1e3:.2f}, max {max(seconds) * 1e3:.2f}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; loss on the fixed batch {losses[0]:.4f} at the first "
+          f"step, {losses[-1]:.4f} at the last; {smi}")
+    if not losses[-1] < losses[0] or not bool(cb.initialized):
+        raise AssertionError("the stage-1 loss did not fall")
+
+    # one more step with host synchronisation forbidden
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        values = stage1.train_step(state, batch, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"phase 13: a step under torch.cuda.set_sync_debug_mode('error') "
+          f"ran through: no host synchronisation inside the step (loss "
+          f"{float(values['total']):.6f})")
+
+    # where a step's time goes: CUDA events between its parts
+    parts = ("preprocess", "encoder", "codebook (K6, EMA, restarts)",
+             "decoder + losses", "backward", "adam")
+    steps = 3
+    part_ms = dict.fromkeys(parts, 0.0)
+    vq = state.vqvae
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        video = stage1._video(state, batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[1].record()
+        z = vq.pre_vq_conv(vq.encoder(video, True))
+        ev[2].record()
+        q = vq.codebook(z, train=True, generator=g)
+        ev[3].record()
+        recon = vq.decoder(vq.post_vq_conv(q["embeddings"]), True)
+        total = weighted_losses({"l_dummy": 1.0}, {"losses": {
+            "recon_loss": torch.mean(torch.square(recon - video))
+            * vq.recon_loss_scale,
+            "commitment_loss": q["commitment_loss"]}})[0]
+        ev[4].record()
+        total.backward()
+        ev[5].record()
+        state.optimizer.step()
+        ev[6].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            part_ms[name] += ev[i].elapsed_time(ev[i + 1]) / steps
+    print(f"phase 13: device ms/step by part (CUDA events, mean of {steps} "
+          "steps): " + ", ".join(f"{n} {t:.2f}" for n, t in part_ms.items())
+          + f"; sum {sum(part_ms.values()):.2f}")
+    if profile:
+        _profile_kernels(torch, "phase 13",
+                         lambda: stage1.train_step(state, batch, g))
+    return {"K6": k6}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1050,7 +1455,8 @@ def main() -> int:
     launches = phase_slice(torch, smi)
     k5 = phase_k5(torch, smi)
     k6 = phase_k6(torch, smi)
-    train = phase_train(torch, smi, "--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    train = phase_train(torch, smi, profile)
 
     from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
         HONEST, MSRVTT_GRID, build_models)
@@ -1064,16 +1470,25 @@ def main() -> int:
     k3 = phase_k3(torch, smi, honest)
     k4 = phase_k4(torch, smi, msrvtt)
     route = phase_megakernel_route(torch, smi, honest, msrvtt)
+    del honest, msrvtt
+    torch.cuda.empty_cache()
+    p1, probe_children = phase_p1(torch, smi)
+    p2, p3, probe_chains = phase_chains(torch, smi)
+    stage1_run = phase_stage1(torch, smi, profile)
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
     serve_mk = "serving, megakernel route, 100 steps"
     training = "training, B=16, timed steps"
+    training1 = "stage-1 training, B=64, timed steps"
+    cache_probe = "build-cache probe, both child processes"
+    depth_probe = "depth / packing probe"
     kernels = [
         dict(name="fused_sample_step", route="triton",
              source=f"{PKG}/ops/sampler_kernel.py",
              replaces=tpu + "ops/sampler_kernel.py:33",
-             launches=launches["K1"],
-             launches_by_path={serve_model: launches["K1"]}, **k1),
+             launches=launches["K1"] + probe_children["K1"],
+             launches_by_path={serve_model: launches["K1"],
+                               cache_probe: probe_children["K1"]}, **k1),
         dict(name="fused_mha_fwd", route="cuda",
              source=f"{PKG}/csrc/fused_mha_fwd.cu",
              replaces=tpu + "ops/attention.py:70",
@@ -1100,9 +1515,29 @@ def main() -> int:
         dict(name="nearest_code_stats", route="cuda",
              source=f"{PKG}/csrc/nearest_code_stats.cu",
              replaces=tpu + "ops/codebook_kernel.py:56",
-             launches=train["K6"], launches_by_path={training: train["K6"]},
-             **k6),
+             launches=train["K6"] + stage1_run["K6"],
+             launches_by_path={training: train["K6"],
+                               training1: stage1_run["K6"]}, **k6),
+        dict(name="probe_matmul", route="cuda",
+             source=f"{PKG}/csrc/probe_kernels.cu",
+             replaces="scripts/compile_cache_probe.py:59",
+             launches=probe_children["P1"],
+             launches_by_path={cache_probe: probe_children["P1"]}, **p1),
+        dict(name="chain_matmul", route="cuda",
+             source=f"{PKG}/csrc/probe_kernels.cu",
+             replaces="scripts/depth_pack_probe.py:48",
+             launches=probe_chains["P2"],
+             launches_by_path={depth_probe: probe_chains["P2"]}, **p2),
+        dict(name="pair_matmul", route="cuda",
+             source=f"{PKG}/csrc/probe_kernels.cu",
+             replaces="scripts/depth_pack_probe.py:95",
+             launches=probe_chains["P3"],
+             launches_by_path={depth_probe: probe_chains["P3"]}, **p3),
     ]
+    for kernel in kernels:
+        if kernel["launches"] < 1:
+            raise AssertionError(f"{kernel['name']} was not launched on its "
+                                 f"path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

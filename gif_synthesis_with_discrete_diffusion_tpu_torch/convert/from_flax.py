@@ -94,11 +94,12 @@ def vqvae_state_dict(params: Mapping[str, Any],
                      codebook: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A flax ``VQVAE``'s params / batch_stats / codebook collections -> the
     port's ``VQVAE`` state dict: encoder, ``pre_vq_conv``, ``post_vq_conv``
-    and decoder, and the codebook's ``embeddings``, ``ema_count`` and
-    ``ema_sum`` (its ``initialized`` flag belongs to stage-1 training, not
-    ported yet)."""
+    and decoder, and the codebook's ``embeddings``, ``ema_count``,
+    ``ema_sum`` and ``initialized`` flag."""
     sd = flax_to_state_dict(params, batch_stats)
     for name in ("embeddings", "ema_count", "ema_sum"):
         sd[f"codebook.{name}"] = torch.from_numpy(
             np.array(codebook["codebook"][name], np.float32))
+    sd["codebook.initialized"] = torch.from_numpy(
+        np.array(codebook["codebook"]["initialized"], np.bool_))
     return sd

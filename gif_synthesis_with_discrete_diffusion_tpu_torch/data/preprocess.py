@@ -9,6 +9,8 @@ align_corners=False)`` does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -35,7 +37,10 @@ def resize_shorter_side_and_crop(video: torch.Tensor, resolution: int
     return video[..., top:top + resolution, left:left + resolution, :]
 
 
+@functools.cache
 def _stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The normalisation constants on ``device``, copied there once: a
+    training step then waits on no transfer from the host."""
     return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
             torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
 

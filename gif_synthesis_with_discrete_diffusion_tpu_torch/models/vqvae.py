@@ -1,22 +1,25 @@
-"""VideoGPT-style 3D-conv VQ-VAE: encode and decode, with a frozen codebook.
+"""VideoGPT-style 3D-conv VQ-VAE: encode, decode and the training forward.
 
-Port of ``gif_synthesis_with_discrete_diffusion_tpu/models/vqvae.py`` with
-BatchNorm in eval mode:
+Port of ``gif_synthesis_with_discrete_diffusion_tpu/models/vqvae.py``:
 
 * encode: encoder (strided convs, attention residual blocks) ->
   ``pre_vq_conv`` -> codebook lookup (kernel K6,
   :func:`..ops.codebook_kernel.nearest_code_stats`) -> token grid;
 * decode: codebook lookup -> ``post_vq_conv`` -> decoder (attention residual
-  blocks, then transposed convs).
+  blocks, then transposed convs);
+* ``forward(batch, train=)``: encode -> straight-through -> decode with the
+  reconstruction and commitment losses. With ``train=True`` BatchNorm
+  normalises by the batch statistics and the codebook runs its training
+  path (data-dependent init, EMA update, usage-gated restarts), both
+  updating their buffers in place under ``torch.no_grad()`` and without a
+  host synchronisation.
 
-Tensors stay channels-last (B, T, H, W, C) as in the JAX package. The
-codebook's training path (data-dependent init, EMA update, restarts) belongs
-to stage-1 training and is not ported yet: ``train=True`` raises.
+Tensors stay channels-last (B, T, H, W, C) as in the JAX package.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -28,14 +31,16 @@ from ..ops.conv3d import SamePadConv3d, SamePadConvTranspose3d
 __all__ = ["VQVAE", "Encoder", "Decoder", "Codebook", "AxialBlock",
            "AttentionResidualBlock", "AxialSelfAttention", "init_vqvae_"]
 
-_STAGE1 = ("the codebook's training path (EMA update, init, restarts) comes "
-           "with stage-1 training: ROADMAP queue 1, item 11")
-
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default, as torch's
+_BN_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
-    """Channels-last BatchNorm with running statistics (eval mode only)."""
+    """Channels-last BatchNorm by flax's rule (``nn.BatchNorm(momentum=0.9)``).
+    With ``train`` it normalises by the batch's mean and *biased* variance
+    (f32, ``mean(x^2) - mean(x)^2``) and moves the running statistics towards
+    them, ``running = 0.9 * running + 0.1 * batch``, the variance biased
+    too (``torch.nn.BatchNorm3d`` would store the unbiased one)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -44,9 +49,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.empty(channels))
         self.register_buffer("running_var", torch.empty(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + _BN_EPS)
-        return (x - self.running_mean) * scale + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            scale = self.weight * torch.rsqrt(self.running_var + _BN_EPS)
+            return (x - self.running_mean) * scale + self.bias
+        dims = tuple(range(x.ndim - 1))
+        xf = x.float()
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for running, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                running.mul_(_BN_MOMENTUM).add_(batch,
+                                                alpha=1.0 - _BN_MOMENTUM)
+        scale = self.weight * torch.rsqrt(var + _BN_EPS)
+        return ((x - mean) * scale + self.bias).to(x.dtype)
 
 
 class AxialSelfAttention(nn.Module):
@@ -105,10 +122,10 @@ class AttentionResidualBlock(nn.Module):
         self.bn3 = BatchNorm(n_hiddens)
         self.axial = AxialBlock(n_hiddens, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.relu(self.bn1(x)))
-        h = self.conv2(F.relu(self.bn2(h)))
-        return x + self.axial(F.relu(self.bn3(h)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.conv1(F.relu(self.bn1(x, train)))
+        h = self.conv2(F.relu(self.bn2(h, train)))
+        return x + self.axial(F.relu(self.bn3(h, train)))
 
 
 def _downsample_steps(downsample: Sequence[int]) -> list[tuple[int, int, int]]:
@@ -141,14 +158,14 @@ class Encoder(nn.Module):
             self.add_module(f"res{i}", AttentionResidualBlock(n_hiddens))
         self.bn_out = BatchNorm(n_hiddens)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = x
         for i in range(self.n_down):
             h = F.relu(getattr(self, f"conv{i}")(h))
         h = self.conv_last(h)
         for i in range(self.n_res_layers):
-            h = getattr(self, f"res{i}")(h)
-        return F.relu(self.bn_out(h))
+            h = getattr(self, f"res{i}")(h, train)
+        return F.relu(self.bn_out(h, train))
 
 
 class Decoder(nn.Module):
@@ -166,11 +183,11 @@ class Decoder(nn.Module):
             self.add_module(f"convt{i}", SamePadConvTranspose3d(
                 n_hiddens, out_ch, 4, stride))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = x
         for i in range(self.n_res_layers):
-            h = getattr(self, f"res{i}")(h)
-        h = F.relu(self.bn_out(h))
+            h = getattr(self, f"res{i}")(h, train)
+        h = F.relu(self.bn_out(h, train))
         for i in range(self.n_up):
             h = getattr(self, f"convt{i}")(h)
             if i < self.n_up - 1:
@@ -181,32 +198,73 @@ class Decoder(nn.Module):
 class Codebook(nn.Module):
     """EMA vector-quantisation codebook; buffers named after the flax
     ``codebook`` collection: ``embeddings`` (K, D), ``ema_count`` (K,),
-    ``ema_sum`` (K, D)."""
+    ``ema_sum`` (K, D), ``initialized`` () bool.
+
+    Training (``train=True``), in the JAX package's order: data-dependent
+    init on the first step -> lookup on the *current* embeddings ->
+    commitment loss and straight-through output -> EMA update with Laplace
+    smoothing -> usage-gated random restart."""
 
     def __init__(self, n_codes: int, embedding_dim: int,
-                 commitment_cost: float = 0.25):
+                 commitment_cost: float = 0.25, decay: float = 0.99):
         super().__init__()
         self.n_codes = n_codes
         self.embedding_dim = embedding_dim
         self.commitment_cost = commitment_cost
+        self.decay = decay
         self.register_buffer("embeddings",
                              torch.empty(n_codes, embedding_dim))
         self.register_buffer("ema_count", torch.empty(n_codes))
         self.register_buffer("ema_sum", torch.empty(n_codes, embedding_dim))
+        self.register_buffer("initialized", torch.zeros((), dtype=torch.bool))
 
-    def forward(self, z: torch.Tensor, *, train: bool = False) -> dict:
+    def tile_rows(self, flat: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+        """``n_codes`` random candidate rows of ``flat`` (N, D) for the init
+        and the restarts: with fewer rows than codes, ``flat`` is tiled and
+        given noise of std ``0.01 / sqrt(D)`` first. ``generator`` lies on
+        ``flat``'s device."""
+        n, d = flat.shape
+        if n < self.n_codes:
+            flat = flat.repeat(-(-self.n_codes // n), 1)
+            flat = flat + (0.01 / math.sqrt(d)) * torch.randn(
+                flat.shape, generator=generator, device=flat.device,
+                dtype=flat.dtype)
+        perm = torch.randperm(flat.shape[0], generator=generator,
+                              device=flat.device)
+        return flat[perm[:self.n_codes]]
+
+    def forward(self, z: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                init_rows: Optional[torch.Tensor] = None,
+                restart_rows: Optional[torch.Tensor] = None) -> dict:
         """z: (B, t, h, w, D). Nearest-code lookup (kernel K6), the
         straight-through output and the codebook metrics; the JAX package's
-        ``Codebook.__call__`` with ``train=False``."""
-        if train:
-            raise NotImplementedError(_STAGE1)
-        d = self.embedding_dim
+        ``Codebook.__call__``. With ``train`` the buffers are updated in
+        place from K6's ``n_total`` and ``encode_sum``; ``init_rows`` and
+        ``restart_rows`` (K, D) replace the candidate rows that
+        ``generator`` would draw (:meth:`tile_rows`)."""
+        d, k = self.embedding_dim, self.n_codes
         if z.shape[-1] != d:
             raise ValueError(f"codebook: last dim {z.shape[-1]} != {d}")
         flat = z.reshape(-1, d).float().contiguous()
-        indices, n_total, _ = nearest_code_stats(flat, self.embeddings)
+        embeddings = self.embeddings
+        if train:
+            with torch.no_grad():
+                # no host sync: every step draws the init's candidates and
+                # torch.where picks by the flag on the device
+                rows = flat.detach()
+                k_init = (self.tile_rows(rows, generator) if init_rows is None
+                          else init_rows.to(rows))
+                inited = self.initialized
+                embeddings = torch.where(inited, self.embeddings, k_init)
+                n_now = torch.where(inited, self.ema_count,
+                                    torch.ones_like(self.ema_count))
+                zavg_now = torch.where(inited, self.ema_sum, k_init)
+        indices, n_total, encode_sum = nearest_code_stats(flat, embeddings)
         encodings = indices.reshape(z.shape[:-1])
-        quantized = F.embedding(indices, self.embeddings).reshape(
+        quantized = F.embedding(indices, embeddings).reshape(
             z.shape).to(z.dtype)
         commitment_loss = self.commitment_cost * torch.mean(
             torch.square(z - quantized.detach()))
@@ -215,6 +273,22 @@ class Codebook(nn.Module):
         entropy = -torch.sum(avg_probs * torch.log(avg_probs + 1e-10))
         codebook_loss = torch.mean(torch.square(
             z.detach().float() - quantized.float()))
+        if train:
+            with torch.no_grad():
+                new_n = self.decay * n_now + (1.0 - self.decay) * n_total
+                new_zavg = (self.decay * zavg_now
+                            + (1.0 - self.decay) * encode_sum)
+                total = new_n.sum()
+                weights = (new_n + 1e-7) / (total + k * 1e-7) * total
+                new_emb = new_zavg / weights[:, None]
+                k_rand = (self.tile_rows(rows, generator)
+                          if restart_rows is None else restart_rows.to(rows))
+                usage = (new_n[:, None] >= 1.0).float()
+                self.embeddings.copy_(usage * new_emb
+                                      + (1.0 - usage) * k_rand)
+                self.ema_count.copy_(new_n)
+                self.ema_sum.copy_(new_zavg)
+                self.initialized.fill_(True)
         return dict(embeddings=embeddings_st, encodings=encodings,
                     commitment_loss=commitment_loss,
                     perplexity=torch.exp(entropy), entropy=entropy,
@@ -231,8 +305,10 @@ class VQVAE(nn.Module):
     def __init__(self, embedding_dim: int = 128, n_codes: int = 4096,
                  n_hiddens: int = 256, n_res_layers: int = 3,
                  downsample: Sequence[int] = (1, 16, 16),
-                 sequence_length: int = 4, resolution: int = 128):
+                 sequence_length: int = 4, resolution: int = 128,
+                 recon_loss_scale: float = 1.0 / 0.06):
         super().__init__()
+        self.recon_loss_scale = recon_loss_scale
         self.downsample = tuple(downsample)
         self.sequence_length = sequence_length
         self.resolution = resolution
@@ -249,12 +325,13 @@ class VQVAE(nn.Module):
         return tuple(s // d for s, d in zip(shape, self.downsample))
 
     def encode(self, x: torch.Tensor, *, include_embeddings: bool = False,
-               train: bool = False):
+               train: bool = False, **codebook_kw):
         """video (B, T, H, W, 3) f32 -> encodings (B, t, h, w) int32, and
-        with ``include_embeddings`` the straight-through embeddings too."""
-        if train:
-            raise NotImplementedError(_STAGE1)
-        vq = self.codebook(self.pre_vq_conv(self.encoder(x)))
+        with ``include_embeddings`` the straight-through embeddings too.
+        ``codebook_kw``: the codebook's ``generator``, ``init_rows``,
+        ``restart_rows`` (read with ``train``)."""
+        vq = self.codebook(self.pre_vq_conv(self.encoder(x, train)),
+                           train=train, **codebook_kw)
         if include_embeddings:
             return vq["encodings"], vq["embeddings"]
         return vq["encodings"]
@@ -265,13 +342,36 @@ class VQVAE(nn.Module):
         h = self.codebook.lookup(encodings)
         return self.decoder(self.post_vq_conv(h))
 
+    def forward(self, batch: dict, *, train: bool = False,
+                **codebook_kw) -> dict:
+        """``batch["video"]`` (B, T, H, W, 3) f32 -> the reconstruction with
+        its losses: the JAX package's ``VQVAE.__call__``. The decoder reads
+        the straight-through embeddings, so the encoder's gradient flows
+        (``decode`` is the no-grad route from tokens)."""
+        x = batch["video"]
+        z = self.pre_vq_conv(self.encoder(x, train))
+        vq = self.codebook(z, train=train, **codebook_kw)
+        x_recon = self.decoder(self.post_vq_conv(vq["embeddings"]), train)
+        recon_loss = torch.mean(torch.square(
+            x_recon.float() - x.float())) * self.recon_loss_scale
+        return {
+            "pred_data": x_recon,
+            "gt_data": x,
+            "losses": {"recon_loss": recon_loss,
+                       "commitment_loss": vq["commitment_loss"]},
+            "metrics": {"perplexity": vq["perplexity"]},
+            "codebook_loss": vq["codebook_loss"],
+            "entropy": vq["entropy"],
+            "encodings": vq["encodings"],
+        }
+
 
 @torch.no_grad()
 def init_vqvae_(model: VQVAE, generator: torch.Generator) -> None:
     """The JAX package's init laws: fan-in uniform convs with zero biases,
     N(0, 1/sqrt(c)) axial projections with a zero output bias, unit
-    BatchNorm (mean 0, var 1), an N(0, 1) codebook with zero EMA counts and
-    its EMA sums equal to the embeddings."""
+    BatchNorm (mean 0, var 1), an N(0, 1) codebook with zero EMA counts, its
+    EMA sums equal to the embeddings, and not yet initialised from data."""
     for m in model.modules():
         if isinstance(m, (SamePadConv3d, SamePadConvTranspose3d)):
             lim = math.sqrt(3.0 / m.fan_in())
@@ -292,3 +392,4 @@ def init_vqvae_(model: VQVAE, generator: torch.Generator) -> None:
             m.embeddings.normal_(0.0, 1.0, generator=generator)
             m.ema_count.zero_()
             m.ema_sum.copy_(m.embeddings)
+            m.initialized.fill_(False)

@@ -39,9 +39,11 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build ``csrc/<source>`` (once per content and flags) and load it.
-    Callers keep the library they get (one load per process).
+def load(source: str, build_dir: str | os.PathLike | None = None
+         ) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` (once per content and flags) into
+    ``build_dir`` (default :data:`BUILD_DIR`) and load it. Callers keep the
+    library they get (one load per process).
 
     The library carries two attributes for reports: ``build_seconds`` (0.0
     when an existing build was loaded) and ``build_log`` (nvcc's output,
@@ -50,12 +52,13 @@ def load(source: str) -> ctypes.CDLL:
     nvcc = find_nvcc()
     digest = hashlib.sha256(
         src.read_bytes() + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
+    lib_path = build_dir / f"lib{src.stem}_{digest}.so"
     log_path = lib_path.with_suffix(".log")
     seconds = 0.0
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        build_dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
         os.close(fd)
         t0 = time.perf_counter()
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],

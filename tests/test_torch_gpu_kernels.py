@@ -371,3 +371,78 @@ def test_megakernel_refuses_other_widths(cuda):
         mk.megakernel_step(*args, pack_cfg=True, **dict(kw, n_head=8))
     with pytest.raises(ValueError):     # the packed kernel is the CFG kernel
         mk.megakernel_step(*args, pack_cfg=True, **dict(kw, use_cfg=False))
+
+
+@pytest.mark.parametrize("n", [16, 100, 256])
+def test_probe_matmul_kernel_matches_plain(cuda, n):
+    chip_smoke._check_probe_matmul(torch, "test", n)
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["chain", "pair"])
+@pytest.mark.parametrize("m,k,n,iters,ones", [
+    (32, 16, 48, 1, False),          # one warp, a ragged grid of 3 blocks
+    (64, 32, 2128, 3, False),        # slabs of 32 with a last one of 16
+    (256, 64, 2048, 4, False),       # the depth curve's first shape
+    (256, 512, 2048, 2, False),      # ... its last: x staged 256 deep twice
+    (256, 64, 16384, 4, True),       # the QK shape, the probe's own x
+    (256, 128, 32768, 2, False),     # the packed shape: four sub-tiles
+    (256, 64, 16384, 0, False),      # no iteration: sum(x) of the input
+])
+def test_chain_kernels_match_plain(cuda, m, k, n, iters, ones, pair):
+    chip_smoke._check_chain(torch, "test", m, k, n, iters, pair, ones)
+
+
+def test_chain_kernel_modes_and_refusals(cuda):
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+    x, w1, w2 = chip_smoke._chain_inputs(torch, 256, 64, 2048, 1, True)
+    slab, blocks = pk.chain_plan(2048)
+    assert slab % 16 == 0 and (blocks - 1) * slab < 2048 <= blocks * slab
+    for mode in ("no_products", "barrier_only"):
+        total, check = pk.chain_matmul(x, w1, 3, mode=mode)
+        torch.cuda.synchronize()
+        # without the products x is 0 after one iteration
+        assert float(total) == 0.0 and not check.any()
+    with pytest.raises(ValueError):
+        pk.chain_matmul(x[:, :24].contiguous(), w1[:24].contiguous(), 1)
+    with pytest.raises(TypeError):
+        pk.chain_matmul(x.float(), w1, 1)
+    with pytest.raises(ValueError):
+        pk.pair_matmul(x, w1, w2[:, :1024].contiguous(), 1)
+    with pytest.raises(ValueError):
+        pk.chain_matmul(x, w1.cpu(), 1)
+
+
+def test_small_stage1_step_on_the_card_matches_the_cpu(cuda):
+    """The codebook's first step (init, K6's statistics into the EMA update,
+    restarts) with BatchNorm on batch statistics: loss, every gradient, the
+    buffers after the step."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import nearest_code_stats
+    before = nearest_code_stats.launches
+    got = chip_smoke._small_stage1_step(torch, "cuda")
+    assert nearest_code_stats.launches == before + 1
+    want = chip_smoke._small_stage1_step(torch, "cpu")
+    assert 0 < int((want["buffers"]["codebook.ema_count"] < 1).sum()) < 32
+    lerr, gerr, berr = chip_smoke._compare_stage1_steps(torch, got, want)
+    assert lerr <= chip_smoke.TRAIN_LOSS_RTOL
+    assert gerr <= chip_smoke.TRAIN_GRAD_TOL
+    assert berr <= chip_smoke.STAGE1_STATE_TOL
+
+
+def test_stage1_step_makes_no_host_sync(cuda):
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage1
+    config = chip_smoke._small_stage1_config()
+    state = stage1.build_stage1(config, "cuda",
+                                torch.Generator().manual_seed(0))
+    batch = {"video": torch.from_numpy(
+        stage1.synthetic_batch(config, 2)["video"]).to("cuda")}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    stage1.train_step(state, batch, g)          # warm: constants, cuDNN
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        values = stage1.train_step(state, batch, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(values["total"]))
+    assert bool(state.vqvae.codebook.initialized)

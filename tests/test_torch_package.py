@@ -1,5 +1,6 @@
-"""The PyTorch port as a package: it imports without jax, and its chip
-smoke script refuses to run without a CUDA device."""
+"""The PyTorch port as a package: every module of it imports without jax,
+flax or the JAX package, and its chip smoke script refuses to run without a
+CUDA device."""
 import os
 import shutil
 import subprocess
@@ -16,9 +17,13 @@ names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax"))
-print(len(names), leaked)
-sys.exit(1 if leaked or len(names) < 15 else 0)
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in (
+    "jax", "flax", "gif_synthesis_with_discrete_diffusion_tpu"))
+missing = sorted({{pkg.__name__ + m for m in (
+    ".train.stage1", ".data.synthetic", ".ops.probe_kernels",
+    ".probes.depth_pack_probe", ".probes.build_cache_probe")}} - set(names))
+print(len(names), leaked, missing)
+sys.exit(1 if leaked or missing or len(names) < 20 else 0)
 """
 
 

@@ -1,0 +1,235 @@
+"""The PyTorch port's probe kernels' plain versions vs the JAX probe
+kernels (CPU), and the probes' host-side logic.
+
+``_chain_kernel`` and ``_pair_kernel`` are imported from
+``scripts/depth_pack_probe.py`` and run through ``pl.pallas_call(...,
+interpret=True)`` on small shapes at ``iters`` <= 4, where sum(x) is far
+from zero. ``scripts/compile_cache_probe.py`` keeps its kernel inside a
+string (lines 59-61), so ``_p1_kern`` below restates those three lines.
+"""
+import functools
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+from depth_pack_probe import _chain_kernel, _pair_kernel  # noqa: E402
+
+from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+    cuda_build, probe_kernels as pk)
+from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+    build_cache_probe, depth_pack_probe)
+
+# sum(x): the two f32 sums run in other orders, so a product can land on
+# the other side of a bf16 rounding boundary (one ulp = 2^-8 of the
+# element): within 2^-8 of the plain sum of |x|
+SUM_TOL = 2.0 ** -8
+# the checksum against the rule written out in numpy (f64 sums of the same
+# exact products), relative to its max-abs
+CHECK_TOL = 1e-5
+
+
+def _p1_kern(a_ref, o_ref):      # scripts/compile_cache_probe.py:59-61
+    o_ref[...] = jnp.dot(a_ref[...], a_ref[...],
+                         preferred_element_type=jnp.float32) * 2.0
+
+
+def _operands(m, k, n, seed, ones=False):
+    rng = np.random.default_rng(seed)
+    x = np.ones((m, k)) if ones else rng.standard_normal((m, k))
+    ws = [rng.standard_normal((k, n)) / k for _ in range(2)]
+    jx, j1, j2 = (jnp.asarray(a, jnp.bfloat16) for a in (x, *ws))
+    tx, t1, t2 = (torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16) for a in (jx, j1, j2))
+    return (jx, j1, j2), (tx, t1, t2)
+
+
+def _numpy_chain(x, w, iters):
+    """The rule written out: (final x, checksum) with bf16 roundings through
+    torch and f64 sums."""
+    x = x.double()
+    check = np.zeros(w.shape[1] // pk.CHECKSUM_GROUP)
+    k = x.shape[1]
+    for _ in range(iters):
+        s = x @ w.double()
+        check += s.reshape(s.shape[0], -1, pk.CHECKSUM_GROUP).sum(
+            dim=(0, 2)).numpy()
+        x = (s[:, :k].float() * 0.01).to(torch.bfloat16).double()
+    return x, check
+
+
+@pytest.mark.parametrize("n", [16, 64, 256])
+def test_probe_matmul_reference_matches_the_jax_kernel(n):
+    a = np.random.default_rng(n).standard_normal((n, n)).astype(np.float32)
+    want = pl.pallas_call(
+        _p1_kern, out_shape=jax.ShapeDtypeStruct((n, n), jnp.float32),
+        interpret=True)(jnp.asarray(a))
+    got = pk.probe_matmul(torch.from_numpy(a))       # CPU: the plain version
+    # f32 sums of n terms in two libraries' orders
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4 * np.abs(np.asarray(want)).max())
+
+
+@pytest.mark.parametrize("m,k,n,iters,ones", [
+    (32, 16, 48, 1, False), (32, 16, 48, 4, False), (64, 32, 256, 3, False),
+    (256, 64, 512, 2, True), (32, 16, 16, 2, False), (32, 16, 48, 0, False)])
+def test_chain_reference_matches_the_jax_kernel(m, k, n, iters, ones):
+    (jx, jw, _), (tx, tw, _) = _operands(m, k, n, m + n + iters, ones)
+    want = pl.pallas_call(
+        functools.partial(_chain_kernel, iters=iters, k=k),
+        out_shape=jax.ShapeDtypeStruct((1, 1), jnp.float32),
+        interpret=True)(jx, jw)
+    total, check, x_final = pk.chain_matmul(tx, tw, iters, return_x=True)
+    assert tuple(total.shape) == (1,) and tuple(check.shape) == (n // 16,)
+    l1 = float(x_final.float().abs().sum())
+    assert l1 > 0 and float(total) != 0.0
+    assert abs(float(total) - float(want[0, 0])) <= SUM_TOL * l1
+    want_x, want_check = _numpy_chain(tx, tw, iters)
+    assert abs(float(total) - float(want_x.sum())) <= SUM_TOL * l1
+    np.testing.assert_allclose(
+        check.numpy(), want_check, rtol=0,
+        atol=CHECK_TOL * max(np.abs(want_check).max(), 1e-30))
+    # without return_x: the same two outputs
+    again = pk.chain_reference(tx, tw, iters)
+    assert len(again) == 2 and torch.equal(again[0], total)
+
+
+@pytest.mark.parametrize("m,k,n,iters", [
+    (32, 16, 48, 1), (64, 32, 256, 3), (32, 16, 48, 4)])
+def test_pair_reference_matches_the_jax_kernel(m, k, n, iters):
+    (jx, j1, j2), (tx, t1, t2) = _operands(m, k, n, 7 * m + iters)
+    want = pl.pallas_call(
+        functools.partial(_pair_kernel, iters=iters, k=k),
+        out_shape=jax.ShapeDtypeStruct((1, 1), jnp.float32),
+        interpret=True)(jx, j1, j2)
+    total, check, xs = pk.pair_matmul(tx, t1, t2, iters, return_x=True)
+    assert tuple(check.shape) == (2, n // 16) and tuple(xs.shape) == (2, m, k)
+    l1 = float(xs.float().abs().sum())
+    assert l1 > 0
+    assert abs(float(total) - float(want[0, 0])) <= SUM_TOL * l1
+    # the pair is two chains from the same x
+    for c, w in enumerate((t1, t2)):
+        t, ch, x = pk.chain_reference(tx, w, iters, return_x=True)
+        assert torch.equal(ch, check[c]) and torch.equal(x, xs[c])
+    assert float(total) == float(
+        pk.chain_reference(tx, t1, iters)[0] + pk.chain_reference(
+            tx, t2, iters)[0])
+
+
+def test_chain_sum_dies_after_a_few_dozen_iterations():
+    """Why the kernels are compared at iters <= 4: each iteration scales by
+    0.01, so x underflows to 0 in bf16 long before the probe's 2000."""
+    _, (tx, tw, _) = _operands(32, 16, 48, 0, ones=True)
+    assert float(pk.chain_reference(tx, tw, 4)[0]) != 0.0
+    assert float(pk.chain_reference(tx, tw, 60)[0]) == 0.0
+
+
+def test_probe_inputs_are_the_scripts():
+    x, w1, w2 = depth_pack_probe.probe_inputs(256, 64, 128)
+    rng = np.random.default_rng(0)        # scripts/depth_pack_probe.py:123-125
+    np.testing.assert_array_equal(
+        w1, (rng.standard_normal((64, 128)) / 64).astype(np.float32))
+    np.testing.assert_array_equal(
+        w2, (rng.standard_normal((64, 128)) / 64).astype(np.float32))
+    assert x.shape == (256, 64) and (x == 1).all()
+
+
+def test_depth_probe_row_arithmetic():
+    t = {"full": 4e-6, "no_products": 3e-6, "barrier_only": 1e-6}
+    row = depth_pack_probe._row(256, 64, 16384, t)
+    flops = 2.0 * 256 * 64 * 16384
+    assert row["us"] == pytest.approx(4.0)
+    assert row["tflops"] == pytest.approx(flops / 4e-6 / 1e12)
+    assert row["products_alone_tflops"] == pytest.approx(flops / 1e-6 / 1e12)
+    assert row["exchange_share"] == pytest.approx(0.75)
+    assert row["barrier_share"] == pytest.approx(0.25)
+    pair = depth_pack_probe._row(256, 64, 16384, t, products=2)
+    assert pair["tflops"] == pytest.approx(2 * row["tflops"])
+    t["no_products"] = 5e-6           # noise: the difference is not resolved
+    assert depth_pack_probe._row(256, 64, 16, t)[
+        "products_alone_tflops"] is None
+
+
+def test_probes_need_a_cuda_device():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        depth_pack_probe.measure()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_cache_probe.probe()
+
+
+_GOOD = dict(ok=True, hung=False, p1_right=True, k1_right=True, p1_sum=1.0,
+             k1_token_sum=7, nvcc_build_s=3.1, triton_cache_files=9)
+
+
+@pytest.mark.parametrize("change_b,reused,word", [
+    (dict(nvcc_build_s=0.0), True, "REUSED"),
+    (dict(), False, "rebuilt the CUDA source"),
+    (dict(nvcc_build_s=0.0, triton_cache_files=18), False,
+     "recompiled the Triton kernel"),
+    (dict(nvcc_build_s=0.0, k1_right=False), False, "WRONG VALUES"),
+    (dict(nvcc_build_s=0.0, k1_token_sum=8), False, "WRONG VALUES"),
+    (dict(ok=False, hung=True, tail="Thread 0x..."), False, "HANG: phase B"),
+    (dict(ok=False), False, "probe error"),
+])
+def test_build_cache_verdict(change_b, reused, word):
+    got, sentence = build_cache_probe.verdict(_GOOD, dict(_GOOD, **change_b))
+    assert got is reused and word in sentence
+
+
+def test_build_cache_child_reports_a_failure_and_a_hang(monkeypatch):
+    """A child that fails comes back with its tail; one that stalls is
+    killed at the time limit and comes back as hung."""
+    monkeypatch.setattr(build_cache_probe, "_CHILD",
+                        "import sys; print('boom'); sys.exit(3)")
+    res = build_cache_probe.run_child("b", "t", 60.0, 50)
+    assert res["ok"] is False and res["hung"] is False
+    assert "boom" in res["tail"]
+    monkeypatch.setattr(build_cache_probe, "_CHILD",
+                        "import time; time.sleep(60)")
+    res = build_cache_probe.run_child("b", "t", 1.0, 50)
+    assert res["ok"] is False and res["hung"] is True
+
+
+def test_build_cache_child_imports_only_the_port():
+    src = build_cache_probe._CHILD
+    compile(src, "<child>", "exec")
+    assert "jax" not in src and "flax" not in src
+    assert "gif_synthesis_with_discrete_diffusion_tpu_torch.ops" in src
+    assert "gif_synthesis_with_discrete_diffusion_tpu." not in src
+
+
+def test_cuda_build_takes_a_build_directory(tmp_path, monkeypatch):
+    """``load(source, build_dir)`` builds into the directory it is given
+    (default: the package's ``_build``), once per content and flags."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo fake > "$2"\necho "ptxas info: 0 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: str(nvcc))
+    seen = []
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL",
+                        lambda path: seen.append(path) or type(
+                            "Lib", (), {})())
+    out = tmp_path / "fresh"
+    lib = cuda_build.load("probe_kernels.cu", out)
+    assert lib.build_seconds > 0 and "registers" in lib.build_log
+    assert Path(seen[-1]).parent == out and Path(seen[-1]).exists()
+    again = cuda_build.load("probe_kernels.cu", str(out))
+    assert again.build_seconds == 0.0 and seen[-1] == seen[-2]
+
+
+def test_wrappers_refuse_what_is_neither_cpu_nor_cuda():
+    x = torch.ones((32, 16), dtype=torch.bfloat16, device="meta")
+    w = torch.ones((16, 48), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        pk.chain_matmul(x, w, 1)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        pk.probe_matmul(torch.ones((4, 4), device="meta"))

@@ -167,5 +167,13 @@ def test_codebook_state_and_training_path():
     for name in ("embeddings", "ema_count", "ema_sum"):
         np.testing.assert_array_equal(
             getattr(model.codebook, name).numpy(), np.asarray(cb[name]))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.encode(torch.from_numpy(x), train=True)
+    assert not bool(model.codebook.initialized)
+    # the training path: the first step initialises the codebook from data
+    rows = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 32, 16)).astype(np.float32))
+    tok = model.encode(torch.from_numpy(x), train=True, init_rows=rows[0],
+                       restart_rows=rows[1])
+    assert tuple(tok.shape) == (2, 4, 4, 4) and tok.dtype == torch.int32
+    assert bool(model.codebook.initialized)
+    assert not np.array_equal(model.codebook.embeddings.numpy(),
+                              np.asarray(cb["embeddings"]))
