@@ -109,6 +109,17 @@ MK_MARGIN = 1e-2
 # sampled classes against the plain posterior at K = 17: total variation of
 # 25600 draws (sampling noise ~0.01)
 MK_TV_TOL = 0.03
+# the two builds of the whole-step kernels (scores shifted by their bound
+# where it may be; by the exact row maximum everywhere) against each other.
+# The same function, but the shifted scores round differently in f32, and a
+# probability that lands on the other side of a bf16 rounding boundary moves
+# by one bf16 ulp: MK_HIDDEN_TOL where every warp takes the bound at
+# ordinary scores; where only some do (queries x 10: softmax rows one key
+# wide, a flip moves a whole value) MK_SHIFT_MIXED_TOL; where none does the
+# two builds run the same instructions: 0. Argmax tokens may differ at a
+# near-tie: at most MK_SHIFT_TOKENS of them.
+MK_SHIFT_MIXED_TOL = 1e-2
+MK_SHIFT_TOKENS = 0.01
 
 # P1: f32 FMA sums of 256 terms in another order than the library's
 P1_TOL = 1e-4
@@ -183,6 +194,8 @@ def phase_environment(torch) -> str:
               "fused_mha_bwd.cu": attention._bwd_library,
               "nearest_code_stats.cu": codebook_kernel._library,
               "megakernel_step.cu": megakernel._library,
+              "megakernel_step.cu (exact row maxima)":
+                  lambda: megakernel._library(megakernel.EXACT_MAX),
               "probe_kernels.cu": probe_kernels._library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -708,12 +721,17 @@ def _profile_kernels(torch, phase: str, step, steps: int = 2) -> None:
 
 
 def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
-                     dtype, seed, t=50, force_general=False):
+                     dtype, seed, t=50, force_general=False,
+                     logit_scale=1.0, score_scale=1.0):
     """A denoiser at the kernels' width (n_embd 64, 16 heads) with every
     parameter drawn from N(0, 0.1) (LayerNorm scales around 1), and one
     step's arguments on the card: tokens half MASK, half data.
     ``force_general`` sends a one-token condition through the general
-    cross-attention instead of the per-layer bias. (The card's tests,
+    cross-attention instead of the per-layer bias; ``logit_scale`` multiplies
+    the output projection, so that log-probabilities fall under the step's
+    clamp at -70; ``score_scale`` multiplies the self-attention's query
+    projections, so that scores spread far below the bound the kernels
+    shift them by and the exact row maximum is taken. (The card's tests,
     ``tests/test_torch_gpu_kernels.py``, build their cases here too.)"""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
         make_schedule)
@@ -733,6 +751,9 @@ def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
             p.normal_(0.0, 0.1, generator=g)
             if "ln" in name and name.endswith("weight") and p.ndim == 1:
                 p.add_(1.0)
+        tr.to_logits.weight.mul_(logit_scale)
+        for i in range(n_layer):
+            getattr(tr, f"block{i}").attn1.query.weight.mul_(score_scale)
     tr = tr.to("cuda").eval()
     packed = mk.pack_denoiser_params(tr, dtype)
     cond = torch.randn((B, s_len, 32), generator=g).to("cuda")
@@ -795,6 +816,51 @@ def _check_megakernel(torch, phase: str, label: str, args, kw,
     return got, err
 
 
+def _check_softmax_shift(torch, phase: str, pack_cfg: bool) -> float:
+    """Phase S shifts a query's scores by an upper bound of them wherever
+    the bound provably lies near the row maximum, and by the exact maximum
+    elsewhere, a warp of 32 queries at a time. With the query projections
+    scaled up (x 1: every warp takes the bound; x 10: some; x 100: none) the
+    plain build is held against the build that takes the exact maximum
+    everywhere: the same softmax, f32 rounding of the shifted scores apart
+    (the tolerances: MK_SHIFT_MIXED_TOL above; the plain version itself is
+    no yardstick at the larger scales: a bf16 rounding of q or k that falls
+    the other way moves such peaked rows more). Returns the worst
+    hidden-state error."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    worst, failed = 0.0, False
+    for scale, tol in ((1.0, MK_HIDDEN_TOL), (10.0, MK_SHIFT_MIXED_TOL),
+                       (100.0, 0.0)):
+        args, kw = _megakernel_case(
+            torch, L=200, spatial=(20, 10), k=17, n_layer=2, s_len=3, B=3,
+            use_cfg=pack_cfg, dtype=torch.bfloat16, seed=31,
+            score_scale=scale)
+        out = []
+        for defines in ((), mk.EXACT_MAX):
+            scratch = mk.alloc_scratch(3, 2 if pack_cfg else 1, 200, "cuda")
+            tok = mk.megakernel_step(*args, sample=False, pack_cfg=pack_cfg,
+                                     scratch=scratch, defines=defines, **kw)
+            torch.cuda.synchronize()
+            out.append((tok, scratch["x"]))
+        err = (out[0][1] - out[1][1]).abs().max().item()
+        ref = out[1][1].abs().max().item()
+        differ = int((out[0][0] != out[1][0]).sum())
+        print(f"{phase}: {'K3' if pack_cfg else 'K4'} B=3 L=200 K=17 2 layers "
+              f"S=3, queries x {scale:g}: shifted by the bound where it may "
+              f"be against the exact row maximum everywhere: hidden state "
+              f"max-abs {err:.3e} of {ref:.3e} (tol {tol} relative), "
+              f"{differ} of {out[0][0].numel()} argmax tokens differ")
+        failed = failed or not err <= tol * ref or \
+            differ > MK_SHIFT_TOKENS * out[0][0].numel() or \
+            not bool(out[0][1].isfinite().all())
+        worst = max(worst, err)
+    if failed:
+        raise AssertionError("the softmax shift changes the step")
+    return worst
+
+
 def _megakernel_work(b, n_br, L, n_layer, hidden, kv, s_len, as_bias):
     """(bytes, f32 FLOP, bf16 FLOP) one step needs at the kernels' width:
     QK^T and PV take operands rounded to bf16 (tensor-core rate), the other
@@ -815,7 +881,8 @@ def _megakernel_work(b, n_br, L, n_layer, hidden, kv, s_len, as_bias):
     return nbytes, f_f32, f_bf16
 
 
-def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg):
+def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
+                     defines=()):
     """Plain, kernel, kernel, plain at a serving configuration: one sampled
     step from all-MASK tokens with the models' own weights and a label
     condition. Returns (ms, plain ms, bound ms, bound by, tables, kw)."""
@@ -838,7 +905,8 @@ def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg):
     ref_kw = {n: v for n, v in kw.items() if n != "pack_cfg"}
     ms, plain_ms = _ab_ms(
         lambda: mk.megakernel_step_reference(*args, **ref_kw),
-        lambda: mk.megakernel_step(*args, scratch=tab["scratch"], **kw), 10)
+        lambda: mk.megakernel_step(*args, scratch=tab["scratch"],
+                                   defines=defines, **kw), 10)
     n_br = 2 if kw["use_cfg"] else 1
     nbytes, f32, bf16 = _megakernel_work(
         b, n_br, L, kw["n_layer"], tab["packed"]["wfc"].shape[2],
@@ -903,16 +971,22 @@ def phase_k3(torch, smi: str, honest) -> dict:
             ("K3 bf16 weights B=48 L=200 K=17 2 layers S=3 (ragged tiles, "
              "several work items a block)", torch.bfloat16, 200, (20, 10), 17,
              2, 3, 48),
+            ("K3 bf16 weights B=3 L=96 K=200 2 layers S=1, logits x 60 "
+             "(log-probabilities under the clamp: the tail's extra pass)",
+             torch.bfloat16, 96, (12, 8), 200, 2, 1, 3),
             ("K3 bf16 weights B=32 L=1024 K=4097 19 layers S=1 (the main "
              "path's shape)", torch.bfloat16, 1024, (32, 32), 4097, 19, 1,
              32)):
-        args, kw = _megakernel_case(torch, L=L, spatial=spatial, k=k,
-                                    n_layer=n_layer, s_len=s_len, B=b,
-                                    use_cfg=True, dtype=dtype, seed=L + k)
+        args, kw = _megakernel_case(
+            torch, L=L, spatial=spatial, k=k, n_layer=n_layer, s_len=s_len,
+            B=b, use_cfg=True, dtype=dtype, seed=L + k,
+            logit_scale=60.0 if "logits x 60" in label else 1.0)
         worst = max(worst, _check_megakernel(torch, "phase 8", label, args,
                                              kw, True)[1])
         del args
         torch.cuda.empty_cache()
+
+    worst = max(worst, _check_softmax_shift(torch, "phase 8", True))
 
     # sampled mode at K = 17: in range, repeatable by seed, and the classes
     # drawn over 200 seeds against the plain posterior
@@ -978,6 +1052,7 @@ def phase_k4(torch, smi: str, msrvtt) -> dict:
                                              kw, False)[1])
         del args
         torch.cuda.empty_cache()
+    worst = max(worst, _check_softmax_shift(torch, "phase 9", False))
     args, kw = _megakernel_case(torch, L=1024, spatial=(32, 32), k=4097,
                                 n_layer=19, s_len=1, B=32, use_cfg=True,
                                 dtype=torch.bfloat16, seed=5)
@@ -1167,14 +1242,29 @@ def phase_p1(torch, smi: str) -> tuple[dict, dict]:
     zero = torch.zeros_like(a)
     ms, plain_ms = _ab_ms(lambda: pk.probe_matmul_reference(a),
                           lambda: pk.probe_matmul(a), 20)
-    lib_ms = _time_ms(lambda: torch.addmm(zero, a, a, beta=0.0, alpha=2.0),
-                      20)
+    # P1 against the one PyTorch call for the same function, in turns: 12
+    # rounds of 25 launches each, so that the spread of either shows
+    rounds = {"kernel": [], "library": []}
+    for _ in range(12):
+        rounds["kernel"].append(_time_ms(lambda: pk.probe_matmul(a), 25))
+        rounds["library"].append(_time_ms(
+            lambda: torch.addmm(zero, a, a, beta=0.0, alpha=2.0), 25))
+    ms = sum(rounds["kernel"]) / 12
+    lib_ms = sum(rounds["library"]) / 12
+    k_lo, k_hi = min(rounds["kernel"]), max(rounds["kernel"])
+    l_lo, l_hi = min(rounds["library"]), max(rounds["library"])
+    verdict = ("faster in every round" if k_hi < l_lo else
+               "slower in every round" if k_lo > l_hi else
+               "within the rounds' spread of it")
     flops, nbytes = 2.0 * 256 ** 3, 2.0 * 4 * 256 * 256
     bound_ms, bound_by = _bound(nbytes, flops)
-    print(f"phase 11: P1 (256, 256) f32 kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.addmm(beta=0, alpha=2) {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.5f} ms by {bound_by} ({flops / 1e6:.1f} MFLOP "
-          f"at {PEAK_F32 / 1e12} TFLOP/s f32, {nbytes / 1e6:.2f} MB) ({smi})")
+    print(f"phase 11: P1 (256, 256) f32 kernel {ms:.4f} ms (12 rounds of 25 "
+          f"launches in turns with the library call: {k_lo:.4f}-{k_hi:.4f}), "
+          f"plain {plain_ms:.4f} ms, torch.addmm(beta=0, alpha=2) "
+          f"{lib_ms:.4f} ms ({l_lo:.4f}-{l_hi:.4f}): P1 is {verdict}, "
+          f"{ms / lib_ms:.3f} x its time; bound {bound_ms:.5f} ms by "
+          f"{bound_by} ({flops / 1e6:.1f} MFLOP at {PEAK_F32 / 1e12} TFLOP/s "
+          f"f32, {nbytes / 1e6:.2f} MB) ({smi})")
 
     res = build_cache_probe.probe(timeout=300.0, hang_dump_s=240,
                                   log=lambda line: None)

@@ -13,21 +13,39 @@
 // posterior -> (Gumbel-)argmax. It reads the packed weights (bf16 or f32),
 // the f32 tables and the (B, L) int64 tokens and writes (B, L) int64 tokens.
 // The logits and the posterior stay in registers; the class axis is walked
-// in chunks of 64, once per reduction (four passes under CFG, three
-// without), each pass recomputing its logits from the (row, 64) hidden tile.
+// in chunks of 128, once per reduction (three passes; a fourth under CFG
+// where a log-probability falls under the clamp), each pass recomputing its
+// logits from the (row, 64) hidden tile.
 //
 // What bounds it: operations. At the serving shape (B=32, L=1024, 19 layers,
 // 4096 classes) a step is ~0.5 TFLOP of multiply-adds against ~10 MB of
-// inputs. Operands that the TPU kernels round to bf16 (q / sqrt(d), k, v, the
-// softmax probabilities after the division by their row sum) are rounded at
-// the same places; a product of two bf16 values is exact in f32, so only the
-// order of the sums differs. Self-attention, two thirds of the operations,
-// runs on the tensor cores through mma.sync in TF32 (which holds a bf16
-// exactly) with the tile shapes that fit a head dim of 4 (phase S below);
-// every other product is CUDA-core FMAs on f32 registers. What the
-// attention phase is short of is instruction slots and the exponential
-// unit, not the tensor pipe: three sweeps over the keys cost two exp2 per
-// (query, key, head).
+// inputs. Every product runs on the tensor cores through mma.sync, and none
+// rounds where the TPU kernels do not:
+//  - Self-attention (phase S), two thirds of the operations and of the time.
+//    q / sqrt(d), k, v and the softmax probabilities (after the division by
+//    their row sum) are rounded to bf16 where the TPU kernels round them; a
+//    product of two bf16 values is exact in f32, so bf16 mma with f32
+//    accumulation differs from the plain version only in the order of the
+//    sums. With a head dim of 4 an mma yields only 16 x 8 scores, and the
+//    rounding after the division costs a sweep over the keys for the row sum
+//    before the sweep for the probabilities, so the phase is short of three
+//    things at once: the special function unit (16 ex2 a clock an SM; the
+//    row sum and the probabilities each take one exponential per (query,
+//    key, head)), mma issue (one QK^T mma per 128 scores, in every sweep)
+//    and plain issue slots. What the design does: a quarter of the row
+//    sum's exponentials go to a polynomial on the FMA pipe (MK_POLY1 of
+//    every 16; 1.75 special-function exponentials per (query, key, head) are
+//    left); the sweep for the row maximum is replaced by an upper bound of a
+//    query's scores wherever that provably lies near the maximum, and kept
+//    where not (softmax_shift); P V takes the packed bf16 probabilities as
+//    they leave the rounding (no unpack); a head's keys and values are
+//    staged once for all its queries.
+//  - Every other product (phases A and B, the logits) has f32 activations.
+//    They are split into two TF32 halves (hi + lo, exact to 2^-21) and both
+//    are multiplied by the weight tile (bf16 weights are TF32 values; f32
+//    weights are split too), summed in the f32 accumulator: see mma_tile.
+//    These phases are bound by mma issue and by what surrounds a product
+//    (a block-wide barrier each, the epilogues).
 //
 // Layout. The TPU keeps a row's (L, 64) state in fast memory; a block here
 // has 227 KB, and the state of all rows (16 MB at the serving shape) fits
@@ -35,26 +53,34 @@
 // persistent grid (as many 256-thread blocks as can be co-resident), and per
 // layer three phases separated by grid-wide barriers:
 //   A  per tile of 64 rows: (layer 0: gather the embedding) AdaLN-LN -> QKV
-//      -> q/k/v through bf16 into head-major scratch (R, 16, L, 4);
-//   S  per (row-branch, head, 256 queries): a warp per 32 queries, keys
-//      staged through shared memory 512 at a time, three sweeps (row
-//      maximum, row sum, then exp / sum -> bf16 -> PV: an online rescale
-//      would round the probabilities elsewhere), output to scratch;
+//      -> q/k/v through bf16 into head-major scratch (R, 16, L, 4), and the
+//      largest |k| per (row-branch, head, dim);
+//   S  per (row-branch, head): the head's keys and values staged once in
+//      shared memory as bf16, then 256 queries at a time, a warp per 32:
+//      the softmax shift, then two sweeps (row sum, then exp / sum -> bf16 ->
+//      PV: an online rescale would round the probabilities elsewhere),
+//      output to scratch;
 //   B  per tile of 64 rows: proj + residual -> cross-attention or bias ->
 //      LN -> MLP (hidden chunk by hidden chunk) + residual -> hidden state.
-// Then the tail per tile. Every small product is one primitive: a (64 x 64)
-// activation tile in shared memory times a (64 x 64) weight tile staged
-// into shared memory as f32, 4 x 4 outputs a thread.
+// Then the tail per tile. Every small product is one primitive (mma_tile): a
+// (64 x 64) f32 activation tile in shared memory times a (64 x 64 or 128)
+// weight tile, the next weight tile copied into a second buffer (bf16
+// weights: by cp.async, as they are) while this one is multiplied;
+// epilogues (bias, GELU2, residual, log-sum-exp, CFG, posterior, noise,
+// argmax) work on the mma accumulator layout and reduce over a row by quad
+// shuffles plus a combine across the four warps that share the row.
 //
-// The two kernels differ in what a tile's 64 rows are. Packed (K3): 32
-// tokens of one batch row for both branches, so the embedding is gathered
-// once, a weight tile serves both branches, and the tail has both branches'
-// hidden states in the same thread. Branch grid (K4): 64 tokens of one
-// (row, branch); with two branches the tail's work item reads both
-// branches' final hidden states from the scratch and computes both logits.
+// The two kernels differ in what a tile's 64 rows are in phases A and B.
+// Packed (K3): 32 tokens of one batch row for both branches, so the
+// embedding is gathered once and a weight tile serves both branches. Branch
+// grid (K4): 64 tokens of one (row, branch). The tail is the same for both:
+// under CFG a tile is 32 tokens x 2 branches gathered from the hidden state,
+// so that one thread holds both branches' logits of a token. Row for row
+// both kernels do the same arithmetic in the same order.
 //
 // Random draws: Philox4x32-10 keyed by the step's seed, counter (class / 4,
-// position, batch row); the MASK class draws from its own counter.
+// position, batch row); the MASK class draws from its own counter. The noise
+// of a class does not depend on which thread or block draws it.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,26 +95,29 @@ constexpr int kC = 64;          // n_embd
 constexpr int kH = 16;          // heads (of dim 4)
 constexpr int kThreads = 256;
 constexpr int kRows = 64;       // rows of a tile work item
-constexpr int kLda = 68;        // row stride of an activation tile
-constexpr int kQTile = 256;     // queries of an attention work item
-constexpr int kKeyTile = 512;   // keys staged at a time
-constexpr int kSmemBytes = (2 * kRows * kLda + kC * kC) * 4;
+constexpr int kLda = 72;        // row stride of an activation tile (8 mod 32)
+constexpr int kTileBytes = kRows * kLda * 4;
+// a staged weight tile of 64 x NB, as 32 rows of NB (k, k + 1) pairs
+constexpr int kWBytes = 32 * (2 * 64 + 8) * 4 * 2;   // two of NB = 64
+constexpr int kSmemBytes = 2 * kTileBytes + 2 * kWBytes;
+constexpr int kMaxSeq = kSmemBytes / 16;   // phase S holds a head's K and V
 constexpr float kNeg30 = -69.07755278982137f;   // log(1e-30)
 constexpr float kClamp = -70.f;
 constexpr float kLnEps = 1e-6f;
 constexpr float kNegBig = -3.0e38f;
 constexpr float kQScale = 0.5f;                 // 1 / sqrt(head dim)
+static_assert(32 * (2 * 128 + 8) * 4 <= kWBytes, "a 128-column tile fits");
 
 // the pointer and integer tables of the C interface (ops/megakernel.py)
 enum Ptr {
   P_SCHED, P_TOKENS, P_OUT, P_ADALN, P_KC, P_VC, P_EMB, P_POS, P_WQKV,
   P_BQKV, P_WPROJ, P_BPROJ, P_WQC, P_BQC, P_WPROJC, P_BPROJC, P_LN2S,
   P_LN2B, P_WFC, P_BFC, P_WPJ, P_BPJ, P_LNOS, P_LNOB, P_WLOG, P_BLOG, P_X,
-  P_Q, P_K, P_V, P_O, P_STAMPS
+  P_Q, P_K, P_V, P_O, P_KMAX, P_STAMPS
 };
 enum Int {
   I_B, I_L, I_NBR, I_NLAYER, I_KV, I_SP, I_SVALID, I_HIDDEN, I_WBF16,
-  I_SAMPLE, I_CROSSBIAS, I_PACKED, I_SEEDLO, I_SEEDHI
+  I_SAMPLE, I_CROSSBIAS, I_PACKED, I_SEEDLO, I_SEEDHI, I_GRID
 };
 
 struct Params {
@@ -102,6 +131,7 @@ struct Params {
   float* x;
   __nv_bfloat16 *q, *k, *v;
   float* o;
+  unsigned* kmax;   // (R, 16, 4) bit patterns of max over keys |k|, per layer
   unsigned long long* stamps;
   int B, L, n_br, n_layer, kv, sp, s_valid, hidden;
   int w_bf16, sample, cross_bias;
@@ -117,11 +147,15 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// sum over the 16 lanes that share a tile row
+// sum over the 16 lanes that share a row in the row-wise thread layout
 __device__ __forceinline__ float sum16(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -129,19 +163,35 @@ __device__ __forceinline__ float sum16(float v) {
   return v;
 }
 
+// max / sum over the 4 lanes that share an accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 __device__ __forceinline__ float laddexp(float a, float b) {
   const float mx = fmaxf(a, b);
   return mx + logf(expf(a - mx) + expf(b - mx));
 }
 
-// the rows of a tile work item that this thread owns: row ty + 16 i
-struct RowMap {
-  int b;        // batch row
-  int rb[4];    // row-branch index b * n_br + branch
-  int tok[4];   // position
-  bool ok[4];   // position < L
-};
-
+// ---------------------------------------------------------------------------
+// the two thread layouts of a (64-row) tile work item
+// ---------------------------------------------------------------------------
+// Row-wise (LayerNorm, loads, cross-attention): 16 lanes a row, thread (ty,
+// tx) owns columns 4 tx .. 4 tx + 3 of rows ty + 16 i. Accumulator (every
+// product and its epilogue): warp (wm, wn) owns rows 32 wm .. + 31 and a
+// quarter of the columns; a thread holds columns 2 tig, 2 tig + 1 of each
+// 8-column tile for rows 32 wm + 16 mt + 8 hf + g, indexed i = 2 mt + hf.
+//
+// Which (row-branch, position) a tile row is. Packed (K3): rows 16 j .. 16 j
+// + 15 are branch j & 1 of positions t0 + 16 (j >> 1) .., so that a warp's
+// two 16-row tiles are the two branches of the same 16 positions. Branch
+// grid (K4): 64 positions of one (row, branch).
 template <bool PACKED>
 __device__ __forceinline__ int tile_items(const Params& p) {
   return PACKED ? p.B * ((p.L + 31) / 32)
@@ -149,84 +199,212 @@ __device__ __forceinline__ int tile_items(const Params& p) {
 }
 
 template <bool PACKED>
-__device__ __forceinline__ RowMap map_rows(const Params& p, int item,
-                                           int ty) {
-  RowMap m;
+__device__ __forceinline__ void tile_row(const Params& p, int item, int r,
+                                         int& b, int& rb, int& tok) {
   if (PACKED) {
     const int ntile = (p.L + 31) / 32;
-    m.b = item / ntile;
-    const int t0 = (item % ntile) * 32;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m.rb[i] = m.b * 2 + (i >> 1);
-      m.tok[i] = t0 + ty + 16 * (i & 1);
-      m.ok[i] = m.tok[i] < p.L;
-    }
+    b = item / ntile;
+    rb = b * 2 + ((r >> 4) & 1);
+    tok = (item % ntile) * 32 + (r >> 5) * 16 + (r & 15);
   } else {
     const int ntile = (p.L + kRows - 1) / kRows;
     const int per = p.n_br * ntile;
-    m.b = item / per;
+    b = item / per;
     const int rem = item % per;
-    const int br = rem / ntile;
-    const int t0 = (rem % ntile) * kRows;
+    rb = b * p.n_br + rem / ntile;
+    tok = (rem % ntile) * kRows + r;
+  }
+}
+
+// the four rows of a tile that a thread holds in the accumulator layout
+struct RowMap {
+  int rb[4];    // row-branch index b * n_br + branch
+  int tok[4];   // position
+  bool ok[4];   // position < L
+};
+
+template <bool PACKED>
+__device__ __forceinline__ RowMap map_rows(const Params& p, int item, int wm,
+                                           int g) {
+  RowMap m;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m.rb[i] = m.b * p.n_br + br;
-      m.tok[i] = t0 + ty + 16 * i;
-      m.ok[i] = m.tok[i] < p.L;
-    }
+  for (int i = 0; i < 4; ++i) {
+    int b;
+    tile_row<PACKED>(p, item, 32 * wm + 8 * i + g, b, m.rb[i], m.tok[i]);
+    m.ok[i] = m.tok[i] < p.L;
   }
   return m;
 }
 
-// stage a (64 x 64) tile of a row-major weight (row stride ld) as f32:
-// rows row0.., columns col0.. of which the first ncol exist
-__device__ __forceinline__ void load_w(float* Ws, const void* w, int bf16,
-                                       size_t base, int ld, int col0,
-                                       int ncol) {
-  for (int e = threadIdx.x; e < kC * kC; e += kThreads) {
-    const int k = e >> 6, c = e & 63;
-    float val = 0.f;
-    if (c < ncol) {
-      const size_t idx = base + static_cast<size_t>(k) * ld + col0 + c;
-      val = bf16 ? __bfloat162float(
-                       static_cast<const __nv_bfloat16*>(w)[idx])
-                 : static_cast<const float*>(w)[idx];
+// ---------------------------------------------------------------------------
+// the tile product: (64 x 64) f32 activations x (64 x 32 NT) weights on the
+// tensor cores, with no rounding of the activations
+// ---------------------------------------------------------------------------
+// TF32 holds 11 bits of significand, an f32 24. An activation a is split
+// into hi = tf32(a), rounded to nearest, and lo = a - hi (exact in f32) cut
+// to 11 bits, so hi + lo misses a by less than 2^-21 |a|. A bf16 weight is a
+// TF32 value, so a w = hi w + lo w, two mma.m16n8k8 into the same f32
+// accumulator; an f32 weight is split the same way and hi_a lo_w joins (lo_a
+// lo_w, at most 2^-21 |a w|, is dropped). The contraction index is permuted
+// (slots tig and tig + 4 of an 8-deep step take k = 2 tig and 2 tig + 1, in
+// A and B alike), so that an A fragment is one 8-byte load from the
+// row-major tile (row stride 72: conflict-free) and the B fragments of an
+// 8-deep step come from one ldmatrix.trans of the bf16 weight tile (a
+// register holds W[2 tig][n] and W[2 tig + 1][n]; a bf16 is the top half of
+// a TF32) or, for f32 weights, from 8-byte loads of a tile staged as rows of
+// (k, k + 1) pairs, Ws[(k >> 1) * ldp + 2 n + (k & 1)], ldp = 2 NB + 8.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], unsigned a0,
+                                         unsigned a1, unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// hi: v rounded to TF32 (to nearest, ties away; finite v), lo: what is left,
+// cut to TF32. Four integer / float instructions (cvt.rna.tf32.f32 is a
+// sequence of five on this card).
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// Stage rows 0..63, columns col0 .. col0 + NB - 1 (of which the first ncol
+// exist) of a row-major weight (row stride ld, first element at base).
+// bf16 weights land as they are, [k][NB + 8] bf16, by 16-byte cp.async
+// (scalar stores where a row is not 16-byte aligned or the tile is ragged):
+// the copy is in flight while the block multiplies the tile before, and
+// sync_staged() publishes it. f32 weights land as f32 in the pair layout.
+template <int NB>
+__device__ __forceinline__ void stage_w(float* Ws, const void* w, int bf16,
+                                        size_t base, int ld, int col0,
+                                        int ncol) {
+  if (bf16) {
+    constexpr int ldw = NB + 8;
+    const unsigned short* wb =
+        static_cast<const unsigned short*>(w) + base + col0;
+    unsigned short* W16 = reinterpret_cast<unsigned short*>(Ws);
+    if (ncol == NB && ((ld | col0) & 7) == 0) {
+      for (int u = threadIdx.x; u < kC * (NB / 8); u += kThreads) {
+        const int n8 = u % (NB / 8), k = u / (NB / 8);
+        const unsigned dst = static_cast<unsigned>(
+            __cvta_generic_to_shared(W16 + k * ldw + n8 * 8));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                     "l"(wb + static_cast<size_t>(k) * ld + n8 * 8));
+      }
+    } else {
+      for (int e = threadIdx.x; e < kC * NB; e += kThreads) {
+        const int k = e / NB, c = e % NB;
+        W16[k * ldw + c] =
+            c < ncol ? wb[static_cast<size_t>(k) * ld + c] : 0;
+      }
     }
-    Ws[e] = val;
+  } else {
+    constexpr int ldp = 2 * NB + 8;
+    const float* wf = static_cast<const float*>(w) + base + col0;
+    for (int e = threadIdx.x; e < kC * NB; e += kThreads) {
+      const int k = e / NB, c = e % NB;
+      Ws[(k >> 1) * ldp + 2 * c + (k & 1)] =
+          c < ncol ? wf[static_cast<size_t>(k) * ld + c] : 0.f;
+    }
   }
 }
 
-// acc[i][j] += sum_k As[ty + 16 i][k] * Ws[k][4 tx + j]
-__device__ __forceinline__ void gemm64(const float* As, const float* Ws,
-                                       int ty, int tx, float (&acc)[4][4]) {
+// the staged tile (and whatever the block wrote to shared memory) is whole
+__device__ __forceinline__ void sync_staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// NT 8 x 8 bf16 tiles, transposed: register nt holds (W[k0 + 2 tig][n],
+// W[k0 + 2 tig + 1][n]) for n = 8 nt + g of the tile row the lane points at
+template <int NT>
+__device__ __forceinline__ void ldmatrix_trans(unsigned (&r)[NT],
+                                               const unsigned short* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  if (NT == 4)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1])
+        : "r"(addr));
+}
+
+// acc[mt][nt][2 hf + j] += sum_k As[32 wm + 16 mt + 8 hf + g][k] *
+//                                 W[k][8 (NT wn + nt) + 2 tig + j]
+template <int NT>
+__device__ __forceinline__ void mma_tile(const float* As, const float* Ws,
+                                         int w_bf16, float (&acc)[2][NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const float* ap = As + (32 * (warp & 1) + g) * kLda + 2 * tig;
+  // bf16: the lane's row of the 8 x 8 tiles of an 8-deep step
+  const unsigned short* bp16 = reinterpret_cast<const unsigned short*>(Ws) +
+                               (lane & 7) * (32 * NT + 8) +
+                               8 * NT * (warp >> 1) + 8 * ((lane >> 3) % NT);
+  constexpr int ldp = 64 * NT + 8;
+  const float* bp = Ws + tig * ldp + (8 * NT * (warp >> 1) + g) * 2;
 #pragma unroll 2
-  for (int k = 0; k < kC; k += 4) {
-    float a[4][4];
+  for (int ks = 0; ks < 8; ++ks) {
+    unsigned ah[2][4], al[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 t = ld4(As + (ty + 16 * i) * kLda + k);
-      a[i][0] = t.x; a[i][1] = t.y; a[i][2] = t.z; a[i][3] = t.w;
-    }
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 w = ld4(Ws + (k + kk) * kC + tx * 4);
+      for (int hf = 0; hf < 2; ++hf) {
+        const float2 v = ld2(ap + (16 * mt + 8 * hf) * kLda + 8 * ks);
+        split_tf32(v.x, ah[mt][hf], al[mt][hf]);
+        split_tf32(v.y, ah[mt][hf + 2], al[mt][hf + 2]);
+      }
+    if (w_bf16) {
+      unsigned r[NT];
+      ldmatrix_trans<NT>(r, bp16 + 8 * ks * (32 * NT + 8));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(a[i][kk], w.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i][kk], w.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i][kk], w.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i][kk], w.w, acc[i][3]);
+      for (int nt = 0; nt < NT; ++nt) {
+        const unsigned b0 = r[nt] << 16, b1 = r[nt] & 0xffff0000u;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][nt], al[mt][0], al[mt][1], al[mt][2], al[mt][3],
+                   b0, b1);
+          mma_tf32(acc[mt][nt], ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3],
+                   b0, b1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 w = ld2(bp + 4 * ks * ldp + 16 * nt);
+        unsigned b0, b1, l0, l1;
+        split_tf32(w.x, b0, l0);
+        split_tf32(w.y, b1, l1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][nt], ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3],
+                   l0, l1);
+          mma_tf32(acc[mt][nt], al[mt][0], al[mt][1], al[mt][2], al[mt][3],
+                   b0, b1);
+          mma_tf32(acc[mt][nt], ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3],
+                   b0, b1);
+        }
       }
     }
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 }
 
 // (x - mean) * rsqrt(var + eps) of a 64-wide row spread over 16 lanes
@@ -251,110 +429,153 @@ __device__ __forceinline__ void store_norm(float* As, int row, int tx,
                   n.z * (o + sc.z) + sh.z, n.w * (o + sc.w) + sh.w);
 }
 
-__device__ __forceinline__ float4 bf16x4_to_f32(uint2 u) {
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a,
-                                             float b, float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&lo);
-  u.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
+// rows ty + 16 i of Src (a tile in the accumulator layout's own row order)
+// through LN into As, all 64 rows
+__device__ __forceinline__ void norm_tile(float* As, const float* Src, int ty,
+                                          int tx, float4 sc, float4 sh,
+                                          bool plus1) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    store_norm(As, ty + 16 * i, tx, ld4(Src + (ty + 16 * i) * kLda + tx * 4),
+               sc, sh, plus1);
 }
 
 __device__ __forceinline__ float dot4(const float (&q)[4], float4 k) {
   return fmaf(q[3], k.w, fmaf(q[2], k.z, fmaf(q[1], k.y, q[0] * k.x)));
 }
 
+// the thread's accumulator-layout values into a tile: row 32 wm + 8 i + g,
+// columns 8 (NT wn + nt) + 2 tig, + 1
+template <int NT>
+__device__ __forceinline__ void store_acc(float* T, const float (&v)[2][NT][4],
+                                          int wm, int wn, int g, int tig) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(T + (32 * wm + 16 * mt + 8 * hf + g) * kLda +
+                                   8 * (NT * wn + nt) + 2 * tig) =
+            make_float2(v[mt][nt][2 * hf], v[mt][nt][2 * hf + 1]);
+}
+
 // ---------------------------------------------------------------------------
 // phase A: (embedding) -> AdaLN-LN -> QKV -> q/k/v scratch
 // ---------------------------------------------------------------------------
 template <bool PACKED>
-__device__ void phase_qkv(const Params& p, int layer, float* As, float* Ws) {
+__device__ void phase_qkv(const Params& p, int layer, float* As, float* W0,
+                          float* W1) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
   const int n_items = tile_items<PACKED>(p);
   const float* ada = p.adaln + static_cast<size_t>(layer) * 4 * kC;
   const float4 sc = ld4(ada + tx * 4), sh = ld4(ada + kC + tx * 4);
+  const size_t wbase = static_cast<size_t>(layer) * kC * 3 * kC;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const RowMap m = map_rows<PACKED>(p, item, ty);
-    float4 xr[4];
+    float4 prev = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      xr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m.ok[i]) {
-        float* xp =
-            p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC +
-            tx * 4;
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+      float4 xr = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (tok < p.L) {
+        float* xp = p.x + (static_cast<size_t>(rb) * p.L + tok) * kC + tx * 4;
         if (layer != 0) {
-          xr[i] = ld4(xp);
+          xr = ld4(xp);
         } else {
-          if (PACKED && i >= 2) {   // the other branch of the same token
-            xr[i] = xr[i & 1];
+          if (PACKED && (i & 1)) {   // the other branch of the same token
+            xr = prev;
           } else {
-            const long long t =
-                p.tokens[static_cast<size_t>(m.b) * p.L + m.tok[i]];
-            xr[i] = add4(
-                ld4(p.emb + static_cast<size_t>(t) * kC + tx * 4),
-                ld4(p.pos + static_cast<size_t>(m.tok[i]) * kC + tx * 4));
+            const long long t = p.tokens[static_cast<size_t>(b) * p.L + tok];
+            xr = add4(ld4(p.emb + static_cast<size_t>(t) * kC + tx * 4),
+                      ld4(p.pos + static_cast<size_t>(tok) * kC + tx * 4));
           }
-          *reinterpret_cast<float4*>(xp) = xr[i];
+          *reinterpret_cast<float4*>(xp) = xr;
         }
       }
-      store_norm(As, ty + 16 * i, tx, xr[i], sc, sh, true);
+      prev = xr;
+      store_norm(As, ty + 16 * i, tx, xr, sc, sh, true);
     }
+    stage_w<64>(W0, p.wqkv, p.w_bf16, wbase, 3 * kC, 0, kC);
+    sync_staged();
+    const RowMap m = map_rows<PACKED>(p, item, wm, g);
     for (int c = 0; c < 3; ++c) {
-      __syncthreads();
-      load_w(Ws, p.wqkv, p.w_bf16, static_cast<size_t>(layer) * kC * 3 * kC,
-             3 * kC, c * kC, kC);
-      __syncthreads();
-      float acc[4][4];
-      zero(acc);
-      gemm64(As, Ws, ty, tx, acc);
-      const float4 bias =
-          ld4(p.bqkv + static_cast<size_t>(layer) * 3 * kC + c * kC + tx * 4);
+      // the next tile lands in the other buffer during this product
+      if (c < 2)
+        stage_w<64>((c & 1) ? W0 : W1, p.wqkv, p.w_bf16, wbase, 3 * kC,
+                    (c + 1) * kC, kC);
+      float acc[2][2][4];
+      zero<2>(acc);
+      mma_tile<2>(As, (c & 1) ? W1 : W0, p.w_bf16, acc);
       __nv_bfloat16* dst = c == 0 ? p.q : (c == 1 ? p.k : p.v);
       const float s = c == 0 ? kQScale : 1.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (m.ok[i])
-          store_bf16x4(
-              dst + ((static_cast<size_t>(m.rb[i]) * kH + tx) * p.L +
-                     m.tok[i]) * 4,
-              (acc[i][0] + bias.x) * s, (acc[i][1] + bias.y) * s,
-              (acc[i][2] + bias.z) * s, (acc[i][3] + bias.w) * s);
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = 8 * (2 * wn + nt) + 2 * tig;
+        const float2 bias =
+            ld2(p.bqkv + static_cast<size_t>(layer) * 3 * kC + c * kC + col);
+        float kmx[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // [mt][column]
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (m.ok[i]) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                (acc[i >> 1][nt][2 * (i & 1)] + bias.x) * s,
+                (acc[i >> 1][nt][2 * (i & 1) + 1] + bias.y) * s);
+            *reinterpret_cast<__nv_bfloat162*>(
+                dst + ((static_cast<size_t>(m.rb[i]) * kH + (col >> 2)) * p.L +
+                       m.tok[i]) * 4 + (col & 3)) = v;
+            kmx[i >> 1][0] = fmaxf(kmx[i >> 1][0], fabsf(__low2float(v)));
+            kmx[i >> 1][1] = fmaxf(kmx[i >> 1][1], fabsf(__high2float(v)));
+          }
+        if (c == 1) {
+          // max over a head's keys of |k| per dim, which bounds a query's
+          // scores from above (phase S): the 16 rows of a warp's tile are
+          // one row-branch; |x| orders like its bit pattern
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float v = kmx[mt][j];
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1)
+                v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+              if (g == 0 && v > 0.f)
+                atomicMax(p.kmax + (static_cast<size_t>(m.rb[2 * mt]) * kH +
+                                    (col >> 2)) * 4 + (col & 3) + j,
+                          __float_as_uint(v));
+            }
+        }
+      }
+      sync_staged();
     }
-    __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
 // phase S: self-attention on the tensor cores, one warp per 32 queries
 // ---------------------------------------------------------------------------
-// q / sqrt(d), k, v and the probabilities are bf16 values, which TF32 holds
-// exactly, so a TF32 mma with f32 accumulation computes the same products as
-// f32 FMAs. With a head dim of 4, QK^T is mma.m16n8k4 (16 queries x 8 keys,
-// contraction 4: no padding). Its accumulator layout (a thread holds keys
-// 2t and 2t+1 of rows g and g+8) is, with the keys of a block of 8 taken in
-// the order 0 2 4 6 1 3 5 7, the A layout of mma.m16n8k8, so PV follows
-// without a shuffle; V fills 4 of its 8 output columns.
-__device__ __forceinline__ void mma_qk(float (&d)[4], unsigned a0,
-                                       unsigned a1, unsigned b0) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+// q / sqrt(d), k, v and the probabilities are bf16 values and a product of
+// two of them is exact in f32, so a bf16 mma with f32 accumulation computes
+// what f32 FMAs on the rounded operands would. QK^T is mma.m16n8k8 (16
+// queries x 8 keys; the head's 4 dims fill half the contraction, the rest of
+// A is zero). Its accumulator layout (keys 2 tig, 2 tig + 1 of rows g and g
+// + 8) is, packed to bf16 pairs, the A layout of mma.m16n8k16, so the
+// probabilities of two key blocks feed P V without a shuffle or an unpack;
+// V fills 4 of its 8 output columns.
+__device__ __forceinline__ void mma_qk(float (&d)[4], unsigned a0, unsigned a1,
+                                       unsigned b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a0), "r"(a1), "r"(b0), "f"(0.f));
 }
 
-__device__ __forceinline__ void mma_pv(float (&c)[4], unsigned a0,
-                                       unsigned a1, unsigned a2, unsigned a3,
-                                       unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+__device__ __forceinline__ void mma_pv(float (&c)[4], unsigned a0, unsigned a1,
+                                       unsigned a2, unsigned a3, unsigned b0,
+                                       unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
@@ -366,168 +587,320 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// max / sum over the 4 lanes that share an accumulator row
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+// 2^x without the special function unit: x = n + f, |f| <= 1/2, a
+// polynomial for 2^f on the FMA pipe, n added to the exponent. DEG 6 is
+// good to f32's last bits (what ex2.approx is), DEG 3 to 2^-13.
+template <int DEG>
+__device__ __forceinline__ float ex2_poly(float x) {
+  x = fmaxf(x, -126.f);
+  const float t = x + 12582912.f;          // 1.5 * 2^23: n in the low bits
+  const float f = x - (t - 12582912.f);
+  float p;
+  if (DEG == 6) {
+    p = 1.5403530393e-4f;
+    p = fmaf(p, f, 1.3333558146e-3f);
+    p = fmaf(p, f, 9.6181291076e-3f);
+    p = fmaf(p, f, 5.5504108665e-2f);
+  } else {
+    p = 5.5171665e-2f;   // minimax on [-1/2, 1/2] to degree 3
+  }
+  p = fmaf(p, f, DEG == 6 ? 2.4022650696e-1f : 2.4261112e-1f);
+  p = fmaf(p, f, DEG == 6 ? 6.9314718056e-1f : 6.9326099e-1f);
+  p = fmaf(p, f, DEG == 6 ? 1.f : 0.99992807f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
 }
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+// of the 16 exponentials a thread takes per block of 16 keys, how many go
+// to the polynomial in sweep 1 (row sum) and sweep 2 (probabilities)
+#ifndef MK_POLY1
+#define MK_POLY1 4
+#endif
+#ifndef MK_POLY2
+#define MK_POLY2 0
+#endif
+// For timing only (with bits 0-2 the step's result is wrong): bit 0 leaves
+// out the softmax shift, bit 1 the row-sum sweep, bit 2 replaces every
+// exponential of phase S by an add, bit 3 takes the exact row maximum
+// everywhere (the result stays right). probes/megakernel_variants.py builds
+// such variants beside the real one and reads the phase's time of each.
+#ifndef MK_ABLATE
+#define MK_ABLATE 0
+#endif
 
-// a warp's running softmax state for its two tiles of 16 queries: rows g and
+// 16-query tiles a warp works on at once (3 and 4 share a key fragment's
+// load over more queries and measured slower: 15.1 and 14.1 ms against 13.1)
+constexpr int kMT = 2;
+constexpr int kQTile = 8 * 16 * kMT;   // queries a block works on at once
+
+// a warp's running softmax state for its kMT tiles of 16 queries: rows g and
 // g + 8 of each tile
 struct AttnState {
-  float ml[2][2];    // row maximum x log2(e), in the making until sweep 0 ends
-  float l[2][2];     // row sum, then its reciprocal
-  float acc[2][4];   // P V
+  float ml[kMT][2];    // the shift of the scores x log2(e); sweep 0: the max
+  float l[kMT][2];     // row sum, then its reciprocal
+  float acc[kMT][4];   // P V
 };
 
-// One block of 8 keys for the warp's 32 queries. SWEEP 0: row maximum; 1: row
-// sum of exp(s - max); 2: exp(s - max) / sum -> bf16 -> P V. MASKED: the
-// chunk's last block, of which only the keys below n exist.
+// One block of 16 keys for the warp's 16 kMT queries. SWEEP 0: row maximum
+// (into ml); 1: row sum of exp(s - shift); 2: exp(s - shift) / sum -> bf16 ->
+// P V. MASKED: the last block, of which only the keys below n exist. ks:
+// [key][4] bf16; vs: [key / 2][dim] pairs (V[key][dim], V[key + 1][dim]).
 template <int SWEEP, bool MASKED>
-__device__ __forceinline__ void attn_block(const float* ks, const float* vs,
-                                           int kb, int n, int g, int tig,
-                                           const unsigned (&qa)[2][2],
+__device__ __forceinline__ void attn_block(const unsigned* ks,
+                                           const unsigned* vs, int kb, int n,
+                                           int g, int tig,
+                                           const unsigned (&qa)[kMT][2],
                                            AttnState& st) {
   constexpr float kLog2e = 1.4426950408889634f;
-  const unsigned kf = __float_as_uint(ks[(kb + g) * 4 + tig]);
+  constexpr int kPoly = SWEEP == 1 ? MK_POLY1 : MK_POLY2;
+  unsigned kf[2];
+#pragma unroll
+  for (int sb = 0; sb < 2; ++sb)
+    kf[sb] = ks[(kb + 8 * sb + g) * 2 + (tig & 1)];
   unsigned v0 = 0u, v1 = 0u;
-  if (SWEEP == 2) {
-    const float2 vv = *reinterpret_cast<const float2*>(
-        vs + ((kb >> 1) + tig) * 8 + (g & 3) * 2);
-    v0 = g < 4 ? __float_as_uint(vv.x) : 0u;
-    v1 = g < 4 ? __float_as_uint(vv.y) : 0u;
+  if (SWEEP == 2 && g < 4) {
+    v0 = vs[((kb >> 1) + tig) * 4 + g];
+    v1 = vs[((kb >> 1) + 4 + tig) * 4 + g];
   }
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    float s[4];
-    mma_qk(s, qa[mt][0], qa[mt][1], kf);
-    if (MASKED) {
-      if (kb + 2 * tig >= n) s[0] = s[2] = -INFINITY;
-      if (kb + 2 * tig + 1 >= n) s[1] = s[3] = -INFINITY;
+  for (int mt = 0; mt < kMT; ++mt) {
+    float s[2][4];
+#pragma unroll
+    for (int sb = 0; sb < 2; ++sb) {
+      mma_qk(s[sb], qa[mt][0], qa[mt][1], kf[sb]);
+      if (MASKED) {
+        if (kb + 8 * sb + 2 * tig >= n) s[sb][0] = s[sb][2] = -INFINITY;
+        if (kb + 8 * sb + 2 * tig + 1 >= n) s[sb][1] = s[sb][3] = -INFINITY;
+      }
     }
-    if (SWEEP == 0) {
-      st.ml[mt][0] = fmaxf(st.ml[mt][0], fmaxf(s[0], s[1]));
-      st.ml[mt][1] = fmaxf(st.ml[mt][1], fmaxf(s[2], s[3]));
+    if constexpr (SWEEP == 0) {
+#pragma unroll
+      for (int sb = 0; sb < 2; ++sb) {
+        st.ml[mt][0] = fmaxf(st.ml[mt][0], fmaxf(s[sb][0], s[sb][1]));
+        st.ml[mt][1] = fmaxf(st.ml[mt][1], fmaxf(s[sb][2], s[sb][3]));
+      }
     } else {
-      const float e0 = ex2(fmaf(s[0], kLog2e, -st.ml[mt][0]));
-      const float e1 = ex2(fmaf(s[1], kLog2e, -st.ml[mt][0]));
-      const float e2 = ex2(fmaf(s[2], kLog2e, -st.ml[mt][1]));
-      const float e3 = ex2(fmaf(s[3], kLog2e, -st.ml[mt][1]));
-      if (SWEEP == 1) {
-        st.l[mt][0] += e0 + e1;
-        st.l[mt][1] += e2 + e3;
+      float e[2][4];
+#pragma unroll
+      for (int sb = 0; sb < 2; ++sb)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float x = fmaf(s[sb][c], kLog2e, -st.ml[mt][c >> 1]);
+          // the thread's 16 exponentials of this block in a fixed order, of
+          // which kPoly, evenly spread, go to the FMA pipe
+          const bool poly =
+              ((mt & 1) * 8 + sb * 4 + c) * kPoly % 16 + kPoly > 15;
+          e[sb][c] = (MK_ABLATE & 4) ? x + 1.f
+                     : poly          ? ex2_poly<SWEEP == 1 ? 3 : 6>(x)
+                                     : ex2(x);
+        }
+      if constexpr (SWEEP == 1) {
+        st.l[mt][0] += (e[0][0] + e[0][1]) + (e[1][0] + e[1][1]);
+        st.l[mt][1] += (e[0][2] + e[0][3]) + (e[1][2] + e[1][3]);
       } else {
-        // exp / sum -> bf16, two at a time; a bf16 is the top half of a TF32
-        const __nv_bfloat162 lo =
-            __floats2bfloat162_rn(e0 * st.l[mt][0], e1 * st.l[mt][0]);
-        const __nv_bfloat162 hi =
-            __floats2bfloat162_rn(e2 * st.l[mt][1], e3 * st.l[mt][1]);
-        const unsigned ul = *reinterpret_cast<const unsigned*>(&lo);
-        const unsigned uh = *reinterpret_cast<const unsigned*>(&hi);
-        mma_pv(st.acc[mt], ul << 16, uh << 16, ul & 0xffff0000u,
-               uh & 0xffff0000u, v0, v1);
+        unsigned a[4];
+#pragma unroll
+        for (int sb = 0; sb < 2; ++sb)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            // exp / sum -> bf16, two keys a register
+            const __nv_bfloat162 pk = __floats2bfloat162_rn(
+                e[sb][2 * hf] * st.l[mt][hf],
+                e[sb][2 * hf + 1] * st.l[mt][hf]);
+            a[2 * sb + hf] = *reinterpret_cast<const unsigned*>(&pk);
+          }
+        mma_pv(st.acc[mt], a[0], a[1], a[2], a[3], v0, v1);
       }
     }
   }
 }
 
-// One sweep over all keys of a (row-branch, head): chunks of kKeyTile keys
-// staged as f32, ks as [key][4], vs (sweep 2 only) as [key / 2][4][2].
+// One sweep over the keys kb0 .. L - 1 of a (row-branch, head), staged
+// whole.
 template <int SWEEP>
-__device__ __forceinline__ void attn_sweep(const uint2* kg, const uint2* vg,
-                                           int L, float* ks, float* vs, int g,
-                                           int tig,
-                                           const unsigned (&qa)[2][2],
+__device__ __forceinline__ void attn_sweep(const unsigned* ks,
+                                           const unsigned* vs, int kb0, int L,
+                                           int g, int tig,
+                                           const unsigned (&qa)[kMT][2],
                                            AttnState& st) {
-  for (int k0 = 0; k0 < L; k0 += kKeyTile) {
-    const int n = min(kKeyTile, L - k0);
-    const int n8 = (n + 7) & ~7, nfull = n & ~7;
-    __syncthreads();
-    for (int j = threadIdx.x; j < n8; j += kThreads) {
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(ks + j * 4) =
-          j < n ? bf16x4_to_f32(kg[k0 + j]) : z;
-      if (SWEEP == 2) {
-        const float4 vv = j < n ? bf16x4_to_f32(vg[k0 + j]) : z;
-        float* d = vs + (j >> 1) * 8 + (j & 1);
-        d[0] = vv.x; d[2] = vv.y; d[4] = vv.z; d[6] = vv.w;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kb = 0; kb < nfull; kb += 8)
-      attn_block<SWEEP, false>(ks, vs, kb, n, g, tig, qa, st);
-    if (nfull < n8) attn_block<SWEEP, true>(ks, vs, nfull, n, g, tig, qa, st);
-  }
+  const int nfull = L & ~15;
+#pragma unroll 2
+  for (int kb = kb0; kb < nfull; kb += 16)
+    attn_block<SWEEP, false>(ks, vs, kb, L, g, tig, qa, st);
+  if (nfull < L && kb0 <= nfull)
+    attn_block<SWEEP, true>(ks, vs, nfull, L, g, tig, qa, st);
 }
 
-__device__ void phase_self_attention(const Params& p, float* ks, float* vs) {
+// The softmax shift of the warp's queries, x log2(e), into st.ml. Softmax
+// does not change under a shift of the scores, so the exact row maximum (a
+// sweep of its own over all keys) is taken only where it has to be. An upper
+// bound of a query's scores comes for nothing: sum_d |q_d| max_keys |k_d|,
+// the maxima from phase A. It serves as the shift wherever it provably lies
+// within kShiftSlack of the row maximum, of which the maximum over the first
+// 16 keys is a lower bound: the largest exponential is then at least
+// exp(-kShiftSlack), and neither the row sum nor a probability that bf16
+// would keep falls under f32's range. If any query of the warp fails that
+// test, the warp sweeps all keys for the exact maxima.
+constexpr float kShiftSlack = 40.f;
+
+__device__ __forceinline__ void softmax_shift(const unsigned* ks,
+                                              const unsigned* vs, int L, int g,
+                                              int tig, float km0, float km1,
+                                              const unsigned (&qa)[kMT][2],
+                                              AttnState& st) {
   constexpr float kLog2e = 1.4426950408889634f;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int nq = (p.L + kQTile - 1) / kQTile;
-  const int n_items = p.B * p.n_br * kH * nq;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int qt = item % nq;
-    const int h = (item / nq) % kH;
-    const int r = item / (nq * kH);
-    const size_t base = (static_cast<size_t>(r) * kH + h) * p.L;
-    const uint2* kg = reinterpret_cast<const uint2*>(p.k) + base;
-    const uint2* vg = reinterpret_cast<const uint2*>(p.v) + base;
-    const unsigned short* qg =
-        reinterpret_cast<const unsigned short*>(p.q) + base * 4;
-    // this warp's queries: rows q0 + 16 mt + g (+ 8), two tiles of 16
-    const int q0 = qt * kQTile + warp * 32;
-    unsigned qa[2][2];
-    AttnState st;
+  float bound[kMT][2];
+  bool safe = true;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = q0 + 16 * mt + g + 8 * hf;
-        qa[mt][hf] = row < p.L
-            ? static_cast<unsigned>(qg[static_cast<size_t>(row) * 4 + tig])
-                  << 16
-            : 0u;
-        st.ml[mt][hf] = -INFINITY;
-        st.l[mt][hf] = 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) st.acc[mt][c] = 0.f;
+    for (int hf = 0; hf < 2; ++hf) {
+      // the thread holds q's dims 2 tig, 2 tig + 1 (tig < 2) as a bf16 pair
+      const float q0 = __uint_as_float(qa[mt][hf] << 16);
+      const float q1 = __uint_as_float(qa[mt][hf] & 0xffff0000u);
+      bound[mt][hf] = quad_sum(fabsf(q0) * km0 + fabsf(q1) * km1);
+      st.ml[mt][hf] = -INFINITY;
     }
-    attn_sweep<0>(kg, vg, p.L, ks, vs, g, tig, qa, st);
+  if (L >= 16)
+    attn_block<0, false>(ks, vs, 0, L, g, tig, qa, st);
+  else
+    attn_block<0, true>(ks, vs, 0, L, g, tig, qa, st);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float lower = quad_max(st.ml[mt][hf]);   // every lane shuffles
+      safe = safe && bound[mt][hf] - lower <= kShiftSlack;
+    }
+  if (__all_sync(0xffffffffu, safe) && !(MK_ABLATE & 8)) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) st.ml[mt][hf] = bound[mt][hf] * kLog2e;
+  } else {
+    attn_sweep<0>(ks, vs, 16, L, g, tig, qa, st);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
         st.ml[mt][hf] = quad_max(st.ml[mt][hf]) * kLog2e;
-    attn_sweep<1>(kg, vg, p.L, ks, vs, g, tig, qa, st);
+  }
+}
+
+// the warp's queries from row q0 on: rows q0 + 16 mt + 8 hf + g; a
+// thread holds dims 2 tig, 2 tig + 1 (the contraction's upper half: 0)
+__device__ __forceinline__ void load_queries(const unsigned* qg, int q0, int L,
+                                             int g, int tig,
+                                             unsigned (&qa)[kMT][2]) {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        st.l[mt][hf] = 1.f / quad_sum(st.l[mt][hf]);
-    attn_sweep<2>(kg, vg, p.L, ks, vs, g, tig, qa, st);
-    if (tig < 2) {   // output columns 2 tig, 2 tig + 1 of the head's 4
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = q0 + 16 * mt + g + 8 * hf;
-          if (row < p.L)
-            *reinterpret_cast<float2*>(
-                p.o + (static_cast<size_t>(r) * p.L + row) * kC + h * 4 +
-                2 * tig) =
-                make_float2(st.acc[mt][2 * hf], st.acc[mt][2 * hf + 1]);
-        }
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + 16 * mt + g + 8 * hf;
+      qa[mt][hf] = (row < L && tig < 2)
+          ? qg[static_cast<size_t>(row) * 2 + tig] : 0u;
+    }
+}
+
+// A work item is one (row-branch, head), or a part of its queries. Its keys
+// and values (16 bytes a key: up to kMaxSeq) are staged once as they are,
+// bf16, K as [key][4], V transposed to pairs of keys; the block then walks
+// the head's queries kQTile at a time, a warp per 16 kMT, without a
+// block-wide barrier. Per query the shift (softmax_shift), then two sweeps
+// over the keys: the row sum, then exp / sum -> bf16 -> P V. Two, because
+// the probabilities are rounded to bf16 after the division by their row sum
+// (an online rescale would round them elsewhere).
+__device__ void phase_self_attention(const Params& p, unsigned char* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int L16 = (p.L + 15) & ~15;
+  uint2* ks = reinterpret_cast<uint2*>(smem);
+  uint4* vs = reinterpret_cast<uint4*>(smem + static_cast<size_t>(L16) * 8);
+  const unsigned* ksw = reinterpret_cast<const unsigned*>(ks);
+  const unsigned* vsw = reinterpret_cast<const unsigned*>(vs);
+  const int nq = (p.L + kQTile - 1) / kQTile;
+  // a head's nq query tiles are split over n_split items where that shortens
+  // the longest block's share (rounds of items x tiles an item)
+  const int n_heads = p.B * p.n_br * kH;
+  const int grid = static_cast<int>(gridDim.x);
+  int n_split = 1, best = ((n_heads + grid - 1) / grid) * nq;
+  for (int sp = 2; sp <= nq; ++sp) {
+    const int span = ((n_heads * sp + grid - 1) / grid) * ((nq + sp - 1) / sp);
+    if (span < best) {
+      best = span;
+      n_split = sp;
     }
   }
-  __syncthreads();
+  const int n_items = n_heads * n_split;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int rh = item / n_split, part = item % n_split;
+    const int qt0 = part * nq / n_split, qt1 = (part + 1) * nq / n_split;
+    const int h = rh % kH;
+    const int r = rh / kH;
+    const size_t base = static_cast<size_t>(rh) * p.L;
+    const uint2* kg = reinterpret_cast<const uint2*>(p.k) + base;
+    const uint2* vg = reinterpret_cast<const uint2*>(p.v) + base;
+    const unsigned* qg = reinterpret_cast<const unsigned*>(p.q) + base * 2;
+    const uint2 z2 = make_uint2(0u, 0u);
+    for (int j = threadIdx.x; j < L16; j += kThreads)
+      ks[j] = j < p.L ? kg[j] : z2;
+    for (int j = threadIdx.x; j < L16 / 2; j += kThreads) {
+      const uint2 a = 2 * j < p.L ? vg[2 * j] : z2;
+      const uint2 b = 2 * j + 1 < p.L ? vg[2 * j + 1] : z2;
+      vs[j] = make_uint4(__byte_perm(a.x, b.x, 0x5410),
+                         __byte_perm(a.x, b.x, 0x7632),
+                         __byte_perm(a.y, b.y, 0x5410),
+                         __byte_perm(a.y, b.y, 0x7632));
+    }
+    // max over this head's keys of |k|, dims 2 tig and 2 tig + 1
+    const uint2 kmb = tig < 2
+        ? __ldcg(reinterpret_cast<const uint2*>(p.kmax) +
+                 static_cast<size_t>(rh) * 2 + tig)
+        : z2;
+    const float km0 = __uint_as_float(kmb.x), km1 = __uint_as_float(kmb.y);
+    __syncthreads();
+    // (a warp whose queries lie past the end has nothing to do: no barrier
+    // is met before the item ends)
+    for (int qt = qt0; qt < qt1; ++qt) {
+      const int q0 = qt * kQTile + warp * 16 * kMT;
+      if (q0 >= p.L) break;
+      unsigned qa[kMT][2];
+      AttnState st;
+      load_queries(qg, q0, p.L, g, tig, qa);
+      if (MK_ABLATE & 1) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) st.ml[mt][0] = st.ml[mt][1] = 0.f;
+      } else {
+        softmax_shift(ksw, vsw, p.L, g, tig, km0, km1, qa, st);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        st.l[mt][0] = st.l[mt][1] = (MK_ABLATE & 2) ? 1.f : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st.acc[mt][c] = 0.f;
+      }
+      if (!(MK_ABLATE & 2)) attn_sweep<1>(ksw, vsw, 0, p.L, g, tig, qa, st);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          st.l[mt][hf] = 1.f / quad_sum(st.l[mt][hf]);
+      attn_sweep<2>(ksw, vsw, 0, p.L, g, tig, qa, st);
+      if (tig < 2) {   // output columns 2 tig, 2 tig + 1 of the head's 4
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = q0 + 16 * mt + g + 8 * hf;
+            if (row < p.L)
+              *reinterpret_cast<float2*>(
+                  p.o + (static_cast<size_t>(r) * p.L + row) * kC + h * 4 +
+                  2 * tig) =
+                  make_float2(st.acc[mt][2 * hf], st.acc[mt][2 * hf + 1]);
+          }
+      }
+    }
+    __syncthreads();   // every warp has read the staged keys and values
+  }
 }
 
 // cross-attention of one (row, head) over the first s_valid of the
@@ -566,133 +939,193 @@ __device__ __forceinline__ float4 cross_attend(const Params& p,
 // ---------------------------------------------------------------------------
 // phase B: proj + residual -> cross -> LN -> MLP + residual
 // ---------------------------------------------------------------------------
+// The weight tiles of an item come in a fixed order and alternate between
+// two buffers: each product stages its successor's tile before its own mma,
+// and one block-wide barrier a product publishes both that tile and the
+// product's epilogue. The residual stream stays in registers, in the
+// accumulator layout; it passes through shared memory (Hs) only to be
+// normalised row by row.
+#define WB(i) ((i) ? W1 : W0)
 template <bool PACKED>
 __device__ void phase_mlp(const Params& p, int layer, float* As, float* Hs,
-                          float* Ws) {
+                          float* W0, float* W1) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
   const int n_items = tile_items<PACKED>(p);
+  const int wb = p.w_bf16;
   const size_t lw = static_cast<size_t>(layer) * kC * kC;   // a (C, C) layer
-  const size_t lb = static_cast<size_t>(layer) * kC + tx * 4;
+  const size_t lb = static_cast<size_t>(layer) * kC;
+  const size_t lfc = static_cast<size_t>(layer) * kC * p.hidden;
+  const int nch = p.hidden / kC;
+  // phase S has read this layer's key maxima: clear them for the next
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kC;
+       i += gridDim.x * kThreads)
+    p.kmax[i] = 0u;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const RowMap m = map_rows<PACKED>(p, item, ty);
-    float4 xr[4];
-    float acc[4][4];
-    // attention output -> proj -> residual
+    const RowMap m = map_rows<PACKED>(p, item, wm, g);
+    int cur = 0;   // the buffer that holds the next product's weights
+    float xr[2][2][4], acc[2][2][4];
+    // the residual stream (accumulator layout); the attention output -> As
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const size_t off =
-          (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC + tx * 4;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      xr[i] = m.ok[i] ? ld4(p.x + off) : z;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float2 v = make_float2(0.f, 0.f);
+        if (m.ok[i])
+          v = ld2(p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC +
+                  8 * (2 * wn + nt) + 2 * tig);
+        xr[i >> 1][nt][2 * (i & 1)] = v.x;
+        xr[i >> 1][nt][2 * (i & 1) + 1] = v.y;
+      }
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
       *reinterpret_cast<float4*>(As + (ty + 16 * i) * kLda + tx * 4) =
-          m.ok[i] ? ld4(p.o + off) : z;
+          tok < p.L ? ld4(p.o + (static_cast<size_t>(rb) * p.L + tok) * kC +
+                          tx * 4)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    load_w(Ws, p.wproj, p.w_bf16, lw, kC, 0, kC);
-    __syncthreads();
-    zero(acc);
-    gemm64(As, Ws, ty, tx, acc);
-    {
-      const float4 bias = ld4(p.bproj + lb);
+    stage_w<64>(WB(cur), p.wproj, wb, lw, kC, 0, kC);
+    sync_staged();
+    // proj + residual (+ the cross-attention bias)
+    if (p.cross_bias)
+      stage_w<64>(WB(cur ^ 1), p.wfc, wb, lfc, p.hidden, 0, kC);
+    else
+      stage_w<64>(WB(cur ^ 1), p.wq_c, wb, lw, kC, 0, kC);
+    zero<2>(acc);
+    mma_tile<2>(As, WB(cur), wb, acc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        xr[i] = make_float4(xr[i].x + acc[i][0] + bias.x,
-                            xr[i].y + acc[i][1] + bias.y,
-                            xr[i].z + acc[i][2] + bias.z,
-                            xr[i].w + acc[i][3] + bias.w);
-    }
-    if (p.cross_bias) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        xr[i] = add4(xr[i], ld4(p.kc + (static_cast<size_t>(m.rb[i]) *
-                                            p.n_layer + layer) * p.sp * kC +
-                                tx * 4));
-    } else {
-      const float* ada = p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
-      const float4 sc = ld4(ada + tx * 4), sh = ld4(ada + kC + tx * 4);
-      __syncthreads();   // the proj product has read As and Ws
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        store_norm(As, ty + 16 * i, tx, xr[i], sc, sh, true);
-      load_w(Ws, p.wq_c, p.w_bf16, lw, kC, 0, kC);
-      __syncthreads();
-      zero(acc);
-      gemm64(As, Ws, ty, tx, acc);
-      const float4 bq = ld4(p.bq_c + lb);
-      __syncthreads();   // the query product has read As and Ws
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = 8 * (2 * wn + nt) + 2 * tig;
+      const float2 bias = ld2(p.bproj + lb + col);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
+        float2 add = bias;
+        if (p.cross_bias) {
+          const float2 cb = ld2(p.kc + (static_cast<size_t>(m.rb[i]) *
+                                        p.n_layer + layer) * p.sp * kC + col);
+          add.x += cb.x;
+          add.y += cb.y;
+        }
+        xr[i >> 1][nt][2 * (i & 1)] += acc[i >> 1][nt][2 * (i & 1)] + add.x;
+        xr[i >> 1][nt][2 * (i & 1) + 1] +=
+            acc[i >> 1][nt][2 * (i & 1) + 1] + add.y;
+      }
+    }
+    store_acc<2>(Hs, xr, wm, wn, g, tig);
+    sync_staged();
+    cur ^= 1;
+    if (!p.cross_bias) {
+      const float* ada =
+          p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
+      norm_tile(As, Hs, ty, tx, ld4(ada + tx * 4), ld4(ada + kC + tx * 4),
+                true);
+      sync_staged();
+      // the cross-attention's queries, through bf16, into Hs
+      stage_w<64>(WB(cur ^ 1), p.wproj_c, wb, lw, kC, 0, kC);
+      zero<2>(acc);
+      mma_tile<2>(As, WB(cur), wb, acc);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 bq = ld2(p.bq_c + lb + 8 * (2 * wn + nt) + 2 * tig);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            acc[mt][nt][2 * hf] =
+                bf16r((acc[mt][nt][2 * hf] + bq.x) * kQScale);
+            acc[mt][nt][2 * hf + 1] =
+                bf16r((acc[mt][nt][2 * hf + 1] + bq.y) * kQScale);
+          }
+      }
+      store_acc<2>(Hs, acc, wm, wn, g, tig);
+      sync_staged();
+      cur ^= 1;
+      // a (row, head) a thread, row-wise: Hs -> attention -> As
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
         float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m.ok[i]) {
-          const float q[4] = {bf16r((acc[i][0] + bq.x) * kQScale),
-                              bf16r((acc[i][1] + bq.y) * kQScale),
-                              bf16r((acc[i][2] + bq.z) * kQScale),
-                              bf16r((acc[i][3] + bq.w) * kQScale)};
-          const size_t off = (static_cast<size_t>(m.rb[i]) * p.n_layer +
-                              layer) * p.sp * kC + tx * 4;
+        if (tok < p.L) {
+          const float4 qv = ld4(Hs + (ty + 16 * i) * kLda + tx * 4);
+          const float q[4] = {qv.x, qv.y, qv.z, qv.w};
+          const size_t off = (static_cast<size_t>(rb) * p.n_layer + layer) *
+                                 p.sp * kC + tx * 4;
           o = cross_attend(p, p.kc + off, p.vc + off, q);
         }
         *reinterpret_cast<float4*>(As + (ty + 16 * i) * kLda + tx * 4) = o;
       }
-      load_w(Ws, p.wproj_c, p.w_bf16, lw, kC, 0, kC);
-      __syncthreads();
-      zero(acc);
-      gemm64(As, Ws, ty, tx, acc);
-      const float4 bias = ld4(p.bproj_c + lb);
+      sync_staged();
+      stage_w<64>(WB(cur ^ 1), p.wfc, wb, lfc, p.hidden, 0, kC);
+      zero<2>(acc);
+      mma_tile<2>(As, WB(cur), wb, acc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        xr[i] = make_float4(xr[i].x + acc[i][0] + bias.x,
-                            xr[i].y + acc[i][1] + bias.y,
-                            xr[i].z + acc[i][2] + bias.z,
-                            xr[i].w + acc[i][3] + bias.w);
-    }
-    // LN -> MLP, one chunk of 64 hidden units at a time
-    {
-      const float4 sc = ld4(p.ln2_s + lb), sh = ld4(p.ln2_b + lb);
-      __syncthreads();   // the last product has read As and Ws
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 bias = ld2(p.bproj_c + lb + 8 * (2 * wn + nt) + 2 * tig);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        store_norm(As, ty + 16 * i, tx, xr[i], sc, sh, false);
-    }
-    float out[4][4];
-    zero(out);
-    for (int c = 0; c < p.hidden / kC; ++c) {
-      load_w(Ws, p.wfc, p.w_bf16, static_cast<size_t>(layer) * kC * p.hidden,
-             p.hidden, c * kC, kC);
-      __syncthreads();
-      zero(acc);
-      gemm64(As, Ws, ty, tx, acc);
-      const float4 bias =
-          ld4(p.bfc + static_cast<size_t>(layer) * p.hidden + c * kC + tx * 4);
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float hv[4] = {acc[i][0] + bias.x, acc[i][1] + bias.y,
-                       acc[i][2] + bias.z, acc[i][3] + bias.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)   // GELU2: h * sigmoid(1.702 h)
-          hv[j] = hv[j] / (1.f + expf(-1.702f * hv[j]));
-        *reinterpret_cast<float4*>(Hs + (ty + 16 * i) * kLda + tx * 4) =
-            make_float4(hv[0], hv[1], hv[2], hv[3]);
+          for (int hf = 0; hf < 2; ++hf) {
+            xr[mt][nt][2 * hf] += acc[mt][nt][2 * hf] + bias.x;
+            xr[mt][nt][2 * hf + 1] += acc[mt][nt][2 * hf + 1] + bias.y;
+          }
       }
-      __syncthreads();   // Hs is whole, the fc product has read Ws
-      load_w(Ws, p.wpj, p.w_bf16,
-             (static_cast<size_t>(layer) * p.hidden + c * kC) * kC, kC, 0, kC);
-      __syncthreads();
-      gemm64(Hs, Ws, ty, tx, out);
-      __syncthreads();   // the product has read Hs and Ws
+      store_acc<2>(Hs, xr, wm, wn, g, tig);
+      sync_staged();
+      cur ^= 1;
     }
-    const float4 bias = ld4(p.bpj + lb);
+    // LN -> MLP, one chunk of 64 hidden units at a time; WB(cur) holds wfc's
+    // first chunk
+    norm_tile(As, Hs, ty, tx, ld4(p.ln2_s + lb + tx * 4),
+              ld4(p.ln2_b + lb + tx * 4), false);
+    sync_staged();
+    float out[2][2][4];
+    zero<2>(out);
+    for (int c = 0; c < nch; ++c) {
+      stage_w<64>(WB(cur ^ 1), p.wpj, wb,
+                  lfc + static_cast<size_t>(c) * kC * kC, kC, 0, kC);
+      zero<2>(acc);
+      mma_tile<2>(As, WB(cur), wb, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (m.ok[i])
-        *reinterpret_cast<float4*>(
-            p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC +
-            tx * 4) =
-            make_float4(xr[i].x + out[i][0] + bias.x,
-                        xr[i].y + out[i][1] + bias.y,
-                        xr[i].z + out[i][2] + bias.z,
-                        xr[i].w + out[i][3] + bias.w);
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 bias = ld2(p.bfc + static_cast<size_t>(layer) * p.hidden +
+                                c * kC + 8 * (2 * wn + nt) + 2 * tig);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {   // GELU2: h * sigmoid(1.702 h)
+            const float hv = acc[mt][nt][e] + ((e & 1) ? bias.y : bias.x);
+            acc[mt][nt][e] = hv / (1.f + expf(-1.702f * hv));
+          }
+      }
+      store_acc<2>(Hs, acc, wm, wn, g, tig);
+      sync_staged();
+      cur ^= 1;
+      if (c + 1 < nch)
+        stage_w<64>(WB(cur ^ 1), p.wfc, wb, lfc, p.hidden, (c + 1) * kC, kC);
+      mma_tile<2>(Hs, WB(cur), wb, out);
+      sync_staged();
+      cur ^= 1;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = 8 * (2 * wn + nt) + 2 * tig;
+      const float2 bias = ld2(p.bpj + lb + col);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (m.ok[i])
+          *reinterpret_cast<float2*>(
+              p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC +
+              col) =
+              make_float2(xr[i >> 1][nt][2 * (i & 1)] +
+                              out[i >> 1][nt][2 * (i & 1)] + bias.x,
+                          xr[i >> 1][nt][2 * (i & 1) + 1] +
+                              out[i >> 1][nt][2 * (i & 1) + 1] + bias.y);
+    }
   }
 }
+#undef WB
 
 // ---------------------------------------------------------------------------
 // the tail: LN -> logits -> log_softmax -> CFG -> posterior -> argmax
@@ -709,237 +1142,368 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
+// The class axis' inner loops (4096 classes x 4 passes a token) take their
+// exponentials and logarithms by the special function unit's approximations
+// (relative error ~1e-6): they feed a log-sum-exp, noise, or a comparison,
+// never the hidden state.
 __device__ __forceinline__ float gumbel_of(unsigned bits) {
   const float u = static_cast<float>(bits >> 8) * (1.f / 16777216.f);
-  return -logf(-logf(u + 1e-30f) + 1e-30f);
+  return -__logf(-__logf(u + 1e-30f) + 1e-30f);
 }
 
-// running log-sum-exp (m, s) over four more values, the valid ones
+// log(exp(a) + exp(b)) with one exponential
+__device__ __forceinline__ float laddexp_fast(float a, float b) {
+  return fmaxf(a, b) + __logf(1.f + __expf(-fabsf(a - b)));
+}
+
+// running log-sum-exp (m, s) over eight more values, the valid ones
 __device__ __forceinline__ void lse_update(float& m, float& s,
-                                           const float (&z)[4],
-                                           const bool (&ok)[4]) {
+                                           const float (&z)[8],
+                                           const bool (&ok)[8]) {
   float mn = m;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 8; ++j)
     if (ok[j]) mn = fmaxf(mn, z[j]);
   float add = 0.f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (ok[j]) add += expf(z[j] - mn);
-  s = s * expf(m - mn) + add;
+  for (int j = 0; j < 8; ++j)
+    if (ok[j]) add += __expf(z[j] - mn);
+  s = s * __expf(m - mn) + add;
   m = mn;
 }
 
-// combine (m, s) over the 16 lanes of a row; returns log(sum) + max
+// Close a pass: a token's (m, s) lives in the 4 lanes of a quad in each of
+// the 4 warps that share its rows. The quad is combined by shuffles, the
+// warps through red[slot][wn] in shared memory, in a fixed order, so that
+// every thread of the token holds the same log(sum) + max. (m0, s0): one
+// more term. Block-wide: all threads call it.
 __device__ __forceinline__ float lse_finish(float m, float s, float m0,
-                                            float s0) {
-  float mt = m;
+                                            float s0, float2* red, int slot,
+                                            int wn, int tig) {
+  const float mq = quad_max(m);
+  const float sq = quad_sum(s * expf(m - mq));
+  if (tig == 0) red[slot * 4 + wn] = make_float2(mq, sq);
+  __syncthreads();
+  float mt = m0;
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-  mt = fmaxf(mt, m0);
-  const float st = sum16(s * expf(m - mt)) + s0 * expf(m0 - mt);
+  for (int w = 0; w < 4; ++w) mt = fmaxf(mt, red[slot * 4 + w].x);
+  float st = s0 * expf(m0 - mt);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const float2 v = red[slot * 4 + w];
+    st += v.y * expf(v.x - mt);
+  }
+  __syncthreads();   // red is free for the next token
   return logf(st) + mt;
 }
 
-// MODE 0: packed tile (32 tokens x 2 branches, 2 tokens a thread);
-// MODE 1: branch grid with CFG (64 tokens, cond tile in Hs, uncond in As);
-// MODE 2: no CFG (64 tokens, one tile).
-template <int MODE>
-__device__ void phase_tail(const Params& p, float* As, float* Hs, float* Ws) {
-  constexpr int NT = MODE == 0 ? 2 : 4;
-  constexpr bool CFG = MODE != 2;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int tile = MODE == 0 ? 32 : kRows;
-  const int ntile = (p.L + tile - 1) / tile;
-  const int n_items = p.B * ntile;
+// A work item is a tile of 64 rows: under CFG 32 positions of a batch row in
+// both branches (the packed row order, gathered from the hidden state of
+// either kernel), else 64 positions. The class axis is walked in chunks of
+// 128, once per reduction, each pass recomputing its logits on the tensor
+// cores; a warp owns 32 rows x 32 classes of a chunk, so a thread holds NTOK
+// tokens x 8 classes, and both branches of a token. The passes:
+//   0  log-sum-exp of each branch's logits; under CFG also that of the
+//      guided logits zu + g (zc - zu) and each branch's smallest logit;
+//   1  (CFG) log-sum-exp of the guided log-probabilities. The plain version
+//      clamps each branch's log-probabilities at -70 first; where no class of
+//      the tile's tokens reaches the clamp (pass 0's minima say), the guided
+//      normaliser follows from pass 0's three sums and this pass is skipped;
+//   2  log-sum-exp of the posterior's inner term;
+//   3  the posterior, the noise, the argmax; the token is written.
+constexpr int kTailChunk = 128;
+
+struct Sched {
+  float ct_ct, ct_bt, qt_v, ct, qt1_v, bt, ct_at_p, ct_bt_p, ct_ct_p,
+      om_ct_ct_p;
+};
+
+template <bool CFG>
+struct TailTokens {
+  static constexpr int N = CFG ? 2 : 4;
+  int tok[N], cur[N];
+  bool ok[N];
+  float lse_c[N], lse_u[N], lse_n[N], lse_q[N];
+  float lse_g[N];    // pass 0: log-sum-exp of the guided logits
+  float min_c[N], min_u[N];
+};
+
+template <int PASS, bool CFG>
+__device__ void tail_pass(const Params& p, const Sched& sd, int b,
+                          const float* As, float* W0, float* W1, float2* red,
+                          TailTokens<CFG>& tt) {
+  constexpr int NTOK = CFG ? 2 : 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
   const int kv = p.kv;
-  const int nchunk = (kv + kC - 1) / kC;
-  const float g = p.guidance;
+  const int nchunk = (kv + kTailChunk - 1) / kTailChunk;
+  const float gd = p.guidance;
+  const uint2 key = make_uint2(p.seed_lo, p.seed_hi);
+  float m1[NTOK], s1[NTOK], m2[NTOK], s2[NTOK], m3[NTOK], s3[NTOK];
+  float best[NTOK];
+  int best_i[NTOK];
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) {
+    m1[t] = m2[t] = m3[t] = kNegBig;
+    s1[t] = s2[t] = s3[t] = 0.f;
+    best[t] = -INFINITY;
+    best_i[t] = 0;
+    if (PASS == 0) tt.min_c[t] = tt.min_u[t] = INFINITY;
+  }
+  stage_w<kTailChunk>(W0, p.wlog, p.w_bf16, 0, kv, 0, min(kTailChunk, kv));
+  sync_staged();   // the tile (first pass) and the chunk are whole
+  for (int c = 0; c < nchunk; ++c) {
+    const int c0 = c * kTailChunk;
+    if (c + 1 < nchunk)
+      stage_w<kTailChunk>((c & 1) ? W0 : W1, p.wlog, p.w_bf16, 0, kv,
+                          c0 + kTailChunk,
+                          min(kTailChunk, kv - c0 - kTailChunk));
+    float acc[2][4][4];
+    zero<4>(acc);
+    mma_tile<4>(As, (c & 1) ? W1 : W0, p.w_bf16, acc);
+    // this thread's 8 classes of the chunk: colb + 8 (e >> 1) + (e & 1)
+    const int colb = c0 + 32 * wn + 2 * tig;
+    bool cv[8];
+    float bias[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = colb + 8 * (e >> 1) + (e & 1);
+      cv[e] = col < kv;
+      bias[e] = cv[e] ? p.blog[col] : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < NTOK; ++t) {
+      // this token's logits: cond zc, uncond zu
+      float zc[8], zu[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (CFG) {
+          zc[e] = acc[0][e >> 1][2 * t + (e & 1)] + bias[e];
+          zu[e] = acc[1][e >> 1][2 * t + (e & 1)] + bias[e];
+        } else {
+          zc[e] = acc[t >> 1][e >> 1][2 * (t & 1) + (e & 1)] + bias[e];
+          zu[e] = 0.f;
+        }
+      }
+      if constexpr (PASS == 0) {
+        lse_update(m1[t], s1[t], zc, cv);
+        if (CFG) {
+          lse_update(m2[t], s2[t], zu, cv);
+          float zg[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            zg[e] = zu[e] + gd * (zc[e] - zu[e]);
+            if (cv[e]) {
+              tt.min_c[t] = fminf(tt.min_c[t], zc[e]);
+              tt.min_u[t] = fminf(tt.min_u[t], zu[e]);
+            }
+          }
+          lse_update(m3[t], s3[t], zg, cv);
+        }
+      } else {
+        // the guided log-probabilities before their normaliser
+        float r[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float lc = fmaxf(zc[e] - tt.lse_c[t], kClamp);
+          if (CFG) {
+            const float lu = fmaxf(zu[e] - tt.lse_u[t], kClamp);
+            r[e] = lu + gd * (lc - lu);
+          } else {
+            r[e] = lc;
+          }
+        }
+        if constexpr (PASS == 1) {
+          lse_update(m1[t], s1[t], r, cv);
+        } else {
+          const bool is_mask = tt.cur[t] == kv;
+          float q[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (CFG) r[e] = fmaxf(r[e] - tt.lse_n[t], kClamp);
+            const bool is_v = tt.cur[t] == colb + 8 * (e >> 1) + (e & 1);
+            q[e] = r[e] - (is_mask ? sd.ct_ct : (is_v ? sd.qt_v : sd.ct_bt));
+          }
+          if constexpr (PASS == 2) {
+            lse_update(m1[t], s1[t], q, cv);
+          } else {
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              // The noise of a class is word (class & 3) of the Philox
+              // block (class / 4, position, batch row), whichever thread
+              // draws it. The two lanes that share a block of 4 classes
+              // (tig even: words 0, 1; odd: 2, 3) draw one block each of
+              // this pair of 8-class tiles and hand the other lane the
+              // words it needs.
+              unsigned bits[2][2] = {{0u, 0u}, {0u, 0u}};
+              if (p.sample) {
+                const int odd = tig & 1;
+                const uint4 rnd = philox4x32_10(
+                    make_uint4(
+                        static_cast<unsigned>((colb + 8 * (2 * np + odd)) >> 2),
+                        static_cast<unsigned>(tt.tok[t]),
+                        static_cast<unsigned>(b), 0u), key);
+                const unsigned o0 =
+                    __shfl_xor_sync(0xffffffffu, odd ? rnd.x : rnd.z, 1);
+                const unsigned o1 =
+                    __shfl_xor_sync(0xffffffffu, odd ? rnd.y : rnd.w, 1);
+                const unsigned w0 = odd ? rnd.z : rnd.x;
+                const unsigned w1 = odd ? rnd.w : rnd.y;
+                bits[0][0] = odd ? o0 : w0;
+                bits[0][1] = odd ? o1 : w1;
+                bits[1][0] = odd ? w0 : o0;
+                bits[1][1] = odd ? w1 : o1;
+              }
+#pragma unroll
+              for (int e2 = 0; e2 < 4; ++e2) {
+                const int e = 4 * np + e2;
+                const int col = colb + 8 * (e >> 1) + (e & 1);
+                const bool is_v = tt.cur[t] == col;
+                const float qt1 = is_mask ? sd.ct : (is_v ? sd.qt1_v : sd.bt);
+                float post = laddexp_fast(q[e] - tt.lse_q[t] + sd.ct_at_p,
+                                          sd.ct_bt_p) + qt1 + tt.lse_q[t];
+                post = fminf(fmaxf(post, kClamp), 0.f);
+                if (p.sample) post += gumbel_of(bits[e2 >> 1][e2 & 1]);
+                if (cv[e] && post > best[t]) {
+                  best[t] = post;
+                  best_i[t] = col;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    sync_staged();   // the next chunk is whole, this one is read
+  }
+  // close the pass: combine the quad and the 4 warps of each token
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) {
+    const int slot = (CFG ? 16 : 32) * wm + 8 * t + g;
+    if (PASS == 0) {
+      tt.lse_c[t] = lse_finish(m1[t], s1[t], kNegBig, 0.f, red, slot, wn, tig);
+      if (CFG) {
+        tt.lse_u[t] =
+            lse_finish(m2[t], s2[t], kNegBig, 0.f, red, slot, wn, tig);
+        tt.lse_g[t] =
+            lse_finish(m3[t], s3[t], kNegBig, 0.f, red, slot, wn, tig);
+      }
+    } else if (PASS == 1) {
+      tt.lse_n[t] = lse_finish(m1[t], s1[t], kNegBig, 0.f, red, slot, wn, tig);
+    } else if (PASS == 2) {
+      // the MASK class's log(1e-30) term joins the sum once
+      tt.lse_q[t] = lse_finish(m1[t], s1[t], kNeg30, 1.f, red, slot, wn, tig);
+    } else {
+      // ties go to the lowest class index, in the quad and across warps
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best[t], off);
+        const int oi = __shfl_xor_sync(0xffffffffu, best_i[t], off);
+        if (ob > best[t] || (ob == best[t] && oi < best_i[t])) {
+          best[t] = ob;
+          best_i[t] = oi;
+        }
+      }
+      if (tig == 0)
+        red[slot * 4 + wn] = make_float2(best[t], __int_as_float(best_i[t]));
+      sync_staged();
+      if (wn == 0 && tig == 0 && tt.ok[t]) {
+        float bb = -INFINITY;
+        int bi = 0;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 v = red[slot * 4 + w];
+          const int oi = __float_as_int(v.y);
+          if (v.x > bb || (v.x == bb && oi < bi)) {
+            bb = v.x;
+            bi = oi;
+          }
+        }
+        const bool is_mask = tt.cur[t] == kv;
+        float pm = laddexp(kNeg30 - tt.lse_q[t] + sd.om_ct_ct_p, sd.ct_ct_p) +
+                   (is_mask ? 0.f : kNeg30) + tt.lse_q[t];
+        pm = fminf(fmaxf(pm, kClamp), 0.f);
+        if (p.sample)
+          pm += gumbel_of(philox4x32_10(
+              make_uint4(0xFFFFFFFFu, static_cast<unsigned>(tt.tok[t]),
+                         static_cast<unsigned>(b), 0u), key).x);
+        p.out[static_cast<size_t>(b) * p.L + tt.tok[t]] = pm > bb ? kv : bi;
+      }
+      sync_staged();   // red is free for the next token
+    }
+  }
+}
+
+template <bool CFG>
+__device__ void phase_tail(const Params& p, float* As, float* Hs, float* W0,
+                           float* W1) {
+  constexpr int NTOK = CFG ? 2 : 4;
+  constexpr int TT = CFG ? 32 : kRows;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, wm = warp & 1;
+  const int ntile = (p.L + TT - 1) / TT;
+  const int n_items = p.B * ntile;
   const float4 sc = ld4(p.lno_s + tx * 4), sh = ld4(p.lno_b + tx * 4);
   const float* s = p.sched;
-  const float ct_at = s[0], ct_bt = s[1], ct_ct = s[2], at = s[3], bt = s[4],
-              ct = s[5], ct_at_p = s[6], ct_bt_p = s[7], ct_ct_p = s[8],
-              om_ct_ct_p = s[9];
-  const float qt_v = laddexp(ct_at, ct_bt), qt1_v = laddexp(at, bt);
-  const uint2 key = make_uint2(p.seed_lo, p.seed_hi);
+  Sched sd;
+  sd.ct_bt = s[1];
+  sd.ct_ct = s[2];
+  sd.bt = s[4];
+  sd.ct = s[5];
+  sd.ct_at_p = s[6];
+  sd.ct_bt_p = s[7];
+  sd.ct_ct_p = s[8];
+  sd.om_ct_ct_p = s[9];
+  sd.qt_v = laddexp(s[0], s[1]);
+  sd.qt1_v = laddexp(s[3], s[4]);
+  float2* red = reinterpret_cast<float2*>(Hs);
 
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int b = item / ntile;
-    const int t0 = (item % ntile) * tile;
-    int tok[NT];
-    bool ok[NT];
-    long long cur[NT];
-    __syncthreads();   // the previous item's products have read the tiles
+    const int t0 = (item % ntile) * TT;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      // row ty + 16 i of the tile(s)
-      const int t = t0 + ty + 16 * (MODE == 0 ? (i & 1) : i);
-      const bool in = t < p.L;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (MODE == 1) {
-        const size_t oc = (static_cast<size_t>(b * 2) * p.L + t) * kC + tx * 4;
-        const size_t ou = oc + static_cast<size_t>(p.L) * kC;
-        store_norm(Hs, ty + 16 * i, tx, in ? ld4(p.x + oc) : z, sc, sh, false);
-        store_norm(As, ty + 16 * i, tx, in ? ld4(p.x + ou) : z, sc, sh, false);
-      } else {
-        const int rb = MODE == 0 ? b * 2 + (i >> 1) : b;
-        const size_t off = (static_cast<size_t>(rb) * p.L + t) * kC + tx * 4;
-        store_norm(As, ty + 16 * i, tx, in ? ld4(p.x + off) : z, sc, sh,
-                   false);
-      }
-      if (i < NT) {
-        tok[i] = t;
-        ok[i] = in;
-        cur[i] = in ? p.tokens[static_cast<size_t>(b) * p.L + t] : 0;
-      }
+      const int r = ty + 16 * i;
+      const int rb = CFG ? b * 2 + ((r >> 4) & 1) : b;
+      const int t = CFG ? t0 + (r >> 5) * 16 + (r & 15) : t0 + r;
+      store_norm(As, r, tx,
+                 t < p.L ? ld4(p.x + (static_cast<size_t>(rb) * p.L + t) * kC +
+                               tx * 4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f),
+                 sc, sh, false);
     }
-
-    // per-token results of the passes
-    float lse_c[NT], lse_u[NT], lse_n[NT], lse_q[NT];
-    float best[NT];
-    int best_i[NT];
-    const int n_pass = 4;
-    for (int pass = 0; pass < n_pass; ++pass) {
-      if (!CFG && pass == 1) continue;
-      float m1[NT], s1[NT], m2[NT], s2[NT];
+    // this thread's tokens: slot t is row 8 t + g of the warp's 32 (CFG:
+    // of its first 16, both branches)
+    TailTokens<CFG> tt;
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        m1[t] = m2[t] = kNegBig;
-        s1[t] = s2[t] = 0.f;
-        if (pass == 3) {
-          best[t] = -INFINITY;
-          best_i[t] = 0;
-        }
-      }
-      for (int c = 0; c < nchunk; ++c) {
-        const int c0 = c * kC;
-        __syncthreads();
-        load_w(Ws, p.wlog, p.w_bf16, 0, kv, c0, min(kC, kv - c0));
-        __syncthreads();
-        float acc[4][4], acc2[4][4];
-        zero(acc);
-        gemm64(As, Ws, ty, tx, acc);
-        if (MODE == 1) {
-          zero(acc2);
-          gemm64(Hs, Ws, ty, tx, acc2);
-        }
-        const int col = c0 + tx * 4;
-        bool cv[4];
-        float bias[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          cv[j] = col + j < kv;
-          bias[j] = cv[j] ? p.blog[col + j] : 0.f;
-        }
-        uint4 rnd = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          // this token's logits: cond zc, uncond zu
-          float zc[4], zu[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (MODE == 0) {
-              zc[j] = acc[t][j] + bias[j];
-              zu[j] = acc[t + 2][j] + bias[j];
-            } else if (MODE == 1) {
-              zc[j] = acc2[t][j] + bias[j];
-              zu[j] = acc[t][j] + bias[j];
-            } else {
-              zc[j] = acc[t][j] + bias[j];
-              zu[j] = 0.f;
-            }
-          }
-          if (pass == 0) {
-            lse_update(m1[t], s1[t], zc, cv);
-            if (CFG) lse_update(m2[t], s2[t], zu, cv);
-            continue;
-          }
-          // the guided log-probabilities before their normaliser
-          float r[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float lc = fmaxf(zc[j] - lse_c[t], kClamp);
-            if (CFG) {
-              const float lu = fmaxf(zu[j] - lse_u[t], kClamp);
-              r[j] = lu + g * (lc - lu);
-            } else {
-              r[j] = lc;
-            }
-          }
-          if (pass == 1) {
-            lse_update(m1[t], s1[t], r, cv);
-            continue;
-          }
-          const bool is_mask = cur[t] == kv;
-          float q[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (CFG) r[j] = fmaxf(r[j] - lse_n[t], kClamp);
-            const bool is_v = cur[t] == col + j;
-            q[j] = r[j] - (is_mask ? ct_ct : (is_v ? qt_v : ct_bt));
-          }
-          if (pass == 2) {
-            lse_update(m1[t], s1[t], q, cv);
-            continue;
-          }
-          if (p.sample)
-            rnd = philox4x32_10(
-                make_uint4(static_cast<unsigned>(col >> 2),
-                           static_cast<unsigned>(tok[t]),
-                           static_cast<unsigned>(b), 0u), key);
-          const unsigned bits[4] = {rnd.x, rnd.y, rnd.z, rnd.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool is_v = cur[t] == col + j;
-            const float qt1 = is_mask ? ct : (is_v ? qt1_v : bt);
-            float post = laddexp(q[j] - lse_q[t] + ct_at_p, ct_bt_p) + qt1 +
-                         lse_q[t];
-            post = fminf(fmaxf(post, kClamp), 0.f);
-            if (p.sample) post += gumbel_of(bits[j]);
-            if (cv[j] && post > best[t]) {
-              best[t] = post;
-              best_i[t] = col + j;
-            }
-          }
-        }
-      }
-      // close the pass: combine the 16 lanes of each token
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        if (pass == 0) {
-          lse_c[t] = lse_finish(m1[t], s1[t], kNegBig, 0.f);
-          lse_u[t] = CFG ? lse_finish(m2[t], s2[t], kNegBig, 0.f) : 0.f;
-        } else if (pass == 1) {
-          lse_n[t] = lse_finish(m1[t], s1[t], kNegBig, 0.f);
-        } else if (pass == 2) {
-          // the MASK class's log(1e-30) term joins the sum once
-          lse_q[t] = lse_finish(m1[t], s1[t], kNeg30, 1.f);
-        } else {
-#pragma unroll
-          for (int off = 8; off > 0; off >>= 1) {
-            const float ob = __shfl_xor_sync(0xffffffffu, best[t], off);
-            const int oi = __shfl_xor_sync(0xffffffffu, best_i[t], off);
-            if (ob > best[t] || (ob == best[t] && oi < best_i[t])) {
-              best[t] = ob;
-              best_i[t] = oi;
-            }
-          }
-          if (tx == 0 && ok[t]) {
-            const bool is_mask = cur[t] == kv;
-            float pm = laddexp(kNeg30 - lse_q[t] + om_ct_ct_p, ct_ct_p) +
-                       (is_mask ? 0.f : kNeg30) + lse_q[t];
-            pm = fminf(fmaxf(pm, kClamp), 0.f);
-            if (p.sample)
-              pm += gumbel_of(philox4x32_10(
-                  make_uint4(0xFFFFFFFFu, static_cast<unsigned>(tok[t]),
-                             static_cast<unsigned>(b), 0u), key).x);
-            p.out[static_cast<size_t>(b) * p.L + tok[t]] =
-                pm > best[t] ? kv : best_i[t];
-          }
-        }
-      }
+    for (int t = 0; t < NTOK; ++t) {
+      tt.tok[t] = t0 + (CFG ? 16 : 32) * wm + 8 * t + g;
+      tt.ok[t] = tt.tok[t] < p.L;
+      tt.cur[t] = tt.ok[t]
+          ? static_cast<int>(p.tokens[static_cast<size_t>(b) * p.L + tt.tok[t]])
+          : 0;
+      tt.lse_u[t] = tt.lse_n[t] = tt.lse_g[t] = 0.f;
     }
+    tail_pass<0, CFG>(p, sd, b, As, W0, W1, red, tt);
+    if (CFG) {
+      // no class of these tokens under the clamp in either branch?
+      bool free_of_clamp = true;
+#pragma unroll
+      for (int t = 0; t < NTOK; ++t) {
+        // a token's classes are spread over a quad and 4 warps: every one of
+        // them votes on its own classes' minimum
+        free_of_clamp = free_of_clamp &&
+                        tt.min_c[t] - tt.lse_c[t] >= kClamp &&
+                        tt.min_u[t] - tt.lse_u[t] >= kClamp;
+        tt.lse_n[t] = tt.lse_g[t] -
+                      (tt.lse_u[t] + p.guidance * (tt.lse_c[t] - tt.lse_u[t]));
+      }
+      if (!__syncthreads_and(free_of_clamp))
+        tail_pass<1, CFG>(p, sd, b, As, W0, W1, red, tt);
+    }
+    tail_pass<2, CFG>(p, sd, b, As, W0, W1, red, tt);
+    tail_pass<3, CFG>(p, sd, b, As, W0, W1, red, tt);
   }
 }
 
@@ -957,29 +1521,26 @@ __device__ void step_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);
   float* Hs = As + kRows * kLda;
-  float* Ws = Hs + kRows * kLda;
-  float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + kKeyTile * 4;
+  float* W0 = Hs + kRows * kLda;
+  float* W1 = W0 + kWBytes / 4;
   cg::grid_group grid = cg::this_grid();
   int si = 0;
   stamp(p, si);
   for (int layer = 0; layer < p.n_layer; ++layer) {
-    phase_qkv<PACKED>(p, layer, As, Ws);
+    phase_qkv<PACKED>(p, layer, As, W0, W1);
     grid.sync();
     stamp(p, si);
-    phase_self_attention(p, ks, vs);
+    phase_self_attention(p, smem);
     grid.sync();
     stamp(p, si);
-    phase_mlp<PACKED>(p, layer, As, Hs, Ws);
+    phase_mlp<PACKED>(p, layer, As, Hs, W0, W1);
     grid.sync();
     stamp(p, si);
   }
-  if (PACKED)
-    phase_tail<0>(p, As, Hs, Ws);
-  else if (p.n_br == 2)
-    phase_tail<1>(p, As, Hs, Ws);
+  if (p.n_br == 2)
+    phase_tail<true>(p, As, Hs, W0, W1);
   else
-    phase_tail<2>(p, As, Hs, Ws);
+    phase_tail<false>(p, As, Hs, W0, W1);
   if (p.stamps != nullptr) {   // uniform over the grid
     grid.sync();
     stamp(p, si);
@@ -1031,9 +1592,14 @@ int grid_cap(int packed) {
 // or a negative cudaError_t.
 extern "C" int megakernel_grid_blocks(int packed) { return grid_cap(packed); }
 
+// The longest sequence the kernels take (a head's keys and values must fit a
+// block's shared memory).
+extern "C" int megakernel_max_seq() { return kMaxSeq; }
+
 // One reverse step on `stream`. ptrs, ints and floats are host tables in the
 // order of enum Ptr, enum Int and {guidance}. Returns a cudaError_t: a grid
 // that cannot be co-resident is refused (a grid-wide barrier would hang).
+// ints[I_GRID], when not 0, caps the number of blocks below what fits.
 extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
                                const float* floats, void* stream) {
   Params p;
@@ -1068,6 +1634,7 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
   p.k = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[P_K]));
   p.v = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[P_V]));
   p.o = static_cast<float*>(const_cast<void*>(ptrs[P_O]));
+  p.kmax = static_cast<unsigned*>(const_cast<void*>(ptrs[P_KMAX]));
   p.stamps =
       static_cast<unsigned long long*>(const_cast<void*>(ptrs[P_STAMPS]));
   p.B = static_cast<int>(ints[I_B]);
@@ -1085,12 +1652,15 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
   p.seed_hi = ints[I_SEEDHI];
   p.guidance = floats[0];
   const bool packed = ints[I_PACKED] != 0;
-  if (p.B < 1 || p.L < 1 || p.n_layer < 1 || p.kv < 1 || p.hidden < kC ||
-      p.hidden % kC != 0 || p.s_valid < 1 || p.s_valid > p.sp ||
-      (p.n_br != 1 && p.n_br != 2) || (packed && p.n_br != 2))
+  if (p.B < 1 || p.L < 1 || p.L > kMaxSeq || p.n_layer < 1 || p.kv < 1 ||
+      p.hidden < kC || p.hidden % kC != 0 || p.s_valid < 1 ||
+      p.s_valid > p.sp || (p.n_br != 1 && p.n_br != 2) ||
+      (packed && p.n_br != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int cap = grid_cap(packed ? 1 : 0);
+  int cap = grid_cap(packed ? 1 : 0);
   if (cap < 0) return -cap;
+  if (ints[I_GRID] != 0 && static_cast<int>(ints[I_GRID]) < cap)
+    cap = static_cast<int>(ints[I_GRID]);
   const long long tiles =
       packed ? static_cast<long long>(p.B) * ((p.L + 31) / 32)
              : static_cast<long long>(p.B) * p.n_br *

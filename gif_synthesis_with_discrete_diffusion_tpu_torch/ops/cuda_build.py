@@ -39,19 +39,22 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def load(source: str, build_dir: str | os.PathLike | None = None
-         ) -> ctypes.CDLL:
+def load(source: str, build_dir: str | os.PathLike | None = None,
+         defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build ``csrc/<source>`` (once per content and flags) into
     ``build_dir`` (default :data:`BUILD_DIR`) and load it. Callers keep the
-    library they get (one load per process).
+    library they get (one load per process). ``defines`` (``"NAME=VALUE"``)
+    are passed to the preprocessor: a variant of the source, built beside
+    the plain one.
 
     The library carries two attributes for reports: ``build_seconds`` (0.0
     when an existing build was loaded) and ``build_log`` (nvcc's output,
     with ``-Xptxas -v``'s registers and shared memory per kernel)."""
     src = CSRC / source
     nvcc = find_nvcc()
+    flags = NVCC_FLAGS + tuple("-D" + d for d in defines)
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
     build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
     lib_path = build_dir / f"lib{src.stem}_{digest}.so"
     log_path = lib_path.with_suffix(".log")
@@ -61,7 +64,7 @@ def load(source: str, build_dir: str | os.PathLike | None = None
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([nvcc, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:

@@ -26,6 +26,13 @@ softmax probabilities, after the division by their row sum, go through
 bf16; every sum is f32), so K3, K4 and the TPU kernels all compute its
 function. CPU tensors take it; CUDA tensors launch K3 or K4 or raise.
 
+Where the kernels' arithmetic departs from the plain version's by more than
+the order of a sum, it is stated here as a plain function that the CPU
+tests bound: the TF32 split of the f32 products (:func:`split_matmul`), the
+polynomial share of the exponentials (:func:`exp2_poly`), the shift of the
+scores (:func:`softmax_shift`); :func:`megakernel_step_kernel_arithmetic`
+is the step computed with all three.
+
 Gumbel noise comes from Philox keyed by (seed, row, position, class): the
 sampled tokens agree with the TPU kernels and the plain version in
 distribution only; ``sample=False`` (argmax) is what is compared exactly.
@@ -50,7 +57,10 @@ __all__ = ["MEGAKERNEL_MAX_SEQ", "pack_denoiser_params", "cross_tables",
            "positions", "megakernel_step", "megakernel_step_reference",
            "megakernel_hidden_reference", "kernels_fit",
            "megakernel_sample_tokens", "prepare_sampling", "alloc_scratch",
-           "stamp_count"]
+           "stamp_count", "split_tf32", "split_matmul", "exp2_poly",
+           "poly_exp_mask", "softmax_shift",
+           "megakernel_step_kernel_arithmetic", "KERNEL_POLY_SHARE",
+           "KERNEL_SHIFT_SLACK", "EXACT_MAX"]
 
 # the largest grid the route serves (the MSRVTT 48 x 48 latent grid)
 MEGAKERNEL_MAX_SEQ = 2304
@@ -62,6 +72,9 @@ _LN_EPS = 1e-6
 _KERNEL_EMBD = 64
 _KERNEL_HEAD_DIM = 4
 _KERNEL_HIDDEN_CHUNK = 64
+# the longest grid a launch takes: phase S holds a head's keys and values
+# (16 bytes a key) in a block's shared memory (csrc: kMaxSeq)
+_KERNEL_MAX_SEQ = 6656
 
 _WEIGHT_NAMES = ("wqkv", "wproj", "wq_c", "wproj_c", "wfc", "wpj", "wlog")
 # the order of the pointer table handed to the launcher (csrc: enum Ptr)
@@ -69,7 +82,7 @@ _PTR_NAMES = ("sched", "tokens", "out", "adaln", "kc", "vc", "emb", "pos",
               "wqkv", "bqkv", "wproj", "bproj", "wq_c", "bq_c", "wproj_c",
               "bproj_c", "ln2_s", "ln2_b", "wfc", "bfc", "wpj", "bpj",
               "lno_s", "lno_b", "wlog", "blog", "x", "q", "k", "v", "o",
-              "stamps")
+              "kmax", "stamps")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -240,14 +253,10 @@ def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("rhqk,rkhd->rqhd", p, vb).reshape(R, Lq, C)
 
 
-def megakernel_hidden_reference(
-        packed: dict, tokens: torch.Tensor, adaln: torch.Tensor,
-        kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor, *,
-        n_layer: int, n_head: int, n_embd: int, use_cfg: bool, s_valid: int,
-        cross_as_bias: bool = False) -> torch.Tensor:
-    """The denoiser's part of the plain step: the final hidden state before
-    the output LayerNorm, (B * n_br, L, C) with rows ordered (row, branch),
-    which the kernels leave in their ``x`` scratch."""
+def _hidden(packed, tokens, adaln, kc, vc, pos, *, n_layer, n_head, n_embd,
+            use_cfg, s_valid, cross_as_bias, mm, self_attention):
+    """The denoiser's part of a step over a product ``mm(a, w)`` and a
+    self-attention ``self_attention(q, k, v, n_head, valid)``."""
     b, L = tokens.shape
     n_br = 2 if use_cfg else 1
     C = n_embd
@@ -258,23 +267,37 @@ def megakernel_hidden_reference(
     for i in range(n_layer):
         ada = adaln[i]
         h = _ln(x) * (1.0 + ada[0, :C]) + ada[0, C:]
-        qkv = _mm(h, packed["wqkv"][i]) + packed["bqkv"][i]
-        o = _attention_reference(qkv[..., :C], qkv[..., C:2 * C],
-                                 qkv[..., 2 * C:], n_head, L)
-        x = x + _mm(o, packed["wproj"][i]) + packed["bproj"][i]
+        qkv = mm(h, packed["wqkv"][i]) + packed["bqkv"][i]
+        o = self_attention(qkv[..., :C], qkv[..., C:2 * C],
+                           qkv[..., 2 * C:], n_head, L)
+        x = x + mm(o, packed["wproj"][i]) + packed["bproj"][i]
         if cross_as_bias:
             x = x + kc[:, i, 0:1, :]
         else:
             h = _ln(x) * (1.0 + ada[1, :C]) + ada[1, C:]
-            qc = _mm(h, packed["wq_c"][i]) + packed["bq_c"][i]
+            qc = mm(h, packed["wq_c"][i]) + packed["bq_c"][i]
             oc = _attention_reference(qc, kc[:, i], vc[:, i], n_head,
                                       s_valid)
-            x = x + _mm(oc, packed["wproj_c"][i]) + packed["bproj_c"][i]
+            x = x + mm(oc, packed["wproj_c"][i]) + packed["bproj_c"][i]
         h = _ln(x) * packed["ln2_s"][i] + packed["ln2_b"][i]
-        h = _mm(h, packed["wfc"][i]) + packed["bfc"][i]
+        h = mm(h, packed["wfc"][i]) + packed["bfc"][i]
         h = h * torch.sigmoid(1.702 * h)                   # GELU2
-        x = x + _mm(h, packed["wpj"][i]) + packed["bpj"][i]
+        x = x + mm(h, packed["wpj"][i]) + packed["bpj"][i]
     return x
+
+
+def megakernel_hidden_reference(
+        packed: dict, tokens: torch.Tensor, adaln: torch.Tensor,
+        kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor, *,
+        n_layer: int, n_head: int, n_embd: int, use_cfg: bool, s_valid: int,
+        cross_as_bias: bool = False) -> torch.Tensor:
+    """The denoiser's part of the plain step: the final hidden state before
+    the output LayerNorm, (B * n_br, L, C) with rows ordered (row, branch),
+    which the kernels leave in their ``x`` scratch."""
+    return _hidden(packed, tokens, adaln, kc, vc, pos, n_layer=n_layer,
+                   n_head=n_head, n_embd=n_embd, use_cfg=use_cfg,
+                   s_valid=s_valid, cross_as_bias=cross_as_bias, mm=_mm,
+                   self_attention=_attention_reference)
 
 
 def megakernel_step_reference(
@@ -288,14 +311,25 @@ def megakernel_step_reference(
     the same function). Same arguments as :func:`megakernel_step`; with
     ``return_posterior`` also the (B, K, L) log-posterior. The Gumbel noise
     comes from a ``torch.Generator`` seeded by ``seed``."""
+    return _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed,
+                 n_layer=n_layer, n_head=n_head, n_embd=n_embd,
+                 num_classes=num_classes, guidance=guidance, use_cfg=use_cfg,
+                 s_valid=s_valid, sample=sample, cross_as_bias=cross_as_bias,
+                 return_posterior=return_posterior, mm=_mm,
+                 self_attention=_attention_reference)
+
+
+def _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
+          n_head, n_embd, num_classes, guidance, use_cfg, s_valid, sample,
+          cross_as_bias, return_posterior, mm, self_attention):
     b, L = tokens.shape
     n_br = 2 if use_cfg else 1
-    x = megakernel_hidden_reference(
-        packed, tokens, adaln, kc, vc, pos, n_layer=n_layer, n_head=n_head,
-        n_embd=n_embd, use_cfg=use_cfg, s_valid=s_valid,
-        cross_as_bias=cross_as_bias)
+    x = _hidden(packed, tokens, adaln, kc, vc, pos, n_layer=n_layer,
+                n_head=n_head, n_embd=n_embd, use_cfg=use_cfg,
+                s_valid=s_valid, cross_as_bias=cross_as_bias, mm=mm,
+                self_attention=self_attention)
     h = _ln(x) * packed["lno_s"] + packed["lno_b"]
-    z = (_mm(h, packed["wlog"]) + packed["blog"]).reshape(b, n_br, L, -1)
+    z = (mm(h, packed["wlog"]) + packed["blog"]).reshape(b, n_br, L, -1)
     logits2 = torch.cat([z[:, j] for j in range(n_br)], dim=0)
     return fused_sample_step_reference(
         logits2.transpose(1, 2), tokens, sched_row, seed, guidance=guidance,
@@ -304,12 +338,164 @@ def megakernel_step_reference(
 
 
 # ---------------------------------------------------------------------------
+# where the kernels' arithmetic departs from the plain version's by more
+# than the order of a sum, as plain functions (the CPU tests bound each)
+# ---------------------------------------------------------------------------
+
+# of every 16 exponentials a thread of phase S takes, how many go to the
+# polynomial, in the row-sum sweep and in the probabilities' sweep
+# (csrc/megakernel_step.cu: MK_POLY1, MK_POLY2)
+KERNEL_POLY_SHARE = (4, 0)
+# how far above the row maximum the softmax shift may provably lie (nats;
+# csrc: kShiftSlack), and the queries that decide together (a warp's)
+KERNEL_SHIFT_SLACK = 40.0
+_SHIFT_GROUP = 32
+_LOG2E = 1.4426950408889634
+_EXP2_COEFFS = {
+    # minimax on [-1/2, 1/2], relative error 2^-13.7: the row sum only
+    3: (5.5171665e-2, 2.4261112e-1, 6.9326099e-1, 0.99992807),
+    # Taylor to degree 6, relative error ~1.2e-7: f32's last bits
+    6: (1.5403530393e-4, 1.3333558146e-3, 9.6181291076e-3, 5.5504108665e-2,
+        2.4022650696e-1, 6.9314718056e-1, 1.0),
+}
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 (11 significant bits), round to nearest, ties away from
+    zero, for finite values (``cvt.rna.tf32.f32``)."""
+    bits = a.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``a = hi + lo`` to within 2^-21 |a|, both TF32 values: ``hi`` is
+    ``a`` rounded to TF32, ``a - hi`` is exact in f32 and ``lo`` is that
+    difference cut to TF32's 11 bits."""
+    hi = _tf32(a)
+    lo = (a - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
+
+
+def split_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` as the kernels' tile product takes it on the tensor cores:
+    the f32 activations split in two TF32 halves, both multiplied by the
+    weights and summed in f32. A bf16 weight is a TF32 value; an f32 weight
+    is split too and ``lo_a @ lo_w`` (2^-21 of the product) is dropped."""
+    hi, lo = split_tf32(a)
+    w32 = w.to(torch.float32)
+    if w.dtype == torch.bfloat16:
+        return lo @ w32 + hi @ w32
+    wh, wl = split_tf32(w32)
+    return hi @ wl + lo @ wh + hi @ wh
+
+
+def exp2_poly(x: torch.Tensor, degree: int) -> torch.Tensor:
+    """2^x for x <= 0 without the special function unit: x clamped at -126,
+    split as n + f with |f| <= 1/2, a polynomial for 2^f evaluated in f32
+    by Horner's rule, times 2^n."""
+    x = x.to(torch.float32).clamp_min(-126.0)
+    n = torch.round(x)          # ties to even, as the magic-number add
+    f = x - n
+    c = _EXP2_COEFFS[degree]
+    p = torch.full_like(f, c[0])
+    for ck in c[1:]:
+        p = p * f + ck
+    return torch.ldexp(p, n.to(torch.int32))
+
+
+def poly_exp_mask(lq: int, lk: int, share: int,
+                  device=None) -> torch.Tensor:
+    """(lq, lk) bool: the (query, key) pairs whose exponential phase S takes
+    by polynomial when ``share`` of every 16 do. A thread's 16 per block of
+    16 keys are indexed by (query tile of 16, key half, row half, key
+    parity); the chosen ones are spread evenly over that index."""
+    q = torch.arange(lq, device=device)[:, None]
+    k = torch.arange(lk, device=device)[None, :]
+    idx = ((q >> 4) & 1) * 8 + ((k >> 3) & 1) * 4 + ((q >> 3) & 1) * 2 \
+        + (k & 1)
+    return (idx * share) % 16 + share > 15
+
+
+def softmax_shift(s: torch.Tensor, qs: torch.Tensor, kb: torch.Tensor
+                  ) -> torch.Tensor:
+    """The shift phase S subtracts from the scores before the exponentials.
+    s: (R, H, Lq, Lk) scores; qs: (R, Lq, H, d) and kb: (R, Lk, H, d), the
+    rounded operands. Softmax does not change under a shift, so the exact
+    row maximum is taken only where it has to be: ``sum_d |q_d| max_keys
+    |k_d|`` bounds a query's scores from above, and serves as the shift
+    wherever it lies within :data:`KERNEL_SHIFT_SLACK` of the maximum over
+    the first 16 keys (a lower bound of the row maximum) for all of a
+    group of 32 consecutive queries; else the group takes the exact row
+    maxima. Returns (R, H, Lq, 1)."""
+    bound = torch.einsum("rqhd,rhd->rhq", qs.abs(),
+                         kb.abs().amax(dim=1))[..., None]
+    exact = s.amax(dim=-1, keepdim=True)
+    safe = bound - s[..., :16].amax(dim=-1, keepdim=True) \
+        <= KERNEL_SHIFT_SLACK
+    lq = s.shape[2]
+    pad = -lq % _SHIFT_GROUP
+    grouped = F.pad(safe, (0, 0, 0, pad), value=True).reshape(
+        *safe.shape[:2], -1, _SHIFT_GROUP).all(dim=-1)
+    safe = grouped.repeat_interleave(_SHIFT_GROUP, dim=-1)[..., :lq, None]
+    return torch.where(safe, bound, exact)
+
+
+def _attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, n_head: int, valid: int
+                                 ) -> torch.Tensor:
+    """:func:`_attention_reference` with phase S's exponentials: base 2 on
+    ``s * log2(e) - shift * log2(e)`` with the shift of
+    :func:`softmax_shift`, :data:`KERNEL_POLY_SHARE` of them by
+    :func:`exp2_poly` (degree 3 for the row sum, 6 for the probabilities);
+    the roundings to bf16 are where the plain version has them."""
+    R, Lq, C = q.shape
+    d = C // n_head
+    qs = _bf16(q * (1.0 / math.sqrt(d))).reshape(R, Lq, n_head, d)
+    kb = _bf16(k[:, :valid]).reshape(R, valid, n_head, d)
+    vb = _bf16(v[:, :valid]).reshape(R, valid, n_head, d)
+    s = torch.einsum("rqhd,rkhd->rhqk", qs, kb)
+    x = s * _LOG2E - softmax_shift(s, qs, kb) * _LOG2E
+    exact = torch.exp2(x)
+    e1 = torch.where(poly_exp_mask(Lq, valid, KERNEL_POLY_SHARE[0], q.device),
+                     exp2_poly(x, 3), exact)
+    e2 = torch.where(poly_exp_mask(Lq, valid, KERNEL_POLY_SHARE[1], q.device),
+                     exp2_poly(x, 6), exact)
+    p = _bf16(e2 * (1.0 / e1.sum(dim=-1, keepdim=True)))
+    return torch.einsum("rhqk,rkhd->rqhd", p, vb).reshape(R, Lq, C)
+
+
+def megakernel_step_kernel_arithmetic(
+        packed: dict, tokens: torch.Tensor, adaln: torch.Tensor,
+        kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
+        sched_row: torch.Tensor, seed: int, *, n_layer: int, n_head: int,
+        n_embd: int, num_classes: int, guidance: float, use_cfg: bool,
+        s_valid: int, sample: bool = True, cross_as_bias: bool = False,
+        return_posterior: bool = False):
+    """:func:`megakernel_step_reference` with every product taken by
+    :func:`split_matmul` and self-attention by the kernels' exponentials:
+    what K3 and K4 compute up to the order of their sums. For the tests; no
+    path of the port runs it."""
+    return _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed,
+                 n_layer=n_layer, n_head=n_head, n_embd=n_embd,
+                 num_classes=num_classes, guidance=guidance, use_cfg=use_cfg,
+                 s_valid=s_valid, sample=sample, cross_as_bias=cross_as_bias,
+                 return_posterior=return_posterior, mm=split_matmul,
+                 self_attention=_attention_kernel_arithmetic)
+
+
+# ---------------------------------------------------------------------------
 # the kernels' wrapper
 # ---------------------------------------------------------------------------
 
+# the build that takes the exact row maximum for every query of phase S (the
+# plain build shifts the scores by a bound wherever it provably may): what
+# the card's checks hold the plain build against
+EXACT_MAX = ("MK_ABLATE=8",)
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("megakernel_step.cu")
+def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = cuda_build.load("megakernel_step.cu", defines=defines)
     lib.megakernel_step.argtypes = [ctypes.c_void_p] * 4
     lib.megakernel_step.restype = ctypes.c_int
     lib.megakernel_grid_blocks.argtypes = [ctypes.c_int]
@@ -326,8 +512,9 @@ def stamp_count(n_layer: int) -> int:
 def alloc_scratch(batch: int, n_br: int, seq_len: int,
                   device: torch.device) -> dict[str, torch.Tensor]:
     """The kernels' scratch in device memory: the hidden state, the
-    rounded q/k/v (head-major) and the attention output. Allocated once per
-    sampling call."""
+    rounded q/k/v (head-major), the attention output, and per (row-branch,
+    head, dim) the largest |k| over the keys (zero between launches: a step
+    clears what it has used). Allocated once per sampling call."""
     r = batch * n_br
     c = _KERNEL_EMBD
     bf = dict(dtype=torch.bfloat16, device=device)
@@ -339,18 +526,24 @@ def alloc_scratch(batch: int, n_br: int, seq_len: int,
                               _KERNEL_HEAD_DIM), **bf),
             "v": torch.empty((r, c // _KERNEL_HEAD_DIM, seq_len,
                               _KERNEL_HEAD_DIM), **bf),
-            "o": torch.empty((r, seq_len, c), **f32)}
+            "o": torch.empty((r, seq_len, c), **f32),
+            "kmax": torch.zeros((r, c // _KERNEL_HEAD_DIM, _KERNEL_HEAD_DIM),
+                                **f32)}
 
 
 def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
             n_head, n_embd, num_classes, guidance, use_cfg, s_valid, sample,
-            cross_as_bias, pack_cfg, scratch, stamps) -> torch.Tensor:
+            cross_as_bias, pack_cfg, scratch, stamps, grid_blocks,
+            defines) -> torch.Tensor:
     dev = tokens.device
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"megakernel_step: tokens on {dev}, the current "
                          f"device is cuda:{torch.cuda.current_device()}")
     b, L = tokens.shape
     n_br = 2 if use_cfg else 1
+    if L > _KERNEL_MAX_SEQ:
+        raise ValueError(f"megakernel_step: {L} tokens, the kernels take "
+                         f"at most {_KERNEL_MAX_SEQ}")
     if pack_cfg and not use_cfg:
         raise ValueError("megakernel_step: pack_cfg is the CFG kernel")
     if n_embd != _KERNEL_EMBD or n_embd // n_head != _KERNEL_HEAD_DIM:
@@ -380,8 +573,9 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
                          f"tokens {tuple(tokens.shape)}, K={num_classes}")
     if scratch is None:
         scratch = alloc_scratch(b, n_br, L, dev)
-    if scratch["x"].shape != (b * n_br, L, n_embd):
-        raise ValueError("megakernel_step: scratch of another shape")
+    if scratch["x"].shape != (b * n_br, L, n_embd) or "kmax" not in scratch:
+        raise ValueError("megakernel_step: scratch of another shape (take "
+                         "it from alloc_scratch)")
     out = torch.empty_like(tokens)
     tensors = dict(packed, sched=sched_row, tokens=tokens, out=out,
                    adaln=adaln, kc=kc, vc=vc, pos=pos, **scratch)
@@ -415,11 +609,12 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     ints = [b, L, n_br, n_layer, kv, sp, s_valid, hidden,
             int(wd == torch.bfloat16), int(bool(sample)),
             int(bool(cross_as_bias)), int(bool(pack_cfg)),
-            seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF]
+            seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
+            max(int(grid_blocks or 0), 0)]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_uint32 * len(ints))(*ints)
     c_floats = (ctypes.c_float * 1)(float(guidance))
-    err = _library().megakernel_step(
+    err = _library(tuple(defines)).megakernel_step(
         c_ptrs, c_ints, c_floats, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"megakernel_step launch failed: cudaError {err}")
@@ -437,7 +632,9 @@ def megakernel_step(
         n_embd: int, num_classes: int, guidance: float, use_cfg: bool,
         s_valid: int, sample: bool = True, cross_as_bias: bool = False,
         pack_cfg: bool = False, scratch: Optional[dict] = None,
-        stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        stamps: Optional[torch.Tensor] = None,
+        grid_blocks: Optional[int] = None,
+        defines: tuple[str, ...] = ()) -> torch.Tensor:
     """One whole reverse step: tokens (B, L) int64 -> tokens (B, L) int64.
 
     packed: :func:`pack_denoiser_params`; adaln: (n_layer, 2, 2C) for this
@@ -449,7 +646,11 @@ def megakernel_step(
     (row, branch)); each launch adds one to ``megakernel_step.launches_k3``
     or ``.launches_k4``. ``scratch`` (:func:`alloc_scratch`) is allocated
     per call unless given; ``stamps`` (int64, :func:`stamp_count` long)
-    receives the device's ns clock at each phase boundary."""
+    receives the device's ns clock at each phase boundary; ``grid_blocks``
+    caps the persistent grid below what the card holds (the result does not
+    depend on it); ``defines`` launches a variant of the source built with
+    these preprocessor defines (:data:`EXACT_MAX`; the probes' timing
+    variants)."""
     kw = dict(n_layer=n_layer, n_head=n_head, n_embd=n_embd,
               num_classes=num_classes, guidance=guidance, use_cfg=use_cfg,
               s_valid=s_valid, sample=sample, cross_as_bias=cross_as_bias)
@@ -459,7 +660,8 @@ def megakernel_step(
     if tokens.device.type != "cuda":
         raise ValueError(f"megakernel_step: no kernel for {tokens.device}")
     return _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed,
-                   pack_cfg=pack_cfg, scratch=scratch, stamps=stamps, **kw)
+                   pack_cfg=pack_cfg, scratch=scratch, stamps=stamps,
+                   grid_blocks=grid_blocks, defines=defines, **kw)
 
 
 megakernel_step.launches_k3 = 0

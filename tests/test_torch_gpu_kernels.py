@@ -234,6 +234,8 @@ def _check_megakernel(args, kw, pack_cfg):
     (40, (8, 8), 17, 2, 1, 3),            # ragged tiles, one class chunk
     (96, (12, 8), 200, 3, 3, 2),          # general cross-attention
     (64, (8, 8), 17, 2, 77, 2),           # a text-length condition
+    (35, (7, 5), 133, 2, 77, 3),          # ... on a grid that is no multiple
+                                          # of 8, of 16 keys or of a row tile
     (1024, (32, 32), 4097, 19, 1, 2),     # the serving width
     # more work items than blocks of the persistent grid: every block loops
     (200, (20, 10), 17, 2, 3, 48),        # ... over ragged tiles
@@ -267,6 +269,61 @@ def test_branch_megakernel_matches_plain(cuda, L, spatial, k, n_layer, s_len,
                                 use_cfg=use_cfg, dtype=torch.bfloat16,
                                 seed=L + k + s_len)
     _check_megakernel(args, kw, pack_cfg=False)
+
+
+@pytest.mark.parametrize("L,spatial,k,n_layer,s_len,B,use_cfg", [
+    (35, (7, 5), 133, 2, 2, 3, False),
+    (96, (12, 8), 200, 3, 3, 2, True),
+    (1024, (32, 32), 4097, 19, 1, 2, True),
+])
+def test_branch_megakernel_matches_plain_f32_weights(cuda, L, spatial, k,
+                                                     n_layer, s_len, B,
+                                                     use_cfg):
+    """f32 weights are split into TF32 halves like the activations."""
+    args, kw = _megakernel_case(cuda, L=L, spatial=spatial, k=k,
+                                n_layer=n_layer, s_len=s_len, B=B,
+                                use_cfg=use_cfg, dtype=torch.float32,
+                                seed=L + k + s_len)
+    _check_megakernel(args, kw, pack_cfg=False)
+
+
+@pytest.mark.parametrize("pack_cfg", [True, False], ids=["K3", "K4"])
+def test_softmax_shift_against_exact_row_maxima(cuda, pack_cfg):
+    """The build that shifts the scores by their bound where it may against
+    the build that takes the exact row maximum everywhere, at query scales
+    where every, some and no warp takes the bound."""
+    chip_smoke._check_softmax_shift(torch, "test", pack_cfg)
+
+
+@pytest.mark.parametrize("pack_cfg", [True, False], ids=["K3", "K4"])
+@pytest.mark.parametrize("scale", [15.0, 60.0, 400.0])
+def test_log_probabilities_under_the_clamp(cuda, pack_cfg, scale):
+    """With the output projection scaled up, classes fall under the step's
+    clamp at -70 in one or both branches: the tail then takes its extra pass
+    for the guided normaliser instead of deriving it from the first pass."""
+    args, kw = _megakernel_case(cuda, L=96, spatial=(12, 8), k=200, n_layer=2,
+                                s_len=1, B=3, use_cfg=True,
+                                dtype=torch.bfloat16, seed=21,
+                                logit_scale=scale)
+    _check_megakernel(args, kw, pack_cfg=pack_cfg)
+
+
+@pytest.mark.parametrize("pack_cfg", [True, False], ids=["K3", "K4"])
+def test_sampled_tokens_do_not_depend_on_the_grid_size(cuda, pack_cfg):
+    """The noise of a class comes from the Philox counter (class / 4,
+    position, batch row), not from the block or thread that draws it: one
+    seed gives the same tokens on the full persistent grid and on a grid of
+    37 or of 5 blocks (every block then loops over many work items)."""
+    args, kw = _megakernel_case(cuda, L=200, spatial=(20, 10), k=4097,
+                                n_layer=2, s_len=1, B=6, use_cfg=True,
+                                dtype=torch.bfloat16, seed=12)
+    want = mk.megakernel_step(*args[:7], 77, pack_cfg=pack_cfg, **kw)
+    for blocks in (37, 5):
+        got = mk.megakernel_step(*args[:7], 77, pack_cfg=pack_cfg,
+                                 grid_blocks=blocks, **kw)
+        assert torch.equal(got, want)
+    other = mk.megakernel_step(*args[:7], 78, pack_cfg=pack_cfg, **kw)
+    assert not torch.equal(other, want)
 
 
 @pytest.mark.parametrize("B", [2, 32])

@@ -371,3 +371,187 @@ def test_cuda_tensors_never_take_the_plain_version(setup, monkeypatch):
             use_cfg=True, s_valid=1)
     assert mk.megakernel_step.launches_k3 == 0
     assert mk.megakernel_step.launches_k4 == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' own arithmetic, where it departs from the plain version's by
+# more than the order of a sum (ops/megakernel.py states each departure as a
+# plain function)
+# ---------------------------------------------------------------------------
+
+def _adversarial_activations(rng, rows, cols):
+    """Random rows, then rows of large, tiny and mixed magnitudes, a row with
+    one dominant entry, and a row of values that cancel in a sum."""
+    a = rng.standard_normal((rows, cols)).astype(np.float32)
+    a[0] *= 1e15
+    a[1] *= 1e-15
+    a[2] *= np.float32(10.0) ** rng.integers(-8, 8, cols).astype(np.float32)
+    a[3, 1:] *= 1e-6
+    a[3, 0] = 7e4
+    a[4, 1::2] = -a[4, 0::2] * np.float32(1 + 2.0 ** -12)
+    return torch.from_numpy(a)
+
+
+def test_split_tf32_holds_an_f32_to_two_to_minus_21():
+    """hi + lo misses a by at most 2^-21 |a| (a rounding to 11 bits, then a
+    cut to 11 bits of the exact difference), and both halves are TF32
+    values."""
+    a = _adversarial_activations(np.random.default_rng(50), 16, 256)
+    hi, lo = mk.split_tf32(a)
+    err = (hi.double() + lo.double() - a.double()).abs()
+    assert bool((err <= 2.0 ** -21 * a.abs().double()).all())
+    for half in (hi, lo):       # 13 low bits of the significand are zero
+        assert int((half.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    # a bf16 value is a TF32 value: nothing to split
+    b = a[5:].to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(mk.split_tf32(b)[0], b)
+    assert int(mk.split_tf32(b)[1].abs().max()) == 0
+
+
+@pytest.mark.parametrize("wdtype", ["bfloat16", "float32"])
+def test_split_matmul_equals_the_exact_product(wdtype):
+    """Against the f64 product of the same f32 activations and weights: the
+    split leaves 2^-21 |a| |w| a term (bf16 weights; 2^-20 with the f32
+    weights' own split and the dropped lo x lo), and an f32 sum of 64 terms
+    in any order adds at most 64 x 2^-24: 2^-17 of sum |a| |w| bounds both.
+    Rounding the activations to bf16, the alternative, would miss by 2^-9."""
+    rng = np.random.default_rng(51)
+    a = _adversarial_activations(rng, 64, 64)
+    w = torch.from_numpy(rng.standard_normal((64, 96)).astype(np.float32))
+    w[:, 0] *= 1e10
+    w[:, 1] *= 1e-10
+    w = w.to(getattr(torch, wdtype))
+    want = a.double() @ w.double()
+    scale = a.abs().double() @ w.abs().double()
+    got = mk.split_matmul(a, w).double()
+    assert bool(((got - want).abs() <= 2.0 ** -17 * scale).all())
+    rounded = (a.to(torch.bfloat16).double() @ w.double() - want).abs()
+    assert float((rounded / scale).max()) > 2.0 ** -12
+
+
+@pytest.mark.parametrize("degree,bound", [(3, 2.0 ** -13), (6, 2.0 ** -21)])
+def test_exp2_poly_error(degree, bound):
+    """The polynomial exponentials of phase S against 2^x in f64, over the
+    whole range the sweeps see (scores up to 126 / log2(e) = 87 under the
+    row maximum; below that the result is clamped at 2^-126, where the
+    special function unit gives 0: both vanish against a row sum >= 1)."""
+    x = torch.cat([torch.linspace(-126.0, 0.0, 100001),
+                   torch.tensor([-80.0 * 1.4426950408889634, -1e-7, -0.5,
+                                 -1.5, -125.5])])
+    got = mk.exp2_poly(x, degree).double()
+    want = torch.exp2(x.double())
+    assert float((got / want - 1).abs().max()) <= bound
+    low = mk.exp2_poly(torch.tensor([-200.0, -float("inf")]), degree)
+    assert bool((low <= 2.0 ** -125).all()) and bool((low >= 0).all())
+
+
+def _adversarial_scores(rng, lq, lk):
+    """(1, lq, lk) scores in units of log2: random rows, a row with one
+    dominant score, rows whose scores lie 80 apart, equal scores, and a row
+    whose scores sit at the polynomial's worst argument."""
+    s = (4.0 * rng.standard_normal((lq, lk))).astype(np.float32)
+    s[0] = -40.0
+    s[0, 3] = 25.0
+    s[1, ::2] += 80.0
+    s[2] = 1.25
+    s[3] = -0.5 * np.arange(lk, dtype=np.float32)
+    s[4] = np.float32(-0.47)
+    s[4, 0] = 0.0
+    return torch.from_numpy(s)
+
+
+def test_row_sum_with_polynomial_share_is_within_two_to_minus_13():
+    """The row sum of sweep 1 with a share of its exponentials taken by the
+    degree-3 polynomial: each such term is off by at most 2^-13.7, so the
+    sum is (all terms positive); the rounding of the probabilities to bf16
+    that follows is 2^-9."""
+    s = _adversarial_scores(np.random.default_rng(52), 64, 80)
+    x = s - s.amax(dim=-1, keepdim=True)
+    exact = torch.exp2(x.double()).sum(dim=-1)
+    for share in (mk.KERNEL_POLY_SHARE[0], 16):
+        mask = mk.poly_exp_mask(64, 80, share)
+        assert int(mask[:32, :16].sum()) == 32 * share
+        e = torch.where(mask, mk.exp2_poly(x, 3), torch.exp2(x))
+        got = e.double().sum(dim=-1)
+        assert float((got / exact - 1).abs().max()) <= 2.0 ** -13
+
+
+def test_attention_with_kernel_exponentials_against_plain():
+    """Self-attention with the kernels' exponentials against the plain
+    version on the same q, k, v: a row sum off by 2^-13 moves a probability
+    across a bf16 rounding boundary in about 2^-13 / 2^-9 of the cases, each
+    by one bf16 step (at most 2^-8 of it); the output, a mean of v under
+    those probabilities, stays within 2^-8 of max |v| (reached when one key
+    holds nearly all of a row's weight, as in the first row here)."""
+    rng = np.random.default_rng(53)
+    q, k, v = (torch.from_numpy(
+        (2.0 * rng.standard_normal((2, 48, 16))).astype(np.float32))
+        for _ in range(3))
+    q[0, 0] *= 40.0            # one dominant score, others 80 and more below
+    got = mk._attention_kernel_arithmetic(q, k, v, 4, 48)
+    want = mk._attention_reference(q, k, v, 4, 48)
+    bound = 2.0 ** -8 * float(v.abs().max())
+    assert float((got - want).abs().max()) <= bound
+    assert not torch.equal(got, want) or mk.KERNEL_POLY_SHARE == (0, 0)
+
+
+@pytest.mark.parametrize("t", [0, T - 1])
+@pytest.mark.parametrize("use_cfg,pack_cfg,s_len",
+                         [(True, True, 1), (True, False, 3), (False, False, 1)],
+                         ids=["packed_bias", "two_branch_general",
+                              "no_cfg_bias"])
+def test_kernel_arithmetic_tokens_equal_jax_kernels_f32(setup, use_cfg,
+                                                        pack_cfg, s_len, t):
+    """One argmax step computed with the kernels' arithmetic (split products
+    with f32 weights, the polynomial share of the exponentials) against the
+    JAX kernels in interpret mode: the same tokens."""
+    rng = np.random.default_rng(100 + 7 * s_len + t)
+    jax_args, args, kw = _step_inputs(setup, rng, s_len, use_cfg, False,
+                                      "float32", t)
+    want = jmk._megakernel_step(
+        *jax_args, n_layer=N_LAYER, n_head=N_HEAD, n_embd=N_EMBD,
+        num_classes=K, guidance=kw["guidance"], use_cfg=use_cfg,
+        s_valid=s_len, sample_mode=False, interpret=True,
+        cross_as_bias=kw["cross_as_bias"], pack_cfg=pack_cfg)
+    got = mk.megakernel_step_kernel_arithmetic(*args, sample=False, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    plain = mk.megakernel_step_reference(*args, sample=False, **kw)
+    assert torch.equal(got, plain)
+
+
+def test_softmax_shift_is_safe_for_any_scores():
+    """The shift of phase S against the exact row maximum, for small scores,
+    scores 80 and more apart, a dominant key inside and outside the first 16,
+    and large and tiny operands: it never lies under the maximum by more
+    than the rounding of a 4-term f32 sum, never more than
+    KERNEL_SHIFT_SLACK above it (so the largest exponential of a row is at
+    least exp(-40), far inside f32's range, and a row sum cannot vanish),
+    and both branches (the bound, the exact maximum) are taken."""
+    rng = np.random.default_rng(54)
+    R, Lq, Lk, H, d = 2, 96, 80, 4, 4
+    q = rng.standard_normal((R, Lq, H, d)).astype(np.float32)
+    k = rng.standard_normal((R, Lk, H, d)).astype(np.float32)
+    q[0, :32] *= 0.05          # small scores: the bound serves
+    q[0, 32:64] *= 60.0        # scores far apart: the exact maximum
+    k[1, 40, 0] *= 30.0        # a dominant key outside the first 16
+    k[1, 3, 1] *= 30.0         # ... and inside
+    q[1, 64:, 2] *= 1e-12
+    k[1, :, 3] *= 1e6
+    qs, kb = mk._bf16(torch.from_numpy(q)), mk._bf16(torch.from_numpy(k))
+    s = torch.einsum("rqhd,rkhd->rhqk", qs, kb)
+    shift = mk.softmax_shift(s, qs, kb)
+    exact = s.amax(dim=-1, keepdim=True)
+    assert tuple(shift.shape) == (R, H, Lq, 1)
+    scale = torch.einsum("rqhd,rhd->rhq", qs.abs(),
+                         kb.abs().amax(dim=1))[..., None]
+    assert bool((shift >= exact - 4 * 2.0 ** -24 * scale).all())
+    assert bool((shift - exact <= mk.KERNEL_SHIFT_SLACK).all())
+    took_exact = shift == exact
+    assert bool(took_exact[0, :, 32:64].all())      # the scaled queries
+    assert not bool(took_exact[0, :, :32].any())    # the small ones
+    # the softmax is the same under either shift, up to f32 rounding
+    e = torch.exp(s - shift)
+    p = e / e.sum(dim=-1, keepdim=True)
+    want = torch.softmax(s.double(), dim=-1)
+    assert bool(torch.isfinite(p).all())
+    assert float((p.double() - want).abs().max()) <= 1e-5

@@ -233,3 +233,15 @@ def test_wrappers_refuse_what_is_neither_cpu_nor_cuda():
         pk.chain_matmul(x, w, 1)
     with pytest.raises(ValueError, match="no kernel for meta"):
         pk.probe_matmul(torch.ones((4, 4), device="meta"))
+
+
+def test_exp_probe_needs_a_card():
+    """The exponential-throughput probe measures the card and nothing else:
+    without one it raises instead of timing the CPU."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        exp_probe)
+    assert set(exp_probe.MODES) == {"ex2_f32", "ex2_f16x2", "poly_fma",
+                                    "half_sfu_half_poly"}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            exp_probe.probe()
