@@ -8,23 +8,31 @@
 
 Phases:
   1. the card (nvidia-smi name and power limit), the torch / CUDA / Triton
-     versions, TF32 off, and the builds of the five CUDA sources under
+     versions, TF32 off, and the builds of the six CUDA sources under
      ``csrc/`` (one nvcc each, started together);
-  2. the Triton sampler-step kernel (K1) against its plain version, then
+  2. the Triton sampler-step kernel (K1) against its plain version (also
+     at B=228 on the 2304-token grid, past 2^31 Philox counters, and its
+     draws over 512 rows, past 2^32, against a noise that repeats), then
      both timed at the main path's shape;
-  3. the CUDA attention kernel (K2) against its plain version, then both
-     timed at the main path's shapes;
+  3. the CUDA attention kernel (K2) against its plain version in f32 and
+     bf16 (the paths' shapes and lengths no multiple of a tile), then both
+     timed at the main path's shapes, with the library call, the bound and
+     the exponential floor (the card's exponentials a second, measured);
   4. the serving slice at ``HONEST`` on the ``model`` route: a small argmax
      run held against the same run on the CPU, a B=4 warm-up, then the
      bench's B=32 batch (label conditioning, 100 steps, CFG 2, sampled) and
      its decode, with the launch counts of K1 and K2;
   5. the CUDA attention backward (K5) against its plain version through
-     the autograd Function, then both timed at the training step's shapes;
+     the autograd Function in f32 and bf16, two launches bitwise equal,
+     then both timed at the training step's shapes;
   6. the CUDA codebook lookup (K6) against its plain version, then both
      timed at the frozen encode's shape;
   7. the training slice at ``TRAIN_STEP2``: a small step held against the
      same step on the CPU, then B=16 steps (2 warm-up, 5 timed) on a fixed
      synthetic batch, with the launch counts of K2, K5 and K6 per step;
+     then a synthetic loop of such a step's attention calls in bf16,
+     forward and backward, with their launch counts (no configuration
+     reaches the bf16 entry points before ROADMAP [10]);
   8. the CFG-packed whole-step kernel (K3) against its plain version: one
      argmax step at the serving width (f32 and bf16 weights at B=2, and at
      the main path's own B=32, where every block of the persistent grid
@@ -54,7 +62,8 @@ Phases:
      and where a step's time goes (CUDA events).
 Then one JSON line of the kernels (``launches``: K1 from the ``model``
 serving run and the build-cache probe's children, K2 from that serving run
-and the timed stage-2 steps, K5 from those steps, K6 from the timed steps of
+and the timed stage-2 steps, K5 from those steps, K2 and K5 in bf16 from
+phase 7's synthetic bf16 loop, K6 from the timed steps of
 both stages, K3 and K4 from the ``megakernel`` serving runs, P1 from the
 build-cache probe's children, P2 and P3 from the depth / packing probe;
 ``launches_by_path`` splits the count by the run it came from), and the
@@ -63,6 +72,7 @@ no CPU run.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -189,14 +199,15 @@ def phase_environment(torch) -> str:
     print("phase 1: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
-        attention, codebook_kernel, megakernel, probe_kernels)
+        attention, codebook_kernel, cuda_build, megakernel, probe_kernels)
     builds = {"fused_mha_fwd.cu": attention._library,
               "fused_mha_bwd.cu": attention._bwd_library,
               "nearest_code_stats.cu": codebook_kernel._library,
               "megakernel_step.cu": megakernel._library,
               "megakernel_step.cu (exact row maxima)":
                   lambda: megakernel._library(megakernel.EXACT_MAX),
-              "probe_kernels.cu": probe_kernels._library}
+              "probe_kernels.cu": probe_kernels._library,
+              "exp_probe.cu": lambda: cuda_build.load("exp_probe.cu")}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = dict(zip(builds, pool.map(lambda f: f(), builds.values())))
@@ -211,6 +222,57 @@ def phase_environment(torch) -> str:
           f"{lib.megakernel_grid_blocks(1)} blocks (K3), "
           f"{lib.megakernel_grid_blocks(0)} (K4)")
     return smi
+
+
+# K1's noise past 2^32 counters at K=4097, L=2304. One 32-bit counter over
+# the flattened (b, class, l), as the kernel had before its counter was
+# widened, would give (b + 455, class, l + 256) the noise of (b, class, l):
+# 2^32 = 455 K L + 256
+K1_WRAP_ROWS, K1_WRAP_SHIFT = divmod(2 ** 32, 4097 * 2304)
+K1_RATE_TOL = 0.01
+
+
+def _check_k1_noise_past_wrap(torch, seed: int = 7) -> dict:
+    """K1's draws over 512 rows (B K L = 4.8e9), every row the same logits
+    (a batch stride of 0) with a period of K1_WRAP_SHIFT tokens, all tokens
+    masked, t = 0. Position (b, l) and (b + K1_WRAP_ROWS, l + K1_WRAP_SHIFT)
+    then have the same posterior: with independent noise they agree as
+    often as two independent draws, sum_k p_k^2; with noise that repeats
+    after 2^32 counters, always. The rows past 2^32 counters draw the
+    posterior's argmax as often as it has mass. Returns the rates and
+    their expectations; raises if either misses by more than
+    K1_RATE_TOL."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
+        make_schedule)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import fused_sample_step, fused_sample_step_reference, schedule_rows
+
+    K, L, B = 4097, 2304, 512
+    row = schedule_rows(make_schedule(100, K, device="cuda"))[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    period = 3.0 * torch.randn((1, K1_WRAP_SHIFT, K - 1), generator=g,
+                               device="cuda")
+    one = period.repeat(1, L // K1_WRAP_SHIFT, 1)            # (1, L, K-1)
+    tokens = torch.full((B, L), K - 1, dtype=torch.int64, device="cuda")
+    kw = dict(guidance=1.0, num_classes=K)
+    drawn = fused_sample_step(one.expand(B, L, K - 1).transpose(1, 2),
+                              tokens, row, seed, sample=True, **kw)
+    _, post = fused_sample_step_reference(
+        one.transpose(1, 2), tokens[:1], row, seed, sample=False,
+        return_posterior=True, **kw)
+    prob = post[0].double().exp()                            # (K, L)
+    d, s = K1_WRAP_ROWS, K1_WRAP_SHIFT
+    pair = (drawn[:B - d, :L - s] == drawn[d:, s:]).double().mean().item()
+    pair_want = (prob ** 2).sum(0).mean().item()
+    past = -(-2 ** 32 // (K * L))                            # first row
+    hit = (drawn[past:] == prob.argmax(0)).double().mean().item()
+    hit_want = prob.max(0).values.mean().item()
+    out = dict(pair=pair, pair_want=pair_want, hit=hit, hit_want=hit_want,
+               in_range=bool(((drawn >= 0) & (drawn < K)).all()))
+    if not (out["in_range"] and abs(pair - pair_want) <= K1_RATE_TOL
+            and abs(hit - hit_want) <= K1_RATE_TOL):
+        raise AssertionError(f"K1's noise past 2^32 counters: {out}")
+    return out
 
 
 def phase_k1(torch, smi: str) -> dict:
@@ -258,6 +320,45 @@ def phase_k1(torch, smi: str) -> dict:
             raise AssertionError("K1 disagrees with its plain version")
         worst = max(worst, err)
 
+    # past 2^31 (B K L) Philox counters: B=228 at the 2304-token grid,
+    # guidance 1; the plain version row by row in chunks (its temporaries
+    # are (B, K, L) f32 several times over)
+    B, L = 228, 2304
+    g = torch.Generator(device="cuda").manual_seed(11)
+    logits = torch.randn((B, L, K - 1), generator=g,
+                         device="cuda").transpose(1, 2)
+    tokens = torch.full((B, L), K - 1, dtype=torch.int64, device="cuda")
+    kw = dict(guidance=1.0, num_classes=K)
+    tok_k = fused_sample_step(logits, tokens, rows[50], 7, sample=False, **kw)
+    drawn = fused_sample_step(logits, tokens, rows[50], 7, sample=True, **kw)
+    wrong = decided = 0
+    for r0 in range(0, B, 19):
+        sl = slice(r0, r0 + 19)
+        tok_p, post_p = fused_sample_step_reference(
+            logits[sl], tokens[sl], rows[50], 7, sample=False,
+            return_posterior=True, **kw)
+        top2 = post_p.topk(2, dim=1).values
+        sure = (top2[:, 0] - top2[:, 1]) > K1_TOL
+        decided += int(sure.sum())
+        wrong += int(((tok_k[sl] != tok_p) & sure).sum())
+        del tok_p, post_p, top2, sure
+    in_range = bool(((drawn >= 0) & (drawn < K)).all())
+    print(f"phase 2: K1 B={B} L={L} K={K} (B K L = {B * K * L} >= 2^31): "
+          f"{wrong} token mismatches of {decided} decided positions "
+          f"(argmax); sampled tokens in [0, K): {in_range}")
+    if wrong or not in_range:
+        raise AssertionError("K1 past 2^31 counters disagrees")
+    del logits, tokens, tok_k, drawn
+    torch.cuda.empty_cache()
+    r = _check_k1_noise_past_wrap(torch)
+    print(f"phase 2: K1 B=512 L={L} K={K} (B K L = {512 * K * L} >= 2^32), "
+          f"one row's logits in every row: draws at (b, l) and (b + "
+          f"{K1_WRAP_ROWS}, l + {K1_WRAP_SHIFT}) agree at {r['pair']:.4f} "
+          f"(independent draws: {r['pair_want']:.4f}; noise repeating after "
+          f"2^32 counters: 1), rows past 2^32 draw the argmax at "
+          f"{r['hit']:.4f} (its mass {r['hit_want']:.4f}); tol "
+          f"{K1_RATE_TOL}")
+
     # timed at the main path: B=32 (2B=64 logits rows), K=4097, L=1024,
     # guidance 2, sampled
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -282,57 +383,174 @@ def phase_k1(torch, smi: str) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+# the attention kernels' cases: the paths' shapes (self-attention over
+# 1024 and 2304 tokens, cross-attention over 1 and 77 condition tokens) and
+# lengths that are no multiple of a tile, head dims 4 and 8
+ATTN_CASES = ((8, 1024, 1024, 64, 16), (8, 1024, 1, 64, 16),
+              (8, 1024, 77, 64, 16), (2, 2304, 2304, 64, 16),
+              (2, 300, 300, 64, 16), (3, 257, 77, 64, 16),
+              (2, 100, 33, 64, 16), (1, 100, 2304, 64, 16),
+              (1, 24, 77, 64, 8), (2, 300, 300, 64, 8))
+
+
+@functools.cache
+def _exp_rate(torch) -> float:
+    """Base-2 exponentials a second in f32 on this card, measured now
+    (``probes/exp_probe.py``): the attention kernels' exponential floor."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        exp_probe)
+    return exp_probe.probe()["modes"]["ex2_f32"]["exps_per_s"]
+
+
+def _sdpa_backend(torch, *args) -> str:
+    """The backend F.scaled_dot_product_attention takes for these inputs:
+    the first of its priority order that accepts them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(*args)
+            return backend.name.lower()
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def _attention_bound(dtype, flops: float, nbytes_f32: float
+                     ) -> tuple[float, str]:
+    """The least time of an attention call: its products at the peak of
+    the operands' type (f32: the CUDA cores' 67 TFLOP/s; bf16: the tensor
+    cores' 989), its tensors at their element size."""
+    if str(dtype) == "torch.float32":
+        return _bound(nbytes_f32, flops)
+    return _bound(nbytes_f32 / 2, 0.0, flops)
+
+
+def _bf16_attention_case(torch, B, Lq, Lk, C, H) -> dict:
+    """K2 and K5 with bf16 inputs at one case, against the plain versions
+    in f32 of the same inputs. ``o32``: K2's f32 output's largest error and
+    whether it lies within K2_TOL; ``o``, ``dq``, ``dk``, ``dv``: the bf16
+    outputs' excess beyond their rounding (``bf16_excess``; the gradients'
+    scale floored at 1e-3 of the largest, as dq and dk vanish over one
+    key); ``control``: the same of the plain versions with P and dS rounded
+    to bf16, which must miss BF16_EXCESS_TOL wherever there is more than one
+    key; ``abs``: the bf16 outputs' largest absolute error; ``same``:
+    whether two backward launches gave the same bits."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        _fwd_kernel, bf16_excess, bf16_rounded_p_reference, fused_mha,
+        fused_mha_bwd, fused_mha_bwd_reference, sdpa_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(Lq + 7 * Lk)
+    q, k, v, do = (torch.randn((B, n, C), generator=g, device="cuda")
+                   .to(torch.bfloat16) for n in (Lq, Lk, Lk, Lq))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    o = fused_mha(qg, kg, vg, n_head=H)
+    o.backward(do)
+    _, lse, o32 = _fwd_kernel(q, k, v, H, with_lse=True)
+    again = fused_mha_bwd(q, k, v, o32, lse, do, n_head=H)
+    got = (o.detach(), qg.grad, kg.grad, vg.grad)
+    if any(x.dtype != torch.bfloat16 for x in got):
+        raise AssertionError("the bf16 kernels' outputs are not bf16")
+    x32 = [x.float() for x in (q, k, v, do)]
+    want = (sdpa_reference(*x32[:3], H), *fused_mha_bwd_reference(*x32, H))
+    control = bf16_rounded_p_reference(q, k, v, do, H)
+    big = max(w.abs().max().item() for w in want[1:])
+    scales = [None] + [max(w.abs().max().item(), 1e-3 * big)
+                       for w in want[1:]]
+    names = ("o", "dq", "dk", "dv")
+    out = {n: bf16_excess(x, w, sc)
+           for n, x, w, sc in zip(names, got, want, scales)}
+    out["control"] = {n: bf16_excess(x.bfloat16(), w, sc)
+                      for n, x, w, sc in zip(names, control, want, scales)}
+    out["abs"] = {n: (x.float() - w).abs().max().item()
+                  for n, x, w in zip(names, got, want)}
+    d32 = (o32 - want[0]).abs()
+    out["o32"] = d32.max().item()
+    out["o32_ok"] = bool((d32 <= K2_TOL + K2_TOL * want[0].abs()).all())
+    out["same"] = all(torch.equal(x, y) for x, y in zip(got[1:], again))
+    return out
+
+
 def phase_k2(torch, smi: str) -> dict:
-    """K2 against its plain version; returns its numbers for the kernels'
-    line, the times those of the self-attention at the main path's shape."""
+    """K2 against its plain version in f32 and bf16; returns the numbers of
+    each dtype for the kernels' line, the times those of the self-attention
+    at the main path's shape."""
     import torch.nn.functional as F
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
-        fused_mha, sdpa_reference)
+        BF16_EXCESS_TOL, fused_mha, sdpa_reference)
 
-    worst = 0.0
-    for B, Lq, Lk, C, H in ((8, 1024, 1024, 64, 16), (8, 1024, 1, 64, 16),
-                            (8, 1024, 77, 64, 16), (2, 2304, 2304, 64, 16)):
-        g = torch.Generator(device="cuda").manual_seed(Lq + Lk)
-        q, k, v = (torch.randn((B, L, C), generator=g, device="cuda")
-                   for L in (Lq, Lk, Lk))
-        got = fused_mha(q, k, v, n_head=H)
-        want = sdpa_reference(q, k, v, H)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        print(f"phase 3: K2 B={B} Lq={Lq} Lk={Lk} C={C} H={H}: max-abs "
-              f"{err:.3e}")
-        torch.testing.assert_close(got, want, rtol=K2_TOL, atol=K2_TOL)
-        worst = max(worst, err)
+    exp_rate = _exp_rate(torch)
+    print(f"phase 3: the card takes {exp_rate:.4e} base-2 exponentials / s "
+          f"in f32 (probes/exp_probe.py, this run)")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        worst = 0.0
+        for B, Lq, Lk, C, H in ATTN_CASES:
+            case = f"phase 3: K2 {name} B={B} Lq={Lq} Lk={Lk} C={C} H={H}"
+            if dtype == torch.bfloat16:
+                r = _bf16_attention_case(torch, B, Lq, Lk, C, H)
+                ctl = r["control"]["o"]
+                print(f"{case}: o32 (f32) max-abs {r['o32']:.3e} (tol "
+                      f"{K2_TOL} + {K2_TOL} |x|); o (bf16) beyond its "
+                      f"rounding {r['o']:.3e} of its magnitude, P rounded to "
+                      f"bf16 {ctl:.3e} (tol {BF16_EXCESS_TOL})")
+                if not (r["o32_ok"] and r["o"] <= BF16_EXCESS_TOL) or (
+                        Lk > 1 and not ctl > BF16_EXCESS_TOL):
+                    raise AssertionError("K2 bf16 disagrees with its plain "
+                                         "version, or the check cannot tell")
+                worst = max(worst, r["abs"]["o"])
+                continue
+            g = torch.Generator(device="cuda").manual_seed(Lq + Lk)
+            q, k, v = (torch.randn((B, L, C), generator=g, device="cuda")
+                       for L in (Lq, Lk, Lk))
+            got = fused_mha(q, k, v, n_head=H)
+            want = sdpa_reference(q, k, v, H)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, rtol=K2_TOL, atol=K2_TOL)
+            print(f"{case}: max-abs {err:.3e} (tol {K2_TOL} + {K2_TOL} |x|)")
+            worst = max(worst, err)
 
-    # timed at the main path: 2B=64 rows of 1024 tokens, 16 heads of dim 4;
-    # self-attention, and cross-attention over the single label token
-    g = torch.Generator(device="cuda").manual_seed(6)
-    times = {}
-    for name, lk in (("self", 1024), ("cross", 1)):
-        q = torch.randn((64, 1024, 64), generator=g, device="cuda")
-        k, v = (torch.randn((64, lk, 64), generator=g, device="cuda")
-                for _ in range(2))
-        times[name] = _ab_ms(lambda: sdpa_reference(q, k, v, 16),
-                             lambda: fused_mha(q, k, v, n_head=16), 10)
-        # the one library call that computes the same function
-        qh, kh, vh = (x.reshape(64, -1, 16, 4).transpose(1, 2).contiguous()
-                      for x in (q, k, v))
-        lib_ms = _time_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
-        # bound: 4 B H Lq Lk d f32 operations (QK^T and PV) against q, k, v
-        # read and o written once
-        flops = 4.0 * 64 * 16 * 1024 * lk * 4
-        nbytes = 4.0 * (2 * q.numel() + 2 * k.numel())
-        times[name] += (lib_ms, *_bound(nbytes, flops))
-        print(f"phase 3: K2 {name} (B=64, Lq=1024, Lk={lk}) kernel "
-              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
-              f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-              f"{times[name][3]:.4f} ms by {times[name][4]} "
-              f"({flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32, "
-              f"{nbytes / 1e6:.1f} MB) ({smi})")
-    ms, plain_ms, lib_ms, bound_ms, bound_by = times["self"]
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        # timed at the main path: 2B=64 rows of 1024 tokens, 16 heads of
+        # dim 4; self-attention, and cross-attention over the label token
+        g = torch.Generator(device="cuda").manual_seed(6)
+        times = {}
+        for shape, lk in (("self", 1024), ("cross", 1)):
+            q = torch.randn((64, 1024, 64), generator=g,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((64, lk, 64), generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            ms, plain_ms = _ab_ms(lambda: sdpa_reference(q, k, v, 16),
+                                  lambda: fused_mha(q, k, v, n_head=16), 10)
+            # the one library call that computes the same function
+            qh, kh, vh = (x.reshape(64, -1, 16, 4).transpose(1, 2)
+                          .contiguous() for x in (q, k, v))
+            lib_ms = _time_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
+            backend = _sdpa_backend(torch, qh, kh, vh)
+            # bound: 4 B H Lq Lk d operations (QK^T and PV) against q, k, v
+            # read and o written once; beside it the exponentials, one a
+            # (query, key, head)
+            flops = 4.0 * 64 * 16 * 1024 * lk * 4
+            nbytes = 4.0 * (2 * q.numel() + 2 * k.numel())
+            bound_ms, bound_by = _attention_bound(dtype, flops, nbytes)
+            exp_ms = 64 * 16 * 1024 * lk / exp_rate * 1e3
+            times[shape] = (ms, plain_ms, lib_ms, bound_ms, bound_by,
+                            exp_ms)
+            print(f"phase 3: K2 {name} {shape} (B=64, Lq=1024, Lk={lk}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"F.scaled_dot_product_attention ({backend}) "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB in "
+                  f"f32), exponential floor {exp_ms:.4f} ms ({smi})")
+        ms, plain_ms, lib_ms, bound_ms, bound_by, exp_ms = times["self"]
+        rows[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms, exp_floor_ms=exp_ms)
+    return rows
 
 
 def phase_slice(torch, smi: str) -> dict:
@@ -362,7 +580,8 @@ def phase_slice(torch, smi: str) -> dict:
         batch = {"label": torch.tensor([0, 3, 4])}
         tok = sample_token_grid(models, batch, torch.Generator().manual_seed(
             12), sample=False, sampler="model")
-        out[dev] = (tok.cpu(), models.vqvae.decode(tok).cpu())
+        with torch.no_grad():
+            out[dev] = (tok.cpu(), models.vqvae.decode(tok).cpu())
     same = torch.equal(out["cuda"][0], out["cpu"][0])
     verr = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
     print(f"phase 4: small slice (T=8, K=17, L=32) argmax on the card vs the "
@@ -396,7 +615,8 @@ def phase_slice(torch, smi: str) -> dict:
             tokens = sample_token_grid(models, batch, g, sampler="model")
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            video = models.vqvae.decode(tokens)
+            with torch.no_grad():
+                video = models.vqvae.decode(tokens)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             launches = (fused_sample_step.launches, fused_mha.launches)
@@ -420,68 +640,164 @@ def phase_slice(torch, smi: str) -> dict:
 
 
 def phase_k5(torch, smi: str) -> dict:
-    """K5 against its plain version; returns its numbers for the kernels'
+    """K5 against its plain version in f32 and bf16, and bitwise equal
+    across two launches; returns the numbers of each dtype for the kernels'
     line, the times those of the self-attention backward at the training
     step's shape."""
     import torch.nn.functional as F
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
-        _fwd_kernel, fused_mha, fused_mha_bwd, fused_mha_bwd_reference)
+        BF16_EXCESS_TOL, _fwd_kernel, fused_mha, fused_mha_bwd,
+        fused_mha_bwd_reference)
 
-    worst = 0.0
-    for B, Lq, Lk, C, H in ((8, 1024, 1024, 64, 16), (8, 1024, 1, 64, 16),
-                            (8, 1024, 77, 64, 16), (2, 2304, 2304, 64, 16)):
-        g = torch.Generator(device="cuda").manual_seed(Lq + 7 * Lk)
-        q, k, v = (torch.randn((B, n, C), generator=g, device="cuda")
-                   .requires_grad_() for n in (Lq, Lk, Lk))
-        do = torch.randn((B, Lq, C), generator=g, device="cuda")
-        (fused_mha(q, k, v, n_head=H) * do).sum().backward()
-        want = fused_mha_bwd_reference(q.detach(), k.detach(), v.detach(),
-                                       do, H)
-        torch.cuda.synchronize()
-        errs = [(x.grad - w).abs().max().item()
-                for x, w in zip((q, k, v), want)]
-        print(f"phase 5: K5 B={B} Lq={Lq} Lk={Lk} C={C} H={H}: max-abs dq "
-              f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (tol "
-              f"{K5_TOL})")
-        for x, w in zip((q, k, v), want):
-            torch.testing.assert_close(x.grad, w, rtol=K5_TOL, atol=K5_TOL)
-        worst = max(worst, *errs)
+    exp_rate = _exp_rate(torch)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        worst = 0.0
+        for B, Lq, Lk, C, H in ATTN_CASES:
+            case = f"phase 5: K5 {name} B={B} Lq={Lq} Lk={Lk} C={C} H={H}"
+            if dtype == torch.bfloat16:
+                r = _bf16_attention_case(torch, B, Lq, Lk, C, H)
+                grads = ("dq", "dk", "dv")
+                ctl = [r["control"][n] for n in grads]
+                print(f"{case}: beyond their rounding dq {r['dq']:.3e}, dk "
+                      f"{r['dk']:.3e}, dv {r['dv']:.3e} of their magnitude, "
+                      f"P and dS rounded to bf16 " + ", ".join(
+                          f"{x:.3e}" for x in ctl) + f" (tol "
+                      f"{BF16_EXCESS_TOL}); two launches bitwise equal: "
+                      f"{r['same']}")
+                if not all(r[n] <= BF16_EXCESS_TOL for n in grads) or (
+                        Lk > 1 and not min(ctl) > BF16_EXCESS_TOL):
+                    raise AssertionError("K5 bf16 disagrees with its plain "
+                                         "version, or the check cannot tell")
+                if not r["same"]:
+                    raise AssertionError("K5 is not deterministic")
+                worst = max(worst, *(r["abs"][n] for n in grads))
+                continue
+            g = torch.Generator(device="cuda").manual_seed(Lq + 7 * Lk)
+            q, k, v = (torch.randn((B, n, C), generator=g, device="cuda")
+                       .requires_grad_() for n in (Lq, Lk, Lk))
+            do = torch.randn((B, Lq, C), generator=g, device="cuda")
+            (fused_mha(q, k, v, n_head=H) * do).sum().backward()
+            want = fused_mha_bwd_reference(q.detach(), k.detach(),
+                                           v.detach(), do, H)
+            # a second launch on the same inputs gives the same bits
+            o, lse, o32 = _fwd_kernel(q.detach(), k.detach(), v.detach(), H,
+                                      with_lse=True)
+            again = fused_mha_bwd(q.detach(), k.detach(), v.detach(), o32,
+                                  lse, do, n_head=H)
+            torch.cuda.synchronize()
+            got = (q.grad, k.grad, v.grad)
+            errs = [(x - w).abs().max().item() for x, w in zip(got, want)]
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            for x, w in zip(got, want):
+                torch.testing.assert_close(x, w, rtol=K5_TOL, atol=K5_TOL)
+            print(f"{case}: max-abs dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
+                  f"{errs[2]:.3e} (tol {K5_TOL} + {K5_TOL} |x|); two "
+                  f"launches bitwise equal: {same}")
+            if not same:
+                raise AssertionError("K5 is not deterministic")
+            worst = max(worst, *errs)
 
-    # timed at the training step: B=16 rows of 1024 tokens, 16 heads of 4;
-    # self-attention, and cross-attention over the single label token
-    g = torch.Generator(device="cuda").manual_seed(8)
-    times = {}
-    for name, lk in (("self", 1024), ("cross", 1)):
-        q, do = (torch.randn((16, 1024, 64), generator=g, device="cuda")
-                 for _ in range(2))
-        k, v = (torch.randn((16, lk, 64), generator=g, device="cuda")
-                for _ in range(2))
-        o, lse = _fwd_kernel(q, k, v, 16, with_lse=True)
-        times[name] = _ab_ms(
-            lambda: fused_mha_bwd_reference(q, k, v, do, 16),
-            lambda: fused_mha_bwd(q, k, v, o, lse, do, n_head=16), 10)
-        # the one library call: the autograd backward of PyTorch's fused
-        # attention (its forward runs outside the timed region)
-        qh, kh, vh = (x.reshape(16, -1, 16, 4).transpose(1, 2).contiguous()
-                      .requires_grad_() for x in (q, k, v))
-        doh = do.reshape(16, -1, 16, 4).transpose(1, 2).contiguous()
-        oh = F.scaled_dot_product_attention(qh, kh, vh)
-        lib_ms = _time_ms(lambda: torch.autograd.grad(
-            oh, (qh, kh, vh), doh, retain_graph=True), 10)
-        # bound: five products of 2 B H Lq Lk d f32 operations (S, dV, dP,
-        # dQ, dK) against q, k, v, o, do read and dq, dk, dv written once
-        flops = 10.0 * 16 * 16 * 1024 * lk * 4
-        nbytes = 4.0 * (4 * q.numel() + 4 * k.numel())
-        times[name] += (lib_ms, *_bound(nbytes, flops))
-        print(f"phase 5: K5 {name} (B=16, Lq=1024, Lk={lk}) kernel "
-              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
-              f"sdpa autograd backward {lib_ms:.4f} ms, bound "
-              f"{times[name][3]:.4f} ms by {times[name][4]} "
-              f"({flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32, "
-              f"{nbytes / 1e6:.1f} MB) ({smi})")
-    ms, plain_ms, lib_ms, bound_ms, bound_by = times["self"]
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        # timed at the training step: B=16 rows of 1024 tokens, 16 heads of
+        # 4; self-attention, and cross-attention over the label token
+        g = torch.Generator(device="cuda").manual_seed(8)
+        times = {}
+        for shape, lk in (("self", 1024), ("cross", 1)):
+            q, do = (torch.randn((16, 1024, 64), generator=g, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((16, lk, 64), generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            o, lse, o32 = _fwd_kernel(q, k, v, 16, with_lse=True)
+            ms, plain_ms = _ab_ms(
+                lambda: fused_mha_bwd_reference(q, k, v, do, 16),
+                lambda: fused_mha_bwd(q, k, v, o32, lse, do, n_head=16), 10)
+            # the one library call: the autograd backward of PyTorch's fused
+            # attention (its forward runs outside the timed region)
+            qh, kh, vh = (x.reshape(16, -1, 16, 4).transpose(1, 2)
+                          .contiguous().requires_grad_() for x in (q, k, v))
+            doh = do.reshape(16, -1, 16, 4).transpose(1, 2).contiguous()
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            lib_ms = _time_ms(lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), doh, retain_graph=True), 10)
+            backend = _sdpa_backend(torch, qh.detach(), kh.detach(),
+                                    vh.detach())
+            # bound: five products of 2 B H Lq Lk d operations (S, dV, dP,
+            # dQ, dK) against q, k, v, o, do read and dq, dk, dv written
+            # once; beside it the exponentials, one a (query, key, head) in
+            # each of the two kernels
+            flops = 10.0 * 16 * 16 * 1024 * lk * 4
+            nbytes = 4.0 * (4 * q.numel() + 4 * k.numel())
+            bound_ms, bound_by = _attention_bound(dtype, flops, nbytes)
+            exp_ms = 2 * 16 * 16 * 1024 * lk / exp_rate * 1e3
+            times[shape] = (ms, plain_ms, lib_ms, bound_ms, bound_by,
+                            exp_ms)
+            print(f"phase 5: K5 {name} {shape} (B=16, Lq=1024, Lk={lk}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"({backend}) autograd backward {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} "
+                  f"GFLOP, {nbytes / 1e6:.1f} MB in f32), exponential floor "
+                  f"{exp_ms:.4f} ms ({smi})")
+        ms, plain_ms, lib_ms, bound_ms, bound_by, exp_ms = times["self"]
+        rows[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms, exp_floor_ms=exp_ms)
+    return rows
+
+
+def phase_bf16_attention(torch, smi: str) -> dict:
+    """A synthetic loop, not a path of the port: no configuration reaches
+    the bf16 entry points until the denoiser computes in bf16 (ROADMAP
+    queue 1, item 10), which then replaces this loop with its own step. The
+    loop makes the attention calls of a ``TRAIN_STEP2`` step with bf16
+    operands as that step will: per layer the self-attention over 1024
+    tokens and the cross-attention over the label token, at B=16, forward
+    and backward through ``fused_mha``'s autograd. The counts are reset
+    before and read after: the bf16 kernels' launches of the kernels'
+    line."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        fused_mha)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        TRAIN_STEP2, TRAIN_STEP2_BATCH)
+
+    tcfg = TRAIN_STEP2["generator"]["diffusion_model"]["transformer"]
+    n_layer, C, H = tcfg["n_layer"], tcfg["n_embd"], tcfg["n_head"]
+    b = TRAIN_STEP2_BATCH
+    g = torch.Generator(device="cuda").manual_seed(10)
+    inputs = []
+    for _ in range(n_layer):
+        for lk in (1024, 1):
+            q = torch.randn((b, 1024, C), generator=g, device="cuda")
+            k, v = (torch.randn((b, lk, C), generator=g, device="cuda")
+                    for _ in range(2))
+            inputs.append(tuple(x.to(torch.bfloat16).requires_grad_()
+                                for x in (q, k, v)))
+
+    def step():
+        for q, k, v in inputs:
+            o = fused_mha(q, k, v, n_head=H)
+            o.backward(torch.ones_like(o))
+
+    step()   # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    finite = all(bool(x.grad.isfinite().all()) for qkv in inputs
+                 for x in qkv)
+    print(f"phase 7: synthetic loop (no configuration's path before ROADMAP "
+          f"[10]), the attention of a TRAIN_STEP2 step in bf16 ({n_layer} "
+          f"layers x (self over 1024 tokens + cross over 1), B={b}, forward "
+          f"and backward): {dt * 1e3:.2f} ms; launches K2 {counts[0]}, K5 "
+          f"{counts[1]} (expected {2 * n_layer}, {2 * n_layer}); gradients "
+          f"finite: {finite} ({smi})")
+    if counts[:2] != (2 * n_layer, 2 * n_layer) or not finite:
+        raise AssertionError("the bf16 attention path did not run as "
+                             "expected")
+    return {"K2": counts[0], "K5": counts[1]}
 
 
 def phase_k6(torch, smi: str) -> dict:
@@ -632,6 +948,14 @@ def phase_train(torch, smi: str, profile: bool) -> dict:
             losses.append(loss)
             seconds.append(dt)
             total = tuple(a + c for a, c in zip(total, counts))
+    # what D3PM.forward's "logits" (the JAX key) adds to a step: the exp of
+    # the (B, K, L) log posterior, outside the autograd graph
+    d3pm = state.generator.diffusion
+    lp = torch.randn((b, d3pm.num_classes, d3pm.content_seq_len),
+                     device="cuda")
+    print(f"phase 7: D3PM.forward's logits, exp of the {tuple(lp.shape)} log "
+          f"posterior: {_time_ms(lambda: lp.exp(), 10):.4f} ms a step")
+    del lp
     per_step = sum(seconds) / len(seconds)
     print(f"phase 7: TRAIN_STEP2 B={b}: {per_step:.4f} s/step = "
           f"{1 / per_step:.3f} steps/s over {len(seconds)} timed steps "
@@ -1170,7 +1494,8 @@ def phase_megakernel_route(torch, smi: str, honest, msrvtt) -> dict:
         batch = {"label": torch.tensor([0, 3, 4])}
         tok = sample_token_grid(models, batch, torch.Generator().manual_seed(
             12), sample=False, sampler="megakernel")
-        out[dev] = (tok.cpu(), models.vqvae.decode(tok).cpu())
+        with torch.no_grad():
+            out[dev] = (tok.cpu(), models.vqvae.decode(tok).cpu())
     same = torch.equal(out["cuda"][0], out["cpu"][0])
     verr = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
     print(f"phase 10: small slice (T=8, K=17, L=32) on the megakernel route, "
@@ -1203,7 +1528,8 @@ def phase_megakernel_route(torch, smi: str, honest, msrvtt) -> dict:
         tokens = sample_token_grid(models, batch, g, sampler="megakernel")
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        video = models.vqvae.decode(tokens)
+        with torch.no_grad():
+            video = models.vqvae.decode(tokens)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts = _megakernel_counts()
@@ -1547,6 +1873,7 @@ def main() -> int:
     k6 = phase_k6(torch, smi)
     profile = "--profile" in sys.argv[1:]
     train = phase_train(torch, smi, profile)
+    bf16_attention = phase_bf16_attention(torch, smi)
 
     from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
         HONEST, MSRVTT_GRID, build_models)
@@ -1569,6 +1896,10 @@ def main() -> int:
     serve_model = "serving, model route, B=32, 100 steps"
     serve_mk = "serving, megakernel route, 100 steps"
     training = "training, B=16, timed steps"
+    # no configuration reaches the bf16 entry points before the denoiser
+    # computes in bf16 (ROADMAP queue 1, item 10)
+    bf16_path = ("no path until ROADMAP [10]; synthetic loop of a "
+                 "TRAIN_STEP2 step's attention calls in bf16")
     training1 = "stage-1 training, B=64, timed steps"
     cache_probe = "build-cache probe, both child processes"
     depth_probe = "depth / packing probe"
@@ -1584,7 +1915,13 @@ def main() -> int:
              replaces=tpu + "ops/attention.py:70",
              launches=launches["K2"] + train["K2"],
              launches_by_path={serve_model: launches["K2"],
-                               training: train["K2"]}, **k2),
+                               training: train["K2"]}, **k2["float32"]),
+        dict(name="fused_mha_fwd_bf16", route="cuda",
+             source=f"{PKG}/csrc/fused_mha_fwd.cu",
+             replaces=tpu + "ops/attention.py:70",
+             launches=bf16_attention["K2"],
+             launches_by_path={bf16_path: bf16_attention["K2"]},
+             **k2["bfloat16"]),
         dict(name="megakernel_step_packed", route="cuda",
              source=f"{PKG}/csrc/megakernel_step.cu",
              replaces=tpu + "ops/megakernel.py:683",
@@ -1601,7 +1938,13 @@ def main() -> int:
              source=f"{PKG}/csrc/fused_mha_bwd.cu",
              replaces=tpu + "ops/attention.py:114",
              launches=train["K5"], launches_by_path={training: train["K5"]},
-             **k5),
+             **k5["float32"]),
+        dict(name="fused_mha_bwd_bf16", route="cuda",
+             source=f"{PKG}/csrc/fused_mha_bwd.cu",
+             replaces=tpu + "ops/attention.py:114",
+             launches=bf16_attention["K5"],
+             launches_by_path={bf16_path: bf16_attention["K5"]},
+             **k5["bfloat16"]),
         dict(name="nearest_code_stats", route="cuda",
              source=f"{PKG}/csrc/nearest_code_stats.cu",
              replaces=tpu + "ops/codebook_kernel.py:56",

@@ -1,38 +1,215 @@
-// Non-causal multi-head attention forward for the D3PM denoiser (Hopper).
+// Non-causal multi-head attention forward for the D3PM denoiser (Hopper),
+// for f32 and bf16 inputs.
 //
 // Replaces the TPU kernel gif_synthesis_with_discrete_diffusion_tpu/ops/
 // attention.py: _kernel (via _fused_mha_fwd_impl / fused_mha).
 //
-// q: (B, Lq, C), k/v: (B, Lk, C), o: (B, Lq, C), all f32 and contiguous;
-// C = H * D. Per (batch row, head): o = softmax(q k^T / sqrt(D)) v over the
-// Lk keys, softmax in f32. When lse is not null it also receives each
-// (batch row, head, query)'s log-sum-exp of the scores in base 2,
-// (B, H, Lq) f32, which the backward (csrc/fused_mha_bwd.cu) uses to
-// recompute the probabilities; the sampling path passes null and pays one
-// untaken branch per thread.
+// q: (B, Lq, C), k/v: (B, Lk, C), o: (B, Lq, C), all of one type (f32 or
+// bf16) and contiguous; C = H * D, D = 4 or 8. Per (batch row, head): o =
+// softmax(q k^T / sqrt(D)) v over the Lk keys, as the TPU kernel computes
+// it: the inputs taken to f32, the softmax and P V in f32, o rounded to the
+// input type once. When lse is not null it also receives each (batch row,
+// head, query)'s log-sum-exp of the scores in base 2, (B, H, Lq) f32, which
+// the backward (csrc/fused_mha_bwd.cu) uses to recompute the probabilities.
 //
-// What bounds it: at the denoiser's head dim D = 4 a tensor-core product
-// would waste 12 of its 16 deep contraction, and the score matrix, if
-// written out, is (B, H, L, L) f32 = 4 GiB per layer at the honest shape.
-// So this kernel is CUDA-core FMAs plus one exp2 per (query, key), with the
-// scores never leaving registers; it is bound by FMA and SFU issue, not by
-// device memory.
+// What bounds it: with D = 4 a query-key pair costs 8 multiply-adds (QK^T
+// and P V) and one exponential, so at 1.07e9 pairs a self-attention call
+// (64 rows of 1024 tokens, 16 heads) the exponentials alone take 0.257 ms
+// at the 4.18e12 / s this card issues (EXP_PROBE_H100.json), as long as
+// the f32 products 0.256 ms on the CUDA cores. The score matrix, if written
+// out, is 4 GiB: it stays in registers.
 //
-// Design: one CTA per (block of kBlockQ queries, head, batch row); one
-// thread per query row keeps its D-wide q in registers, with 1/sqrt(D) and
-// log2(e) folded in, and an online softmax (m, l, acc[D]) in f32. The keys
-// and values of that head are staged through shared memory kTileK at a
-// time as float4 (at D = 4 a head is exactly 16 bytes, so one load per key);
-// every thread of a warp then reads the same key, a broadcast. Each tile
-// takes two sweeps: the tile's score maximum, then exp2 and accumulate, so
-// there is one exp2 per score and one rescale per tile.
-#include <cuda_runtime.h>
-#include <math.h>
+// Design: the products run on the tensor cores (csrc/mha_tiles.cuh: f32
+// split into TF32 hi + lo, never rounded; bf16 exact), so what is left on
+// the other units is one exponential, one FFMA, a max and an add a score.
+// One block of 4 warps per (128 queries, head, batch row); a warp holds 32
+// queries as mma A fragments. The head's keys and values pass through
+// shared memory 64 at a time (already split; double-buffered, the next
+// tile's loads in flight while the warp works on this one, one barrier a
+// tile). Per tile a warp computes its 32 x 64 scores into registers with
+// mma.sync, takes the tile's row maximum from them, rescales its running
+// sum and P V once (online softmax), and feeds the exponentials back as
+// the A operand of the P V mma in the accumulator layout (V staged in the
+// matching key order: no shuffles). One exponential a score; the row sum
+// divides once at the end.
+//
+// Under kFewKeys (256) keys (cross-attention over 1 or 77 condition
+// tokens, bound by bytes: q read and o written once) the tensor-core layout
+// does not pay (measured: probes/attention_variants.py, variant tc_all):
+// those shapes keep the CUDA-core design of the kernel's first port, one
+// thread per query with its q, its running softmax and P V in registers,
+// keys and values staged 128 at a time as f32, two sweeps a tile (the
+// tile's maximum, then exp2 and accumulate), f32 FMAs.
+//
+// For bf16 inputs with lse asked for (training), o32 also receives o in f32:
+// the backward's Dr = rowsum(dO * O) must see O before its rounding (with
+// the bf16 O it misses by more than a bf16 step of dQ).
+#include "mha_tiles.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 128;
-constexpr int kTileK = 128;
+using namespace mha;
+
+// under this many keys K2 takes the CUDA-core design
+constexpr int kFewKeys = 256;
+
+// One tile of keys for the warp's queries: scores, the online softmax's
+// rescale, exponentials, P V. MASKED: the tile holds n < kTile keys.
+template <class Op, bool MASKED>
+__device__ __forceinline__ void fwd_tile(
+    const typename Op::RowsA& qa, const typename Op::DotTile& ks,
+    const typename Op::PairTile& vs, int n, float c, float (&m)[kMT][2],
+    float (&l)[kMT][2], typename Op::Acc& acc, int g, int tig) {
+  const int nbv = MASKED ? (n + 7) >> 3 : kNB;
+  float s[kNB][kMT][4];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+    if (!MASKED || nb < nbv) {
+      Op::mma_dot(s[nb], qa, ks, nb, g, tig);
+      if (MASKED) {
+        const int key = 8 * nb + 2 * tig;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          if (key >= n) s[nb][mt][0] = s[nb][mt][2] = -INFINITY;
+          if (key + 1 >= n) s[nb][mt][1] = s[nb][mt][3] = -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[nb][mt][j] = -INFINITY;
+    }
+  }
+  float mc[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        x = fmaxf(x, fmaxf(s[nb][mt][2 * hf], s[nb][mt][2 * hf + 1]));
+      // the tile holds a key, so the new maximum is finite
+      const float mn = fmaxf(m[mt][hf], quad_max(x));
+      const float corr = ex2((m[mt][hf] - mn) * c);   // 0 on the first tile
+      m[mt][hf] = mn;
+      mc[mt][hf] = mn * c;
+      l[mt][hf] *= corr;
+      Op::scale_rows(acc, mt, hf, corr);
+    }
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+    if (MASKED && nb >= nbv) continue;
+    float p[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p[mt][j] = ex2(fmaf(s[nb][mt][j], c, -mc[mt][j >> 1]));
+    Op::mma_pair(acc, p, vs, nb, g, tig);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      l[mt][0] += p[mt][0] + p[mt][1];
+      l[mt][1] += p[mt][2] + p[mt][3];
+    }
+  }
+}
+
+// grid (ceil(Lq / kRowsBlock), H, B), kThreads threads
+template <class Op, int D>
+__global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
+fused_mha_fwd_kernel(const typename Op::T* __restrict__ q,
+                     const typename Op::T* __restrict__ k,
+                     const typename Op::T* __restrict__ v,
+                     typename Op::T* __restrict__ o, float* __restrict__ o32,
+                     float* __restrict__ lse, int Lq, int Lk, int C,
+                     float c) {
+  using T = typename Op::T;
+  __shared__ typename Op::DotTile ks[2];
+  __shared__ typename Op::PairTile vs[2];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const int row0 = blockIdx.x * kRowsBlock + warp * kRowsWarp;
+  const bool busy = row0 < Lq;   // warp-uniform
+
+  typename Op::RowsA qa;
+  Op::load_a(qa, q + b * Lq * C + h * D, row0, Lq, C, g, tig);
+  typename Op::Acc acc;
+  Op::zero(acc);
+  float m[kMT][2], l[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[mt][hf] = -INFINITY;
+      l[mt][hf] = 0.f;
+    }
+
+  // threads 0 .. kTile - 1 stage a key row each, the others a value row
+  const int col = threadIdx.x % kTile;
+  const bool stage_v = threadIdx.x >= kTile;
+  const T* src = (stage_v ? v : k) + (b * Lk + col) * C + h * D;
+  typename Op::Row r;
+  Op::load_row(r, src, col < Lk);
+  if (stage_v)
+    Op::put_pair(vs[0], col, r);
+  else
+    Op::put_dot(ks[0], col, r);
+  __syncthreads();
+
+  const int ntiles = (Lk + kTile - 1) / kTile;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kTile;
+    const bool more = t + 1 < ntiles;
+    if (more)
+      Op::load_row(r, src + static_cast<size_t>(k0 + kTile) * C,
+                   k0 + kTile + col < Lk);
+    if (busy) {
+      const int n = min(kTile, Lk - k0);
+      if (n == kTile)
+        fwd_tile<Op, false>(qa, ks[t & 1], vs[t & 1], n, c, m, l, acc, g,
+                            tig);
+      else
+        fwd_tile<Op, true>(qa, ks[t & 1], vs[t & 1], n, c, m, l, acc, g,
+                           tig);
+    }
+    if (more) {
+      if (stage_v)
+        Op::put_pair(vs[(t + 1) & 1], col, r);
+      else
+        Op::put_dot(ks[(t + 1) & 1], col, r);
+    }
+    __syncthreads();
+  }
+  if (!busy) return;
+
+  float inv[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[mt][hf] = quad_sum(l[mt][hf]);
+      inv[mt][hf] = 1.f / l[mt][hf];
+    }
+  Op::store(o + b * Lq * C + h * D, acc, inv, row0, Lq, C, g, tig);
+  if (o32 != nullptr)
+    Op::store(o32 + b * Lq * C + h * D, acc, inv, row0, Lq, C, g, tig);
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + 16 * mt + 8 * hf + g;
+        if (row < Lq)
+          lse[(b * gridDim.y + h) * Lq + row] =
+              m[mt][hf] * c + log2f(l[mt][hf]);
+      }
+  }
+}
 
 template <int D>
 __device__ __forceinline__ float dot(const float (&q)[D], const float4* k) {
@@ -48,53 +225,49 @@ __device__ __forceinline__ float dot(const float (&q)[D], const float4* k) {
   return s;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kBlockQ)
-fused_mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int Lq, int Lk, int C,
-                     float q_scale) {
+constexpr int kFmaBlock = 128;   // queries (threads) a block
+constexpr int kFmaTile = 128;    // keys a staged tile
+
+// The CUDA-core design for few keys; grid (ceil(Lq / kFmaBlock), H, B).
+template <typename T, int D>
+__global__ void __launch_bounds__(kFmaBlock)
+fused_mha_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
+                         float* __restrict__ o32, float* __restrict__ lse,
+                         int Lq, int Lk, int C, float c) {
   constexpr int V4 = D / 4;  // float4 per head row
-  __shared__ float4 ks[kTileK * V4];
-  __shared__ float4 vs[kTileK * V4];
+  __shared__ float4 ks[kFmaTile * V4];
+  __shared__ float4 vs[kFmaTile * V4];
 
   const int h = blockIdx.y;
   const size_t b = blockIdx.z;
-  const int row = blockIdx.x * kBlockQ + threadIdx.x;
+  const int row = blockIdx.x * kFmaBlock + threadIdx.x;
   const bool active = row < Lq;
 
   float qr[D];
-  if (active) {
-    const float4* qp =
-        reinterpret_cast<const float4*>(q + (b * Lq + row) * C + h * D);
 #pragma unroll
-    for (int j = 0; j < V4; ++j) {
-      const float4 t = qp[j];
-      qr[4 * j + 0] = t.x * q_scale;
-      qr[4 * j + 1] = t.y * q_scale;
-      qr[4 * j + 2] = t.z * q_scale;
-      qr[4 * j + 3] = t.w * q_scale;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < D; ++j) qr[j] = 0.f;
+  for (int j = 0; j < V4; ++j) {
+    const float4 t = active ? load4(q + (b * Lq + row) * C + h * D + 4 * j)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[4 * j + 0] = t.x * c;
+    qr[4 * j + 1] = t.y * c;
+    qr[4 * j + 2] = t.z * c;
+    qr[4 * j + 3] = t.w * c;
   }
 
   float m = -INFINITY, l = 0.f, acc[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) acc[j] = 0.f;
 
-  for (int k0 = 0; k0 < Lk; k0 += kTileK) {
-    const int n = min(kTileK, Lk - k0);
+  for (int k0 = 0; k0 < Lk; k0 += kFmaTile) {
+    const int n = min(kFmaTile, Lk - k0);
     __syncthreads();  // the previous tile is consumed
     if (threadIdx.x < n) {
       const size_t off = (b * Lk + k0 + threadIdx.x) * C + h * D;
-      const float4* kp = reinterpret_cast<const float4*>(k + off);
-      const float4* vp = reinterpret_cast<const float4*>(v + off);
 #pragma unroll
       for (int j = 0; j < V4; ++j) {
-        ks[threadIdx.x * V4 + j] = kp[j];
-        vs[threadIdx.x * V4 + j] = vp[j];
+        ks[threadIdx.x * V4 + j] = load4(k + off + 4 * j);
+        vs[threadIdx.x * V4 + j] = load4(v + off + 4 * j);
       }
     }
     __syncthreads();
@@ -125,44 +298,60 @@ fused_mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (active) {
     const float inv = 1.f / l;
-    float4* op = reinterpret_cast<float4*>(o + (b * Lq + row) * C + h * D);
+    const size_t off = (b * Lq + row) * C + h * D;
 #pragma unroll
-    for (int j = 0; j < V4; ++j)
-      op[j] = make_float4(acc[4 * j + 0] * inv, acc[4 * j + 1] * inv,
-                          acc[4 * j + 2] * inv, acc[4 * j + 3] * inv);
+    for (int j = 0; j < V4; ++j) {
+      const float4 r = make_float4(acc[4 * j + 0] * inv, acc[4 * j + 1] * inv,
+                                   acc[4 * j + 2] * inv, acc[4 * j + 3] * inv);
+      store4(o + off + 4 * j, r);
+      if (o32 != nullptr) store4(o32 + off + 4 * j, r);
+    }
     if (lse != nullptr) lse[(b * gridDim.y + h) * Lq + row] = m + log2f(l);
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   float* lse, int B, int Lq, int Lk, int C, int H,
-                   cudaStream_t stream) {
-  const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
-  // softmax(x) = 2^(x log2 e) / sum: fold 1/sqrt(D) and log2(e) into q
-  const float q_scale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  fused_mha_fwd_kernel<D><<<grid, kBlockQ, 0, stream>>>(q, k, v, o, lse, Lq,
-                                                        Lk, C, q_scale);
+template <class Op, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* o32, float* lse, int B, int Lq, int Lk, int C,
+                   int H, cudaStream_t stream) {
+  using T = typename Op::T;
+  // softmax(x) = 2^(x log2 e) / sum: scores times log2(e) / sqrt(D)
+  const float c = kLog2e / sqrtf(static_cast<float>(D));
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if (Lk < kFewKeys)
+    fused_mha_fwd_fma_kernel<T, D>
+        <<<dim3((Lq + kFmaBlock - 1) / kFmaBlock, H, B), kFmaBlock, 0,
+           stream>>>(qt, kt, vt, static_cast<T*>(o), o32, lse, Lq, Lk, C, c);
+  else
+    fused_mha_fwd_kernel<Op, D>
+        <<<dim3((Lq + kRowsBlock - 1) / kRowsBlock, H, B), kThreads, 0,
+           stream>>>(qt, kt, vt, static_cast<T*>(o), o32, lse, Lq, Lk, C, c);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a head dim other than
-// 4 or 8, else the launch's status. lse may be null.
-extern "C" int fused_mha_fwd(const float* q, const float* k, const float* v,
-                             float* o, float* lse, int B, int Lq, int Lk,
-                             int C, int H, void* stream) {
+// 4 or 8 or a bad shape, else the launch's status. bf16 selects the input
+// type (0: f32, 1: bf16); lse and o32 (f32, o's shape) may be null.
+extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
+                             void* o, float* o32, float* lse, int B, int Lq,
+                             int Lk, int C, int H, int bf16, void* stream) {
   if (H <= 0 || C % H != 0 || Lq <= 0 || Lk <= 0 || B <= 0 || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / H) {
-    case 4:
-      return static_cast<int>(launch<4>(q, k, v, o, lse, B, Lq, Lk, C, H, s));
-    case 8:
-      return static_cast<int>(launch<8>(q, k, v, o, lse, B, Lq, Lk, C, H, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int d = C / H;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 4 && !bf16)
+    err = launch<Tf32<4>, 4>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
+  else if (d == 8 && !bf16)
+    err = launch<Tf32<8>, 8>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
+  else if (d == 4)
+    err = launch<Bf16<4>, 4>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
+  else if (d == 8)
+    err = launch<Bf16<8>, 8>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
+  return static_cast<int>(err);
 }

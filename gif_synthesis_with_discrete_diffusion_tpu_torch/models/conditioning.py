@@ -78,7 +78,7 @@ def build_conditioner(cfg: Mapping[str, Any] | None) -> nn.Module:
     if mode == "text":
         raise NotImplementedError(
             "text conditioning (CLIP) is not ported yet: ROADMAP queue 1, "
-            "item 9 (Conditioning)")
+            "item 12 (CLIP text conditioning)")
     raise ValueError(f"unknown conditioning mode {mode!r}")
 
 

@@ -127,8 +127,10 @@ class D3PM(nn.Module):
                 pt: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None) -> dict:
         """Training loss over the (B, L) data tokens: the mean vb loss, the
-        x0 prediction, the model posterior's log-probs (B, K, L) and this
-        batch's telemetry scalars. With ``train`` the Lt and telemetry
+        x0 prediction, the model posterior's probabilities (B, K, L) under
+        the JAX ``__call__``'s key ``logits`` (outside the autograd graph)
+        and their logarithm under ``log_model_prob``, and this batch's
+        telemetry scalars. With ``train`` the Lt and telemetry
         buffers are updated in place. The draws (``t`` with ``pt``, the
         (B, K, L) uniforms ``noise``) come from ``generator`` unless
         given."""
@@ -154,6 +156,7 @@ class D3PM(nn.Module):
         acc = torch.mean((aux["x0_recon"] == content_token).to(torch.float32))
         keep = torch.mean((aux["xt_1_recon"] == aux["xt"]).to(torch.float32))
         return {"loss": loss, "pred_data": aux["x0_recon"],
+                "logits": aux["log_model_prob"].detach().exp(),
                 "log_model_prob": aux["log_model_prob"],
                 "diffusion_acc": acc, "diffusion_keep": keep}
 
@@ -262,8 +265,9 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
                 f"activation checkpointing yet")
     if str(tcfg.get("dtype", "float32")) not in ("float32", "f32"):
         raise NotImplementedError(
-            "bf16 denoiser compute is not ported yet (kernels K2 and K5 are "
-            "f32): ROADMAP queue 1, item 10")
+            "bf16 denoiser compute is not ported yet (the attention kernels "
+            "K2 and K5 take bf16; the denoiser's modules do not compute in "
+            "it): ROADMAP queue 1, item 10")
     t, h, w = latent_shape
     seq_len = int(tcfg.get("content_seq_len") or np.prod(latent_shape))
     spatial = (tcfg.get("content_spatial_size")

@@ -16,9 +16,13 @@ __all__ = ["TokenGridEmbedding"]
 
 
 class TokenGridEmbedding(nn.Module):
+    """``trainable=False`` stops the gradient at the output, as the JAX
+    module's ``stop_gradient``: the tables get none."""
+
     def __init__(self, num_embed: int, spatial_size: Sequence[int] = (32, 32),
-                 embed_dim: int = 64):
+                 embed_dim: int = 64, trainable: bool = True):
         super().__init__()
+        self.trainable = trainable
         self.spatial_size = (int(spatial_size[0]), int(spatial_size[1]))
         h, w = self.spatial_size
         # num_embed is the codebook size; +1 row for the MASK token
@@ -37,4 +41,5 @@ class TokenGridEmbedding(nn.Module):
         emb = self.emb(index.clamp_min(0))  # the reference clamps negatives
         pos = (self.height_emb.weight[:, None, :]
                + self.width_emb.weight[None, :, :]).reshape(1, h * w, -1)
-        return emb + pos[:, :index.shape[1], :]
+        out = emb + pos[:, :index.shape[1], :]
+        return out if self.trainable else out.detach()

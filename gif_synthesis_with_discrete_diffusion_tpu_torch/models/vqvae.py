@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.codebook_kernel import nearest_code_stats
+from ..ops.codebook_kernel import (nearest_code_stats,
+                                   nearest_code_stats_reference)
 from ..ops.conv3d import SamePadConv3d, SamePadConvTranspose3d
 
 __all__ = ["VQVAE", "Encoder", "Decoder", "Codebook", "AxialBlock",
@@ -203,11 +204,19 @@ class Codebook(nn.Module):
     Training (``train=True``), in the JAX package's order: data-dependent
     init on the first step -> lookup on the *current* embeddings ->
     commitment loss and straight-through output -> EMA update with Laplace
-    smoothing -> usage-gated random restart."""
+    smoothing -> usage-gated random restart.
+
+    ``kernel_mode`` as the JAX package's: ``"xla"`` takes the plain lookup
+    on every device; ``"auto"`` and ``"pallas"`` take the kernel (K6) on a
+    CUDA device, the plain lookup on the CPU."""
 
     def __init__(self, n_codes: int, embedding_dim: int,
-                 commitment_cost: float = 0.25, decay: float = 0.99):
+                 commitment_cost: float = 0.25, decay: float = 0.99,
+                 kernel_mode: str = "auto"):
         super().__init__()
+        if kernel_mode not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown kernel_mode {kernel_mode!r}")
+        self.kernel_mode = kernel_mode
         self.n_codes = n_codes
         self.embedding_dim = embedding_dim
         self.commitment_cost = commitment_cost
@@ -262,7 +271,9 @@ class Codebook(nn.Module):
                 n_now = torch.where(inited, self.ema_count,
                                     torch.ones_like(self.ema_count))
                 zavg_now = torch.where(inited, self.ema_sum, k_init)
-        indices, n_total, encode_sum = nearest_code_stats(flat, embeddings)
+        lookup = (nearest_code_stats_reference if self.kernel_mode == "xla"
+                  else nearest_code_stats)
+        indices, n_total, encode_sum = lookup(flat, embeddings)
         encodings = indices.reshape(z.shape[:-1])
         quantized = F.embedding(indices, embeddings).reshape(
             z.shape).to(z.dtype)
@@ -306,7 +317,8 @@ class VQVAE(nn.Module):
                  n_hiddens: int = 256, n_res_layers: int = 3,
                  downsample: Sequence[int] = (1, 16, 16),
                  sequence_length: int = 4, resolution: int = 128,
-                 recon_loss_scale: float = 1.0 / 0.06):
+                 recon_loss_scale: float = 1.0 / 0.06,
+                 kernel_mode: str = "auto"):
         super().__init__()
         self.recon_loss_scale = recon_loss_scale
         self.downsample = tuple(downsample)
@@ -317,7 +329,8 @@ class VQVAE(nn.Module):
         self.pre_vq_conv = SamePadConv3d(n_hiddens, embedding_dim, 1)
         self.decoder = Decoder(n_hiddens, n_res_layers, downsample, 3)
         self.post_vq_conv = SamePadConv3d(embedding_dim, n_hiddens, 1)
-        self.codebook = Codebook(n_codes, embedding_dim)
+        self.codebook = Codebook(n_codes, embedding_dim,
+                                 kernel_mode=kernel_mode)
 
     @property
     def latent_shape(self) -> tuple[int, int, int]:
@@ -336,18 +349,22 @@ class VQVAE(nn.Module):
             return vq["encodings"], vq["embeddings"]
         return vq["encodings"]
 
-    @torch.no_grad()
-    def decode(self, encodings: torch.Tensor) -> torch.Tensor:
-        """encodings: (B, t, h, w) int -> video (B, T, H, W, 3)."""
+    def decode(self, encodings: torch.Tensor, *,
+               train: bool = False) -> torch.Tensor:
+        """encodings: (B, t, h, w) int -> video (B, T, H, W, 3), the JAX
+        package's ``VQVAE.decode``: ``train`` puts the decoder's BatchNorm
+        on batch statistics. Differentiable in the decoder's parameters
+        when grad mode is on; the serving path
+        (:func:`..generate.sample_videos`) calls it under no_grad."""
         h = self.codebook.lookup(encodings)
-        return self.decoder(self.post_vq_conv(h))
+        return self.decoder(self.post_vq_conv(h), train)
 
     def forward(self, batch: dict, *, train: bool = False,
                 **codebook_kw) -> dict:
         """``batch["video"]`` (B, T, H, W, 3) f32 -> the reconstruction with
         its losses: the JAX package's ``VQVAE.__call__``. The decoder reads
         the straight-through embeddings, so the encoder's gradient flows
-        (``decode`` is the no-grad route from tokens)."""
+        (``decode`` is the route from tokens)."""
         x = batch["video"]
         z = self.pre_vq_conv(self.encoder(x, train))
         vq = self.codebook(z, train=train, **codebook_kw)

@@ -5,11 +5,14 @@ and the backward, and their plain versions.
 discrete_diffusion_tpu/ops/attention.py: fused_mha``. Its forward is
 ``csrc/fused_mha_fwd.cu`` (the TPU's ``_kernel``); its backward, through a
 ``torch.autograd.Function``, is ``csrc/fused_mha_bwd.cu`` (the TPU's
-``_bwd_kernel``), reached by :func:`fused_mha_bwd`. Both are built by nvcc
-for ``sm_90a`` at first use and bound through ctypes. CPU tensors take the
-same Function with the plain versions, :func:`sdpa_reference` forward and
-:func:`fused_mha_bwd_reference` backward. The source files say what bounds
-each kernel on Hopper and how its design answers that.
+``_bwd_kernel``), reached by :func:`fused_mha_bwd`. Both run on the tensor
+cores (``csrc/mha_tiles.cuh``) for f32 or bf16 inputs, are built by nvcc for
+``sm_90a`` at first use and bound through ctypes. CPU tensors take the same
+Function with the plain versions, :func:`sdpa_reference` forward and
+:func:`fused_mha_bwd_reference` backward. Like the TPU kernels, both compute
+in f32 whatever the input type and round only their outputs to it. The
+source files say what bounds each kernel on Hopper and how its design
+answers that.
 """
 from __future__ import annotations
 
@@ -22,7 +25,11 @@ import torch
 from . import cuda_build
 
 __all__ = ["fused_mha", "fused_mha_bwd", "fused_mha_bwd_reference",
-           "sdpa_reference", "kv_splits"]
+           "sdpa_reference", "kv_splits", "bf16_step", "bf16_excess",
+           "BF16_EXCESS_TOL", "bf16_rounded_p_reference",
+           "attention_kernel_arithmetic",
+           "attention_bwd_kernel_arithmetic", "bf16_hi_lo", "split_fed_back",
+           "PAIR_SLOTS"]
 
 _HEAD_DIMS = (4, 8)   # the kernels' instantiations (csrc/fused_mha_*.cu)
 # the dK/dV kernel cuts the queries into chunks of this many rows when there
@@ -33,17 +40,19 @@ _KV_SPLIT_MIN_KEYS = 256
 
 def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    n_head: int) -> torch.Tensor:
-    """Plain version. q: (B, Lq, C); k/v: (B, Lk, C). Returns (B, Lq, C)."""
+    """Plain version of K2, what the TPU kernel's ``_kernel`` computes:
+    q, k, v taken to f32, q scaled, the softmax and P V in f32, only the
+    output rounded to the input type. q: (B, Lq, C); k/v: (B, Lk, C).
+    Returns (B, Lq, C)."""
     B, Lq, C = q.shape
     Lk = k.shape[1]
     d = C // n_head
-    qh = q.reshape(B, Lq, n_head, d)
-    kh = k.reshape(B, Lk, n_head, d)
-    vh = v.reshape(B, Lk, n_head, d)
-    att = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(d)
-    att = torch.softmax(att.float(), dim=-1).to(q.dtype)
+    qh = q.reshape(B, Lq, n_head, d).float() * (1.0 / math.sqrt(d))
+    kh = k.reshape(B, Lk, n_head, d).float()
+    vh = v.reshape(B, Lk, n_head, d).float()
+    att = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qh, kh), dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", att, vh)
-    return out.reshape(B, Lq, C)
+    return out.reshape(B, Lq, C).to(q.dtype)
 
 
 def fused_mha_bwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -72,6 +81,37 @@ def fused_mha_bwd_reference(q: torch.Tensor, k: torch.Tensor,
             dv.reshape(B, Lk, C).to(v.dtype))
 
 
+def bf16_step(magnitude: float) -> float:
+    """One bf16 step at ``magnitude``: the spacing of bf16 numbers there.
+    The plain versions' bf16 outputs are held to one step at their tensor's
+    largest magnitude of the Pallas kernel's (both compute in f32 and round
+    once, so an element may land one rounding boundary apart)."""
+    return 2.0 ** (math.floor(math.log2(magnitude)) - 7)
+
+
+# a bf16 output's error beyond the rounding of the exact result to bf16, as
+# a share of the tensor's largest magnitude: the kernels (f32 inside, P and
+# dS fed to the tensor cores as a bf16 hi + lo pair) stay ~30x under it, P
+# and dS rounded to bf16 (bf16_rounded_p_reference) miss it by ~7x or more
+BF16_EXCESS_TOL = 1e-4
+
+
+def bf16_excess(got: torch.Tensor, want: torch.Tensor,
+                scale: float | None = None) -> float:
+    """How far the bf16 ``got`` lies from ``want`` (the same function of the
+    same inputs in f32) beyond half a bf16 step at each element of ``want``:
+    the largest such excess over the elements, over ``scale`` (by default
+    ``want``'s largest magnitude). A computation in f32 rounded once to bf16
+    scores its f32 error; one that rounds an intermediate to bf16 scores
+    that rounding's error too, which a bound of one step would hide."""
+    w = want.double()
+    _, e = torch.frexp(w)   # |w| in [2^(e-1), 2^e): a bf16 step is 2^(e-8)
+    half = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 9))
+    excess = ((got.double() - w).abs() - half).clamp_min(0).max().item()
+    scale = w.abs().max().item() if scale is None else scale
+    return excess / scale if scale > 0 else excess
+
+
 def kv_splits(lq: int, lk: int) -> int:
     """How many query chunks the dK/dV kernel sums apart: 1 with enough
     keys to fill the card, else one chunk per 64 queries (cross-attention
@@ -84,8 +124,8 @@ def kv_splits(lq: int, lk: int) -> int:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_mha_fwd.cu")
-    lib.fused_mha_fwd.argtypes = ([ctypes.c_void_p] * 5
-                                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.fused_mha_fwd.argtypes = ([ctypes.c_void_p] * 6
+                                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.fused_mha_fwd.restype = ctypes.c_int
     return lib
 
@@ -94,15 +134,19 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_mha_bwd.cu")
     lib.fused_mha_bwd.argtypes = ([ctypes.c_void_p] * 10
-                                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.fused_mha_bwd.restype = ctypes.c_int
     return lib
 
 
+_DTYPES = (torch.float32, torch.bfloat16)   # the kernels' input types
+
+
 def _check_cuda(name: str, q: torch.Tensor, kvs: tuple, n_head: int
                 ) -> None:
-    """The kernels' contract: f32, contiguous, 16-byte aligned tensors on the
-    current device, head dim C // n_head of 4 or 8."""
+    """The kernels' contract: contiguous, 16-byte aligned tensors of one
+    type, f32 or bf16, on the current device, head dim C // n_head of 4 or
+    8."""
     if q.device.type != "cuda" or \
             q.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: no kernel for {q.device} (the current "
@@ -115,35 +159,46 @@ def _check_cuda(name: str, q: torch.Tensor, kvs: tuple, n_head: int
     if C % n_head or C // n_head not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {C}/{n_head} not in "
                          f"{_HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: no kernel for {q.dtype}")
     for i, x in enumerate((q, *kvs)):
         if x.device != q.device:
             raise ValueError(f"{name}: inputs on different devices")
-        if x.dtype != torch.float32 or not x.is_contiguous() or \
-                x.data_ptr() % 16:
-            raise TypeError(f"{name}: input {i} must be f32, contiguous and "
-                            f"16-byte aligned")
+        if x.dtype != q.dtype or not x.is_contiguous() or x.data_ptr() % 16:
+            raise TypeError(f"{name}: input {i} must be {q.dtype}, contiguous"
+                            f" and 16-byte aligned")
 
 
 def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 n_head: int, with_lse: bool
-                ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One launch of K2: (o, lse (B, H, Lq) base-2 log-sum-exp or None)."""
+                ) -> tuple[torch.Tensor, torch.Tensor | None,
+                           torch.Tensor | None]:
+    """One launch of K2: (o, lse, o32).
+    With ``with_lse``: lse (B, H, Lq), the base-2 log-sum-exp, and o32, o
+    in f32 (o itself for f32 inputs), what the backward reads; else both
+    None."""
     if k.shape != v.shape:
         raise ValueError(f"fused_mha: shapes k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     _check_cuda("fused_mha", q, (k, v), n_head)
     B, Lq, C = q.shape
     o = torch.empty_like(q)
-    lse = (torch.empty((B, n_head, Lq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    lse = o32 = None
+    if with_lse:
+        lse = torch.empty((B, n_head, Lq), dtype=torch.float32,
+                          device=q.device)
+        o32 = (o if q.dtype == torch.float32 else
+               torch.empty(q.shape, dtype=torch.float32, device=q.device))
     err = _library().fused_mha_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        o32.data_ptr() if o32 is not None and o32 is not o else None,
         lse.data_ptr() if lse is not None else None, B, Lq, k.shape[1], C,
-        n_head, torch.cuda.current_stream().cuda_stream)
+        n_head, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_mha_fwd launch failed: cudaError {err}")
     fused_mha.launches += 1
-    return o, lse
+    return o, lse, o32
 
 
 def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -154,11 +209,20 @@ def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient ``do``.
 
     CPU tensors take :func:`fused_mha_bwd_reference` (``o`` and ``lse`` are
-    not read). CUDA tensors launch ``csrc/fused_mha_bwd.cu`` with ``o`` and
-    the forward's ``lse``; they must meet the forward's contract. Each
-    launch adds one to ``fused_mha_bwd.launches``."""
+    not read). CUDA tensors launch ``csrc/fused_mha_bwd.cu`` with the
+    forward's output in f32 as ``o`` and its ``lse`` (``_fwd_kernel``'s o32
+    and lse); q, k, v, do must meet the forward's contract. Each launch adds
+    one to ``fused_mha_bwd.launches``."""
     if q.device.type == "cpu":
         return fused_mha_bwd_reference(q, k, v, do, n_head)
+    return _bwd_kernel(q, k, v, o, lse, do, n_head)
+
+
+def _bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, lse: torch.Tensor | None, do: torch.Tensor,
+                n_head: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of K5."""
     if lse is None:
         raise ValueError("fused_mha_bwd: the kernel needs the forward's lse")
     B, Lq, C = q.shape
@@ -166,7 +230,12 @@ def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or o.shape != q.shape or do.shape != q.shape or \
             tuple(lse.shape) != (B, n_head, Lq):
         raise ValueError("fused_mha_bwd: shapes of q, k, v, o, lse, do")
-    _check_cuda("fused_mha_bwd", q, (k, v, o, lse, do), n_head)
+    _check_cuda("fused_mha_bwd", q, (k, v, do), n_head)
+    for x in (o, lse):
+        if x.device != q.device or x.dtype != torch.float32 or \
+                not x.is_contiguous() or x.data_ptr() % 16:
+            raise TypeError("fused_mha_bwd: o and lse must be f32, "
+                            "contiguous, 16-byte aligned, on q's device")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -177,7 +246,7 @@ def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        B, Lq, Lk, C, n_head, splits,
+        B, Lq, Lk, C, n_head, splits, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_mha_bwd launch failed: cudaError {err}")
@@ -195,18 +264,18 @@ class _FusedMHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, n_head):
         if q.device.type == "cpu":
-            o, lse = sdpa_reference(q, k, v, n_head), None
+            o, lse, o32 = sdpa_reference(q, k, v, n_head), None, None
         else:
-            o, lse = _fwd_kernel(q, k, v, n_head, with_lse=True)
+            o, lse, o32 = _fwd_kernel(q, k, v, n_head, with_lse=True)
         ctx.n_head = n_head
-        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.save_for_backward(q, k, v, o32, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o32, lse = ctx.saved_tensors
         # the output gradient may arrive strided; the kernel reads it dense
-        dq, dk, dv = fused_mha_bwd(q, k, v, o, lse, do.contiguous(),
+        dq, dk, dv = fused_mha_bwd(q, k, v, o32, lse, do.contiguous(),
                                    n_head=ctx.n_head)
         return dq, dk, dv, None
 
@@ -216,9 +285,10 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Lq, C); k/v: (B, Lk, C) -> (B, Lq, C), softmax(QK^T/sqrt(d))V.
 
     Differentiable: with gradients on, the backward is K5 (or its plain
-    version on the CPU). CUDA tensors must be f32, contiguous, on the current
-    device, with head dim C // n_head of 4 or 8; each forward launch adds one
-    to ``fused_mha.launches``."""
+    version on the CPU). CUDA tensors must be all f32 or all bf16,
+    contiguous, on the current device, with head dim C // n_head of 4 or 8;
+    any other CUDA input raises (nothing falls back). Each forward launch
+    adds one to ``fused_mha.launches``."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
         return _FusedMHA.apply(q, k, v, n_head)
@@ -228,3 +298,140 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 fused_mha.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' arithmetic where it departs from the plain versions' by more
+# than the order of a sum, as plain functions (the CPU tests bound each)
+# ---------------------------------------------------------------------------
+
+# keys a staged tile of the tensor-core design (csrc/mha_tiles.cuh: kTile)
+KERNEL_TILE = 64
+# the k-slots of an 8-column block in the TF32 pair product: slot t holds
+# column PAIR_SLOTS[t], the accumulator's columns 2t (slots 0-3) and 2t + 1
+# (slots 4-7) that lane t holds (csrc/mha_tiles.cuh: Tf32::mma_pair)
+PAIR_SLOTS = (0, 2, 4, 6, 1, 3, 5, 7)
+_LOG2E = 1.4426950408889634
+
+
+def bf16_rounded_p_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, n_head: int
+                             ) -> tuple[torch.Tensor, ...]:
+    """The plain versions with P and dS rounded to bf16 before their
+    products (everything else in f32): the fault the bf16 checks must catch.
+    Returns (o, dq, dk, dv) in f32."""
+    B, Lq, C = q.shape
+    d = C // n_head
+    scale = 1.0 / math.sqrt(d)
+    qh, kh, vh, doh = (_heads(x, n_head).float() for x in (q, k, v, do))
+    qh = qh * scale
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qh, kh), dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).bfloat16().float()
+    p = p.bfloat16().float()
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vh)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, doh)
+    return tuple(x.reshape(y.shape) for x, y in ((o, q), (dq, q), (dk, k),
+                                                 (dv, v)))
+
+
+def bf16_hi_lo(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An f32 intermediate (P, dS) as the bf16 kernels feed it to the tensor
+    cores: hi = p cut to bf16, lo = p - hi (exact) rounded to bf16; hi + lo
+    lies within 2^-16 |p| of p."""
+    hi = (p.float().contiguous().view(torch.int32) & ~0xFFFF).view(
+        torch.float32)
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def split_fed_back(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An f32 intermediate as the f32 kernels feed it to the TF32 tensor
+    cores: hi = p cut to TF32, lo = p - hi (exact) as TF32 reads it (cut);
+    hi + lo lies within 2^-20 |p| of p."""
+    def cut(x):
+        return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(
+            torch.float32)
+    hi = cut(p)
+    return hi, cut(p - hi)
+
+
+def _operands(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The parts of an input the kernels multiply: f32 split into TF32 hi +
+    lo, bf16 as it is."""
+    if x.dtype == torch.float32:
+        from .megakernel import split_tf32
+        return split_tf32(x)
+    return (x.float(),)
+
+
+def _mm(eq: str, a: tuple, b: tuple) -> torch.Tensor:
+    """The sum of the products of every part of ``a`` with every part of
+    ``b`` (each exact in f32 on the tensor cores)."""
+    return sum(torch.einsum(eq, x, y) for x in a for y in b)
+
+
+def _fed_back(p: torch.Tensor, dtype: torch.dtype) -> tuple[torch.Tensor,
+                                                            ...]:
+    return split_fed_back(p) if dtype == torch.float32 else bf16_hi_lo(p)
+
+
+def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    B, L, C = x.shape
+    return x.reshape(B, L, n_head, C // n_head)
+
+
+def attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, n_head: int
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """K2's tensor-core design as a plain function: QK^T and P V on the
+    split (f32) or exact (bf16) operands, an online softmax over tiles of
+    ``KERNEL_TILE`` keys (the tile's maximum, one exponential a score), P
+    fed back split, the row sum divided once; o rounded to the input type.
+    Returns (o, lse (B, H, Lq) in base 2, o in f32)."""
+    d = q.shape[2] // n_head
+    c = _LOG2E / math.sqrt(d)
+    qs, ks, vs = (_operands(_heads(x, n_head)) for x in (q, k, v))
+    s = _mm("bqhd,bkhd->bhqk", qs, ks)
+    B, H, Lq, Lk = s.shape
+    m = torch.full((B, H, Lq, 1), -math.inf)
+    l = torch.zeros((B, H, Lq, 1))
+    acc = torch.zeros((B, H, Lq, d))
+    for k0 in range(0, Lk, KERNEL_TILE):
+        st = s[..., k0:k0 + KERNEL_TILE]
+        mn = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        corr = torch.exp2((m - mn) * c)
+        p = torch.exp2(st * c - mn * c)
+        vt = tuple(x[:, k0:k0 + KERNEL_TILE] for x in vs)
+        acc = acc * corr + _mm("bhqk,bkhd->bhqd", _fed_back(p, q.dtype), vt)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        m = mn
+    o32 = (acc / l).permute(0, 2, 1, 3).reshape(q.shape)
+    return o32.to(q.dtype), (m * c + torch.log2(l))[..., 0], o32
+
+
+def attention_bwd_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, o32: torch.Tensor,
+                                    lse: torch.Tensor, do: torch.Tensor,
+                                    n_head: int
+                                    ) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """K5 as a plain function: P recomputed from the split (f32) or exact
+    (bf16) operands and the forward's base-2 ``lse``; Dr = rowsum(dO O)
+    from the f32 output ``o32``; the four products S, dP, and dQ, dK, dV
+    with P or dS fed back split; the gradients rounded to the input type."""
+    d = q.shape[2] // n_head
+    c = _LOG2E / math.sqrt(d)
+    qs, ks, vs, dos = (_operands(_heads(x, n_head))
+                       for x in (q, k, v, do))
+    p = torch.exp2(_mm("bqhd,bkhd->bhqk", qs, ks) * c - lse[..., None])
+    dp = _mm("bqhd,bkhd->bhqk", dos, vs)
+    dr = (_heads(do, n_head).float() * _heads(o32, n_head)).sum(-1)
+    ds = p * (dp - dr.permute(0, 2, 1)[..., None])
+    dq = _mm("bhqk,bkhd->bqhd", _fed_back(ds, q.dtype), ks) / math.sqrt(d)
+    dk = _mm("bhqk,bqhd->bkhd", _fed_back(ds, q.dtype), qs) / math.sqrt(d)
+    dv = _mm("bhqk,bqhd->bkhd", _fed_back(p, q.dtype), dos)
+    return tuple(x.reshape(y.shape).to(y.dtype)
+                 for x, y in ((dq, q), (dk, k), (dv, v)))

@@ -53,8 +53,10 @@ def load(source: str, build_dir: str | os.PathLike | None = None,
     src = CSRC / source
     nvcc = find_nvcc()
     flags = NVCC_FLAGS + tuple("-D" + d for d in defines)
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+    # the headers under csrc/ are part of every source's content
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + "\0".join(flags).encode()).hexdigest()[:16]
     build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
     lib_path = build_dir / f"lib{src.stem}_{digest}.so"
     log_path = lib_path.with_suffix(".log")

@@ -22,8 +22,10 @@ its transposed ``(2B, K-1, L)`` view with strides, so the kernel reads along
 the contiguous class axis and no 1 GiB copy is made per step.
 
 Gumbel noise comes from Triton's Philox (``tl.rand``) with one counter per
-(b, class, l), the MASK row included: tokens match the TPU kernel and the
-plain version in distribution, not bit for bit. ``sample=False`` takes the
+(class, l) of a row, the MASK row included, under a key per row (the seed
+in its low 32 bits, the row in its high 32 bits), so that no counter
+overflows at any batch size: tokens match the TPU kernel and the plain
+version in distribution, not bit for bit. ``sample=False`` takes the
 argmax of the posterior; that is what the tests compare exactly.
 """
 from __future__ import annotations
@@ -142,6 +144,8 @@ def _sample_step_kernel(
     l_ok = offs_l < L
     ar_k = tl.arange(0, BLOCK_K)
     b64 = pid_b.to(tl.int64)
+    # the row's Philox key: the seed's low 32 bits, the row in the high 32
+    key = (b64 << 32) | (seed.to(tl.int64) & 0xFFFFFFFF)
     base_c = logits_ptr + b64 * stride_b
     base_u = logits_ptr + (b64 + B) * stride_b
     row_off = offs_l.to(tl.int64) * stride_l
@@ -270,8 +274,7 @@ def _sample_step_kernel(
             tl.store(post_ptr + p_offs, post, mask=ld)
         score = post
         if SAMPLE:
-            u = tl.rand(seed, (pid_b * (KV + 1) + offs_k[None, :]) * L
-                        + offs_l[:, None])
+            u = tl.rand(key, offs_k[None, :] * L + offs_l[:, None])
             score = post - tl.log(-tl.log(u + 1e-30) + 1e-30)
         score = tl.where(k_ok[None, :], score, float("-inf"))
         c_best = tl.max(score, axis=1)
@@ -291,7 +294,7 @@ def _sample_step_kernel(
         tl.store(post_ptr + (b64 * (KV + 1) + KV) * L + offs_l, pm,
                  mask=l_ok)
     if SAMPLE:
-        u = tl.rand(seed, (pid_b * (KV + 1) + KV) * L + offs_l)
+        u = tl.rand(key, KV * L + offs_l)
         pm = pm - tl.log(-tl.log(u + 1e-30) + 1e-30)
     new = tl.where(pm > best_val, KV, best_idx)
     tl.store(out_ptr + b64 * L + offs_l, new.to(tl.int64), mask=l_ok)
@@ -344,9 +347,9 @@ def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
         raise ValueError(f"fused_sample_step: logits2 {tuple(logits2.shape)}"
                          f" does not fit tokens {tuple(tokens.shape)} and "
                          f"K={num_classes}")
-    if b * num_classes * L >= 2 ** 31:
-        raise ValueError("fused_sample_step: B*K*L exceeds the int32 "
-                         "Philox counter")
+    if num_classes * L >= 2 ** 31:
+        raise ValueError("fused_sample_step: K*L exceeds the int32 "
+                         "Philox counter of a row")
     kernel = _build_kernel()
     out = torch.empty((b, L), dtype=torch.int64, device=logits2.device)
     post = (torch.empty((b, num_classes, L), dtype=torch.float32,

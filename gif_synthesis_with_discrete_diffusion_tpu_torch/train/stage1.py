@@ -63,8 +63,8 @@ class Stage1State:
 
 def make_vqvae(model_cfg: Mapping[str, Any]) -> VQVAE:
     """The VQ-VAE of a model configuration (its ``generator`` entry, or the
-    mapping itself), with the JAX package's defaults. ``kernel_mode`` is not
-    read: the codebook's kernel is picked by the tensors' device."""
+    mapping itself), with the JAX package's defaults. ``kernel_mode``:
+    ``"xla"`` keeps the codebook on its plain lookup on every device."""
     g = dict(model_cfg.get("generator", model_cfg))
     if str(g.get("dtype", "float32")) in ("bfloat16", "bf16"):
         raise NotImplementedError(
@@ -77,7 +77,8 @@ def make_vqvae(model_cfg: Mapping[str, Any]) -> VQVAE:
         n_res_layers=int(g.get("n_res_layers", 3)),
         downsample=tuple(g.get("downsample", (1, 16, 16))),
         sequence_length=int(g.get("sequence_length", 4)),
-        resolution=int(g.get("resolution", 128)))
+        resolution=int(g.get("resolution", 128)),
+        kernel_mode=str(g.get("kernel_mode", "auto")))
 
 
 def build_stage1(config: Mapping[str, Any], device: torch.device | str,

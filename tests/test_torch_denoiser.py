@@ -84,3 +84,19 @@ def test_gelu2_and_timestep_embedding_match():
     # of the argument is 2.4e-4: XLA and ATen reduce the range differently
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=5e-4)
+
+
+def test_token_grid_embedding_trainable_flag_stops_the_gradient():
+    """``trainable=False`` as the flax module's stop_gradient: the same
+    output, no gradient to the tables."""
+    idx = torch.tensor([[0, 3, 16, 2]])
+    emb = TokenGridEmbedding(16, (2, 2), 8)
+    for p in emb.parameters():
+        torch.nn.init.normal_(p)
+    frozen = TokenGridEmbedding(16, (2, 2), 8, trainable=False)
+    frozen.load_state_dict(emb.state_dict())
+    out, out_frozen = emb(idx), frozen(idx)
+    torch.testing.assert_close(out_frozen, out, rtol=0, atol=0)
+    assert out.requires_grad and not out_frozen.requires_grad
+    out.sum().backward()
+    assert emb.emb.weight.grad is not None

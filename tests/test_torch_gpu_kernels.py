@@ -9,6 +9,7 @@ the module is imported, so every worker collects the same tests.
 The whole-step kernels' case builder, their check against the plain version
 and its tolerances are ``chip_smoke.py``'s, one copy for both.
 """
+import importlib.util
 import sys
 from pathlib import Path
 
@@ -21,7 +22,8 @@ import chip_smoke  # noqa: E402
 from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
     make_schedule)
 from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
-    fused_mha, fused_mha_bwd, fused_mha_bwd_reference, sdpa_reference)
+    BF16_EXCESS_TOL, fused_mha, fused_mha_bwd, fused_mha_bwd_reference,
+    sdpa_reference)
 from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
     import code_stats_reference, nearest_code_stats, \
     nearest_code_stats_reference
@@ -92,7 +94,8 @@ def test_sampler_step_kernel_samples_in_range_and_by_seed(cuda):
 
 @pytest.mark.parametrize("B,Lq,Lk,C,H", [
     (2, 16, 16, 64, 16), (2, 16, 1, 64, 16), (1, 24, 77, 64, 8),
-    (2, 16, 16, 32, 4), (2, 300, 300, 64, 16), (3, 257, 77, 64, 16)])
+    (2, 16, 16, 32, 4), (2, 300, 300, 64, 16), (3, 257, 77, 64, 16),
+    (2, 100, 33, 64, 16), (1, 100, 2304, 64, 16), (2, 300, 300, 64, 8)])
 def test_attention_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
     g = torch.Generator(device=cuda).manual_seed(Lq * Lk)
     q, k, v = (torch.randn((B, n, C), generator=g, device=cuda)
@@ -132,7 +135,8 @@ def test_small_slice_on_the_card_matches_the_cpu(cuda):
             tok = sample_token_grid(models, {"label": torch.tensor([1, 2])},
                                     torch.Generator().manual_seed(4),
                                     sample=False, sampler=sampler)
-            out[dev.type] = (tok.cpu(), models.vqvae.decode(tok).cpu())
+            with torch.no_grad():
+                out[dev.type] = (tok.cpu(), models.vqvae.decode(tok).cpu())
         assert torch.equal(out["cuda"][0], out["cpu"][0]), sampler
         torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=2e-4,
                                    atol=2e-4)
@@ -141,7 +145,8 @@ def test_small_slice_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("B,Lq,Lk,C,H", [
     (2, 16, 16, 64, 16), (2, 300, 300, 64, 16), (3, 257, 77, 64, 16),
     (1, 24, 77, 64, 8), (8, 1024, 1024, 64, 16), (8, 1024, 1, 64, 16),
-    (8, 1024, 77, 64, 16), (2, 2304, 2304, 64, 16)])
+    (8, 1024, 77, 64, 16), (2, 2304, 2304, 64, 16), (2, 100, 33, 64, 16),
+    (1, 100, 2304, 64, 16), (2, 300, 300, 64, 8)])
 def test_attention_backward_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
     g = torch.Generator(device=cuda).manual_seed(Lq + 7 * Lk)
     q, k, v = (torch.randn((B, n, C), generator=g, device=cuda)
@@ -156,6 +161,116 @@ def test_attention_backward_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
     for name, got, wnt in zip("qkv", (q.grad, k.grad, v.grad), want):
         torch.testing.assert_close(got, wnt, rtol=K5_TOL, atol=K5_TOL,
                                    msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,Lq,Lk,C,H", chip_smoke.ATTN_CASES)
+def test_attention_kernels_bf16_within_a_bf16_step(cuda, B, Lq, Lk, C, H):
+    """K2 and K5 with bf16 inputs: f32 inside, outputs rounded once. K2's
+    f32 output within K2_TOL of the plain version in f32 of the same
+    inputs; every bf16 output within BF16_EXCESS_TOL of its magnitude
+    beyond its rounding, which P and dS rounded to bf16 miss."""
+    before = (fused_mha.launches, fused_mha_bwd.launches)
+    r = chip_smoke._bf16_attention_case(torch, B, Lq, Lk, C, H)
+    assert (fused_mha.launches, fused_mha_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert r["o32_ok"], r["o32"]
+    for name in ("o", "dq", "dk", "dv"):
+        assert r[name] <= BF16_EXCESS_TOL, (name, r)
+        if Lk > 1:
+            assert r["control"][name] > BF16_EXCESS_TOL, (name, r)
+    assert r["same"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Lk", [1, 77, 1024])
+def test_attention_backward_is_deterministic(cuda, dtype, Lk):
+    """No float atomics: two launches on the same inputs give the same
+    bits."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention \
+        import _fwd_kernel
+    g = torch.Generator(device=cuda).manual_seed(Lk)
+    q, k, v, do = (torch.randn((4, n, 64), generator=g, device=cuda)
+                   .to(dtype) for n in (1024, Lk, Lk, 1024))
+    o, lse, o32 = _fwd_kernel(q, k, v, 16, with_lse=True)
+    first = fused_mha_bwd(q, k, v, o32, lse, do, n_head=16)
+    second = fused_mha_bwd(q, k, v, o32, lse, do, n_head=16)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_kernels_refuse_mixed_types(cuda):
+    q = torch.randn((1, 8, 64), device=cuda)
+    with pytest.raises(TypeError):
+        fused_mha(q, q.to(torch.bfloat16), q, n_head=16)
+    with pytest.raises(TypeError):
+        fused_mha(q.half(), q.half(), q.half(), n_head=16)
+
+
+def test_sampler_step_kernel_past_two_to_31_counters(cuda):
+    """B K L >= 2^31 (B=228 at the 2304-token grid): the argmax equals the
+    plain version's where decided, sampled tokens lie in range. Past 2^32
+    (512 rows of one row's logits) the noise does not repeat and the draws
+    follow the posterior (``chip_smoke._check_k1_noise_past_wrap``)."""
+    k, B, L = 4097, 228, 2304
+    g = torch.Generator(device=cuda).manual_seed(3)
+    logits = torch.randn((B, L, k - 1), generator=g,
+                         device=cuda).transpose(1, 2)
+    tokens = torch.full((B, L), k - 1, dtype=torch.int64, device=cuda)
+    row = schedule_rows(make_schedule(100, k, device=cuda))[40]
+    kw = dict(guidance=1.0, num_classes=k)
+    tok_k = fused_sample_step(logits, tokens, row, 9, sample=False, **kw)
+    drawn = fused_sample_step(logits, tokens, row, 9, sample=True, **kw)
+    assert int(drawn.min()) >= 0 and int(drawn.max()) < k
+    for r0 in range(0, B, 19):
+        sl = slice(r0, r0 + 19)
+        tok_p, post_p = fused_sample_step_reference(
+            logits[sl], tokens[sl], row, 9, sample=False,
+            return_posterior=True, **kw)
+        top2 = post_p.topk(2, dim=1).values
+        decided = (top2[:, 0] - top2[:, 1]) > K1_TOL
+        assert not ((tok_k[sl] != tok_p) & decided).any()
+    del logits, tok_k, drawn, tok_p, post_p
+    torch.cuda.empty_cache()
+    chip_smoke._check_k1_noise_past_wrap(torch, seed=9)
+
+
+def test_codebook_kernel_mode_xla_takes_the_plain_lookup(cuda):
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.vqvae import (
+        Codebook)
+    z = torch.randn((2, 4, 4, 4, 16), device=cuda)
+    got = {}
+    for mode in ("xla", "auto"):
+        cb = Codebook(32, 16, kernel_mode=mode).to(cuda)
+        cb.embeddings.copy_(torch.randn((32, 16),
+                                        generator=torch.Generator()
+                                        .manual_seed(0)).to(cuda))
+        before = nearest_code_stats.launches
+        got[mode] = cb(z)["encodings"]
+        assert nearest_code_stats.launches - before == (mode == "auto")
+    assert torch.equal(got["xla"], got["auto"])
+
+
+def test_drift_bounds_hold_on_the_card(cuda):
+    """The coupled bf16-weight drift (probes/drift_probe.py) over the first
+    reverse steps at the honest grid within tests/test_drift_bounds.py's
+    five bounds, and the whole-step kernel's tokens equal side B's argmax
+    where decided."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        drift_probe)
+    # tests/test_drift_bounds.py by its path (without the repo's conftest,
+    # ``tests`` may name another package)
+    spec = importlib.util.spec_from_file_location(
+        "drift_bounds", Path(__file__).with_name("test_drift_bounds.py"))
+    bounds = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bounds)
+    out = drift_probe.coupled_drift(HONEST, batch=2, steps=4, seed=3,
+                                    device="cuda")
+    for key, bound in bounds.BOUNDS.items():
+        assert out["coupled_per_step"][key] <= bound, key
+    assert out["kernel_vs_side_b"]["token_mismatches"] == 0
 
 
 @pytest.mark.parametrize("n,k,d", [

@@ -358,3 +358,24 @@ def test_vqvae_registry_entries_match():
         np.testing.assert_allclose(float(values[name]), float(want[name]),
                                    rtol=1e-6, err_msg=name)
     np.testing.assert_allclose(float(total), float(want_total), rtol=1e-6)
+
+
+def test_make_vqvae_honours_kernel_mode(monkeypatch):
+    """``kernel_mode: xla`` keeps the codebook on its plain lookup (the JAX
+    Codebook's ``_lookup``); ``auto`` goes through the kernel's wrapper."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models import vqvae
+    calls = []
+    real = vqvae.nearest_code_stats
+    monkeypatch.setattr(vqvae, "nearest_code_stats",
+                        lambda *a: calls.append(1) or real(*a))
+    x = torch.randn(5, KW["embedding_dim"])
+    for mode, n_calls in (("xla", 0), ("auto", 1)):
+        model = stage1.make_vqvae(dict(KW, kernel_mode=mode))
+        assert model.codebook.kernel_mode == mode
+        model.codebook.embeddings.normal_()
+        calls.clear()
+        z = x.reshape(1, 5, 1, 1, -1)
+        model.codebook(z)
+        assert len(calls) == n_calls, mode
+    with pytest.raises(ValueError, match="kernel_mode"):
+        stage1.make_vqvae(dict(KW, kernel_mode="tpu"))

@@ -257,3 +257,34 @@ def test_weighted_losses_match():
     assert set(values) == set(want) == {"l_dummy", "total"}
     assert float(total) == float(values["total"]) == float(want_total)
     assert float(values["l_dummy"]) == float(want["l_dummy"])
+
+
+def test_forward_returns_the_keys_of_the_jax_call():
+    """``D3PM.forward`` returns every key of the JAX ``D3PM.__call__``, the
+    posterior's probabilities under ``logits`` among them, beside their
+    logarithm ``log_model_prob``."""
+    import inspect
+    import re
+    src = inspect.getsource(JaxD3PM.__call__)
+    jax_keys = set(re.findall(r'"(\w+)":', src[src.rindex("return {"):]))
+    assert "logits" in jax_keys
+    state = stage2.build_stage2(CONFIG, "cpu",
+                                torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, K - 1, (B, L),
+                           generator=torch.Generator().manual_seed(1))
+    out = state.generator({"label": torch.tensor([0, 3, 4, 1])}, tokens,
+                          generator=torch.Generator().manual_seed(2),
+                          train=False)
+    assert jax_keys <= set(out)
+    assert out["logits"].shape == (B, K, L)
+    torch.testing.assert_close(out["logits"], out["log_model_prob"].exp(),
+                               rtol=0, atol=0)
+    assert out["log_model_prob"].grad_fn is not None
+    assert out["logits"].grad_fn is None   # no graph node keeps it
+
+
+def test_text_conditioning_points_at_its_roadmap_item():
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.conditioning \
+        import build_conditioner
+    with pytest.raises(NotImplementedError, match=r"item 12 \(CLIP"):
+        build_conditioner({"mode": "text", "dim": 32})

@@ -96,7 +96,8 @@ def test_vqvae_decode_matches_flax():
     model.load_state_dict(vqvae_state_dict(
         variables["params"], variables["batch_stats"],
         variables["codebook"]))
-    got = model.decode(torch.from_numpy(codes).long())
+    with torch.no_grad():
+        got = model.decode(torch.from_numpy(codes).long())
     assert tuple(got.shape) == (2, 4, 8, 8, 3) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
@@ -177,3 +178,49 @@ def test_codebook_state_and_training_path():
     assert bool(model.codebook.initialized)
     assert not np.array_equal(model.codebook.embeddings.numpy(),
                               np.asarray(cb["embeddings"]))
+
+
+def test_vqvae_decode_in_training_mode_matches_flax_with_gradients():
+    """``decode(train=True)`` (BatchNorm on batch statistics) against the
+    flax ``VQVAE.decode(train=True)``, and the decoder's gradient from
+    tokens against jax.grad: the decode is differentiable when grad mode is
+    on; under no_grad (the serving path) it builds no graph."""
+    rng = np.random.default_rng(6)
+    kw = dict(embedding_dim=16, n_codes=32, n_hiddens=32, n_res_layers=1,
+              downsample=(1, 2, 2), sequence_length=4, resolution=8)
+    flax_model, variables = _flax_vqvae(rng, **kw)
+    codes = rng.integers(0, 32, (2, 4, 4, 4)).astype(np.int32)
+    w = rng.standard_normal((2, 4, 8, 8, 3)).astype(np.float32)
+
+    def loss(params):
+        out, _ = flax_model.apply(
+            {**variables, "params": params}, jnp.asarray(codes),
+            method=JaxVQVAE.decode, train=True, mutable=["batch_stats"])
+        return jnp.sum(out * w), out
+
+    (_, want), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        variables["params"])
+    model = VQVAE(**kw)
+    model.load_state_dict(vqvae_state_dict(
+        variables["params"], variables["batch_stats"],
+        variables["codebook"]))
+    got = model.decode(torch.from_numpy(codes).long(), train=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+    (got * torch.from_numpy(w)).sum().backward()
+    want_grads = vqvae_state_dict(jax.device_get(grads),
+                                  variables["batch_stats"],
+                                  variables["codebook"])
+    decoder = [(n, p) for n, p in model.named_parameters()
+               if n.startswith(("decoder.", "post_vq_conv."))]
+    assert decoder and all(p.grad is not None for _, p in decoder)
+    # each gradient against its max-abs, floored at 1e-4 of the largest (a
+    # bias that BatchNorm follows has a zero gradient analytically: the
+    # two frameworks' rounding noise), as the stage-2 gradient test does
+    floor = 1e-4 * max(float(want_grads[n].abs().max()) for n, _ in decoder)
+    for name, p in decoder:
+        scale = max(float(want_grads[name].abs().max()), floor)
+        torch.testing.assert_close(p.grad, want_grads[name], rtol=0,
+                                   atol=1e-3 * scale, msg=name)
+    with torch.no_grad():
+        assert model.decode(torch.from_numpy(codes).long()).grad_fn is None
