@@ -5,15 +5,22 @@
 
     python3 chip_smoke.py --profile   # and a torch.profiler table of a
                                       # training step of each stage
+    python3 chip_smoke.py --parent ROOT   # and K1 and K6 timed in turns
+                                          # with the checkout at ROOT
 
 Phases:
-  1. the card (nvidia-smi name and power limit), the torch / CUDA / Triton
-     versions, TF32 off, and the builds of the six CUDA sources under
-     ``csrc/`` (one nvcc each, started together);
-  2. the Triton sampler-step kernel (K1) against its plain version (also
-     at B=228 on the 2304-token grid, past 2^31 Philox counters, and its
-     draws over 512 rows, past 2^32, against a noise that repeats), then
-     both timed at the main path's shape;
+  1. the card (nvidia-smi name and power limit), the torch / CUDA
+     versions, TF32 off, and the builds of the seven CUDA sources under
+     ``csrc/`` (one nvcc each, started together), with each kernel's
+     registers and spills and the blocks of K1 an SM holds;
+  2. the CUDA sampler-step kernel (K1) against its plain version (K = 4097,
+     2049, 4094, 10, 2501 and 5001, logits wide enough to put classes under the -70
+     clamp; also at B=228 on the 2304-token grid, past 2^31 Philox
+     counters, and its draws over 512 rows, past 2^32, against a noise that
+     repeats), its refusals, then both timed at the main path's shape, with
+     the bound, the exponential floor and, with ``--parent ROOT``, the
+     kernel of the checkout at ROOT in turns
+     (``probes/sampler_codebook_variants.py``);
   3. the CUDA attention kernel (K2) against its plain version in f32 and
      bf16 (the paths' shapes and lengths no multiple of a tile), then both
      timed at the main path's shapes, with the library call, the bound and
@@ -25,8 +32,11 @@ Phases:
   5. the CUDA attention backward (K5) against its plain version through
      the autograd Function in f32 and bf16, two launches bitwise equal,
      then both timed at the training step's shapes;
-  6. the CUDA codebook lookup (K6) against its plain version, then both
-     timed at the frozen encode's shape;
+  6. the CUDA codebook lookup (K6) against its plain version (the frozen
+     encode's shape, a ragged one, D no multiple of 8, codes repeated in
+     another E tile), then both timed at the frozen encode's shape, with
+     the bound of its split-TF32 products and, with ``--parent ROOT``,
+     the parent in turns as K1's;
   7. the training slice at ``TRAIN_STEP2``: a small step held against the
      same step on the CPU, then B=16 steps (2 warm-up, 5 timed) on a fixed
      synthetic batch, with the launch counts of K2, K5 and K6 per step;
@@ -45,10 +55,12 @@ Phases:
  10. the serving slice on the ``megakernel`` route: a small argmax run
      against the CPU, ``HONEST`` at B=32 (a B=4 warm-up first) through K3,
      and ``MSRVTT_GRID`` (2304 tokens) at B=8 through K4, 100 steps each.
- 11. the probe product (P1) against its plain version, timed, and the
-     build-cache probe: two child processes in turn on one fresh build
-     directory and Triton cache, each building and running P1 and one K1
-     launch; their first-call times and the verdict on one line;
+ 11. the probe product (P1) against its plain version, timed, then 25
+     launches of it and of ``torch.addmm`` each captured in a CUDA graph
+     and the replays timed in turns over 12 rounds; and the build-cache
+     probe: two child processes in turn on one fresh build directory, each
+     building and running P1 and K1; their first-call times and the verdict
+     on one line;
  12. the chain kernels (P2, P3) against their plain versions at ``iters``
      <= 4 (where sum(x) is far from 0), checksums included, at the QK shape
      and at two depth-curve shapes; both timed at the QK shape; then the
@@ -72,10 +84,11 @@ no CPU run.
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import math
-import os
+import re
 import subprocess
 import sys
 import time
@@ -146,19 +159,22 @@ CHAIN_SUM_TOL = 2.0 ** -8
 CHAIN_CHECK_TOL = 1e-3
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): device memory
-# bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
+# bytes/s, f32 FLOP/s outside the tensor cores, bf16 and TF32 tensor-core
+# FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 
 
-def _bound(nbytes: float, flops_f32: float, flops_bf16: float = 0.0
-           ) -> tuple[float, str]:
+def _bound(nbytes: float, flops_f32: float, flops_bf16: float = 0.0,
+           flops_tf32: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes
     (each input read once, each output written once) over the memory rate
     and the operations over the peak rate of their operands' type."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16) * 1e3
+    t_ops = (flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16
+             + flops_tf32 / PEAK_TF32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -184,23 +200,57 @@ def _ab_ms(plain, kernel, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _demangled(names: list[str]) -> list[str]:
+    """Kernel names through the toolkit's ``cu++filt``, without their
+    parameters; the mangled names where it does not run."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.cuda_build import (
+        find_nvcc)
+    try:
+        filt = Path(find_nvcc()).with_name("cu++filt")
+        out = subprocess.run([str(filt), "-p"], input="\n".join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=30).stdout.splitlines()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return names
+    return out if len(out) == len(names) else names
+
+
+def _ptxas_by_kernel(log: str) -> list[str]:
+    """``-Xptxas -v``'s registers and spills of each kernel of a build."""
+    rows, name, stores = [], "?", "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            stores = spill.group(1)
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            rows.append((name, f"{regs.group(1)} registers, {stores} B "
+                               f"spilled"))
+    names = _demangled([name for name, _ in rows])
+    return [f"{name} {what}" for name, (_, what) in zip(names, rows)]
+
+
 def phase_environment(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    import triton
     print(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"triton {triton.__version__}, python {sys.version.split()[0]}, "
+          f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("phase 1: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
-        attention, codebook_kernel, cuda_build, megakernel, probe_kernels)
-    builds = {"fused_mha_fwd.cu": attention._library,
+        attention, codebook_kernel, cuda_build, megakernel, probe_kernels,
+        sampler_kernel)
+    builds = {"sample_step.cu": sampler_kernel._library,
+              "fused_mha_fwd.cu": attention._library,
               "fused_mha_bwd.cu": attention._bwd_library,
               "nearest_code_stats.cu": codebook_kernel._library,
               "megakernel_step.cu": megakernel._library,
@@ -215,12 +265,16 @@ def phase_environment(torch) -> str:
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         print(f"phase 1: csrc/{name}: nvcc {lib.build_seconds:.2f} s; "
-              + " | ".join(x.strip() for x in lib.build_log.splitlines()
-                           if "registers" in x or "spill" in x))
+              + "; ".join(_ptxas_by_kernel(lib.build_log)))
     lib = libs["megakernel_step.cu"]
     print(f"phase 1: the whole-step kernels' persistent grid: "
           f"{lib.megakernel_grid_blocks(1)} blocks (K3), "
           f"{lib.megakernel_grid_blocks(0)} (K4)")
+    lib = libs["sample_step.cu"]
+    print("phase 1: K1 (guided, 16-byte loads) holds "
+          + ", ".join(f"{lib.sample_step_blocks_per_sm(kv)} blocks an SM at "
+                      f"K-1 = {kv}" for kv in (1024, 2048, 4096, 8192))
+          + " (256 threads a block, one position each)")
     return smi
 
 
@@ -275,24 +329,33 @@ def _check_k1_noise_past_wrap(torch, seed: int = 7) -> dict:
     return out
 
 
-def phase_k1(torch, smi: str) -> dict:
+def phase_k1(torch, smi: str, parent: str | None = None) -> dict:
     """K1 against its plain version; returns its numbers for the kernels'
     line."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
         make_schedule)
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
-        import fused_sample_step, fused_sample_step_reference, schedule_rows
+        import (MAX_CLASSES, fused_sample_step, fused_sample_step_reference,
+                fused_sample_step_kernel_arithmetic, schedule_rows)
 
-    K = 4097
-    rows = schedule_rows(make_schedule(100, K, device="cuda"))
     worst = 0.0
-    for B, L, guidance, t in ((4, 1024, 2.0, 99), (4, 1024, 2.0, 0),
-                              (4, 1024, 1.0, 50), (4, 2304, 2.0, 50)):
-        g = torch.Generator(device="cuda").manual_seed(1000 + L + t)
+    # K = 2049: the half config's codebook; K-1 = 4093: no multiple of 4
+    # (element loads); K = 10: under a float4 a thread; K-1 = 2500 and 5000:
+    # 3 and 5 chunks of 1024 classes, rounded up to 4 and 8 (chunks of
+    # padding before the last); logits of scale 30 put classes under the
+    # -70 clamp (the full guided pass)
+    for K, B, L, guidance, t, scale in (
+            (4097, 4, 1024, 2.0, 99, 3.0), (4097, 4, 1024, 2.0, 0, 3.0),
+            (4097, 4, 1024, 1.0, 50, 3.0), (4097, 4, 2304, 2.0, 50, 3.0),
+            (2049, 4, 1024, 2.0, 50, 3.0), (4094, 4, 1024, 2.0, 50, 3.0),
+            (10, 4, 1024, 2.0, 50, 3.0), (2501, 4, 1024, 2.0, 50, 3.0),
+            (5001, 4, 1024, 2.0, 50, 3.0), (4097, 4, 1024, 2.0, 50, 30.0)):
+        rows = schedule_rows(make_schedule(100, K, device="cuda"))
+        g = torch.Generator(device="cuda").manual_seed(1000 + L + t + K)
         nb = 2 * B if guidance != 1.0 else B
         # (nb, L, K-1) as the denoiser emits it, handed over transposed
-        logits2 = (3.0 * torch.randn((nb, L, K - 1), generator=g,
-                                     device="cuda")).transpose(1, 2)
+        logits2 = (scale * torch.randn((nb, L, K - 1), generator=g,
+                                       device="cuda")).transpose(1, 2)
         tokens = torch.randint(0, K - 1, (B, L), generator=g, device="cuda")
         masked = torch.rand((B, L), generator=g, device="cuda") < 0.5
         tokens = torch.where(masked, K - 1, tokens)
@@ -311,14 +374,37 @@ def phase_k1(torch, smi: str) -> dict:
                  == tok_p)
         rate_k = hit_k.float().mean().item()
         rate_p = hit_p.float().mean().item()
-        print(f"phase 2: K1 B={B} L={L} K={K} guidance={guidance} t={t}: "
-              f"posterior max-abs {err:.3e} (tol {K1_TOL}), {wrong} token "
-              f"mismatches of {int(decided.sum())} decided positions; "
-              f"sampled = argmax at {rate_k:.4f} (kernel) vs {rate_p:.4f} "
-              f"(plain)")
+        full = int((~fused_sample_step_kernel_arithmetic(
+            *args, sample=False, **kw)[1]).sum()) if nb == 2 * B else 0
+        print(f"phase 2: K1 B={B} L={L} K={K} guidance={guidance} t={t} "
+              f"logits x {scale}: posterior max-abs {err:.3e} (tol "
+              f"{K1_TOL}), {wrong} token mismatches of {int(decided.sum())} "
+              f"decided positions; sampled = argmax at {rate_k:.4f} "
+              f"(kernel) vs {rate_p:.4f} (plain); {full} of {B * L} "
+              f"positions take the full guided pass")
         if not err <= K1_TOL or wrong or not abs(rate_k - rate_p) < 0.05:
             raise AssertionError("K1 disagrees with its plain version")
         worst = max(worst, err)
+    del logits2, post_k, post_p
+    # what the kernel does not take raises, with no copy of the logits
+    K = 4097
+    rows = schedule_rows(make_schedule(100, K, device="cuda"))
+    refused = []
+    for name, logits2, k in (
+            ("a class axis that is not contiguous",
+             torch.zeros((8, K - 1, 64), device="cuda"), K),
+            (f"K-1 = {MAX_CLASSES + 1}",
+             torch.zeros((8, 64, MAX_CLASSES + 1),
+                         device="cuda").transpose(1, 2), MAX_CLASSES + 2)):
+        try:
+            fused_sample_step(logits2, torch.zeros((4, 64), dtype=torch.int64,
+                                                   device="cuda"), rows[3], 1,
+                              guidance=2.0, num_classes=k)
+        except ValueError:
+            refused.append(name)
+    print(f"phase 2: K1 refuses {'; '.join(refused)}")
+    if len(refused) != 2:
+        raise AssertionError("K1 took a layout or size it does not hold")
 
     # past 2^31 (B K L) Philox counters: B=228 at the 2304-token grid,
     # guidance 1; the plain version row by row in chunks (its temporaries
@@ -372,15 +458,40 @@ def phase_k1(torch, smi: str) -> dict:
                                             **kw),
         lambda: fused_sample_step(logits2, tokens, rows[50], 3, **kw), 10)
     # bound: the logits read once, the tokens read and written once; no
-    # matrix product (~60 f32 operations a logit for the four reductions)
+    # matrix product (~60 f32 operations a logit for the reductions). The
+    # exponential floor: 8 transcendentals a (row, class, position) at the
+    # card's rate, measured now (csrc/sample_step.cu's header)
     nbytes = logits2.numel() * 4 + 2 * tokens.numel() * 8
     bound_ms, bound_by = _bound(nbytes, 60.0 * logits2.numel())
+    floor_ms = 8.0 * B * (K - 1) * L / _exp_rate(torch) * 1e3
     print(f"phase 2: K1 (2B=64, K=4097, L=1024) kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s); no single "
-          f"library call ({smi})")
+          f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s); exponential "
+          f"floor {floor_ms:.4f} ms; no single library call ({smi})")
+    _print_parent_turns("phase 2", "K1", parent)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+@functools.cache
+def _parent_turns(parent: str) -> dict:
+    """K1's and K6's times against those of the checkout at ``parent``, in
+    turns (``probes/sampler_codebook_variants.py``)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        sampler_codebook_variants)
+    return sampler_codebook_variants.compare(parent, rounds=1,
+                                             log=lambda line: None)
+
+
+def _print_parent_turns(phase: str, kernel: str, parent: str | None) -> None:
+    """With ``--parent ROOT``, the kernel's times in turns with ROOT's."""
+    if parent is None:
+        return
+    res = _parent_turns(parent)
+    read = {side: " ".join(f"{x[kernel]:.4f}" for x in res["ms"][side])
+            for side in ("change", "parent")}
+    print(f"{phase}: {kernel} in turns with {parent} ({res['card']}): this "
+          f"checkout {read['change']} ms, {parent} {read['parent']} ms")
 
 
 # the attention kernels' cases: the paths' shapes (self-attention over
@@ -601,7 +712,7 @@ def phase_slice(torch, smi: str) -> dict:
     mask_id = HONEST["vqvae"]["n_codes"]
     for b in (4, 32):
         batch = {"label": torch.randint(0, n_classes, (b,), generator=g)}
-        if b == 4:   # warm-up: Triton's compile and cuDNN's choices
+        if b == 4:   # warm-up: cuDNN's choices
             fused_sample_step.launches = fused_mha.launches = 0
             t0 = time.perf_counter()
             video = sample_videos(models, batch, g, sampler="model")
@@ -800,7 +911,42 @@ def phase_bf16_attention(torch, smi: str) -> dict:
     return {"K2": counts[0], "K5": counts[1]}
 
 
-def phase_k6(torch, smi: str) -> dict:
+def _check_k6_duplicates(torch, n: int, k: int, d: int) -> dict:
+    """K6 where codes repeat in another E tile: codes 0-99 again at
+    131-230 and codes 400-449 again at 700-749 (a tile is 128 or 256
+    codes), rows drawn near codes of either set and at random. No row may
+    take a second copy (the first code wins a tie, as ``jnp.argmin``), and
+    every row whose top-two margin exceeds K6_MARGIN agrees with the plain
+    version. Returns the counts; raises on a disagreement."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import nearest_code_stats, nearest_code_stats_reference
+
+    g = torch.Generator(device="cuda").manual_seed(k + d)
+    emb = torch.randn((k, d), generator=g, device="cuda")
+    emb[131:231] = emb[0:100]
+    emb[700:750] = emb[400:450]
+    near = torch.cat([torch.arange(100), torch.arange(400, 450)]).cuda()
+    pick = near[torch.randint(0, len(near), (n // 2,), generator=g,
+                              device="cuda")]
+    x = torch.cat([emb[pick] + 0.01 * torch.randn(
+        (n // 2, d), generator=g, device="cuda"),
+        torch.randn((n - n // 2, d), generator=g, device="cuda")])
+    idx = nearest_code_stats(x, emb)[0].long()
+    ref = nearest_code_stats_reference(x, emb)[0].long()
+    dist = -2.0 * (x @ emb.t()) + (emb * emb).sum(dim=-1)[None, :]
+    top2 = (-dist).topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > K6_MARGIN
+    second = ((idx >= 131) & (idx < 231)) | ((idx >= 700) & (idx < 750))
+    out = dict(second_copies=int(second.sum()),
+               wrong=int(((idx != ref) & decided).sum()),
+               first_copies=int(((idx < 100) | ((idx >= 400) & (idx < 450)))
+                                .sum()))
+    if out["second_copies"] or out["wrong"]:
+        raise AssertionError(f"K6 with repeated codes, D={d}: {out}")
+    return out
+
+
+def phase_k6(torch, smi: str, parent: str | None = None) -> dict:
     """K6 against its plain version; returns its numbers for the kernels'
     line (the error is the statistics') at the frozen encode's shape."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
@@ -808,7 +954,10 @@ def phase_k6(torch, smi: str) -> dict:
                 nearest_code_stats_reference)
 
     worst = 0.0
-    for n, k, d in ((16384, 4096, 128), (10007, 3001, 128)):
+    # the frozen encode's shape, a ragged one, D no multiple of 8 (and of
+    # 4: element copies of E), D at its limit
+    for n, k, d in ((16384, 4096, 128), (10007, 3001, 128), (5000, 600, 20),
+                    (3000, 700, 30), (2000, 300, 384)):
         g = torch.Generator(device="cuda").manual_seed(n)
         x = torch.randn((n, d), generator=g, device="cuda")
         emb = torch.randn((k, d), generator=g, device="cuda")
@@ -831,21 +980,33 @@ def phase_k6(torch, smi: str) -> dict:
         torch.testing.assert_close(encode_sum, want_sum, rtol=K6_TOL,
                                    atol=K6_TOL)
         worst = max(worst, err)
+    for d in (128, 130):
+        r = _check_k6_duplicates(torch, 3000, 1000, d)
+        print(f"phase 6: K6 N=3000 K=1000 D={d}, codes repeated 131 and 300 "
+              f"codes on: {r['first_copies']} rows take a repeated code's "
+              f"first copy, {r['second_copies']} its second; {r['wrong']} "
+              f"mismatches at decided rows")
 
     g = torch.Generator(device="cuda").manual_seed(9)
     x = torch.randn((16384, 128), generator=g, device="cuda")
     emb = torch.randn((4096, 128), generator=g, device="cuda")
     ms, plain_ms = _ab_ms(lambda: nearest_code_stats_reference(x, emb),
                           lambda: nearest_code_stats(x, emb), 10)
-    # bound: 2 N K D f32 operations of the distances against x and E read
-    # and the indices and statistics written once
+    # bound: the distances' products as the kernel does them, three TF32
+    # products a split f32 product (3 x 2 N K D at the TF32 tensor-core
+    # rate), against x and E read and the indices and statistics written
+    # once; beside it the f32 bound of 2 N K D outside the tensor cores
     flops = 2.0 * 16384 * 4096 * 128
     nbytes = 4.0 * (x.numel() + 2 * emb.numel() + 4096) + 8.0 * 16384
-    bound_ms, bound_by = _bound(nbytes, flops)
+    bound_ms, bound_by = _bound(nbytes, 0.0, flops_tf32=3.0 * flops)
+    f32_ms = _bound(nbytes, flops)[0]
     print(f"phase 6: K6 (N=16384, K=4096, D=128) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32, "
-          f"{nbytes / 1e6:.1f} MB); no single library call ({smi})")
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} (3 x "
+          f"{flops / 1e9:.2f} GFLOP at {PEAK_TF32 / 1e12} TFLOP/s TF32, "
+          f"{nbytes / 1e6:.1f} MB; {f32_ms:.4f} ms for {flops / 1e9:.2f} "
+          f"GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32); no single library call "
+          f"({smi})")
+    _print_parent_turns("phase 6", "K6", parent)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -1591,6 +1752,17 @@ def phase_p1(torch, smi: str) -> tuple[dict, dict]:
           f"{ms / lib_ms:.3f} x its time; bound {bound_ms:.5f} ms by "
           f"{bound_by} ({flops / 1e6:.1f} MFLOP at {PEAK_F32 / 1e12} TFLOP/s "
           f"f32, {nbytes / 1e6:.2f} MB) ({smi})")
+    g_ms, g_lib = _graph_turns(
+        torch, lambda: pk.probe_matmul(a),
+        lambda: torch.addmm(zero, a, a, beta=0.0, alpha=2.0))
+    g_verdict = ("faster in every round" if max(g_ms) < min(g_lib) else
+                 "slower in every round" if min(g_ms) > max(g_lib) else
+                 "within the rounds' spread of it")
+    print(f"phase 11: under a CUDA graph (25 launches a graph, 12 rounds in "
+          f"turns): P1 {sum(g_ms) / 12:.4f} ms a launch ({min(g_ms):.4f}-"
+          f"{max(g_ms):.4f}), torch.addmm {sum(g_lib) / 12:.4f} "
+          f"({min(g_lib):.4f}-{max(g_lib):.4f}): P1 is {g_verdict}, "
+          f"{sum(g_ms) / sum(g_lib):.3f} x its time ({smi})")
 
     res = build_cache_probe.probe(timeout=300.0, hang_dump_s=240,
                                   log=lambda line: None)
@@ -1602,11 +1774,12 @@ def phase_p1(torch, smi: str) -> tuple[dict, dict]:
     print("phase 11: build-cache probe: "
           + "; ".join(
               f"phase {name} nvcc {ph['nvcc_build_s']:.2f} s, P1 first call "
-              f"{ph['p1_first_call_s']:.2f} s, K1 first call "
+              f"{ph['p1_first_call_s']:.2f} s, K1 nvcc "
+              f"{ph['k1_nvcc_build_s']:.2f} s, first call "
               f"{ph['k1_first_call_s']:.2f} s, second calls "
-              f"{ph['second_calls_s']:.4f} s, {ph['build_files']} build and "
-              f"{ph['triton_cache_files']} Triton cache files, process "
-              f"{ph['wall_s']:.1f} s" for name, ph in (("A", pa), ("B", pb)))
+              f"{ph['second_calls_s']:.4f} s, {ph['build_files']} build "
+              f"files, process {ph['wall_s']:.1f} s"
+              for name, ph in (("A", pa), ("B", pb)))
           + f": {res['verdict']} ({smi})")
     if not all(ph["p1_right"] and ph["k1_right"] for ph in (pa, pb)):
         raise AssertionError("build-cache probe: wrong values")
@@ -1615,6 +1788,31 @@ def phase_p1(torch, smi: str) -> tuple[dict, dict]:
     return (dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms),
             launches)
+
+
+def _graph_turns(torch, kernel, library, launches: int = 25,
+                 rounds: int = 12) -> tuple[list, list]:
+    """``launches`` calls of each function captured in a CUDA graph of its
+    own; the replays timed in turns (CUDA events), ``rounds`` times. Returns
+    the ms a launch of each round, kernel's and library's: the host's launch
+    cost is gone from both."""
+    graphs = []
+    for fn in (kernel, library):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        graph.replay()
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    out = ([], [])
+    for r in range(rounds):
+        order = (0, 1) if r % 2 == 0 else (1, 0)
+        for i in order:
+            out[i].append(_time_ms(graphs[i].replay, 4) / launches)
+    return out
 
 
 def phase_chains(torch, smi: str) -> tuple[dict, dict, dict]:
@@ -1858,20 +2056,26 @@ def phase_stage1(torch, smi: str, profile: bool) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the port's main path on "
+                                 "one CUDA card.")
+    ap.add_argument("--profile", action="store_true",
+                    help="time each training step by kernel")
+    ap.add_argument("--parent", metavar="ROOT",
+                    help="also time K1 and K6 in turns with the checkout at "
+                         "ROOT")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          str(ROOT / PKG / "_build" / "triton"))
     smi = phase_environment(torch)
-    k1 = phase_k1(torch, smi)
+    k1 = phase_k1(torch, smi, args.parent)
     k2 = phase_k2(torch, smi)
     launches = phase_slice(torch, smi)
     k5 = phase_k5(torch, smi)
-    k6 = phase_k6(torch, smi)
-    profile = "--profile" in sys.argv[1:]
+    k6 = phase_k6(torch, smi, args.parent)
+    profile = args.profile
     train = phase_train(torch, smi, profile)
     bf16_attention = phase_bf16_attention(torch, smi)
 
@@ -1904,8 +2108,8 @@ def main() -> int:
     cache_probe = "build-cache probe, both child processes"
     depth_probe = "depth / packing probe"
     kernels = [
-        dict(name="fused_sample_step", route="triton",
-             source=f"{PKG}/ops/sampler_kernel.py",
+        dict(name="fused_sample_step", route="cuda",
+             source=f"{PKG}/csrc/sample_step.cu",
              replaces=tpu + "ops/sampler_kernel.py:33",
              launches=launches["K1"] + probe_children["K1"],
              launches_by_path={serve_model: launches["K1"],

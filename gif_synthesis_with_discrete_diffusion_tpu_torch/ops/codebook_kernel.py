@@ -5,7 +5,9 @@ version.
 discrete_diffusion_tpu/ops/codebook_kernel.py: _kernel`` (via
 ``nearest_code_stats``). For CUDA tensors it launches
 ``csrc/nearest_code_stats.cu`` (nvcc for ``sm_90a`` at first use, bound
-through ctypes); for CPU tensors it runs :func:`nearest_code_stats_reference`.
+through ctypes), whose distances run on the tensor cores in split TF32
+(:func:`nearest_code_stats_kernel_arithmetic` states that arithmetic); for
+CPU tensors it runs :func:`nearest_code_stats_reference`.
 Both return
 
 * ``indices``    (N,)   int32 — the nearest code of each row (the first on
@@ -25,8 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .megakernel import split_tf32
 
 __all__ = ["nearest_code_stats", "nearest_code_stats_reference",
+           "nearest_code_stats_kernel_arithmetic", "kernel_distances",
            "code_stats_reference"]
 
 _MAX_DIM = 384   # csrc/nearest_code_stats.cu: kMaxD
@@ -50,11 +54,35 @@ def nearest_code_stats_reference(x: torch.Tensor, embeddings: torch.Tensor
     return (indices, *code_stats_reference(x, indices, e.shape[0]))
 
 
+def kernel_distances(x: torch.Tensor, embeddings: torch.Tensor
+                     ) -> torch.Tensor:
+    """(N, K) distances ``||e||^2 - 2 x.e`` as the kernel takes them: each
+    f32 value split into TF32 hi + lo (``split_tf32``), the product summed as
+    hi.lo + lo.hi + hi.hi in f32 (lo.lo, ~2^-22 of it, dropped)."""
+    xh, xl = split_tf32(x.detach().float())
+    eh, el = split_tf32(embeddings.detach().float())
+    prod = xh @ el.t() + xl @ eh.t() + xh @ eh.t()
+    e = embeddings.detach().float()
+    return -2.0 * prod + (e * e).sum(dim=-1)[None, :]
+
+
+def nearest_code_stats_kernel_arithmetic(
+        x: torch.Tensor, embeddings: torch.Tensor
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`nearest_code_stats_reference` with the distances of
+    :func:`kernel_distances`: what the kernel computes up to the order of
+    its sums. For the tests; no path of the port runs it."""
+    indices = torch.argmin(kernel_distances(x, embeddings),
+                           dim=1).to(torch.int32)
+    return (indices, *code_stats_reference(x.detach(), indices,
+                                           embeddings.shape[0]))
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("nearest_code_stats.cu")
     lib.nearest_code_stats.argtypes = ([ctypes.c_void_p] * 2
-                                       + [ctypes.c_int] * 3
+                                       + [ctypes.c_int] * 4
                                        + [ctypes.c_void_p] * 4)
     lib.nearest_code_stats.restype = ctypes.c_int
     return lib
@@ -88,8 +116,11 @@ def nearest_code_stats(x: torch.Tensor, embeddings: torch.Tensor
     indices = torch.empty((n,), dtype=torch.int32, device=x.device)
     n_total = torch.zeros((k,), dtype=torch.float32, device=x.device)
     encode_sum = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    # 16-byte copies of E where its rows start on 16 bytes
+    vec = embeddings.data_ptr() % 16 == 0 and d % 4 == 0
     err = _library().nearest_code_stats(
-        x.data_ptr(), embeddings.data_ptr(), n, k, d, indices.data_ptr(),
+        x.data_ptr(), embeddings.data_ptr(), n, k, d, int(vec),
+        indices.data_ptr(),
         n_total.data_ptr(), encode_sum.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err:

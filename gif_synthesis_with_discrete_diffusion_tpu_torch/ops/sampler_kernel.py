@@ -1,54 +1,49 @@
-"""One D3PM reverse-sampling step as a Triton kernel, and the 100-step loop.
+"""One D3PM reverse-sampling step as a CUDA kernel, and the 100-step loop.
 
-Replaces the TPU kernel ``gif_synthesis_with_discrete_diffusion_tpu/ops/
-sampler_kernel.py: _kernel`` (via ``fused_sample_step``). Per (batch row,
-position): log_softmax of the cond and uncond logits over the K-1 classes,
-clamped at -70 -> classifier-free guidance ``lcf + s * (lc - lcf)``,
-renormalised and clamped -> the analytic absorbing-state posterior from the
-10-scalar schedule row, with the MASK row handled apart -> Gumbel-max over
-all K classes (the MASK row wins only if strictly greater).
+``fused_sample_step`` replaces the TPU kernel ``gif_synthesis_with_
+discrete_diffusion_tpu/ops/sampler_kernel.py: _kernel`` (via
+``fused_sample_step``). Per (batch row, position): log_softmax of the cond
+and uncond logits over the K-1 classes, clamped at -70 -> classifier-free
+guidance ``lcf + s * (lc - lcf)``, renormalised and clamped -> the analytic
+absorbing-state posterior from the 10-scalar schedule row, with the MASK row
+handled apart -> Gumbel-max over all K classes (the MASK row wins only if
+strictly greater). For CUDA tensors it launches ``csrc/sample_step.cu``
+(nvcc for ``sm_90a`` at first use, bound through ctypes), which reads the
+logits from device memory once: a block holds one position's two class rows
+in registers (the design and its arithmetic: the source's header). For CPU
+tensors it runs :func:`fused_sample_step_reference`.
 
-What bounds it on Hopper: bytes. There is no matrix product; at the honest
-shape one step reads the (2B, K-1, L) = (64, 4096, 1024) f32 logits, 1 GiB.
-The design: one program per (batch row, block of ``_BLOCK_L`` positions)
-loops over the class axis in masked chunks of ``_BLOCK_K`` (K = 4097 is not a
-power of two, and the MASK row is index K-1 with no logit). It makes four
-passes over its slab: (1) both log-softmax normalisers, (2) the CFG
-renormaliser, (3) the posterior normaliser, (4) the posterior and a running
-argmax that keeps the first index on ties. Each is an online log-sum-exp, so
-nothing of size K is held on chip; the price is reading the logits up to
-four times. The wrapper takes the denoiser's ``(2B, L, K-1)`` output through
-its transposed ``(2B, K-1, L)`` view with strides, so the kernel reads along
-the contiguous class axis and no 1 GiB copy is made per step.
+The wrapper takes the denoiser's ``(2B, L, K-1)`` output through its
+transposed ``(2B, K-1, L)`` view with strides: the kernel needs the class
+axis contiguous (any batch-row and position strides, a batch stride of 0
+included) and raises on any other layout, never copying the logits.
 
-Gumbel noise comes from Triton's Philox (``tl.rand``) with one counter per
-(class, l) of a row, the MASK row included, under a key per row (the seed
-in its low 32 bits, the row in its high 32 bits), so that no counter
-overflows at any batch size: tokens match the TPU kernel and the plain
-version in distribution, not bit for bit. ``sample=False`` takes the
+Gumbel noise comes from Philox4x32-10 keyed by the seed, one counter per
+(4 classes, position, batch row) and the MASK class on its own counter, so
+that no counter wraps at any batch size: tokens match the TPU kernel and the
+plain version in distribution, not bit for bit. ``sample=False`` takes the
 argmax of the posterior; that is what the tests compare exactly.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
 import torch
 
+from . import cuda_build
 from ..models.d3pm import (LOG_CLAMP, D3PMSchedule, DenoiseFn, _cfg_batch,
                            gumbel)
 
 __all__ = ["fused_sample_step", "fused_sample_step_reference",
-           "sample_tokens", "schedule_rows"]
+           "fused_sample_step_kernel_arithmetic", "sample_tokens",
+           "schedule_rows", "MAX_CLASSES"]
 
 _NEG30 = -69.07755278982137  # log(1e-30)
-_BLOCK_L = 16
-_BLOCK_K = 128
-_NUM_WARPS = 4
-
-# triton.language, bound by _build_kernel() at the first launch: this module
-# must import where Triton is absent (the CPU runs the plain version).
-tl = None
+# the largest K-1 the kernel takes: its rows live in registers, 256 threads
+# x 8 float4 a branch (csrc/sample_step.cu: sample_step_max_classes)
+MAX_CLASSES = 8192
 
 
 def schedule_rows(sched: D3PMSchedule) -> torch.Tensor:
@@ -70,30 +65,38 @@ def _laddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mx + torch.log(torch.exp(a - mx) + torch.exp(b - mx))
 
 
-def fused_sample_step_reference(
-        logits2: torch.Tensor, tokens: torch.Tensor, sched_row: torch.Tensor,
-        seed: int, *, guidance: float, num_classes: int, sample: bool = True,
-        return_posterior: bool = False):
-    """Plain PyTorch version of the kernel, in the TPU kernel's order of
-    clamps. Same signature as :func:`fused_sample_step`; the Gumbel noise
-    comes from a ``torch.Generator`` on the logits' device seeded by
-    ``seed``."""
+def _lse(z: torch.Tensor) -> torch.Tensor:
+    """log-sum-exp over the class axis: the maximum first, then the sum."""
+    m = z.amax(dim=1, keepdim=True)
+    return torch.log(torch.exp(z - m).sum(dim=1, keepdim=True)) + m
+
+
+def _step(logits2, tokens, sched_row, seed, *, guidance, num_classes,
+          sample, return_posterior, guided_from_pass0):
+    """The step in the TPU kernel's order of clamps. ``guided_from_pass0``:
+    the kernel's rule for the guided normaliser (from the log-sum-exp of the
+    guided logits where no class reaches the clamp). Returns the step's
+    result and, per (row, position), whether that rule held."""
     b, L = tokens.shape
     K = num_classes
     use_cfg = logits2.shape[0] == 2 * b
     x = logits2.float()
-
-    def log_softmax(z):
-        m = z.amax(dim=1, keepdim=True)
-        lse = torch.log(torch.exp(z - m).sum(dim=1, keepdim=True)) + m
-        return torch.clamp_min(z - lse, LOG_CLAMP)
-
-    lc = log_softmax(x[:b])
+    zc = x[:b]
+    lse_c = _lse(zc)
+    lc = torch.clamp_min(zc - lse_c, LOG_CLAMP)
+    free = torch.ones((b, 1, L), dtype=torch.bool, device=x.device)
     if use_cfg:
-        lcf = log_softmax(x[b:])
+        zu = x[b:]
+        lse_u = _lse(zu)
+        lcf = torch.clamp_min(zu - lse_u, LOG_CLAMP)
         ln = lcf + guidance * (lc - lcf)
-        m = ln.amax(dim=1, keepdim=True)
-        lse = torch.log(torch.exp(ln - m).sum(dim=1, keepdim=True)) + m
+        lse = _lse(ln)
+        if guided_from_pass0:
+            free = ((zc.amin(dim=1, keepdim=True) - lse_c >= LOG_CLAMP)
+                    & (zu.amin(dim=1, keepdim=True) - lse_u >= LOG_CLAMP))
+            from_sums = (_lse(zu + guidance * (zc - zu))
+                         - (lse_u + guidance * (lse_c - lse_u)))
+            lse = torch.where(free, from_sums, lse)
         r = torch.clamp_min(ln - lse, LOG_CLAMP)
     else:
         r = lc
@@ -126,191 +129,59 @@ def fused_sample_step_reference(
         score, score_mask = post + g[:, :K - 1], post_mask + g[:, K - 1:]
     best_val, best = score.max(dim=1)        # first index on ties
     new_tokens = torch.where(score_mask[:, 0] > best_val, K - 1, best)
-    if return_posterior:
-        return new_tokens, torch.cat([post, post_mask], dim=1)
-    return new_tokens
+    out = ((new_tokens, torch.cat([post, post_mask], dim=1))
+           if return_posterior else new_tokens)
+    return out, free[:, 0]
 
 
-def _sample_step_kernel(
-        logits_ptr, stride_b, stride_k, stride_l, tok_ptr, sched_ptr, out_ptr,
-        post_ptr, B, L, KV, seed, guidance,
-        USE_CFG: "tl.constexpr", SAMPLE: "tl.constexpr",
-        WRITE_POST: "tl.constexpr", BLOCK_L: "tl.constexpr",
-        BLOCK_K: "tl.constexpr"):
-    # Triton source: compiled by _build_kernel(); KV = K-1 valid classes,
-    # the MASK class is index KV.
-    pid_b = tl.program_id(0)
-    offs_l = tl.program_id(1) * BLOCK_L + tl.arange(0, BLOCK_L)
-    l_ok = offs_l < L
-    ar_k = tl.arange(0, BLOCK_K)
-    b64 = pid_b.to(tl.int64)
-    # the row's Philox key: the seed's low 32 bits, the row in the high 32
-    key = (b64 << 32) | (seed.to(tl.int64) & 0xFFFFFFFF)
-    base_c = logits_ptr + b64 * stride_b
-    base_u = logits_ptr + (b64 + B) * stride_b
-    row_off = offs_l.to(tl.int64) * stride_l
+def fused_sample_step_reference(
+        logits2: torch.Tensor, tokens: torch.Tensor, sched_row: torch.Tensor,
+        seed: int, *, guidance: float, num_classes: int, sample: bool = True,
+        return_posterior: bool = False):
+    """Plain PyTorch version of the kernel, in the TPU kernel's order of
+    clamps. Same signature as :func:`fused_sample_step`; the Gumbel noise
+    comes from a ``torch.Generator`` on the logits' device seeded by
+    ``seed``."""
+    return _step(logits2, tokens, sched_row, seed, guidance=guidance,
+                 num_classes=num_classes, sample=sample,
+                 return_posterior=return_posterior,
+                 guided_from_pass0=False)[0]
 
-    # pass 1: log-softmax normalisers of the cond / uncond logits
-    m_c = tl.full((BLOCK_L,), float("-inf"), tl.float32)
-    s_c = tl.zeros((BLOCK_L,), tl.float32)
-    m_u = tl.full((BLOCK_L,), float("-inf"), tl.float32)
-    s_u = tl.zeros((BLOCK_L,), tl.float32)
-    for k0 in range(0, KV, BLOCK_K):
-        offs_k = k0 + ar_k
-        k_ok = offs_k < KV
-        offs = row_off[:, None] + offs_k[None, :].to(tl.int64) * stride_k
-        ld = l_ok[:, None] & k_ok[None, :]
-        x = tl.load(base_c + offs, mask=ld, other=0.0).to(tl.float32)
-        x = tl.where(k_ok[None, :], x, float("-inf"))
-        m_new = tl.maximum(m_c, tl.max(x, axis=1))
-        s_c = s_c * tl.exp(m_c - m_new) + tl.sum(
-            tl.exp(x - m_new[:, None]), axis=1)
-        m_c = m_new
-        if USE_CFG:
-            x = tl.load(base_u + offs, mask=ld, other=0.0).to(tl.float32)
-            x = tl.where(k_ok[None, :], x, float("-inf"))
-            m_new = tl.maximum(m_u, tl.max(x, axis=1))
-            s_u = s_u * tl.exp(m_u - m_new) + tl.sum(
-                tl.exp(x - m_new[:, None]), axis=1)
-            m_u = m_new
-    lse_c = tl.log(s_c) + m_c
-    lse_u = tl.log(s_u) + m_u
 
-    # pass 2: normaliser of the guided log-probs
-    lse_n = tl.zeros((BLOCK_L,), tl.float32)
-    if USE_CFG:
-        m_n = tl.full((BLOCK_L,), float("-inf"), tl.float32)
-        s_n = tl.zeros((BLOCK_L,), tl.float32)
-        for k0 in range(0, KV, BLOCK_K):
-            offs_k = k0 + ar_k
-            k_ok = offs_k < KV
-            offs = row_off[:, None] + offs_k[None, :].to(tl.int64) * stride_k
-            ld = l_ok[:, None] & k_ok[None, :]
-            lc = tl.maximum(
-                tl.load(base_c + offs, mask=ld, other=0.0).to(tl.float32)
-                - lse_c[:, None], -70.0)
-            lu = tl.maximum(
-                tl.load(base_u + offs, mask=ld, other=0.0).to(tl.float32)
-                - lse_u[:, None], -70.0)
-            ln = tl.where(k_ok[None, :], lu + guidance * (lc - lu),
-                          float("-inf"))
-            m_new = tl.maximum(m_n, tl.max(ln, axis=1))
-            s_n = s_n * tl.exp(m_n - m_new) + tl.sum(
-                tl.exp(ln - m_new[:, None]), axis=1)
-            m_n = m_new
-        lse_n = tl.log(s_n) + m_n
-
-    # the schedule row and the one-hot x_t
-    s0 = tl.load(sched_ptr + 0)
-    s1 = tl.load(sched_ptr + 1)
-    s2 = tl.load(sched_ptr + 2)
-    s3 = tl.load(sched_ptr + 3)
-    s4 = tl.load(sched_ptr + 4)
-    s5 = tl.load(sched_ptr + 5)
-    s6 = tl.load(sched_ptr + 6)
-    s7 = tl.load(sched_ptr + 7)
-    s8 = tl.load(sched_ptr + 8)
-    s9 = tl.load(sched_ptr + 9)
-    mx = tl.maximum(s0, s1)
-    qt_v = mx + tl.log(tl.exp(s0 - mx) + tl.exp(s1 - mx))
-    mx = tl.maximum(s3, s4)
-    qt1_v = mx + tl.log(tl.exp(s3 - mx) + tl.exp(s4 - mx))
-    tok = tl.load(tok_ptr + b64 * L + offs_l, mask=l_ok, other=0)
-    is_mask = tok == KV
-
-    # pass 3: normaliser of q = r - log q(x_t | x_0), with the MASK row's
-    # log(1e-30) term folded in as the starting value
-    m_q = tl.full((BLOCK_L,), -69.07755278982137, tl.float32)
-    s_q = tl.full((BLOCK_L,), 1.0, tl.float32)
-    for k0 in range(0, KV, BLOCK_K):
-        offs_k = k0 + ar_k
-        k_ok = offs_k < KV
-        offs = row_off[:, None] + offs_k[None, :].to(tl.int64) * stride_k
-        ld = l_ok[:, None] & k_ok[None, :]
-        r = tl.maximum(
-            tl.load(base_c + offs, mask=ld, other=0.0).to(tl.float32)
-            - lse_c[:, None], -70.0)
-        if USE_CFG:
-            lu = tl.maximum(
-                tl.load(base_u + offs, mask=ld, other=0.0).to(tl.float32)
-                - lse_u[:, None], -70.0)
-            r = tl.maximum(lu + guidance * (r - lu) - lse_n[:, None], -70.0)
-        is_v = offs_k[None, :] == tok[:, None]
-        log_qt = tl.where(is_mask[:, None], s2, tl.where(is_v, qt_v, s1))
-        q = tl.where(k_ok[None, :], r - log_qt, float("-inf"))
-        m_new = tl.maximum(m_q, tl.max(q, axis=1))
-        s_q = s_q * tl.exp(m_q - m_new) + tl.sum(
-            tl.exp(q - m_new[:, None]), axis=1)
-        m_q = m_new
-    lse_q = tl.log(s_q) + m_q
-
-    # pass 4: posterior over the K-1 classes and a running (Gumbel-)argmax
-    best_val = tl.full((BLOCK_L,), float("-inf"), tl.float32)
-    best_idx = tl.zeros((BLOCK_L,), tl.int32)
-    for k0 in range(0, KV, BLOCK_K):
-        offs_k = k0 + ar_k
-        k_ok = offs_k < KV
-        offs = row_off[:, None] + offs_k[None, :].to(tl.int64) * stride_k
-        ld = l_ok[:, None] & k_ok[None, :]
-        r = tl.maximum(
-            tl.load(base_c + offs, mask=ld, other=0.0).to(tl.float32)
-            - lse_c[:, None], -70.0)
-        if USE_CFG:
-            lu = tl.maximum(
-                tl.load(base_u + offs, mask=ld, other=0.0).to(tl.float32)
-                - lse_u[:, None], -70.0)
-            r = tl.maximum(lu + guidance * (r - lu) - lse_n[:, None], -70.0)
-        is_v = offs_k[None, :] == tok[:, None]
-        log_qt = tl.where(is_mask[:, None], s2, tl.where(is_v, qt_v, s1))
-        log_qt1 = tl.where(is_mask[:, None], s5, tl.where(is_v, qt1_v, s4))
-        a = r - log_qt - lse_q[:, None] + s6
-        ma = tl.maximum(a, s7)
-        post = (ma + tl.log(tl.exp(a - ma) + tl.exp(s7 - ma)) + log_qt1
-                + lse_q[:, None])
-        post = tl.minimum(tl.maximum(post, -70.0), 0.0)
-        if WRITE_POST:
-            p_offs = ((b64 * (KV + 1) + offs_k[None, :]) * L
-                      + offs_l[:, None])
-            tl.store(post_ptr + p_offs, post, mask=ld)
-        score = post
-        if SAMPLE:
-            u = tl.rand(key, offs_k[None, :] * L + offs_l[:, None])
-            score = post - tl.log(-tl.log(u + 1e-30) + 1e-30)
-        score = tl.where(k_ok[None, :], score, float("-inf"))
-        c_best = tl.max(score, axis=1)
-        c_idx = tl.min(tl.where(score == c_best[:, None], offs_k[None, :],
-                                2147483647), axis=1)
-        upd = c_best > best_val
-        best_idx = tl.where(upd, c_idx, best_idx)
-        best_val = tl.where(upd, c_best, best_val)
-
-    # the MASK row
-    a = -69.07755278982137 - lse_q + s9
-    mx = tl.maximum(a, s8)
-    pm = (mx + tl.log(tl.exp(a - mx) + tl.exp(s8 - mx))
-          + tl.where(is_mask, 0.0, -69.07755278982137) + lse_q)
-    pm = tl.minimum(tl.maximum(pm, -70.0), 0.0)
-    if WRITE_POST:
-        tl.store(post_ptr + (b64 * (KV + 1) + KV) * L + offs_l, pm,
-                 mask=l_ok)
-    if SAMPLE:
-        u = tl.rand(key, KV * L + offs_l)
-        pm = pm - tl.log(-tl.log(u + 1e-30) + 1e-30)
-    new = tl.where(pm > best_val, KV, best_idx)
-    tl.store(out_ptr + b64 * L + offs_l, new.to(tl.int64), mask=l_ok)
+def fused_sample_step_kernel_arithmetic(
+        logits2: torch.Tensor, tokens: torch.Tensor, sched_row: torch.Tensor,
+        seed: int, *, guidance: float, num_classes: int, sample: bool = True,
+        return_posterior: bool = False):
+    """:func:`fused_sample_step_reference` with the guided normaliser taken
+    as the kernel takes it: under guidance, where neither branch has a class
+    under the -70 clamp (pass 0's minima), from the log-sum-exp of the
+    guided logits ``zu + g (zc - zu)`` less ``lse_u + g (lse_c - lse_u)``;
+    elsewhere by the full pass. Every log-sum-exp is a maximum, then a sum.
+    The noise is the plain version's. Returns the step's result and the
+    (B, L) mask of the positions where the rule held. For the tests; no path
+    of the port runs it."""
+    return _step(logits2, tokens, sched_row, seed, guidance=guidance,
+                 num_classes=num_classes, sample=sample,
+                 return_posterior=return_posterior, guided_from_pass0=True)
 
 
 @functools.cache
-def _build_kernel():
-    global tl
-    import triton
-    import triton.language
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("sample_step.cu")
+    lib.fused_sample_step.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    lib.fused_sample_step.restype = ctypes.c_int
+    lib.sample_step_max_classes.argtypes = []
+    lib.sample_step_max_classes.restype = ctypes.c_int
+    lib.sample_step_blocks_per_sm.argtypes = [ctypes.c_int]
+    lib.sample_step_blocks_per_sm.restype = ctypes.c_int
+    if lib.sample_step_max_classes() != MAX_CLASSES:
+        raise RuntimeError("csrc/sample_step.cu takes another K-1 than "
+                           "MAX_CLASSES")
+    return lib
 
-    tl = triton.language
-    # an int argument is specialised on its value (== 1, % 16): the batch
-    # and the per-step seed would otherwise compile new variants mid-run
-    return triton.jit(_sample_step_kernel,
-                      do_not_specialize=["seed", "B"])
 
 
 def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
@@ -320,12 +191,13 @@ def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
     """One fused reverse step.
 
     logits2: (B or 2B, K-1, L) f32 denoiser logits ([cond; uncond] when 2B),
-    any strides (the denoiser hands over a transposed view); tokens: (B, L)
-    int64 current x_t; sched_row: (10,) f32 row of :func:`schedule_rows`;
-    seed: int. Returns new tokens (B, L) int64 (+ the (B, K, L) posterior if
-    asked). CPU tensors take the plain version; CUDA tensors launch the
-    Triton kernel and count the launch in ``fused_sample_step.launches``.
-    """
+    the class axis contiguous, any batch-row and position strides (the
+    denoiser hands over a transposed view); tokens: (B, L) int64 current
+    x_t; sched_row: (10,) f32 row of :func:`schedule_rows`; seed: int.
+    Returns new tokens (B, L) int64 (+ the (B, K, L) posterior if asked).
+    CPU tensors take the plain version; CUDA tensors launch the kernel and
+    count the launch in ``fused_sample_step.launches``, and raise on a layout
+    or size the kernel does not take (K-1 above :data:`MAX_CLASSES`)."""
     if logits2.device.type == "cpu":
         return fused_sample_step_reference(
             logits2, tokens, sched_row, seed, guidance=guidance,
@@ -333,8 +205,11 @@ def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
             return_posterior=return_posterior)
     b, L = tokens.shape
     nb, kv, lg = logits2.shape
-    if logits2.device.type != "cuda":
-        raise ValueError(f"fused_sample_step: no kernel for {logits2.device}")
+    if (logits2.device.type != "cuda"
+            or logits2.device.index != torch.cuda.current_device()):
+        raise ValueError(f"fused_sample_step: no kernel for {logits2.device}"
+                         f" (the current device is "
+                         f"cuda:{torch.cuda.current_device()})")
     if (tokens.device != logits2.device or sched_row.device != logits2.device):
         raise ValueError("fused_sample_step: tensors on different devices")
     if logits2.dtype != torch.float32 or sched_row.dtype != torch.float32:
@@ -347,20 +222,30 @@ def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
         raise ValueError(f"fused_sample_step: logits2 {tuple(logits2.shape)}"
                          f" does not fit tokens {tuple(tokens.shape)} and "
                          f"K={num_classes}")
-    if num_classes * L >= 2 ** 31:
-        raise ValueError("fused_sample_step: K*L exceeds the int32 "
-                         "Philox counter of a row")
-    kernel = _build_kernel()
+    if logits2.stride(1) != 1:
+        raise ValueError(f"fused_sample_step: the class axis of logits2 must "
+                         f"be contiguous (strides {logits2.stride()})")
+    if kv > MAX_CLASSES or b > 65535:
+        raise ValueError(f"fused_sample_step: K-1 = {kv} (at most "
+                         f"{MAX_CLASSES}) or B = {b} (at most 65535) is "
+                         f"beyond the kernel")
     out = torch.empty((b, L), dtype=torch.int64, device=logits2.device)
     post = (torch.empty((b, num_classes, L), dtype=torch.float32,
-                        device=logits2.device) if return_posterior else out)
-    grid = (b, (L + _BLOCK_L - 1) // _BLOCK_L)
-    kernel[grid](
-        logits2, logits2.stride(0), logits2.stride(1), logits2.stride(2),
-        tokens, sched_row, out, post, b, L, kv, int(seed), float(guidance),
-        USE_CFG=nb == 2 * b, SAMPLE=bool(sample),
-        WRITE_POST=bool(return_posterior), BLOCK_L=_BLOCK_L,
-        BLOCK_K=_BLOCK_K, num_warps=_NUM_WARPS)
+                        device=logits2.device) if return_posterior else None)
+    # 16-byte loads where every row starts on 16 bytes
+    vec = (logits2.data_ptr() % 16 == 0 and logits2.stride(0) % 4 == 0
+           and logits2.stride(2) % 4 == 0)
+    seed = int(seed)
+    err = _library().fused_sample_step(
+        logits2.data_ptr(), logits2.stride(0), logits2.stride(2),
+        tokens.data_ptr(), sched_row.data_ptr(), out.data_ptr(),
+        None if post is None else post.data_ptr(), b, L, kv, int(nb == 2 * b),
+        int(bool(sample)), int(vec), seed & 0xFFFFFFFF,
+        (seed >> 32) & 0xFFFFFFFF, float(guidance),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_sample_step launch failed: cudaError "
+                           f"{err}")
     fused_sample_step.launches += 1
     return (out, post) if return_posterior else out
 

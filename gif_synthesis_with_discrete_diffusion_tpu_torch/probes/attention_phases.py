@@ -23,9 +23,6 @@ def run(root: str) -> None:
     import torch
 
     import chip_smoke as cs
-    pkg = "gif_synthesis_with_discrete_diffusion_tpu_torch"
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          str(cs.ROOT / pkg / "_build" / "triton"))
     t0 = time.perf_counter()
     smi = cs.phase_environment(torch)
     cs.phase_slice(torch, smi)

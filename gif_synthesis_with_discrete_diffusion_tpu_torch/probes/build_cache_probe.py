@@ -2,20 +2,18 @@
 
 The counterpart of ``scripts/compile_cache_probe.py`` for an NVIDIA card.
 The port builds its CUDA sources with nvcc at first use (``ops/cuda_build
-.py``: a shared library named by a hash of source and flags) and Triton
-keeps its compiled kernels under ``TRITON_CACHE_DIR``. This probe runs two
-child processes in turn on one fresh build directory and one fresh Triton
-cache:
+.py``: a shared library named by a hash of source and flags). This probe
+runs two child processes in turn on one fresh build directory:
 
 * phase A: builds ``csrc/probe_kernels.cu`` and runs the probe product
-  (P1), then JIT-compiles and launches the sampler-step kernel (K1) once;
-  records the two first-call times;
-* phase B: the same, in a new process on the same directories.
+  (P1), then builds ``csrc/sample_step.cu`` and launches the sampler-step
+  kernel (K1) once; records the builds' and first calls' times;
+* phase B: the same, in a new process on the same directory.
 
-The verdict says whether B skipped both builds (no nvcc run, no new file in
-the Triton cache) and still computed the right values (each kernel against
-its plain version, in both phases). A child that hangs is a failure with
-its traceback (``faulthandler``), not something to wait out.
+The verdict says whether B ran no nvcc for either library and still
+computed the right values (each kernel against its plain version, in both
+phases). A child that hangs is a failure with its traceback
+(``faulthandler``), not something to wait out.
 
     python -m gif_synthesis_with_discrete_diffusion_tpu_torch.probes.build_cache_probe [--out PATH]
 """
@@ -39,18 +37,19 @@ _PKG = Path(__file__).resolve().parents[1].name
 
 _CHILD = r"""
 import faulthandler, json, os, sys, time
+from pathlib import Path
 faulthandler.dump_traceback_later(int(os.environ["PROBE_HANG_DUMP_S"]),
                                   exit=True)
 sys.path.insert(0, os.environ["PROBE_ROOT"])
 import torch
 from PKG.models.d3pm import make_schedule
+from PKG.ops import cuda_build
 from PKG.ops import probe_kernels as pk
-from PKG.ops.sampler_kernel import (fused_sample_step,
-                                    fused_sample_step_reference,
-                                    schedule_rows)
+from PKG.ops import sampler_kernel as sk
 
 build_dir = os.environ["PROBE_BUILD_DIR"]
-triton_dir = os.environ["TRITON_CACHE_DIR"]
+# every build of this process goes to the probe's directory
+cuda_build.BUILD_DIR = Path(build_dir)
 count = lambda d: sum(len(f) for _, _, f in os.walk(d))
 torch.backends.cuda.matmul.allow_tf32 = False
 out = {"device": torch.cuda.get_device_name(0)}
@@ -67,19 +66,20 @@ out["nvcc_build_s"] = pk._library(build_dir).build_seconds
 out["p1_sum"] = value
 out["p1_right"] = bool(torch.equal(o, pk.probe_matmul_reference(a)))
 
-# K1: Triton's compile and the first launch (argmax mode, a small shape)
+# K1: the nvcc build and the first launch (argmax mode, a small shape)
 k, b, length = 4097, 2, 256
 g = torch.Generator(device="cuda").manual_seed(0)
 logits2 = (3.0 * torch.randn((2 * b, length, k - 1), generator=g,
                              device="cuda")).transpose(1, 2)
 tokens = torch.randint(0, k, (b, length), generator=g, device="cuda")
-row = schedule_rows(make_schedule(100, k, device="cuda"))[50]
+row = sk.schedule_rows(make_schedule(100, k, device="cuda"))[50]
 kw = dict(guidance=2.0, num_classes=k, sample=False, return_posterior=True)
 t0 = time.perf_counter()
-tok, post = fused_sample_step(logits2, tokens, row, 5, **kw)
+tok, post = sk.fused_sample_step(logits2, tokens, row, 5, **kw)
 torch.cuda.synchronize()
 out["k1_first_call_s"] = time.perf_counter() - t0
-tok_p, post_p = fused_sample_step_reference(logits2, tokens, row, 5, **kw)
+out["k1_nvcc_build_s"] = sk._library().build_seconds
+tok_p, post_p = sk.fused_sample_step_reference(logits2, tokens, row, 5, **kw)
 top2 = post_p.topk(2, dim=1).values
 decided = (top2[:, 0] - top2[:, 1]) > 1e-4
 out["k1_token_sum"] = int(tok.sum())
@@ -89,24 +89,21 @@ out["k1_right"] = bool(((post - post_p).abs().max() <= 1e-4)
 # both again: free either way
 t0 = time.perf_counter()
 float(pk.probe_matmul(a, build_dir=build_dir).sum())
-fused_sample_step(logits2, tokens, row, 5, **kw)
+sk.fused_sample_step(logits2, tokens, row, 5, **kw)
 torch.cuda.synchronize()
 out["second_calls_s"] = time.perf_counter() - t0
 out["p1_launches"] = pk.probe_matmul.launches
-out["k1_launches"] = fused_sample_step.launches
+out["k1_launches"] = sk.fused_sample_step.launches
 out["build_files"] = count(build_dir)
-out["triton_cache_files"] = count(triton_dir)
 print("PROBE_RESULT " + json.dumps(out))
 """.replace("PKG", _PKG)
 
 
-def run_child(build_dir: str, triton_dir: str, timeout: float,
-              hang_dump_s: int) -> dict:
-    """One phase: a new Python process on the two directories. Returns its
+def run_child(build_dir: str, timeout: float, hang_dump_s: int) -> dict:
+    """One phase: a new Python process on the build directory. Returns its
     readings, or ``ok: False`` with the tail of its output (``hung: True``
     when it had to be killed at ``timeout``)."""
-    env = dict(os.environ, PROBE_BUILD_DIR=build_dir,
-               TRITON_CACHE_DIR=triton_dir, PROBE_ROOT=str(_ROOT),
+    env = dict(os.environ, PROBE_BUILD_DIR=build_dir, PROBE_ROOT=str(_ROOT),
                PROBE_HANG_DUMP_S=str(hang_dump_s))
     t0 = time.perf_counter()
     try:
@@ -141,16 +138,14 @@ def verdict(a: dict, b: dict) -> tuple[bool, str]:
         and a["k1_token_sum"] == b["k1_token_sum"]
     if not right:
         return False, "WRONG VALUES: a kernel disagrees with its plain version"
-    nvcc = a["nvcc_build_s"] > 0 and b["nvcc_build_s"] == 0
-    triton = 0 < a["triton_cache_files"] == b["triton_cache_files"]
-    if nvcc and triton:
-        return True, ("BUILDS REUSED: phase B ran no nvcc and added nothing "
-                      "to the Triton cache, and computed the same, right "
-                      "values")
-    return False, ("right values, but phase B "
-                   + ("rebuilt the CUDA source" if not nvcc else "")
-                   + (" and " if not nvcc and not triton else "")
-                   + ("recompiled the Triton kernel" if not triton else ""))
+    rebuilt = [name for name, key in (("the probe kernels", "nvcc_build_s"),
+                                      ("the sampler kernel",
+                                       "k1_nvcc_build_s"))
+               if not (a[key] > 0 and b[key] == 0)]
+    if not rebuilt:
+        return True, ("BUILDS REUSED: phase B ran no nvcc for either "
+                      "library, and computed the same, right values")
+    return False, "right values, but phase B rebuilt " + " and ".join(rebuilt)
 
 
 def probe(timeout: float = 300.0, hang_dump_s: int = 240, log=print) -> dict:
@@ -158,14 +153,13 @@ def probe(timeout: float = 300.0, hang_dump_s: int = 240, log=print) -> dict:
     ``{a, b, reused, verdict, card}``."""
     require_cuda("the build-cache probe")
     with tempfile.TemporaryDirectory(prefix="buildprobe_") as top:
-        dirs = [os.path.join(top, d) for d in ("build", "triton")]
-        for d in dirs:
-            os.makedirs(d)
-        log("phase A (fresh directories)...")
-        a = run_child(*dirs, timeout, hang_dump_s)
+        build = os.path.join(top, "build")
+        os.makedirs(build)
+        log("phase A (a fresh directory)...")
+        a = run_child(build, timeout, hang_dump_s)
         log(json.dumps(a))
-        log("phase B (the same directories, a new process)...")
-        b = run_child(*dirs, timeout, hang_dump_s)
+        log("phase B (the same directory, a new process)...")
+        b = run_child(build, timeout, hang_dump_s)
         log(json.dumps(b))
     reused, sentence = verdict(a, b)
     log(sentence)

@@ -55,15 +55,26 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k,L,guidance,t", [
-    (17, 40, 2.0, 7), (17, 40, 1.0, 0), (4097, 256, 2.0, 99),
-    (4097, 256, 2.0, 0), (4097, 200, 1.0, 50)])
-def test_sampler_step_kernel_matches_plain(cuda, k, L, guidance, t):
+@pytest.mark.parametrize("k,L,guidance,t,scale", [
+    (17, 40, 2.0, 7, 3.0), (17, 40, 1.0, 0, 3.0), (4097, 256, 2.0, 99, 3.0),
+    (4097, 256, 2.0, 0, 3.0), (4097, 200, 1.0, 50, 3.0),
+    # the half config's codebook; K-1 no multiple of 4 (element loads); K-1
+    # below a float4 a thread
+    (2049, 300, 2.0, 30, 3.0), (4094, 200, 2.0, 60, 3.0),
+    (10, 40, 2.0, 3, 3.0),
+    # 3, 5 and 7 chunks of 1024 classes a row, rounded up to 4 and 8: chunks
+    # of padding before the last
+    (2501, 200, 2.0, 30, 3.0), (5001, 100, 2.0, 40, 3.0),
+    (7001, 64, 1.0, 20, 3.0),
+    # logits this wide put classes under the -70 clamp: the guided
+    # normaliser takes the full pass
+    (4097, 128, 2.0, 40, 30.0), (17, 40, 2.0, 5, 30.0)])
+def test_sampler_step_kernel_matches_plain(cuda, k, L, guidance, t, scale):
     B = 2
     g = torch.Generator(device=cuda).manual_seed(k + L + t)
     nb = 2 * B if guidance != 1.0 else B
-    logits2 = (3.0 * torch.randn((nb, L, k - 1), generator=g,
-                                 device=cuda)).transpose(1, 2)
+    logits2 = (scale * torch.randn((nb, L, k - 1), generator=g,
+                                   device=cuda)).transpose(1, 2)
     tokens = torch.randint(0, k, (B, L), generator=g, device=cuda)
     row = schedule_rows(make_schedule(100, k, device=cuda))[t]
     kw = dict(guidance=guidance, num_classes=k, sample=False,
@@ -77,6 +88,24 @@ def test_sampler_step_kernel_matches_plain(cuda, k, L, guidance, t):
     top2 = post_p.topk(2, dim=1).values
     decided = (top2[:, 0] - top2[:, 1]) > K1_TOL
     assert not ((tok_k != tok_p) & decided).any()
+
+
+def test_sampler_step_kernel_refuses_what_it_does_not_take(cuda):
+    """A class axis that is not contiguous, and K-1 above the rows the
+    kernel holds in registers, raise: the wrapper never copies the
+    logits."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import MAX_CLASSES
+    row = schedule_rows(make_schedule(100, 17, device=cuda))[3]
+    tokens = torch.zeros((2, 8), dtype=torch.int64, device=cuda)
+    strided = torch.randn((4, 16, 8), device=cuda)   # (nb, K-1, L) contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_sample_step(strided, tokens, row, 1, guidance=2.0,
+                          num_classes=17)
+    k = MAX_CLASSES + 2
+    big = torch.randn((2, 8, k - 1), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="beyond the kernel"):
+        fused_sample_step(big, tokens, row, 1, guidance=1.0, num_classes=k)
 
 
 def test_sampler_step_kernel_samples_in_range_and_by_seed(cuda):
@@ -274,7 +303,9 @@ def test_drift_bounds_hold_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("n,k,d", [
-    (96, 16, 16), (1000, 300, 128), (64, 257, 130), (16384, 4096, 128)])
+    (96, 16, 16), (1000, 300, 128), (64, 257, 130), (16384, 4096, 128),
+    # D no multiple of 8 (and of 4: element copies of E), D at its limit
+    (500, 600, 20), (300, 700, 30), (200, 300, 384)])
 def test_codebook_kernel_matches_plain(cuda, n, k, d):
     g = torch.Generator(device=cuda).manual_seed(n + k)
     x = torch.randn((n, d), generator=g, device=cuda)
@@ -291,6 +322,14 @@ def test_codebook_kernel_matches_plain(cuda, n, k, d):
     want_n, want_sum = code_stats_reference(x, idx, k)
     torch.testing.assert_close(n_total, want_n, rtol=0, atol=0)
     torch.testing.assert_close(encode_sum, want_sum, rtol=K6_TOL, atol=K6_TOL)
+
+
+@pytest.mark.parametrize("d", [128, 130])
+def test_codebook_kernel_ties_keep_the_first_code(cuda, d):
+    """Codes repeated in another E tile (131 and 300 codes on): the rows
+    whose nearest code is repeated take its first copy, and every decided
+    row agrees with the plain version."""
+    chip_smoke._check_k6_duplicates(torch, 3000, 1000, d)
 
 
 def test_small_training_step_on_the_card_matches_the_cpu(cuda):

@@ -59,3 +59,13 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_port_carries_no_triton_kernel():
+    """Every kernel of the port is CUDA C++ under ``csrc/``, built by nvcc:
+    no module of the package, and not chip_smoke.py, imports Triton."""
+    sources = [*(ROOT / PKG).rglob("*.py"), ROOT / "chip_smoke.py"]
+    found = [str(p.relative_to(ROOT)) for p in sources
+             if "import triton" in p.read_text()
+             or "from triton" in p.read_text()]
+    assert not found, found

@@ -166,16 +166,18 @@ def test_probes_need_a_cuda_device():
 
 
 _GOOD = dict(ok=True, hung=False, p1_right=True, k1_right=True, p1_sum=1.0,
-             k1_token_sum=7, nvcc_build_s=3.1, triton_cache_files=9)
+             k1_token_sum=7, nvcc_build_s=3.1, k1_nvcc_build_s=2.4)
 
 
 @pytest.mark.parametrize("change_b,reused,word", [
-    (dict(nvcc_build_s=0.0), True, "REUSED"),
-    (dict(), False, "rebuilt the CUDA source"),
-    (dict(nvcc_build_s=0.0, triton_cache_files=18), False,
-     "recompiled the Triton kernel"),
-    (dict(nvcc_build_s=0.0, k1_right=False), False, "WRONG VALUES"),
-    (dict(nvcc_build_s=0.0, k1_token_sum=8), False, "WRONG VALUES"),
+    (dict(nvcc_build_s=0.0, k1_nvcc_build_s=0.0), True, "REUSED"),
+    (dict(k1_nvcc_build_s=0.0), False, "rebuilt the probe kernels"),
+    (dict(nvcc_build_s=0.0), False, "rebuilt the sampler kernel"),
+    (dict(), False, "rebuilt the probe kernels and the sampler kernel"),
+    (dict(nvcc_build_s=0.0, k1_nvcc_build_s=0.0, k1_right=False), False,
+     "WRONG VALUES"),
+    (dict(nvcc_build_s=0.0, k1_nvcc_build_s=0.0, k1_token_sum=8), False,
+     "WRONG VALUES"),
     (dict(ok=False, hung=True, tail="Thread 0x..."), False, "HANG: phase B"),
     (dict(ok=False), False, "probe error"),
 ])
@@ -189,19 +191,19 @@ def test_build_cache_child_reports_a_failure_and_a_hang(monkeypatch):
     killed at the time limit and comes back as hung."""
     monkeypatch.setattr(build_cache_probe, "_CHILD",
                         "import sys; print('boom'); sys.exit(3)")
-    res = build_cache_probe.run_child("b", "t", 60.0, 50)
+    res = build_cache_probe.run_child("b", 60.0, 50)
     assert res["ok"] is False and res["hung"] is False
     assert "boom" in res["tail"]
     monkeypatch.setattr(build_cache_probe, "_CHILD",
                         "import time; time.sleep(60)")
-    res = build_cache_probe.run_child("b", "t", 1.0, 50)
+    res = build_cache_probe.run_child("b", 1.0, 50)
     assert res["ok"] is False and res["hung"] is True
 
 
 def test_build_cache_child_imports_only_the_port():
     src = build_cache_probe._CHILD
     compile(src, "<child>", "exec")
-    assert "jax" not in src and "flax" not in src
+    assert "jax" not in src and "flax" not in src and "triton" not in src
     assert "gif_synthesis_with_discrete_diffusion_tpu_torch.ops" in src
     assert "gif_synthesis_with_discrete_diffusion_tpu." not in src
 
@@ -245,3 +247,75 @@ def test_exp_probe_needs_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             exp_probe.probe()
+
+
+def test_sampler_codebook_variants_edit_the_shipped_sources():
+    """Each variant of the in-turns probe is a set of text replacements
+    whose old text occurs once in its kernel's source, so it still builds
+    after the shipped source changes; without a card the probe raises."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        sampler_codebook_variants as scv)
+    for name, (kernel, edits) in scv.VARIANTS.items():
+        text = (cuda_build.CSRC / scv.SOURCES[kernel][0]).read_text()
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            scv.compare(None, ("k1_blocks3",), rounds=1)
+
+
+def test_chip_smoke_names_each_kernels_registers(monkeypatch):
+    """Phase 1 prints nvcc's registers and spills kernel by kernel, each
+    name passed once through the toolkit's demangler (here a stand-in)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    seen = []
+    monkeypatch.setattr(chip_smoke, "_demangled", lambda names: (
+        seen.append(names) or [n.upper() for n in names]))
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118"
+           "sample_step_kernelILi4ELb1ELb1EEEvNS_6ParamsE' for 'sm_90a'\n"
+           "    24 bytes stack frame, 24 bytes spill stores, 20 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_Z19probe_matmul_"
+           "kernelPKfPfi' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 40 registers, used 1 barriers\n")
+    names = ["_ZN12_GLOBAL__N_118sample_step_kernelILi4ELb1ELb1EEEvNS_"
+             "6ParamsE", "_Z19probe_matmul_kernelPKfPfi"]
+    assert chip_smoke._ptxas_by_kernel(log) == [
+        f"{names[0].upper()} 64 registers, 24 B spilled",
+        f"{names[1].upper()} 40 registers, 0 B spilled"]
+    assert seen == [names]
+
+
+def test_chip_smoke_times_the_parent_only_when_asked(monkeypatch, capsys):
+    """Phases 2 and 6 time K1 and K6 against another checkout only under
+    ``--parent ROOT``, and print nothing of a parent otherwise."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        sampler_codebook_variants as scv)
+    calls = []
+    reading = {"card": "a card, 700 W", "ms": {
+        "change": [{"K1": 1.0, "K6": 2.0}], "parent": [{"K1": 3.0,
+                                                        "K6": 4.0}]}}
+    monkeypatch.setattr(scv, "compare", lambda parent, **kw: (
+        calls.append(parent) or reading))
+    chip_smoke._parent_turns.cache_clear()
+    try:
+        chip_smoke._print_parent_turns("phase 2", "K1", None)
+        chip_smoke._print_parent_turns("phase 6", "K6", None)
+        assert calls == [] and capsys.readouterr().out == ""
+        chip_smoke._print_parent_turns("phase 2", "K1", "old")
+        chip_smoke._print_parent_turns("phase 6", "K6", "old")
+    finally:
+        chip_smoke._parent_turns.cache_clear()
+    out = capsys.readouterr().out.splitlines()
+    assert calls == ["old"]
+    assert out == [
+        "phase 2: K1 in turns with old (a card, 700 W): this checkout "
+        "1.0000 ms, old 3.0000 ms",
+        "phase 6: K6 in turns with old (a card, 700 W): this checkout "
+        "2.0000 ms, old 4.0000 ms"]

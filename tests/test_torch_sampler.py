@@ -11,8 +11,8 @@ from gif_synthesis_with_discrete_diffusion_tpu.ops.sampler_kernel import (
 from gif_synthesis_with_discrete_diffusion_tpu_torch.models import (
     d3pm as td3pm)
 from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
-    import (fused_sample_step, fused_sample_step_reference, sample_tokens,
-            schedule_rows)
+    import (fused_sample_step, fused_sample_step_kernel_arithmetic,
+            fused_sample_step_reference, sample_tokens, schedule_rows)
 
 T, L, B = 8, 12, 2
 # the posterior tolerance of tests/test_sampler_kernel.py
@@ -106,3 +106,66 @@ def test_sample_tokens_matches_sample_fused_in_argmax_mode():
                            sample=False)
     torch.testing.assert_close(a, b)
     assert (a != k - 1).all()                  # no MASK left after t=0
+
+
+@pytest.mark.parametrize("t", [0, T - 1])
+@pytest.mark.parametrize("guidance", [1.0, 2.0])
+@pytest.mark.parametrize("k", [10, 17])
+def test_kernel_arithmetic_matches_pallas_kernel(k, guidance, t):
+    """The CUDA kernel's arithmetic (every log-sum-exp a maximum, then a
+    sum; the guided normaliser from pass 0's sums where no class reaches the
+    clamp) against the Pallas kernel."""
+    logits, tokens = _inputs(20 * k + t, k, guidance)
+    want_tok, want_post = jax_fused_sample_step(
+        jnp.asarray(logits.transpose(0, 2, 1)),
+        jnp.asarray(tokens, jnp.int32), jax_rows(jd3pm.make_schedule(T, k))[t],
+        jnp.int32(0), guidance=guidance, num_classes=k, sample=False,
+        return_posterior=True, interpret=True)
+    (got_tok, got_post), free = fused_sample_step_kernel_arithmetic(
+        torch.from_numpy(logits).transpose(1, 2), torch.from_numpy(tokens),
+        schedule_rows(td3pm.make_schedule(T, k))[t], 0, guidance=guidance,
+        num_classes=k, sample=False, return_posterior=True)
+    assert bool(free.all())          # logits of scale 2: no class clamped
+    np.testing.assert_allclose(got_post.numpy(), np.asarray(want_post),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
+
+
+def test_kernel_arithmetic_takes_the_full_pass_where_a_class_is_clamped():
+    """Positions where some class's log-probability reaches -70 in either
+    branch take the full guided pass, and the posterior still agrees with
+    the Pallas kernel; there the guided normaliser from pass 0's sums would
+    be wrong."""
+    k, guidance, t = 17, 2.0, 3
+    logits, tokens = _inputs(5, k, guidance)
+    logits[0, 1, 3] = -150.0         # cond branch, row 0, position 1
+    logits[B + 1, 5, 0] = -150.0     # uncond branch, row 1, position 5
+    want_tok, want_post = jax_fused_sample_step(
+        jnp.asarray(logits.transpose(0, 2, 1)),
+        jnp.asarray(tokens, jnp.int32), jax_rows(jd3pm.make_schedule(T, k))[t],
+        jnp.int32(0), guidance=guidance, num_classes=k, sample=False,
+        return_posterior=True, interpret=True)
+    lg = torch.from_numpy(logits).transpose(1, 2)
+    (got_tok, got_post), free = fused_sample_step_kernel_arithmetic(
+        lg, torch.from_numpy(tokens), schedule_rows(td3pm.make_schedule(T, k))[t],
+        0, guidance=guidance, num_classes=k, sample=False,
+        return_posterior=True)
+    clamped = torch.zeros((B, L), dtype=torch.bool)
+    clamped[0, 1] = clamped[1, 5] = True
+    assert torch.equal(free, ~clamped)
+    np.testing.assert_allclose(got_post.numpy(), np.asarray(want_post),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
+    # the rule's normaliser against the true one: wrong where the uncond
+    # branch is clamped (its clamped class dominates lcf + g (lc - lcf)),
+    # right wherever no class is (the guard is conservative: a clamped cond
+    # class stays negligible at g = 2)
+    zc, zu = lg[:B].double(), lg[B:].double()
+    lse = lambda z: torch.logsumexp(z, dim=1)  # noqa: E731
+    lc = (zc - lse(zc)[:, None]).clamp_min(-70.0)
+    lu = (zu - lse(zu)[:, None]).clamp_min(-70.0)
+    true_n = lse(lu + guidance * (lc - lu))
+    rule_n = lse(zu + guidance * (zc - zu)) - (
+        lse(zu) + guidance * (lse(zc) - lse(zu)))
+    assert float((rule_n - true_n)[1, 5].abs()) > 100 * TOL
+    assert float((rule_n - true_n)[~clamped].abs().max()) < TOL
