@@ -5,8 +5,8 @@
 
     python3 chip_smoke.py --profile   # and a torch.profiler table of a
                                       # training step of each stage
-    python3 chip_smoke.py --parent ROOT   # and K1 and K6 timed in turns
-                                          # with the checkout at ROOT
+    python3 chip_smoke.py --parent ROOT   # and K1, K6, P1 and P2 timed in
+                                          # turns with the checkout at ROOT
 
 Phases:
   1. the card (nvidia-smi name and power limit), the torch / CUDA
@@ -55,17 +55,24 @@ Phases:
  10. the serving slice on the ``megakernel`` route: a small argmax run
      against the CPU, ``HONEST`` at B=32 (a B=4 warm-up first) through K3,
      and ``MSRVTT_GRID`` (2304 tokens) at B=8 through K4, 100 steps each.
- 11. the probe product (P1) against its plain version, timed, then 25
+ 11. the probe product (P1) against its plain version (n = 1 to 520, sizes
+     no multiple of its 32 x 16 tile or of 4 among them), timed, then 25
      launches of it and of ``torch.addmm`` each captured in a CUDA graph
-     and the replays timed in turns over 12 rounds; and the build-cache
-     probe: two child processes in turn on one fresh build directory, each
-     building and running P1 and K1; their first-call times and the verdict
-     on one line;
+     and the replays timed in turns over 12 rounds (with ``--parent ROOT``,
+     ROOT's P1 in turns, ``probes/probe_kernel_variants.py``); and the
+     build-cache probe: two child processes in turn on one fresh build
+     directory, each building and running P1 and K1; their first-call times
+     and the verdict on one line;
  12. the chain kernels (P2, P3) against their plain versions at ``iters``
      <= 4 (where sum(x) is far from 0), checksums included, at the QK shape
-     and at two depth-curve shapes; both timed at the QK shape; then the
-     depth / packing probe's three measurements, each with the share of the
-     exchange and of the grid barrier alone;
+     and at the depth-curve and packed shapes, each with its design (P2's
+     local design, x kept in every block, or the exchange through L2); P2's
+     final x bitwise the same in the first and the last block at the QK and
+     packed shapes; both timed at the QK shape, with a loop of the library's
+     products eager and replayed from a CUDA graph (and, with ``--parent
+     ROOT``, ROOT's P2 in turns); then the depth / packing probe's three
+     measurements, each with the share of the loop without products and of
+     its synchronisation alone;
  13. stage-1 training: a small step held against the same step on the CPU
      (loss, every gradient, the codebook's new buffers, the running
      statistics), then ``TRAIN_STEP1`` at B=64 on a fixed synthetic batch:
@@ -86,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib
 import json
 import math
 import re
@@ -473,21 +481,25 @@ def phase_k1(torch, smi: str, parent: str | None = None) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+# the probe that times each kernel in turns with another checkout's
+_TURN_PROBES = {"K1": "sampler_codebook_variants",
+                "K6": "sampler_codebook_variants",
+                "P1": "probe_kernel_variants", "P2": "probe_kernel_variants"}
+
+
 @functools.cache
-def _parent_turns(parent: str) -> dict:
-    """K1's and K6's times against those of the checkout at ``parent``, in
-    turns (``probes/sampler_codebook_variants.py``)."""
-    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
-        sampler_codebook_variants)
-    return sampler_codebook_variants.compare(parent, rounds=1,
-                                             log=lambda line: None)
+def _parent_turns(parent: str, probe: str) -> dict:
+    """The times of ``probe``'s kernels against those of the checkout at
+    ``parent``, in turns (``probes/<probe>.py``)."""
+    module = importlib.import_module(f"{PKG}.probes.{probe}")
+    return module.compare(parent, rounds=1, log=lambda line: None)
 
 
 def _print_parent_turns(phase: str, kernel: str, parent: str | None) -> None:
     """With ``--parent ROOT``, the kernel's times in turns with ROOT's."""
     if parent is None:
         return
-    res = _parent_turns(parent)
+    res = _parent_turns(parent, _TURN_PROBES[kernel])
     read = {side: " ".join(f"{x[kernel]:.4f}" for x in res["ms"][side])
             for side in ("change", "parent")}
     print(f"{phase}: {kernel} in turns with {parent} ({res['card']}): this "
@@ -1573,6 +1585,11 @@ def _check_chain(torch, phase: str, m: int, k: int, n: int, iters: int,
         probe_kernels as pk)
 
     x, w1, w2 = _chain_inputs(torch, m, k, n, m + k + n + iters, ones)
+    design = pk.device_chain_design(m, k, n, 2 if pair else 1)
+    if design != pk.chain_design(m, k, n, 2 if pair else 1,
+                                 _multiprocessors(torch)):
+        raise AssertionError(f"the launcher's design {design} is not "
+                             f"chain_design's")
     before = (pk.chain_matmul.launches, pk.pair_matmul.launches)
     if pair:
         got = pk.pair_matmul(x, w1, w2, iters, return_x=True)
@@ -1591,7 +1608,10 @@ def _check_chain(torch, phase: str, m: int, k: int, n: int, iters: int,
     c_scale = want[1].abs().max().item()
     name = "P3 pair" if pair else "P2 chain"
     print(f"{phase}: {name} ({m}, {k}) x ({k}, {n}), iters {iters}, x "
-          f"{'ones' if ones else 'N(0, 1)'}: sum(x) {got[0].item():.6g} vs "
+          f"{'ones' if ones else 'N(0, 1)'}, the {design.design} design "
+          f"({design.blocks} blocks of {design.slab} columns, "
+          f"{design.smem} B of shared memory a block): sum(x) "
+          f"{got[0].item():.6g} vs "
           f"plain {want[0].item():.6g} (error {s_err:.3e}, tol "
           f"{CHAIN_SUM_TOL * l1:.3e} = 2^-8 of sum |x|); final x max-abs "
           f"error {x_err:.3e} of {x_scale:.3e} (tol 2^-6 relative); checksum "
@@ -1606,6 +1626,37 @@ def _check_chain(torch, phase: str, m: int, k: int, n: int, iters: int,
             not c_err <= CHAIN_CHECK_TOL * c_scale:
         raise AssertionError(f"{name} disagrees with its plain version")
     return s_err
+
+
+def _multiprocessors(torch) -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
+def _check_chain_blocks(torch, phase: str, m: int, k: int, n: int,
+                        iters: int = 3) -> None:
+    """P2 in the local design: the final x of the first and of the last
+    block, bitwise equal."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+
+    design = pk.device_chain_design(m, k, n)
+    x, w1, _ = _chain_inputs(torch, m, k, n, 2 * m + k + n, False)
+    _, _, first, last = pk.chain_matmul(x, w1, iters, return_x=True,
+                                        last_block_x=True)
+    torch.cuda.synchronize()
+    bits = (first.view(torch.int16), last.view(torch.int16))
+    differ = int((bits[0] != bits[1]).sum())
+    print(f"{phase}: P2 ({m}, {k}) x ({k}, {n}), iters {iters}, the "
+          f"{design.design} design over {design.blocks} blocks: the final x "
+          f"of block 0 and of block {design.blocks - 1} differ in {differ} "
+          f"of {first.numel()} elements (bitwise); nonzero "
+          f"{int((first != 0).sum())}")
+    if design.design != "local":
+        raise AssertionError(f"P2 at ({m}, {k}) x ({k}, {n}) does not take "
+                             f"the local design")
+    if differ or not first.any():
+        raise AssertionError("P2's blocks hold different final x")
 
 
 def _check_probe_matmul(torch, phase: str, n: int) -> float:
@@ -1715,7 +1766,12 @@ def phase_megakernel_route(torch, smi: str, honest, msrvtt) -> dict:
     return launches
 
 
-def phase_p1(torch, smi: str) -> tuple[dict, dict]:
+# P1's checked sizes: one element, sizes no multiple of its 32 x 16 tile
+# or of 4 (element copies), the path's 256, and more chunks than its stages
+P1_SIZES = (1, 100, 255, 256, 300, 520)
+
+
+def phase_p1(torch, smi: str, parent: str | None = None) -> tuple[dict, dict]:
     """P1 against its plain version, timed; then the build-cache probe.
     Returns P1's numbers for the kernels' line and the launches its
     children counted ({"P1": n, "K1": n})."""
@@ -1724,7 +1780,7 @@ def phase_p1(torch, smi: str) -> tuple[dict, dict]:
     from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
         build_cache_probe)
 
-    worst = max(_check_probe_matmul(torch, "phase 11", n) for n in (100, 256))
+    worst = max(_check_probe_matmul(torch, "phase 11", n) for n in P1_SIZES)
     a = torch.ones((256, 256), device="cuda")
     zero = torch.zeros_like(a)
     ms, plain_ms = _ab_ms(lambda: pk.probe_matmul_reference(a),
@@ -1763,6 +1819,7 @@ def phase_p1(torch, smi: str) -> tuple[dict, dict]:
           f"{max(g_ms):.4f}), torch.addmm {sum(g_lib) / 12:.4f} "
           f"({min(g_lib):.4f}-{max(g_lib):.4f}): P1 is {g_verdict}, "
           f"{sum(g_ms) / sum(g_lib):.3f} x its time ({smi})")
+    _print_parent_turns("phase 11", "P1", parent)
 
     res = build_cache_probe.probe(timeout=300.0, hang_dump_s=240,
                                   log=lambda line: None)
@@ -1815,7 +1872,8 @@ def _graph_turns(torch, kernel, library, launches: int = 25,
     return out
 
 
-def phase_chains(torch, smi: str) -> tuple[dict, dict, dict]:
+def phase_chains(torch, smi: str, parent: str | None = None
+                 ) -> tuple[dict, dict, dict]:
     """P2 and P3 against their plain versions, timed at the QK shape, then
     the depth / packing probe. Returns (P2's numbers, P3's numbers, the
     probe's launches {"P2": n, "P3": n})."""
@@ -1827,12 +1885,16 @@ def phase_chains(torch, smi: str) -> tuple[dict, dict, dict]:
     worst = {False: 0.0, True: 0.0}
     for m, k, n, iters, ones in ((256, 64, 16384, 4, True),
                                  (256, 64, 16384, 3, False),
+                                 (256, 64, 2048, 4, False),
                                  (256, 128, 2048, 4, False),
+                                 (256, 256, 2048, 2, False),
                                  (256, 512, 2048, 2, False),
                                  (256, 128, 32768, 2, False)):
         for pair in (False, True):
             worst[pair] = max(worst[pair], _check_chain(
                 torch, "phase 12", m, k, n, iters, pair, ones))
+    for m, k, n in ((256, 64, 16384), (256, 128, 32768)):
+        _check_chain_blocks(torch, "phase 12", m, k, n)
 
     # timed at the QK shape with the probe's own operands and iterations
     m, k, n, iters = 256, 64, 16384, depth_pack_probe.ITERS
@@ -1848,6 +1910,24 @@ def phase_chains(torch, smi: str) -> tuple[dict, dict, dict]:
                 y = torch.matmul(y, w)[:, :k] * 0.01
         return y
 
+    def library_graph_ms(ws, chunk: int = 200) -> float:
+        # the same loop, ``chunk`` iterations of each chain captured in one
+        # CUDA graph and replayed: the device's time, without the host's
+        def loop():
+            for w in ws:
+                y = x
+                for _ in range(chunk):
+                    y = torch.matmul(y, w)[:, :k] * 0.01
+        loop()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            loop()
+        graph.replay()
+        ms = _time_ms(graph.replay, 5) * iters / chunk
+        del graph
+        return ms
+
     numbers = {}
     for name, ws, kernel, plain in (
             ("P2", (w1,), lambda: pk.chain_matmul(x, w1, iters),
@@ -1856,6 +1936,7 @@ def phase_chains(torch, smi: str) -> tuple[dict, dict, dict]:
              lambda: pk.pair_reference(x, w1, w2, iters))):
         ms, plain_ms = _ab_ms(plain, kernel, 2)
         lib_ms = _time_ms(lambda: library(ws), 2)
+        graph_ms = library_graph_ms(ws)
         flops = 2.0 * m * k * n * iters * len(ws)
         nbytes = 2.0 * (m * k + len(ws) * k * n) + 4.0 * (
             1 + len(ws) * n // pk.CHECKSUM_GROUP)
@@ -1863,12 +1944,18 @@ def phase_chains(torch, smi: str) -> tuple[dict, dict, dict]:
         print(f"phase 12: {name} ({m}, {k}) x ({k}, {n}), {iters} "
               f"iterations, {len(ws)} chain(s): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, a loop of torch.matmul (bf16) "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({flops / 1e9:.1f} GFLOP of bf16 operands at "
-              f"{PEAK_BF16 / 1e12} TFLOP/s, {nbytes / 1e6:.2f} MB) ({smi})")
+              f"{lib_ms:.4f} ms eager, {graph_ms:.4f} ms replayed from a "
+              f"CUDA graph of 200 iterations (the kernel "
+              f"{'faster' if ms < graph_ms else 'slower'}, "
+              f"{ms / graph_ms:.3f} x its time), bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({flops / 1e9:.1f} GFLOP of bf16 operands at "
+              f"{PEAK_BF16 / 1e12} TFLOP/s, {nbytes / 1e6:.2f} MB), the "
+              f"kernel at {100 * bound_ms / ms:.1f} % of it ({smi})")
         numbers[name] = dict(max_abs_err=worst[name == "P3"], ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=lib_ms)
+                             bound_by=bound_by, library_ms=lib_ms,
+                             library_graph_ms=graph_ms)
+    _print_parent_turns("phase 12", "P2", parent)
 
     pk.chain_matmul.launches = pk.pair_matmul.launches = 0
     results = depth_pack_probe.measure(
@@ -2061,8 +2148,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="time each training step by kernel")
     ap.add_argument("--parent", metavar="ROOT",
-                    help="also time K1 and K6 in turns with the checkout at "
-                         "ROOT")
+                    help="also time K1, K6, P1 and P2 in turns with the "
+                         "checkout at ROOT")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2093,8 +2180,8 @@ def main() -> int:
     route = phase_megakernel_route(torch, smi, honest, msrvtt)
     del honest, msrvtt
     torch.cuda.empty_cache()
-    p1, probe_children = phase_p1(torch, smi)
-    p2, p3, probe_chains = phase_chains(torch, smi)
+    p1, probe_children = phase_p1(torch, smi, args.parent)
+    p2, p3, probe_chains = phase_chains(torch, smi, args.parent)
     stage1_run = phase_stage1(torch, smi, profile)
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"

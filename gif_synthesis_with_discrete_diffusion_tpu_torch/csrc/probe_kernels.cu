@@ -10,39 +10,70 @@
 //                    x <- bf16(0.01 * (x @ w)[:, :k]), `iters` times, f32
 //                    accumulation, then sum(x); x (m, k) bf16, w (k, n) bf16
 //
-// probe_matmul exists to give the build-cache probe a kernel of the class it
-// caches: 16 x 16 shared tiles, one f32 FMA chain a thread, nothing more.
+// probe_matmul. At (256, 256) the work is 33.6 MFLOP, 0.5 us at the card's
+// f32 rate, so what bounds a launch is latency: the round trips to L2 and
+// the launch itself. A block owns a 32 x 16 output tile and issues every
+// load of its row and column panels at once (cp.async, one commit group a
+// 64-deep chunk, four chunks in flight: all of n <= 256), then computes each
+// chunk as it lands. Its eight warps split every chunk's depth, each thread
+// keeping a 4 x 4 register tile (16 independent FMA chains), and the eight
+// partial tiles are added in a fixed order at the end; 128 blocks at
+// n = 256. The arithmetic is f32 FMAs on the CUDA cores: exact f32 products
+// and f32 sums, so within 1e-4 of the plain version by far. Plain TF32 on
+// the tensor cores would miss that (10-bit mantissas: ~5e-4 a product), and
+// split TF32 (three products, as the codebook kernel) would save at most a
+// fraction of the 0.5 us of arithmetic, under the round trip.
 //
 // probe_chain. The TPU kernel parks x and all of w in one core's on-chip
 // memory and loops. Here w (2 MB at (64, 16384), 8 MB at (128, 32768)) fits
 // no block's 227 KB but does fit the card's shared memory taken together, so
-// a persistent cooperative grid of at most one block an SM gives every block
-// a column slab of w, staged into shared memory ONCE and kept there for all
-// iterations. The chain's next x is only the first k columns of the product
-// yet every block needs all of it, so the blocks that own those columns
-// write it (scaled, rounded to bf16) to a double-buffered scratch that stays
-// in the 50 MB L2, a grid barrier ends the iteration, and every block
-// re-stages x from L2 (cp.async.cg: past the L1, which other SMs' writes
-// would leave stale). The other ways through were not taken: recomputing
-// the (m, k) x (k, k) head in every block needs w[:, :k] in every block
-// (512 KB at k = 512), and a cluster's shared memory spans 16 SMs, not 132.
-// What bounds an iteration on this card is therefore the exchange (the
-// barrier and the re-staging of x), not the tensor cores; mode 1 runs the
-// loop with the products skipped and mode 2 the barriers alone, so the
-// probe can print each share.
+// at most one block an SM owns a column slab of w, staged into shared
+// memory once and kept there for all iterations. Two designs:
+//
+// * local (one chain, k <= 128, slabs of at most 256 columns, where it
+//   fits: the QK and packed shapes and the depth curve's first two): every
+//   block also keeps x and the head w[:, :k] and computes the chain's next x
+//   itself. A row of the next x depends on the same row of x alone, so each
+//   warp owns 32 rows and runs their chain on its own: its rows of x read
+//   into registers as mma fragments once an iteration, the head (32, k) x
+//   (k, k) into bf16 registers, its rows of the slab's product into the
+//   checksum's partial sums (registers too), then the next x written over
+//   its rows between two warp barriers. x never leaves the SM; there is no
+//   grid barrier, no block barrier and no L2 round trip in the loop, and no
+//   cooperative launch. Every block runs the same instructions on the same x
+//   and head, so every block's x is bitwise the same. The head is work above
+//   the bound ((m, k) x (k, k) a block an iteration; the bound counts the
+//   full product once). One instantiation a depth (16 to 128), so that the
+//   contraction unrolls.
+// * exchange (two chains, or where the local copy does not fit: k = 256,
+//   512 at n = 2048): a persistent cooperative grid; the blocks that own the
+//   head's columns write the next x (scaled, rounded to bf16) to a
+//   double-buffered scratch that stays in the 50 MB L2, a grid barrier ends
+//   the iteration, and every block re-stages x from L2 (cp.async.cg: past
+//   the L1, which other SMs' writes would leave stale). The local copy of x
+//   and w[:, :k] takes 270 KB at k = 256 and 800 KB at k = 512, and a
+//   cluster's shared memory spans 16 SMs, not 132.
+//
+// mode 1 runs the loop with the products skipped and mode 2 the loop's own
+// synchronisation alone (local: the warp barriers; exchange: the grid
+// barriers), so the probe can print each share.
 //
 // Products: mma.sync.m16n8k16, bf16 operands from shared memory through
-// ldmatrix (rows padded by 16 bytes: conflict-free), f32 accumulators. A
-// warp owns 32 rows and walks its slab 64 columns at a time; a contraction
-// deeper than 256, or than shared memory holds, is staged in equal chunks.
-// With two chains (NC = 2) both advance inside the same k-step, so their
-// mma's interleave.
+// ldmatrix (rows padded by 16 bytes: conflict-free), f32 accumulators.
+// Not wgmma: its 64-row tiles belong to four warps at once, so the next x of
+// a warpgroup's rows would need a barrier among those warps, where mma.sync
+// lets each warp own its 32 rows. A warp walks its slab 64 columns at a
+// time; in the exchange design a contraction deeper than 256,
+// or than shared memory holds, is staged in equal chunks, and with two
+// chains (NC = 2) both advance inside the same k-step, so their mma's
+// interleave.
 //
 // Only the first k of n columns feed the chain. So that no column's product
 // is dead, every iteration's full product is summed into `checksum`, one
 // f32 per chain and group of 16 columns (sum over rows, columns of the group
-// and iterations), in a fixed order: per-thread partial sums in shared
-// memory, added up once at the end.
+// and iterations), in a fixed order: per-thread partial sums (in registers
+// in the local design, in shared memory in the exchange design), added up
+// once at the end.
 //
 // Rounding as the JAX kernels': exact products of bf16 values, f32 sums (in
 // the tensor cores' order, not the plain version's), * 0.01f in f32, then
@@ -54,30 +85,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-// ---------------------------------------------------------------- P1 ----
-
-constexpr int kTile = 16;
-
-__global__ void __launch_bounds__(kTile* kTile)
-probe_matmul_kernel(const float* __restrict__ a, float* __restrict__ o,
-                    int n) {
-  __shared__ float lhs[kTile][kTile + 1];
-  __shared__ float rhs[kTile][kTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int row = blockIdx.y * kTile + ty;
-  const int col = blockIdx.x * kTile + tx;
-  float acc = 0.f;
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    lhs[ty][tx] = (row < n && k0 + tx < n) ? a[row * n + k0 + tx] : 0.f;
-    rhs[ty][tx] = (k0 + ty < n && col < n) ? a[(k0 + ty) * n + col] : 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTile; ++kk) acc = fmaf(lhs[ty][kk], rhs[kk][tx], acc);
-    __syncthreads();
-  }
-  if (row < n && col < n) o[row * n + col] = acc * 2.f;
-}
 
 // ----------------------------------------------------------- P2 / P3 ----
 
@@ -319,6 +326,370 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainParams p) {
   }
 }
 
+// ------------------------------------------------- P2, the local design ----
+
+// the head's columns a warp keeps in registers
+constexpr int kLocalMaxK = 128;
+constexpr int kLocalSubs = 4;    // 64-column sub-tiles of a slab: at most 256
+// dynamic shared memory a block, beside the kernel's static reduction buffer
+constexpr int kLocalSmem = kMaxSmem - kThreads * 4;
+
+struct LocalParams {
+  const __nv_bfloat16* x0;  // (m, k): the first x
+  const __nv_bfloat16* w;   // (k, n)
+  __nv_bfloat16* xout;      // (2, m, k): the final x of the first and the
+                            // last block
+  float* checksum;          // (n / 16,)
+  float* out;               // (1,): sum of the final x
+  int m, n, iters, slab, mode;
+};
+
+__device__ __forceinline__ void zero_acc(float (&acc)[2][8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+}
+
+// acc = this warp's 32 rows of x (their fragments a, K deep) times the 64
+// columns from ct of a (K, *) operand in shared memory; the 16-column
+// groups at or past `width` are left at 0
+template <int K>
+__device__ __forceinline__ void warp_product(
+    float (&acc)[2][8][4], const unsigned (&a)[K / 16][2][4],
+    const __nv_bfloat16* ws, int ws_ld, int ct, int width, int lane) {
+  zero_acc(acc);
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 16) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (ct + np * 16 < width) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, ws + (kk + (lane & 15)) * ws_ld + ct + np * 16 +
+                                 (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], a[kk / 16][mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * np + 1], a[kk / 16][mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
+chain_local_kernel(LocalParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kThreads];
+  if (p.mode == 2) {  // the loop's own synchronisation alone
+    for (int it = 0; it < p.iters; ++it) {
+      __syncwarp();
+      __syncwarp();
+    }
+    return;
+  }
+  constexpr int x_ld = K + kPad;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ws_ld = p.slab + kPad;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [m][x_ld]
+  __nv_bfloat16* hs = xs + p.m * x_ld;   // [K][x_ld]: w[:, :K], the head
+  __nv_bfloat16* ws = hs + K * x_ld;     // [K][ws_ld]: this block's slab
+  float* cs = reinterpret_cast<float*>(ws + K * ws_ld);
+  // cs: [slab / 16][kThreads], each thread's partial sums, written once
+
+  const int c0 = blockIdx.x * p.slab;  // this block's first column
+  const int width = p.n - c0 < p.slab ? p.n - c0 : p.slab;
+  // x, the head and the slab: staged once, kept for all iterations
+  constexpr int xvec = K / 8;
+  const int wvec = p.slab / 8;
+  for (int i = tid; i < p.m * xvec; i += kThreads) {
+    const int r = i / xvec, j = i % xvec;
+    cp_async16(xs + r * x_ld + j * 8,
+               p.x0 + static_cast<size_t>(r) * K + j * 8);
+  }
+  for (int i = tid; i < K * xvec; i += kThreads) {
+    const int r = i / xvec, j = i % xvec;
+    cp_async16(hs + r * x_ld + j * 8,
+               p.w + static_cast<size_t>(r) * p.n + j * 8);
+  }
+  for (int i = tid; i < K * wvec; i += kThreads) {
+    const int r = i / wvec, j = i % wvec;
+    __nv_bfloat16* dst = ws + r * ws_ld + j * 8;
+    if (c0 + j * 8 < p.n)
+      cp_async16(dst, p.w + static_cast<size_t>(r) * p.n + c0 + j * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int row0 = warp * 32;
+  const int g = lane >> 2, t = lane & 3;
+  // the checksum's partial sums of this thread, by sub-tile and 16 columns
+  float part[kLocalSubs][4];
+#pragma unroll
+  for (int st = 0; st < kLocalSubs; ++st)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) part[st][np] = 0.f;
+  if (row0 < p.m) {
+    for (int it = 0; it < p.iters; ++it) {
+      // this warp's rows of x as mma fragments, read once an iteration
+      unsigned a[K / 16][2][4];
+#pragma unroll
+      for (int kk = 0; kk < K; kk += 16)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(a[kk / 16][mt], xs + (row0 + mt * 16 + (lane & 15)) *
+                                               x_ld + kk + (lane >> 4) * 8);
+      // the head: this warp's rows of the next x, rounded, in registers
+      unsigned head[(K + kSub - 1) / kSub][2][8][2];
+#pragma unroll
+      for (int hp = 0; hp * kSub < K; ++hp) {
+        float acc[2][8][4];
+        if (p.mode == 0)
+          warp_product<K>(acc, a, hs, x_ld, hp * kSub, K, lane);
+        else
+          zero_acc(acc);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            head[hp][mt][nt][0] = scaled_pair(acc[mt][nt][0], acc[mt][nt][1]);
+            head[hp][mt][nt][1] = scaled_pair(acc[mt][nt][2], acc[mt][nt][3]);
+          }
+      }
+      // the slab: every column's product into the checksum
+#pragma unroll
+      for (int st = 0; st < kLocalSubs; ++st) {
+        const int ct = st * kSub;
+        if (ct < width) {
+          float acc[2][8][4];
+          if (p.mode == 0)
+            warp_product<K>(acc, a, ws, ws_ld, ct, width, lane);
+          else
+            zero_acc(acc);
+#pragma unroll
+          for (int np = 0; np < 4; ++np)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  part[st][np] += acc[mt][2 * np + h][e];
+        }
+      }
+      __syncwarp();  // every lane has read this x
+#pragma unroll
+      for (int hp = 0; hp * kSub < K; ++hp)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          if (hp * kSub + nt * 8 < K) {
+            const int col = hp * kSub + nt * 8 + 2 * t;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              __nv_bfloat16* q = xs + (row0 + mt * 16 + g) * x_ld + col;
+              *reinterpret_cast<unsigned*>(q) = head[hp][mt][nt][0];
+              *reinterpret_cast<unsigned*>(q + 8 * x_ld) = head[hp][mt][nt][1];
+            }
+          }
+        }
+      __syncwarp();  // the next x is whole
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < kLocalSubs; ++st)
+#pragma unroll
+    for (int np = 0; np < 4; ++np)
+      if (st * kSub + np * 16 < width)
+        cs[(st * 4 + np) * kThreads + tid] = part[st][np];
+
+  __syncthreads();
+  for (int i = tid * kGroup; i < width; i += kThreads * kGroup) {
+    float s = 0.f;
+    for (int j = 0; j < kThreads; ++j) s += cs[i / kGroup * kThreads + j];
+    p.checksum[(c0 + i) / kGroup] = s;
+  }
+  // the final x of the first and of the last block (the same bits)
+  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+  const int state = p.m * K;
+  if (first || last) {
+    for (int i = tid; i < state; i += kThreads) {
+      const __nv_bfloat16 v = xs[i / K * x_ld + i % K];
+      if (first) p.xout[i] = v;
+      if (last) p.xout[state + i] = v;
+    }
+  }
+  if (first) {  // sum of the final x, in a fixed order
+    float s = 0.f;
+    for (int i = tid; i < state; i += kThreads)
+      s += __bfloat162float(xs[i / K * x_ld + i % K]);
+    red[tid] = s;
+    __syncthreads();
+    for (int stride = kThreads / 2; stride > 0; stride /= 2) {
+      if (tid < stride) red[tid] += red[tid + stride];
+      __syncthreads();
+    }
+    if (tid == 0) p.out[0] = red[0];
+  }
+}
+
+template <int K>
+int launch_local(const LocalParams& p, int blocks, size_t smem,
+                 cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      chain_local_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chain_local_kernel<K><<<blocks, kThreads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- P1 ----
+
+constexpr int kP1Rows = 32;      // output rows a block
+constexpr int kP1Cols = 16;      // output columns a block
+constexpr int kP1Chunk = 64;     // contraction depth of a stage
+constexpr int kP1Stages = 4;     // stages in flight: all of n <= 256
+constexpr int kP1Splits = 8;     // warps, each a share of every chunk's depth
+constexpr int kP1Threads = 32 * kP1Splits;
+// A's rows padded by 4 floats: a thread's 4 rows lie 16 banks apart
+constexpr int kP1Ald = kP1Chunk + 4;
+constexpr int kP1StageFloats = kP1Rows * kP1Ald + kP1Chunk * kP1Cols;
+constexpr int kP1Smem = kP1Stages * kP1StageFloats * 4;
+constexpr int kP1Rld = kP1Cols + 4;  // the partial tiles' rows, padded
+
+__device__ __forceinline__ void cp_async_zfill16(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_zfill4(void* dst, const void* src,
+                                                bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one chunk of A's row panel and column panel into a stage, 0 outside a;
+// kVec: n % 4 == 0, so 16-byte copies never straddle the edge
+template <bool kVec>
+__device__ __forceinline__ void p1_stage(float* st, const float* a, int n,
+                                         int row0, int col0, int k0) {
+  float* as = st;                     // [kP1Rows][kP1Ald]
+  float* bs = st + kP1Rows * kP1Ald;  // [kP1Chunk][kP1Cols]
+  constexpr int v = kVec ? 4 : 1;
+  for (int i = threadIdx.x; i < kP1Rows * kP1Chunk / v; i += kP1Threads) {
+    const int r = i / (kP1Chunk / v), j = i % (kP1Chunk / v) * v;
+    const bool ok = row0 + r < n && k0 + j < n;
+    const float* src = ok ? a + static_cast<size_t>(row0 + r) * n + k0 + j : a;
+    if (kVec)
+      cp_async_zfill16(as + r * kP1Ald + j, src, ok);
+    else
+      cp_async_zfill4(as + r * kP1Ald + j, src, ok);
+  }
+  for (int i = threadIdx.x; i < kP1Chunk * kP1Cols / v; i += kP1Threads) {
+    const int r = i / (kP1Cols / v), j = i % (kP1Cols / v) * v;
+    const bool ok = k0 + r < n && col0 + j < n;
+    const float* src = ok ? a + static_cast<size_t>(k0 + r) * n + col0 + j : a;
+    if (kVec)
+      cp_async_zfill16(bs + r * kP1Cols + j, src, ok);
+    else
+      cp_async_zfill4(bs + r * kP1Cols + j, src, ok);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kP1Threads)
+probe_matmul_kernel(const float* __restrict__ a, float* __restrict__ o,
+                    int n) {
+  extern __shared__ __align__(16) float p1s[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.y * kP1Rows, col0 = blockIdx.x * kP1Cols;
+  const int chunks = (n + kP1Chunk - 1) / kP1Chunk;
+  // every load at once, as far as the stages go: one commit group a chunk
+#pragma unroll
+  for (int s = 0; s < kP1Stages; ++s) {
+    if (s < chunks)
+      p1_stage<kVec>(p1s + s * kP1StageFloats, a, n, row0, col0,
+                     s * kP1Chunk);
+    cp_async_commit();
+  }
+  // this thread's 4 x 4 tile: rows 4 (lane / 4), columns 4 (lane % 4); its
+  // warp's share of each chunk: 8 deep
+  const int r4 = (lane >> 2) * 4, c4 = (lane & 3) * 4;
+  float acc[4][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kP1Stages - 1>();  // chunk c has landed
+    __syncthreads();
+    const float* as = p1s + (c % kP1Stages) * kP1StageFloats;
+    const float* bs = as + kP1Rows * kP1Ald;
+#pragma unroll
+    for (int kk = 0; kk < kP1Chunk / kP1Splits; kk += 4) {
+      const int k = warp * (kP1Chunk / kP1Splits) + kk;
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(as + (r4 + i) * kP1Ald + k);
+        bv[i] = *reinterpret_cast<const float4*>(bs + (k + i) * kP1Cols + c4);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ai[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[i][0] = fmaf(ai[q], bv[q].x, acc[i][0]);
+          acc[i][1] = fmaf(ai[q], bv[q].y, acc[i][1]);
+          acc[i][2] = fmaf(ai[q], bv[q].z, acc[i][2]);
+          acc[i][3] = fmaf(ai[q], bv[q].w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is consumed
+    if (c + kP1Stages < chunks)
+      p1_stage<kVec>(p1s + (c % kP1Stages) * kP1StageFloats, a, n, row0, col0,
+                     (c + kP1Stages) * kP1Chunk);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the eight warps' partial tiles, added in a fixed order
+  float* part = p1s;  // [kP1Splits][kP1Rows][kP1Rld]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(part + (warp * kP1Rows + r4 + i) * kP1Rld +
+                               c4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  for (int e = tid; e < kP1Rows * kP1Cols; e += kP1Threads) {
+    const int r = e / kP1Cols, c = e % kP1Cols;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kP1Splits; ++w)
+      s += part[(w * kP1Rows + r) * kP1Rld + c];
+    if (row0 + r < n && col0 + c < n)
+      o[static_cast<size_t>(row0 + r) * n + col0 + c] = s * 2.f;
+  }
+}
+
+// ------------------------------------------------------------- plans ----
+
 // the column slab a block owns: the narrowest multiple of 16 that covers n
 // with at most one block an SM
 int slab_width(int n, int* blocks) {
@@ -334,50 +705,129 @@ int slab_width(int n, int* blocks) {
   return slab;
 }
 
+// a chain's design on the current device (ops/probe_kernels.py:
+// chain_design states the same rule): the local design for one chain with
+// k <= kLocalMaxK where x, the head and the slab fit; else the exchange
+// design, x staged kc deep, the deepest that fits beside the slab
+struct ChainPlan {
+  int design;  // 0: local; 1: exchange
+  int slab, blocks, kc;
+  size_t smem;
+};
+
+int plan_chain(int m, int k, int n, int nc, ChainPlan* plan) {
+  if (m < 32 || m > kMaxRows || m % 32 != 0 || k < 16 || k % 16 != 0 ||
+      (k > kMaxChunk && k % kMaxChunk != 0) || n % kGroup != 0 || k > n ||
+      nc < 1 || nc > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slab = slab_width(n, &plan->blocks);
+  if (slab < 0) return -slab;
+  plan->slab = slab;
+  const size_t checks = static_cast<size_t>(slab / kGroup) * kThreads * 4;
+  const size_t local = static_cast<size_t>(m) * (k + kPad) * 2 +
+                       static_cast<size_t>(k) * (k + kPad) * 2 +
+                       static_cast<size_t>(k) * (slab + kPad) * 2 + checks;
+  if (nc == 1 && k <= kLocalMaxK && slab <= kLocalSubs * kSub &&
+      local <= kLocalSmem) {
+    plan->design = 0;
+    plan->kc = k;
+    plan->smem = local;
+    return 0;
+  }
+  plan->design = 1;
+  for (int kc = k < kMaxChunk ? k : kMaxChunk;; kc /= 2) {
+    plan->kc = kc;
+    plan->smem = static_cast<size_t>(nc) *
+                 (static_cast<size_t>(m) * (kc + kPad) * 2 +
+                  static_cast<size_t>(k) * (slab + kPad) * 2 + checks);
+    if (plan->smem <= kMaxSmem) return 0;
+    if (kc % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // o = (a @ a) * 2 for a (n, n) f32. Returns a cudaError_t.
 extern "C" int probe_matmul(const float* a, float* o, int n, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (n + kTile - 1) / kTile;
-  probe_matmul_kernel<<<dim3(tiles, tiles), dim3(kTile, kTile), 0,
-                        static_cast<cudaStream_t>(stream)>>>(a, o, n);
+  const bool vec = n % 4 == 0;
+  const void* fn =
+      vec ? reinterpret_cast<const void*>(probe_matmul_kernel<true>)
+          : reinterpret_cast<const void*>(probe_matmul_kernel<false>);
+  static bool ready[2] = {false, false};  // the shared-memory attribute set
+  if (!ready[vec]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kP1Smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[vec] = true;
+  }
+  const dim3 grid((n + kP1Cols - 1) / kP1Cols, (n + kP1Rows - 1) / kP1Rows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    probe_matmul_kernel<true><<<grid, kP1Threads, kP1Smem, s>>>(a, o, n);
+  else
+    probe_matmul_kernel<false><<<grid, kP1Threads, kP1Smem, s>>>(a, o, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chain's plan on the current device: the slab width, and through
-// `blocks` the grid. Negative: a cudaError_t.
-extern "C" int probe_chain_plan(int n, int* blocks) {
-  return slab_width(n, blocks);
+// The design of a chain of shape (m, k) x (k, n), nc chains, on the current
+// device: 0 local, 1 exchange; through `info` the slab, the blocks, x's
+// staging depth and the shared-memory bytes a block. Negative: a
+// cudaError_t.
+extern "C" int probe_chain_design(int m, int k, int n, int nc, int* info) {
+  ChainPlan plan;
+  const int err = plan_chain(m, k, n, nc, &plan);
+  if (err) return -err;
+  info[0] = plan.slab;
+  info[1] = plan.blocks;
+  info[2] = plan.kc;
+  info[3] = static_cast<int>(plan.smem);
+  return plan.design;
 }
 
 // One launch of the chain (w2 == nullptr: one chain; else two independent
-// chains an iteration). mode 0: the probe; 1: the loop with the products
-// skipped; 2: the grid barriers alone. checksum (NC, n / 16) and out (1,)
-// must be zero on entry; xbuf holds 2 * NC * m * k bf16. Returns a
-// cudaError_t: cudaErrorInvalidValue for a shape the kernel does not take,
-// and the launch's own refusal of a grid that cannot be co-resident.
+// chains an iteration), in the design of probe_chain_design, which it
+// writes to `design`. mode 0: the probe; 1: the loop with the products
+// skipped; 2: the loop's synchronisation alone. checksum (NC, n / 16) and
+// out (1,) must be zero on entry; xbuf holds 2 * NC * m * k bf16: the
+// exchange design's next x by parity, the local design's final x of the
+// first and the last block. Returns a cudaError_t: cudaErrorInvalidValue
+// for a shape the kernel does not take, and the launch's own refusal of a
+// grid that cannot be co-resident.
 extern "C" int probe_chain(const void* x, const void* w1, const void* w2,
                            void* xbuf, float* checksum, float* out, int m,
-                           int k, int n, int iters, int mode, void* stream) {
+                           int k, int n, int iters, int mode, int* design,
+                           void* stream) {
   const int nc = w2 != nullptr ? 2 : 1;
-  if (m < 32 || m > kMaxRows || m % 32 != 0 || k < 16 || k % 16 != 0 ||
-      (k > kMaxChunk && k % kMaxChunk != 0) || n % kGroup != 0 || k > n ||
-      iters < 0 || mode < 0 || mode > 2)
+  if (iters < 0 || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  int blocks = 0;
-  const int slab = slab_width(n, &blocks);
-  if (slab < 0) return -slab;
-  // x's staging depth: the deepest that fits beside the slab of w
-  int kc = k < kMaxChunk ? k : kMaxChunk;
-  size_t smem = 0;
-  for (;; kc /= 2) {
-    smem = static_cast<size_t>(nc) *
-           (static_cast<size_t>(m) * (kc + kPad) * 2 +
-            static_cast<size_t>(k) * (slab + kPad) * 2 +
-            static_cast<size_t>(slab / kGroup) * kThreads * sizeof(float));
-    if (smem <= kMaxSmem) break;
-    if (kc % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  ChainPlan plan;
+  const int bad = plan_chain(m, k, n, nc, &plan);
+  if (bad) return bad;
+  *design = plan.design;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (plan.design == 0) {
+    LocalParams p;
+    p.x0 = static_cast<const __nv_bfloat16*>(x);
+    p.w = static_cast<const __nv_bfloat16*>(w1);
+    p.xout = static_cast<__nv_bfloat16*>(xbuf);
+    p.checksum = checksum;
+    p.out = out;
+    p.m = m;
+    p.n = n;
+    p.iters = iters;
+    p.slab = plan.slab;
+    p.mode = mode;
+    switch (k) {  // the contraction unrolled: one instantiation a depth
+      case 16: return launch_local<16>(p, plan.blocks, plan.smem, s);
+      case 32: return launch_local<32>(p, plan.blocks, plan.smem, s);
+      case 48: return launch_local<48>(p, plan.blocks, plan.smem, s);
+      case 64: return launch_local<64>(p, plan.blocks, plan.smem, s);
+      case 80: return launch_local<80>(p, plan.blocks, plan.smem, s);
+      case 96: return launch_local<96>(p, plan.blocks, plan.smem, s);
+      case 112: return launch_local<112>(p, plan.blocks, plan.smem, s);
+      default: return launch_local<128>(p, plan.blocks, plan.smem, s);
+    }
   }
   ChainParams p;
   p.x0 = static_cast<const __nv_bfloat16*>(x);
@@ -390,16 +840,16 @@ extern "C" int probe_chain(const void* x, const void* w1, const void* w2,
   p.k = k;
   p.n = n;
   p.iters = iters;
-  p.slab = slab;
+  p.slab = plan.slab;
   p.mode = mode;
-  p.kc = kc;
+  p.kc = plan.kc;
   const void* fn = nc == 2 ? reinterpret_cast<const void*>(chain_kernel<2>)
                            : reinterpret_cast<const void*>(chain_kernel<1>);
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(plan.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&p};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      fn, dim3(blocks), dim3(kThreads), args, smem,
-      static_cast<cudaStream_t>(stream)));
+      fn, dim3(plan.blocks), dim3(kThreads), args, plan.smem, s));
 }

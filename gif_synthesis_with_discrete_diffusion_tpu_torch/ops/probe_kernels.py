@@ -21,6 +21,13 @@ the pair (2, n / 16)): no column's product is dead work, and the plain
 versions compute the same sums. With ``return_x`` the final x comes back too
 ((m, k) bf16, for the pair (2, m, k)).
 
+A launch takes one of two designs (:func:`chain_design`, the rule the
+launcher applies): ``local`` (one chain, k <= 128, where x, the head
+w[:, :k] and the block's slab of w fit its shared memory) keeps x in every
+block, each warp advancing the chain of its own 32 rows with no barrier
+wider than the warp; ``exchange`` (the pair, and the deeper chains) passes
+x between the blocks through L2 behind a grid barrier.
+
 CPU tensors take the plain versions (:func:`probe_matmul_reference`,
 :func:`chain_reference`, :func:`pair_reference`); CUDA tensors launch the
 kernel or raise.
@@ -30,22 +37,86 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
 from . import cuda_build
 
 __all__ = ["probe_matmul", "probe_matmul_reference", "chain_matmul",
-           "chain_reference", "pair_matmul", "pair_reference", "chain_plan",
-           "CHECKSUM_GROUP", "MODES"]
+           "chain_reference", "pair_matmul", "pair_reference",
+           "chain_design", "device_chain_design", "ChainDesign",
+           "CHECKSUM_GROUP", "MODES", "SHARED_BYTES"]
 
 CHECKSUM_GROUP = 16     # csrc/probe_kernels.cu: kGroup
 _MAX_ROWS = 256         # kMaxRows
 _MAX_CHUNK = 256        # kMaxChunk
+_PAD = 8                # kPad: bf16 of padding a shared row
+_THREADS = 256          # kThreads
+_LOCAL_MAX_K = 128      # kLocalMaxK
+_LOCAL_MAX_SLAB = 256   # kLocalSubs * kSub
+# shared memory a block may use on the card (kMaxSmem): 227 KB
+SHARED_BYTES = 232448
 # what a launch of a chain runs: the probe itself; its loop with the
-# products skipped (staging, epilogue and barriers stay); the grid barriers
-# alone
+# products skipped (local: the head's rounding, the next x's writes, the
+# checksum's partial sums and the warp barriers stay; exchange: the staging
+# of x, the epilogue and the grid barriers stay); the loop's own
+# synchronisation alone (local: two warp barriers an iteration; exchange:
+# one grid barrier)
 MODES = {"full": 0, "no_products": 1, "barrier_only": 2}
+_DESIGNS = ("local", "exchange")
+
+
+class ChainDesign(NamedTuple):
+    """How a chain launches: ``design`` ("local" or "exchange"), the
+    columns of w a block owns (``slab``), the grid (``blocks``), x's
+    staging depth (``kc``; k in the local design) and the dynamic shared
+    memory a block (``smem``, bytes)."""
+    design: str
+    slab: int
+    blocks: int
+    kc: int
+    smem: int
+
+
+def chain_design(m: int, k: int, n: int, chains: int = 1,
+                 sms: int = 132) -> ChainDesign:
+    """The design a launch of ``chains`` chains of (m, k) x (k, n) takes on
+    a card of ``sms`` SMs (an H100 has 132): the rule of
+    ``csrc/probe_kernels.cu: plan_chain``, stated here so that it can be
+    read and tested without a card.
+
+    A block owns a slab of w, the narrowest multiple of 16 columns that
+    covers n with at most one block an SM. One chain with k <= 128 and a
+    slab of at most 256 columns (a thread's checksum partials in registers)
+    takes the local design where x (m, k), the head w[:, :k] (k, k) and the
+    slab (k, slab), rows padded by 8 bf16, and the per-thread checksum
+    partials fit beside the kernel's 1 KB reduction buffer; else the
+    exchange design, x staged ``kc`` deep: k (at most 256), halved until
+    the chains' x chunks, slabs and partials fit. Raises ValueError for a
+    shape the kernels do not take."""
+    if m % 32 or not 32 <= m <= _MAX_ROWS or k % 16 or k < 16 or k > n or \
+            (k > _MAX_CHUNK and k % _MAX_CHUNK) or n % CHECKSUM_GROUP or \
+            chains not in (1, 2) or sms < 1:
+        raise ValueError(f"no chain design for m={m}, k={k}, n={n}, "
+                         f"chains={chains}")
+    slab = -(-n // sms)
+    slab = -(-slab // CHECKSUM_GROUP) * CHECKSUM_GROUP
+    blocks = -(-n // slab)
+    checks = slab // CHECKSUM_GROUP * _THREADS * 4
+    local = 2 * (m * (k + _PAD) + k * (k + _PAD) + k * (slab + _PAD)) + checks
+    if chains == 1 and k <= _LOCAL_MAX_K and slab <= _LOCAL_MAX_SLAB and \
+            local <= SHARED_BYTES - _THREADS * 4:
+        return ChainDesign("local", slab, blocks, k, local)
+    kc = min(k, _MAX_CHUNK)
+    while True:
+        smem = chains * (2 * (m * (kc + _PAD) + k * (slab + _PAD)) + checks)
+        if smem <= SHARED_BYTES:
+            return ChainDesign("exchange", slab, blocks, kc, smem)
+        if kc % 32:
+            raise ValueError(f"no chain design for m={m}, k={k}, n={n}, "
+                             f"chains={chains}: x does not fit beside w")
+        kc //= 2
 
 
 def probe_matmul_reference(a: torch.Tensor) -> torch.Tensor:
@@ -91,11 +162,12 @@ def _library(build_dir: str | None = None) -> ctypes.CDLL:
     lib.probe_matmul.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_int, ctypes.c_void_p]
     lib.probe_matmul.restype = ctypes.c_int
-    lib.probe_chain_plan.argtypes = [ctypes.c_int,
-                                     ctypes.POINTER(ctypes.c_int)]
-    lib.probe_chain_plan.restype = ctypes.c_int
+    lib.probe_chain_design.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.probe_chain_design.restype = ctypes.c_int
     lib.probe_chain.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                                + [ctypes.c_void_p])
+                                + [ctypes.POINTER(ctypes.c_int),
+                                   ctypes.c_void_p])
     lib.probe_chain.restype = ctypes.c_int
     return lib
 
@@ -140,18 +212,21 @@ def probe_matmul(a: torch.Tensor, *,
 probe_matmul.launches = 0
 
 
-def chain_plan(n: int) -> tuple[int, int]:
-    """(columns a block owns, blocks of the grid) for a w of n columns on
-    the current CUDA device."""
-    blocks = ctypes.c_int(0)
-    slab = _library().probe_chain_plan(int(n), ctypes.byref(blocks))
-    if slab < 0:
-        raise RuntimeError(f"probe_chain_plan failed: cudaError {-slab}")
-    return slab, blocks.value
+def device_chain_design(m: int, k: int, n: int,
+                        chains: int = 1) -> ChainDesign:
+    """The design the launcher takes on the current CUDA device (its own
+    rule, ``plan_chain``; :func:`chain_design` states it)."""
+    info = (ctypes.c_int * 4)()
+    got = _library().probe_chain_design(int(m), int(k), int(n), int(chains),
+                                        info)
+    if got < 0:
+        raise RuntimeError(f"probe_chain_design failed: cudaError {-got}")
+    return ChainDesign(_DESIGNS[got], *info)
 
 
 def _launch_chain(name: str, x: torch.Tensor, ws: tuple[torch.Tensor, ...],
-                  iters: int, mode: str, return_x: bool):
+                  iters: int, mode: str, return_x: bool,
+                  last_x: bool = False):
     m, k = x.shape
     n = ws[0].shape[1]
     nc = len(ws)
@@ -173,32 +248,46 @@ def _launch_chain(name: str, x: torch.Tensor, ws: tuple[torch.Tensor, ...],
     check = torch.zeros((nc, n // CHECKSUM_GROUP), dtype=torch.float32,
                         device=x.device)
     total = torch.zeros((1,), dtype=torch.float32, device=x.device)
+    design = ctypes.c_int(-1)
     err = _library().probe_chain(
         x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr() if nc == 2 else None,
         xbuf.data_ptr(), check.data_ptr(), total.data_ptr(), m, k, n,
-        int(iters), MODES[mode], torch.cuda.current_stream().cuda_stream)
+        int(iters), MODES[mode], ctypes.byref(design),
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     if nc == 1:
         check = check[0]
     if not return_x:
         return total, check
-    final = xbuf[iters & 1] if iters else x.expand(nc, m, k)
-    return total, check, (final[0] if nc == 1 else final)
+    if _DESIGNS[design.value] == "local":     # the first block's, the last's
+        final, last = xbuf[0], xbuf[1]
+    else:                                     # one copy, in L2
+        final = xbuf[iters & 1] if iters else x.expand(nc, m, k)
+        last = final
+    if nc == 1:
+        final, last = final[0], last[0]
+    return (total, check, final, last) if last_x else (total, check, final)
 
 
 def chain_matmul(x: torch.Tensor, w: torch.Tensor, iters: int, *,
-                 mode: str = "full", return_x: bool = False):
+                 mode: str = "full", return_x: bool = False,
+                 last_block_x: bool = False):
     """P2: ``iters`` dependent products ``x <- bf16(0.01 * (x @ w)[:, :k])``.
     Returns ``(sum(x) (1,), checksum (n / 16,))`` and, with ``return_x``, the
     final x. CPU tensors take :func:`chain_reference`. CUDA tensors (bf16,
     contiguous, on the current device; m a multiple of 32 up to 256, k a
-    multiple of 16 up to n, n a multiple of 16) launch the kernel once;
-    ``mode`` (see :data:`MODES`) strips the launch for timing its parts.
-    Each launch adds one to ``chain_matmul.launches``."""
+    multiple of 16 up to n, n a multiple of 16) launch the kernel once, in
+    the design of :func:`chain_design`; ``mode`` (see :data:`MODES`) strips
+    the launch for timing its parts. With ``return_x`` and ``last_block_x``
+    on a CUDA tensor the last block's final x comes back as a fourth output
+    (the local design keeps a copy of x in every block; the exchange design
+    one copy, returned twice). Each launch adds one to
+    ``chain_matmul.launches``."""
     if x.device.type == "cpu":
         return chain_reference(x, w, iters, return_x)
-    out = _launch_chain("chain_matmul", x, (w,), iters, mode, return_x)
+    out = _launch_chain("chain_matmul", x, (w,), iters, mode, return_x,
+                        last_block_x)
     chain_matmul.launches += 1
     return out
 

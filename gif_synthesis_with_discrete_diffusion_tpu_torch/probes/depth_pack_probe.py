@@ -6,8 +6,13 @@ The counterpart of ``scripts/depth_pack_probe.py`` for an NVIDIA card, with
 the same result keys. Each measurement is one launch of a chain kernel
 (``ops/probe_kernels.py``: ``chain_matmul``, ``pair_matmul``): ``iters``
 dependent products ``x <- bf16(0.01 * (x @ w)[:, :k])`` with w resident in
-the SMs' shared memory for the whole launch and the next x exchanged through
-L2 behind a grid barrier.
+the SMs' shared memory for the whole launch. One chain at k <= 128 (the QK
+and packed shapes, the depth curve at 64 and 128) takes the local design:
+every block keeps x and the head w[:, :k] and computes the next x itself,
+each warp the chain of its own 32 rows, as the TPU kernel keeps x in one
+core; the pair and the deeper chains take the exchange design, the next x
+passed through L2 behind a grid barrier (``chain_design``; each shape's
+design is in the result).
 
 * ``depth_curve``: useful TFLOP/s of (256, K) x (K, 2048) for K in 64, 128,
   256, 512;
@@ -17,9 +22,14 @@ L2 behind a grid barrier.
   block-diagonal depth-128 pass (256, 128) x (128, 32768) that computes the
   same two score blocks (and twice the operations).
 
-Every shape is also run with the products skipped (staging, epilogue and
-barriers stay) and with the grid barriers alone, so each iteration's time
-splits into the exchange and the products.
+Every shape is also run with the products skipped and with the loop's
+synchronisation alone (``MODES``), so each iteration's time splits into the
+products and the rest: ``us_products_skipped`` / ``exchange_share`` is the
+loop without its products (local: the head's rounding, the next x's
+writes, the checksum's partial sums, the warp barriers; exchange: also the
+staging of x from L2 and the grid barrier), ``us_barrier_only`` /
+``barrier_share`` the synchronisation alone (local: two warp barriers an
+iteration; exchange: one grid barrier).
 
 After a few dozen iterations x is zero in bf16 (each iteration scales by
 0.01 and w ~ N(0, 1) / k); the tensor cores take the same time for zeros, so
@@ -85,13 +95,16 @@ def time_chain(m: int, k: int, n: int, iters: int = ITERS, *,
     return out
 
 
-def _row(m: int, k: int, n: int, t: dict, products: int = 1) -> dict:
+def _row(m: int, k: int, n: int, t: dict, products: int = 1,
+         design: str | None = None) -> dict:
     """One shape's readings: microseconds an iteration in each mode, the
     useful TFLOP/s of the whole iteration and of the products alone (the
-    iteration less the same loop with the products skipped)."""
+    iteration less the same loop with the products skipped), and the
+    design the launch took."""
     flops = 2.0 * m * k * n * products
     alone = t["full"] - t["no_products"]
     return {
+        "design": design,
         "us": t["full"] * 1e6,
         "us_products_skipped": t["no_products"] * 1e6,
         "us_barrier_only": t["barrier_only"] * 1e6,
@@ -106,23 +119,26 @@ def measure(iters: int = ITERS, log=print) -> dict:
     """Run the three measurements on the current CUDA device."""
     require_cuda("the depth / packing probe")
     import torch
-    slab = {n: pk.chain_plan(n) for n in (2048, 16384, 32768)}
+    grid = {n: pk.device_chain_design(M, 64, n)
+            for n in (2048, 16384, 32768)}
     results = {"device": f"gpu:{torch.cuda.get_device_name(0)}",
                "card": card_line(), "iters": iters,
-               "grid": {str(n): {"slab_columns": s, "blocks": b}
-                        for n, (s, b) in slab.items()},
+               "grid": {str(n): {"slab_columns": d.slab, "blocks": d.blocks}
+                        for n, d in grid.items()},
                "shapes": {}}
     log(f"probing {results['card']}; a chain's grid: "
-        + ", ".join(f"n={n}: {b} blocks of {s} columns"
-                    for n, (s, b) in slab.items()))
+        + ", ".join(f"n={n}: {d.blocks} blocks of {d.slab} columns"
+                    for n, d in grid.items()))
 
     def run(label, m, k, n, pair=False):
         t = time_chain(m, k, n, iters, pair=pair)
-        row = _row(m, k, n, t, 2 if pair else 1)
+        design = pk.device_chain_design(m, k, n, 2 if pair else 1).design
+        row = _row(m, k, n, t, 2 if pair else 1, design)
         results["shapes"][label] = row
-        log(f"{label}: {row['us']:.3f} us/iteration = {row['tflops']:.2f} "
-            f"TFLOP/s; products skipped {row['us_products_skipped']:.3f} us "
-            f"({100 * row['exchange_share']:.1f} %), barrier alone "
+        log(f"{label}, the {design} design: {row['us']:.3f} us/iteration = "
+            f"{row['tflops']:.2f} TFLOP/s; products skipped "
+            f"{row['us_products_skipped']:.3f} us "
+            f"({100 * row['exchange_share']:.1f} %), synchronisation alone "
             f"{row['us_barrier_only']:.3f} us "
             f"({100 * row['barrier_share']:.1f} %); the products alone "
             + (f"{row['products_alone_tflops']:.2f} TFLOP/s"

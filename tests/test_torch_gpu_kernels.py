@@ -584,7 +584,9 @@ def test_megakernel_refuses_other_widths(cuda):
         mk.megakernel_step(*args, pack_cfg=True, **dict(kw, use_cfg=False))
 
 
-@pytest.mark.parametrize("n", [16, 100, 256])
+# one element; sizes no multiple of P1's 32 x 16 tile, or of 4 (element
+# copies: 255, 333); more 64-deep chunks than its four stages (300, 520)
+@pytest.mark.parametrize("n", [1, 16, 100, 255, 256, 300, 333, 520])
 def test_probe_matmul_kernel_matches_plain(cuda, n):
     chip_smoke._check_probe_matmul(torch, "test", n)
 
@@ -603,17 +605,44 @@ def test_chain_kernels_match_plain(cuda, m, k, n, iters, ones, pair):
     chip_smoke._check_chain(torch, "test", m, k, n, iters, pair, ones)
 
 
+@pytest.mark.parametrize("m,k,n", [(256, 64, 16384), (256, 128, 32768)],
+                         ids=["qk", "packed"])
+def test_chain_blocks_hold_the_same_x(cuda, m, k, n):
+    """The local design: every block computes the chain's x itself, and the
+    first and the last block end with the same bits."""
+    chip_smoke._check_chain_blocks(torch, "test", m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n,chains", [
+    (256, 64, 2048, 1), (256, 128, 2048, 1), (256, 256, 2048, 1),
+    (256, 512, 2048, 1), (256, 64, 16384, 1), (256, 128, 32768, 1),
+    (256, 64, 16384, 2), (32, 16, 48, 1), (64, 32, 2128, 2)])
+def test_chain_design_is_the_launchers(cuda, m, k, n, chains):
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+    assert pk.device_chain_design(m, k, n, chains) == pk.chain_design(
+        m, k, n, chains, chip_smoke._multiprocessors(torch))
+
+
 def test_chain_kernel_modes_and_refusals(cuda):
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         probe_kernels as pk)
     x, w1, w2 = chip_smoke._chain_inputs(torch, 256, 64, 2048, 1, True)
-    slab, blocks = pk.chain_plan(2048)
-    assert slab % 16 == 0 and (blocks - 1) * slab < 2048 <= blocks * slab
+    d = pk.device_chain_design(256, 64, 2048)
+    assert d.slab % 16 == 0 and (d.blocks - 1) * d.slab < 2048 <= \
+        d.blocks * d.slab
+    # the local design (P2 at k = 64), the exchange design (P2 at k = 256,
+    # and P3): with the products skipped x is 0 after one iteration, and the
+    # synchronisation alone writes nothing
+    xd, wd, _ = chip_smoke._chain_inputs(torch, 256, 256, 2048, 1, True)
+    assert pk.device_chain_design(256, 64, 2048).design == "local"
+    assert pk.device_chain_design(256, 256, 2048).design == "exchange"
     for mode in ("no_products", "barrier_only"):
-        total, check = pk.chain_matmul(x, w1, 3, mode=mode)
-        torch.cuda.synchronize()
-        # without the products x is 0 after one iteration
-        assert float(total) == 0.0 and not check.any()
+        for total, check in (pk.chain_matmul(x, w1, 3, mode=mode),
+                             pk.chain_matmul(xd, wd, 3, mode=mode),
+                             pk.pair_matmul(x, w1, w2, 3, mode=mode)):
+            torch.cuda.synchronize()
+            assert float(total) == 0.0 and not check.any()
     with pytest.raises(ValueError):
         pk.chain_matmul(x[:, :24].contiguous(), w1[:24].contiguous(), 1)
     with pytest.raises(TypeError):

@@ -319,3 +319,113 @@ def test_chip_smoke_times_the_parent_only_when_asked(monkeypatch, capsys):
         "1.0000 ms, old 3.0000 ms",
         "phase 6: K6 in turns with old (a card, 700 W): this checkout "
         "2.0000 ms, old 4.0000 ms"]
+
+
+# the depth / packing probe's six one-chain shapes and its pair
+_PROBE_SHAPES = [(256, 64, 2048, 1), (256, 128, 2048, 1), (256, 256, 2048, 1),
+                 (256, 512, 2048, 1), (256, 64, 16384, 1),
+                 (256, 128, 32768, 1), (256, 64, 16384, 2)]
+
+
+@pytest.mark.parametrize("m,k,n,chains", _PROBE_SHAPES)
+def test_chain_design_fits_every_probe_shape(m, k, n, chains):
+    """Every probe shape has a design whose shared memory fits a block on an
+    H100 (132 SMs); one chain at k <= 128 keeps x in every block (the QK and
+    packed shapes among them), the pair and the deeper chains exchange x
+    through L2."""
+    d = pk.chain_design(m, k, n, chains)
+    assert 0 < d.smem <= pk.SHARED_BYTES <= 227 * 1024
+    assert d.slab % pk.CHECKSUM_GROUP == 0 and d.blocks <= 132
+    assert (d.blocks - 1) * d.slab < n <= d.blocks * d.slab
+    assert d.design == ("local" if chains == 1 and k <= 128 else "exchange")
+    assert k % d.kc == 0
+    if d.design == "local":
+        # x, the head and the slab, rows padded by 8 bf16, and the partials
+        assert d.smem == 2 * (m * (k + 8) + k * (k + 8) + k * (d.slab + 8)) \
+            + d.slab // 16 * 256 * 4
+    if (m, k, n, chains) == (256, 64, 16384, 1):             # the QK shape
+        assert d == pk.ChainDesign("local", 128, 128, 64, 71680)
+    if (m, k, n, chains) == (256, 128, 32768, 1):            # packed
+        assert d == pk.ChainDesign("local", 256, 128, 128, 188416)
+
+
+def test_chain_design_falls_back_and_refuses():
+    # the local copy of x and the head does not fit at k = 256 (270 KB)
+    assert 2 * (256 * 264 + 256 * 264) > pk.SHARED_BYTES
+    assert pk.chain_design(256, 256, 2048).kc == 256
+    # a slab wider than fits beside x: x staged in halves
+    d = pk.chain_design(256, 256, 2048, sms=12)
+    assert d.design == "exchange" and d.kc < 256 and d.smem <= pk.SHARED_BYTES
+    # slabs wider than 256 columns (n above 132 x 256): the exchange
+    assert pk.chain_design(256, 64, 65536).design == "exchange"
+    for bad in ((48, 64, 2048), (256, 24, 2048), (256, 64, 2040),
+                (256, 384, 2048), (256, 128, 64)):
+        with pytest.raises(ValueError):
+            pk.chain_design(*bad)
+    with pytest.raises(ValueError):
+        pk.chain_design(256, 64, 2048, chains=3)
+
+
+def test_chain_design_states_the_sources_constants():
+    """``chain_design`` restates ``plan_chain`` of the CUDA source: the
+    constants it reads there are the source's."""
+    import re
+    text = (cuda_build.CSRC / "probe_kernels.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert int(const["kPad"]) == pk._PAD
+    assert int(const["kThreads"]) == pk._THREADS
+    assert int(const["kLocalMaxK"]) == pk._LOCAL_MAX_K
+    assert int(const["kLocalSubs"]) * int(const["kSub"]) == \
+        pk._LOCAL_MAX_SLAB
+    assert int(const["kMaxSmem"]) == pk.SHARED_BYTES
+    assert int(const["kMaxChunk"]) == pk._MAX_CHUNK
+    assert int(const["kGroup"]) == pk.CHECKSUM_GROUP
+    assert "slab <= kLocalSubs * kSub &&\n      local <= kLocalSmem" in text
+    assert "kLocalSmem = kMaxSmem - kThreads * 4;" in text
+
+
+def test_probe_kernel_variants_edit_the_shipped_source():
+    """Each variant of the P1 / P2 in-turns probe is a set of text
+    replacements whose old text occurs once in ``csrc/probe_kernels.cu``;
+    without a card the probe raises."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        probe_kernel_variants as pkv)
+    text = (cuda_build.CSRC / pkv.SOURCE).read_text()
+    for name, edits in pkv.VARIANTS.items():
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+        assert pkv.variant_text(name, text) != text
+    assert set(pkv.CHAINS) >= {"P2"} and pkv.CHAINS["P2"] == (256, 64, 16384)
+    assert pkv.ITERS == depth_pack_probe.ITERS
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pkv.compare(None, ("p1_stages2",), rounds=1)
+
+
+def test_chip_smoke_times_p1_and_p2_against_the_parent(monkeypatch, capsys):
+    """Phases 11 and 12 read P1 and P2 in turns with another checkout from
+    the probe kernels' own in-turns probe, once for both."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        probe_kernel_variants as pkv)
+    calls = []
+    reading = {"card": "a card, 700 W", "ms": {
+        "change": [{"P1": 0.003, "P2": 4.0}],
+        "parent": [{"P1": 0.008, "P2": 15.0}]}}
+    monkeypatch.setattr(pkv, "compare", lambda parent, **kw: (
+        calls.append(parent) or reading))
+    chip_smoke._parent_turns.cache_clear()
+    try:
+        chip_smoke._print_parent_turns("phase 11", "P1", None)
+        assert calls == [] and capsys.readouterr().out == ""
+        chip_smoke._print_parent_turns("phase 11", "P1", "old")
+        chip_smoke._print_parent_turns("phase 12", "P2", "old")
+    finally:
+        chip_smoke._parent_turns.cache_clear()
+    assert calls == ["old"]
+    assert capsys.readouterr().out.splitlines() == [
+        "phase 11: P1 in turns with old (a card, 700 W): this checkout "
+        "0.0030 ms, old 0.0080 ms",
+        "phase 12: P2 in turns with old (a card, 700 W): this checkout "
+        "4.0000 ms, old 15.0000 ms"]
