@@ -5,8 +5,9 @@
 
     python3 chip_smoke.py --profile   # and a torch.profiler table of a
                                       # training step of each stage
-    python3 chip_smoke.py --parent ROOT   # and K1, K6, P1 and P2 timed in
-                                          # turns with the checkout at ROOT
+    python3 chip_smoke.py --parent ROOT   # and K1, K6, P1, P2 and P3 timed
+                                          # in turns with the checkout at
+                                          # ROOT
 
 Phases:
   1. the card (nvidia-smi name and power limit), the torch / CUDA
@@ -65,14 +66,16 @@ Phases:
      and the verdict on one line;
  12. the chain kernels (P2, P3) against their plain versions at ``iters``
      <= 4 (where sum(x) is far from 0), checksums included, at the QK shape
-     and at the depth-curve and packed shapes, each with its design (P2's
+     and at the depth-curve and packed shapes, each with its design (the
      local design, x kept in every block, or the exchange through L2); P2's
      final x bitwise the same in the first and the last block at the QK and
-     packed shapes; both timed at the QK shape, with a loop of the library's
-     products eager and replayed from a CUDA graph (and, with ``--parent
-     ROOT``, ROOT's P2 in turns); then the depth / packing probe's three
-     measurements, each with the share of the loop without products and of
-     its synchronisation alone;
+     packed shapes, P3's (both chains) at the QK shape; P3's design and its
+     kernel's registers and spills (none allowed); both timed at the QK
+     shape, with a loop of the library's products eager and replayed from a
+     CUDA graph; with ``--parent ROOT``, ROOT's P2 and P3 in turns; then
+     the depth / packing
+     probe's three measurements, each with the share of the loop without
+     products and of its synchronisation alone;
  13. stage-1 training: a small step held against the same step on the CPU
      (loss, every gradient, the codebook's new buffers, the running
      statistics), then ``TRAIN_STEP1`` at B=64 on a fixed synthetic batch:
@@ -484,7 +487,8 @@ def phase_k1(torch, smi: str, parent: str | None = None) -> dict:
 # the probe that times each kernel in turns with another checkout's
 _TURN_PROBES = {"K1": "sampler_codebook_variants",
                 "K6": "sampler_codebook_variants",
-                "P1": "probe_kernel_variants", "P2": "probe_kernel_variants"}
+                "P1": "probe_kernel_variants", "P2": "probe_kernel_variants",
+                "P3": "probe_kernel_variants"}
 
 
 @functools.cache
@@ -1634,29 +1638,59 @@ def _multiprocessors(torch) -> int:
 
 
 def _check_chain_blocks(torch, phase: str, m: int, k: int, n: int,
-                        iters: int = 3) -> None:
-    """P2 in the local design: the final x of the first and of the last
-    block, bitwise equal."""
+                        iters: int = 3, pair: bool = False) -> None:
+    """P2 (or P3) in the local design: the final x of the first and of the
+    last block, bitwise equal (for the pair, both chains' and each chain's
+    nonzero)."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         probe_kernels as pk)
 
-    design = pk.device_chain_design(m, k, n)
-    x, w1, _ = _chain_inputs(torch, m, k, n, 2 * m + k + n, False)
-    _, _, first, last = pk.chain_matmul(x, w1, iters, return_x=True,
-                                        last_block_x=True)
+    name = "P3" if pair else "P2"
+    design = pk.device_chain_design(m, k, n, 2 if pair else 1)
+    x, w1, w2 = _chain_inputs(torch, m, k, n, 2 * m + k + n, False)
+    if pair:
+        _, _, first, last = pk.pair_matmul(x, w1, w2, iters, return_x=True,
+                                           last_block_x=True)
+    else:
+        _, _, first, last = pk.chain_matmul(x, w1, iters, return_x=True,
+                                            last_block_x=True)
     torch.cuda.synchronize()
     bits = (first.view(torch.int16), last.view(torch.int16))
     differ = int((bits[0] != bits[1]).sum())
-    print(f"{phase}: P2 ({m}, {k}) x ({k}, {n}), iters {iters}, the "
+    chains = first.reshape(2 if pair else 1, -1)
+    print(f"{phase}: {name} ({m}, {k}) x ({k}, {n}), iters {iters}, the "
           f"{design.design} design over {design.blocks} blocks: the final x "
           f"of block 0 and of block {design.blocks - 1} differ in {differ} "
           f"of {first.numel()} elements (bitwise); nonzero "
-          f"{int((first != 0).sum())}")
+          + ", ".join(str(int((c != 0).sum())) for c in chains))
     if design.design != "local":
-        raise AssertionError(f"P2 at ({m}, {k}) x ({k}, {n}) does not take "
-                             f"the local design")
-    if differ or not first.any():
-        raise AssertionError("P2's blocks hold different final x")
+        raise AssertionError(f"{name} at ({m}, {k}) x ({k}, {n}) does not "
+                             f"take the local design")
+    if differ or not all(c.any() for c in chains):
+        raise AssertionError(f"{name}'s blocks hold different final x")
+
+
+def _chain_kernel_name(design, k: int, chains: int) -> str:
+    """The design and the CUDA kernel a chain launch takes."""
+    if design.design == "exchange":
+        return f"exchange: chain_kernel<{chains}>"
+    return f"local: chain_local_kernel<{k}, {chains}>"
+
+
+def _pair_ptxas(k: int) -> str:
+    """nvcc's registers and spills of the pair's local instantiation at
+    depth k; raises where it spills."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        probe_kernels as pk)
+
+    rows = [r for r in _ptxas_by_kernel(pk._library().build_log)
+            if re.search(rf"chain_local_kernel(<(\(int\))?{k}, (\(int\))?2>"
+                         rf"|ILi{k}ELi2E)", r)]
+    if len(rows) != 1:
+        raise AssertionError(f"no ptxas line of the pair at k = {k}: {rows}")
+    if not rows[0].endswith(" 0 B spilled"):
+        raise AssertionError(f"the pair's kernel spills: {rows[0]}")
+    return rows[0]
 
 
 def _check_probe_matmul(torch, phase: str, n: int) -> float:
@@ -1895,6 +1929,10 @@ def phase_chains(torch, smi: str, parent: str | None = None
                 torch, "phase 12", m, k, n, iters, pair, ones))
     for m, k, n in ((256, 64, 16384), (256, 128, 32768)):
         _check_chain_blocks(torch, "phase 12", m, k, n)
+    _check_chain_blocks(torch, "phase 12", 256, 64, 16384, pair=True)
+    print(f"phase 12: P3 at the QK shape: "
+          f"{pk.device_chain_design(256, 64, 16384, 2)}; "
+          f"{_pair_ptxas(64)}")
 
     # timed at the QK shape with the probe's own operands and iterations
     m, k, n, iters = 256, 64, 16384, depth_pack_probe.ITERS
@@ -1941,6 +1979,7 @@ def phase_chains(torch, smi: str, parent: str | None = None
         nbytes = 2.0 * (m * k + len(ws) * k * n) + 4.0 * (
             1 + len(ws) * n // pk.CHECKSUM_GROUP)
         bound_ms, bound_by = _bound(nbytes, 0.0, flops)
+        d = pk.device_chain_design(m, k, n, len(ws))
         print(f"phase 12: {name} ({m}, {k}) x ({k}, {n}), {iters} "
               f"iterations, {len(ws)} chain(s): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, a loop of torch.matmul (bf16) "
@@ -1950,12 +1989,15 @@ def phase_chains(torch, smi: str, parent: str | None = None
               f"{ms / graph_ms:.3f} x its time), bound {bound_ms:.4f} ms by "
               f"{bound_by} ({flops / 1e9:.1f} GFLOP of bf16 operands at "
               f"{PEAK_BF16 / 1e12} TFLOP/s, {nbytes / 1e6:.2f} MB), the "
-              f"kernel at {100 * bound_ms / ms:.1f} % of it ({smi})")
+              f"kernel at {100 * bound_ms / ms:.1f} % of it; the {d.design} "
+              f"design ({smi})")
         numbers[name] = dict(max_abs_err=worst[name == "P3"], ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=lib_ms,
-                             library_graph_ms=graph_ms)
+                             library_graph_ms=graph_ms,
+                             design=_chain_kernel_name(d, k, len(ws)))
     _print_parent_turns("phase 12", "P2", parent)
+    _print_parent_turns("phase 12", "P3", parent)
 
     pk.chain_matmul.launches = pk.pair_matmul.launches = 0
     results = depth_pack_probe.measure(
@@ -2148,7 +2190,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="time each training step by kernel")
     ap.add_argument("--parent", metavar="ROOT",
-                    help="also time K1, K6, P1 and P2 in turns with the "
+                    help="also time K1, K6, P1, P2 and P3 in turns with the "
                          "checkout at ROOT")
     args = ap.parse_args()
     import torch

@@ -2,10 +2,10 @@
 
 The JAX package beside this one is the reference; every module here mirrors
 its counterpart's path and name (``models/``, ``ops/``, ``convert/``), and
-every TPU kernel on the ported path is a kernel written by hand for NVIDIA
-Hopper (``ops/attention.py``: CUDA C++ under ``csrc/``; ``ops/
-sampler_kernel.py``: Triton). Each kernel wrapper runs its plain PyTorch
-version only for tensors on the CPU.
+every TPU kernel of the repo is a kernel written by hand for NVIDIA
+Hopper in CUDA C++ (the sources under ``csrc/``, built by
+``ops/cuda_build.py``; the port carries no Triton kernel). Each kernel
+wrapper runs its plain PyTorch version only for tensors on the CPU.
 
 This package imports ``torch`` and never ``jax`` or ``flax``.
 """

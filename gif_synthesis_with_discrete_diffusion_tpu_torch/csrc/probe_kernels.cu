@@ -30,29 +30,37 @@
 // at most one block an SM owns a column slab of w, staged into shared
 // memory once and kept there for all iterations. Two designs:
 //
-// * local (one chain, k <= 128, slabs of at most 256 columns, where it
-//   fits: the QK and packed shapes and the depth curve's first two): every
-//   block also keeps x and the head w[:, :k] and computes the chain's next x
-//   itself. A row of the next x depends on the same row of x alone, so each
-//   warp owns 32 rows and runs their chain on its own: its rows of x read
-//   into registers as mma fragments once an iteration, the head (32, k) x
-//   (k, k) into bf16 registers, its rows of the slab's product into the
-//   checksum's partial sums (registers too), then the next x written over
-//   its rows between two warp barriers. x never leaves the SM; there is no
-//   grid barrier, no block barrier and no L2 round trip in the loop, and no
-//   cooperative launch. Every block runs the same instructions on the same x
-//   and head, so every block's x is bitwise the same. The head is work above
-//   the bound ((m, k) x (k, k) a block an iteration; the bound counts the
-//   full product once). One instantiation a depth (16 to 128), so that the
-//   contraction unrolls.
-// * exchange (two chains, or where the local copy does not fit: k = 256,
-//   512 at n = 2048): a persistent cooperative grid; the blocks that own the
-//   head's columns write the next x (scaled, rounded to bf16) to a
-//   double-buffered scratch that stays in the 50 MB L2, a grid barrier ends
-//   the iteration, and every block re-stages x from L2 (cp.async.cg: past
-//   the L1, which other SMs' writes would leave stale). The local copy of x
-//   and w[:, :k] takes 270 KB at k = 256 and 800 KB at k = 512, and a
-//   cluster's shared memory spans 16 SMs, not 132.
+// * local (one or two chains, k <= 128, slabs of at most 256 columns, where
+//   the chains' copies fit: one chain at the QK and packed shapes and the
+//   depth curve's first two, the pair at the QK shape): every block also
+//   keeps x and the head w[:, :k] of each chain and computes the chains'
+//   next x itself (chain_local_kernel<K, NC>). A row of the next x
+//   depends on the same row of x alone, so each warp owns 32 rows of one
+//   chain and runs them on its own, 8 warps a chain: the pair's 16 warps
+//   put two warps of each chain on every SM sub-partition, so that the two
+//   chains' products overlap. A warp reads its rows of x into registers as
+//   mma fragments once an iteration; the head's product (32, k) x (k, k),
+//   rounded, is written over x as each head sub-tile is done; then the
+//   slab's products of its two row tiles accumulate into one tile in the
+//   tensor cores (the checksum sums over rows) and from there into the
+//   checksum's partial sums in registers. x never leaves the SM; there is
+//   no grid barrier, no block barrier and no L2 round trip in the loop
+//   (two warp barriers), and no cooperative launch. Every block runs the
+//   same instructions on the same x and heads, so every block's x is
+//   bitwise the same. The head is work above the bound ((m, k) x (k, k) a
+//   block an iteration; the bound counts the full product once). One
+//   instantiation a depth (16 to 128) and count of chains, so that the
+//   contraction unrolls; a thread of the pair's 512 has 128 registers,
+//   hence its narrower sub-tiles.
+// * exchange (where the local copy does not fit: k = 256, 512 at n = 2048,
+//   the pair at (256, 128, 32768)): a persistent cooperative grid; the
+//   blocks that own the head's columns write the next x (scaled, rounded to
+//   bf16) to a double-buffered scratch that stays in the 50 MB L2, a grid
+//   barrier ends the iteration, and every block re-stages x from L2
+//   (cp.async.cg: past the L1, which other SMs' writes would leave stale).
+//   The local copy of x and w[:, :k] takes 270 KB at k = 256 and 800 KB at
+//   k = 512 (the pair's at (256, 128, 32768) 2 x 188 KB), and a cluster's
+//   shared memory spans 16 SMs, not 132.
 //
 // mode 1 runs the loop with the products skipped and mode 2 the loop's own
 // synchronisation alone (local: the warp barriers; exchange: the grid
@@ -62,11 +70,12 @@
 // ldmatrix (rows padded by 16 bytes: conflict-free), f32 accumulators.
 // Not wgmma: its 64-row tiles belong to four warps at once, so the next x of
 // a warpgroup's rows would need a barrier among those warps, where mma.sync
-// lets each warp own its 32 rows. A warp walks its slab 64 columns at a
-// time; in the exchange design a contraction deeper than 256,
-// or than shared memory holds, is staged in equal chunks, and with two
-// chains (NC = 2) both advance inside the same k-step, so their mma's
-// interleave.
+// lets each warp own its 32 rows. A warp walks the head and its slab 64
+// columns at a time (the local pair: the head 32 columns and the slab 64,
+// 16 and 16 above k = 64); in the exchange design a contraction deeper
+// than 256, or than shared memory holds, is staged in equal chunks, and
+// with two chains (NC = 2) both advance inside the same k-step, so their
+// mma's interleave.
 //
 // Only the first k of n columns feed the chain. So that no column's product
 // is dead, every iteration's full product is summed into `checksum`, one
@@ -326,61 +335,184 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainParams p) {
   }
 }
 
-// ------------------------------------------------- P2, the local design ----
+// ---------------------------------------------- P2 / P3, the local design ----
 
-// the head's columns a warp keeps in registers
-constexpr int kLocalMaxK = 128;
+constexpr int kLocalMaxK = 128;  // the deepest chain kept in every block
 constexpr int kLocalSubs = 4;    // 64-column sub-tiles of a slab: at most 256
 // dynamic shared memory a block, beside the kernel's static reduction buffer
 constexpr int kLocalSmem = kMaxSmem - kThreads * 4;
+constexpr int kLocalRows = 32;                // rows of x a warp owns
+constexpr int kLocalTiles = kLocalRows / 16;  // its 16-row tiles
+constexpr int kRowWarps = kMaxRows / kLocalRows;  // the warps of a chain
+// the checksum's groups of a slab of at most 256 columns
+constexpr int kLocalGroups = kLocalSubs * kSub / kGroup;
+
+// the columns of a sub-tile of the head's products, and of the slab's (one
+// accumulator tile for all of a warp's rows), at depth K with NC chains: a
+// thread of one chain has 255 registers, of the pair (512 threads) 128,
+// within which x's fragments, a sub-tile's accumulators and the checksum
+// partials stay
+template <int K, int NC>
+constexpr int kHeadSub = NC == 1 ? 64 : K > 64 ? 16 : 32;
+template <int K, int NC>
+constexpr int kSlabSub = NC == 1 || K <= 64 ? 64 : 16;
 
 struct LocalParams {
-  const __nv_bfloat16* x0;  // (m, k): the first x
-  const __nv_bfloat16* w;   // (k, n)
-  __nv_bfloat16* xout;      // (2, m, k): the final x of the first and the
-                            // last block
-  float* checksum;          // (n / 16,)
-  float* out;               // (1,): sum of the final x
+  const __nv_bfloat16* x0;    // (m, K): the first x of every chain
+  const __nv_bfloat16* w[2];  // (K, n) per chain
+  __nv_bfloat16* xout;        // (2, NC, m, K): the final x of every chain
+                              // in the first and in the last block
+  float* checksum;            // (NC, n / 16)
+  float* out;                 // (1,): sum of the final x, chain by chain
   int m, n, iters, slab, mode;
 };
 
-__device__ __forceinline__ void zero_acc(float (&acc)[2][8][4]) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+// d = a (16 x 16, row) * b (16 x 8, col), the sum started from 0
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
 }
 
-// acc = this warp's 32 rows of x (their fragments a, K deep) times the 64
+// acc = this warp's rows of x (their fragments a, K deep) times the SUB
 // columns from ct of a (K, *) operand in shared memory; the 16-column
-// groups at or past `width` are left at 0
-template <int K>
-__device__ __forceinline__ void warp_product(
-    float (&acc)[2][8][4], const unsigned (&a)[K / 16][2][4],
-    const __nv_bfloat16* ws, int ws_ld, int ct, int width, int lane) {
-  zero_acc(acc);
+// groups at or past `width` are not computed (and not read)
+template <int K, int SUB>
+__device__ __forceinline__ void local_product(
+    float (&acc)[kLocalTiles][SUB / 8][4],
+    const unsigned (&a)[K / 16][kLocalTiles][4], const __nv_bfloat16* ws,
+    int ws_ld, int ct, int width, int lane) {
 #pragma unroll
   for (int kk = 0; kk < K; kk += 16) {
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < SUB / 16; ++np) {
       if (ct + np * 16 < width) {
         unsigned b[4];
         ldmatrix_x4_trans(b, ws + (kk + (lane & 15)) * ws_ld + ct + np * 16 +
                                  (lane >> 4) * 8);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[kk / 16][mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[kk / 16][mt], b[2], b[3]);
+        for (int mt = 0; mt < kLocalTiles; ++mt) {
+          if (kk == 0) {
+            mma_bf16_first(acc[mt][2 * np], a[0][mt], b[0], b[1]);
+            mma_bf16_first(acc[mt][2 * np + 1], a[0][mt], b[2], b[3]);
+          } else {
+            mma_bf16(acc[mt][2 * np], a[kk / 16][mt], b[0], b[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[kk / 16][mt], b[2], b[3]);
+          }
         }
       }
     }
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
+// acc = the sum over this warp's rows of x (their fragments a, K deep)
+// times the SUB columns from ct of a (K, *) operand in shared memory: the
+// row tiles' products accumulate into one tile (the checksum sums over
+// rows); the 16-column groups at or past `width` are not computed
+template <int K, int SUB>
+__device__ __forceinline__ void local_rows_product(
+    float (&acc)[SUB / 8][4], const unsigned (&a)[K / 16][kLocalTiles][4],
+    const __nv_bfloat16* ws, int ws_ld, int ct, int width, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 16) {
+#pragma unroll
+    for (int np = 0; np < SUB / 16; ++np) {
+      if (ct + np * 16 < width) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, ws + (kk + (lane & 15)) * ws_ld + ct + np * 16 +
+                                 (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < kLocalTiles; ++mt) {
+          if (kk == 0 && mt == 0) {
+            mma_bf16_first(acc[2 * np], a[0][0], b[0], b[1]);
+            mma_bf16_first(acc[2 * np + 1], a[0][0], b[2], b[3]);
+          } else {
+            mma_bf16(acc[2 * np], a[kk / 16][mt], b[0], b[1]);
+            mma_bf16(acc[2 * np + 1], a[kk / 16][mt], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One iteration of a chain over this warp's kLocalRows rows from row0: the
+// chain's x, head and slab at xs, hs and ws in shared memory, its checksum
+// partials in `part`. x's fragments are read into registers; the head's
+// product, rounded, is the next x: an m16n8 accumulator tile holds its rows
+// as the A fragment of an m16n8k16 product does, so two n-tiles of 8
+// columns packed to bf16 pairs are the fragment of one 16-deep tile of the
+// next x (f[0] row g, columns 2t, 2t + 1; f[1] row g + 8; f[2], f[3] the
+// same 8 columns on; g = lane / 4, t = lane % 4), written over x as each
+// head sub-tile is done. Then the slab's products go into the partials.
+template <int K, int NC>
+__device__ __forceinline__ void local_iteration(
+    __nv_bfloat16* xs, const __nv_bfloat16* hs, const __nv_bfloat16* ws,
+    int ws_ld, int row0, int width, int lane, bool products,
+    float (&part)[kLocalGroups]) {
+  constexpr int x_ld = K + kPad;
+  constexpr int sub = kHeadSub<K, NC>, slab_sub = kSlabSub<K, NC>;
+  unsigned a[K / 16][kLocalTiles][4];
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 16)
+#pragma unroll
+    for (int mt = 0; mt < kLocalTiles; ++mt)
+      ldmatrix_x4(a[kk / 16][mt], xs + (row0 + mt * 16 + (lane & 15)) * x_ld +
+                                      kk + (lane >> 4) * 8);
+  __syncwarp();  // every lane holds its fragments of this x
+  // the head: this warp's rows of the next x, written over x
+#pragma unroll
+  for (int hp = 0; hp < K; hp += sub) {
+    float acc[kLocalTiles][sub / 8][4] = {};
+    if (products) local_product<K, sub>(acc, a, hs, x_ld, hp, K, lane);
+#pragma unroll
+    for (int q = 0; q < sub / 16; ++q) {
+      if (hp + q * 16 < K) {  // a sub-tile may pass K (K = 16, 48)
+#pragma unroll
+        for (int mt = 0; mt < kLocalTiles; ++mt) {
+          const float(&lo)[4] = acc[mt][2 * q];
+          const float(&hi)[4] = acc[mt][2 * q + 1];
+          unsigned* f = reinterpret_cast<unsigned*>(
+              xs + (row0 + mt * 16 + (lane >> 2)) * x_ld + hp + q * 16 +
+              2 * (lane & 3));
+          f[0] = scaled_pair(lo[0], lo[1]);
+          f[4 * x_ld] = scaled_pair(lo[2], lo[3]);
+          f[4] = scaled_pair(hi[0], hi[1]);
+          f[4 * x_ld + 4] = scaled_pair(hi[2], hi[3]);
+        }
+      }
+    }
+  }
+  // the slab: every column's product into the checksum, summed over the
+  // rows in the tensor cores
+#pragma unroll
+  for (int ct = 0; ct < kLocalGroups * kGroup; ct += slab_sub) {
+    if (ct < width) {
+      float acc[slab_sub / 8][4] = {};
+      if (products)
+        local_rows_product<K, slab_sub>(acc, a, ws, ws_ld, ct, width, lane);
+#pragma unroll
+      for (int np = 0; np < slab_sub / 16; ++np) {
+        if (ct + np * 16 < width) {
+          const float(&lo)[4] = acc[2 * np];
+          const float(&hi)[4] = acc[2 * np + 1];
+          part[ct / kGroup + np] += ((lo[0] + hi[0]) + (lo[1] + hi[1])) +
+                                    ((lo[2] + hi[2]) + (lo[3] + hi[3]));
+        }
+      }
+    }
+  }
+  __syncwarp();  // the next x is whole: the next iteration may read it
+}
+
+// NC chains (1 or 2) of depth K on 8 warps each: warp w advances rows
+// 32 (w % 8) to 32 (w % 8) + 31 of chain w / 8.
+template <int K, int NC>
+__global__ void __launch_bounds__(NC * kThreads, 1)
 chain_local_kernel(LocalParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kThreads];
@@ -392,142 +524,88 @@ chain_local_kernel(LocalParams p) {
     return;
   }
   constexpr int x_ld = K + kPad;
+  constexpr int threads = NC * kThreads;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ws_ld = p.slab + kPad;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [m][x_ld]
-  __nv_bfloat16* hs = xs + p.m * x_ld;   // [K][x_ld]: w[:, :K], the head
-  __nv_bfloat16* ws = hs + K * x_ld;     // [K][ws_ld]: this block's slab
-  float* cs = reinterpret_cast<float*>(ws + K * ws_ld);
-  // cs: [slab / 16][kThreads], each thread's partial sums, written once
+  const int groups = p.slab / kGroup;
+  // per chain: x [m][x_ld], the head w[:, :K] [K][x_ld], the slab
+  // [K][ws_ld]; then cs [NC][groups][kThreads], the partial sums of each
+  // chain's threads, written once
+  const int hs = p.m * x_ld, ws = hs + K * x_ld, chain = ws + K * ws_ld;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* cs = reinterpret_cast<float*>(xs + NC * chain);
 
   const int c0 = blockIdx.x * p.slab;  // this block's first column
   const int width = p.n - c0 < p.slab ? p.n - c0 : p.slab;
-  // x, the head and the slab: staged once, kept for all iterations
+  // x, the heads and the slabs: staged once, kept for all iterations
   constexpr int xvec = K / 8;
   const int wvec = p.slab / 8;
-  for (int i = tid; i < p.m * xvec; i += kThreads) {
-    const int r = i / xvec, j = i % xvec;
-    cp_async16(xs + r * x_ld + j * 8,
-               p.x0 + static_cast<size_t>(r) * K + j * 8);
-  }
-  for (int i = tid; i < K * xvec; i += kThreads) {
-    const int r = i / xvec, j = i % xvec;
-    cp_async16(hs + r * x_ld + j * 8,
-               p.w + static_cast<size_t>(r) * p.n + j * 8);
-  }
-  for (int i = tid; i < K * wvec; i += kThreads) {
-    const int r = i / wvec, j = i % wvec;
-    __nv_bfloat16* dst = ws + r * ws_ld + j * 8;
-    if (c0 + j * 8 < p.n)
-      cp_async16(dst, p.w + static_cast<size_t>(r) * p.n + c0 + j * 8);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll  // p.w[c] at a constant index: the parameters stay in place
+  for (int c = 0; c < NC; ++c) {
+    __nv_bfloat16* base = xs + c * chain;
+    for (int i = tid; i < p.m * xvec; i += threads) {
+      const int r = i / xvec, j = i % xvec;
+      cp_async16(base + r * x_ld + j * 8,
+                 p.x0 + static_cast<size_t>(r) * K + j * 8);
+    }
+    for (int i = tid; i < K * xvec; i += threads) {
+      const int r = i / xvec, j = i % xvec;
+      cp_async16(base + hs + r * x_ld + j * 8,
+                 p.w[c] + static_cast<size_t>(r) * p.n + j * 8);
+    }
+    for (int i = tid; i < K * wvec; i += threads) {
+      const int r = i / wvec, j = i % wvec;
+      __nv_bfloat16* dst = base + ws + r * ws_ld + j * 8;
+      if (c0 + j * 8 < p.n)
+        cp_async16(dst, p.w[c] + static_cast<size_t>(r) * p.n + c0 + j * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
   cp_async_wait_all();
   __syncthreads();
 
-  const int row0 = warp * 32;
-  const int g = lane >> 2, t = lane & 3;
-  // the checksum's partial sums of this thread, by sub-tile and 16 columns
-  float part[kLocalSubs][4];
-#pragma unroll
-  for (int st = 0; st < kLocalSubs; ++st)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) part[st][np] = 0.f;
+  const int c = warp / kRowWarps, row0 = warp % kRowWarps * kLocalRows;
+  __nv_bfloat16* x = xs + c * chain;
+  float part[kLocalGroups] = {};
   if (row0 < p.m) {
-    for (int it = 0; it < p.iters; ++it) {
-      // this warp's rows of x as mma fragments, read once an iteration
-      unsigned a[K / 16][2][4];
-#pragma unroll
-      for (int kk = 0; kk < K; kk += 16)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldmatrix_x4(a[kk / 16][mt], xs + (row0 + mt * 16 + (lane & 15)) *
-                                               x_ld + kk + (lane >> 4) * 8);
-      // the head: this warp's rows of the next x, rounded, in registers
-      unsigned head[(K + kSub - 1) / kSub][2][8][2];
-#pragma unroll
-      for (int hp = 0; hp * kSub < K; ++hp) {
-        float acc[2][8][4];
-        if (p.mode == 0)
-          warp_product<K>(acc, a, hs, x_ld, hp * kSub, K, lane);
-        else
-          zero_acc(acc);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            head[hp][mt][nt][0] = scaled_pair(acc[mt][nt][0], acc[mt][nt][1]);
-            head[hp][mt][nt][1] = scaled_pair(acc[mt][nt][2], acc[mt][nt][3]);
-          }
-      }
-      // the slab: every column's product into the checksum
-#pragma unroll
-      for (int st = 0; st < kLocalSubs; ++st) {
-        const int ct = st * kSub;
-        if (ct < width) {
-          float acc[2][8][4];
-          if (p.mode == 0)
-            warp_product<K>(acc, a, ws, ws_ld, ct, width, lane);
-          else
-            zero_acc(acc);
-#pragma unroll
-          for (int np = 0; np < 4; ++np)
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  part[st][np] += acc[mt][2 * np + h][e];
-        }
-      }
-      __syncwarp();  // every lane has read this x
-#pragma unroll
-      for (int hp = 0; hp * kSub < K; ++hp)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          if (hp * kSub + nt * 8 < K) {
-            const int col = hp * kSub + nt * 8 + 2 * t;
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              __nv_bfloat16* q = xs + (row0 + mt * 16 + g) * x_ld + col;
-              *reinterpret_cast<unsigned*>(q) = head[hp][mt][nt][0];
-              *reinterpret_cast<unsigned*>(q + 8 * x_ld) = head[hp][mt][nt][1];
-            }
-          }
-        }
-      __syncwarp();  // the next x is whole
-    }
+    for (int it = 0; it < p.iters; ++it)
+      local_iteration<K, NC>(x, x + hs, x + ws, ws_ld, row0, width, lane,
+                             p.mode == 0, part);
   }
 #pragma unroll
-  for (int st = 0; st < kLocalSubs; ++st)
-#pragma unroll
-    for (int np = 0; np < 4; ++np)
-      if (st * kSub + np * 16 < width)
-        cs[(st * 4 + np) * kThreads + tid] = part[st][np];
+  for (int gi = 0; gi < kLocalGroups; ++gi)
+    if (gi < groups)
+      cs[(c * groups + gi) * kThreads + tid % kThreads] = part[gi];
 
   __syncthreads();
-  for (int i = tid * kGroup; i < width; i += kThreads * kGroup) {
+  const int gw = width / kGroup;  // the groups of this block's columns
+  for (int i = tid; i < NC * gw; i += threads) {
+    const int cc = i / gw, gi = i % gw;
     float s = 0.f;
-    for (int j = 0; j < kThreads; ++j) s += cs[i / kGroup * kThreads + j];
-    p.checksum[(c0 + i) / kGroup] = s;
+    for (int j = 0; j < kThreads; ++j)
+      s += cs[(cc * groups + gi) * kThreads + j];
+    p.checksum[cc * (p.n / kGroup) + c0 / kGroup + gi] = s;
   }
-  // the final x of the first and of the last block (the same bits)
+  // the final x of every chain in the first and in the last block (the
+  // same bits)
   const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
   const int state = p.m * K;
   if (first || last) {
-    for (int i = tid; i < state; i += kThreads) {
-      const __nv_bfloat16 v = xs[i / K * x_ld + i % K];
+    for (int i = tid; i < NC * state; i += threads) {
+      const int cc = i / state, e = i % state;
+      const __nv_bfloat16 v = xs[cc * chain + e / K * x_ld + e % K];
       if (first) p.xout[i] = v;
-      if (last) p.xout[state + i] = v;
+      if (last) p.xout[NC * state + i] = v;
     }
   }
-  if (first) {  // sum of the final x, in a fixed order
+  if (first) {  // sum of the final x, chain by chain, in a fixed order
     float s = 0.f;
-    for (int i = tid; i < state; i += kThreads)
-      s += __bfloat162float(xs[i / K * x_ld + i % K]);
-    red[tid] = s;
+    if (tid < kThreads)
+      for (int cc = 0; cc < NC; ++cc)
+        for (int i = tid; i < state; i += kThreads)
+          s += __bfloat162float(xs[cc * chain + i / K * x_ld + i % K]);
+    if (tid < kThreads) red[tid] = s;
     __syncthreads();
     for (int stride = kThreads / 2; stride > 0; stride /= 2) {
       if (tid < stride) red[tid] += red[tid + stride];
@@ -537,15 +615,31 @@ chain_local_kernel(LocalParams p) {
   }
 }
 
-template <int K>
+template <int K, int NC>
 int launch_local(const LocalParams& p, int blocks, size_t smem,
                  cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
-      chain_local_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      chain_local_kernel<K, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  chain_local_kernel<K><<<blocks, kThreads, smem, s>>>(p);
+  chain_local_kernel<K, NC><<<blocks, NC * kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the contraction unrolled: one instantiation a depth
+template <int NC>
+int launch_local_depth(const LocalParams& p, int k, int blocks, size_t smem,
+                       cudaStream_t s) {
+  switch (k) {
+    case 16: return launch_local<16, NC>(p, blocks, smem, s);
+    case 32: return launch_local<32, NC>(p, blocks, smem, s);
+    case 48: return launch_local<48, NC>(p, blocks, smem, s);
+    case 64: return launch_local<64, NC>(p, blocks, smem, s);
+    case 80: return launch_local<80, NC>(p, blocks, smem, s);
+    case 96: return launch_local<96, NC>(p, blocks, smem, s);
+    case 112: return launch_local<112, NC>(p, blocks, smem, s);
+    default: return launch_local<128, NC>(p, blocks, smem, s);
+  }
 }
 
 // ---------------------------------------------------------------- P1 ----
@@ -706,9 +800,10 @@ int slab_width(int n, int* blocks) {
 }
 
 // a chain's design on the current device (ops/probe_kernels.py:
-// chain_design states the same rule): the local design for one chain with
-// k <= kLocalMaxK where x, the head and the slab fit; else the exchange
-// design, x staged kc deep, the deepest that fits beside the slab
+// chain_design states the same rule): the local design for one or two
+// chains with k <= kLocalMaxK and slabs of at most 256 columns where every
+// chain's x, head, slab and partial sums fit; else the exchange design, x
+// staged kc deep, the deepest that fits beside the slab
 struct ChainPlan {
   int design;  // 0: local; 1: exchange
   int slab, blocks, kc;
@@ -727,11 +822,11 @@ int plan_chain(int m, int k, int n, int nc, ChainPlan* plan) {
   const size_t local = static_cast<size_t>(m) * (k + kPad) * 2 +
                        static_cast<size_t>(k) * (k + kPad) * 2 +
                        static_cast<size_t>(k) * (slab + kPad) * 2 + checks;
-  if (nc == 1 && k <= kLocalMaxK && slab <= kLocalSubs * kSub &&
-      local <= kLocalSmem) {
+  if (k <= kLocalMaxK && slab <= kLocalSubs * kSub &&
+      nc * local <= kLocalSmem) {
     plan->design = 0;
     plan->kc = k;
-    plan->smem = local;
+    plan->smem = nc * local;
     return 0;
   }
   plan->design = 1;
@@ -790,10 +885,10 @@ extern "C" int probe_chain_design(int m, int k, int n, int nc, int* info) {
 // writes to `design`. mode 0: the probe; 1: the loop with the products
 // skipped; 2: the loop's synchronisation alone. checksum (NC, n / 16) and
 // out (1,) must be zero on entry; xbuf holds 2 * NC * m * k bf16: the
-// exchange design's next x by parity, the local design's final x of the
-// first and the last block. Returns a cudaError_t: cudaErrorInvalidValue
-// for a shape the kernel does not take, and the launch's own refusal of a
-// grid that cannot be co-resident.
+// exchange design's next x by parity, the local design's final x (of every
+// chain) of the first and the last block. Returns a cudaError_t:
+// cudaErrorInvalidValue for a shape the kernel does not take, and the
+// launch's own refusal of a grid that cannot be co-resident.
 extern "C" int probe_chain(const void* x, const void* w1, const void* w2,
                            void* xbuf, float* checksum, float* out, int m,
                            int k, int n, int iters, int mode, int* design,
@@ -809,7 +904,8 @@ extern "C" int probe_chain(const void* x, const void* w1, const void* w2,
   if (plan.design == 0) {
     LocalParams p;
     p.x0 = static_cast<const __nv_bfloat16*>(x);
-    p.w = static_cast<const __nv_bfloat16*>(w1);
+    p.w[0] = static_cast<const __nv_bfloat16*>(w1);
+    p.w[1] = static_cast<const __nv_bfloat16*>(w2);
     p.xout = static_cast<__nv_bfloat16*>(xbuf);
     p.checksum = checksum;
     p.out = out;
@@ -818,16 +914,8 @@ extern "C" int probe_chain(const void* x, const void* w1, const void* w2,
     p.iters = iters;
     p.slab = plan.slab;
     p.mode = mode;
-    switch (k) {  // the contraction unrolled: one instantiation a depth
-      case 16: return launch_local<16>(p, plan.blocks, plan.smem, s);
-      case 32: return launch_local<32>(p, plan.blocks, plan.smem, s);
-      case 48: return launch_local<48>(p, plan.blocks, plan.smem, s);
-      case 64: return launch_local<64>(p, plan.blocks, plan.smem, s);
-      case 80: return launch_local<80>(p, plan.blocks, plan.smem, s);
-      case 96: return launch_local<96>(p, plan.blocks, plan.smem, s);
-      case 112: return launch_local<112>(p, plan.blocks, plan.smem, s);
-      default: return launch_local<128>(p, plan.blocks, plan.smem, s);
-    }
+    return nc == 2 ? launch_local_depth<2>(p, k, plan.blocks, plan.smem, s)
+                   : launch_local_depth<1>(p, k, plan.blocks, plan.smem, s);
   }
   ChainParams p;
   p.x0 = static_cast<const __nv_bfloat16*>(x);

@@ -22,11 +22,12 @@ versions compute the same sums. With ``return_x`` the final x comes back too
 ((m, k) bf16, for the pair (2, m, k)).
 
 A launch takes one of two designs (:func:`chain_design`, the rule the
-launcher applies): ``local`` (one chain, k <= 128, where x, the head
-w[:, :k] and the block's slab of w fit its shared memory) keeps x in every
-block, each warp advancing the chain of its own 32 rows with no barrier
-wider than the warp; ``exchange`` (the pair, and the deeper chains) passes
-x between the blocks through L2 behind a grid barrier.
+launcher applies): ``local`` (one chain or the pair, k <= 128, where each
+chain's x, head w[:, :k] and the block's slab of w fit its shared memory)
+keeps x in every block, each warp advancing the chain of its own 32 rows
+with no barrier wider than the warp (the pair: 16 warps, 8 a chain);
+``exchange`` (the deeper chains, and the pair where two local copies do not
+fit) passes x between the blocks through L2 behind a grid barrier.
 
 CPU tensors take the plain versions (:func:`probe_matmul_reference`,
 :func:`chain_reference`, :func:`pair_reference`); CUDA tensors launch the
@@ -87,14 +88,14 @@ def chain_design(m: int, k: int, n: int, chains: int = 1,
     read and tested without a card.
 
     A block owns a slab of w, the narrowest multiple of 16 columns that
-    covers n with at most one block an SM. One chain with k <= 128 and a
-    slab of at most 256 columns (a thread's checksum partials in registers)
-    takes the local design where x (m, k), the head w[:, :k] (k, k) and the
-    slab (k, slab), rows padded by 8 bf16, and the per-thread checksum
-    partials fit beside the kernel's 1 KB reduction buffer; else the
-    exchange design, x staged ``kc`` deep: k (at most 256), halved until
-    the chains' x chunks, slabs and partials fit. Raises ValueError for a
-    shape the kernels do not take."""
+    covers n with at most one block an SM. One chain or two with k <= 128
+    and a slab of at most 256 columns (a thread's checksum partials in
+    registers) take the local design where each chain's x (m, k), head
+    w[:, :k] (k, k) and slab (k, slab), rows padded by 8 bf16, and
+    per-thread checksum partials fit beside the kernel's 1 KB reduction
+    buffer; else the exchange design, x staged ``kc`` deep: k (at most
+    256), halved until the chains' x chunks, slabs and partials fit. Raises
+    ValueError for a shape the kernels do not take."""
     if m % 32 or not 32 <= m <= _MAX_ROWS or k % 16 or k < 16 or k > n or \
             (k > _MAX_CHUNK and k % _MAX_CHUNK) or n % CHECKSUM_GROUP or \
             chains not in (1, 2) or sms < 1:
@@ -105,9 +106,9 @@ def chain_design(m: int, k: int, n: int, chains: int = 1,
     blocks = -(-n // slab)
     checks = slab // CHECKSUM_GROUP * _THREADS * 4
     local = 2 * (m * (k + _PAD) + k * (k + _PAD) + k * (slab + _PAD)) + checks
-    if chains == 1 and k <= _LOCAL_MAX_K and slab <= _LOCAL_MAX_SLAB and \
-            local <= SHARED_BYTES - _THREADS * 4:
-        return ChainDesign("local", slab, blocks, k, local)
+    if k <= _LOCAL_MAX_K and slab <= _LOCAL_MAX_SLAB and \
+            chains * local <= SHARED_BYTES - _THREADS * 4:
+        return ChainDesign("local", slab, blocks, k, chains * local)
     kc = min(k, _MAX_CHUNK)
     while True:
         smem = chains * (2 * (m * (kc + _PAD) + k * (slab + _PAD)) + checks)
@@ -296,15 +297,18 @@ chain_matmul.launches = 0
 
 
 def pair_matmul(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                iters: int, *, mode: str = "full", return_x: bool = False):
+                iters: int, *, mode: str = "full", return_x: bool = False,
+                last_block_x: bool = False):
     """P3: two independent chains (w1, w2) from the same x, both advanced
     inside each iteration of ONE launch. Returns ``(sum(x1) + sum(x2) (1,),
     checksum (2, n / 16))`` and, with ``return_x``, the final (2, m, k).
-    Devices, shapes and ``mode`` as :func:`chain_matmul`. Each launch adds
-    one to ``pair_matmul.launches``."""
+    Devices, shapes, ``mode`` and ``last_block_x`` (the last block's final
+    (2, m, k)) as :func:`chain_matmul`. Each launch adds one to
+    ``pair_matmul.launches``."""
     if x.device.type == "cpu":
         return pair_reference(x, w1, w2, iters, return_x)
-    out = _launch_chain("pair_matmul", x, (w1, w2), iters, mode, return_x)
+    out = _launch_chain("pair_matmul", x, (w1, w2), iters, mode, return_x,
+                        last_block_x)
     pair_matmul.launches += 1
     return out
 

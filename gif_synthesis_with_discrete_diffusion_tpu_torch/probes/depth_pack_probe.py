@@ -6,13 +6,13 @@ The counterpart of ``scripts/depth_pack_probe.py`` for an NVIDIA card, with
 the same result keys. Each measurement is one launch of a chain kernel
 (``ops/probe_kernels.py``: ``chain_matmul``, ``pair_matmul``): ``iters``
 dependent products ``x <- bf16(0.01 * (x @ w)[:, :k])`` with w resident in
-the SMs' shared memory for the whole launch. One chain at k <= 128 (the QK
-and packed shapes, the depth curve at 64 and 128) takes the local design:
-every block keeps x and the head w[:, :k] and computes the next x itself,
-each warp the chain of its own 32 rows, as the TPU kernel keeps x in one
-core; the pair and the deeper chains take the exchange design, the next x
-passed through L2 behind a grid barrier (``chain_design``; each shape's
-design is in the result).
+the SMs' shared memory for the whole launch. Every chain at k <= 128 (the
+QK and packed shapes, the depth curve at 64 and 128, the pair at the QK
+shape) takes the local design: every block keeps x and the head w[:, :k]
+of each chain and computes the next x itself, each warp the chain of its
+own 32 rows, as the TPU kernel keeps x in one core; the deeper chains take
+the exchange design, the next x passed through L2 behind a grid barrier
+(``chain_design``; each shape's design is in the result).
 
 * ``depth_curve``: useful TFLOP/s of (256, K) x (K, 2048) for K in 64, 128,
   256, 512;
@@ -29,7 +29,9 @@ loop without its products (local: the head's rounding, the next x's
 writes, the checksum's partial sums, the warp barriers; exchange: also the
 staging of x from L2 and the grid barrier), ``us_barrier_only`` /
 ``barrier_share`` the synchronisation alone (local: two warp barriers an
-iteration; exchange: one grid barrier).
+iteration; exchange: one grid barrier). The pair at the QK shape against
+the packed pass answers the probe's question: two independent depth-64
+chains, each on its own warps, or one block-diagonal depth-128 pass.
 
 After a few dozen iterations x is zero in bf16 (each iteration scales by
 0.01 and w ~ N(0, 1) / k); the tensor cores take the same time for zeros, so

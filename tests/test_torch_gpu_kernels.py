@@ -605,18 +605,22 @@ def test_chain_kernels_match_plain(cuda, m, k, n, iters, ones, pair):
     chip_smoke._check_chain(torch, "test", m, k, n, iters, pair, ones)
 
 
-@pytest.mark.parametrize("m,k,n", [(256, 64, 16384), (256, 128, 32768)],
-                         ids=["qk", "packed"])
-def test_chain_blocks_hold_the_same_x(cuda, m, k, n):
-    """The local design: every block computes the chain's x itself, and the
-    first and the last block end with the same bits."""
-    chip_smoke._check_chain_blocks(torch, "test", m, k, n)
+@pytest.mark.parametrize("m,k,n,pair", [(256, 64, 16384, False),
+                                        (256, 128, 32768, False),
+                                        (256, 64, 16384, True)],
+                         ids=["qk", "packed", "pair-qk"])
+def test_chain_blocks_hold_the_same_x(cuda, m, k, n, pair):
+    """The local design: every block computes the chain's x itself (the
+    pair's, both chains'), and the first and the last block end with the
+    same bits."""
+    chip_smoke._check_chain_blocks(torch, "test", m, k, n, pair=pair)
 
 
 @pytest.mark.parametrize("m,k,n,chains", [
     (256, 64, 2048, 1), (256, 128, 2048, 1), (256, 256, 2048, 1),
     (256, 512, 2048, 1), (256, 64, 16384, 1), (256, 128, 32768, 1),
-    (256, 64, 16384, 2), (32, 16, 48, 1), (64, 32, 2128, 2)])
+    (256, 64, 16384, 2), (32, 16, 48, 1), (64, 32, 2128, 2),
+    (256, 128, 32768, 2)])
 def test_chain_design_is_the_launchers(cuda, m, k, n, chains):
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         probe_kernels as pk)
@@ -631,16 +635,19 @@ def test_chain_kernel_modes_and_refusals(cuda):
     d = pk.device_chain_design(256, 64, 2048)
     assert d.slab % 16 == 0 and (d.blocks - 1) * d.slab < 2048 <= \
         d.blocks * d.slab
-    # the local design (P2 at k = 64), the exchange design (P2 at k = 256,
-    # and P3): with the products skipped x is 0 after one iteration, and the
-    # synchronisation alone writes nothing
-    xd, wd, _ = chip_smoke._chain_inputs(torch, 256, 256, 2048, 1, True)
+    # the local design (P2 and P3 at k = 64), the exchange design (P2 and
+    # P3 at k = 256): with the products skipped x is 0 after one iteration,
+    # and the synchronisation alone writes nothing
+    xd, wd, wd2 = chip_smoke._chain_inputs(torch, 256, 256, 2048, 1, True)
     assert pk.device_chain_design(256, 64, 2048).design == "local"
     assert pk.device_chain_design(256, 256, 2048).design == "exchange"
+    assert pk.device_chain_design(256, 64, 2048, 2).design == "local"
+    assert pk.device_chain_design(256, 256, 2048, 2).design == "exchange"
     for mode in ("no_products", "barrier_only"):
         for total, check in (pk.chain_matmul(x, w1, 3, mode=mode),
                              pk.chain_matmul(xd, wd, 3, mode=mode),
-                             pk.pair_matmul(x, w1, w2, 3, mode=mode)):
+                             pk.pair_matmul(x, w1, w2, 3, mode=mode),
+                             pk.pair_matmul(xd, wd, wd2, 3, mode=mode)):
             torch.cuda.synchronize()
             assert float(total) == 0.0 and not check.any()
     with pytest.raises(ValueError):

@@ -10,6 +10,7 @@ string (lines 59-61), so ``_p1_kern`` below restates those three lines.
 import functools
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -330,23 +331,26 @@ _PROBE_SHAPES = [(256, 64, 2048, 1), (256, 128, 2048, 1), (256, 256, 2048, 1),
 @pytest.mark.parametrize("m,k,n,chains", _PROBE_SHAPES)
 def test_chain_design_fits_every_probe_shape(m, k, n, chains):
     """Every probe shape has a design whose shared memory fits a block on an
-    H100 (132 SMs); one chain at k <= 128 keeps x in every block (the QK and
-    packed shapes among them), the pair and the deeper chains exchange x
-    through L2."""
+    H100 (132 SMs); every chain at k <= 128 keeps x in every block (the QK
+    and packed shapes and the pair at the QK shape among them), the deeper
+    chains exchange x through L2."""
     d = pk.chain_design(m, k, n, chains)
     assert 0 < d.smem <= pk.SHARED_BYTES <= 227 * 1024
     assert d.slab % pk.CHECKSUM_GROUP == 0 and d.blocks <= 132
     assert (d.blocks - 1) * d.slab < n <= d.blocks * d.slab
-    assert d.design == ("local" if chains == 1 and k <= 128 else "exchange")
+    assert d.design == ("local" if k <= 128 else "exchange")
     assert k % d.kc == 0
     if d.design == "local":
-        # x, the head and the slab, rows padded by 8 bf16, and the partials
-        assert d.smem == 2 * (m * (k + 8) + k * (k + 8) + k * (d.slab + 8)) \
-            + d.slab // 16 * 256 * 4
+        # each chain's x, head and slab, rows padded by 8 bf16, and partials
+        assert d.smem == chains * (
+            2 * (m * (k + 8) + k * (k + 8) + k * (d.slab + 8))
+            + d.slab // 16 * 256 * 4)
     if (m, k, n, chains) == (256, 64, 16384, 1):             # the QK shape
         assert d == pk.ChainDesign("local", 128, 128, 64, 71680)
     if (m, k, n, chains) == (256, 128, 32768, 1):            # packed
         assert d == pk.ChainDesign("local", 256, 128, 128, 188416)
+    if (m, k, n, chains) == (256, 64, 16384, 2):             # the pair
+        assert d == pk.ChainDesign("local", 128, 128, 64, 143360)
 
 
 def test_chain_design_falls_back_and_refuses():
@@ -366,6 +370,19 @@ def test_chain_design_falls_back_and_refuses():
         pk.chain_design(256, 64, 2048, chains=3)
 
 
+@pytest.mark.parametrize("m,k,n", [(256, 128, 32768), (256, 256, 2048),
+                                   (256, 512, 2048)])
+def test_pair_keeps_the_exchange_where_two_copies_do_not_fit(m, k, n):
+    """The pair takes the local design only where both chains' copies fit:
+    at the packed shape one copy fits (188 416 B) and two do not; at
+    k = 256 and 512 not even one does."""
+    one, two = pk.chain_design(m, k, n), pk.chain_design(m, k, n, chains=2)
+    assert two.design == "exchange" and two.smem <= pk.SHARED_BYTES
+    assert one.design == ("local" if k <= 128 else "exchange")
+    if one.design == "local":
+        assert one.smem <= pk.SHARED_BYTES - 1024 < 2 * one.smem
+
+
 def test_chain_design_states_the_sources_constants():
     """``chain_design`` restates ``plan_chain`` of the CUDA source: the
     constants it reads there are the source's."""
@@ -380,14 +397,21 @@ def test_chain_design_states_the_sources_constants():
     assert int(const["kMaxSmem"]) == pk.SHARED_BYTES
     assert int(const["kMaxChunk"]) == pk._MAX_CHUNK
     assert int(const["kGroup"]) == pk.CHECKSUM_GROUP
-    assert "slab <= kLocalSubs * kSub &&\n      local <= kLocalSmem" in text
+    assert "slab <= kLocalSubs * kSub &&\n      nc * local <= kLocalSmem" in text
     assert "kLocalSmem = kMaxSmem - kThreads * 4;" in text
+    # the local kernel: 8 warps a chain of 32 rows each, and the checksum
+    # groups of a slab of at most 256 columns
+    assert int(const["kLocalRows"]) * 8 == int(const["kMaxRows"]) == \
+        pk._MAX_ROWS
+    assert "kLocalGroups = kLocalSubs * kSub / kGroup;" in text
 
 
 def test_probe_kernel_variants_edit_the_shipped_source():
-    """Each variant of the P1 / P2 in-turns probe is a set of text
-    replacements whose old text occurs once in ``csrc/probe_kernels.cu``;
-    without a card the probe raises."""
+    """Each variant of the P1 / P2 / P3 in-turns probe is a set of text
+    replacements whose old text occurs once in ``csrc/probe_kernels.cu``
+    (among them the three designs of two chains in an SM that lost to the
+    shipped one, and one chain on the pair's sub-tiles); without a card
+    the probe raises."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
         probe_kernel_variants as pkv)
     text = (cuda_build.CSRC / pkv.SOURCE).read_text()
@@ -396,6 +420,9 @@ def test_probe_kernel_variants_edit_the_shipped_source():
             assert text.count(old) == 1, (name, old)
         assert pkv.variant_text(name, text) != text
     assert set(pkv.CHAINS) >= {"P2"} and pkv.CHAINS["P2"] == (256, 64, 16384)
+    assert pkv.PAIR == ("P3", (256, 64, 16384))
+    assert {"p3_two_chains_a_warp", "p3_chains_in_turn", "p3_rows64",
+            "p3_x_in_registers", "p2_pair_subs"} <= set(pkv.VARIANTS)
     assert pkv.ITERS == depth_pack_probe.ITERS
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -411,8 +438,8 @@ def test_chip_smoke_times_p1_and_p2_against_the_parent(monkeypatch, capsys):
         probe_kernel_variants as pkv)
     calls = []
     reading = {"card": "a card, 700 W", "ms": {
-        "change": [{"P1": 0.003, "P2": 4.0}],
-        "parent": [{"P1": 0.008, "P2": 15.0}]}}
+        "change": [{"P1": 0.003, "P2": 4.0, "P3": 7.0}],
+        "parent": [{"P1": 0.008, "P2": 15.0, "P3": 24.5}]}}
     monkeypatch.setattr(pkv, "compare", lambda parent, **kw: (
         calls.append(parent) or reading))
     chip_smoke._parent_turns.cache_clear()
@@ -421,6 +448,7 @@ def test_chip_smoke_times_p1_and_p2_against_the_parent(monkeypatch, capsys):
         assert calls == [] and capsys.readouterr().out == ""
         chip_smoke._print_parent_turns("phase 11", "P1", "old")
         chip_smoke._print_parent_turns("phase 12", "P2", "old")
+        chip_smoke._print_parent_turns("phase 12", "P3", "old")
     finally:
         chip_smoke._parent_turns.cache_clear()
     assert calls == ["old"]
@@ -428,4 +456,43 @@ def test_chip_smoke_times_p1_and_p2_against_the_parent(monkeypatch, capsys):
         "phase 11: P1 in turns with old (a card, 700 W): this checkout "
         "0.0030 ms, old 0.0080 ms",
         "phase 12: P2 in turns with old (a card, 700 W): this checkout "
-        "4.0000 ms, old 15.0000 ms"]
+        "4.0000 ms, old 15.0000 ms",
+        "phase 12: P3 in turns with old (a card, 700 W): this checkout "
+        "7.0000 ms, old 24.5000 ms"]
+
+
+@pytest.mark.parametrize("stores,ok", [(0, True), (8, False)])
+def test_chip_smoke_holds_the_pair_to_no_spill(monkeypatch, stores, ok):
+    """Phase 12 reads the ptxas line of the pair's instantiation at the
+    probe's depth among the probe kernels' lines (names demangled or not)
+    and fails where it spills."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    def entry(name, regs, spill):
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\n    0 bytes stack frame, {spill} bytes spill "
+                f"stores, {spill} bytes spill loads\nptxas info    : Used "
+                f"{regs} registers, used 1 barriers\n")
+    log = (entry("_ZN12_GLOBAL__N_118chain_local_kernelILi64ELi1EEEvNS_11"
+                 "LocalParamsE", 200, 0)
+           + entry("_ZN12_GLOBAL__N_118chain_local_kernelILi64ELi2EEEvNS_11"
+                   "LocalParamsE", 128, stores)
+           + entry("_ZN12_GLOBAL__N_118chain_local_kernelILi16ELi2EEEvNS_11"
+                   "LocalParamsE", 96, 0))
+    monkeypatch.setattr(chip_smoke, "_demangled", lambda names: names)
+    monkeypatch.setattr(pk, "_library", lambda *a: SimpleNamespace(
+        build_log=log))
+    if ok:
+        assert chip_smoke._pair_ptxas(64).endswith(
+            "chain_local_kernelILi64ELi2EEEvNS_11LocalParamsE 128 registers, "
+            "0 B spilled")
+    else:
+        with pytest.raises(AssertionError, match="spills"):
+            chip_smoke._pair_ptxas(64)
+    assert chip_smoke._chain_kernel_name(
+        pk.ChainDesign("local", 128, 128, 64, 143360), 64, 2) == \
+        "local: chain_local_kernel<64, 2>"
+    assert chip_smoke._chain_kernel_name(
+        pk.ChainDesign("exchange", 256, 128, 128, 208896), 128, 2) == \
+        "exchange: chain_kernel<2>"
