@@ -6,6 +6,12 @@ Port of ``gif_synthesis_with_discrete_diffusion_tpu/models/d3pm.py``:
   float32 tensors), the analytic posterior of a one-hot ``x_t``, the
   classifier-free-guidance combine, and ``sample_fused``, the plain
   full-loop oracle every sampler route must be posterior-equivalent to;
+* the log-onehot samplers: ``q_pred_one_timestep``, ``q_sample``,
+  ``cf_predict_start``, ``p_pred``, and the three reverse loops that carry
+  the (B, K, L) log-onehot state, ``sample`` (from ``filter_ratio`` of the
+  way in), ``sample_fast`` (strided) and ``sample_with_token_budget`` (the
+  host loop with per-step token budgets); their random draws come from a
+  :class:`Draws`;
 * training: ``q_pred``, ``q_posterior``, the token-space
   ``true_q_posterior`` and ``q_sample_from_indices``, importance-sampled
   timesteps over the Lt buffers (:class:`LtState`, :func:`sample_time`),
@@ -38,7 +44,10 @@ __all__ = ["LOG_CLAMP", "D3PMSchedule", "LtState", "alpha_schedule",
            "log_sample_categorical", "q_sample_from_indices",
            "predict_start_from_logits", "predict_start", "importance_probs",
            "sample_time", "multinomial_kl", "train_loss",
-           "update_diffusion_telemetry", "sample_fused"]
+           "update_diffusion_telemetry", "sample_fused",
+           "q_pred_one_timestep", "q_sample", "cf_predict_start", "p_pred",
+           "default_n_sample", "token_budget", "Draws", "sample",
+           "sample_fast", "sample_with_token_budget"]
 
 LOG_CLAMP = -70.0
 _LOG_EPS_ONEHOT = math.log(1.0e-30)
@@ -153,6 +162,19 @@ def q_pred(sched: D3PMSchedule, log_x_start: torch.Tensor, t: torch.Tensor
         log_add_exp(log_x_start[:, -1:, :]
                     + _extract(sched.log_1_min_cumprod_ct, t),
                     _extract(sched.log_cumprod_ct, t)),
+    ], dim=1)
+
+
+def q_pred_one_timestep(sched: D3PMSchedule, log_x_t: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+    """log q(x_t | x_{t-1}) applied to a log distribution; the last row
+    keeps the reference's ``log_1_min_ct`` (the ``bt`` leakage that
+    ``q_posterior`` corrects)."""
+    return torch.cat([
+        log_add_exp(log_x_t[:, :-1, :] + _extract(sched.log_at, t),
+                    _extract(sched.log_bt, t)),
+        log_add_exp(log_x_t[:, -1:, :] + _extract(sched.log_1_min_ct, t),
+                    _extract(sched.log_ct, t)),
     ], dim=1)
 
 
@@ -279,6 +301,14 @@ def log_sample_categorical(noise: torch.Tensor, logits: torch.Tensor,
     return index_to_log_onehot(_gumbel_argmax(logits, noise), num_classes)
 
 
+def q_sample(noise: torch.Tensor, sched: D3PMSchedule,
+             log_x_start: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """log-onehot x_t ~ q(x_t | x_0) for a log distribution ``x_0``;
+    ``noise`` holds the (B, K, L) uniforms of the Gumbel-max draw."""
+    return log_sample_categorical(noise, q_pred(sched, log_x_start, t),
+                                  sched.num_classes)
+
+
 def _q_sample_index(sched: D3PMSchedule, x_start: torch.Tensor,
                     t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """x_t ~ q(x_t | x_0) for INDEX x_start, as (B, L) indices: the logits
@@ -326,6 +356,41 @@ def predict_start(sched: D3PMSchedule, denoise_fn: DenoiseFn,
     return predict_start_from_logits(logits, log_x_t.shape[-1])
 
 
+def cf_predict_start(sched: D3PMSchedule, denoise_fn: DenoiseFn,
+                     log_x_t: torch.Tensor, cond_emb: Optional[torch.Tensor],
+                     cf_cond_emb: Optional[torch.Tensor], t: torch.Tensor,
+                     guidance_scale: float) -> torch.Tensor:
+    """Classifier-free guidance as one batched (2B) denoiser call: the
+    guided log p(x0 | xt), renormalised and clamped, with the -70 MASK
+    row."""
+    b, _, L = log_x_t.shape
+    if abs(guidance_scale - 1.0) < 1e-3:
+        return predict_start(sched, denoise_fn, log_x_t, cond_emb, t)
+    x_t = log_onehot_to_index(log_x_t)
+    logits2 = denoise_fn(torch.cat([x_t, x_t], dim=0),
+                         _cfg_batch(cond_emb, cf_cond_emb, True),
+                         torch.cat([t, t], dim=0))
+    log_pred = predict_start_from_logits(logits2, L)
+    c, cf = log_pred[:b, :-1], log_pred[b:, :-1]
+    log_new = cf + guidance_scale * (c - cf)
+    log_new = log_new - torch.logsumexp(log_new, dim=1, keepdim=True)
+    log_new = torch.clamp(log_new, LOG_CLAMP, 0.0)
+    zero_vector = torch.full((b, 1, L), LOG_CLAMP, dtype=torch.float32,
+                             device=log_new.device)
+    return torch.cat([log_new, zero_vector], dim=1)
+
+
+def p_pred(sched: D3PMSchedule, denoise_fn: DenoiseFn, log_x: torch.Tensor,
+           cond_emb: Optional[torch.Tensor],
+           cf_cond_emb: Optional[torch.Tensor], t: torch.Tensor,
+           guidance_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """p(x_{t-1} | x_t) by the x0 parametrisation: (log posterior,
+    guided log p(x0 | xt))."""
+    log_x_recon = cf_predict_start(sched, denoise_fn, log_x, cond_emb,
+                                   cf_cond_emb, t, guidance_scale)
+    return q_posterior(sched, log_x_recon, log_x, t), log_x_recon
+
+
 # ---------------------------------------------------------------------------
 # training loss
 # ---------------------------------------------------------------------------
@@ -336,6 +401,12 @@ class LtState:
     and how often it was drawn, (T,) f32 each."""
     history: torch.Tensor
     count: torch.Tensor
+
+    @classmethod
+    def zeros(cls, num_timesteps: int,
+              device: torch.device | str | None = None) -> "LtState":
+        return cls(history=torch.zeros(num_timesteps, device=device),
+                   count=torch.zeros(num_timesteps, device=device))
 
 
 def importance_probs(history: torch.Tensor) -> torch.Tensor:
@@ -589,3 +660,211 @@ def sample_fused(generator: torch.Generator, sched: D3PMSchedule,
             post = post + gumbel(u)
         tokens = torch.argmax(post, dim=1)
     return tokens
+
+
+# ---------------------------------------------------------------------------
+# the log-onehot samplers
+# ---------------------------------------------------------------------------
+
+class Draws:
+    """The random draws of the log-onehot samplers, from ``generator`` on
+    its own device: (B, K, L) uniforms for each Gumbel-max draw, and the
+    seed of each host-side position choice of the token-budget sampler
+    (numpy's ``default_rng``, as the JAX package seeds it). A test hands
+    the samplers another source (the JAX package's draws) by overriding
+    both methods."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def uniform(self, shape: tuple, device: torch.device) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator,
+                          device=self.generator.device).to(device)
+
+    def seed(self) -> int:
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator,
+                                 device=self.generator.device))
+
+
+def _categorical(draws: Draws, logits: torch.Tensor, num_classes: int,
+                 sample: bool) -> torch.Tensor:
+    """Gumbel-max over axis 1 with ``draws``' uniforms, or with ``sample``
+    off the argmax; -> log-onehot."""
+    if not sample:
+        return index_to_log_onehot(torch.argmax(logits, dim=1), num_classes)
+    return log_sample_categorical(draws.uniform(logits.shape, logits.device),
+                                  logits, num_classes)
+
+
+def default_n_sample(num_timesteps: int, prior_ps: int = 1024) -> list[int]:
+    """The reference's token budgets a step (sized for 1024-token grids)."""
+    if num_timesteps == 100:
+        if prior_ps <= 10:
+            return [1, 6] + [11, 10, 10] * 32 + [11, 15]
+        return [1, 10] + [11, 10, 10] * 32 + [11, 11]
+    if num_timesteps == 50:
+        return [10] + [21, 20] * 24 + [30]
+    if num_timesteps == 25:
+        return [21] + [41] * 23 + [60]
+    if num_timesteps == 10:
+        return [69] + [102] * 8 + [139]
+    if num_timesteps == 200:
+        return [1, 3] + [6, 6, 4, 4] * 49 + [6, 9]
+    return [prior_ps] * num_timesteps
+
+
+def token_budget(num_timesteps: int, seq_len: int, prior_ps: int = 1024
+                 ) -> list[int]:
+    """:func:`default_n_sample` rescaled so that the budgets sum to about
+    ``seq_len`` (each at least 1), as the JAX package's
+    ``sample_with_token_budget`` rescales it."""
+    table = default_n_sample(num_timesteps, prior_ps)
+    scale = seq_len / float(sum(table))
+    return [max(1, round(n * scale)) for n in table]
+
+
+def _mask_start_state(batch_size: int, num_classes: int, seq_len: int,
+                      device: torch.device) -> torch.Tensor:
+    """The all-MASK log-onehot start, log([0, ..., 0, 1])."""
+    state = torch.zeros((batch_size, num_classes, seq_len), device=device)
+    state[:, -1] = 1.0
+    return torch.log(state)
+
+
+@torch.no_grad()
+def sample(generator: Optional[torch.Generator], sched: D3PMSchedule,
+           denoise_fn: DenoiseFn, cond_emb: Optional[torch.Tensor],
+           cf_cond_emb: Optional[torch.Tensor], batch_size: int,
+           seq_len: int, guidance_scale: float = 2.0,
+           filter_ratio: float = 0.0,
+           content_token: Optional[torch.Tensor] = None, sample: bool = True,
+           draws: Optional[Draws] = None) -> torch.Tensor:
+    """The reference's reverse process with the (B, K, L) log-onehot carry:
+    p_pred then one Gumbel-max draw a step. With ``filter_ratio`` the loop
+    starts at step ``int(T * filter_ratio) - 1`` from ``content_token``
+    (B, L) noised to it. The draws come from ``draws`` (default
+    ``Draws(generator)``); ``sample=False`` takes the argmax. Returns (B, L)
+    int64."""
+    draws = draws or Draws(generator)
+    T, K = sched.num_timesteps, sched.num_classes
+    device = sched.device
+    start_step = int(T * filter_ratio)
+    if start_step == 0:
+        log_z = _mask_start_state(batch_size, K, seq_len, device)
+        start_step = T
+    else:
+        if content_token is None:
+            raise ValueError("sample: filter_ratio needs content_token")
+        t0 = torch.full((batch_size,), start_step - 1, dtype=torch.long,
+                        device=device)
+        log_x_start = index_to_log_onehot(content_token.to(device), K)
+        log_z = _categorical(draws, q_pred(sched, log_x_start, t0), K,
+                             sample)
+    for step in range(start_step - 1, -1, -1):
+        t = torch.full((batch_size,), step, dtype=torch.long, device=device)
+        model_log_prob, _ = p_pred(sched, denoise_fn, log_z, cond_emb,
+                                   cf_cond_emb, t, guidance_scale)
+        log_z = _categorical(draws, model_log_prob, K, sample)
+    return log_onehot_to_index(log_z)
+
+
+@torch.no_grad()
+def sample_fast(generator: Optional[torch.Generator], sched: D3PMSchedule,
+                denoise_fn: DenoiseFn, cond_emb: Optional[torch.Tensor],
+                cf_cond_emb: Optional[torch.Tensor], batch_size: int,
+                seq_len: int, guidance_scale: float = 2.0,
+                skip_step: int = 1, sample: bool = True,
+                draws: Optional[Draws] = None) -> torch.Tensor:
+    """The strided reverse process: steps T-1, T-2-skip_step, ... and 0;
+    the posterior of each step above ``skip_step`` is taken at
+    ``t - skip_step``. Returns (B, L) int64."""
+    draws = draws or Draws(generator)
+    T, K = sched.num_timesteps, sched.num_classes
+    device = sched.device
+    steps = list(range(T - 1, -1, -1 - skip_step))
+    if steps[-1] != 0:
+        steps.append(0)
+    log_z = _mask_start_state(batch_size, K, seq_len, device)
+    for step in steps:
+        t = torch.full((batch_size,), step, dtype=torch.long, device=device)
+        log_x_recon = cf_predict_start(sched, denoise_fn, log_z, cond_emb,
+                                       cf_cond_emb, t, guidance_scale)
+        t_post = t - skip_step if step > skip_step else t
+        model_log_prob = q_posterior(sched, log_x_recon, log_z, t_post)
+        log_z = _categorical(draws, model_log_prob, K, sample)
+    return log_onehot_to_index(log_z)
+
+
+@torch.no_grad()
+def sample_with_token_budget(generator: Optional[torch.Generator],
+                             sched: D3PMSchedule, denoise_fn: DenoiseFn,
+                             cond_emb: Optional[torch.Tensor],
+                             cf_cond_emb: Optional[torch.Tensor],
+                             batch_size: int, seq_len: int,
+                             guidance_scale: float = 2.0,
+                             prior_rule: int = 2, prior_weight: float = 0.0,
+                             prior_ps: int = 1024, sample: bool = True,
+                             draws: Optional[Draws] = None) -> torch.Tensor:
+    """The reference's data-dependent sampler (Improved VQ-Diffusion's
+    token budgets), a host loop: at each step it draws until every row has
+    unmasked its budget (:func:`token_budget`), choosing the positions on
+    the host with numpy, weighted by the model's confidence
+    (``prior_rule`` 2) or uniformly (1); ``prior_rule`` 0 and the last step
+    draw every position from the posterior. Returns (B, L) int64."""
+    draws = draws or Draws(generator)
+    T, K = sched.num_timesteps, sched.num_classes
+    device = sched.device
+    n_sample = token_budget(T, seq_len, prior_ps)
+    log_z = _mask_start_state(batch_size, K, seq_len, device)
+    mask_id = K - 1
+    for step in range(T - 1, -1, -1):
+        sampled = np.zeros((batch_size,), np.int64)
+        fuse = 4 * T   # hang guard (a budget that cannot be reached)
+        while sampled.min() < n_sample[step] and fuse > 0:
+            fuse -= 1
+            t = torch.full((batch_size,), step, dtype=torch.long,
+                           device=device)
+            model_log_prob, log_x_recon = p_pred(
+                sched, denoise_fn, log_z, cond_emb, cf_cond_emb, t,
+                guidance_scale)
+            if step == 0 or prior_rule == 0:
+                log_z = _categorical(draws, model_log_prob, K, sample)
+                sampled = np.full((batch_size,), seq_len, np.int64)
+                continue
+            log_x_idx = log_onehot_to_index(log_z).cpu().numpy()
+            if prior_rule == 1:
+                score = np.ones((batch_size, seq_len), np.float32)
+            else:
+                s = torch.clamp(torch.exp(log_x_recon).amax(dim=1), 0.0,
+                                1.0).cpu().numpy()
+                score = s / (s.max(axis=1, keepdims=True) + 1e-10)
+            if prior_rule != 1 and prior_weight > 0:
+                w = torch.from_numpy(score).to(device)[:, None, :]
+                prob = torch.softmax((1 + w * prior_weight) * log_x_recon,
+                                     dim=1)
+                prob = torch.clamp(torch.log(prob), LOG_CLAMP, 0.0)
+            else:
+                prob = log_x_recon
+            out_idx = log_onehot_to_index(
+                _categorical(draws, prob, K, sample)).cpu().numpy()
+            out2_idx = log_x_idx.copy()
+            _score = score.copy()
+            if _score.sum() < 1e-6:
+                _score += 1
+            _score[log_x_idx != mask_id] = 0
+            host_rng = np.random.default_rng(draws.seed())
+            for i in range(batch_size):
+                n_s = min(int(n_sample[step] - sampled[i]), prior_ps)
+                if n_sample[step] - sampled[i] - n_s == 1:
+                    n_s = int(n_sample[step] - sampled[i])
+                if n_s <= 0:
+                    continue
+                p = (_score[i] / _score[i].sum() if _score[i].sum() > 0
+                     else np.ones(seq_len) / seq_len)
+                sel = host_rng.choice(seq_len, size=n_s, replace=False, p=p)
+                out2_idx[i][sel] = out_idx[i][sel]
+                sampled[i] += int((out2_idx[i] != mask_id).sum()
+                                  - (log_x_idx[i] != mask_id).sum())
+            log_z = index_to_log_onehot(
+                torch.from_numpy(out2_idx).to(device), K)
+    return log_onehot_to_index(log_z)

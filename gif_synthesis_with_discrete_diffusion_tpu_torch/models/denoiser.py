@@ -11,7 +11,14 @@ has none). Submodules carry the flax scope names (``content_emb``,
 Both attentions go through :func:`..ops.attention.fused_mha`, which picks
 the CUDA kernel or the plain version by the tensors' device. LayerNorms use
 flax's epsilon 1e-6; the non-GELU2 activation is the tanh-approximated GELU
-of ``jax.nn.gelu``. Sampling only: no dropout.
+of ``jax.nn.gelu``. No dropout.
+
+``dtype`` is the JAX module's compute dtype: every dense layer of the blocks
+(the AdaLN projections, Q / K / V / proj, the MLP) computes in it on f32
+parameters (:class:`.layers.Dense`), so under bf16 both attentions get bf16
+q, k and v (the bf16 entry points of K2 and K5). The token embedding, the
+condition, every LayerNorm and ``to_logits`` stay f32, and each residual
+add ``x + a`` promotes the stream back to f32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from torch import nn
 
 from ..ops.attention import fused_mha
 from .embeddings import TokenGridEmbedding
+from .layers import Dense
 
 __all__ = ["DenoiserTransformer", "Block", "AdaLayerNorm", "SinusoidalPosEmb",
            "gelu2", "init_denoiser_"]
@@ -63,10 +71,11 @@ class SinusoidalPosEmb(nn.Module):
 class AdaLayerNorm(nn.Module):
     """LayerNorm modulated by the diffusion timestep ('adalayernorm_abs')."""
 
-    def __init__(self, n_embd: int, diffusion_step: int):
+    def __init__(self, n_embd: int, diffusion_step: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.emb = SinusoidalPosEmb(diffusion_step, n_embd)
-        self.linear = nn.Linear(n_embd, 2 * n_embd)
+        self.linear = Dense(n_embd, 2 * n_embd, dtype=dtype)
         self.norm = nn.LayerNorm(n_embd, eps=_LN_EPS,
                                  elementwise_affine=False)
 
@@ -79,13 +88,14 @@ class AdaLayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """Non-causal multi-head self-attention."""
 
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
-        self.key = nn.Linear(n_embd, n_embd)
-        self.query = nn.Linear(n_embd, n_embd)
-        self.value = nn.Linear(n_embd, n_embd)
-        self.proj = nn.Linear(n_embd, n_embd)
+        self.key = Dense(n_embd, n_embd, dtype=dtype)
+        self.query = Dense(n_embd, n_embd, dtype=dtype)
+        self.value = Dense(n_embd, n_embd, dtype=dtype)
+        self.proj = Dense(n_embd, n_embd, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = fused_mha(self.query(x), self.key(x), self.value(x),
@@ -96,13 +106,14 @@ class SelfAttention(nn.Module):
 class CrossAttention(nn.Module):
     """Queries from the content, keys/values from the condition sequence."""
 
-    def __init__(self, n_embd: int, n_head: int, condition_dim: int):
+    def __init__(self, n_embd: int, n_head: int, condition_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
-        self.key = nn.Linear(condition_dim, n_embd)
-        self.value = nn.Linear(condition_dim, n_embd)
-        self.query = nn.Linear(n_embd, n_embd)
-        self.proj = nn.Linear(n_embd, n_embd)
+        self.key = Dense(condition_dim, n_embd, dtype=dtype)
+        self.value = Dense(condition_dim, n_embd, dtype=dtype)
+        self.query = Dense(n_embd, n_embd, dtype=dtype)
+        self.proj = Dense(n_embd, n_embd, dtype=dtype)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         y = fused_mha(self.query(x), self.key(cond), self.value(cond),
@@ -115,15 +126,16 @@ class Block(nn.Module):
 
     def __init__(self, n_embd: int, n_head: int, diffusion_step: int,
                  condition_dim: int, mlp_hidden_times: int = 4,
-                 activate: str = "GELU2"):
+                 activate: str = "GELU2",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln1 = AdaLayerNorm(n_embd, diffusion_step)
-        self.attn1 = SelfAttention(n_embd, n_head)
-        self.ln1_1 = AdaLayerNorm(n_embd, diffusion_step)
-        self.attn2 = CrossAttention(n_embd, n_head, condition_dim)
+        self.ln1 = AdaLayerNorm(n_embd, diffusion_step, dtype)
+        self.attn1 = SelfAttention(n_embd, n_head, dtype)
+        self.ln1_1 = AdaLayerNorm(n_embd, diffusion_step, dtype)
+        self.attn2 = CrossAttention(n_embd, n_head, condition_dim, dtype)
         self.ln2 = nn.LayerNorm(n_embd, eps=_LN_EPS)
-        self.mlp_fc = nn.Linear(n_embd, mlp_hidden_times * n_embd)
-        self.mlp_proj = nn.Linear(mlp_hidden_times * n_embd, n_embd)
+        self.mlp_fc = Dense(n_embd, mlp_hidden_times * n_embd, dtype=dtype)
+        self.mlp_proj = Dense(mlp_hidden_times * n_embd, n_embd, dtype=dtype)
         self.act = gelu2 if activate == "GELU2" else _gelu_tanh
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
@@ -138,22 +150,25 @@ class DenoiserTransformer(nn.Module):
     """Condition -> token-grid denoiser.
 
     ``forward(tokens (B, L), cond (B, S, condition_dim) | None, t (B,))``
-    returns logits (B, num_embed, L): a transposed view of the (B, L,
-    num_embed) product, which the sampler kernel reads with its strides.
+    returns f32 logits (B, num_embed, L), whatever the compute ``dtype``: a
+    transposed view of the (B, L, num_embed) product, which the sampler
+    kernel reads with its strides.
     """
 
     def __init__(self, num_embed: int, spatial_size: Sequence[int] = (32, 32),
                  n_layer: int = 19, n_embd: int = 64, n_head: int = 16,
                  condition_dim: int = 512, diffusion_step: int = 100,
-                 mlp_hidden_times: int = 4, block_activate: str = "GELU2"):
+                 mlp_hidden_times: int = 4, block_activate: str = "GELU2",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_layer = n_layer
         self.condition_dim = condition_dim
+        self.compute_dtype = dtype
         self.content_emb = TokenGridEmbedding(num_embed, spatial_size, n_embd)
         for i in range(n_layer):
             self.add_module(f"block{i}", Block(
                 n_embd, n_head, diffusion_step, condition_dim,
-                mlp_hidden_times, block_activate))
+                mlp_hidden_times, block_activate, dtype))
         self.ln_out = nn.LayerNorm(n_embd, eps=_LN_EPS)
         self.to_logits = nn.Linear(n_embd, num_embed)
 

@@ -7,8 +7,16 @@ schedule, the importance-sampling and telemetry buffers (the flax
 learnable classifier-free embedding; its ``forward`` is the training loss.
 :class:`DiscreteDiffusionModel` adds the conditioner, and
 :func:`make_discrete_diffusion` builds both from the same nested dict as the
-JAX package's YAML. The denoiser has no dropout, activation checkpointing or
-bf16 compute yet: configurations that ask for them raise.
+JAX package's YAML. ``transformer.dtype: bfloat16`` gives the denoiser bf16
+compute on f32 parameters, as the JAX package's ``transformer_dtype``. The
+denoiser has no dropout or activation checkpointing yet: configurations
+that ask for them raise.
+
+Sampler routes (``D3PM.sample(mode=)``): ``megakernel`` and ``model`` carry
+the token grid; ``reference`` carries the (B, K, L) log-onehot through
+:func:`.d3pm.sample` (with ``filter_ratio`` and ``content_token``), as
+does :meth:`D3PM.sample_fast`. All are posterior-equivalent to
+:func:`.d3pm.sample_fused`.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from ..ops.sampler_kernel import sample_tokens
 from . import d3pm
 from .conditioning import build_conditioner, init_conditioner_
 from .denoiser import DenoiserTransformer, init_denoiser_
+from .layers import compute_dtype
 
 __all__ = ["D3PM", "DiscreteDiffusionModel", "make_discrete_diffusion",
            "init_discrete_diffusion_", "resolve_sampler"]
@@ -60,7 +69,8 @@ class D3PM(nn.Module):
                  guidance_scale: float = 2.0, learnable_cf: bool = False,
                  n_layer: int = 19, n_embd: int = 64, n_head: int = 16,
                  condition_seq_len: int = 77, condition_dim: int = 512,
-                 mlp_hidden_times: int = 4, block_activate: str = "GELU2"):
+                 mlp_hidden_times: int = 4, block_activate: str = "GELU2",
+                 transformer_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_embed = num_embed            # codebook size WITHOUT mask
         self.content_seq_len = content_seq_len
@@ -75,7 +85,7 @@ class D3PM(nn.Module):
             num_embed=num_embed, spatial_size=spatial_size, n_layer=n_layer,
             n_embd=n_embd, n_head=n_head, condition_dim=condition_dim,
             diffusion_step=diffusion_step, mlp_hidden_times=mlp_hidden_times,
-            block_activate=block_activate)
+            block_activate=block_activate, dtype=transformer_dtype)
         # the flax ``diffusion`` collection: Lt importance-sampling buffers
         # and the per-timestep acc / keep telemetry
         for name in ("lt_history", "lt_count", "diffusion_acc",
@@ -165,7 +175,9 @@ class D3PM(nn.Module):
                cf_cond_emb: Optional[torch.Tensor], batch_size: int, *,
                generator: torch.Generator, mode: str = "auto",
                sample: bool = True, filter_ratio: float = 0.0,
-               weights_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+               content_token: Optional[torch.Tensor] = None,
+               weights_dtype: torch.dtype = torch.bfloat16,
+               draws: Optional[d3pm.Draws] = None) -> torch.Tensor:
         """(B, L) int64 tokens from the 100-step reverse process.
 
         mode 'model': :func:`..ops.sampler_kernel.sample_tokens`, the
@@ -173,24 +185,36 @@ class D3PM(nn.Module):
         sampler step (K1) per reverse step. mode 'megakernel':
         :func:`..ops.megakernel.megakernel_sample_tokens`, one whole-step
         kernel launch (K3 or K4) per reverse step, the packed matrices in
-        ``weights_dtype``. mode 'auto': :func:`resolve_sampler`. On CPU
-        tensors every route runs its plain version
-        (:func:`.d3pm.sample_fused` is the oracle the tests hold them to).
-        ``sample=False`` takes argmax in place of Gumbel-max. ``generator``
-        is a CPU generator (the per-step seeds)."""
-        if mode == "reference" or filter_ratio != 0.0:
-            raise NotImplementedError(
-                "the log-onehot reference sampler and filter_ratio are not "
-                "ported yet: ROADMAP queue 1, item 7")
+        ``weights_dtype``. mode 'reference': :func:`.d3pm.sample`, the
+        log-onehot carry over the denoiser, from ``filter_ratio`` of the
+        way in (the noised ``content_token`` then starts it). mode 'auto':
+        'reference' when ``filter_ratio`` is set, else
+        :func:`resolve_sampler`. On CPU tensors every route runs its plain
+        version (:func:`.d3pm.sample_fused` is the oracle the tests hold
+        them to). ``sample=False`` takes argmax in place of Gumbel-max.
+        ``generator`` is a CPU generator (the per-step seeds); the
+        'reference' route takes its uniforms from ``draws`` when given."""
+        if mode == "auto" and filter_ratio != 0.0:
+            mode = "reference"
         mode = resolve_sampler(mode, self.lt_history.device,
                                self.content_seq_len, self.transformer,
                                cond_emb is not None)
-        if mode not in ("model", "megakernel"):
+        if mode not in ("model", "megakernel", "reference"):
             raise ValueError(f"unknown sampler mode {mode!r}")
+        if filter_ratio != 0.0 and mode != "reference":
+            raise ValueError(f"filter_ratio needs the 'reference' route, "
+                             f"not {mode!r}")
         if self.learnable_cf and cond_emb is not None:
             # the trained empty-text embedding is the CF branch's input
             cf_cond_emb = self.empty_cond_embed(cond_emb.shape[0],
                                                 cond_emb.shape[1])
+        if mode == "reference":
+            return d3pm.sample(
+                generator, self.schedule(), self.transformer, cond_emb,
+                cf_cond_emb, batch_size, self.content_seq_len,
+                guidance_scale=self.guidance_scale,
+                filter_ratio=filter_ratio, content_token=content_token,
+                sample=sample, draws=draws)
         if mode == "megakernel":
             return megakernel_sample_tokens(
                 generator, self.schedule(), self.transformer, cond_emb,
@@ -202,6 +226,22 @@ class D3PM(nn.Module):
                              self.content_seq_len,
                              guidance_scale=self.guidance_scale,
                              sample=sample)
+
+    @torch.no_grad()
+    def sample_fast(self, cond_emb: Optional[torch.Tensor],
+                    cf_cond_emb: Optional[torch.Tensor], batch_size: int,
+                    skip_step: int = 1, *, generator: torch.Generator,
+                    sample: bool = True,
+                    draws: Optional[d3pm.Draws] = None) -> torch.Tensor:
+        """(B, L) int64 tokens from the strided reverse process
+        (:func:`.d3pm.sample_fast`: every ``skip_step + 1``-th step, the
+        posterior taken ``skip_step`` steps down). As the JAX package's,
+        it takes ``cf_cond_emb`` as given, also under ``learnable_cf``."""
+        return d3pm.sample_fast(
+            generator, self.schedule(), self.transformer, cond_emb,
+            cf_cond_emb, batch_size, self.content_seq_len,
+            guidance_scale=self.guidance_scale, skip_step=skip_step,
+            sample=sample, draws=draws)
 
 
 class DiscreteDiffusionModel(nn.Module):
@@ -246,6 +286,16 @@ class DiscreteDiffusionModel(nn.Module):
                                      generator=generator, sample=sample,
                                      mode=mode)
 
+    @torch.no_grad()
+    def sample_fast(self, batch: Mapping[str, Any], batch_size: int,
+                    skip_step: int = 1, *, generator: torch.Generator,
+                    sample: bool = True) -> torch.Tensor:
+        """Conditioner -> :meth:`D3PM.sample_fast`."""
+        cond_emb, cf_cond_emb = self.conditioner(batch, batch_size)
+        return self.diffusion.sample_fast(cond_emb, cf_cond_emb, batch_size,
+                                          skip_step, generator=generator,
+                                          sample=sample)
+
 
 def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
                             latent_shape: Sequence[int]
@@ -263,11 +313,6 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
             raise NotImplementedError(
                 f"transformer.{key}: the port's denoiser has no dropout or "
                 f"activation checkpointing yet")
-    if str(tcfg.get("dtype", "float32")) not in ("float32", "f32"):
-        raise NotImplementedError(
-            "bf16 denoiser compute is not ported yet (the attention kernels "
-            "K2 and K5 take bf16; the denoiser's modules do not compute in "
-            "it): ROADMAP queue 1, item 10")
     t, h, w = latent_shape
     seq_len = int(tcfg.get("content_seq_len") or np.prod(latent_shape))
     spatial = (tcfg.get("content_spatial_size")
@@ -290,6 +335,7 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
         condition_dim=int(tcfg.get("condition_dim", 512)),
         mlp_hidden_times=int(tcfg.get("mlp_hidden_times", 4)),
         block_activate=str(tcfg.get("block_activate", "GELU2")),
+        transformer_dtype=compute_dtype(tcfg.get("dtype", "float32")),
     )
     return DiscreteDiffusionModel(d3pm_cfg=d3pm_cfg,
                                   conditioner_cfg=g.get("textencoder"))

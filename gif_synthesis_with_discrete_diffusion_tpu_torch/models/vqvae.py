@@ -15,6 +15,14 @@ Port of ``gif_synthesis_with_discrete_diffusion_tpu/models/vqvae.py``:
   host synchronisation.
 
 Tensors stay channels-last (B, T, H, W, C) as in the JAX package.
+
+``dtype`` is the JAX ``VQVAE.dtype``: every conv, dense layer and BatchNorm
+of the encoder, decoder and the two 1x1 convs computes in it on f32
+parameters (BatchNorm's statistics and running averages in f32, its output
+cast to the dtype; the axial attention's scores rounded to it before an f32
+softmax). The codebook reads its input in f32 (K6 keeps f32 inputs), its
+commitment loss and straight-through output are in the dtype, and the
+codebook-fit and reconstruction losses in f32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from torch import nn
 from ..ops.codebook_kernel import (nearest_code_stats,
                                    nearest_code_stats_reference)
 from ..ops.conv3d import SamePadConv3d, SamePadConvTranspose3d
+from .layers import Dense
 
 __all__ = ["VQVAE", "Encoder", "Decoder", "Codebook", "AxialBlock",
            "AttentionResidualBlock", "AxialSelfAttention", "init_vqvae_"]
@@ -51,9 +60,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(channels))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Normalised in f32, the output in ``x``'s dtype."""
         if not train:
             scale = self.weight * torch.rsqrt(self.running_var + _BN_EPS)
-            return (x - self.running_mean) * scale + self.bias
+            return ((x - self.running_mean) * scale + self.bias).to(x.dtype)
         dims = tuple(range(x.ndim - 1))
         xf = x.float()
         mean = xf.mean(dim=dims)
@@ -71,14 +81,15 @@ class AxialSelfAttention(nn.Module):
     """Multi-head self-attention along ONE axis of (T, H, W): bias-free
     Q/K/V projections, then an output projection with bias."""
 
-    def __init__(self, channels: int, n_head: int, axis: int):
+    def __init__(self, channels: int, n_head: int, axis: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
         self.axis = axis  # 1=T, 2=H, 3=W in (B, T, H, W, C)
-        self.wq = nn.Linear(channels, channels, bias=False)
-        self.wk = nn.Linear(channels, channels, bias=False)
-        self.wv = nn.Linear(channels, channels, bias=False)
-        self.fc = nn.Linear(channels, channels)
+        self.wq = Dense(channels, channels, bias=False, dtype=dtype)
+        self.wk = Dense(channels, channels, bias=False, dtype=dtype)
+        self.wv = Dense(channels, channels, bias=False, dtype=dtype)
+        self.fc = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
@@ -99,11 +110,12 @@ class AxialSelfAttention(nn.Module):
 class AxialBlock(nn.Module):
     """Sum of axial attentions along W, H, T."""
 
-    def __init__(self, channels: int, n_head: int = 2):
+    def __init__(self, channels: int, n_head: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attn_w = AxialSelfAttention(channels, n_head, 3)
-        self.attn_h = AxialSelfAttention(channels, n_head, 2)
-        self.attn_t = AxialSelfAttention(channels, n_head, 1)
+        self.attn_w = AxialSelfAttention(channels, n_head, 3, dtype)
+        self.attn_h = AxialSelfAttention(channels, n_head, 2, dtype)
+        self.attn_t = AxialSelfAttention(channels, n_head, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.attn_w(x) + self.attn_h(x) + self.attn_t(x)
@@ -112,16 +124,16 @@ class AxialBlock(nn.Module):
 class AttentionResidualBlock(nn.Module):
     """BN-ReLU conv bottleneck + axial attention, residual."""
 
-    def __init__(self, n_hiddens: int):
+    def __init__(self, n_hiddens: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.bn1 = BatchNorm(n_hiddens)
         self.conv1 = SamePadConv3d(n_hiddens, n_hiddens // 2, 3,
-                                   use_bias=False)
+                                   use_bias=False, dtype=dtype)
         self.bn2 = BatchNorm(n_hiddens // 2)
         self.conv2 = SamePadConv3d(n_hiddens // 2, n_hiddens, 1,
-                                   use_bias=False)
+                                   use_bias=False, dtype=dtype)
         self.bn3 = BatchNorm(n_hiddens)
-        self.axial = AxialBlock(n_hiddens, 2)
+        self.axial = AxialBlock(n_hiddens, 2, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = self.conv1(F.relu(self.bn1(x, train)))
@@ -146,17 +158,20 @@ class Encoder(nn.Module):
     BatchNorm -> ReLU; returns (B, t, h, w, n_hiddens)."""
 
     def __init__(self, n_hiddens: int, n_res_layers: int,
-                 downsample: Sequence[int], in_channels: int = 3):
+                 downsample: Sequence[int], in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_res_layers = n_res_layers
         steps = _downsample_steps(downsample)
         self.n_down = len(steps)
         for i, stride in enumerate(steps):
             self.add_module(f"conv{i}", SamePadConv3d(
-                in_channels if i == 0 else n_hiddens, n_hiddens, 4, stride))
-        self.conv_last = SamePadConv3d(n_hiddens, n_hiddens, 3)
+                in_channels if i == 0 else n_hiddens, n_hiddens, 4, stride,
+                dtype=dtype))
+        self.conv_last = SamePadConv3d(n_hiddens, n_hiddens, 3, dtype=dtype)
         for i in range(n_res_layers):
-            self.add_module(f"res{i}", AttentionResidualBlock(n_hiddens))
+            self.add_module(f"res{i}",
+                            AttentionResidualBlock(n_hiddens, dtype))
         self.bn_out = BatchNorm(n_hiddens)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -171,18 +186,20 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, n_hiddens: int, n_res_layers: int,
-                 upsample: Sequence[int], out_channels: int = 3):
+                 upsample: Sequence[int], out_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_res_layers = n_res_layers
         for i in range(n_res_layers):
-            self.add_module(f"res{i}", AttentionResidualBlock(n_hiddens))
+            self.add_module(f"res{i}",
+                            AttentionResidualBlock(n_hiddens, dtype))
         self.bn_out = BatchNorm(n_hiddens)
         steps = _downsample_steps(upsample)
         self.n_up = len(steps)
         for i, stride in enumerate(steps):
             out_ch = out_channels if i == len(steps) - 1 else n_hiddens
             self.add_module(f"convt{i}", SamePadConvTranspose3d(
-                n_hiddens, out_ch, 4, stride))
+                n_hiddens, out_ch, 4, stride, dtype=dtype))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = x
@@ -318,17 +335,22 @@ class VQVAE(nn.Module):
                  downsample: Sequence[int] = (1, 16, 16),
                  sequence_length: int = 4, resolution: int = 128,
                  recon_loss_scale: float = 1.0 / 0.06,
-                 kernel_mode: str = "auto"):
+                 kernel_mode: str = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.recon_loss_scale = recon_loss_scale
         self.downsample = tuple(downsample)
         self.sequence_length = sequence_length
         self.resolution = resolution
         self.n_codes = n_codes
-        self.encoder = Encoder(n_hiddens, n_res_layers, downsample)
-        self.pre_vq_conv = SamePadConv3d(n_hiddens, embedding_dim, 1)
-        self.decoder = Decoder(n_hiddens, n_res_layers, downsample, 3)
-        self.post_vq_conv = SamePadConv3d(embedding_dim, n_hiddens, 1)
+        self.encoder = Encoder(n_hiddens, n_res_layers, downsample,
+                               dtype=dtype)
+        self.pre_vq_conv = SamePadConv3d(n_hiddens, embedding_dim, 1,
+                                         dtype=dtype)
+        self.decoder = Decoder(n_hiddens, n_res_layers, downsample, 3, dtype)
+        self.post_vq_conv = SamePadConv3d(embedding_dim, n_hiddens, 1,
+                                          dtype=dtype)
         self.codebook = Codebook(n_codes, embedding_dim,
                                  kernel_mode=kernel_mode)
 
@@ -351,7 +373,8 @@ class VQVAE(nn.Module):
 
     def decode(self, encodings: torch.Tensor, *,
                train: bool = False) -> torch.Tensor:
-        """encodings: (B, t, h, w) int -> video (B, T, H, W, 3), the JAX
+        """encodings: (B, t, h, w) int -> video (B, T, H, W, 3) in the
+        compute dtype, the JAX
         package's ``VQVAE.decode``: ``train`` puts the decoder's BatchNorm
         on batch statistics. Differentiable in the decoder's parameters
         when grad mode is on; the serving path

@@ -14,6 +14,10 @@ gets, so no layout copy is made. Weights are in PyTorch's layouts:
   of the reference formulation (pre-pad, then ``padding = k - 1``). The flax
   kernel is in forward orientation DHWIO; the bridge permutes it
   ``(3, 4, 0, 1, 2)``.
+
+The modules take the JAX modules' compute ``dtype``: the parameters stay
+f32; under bf16 the input and the kernel are cast to bf16, the convolution
+gives bf16 (cuDNN accumulates in f32), and the bias is added in bf16.
 """
 from __future__ import annotations
 
@@ -78,11 +82,23 @@ def same_pad_conv_transpose3d(x: torch.Tensor, w: torch.Tensor, stride=1,
     return y.permute(0, 2, 3, 4, 1)
 
 
+def _conv_in(conv, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` of a module's input in its compute dtype: f32 as it is
+    (the bias inside the convolution), else input and kernel cast to the
+    dtype and the bias added in it, as the flax module does."""
+    dt = module.compute_dtype
+    if dt == torch.float32:
+        return conv(x, module.weight, module.stride, module.bias)
+    y = conv(x.to(dt), module.weight.to(dt), module.stride)
+    return y if module.bias is None else y + module.bias.to(dt)
+
+
 class SamePadConv3d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | Sequence[int], stride=1,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.stride = _triple(stride)
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels, *_triple(kernel_size)))
@@ -93,14 +109,15 @@ class SamePadConv3d(nn.Module):
         return self.weight[0].numel()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return same_pad_conv3d(x, self.weight, self.stride, self.bias)
+        return _conv_in(same_pad_conv3d, self, x)
 
 
 class SamePadConvTranspose3d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | Sequence[int], stride=1,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.stride = _triple(stride)
         self.weight = nn.Parameter(torch.empty(
             in_channels, out_channels, *_triple(kernel_size)))
@@ -112,5 +129,4 @@ class SamePadConvTranspose3d(nn.Module):
         return self.weight[:, 0].numel()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return same_pad_conv_transpose3d(x, self.weight, self.stride,
-                                         self.bias)
+        return _conv_in(same_pad_conv_transpose3d, self, x)

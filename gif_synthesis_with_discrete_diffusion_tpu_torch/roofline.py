@@ -1,0 +1,71 @@
+"""The card's peak rates, the least time a piece of work can take on it, and
+the work of one whole reverse step: one count for ``chip_smoke.py`` and the
+bench entry (``bench.py`` of this package), so that the two never count
+differently.
+
+The peaks are NVIDIA's H100 SXM data sheet, dense, at the card's full power
+limit of 700 W: 3.35 TB/s of device memory, 67 TFLOP/s f32 outside the
+tensor cores, 989 TFLOP/s for bf16 operands and 495 TFLOP/s TF32 on the
+tensor cores. A card set below 700 W runs slower under load, so every time
+stands beside :func:`card`'s name and power limit.
+"""
+from __future__ import annotations
+
+import subprocess
+
+__all__ = ["PEAK_BYTES", "PEAK_F32", "PEAK_BF16", "PEAK_TF32", "bound",
+           "megakernel_work", "card"]
+
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+
+
+def bound(nbytes: float, flops_f32: float, flops_bf16: float = 0.0,
+          flops_tf32: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    (each input read once, each output written once) over the memory rate
+    and the operations over the peak rate of their operands' type. Returns
+    (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16
+             + flops_tf32 / PEAK_TF32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def megakernel_work(b: int, n_br: int, L: int, n_layer: int, hidden: int,
+                    kv: int, s_len: int, as_bias: bool
+                    ) -> tuple[float, float, float]:
+    """(bytes, f32 FLOP, bf16 FLOP) one reverse step needs at the whole-step
+    kernels' width (n_embd 64): ``b`` rows, ``n_br`` branches (2 under
+    CFG), ``L`` tokens, an MLP of ``hidden``, ``kv`` = K - 1 logits, a
+    condition of ``s_len`` tokens (``as_bias``: one token, a per-layer
+    bias). QK^T and PV take operands rounded to bf16 (tensor-core rate),
+    the other products f32 activations (QKV, proj, the MLP, the
+    cross-attention's query and proj when it is not a bias, the logits,
+    each once). Bytes: the bf16 weights, the f32 tables and the tokens in
+    and out."""
+    c, rows = 64, b * n_br * L
+    per_layer = 2 * c * 3 * c + 2 * c * c + 4 * c * hidden
+    f_bf16 = 4.0 * L * c * rows * n_layer
+    if not as_bias:
+        per_layer += 4 * c * c
+        f_bf16 += 4.0 * s_len * c * rows * n_layer
+    f_f32 = float(per_layer) * rows * n_layer + 2.0 * c * kv * rows
+    sp = 8 if as_bias else -(-s_len // 8) * 8
+    nbytes = (2.0 * n_layer * (4 * c * c + c * 3 * c + 2 * c * hidden)
+              + 2.0 * c * kv + 4.0 * (kv + 1) * c + 4.0 * L * c
+              + 4.0 * 2 * b * n_br * n_layer * sp * c + 16.0 * b * L)
+    return nbytes, f_f32, f_bf16
+
+
+def card() -> str:
+    """The card's name and power limit, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]

@@ -26,10 +26,12 @@ import torch
 
 from ..data.preprocess import preprocess_clip
 from ..data.synthetic import SyntheticVideoDataModule
+from ..models.layers import compute_dtype
 from ..models.vqvae import VQVAE, init_vqvae_
 from .metrics import weighted_losses
 
-__all__ = ["TRAIN_STEP1", "TRAIN_STEP1_BATCH", "Stage1State", "make_vqvae",
+__all__ = ["TRAIN_STEP1", "TRAIN_STEP1_BATCH", "TRAIN_STEP128",
+           "TRAIN_STEP128_BATCH", "Stage1State", "make_vqvae",
            "build_stage1", "train_step", "eval_step", "synthetic_batch"]
 
 # bench.py's train_step configuration (the 64 px variant, f32): 4-frame
@@ -45,6 +47,16 @@ TRAIN_STEP1: dict[str, Any] = {
     "lr_args": {"gen_lr": 4e-4},
 }
 TRAIN_STEP1_BATCH = 64
+
+# bench.py's train_step128 row: the same model at the reference job's 128 px
+# clips (a (4, 16, 16) grid, 65536 codebook rows a step at B=64), with bf16
+# conv compute as the bench sets it from 128 px up.
+TRAIN_STEP128: dict[str, Any] = {
+    **TRAIN_STEP1,
+    "generator": dict(TRAIN_STEP1["generator"], resolution=128,
+                      dtype="bfloat16"),
+}
+TRAIN_STEP128_BATCH = 64
 
 
 @dataclass
@@ -64,12 +76,9 @@ class Stage1State:
 def make_vqvae(model_cfg: Mapping[str, Any]) -> VQVAE:
     """The VQ-VAE of a model configuration (its ``generator`` entry, or the
     mapping itself), with the JAX package's defaults. ``kernel_mode``:
-    ``"xla"`` keeps the codebook on its plain lookup on every device."""
+    ``"xla"`` keeps the codebook on its plain lookup on every device;
+    ``dtype``: ``bfloat16`` computes in bf16 on f32 parameters."""
     g = dict(model_cfg.get("generator", model_cfg))
-    if str(g.get("dtype", "float32")) in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            "bf16 conv compute for the VQ-VAE is not ported: ROADMAP queue "
-            "1, item 11")
     return VQVAE(
         embedding_dim=int(g.get("embedding_dim", 128)),
         n_codes=int(g.get("n_codes", 4096)),
@@ -78,7 +87,8 @@ def make_vqvae(model_cfg: Mapping[str, Any]) -> VQVAE:
         downsample=tuple(g.get("downsample", (1, 16, 16))),
         sequence_length=int(g.get("sequence_length", 4)),
         resolution=int(g.get("resolution", 128)),
-        kernel_mode=str(g.get("kernel_mode", "auto")))
+        kernel_mode=str(g.get("kernel_mode", "auto")),
+        dtype=compute_dtype(g.get("dtype", "float32")))
 
 
 def build_stage1(config: Mapping[str, Any], device: torch.device | str,

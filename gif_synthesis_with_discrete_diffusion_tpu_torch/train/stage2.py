@@ -6,7 +6,8 @@ trainable generator (conditioner + D3PM denoiser) under
 ``Adam(gen_lr, betas=(0.5, 0.999))``, and a frozen VQ-VAE that turns each
 uint8 clip into its token grid under ``torch.no_grad()``. On CUDA tensors
 one step runs kernel K6 once (the codebook lookup), and K2 forward and K5
-backward once per attention call (38 each for 19 layers).
+backward once per attention call (38 each for 19 layers), in the
+denoiser's compute dtype.
 
     state = build_stage2(TRAIN_STEP2, "cuda", torch.Generator().manual_seed(0))
     values = train_step(state, batch, torch.Generator("cuda").manual_seed(1))
@@ -30,19 +31,20 @@ from .metrics import weighted_losses
 __all__ = ["TRAIN_STEP2", "TRAIN_STEP2_BATCH", "Stage2State", "build_stage2",
            "encode_tokens", "train_step", "eval_step", "synthetic_batch"]
 
-# bench.py's train_step2 configuration (label conditioning), with f32
-# denoiser compute in place of the bench's bf16: 16-frame 64 px clips -> a
-# (16, 8, 8) grid of 1024 tokens over 4096 codes (K = 4097), a 19-layer
-# n_embd-64 denoiser with 16 heads of dim 4 over 100 steps, auxiliary loss
-# 5e-4 (adaptive), Adam at 1e-4. As in the bench, no content_spatial_size:
-# the positional grid is the latent's (t * h, w) = (128, 8).
+# bench.py's train_step2 configuration (label conditioning): 16-frame 64 px
+# clips -> a (16, 8, 8) grid of 1024 tokens over 4096 codes (K = 4097), a
+# 19-layer n_embd-64 denoiser with 16 heads of dim 4 over 100 steps in bf16
+# compute on f32 parameters (the bench's setting; f32 compute with
+# "dtype": "float32"), auxiliary loss 5e-4 (adaptive), Adam at 1e-4. As in
+# the bench, no content_spatial_size: the positional grid is the latent's
+# (t * h, w) = (128, 8).
 TRAIN_STEP2: dict[str, Any] = {
     "vqvae": dict(HONEST["vqvae"]),
     "generator": {
         "diffusion_model": {
             "diffusion_step": 100,
             "transformer": {"n_layer": 19, "n_embd": 64, "n_head": 16,
-                            "condition_dim": 512},
+                            "condition_dim": 512, "dtype": "bfloat16"},
         },
         "textencoder": {"mode": "label", "n_classes": 101, "dim": 512},
     },

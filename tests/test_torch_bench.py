@@ -1,0 +1,156 @@
+"""The port's bench entry (``gif_synthesis_with_discrete_diffusion_tpu_torch.
+bench``) on the CPU at a toy size: the JSON contract of each row, the error
+line of the rows that wait and of a run without a card, the artifact lookup
+against the JAX bench's own, and the work count shared with
+``chip_smoke.py``. No number measured here is a device number: the rows run
+on the CPU only to hold their keys and strings."""
+import json
+import math
+
+import pytest
+import torch
+
+import bench as jax_bench
+from gif_synthesis_with_discrete_diffusion_tpu_torch import bench, roofline
+from tests.test_torch_slice import CONFIG as SLICE_CONFIG
+from tests.test_torch_stage1 import CONFIG as STAGE1_CONFIG
+
+KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_source", "batch",
+        "spread", "repeats", "device"}
+TOY = bench.BenchConfig("toy", {
+    "vqvae": dict(SLICE_CONFIG["vqvae"], sequence_length=2),
+    "generator": {
+        "diffusion_model": dict(SLICE_CONFIG["generator"]["diffusion_model"],
+                                diffusion_step=3),
+        "textencoder": SLICE_CONFIG["generator"]["textencoder"]}}, 2)
+
+
+def _check_row(row, unit):
+    assert KEYS <= set(row)
+    json.dumps(row)                   # one JSON line
+    assert row["unit"] == unit and row["device"] == "cpu"
+    lo, hi = row["spread"]
+    assert 0 < lo <= row["value"] <= hi
+    assert row["repeats"] == 2
+
+
+def test_sampling_row_keys_and_roofline_fields():
+    row = bench.bench_sampling("cpu", TOY, repeats=2, warmup=0)
+    _check_row(row, "clips/sec/chip")
+    # the route that 'auto' takes on the CPU, named with its compute dtype
+    assert row["route"] == "model"
+    assert row["metric"] == ("sampled clips/sec/chip (3-step D3PM, 2f 8px, "
+                             "32 tok, K=17, CFG 2, model route, float32 "
+                             "compute)")
+    assert row["batch"] == 2
+    assert row["bound_by"] in ("bytes", "operations")
+    assert row["ms_per_step"] > 0 and row["bound_ms"] > 0
+    assert 0 < row["mfu"] < 1
+    # no artifact at 32 tokens: no denominator, said so
+    assert row["vs_baseline"] == 0.0
+    assert "no measured sampler artifact" in row["baseline_source"]
+
+
+def test_vqvae_and_training_rows_keys_and_metric_strings():
+    row = bench.bench_vqvae("cpu", TOY, repeats=2, warmup=0)
+    _check_row(row, "frames/sec/chip")
+    assert row["metric"] == ("VQ-VAE enc/dec frames/sec (2f 8px, b2, "
+                             "float32 compute)")
+    config1 = dict(STAGE1_CONFIG, generator=dict(STAGE1_CONFIG["generator"],
+                                                 dtype="bfloat16"))
+    row = bench.bench_train_step("cpu", config1, 2, repeats=2, warmup=1)
+    _check_row(row, "steps/sec/chip")
+    assert row["metric"] == ("VQ-VAE train steps/sec (batch 2, EMA "
+                             "codebook, 8px, bfloat16 compute)")
+    config2 = json.loads(json.dumps(SLICE_CONFIG))
+    config2["generator"]["diffusion_model"]["transformer"]["dtype"] = \
+        "bfloat16"
+    row = bench.bench_train_step2("cpu", config2, 2, repeats=2, warmup=1)
+    _check_row(row, "steps/sec/chip")
+    assert row["metric"] == ("stage-2 D3PM train steps/sec (batch 2, label "
+                             "cond, 32 tok, K=17, bfloat16 compute, "
+                             "fused-VJP attention)")
+
+
+@pytest.mark.parametrize("metric,config,item", [
+    ("fvd_pipeline", "honest", "[13]"), ("fvd_pipeline", "msrvtt", "[13]"),
+    ("train_step2", "msrvtt", "[12]")])
+def test_waiting_rows_print_the_error_line_and_exit_1(capsys, metric, config,
+                                                      item):
+    assert bench.main(["--metric", metric, "--config", config]) == 1
+    line = capsys.readouterr().out.strip().splitlines()
+    assert len(line) == 1
+    err = json.loads(line[0])
+    assert {k: err[k] for k in ("metric", "value", "unit", "vs_baseline")} \
+        == {"metric": "error", "value": 0.0, "unit": "error",
+            "vs_baseline": 0.0}
+    assert item in err["error"] and "ROADMAP" in err["error"]
+    with pytest.raises(NotImplementedError, match=item.replace("[", r"\[")):
+        bench.run_row(metric, config, "cpu")
+
+
+def test_no_card_prints_the_error_line_and_exits_1(capsys):
+    assert not torch.cuda.is_available()
+    for metric in ("sampling", "vqvae", "train_step", "train_step128",
+                   "train_step2"):
+        assert bench.main(["--metric", metric]) == 1
+        err = json.loads(capsys.readouterr().out.strip())
+        assert err["metric"] == "error" and "CUDA" in err["error"]
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("sampler", {"tokens": 1024, "codes": 4096}),
+    ("sampler", {"tokens": 2304, "codes": 4096}),
+    ("sampler", {"tokens": 512, "codes": 2048}),
+    ("vqvae_encdec", {"batch": 32, "resolution": 64, "codes": 4096,
+                      "seq_len": 16}),
+    ("vqvae_train", {"batch": 64, "resolution": 64, "codes": 4096,
+                     "seq_len": 4, "res_layers": 3}),
+    ("vqvae_train", {"batch": 64, "resolution": 128, "codes": 4096,
+                     "seq_len": 4, "res_layers": 3}),
+    ("train_step2", {"batch": 16, "tokens": 1024, "codes": 4096,
+                     "mode": "label"}),
+    ("train_step2", {"batch": 16, "tokens": 2304, "codes": 4096,
+                     "mode": "text"}),
+    ("fvd_pipeline", {"tokens": 1024, "codes": 4096, "resolution": 64}),
+])
+def test_artifact_lookup_matches_the_jax_bench(kind, match):
+    assert bench.measured_lookup(kind, match) == \
+        jax_bench._measured_lookup(kind, match)
+
+
+def test_rows_match_the_jax_bench_configurations():
+    """The problem sizes of bench.py's --config, and its row batches."""
+    for name in ("honest", "half", "msrvtt"):
+        jax_bench.apply_config(name)
+        cfg = bench.CONFIGS[name]
+        vq = cfg.models["vqvae"]
+        assert (vq["n_codes"], tuple(vq["downsample"]), vq["resolution"],
+                cfg.batch) == (jax_bench.N_CODES, jax_bench.DOWNSAMPLE,
+                               jax_bench.RES, jax_bench.BATCH), name
+        with torch.device("meta"):
+            models = bench.build_models(cfg.models, "meta",
+                                        torch.Generator())
+        assert models.generator.diffusion.content_seq_len == \
+            jax_bench._seq_len()
+        spatial = models.generator.diffusion.transformer.content_emb
+        assert tuple(spatial.spatial_size) == {
+            "honest": (32, 32), "half": (64, 8), "msrvtt": (48, 48)}[name]
+    jax_bench.apply_config("honest")
+
+
+def test_work_count_gives_the_kernel_tables_numbers():
+    """``roofline.megakernel_work`` (the count chip_smoke.py and the bench
+    share) at the whole-step kernels' main shapes: PERF.md's 156.8 + 326.4
+    GFLOP for K3 (B=32, L=1024) and 88.2 + 413.1 for K4 (B=8, L=2304)."""
+    import chip_smoke
+    assert chip_smoke._megakernel_work is roofline.megakernel_work
+    assert chip_smoke._bound is roofline.bound
+    for args, f32, bf16 in (((32, 2, 1024), 156.8, 326.4),
+                            ((8, 2, 2304), 88.2, 413.1)):
+        _, got32, got16 = roofline.megakernel_work(*args, 19, 256, 4096, 1,
+                                                   True)
+        assert round(got32 / 1e9, 1) == f32 and round(got16 / 1e9, 1) == bf16
+    ms, by = roofline.bound(0.0, 156.8e9, 326.4e9)
+    assert by == "operations" and math.isclose(
+        ms, (156.8e9 / 67e12 + 326.4e9 / 989e12) * 1e3)

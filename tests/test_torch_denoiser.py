@@ -100,3 +100,72 @@ def test_token_grid_embedding_trainable_flag_stops_the_gradient():
     assert out.requires_grad and not out_frozen.requires_grad
     out.sum().backward()
     assert emb.emb.weight.grad is not None
+
+
+# bf16 compute against the JAX bf16 denoiser: one fifth of the bf16-vs-f32
+# drift that tests/test_denoiser.py allows (0.05). Both round the dense
+# layers' outputs to bf16 but in other places (XLA keeps fused elementwise
+# chains in f32), so the two differ by rounding noise that grows over the
+# layers: measured 0.0070 on the logits (scale 1.53) and 0.0071 of the
+# largest gradient, where the JAX bf16 logits lie 0.0077 from its f32 ones.
+BF16_TOL = 0.05 / 5
+
+
+def test_bf16_denoiser_matches_flax_bf16_logits_and_gradients(monkeypatch):
+    """``dtype=bfloat16`` as the flax module's: f32 parameters and logits,
+    bf16 dense layers, both attentions on bf16 q / k / v (the Pallas kernel
+    in interpret mode on the JAX side), every parameter gradient back in
+    f32."""
+    import functools
+
+    from gif_synthesis_with_discrete_diffusion_tpu.ops.attention import (
+        fused_mha as jax_fused_mha)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        attention)
+
+    monkeypatch.setattr(jden, "fused_mha",
+                        functools.partial(jax_fused_mha, interpret=True))
+    seen = []
+    real = attention.fused_mha
+
+    def spy(q, k, v, *, n_head):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real(q, k, v, n_head=n_head)
+
+    monkeypatch.setattr(tden, "fused_mha", spy)
+    rng = np.random.default_rng(0)
+    kw = dict(num_embed=NUM_EMBED, spatial_size=SPATIAL, n_layer=2,
+              n_embd=64, n_head=16, condition_dim=COND_DIM,
+              diffusion_step=STEPS)
+    flax_model = jden.DenoiserTransformer(content_seq_len=L,
+                                          dtype=jnp.bfloat16, **kw)
+    tokens = rng.integers(0, NUM_EMBED + 1, (3, L)).astype(np.int32)
+    cond = rng.standard_normal((3, 2, COND_DIM)).astype(np.float32)
+    t = np.array([0, 4, STEPS - 1], np.int32)
+    args = (jnp.asarray(tokens), jnp.asarray(cond), jnp.asarray(t))
+    params = jax.jit(flax_model.init)(jax.random.key(0), *args)["params"]
+    params = _randomize(params, rng, 0.2)
+
+    def loss(p):
+        y = flax_model.apply({"params": p}, *args, fused_attention=True)
+        return jnp.mean(y ** 2), y
+
+    (_, want), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        params)
+    assert want.dtype == jnp.float32
+
+    model = tden.DenoiserTransformer(dtype=torch.bfloat16, **kw)
+    model.load_state_dict(flax_to_state_dict(params))
+    got = model(torch.from_numpy(tokens).long(), torch.from_numpy(cond),
+                torch.from_numpy(t).long())
+    assert got.dtype == torch.float32
+    assert seen == [(torch.bfloat16,) * 3] * 4   # 2 layers x self, cross
+    assert float((got.detach() - torch.from_numpy(np.asarray(want))).abs()
+                 .max()) <= BF16_TOL
+    (got ** 2).mean().backward()
+    want_grads = flax_to_state_dict(jax.device_get(grads))
+    scale = max(float(w.abs().max()) for w in want_grads.values())
+    for name, p in model.named_parameters():
+        assert p.dtype == p.grad.dtype == torch.float32, name
+        err = float((p.grad - want_grads[name]).abs().max())
+        assert err <= BF16_TOL * scale, (name, err / scale)

@@ -50,8 +50,7 @@ MK_MARGIN = chip_smoke.MK_MARGIN
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels run only on the card)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke._reference_precision(torch)
     return torch.device("cuda")
 
 
@@ -333,39 +332,13 @@ def test_codebook_kernel_ties_keep_the_first_code(cuda, d):
 
 
 def test_small_training_step_on_the_card_matches_the_cpu(cuda):
-    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage2
-    config = {
-        "vqvae": {"embedding_dim": 16, "n_codes": 16, "n_hiddens": 32,
-                  "n_res_layers": 1, "downsample": (1, 2, 2),
-                  "sequence_length": 2, "resolution": 8},
-        "generator": {
-            "diffusion_model": {"diffusion_step": 8,
-                                "transformer": {"n_layer": 2, "n_embd": 64,
-                                                "n_head": 16,
-                                                "condition_dim": 32}},
-            "textencoder": {"mode": "label", "n_classes": 5, "dim": 32}},
-    }
-    batch = stage2.synthetic_batch(config, 3, torch.Generator().manual_seed(1))
-    g = torch.Generator().manual_seed(2)
-    draws = dict(t=torch.tensor([0, 5, 5]), pt=torch.full((3,), 0.125),
-                 noise=torch.rand((3, 17, 32), generator=g))
-    out = {}
-    for dev in (cuda, torch.device("cpu")):
-        state = stage2.build_stage2(config, dev,
-                                    torch.Generator().manual_seed(0))
-        loss = stage2.train_step(state, batch, **draws)["total"]
-        grads = {n: p.grad.cpu() for n, p in
-                 state.generator.named_parameters() if p.grad is not None}
-        out[dev.type] = (float(loss), grads)
-    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
-                               atol=0)
+    got = chip_smoke._small_train_step(torch, "cuda")
+    want = chip_smoke._small_train_step(torch, "cpu")
     # a key bias's gradient is zero analytically: scales are floored at
     # 1e-4 of the largest gradient
-    floor = 1e-4 * max(float(w.abs().max()) for w in out["cpu"][1].values())
-    for name, want in out["cpu"][1].items():
-        scale = max(float(want.abs().max()), floor)
-        torch.testing.assert_close(out["cuda"][1][name], want, rtol=0,
-                                   atol=1e-3 * scale, msg=name)
+    lerr, gerr = chip_smoke._compare_train_steps(got, want, False)
+    assert lerr <= chip_smoke.TRAIN_LOSS_RTOL
+    assert gerr <= chip_smoke.TRAIN_GRAD_TOL
 
 
 def _megakernel_case(device, **case):
@@ -693,3 +666,36 @@ def test_stage1_step_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(values["total"]))
     assert bool(state.vqvae.codebook.initialized)
+
+
+def test_small_bf16_training_step_on_the_card_matches_the_cpu(cuda):
+    """The stage-2 step with a bf16 denoiser (the bf16 entry points of K2
+    and K5 on every attention call) against the same step on the CPU."""
+    before = (fused_mha.launches, fused_mha_bwd.launches)
+    got = chip_smoke._small_train_step(torch, "cuda", "bfloat16")
+    assert (fused_mha.launches, fused_mha_bwd.launches) == (
+        before[0] + 4, before[1] + 4)       # 2 layers x (self, cross)
+    want = chip_smoke._small_train_step(torch, "cpu", "bfloat16")
+    lerr, gerr = chip_smoke._compare_train_steps(got, want, True)
+    assert lerr <= chip_smoke.BF16_TRAIN_TOL
+    assert gerr <= chip_smoke.BF16_TRAIN_TOL
+
+
+def test_small_bf16_stage1_step_on_the_card_matches_the_cpu(cuda):
+    """The stage-1 step in bf16 conv compute (cuDNN) against the CPU's; the
+    gradients against a share of what bf16 moves them from f32."""
+    got = chip_smoke._small_stage1_step(torch, "cuda", "bfloat16")
+    want = chip_smoke._small_stage1_step(torch, "cpu", "bfloat16")
+    drift = chip_smoke._compare_stage1_steps(
+        torch, want, chip_smoke._small_stage1_step(torch, "cpu"), True)[1]
+    lerr, gerr, berr = chip_smoke._compare_stage1_steps(torch, got, want,
+                                                        True)
+    assert lerr <= chip_smoke.BF16_TRAIN_TOL
+    assert gerr <= chip_smoke.BF16_STAGE1_GRAD_SHARE * drift
+    assert berr <= chip_smoke.BF16_TRAIN_TOL
+
+
+def test_reference_sampler_on_the_card_matches_the_cpu(cuda):
+    """The log-onehot samplers (reference, with filter_ratio, fast, token
+    budget) on the card against the CPU in argmax mode."""
+    chip_smoke.phase_samplers(torch)

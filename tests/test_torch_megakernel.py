@@ -319,16 +319,22 @@ def test_d3pm_sample_modes(setup, monkeypatch):
                         lambda *a, **k: called.append("megakernel"))
     monkeypatch.setattr(dd, "sample_tokens",
                         lambda *a, **k: called.append("model"))
+    monkeypatch.setattr(dd.d3pm, "sample", lambda *a, **k: called.append(
+        ("reference", k["filter_ratio"])))
     g = torch.Generator().manual_seed(0)
     model.sample(cond, cf, B, generator=g)                  # auto, on the CPU
     model.sample(cond, cf, B, generator=g, mode="megakernel")
-    assert called == ["model", "megakernel"]
+    # the log-onehot route: asked for, or what 'auto' takes with a
+    # filter_ratio (the JAX package's rule)
+    model.sample(cond, cf, B, generator=g, mode="reference")
+    model.sample(cond, cf, B, generator=g, filter_ratio=0.5)
+    assert called == ["model", "megakernel", ("reference", 0.0),
+                      ("reference", 0.5)]
     with pytest.raises(ValueError):
         model.sample(cond, cf, B, generator=g, mode="fast")
-    with pytest.raises(NotImplementedError):
-        model.sample(cond, cf, B, generator=g, mode="reference")
-    with pytest.raises(NotImplementedError):
-        model.sample(cond, cf, B, generator=g, filter_ratio=0.5)
+    with pytest.raises(ValueError, match="filter_ratio"):
+        model.sample(cond, cf, B, generator=g, mode="model",
+                     filter_ratio=0.5)
 
 
 @pytest.mark.parametrize("n_embd,n_head,mlp,seq,cond,device,want", [

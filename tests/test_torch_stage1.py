@@ -313,10 +313,21 @@ def test_build_stage1_configuration():
         1e-3, (0.5, 0.999), 1e-8)
     assert state.loss_dict == {"l_dummy": 2.0} and state.resolution == 8
     assert state.device.type == "cpu"
+    # bf16 conv compute builds on f32 parameters (TRAIN_STEP128's setting)
     for dtype in ("bfloat16", "bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stage1.build_stage1({"generator": dict(KW, dtype=dtype)}, "cpu",
-                                torch.Generator().manual_seed(0))
+        state = stage1.build_stage1({"generator": dict(KW, dtype=dtype)},
+                                    "cpu", torch.Generator().manual_seed(0))
+        vq = state.vqvae
+        assert vq.compute_dtype == vq.encoder.conv0.compute_dtype == \
+            vq.decoder.convt0.compute_dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in vq.parameters())
+    ref128 = jax_stage1.make_vqvae(stage1.TRAIN_STEP128)   # bench.py:350-363
+    assert ref128.dtype == jnp.bfloat16 and ref128.resolution == 128
+    with torch.device("meta"):
+        model128 = stage1.make_vqvae(stage1.TRAIN_STEP128)
+    assert model128.compute_dtype == torch.bfloat16
+    assert model128.latent_shape == tuple(ref128.latent_shape) == (4, 16, 16)
+    assert stage1.TRAIN_STEP128_BATCH == 64
 
 
 def test_synthetic_copy_yields_the_jax_packages_clips():
@@ -379,3 +390,75 @@ def test_make_vqvae_honours_kernel_mode(monkeypatch):
         assert len(calls) == n_calls, mode
     with pytest.raises(ValueError, match="kernel_mode"):
         stage1.make_vqvae(dict(KW, kernel_mode="tpu"))
+
+
+# bf16 compute against the JAX bf16 VQ-VAE (the size of
+# tests/test_vqvae.py::test_vqvae_bf16_train_grad): both convolve bf16
+# operands with f32 sums and round the output once, so a reconstruction
+# may land one bf16 step apart (measured: bitwise equal); the losses and
+# the new buffers are f32 reductions of those (measured: 2.2e-7)
+BF16_KW = dict(embedding_dim=16, n_codes=32, n_hiddens=16, n_res_layers=2,
+               downsample=(1, 4, 4), sequence_length=2, resolution=16)
+BF16_STATE_TOL = 1e-5
+
+
+def test_bf16_vqvae_training_forward_matches_flax_bf16():
+    """``dtype: bfloat16`` in training mode (BatchNorm on batch statistics,
+    the codebook's init, EMA and restarts): the reconstruction, every loss
+    and metric, the encodings and the buffers after the step, against the
+    flax module at ``dtype=jnp.bfloat16``; then the port's gradients reach
+    every f32 parameter. (The JAX bf16 gradient is the slow-marked
+    ~45 s compile of tests/test_vqvae.py, so it is not compared here.)"""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        bf16_step)
+    rng = np.random.default_rng(4)
+    model, variables = _flax_vqvae(rng, dtype=jnp.bfloat16, **BF16_KW)
+    x = rng.standard_normal((2, 2, 16, 16, 3)).astype(np.float32)
+    key = jax.random.key(3)
+    want, new_state = model.apply(
+        variables, {"video": jnp.asarray(x)}, train=True,
+        rngs={"codebook": key}, mutable=["batch_stats", "codebook"])
+    rows = _jax_rows(model, variables, jnp.asarray(x), key)
+    vqvae = stage1.make_vqvae(dict(BF16_KW, kernel_mode="xla",
+                                   dtype="bfloat16"))
+    vqvae.load_state_dict(vqvae_state_dict(
+        variables["params"], variables["batch_stats"],
+        variables["codebook"]))
+    got = vqvae({"video": torch.from_numpy(x)}, train=True,
+                init_rows=torch.from_numpy(np.asarray(rows[0])),
+                restart_rows=torch.from_numpy(np.asarray(rows[1])))
+    assert got["pred_data"].dtype == torch.bfloat16 == \
+        got["losses"]["commitment_loss"].dtype
+    assert got["losses"]["recon_loss"].dtype == torch.float32
+    np.testing.assert_array_equal(got["encodings"].numpy(),
+                                  np.asarray(want["encodings"]))
+    pred = np.asarray(want["pred_data"]).astype(np.float32)
+    step = bf16_step(float(np.abs(pred).max()))
+    assert float(np.abs(got["pred_data"].detach().float().numpy()
+                        - pred).max()) <= step
+    for g, w in ((got["losses"]["recon_loss"], want["losses"]["recon_loss"]),
+                 (got["losses"]["commitment_loss"],
+                  want["losses"]["commitment_loss"]),
+                 (got["metrics"]["perplexity"], want["metrics"]["perplexity"]),
+                 (got["codebook_loss"], want["codebook_loss"]),
+                 (got["entropy"], want["entropy"])):
+        np.testing.assert_allclose(float(g.detach()), float(w),
+                                   rtol=BF16_STATE_TOL)
+    want_state = vqvae_state_dict(variables["params"],
+                                  new_state["batch_stats"],
+                                  new_state["codebook"])
+    for name, buf in vqvae.named_buffers():
+        if buf.dtype == torch.bool:
+            assert torch.equal(buf, want_state[name]), name
+            continue
+        torch.testing.assert_close(buf, want_state[name], rtol=0,
+                                   atol=BF16_STATE_TOL * max(float(
+                                       want_state[name].abs().max()), 1.0),
+                                   msg=name)
+    total, _ = weighted_losses({"l_dummy": 1.0}, got)
+    assert total.dtype == torch.float32
+    total.backward()
+    for name, p in vqvae.named_parameters():
+        assert p.dtype == p.grad.dtype == torch.float32, name
+        assert bool(p.grad.isfinite().all()), name
+    assert any(float(p.grad.abs().max()) > 0 for p in vqvae.parameters())

@@ -9,6 +9,8 @@ the same weights (carried over by ``convert/from_flax.py``) with the JAX
 draws handed in. Adam is checked apart: the same gradients through
 ``torch.optim.Adam`` and ``optax.adam``.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,8 @@ from gif_synthesis_with_discrete_diffusion_tpu_torch.models.discrete_diffusion \
 from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage2
 from gif_synthesis_with_discrete_diffusion_tpu_torch.train.metrics import (
     weighted_losses)
+from gif_synthesis_with_discrete_diffusion_tpu.models.denoiser import (
+    DenoiserTransformer as JaxDenoiser)
 from tests.test_torch_slice import CONFIG, LATENT, T, _denoiser, _flax_weights
 
 B, L, K = 4, 32, 17
@@ -45,10 +49,11 @@ BUF_TOL = 1e-6
 _BUFFERS = ("lt_history", "lt_count", "diffusion_acc", "diffusion_keep")
 
 
-def _jax_step(gen, gparams, ae, avars, video, labels, lt, key):
+def _jax_step(gen, gparams, ae, avars, video, labels, lt, key,
+              den=None, fused=False):
     """value_and_grad of the JAX stage-2 loss and the new buffers."""
     sched = jd3pm.make_schedule(T, K)
-    den = _denoiser()
+    den = den or _denoiser()
     x = jax_preprocess_clip(jnp.asarray(video), CONFIG["vqvae"]["resolution"])
     flat = ae.apply(avars, x, method=JaxVQVAE.encode).reshape(B, -1)
     batch = {"label": jnp.asarray(labels)}
@@ -60,7 +65,7 @@ def _jax_step(gen, gparams, ae, avars, video, labels, lt, key):
         vb, aux, new_lt = jd3pm.train_loss(
             key, sched, lambda x, c, t: den.apply(
                 {"params": tparams}, x, c, t, deterministic=False,
-                fused_attention=False),
+                fused_attention=fused),
             flat, cond, lt, auxiliary_loss_weight=5e-4,
             adaptive_auxiliary_loss=True)
         total, _ = jax_weighted_losses({"l_dummy": 1.0},
@@ -76,8 +81,8 @@ def _jax_step(gen, gparams, ae, avars, video, labels, lt, key):
     return float(total), grads, new_lt, acc, keep
 
 
-def _port_state(gparams, avars, hist, count):
-    state = stage2.build_stage2(CONFIG, "cpu",
+def _port_state(gparams, avars, hist, count, config=CONFIG):
+    state = stage2.build_stage2(config, "cpu",
                                 torch.Generator().manual_seed(0))
     buffers = {"diffusion": {"lt_history": hist, "lt_count": count,
                              "diffusion_acc": np.zeros(T, np.float32),
@@ -239,8 +244,19 @@ def test_make_discrete_diffusion_training_keys():
             d.mask_weight) == (1e-3, False, (1.0, 0.5))
     assert tuple(d.empty_text_embed.shape) == (5, 32)
     assert set(_BUFFERS) <= set(dict(d.named_buffers()))
-    for key, value in (("dtype", "bfloat16"), ("attn_pdrop", 0.1),
-                       ("checkpoint", True)):
+    # bf16 compute builds (the dtype names of the JAX package's rule; any
+    # other name is f32 there too); dropout and checkpointing still raise
+    for name, want in (("bfloat16", torch.bfloat16), ("bf16", torch.bfloat16),
+                       ("float32", torch.float32)):
+        cfg = {"generator": {"diffusion_model": {"transformer": {
+            "dtype": name, "n_layer": 1}}}}
+        with torch.device("meta"):
+            built = make_discrete_diffusion(cfg, 16, LATENT)
+        tr = built.diffusion.transformer
+        assert tr.compute_dtype == want, name
+        assert tr.block0.attn1.query.compute_dtype == want
+        assert tr.to_logits.weight.dtype == torch.float32
+    for key, value in (("attn_pdrop", 0.1), ("checkpoint", True)):
         bad = {"generator": {"diffusion_model": {"transformer": {
             key: value}}}}
         with pytest.raises(NotImplementedError):
@@ -288,3 +304,68 @@ def test_text_conditioning_points_at_its_roadmap_item():
         import build_conditioner
     with pytest.raises(NotImplementedError, match=r"item 12 \(CLIP"):
         build_conditioner({"mode": "text", "dim": 32})
+
+
+# the bf16 step against the JAX bf16 step: the bound of
+# tests/test_torch_denoiser.py (one fifth of the 0.05 bf16-vs-f32 drift that
+# tests/test_denoiser.py allows), on the loss relative to its size and on
+# each gradient relative to the largest gradient (measured: the loss 2.8e-5
+# of its size, the gradients 0.0015 of the largest)
+BF16_TOL = 0.05 / 5
+
+
+def test_bf16_train_step_matches_jax_bf16_loss_and_grads(monkeypatch):
+    """``transformer.dtype: bfloat16`` (the bench's setting) through the
+    whole step: the JAX side with the Pallas attention in interpret mode,
+    whose f32-inside arithmetic the port's bf16 plain versions share."""
+    import functools
+
+    from gif_synthesis_with_discrete_diffusion_tpu.models import (
+        denoiser as jden)
+    from gif_synthesis_with_discrete_diffusion_tpu.ops.attention import (
+        fused_mha as jax_fused_mha)
+
+    monkeypatch.setattr(jden, "fused_mha",
+                        functools.partial(jax_fused_mha, interpret=True))
+    rng = np.random.default_rng(0)
+    labels = np.array([0, 3, 4, 1], np.int32)
+    gen, gparams, ae, avars = _flax_weights(rng, jnp.asarray(labels[:3]))
+    video = rng.integers(0, 256, (B, 2, 8, 8, 3)).astype(np.uint8)
+    hist = np.full((T,), 1e-4, np.float32)
+    hist[[1, 5]] = 50.0
+    count = np.full((T,), 11.0, np.float32)
+    lt = jd3pm.LtState(history=jnp.asarray(hist), count=jnp.asarray(count))
+    key = jax.random.key(3)
+    t_rng, q_rng = jax.random.split(key)
+    t, pt = jd3pm.sample_time(t_rng, lt, B, T)
+    noise = jax.random.uniform(q_rng, (B, K, L), jnp.float32)
+    den = JaxDenoiser(num_embed=16, spatial_size=(8, 4), n_layer=2,
+                      n_embd=64, n_head=16, content_seq_len=32,
+                      condition_dim=32, diffusion_step=T,
+                      dtype=jnp.bfloat16)
+    want_total, grads, _, _, _ = _jax_step(
+        gen, gparams, ae, avars, video, labels, lt, key, den=den,
+        fused=True)
+
+    config = copy.deepcopy(CONFIG)
+    config["generator"]["diffusion_model"]["transformer"]["dtype"] = \
+        "bfloat16"
+    state = _port_state(gparams, avars, hist, count, config)
+    assert state.generator.diffusion.transformer.compute_dtype == \
+        torch.bfloat16
+    values = stage2.train_step(
+        state, {"video": torch.from_numpy(video),
+                "label": torch.from_numpy(labels)},
+        t=torch.from_numpy(np.array(t)), pt=torch.from_numpy(np.array(pt)),
+        noise=torch.from_numpy(np.array(noise)))
+    assert values["total"].dtype == torch.float32
+    assert abs(float(values["total"]) - want_total) <= \
+        BF16_TOL * abs(want_total)
+    params = dict(state.generator.named_parameters())
+    want_grads = flax_to_state_dict(jax.device_get(grads))
+    scale = max(float(w.abs().max()) for w in want_grads.values())
+    for name, want in want_grads.items():
+        got = params[name].grad
+        assert got is not None and got.dtype == torch.float32, name
+        err = float((got - want).abs().max())
+        assert err <= BF16_TOL * scale, (name, err / scale)

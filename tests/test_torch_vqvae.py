@@ -224,3 +224,34 @@ def test_vqvae_decode_in_training_mode_matches_flax_with_gradients():
                                    atol=1e-3 * scale, msg=name)
     with torch.no_grad():
         assert model.decode(torch.from_numpy(codes).long()).grad_fn is None
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_bf16_conv_modules_match_flax(transpose):
+    """The conv modules at ``dtype=bfloat16``: f32 parameters, bf16 input
+    and kernel, a bf16 output and the bias added in bf16, as the flax
+    modules. Both sum in f32 and round once: within one bf16 step of the
+    output's largest magnitude."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        bf16_step)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 4, 8, 8, 5)).astype(np.float32)
+    flax_cls = (jconv.SamePadConvTranspose3d if transpose
+                else jconv.SamePadConv3d)
+    flax_conv = flax_cls(6, 4, (1, 2, 2), dtype=jnp.bfloat16)
+    params = jax.tree.map(
+        lambda a: (0.2 * rng.standard_normal(a.shape)).astype(np.float32),
+        jax.device_get(flax_conv.init(jax.random.key(0), jnp.asarray(x))))
+    want = np.asarray(flax_conv.apply(params, jnp.asarray(x)))
+    kernel = params["params"]["kernel"]
+    cls, weight = ((tconv.SamePadConvTranspose3d, conv_transpose3d_weight)
+                   if transpose else (tconv.SamePadConv3d, conv3d_weight))
+    conv = cls(5, 6, 4, (1, 2, 2), dtype=torch.bfloat16)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(weight(kernel)))
+        conv.bias.copy_(torch.from_numpy(params["params"]["bias"]))
+    got = conv(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16 and conv.weight.dtype == torch.float32
+    want = want.astype(np.float32)
+    assert float(np.abs(got.float().detach().numpy() - want).max()) <= \
+        bf16_step(float(np.abs(want).max()))
