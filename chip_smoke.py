@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
     python3 chip_smoke.py --profile   # and a torch.profiler table of a
-                                      # training step of each stage
+                                      # training step of each stage and
+                                      # of the text step
     python3 chip_smoke.py --parent ROOT   # and K1, K6, P1, P2 and P3 timed
                                           # in turns with the checkout at
                                           # ROOT
@@ -85,20 +86,34 @@ Phases:
      synchronisation forbidden, and where a step's time goes (CUDA events);
  14. the log-onehot samplers (reference, with filter_ratio, fast, token
      budget) at a small size on the card against the CPU in argmax mode;
-     then each row of the package's bench entry as a child process
-     (``python -m ..._torch.bench``: sampling honest / msrvtt / half,
-     vqvae, train_step, train_step128, train_step2), its JSON line parsed
-     and printed, and the two rows that wait (``train_step2 --config
-     msrvtt``, ``fvd_pipeline``) giving their error line and exit 1.
+     then each of the nine rows of the package's bench entry as a child
+     process (``python -m ..._torch.bench``: sampling honest / msrvtt /
+     half, vqvae, train_step, train_step128, train_step2 honest and msrvtt
+     (text conditioning), fvd_pipeline), its JSON line parsed and printed;
+ 15. text conditioning: the CLIP text tower (512 wide, 12 layers) on the
+     card against the CPU; ``HONEST`` with text conditioning sampled at
+     B=4 in argmax mode on the route ``auto`` takes (K3 a step, counted),
+     three of its steps held against the plain whole step; then
+     ``TRAIN_STEP2_MSRVTT`` (the tower inside each step, 2304 tokens, bf16
+     denoiser; 2 warm-up, 3 timed) with the launches of K2, K5 and K6 per
+     step (``--profile``: by part, the tower apart, and by kernel);
+ 16. FVD: the I3D and ResNet-50 on the card against the CPU at a small
+     input and at one 224 px batch of 2, the Fréchet distance of both
+     sides' I3D embeddings, then the bench's FVD pipeline (honest) in this
+     process with its K3 launches counted, and one more pass timed by part
+     (sampling, decode, I3D, Fréchet).
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
-and K5 in bf16 from the timed bf16 ``TRAIN_STEP2`` steps, K6 from the timed
-steps of both stages, K3 and K4 from the ``megakernel`` serving runs, P1
-from the build-cache probe's children, P2 and P3 from the depth / packing
-probe; ``launches_by_path`` splits the count by the run it came from), and
-the last line ``{"ok": true, "device": {...}}``. Any failure raises: there
-is no CPU run.
+and K5 in bf16 from the timed bf16 ``TRAIN_STEP2`` and
+``TRAIN_STEP2_MSRVTT`` steps, K6 from the timed steps of both stages and
+of the text step, K3 from the ``megakernel`` serving run, the text-
+conditioned sampling and the FVD pipeline, K4 from the ``megakernel``
+serving run at 2304 tokens, P1 from the build-cache probe's children, P2
+and P3 from the depth / packing probe; ``launches_by_path`` splits the
+count by the run it came from, each run's counts set to 0 just before it
+and read just after), and the last line ``{"ok": true, "device": {...}}``.
+Any failure raises: there is no CPU run.
 """
 from __future__ import annotations
 
@@ -1088,24 +1103,33 @@ def phase_train(torch, smi: str, profile: bool) -> dict:
 
 
 def _timed_train2(torch, smi: str, config: dict, b: int, steps: int,
-                  warmup: int):
+                  warmup: int, phase: str = "phase 7",
+                  name: str = "TRAIN_STEP2"):
     """``steps`` stage-2 steps of ``config`` at batch ``b`` on a fixed
-    synthetic batch, the first ``warmup`` untimed, with the launches of K2,
-    K5 and K6 read per step (38, 38, 1 at 19 layers); the frozen VQ-VAE
-    must come out bitwise unchanged and the Lt counts add up. Returns
-    (state, batch, generator, launches of the timed steps)."""
+    synthetic batch (text captions tokenized once, before the steps), the
+    first ``warmup`` untimed, with the launches of K2, K5 and K6 read per
+    step (38, 38, 1 at 19 layers); the frozen VQ-VAE must come out bitwise
+    unchanged and the Lt counts add up. Returns (state, batch, generator,
+    launches of the timed steps)."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
-        build_stage2, synthetic_batch, train_step)
+        build_stage2, on_device, prepare_batch, synthetic_batch, train_step)
     tcfg = config["generator"]["diffusion_model"]["transformer"]
-    label = f"TRAIN_STEP2 ({tcfg['dtype']} denoiser)"
+    label = f"{name} ({tcfg['dtype']} denoiser)"
     t0 = time.perf_counter()
     state = build_stage2(config, "cuda", torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
-    print(f"phase 7: built {label} in {time.perf_counter() - t0:.2f} s; "
-          f"{sum(p.numel() for p in state.generator.parameters())} trained "
-          f"parameters")
-    batch = synthetic_batch(config, b, torch.Generator().manual_seed(1))
-    batch = {k: v.to("cuda") for k, v in batch.items()}
+    trained = sum(p.numel() for p in state.generator.parameters()
+                  if p.requires_grad)
+    frozen_n = sum(p.numel() for p in state.generator.parameters()
+                   if not p.requires_grad)
+    print(f"{phase}: built {label} in {time.perf_counter() - t0:.2f} s; "
+          f"{trained} trained parameters, {frozen_n} frozen in the "
+          f"generator")
+    host = prepare_batch(synthetic_batch(config, b,
+                                         torch.Generator().manual_seed(1)),
+                         state.tokenizer, state.learnable_cf)
+    batch = on_device({k: v for k, v in host.items() if k != "text"},
+                      torch.device("cuda"))
     frozen = {k: v.clone() for k, v in state.vqvae.state_dict().items()}
     g = torch.Generator(device="cuda").manual_seed(2)
     expect = (2 * tcfg["n_layer"], 2 * tcfg["n_layer"], 1)
@@ -1123,7 +1147,7 @@ def _timed_train2(torch, smi: str, config: dict, b: int, steps: int,
             raise AssertionError(f"step {i}: launches K2, K5, K6 {counts}, "
                                  f"expected {expect}")
         loss = float(values["total"])
-        print(f"phase 7: {label} B={b} step {i} "
+        print(f"{phase}: {label} B={b} step {i} "
               f"({'warm-up' if i < warmup else 'timed'}): {dt:.4f} s, loss "
               f"{loss:.6f}, acc {float(values['diffusion_acc']):.4f}, "
               f"launches K2 {counts[0]}, K5 {counts[1]}, K6 {counts[2]}")
@@ -1133,7 +1157,7 @@ def _timed_train2(torch, smi: str, config: dict, b: int, steps: int,
             seconds.append(dt)
             total = tuple(a + c for a, c in zip(total, counts))
     per_step = sum(seconds) / len(seconds)
-    print(f"phase 7: {label} B={b}: {per_step:.4f} s/step = "
+    print(f"{phase}: {label} B={b}: {per_step:.4f} s/step = "
           f"{1 / per_step:.3f} steps/s over {len(seconds)} timed steps "
           f"(min {min(seconds):.4f}, max {max(seconds):.4f}); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
@@ -1142,48 +1166,54 @@ def _timed_train2(torch, smi: str, config: dict, b: int, steps: int,
         if not torch.equal(v, frozen[k]):
             raise AssertionError(f"the frozen VQ-VAE changed: {k}")
     drawn = float(state.generator.diffusion.lt_count.sum())
-    print(f"phase 7: frozen VQ-VAE bitwise unchanged; Lt count sums to "
+    print(f"{phase}: frozen VQ-VAE bitwise unchanged; Lt count sums to "
           f"{drawn:.0f} = {b} x {state.step} steps")
     if drawn != b * state.step:
         raise AssertionError("the Lt count does not add up to the steps")
     return state, batch, g, dict(zip(("K2", "K5", "K6"), total))
 
 
-def _profile_step(torch, state, batch, generator) -> None:
+def _profile_step(torch, state, batch, generator,
+                  phase: str = "phase 7") -> None:
     """Where a training step's time goes. First CUDA events between the
     parts of ``train_step``'s body (unprofiled, 3 steps): the device time of
-    the frozen encode, the forward with the loss, the backward and Adam.
-    Then torch.profiler over 2 steps: device time by kernel, and the
-    device's busy share of the (profiled) wall time."""
+    the frozen encode, the conditioner (the CLIP tower in text mode), the
+    D3PM forward with the loss, the backward and Adam. Then torch.profiler
+    over 2 steps: device time by kernel, and the device's busy share of the
+    (profiled) wall time."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage2
     from gif_synthesis_with_discrete_diffusion_tpu_torch.train.metrics import (
         weighted_losses)
 
-    parts = ("encode", "forward + loss", "backward", "adam")
+    parts = ("encode", "conditioner", "forward + loss", "backward", "adam")
     steps = 3
     part_ms = dict.fromkeys(parts, 0.0)
+    gen = state.generator
     for _ in range(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         flat = stage2.encode_tokens(state, batch["video"])
         ev[1].record()
         state.optimizer.zero_grad(set_to_none=True)
-        out = state.generator(batch, flat, generator=generator, train=True)
-        total = weighted_losses(state.loss_dict, {"losses": out["loss"]})[0]
+        cond, _ = gen.conditioner(batch, flat.shape[0], with_cf=False)
         ev[2].record()
-        total.backward()
+        out = gen.diffusion(flat, cond, generator=generator, train=True,
+                            empty_mask=batch.get("empty_text_mask"))
+        total = weighted_losses(state.loss_dict, {"losses": out["loss"]})[0]
         ev[3].record()
-        state.optimizer.step()
+        total.backward()
         ev[4].record()
+        state.optimizer.step()
+        ev[5].record()
         torch.cuda.synchronize()
         for i, name in enumerate(parts):
             part_ms[name] += ev[i].elapsed_time(ev[i + 1]) / steps
-    print("phase 7 profile: device ms/step by part (CUDA events, mean of "
+    print(f"{phase} profile: device ms/step by part (CUDA events, mean of "
           f"{steps} steps): " + ", ".join(
               f"{n} {t:.2f}" for n, t in part_ms.items())
           + f"; sum {sum(part_ms.values()):.2f}")
 
-    _profile_kernels(torch, "phase 7",
+    _profile_kernels(torch, phase,
                      lambda: stage2.train_step(state, batch, generator))
 
 
@@ -2189,13 +2219,307 @@ def _timed_train1(torch, smi: str, label: str, config: dict, b: int,
     return k6
 
 
-# the bench rows of phase 14, in the order of the JAX bench's table, and the
-# two that wait for a part of the port (each must give its error line)
+# the text tower and the FVD networks on the card against the same modules
+# on the CPU (f32, TF32 off: sums in other orders only), relative to the
+# output's max-abs; the Fréchet distance of the two sides' embeddings,
+# relative (a float64 SVD of near-singular covariances on the host)
+TEXT_TOWER_TOL = 1e-4
+FVD_NET_TOL = 1e-4
+FVD_TOL = 1e-3
+TEXT_CAPTIONS = ("a man is singing on stage", "BreastStroke", "",
+                 "a dog doesn't want to fetch the ball", "BaseballPitch",
+                 "cartoon characters are fighting, it's intense!",
+                 "someone's driving a car at 100 mph", "archery")
+
+
+def _text_tokens(b: int):
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.clip_text \
+        import HashTokenizer
+    return HashTokenizer()([TEXT_CAPTIONS[i % len(TEXT_CAPTIONS)]
+                            for i in range(b)])
+
+
+def _on_card_and_cpu(torch, build, run, seed: int):
+    """``run(module, device)`` of the module ``build()`` makes and
+    initialises from ``seed`` on the CPU, first on the CPU, then on the card
+    (the same weights): (card output on the CPU, CPU output, relative
+    max-abs error)."""
+    module = build(torch.Generator().manual_seed(seed)).eval()
+    with torch.no_grad():
+        want = run(module, "cpu")
+        got = run(module.to("cuda"), "cuda").cpu()
+    return got, want, float((got - want).abs().max() / want.abs().max())
+
+
+def _clip_tower(generator):
+    import torch
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.clip_text \
+        import ClipTextModel, init_clip_text_
+    with torch.device("meta"):
+        tower = ClipTextModel()
+    tower = tower.to_empty(device="cpu")
+    init_clip_text_(tower, generator)
+    return tower
+
+
+def _i3d(generator):
+    import torch
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.i3d import (
+        InceptionI3d, init_i3d_)
+    with torch.device("meta"):
+        net = InceptionI3d(num_classes=400)
+    net = net.to_empty(device="cpu")
+    init_i3d_(net, generator)
+    return net
+
+
+def _resnet50(generator):
+    """ResNet-50 with flax's init laws for its kernels and seeded BatchNorm
+    statistics (the JAX package's module has no init law of its own)."""
+    import torch
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.resnet import (
+        ResNet50)
+    net = ResNet50()
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.ndim > 1:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+            else:
+                p.normal_(1.0 if name.endswith("weight") and "bn" in name
+                          else 0.0, 0.1, generator=generator)
+        for name, buf in net.named_buffers():
+            buf.normal_(0.0, 0.1, generator=generator)
+            if name.endswith("running_var"):
+                buf.abs_().add_(0.5)
+    return net
+
+
+def _check_tower(torch, phase: str, b: int) -> tuple[float, float]:
+    """The full CLIP text tower (width 512, 12 layers) at batch ``b`` on the
+    card against the CPU; returns (relative error, card ms per call)."""
+    tokens = torch.from_numpy(_text_tokens(b)).long()
+    got, want, err = _on_card_and_cpu(
+        torch, _clip_tower, lambda m, dev: m(tokens.to(dev)), 21)
+    print(f"{phase}: CLIP text tower (512 wide, 8 heads, 12 layers) B={b} "
+          f"on the card vs the CPU: pooled features {tuple(got.shape)} "
+          f"within {err:.3e} of their max-abs {float(want.abs().max()):.3e} "
+          f"(tol {TEXT_TOWER_TOL})")
+    if not err <= TEXT_TOWER_TOL:
+        raise AssertionError("the CLIP tower on the card disagrees with the "
+                             "CPU")
+    tower = _clip_tower(torch.Generator().manual_seed(21)).to("cuda")
+    tok = tokens.to("cuda")
+    with torch.no_grad():
+        ms = _time_ms(lambda: tower(tok), 10)
+    return err, ms
+
+
+def phase_text(torch, smi: str, profile: bool) -> dict:
+    """Text conditioning: the CLIP tower on the card against the CPU; text-
+    conditioned sampling at the honest width on the route 'auto' takes (K3),
+    each of three of its steps held against the plain whole step; then
+    ``TRAIN_STEP2_MSRVTT`` steps (the tower inside each, 2304 tokens, bf16
+    denoiser) with the launches of K2, K5 and K6 read per step."""
+    import copy as _copy
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST, build_models)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.\
+        discrete_diffusion import resolve_sampler
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        TRAIN_STEP2_BATCH, TRAIN_STEP2_MSRVTT)
+
+    _, tower_ms = _check_tower(torch, "phase 15", 16)
+    print(f"phase 15: CLIP text tower B=16 forward on the card "
+          f"{tower_ms:.4f} ms; {smi}")
+
+    config = _copy.deepcopy(HONEST)
+    config["generator"]["textencoder"] = {"mode": "text", "dim": 512}
+    t0 = time.perf_counter()
+    models = build_models(config, "cuda", torch.Generator().manual_seed(5))
+    gen, b = models.generator, 4
+    d3pm, tr = gen.diffusion, gen.diffusion.transformer
+    batch = {"text_tokens": _text_tokens(b)}
+    cond, cf = gen.conditioner_embeddings(batch, b)
+    L = d3pm.content_seq_len
+    route = resolve_sampler("auto", torch.device("cuda"), L, tr, True)
+    print(f"phase 15: built HONEST with text conditioning in "
+          f"{time.perf_counter() - t0:.2f} s; the CF branch is the tower's "
+          f"embedding of the empty caption (max-abs "
+          f"{float(cf.abs().max()):.3e}); 'auto' takes the {route} route")
+    if route != "megakernel":
+        raise AssertionError("text-conditioned sampling should take the "
+                             "whole-step kernels")
+    tab, kw = mk.prepare_sampling(d3pm.schedule(), tr, cond, cf, b, L,
+                                  guidance_scale=d3pm.guidance_scale)
+    pack_cfg = kw.pop("pack_cfg")
+    T = d3pm.diffusion_step
+    tokens = torch.full((b, L), d3pm.num_classes - 1, dtype=torch.int64,
+                        device="cuda")
+    for i in range(T):
+        args = (tab["packed"], tokens, tab["adaln_all"][i], tab["kc"],
+                tab["vc"], tab["pos"], tab["rows"][T - 1 - i], 11 + i)
+        if i in (0, T // 2, T - 1):
+            tokens, _ = _check_megakernel(
+                torch, "phase 15", f"K3 text-conditioned step t={T - 1 - i} "
+                f"(B={b}, L={L}, 19 layers)", args, kw, pack_cfg)
+        else:
+            tokens = mk.megakernel_step(*args, sample=False,
+                                        pack_cfg=pack_cfg,
+                                        scratch=tab["scratch"], **kw)
+    _reset_megakernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampled = gen.sample(batch, b, generator=torch.Generator().manual_seed(3),
+                         sample=False, mode="auto")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k3, k4 = _megakernel_counts()
+    print(f"phase 15: DiscreteDiffusionModel.sample(mode='auto') with text "
+          f"conditioning, B={b}, argmax: {dt:.3f} s, launches K3 {k3}, K4 "
+          f"{k4}; MASK left {int((sampled == d3pm.num_classes - 1).sum())}; "
+          f"the manual loop's tokens equal {torch.equal(sampled, tokens)}")
+    if (k3, k4) != (T, 0):
+        raise AssertionError("text-conditioned sampling did not launch K3 "
+                             "once a step")
+    if bool((sampled == d3pm.num_classes - 1).any()) or \
+            int(sampled.min()) < 0:
+        raise AssertionError("text-conditioned sampling left MASK tokens")
+    del models, gen, tab, tokens, sampled
+    torch.cuda.empty_cache()
+
+    state, tbatch, g, launches = _timed_train2(
+        torch, smi, TRAIN_STEP2_MSRVTT, TRAIN_STEP2_BATCH, 5, 2,
+        phase="phase 15", name="TRAIN_STEP2_MSRVTT (text, 2304 tokens)")
+    if profile:
+        _profile_step(torch, state, tbatch, g, phase="phase 15")
+    return {"K2": launches["K2"], "K5": launches["K5"], "K6": launches["K6"],
+            "K3": k3}
+
+
+def phase_fvd(torch, smi: str) -> dict:
+    """FVD: the I3D and ResNet-50 on the card against the CPU at a small
+    input and at one 224 px batch of 2, the Fréchet distance of both sides'
+    I3D embeddings, then the bench's FVD pipeline in this process (honest:
+    100 K3 launches a pass, a warm-up pass and a timed one) with its K3
+    launches counted, and one more pass timed by part."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch import bench
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.eval.evaluator \
+        import frechet_distance
+
+    g = torch.Generator().manual_seed(31)
+    for label, shape in (("small clips", (16, 16, 32, 32, 3)),
+                         ("224 px", (2, 16, 224, 224, 3))):
+        x = torch.randn(shape, generator=g)
+        got, want, err = _on_card_and_cpu(
+            torch, _i3d, lambda m, dev: m(x.to(dev)), 32)
+        print(f"phase 16: I3D {label} {shape} on the card vs the CPU: "
+              f"logits within {err:.3e} of their max-abs (tol "
+              f"{FVD_NET_TOL})")
+        if not err <= FVD_NET_TOL:
+            raise AssertionError("the I3D on the card disagrees with the "
+                                 "CPU")
+        if label == "small clips":
+            n = shape[0] // 2
+            fvd_card = frechet_distance(got[:n].numpy(), got[n:].numpy())
+            fvd_cpu = frechet_distance(want[:n].numpy(), want[n:].numpy())
+            ferr = abs(fvd_card - fvd_cpu) / abs(fvd_cpu)
+            print(f"phase 16: Fréchet distance of {n} vs {n} clips' I3D "
+                  f"logits: card {fvd_card:.6f}, CPU {fvd_cpu:.6f} "
+                  f"(relative {ferr:.3e}, tol {FVD_TOL})")
+            if not ferr <= FVD_TOL:
+                raise AssertionError("the Fréchet distance of the card's "
+                                     "embeddings disagrees with the CPU's")
+    for label, shape in (("64 px", (4, 64, 64, 3)),
+                         ("224 px", (2, 224, 224, 3))):
+        x = torch.randn(shape, generator=g)
+        for features_only in (False, True):
+            _, _, err = _on_card_and_cpu(
+                torch, _resnet50,
+                lambda m, dev: m(x.to(dev), features_only=features_only), 33)
+            what = "features" if features_only else "logits"
+            print(f"phase 16: ResNet-50 {label} {shape} on the card vs the "
+                  f"CPU: {what} within {err:.3e} of their max-abs (tol "
+                  f"{FVD_NET_TOL})")
+            if not err <= FVD_NET_TOL:
+                raise AssertionError("the ResNet-50 on the card disagrees "
+                                     "with the CPU")
+    torch.cuda.empty_cache()
+
+    _reset_megakernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    row = bench.bench_fvd_pipeline("cuda", bench.CONFIGS["honest"])
+    k3, k4 = _megakernel_counts()
+    steps = 100
+    print(f"phase 16: FVD pipeline (honest, B=32: sample on the megakernel "
+          f"route, decode, I3D at 224 px, Fréchet) in this process: "
+          f"{json.dumps(row)}; launches K3 {k3}, K4 {k4} (two passes); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; {smi}")
+    if (k3, k4) != (2 * steps, 0) or not math.isfinite(row["fvd"]):
+        raise AssertionError("the FVD path did not run K3 once a step or "
+                             "gave no finite FVD")
+    _fvd_pass_split(torch, smi)
+    return {"K3": k3}
+
+
+def _fvd_pass_split(torch, smi: str) -> None:
+    """Where one pass of the FVD pipeline's time goes (honest, B=32, after
+    the bench's passes have warmed cuDNN up; host clock, each part ending
+    in ``synchronize()``): sampling (K3), the decode, the I3D embedding of
+    both sets (``prepare_fvd_clip`` included), the Fréchet distance on the
+    host."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch import bench
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.eval.evaluator \
+        import FVDEvaluator, frechet_distance
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        build_models)
+
+    cfg = bench.CONFIGS["honest"]
+    models = build_models(cfg.models, "cuda",
+                          torch.Generator().manual_seed(0))
+    d3pm, b = models.generator.diffusion, cfg.batch
+    cond = torch.zeros((b, 1, 512), device="cuda")
+    gt = (torch.randn((b, 16, 64, 64, 3),
+                      generator=torch.Generator().manual_seed(7))
+          * 0.3).to("cuda")
+    ev = FVDEvaluator(generator=torch.Generator().manual_seed(3),
+                      device="cuda")
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    with torch.no_grad():
+        tokens = d3pm.sample(cond, torch.zeros_like(cond), b,
+                             generator=torch.Generator().manual_seed(11),
+                             mode="megakernel")
+        mark()
+        video = models.vqvae.decode(tokens.reshape(b, *models.latent_shape))
+        mark()
+        want, got = ev.embed(gt), ev.embed(video)
+        mark()
+    fvd = frechet_distance(got.cpu().numpy(), want.cpu().numpy())
+    marks.append(time.perf_counter())
+    parts = dict(zip(("sampling (K3)", "decode", "I3D, both sets",
+                      "Fréchet on the host"),
+                     (t1 - t0 for t0, t1 in zip(marks, marks[1:]))))
+    total = marks[-1] - marks[0]
+    print(f"phase 16: one FVD pass (honest, B=32) by part: " + ", ".join(
+        f"{n} {t:.3f} s ({100 * t / total:.1f} %)" for n, t in parts.items())
+        + f"; {total:.3f} s = {b / total:.3f} clips/s; FVD {fvd:.6g}; {smi}")
+
+
+# the bench rows of phase 14, in the order of the JAX bench's table: all
+# nine of its rows
 BENCH_ROWS = (("sampling", "honest"), ("sampling", "msrvtt"),
               ("sampling", "half"), ("vqvae", "honest"),
               ("train_step", "honest"), ("train_step128", "honest"),
-              ("train_step2", "honest"))
-BENCH_WAITING = (("train_step2", "msrvtt"), ("fvd_pipeline", "honest"))
+              ("train_step2", "honest"), ("train_step2", "msrvtt"),
+              ("fvd_pipeline", "honest"))
 BENCH_ROW_TIMEOUT = 300
 
 
@@ -2247,10 +2571,9 @@ def phase_samplers(torch) -> None:
 
 def phase_bench(torch) -> dict:
     """Each bench row as a child process of the package's bench entry, its
-    one JSON line parsed and printed; the two rows that wait must print
-    their error line and exit 1."""
+    one JSON line parsed and printed."""
     rows = {}
-    for metric, config in BENCH_ROWS + BENCH_WAITING:
+    for metric, config in BENCH_ROWS:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", f"{PKG}.bench", "--metric", metric,
@@ -2261,13 +2584,6 @@ def phase_bench(torch) -> dict:
         print(f"phase 14: bench --metric {metric} --config {config} (exit "
               f"{proc.returncode}, {time.perf_counter() - t0:.1f} s): "
               + json.dumps(row))
-        waiting = (metric, config) in BENCH_WAITING
-        if waiting:
-            if proc.returncode != 1 or row.get("metric") != "error" or \
-                    "ROADMAP" not in row.get("error", ""):
-                raise AssertionError(f"{metric} --config {config} should "
-                                     f"print its error line and exit 1")
-            continue
         if proc.returncode != 0 or len(lines) != 1:
             print(proc.stderr[-4000:], file=sys.stderr)
             raise AssertionError(f"bench row {metric} --config {config} "
@@ -2275,12 +2591,16 @@ def phase_bench(torch) -> dict:
         need = {"value", "spread", "device", "vs_baseline", "metric"}
         if metric == "sampling":
             need |= {"ms_per_step", "bound_ms", "mfu"}
+        if metric == "fvd_pipeline":
+            need |= {"fvd", "route"}
         if not need <= set(row) or not row["value"] > 0:
             raise AssertionError(f"bench row {metric} --config {config} "
                                  f"lacks {need - set(row)}")
         if metric == "sampling" and not (
                 row["mfu"] <= 1.0 and row["bound_ms"] <= row["ms_per_step"]):
             raise AssertionError("a share of the bound above 100 %")
+        if metric == "fvd_pipeline" and not math.isfinite(row["fvd"]):
+            raise AssertionError("the FVD pipeline gave no finite FVD")
         rows[(metric, config)] = row
     return rows
 
@@ -2329,6 +2649,9 @@ def main() -> int:
     t_phase14 = time.perf_counter()
     phase_samplers(torch)
     phase_bench(torch)
+    t_phase15 = time.perf_counter()
+    text = phase_text(torch, smi, profile)
+    fvd = phase_fvd(torch, smi)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -2336,6 +2659,11 @@ def main() -> int:
     training = "TRAIN_STEP2 (bf16 denoiser), B=16, timed steps"
     training_f32 = "TRAIN_STEP2 with an f32 denoiser, B=16, timed steps"
     training1 = "stage-1 training (TRAIN_STEP1, TRAIN_STEP128), B=64, timed"
+    training_text = ("TRAIN_STEP2_MSRVTT (text conditioning, 2304 tokens, "
+                     "bf16 denoiser), B=16, timed steps")
+    serve_text = "text-conditioned sampling, auto route, B=4, 100 steps"
+    fvd_path = ("FVD pipeline (honest, B=32), megakernel route, warm-up and "
+                "timed pass")
     cache_probe = "build-cache probe, both child processes"
     depth_probe = "depth / packing probe"
     kernels = [
@@ -2355,14 +2683,16 @@ def main() -> int:
         dict(name="fused_mha_fwd_bf16", route="cuda",
              source=f"{PKG}/csrc/fused_mha_fwd.cu",
              replaces=tpu + "ops/attention.py:70",
-             launches=train["bf16"]["K2"],
-             launches_by_path={training: train["bf16"]["K2"]},
+             launches=train["bf16"]["K2"] + text["K2"],
+             launches_by_path={training: train["bf16"]["K2"],
+                               training_text: text["K2"]},
              **k2["bfloat16"]),
         dict(name="megakernel_step_packed", route="cuda",
              source=f"{PKG}/csrc/megakernel_step.cu",
              replaces=tpu + "ops/megakernel.py:683",
-             launches=route["K3"],
-             launches_by_path={serve_mk + ", B=32, L=1024": route["K3"]},
+             launches=route["K3"] + text["K3"] + fvd["K3"],
+             launches_by_path={serve_mk + ", B=32, L=1024": route["K3"],
+                               serve_text: text["K3"], fvd_path: fvd["K3"]},
              **k3),
         dict(name="megakernel_step_branch", route="cuda",
              source=f"{PKG}/csrc/megakernel_step.cu",
@@ -2379,17 +2709,19 @@ def main() -> int:
         dict(name="fused_mha_bwd_bf16", route="cuda",
              source=f"{PKG}/csrc/fused_mha_bwd.cu",
              replaces=tpu + "ops/attention.py:114",
-             launches=train["bf16"]["K5"],
-             launches_by_path={training: train["bf16"]["K5"]},
+             launches=train["bf16"]["K5"] + text["K5"],
+             launches_by_path={training: train["bf16"]["K5"],
+                               training_text: text["K5"]},
              **k5["bfloat16"]),
         dict(name="nearest_code_stats", route="cuda",
              source=f"{PKG}/csrc/nearest_code_stats.cu",
              replaces=tpu + "ops/codebook_kernel.py:56",
              launches=(train["bf16"]["K6"] + train["f32"]["K6"]
-                       + stage1_run["K6"]),
+                       + stage1_run["K6"] + text["K6"]),
              launches_by_path={training: train["bf16"]["K6"],
                                training_f32: train["f32"]["K6"],
-                               training1: stage1_run["K6"]}, **k6),
+                               training1: stage1_run["K6"],
+                               training_text: text["K6"]}, **k6),
         dict(name="probe_matmul", route="cuda",
              source=f"{PKG}/csrc/probe_kernels.cu",
              replaces="scripts/compile_cache_probe.py:59",
@@ -2411,9 +2743,9 @@ def main() -> int:
             raise AssertionError(f"{kernel['name']} was not launched on its "
                                  f"path")
     print(f"chip_smoke: wall {t_end - t_start:.1f} s in all; phases 1-13 "
-          f"(the phases before this slice's phase 14, with its bf16 steps) "
-          f"{t_phase14 - t_start:.1f} s, phase 14 (the samplers and the "
-          f"bench rows) {t_end - t_phase14:.1f} s")
+          f"{t_phase14 - t_start:.1f} s, phase 14 (the samplers and the nine "
+          f"bench rows) {t_phase15 - t_phase14:.1f} s, phases 15-16 (text "
+          f"conditioning, FVD) {t_end - t_phase15:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,24 +17,31 @@ problem size of the sampling, vqvae and train_step2 rows, as there):
 * ``train_step``: ``TRAIN_STEP1`` (64 px, f32, B=64); ``train_step128``:
   ``TRAIN_STEP128`` (128 px, bf16, B=64);
 * ``train_step2``: ``TRAIN_STEP2`` (bf16 denoiser, label conditioning,
-  B=16);
-* ``train_step2 --config msrvtt`` (text conditioning) and ``fvd_pipeline``
-  print the error line with the ROADMAP item they wait for, and exit 1.
+  B=16); ``--config msrvtt``: ``TRAIN_STEP2_MSRVTT`` (text conditioning:
+  the frozen CLIP text tower's forward inside each step, 2304 tokens,
+  B=16; the captions tokenized once, outside the timed steps);
+* ``fvd_pipeline``: 100-step sampling on the ``megakernel`` route (K3 at
+  honest, K4 at msrvtt) from a zero condition, the VQ-VAE decode, the I3D
+  at 224 px (random init, seeded) on the generated clips and on seeded
+  ``normal * 0.3`` ground truth, and the Fréchet distance on the host; one
+  warm-up pass, one timed pass, its ``fvd`` in the row.
 
-Each row warms up, then times its repeats (sampling 5, the others 10) on
-the host clock, each ending in ``torch.cuda.synchronize()``. ``value`` is
-the rate at the median time and ``spread`` the rates at the slowest and
-the fastest repeat. ``vs_baseline`` divides by the measured torch-CPU
-artifacts at the root of the repo (``BASELINE_MEASURED*.json``, matched by
-config as the JAX bench matches them; 0.0 where none matches). ``device``
-is the card's name and power limit. Without a card the CLI prints the error
-line and exits 1: there is no CPU run. The row functions take a ``device``
-and a configuration, so the tests run them on the CPU at a toy size.
+Each row warms up, then times its repeats (sampling 5, fvd_pipeline 1, the
+others 10) on the host clock, each ending in ``torch.cuda.synchronize()``.
+``value`` is the rate at the median time and ``spread`` the rates at the
+slowest and the fastest repeat. ``vs_baseline`` divides by the measured
+torch-CPU artifacts at the root of the repo (``BASELINE_MEASURED*.json``,
+matched by config as the JAX bench matches them; 0.0 where none matches).
+``device`` is the card's name and power limit. Without a card the CLI
+prints the error line and exits 1: there is no CPU run. The row functions
+take a ``device`` and a configuration, so the tests run them on the CPU at
+a toy size.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import sys
 import time
@@ -44,6 +51,7 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
+from .eval.evaluator import FVDEvaluator
 from .generate import HONEST, MSRVTT_GRID, build_models
 from .models.discrete_diffusion import resolve_sampler
 from .models.vqvae import init_vqvae_
@@ -51,7 +59,8 @@ from .roofline import PEAK_BF16, bound, card, megakernel_work
 from .train import stage1, stage2
 
 __all__ = ["BenchConfig", "CONFIGS", "measured_lookup", "bench_sampling",
-           "bench_vqvae", "bench_train_step", "bench_train_step2", "main"]
+           "bench_vqvae", "bench_train_step", "bench_train_step2",
+           "bench_fvd_pipeline", "run_row", "main"]
 
 ARTIFACTS = Path(__file__).resolve().parent.parent
 SAMPLING_REPEATS = 5
@@ -84,11 +93,6 @@ _HALF = {   # bench.py's 'half' row: 2048 codes, downsample (2, 8, 8)
 CONFIGS = {"honest": BenchConfig("honest", HONEST, 32),
            "half": BenchConfig("half", _HALF, 32),
            "msrvtt": BenchConfig("msrvtt", MSRVTT_GRID, 8)}
-
-# the rows that wait for a part of the port: the ROADMAP item each names
-WAITING = {("train_step2", "msrvtt"): "text conditioning (CLIP), ROADMAP "
-                                      "queue 1 item [12]",
-           ("fvd_pipeline", None): "I3D and FVD, ROADMAP queue 1 item [13]"}
 
 
 def measured_lookup(kind: str, match: Mapping[str, Any],
@@ -271,14 +275,20 @@ def bench_train_step2(device: torch.device | str,
                       config: Mapping[str, Any] = stage2.TRAIN_STEP2,
                       batch: int = stage2.TRAIN_STEP2_BATCH,
                       repeats: int = REPEATS, warmup: int = 2) -> dict:
-    """Stage-2 training steps per second at ``config`` (label
-    conditioning): the frozen encode, the D3PM loss over the denoiser (K2
-    forward, K5 backward on the card), the backward and Adam."""
+    """Stage-2 training steps per second at ``config``: the frozen encode,
+    the conditioner (in text mode the frozen CLIP tower's forward), the D3PM
+    loss over the denoiser (K2 forward, K5 backward on the card), the
+    backward and Adam. Text captions are tokenized once, before the timed
+    steps, and only their ids go to the device (the JAX bench drops
+    ``text`` from its device batch too)."""
     device = torch.device(device)
     state = stage2.build_stage2(config, device,
                                 torch.Generator().manual_seed(0))
-    batch_ = {k: v.to(device) for k, v in stage2.synthetic_batch(
-        config, batch, torch.Generator().manual_seed(1)).items()}
+    host = stage2.prepare_batch(stage2.synthetic_batch(
+        config, batch, torch.Generator().manual_seed(1)), state.tokenizer,
+        state.learnable_cf)
+    batch_ = stage2.on_device({k: v for k, v in host.items() if k != "text"},
+                              device)
     g = torch.Generator(device=device).manual_seed(2)
 
     def run():
@@ -287,28 +297,68 @@ def bench_train_step2(device: torch.device | str,
     seconds = _time(run, device, repeats, warmup)
     d3pm = state.generator.diffusion
     dtype = str(d3pm.transformer.compute_dtype).removeprefix("torch.")
-    row = _row(f"stage-2 D3PM train steps/sec (batch {batch}, label cond, "
+    mode = "text" if state.tokenizer is not None else "label"
+    row = _row(f"stage-2 D3PM train steps/sec (batch {batch}, {mode} cond, "
                f"{d3pm.content_seq_len} tok, K={d3pm.num_classes}, {dtype} "
                f"compute, fused-VJP attention)", 1.0, seconds,
                "steps/sec/chip", batch, device)
     row.update(_vs_measured("train_step2", row["value"], {
         "batch": batch, "tokens": d3pm.content_seq_len,
-        "codes": d3pm.num_embed, "mode": "label"}))
+        "codes": d3pm.num_embed, "mode": mode}))
+    return row
+
+
+def bench_fvd_pipeline(device: torch.device | str, config: BenchConfig,
+                       repeats: int = 1, warmup: int = 1) -> dict:
+    """Clips per second of the whole evaluation pipeline: ``config.batch``
+    clips sampled on the ``megakernel`` route from a zero condition at
+    guidance 2 (one whole-step launch a reverse step), decoded, embedded by
+    the I3D at 224 px with the ground truth, and the Fréchet distance of
+    the two sets on the host."""
+    device = torch.device(device)
+    models = build_models(config.models, device,
+                          torch.Generator().manual_seed(0))
+    d3pm = models.generator.diffusion
+    b, L = config.batch, d3pm.content_seq_len
+    cond = torch.zeros((b, 1, d3pm.transformer.condition_dim), device=device)
+    vq = config.models["vqvae"]
+    t, res = vq["sequence_length"], vq["resolution"]
+    gt = (torch.randn((b, t, res, res, 3),
+                      generator=torch.Generator().manual_seed(7))
+          * 0.3).to(device)
+    ev = FVDEvaluator(generator=torch.Generator().manual_seed(3),
+                      device=device)
+    g = torch.Generator().manual_seed(10)
+    fvds = []
+
+    @torch.no_grad()
+    def run():
+        tokens = d3pm.sample(cond, torch.zeros_like(cond), b, generator=g,
+                             mode="megakernel")
+        video = models.vqvae.decode(tokens.reshape(b, *models.latent_shape))
+        ev.reset()
+        ev.push_vals(gt, video)
+        fvds.append(ev.evaluate_metrics()["fvd"])
+
+    seconds = _time(run, device, repeats, warmup)
+    fvd = fvds[-1]
+    if not math.isfinite(fvd):
+        raise FloatingPointError(f"FVD is not finite: {fvd}")
+    row = _row("full pipeline clips/sec (sample+decode+I3D+FVD)", b,
+               seconds, "clips/sec/chip", b, device)
+    row.update(_vs_measured("fvd_pipeline", row["value"], {
+        "tokens": L, "codes": d3pm.num_embed, "resolution": res}))
+    row.update(route="megakernel", fvd=fvd)
     return row
 
 
 def run_row(metric: str, config_name: str, device: torch.device | str,
             batch: Optional[int] = None) -> dict:
     """The row ``metric`` at ``--config config_name`` (``batch`` overrides
-    the sampling and vqvae batch, as the JAX bench's ``--batch``). Raises
-    ``NotImplementedError`` for a row that waits for a part of the port,
-    and ``RuntimeError`` for a CUDA ``device`` without a card. On the card
-    it computes as the JAX package does: no TF32, bf16 products summed in
-    f32."""
-    for (m, c), item in WAITING.items():
-        if m == metric and c in (None, config_name):
-            raise NotImplementedError(f"{metric} --config {config_name} "
-                                      f"waits for {item}")
+    the sampling, vqvae and fvd_pipeline batch, as the JAX bench's
+    ``--batch``). Raises ``RuntimeError`` for a CUDA ``device`` without a
+    card. On the card it computes as the JAX package does: no TF32, bf16
+    products summed in f32."""
     if torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: torch.cuda.is_available() "
@@ -330,8 +380,12 @@ def run_row(metric: str, config_name: str, device: torch.device | str,
         return bench_train_step(device, stage1.TRAIN_STEP128,
                                 stage1.TRAIN_STEP128_BATCH)
     if metric == "train_step2":
+        if config_name == "msrvtt":   # the MSRVTT job: text conditioning
+            return bench_train_step2(device, stage2.TRAIN_STEP2_MSRVTT)
         return bench_train_step2(device, dict(stage2.TRAIN_STEP2,
                                               vqvae=cfg.models["vqvae"]))
+    if metric == "fvd_pipeline":
+        return bench_fvd_pipeline(device, cfg)
     raise ValueError(f"unknown metric {metric!r}")
 
 
@@ -356,7 +410,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     ap.add_argument("--config", default="honest",
                     choices=["honest", "half", "msrvtt"])
     ap.add_argument("--batch", type=_positive_int, default=None,
-                    help="override the config's sampling / vqvae batch")
+                    help="override the config's sampling / vqvae / "
+                         "fvd_pipeline batch")
     args = ap.parse_args(argv)
     try:
         result = run_row(args.metric, args.config, "cuda", args.batch)

@@ -1,9 +1,11 @@
 """Flax variable trees -> the port's PyTorch state dicts.
 
 The inverse of the conventions ``gif_synthesis_with_discrete_diffusion_tpu/
-convert/common.py`` targets. The trees come in as nested dicts of numpy
-arrays (``jax.device_get`` output, or any checkpoint read as numpy); no jax
-is imported here. The port names its submodules after the flax scopes, so
+convert/common.py`` targets; one map serves the VQ-VAE, the generator, the
+CLIP text tower (``flax_to_state_dict(params)``), ResNet-50 and the I3D
+(``flax_to_state_dict(params, batch_stats)``). The trees come in as nested
+dicts of numpy arrays (``jax.device_get`` output, or any checkpoint read as
+numpy); no jax is imported here. The port names its submodules after the flax scopes, so
 the map is per leaf:
 
 * Dense ``kernel`` (in, out)          -> Linear ``weight`` (out, in)
@@ -11,10 +13,16 @@ the map is per leaf:
 * ConvTranspose ``kernel`` DHWIO, forward orientation (scopes ``convt*``)
                                       -> ``weight`` (I, O, kD, kH, kW), the
   layout of ``ops/conv3d.same_pad_conv_transpose3d``
+* Conv ``kernel`` HWIO (2-D)          -> ``weight`` (O, I, kH, kW)
+* MultiHeadDotProductAttention ``query`` / ``key`` / ``value`` ``kernel``
+  (D, H, hd) and ``bias`` (H, hd), ``out`` ``kernel`` (H, hd, D)
+                                      -> Linear ``weight`` (H * hd, D) /
+  (D, H * hd) and ``bias`` (H * hd,)
 * Embed ``embedding``                 -> ``weight``
 * LayerNorm / BatchNorm ``scale``     -> ``weight``; ``bias`` as it is
 * batch_stats ``mean`` / ``var``      -> ``running_mean`` / ``running_var``
-* other params (``null_embed``, ``empty_text_embed``) as they are
+* other params (``null_embed``, ``empty_text_embed``,
+  ``positional_embedding``, ``text_projection``) as they are
 * other variable collections (the generator's ``diffusion`` collection:
   ``lt_history``, ``lt_count``, ``diffusion_acc``, ``diffusion_keep``)
   -> buffers of the same dotted name
@@ -27,11 +35,15 @@ import numpy as np
 import torch
 
 __all__ = ["flax_to_state_dict", "vqvae_state_dict", "linear_weight",
-           "conv3d_weight", "conv_transpose3d_weight"]
+           "conv2d_weight", "conv3d_weight", "conv_transpose3d_weight"]
 
 
 def linear_weight(kernel: np.ndarray) -> np.ndarray:
     return np.transpose(kernel, (1, 0))
+
+
+def conv2d_weight(kernel: np.ndarray) -> np.ndarray:
+    return np.transpose(kernel, (3, 2, 0, 1))
 
 
 def conv3d_weight(kernel: np.ndarray) -> np.ndarray:
@@ -53,9 +65,20 @@ def _leaves(tree: Mapping[str, Any], prefix: tuple = ()
 
 def _map_param(path: tuple, leaf: np.ndarray) -> tuple[tuple, np.ndarray]:
     *scope, name = path
+    if scope and scope[-1] in _MHA_IN and leaf.ndim == 3 - (name == "bias"):
+        # an attention projection (D, H, hd) / (H, hd): heads flattened
+        if name == "bias":
+            return path, leaf.reshape(-1)
+        return (*scope, "weight"), linear_weight(
+            leaf.reshape(leaf.shape[0], -1))
+    if scope and scope[-1] == "out" and name == "kernel" and leaf.ndim == 3:
+        return (*scope, "weight"), linear_weight(
+            leaf.reshape(-1, leaf.shape[-1]))
     if name == "kernel":
         if leaf.ndim == 2:
             return (*scope, "weight"), linear_weight(leaf)
+        if leaf.ndim == 4:
+            return (*scope, "weight"), conv2d_weight(leaf)
         if leaf.ndim == 5 and scope and scope[-1].startswith("convt"):
             return (*scope, "weight"), conv_transpose3d_weight(leaf)
         if leaf.ndim == 5:
@@ -66,6 +89,7 @@ def _map_param(path: tuple, leaf: np.ndarray) -> tuple[tuple, np.ndarray]:
     return path, leaf
 
 
+_MHA_IN = ("query", "key", "value")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -258,8 +258,11 @@ class DiscreteDiffusionModel(nn.Module):
                 *, generator: Optional[torch.Generator] = None,
                 train: bool = True, **draws) -> dict:
         """Conditioner -> :meth:`D3PM.forward` (the training loss); ``draws``
-        (``t``, ``pt``, ``noise``) pass through."""
-        cond_emb, _ = self.conditioner(batch, content_token.shape[0])
+        (``t``, ``pt``, ``noise``) pass through. The classifier-free
+        embedding is not computed: the loss does not read it (XLA drops it
+        from the JAX step too)."""
+        cond_emb, _ = self.conditioner(batch, content_token.shape[0],
+                                       with_cf=False)
         return self.diffusion(content_token, cond_emb, generator=generator,
                               train=train,
                               empty_mask=batch.get("empty_text_mask"),

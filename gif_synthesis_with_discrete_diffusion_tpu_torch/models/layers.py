@@ -1,5 +1,5 @@
-"""A dense layer with flax ``nn.Dense``'s compute dtype, and the dtype names
-of the configurations.
+"""A dense layer with flax ``nn.Dense``'s compute dtype, the dtype names of
+the configurations, and the inference BatchNorm of the frozen networks.
 
 The JAX package's models take a compute ``dtype`` (``bfloat16`` in the
 bench's training rows): the parameters stay f32, and every ``nn.Dense``
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "compute_dtype"]
+__all__ = ["Dense", "FrozenBatchNorm", "compute_dtype"]
 
 
 def compute_dtype(name) -> torch.dtype:
@@ -41,3 +41,22 @@ class Dense(nn.Linear):
             return super().forward(x)
         y = F.linear(x.to(dt), self.weight.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
+
+
+class FrozenBatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=True)`` over the channel axis
+    1 of an NC... tensor: ``(x - mean) / sqrt(var + eps) * scale + bias``,
+    the running statistics as buffers (the bridge's names), no
+    ``num_batches_tracked``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.empty(channels))
+        self.register_buffer("running_var", torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)

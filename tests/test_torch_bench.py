@@ -1,6 +1,6 @@
 """The port's bench entry (``gif_synthesis_with_discrete_diffusion_tpu_torch.
 bench``) on the CPU at a toy size: the JSON contract of each row, the error
-line of the rows that wait and of a run without a card, the artifact lookup
+line of a run without a card, the artifact lookup
 against the JAX bench's own, and the work count shared with
 ``chip_smoke.py``. No number measured here is a device number: the rows run
 on the CPU only to hold their keys and strings."""
@@ -72,21 +72,73 @@ def test_vqvae_and_training_rows_keys_and_metric_strings():
                              "fused-VJP attention)")
 
 
-@pytest.mark.parametrize("metric,config,item", [
-    ("fvd_pipeline", "honest", "[13]"), ("fvd_pipeline", "msrvtt", "[13]"),
-    ("train_step2", "msrvtt", "[12]")])
-def test_waiting_rows_print_the_error_line_and_exit_1(capsys, metric, config,
-                                                      item):
+TEXT_CONFIG = json.loads(json.dumps(SLICE_CONFIG))
+TEXT_CONFIG["generator"]["textencoder"] = {
+    "mode": "text", "dim": 32, "width": 16, "heads": 2, "layers": 1,
+    "allow_hash_tokenizer": True}
+
+
+def test_text_train_step2_row_keys_and_metric_string():
+    row = bench.bench_train_step2("cpu", TEXT_CONFIG, 2, repeats=2, warmup=1)
+    _check_row(row, "steps/sec/chip")
+    assert row["metric"] == ("stage-2 D3PM train steps/sec (batch 2, text "
+                             "cond, 32 tok, K=17, float32 compute, "
+                             "fused-VJP attention)")
+    assert row["vs_baseline"] == 0.0
+    assert "no measured train_step2 artifact" in row["baseline_source"]
+
+
+def test_fvd_pipeline_row_keys_route_and_a_finite_fvd(monkeypatch):
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.eval import (
+        evaluator)
+    monkeypatch.setattr(evaluator, "FVD_RESOLUTION", 32)
+    row = bench.bench_fvd_pipeline("cpu", TOY, repeats=2, warmup=0)
+    _check_row(row, "clips/sec/chip")
+    assert row["metric"] == "full pipeline clips/sec (sample+decode+I3D+FVD)"
+    assert row["route"] == "megakernel" and row["batch"] == 2
+    assert math.isfinite(row["fvd"])
+    assert "no measured fvd_pipeline artifact" in row["baseline_source"]
+
+
+def test_run_row_takes_the_text_config_and_the_fvd_row(monkeypatch):
+    """``train_step2 --config msrvtt`` is the text-conditioned
+    ``TRAIN_STEP2_MSRVTT`` (bench.py's mode 'text'), the other configs keep
+    label conditioning; ``fvd_pipeline`` takes every --config with its
+    batch, and ``--batch`` overrides it."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage2
+    calls = []
+    monkeypatch.setattr(bench, "bench_train_step2",
+                        lambda device, config: calls.append(config))
+    monkeypatch.setattr(bench, "bench_fvd_pipeline",
+                        lambda device, cfg: calls.append(cfg))
+    bench.run_row("train_step2", "msrvtt", "cpu")
+    bench.run_row("train_step2", "honest", "cpu")
+    assert calls[0] is stage2.TRAIN_STEP2_MSRVTT
+    assert calls[0]["generator"]["textencoder"]["mode"] == "text"
+    assert calls[1]["generator"]["textencoder"]["mode"] == "label"
+    for name in ("honest", "msrvtt", "half"):
+        bench.run_row("fvd_pipeline", name, "cpu")
+        assert calls[-1] == bench.CONFIGS[name]
+    bench.run_row("fvd_pipeline", "honest", "cpu", batch=4)
+    assert calls[-1].batch == 4
+    with pytest.raises(ValueError, match="unknown metric"):
+        bench.run_row("nothing", "honest", "cpu")
+
+
+@pytest.mark.parametrize("metric,config", [
+    ("fvd_pipeline", "honest"), ("fvd_pipeline", "msrvtt"),
+    ("train_step2", "msrvtt")])
+def test_former_waiting_rows_need_the_card(capsys, metric, config):
+    """The two rows the port lacked until text conditioning and FVD came
+    run on the card only, as every row: the error line and exit 1 here."""
     assert bench.main(["--metric", metric, "--config", config]) == 1
-    line = capsys.readouterr().out.strip().splitlines()
-    assert len(line) == 1
-    err = json.loads(line[0])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    err = json.loads(lines[0])
     assert {k: err[k] for k in ("metric", "value", "unit", "vs_baseline")} \
         == {"metric": "error", "value": 0.0, "unit": "error",
             "vs_baseline": 0.0}
-    assert item in err["error"] and "ROADMAP" in err["error"]
-    with pytest.raises(NotImplementedError, match=item.replace("[", r"\[")):
-        bench.run_row(metric, config, "cpu")
+    assert "CUDA" in err["error"] and "ROADMAP" not in err["error"]
 
 
 def test_no_card_prints_the_error_line_and_exits_1(capsys):

@@ -17,6 +17,7 @@ TOL = 1e-5
     ((2, 3, 16, 16, 3), 16),       # the bench's case: already at size
     ((2, 3, 20, 30, 3), 8),        # antialiased downscale, then a crop
     ((1, 2, 30, 22, 3), 13),       # portrait, odd target
+    ((1, 2, 16, 16, 3), 56),       # upscale (x3.5: FVD's 64 px -> 224)
 ])
 def test_preprocess_clip_matches(shape, resolution):
     video = np.random.default_rng(0).integers(0, 256, shape).astype(np.uint8)

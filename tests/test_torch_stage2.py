@@ -300,10 +300,21 @@ def test_forward_returns_the_keys_of_the_jax_call():
 
 
 def test_text_conditioning_points_at_its_roadmap_item():
+    """Text conditioning, ROADMAP item [12], is ported: the text mode builds
+    the frozen CLIP conditioner and drops the trainer's keys, as the JAX
+    ``build_conditioner`` does."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.clip_text \
+        import ClipTextConditioner
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models.conditioning \
         import build_conditioner
-    with pytest.raises(NotImplementedError, match=r"item 12 \(CLIP"):
-        build_conditioner({"mode": "text", "dim": 32})
+    cond = build_conditioner({"mode": "text", "dim": 32, "width": 16,
+                              "heads": 2, "layers": 1, "bpe_path": None,
+                              "allow_hash_tokenizer": True,
+                              "clip_ckpt": None})
+    assert isinstance(cond, ClipTextConditioner)
+    assert cond.clip.text_projection.shape == (16, 32)
+    with pytest.raises(TypeError):
+        build_conditioner({"mode": "text", "dim": 32, "n_classes": 3})
 
 
 # the bf16 step against the JAX bf16 step: the bound of
