@@ -101,7 +101,25 @@ Phases:
      input and at one 224 px batch of 2, the Fréchet distance of both
      sides' I3D embeddings, then the bench's FVD pipeline (honest) in this
      process with its K3 launches counted, and one more pass timed by part
-     (sampling, decode, I3D, Fréchet).
+     (sampling, decode, I3D, Fréchet);
+ 17. the harness, in this process through ``tasks.train`` /
+     ``tasks.evaluate`` on configs from the port's ``compose`` (synthetic
+     datamodule, 16 frames of 64 px, CSV logging, a fresh
+     ``paths.output_dir`` each): stage 1 at ``scripts/tpu/vqvae_ucf.sh``'s
+     override line (full width, B=64; 2 steps, validation, the
+     reconstruction FVD, the renders), stage 2 at ``ddiff_ucf.sh``'s line
+     (full width, B=16, f32 denoiser) over run 1's checkpoint (its frozen
+     VQ-VAE bitwise run 1's; 4 steps, steps 2-3 and the loop between them
+     under ``torch.cuda.set_sync_debug_mode("error")``, validation, FVD on
+     the val split through the route ``auto`` takes, the three renders),
+     its resume into a second epoch (4 -> 8 steps, the restored state
+     bitwise the saved one before the first new step, the Lt counts
+     grown), ``tasks.evaluate`` on that run (the test split's losses and
+     ``Metrics/fvd-test``), then ``python -m ..._torch.tasks train`` and
+     ``python -m ..._torch.generate`` as child processes (exit 0); each
+     run's wall, the step times (CUDA events against the host clock), its
+     launches of every kernel and the GIFs written (none where ``imageio``
+     is absent, which the phase prints).
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -110,7 +128,9 @@ and K5 in bf16 from the timed bf16 ``TRAIN_STEP2`` and
 of the text step, K3 from the ``megakernel`` serving run, the text-
 conditioned sampling and the FVD pipeline, K4 from the ``megakernel``
 serving run at 2304 tokens, P1 from the build-cache probe's children, P2
-and P3 from the depth / packing probe; ``launches_by_path`` splits the
+and P3 from the depth / packing probe, and each kernel's launches in
+phase 17's runs (K2, K5 and K6 there, K3 or K1, whichever ``auto`` took,
+at least once); ``launches_by_path`` splits the
 count by the run it came from, each run's counts set to 0 just before it
 and read just after), and the last line ``{"ok": true, "device": {...}}``.
 Any failure raises: there is no CPU run.
@@ -2605,6 +2625,331 @@ def phase_bench(torch) -> dict:
     return rows
 
 
+# phase 17: the harness (tasks.train / tasks.evaluate, the trainer loop, the
+# checkpoints, the CLIs) at the job scripts' full widths on the synthetic
+# datamodule, 16-frame 64 px clips, CSV logging
+HARNESS_BASE = ("datamodule=synthetic", "datamodule.sequence_length=16",
+                "datamodule.resolution=64", "logger=csv")
+HARNESS_CLI_TIMEOUT = 300
+
+
+def _job_overrides(script: str) -> list[str]:
+    """The override line of ``scripts/tpu/<script>`` (as
+    ``tests/test_job_scripts.py`` extracts it)."""
+    import shlex
+    text = (ROOT / "scripts" / "tpu" / script).read_text()
+    m = re.search(r"python scripts/train\.py(.*?)(?:\n\n|\Z)", text,
+                  re.DOTALL)
+    args = shlex.split(m.group(1).replace("\\\n", " "))
+    return [a for a in args if a != '"$@"' and "=" in a]
+
+
+def _harness_counts() -> dict:
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import fused_sample_step
+    k2, k5, k6 = _counts()
+    k3, k4 = _megakernel_counts()
+    return {"K1": fused_sample_step.launches, "K2": k2, "K5": k5, "K6": k6,
+            "K3": k3, "K4": k4}
+
+
+def _reset_harness_counts() -> None:
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import fused_sample_step
+    _reset_counts()
+    _reset_megakernel_counts()
+    fused_sample_step.launches = 0
+
+
+class _StepProbe:
+    """Wraps a trainer class's ``train_step`` for one run: host clock and
+    CUDA events at each step's entry and exit, the trainer itself, a
+    callback before the first step, and host synchronisation forbidden
+    from the end of step ``guard[0] - 1`` to the end of step ``guard[1]``
+    (the loop between them included: the batch's copy, the accumulator)."""
+
+    def __init__(self, torch, cls, guard: tuple[int, int] | None = None,
+                 before_first=None):
+        self.torch, self.cls, self.guard = torch, cls, guard
+        self.before_first = before_first
+        self.trainer = None
+        self.host: list[tuple[float, float]] = []
+        self.events: list[tuple] = []
+        self.guarded = 0
+
+    def __enter__(self):
+        torch, orig = self.torch, self.cls.train_step
+
+        def wrapped(trainer, state, batch, rng):
+            k = len(self.host) + 1
+            if k == 1:
+                self.trainer = trainer
+                if self.before_first is not None:
+                    self.before_first(trainer)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = orig(trainer, state, batch, rng)
+            end.record()
+            self.host.append((t0, time.perf_counter()))
+            self.events.append((start, end))
+            if self.guard and k == self.guard[0] - 1:
+                torch.cuda.synchronize()
+                self.host[-1] = (t0, time.perf_counter())
+                torch.cuda.set_sync_debug_mode("error")
+            elif self.guard and k == self.guard[1]:
+                torch.cuda.set_sync_debug_mode("default")
+                self.guarded = self.guard[1] - self.guard[0] + 1
+            return out
+
+        self.cls.train_step = wrapped
+        self._orig = orig
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self.cls.train_step = self._orig
+        return False
+
+    def timing(self, first: int) -> tuple[float, float, float, float]:
+        """Steps ``first``.. (1-based, ``first`` >= 2), on the device's
+        timeline: the mean step (from the end event of step ``first - 1`` to
+        the end event of the last), the mean of the steps' own spans (entry
+        to exit event), the share of the loop's time outside those spans
+        (the device without work of a step while the host takes the next
+        batch, copies it and adds up the values), and on the host clock the
+        mean time to issue a step."""
+        self.torch.cuda.synchronize()
+        steps = self.events[first - 1:]
+        total = self.events[first - 2][1].elapsed_time(steps[-1][1]) / 1e3
+        spans = sum(s.elapsed_time(e) for s, e in steps) / 1e3
+        issue = sum(t1 - t0 for t0, t1 in self.host[first - 1:])
+        n = len(steps)
+        return (total / n, spans / n, max(0.0, 1.0 - spans / total),
+                issue / n)
+
+
+def _run_dir(out: Path) -> Path:
+    dirs = [p for p in out.iterdir() if p.is_dir()]
+    if len(dirs) != 1:
+        raise AssertionError(f"expected one run directory under {out}, "
+                             f"found {len(dirs)}")
+    return dirs[0]
+
+
+def _newest_state(torch, ckpt_dir: Path) -> tuple[int, dict]:
+    step = max(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())
+    return step, torch.load(ckpt_dir / str(step) / "state.pt",
+                            map_location="cpu", weights_only=True)
+
+
+def _tensors(tree, prefix: str = ""):
+    """(name, tensor) leaves of a nested state dict."""
+    if hasattr(tree, "items"):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{prefix}.{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{prefix}[{i}]")
+    elif hasattr(tree, "dtype") and hasattr(tree, "shape"):
+        yield prefix, tree
+
+
+def _bitwise_equal(torch, got, want, what: str) -> int:
+    """Every tensor of ``want`` present in ``got`` with the same bits."""
+    got = dict(_tensors(got))
+    n = 0
+    for name, w in _tensors(want):
+        g = got.get(name)
+        if g is None or g.dtype != w.dtype or not torch.equal(
+                g.detach().cpu(), w.cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+        n += 1
+    return n
+
+
+def phase_harness(torch, smi: str) -> dict:
+    """The harness on the card: stage 1 and stage 2 through ``tasks.train``
+    at the job scripts' full widths, stage 2 reading stage 1's checkpoint,
+    resume, ``tasks.evaluate``, and the two entries as child processes.
+    Returns each run's launches of every kernel."""
+    import shutil
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch import tasks
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage1 import (
+        Stage1Trainer)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        Stage2Trainer)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.utils.config import (
+        compose)
+
+    torch.cuda.empty_cache()
+    try:
+        importlib.import_module("imageio")
+        imageio = "present"
+    except ImportError:
+        imageio = "absent (renders are logged as failed, no GIF written)"
+    print(f"phase 17: imageio {imageio}")
+    base = ROOT / "logs" / "chip_smoke_harness" / f"{time.time_ns()}"
+    out = {name: base / name for name in
+           ("stage1", "stage2", "resume", "eval", "cli_train", "generate")}
+    runs: dict[str, dict] = {}
+
+    def run(name: str, task: str, overrides: list[str], probe=None):
+        cfg = compose(task, overrides + [f"paths.output_dir={out[name]}"])
+        _reset_harness_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if probe is None:
+            metrics = (tasks.train if task == "train" else tasks.evaluate)(cfg)
+        else:
+            with probe:
+                metrics = (tasks.train if task == "train"
+                           else tasks.evaluate)(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _harness_counts()
+        run_dir = _run_dir(out[name])
+        gifs = len(list(run_dir.glob("*.gif")))
+        runs[name] = counts
+        bad = {k: v for k, v in metrics.items()
+               if isinstance(v, float) and not math.isfinite(v)}
+        print(f"phase 17: {name} ({task}): wall {wall:.2f} s; launches "
+              + ", ".join(f"{k} {v}" for k, v in counts.items())
+              + f"; {gifs} GIFs; metrics "
+              + json.dumps({k: round(v, 6) for k, v in sorted(
+                  metrics.items())}))
+        if bad:
+            raise AssertionError(f"{name}: non-finite metrics {bad}")
+        return cfg, metrics, run_dir
+
+    # 1. stage 1 at vqvae_ucf.sh's line: 2 steps of B=64, validation, the
+    # reconstruction FVD, the renders
+    s1 = _job_overrides("vqvae_ucf.sh") + list(HARNESS_BASE) + [
+        "trainer.max_epochs=1", "trainer.max_steps=2",
+        "datamodule.num_train=128", "datamodule.num_val=64"]
+    probe1 = _StepProbe(torch, Stage1Trainer)
+    cfg1, m1, run1 = run("stage1", "train", s1, probe1)
+    g = cfg1["model"]["generator"]
+    step, span, share, issue = probe1.timing(2)
+    print(f"phase 17: stage 1 (n_codes {g['n_codes']}, n_hiddens "
+          f"{g['n_hiddens']}, {g['n_res_layers']} residual layers, "
+          f"downsample {g['downsample']}, B={cfg1['batch_size']}, "
+          f"{g['sequence_length']} f {g['resolution']} px, {g['dtype']}): "
+          f"{len(probe1.host)} steps; step 2 (the first after the codebook's "
+          f"init) {step:.4f} s in the loop, {span:.4f} s inside the step, "
+          f"{100 * share:.2f} % of the loop outside the step (CUDA events); "
+          f"{issue:.4f} s to issue it (host clock); {smi}")
+    if (probe1.trainer.global_step != 2 or "Metrics/fvd-val" not in m1
+            or runs["stage1"]["K6"] < 2):
+        raise AssertionError("stage 1 did not take 2 steps with K6, or "
+                             "gave no FVD")
+
+    # 2. stage 2 at ddiff_ucf.sh's line over run 1's checkpoint: 4 steps,
+    # steps 2-3 (and the loop between them) with host synchronisation
+    # forbidden, validation, FVD on the val split, the three renders
+    ck1 = run1 / "checkpoints"
+    step1, saved1 = _newest_state(torch, ck1)
+    s2 = _job_overrides("ddiff_ucf.sh") + list(HARNESS_BASE) + [
+        f"model.checkpoint_paths.autoencoder={ck1}"]
+    checked = {}
+
+    def vqvae_is_run1s(trainer):
+        checked["vqvae"] = _bitwise_equal(
+            torch, trainer.state.vqvae.state_dict(), saved1["vqvae"],
+            "the frozen VQ-VAE against run 1's checkpoint")
+    probe2 = _StepProbe(torch, Stage2Trainer, guard=(2, 3),
+                        before_first=vqvae_is_run1s)
+    cfg2, m2, run2 = run("stage2", "train", s2 + ["trainer.max_epochs=1"],
+                         probe2)
+    t2 = probe2.trainer
+    _bitwise_equal(torch, t2.state.vqvae.state_dict(), saved1["vqvae"],
+                   "the frozen VQ-VAE after run 2")
+    tr = cfg2["model"]["generator"]["diffusion_model"]["transformer"]
+    step, span, share, issue = probe2.timing(2)
+    lt2 = float(t2.state.generator.diffusion.lt_count.sum())
+    print(f"phase 17: stage 2 ({tr['n_layer']} layers, n_embd "
+          f"{tr['n_embd']}, {tr['n_head']} heads, "
+          f"{t2.state.generator.diffusion.content_seq_len} tokens over "
+          f"{cfg2['model']['autoencoder']['n_codes']} codes, "
+          f"{cfg2['model']['generator']['diffusion_model']['diffusion_step']}"
+          f" steps, B={cfg2['batch_size']}, {tr['dtype']} denoiser, sampler "
+          f"route {t2.sampler}): the frozen VQ-VAE equals run 1's step-"
+          f"{step1} checkpoint bitwise ({checked['vqvae']} tensors) before "
+          f"the first step and after the run; {len(probe2.host)} steps; "
+          f"steps 2-4 {step:.4f} s a step in the loop, {span:.4f} s inside "
+          f"each step, {100 * share:.2f} % of the loop outside the steps "
+          f"(CUDA events); {issue:.4f} s to issue a step (host clock); "
+          f"steps {probe2.guard[0]}-"
+          f"{probe2.guard[1]} under set_sync_debug_mode('error'): "
+          f"{probe2.guarded} steps ran through; Lt count {lt2:.0f}; {smi}")
+    c2 = runs["stage2"]
+    sampled = c2["K3"] if t2.sampler == "megakernel" else c2["K1"]
+    if (t2.global_step != 4 or probe2.guarded != 2
+            or c2["K5"] != 4 * 2 * tr["n_layer"] or c2["K2"] < c2["K5"]
+            or c2["K6"] < 4 or sampled < 100 or "Metrics/fvd-val" not in m2):
+        raise AssertionError(f"stage 2 did not run its kernels as expected "
+                             f"or gave no FVD: {c2}")
+
+    # 3. resume run 2 into a second epoch: 4 -> 8 steps, the restored state
+    # bitwise the saved one before the first new step, the Lt counts grown
+    ck2 = run2 / "checkpoints"
+    step2, saved2 = _newest_state(torch, ck2)
+
+    def restored_is_saved(trainer):
+        checked["resume"] = _bitwise_equal(
+            torch, trainer.state_dict(), saved2,
+            "the restored state against run 2's checkpoint")
+        checked["resume_step"] = trainer.global_step
+    probe3 = _StepProbe(torch, Stage2Trainer, before_first=restored_is_saved)
+    run("resume", "train", s2 + [f"ckpt_path={ck2}", "trainer.max_epochs=2"],
+        probe3)
+    t3 = probe3.trainer
+    lt3 = float(t3.state.generator.diffusion.lt_count.sum())
+    print(f"phase 17: resume from run 2's step {step2}: global_step "
+          f"{checked['resume_step']} -> {t3.global_step}; the restored state "
+          f"equals the checkpoint bitwise ({checked['resume']} tensors) "
+          f"before the first new step; Lt count {lt2:.0f} -> {lt3:.0f}")
+    if not (checked["resume_step"] == 4 and t3.global_step == 8
+            and lt3 > lt2):
+        raise AssertionError("the resumed run did not go on from step 4 to "
+                             "8 with its Lt counts grown")
+
+    # 4. tasks.evaluate on run 3's checkpoints: the test split's losses and
+    # its FVD
+    _, m4, _ = run("eval", "eval", s2 + [
+        f"ckpt_path={_run_dir(out['resume']) / 'checkpoints'}"])
+    if "Metrics/fvd-test" not in m4 or "total/test" not in m4:
+        raise AssertionError("evaluate gave no test losses or FVD")
+
+    # 5. the two entries as child processes
+    ck3 = _run_dir(out["resume"]) / "checkpoints"
+    for name, argv in (
+            ("cli_train", ["-m", f"{PKG}.tasks", "train", *s2,
+                           "trainer.max_epochs=1", "trainer.max_steps=1",
+                           "model.do_evaluation=false",
+                           f"paths.output_dir={out['cli_train']}"]),
+            ("generate", ["-m", f"{PKG}.generate", *s2,
+                          "model.do_evaluation=false", f"ckpt_path={ck3}",
+                          "+num_samples=4", f"+out_dir={out['generate']}"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT,
+                              capture_output=True, text=True,
+                              timeout=HARNESS_CLI_TIMEOUT)
+        lines = proc.stdout.strip().splitlines()
+        print(f"phase 17: python {' '.join(argv[:3])} ... (exit "
+              f"{proc.returncode}, {time.perf_counter() - t0:.1f} s): "
+              f"{lines[-1] if lines else ''}")
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"the {name} entry failed")
+    if not re.search(r"generated 4 clips; \d+ GIFs written", lines[-1]):
+        raise AssertionError("the generate entry did not report its clips")
+    shutil.rmtree(base, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path on "
                                  "one CUDA card.")
@@ -2652,6 +2997,8 @@ def main() -> int:
     t_phase15 = time.perf_counter()
     text = phase_text(torch, smi, profile)
     fvd = phase_fvd(torch, smi)
+    t_phase17 = time.perf_counter()
+    harness = phase_harness(torch, smi)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -2738,6 +3085,31 @@ def main() -> int:
              launches=probe_chains["P3"],
              launches_by_path={depth_probe: probe_chains["P3"]}, **p3),
     ]
+    # phase 17's runs: each kernel's launches by run, where it launched
+    harness_paths = {
+        "stage1": "harness: tasks.train stage 1 (vqvae_ucf.sh, B=64)",
+        "stage2": "harness: tasks.train stage 2 (ddiff_ucf.sh, B=16, f32 "
+                  "denoiser)",
+        "resume": "harness: tasks.train stage 2 resumed, second epoch",
+        "eval": "harness: tasks.evaluate stage 2, test split"}
+    by_kernel = {"fused_sample_step": "K1", "fused_mha_fwd": "K2",
+                 "fused_mha_bwd": "K5", "nearest_code_stats": "K6",
+                 "megakernel_step_packed": "K3",
+                 "megakernel_step_branch": "K4"}
+    for kernel in kernels:
+        kid = by_kernel.get(kernel["name"])
+        if kid is None:
+            continue
+        for run, path in harness_paths.items():
+            if harness[run][kid]:
+                kernel["launches_by_path"][path] = harness[run][kid]
+                kernel["launches"] += harness[run][kid]
+    on_harness = {kid: sum(r[kid] for r in harness.values())
+                  for kid in by_kernel.values()}
+    if not (on_harness["K2"] and on_harness["K5"] and on_harness["K6"]
+            and (on_harness["K3"] or on_harness["K1"])):
+        raise AssertionError(f"a kernel of the harness's path was not "
+                             f"launched there: {on_harness}")
     for kernel in kernels:
         if kernel["launches"] < 1:
             raise AssertionError(f"{kernel['name']} was not launched on its "
@@ -2745,7 +3117,8 @@ def main() -> int:
     print(f"chip_smoke: wall {t_end - t_start:.1f} s in all; phases 1-13 "
           f"{t_phase14 - t_start:.1f} s, phase 14 (the samplers and the nine "
           f"bench rows) {t_phase15 - t_phase14:.1f} s, phases 15-16 (text "
-          f"conditioning, FVD) {t_end - t_phase15:.1f} s")
+          f"conditioning, FVD) {t_phase17 - t_phase15:.1f} s, phase 17 (the "
+          f"harness) {t_end - t_phase17:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

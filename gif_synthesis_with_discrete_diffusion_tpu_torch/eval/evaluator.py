@@ -20,6 +20,9 @@ import torch
 
 from ..data.preprocess import preprocess_clip, unnormalize
 from ..models.i3d import InceptionI3d, init_i3d_
+from ..utils.logging import get_logger
+
+log = get_logger(__name__)
 
 __all__ = ["FVDEvaluator", "frechet_distance", "prepare_fvd_clip",
            "FVD_RESOLUTION"]
@@ -121,3 +124,23 @@ class FVDEvaluator:
         gen = np.concatenate(self.gen_embeds, axis=0)
         gt = np.concatenate(self.gt_embeds, axis=0)
         return {"fvd": frechet_distance(gen, gt)}
+
+    # ---- the trainer's hook -----------------------------------------------
+    def evaluate(self, trainer, split: str, epoch: int) -> dict[str, float]:
+        """Sample clips for the whole split through
+        ``trainer.sample_videos`` and return ``{"Metrics/fvd-<split>": x}``
+        (nothing for a split without batches)."""
+        self.reset()
+        batches = (trainer.datamodule.val_batches(epoch) if split == "val"
+                   else trainer.datamodule.test_batches(epoch))
+        for batch in batches:
+            videos = trainer.sample_videos(batch, trainer.next_sample_rng())
+            gt = preprocess_clip(torch.as_tensor(batch["video"]).to(
+                self.device), trainer.resolution)
+            self.push_vals(gt, videos)
+        if not self.gen_embeds:
+            return {}
+        metrics = self.evaluate_metrics()
+        out = {f"Metrics/{k}-{split}": v for k, v in metrics.items()}
+        log.info("FVD (%s, epoch %d): %.3f", split, epoch, metrics["fvd"])
+        return out

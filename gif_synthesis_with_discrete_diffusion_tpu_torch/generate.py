@@ -10,10 +10,21 @@ condition sequence; else the model route).
 
     models = build_models(HONEST, "cuda", torch.Generator().manual_seed(0))
     video = sample_videos(models, {"label": labels}, generator)  # (B,T,H,W,3)
+
+As an entry, the counterpart of ``scripts/generate.py``: compose ``train``
+with the given overrides, build the stage's trainer, load ``ckpt_path`` (a
+run's ``checkpoints/`` directory), sample ``num_samples`` clips for the
+first validation batch and write one GIF each into ``out_dir``:
+
+    python -m gif_synthesis_with_discrete_diffusion_tpu_torch.generate \
+        model=discrete_diffusion datamodule=synthetic \
+        ckpt_path=<run>/checkpoints +num_samples=4 +out_dir=./samples
 """
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Mapping
 
 import torch
@@ -21,10 +32,10 @@ import torch
 from .models.discrete_diffusion import (DiscreteDiffusionModel,
                                         init_discrete_diffusion_,
                                         make_discrete_diffusion)
-from .models.vqvae import VQVAE, init_vqvae_
+from .models.vqvae import VQVAE, init_vqvae_, make_vqvae
 
 __all__ = ["HONEST", "MSRVTT_GRID", "GenerationModels", "build_models",
-           "sample_token_grid", "sample_videos"]
+           "sample_token_grid", "sample_videos", "main"]
 
 # bench.py's honest configuration: 16-frame 64px clips -> a (16, 8, 8) grid
 # of 1024 tokens over 4096 codes (K = 4097 with the MASK class), a 19-layer
@@ -84,7 +95,7 @@ def build_models(config: Mapping[str, Any], device: torch.device | str,
     mode. The modules are made on the meta device first, so nothing draws
     from the global RNG."""
     with torch.device("meta"):
-        vqvae = VQVAE(**dict(config["vqvae"]))
+        vqvae = make_vqvae(config["vqvae"])
         gen = make_discrete_diffusion(config, int(config["vqvae"]["n_codes"]),
                                       vqvae.latent_shape)
     vqvae = vqvae.to_empty(device="cpu")
@@ -121,3 +132,53 @@ def sample_videos(models: GenerationModels, batch: Mapping[str, Any],
     """Generate clips for a batch: returns (B, T, H, W, 3) f32."""
     return models.vqvae.decode(
         sample_token_grid(models, batch, generator, sample, sampler))
+
+
+def main(argv: list[str] | None = None) -> int:
+    """Checkpoint -> ``num_samples`` clips -> GIFs (module docstring)."""
+    import tempfile
+
+    from .tasks import build_datamodule, build_trainer
+    from .utils.checkpoint import CheckpointManager
+    from .utils.config import compose
+    from .utils.logging import get_logger
+    from .utils.renderer import render_animation
+
+    log = get_logger("generate")
+    cfg = compose("train", sys.argv[1:] if argv is None else list(argv))
+    num_samples = int(cfg.get("num_samples", 4))
+    out_dir = Path(cfg.get("out_dir", "samples"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    dm = build_datamodule(cfg)
+    batch = next(iter(dm.val_batches(0)))
+    batch = {k: (v[:num_samples] if hasattr(v, "__getitem__") else v)
+             for k, v in batch.items()}
+    # the stage's trainer only builds, restores and samples: no metric
+    # loggers, no FVD evaluator, and its run directory (the checkpoint
+    # manager's) is a temporary one, so out_dir holds only the GIFs
+    cfg = {**cfg, "logger": None,
+           "model": {**cfg.get("model", {}), "do_evaluation": False}}
+    with tempfile.TemporaryDirectory() as run_dir:
+        trainer = build_trainer(cfg, dm, run_dir)
+        trainer.build(batch)
+    if cfg.get("ckpt_path"):
+        mgr = CheckpointManager(Path(str(cfg["ckpt_path"])), monitor=None)
+        trainer.load_state_dict(mgr.restore(trainer.state_dict()))
+        log.info("restored step %s from %s", mgr.latest_step(),
+                 cfg["ckpt_path"])
+
+    videos = trainer.sample_videos(
+        batch, torch.Generator().manual_seed(int(cfg.get("seed") or 0)))
+    written = 0
+    for i in range(videos.shape[0]):
+        path = render_animation(videos[i], out_dir / f"sample_{i}.gif", fps=2)
+        written += path is not None
+        print(f"wrote {path}")
+    print(f"generated {videos.shape[0]} clips; {written} GIFs written to "
+          f"{out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

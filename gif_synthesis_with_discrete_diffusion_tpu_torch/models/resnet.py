@@ -21,7 +21,7 @@ from torch import nn
 from .layers import FrozenBatchNorm
 
 __all__ = ["ResNet50", "Bottleneck", "IMAGENET_MEAN", "IMAGENET_STD",
-           "preprocess_imagenet_v2"]
+           "preprocess_imagenet_v2", "init_resnet50_"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -112,3 +112,25 @@ def preprocess_imagenet_v2(frame_u8: torch.Tensor, resize: int = 232,
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=y.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=y.device)
     return (y - mean) / std
+
+
+@torch.no_grad()
+def init_resnet50_(model: ResNet50, generator: torch.Generator) -> None:
+    """The flax init laws: conv and dense kernels lecun-normal (N(0,
+    1 / fan_in) truncated at two standard deviations), zero biases,
+    BatchNorm scale 1, bias 0, running mean 0 and variance 1."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            std = fan_in ** -0.5 / 0.87962566103423978
+            w = torch.empty_like(m.weight, device="cpu")
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, FrozenBatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

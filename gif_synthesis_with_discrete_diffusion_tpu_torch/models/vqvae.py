@@ -27,7 +27,7 @@ codebook-fit and reconstruction losses in f32, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -36,9 +36,9 @@ from torch import nn
 from ..ops.codebook_kernel import (nearest_code_stats,
                                    nearest_code_stats_reference)
 from ..ops.conv3d import SamePadConv3d, SamePadConvTranspose3d
-from .layers import Dense
+from .layers import Dense, compute_dtype
 
-__all__ = ["VQVAE", "Encoder", "Decoder", "Codebook", "AxialBlock",
+__all__ = ["VQVAE", "make_vqvae", "Encoder", "Decoder", "Codebook", "AxialBlock",
            "AttentionResidualBlock", "AxialSelfAttention", "init_vqvae_"]
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default, as torch's
@@ -404,6 +404,25 @@ class VQVAE(nn.Module):
             "entropy": vq["entropy"],
             "encodings": vq["encodings"],
         }
+
+
+def make_vqvae(cfg: Mapping[str, Any]) -> VQVAE:
+    """The VQ-VAE of a configuration node (a model config's ``generator``
+    entry, or the mapping itself: the autoencoder's keys), with the JAX
+    package's defaults. ``kernel_mode``: ``"xla"`` keeps the codebook on its
+    plain lookup on every device; ``dtype``: ``bfloat16`` computes in bf16
+    on f32 parameters."""
+    g = dict(cfg.get("generator", cfg))
+    return VQVAE(
+        embedding_dim=int(g.get("embedding_dim", 128)),
+        n_codes=int(g.get("n_codes", 4096)),
+        n_hiddens=int(g.get("n_hiddens", 256)),
+        n_res_layers=int(g.get("n_res_layers", 3)),
+        downsample=tuple(g.get("downsample", (1, 16, 16))),
+        sequence_length=int(g.get("sequence_length", 4)),
+        resolution=int(g.get("resolution", 128)),
+        kernel_mode=str(g.get("kernel_mode", "auto")),
+        dtype=compute_dtype(g.get("dtype", "float32")))
 
 
 @torch.no_grad()

@@ -1,12 +1,13 @@
-"""Weighted loss computation over a registry of named losses.
+"""Weighted loss computation and cross-step metric accumulation.
 
-Port of the loss half of ``gif_synthesis_with_discrete_diffusion_tpu/train/
-metrics.py``: the registry (``l_dummy``: the VQ-VAE's reconstruction plus
-commitment loss over a mapping of losses, else the diffusion loss;
-``l_codebook``, ``l_entropy``, ``l_perplexity``: the VQ-VAE's monitors) and
-:func:`weighted_losses`, the weighted differentiable total. The cross-step
-accumulator and the log names belong to the trainer loop (ROADMAP queue 1,
-item 15).
+Port of ``gif_synthesis_with_discrete_diffusion_tpu/train/metrics.py``: the
+registry (``l_dummy``: the VQ-VAE's reconstruction plus commitment loss
+over a mapping of losses, else the diffusion loss; ``l_codebook``,
+``l_entropy``, ``l_perplexity``: the VQ-VAE's monitors),
+:func:`register_loss`, :func:`weighted_losses` (the weighted differentiable
+total), :func:`loss_log_name` and :class:`MetricAccumulator`, which sums
+the steps' device tensors on the device and reads them to the host once, in
+:meth:`MetricAccumulator.compute`.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any, Callable, Mapping
 
 import torch
 
-__all__ = ["LOSS_REGISTRY", "weighted_losses"]
+__all__ = ["LOSS_REGISTRY", "register_loss", "weighted_losses",
+           "MetricAccumulator", "loss_log_name"]
 
 
 def _l_dummy(output: Mapping[str, Any]) -> torch.Tensor:
@@ -46,6 +48,12 @@ LOSS_REGISTRY: dict[str, Callable[[Mapping[str, Any]], torch.Tensor]] = {
 }
 
 
+def register_loss(name: str,
+                  fn: Callable[[Mapping[str, Any]], torch.Tensor]):
+    LOSS_REGISTRY[name] = fn
+    return fn
+
+
 def weighted_losses(loss_dict: Mapping[str, float],
                     output: Mapping[str, Any]
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
@@ -62,3 +70,44 @@ def weighted_losses(loss_dict: Mapping[str, float],
         total = total + float(weight) * val
     values["total"] = total
     return total, values
+
+
+def loss_log_name(loss: str, split: str) -> str:
+    """'l_dummy', 'train' -> 'l/dummy/train'; 'total' -> 'total/train'."""
+    if loss == "total":
+        return f"{loss}/{split}"
+    loss_type, _, name = loss.partition("_")
+    return f"{loss_type}/{name}/{split}"
+
+
+class MetricAccumulator:
+    """Running sums of named scalars and a step count. :meth:`update` adds
+    a step's values (0-d tensors on any one device, or numbers) without
+    reading them; :meth:`compute` returns the means as floats, one host
+    read for all of them."""
+
+    def __init__(self, names):
+        self.names = list(names)
+        self.sums: dict[str, torch.Tensor | float] = dict.fromkeys(
+            self.names, 0.0)
+        self.count = 0
+
+    def update(self, values: Mapping[str, Any]) -> "MetricAccumulator":
+        for n in self.names:
+            v = values[n]
+            if isinstance(v, torch.Tensor):
+                v = v.detach().to(torch.float32)
+            self.sums[n] = self.sums[n] + v
+        self.count += 1
+        return self
+
+    def compute(self) -> dict[str, float]:
+        c = float(max(self.count, 1))
+        sums = [torch.as_tensor(self.sums[n], dtype=torch.float32)
+                for n in self.names]
+        if not sums:
+            return {}
+        device = next((s.device for s in sums if s.device.type != "cpu"),
+                      torch.device("cpu"))
+        means = (torch.stack([s.to(device) for s in sums]) / c).tolist()
+        return dict(zip(self.names, means))

@@ -13,8 +13,10 @@ Adam, as one stream of launches with no host synchronisation.
     state = build_stage1(TRAIN_STEP1, "cuda", torch.Generator().manual_seed(0))
     values = train_step(state, batch, torch.Generator("cuda").manual_seed(1))
 
-The trainer loop, rendering, checkpoints and the FVD hook are not ported yet
-(ROADMAP queue 1, item 15).
+:class:`Stage1Trainer` runs these steps under the trainer loop
+(:mod:`.loop`): the JAX ``Stage1Trainer``'s build, steps, checkpointed
+state, reconstructions for FVD (``sample_videos``), the FVD hook and the
+two renders a render epoch.
 """
 from __future__ import annotations
 
@@ -26,13 +28,18 @@ import torch
 
 from ..data.preprocess import preprocess_clip
 from ..data.synthetic import SyntheticVideoDataModule
-from ..models.layers import compute_dtype
-from ..models.vqvae import VQVAE, init_vqvae_
+from ..models.vqvae import VQVAE, init_vqvae_, make_vqvae
+from ..utils.logging import get_logger
+from ..utils.renderer import render_animation
+from .loop import Trainer
 from .metrics import weighted_losses
 
 __all__ = ["TRAIN_STEP1", "TRAIN_STEP1_BATCH", "TRAIN_STEP128",
            "TRAIN_STEP128_BATCH", "Stage1State", "make_vqvae",
-           "build_stage1", "train_step", "eval_step", "synthetic_batch"]
+           "build_stage1", "train_step", "eval_step", "synthetic_batch",
+           "Stage1Trainer"]
+
+log = get_logger(__name__)
 
 # bench.py's train_step configuration (the 64 px variant, f32): 4-frame
 # 64 px clips -> a (4, 8, 8) grid over 4096 codes of dim 128, 256 hidden
@@ -71,24 +78,6 @@ class Stage1State:
     @property
     def device(self) -> torch.device:
         return self.vqvae.codebook.embeddings.device
-
-
-def make_vqvae(model_cfg: Mapping[str, Any]) -> VQVAE:
-    """The VQ-VAE of a model configuration (its ``generator`` entry, or the
-    mapping itself), with the JAX package's defaults. ``kernel_mode``:
-    ``"xla"`` keeps the codebook on its plain lookup on every device;
-    ``dtype``: ``bfloat16`` computes in bf16 on f32 parameters."""
-    g = dict(model_cfg.get("generator", model_cfg))
-    return VQVAE(
-        embedding_dim=int(g.get("embedding_dim", 128)),
-        n_codes=int(g.get("n_codes", 4096)),
-        n_hiddens=int(g.get("n_hiddens", 256)),
-        n_res_layers=int(g.get("n_res_layers", 3)),
-        downsample=tuple(g.get("downsample", (1, 16, 16))),
-        sequence_length=int(g.get("sequence_length", 4)),
-        resolution=int(g.get("resolution", 128)),
-        kernel_mode=str(g.get("kernel_mode", "auto")),
-        dtype=compute_dtype(g.get("dtype", "float32")))
 
 
 def build_stage1(config: Mapping[str, Any], device: torch.device | str,
@@ -157,3 +146,69 @@ def synthetic_batch(config: Mapping[str, Any], batch_size: int,
         resolution=int(g["resolution"]), num_train=batch_size,
         num_val=batch_size, seed=seed)
     return next(iter(dm.train_batches(0)))
+
+
+class Stage1Trainer(Trainer):
+    """The VQ-VAE under the trainer loop, as the JAX ``Stage1Trainer``."""
+
+    def __init__(self, cfg, datamodule, run_dir):
+        super().__init__(cfg, datamodule, run_dir)
+        self.model_cfg = cfg.get("model", {})
+        self.loss_dict = dict(
+            self.model_cfg.get("losses", {}).get("loss_dict", {"l_dummy": 1.0}))
+        g = self.model_cfg.get("generator", self.model_cfg)
+        self.resolution = int(g.get("resolution", 128))
+        self._names = [n for n in self.loss_dict] + ["total"]
+        self.evaluator = None  # optional FVD evaluator (reconstruction FVD)
+
+    def loss_names(self):
+        return self._names
+
+    def build(self, example_batch):
+        self.state = build_stage1(self.model_cfg, self.device,
+                                  torch.Generator().manual_seed(self.seed))
+        n_params = sum(p.numel() for p in self.state.vqvae.parameters())
+        log.info("VQ-VAE params: %.2fM", n_params / 1e6)
+
+    def train_step(self, state, batch, rng):
+        return state, train_step(state, batch, rng)
+
+    def eval_step(self, state, batch, rng):
+        return eval_step(state, batch)
+
+    def state_dict(self) -> dict:
+        return {"step": self.state.step,
+                "vqvae": self.state.vqvae.state_dict(),
+                "optimizer": self.state.optimizer.state_dict()}
+
+    def load_state_dict(self, state) -> None:
+        self.state.vqvae.load_state_dict(state["vqvae"])
+        self.state.optimizer.load_state_dict(state["optimizer"])
+        self.state.step = int(state["step"])
+
+    @torch.no_grad()
+    def sample_videos(self, batch, rng=None) -> torch.Tensor:
+        """Reconstructions (the stage-1 'generated' clips for FVD)."""
+        out = self.state.vqvae({"video": _video(self.state, batch)},
+                               train=False)
+        return out["pred_data"]
+
+    def extra_eval_metrics(self, split: str, epoch: int) -> dict:
+        if self.evaluator is None:
+            return {}
+        every = int(self.cfg.get("trainer", {}).get("fvd_every_n_epochs", 5))
+        if split == "val" and epoch % every != 0:
+            return {}
+        return self.evaluator.evaluate(self, split, epoch)
+
+    @torch.no_grad()
+    def render_samples(self, epoch: int) -> None:
+        try:
+            batch = next(iter(self.datamodule.val_batches(epoch)))
+        except StopIteration:
+            return
+        video = _video(self.state, {"video": batch["video"][:1]})
+        out = self.state.vqvae({"video": video}, train=False)
+        render_animation(out["pred_data"][0],
+                         self.run_dir / f"epoch{epoch}_synthesis.gif")
+        render_animation(video[0], self.run_dir / f"epoch{epoch}_original.gif")

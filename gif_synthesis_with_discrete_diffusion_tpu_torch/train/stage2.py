@@ -17,12 +17,19 @@ conditioner is the frozen CLIP text tower: :func:`prepare_batch` tokenizes
 the batch's captions on the host (``state.tokenizer``), and the step runs
 the tower forward on them (no CLIP gradient exists).
 
-The trainer loop, checkpoints and logging are not ported yet (ROADMAP queue
-1, item 15).
+:class:`Stage2Trainer` runs these steps under the trainer loop
+(:mod:`.loop`), as the JAX ``Stage2Trainer``: the composed config's
+``model`` node mapped once onto :func:`build_stage2`'s layout
+(:func:`stage2_config`), the frozen VQ-VAE read from a stage-1 run's
+checkpoints (:func:`load_stage1_checkpoint`), sampling on the route
+``trainer.sampler`` (default ``auto``) for FVD and the renders, and the
+three render artefacts (the reverse process, the one-step x0 prediction,
+the original).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -30,15 +37,22 @@ import torch
 
 from ..data.preprocess import preprocess_clip
 from ..data.synthetic import CLASS_NAMES
-from ..generate import HONEST, build_models
+from ..generate import HONEST, GenerationModels, build_models, sample_videos
 from ..models.clip_text import make_tokenizer
-from ..models.discrete_diffusion import DiscreteDiffusionModel
+from ..models.discrete_diffusion import DiscreteDiffusionModel, resolve_sampler
 from ..models.vqvae import VQVAE
+from ..utils.checkpoint import CheckpointManager
+from ..utils.logging import get_logger
+from ..utils.renderer import render_animation
+from .loop import Trainer, device_batch
 from .metrics import weighted_losses
 
 __all__ = ["TRAIN_STEP2", "TRAIN_STEP2_BATCH", "TRAIN_STEP2_MSRVTT",
            "Stage2State", "build_stage2", "prepare_batch", "on_device",
-           "encode_tokens", "train_step", "eval_step", "synthetic_batch"]
+           "encode_tokens", "train_step", "eval_step", "synthetic_batch",
+           "stage2_config", "load_stage1_checkpoint", "Stage2Trainer"]
+
+log = get_logger(__name__)
 
 # bench.py's train_step2 configuration (label conditioning): 16-frame 64 px
 # clips -> a (16, 8, 8) grid of 1024 tokens over 4096 codes (K = 4097), a
@@ -228,3 +242,180 @@ def synthetic_batch(config: Mapping[str, Any], batch_size: int,
         batch["text"] = [CLASS_NAMES[int(i) % len(CLASS_NAMES)]
                          for i in label]
     return batch
+
+
+def stage2_config(model_cfg: Mapping[str, Any]) -> dict:
+    """A composed config's ``model`` node (``autoencoder``, ``generator``,
+    ``generator_losses``, ``lr_args``) in :func:`build_stage2`'s layout."""
+    return {"vqvae": dict(model_cfg.get("autoencoder", {})),
+            "generator": dict(model_cfg.get("generator", {})),
+            "generator_losses": dict(model_cfg.get("generator_losses")
+                                     or {"loss_dict": {"l_dummy": 1.0}}),
+            "lr_args": dict(model_cfg.get("lr_args") or {})}
+
+
+def load_stage1_checkpoint(ckpt_dir: str, vqvae: VQVAE) -> int:
+    """Load the newest checkpoint of a stage-1 run of the port (its
+    ``checkpoints/`` directory) into ``vqvae``, bit for bit; returns its
+    step. A reference ``.ckpt`` file is ROADMAP item [1]."""
+    path = Path(str(ckpt_dir))
+    if path.is_file() or path.suffix == ".ckpt":
+        raise NotImplementedError(
+            f"checkpoint_paths.autoencoder={ckpt_dir!r}: reading a "
+            f"reference .ckpt file is ROADMAP item [1], not ported yet; "
+            f"give a stage-1 run's checkpoints/ directory")
+    if not path.is_dir():
+        raise FileNotFoundError(f"no stage-1 checkpoints at {ckpt_dir!r}")
+    mgr = CheckpointManager(path, monitor=None)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no stage-1 checkpoint in {ckpt_dir!r}")
+    vqvae.load_state_dict(mgr.restore()["vqvae"])
+    mgr.close()
+    return step
+
+
+class Stage2Trainer(Trainer):
+    """The generator under the trainer loop over the frozen VQ-VAE, as the
+    JAX ``Stage2Trainer``."""
+
+    def __init__(self, cfg, datamodule, run_dir):
+        super().__init__(cfg, datamodule, run_dir)
+        # stage 2 renders every 10 validated epochs; an explicit
+        # trainer.render_every_n_epochs still wins
+        if (cfg.get("trainer", {}) or {}).get("render_every_n_epochs") is None:
+            self.render_every_n_epochs = 10
+        self.model_cfg = cfg.get("model", {})
+        self.build_cfg = stage2_config(self.model_cfg)
+        self.loss_dict = dict(self.build_cfg["generator_losses"].get(
+            "loss_dict", {"l_dummy": 1.0}))
+        self.resolution = int(self.build_cfg["vqvae"].get("resolution", 128))
+        self._names = ([n for n in self.loss_dict] + ["total"]
+                       + ["diffusion_acc", "diffusion_keep"])
+        tenc = self.build_cfg["generator"].get("textencoder") or {}
+        tenc = tenc if isinstance(tenc, Mapping) else {}
+        self._text_mode = tenc.get("mode") == "text"
+        self.tokenizer = (make_tokenizer(
+            tenc.get("bpe_path"),
+            allow_hash=bool(tenc.get("allow_hash_tokenizer", False)))
+            if self._text_mode else None)
+        self._learnable_cf = bool(
+            self.build_cfg["generator"].get("diffusion_model", {})
+            .get("learnable_cf", False))
+        self.sampler = None   # the route sampling takes, fixed by build()
+        self.evaluator = None  # set externally or via cfg (FVD)
+
+    def loss_names(self):
+        return self._names
+
+    def _prepare_batch(self, batch: Mapping[str, Any]) -> dict:
+        return prepare_batch(batch, self.tokenizer, self._learnable_cf)
+
+    def build(self, example_batch):
+        self.state = build_stage2(self.build_cfg, self.device,
+                                  torch.Generator().manual_seed(self.seed))
+        self.state.tokenizer = self.tokenizer
+        ckpt_paths = self.model_cfg.get("checkpoint_paths") or {}
+        if isinstance(ckpt_paths, Mapping) and ckpt_paths.get("autoencoder"):
+            step = load_stage1_checkpoint(ckpt_paths["autoencoder"],
+                                          self.state.vqvae)
+            log.info("loaded stage-1 autoencoder (step %d) from %s", step,
+                     ckpt_paths["autoencoder"])
+        d3pm = self.state.generator.diffusion
+        self.sampler = resolve_sampler(
+            str(self.cfg.get("trainer", {}).get("sampler") or "auto"),
+            self.device, d3pm.content_seq_len, d3pm.transformer, True)
+        n_params = sum(p.numel() for p in self.state.generator.parameters())
+        log.info("D3PM generator params: %.2fM; sampler route %s",
+                 n_params / 1e6, self.sampler)
+
+    def train_step(self, state, batch, rng):
+        return state, train_step(state, batch, rng)
+
+    def eval_step(self, state, batch, rng):
+        return eval_step(state, batch, rng)
+
+    def state_dict(self) -> dict:
+        return {"step": self.state.step,
+                "generator": self.state.generator.state_dict(),
+                "vqvae": self.state.vqvae.state_dict(),
+                "optimizer": self.state.optimizer.state_dict()}
+
+    def load_state_dict(self, state) -> None:
+        self.state.generator.load_state_dict(state["generator"])
+        self.state.vqvae.load_state_dict(state["vqvae"])
+        self.state.optimizer.load_state_dict(state["optimizer"])
+        self.state.step = int(state["step"])
+
+    def sample_videos(self, batch, rng: torch.Generator) -> torch.Tensor:
+        """Generate clips for a (host) batch on the trainer's sampler route:
+        (B, T, H, W, 3). ``rng`` is a CPU generator (the per-step seeds)."""
+        db = device_batch(self._prepare_batch(batch), self.device)
+        models = GenerationModels(self.state.generator, self.state.vqvae)
+        return sample_videos(models, db, rng, sampler=self.sampler)
+
+    @torch.no_grad()
+    def _single_step_pred(self, db: Mapping[str, Any],
+                          rng: torch.Generator) -> torch.Tensor:
+        """Decode the model's one-shot x0 prediction for a batch: noise a
+        grid to x_t, predict x0 (argmax), decode."""
+        flat = encode_tokens(self.state, db["video"])
+        out = self.state.generator(db, flat, generator=rng, train=False)
+        tokens = out["pred_data"].reshape(flat.shape[0],
+                                          *self.state.vqvae.latent_shape)
+        return self.state.vqvae.decode(tokens)
+
+    def _run_epoch(self, split, epoch):
+        # host-side tokenization before the base loop ships batches
+        orig = self.datamodule
+        if self._text_mode:
+            self.datamodule = _TokenizingDM(orig, self._prepare_batch)
+        try:
+            return super()._run_epoch(split, epoch)
+        finally:
+            self.datamodule = orig
+
+    def render_samples(self, epoch: int) -> None:
+        """The three render artefacts of a render epoch: the reverse
+        process's synthesis, the decoded one-step x0 prediction, and the
+        original."""
+        try:
+            batch = next(iter(self.datamodule.val_batches(epoch)))
+        except StopIteration:
+            return
+        small = {k: (v[:1] if hasattr(v, "__getitem__") else v)
+                 for k, v in batch.items()}
+        videos = self.sample_videos(small, self.next_sample_rng())
+        render_animation(videos[0],
+                         self.run_dir / f"epoch{epoch}_synthesis.gif")
+        db = device_batch(self._prepare_batch(small), self.device)
+        single = self._single_step_pred(db, self.next_rng())
+        render_animation(single[0],
+                         self.run_dir / f"epoch{epoch}_single_step.gif")
+        gt = preprocess_clip(db["video"], self.resolution)
+        render_animation(gt[0], self.run_dir / f"epoch{epoch}_original.gif")
+
+    def extra_eval_metrics(self, split: str, epoch: int) -> dict:
+        if self.evaluator is None:
+            return {}
+        every = int(self.cfg.get("trainer", {}).get("fvd_every_n_epochs", 5))
+        if split == "val" and epoch % every != 0:
+            return {}
+        return self.evaluator.evaluate(self, split, epoch)
+
+
+class _TokenizingDM:
+    """Wraps a datamodule so every batch carries text_tokens."""
+
+    def __init__(self, dm, prepare):
+        self._dm = dm
+        self._prepare = prepare
+
+    def __getattr__(self, name):
+        attr = getattr(self._dm, name)
+        if name.endswith("_batches"):
+            def wrapped(*a, **k):
+                for b in attr(*a, **k):
+                    yield self._prepare(b)
+            return wrapped
+        return attr
