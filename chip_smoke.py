@@ -119,7 +119,22 @@ Phases:
      ``python -m ..._torch.generate`` as child processes (exit 0); each
      run's wall, the step times (CUDA events against the host clock), its
      launches of every kernel and the GIFs written (none where ``imageio``
-     is absent, which the phase prints).
+     is absent, which the phase prints);
+ 18. more than one GPU and activation checkpointing: (a) ``TRAIN_STEP2``
+     (B=16, 1024 tokens) with ``transformer.checkpoint`` in f32 and bf16,
+     its first step's loss and gradients bitwise the plain step's, K2 76
+     and K5 38 a step (38 and 38 without), the step's own peak memory and
+     the steps timed in turns with the plain ones; (b) two ranks on
+     ``cuda:0`` over gloo (NCCL refuses two ranks on one device) against
+     one rank on the same global batch (``probes/ddp_parity.py``): K6 on
+     each rank's rows with its all-reduce, stage-1 steps at
+     ``vqvae_ucf.sh``'s widths (B=64), stage-2 steps at ``ddiff_ucf.sh``'s
+     (B=16), each with its timed steps, and argmax sampling through K3
+     with the batch split, the tokens bitwise one rank's; (c) ``python -m
+     ..._torch.tasks train`` (stage 1, 2 steps) as a child under
+     ``torchrun``'s variables, one rank over NCCL; (d) ``python -m
+     ..._torch.sweep``, a 2-trial grid of one step each at ``vqvae_ucf.sh``'s
+     widths.
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -130,7 +145,8 @@ conditioned sampling and the FVD pipeline, K4 from the ``megakernel``
 serving run at 2304 tokens, P1 from the build-cache probe's children, P2
 and P3 from the depth / packing probe, and each kernel's launches in
 phase 17's runs (K2, K5 and K6 there, K3 or K1, whichever ``auto`` took,
-at least once); ``launches_by_path`` splits the
+at least once); phase 18's checkpointed steps (K2, K5) and rank 0's launches of K2, K5,
+K6 and K3 there; ``launches_by_path`` splits the
 count by the run it came from, each run's counts set to 0 just before it
 and read just after), and the last line ``{"ok": true, "device": {...}}``.
 Any failure raises: there is no CPU run.
@@ -2950,6 +2966,253 @@ def phase_harness(torch, smi: str) -> dict:
     return runs
 
 
+REMAT_ROUNDS = 5       # rounds of plain, checkpointed, checkpointed, plain
+DDP_TIMEOUT = 300      # each child process of phase 18
+
+
+def _phase18_remat(torch, smi: str) -> dict:
+    """(a) ``transformer.checkpoint: true`` at ``TRAIN_STEP2``'s widths (B=16,
+    1024 tokens, 19 layers) in f32 and bf16: a first step on fixed draws
+    with the same loss and gradients as the plain step (bit for bit) and
+    twice its K2 launches; the step's own peak device memory (its peak less
+    what was allocated before it); then steps timed in turns (plain,
+    checkpointed, checkpointed, plain; CUDA events). Returns the
+    checkpointed steps' launches of K2 and K5 by dtype."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        TRAIN_STEP2, TRAIN_STEP2_BATCH, build_stage2, on_device,
+        synthetic_batch, train_step)
+    b = TRAIN_STEP2_BATCH
+    n_layer = TRAIN_STEP2["generator"]["diffusion_model"]["transformer"][
+        "n_layer"]
+    host = synthetic_batch(TRAIN_STEP2, b, torch.Generator().manual_seed(1))
+    batch = on_device(host, torch.device("cuda"))
+    gd = torch.Generator(device="cuda").manual_seed(3)
+    draws = {"t": torch.randint(0, 100, (b,), device="cuda", generator=gd),
+             "pt": torch.full((b,), 0.01, device="cuda"),
+             "noise": torch.rand((b, 4097, 1024), device="cuda",
+                                 generator=gd)}
+    want = {False: (2 * n_layer, 2 * n_layer, 1),
+            True: (4 * n_layer, 2 * n_layer, 1)}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        states, first, gens = {}, {}, {}
+        launched = {"K2": 0, "K5": 0}
+
+        def step(ck, **kw):
+            _reset_counts()
+            values = train_step(states[ck], batch, **kw)
+            counts = _counts()
+            if counts != want[ck]:
+                raise AssertionError(f"phase 18: {dtype} checkpoint={ck}: "
+                                     f"launches K2, K5, K6 {counts}, "
+                                     f"expected {want[ck]}")
+            if ck:
+                launched["K2"] += counts[0]
+                launched["K5"] += counts[1]
+            return values
+
+        for ck in (False, True):
+            config = copy.deepcopy(TRAIN_STEP2)
+            config["generator"]["diffusion_model"]["transformer"].update(
+                dtype=dtype, checkpoint=ck)
+            states[ck] = build_stage2(config, "cuda",
+                                      torch.Generator().manual_seed(0))
+            values = step(ck, **draws)
+            first[ck] = (float(values["total"]), {
+                n: p.grad.clone() for n, p in
+                states[ck].generator.named_parameters()
+                if p.grad is not None})
+            gens[ck] = torch.Generator(device="cuda").manual_seed(2)
+            step(ck, generator=gens[ck])                    # warm-up
+        (loss0, g0), (loss1, g1) = first[False], first[True]
+        differ = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+        if loss0 != loss1 or set(g0) != set(g1) or differ:
+            largest = max(float(g.abs().max()) for g in g0.values())
+            dev = max(float((g0[n] - g1[n]).abs().max()) for n in g0)
+            raise AssertionError(
+                f"phase 18: {dtype}: the checkpointed step's loss {loss1!r} "
+                f"or gradients differ from the plain step's ({loss0!r}; "
+                f"{len(differ)} tensors, largest deviation "
+                f"{dev / largest:.3g} of the largest gradient)")
+        own, peak = {}, {}
+        for ck in (False, True):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(ck, generator=gens[ck])
+            torch.cuda.synchronize()
+            peak[ck] = torch.cuda.max_memory_allocated()
+            own[ck] = peak[ck] - base
+        ms = {False: [], True: []}
+        for _ in range(REMAT_ROUNDS):
+            for ck in (False, True, True, False):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                step(ck, generator=gens[ck])
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms[ck].append(ev[0].elapsed_time(ev[1]))
+        med = {ck: sorted(v)[len(v) // 2] for ck, v in ms.items()}
+        gib = 2.0 ** 30
+        print(f"phase 18: checkpointing, TRAIN_STEP2 ({dtype} denoiser, "
+              f"{n_layer} layers, B={b}, 1024 tokens): the first step's loss "
+              f"and {len(g0)} gradients bitwise equal to the plain step's; "
+              f"launches a step K2 {want[False][0]} -> {want[True][0]}, K5 "
+              f"{want[False][1]} -> {want[True][1]}, K6 1; step "
+              f"{med[False]:.3f} -> {med[True]:.3f} ms "
+              f"({100 * (med[True] / med[False] - 1):+.1f} %; medians of "
+              f"{2 * REMAT_ROUNDS} each, in turns, CUDA events; ranges "
+              f"{min(ms[False]):.3f}-{max(ms[False]):.3f} and "
+              f"{min(ms[True]):.3f}-{max(ms[True]):.3f}); the step's own "
+              f"peak device memory {own[False] / gib:.3f} -> "
+              f"{own[True] / gib:.3f} GiB ({100 * (1 - own[True] / own[False]):.1f}"
+              f" % less; peak {peak[False] / gib:.3f} / {peak[True] / gib:.3f}"
+              f" GiB with both states resident); {smi}")
+        out[dtype] = launched
+        del states
+        torch.cuda.empty_cache()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _phase18_ranks(torch, smi: str) -> dict:
+    """(b) two ranks on ``cuda:0`` over gloo against one rank on the same
+    global batch (``probes/ddp_parity.py``): K6 with its all-reduce at the
+    stage-1 step's rows, stage 1 at ``vqvae_ucf.sh``'s widths (B=64, 16
+    frames of 64 px; its first step held, the codebook's init and restarts;
+    ``ddp_parity``'s docstring says why not the second) and stage 2 at
+    ``ddiff_ucf.sh``'s (B=16, 1024 tokens; 2 steps held), 3 more steps
+    timed each, and argmax sampling through K3 with the batch split. The
+    one-rank run goes twice, and the second against the first, every step,
+    is printed as the floor. Returns rank 0's launches by case."""
+    import tempfile
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.parallel \
+        .distributed import run_ranks
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        ddp_parity)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        stage2_config)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.utils.config import (
+        compose)
+    cfg1 = compose("train", _job_overrides("vqvae_ucf.sh")
+                   + list(HARNESS_BASE))
+    cfg2 = compose("train", _job_overrides("ddiff_ucf.sh")
+                   + list(HARNESS_BASE))
+    g = cfg1["model"]["generator"]
+    rows = 64 * int(g["sequence_length"]) * (int(g["resolution"]) // 8) ** 2
+    spec = {"device": "cuda", "cases": {
+        "codebook_stats": {"n": rows, "k": int(g["n_codes"]),
+                           "d": int(g["embedding_dim"])},
+        "stage1": {"config": cfg1["model"], "b": 64, "steps": 2,
+                   "held": 1, "timed": 3},
+        "stage2": {"config": stage2_config(cfg2["model"]), "b": 16,
+                   "steps": 2, "timed": 3},
+        "sampling": {"config": HONEST, "b": 4, "sampler": "megakernel"},
+    }}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rank0 = run_ranks(ddp_parity.run_cases, 2, "cuda", spec, out,
+                          backend="gloo", one_device=True)
+        wall = time.perf_counter() - t0
+        rank1 = torch.load(Path(out) / "rank1.pt", weights_only=False)
+    torch.cuda.empty_cache()
+    one = ddp_parity.one_rank(spec)
+    torch.cuda.empty_cache()
+    again = ddp_parity.one_rank(
+        {"device": "cuda", "cases": {c: {**spec["cases"][c], "timed": 0}
+                                     for c in ("stage1", "stage2")}})
+    torch.cuda.empty_cache()
+    floor = ddp_parity.compare(again, {c: one[c] for c in again},
+                               strict=False, every_step=True)
+    print("phase 18: one rank against itself, every step (the floor): "
+          + json.dumps(floor))
+    report = ddp_parity.compare(rank0, one, strict=False)
+    print(f"phase 18: two ranks on cuda:0 over gloo against one rank "
+          f"({wall:.1f} s with the processes' start; gloo took the CUDA "
+          f"tensors of every collective: all-reduce, all-gather, broadcast, "
+          f"barrier): " + json.dumps(report))
+    ddp_parity.compare(rank0, one)
+    ddp_parity.compare(rank1, rank0)
+    for case in ("stage1", "stage2"):
+        print(f"phase 18: {case} step at B={spec['cases'][case]['b']} "
+              f"(global): one rank {one[case]['step_ms']:.2f} ms, two "
+              f"ranks on one card over gloo {rank0[case]['step_ms']:.2f} ms "
+              f"(medians of 3; a correctness path, not a speed path: both "
+              f"ranks share the card and gloo stages its collectives "
+              f"through the host); {smi}")
+    print("phase 18: rank 0's launches by case: " + json.dumps(
+        {c: r["launches"] for c, r in rank0.items()}))
+    k6, k3 = rank0["codebook_stats"]["launches"]["K6"], \
+        rank0["sampling"]["launches"]["K3"]
+    if not (k6 == 1 and k3 == 100 and rank0["stage1"]["launches"]["K6"] >= 2
+            and rank0["stage2"]["launches"]["K5"] > 0):
+        raise AssertionError("phase 18: a rank did not launch its kernels")
+    return {c: r["launches"] for c, r in rank0.items()}
+
+
+def _phase18_child(name: str, argv: list[str], env=None) -> str:
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=DDP_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    print(f"phase 18: {name}: python {' '.join(argv[:2])} ... (exit "
+          f"{proc.returncode}, {time.perf_counter() - t0:.1f} s): "
+          f"{lines[-1] if lines else ''}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"phase 18: {name} failed")
+    return proc.stderr
+
+
+def _phase18_children() -> None:
+    """(c) one rank over NCCL through ``tasks.train`` under ``torchrun``'s
+    variables, and (d) the sweep entry, each as a child process."""
+    import os
+    import shutil
+    base = ROOT / "logs" / "chip_smoke_ddp" / f"{time.time_ns()}"
+    s1 = _job_overrides("vqvae_ucf.sh") + list(HARNESS_BASE) + [
+        "trainer.max_epochs=1", "datamodule.num_train=128",
+        "datamodule.num_val=64", "model.do_evaluation=false"]
+    # (c) one rank over NCCL through the real launch path: torchrun's
+    # environment, tasks.train joining the group it describes
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    err = _phase18_child("one rank over NCCL", [
+        "-m", f"{PKG}.tasks", "train", *s1, "trainer.max_steps=2",
+        f"paths.output_dir={base / 'nccl'}"], env)
+    if "backend nccl, 1 rank(s)" not in err:
+        raise AssertionError("phase 18: tasks.train did not join the NCCL "
+                             "group")
+    # (d) the sweep entry: a 2-trial grid, one step each
+    err = _phase18_child("sweep", [
+        "-m", f"{PKG}.sweep", *s1, "trainer.max_steps=1", "seed=0,1",
+        f"paths.output_dir={base / 'sweep'}"])
+    if "trial 1 ->" not in err or re.search(r"trial \d failed", err):
+        raise AssertionError("phase 18: the sweep did not run both trials")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_ddp(torch, smi: str) -> dict:
+    """Phase 18: activation checkpointing, two ranks on one card, one rank
+    over NCCL through ``tasks.train`` and the sweep entry. Returns the
+    launches of (a) and (b)."""
+    launches = {"remat": _phase18_remat(torch, smi),
+                "ranks": _phase18_ranks(torch, smi)}
+    _phase18_children()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path on "
                                  "one CUDA card.")
@@ -2999,6 +3262,8 @@ def main() -> int:
     fvd = phase_fvd(torch, smi)
     t_phase17 = time.perf_counter()
     harness = phase_harness(torch, smi)
+    t_phase18 = time.perf_counter()
+    ddp = phase_ddp(torch, smi)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -3104,6 +3369,35 @@ def main() -> int:
             if harness[run][kid]:
                 kernel["launches_by_path"][path] = harness[run][kid]
                 kernel["launches"] += harness[run][kid]
+    # phase 18's paths: the checkpointed TRAIN_STEP2 steps, and rank 0 of
+    # the two ranks on one card
+    remat_path = ("phase 18: TRAIN_STEP2 with transformer.checkpoint, B=16, "
+                  "{} denoiser")
+    rank_paths = {
+        "codebook_stats": "phase 18: rank 0 of 2 on cuda:0, K6 on its rows "
+                          "of a stage-1 step, then the all-reduce",
+        "stage1": "phase 18: rank 0 of 2, stage-1 steps (vqvae_ucf.sh, B=64 "
+                  "global)",
+        "stage2": "phase 18: rank 0 of 2, stage-2 steps (ddiff_ucf.sh, B=16 "
+                  "global)",
+        "sampling": "phase 18: rank 0 of 2, argmax sampling through K3 "
+                    "(HONEST, B=4 global)"}
+    for kernel in kernels:
+        name = kernel["name"]
+        for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+            for kid, base in (("K2", "fused_mha_fwd"), ("K5", "fused_mha_bwd")):
+                if name == base + suffix:
+                    n = ddp["remat"][dtype][kid]
+                    kernel["launches_by_path"][remat_path.format(dtype)] = n
+                    kernel["launches"] += n
+        kid = by_kernel.get(name)
+        if kid is None or name.endswith("_bf16"):
+            continue
+        for case, path in rank_paths.items():
+            n = ddp["ranks"][case].get(kid, 0)
+            if n:
+                kernel["launches_by_path"][path] = n
+                kernel["launches"] += n
     on_harness = {kid: sum(r[kid] for r in harness.values())
                   for kid in by_kernel.values()}
     if not (on_harness["K2"] and on_harness["K5"] and on_harness["K6"]
@@ -3118,7 +3412,8 @@ def main() -> int:
           f"{t_phase14 - t_start:.1f} s, phase 14 (the samplers and the nine "
           f"bench rows) {t_phase15 - t_phase14:.1f} s, phases 15-16 (text "
           f"conditioning, FVD) {t_phase17 - t_phase15:.1f} s, phase 17 (the "
-          f"harness) {t_end - t_phase17:.1f} s")
+          f"harness) {t_phase18 - t_phase17:.1f} s, phase 18 (checkpointing,"
+          f" two ranks, NCCL, the sweep) {t_end - t_phase18:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

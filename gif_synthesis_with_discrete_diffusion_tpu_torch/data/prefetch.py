@@ -60,12 +60,12 @@ class _ParallelBatches:
         order = np.arange(len(items))
         if shuffle:
             np.random.default_rng(self._dm.seed + 1000 + epoch).shuffle(order)
-        bs = self._dm.batch_size
+        bs, rows = self._dm.batch_size, self._dm.batch_rows()
         starts = range(0, len(order) - bs + 1, bs)
         with ThreadPoolExecutor(max_workers=self._n) as pool:
             def make_batch(s):
-                return collate([self._dm._get(split, int(j))
-                                for j in order[s:s + bs]])
+                return collate([self._dm._get(split, int(j)) for j in
+                                order[s + rows.start:s + rows.stop]])
             yield from pool.map(make_batch, starts)
 
 

@@ -6,7 +6,9 @@ datamodule of deterministic procedural clips (a colored square orbiting with
 a class-dependent trajectory), so that training steps, smoke runs and tests
 have structured data whose loss can fall. It yields numpy batches with the
 collate schema video/text/label/length/orig_length/frame; the training step
-moves them to its device.
+moves them to its device. After :meth:`SyntheticVideoDataModule.set_mesh`
+each batch holds only this rank's rows of the global batch of
+``batch_size`` (:func:`..parallel.mesh.shard_rows`).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ..parallel.mesh import Mesh, shard_rows
 
 __all__ = ["SyntheticVideoDataModule", "CLASS_NAMES"]
 
@@ -54,6 +58,11 @@ class SyntheticVideoDataModule:
     frame_dim: int = 0
 
     _cache: dict = field(default_factory=dict, repr=False)
+    _mesh: Mesh | None = field(default=None, repr=False)
+
+    def set_mesh(self, mesh: Mesh | None) -> None:
+        """From now on yield this rank's rows of each global batch."""
+        self._mesh = mesh
 
     @property
     def nclasses(self) -> int:
@@ -86,8 +95,11 @@ class SyntheticVideoDataModule:
         if shuffle:
             np.random.default_rng(self.seed + 100 + epoch).shuffle(order)
         bs = self.batch_size
+        rows = slice(0, bs) if self._mesh is None else shard_rows(bs,
+                                                                  self._mesh)
         for start in range(0, len(order) - bs + 1, bs):
-            chunk = [items[j] for j in order[start:start + bs]]
+            chunk = [items[j] for j in
+                     order[start + rows.start:start + rows.stop]]
             yield collate(chunk)
 
     def train_batches(self, epoch: int = 0):

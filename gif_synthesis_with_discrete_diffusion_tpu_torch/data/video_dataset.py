@@ -27,6 +27,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from ..parallel.mesh import shard_rows
 from ..utils.logging import get_logger
 from .synthetic import collate
 
@@ -199,11 +200,24 @@ def make_frame_features_fn(kind: str = "thumbnail",
 
 
 class _BaseVideoDataModule:
-    """Shared batching for file-backed video datasets."""
+    """Shared batching for file-backed video datasets. After
+    :meth:`set_mesh` each batch holds only this rank's rows of the global
+    batch, and only those clips are decoded."""
 
     def __init__(self, batch_size: int, seed: int = 0):
         self.batch_size = batch_size
         self.seed = seed
+        self._mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        self._mesh = mesh
+
+    def batch_rows(self) -> slice:
+        """This rank's rows of a global batch (all of them without a
+        mesh)."""
+        bs = self.batch_size
+        return slice(0, bs) if self._mesh is None else shard_rows(
+            bs, self._mesh)
 
     def _items(self, split: str) -> list:
         raise NotImplementedError
@@ -216,10 +230,10 @@ class _BaseVideoDataModule:
         order = np.arange(n)
         if shuffle:
             np.random.default_rng(self.seed + 1000 + epoch).shuffle(order)
-        bs = self.batch_size
+        bs, rows = self.batch_size, self.batch_rows()
         for s in range(0, n - bs + 1, bs):
             yield collate([self._get(split, int(j))
-                           for j in order[s:s + bs]])
+                           for j in order[s + rows.start:s + rows.stop]])
 
     def train_batches(self, epoch: int = 0):
         return self._batches("train", True, epoch)

@@ -10,6 +10,12 @@ square root, leaving singular values under ``eps`` un-rooted, in float64
 numpy on the host. Everything before the Fréchet distance runs on the
 clips' device (cuDNN convolutions on the card; no hand-written kernel, as
 the JAX package has none here).
+
+In a data-parallel run every rank samples its rows of each batch
+(:meth:`FVDEvaluator.evaluate` through the trainer, whose clips come back
+gathered in rank order) and gathers the ground-truth clips; rank 0 alone
+embeds them and takes the distance, and its result is broadcast, which
+holds the other ranks until it is there.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import numpy as np
 import torch
 
 from ..data.preprocess import preprocess_clip, unnormalize
+from ..parallel.distributed import (all_gather_rows, broadcast_object,
+                                    is_main_process)
 from ..models.i3d import InceptionI3d, init_i3d_
 from ..utils.logging import get_logger
 
@@ -129,18 +137,24 @@ class FVDEvaluator:
     def evaluate(self, trainer, split: str, epoch: int) -> dict[str, float]:
         """Sample clips for the whole split through
         ``trainer.sample_videos`` and return ``{"Metrics/fvd-<split>": x}``
-        (nothing for a split without batches)."""
+        (nothing for a split without batches). In a process group every
+        rank calls it; rank 0 computes the metric and every rank returns
+        it."""
         self.reset()
         batches = (trainer.datamodule.val_batches(epoch) if split == "val"
                    else trainer.datamodule.test_batches(epoch))
+        main = is_main_process()
         for batch in batches:
             videos = trainer.sample_videos(batch, trainer.next_sample_rng())
-            gt = preprocess_clip(torch.as_tensor(batch["video"]).to(
-                self.device), trainer.resolution)
-            self.push_vals(gt, videos)
-        if not self.gen_embeds:
-            return {}
-        metrics = self.evaluate_metrics()
-        out = {f"Metrics/{k}-{split}": v for k, v in metrics.items()}
-        log.info("FVD (%s, epoch %d): %.3f", split, epoch, metrics["fvd"])
-        return out
+            gt_u8 = all_gather_rows(torch.as_tensor(batch["video"]).to(
+                self.device))
+            if main:
+                self.push_vals(preprocess_clip(gt_u8, trainer.resolution),
+                               videos)
+        out = {}
+        if self.gen_embeds:
+            metrics = self.evaluate_metrics()
+            out = {f"Metrics/{k}-{split}": v for k, v in metrics.items()}
+            log.info("FVD (%s, epoch %d): %.3f", split, epoch,
+                     metrics["fvd"])
+        return broadcast_object(out)

@@ -19,6 +19,9 @@ first validation batch and write one GIF each into ``out_dir``:
     python -m gif_synthesis_with_discrete_diffusion_tpu_torch.generate \
         model=discrete_diffusion datamodule=synthetic \
         ckpt_path=<run>/checkpoints +num_samples=4 +out_dir=./samples
+
+On more than one rank (``trainer.mesh.data``, as :mod:`.tasks`) each rank
+samples its share of the ``num_samples`` clips and rank 0 writes them all.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from .models.discrete_diffusion import (DiscreteDiffusionModel,
                                         init_discrete_diffusion_,
                                         make_discrete_diffusion)
 from .models.vqvae import VQVAE, init_vqvae_, make_vqvae
+from .parallel.distributed import all_gather_rows, is_distributed
+from .parallel.mesh import rank_generator
 
 __all__ = ["HONEST", "MSRVTT_GRID", "GenerationModels", "build_models",
            "sample_token_grid", "sample_videos", "main"]
@@ -118,11 +123,18 @@ def sample_token_grid(models: GenerationModels, batch: Mapping[str, Any],
                       generator: torch.Generator, sample: bool = True,
                       sampler: str = "auto") -> torch.Tensor:
     """Conditioner -> D3PM reverse process on the route ``sampler``.
-    Returns (B, t, h, w) int64."""
+    Returns (B, t, h, w) int64. In a process group ``batch`` holds this
+    rank's rows: each rank samples them on its own stream
+    (:func:`..parallel.mesh.rank_generator`, JAX's ``fold_in`` of the shard
+    index), and the tokens of every rank are gathered in rank order, so
+    every rank returns the global batch's grids (in argmax mode the
+    one-rank run's, bit for bit)."""
     b = _batch_size(batch)
+    if is_distributed():
+        generator = rank_generator(generator)
     tokens = models.generator.sample(batch, b, generator=generator,
                                      sample=sample, mode=sampler)
-    return tokens.reshape(b, *models.latent_shape)
+    return all_gather_rows(tokens.reshape(b, *models.latent_shape))
 
 
 @torch.no_grad()
@@ -136,16 +148,23 @@ def sample_videos(models: GenerationModels, batch: Mapping[str, Any],
 
 def main(argv: list[str] | None = None) -> int:
     """Checkpoint -> ``num_samples`` clips -> GIFs (module docstring)."""
+    from .tasks import run_on_ranks
+    from .utils.config import compose
+    cfg = compose("train", sys.argv[1:] if argv is None else list(argv))
+    return run_on_ranks(_generate, cfg)
+
+
+def _generate(cfg: Mapping[str, Any]) -> int:
     import tempfile
 
+    from .parallel.distributed import is_main_process
+    from .parallel.mesh import shard_batch
     from .tasks import build_datamodule, build_trainer
     from .utils.checkpoint import CheckpointManager
-    from .utils.config import compose
     from .utils.logging import get_logger
     from .utils.renderer import render_animation
 
     log = get_logger("generate")
-    cfg = compose("train", sys.argv[1:] if argv is None else list(argv))
     num_samples = int(cfg.get("num_samples", 4))
     out_dir = Path(cfg.get("out_dir", "samples"))
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -162,6 +181,8 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory() as run_dir:
         trainer = build_trainer(cfg, dm, run_dir)
         trainer.build(batch)
+    if is_distributed():
+        batch = shard_batch(batch, trainer.mesh)
     if cfg.get("ckpt_path"):
         mgr = CheckpointManager(Path(str(cfg["ckpt_path"])), monitor=None)
         trainer.load_state_dict(mgr.restore(trainer.state_dict()))
@@ -170,6 +191,8 @@ def main(argv: list[str] | None = None) -> int:
 
     videos = trainer.sample_videos(
         batch, torch.Generator().manual_seed(int(cfg.get("seed") or 0)))
+    if not is_main_process():
+        return 0
     written = 0
     for i in range(videos.shape[0]):
         path = render_animation(videos[i], out_dir / f"sample_{i}.gif", fps=2)

@@ -460,7 +460,9 @@ def train_loss(generator: Optional[torch.Generator], sched: D3PMSchedule,
                mask_weight: tuple[float, float] = (1.0, 1.0),
                is_train: bool = True, t: Optional[torch.Tensor] = None,
                pt: Optional[torch.Tensor] = None,
-               noise: Optional[torch.Tensor] = None):
+               noise: Optional[torch.Tensor] = None,
+               gather_rows: Optional[Callable[[torch.Tensor],
+                                              torch.Tensor]] = None):
     """The reference's ``_train_loss`` (the JAX ``train_loss``).
 
     ``x_start`` (B, L) holds data tokens only (every value < K - 1). The
@@ -468,7 +470,11 @@ def train_loss(generator: Optional[torch.Generator], sched: D3PMSchedule,
     from ``generator`` unless given. Returns (per-sample vb loss (B,), aux
     dict, new :class:`LtState`); the caller averages over B * L. The
     (B, K, L) log-onehot of x_start is never made: noising, the true
-    posterior, the decoder NLL and the auxiliary KL work in token space."""
+    posterior, the decoder NLL and the auxiliary KL work in token space.
+    ``gather_rows`` maps this batch's (B,) values to the global batch's in a
+    data-parallel run (:func:`..parallel.distributed.all_gather_rows`), so
+    the Lt buffers take the global batch's update, as the JAX package's
+    global arrays do."""
     b, L = x_start.shape
     K = sched.num_classes
     if (t is None) != (pt is None):
@@ -504,8 +510,12 @@ def train_loss(generator: Optional[torch.Generator], sched: D3PMSchedule,
 
     # Lt EMA buffers; duplicate t: the last write wins
     lt2 = torch.square(kl_loss.detach())
-    new_hist = _set_last(lt.history, t, 0.1 * lt2 + 0.9 * lt.history[t])
-    new_count = lt.count.index_add(0, t, torch.ones_like(lt2))
+    t_all = t
+    if gather_rows is not None:
+        t_all, lt2 = gather_rows(t), gather_rows(lt2)
+    new_hist = _set_last(lt.history, t_all,
+                         0.1 * lt2 + 0.9 * lt.history[t_all])
+    new_count = lt.count.index_add(0, t_all, torch.ones_like(lt2))
     new_lt = LtState(history=new_hist, count=new_count)
 
     vb_loss = kl_loss / pt

@@ -11,7 +11,15 @@ has none). Submodules carry the flax scope names (``content_emb``,
 Both attentions go through :func:`..ops.attention.fused_mha`, which picks
 the CUDA kernel or the plain version by the tensors' device. LayerNorms use
 flax's epsilon 1e-6; the non-GELU2 activation is the tanh-approximated GELU
-of ``jax.nn.gelu``. No dropout.
+of ``jax.nn.gelu``. No dropout (ROADMAP finding F10: the JAX package
+cannot train with it; :mod:`.discrete_diffusion` raises at a training step).
+
+``checkpoint=True`` is the JAX package's ``remat`` (``nn.remat(Block)``):
+under autograd each block runs inside
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, which keeps
+only the block's inputs and runs its forward again in the backward, so the
+attention kernel K2 launches twice for each K5. The forward and the
+gradients are those without it.
 
 ``dtype`` is the JAX module's compute dtype: every dense layer of the blocks
 (the AdaLN projections, Q / K / V / proj, the MLP) computes in it on f32
@@ -27,6 +35,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import fused_mha
@@ -159,9 +168,11 @@ class DenoiserTransformer(nn.Module):
                  n_layer: int = 19, n_embd: int = 64, n_head: int = 16,
                  condition_dim: int = 512, diffusion_step: int = 100,
                  mlp_hidden_times: int = 4, block_activate: str = "GELU2",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 checkpoint: bool = False):
         super().__init__()
         self.n_layer = n_layer
+        self.checkpoint = checkpoint
         self.condition_dim = condition_dim
         self.compute_dtype = dtype
         self.content_emb = TokenGridEmbedding(num_embed, spatial_size, n_embd)
@@ -178,8 +189,14 @@ class DenoiserTransformer(nn.Module):
         if cond is None:
             cond = emb.new_zeros((tokens.shape[0], 1, self.condition_dim))
         cond = cond.to(emb.dtype)
+        remat = self.checkpoint and torch.is_grad_enabled()
         for i in range(self.n_layer):
-            emb = getattr(self, f"block{i}")(emb, cond, t)
+            block = getattr(self, f"block{i}")
+            if remat:
+                emb = torch.utils.checkpoint.checkpoint(
+                    block, emb, cond, t, use_reentrant=False)
+            else:
+                emb = block(emb, cond, t)
         logits = self.to_logits(self.ln_out(emb))   # (B, L, K-1)
         return logits.transpose(1, 2)               # (B, K-1, L) view
 

@@ -8,9 +8,23 @@ learnable classifier-free embedding; its ``forward`` is the training loss.
 :class:`DiscreteDiffusionModel` adds the conditioner, and
 :func:`make_discrete_diffusion` builds both from the same nested dict as the
 JAX package's YAML. ``transformer.dtype: bfloat16`` gives the denoiser bf16
-compute on f32 parameters, as the JAX package's ``transformer_dtype``. The
-denoiser has no dropout or activation checkpointing yet: configurations
-that ask for them raise.
+compute on f32 parameters, as the JAX package's ``transformer_dtype``;
+``transformer.checkpoint: true`` recomputes each block's forward in the
+backward (the JAX package's ``remat``).
+
+Dropout (``attn_pdrop`` / ``resid_pdrop`` above 0) is ROADMAP finding F10,
+a fault of the reference that the port keeps: the JAX package builds,
+samples and evaluates such a model (with dropout off, as every evaluation
+is deterministic), but its training step asks flax's ``Dropout`` for a
+``"dropout"`` PRNG stream it is never given and raises ``InvalidRngError``.
+The port builds and samples the same, and its training step raises too; it
+draws no dropout mask that the JAX package lacks.
+
+In a data-parallel run (a process group) the training loss's draws (t with
+pt, the q-sample noise) are made for the global batch from the generator,
+the same on every rank, and each rank takes its rows; the Lt and telemetry
+buffers take the global batch's update (the values gathered in rank
+order). So an N-rank step is the one-rank step on the global batch.
 
 Sampler routes (``D3PM.sample(mode=)``): ``megakernel`` and ``model`` carry
 the token grid; ``reference`` carries the (B, K, L) log-onehot through
@@ -29,13 +43,22 @@ from torch import nn
 from ..ops.megakernel import (MEGAKERNEL_MAX_SEQ, kernels_fit,
                               megakernel_sample_tokens)
 from ..ops.sampler_kernel import sample_tokens
+from ..parallel.distributed import all_gather_rows, rank, world_size
 from . import d3pm
 from .conditioning import build_conditioner, init_conditioner_
 from .denoiser import DenoiserTransformer, init_denoiser_
 from .layers import compute_dtype
 
 __all__ = ["D3PM", "DiscreteDiffusionModel", "make_discrete_diffusion",
-           "init_discrete_diffusion_", "resolve_sampler"]
+           "init_discrete_diffusion_", "resolve_sampler", "F10_MESSAGE"]
+
+F10_MESSAGE = (
+    "ROADMAP finding F10: a training step with dropout (attn_pdrop / "
+    "resid_pdrop > 0) raises, as the JAX package's does: its train path runs "
+    "the denoiser with deterministic=False but passes only the 'diffusion' "
+    "PRNG, so flax's Dropout raises InvalidRngError ('needs PRNG for "
+    "\"dropout\"'). Building, sampling and evaluation work; set both to 0 "
+    "to train")
 
 
 def resolve_sampler(mode: str, device: torch.device, seq_len: int,
@@ -70,9 +93,13 @@ class D3PM(nn.Module):
                  n_layer: int = 19, n_embd: int = 64, n_head: int = 16,
                  condition_seq_len: int = 77, condition_dim: int = 512,
                  mlp_hidden_times: int = 4, block_activate: str = "GELU2",
-                 transformer_dtype: torch.dtype = torch.float32):
+                 transformer_dtype: torch.dtype = torch.float32,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 checkpoint: bool = False):
         super().__init__()
         self.num_embed = num_embed            # codebook size WITHOUT mask
+        self.attn_pdrop = attn_pdrop          # F10: building and sampling
+        self.resid_pdrop = resid_pdrop        # only (module docstring)
         self.content_seq_len = content_seq_len
         self.diffusion_step = diffusion_step
         self.auxiliary_loss_weight = auxiliary_loss_weight
@@ -85,7 +112,8 @@ class D3PM(nn.Module):
             num_embed=num_embed, spatial_size=spatial_size, n_layer=n_layer,
             n_embd=n_embd, n_head=n_head, condition_dim=condition_dim,
             diffusion_step=diffusion_step, mlp_hidden_times=mlp_hidden_times,
-            block_activate=block_activate, dtype=transformer_dtype)
+            block_activate=block_activate, dtype=transformer_dtype,
+            checkpoint=checkpoint)
         # the flax ``diffusion`` collection: Lt importance-sampling buffers
         # and the per-timestep acc / keep telemetry
         for name in ("lt_history", "lt_count", "diffusion_acc",
@@ -143,19 +171,27 @@ class D3PM(nn.Module):
         telemetry scalars. With ``train`` the Lt and telemetry
         buffers are updated in place. The draws (``t`` with ``pt``, the
         (B, K, L) uniforms ``noise``) come from ``generator`` unless
-        given."""
+        given; in a process group they are drawn for the global batch and
+        this rank's rows kept (module docstring). With dropout configured
+        a training step raises (F10)."""
+        if train and (self.attn_pdrop > 0 or self.resid_pdrop > 0):
+            raise RuntimeError(F10_MESSAGE)
         cond_emb = self.apply_learnable_cf(cond_emb, empty_mask)
         lt = d3pm.LtState(history=self.lt_history, count=self.lt_count)
+        t, pt, noise = self._global_draws(generator, lt, content_token, t,
+                                          pt, noise)
         vb_loss, aux, new_lt = d3pm.train_loss(
             generator, self.schedule(), self.transformer, content_token,
             cond_emb, lt, auxiliary_loss_weight=self.auxiliary_loss_weight,
             adaptive_auxiliary_loss=self.adaptive_auxiliary_loss,
             mask_weight=self.mask_weight, is_train=train, t=t, pt=pt,
-            noise=noise)
+            noise=noise, gather_rows=all_gather_rows)
         if train:
             acc, keep = d3pm.update_diffusion_telemetry(
-                self.diffusion_acc, self.diffusion_keep, aux["t"],
-                aux["x0_recon"], content_token, aux["xt"], aux["xt_1_recon"])
+                self.diffusion_acc, self.diffusion_keep,
+                *(all_gather_rows(x) for x in (
+                    aux["t"], aux["x0_recon"], content_token, aux["xt"],
+                    aux["xt_1_recon"])))
             with torch.no_grad():
                 self.lt_history.copy_(new_lt.history)
                 self.lt_count.copy_(new_lt.count)
@@ -169,6 +205,25 @@ class D3PM(nn.Module):
                 "logits": aux["log_model_prob"].detach().exp(),
                 "log_model_prob": aux["log_model_prob"],
                 "diffusion_acc": acc, "diffusion_keep": keep}
+
+    def _global_draws(self, generator, lt, content_token, t, pt, noise):
+        """The loss's draws not given, made for the global batch (every
+        rank's rows; without a group this process's) in
+        :func:`.d3pm.train_loss`'s order, then this rank's rows of each."""
+        b, L = content_token.shape
+        n, r = world_size(), rank()
+        rows = slice(r * b, (r + 1) * b)
+        if (t is None) != (pt is None):
+            raise ValueError("give both t and pt, or neither")
+        if t is None:
+            t, pt = d3pm.sample_time(generator, lt, n * b,
+                                     self.diffusion_step)
+            t, pt = t[rows], pt[rows]
+        if noise is None:
+            noise = torch.rand((n * b, self.num_classes, L),
+                               generator=generator,
+                               device=generator.device)[rows]
+        return t, pt, noise
 
     @torch.no_grad()
     def sample(self, cond_emb: Optional[torch.Tensor],
@@ -310,12 +365,6 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
     dcfg = dict(g.get("diffusion_model", {}))
     tcfg = dict(dcfg.pop("transformer", {}))
     dalle = dict(tcfg.pop("dalle", {}))
-    for key, off in (("attn_pdrop", 0.0), ("resid_pdrop", 0.0),
-                     ("checkpoint", False)):
-        if tcfg.get(key, off) != off:
-            raise NotImplementedError(
-                f"transformer.{key}: the port's denoiser has no dropout or "
-                f"activation checkpointing yet")
     t, h, w = latent_shape
     seq_len = int(tcfg.get("content_seq_len") or np.prod(latent_shape))
     spatial = (tcfg.get("content_spatial_size")
@@ -339,6 +388,9 @@ def make_discrete_diffusion(model_cfg: Mapping[str, Any], num_embed: int,
         mlp_hidden_times=int(tcfg.get("mlp_hidden_times", 4)),
         block_activate=str(tcfg.get("block_activate", "GELU2")),
         transformer_dtype=compute_dtype(tcfg.get("dtype", "float32")),
+        attn_pdrop=float(tcfg.get("attn_pdrop", 0.0)),
+        resid_pdrop=float(tcfg.get("resid_pdrop", 0.0)),
+        checkpoint=bool(tcfg.get("checkpoint", False)),
     )
     return DiscreteDiffusionModel(d3pm_cfg=d3pm_cfg,
                                   conditioner_cfg=g.get("textencoder"))

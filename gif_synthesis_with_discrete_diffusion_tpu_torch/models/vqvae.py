@@ -23,6 +23,17 @@ cast to the dtype; the axial attention's scores rounded to it before an f32
 softmax). The codebook reads its input in f32 (K6 keeps f32 inputs), its
 commitment loss and straight-through output are in the dtype, and the
 codebook-fit and reconstruction losses in f32, as in the JAX package.
+
+In a data-parallel run (a process group, :mod:`..parallel.distributed`)
+each rank holds its rows of the global batch, and the model computes what
+the JAX package computes on the global array under ``pjit``: BatchNorm in
+training normalises by the global batch's statistics (its two sums
+all-reduced, the all-reduce inside the autograd graph); the codebook's
+statistics are summed over the ranks (:func:`..ops.codebook_kernel.
+nearest_code_stats_sharded`), so the EMA update and the perplexity read the
+global usage; and the data-dependent init and the restarts draw their
+candidate rows from the global rows (gathered in rank order) with the same
+generator on every rank, which leaves every rank with the same codebook.
 """
 from __future__ import annotations
 
@@ -34,8 +45,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.codebook_kernel import (nearest_code_stats,
-                                   nearest_code_stats_reference)
+                                   nearest_code_stats_reference,
+                                   nearest_code_stats_sharded)
 from ..ops.conv3d import SamePadConv3d, SamePadConvTranspose3d
+from ..parallel.distributed import (all_gather_rows, all_reduce_sum_grad,
+                                    world_size)
 from .layers import Dense, compute_dtype
 
 __all__ = ["VQVAE", "make_vqvae", "Encoder", "Decoder", "Codebook", "AxialBlock",
@@ -50,7 +64,12 @@ class BatchNorm(nn.Module):
     With ``train`` it normalises by the batch's mean and *biased* variance
     (f32, ``mean(x^2) - mean(x)^2``) and moves the running statistics towards
     them, ``running = 0.9 * running + 0.1 * batch``, the variance biased
-    too (``torch.nn.BatchNorm3d`` would store the unbiased one)."""
+    too (``torch.nn.BatchNorm3d`` would store the unbiased one). The two
+    sums accumulate in f64 and round to f32 once: the statistics then come
+    out the same however the batch is split. In a process group the sums
+    are all-reduced first, so every rank normalises by the global batch's
+    statistics, the one-rank step's, and keeps the same running ones
+    (``nn.SyncBatchNorm`` takes another variance and update)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -66,8 +85,14 @@ class BatchNorm(nn.Module):
             return ((x - self.running_mean) * scale + self.bias).to(x.dtype)
         dims = tuple(range(x.ndim - 1))
         xf = x.float()
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        # f64 sums of the f32 values round to the same f32 statistics
+        # however the batch is split over ranks and summed
+        n = xf.numel() // xf.shape[-1] * world_size()
+        sums = all_reduce_sum_grad(torch.stack(
+            [xf.sum(dim=dims, dtype=torch.float64),
+             (xf * xf).sum(dim=dims, dtype=torch.float64)]))
+        mean, sq = (sums[0] / n).float(), (sums[1] / n).float()
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             for running, batch in ((self.running_mean, mean),
                                    (self.running_var, var)):
@@ -279,8 +304,9 @@ class Codebook(nn.Module):
         if train:
             with torch.no_grad():
                 # no host sync: every step draws the init's candidates and
-                # torch.where picks by the flag on the device
-                rows = flat.detach()
+                # torch.where picks by the flag on the device; in a group
+                # from the global rows, as the JAX package's global array
+                rows = all_gather_rows(flat.detach())
                 k_init = (self.tile_rows(rows, generator) if init_rows is None
                           else init_rows.to(rows))
                 inited = self.initialized
@@ -290,7 +316,8 @@ class Codebook(nn.Module):
                 zavg_now = torch.where(inited, self.ema_sum, k_init)
         lookup = (nearest_code_stats_reference if self.kernel_mode == "xla"
                   else nearest_code_stats)
-        indices, n_total, encode_sum = lookup(flat, embeddings)
+        indices, n_total, encode_sum = nearest_code_stats_sharded(
+            flat, embeddings, lookup)
         encodings = indices.reshape(z.shape[:-1])
         quantized = F.embedding(indices, embeddings).reshape(
             z.shape).to(z.dtype)

@@ -17,6 +17,11 @@ Both return
 
 The inputs are detached: the indices are discrete and the statistics feed
 no-grad buffer updates, as the JAX side's ``stop_gradient`` says.
+
+:func:`nearest_code_stats_sharded` is the data-parallel form (JAX's
+``nearest_code_stats_sharded``): each rank looks up its own rows, then
+``n_total`` and ``encode_sum`` are summed over the ranks; the indices stay
+with their rows.
 """
 from __future__ import annotations
 
@@ -26,10 +31,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..parallel.distributed import all_reduce_sum
 from . import cuda_build
 from .megakernel import split_tf32
 
-__all__ = ["nearest_code_stats", "nearest_code_stats_reference",
+__all__ = ["nearest_code_stats", "nearest_code_stats_sharded",
+           "nearest_code_stats_reference",
            "nearest_code_stats_kernel_arithmetic", "kernel_distances",
            "code_stats_reference"]
 
@@ -131,3 +138,14 @@ def nearest_code_stats(x: torch.Tensor, embeddings: torch.Tensor
 
 
 nearest_code_stats.launches = 0
+
+
+def nearest_code_stats_sharded(x: torch.Tensor, embeddings: torch.Tensor,
+                               lookup=nearest_code_stats
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """``lookup`` (K6 on CUDA tensors) on this rank's rows ``x``, then
+    ``n_total`` and ``encode_sum`` summed over the ranks of the process
+    group (unchanged without one); the indices are this rank's."""
+    indices, n_total, encode_sum = lookup(x, embeddings)
+    return indices, all_reduce_sum(n_total), all_reduce_sum(encode_sum)

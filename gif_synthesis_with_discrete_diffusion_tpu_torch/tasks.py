@@ -17,6 +17,18 @@ given overrides, as ``scripts/train.py`` / ``scripts/eval.py`` do, and
 print the metrics one per line. The run is on the CUDA card unless the
 config says ``trainer.platform=cpu``.
 
+More than one device (ROADMAP item [16]): with ``trainer.mesh.data`` above
+1, or null with more than one visible GPU, :func:`train` and
+:func:`evaluate` start one process per rank themselves
+(:func:`..parallel.distributed.run_ranks`, NCCL on the GPUs) and return
+rank 0's metrics; on the CPU ``trainer.platform=cpu
+trainer.host_device_count=N`` starts N gloo processes, the counterpart of
+the JAX package's N virtual CPU devices. Under ``torchrun
+--nproc_per_node=N -m ..._torch.tasks train ...`` each process joins the
+group ``torchrun`` describes. Rank 0 makes the run directory and writes
+``config_tree.log`` and the logs; the other ranks use its directory. With
+``mesh.data`` null on one GPU nothing of this runs.
+
 Counterparts of the JAX package's debug switches: ``debug_nans`` turns on
 ``torch.autograd.set_detect_anomaly`` (the nearest torch check for a NaN
 made in a step), and ``profiler`` records a ``torch.profiler`` trace of the
@@ -37,14 +49,17 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .train.loop import resolve_device
+from .parallel.distributed import (broadcast_object, initialize_distributed,
+                                   is_distributed, is_main_process, rank,
+                                   run_ranks, world_size)
+from .train.loop import mesh_ranks, resolve_device
 from .utils.config import compose, to_yaml
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
 
 __all__ = ["train", "evaluate", "build_datamodule", "build_trainer",
-           "make_run_dir", "main"]
+           "make_run_dir", "run_on_ranks", "main"]
 
 
 def build_datamodule(cfg: Mapping[str, Any]):
@@ -134,10 +149,13 @@ def _setup(cfg: Mapping[str, Any]) -> Path:
         torch.manual_seed(int(seed))
     if cfg.get("debug_nans"):
         torch.autograd.set_detect_anomaly(True)
-    run_dir = make_run_dir(cfg)
-    if cfg.get("profiler"):
+    main = is_main_process()
+    run_dir = Path(broadcast_object(str(make_run_dir(cfg)) if main
+                                    else None))
+    if cfg.get("profiler") and main:
         _start_profiler(run_dir, device)
-    (run_dir / "config_tree.log").write_text(to_yaml(cfg))
+    if main:
+        (run_dir / "config_tree.log").write_text(to_yaml(cfg))
     if cfg.get("extras", {}).get("print_config", False):
         log.info("config:\n%s", to_yaml(cfg))
     return run_dir
@@ -145,7 +163,8 @@ def _setup(cfg: Mapping[str, Any]) -> Path:
 
 def task_wrapper(task_fn):
     """Writes the traceback of a failure to ``exception.log`` (and raises
-    it again) and the wall time to ``exec_time.log`` in the run dir."""
+    it again) and the wall time to ``exec_time.log`` in the run dir (rank
+    r > 0 of a group: ``exception_rank<r>.log`` only)."""
 
     @functools.wraps(task_fn)
     def wrap(cfg, run_dir, *args, **kwargs):
@@ -153,13 +172,15 @@ def task_wrapper(task_fn):
         try:
             return task_fn(cfg, run_dir, *args, **kwargs)
         except Exception:
-            (Path(run_dir) / "exception.log").write_text(
-                traceback.format_exc())
+            name = ("exception.log" if is_main_process()
+                    else f"exception_rank{rank()}.log")
+            (Path(run_dir) / name).write_text(traceback.format_exc())
             raise
         finally:
-            (Path(run_dir) / "exec_time.log").write_text(
-                f"'{cfg.get('task_name', 'task')}' execution time: "
-                f"{time.time() - t0:.2f} (s)\n")
+            if is_main_process():
+                (Path(run_dir) / "exec_time.log").write_text(
+                    f"'{cfg.get('task_name', 'task')}' execution time: "
+                    f"{time.time() - t0:.2f} (s)\n")
     return wrap
 
 
@@ -191,18 +212,49 @@ def _evaluate_impl(cfg, run_dir) -> dict[str, float]:
     return trainer.test()
 
 
-def train(cfg: Mapping[str, Any]) -> dict[str, float]:
+def run_on_ranks(fn, cfg: Mapping[str, Any], *args):
+    """``fn(cfg, *args)`` on the ranks ``cfg`` asks for: in this process
+    inside a process group (or one that ``torchrun``'s environment
+    describes) and for one rank, else in one new process per rank
+    (rank 0's result returned)."""
+    tcfg = cfg.get("trainer", {}) or {}
+    device = resolve_device(tcfg.get("platform"))
+    if not is_distributed():
+        if initialize_distributed(device.type):
+            import torch.distributed as dist
+            log.info("joined the process group of the environment: backend "
+                     "%s, %d rank(s)", dist.get_backend(), world_size())
+        else:
+            n = mesh_ranks(tcfg, device.type)
+            if n > 1:
+                return run_ranks(fn, n, device.type, dict(cfg), *args)
+    return fn(cfg, *args)
+
+
+def _train(cfg: Mapping[str, Any]) -> dict[str, float]:
     run_dir = _setup(cfg)
     metrics = _train_impl(cfg, run_dir)
     log.info("run dir: %s", run_dir)
     return metrics
 
 
-def evaluate(cfg: Mapping[str, Any]) -> dict[str, float]:
+def _evaluate(cfg: Mapping[str, Any]) -> dict[str, float]:
     run_dir = _setup(cfg)
     metrics = _evaluate_impl(cfg, run_dir)
     log.info("run dir: %s", run_dir)
     return metrics
+
+
+def train(cfg: Mapping[str, Any]) -> dict[str, float]:
+    """Fit (and with ``test: true`` test) the configured stage on every rank
+    the config asks for; returns rank 0's metrics."""
+    return run_on_ranks(_train, cfg)
+
+
+def evaluate(cfg: Mapping[str, Any]) -> dict[str, float]:
+    """Test the configured stage from ``ckpt_path`` on every rank the config
+    asks for; returns rank 0's metrics."""
+    return run_on_ranks(_evaluate, cfg)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -215,8 +267,9 @@ def main(argv: list[str] | None = None) -> int:
     task, overrides = argv[0], argv[1:]
     cfg = compose(task, overrides)
     metrics = (train if task == "train" else evaluate)(cfg)
-    for k, v in sorted(metrics.items()):
-        print(f"{k}: {v:.6g}")
+    if is_main_process():
+        for k, v in sorted(metrics.items()):
+            print(f"{k}: {v:.6g}")
     return 0
 
 

@@ -23,6 +23,24 @@ Randomness: one ``torch.Generator`` on the device for the steps' draws and
 one on the CPU for the samplers' per-step seeds, both seeded from ``seed``;
 as in the JAX package, a resumed run starts them from ``seed`` again.
 
+Data parallelism (ROADMAP item [16]): inside a process group
+(:mod:`..parallel.distributed`; the entries in :mod:`..tasks` start one
+process per rank) the trainer is one replica of the JAX package's
+``pjit`` program. ``trainer.mesh.data`` (null: every rank) must be the
+group's size, and on the CPU ``trainer.host_device_count`` is the count of
+ranks; ``mesh.model > 1`` is ROADMAP item [16b] and raises. Rank 0's
+initial state is broadcast to every rank; each rank reads its rows of each
+global batch (the datamodule's ``set_mesh`` slices the sample indices
+before the clips are decoded, else :func:`..parallel.mesh.shard_batch`
+slices the batch), and a global batch that does not divide over the ranks
+raises; the steps average their gradients over the ranks
+(:func:`..parallel.distributed.average_gradients`) and the model takes
+global statistics where the JAX package's global arrays do; the metrics
+are averaged over the ranks. Only rank 0 writes checkpoints, logs and
+renders; every rank runs the same loop, so every collective has its
+partners. Without a group (one device, ``mesh.data`` null) none of this
+runs: no collective is launched.
+
 The JAX package's process-wide cache of jitted steps (``shared_jit``,
 ``shared_module_init``) has no counterpart: eager PyTorch compiles nothing
 that a second trainer could share.
@@ -36,31 +54,63 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
+from ..parallel.distributed import is_distributed, local_rank
+from ..parallel.mesh import Mesh, create_mesh, replicate, shard_batch
 from ..train.metrics import MetricAccumulator, loss_log_name
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricLogger, build_metric_loggers, get_logger
 
 log = get_logger(__name__)
 
-__all__ = ["Trainer", "resolve_device", "device_batch"]
+__all__ = ["Trainer", "resolve_device", "device_batch", "mesh_ranks"]
 
 _NON_ARRAY_KEYS = ("text",)  # host-side only; never shipped to the device
 
 
 def resolve_device(platform: str | None) -> torch.device:
     """``trainer.platform`` -> the device: null, ``cuda`` or ``gpu`` is the
-    CUDA card (raises without one), ``cpu`` the CPU."""
+    CUDA card (raises without one; in a process group this rank's
+    ``cuda:LOCAL_RANK``), ``cpu`` the CPU."""
     name = "cuda" if platform in (None, "cuda", "gpu") else str(platform)
     if name == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: the port runs on the card unless the "
                 "config asks for the CPU (trainer.platform=cpu)")
+        if is_distributed():
+            return torch.device("cuda", local_rank())
         return torch.device("cuda")
     if name != "cpu":
         raise ValueError(f"trainer.platform={platform!r}: the port runs on "
                          f"'cuda' (the default) or 'cpu'")
     return torch.device("cpu")
+
+
+def mesh_ranks(trainer_cfg: Mapping[str, Any], device_type: str) -> int:
+    """How many ranks a run of ``trainer_cfg`` asks for: ``mesh.data``, or
+    with it null every device (on the CPU ``host_device_count``, default 1;
+    on CUDA the visible GPUs). ``mesh.model > 1`` raises (ROADMAP item
+    [16b]), as do more ranks than devices and ``host_device_count`` on
+    CUDA."""
+    mesh_cfg = trainer_cfg.get("mesh", {}) or {}
+    model = int(mesh_cfg.get("model") or 1)
+    if model > 1:
+        create_mesh(None, model)            # raises, naming [16b]
+    hdc = trainer_cfg.get("host_device_count")
+    if device_type == "cpu":
+        devices = int(hdc or 1)
+    else:
+        if hdc is not None and int(hdc) > 1:
+            raise ValueError(
+                "trainer.host_device_count is the count of CPU ranks "
+                "(trainer.platform=cpu); on the card the ranks are the GPUs "
+                "(trainer.mesh.data)")
+        devices = torch.cuda.device_count()
+    data = mesh_cfg.get("data")
+    data = devices if data is None else int(data)
+    if not 0 < data <= devices:
+        raise ValueError(f"trainer.mesh.data={data}: {devices} device(s)")
+    return data
 
 
 def device_batch(batch: Mapping[str, Any], device: torch.device) -> dict:
@@ -91,11 +141,15 @@ class Trainer:
         tcfg = cfg.get("trainer", {}) or {}
         self.device = resolve_device(tcfg.get("platform"))
         mesh_cfg = tcfg.get("mesh", {}) or {}
-        if (mesh_cfg.get("data") or 1) > 1 or int(mesh_cfg.get("model", 1)) > 1 \
-                or (tcfg.get("host_device_count") or 1) > 1:
-            raise NotImplementedError(
-                "trainer.mesh / host_device_count: the port runs on one "
-                "device; more than one GPU is ROADMAP item [16]")
+        data = mesh_cfg.get("data")
+        if data is None and self.device.type == "cpu":
+            data = tcfg.get("host_device_count")
+        self.mesh: Mesh = create_mesh(data, int(mesh_cfg.get("model") or 1))
+        if is_distributed():
+            if hasattr(datamodule, "set_mesh"):
+                datamodule.set_mesh(self.mesh)
+            else:
+                self.datamodule = _ShardedDataModule(datamodule, self.mesh)
         self.max_epochs = int(tcfg.get("max_epochs", 1))
         self.max_steps = tcfg.get("max_steps")
         self.check_val_every_n_epoch = int(
@@ -159,6 +213,25 @@ class Trainer:
         """What a checkpoint holds: ``step`` and the state's tensors."""
         return self.state
 
+    def _replicate(self) -> None:
+        """Every tensor of the state (the modules' parameters and buffers,
+        the optimizer's moments) set to rank 0's."""
+        if not is_distributed():
+            return
+        tensors = []
+
+        def walk(x):
+            if isinstance(x, torch.Tensor):
+                tensors.append(x)
+            elif isinstance(x, Mapping):
+                for v in x.values():
+                    walk(v)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    walk(v)
+        walk(self.state_dict())
+        replicate(tensors)
+
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         self.state = state
 
@@ -189,6 +262,7 @@ class Trainer:
             restore_from: str | None = None) -> dict[str, float]:
         example = next(iter(self.datamodule.train_batches(0)))
         self.build(example)
+        self._replicate()
         restored = False
         if restore_from:
             # resume from another run's checkpoints (train ckpt_path=...)
@@ -247,6 +321,7 @@ class Trainer:
         if self.state is None:
             example = next(iter(self.datamodule.test_batches(0)))
             self.build(example)
+            self._replicate()
             if self.ckpt.latest_step() is not None:
                 self._restore(self.ckpt)
         metrics = self._run_epoch("test", self.current_epoch)
@@ -272,8 +347,10 @@ class Trainer:
                 self.state, values = self.train_step(self.state, db, rng)
                 self.global_step += 1
                 if self.global_step % self.log_every_n_steps == 0:
-                    self._log({f"{k}/step": float(v)
-                               for k, v in values.items()},
+                    # one host read (and, in a group, one all-reduce)
+                    means = MetricAccumulator(values).update(values)
+                    self._log({f"{k}/step": v
+                               for k, v in means.compute().items()},
                               self.global_step)
                 if self.max_steps and self.global_step >= int(self.max_steps):
                     acc = acc.update(values)
@@ -309,3 +386,21 @@ class Trainer:
         else:
             self._es_bad_epochs += 1
         return self._es_bad_epochs > self.es_patience
+
+
+class _ShardedDataModule:
+    """A datamodule without ``set_mesh`` seen by one rank: each batch
+    sliced to the rank's rows (:func:`..parallel.mesh.shard_batch`)."""
+
+    def __init__(self, dm, mesh: Mesh):
+        self._dm = dm
+        self._mesh = mesh
+
+    def __getattr__(self, name):
+        attr = getattr(self._dm, name)
+        if name.endswith("_batches"):
+            def sharded(*a, **k):
+                for b in attr(*a, **k):
+                    yield shard_batch(b, self._mesh)
+            return sharded
+        return attr

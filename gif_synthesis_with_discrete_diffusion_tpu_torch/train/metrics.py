@@ -7,13 +7,18 @@ over a mapping of losses, else the diffusion loss; ``l_codebook``,
 :func:`register_loss`, :func:`weighted_losses` (the weighted differentiable
 total), :func:`loss_log_name` and :class:`MetricAccumulator`, which sums
 the steps' device tensors on the device and reads them to the host once, in
-:meth:`MetricAccumulator.compute`.
+:meth:`MetricAccumulator.compute`. In a data-parallel run each rank's step
+values are its rows' means; :meth:`MetricAccumulator.compute` averages the
+sums over the ranks first (one all-reduce), which gives the global batch's
+means that the JAX package's global arrays give.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping
 
 import torch
+
+from ..parallel.distributed import all_reduce_sum, world_size
 
 __all__ = ["LOSS_REGISTRY", "register_loss", "weighted_losses",
            "MetricAccumulator", "loss_log_name"]
@@ -84,7 +89,8 @@ class MetricAccumulator:
     """Running sums of named scalars and a step count. :meth:`update` adds
     a step's values (0-d tensors on any one device, or numbers) without
     reading them; :meth:`compute` returns the means as floats, one host
-    read for all of them."""
+    read for all of them, after the sums are averaged over the ranks of a
+    process group (every rank has the same count)."""
 
     def __init__(self, names):
         self.names = list(names)
@@ -109,5 +115,6 @@ class MetricAccumulator:
             return {}
         device = next((s.device for s in sums if s.device.type != "cpu"),
                       torch.device("cpu"))
-        means = (torch.stack([s.to(device) for s in sums]) / c).tolist()
+        stacked = all_reduce_sum(torch.stack([s.to(device) for s in sums]))
+        means = (stacked / (c * world_size())).tolist()
         return dict(zip(self.names, means))

@@ -16,7 +16,10 @@ Adam, as one stream of launches with no host synchronisation.
 :class:`Stage1Trainer` runs these steps under the trainer loop
 (:mod:`.loop`): the JAX ``Stage1Trainer``'s build, steps, checkpointed
 state, reconstructions for FVD (``sample_videos``), the FVD hook and the
-two renders a render epoch.
+two renders a render epoch. In a process group the step is one rank's
+share of the global step: its rows through the model (BatchNorm and the
+codebook on global statistics, :mod:`..models.vqvae`), the gradients
+averaged over the ranks before Adam, so every rank keeps the same weights.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from ..data.preprocess import preprocess_clip
 from ..data.synthetic import SyntheticVideoDataModule
 from ..models.vqvae import VQVAE, init_vqvae_, make_vqvae
+from ..parallel.distributed import all_gather_rows, average_gradients
 from ..utils.logging import get_logger
 from ..utils.renderer import render_animation
 from .loop import Trainer
@@ -121,6 +125,7 @@ def train_step(state: Stage1State, batch: Mapping[str, Any],
                       **draws)
     total, values = weighted_losses(state.loss_dict, out)
     total.backward()
+    average_gradients(state.vqvae.parameters())
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in values.items()}
@@ -188,10 +193,11 @@ class Stage1Trainer(Trainer):
 
     @torch.no_grad()
     def sample_videos(self, batch, rng=None) -> torch.Tensor:
-        """Reconstructions (the stage-1 'generated' clips for FVD)."""
+        """Reconstructions (the stage-1 'generated' clips for FVD); in a
+        process group every rank's, gathered in rank order."""
         out = self.state.vqvae({"video": _video(self.state, batch)},
                                train=False)
-        return out["pred_data"]
+        return all_gather_rows(out["pred_data"])
 
     def extra_eval_metrics(self, split: str, epoch: int) -> dict:
         if self.evaluator is None:

@@ -24,7 +24,11 @@ the tower forward on them (no CLIP gradient exists).
 checkpoints (:func:`load_stage1_checkpoint`), sampling on the route
 ``trainer.sampler`` (default ``auto``) for FVD and the renders, and the
 three render artefacts (the reverse process, the one-step x0 prediction,
-the original).
+the original). In a process group the step is one rank's share of the
+global step (the loss's draws made for the global batch, :mod:`..models.
+discrete_diffusion`; the gradients averaged over the ranks before Adam),
+and sampling splits the batch over the ranks (:func:`..generate.
+sample_token_grid`).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from ..generate import HONEST, GenerationModels, build_models, sample_videos
 from ..models.clip_text import make_tokenizer
 from ..models.discrete_diffusion import DiscreteDiffusionModel, resolve_sampler
 from ..models.vqvae import VQVAE
+from ..parallel.distributed import average_gradients
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import get_logger
 from ..utils.renderer import render_animation
@@ -206,6 +211,7 @@ def train_step(state: Stage2State, batch: Mapping[str, Any],
                           **draws)
     total, values = _values(state, out)
     total.backward()
+    average_gradients(state.generator.parameters())
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in values.items()}
@@ -349,7 +355,9 @@ class Stage2Trainer(Trainer):
 
     def sample_videos(self, batch, rng: torch.Generator) -> torch.Tensor:
         """Generate clips for a (host) batch on the trainer's sampler route:
-        (B, T, H, W, 3). ``rng`` is a CPU generator (the per-step seeds)."""
+        (B, T, H, W, 3). ``rng`` is a CPU generator (the per-step seeds).
+        In a process group ``batch`` is this rank's rows and the clips are
+        every rank's, in rank order."""
         db = device_batch(self._prepare_batch(batch), self.device)
         models = GenerationModels(self.state.generator, self.state.vqvae)
         return sample_videos(models, db, rng, sampler=self.sampler)

@@ -20,6 +20,10 @@ checkpoint.py`` (Orbax), with Orbax's retention rules kept as they are:
 :meth:`CheckpointManager.restore` loads a step and puts each tensor on the
 device of the tensor at the same place in a template, as Orbax restores
 onto a template's shardings.
+
+In a data-parallel run every rank keeps the same list of steps, but only
+rank 0 writes and deletes; a save that writes ends at a barrier, so every
+rank can read the step once it returns (and every rank restores).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Any, Mapping
 
 import torch
 
+from ..parallel.distributed import barrier, is_main_process
 from .logging import get_logger
 
 __all__ = ["CheckpointManager"]
@@ -118,15 +123,17 @@ class CheckpointManager:
         elif self.monitor:
             worst = float("inf") if self.mode == "min" else float("-inf")
             m = {self._metric_key(): worst}
-        tmp = self.directory / f".{step}.tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
-        torch.save(state, tmp / _STATE)
-        if m is not None:
-            (tmp / _METRICS).write_text(json.dumps(m))
-        tmp.rename(self.directory / str(step))
+        if is_main_process():
+            tmp = self.directory / f".{step}.tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+            torch.save(state, tmp / _STATE)
+            if m is not None:
+                (tmp / _METRICS).write_text(json.dumps(m))
+            tmp.rename(self.directory / str(step))
         self._steps.append((step, m))
         self._remove_old()
+        barrier()
         return True
 
     def _remove_old(self) -> None:
@@ -139,7 +146,7 @@ class CheckpointManager:
         else:
             keep = {s for s, _ in self._steps[-n:]} if n else set()
         for step, _ in self._steps:
-            if step not in keep:
+            if step not in keep and is_main_process():
                 shutil.rmtree(self.directory / str(step))
         self._steps = [s for s in self._steps if s[0] in keep]
 

@@ -5,7 +5,8 @@ un-normalise the ImageNet statistics, quantise to uint8 and write the clip
 with ``imageio``, imported when a clip is written. Rendering must never
 stop training: where ``imageio`` is absent or a write fails, the failure is
 logged and ``None`` returned. (This is no device fallback: the clip is
-already on the host.)
+already on the host.) In a data-parallel run only rank 0 writes; the other
+ranks return ``None``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from pathlib import Path
 import numpy as np
 
 from ..data.preprocess import IMAGENET_MEAN, IMAGENET_STD
+from ..parallel.distributed import is_main_process
 from .logging import get_logger
 
 __all__ = ["render_animation"]
@@ -25,6 +27,8 @@ def render_animation(video, output_path: str | Path,
                      fps: int = 1) -> Path | None:
     """video: (T, H, W, 3) ImageNet-normalised clip (a numpy array or a
     tensor on any device; a tensor is copied to the host as f32)."""
+    if not is_main_process():
+        return None
     if hasattr(video, "detach"):
         video = video.detach().float().cpu().numpy()
     video = np.asarray(video)

@@ -30,7 +30,8 @@ missing = sorted({{pkg.__name__ + m for m in (
     ".utils.config", ".utils.yaml_lite", ".utils.logging",
     ".utils.checkpoint", ".utils.renderer", ".data.video_dataset",
     ".data.prefetch", ".parallel.distributed", ".train.loop", ".tasks",
-    ".train.stage2", ".eval.evaluator", ".generate")}} - set(names))
+    ".train.stage2", ".eval.evaluator", ".generate", ".parallel.mesh",
+    ".sweep", ".probes.ddp_parity")}} - set(names))
 print(len(names), leaked, missing)
 sys.exit(1 if leaked or missing or len(names) < 20 else 0)
 """

@@ -245,7 +245,9 @@ def test_make_discrete_diffusion_training_keys():
     assert tuple(d.empty_text_embed.shape) == (5, 32)
     assert set(_BUFFERS) <= set(dict(d.named_buffers()))
     # bf16 compute builds (the dtype names of the JAX package's rule; any
-    # other name is f32 there too); dropout and checkpointing still raise
+    # other name is f32 there too); dropout and checkpointing build, as in
+    # the JAX package (a training step with dropout raises: F10,
+    # tests/test_torch_remat.py)
     for name, want in (("bfloat16", torch.bfloat16), ("bf16", torch.bfloat16),
                        ("float32", torch.float32)):
         cfg = {"generator": {"diffusion_model": {"transformer": {
@@ -256,11 +258,15 @@ def test_make_discrete_diffusion_training_keys():
         assert tr.compute_dtype == want, name
         assert tr.block0.attn1.query.compute_dtype == want
         assert tr.to_logits.weight.dtype == torch.float32
-    for key, value in (("attn_pdrop", 0.1), ("checkpoint", True)):
-        bad = {"generator": {"diffusion_model": {"transformer": {
+    for key, value in (("attn_pdrop", 0.1), ("resid_pdrop", 0.1),
+                       ("checkpoint", True)):
+        keyed = {"generator": {"diffusion_model": {"transformer": {
             key: value}}}}
-        with pytest.raises(NotImplementedError):
-            make_discrete_diffusion(bad, 16, LATENT)
+        with torch.device("meta"):
+            built = make_discrete_diffusion(keyed, 16, LATENT).diffusion
+        got = (built.transformer.checkpoint if key == "checkpoint"
+               else getattr(built, key))
+        assert got == value, key
 
 
 def test_weighted_losses_match():
