@@ -134,7 +134,14 @@ Phases:
      ..._torch.tasks train`` (stage 1, 2 steps) as a child under
      ``torchrun``'s variables, one rank over NCCL; (d) ``python -m
      ..._torch.sweep``, a 2-trial grid of one step each at ``vqvae_ucf.sh``'s
-     widths.
+     widths; (e) BatchNorm's training statistics (``models/vqvae.py:
+     _split_free_sum``, f32 over runs of rows within a sample, then f64):
+     a batch's sums equal those of its two halves added (what makes two
+     ranks' statistics one rank's), within 1e-5 relative of the plain f32
+     means, and their cost against those f32 means (the formula before
+     data parallelism), one BatchNorm's forward and backward at the stage-1
+     configurations' shapes and whole ``TRAIN_STEP1`` and ``TRAIN_STEP128``
+     steps, in turns.
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -2967,6 +2974,13 @@ def phase_harness(torch, smi: str) -> dict:
 
 
 REMAT_ROUNDS = 5       # rounds of plain, checkpointed, checkpointed, plain
+BN_ROUNDS = 10         # rounds of f32 means, port, port, f32 means
+BN_STEP_ROUNDS = 3     # the same with whole stage-1 steps
+# (B, T, H, W, C) of the stage-1 configurations' BatchNorms at B=64: the
+# latent grid at n_hiddens channels
+BN_SHAPES = {"TRAIN_STEP1": (64, 4, 8, 8, 256),
+             "TRAIN_STEP128": (64, 4, 16, 16, 256),
+             "vqvae_ucf": (64, 16, 8, 8, 256)}
 DDP_TIMEOUT = 300      # each child process of phase 18
 
 
@@ -3203,13 +3217,121 @@ def _phase18_children() -> None:
     shutil.rmtree(base, ignore_errors=True)
 
 
+def _bn_f32_means(self, x, train: bool = False):
+    """``models/vqvae.py: BatchNorm.forward`` with the plain f32 means it took
+    before data parallelism (``xf.mean``, ``(xf * xf).mean``)."""
+    import torch
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models import vqvae
+    if train:
+        dims = tuple(range(x.ndim - 1))
+        xf = x.float()
+        mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+        var = (sq - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            for running, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                running.mul_(vqvae._BN_MOMENTUM).add_(
+                    batch, alpha=1.0 - vqvae._BN_MOMENTUM)
+    else:
+        mean, var = self.running_mean, self.running_var
+    scale = self.weight * (var + vqvae._BN_EPS).rsqrt()
+    return ((x - mean) * scale + self.bias).to(x.dtype)
+
+
+def _bn_in_turns(torch, run, rounds: int) -> dict:
+    """Medians and ranges of ``run`` (CUDA events) with the f32 means and
+    with the port's statistics, in turns: f32, port, port, f32."""
+    import statistics
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models import vqvae
+    port = vqvae.BatchNorm.forward
+    forwards = {"f32": _bn_f32_means, "port": port}
+    ms = {"f32": [], "port": []}
+    try:
+        for kind in forwards:               # a warm-up of each
+            vqvae.BatchNorm.forward = forwards[kind]
+            run()
+        for _ in range(rounds):
+            for kind in ("f32", "port", "port", "f32"):
+                vqvae.BatchNorm.forward = forwards[kind]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run()
+                end.record()
+                torch.cuda.synchronize()
+                ms[kind].append(start.elapsed_time(end))
+    finally:
+        vqvae.BatchNorm.forward = port
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    return {"f32_ms": med["f32"], "port_ms": med["port"],
+            "port_over_f32": med["port"] / med["f32"],
+            "f32_range": [min(ms["f32"]), max(ms["f32"])],
+            "port_range": [min(ms["port"]), max(ms["port"])]}
+
+
+def _phase18_batchnorm(torch, smi: str) -> dict:
+    """(e) BatchNorm's training statistics on the card: split-free sums and
+    their cost against the plain f32 means (module docstring)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models import vqvae
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage1
+    out = {"batchnorm": {}, "steps": {}}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, shape in BN_SHAPES.items():
+        x = (3.0 * torch.randn(shape, device="cuda", generator=g) + 1.0)
+        half = shape[0] // 2
+        for v in (x, x * x):
+            whole = vqvae._split_free_sum(v).float()
+            halves = (vqvae._split_free_sum(v[:half])
+                      + vqvae._split_free_sum(v[half:])).float()
+            plain = v.sum(dim=tuple(range(v.ndim - 1)))
+            if not torch.equal(whole, halves):
+                raise AssertionError(f"phase 18: BatchNorm sums at {name}: "
+                                     f"the two halves' differ from the "
+                                     f"batch's")
+            rel = float(((whole - plain).abs() / plain.abs()).max())
+            if not rel <= 1e-5:
+                raise AssertionError(f"phase 18: BatchNorm sums at {name} "
+                                     f"{rel:.3g} from the f32 sums")
+        bn = vqvae.BatchNorm(shape[-1]).cuda()
+        with torch.no_grad():
+            bn.weight.fill_(1.0)
+            bn.bias.zero_()
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1.0)
+        xg = x.requires_grad_()
+
+        def fwd_bwd():
+            bn(xg, True).square().sum().backward()
+        out["batchnorm"][name] = {"shape": list(shape),
+                                  **_bn_in_turns(torch, fwd_bwd, BN_ROUNDS)}
+    for name in ("TRAIN_STEP1", "TRAIN_STEP128"):
+        config = getattr(stage1, name)
+        state = stage1.build_stage1(config, "cuda",
+                                    torch.Generator().manual_seed(0))
+        batch = stage1.synthetic_batch(config, 64)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        out["steps"][name] = _bn_in_turns(
+            torch, lambda: stage1.train_step(state, batch, gen),
+            BN_STEP_ROUNDS)
+        del state
+        torch.cuda.empty_cache()
+    print("phase 18: BatchNorm's statistics: every batch's sums equal its "
+          "two halves' added; one BatchNorm forward and backward, and "
+          "TRAIN_STEP1 / TRAIN_STEP128 steps (B=64), the port's against the "
+          f"plain f32 means, in turns (medians of {4 * BN_ROUNDS // 2} / "
+          f"{4 * BN_STEP_ROUNDS // 2}): " + json.dumps(out) + f"; {smi}")
+    return out
+
+
 def phase_ddp(torch, smi: str) -> dict:
     """Phase 18: activation checkpointing, two ranks on one card, one rank
-    over NCCL through ``tasks.train`` and the sweep entry. Returns the
-    launches of (a) and (b)."""
+    over NCCL through ``tasks.train``, the sweep entry, and BatchNorm's
+    statistics. Returns the launches of (a) and (b)."""
     launches = {"remat": _phase18_remat(torch, smi),
                 "ranks": _phase18_ranks(torch, smi)}
     _phase18_children()
+    _phase18_batchnorm(torch, smi)
     return launches
 
 

@@ -59,17 +59,46 @@ _BN_EPS = 1e-5  # flax nn.BatchNorm's default, as torch's
 _BN_MOMENTUM = 0.9
 
 
+class _SplitFreeSum(torch.autograd.Function):
+    """The f64 sum over every row of channels-last f32 ``x`` (..., C), the
+    same whichever whole samples the batch holds. Each run of ``r`` rows
+    (the largest power of two up to 16 that divides a sample's rows) is
+    summed in f32 by one reduction whose order depends on ``r`` alone, not
+    on the batch size, so a sample's runs sum alike in any batch; the runs,
+    1/r of the data, are summed in f64, which rounds to the same f32
+    statistics in any order. The backward is the sum's: the gradient,
+    in f32, broadcast to every row."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.shape = x.shape
+        c = x.shape[-1]
+        r = 16
+        while (x[0].numel() // c) % r:
+            r //= 2
+        return x.reshape(-1, r, c).sum(dim=1).sum(dim=0, dtype=torch.float64)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return grad.float().expand(ctx.shape)
+
+
+_split_free_sum = _SplitFreeSum.apply
+
+
 class BatchNorm(nn.Module):
     """Channels-last BatchNorm by flax's rule (``nn.BatchNorm(momentum=0.9)``).
     With ``train`` it normalises by the batch's mean and *biased* variance
     (f32, ``mean(x^2) - mean(x)^2``) and moves the running statistics towards
     them, ``running = 0.9 * running + 0.1 * batch``, the variance biased
     too (``torch.nn.BatchNorm3d`` would store the unbiased one). The two
-    sums accumulate in f64 and round to f32 once: the statistics then come
-    out the same however the batch is split. In a process group the sums
-    are all-reduced first, so every rank normalises by the global batch's
-    statistics, the one-rank step's, and keeps the same running ones
-    (``nn.SyncBatchNorm`` takes another variance and update)."""
+    sums are taken in f32 over runs of a few rows within one sample, then
+    in f64 over the runs, and round to f32 once (:class:`_SplitFreeSum`):
+    the statistics then come out the same however the batch is split. In a
+    process group the sums are all-reduced first, so every rank normalises
+    by the global batch's statistics, the one-rank step's, and keeps the
+    same running ones (``nn.SyncBatchNorm`` takes another variance and
+    update)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -83,14 +112,10 @@ class BatchNorm(nn.Module):
         if not train:
             scale = self.weight * torch.rsqrt(self.running_var + _BN_EPS)
             return ((x - self.running_mean) * scale + self.bias).to(x.dtype)
-        dims = tuple(range(x.ndim - 1))
         xf = x.float()
-        # f64 sums of the f32 values round to the same f32 statistics
-        # however the batch is split over ranks and summed
         n = xf.numel() // xf.shape[-1] * world_size()
         sums = all_reduce_sum_grad(torch.stack(
-            [xf.sum(dim=dims, dtype=torch.float64),
-             (xf * xf).sum(dim=dims, dtype=torch.float64)]))
+            [_split_free_sum(xf), _split_free_sum(xf * xf)]))
         mean, sq = (sums[0] / n).float(), (sums[1] / n).float()
         var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():

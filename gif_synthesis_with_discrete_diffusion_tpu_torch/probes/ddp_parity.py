@@ -46,7 +46,18 @@ case the config and the global batch; ``timed``: more training steps after
 the compared ones, each timed between two device synchronisations, their
 median in ``step_ms``); the CPU tests run small ones, and
 ``chip_smoke.py`` phase 18 the job scripts' widths on the card (two ranks
-on ``cuda:0`` over gloo).
+on ``cuda:0`` over gloo). A case's ``kind`` (by default its name) says
+which of the cases above it runs, so a spec may hold two of one kind. A
+case's ``given`` replaces its seeded weights,
+inputs and draws with ones made elsewhere (the CPU tests make them with
+the JAX package, and hold the results to its ``pjit`` steps on a
+``data=2`` mesh): ``state`` / ``z`` / ``draws`` (``init_rows``,
+``restart_rows``) for the codebook; ``vqvae`` (a state dict), ``video``
+and per-step ``draws`` for stage 1; ``generator`` and ``vqvae`` (state
+dicts), ``batch`` and per-step ``draws`` (``t``, ``pt``, ``noise`` for the
+global batch, each rank taking its rows) for stage 2; ``generator``,
+``vqvae`` and ``labels`` for sampling. The steps past a ``draws`` list
+draw from the case's generator.
 """
 from __future__ import annotations
 
@@ -109,6 +120,17 @@ def _timed_steps(step, n: int, device) -> float | None:
     return statistics.median(ms) if ms else None
 
 
+def _step_draws(given: Mapping[str, Any] | None, step: int, device,
+                rows: bool = False) -> dict:
+    """The given draws of training step ``step`` on ``device`` (``rows``:
+    this rank's rows of each), or none."""
+    draws = (given or {}).get("draws", [])
+    if step >= len(draws):
+        return {}
+    out = {k: torch.as_tensor(v).to(device) for k, v in draws[step].items()}
+    return shard_batch(out, create_mesh()) if rows else out
+
+
 def _cpu(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().clone()
@@ -136,6 +158,7 @@ def _case_codebook(spec: Mapping[str, Any], device) -> dict:
     from ..models.vqvae import Codebook
     k, d, b = spec["k"], spec["d"], spec["b"]
     grid = tuple(spec.get("grid", (2, 2, 2)))
+    given = spec.get("given")
     g = torch.Generator().manual_seed(spec.get("seed", 0))
     cb = Codebook(k, d).to(device)
     with torch.no_grad():
@@ -143,12 +166,18 @@ def _case_codebook(spec: Mapping[str, Any], device) -> dict:
         cb.ema_count.zero_()
         cb.ema_sum.copy_(cb.embeddings)
         cb.initialized.fill_(False)
-    zs = [torch.randn((b, *grid, d), generator=g).to(device)
-          for _ in range(spec.get("steps", 2))]
+    if given:
+        cb.load_state_dict({n: torch.as_tensor(v)
+                            for n, v in given["state"].items()})
+        zs = [torch.as_tensor(z).to(device) for z in given["z"]]
+    else:
+        zs = [torch.randn((b, *grid, d), generator=g).to(device)
+              for _ in range(spec.get("steps", 2))]
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
-    for z in zs:
-        res = cb(z[_rows(b)], train=True, generator=gen)
+    for i, z in enumerate(zs):
+        res = cb(z[_rows(b)], train=True, generator=gen,
+                 **_step_draws(given, i, device))
         out.append({"perplexity": float(res["perplexity"]),
                     "encodings": all_gather_rows(res["encodings"]),
                     **{n: t.clone() for n, t in cb.named_buffers()}})
@@ -159,13 +188,20 @@ def _case_stage1(spec: Mapping[str, Any], device) -> dict:
     from ..train import stage1
     config = copy.deepcopy(spec["config"])
     b = spec["b"]
+    given = spec.get("given")
     state = stage1.build_stage1(config, device,
                                 torch.Generator().manual_seed(0))
-    batch = shard_batch(stage1.synthetic_batch(config, b), create_mesh())
+    if given:
+        state.vqvae.load_state_dict(given["vqvae"])
+        batch = {"video": given["video"]}
+    else:
+        batch = stage1.synthetic_batch(config, b)
+    batch = shard_batch(batch, create_mesh())
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
-    for _ in range(spec.get("steps", 2)):
-        values = stage1.train_step(state, batch, gen)
+    for i in range(spec.get("steps", 2)):
+        values = stage1.train_step(state, batch, gen,
+                                   **_step_draws(given, i, device))
         out.append({
             "values": _global_mean(values),
             "grads": {n: p.grad for n, p in state.vqvae.named_parameters()},
@@ -181,15 +217,22 @@ def _case_stage2(spec: Mapping[str, Any], device) -> dict:
     from ..train import stage2
     config = copy.deepcopy(spec["config"])
     b = spec["b"]
+    given = spec.get("given")
     state = stage2.build_stage2(config, device,
                                 torch.Generator().manual_seed(0))
-    batch = stage2.synthetic_batch(config, b,
-                                   torch.Generator().manual_seed(1))
+    if given:
+        state.generator.load_state_dict(given["generator"])
+        state.vqvae.load_state_dict(given["vqvae"])
+        batch = dict(given["batch"])
+    else:
+        batch = stage2.synthetic_batch(config, b,
+                                       torch.Generator().manual_seed(1))
     batch = shard_batch(batch, create_mesh())
     gen = torch.Generator(device=device).manual_seed(2)
     out = []
-    for _ in range(spec.get("steps", 2)):
-        values = stage2.train_step(state, batch, gen)
+    for i in range(spec.get("steps", 2)):
+        values = stage2.train_step(state, batch, gen,
+                                   **_step_draws(given, i, device, True))
         d = state.generator.diffusion
         out.append(_cpu({
             "values": _global_mean(values),
@@ -209,10 +252,15 @@ def _case_sampling(spec: Mapping[str, Any], device) -> dict:
     from ..generate import build_models, sample_token_grid
     config = copy.deepcopy(spec["config"])
     b = spec["b"]
+    given = spec.get("given")
     models = build_models(config, device, torch.Generator().manual_seed(0))
     n_classes = int(config["generator"]["textencoder"]["n_classes"])
     labels = torch.randint(0, n_classes, (b,),
                            generator=torch.Generator().manual_seed(1))
+    if given:
+        models.generator.load_state_dict(given["generator"])
+        models.vqvae.load_state_dict(given["vqvae"])
+        labels = torch.as_tensor(given["labels"])
     batch = shard_batch({"label": labels.to(device)}, create_mesh())
     tokens = sample_token_grid(models, batch,
                                torch.Generator().manual_seed(3),
@@ -260,7 +308,8 @@ def _run(spec: Mapping[str, Any]) -> dict:
     out = {}
     for name, case in spec["cases"].items():
         before = launch_counts()
-        out[name] = _cpu(_CASES[name](case, device))
+        kind = case.get("kind", name)
+        out[name] = {"kind": kind, **_cpu(_CASES[kind](case, device))}
         if device.type == "cuda":
             torch.cuda.synchronize()
         after = launch_counts()
@@ -313,12 +362,13 @@ def compare(got: Mapping[str, Any], want: Mapping[str, Any],
 
     for case, w in want.items():
         g = got[case]
-        if case == "codebook_stats":
+        kind = w.get("kind", case)
+        if kind == "codebook_stats":
             equal(case, "indices", g["indices"], w["indices"])
             equal(case, "n_total", g["n_total"], w["n_total"])
             check(case, "encode_sum", _rel(g["encode_sum"], w["encode_sum"]),
                   EMA_RTOL)
-        elif case == "codebook":
+        elif kind == "codebook":
             for i, (gs, ws) in enumerate(zip(g["steps"], w["steps"])):
                 equal(case, "encodings", gs["encodings"], ws["encodings"],
                       f"step {i}")
@@ -329,7 +379,7 @@ def compare(got: Mapping[str, Any], want: Mapping[str, Any],
                 check(case, "perplexity", abs(gs["perplexity"]
                                               / ws["perplexity"] - 1),
                       LOSS_RTOL, f"step {i}")
-        elif case in ("stage1", "stage2"):
+        elif kind in ("stage1", "stage2"):
             held = len(w["steps"]) if every_step else w["held"]
             for i, (gs, ws) in enumerate(zip(g["steps"][:held],
                                              w["steps"][:held])):
@@ -360,7 +410,7 @@ def compare(got: Mapping[str, Any], want: Mapping[str, Any],
                     else:
                         check(case, n.rsplit(".", 1)[-1],
                               _rel(gs["buffers"][n], v), EMA_RTOL, where)
-        elif case == "sampling":
+        elif kind == "sampling":
             equal(case, "tokens", g["tokens"], w["tokens"])
     report = {case: {what: (f"{err:.3g}" if isinstance(err, float)
                             else ("equal" if err == 0 else

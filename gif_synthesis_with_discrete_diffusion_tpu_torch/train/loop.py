@@ -30,10 +30,9 @@ process per rank) the trainer is one replica of the JAX package's
 group's size, and on the CPU ``trainer.host_device_count`` is the count of
 ranks; ``mesh.model > 1`` is ROADMAP item [16b] and raises. Rank 0's
 initial state is broadcast to every rank; each rank reads its rows of each
-global batch (the datamodule's ``set_mesh`` slices the sample indices
-before the clips are decoded, else :func:`..parallel.mesh.shard_batch`
-slices the batch), and a global batch that does not divide over the ranks
-raises; the steps average their gradients over the ranks
+global batch (the datamodule's ``set_mesh``, which every datamodule
+must have in a group, slices the sample indices before the clips are
+decoded), and a global batch that does not divide over the ranks raises; the steps average their gradients over the ranks
 (:func:`..parallel.distributed.average_gradients`) and the model takes
 global statistics where the JAX package's global arrays do; the metrics
 are averaged over the ranks. Only rank 0 writes checkpoints, logs and
@@ -55,7 +54,7 @@ import numpy as np
 import torch
 
 from ..parallel.distributed import is_distributed, local_rank
-from ..parallel.mesh import Mesh, create_mesh, replicate, shard_batch
+from ..parallel.mesh import Mesh, create_mesh, replicate
 from ..train.metrics import MetricAccumulator, loss_log_name
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricLogger, build_metric_loggers, get_logger
@@ -146,10 +145,7 @@ class Trainer:
             data = tcfg.get("host_device_count")
         self.mesh: Mesh = create_mesh(data, int(mesh_cfg.get("model") or 1))
         if is_distributed():
-            if hasattr(datamodule, "set_mesh"):
-                datamodule.set_mesh(self.mesh)
-            else:
-                self.datamodule = _ShardedDataModule(datamodule, self.mesh)
+            datamodule.set_mesh(self.mesh)
         self.max_epochs = int(tcfg.get("max_epochs", 1))
         self.max_steps = tcfg.get("max_steps")
         self.check_val_every_n_epoch = int(
@@ -387,20 +383,3 @@ class Trainer:
             self._es_bad_epochs += 1
         return self._es_bad_epochs > self.es_patience
 
-
-class _ShardedDataModule:
-    """A datamodule without ``set_mesh`` seen by one rank: each batch
-    sliced to the rank's rows (:func:`..parallel.mesh.shard_batch`)."""
-
-    def __init__(self, dm, mesh: Mesh):
-        self._dm = dm
-        self._mesh = mesh
-
-    def __getattr__(self, name):
-        attr = getattr(self._dm, name)
-        if name.endswith("_batches"):
-            def sharded(*a, **k):
-                for b in attr(*a, **k):
-                    yield shard_batch(b, self._mesh)
-            return sharded
-        return attr
