@@ -141,7 +141,26 @@ Phases:
      means, and their cost against those f32 means (the formula before
      data parallelism), one BatchNorm's forward and backward at the stage-1
      configurations' shapes and whole ``TRAIN_STEP1`` and ``TRAIN_STEP128``
-     steps, in turns.
+     steps, in turns;
+ 19. the reference's checkpoints and tensor parallelism: (a) reference-
+     named state dicts of the VQ-VAE at ``vqvae_ucf.sh``'s widths, the
+     19-layer denoiser, the 400-class I3D, ResNet-50 and the 12 x 512 CLIP
+     tower written as the reference's files (Lightning checkpoints whose
+     hyper-parameters no loader can import, bare state dicts), read back
+     through ``convert/torch_*.py`` bitwise, on the card against the CPU,
+     and ``probes/parity_fvd.py`` at its defaults with ``--vqvae --d3pm
+     --i3d`` as a child process; K6's two entries for a codebook sharded
+     by codes (``nearest_code_dist``, ``code_stats``) against their plain
+     versions at the frozen encode's shape (N = 16384, K = 4096 in two
+     shards; the nearest over the shards equals the unsharded K6's indices
+     exactly, repeated codes across the boundary too), each timed at one
+     shard's shape; (b) two ranks on ``cuda:0`` over gloo at
+     ``trainer.mesh.model=2`` against one rank (``probes/ddp_parity.py``):
+     K6's sharded lookup, a stage-1 step at ``vqvae_ucf.sh``'s widths
+     (B=64), ``TRAIN_STEP2`` at ``ddiff_ucf.sh``'s (B=16) with an f32 and a
+     bf16 denoiser, argmax sampling through K3 on the gathered weights
+     (tokens bitwise), with the step times, the launches of K6's entries
+     and the bytes a rank holds.
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -2337,6 +2356,112 @@ def _resnet50(generator):
     return net
 
 
+def _reference_keyed(kind: str, sd: dict) -> dict:
+    """A port state dict under the reference checkpoint's names (what
+    ``convert/torch_<kind>.py`` reads back to ``sd``): every layout the
+    port keeps is torch's own, so only the names change, and the CLIP
+    tower's q / k / v stack into ``in_proj``. ``kind``: vqvae, d3pm (the
+    generator's ``diffusion.`` part), i3d, resnet, clip."""
+    import torch
+    out = {}
+    # the reference's residual stack ends in its BatchNorm: the port's
+    # bn_out is the stack's entry n_res_layers
+    n_res = len({m.group(1) for k in sd
+                 for m in [re.match(r"^encoder\.res(\d+)\.", k)] if m})
+    for k, v in sd.items():
+        if kind == "vqvae":
+            if k == "codebook.initialized":
+                continue
+            k = re.sub(r"^(encoder|decoder)\.bn_out\.",
+                       rf"\1.res_stack.{n_res}.", k)
+            k = (k.replace("codebook.ema_count", "codebook.N")
+                 .replace("codebook.ema_sum", "codebook.z_avg"))
+            k = re.sub(r"^(encoder|decoder)\.conv(\d+)\.",
+                       r"\1.convs.\2.conv.", k)
+            k = re.sub(r"^decoder\.convt(\d+)\.", r"decoder.convts.\1.convt.",
+                       k)
+            k = re.sub(r"^(encoder\.conv_last|pre_vq_conv|post_vq_conv)\.",
+                       r"\1.conv.", k)
+            k = re.sub(r"\.res(\d+)\.", r".res_stack.\1.", k)
+            for port, ref in (("bn1", "block.0"), ("conv1", "block.2.conv"),
+                              ("bn2", "block.3"), ("conv2", "block.5.conv"),
+                              ("bn3", "block.6"), ("axial", "block.8")):
+                k = re.sub(rf"(res_stack\.\d+)\.{port}\.", rf"\1.{ref}.", k)
+            k = re.sub(r"\.w([qkv])\.", r".w_\1s.", k)
+        elif kind == "d3pm":
+            if not k.startswith("diffusion.") or k.endswith(
+                    ("diffusion_acc", "diffusion_keep")):
+                continue
+            k = (k[len("diffusion."):].replace("lt_history", "Lt_history")
+                 .replace("lt_count", "Lt_count")
+                 .replace("mlp_fc.", "mlp.0.").replace("mlp_proj.", "mlp.2.")
+                 .replace("transformer.ln_out.", "transformer.to_logits.0.")
+                 .replace("transformer.to_logits.", "transformer.to_logits.1.")
+                 .replace("to_logits.1.0.", "to_logits.0."))
+            k = re.sub(r"transformer\.block(\d+)\.", r"transformer.blocks.\1.",
+                       k)
+        elif kind == "i3d":
+            k = re.sub(r"^((?:[^.]+\.)*?[^.]+)\.(weight|bias)$",
+                       lambda m: (m.group(0) if m.group(1).endswith(".bn")
+                                  else f"{m.group(1)}.conv3d.{m.group(2)}"),
+                       k)
+        elif kind == "resnet":
+            k = re.sub(r"^layer(\d)_(\d+)\.", r"layer\1.\2.", k)
+            k = (k.replace("downsample_conv.", "downsample.0.")
+                 .replace("downsample_bn.", "downsample.1."))
+        elif kind == "clip":
+            m = re.match(r"^resblock(\d+)\.attn\.(query|key|value)\.(\w+)$",
+                         k)
+            if m:
+                i, leaf = m.group(1), m.group(3)
+                name = f"transformer.resblocks.{i}.attn.in_proj_{leaf}"
+                if name not in out:
+                    out[name] = torch.cat([
+                        sd[f"resblock{i}.attn.{p}.{leaf}"]
+                        for p in ("query", "key", "value")])
+                continue
+            k = re.sub(r"^resblock(\d+)\.", r"transformer.resblocks.\1.", k)
+            k = (k.replace("attn.out.", "attn.out_proj.")
+                 .replace("mlp_fc.", "mlp.c_fc.")
+                 .replace("mlp_proj.", "mlp.c_proj."))
+        else:
+            raise ValueError(f"unknown kind {kind!r}")
+        out[k] = v
+    return out
+
+
+def save_reference_file(path, sd: dict, prefix: str = "",
+                        lightning: bool = False) -> None:
+    """``sd`` (reference-named tensors) saved as the reference's file: bare,
+    as ``i3d_pretrained_400.pt`` or torchvision's weights, or
+    (``lightning``) as Lightning saves a checkpoint, under ``state_dict``
+    with its module's ``prefix`` beside ``hyper_parameters`` that hold an
+    object of a class in a module no loader can import."""
+    import types
+
+    import torch
+    if not lightning:
+        torch.save({prefix + k: v for k, v in sd.items()}, path)
+        return
+    fake = types.ModuleType("lightning_fixture_hparams")
+
+    class AttributeDict(dict):
+        pass
+    AttributeDict.__module__ = fake.__name__
+    AttributeDict.__qualname__ = "AttributeDict"
+    fake.AttributeDict = AttributeDict
+    sys.modules[fake.__name__] = fake
+    try:
+        hp = AttributeDict(lr=1e-4, note="x")
+        hp.extra = [AttributeDict(a=1)]
+        torch.save({"epoch": 3, "global_step": 7,
+                    "pytorch-lightning_version": "1.6.0",
+                    "state_dict": {prefix + k: v for k, v in sd.items()},
+                    "hyper_parameters": hp}, path)
+    finally:
+        del sys.modules[fake.__name__]
+
+
 def _check_tower(torch, phase: str, b: int) -> tuple[float, float]:
     """The full CLIP text tower (width 512, 12 layers) at batch ``b`` on the
     card against the CPU; returns (relative error, card ms per call)."""
@@ -3335,6 +3460,315 @@ def phase_ddp(torch, smi: str) -> dict:
     return launches
 
 
+# phase 19: the converted weights on the card against the CPU. The
+# denoiser's logits pass 19 layers of f32 attention (K2, each within K2_TOL
+# of its plain version): held to five times K2's bound, relative to their
+# max-abs
+DENOISER_TOL = 5 * K2_TOL
+PHASE19_TIMEOUT = 600   # the parity_fvd child of phase 19 (a)
+
+
+def _phase19_converters(torch, smi: str) -> None:
+    """(a) [1] at full width: reference-named state dicts of the VQ-VAE at
+    ``vqvae_ucf.sh``'s widths, the 19-layer denoiser (``HONEST``'s widths
+    on ``parity_fvd``'s default grid), the 400-class I3D, ResNet-50 and the
+    12 x 512 CLIP tower, written as the reference's files (Lightning
+    checkpoints under their prefixes for the two stages, bare state dicts
+    for the others); each read back through its ``_file`` function bitwise
+    to the weights it came from, onto the card, its output held against the
+    same weights on the CPU; then ``probes/parity_fvd.py`` at its defaults
+    with the three files, as a child process."""
+    import tempfile
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.convert import (
+        torch_clip, torch_d3pm, torch_i3d, torch_resnet, torch_vqvae)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        build_models)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        parity_fvd)
+    args = parity_fvd.parser().parse_args([])
+    models = build_models(parity_fvd._config(args), "cpu",
+                          torch.Generator().manual_seed(41))
+    models.vqvae.codebook.initialized.fill_(True)
+    gen = torch.Generator().manual_seed(42)
+    sources = {"vqvae": models.vqvae, "d3pm": models.generator,
+               "i3d": _i3d(gen), "resnet": _resnet50(gen),
+               "clip": _clip_tower(gen)}
+    reads = {
+        "vqvae": lambda f: torch_vqvae.convert_vqvae_file(
+            f, n_res_layers=args.res_layers),
+        "d3pm": torch_d3pm.convert_d3pm_file,
+        "i3d": torch_i3d.convert_i3d_file,
+        "resnet": torch_resnet.convert_resnet50_file,
+        "clip": torch_clip.convert_clip_text_file}
+    files = {"vqvae": ("vqvae_ucf.ckpt", "generator.", True),
+             "d3pm": ("ddiff_ucf.ckpt", "generator.diffusion_model.", True),
+             "i3d": ("i3d_pretrained_400.pt", "", False),
+             "resnet": ("resnet50.pth", "", False),
+             "clip": ("clip_vit_b32_text.pt", "", False)}
+    latent = models.vqvae.latent_shape
+    g = torch.Generator().manual_seed(43)
+    tokens = torch.randint(0, args.codes, (2, *latent), generator=g)
+    runs = {
+        "vqvae": (lambda m, dev: m.decode(tokens.to(dev)), VIDEO_TOL),
+        "d3pm": (lambda m, dev: m.diffusion.transformer(
+            tokens.reshape(2, -1).to(dev),
+            torch.zeros((2, 1, args.cond_dim), device=dev),
+            torch.tensor([3, 77], device=dev)), DENOISER_TOL),
+        "i3d": (lambda m, dev: m(torch.randn(
+            (2, 16, 32, 32, 3), generator=torch.Generator().manual_seed(
+                44)).to(dev)), FVD_NET_TOL),
+        "resnet": (lambda m, dev: m(torch.randn(
+            (2, 64, 64, 3), generator=torch.Generator().manual_seed(
+                45)).to(dev)), FVD_NET_TOL),
+        "clip": (lambda m, dev: m(torch.from_numpy(_text_tokens(2)).long()
+                                  .to(dev)), TEXT_TOWER_TOL)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for kind, module in sources.items():
+            name, prefix, lightning = files[kind]
+            paths[kind] = str(Path(tmp) / name)
+            sd = module.state_dict()
+            save_reference_file(paths[kind], _reference_keyed(kind, sd),
+                                prefix, lightning)
+            t0 = time.perf_counter()
+            read = reads[kind](paths[kind])
+            read_s = time.perf_counter() - t0
+            want = {k: v for k, v in sd.items() if k in read}
+            same = (set(read) == set(want) and all(
+                torch.equal(read[k], v) for k, v in want.items()))
+            if not same or (kind != "d3pm" and set(read) != set(sd)):
+                raise AssertionError(f"phase 19: the {kind} file read back "
+                                     f"is not the weights written")
+            module.load_state_dict(read, strict=kind != "d3pm")
+            run, tol = runs[kind]
+            module.eval()
+            with torch.no_grad():
+                cpu = run(module, "cpu").float()
+                card = run(module.to("cuda"), "cuda").float().cpu()
+            module.to("cpu")
+            err = float((card - cpu).abs().max() / cpu.abs().max())
+            print(f"phase 19: {kind}: {Path(paths[kind]).name} "
+                  f"({Path(paths[kind]).stat().st_size / 1e6:.1f} MB, "
+                  f"{len(read)} tensors) read in {read_s:.2f} s, bitwise "
+                  f"the weights written; on the card vs the CPU "
+                  f"{tuple(card.shape)} within {err:.3e} of its max-abs "
+                  f"(tol {tol})")
+            if not err <= tol:
+                raise AssertionError(f"phase 19: the converted {kind} on the "
+                                     f"card disagrees with the CPU")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.probes.parity_fvd",
+             "--vqvae", paths["vqvae"], "--d3pm", paths["d3pm"],
+             "--i3d", paths["i3d"]], cwd=ROOT, capture_output=True,
+            text=True, timeout=PHASE19_TIMEOUT)
+        wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("phase 19: parity_fvd with the three files "
+                             "failed")
+    out = json.loads(lines[-1])
+    print(f"phase 19: parity_fvd at its defaults with --vqvae --d3pm --i3d "
+          f"({wall:.1f} s, a child process): {json.dumps(out)} ({smi})")
+    if not (out["pretrained_weights"] and math.isfinite(out["fvd"])
+            and out["num_clips"] == args.num_clips):
+        raise AssertionError("phase 19: parity_fvd did not read the three "
+                             "files")
+
+
+def _k6_entries(torch, smi: str) -> dict:
+    """K6's two entries for a codebook sharded by codes against their plain
+    versions at the frozen encode's shape (N = 16384 rows, K = 4096 codes in
+    two shards of 2048, D = 128): the nearest over the shards equals the
+    unsharded K6's indices exactly (also with every code of one shard
+    repeated in the other, where the lower copy must win); then each timed
+    at one shard's shape against its plain version and a library call.
+    Returns the kernels line's numbers of each."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import (code_stats, code_stats_range_reference, nearest_code_dist,
+                nearest_code_dist_reference, nearest_code_stats)
+    n, k, d, shards = 16384, 4096, 128, 2
+    per = k // shards
+    g = torch.Generator(device="cuda").manual_seed(51)
+    x = torch.randn((n, d), generator=g, device="cuda")
+    errs = {"dist": 0.0, "stats": 0.0}
+    e = torch.randn((k, d), generator=g, device="cuda")
+    for label, e in (("random codes", e), ("shard 1 repeating shard 0",
+                                           torch.cat([e[:per], e[:per]]))):
+        whole = nearest_code_stats(x, e)[0]
+        parts = [nearest_code_dist(x, e[r * per:(r + 1) * per].contiguous())
+                 for r in range(shards)]
+        shard = torch.argmin(torch.stack([p[1] for p in parts]), dim=0)
+        idx = torch.stack([p[0] + r * per for r, p in enumerate(parts)]
+                          ).gather(0, shard[None])[0]
+        wrong = int((idx != whole).sum())
+        for r, (li, dist) in enumerate(parts):
+            ref_i, ref_d = nearest_code_dist_reference(
+                x, e[r * per:(r + 1) * per])
+            errs["dist"] = max(errs["dist"], float(
+                (dist - ref_d).abs().max() / ref_d.abs().max()))
+            ref_full = -2.0 * (x @ e[r * per:(r + 1) * per].t()) + (
+                e[r * per:(r + 1) * per] ** 2).sum(-1)[None]
+            top2 = (-ref_full).topk(2, dim=1).values
+            decided = (top2[:, 0] - top2[:, 1]) > K6_MARGIN
+            if int(((li != ref_i) & decided).sum()):
+                raise AssertionError("phase 19: nearest_code_dist disagrees "
+                                     "with its plain version")
+        for r in range(shards):
+            got_n, got_s = code_stats(x, idx, r * per, per)
+            want_n, want_s = code_stats_range_reference(x, idx, r * per, per)
+            torch.testing.assert_close(got_n, want_n, rtol=0, atol=0)
+            errs["stats"] = max(errs["stats"], float(
+                (got_s - want_s).abs().max()))
+            torch.testing.assert_close(got_s, want_s, rtol=K6_TOL,
+                                       atol=K6_TOL)
+        print(f"phase 19: K6's sharded lookup, N={n} K={k} D={d} in "
+              f"{shards} shards ({label}): {wrong} indices differ from the "
+              f"unsharded K6's; distances within {errs['dist']:.3e} of the "
+              f"plain ones (relative), statistics max-abs "
+              f"{errs['stats']:.3e} (rtol = atol = {K6_TOL}), counts exact")
+        if wrong:
+            raise AssertionError("phase 19: the sharded lookup's indices are "
+                                 "not the unsharded K6's")
+        if label != "random codes" and int(idx.max()) >= per:
+            raise AssertionError("phase 19: a repeated code's upper copy won")
+    e = torch.randn((per, d), generator=g, device="cuda")
+    ms, plain_ms = _ab_ms(lambda: nearest_code_dist_reference(x, e),
+                          lambda: nearest_code_dist(x, e), 10)
+    flops = 2.0 * n * per * d
+    nbytes = 4.0 * (x.numel() + e.numel()) + 8.0 * n
+    bound_ms, bound_by = _bound(nbytes, 0.0, flops_tf32=3.0 * flops)
+    dist = {"max_abs_err": errs["dist"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    print(f"phase 19: nearest_code_dist (N={n}, K={per} a shard, D={d}) "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by}; no single library call ({smi})")
+    idx = torch.randint(0, k, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    ms, plain_ms = _ab_ms(
+        lambda: code_stats_range_reference(x, idx, 0, per),
+        lambda: code_stats(x, idx, 0, per), 10)
+    inside = (idx < per)
+    rows = int(inside.sum())
+    lib_idx = idx.long().clamp(max=per)
+    lib = torch.zeros((per + 1, d), device="cuda")
+    library_ms = _time_ms(lambda: lib.zero_().index_add_(0, lib_idx, x), 10)
+    # the rows of this shard's codes read once, every index read, the
+    # counts and sums written; one add an element of those rows
+    nbytes = 4.0 * rows * d + 4.0 * n + 4.0 * per * (d + 1)
+    bound_ms, bound_by = _bound(nbytes, float(rows * d))
+    stats = {"max_abs_err": errs["stats"], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms}
+    print(f"phase 19: code_stats (N={n} rows, {rows} of them in the "
+          f"shard's {per} codes, D={d}) kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, index_add_ of the sums {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({smi})")
+    return {"nearest_code_dist": dist, "code_stats": stats}
+
+
+def _phase19_ranks(torch, smi: str) -> dict:
+    """(b) [16b] on ``cuda:0``: two ranks over gloo at ``model=2`` against
+    one rank on the same global batch (``probes/ddp_parity.py``): K6's
+    sharded lookup at the frozen encode's shape, a stage-1 step at
+    ``vqvae_ucf.sh``'s widths (B=64), ``TRAIN_STEP2`` at ``ddiff_ucf.sh``'s
+    (B=16) with an f32 and with a bf16 denoiser, and argmax sampling through
+    K3 on the gathered weights (tokens bitwise one rank's). Prints the step
+    times, each case's launches of K6's entries and the bytes of parameters
+    and Adam state a rank holds. Returns rank 0's launches by case."""
+    import tempfile
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.parallel \
+        .distributed import run_ranks
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        ddp_parity)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        stage2_config)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.utils.config import (
+        compose)
+    cfg1 = compose("train", _job_overrides("vqvae_ucf.sh")
+                   + list(HARNESS_BASE))
+    cfg2 = compose("train", _job_overrides("ddiff_ucf.sh")
+                   + list(HARNESS_BASE))
+    s2 = stage2_config(cfg2["model"])
+    s2_bf16 = copy.deepcopy(s2)
+    s2_bf16["generator"]["diffusion_model"]["transformer"]["dtype"] = \
+        "bfloat16"
+    g = cfg1["model"]["generator"]
+    spec = {"device": "cuda", "mesh": {"model": 2}, "cases": {
+        "codebook_stats": {"n": 16384, "k": int(g["n_codes"]),
+                           "d": int(g["embedding_dim"])},
+        "stage1": {"config": cfg1["model"], "b": 64, "steps": 1,
+                   "timed": 3},
+        "stage2": {"config": s2, "b": 16, "steps": 2, "timed": 3},
+        "stage2_bf16": {"kind": "stage2", "config": s2_bf16, "b": 16,
+                        "steps": 1, "timed": 3},
+        "sampling": {"config": HONEST, "b": 4, "sampler": "megakernel"},
+    }}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rank0 = run_ranks(ddp_parity.run_cases, 2, "cuda", spec, out,
+                          backend="gloo", one_device=True)
+        wall = time.perf_counter() - t0
+        rank1 = torch.load(Path(out) / "rank1.pt", weights_only=False)
+    torch.cuda.empty_cache()
+    one = ddp_parity.one_rank(spec)
+    torch.cuda.empty_cache()
+    f32 = [c for c in spec["cases"] if c != "stage2_bf16"]
+    report = ddp_parity.compare({c: rank0[c] for c in f32},
+                                {c: one[c] for c in f32}, strict=False)
+    print(f"phase 19: two ranks on cuda:0 over gloo at model=2 against one "
+          f"rank ({wall:.1f} s with the processes' start): "
+          + json.dumps(report))
+    ddp_parity.compare({c: rank0[c] for c in f32}, {c: one[c] for c in f32})
+    ddp_parity.compare({c: rank1[c] for c in f32},
+                       {c: rank0[c] for c in f32})
+    got, want = rank0["stage2_bf16"]["steps"][0], one["stage2_bf16"][
+        "steps"][0]
+    largest = max(float(v.abs().max()) for v in want["grads"].values())
+    loss_err = abs(got["values"]["total"] / want["values"]["total"] - 1)
+    grad_err = max(float((got["grads"][n] - v).abs().max()) / largest
+                   for n, v in want["grads"].items())
+    print(f"phase 19: TRAIN_STEP2 bf16 denoiser at model=2 against one rank: "
+          f"loss within {loss_err:.3e} (relative), gradients within "
+          f"{grad_err:.3e} of the largest (tol {BF16_TRAIN_TOL})")
+    if not (loss_err <= BF16_TRAIN_TOL and grad_err <= BF16_TRAIN_TOL):
+        raise AssertionError("phase 19: the bf16 step at model=2 disagrees "
+                             "with one rank")
+    for case in ("stage1", "stage2", "stage2_bf16"):
+        print(f"phase 19: {case} step at B={spec['cases'][case]['b']}: one "
+              f"rank {one[case]['step_ms']:.2f} ms, two ranks at model=2 on "
+              f"one card over gloo {rank0[case]['step_ms']:.2f} ms (medians "
+              f"of 3, each run in its own processes); parameters, buffers "
+              f"and Adam state a rank holds: {rank0[case]['bytes'] / 1e6:.3f}"
+              f" MB against {one[case]['bytes'] / 1e6:.3f} MB on one rank "
+              f"({smi})")
+    launches = {c: r["launches"] for c, r in rank0.items()}
+    print("phase 19: rank 0's launches by case: " + json.dumps(launches))
+    for case in ("codebook_stats", "stage1", "stage2", "stage2_bf16"):
+        r = launches[case]
+        if not (r["K6 dist"] >= 1 and r["K6 stats"] >= 1 and r["K6"] == 0):
+            raise AssertionError(f"phase 19: {case} did not take K6's "
+                                 f"sharded entries: {r}")
+    if launches["sampling"]["K3"] != 100:
+        raise AssertionError("phase 19: sampling did not run K3")
+    return launches
+
+
+def phase_tp(torch, smi: str) -> dict:
+    """Phase 19: the reference's checkpoints ([1]) and tensor parallelism
+    over ``trainer.mesh.model`` ([16b]). Returns K6's new entries' numbers
+    and rank 0's launches."""
+    _phase19_converters(torch, smi)
+    entries = _k6_entries(torch, smi)
+    return {"entries": entries, "ranks": _phase19_ranks(torch, smi)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path on "
                                  "one CUDA card.")
@@ -3386,6 +3820,8 @@ def main() -> int:
     harness = phase_harness(torch, smi)
     t_phase18 = time.perf_counter()
     ddp = phase_ddp(torch, smi)
+    t_phase19 = time.perf_counter()
+    tp = phase_tp(torch, smi)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -3520,6 +3956,28 @@ def main() -> int:
             if n:
                 kernel["launches_by_path"][path] = n
                 kernel["launches"] += n
+    # phase 19's paths: rank 0 of the two ranks at model=2 on one card; K6's
+    # two entries for a sharded codebook launch only there
+    tp_paths = {
+        "codebook_stats": "phase 19: rank 0 of 2 at model=2 on cuda:0, K6's "
+                          "sharded lookup (N=16384, 2048 codes a rank)",
+        "stage1": "phase 19: rank 0 of 2 at model=2, a stage-1 step "
+                  "(vqvae_ucf.sh, B=64) and 3 timed",
+        "stage2": "phase 19: rank 0 of 2 at model=2, TRAIN_STEP2 steps "
+                  "(ddiff_ucf.sh, B=16, f32 denoiser)",
+        "stage2_bf16": "phase 19: rank 0 of 2 at model=2, TRAIN_STEP2 steps "
+                       "(bf16 denoiser)"}
+    for name, kid in (("nearest_code_dist", "K6 dist"),
+                      ("code_stats", "K6 stats")):
+        by_path = {path: tp["ranks"][case][kid]
+                   for case, path in tp_paths.items()
+                   if tp["ranks"][case][kid]}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"{PKG}/csrc/nearest_code_stats.cu",
+            replaces=tpu + "ops/codebook_kernel.py:95",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **tp["entries"][name]))
     on_harness = {kid: sum(r[kid] for r in harness.values())
                   for kid in by_kernel.values()}
     if not (on_harness["K2"] and on_harness["K5"] and on_harness["K6"]
@@ -3535,7 +3993,9 @@ def main() -> int:
           f"bench rows) {t_phase15 - t_phase14:.1f} s, phases 15-16 (text "
           f"conditioning, FVD) {t_phase17 - t_phase15:.1f} s, phase 17 (the "
           f"harness) {t_phase18 - t_phase17:.1f} s, phase 18 (checkpointing,"
-          f" two ranks, NCCL, the sweep) {t_end - t_phase18:.1f} s")
+          f" two ranks, NCCL, the sweep) {t_phase19 - t_phase18:.1f} s, "
+          f"phase 19 (the reference's checkpoints, tensor parallelism) "
+          f"{t_end - t_phase19:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

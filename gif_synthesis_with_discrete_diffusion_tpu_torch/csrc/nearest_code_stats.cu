@@ -50,6 +50,21 @@
 // The counts are integers and exact; encode_sum's sums come in no fixed
 // order, so they agree with a sequential sum to f32 rounding (the tests hold
 // them to 1e-4).
+//
+// Two more entries serve a codebook sharded by codes over the model ranks
+// of tensor parallelism, where a row's nearest code among this rank's codes
+// may lose to another rank's, so the fused statistics would count it wrong:
+//   * nearest_code_dist: the same kernel without the statistics, writing
+//     each row's local index and its distance ||e||^2 - 2 x.e (f32). A
+//     code's distance comes from its own values alone, by the same split
+//     TF32 products in the same order whichever tile or shard it lies in,
+//     so the minimum over the shards, ties to the lower shard, is the
+//     unsharded kernel's index exactly;
+//   * code_stats: n_total and encode_sum of the codes [lo, lo + K) from the
+//     rows' given global indices (the winners over the shards): a grid-
+//     stride pass over x, one float atomic an element of a row that falls
+//     in the range. It moves N D floats and does N D adds, bound by the
+//     bytes (and by the atomics of a code many rows chose).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -124,7 +139,7 @@ template <int MT, int WR, int CH, int ST>
 __global__ void __launch_bounds__(kThreads, 1)
 nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
                     int N, int K, int D, int vec, int* __restrict__ idx_out,
-                    float* __restrict__ n_total,
+                    float* __restrict__ dist_out, float* __restrict__ n_total,
                     float* __restrict__ encode_sum) {
   using S = Shape<MT, WR, CH, ST>;
   constexpr int kBm = S::kBm, kBn = S::kBn, kWc = S::kWc;
@@ -323,9 +338,11 @@ nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
     const int row = row0 + r;
     if (row < N) {
       idx_out[row] = bi;
-      atomicAdd(&n_total[bi], 1.f);
+      if (dist_out != nullptr) dist_out[row] = bd;
+      if (n_total != nullptr) atomicAdd(&n_total[bi], 1.f);
     }
   }
+  if (n_total == nullptr) return;   // the same for the whole block
   __syncthreads();
   for (int i = tid; i < kBm * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -337,8 +354,8 @@ nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
 
 template <int MT, int WR, int CH, int ST>
 cudaError_t launch(const float* x, const float* e, int N, int K, int D,
-                   int vec, int* idx, float* n_total, float* encode_sum,
-                   cudaStream_t stream) {
+                   int vec, int* idx, float* dist, float* n_total,
+                   float* encode_sum, cudaStream_t stream) {
   using S = Shape<MT, WR, CH, ST>;
   const int dc = (D + CH - 1) / CH * CH;
   const size_t smem = static_cast<size_t>(S::kBm) * dc * 2 * sizeof(unsigned)
@@ -349,9 +366,35 @@ cudaError_t launch(const float* x, const float* e, int N, int K, int D,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   nearest_code_kernel<MT, WR, CH, ST><<<(N + S::kBm - 1) / S::kBm, kThreads, smem,
-                                stream>>>(x, e, N, K, D, vec, idx, n_total,
-                                          encode_sum);
+                                stream>>>(x, e, N, K, D, vec, idx, dist,
+                                          n_total, encode_sum);
   return cudaGetLastError();
+}
+
+cudaError_t launch_by_dim(const float* x, const float* e, int N, int K,
+                          int D, int vec, int* idx, float* dist,
+                          float* n_total, float* encode_sum, void* stream) {
+  if (N <= 0 || K <= 0 || D <= 0 || D > kMaxD) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return D <= 128 ? launch<4, 2, 64, 2>(x, e, N, K, D, vec, idx, dist,
+                                        n_total, encode_sum, s)
+                  : launch<2, 1, 32, 3>(x, e, N, K, D, vec, idx, dist,
+                                        n_total, encode_sum, s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+code_stats_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                  int N, int D, int lo, int K, float* __restrict__ n_total,
+                  float* __restrict__ encode_sum) {
+  const size_t total = static_cast<size_t>(N) * D;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < total; i += static_cast<size_t>(gridDim.x) * kThreads) {
+    const int r = static_cast<int>(i / D), d = static_cast<int>(i % D);
+    const int k = idx[r] - lo;
+    if (k < 0 || k >= K) continue;
+    if (d == 0) atomicAdd(&n_total[k], 1.f);
+    atomicAdd(&encode_sum[static_cast<size_t>(k) * D + d], x[i]);
+  }
 }
 
 }  // namespace
@@ -364,14 +407,31 @@ extern "C" int nearest_code_stats(const float* x, const float* e, int N,
                                   int K, int D, int vec, int* idx,
                                   float* n_total, float* encode_sum,
                                   void* stream) {
-  if (N <= 0 || K <= 0 || D <= 0 || D > kMaxD)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      D <= 128
-          ? launch<4, 2, 64, 2>(x, e, N, K, D, vec, idx, n_total, encode_sum,
-                                s)
-          : launch<2, 1, 32, 3>(x, e, N, K, D, vec, idx, n_total, encode_sum,
-                                s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_by_dim(x, e, N, K, D, vec, idx, nullptr,
+                                        n_total, encode_sum, stream));
+}
+
+// Each row's nearest code among e's K and its distance; no statistics.
+extern "C" int nearest_code_dist(const float* x, const float* e, int N,
+                                 int K, int D, int vec, int* idx,
+                                 float* dist, void* stream) {
+  return static_cast<int>(launch_by_dim(x, e, N, K, D, vec, idx, dist,
+                                        nullptr, nullptr, stream));
+}
+
+// n_total (K) and encode_sum (K, D), zero on entry, of the codes
+// [lo, lo + K) from the rows' global indices idx (N).
+extern "C" int code_stats(const float* x, const int* idx, int N, int D,
+                          int lo, int K, float* n_total, float* encode_sum,
+                          void* stream) {
+  if (N <= 0 || K <= 0 || D <= 0) return static_cast<int>(
+      cudaErrorInvalidValue);
+  const size_t total = static_cast<size_t>(N) * D;
+  const int blocks = static_cast<int>(
+      (total + kThreads - 1) / kThreads < 132 * 16
+          ? (total + kThreads - 1) / kThreads : 132 * 16);
+  code_stats_kernel<<<blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      x, idx, N, D, lo, K, n_total, encode_sum);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -148,7 +148,8 @@ class ResNetFrameFeatures:
     ``state_dict`` (e.g. from :func:`..convert.from_flax.flax_to_state_dict`)
     gives the weights; without it the network takes the flax init laws from
     a generator seeded with ``seed`` (relative features only). A
-    torchvision ``weights_path`` is not read yet (ROADMAP item [1]).
+    torchvision ``weights_path`` is read through
+    :func:`..convert.torch_resnet.convert_resnet50_file`.
     """
 
     def __init__(self, weights_path: str | None = None,
@@ -161,9 +162,8 @@ class ResNetFrameFeatures:
         from ..train.loop import resolve_device
         device = resolve_device(platform)
         if weights_path:
-            raise NotImplementedError(
-                f"resnet50_weights={weights_path!r}: reading torchvision "
-                f"weights is ROADMAP item [1], not ported yet")
+            from ..convert.torch_resnet import convert_resnet50_file
+            state_dict = convert_resnet50_file(weights_path)
         with torch.device("meta"):
             model = ResNet50()
         model = model.to_empty(device="cpu")

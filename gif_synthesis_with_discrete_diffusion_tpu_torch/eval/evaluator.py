@@ -26,7 +26,7 @@ import torch
 
 from ..data.preprocess import preprocess_clip, unnormalize
 from ..parallel.distributed import (all_gather_rows, broadcast_object,
-                                    is_main_process)
+                                    data_group, is_main_process)
 from ..models.i3d import InceptionI3d, init_i3d_
 from ..utils.logging import get_logger
 
@@ -147,7 +147,7 @@ class FVDEvaluator:
         for batch in batches:
             videos = trainer.sample_videos(batch, trainer.next_sample_rng())
             gt_u8 = all_gather_rows(torch.as_tensor(batch["video"]).to(
-                self.device))
+                self.device), data_group())
             if main:
                 self.push_vals(preprocess_clip(gt_u8, trainer.resolution),
                                videos)

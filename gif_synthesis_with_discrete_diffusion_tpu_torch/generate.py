@@ -20,8 +20,10 @@ first validation batch and write one GIF each into ``out_dir``:
         model=discrete_diffusion datamodule=synthetic \
         ckpt_path=<run>/checkpoints +num_samples=4 +out_dir=./samples
 
-On more than one rank (``trainer.mesh.data``, as :mod:`.tasks`) each rank
-samples its share of the ``num_samples`` clips and rank 0 writes them all.
+On more than one rank (``trainer.mesh.data`` x ``trainer.mesh.model``, as
+:mod:`.tasks`) each data index samples its share of the ``num_samples``
+clips (its model ranks together, on the sharded weights) and rank 0 writes
+them all.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from .models.discrete_diffusion import (DiscreteDiffusionModel,
                                         init_discrete_diffusion_,
                                         make_discrete_diffusion)
 from .models.vqvae import VQVAE, init_vqvae_, make_vqvae
-from .parallel.distributed import all_gather_rows, is_distributed
+from .parallel.distributed import all_gather_rows, data_group, is_distributed
 from .parallel.mesh import rank_generator
 
 __all__ = ["HONEST", "MSRVTT_GRID", "GenerationModels", "build_models",
@@ -134,7 +136,8 @@ def sample_token_grid(models: GenerationModels, batch: Mapping[str, Any],
         generator = rank_generator(generator)
     tokens = models.generator.sample(batch, b, generator=generator,
                                      sample=sample, mode=sampler)
-    return all_gather_rows(tokens.reshape(b, *models.latent_shape))
+    return all_gather_rows(tokens.reshape(b, *models.latent_shape),
+                           data_group())
 
 
 @torch.no_grad()
@@ -181,6 +184,7 @@ def _generate(cfg: Mapping[str, Any]) -> int:
     with tempfile.TemporaryDirectory() as run_dir:
         trainer = build_trainer(cfg, dm, run_dir)
         trainer.build(batch)
+        trainer.shard()
     if is_distributed():
         batch = shard_batch(batch, trainer.mesh)
     if cfg.get("ckpt_path"):

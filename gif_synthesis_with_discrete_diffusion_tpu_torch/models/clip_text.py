@@ -36,6 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .layers import parallel_mlp
+
 __all__ = ["ClipTextModel", "ClipTextConditioner", "ClipTokenizer",
            "HashTokenizer", "make_tokenizer", "DEFAULT_BPE_PATH",
            "init_clip_text_"]
@@ -247,9 +249,9 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask)
-        h = self.mlp_fc(self.ln_2(x))
-        h = h * torch.sigmoid(1.702 * h)  # QuickGELU
-        return x + self.mlp_proj(h)
+        # QuickGELU; Megatron's form where the MLP is sharded
+        return x + parallel_mlp(self.ln_2(x), self.mlp_fc, self.mlp_proj,
+                                lambda h: h * torch.sigmoid(1.702 * h))
 
 
 class ClipTextModel(nn.Module):

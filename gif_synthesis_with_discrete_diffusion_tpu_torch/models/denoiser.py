@@ -21,6 +21,16 @@ only the block's inputs and runs its forward again in the backward, so the
 attention kernel K2 launches twice for each K5. The forward and the
 gradients are those without it.
 
+Tensor parallelism over the model group (:func:`..parallel.mesh.
+shard_module_` with JAX's rules): the MLP runs in Megatron's form
+(:func:`.layers.parallel_mlp`), ``to_logits`` by columns, each rank's
+classes gathered along the class axis (the backward takes this rank's
+slice) so that the loss and the sampler see the one-rank (B, L, K-1)
+tensor, and the token table by rows where they divide
+(:class:`.embeddings.TokenGridEmbedding`). Attention and the LayerNorms are
+whole on every rank. Under ``checkpoint=True`` the recompute replays the
+MLP's collectives, in the same order on every rank.
+
 ``dtype`` is the JAX module's compute dtype: every dense layer of the blocks
 (the AdaLN projections, Q / K / V / proj, the MLP) computes in it on f32
 parameters (:class:`.layers.Dense`), so under bf16 both attentions get bf16
@@ -39,8 +49,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import fused_mha
+from ..parallel.distributed import (copy_to_group, gather_from_group,
+                                    model_group)
 from .embeddings import TokenGridEmbedding
-from .layers import Dense
+from .layers import Dense, parallel_mlp
 
 __all__ = ["DenoiserTransformer", "Block", "AdaLayerNorm", "SinusoidalPosEmb",
            "gelu2", "init_denoiser_"]
@@ -151,8 +163,8 @@ class Block(nn.Module):
                 timestep: torch.Tensor) -> torch.Tensor:
         x = x + self.attn1(self.ln1(x, timestep))
         x = x + self.attn2(self.ln1_1(x, timestep), cond)
-        h = self.mlp_proj(self.act(self.mlp_fc(self.ln2(x))))
-        return x + h
+        return x + parallel_mlp(self.ln2(x), self.mlp_fc, self.mlp_proj,
+                                self.act)
 
 
 class DenoiserTransformer(nn.Module):
@@ -197,7 +209,13 @@ class DenoiserTransformer(nn.Module):
                     block, emb, cond, t, use_reentrant=False)
             else:
                 emb = block(emb, cond, t)
-        logits = self.to_logits(self.ln_out(emb))   # (B, L, K-1)
+        h = self.ln_out(emb)
+        if getattr(self.to_logits.weight, "tp_dim", None) is None:
+            logits = self.to_logits(h)              # (B, L, K-1)
+        else:
+            group = model_group()
+            logits = gather_from_group(
+                self.to_logits(copy_to_group(h, group)), 2, group)
         return logits.transpose(1, 2)               # (B, K-1, L) view
 
 

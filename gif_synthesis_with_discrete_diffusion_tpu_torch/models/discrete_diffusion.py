@@ -24,7 +24,15 @@ In a data-parallel run (a process group) the training loss's draws (t with
 pt, the q-sample noise) are made for the global batch from the generator,
 the same on every rank, and each rank takes its rows; the Lt and telemetry
 buffers take the global batch's update (the values gathered in rank
-order). So an N-rank step is the one-rank step on the global batch.
+order). So an N-rank step is the one-rank step on the global batch. The
+ranks here are the data group's: the model ranks of one replica (tensor
+parallelism) draw and gather alike.
+
+Under tensor parallelism the ``megakernel`` route lends the denoiser its
+whole weights for each sampling call (:func:`..parallel.mesh.
+full_weights`, one gather), as XLA runs JAX's ``pallas_call`` on gathered
+operands; the ``model`` and ``reference`` routes run the sharded denoiser,
+whose logits come out whole.
 
 Sampler routes (``D3PM.sample(mode=)``): ``megakernel`` and ``model`` carry
 the token grid; ``reference`` carries the (B, K, L) log-onehot through
@@ -43,7 +51,9 @@ from torch import nn
 from ..ops.megakernel import (MEGAKERNEL_MAX_SEQ, kernels_fit,
                               megakernel_sample_tokens)
 from ..ops.sampler_kernel import sample_tokens
-from ..parallel.distributed import all_gather_rows, rank, world_size
+from ..parallel.distributed import (all_gather_rows, data_group,
+                                    group_rank, group_size)
+from ..parallel.mesh import full_weights
 from . import d3pm
 from .conditioning import build_conditioner, init_conditioner_
 from .denoiser import DenoiserTransformer, init_denoiser_
@@ -59,6 +69,10 @@ F10_MESSAGE = (
     "PRNG, so flax's Dropout raises InvalidRngError ('needs PRNG for "
     "\"dropout\"'). Building, sampling and evaluation work; set both to 0 "
     "to train")
+
+
+def _gather_data_rows(t: torch.Tensor) -> torch.Tensor:
+    return all_gather_rows(t, data_group())
 
 
 def resolve_sampler(mode: str, device: torch.device, seq_len: int,
@@ -185,11 +199,11 @@ class D3PM(nn.Module):
             cond_emb, lt, auxiliary_loss_weight=self.auxiliary_loss_weight,
             adaptive_auxiliary_loss=self.adaptive_auxiliary_loss,
             mask_weight=self.mask_weight, is_train=train, t=t, pt=pt,
-            noise=noise, gather_rows=all_gather_rows)
+            noise=noise, gather_rows=_gather_data_rows)
         if train:
             acc, keep = d3pm.update_diffusion_telemetry(
                 self.diffusion_acc, self.diffusion_keep,
-                *(all_gather_rows(x) for x in (
+                *(_gather_data_rows(x) for x in (
                     aux["t"], aux["x0_recon"], content_token, aux["xt"],
                     aux["xt_1_recon"])))
             with torch.no_grad():
@@ -211,7 +225,7 @@ class D3PM(nn.Module):
         rank's rows; without a group this process's) in
         :func:`.d3pm.train_loss`'s order, then this rank's rows of each."""
         b, L = content_token.shape
-        n, r = world_size(), rank()
+        n, r = group_size(data_group()), group_rank(data_group())
         rows = slice(r * b, (r + 1) * b)
         if (t is None) != (pt is None):
             raise ValueError("give both t and pt, or neither")
@@ -271,11 +285,12 @@ class D3PM(nn.Module):
                 filter_ratio=filter_ratio, content_token=content_token,
                 sample=sample, draws=draws)
         if mode == "megakernel":
-            return megakernel_sample_tokens(
-                generator, self.schedule(), self.transformer, cond_emb,
-                cf_cond_emb, batch_size, self.content_seq_len,
-                guidance_scale=self.guidance_scale,
-                weights_dtype=weights_dtype, sample=sample)
+            with full_weights(self.transformer) as transformer:
+                return megakernel_sample_tokens(
+                    generator, self.schedule(), transformer, cond_emb,
+                    cf_cond_emb, batch_size, self.content_seq_len,
+                    guidance_scale=self.guidance_scale,
+                    weights_dtype=weights_dtype, sample=sample)
         return sample_tokens(generator, self.schedule(), self.transformer,
                              cond_emb, cf_cond_emb, batch_size,
                              self.content_seq_len,

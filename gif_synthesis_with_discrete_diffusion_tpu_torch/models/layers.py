@@ -7,14 +7,23 @@ built with ``dtype=bf16`` casts its input, kernel and bias to bf16, rounds
 the product to bf16 and adds the bias in bf16. :class:`Dense` does the same
 in front of ``F.linear``; in f32 it is ``nn.Linear``. Its parameters keep
 ``nn.Linear``'s names, so the weight bridge maps a flax ``Dense`` onto it.
+
+:func:`parallel_mlp` is a two-layer MLP in Megatron's tensor-parallel form
+where its weights are sharded over the model group
+(:func:`..parallel.mesh.shard_module_`).
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "FrozenBatchNorm", "compute_dtype"]
+from ..parallel.distributed import (copy_to_group, model_group,
+                                    reduce_from_group)
+
+__all__ = ["Dense", "FrozenBatchNorm", "compute_dtype", "parallel_mlp"]
 
 
 def compute_dtype(name) -> torch.dtype:
@@ -60,3 +69,23 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
+
+
+def parallel_mlp(x: torch.Tensor, fc: nn.Linear, proj: nn.Linear,
+                 act: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """``proj(act(fc(x)))``. Where ``fc``'s weight is sharded by its output
+    columns (``tp_dim``, with its bias and ``proj``'s weight by its input
+    rows), Megatron's form over the model group: ``fc`` and ``act`` run on
+    this rank's columns (its input's gradient summed over the group),
+    ``proj``'s partial products are summed over the group in f32 and
+    rounded once to the compute dtype, and ``proj``'s whole bias is added
+    once, after the sum: the one-rank layer's arithmetic up to the order of
+    an f32 sum."""
+    if getattr(fc.weight, "tp_dim", None) is None:
+        return proj(act(fc(x)))
+    group = model_group()
+    h = act(fc(copy_to_group(x, group)))
+    dt = getattr(proj, "compute_dtype", torch.float32)
+    part = F.linear(h.to(dt).float(), proj.weight.to(dt).float())
+    y = reduce_from_group(part, group).to(dt)
+    return y if proj.bias is None else y + proj.bias.to(dt)

@@ -34,6 +34,19 @@ nearest_code_stats_sharded`), so the EMA update and the perplexity read the
 global usage; and the data-dependent init and the restarts draw their
 candidate rows from the global rows (gathered in rank order) with the same
 generator on every rank, which leaves every rank with the same codebook.
+Those collectives run over the data group
+(:func:`..parallel.distributed.data_group`): under tensor parallelism the
+model ranks of one replica hold the same rows.
+
+Under tensor parallelism (:func:`..parallel.mesh.shard_module_`) the
+codebook holds K / model codes: ``embeddings``, ``ema_sum`` and
+``ema_count`` are this rank's rows. The init and the restarts draw the same
+K candidates on every rank and keep this rank's; the lookup is K6 on the
+local codes and the nearest over the model group
+(:func:`..ops.codebook_kernel.nearest_code_stats_tp`); the statistics and
+the EMA update are the local codes'; the straight-through output, the
+perplexity and the EMA's total read the whole table and counts, gathered
+over the model group.
 """
 from __future__ import annotations
 
@@ -46,10 +59,12 @@ from torch import nn
 
 from ..ops.codebook_kernel import (nearest_code_stats,
                                    nearest_code_stats_reference,
-                                   nearest_code_stats_sharded)
+                                   nearest_code_stats_sharded,
+                                   nearest_code_stats_tp)
 from ..ops.conv3d import SamePadConv3d, SamePadConvTranspose3d
-from ..parallel.distributed import (all_gather_rows, all_reduce_sum_grad,
-                                    world_size)
+from ..parallel.distributed import (all_gather, all_gather_rows,
+                                    all_reduce_sum_grad, data_group,
+                                    group_rank, group_size, model_group)
 from .layers import Dense, compute_dtype
 
 __all__ = ["VQVAE", "make_vqvae", "Encoder", "Decoder", "Codebook", "AxialBlock",
@@ -113,9 +128,10 @@ class BatchNorm(nn.Module):
             scale = self.weight * torch.rsqrt(self.running_var + _BN_EPS)
             return ((x - self.running_mean) * scale + self.bias).to(x.dtype)
         xf = x.float()
-        n = xf.numel() // xf.shape[-1] * world_size()
+        group = data_group()
+        n = xf.numel() // xf.shape[-1] * group_size(group)
         sums = all_reduce_sum_grad(torch.stack(
-            [_split_free_sum(xf), _split_free_sum(xf * xf)]))
+            [_split_free_sum(xf), _split_free_sum(xf * xf)]), group)
         mean, sq = (sums[0] / n).float(), (sums[1] / n).float()
         var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
@@ -325,31 +341,41 @@ class Codebook(nn.Module):
         if z.shape[-1] != d:
             raise ValueError(f"codebook: last dim {z.shape[-1]} != {d}")
         flat = z.reshape(-1, d).float().contiguous()
+        sharded = getattr(self.embeddings, "tp_dim", None) is not None
+        # this rank's codes (all of them unless sharded)
+        kl = self.embeddings.shape[0]
+        lo = group_rank(model_group()) * kl if sharded else 0
+        mine = slice(lo, lo + kl)
         embeddings = self.embeddings
         if train:
             with torch.no_grad():
                 # no host sync: every step draws the init's candidates and
                 # torch.where picks by the flag on the device; in a group
                 # from the global rows, as the JAX package's global array
-                rows = all_gather_rows(flat.detach())
+                rows = all_gather_rows(flat.detach(), data_group())
                 k_init = (self.tile_rows(rows, generator) if init_rows is None
-                          else init_rows.to(rows))
+                          else init_rows.to(rows))[mine]
                 inited = self.initialized
                 embeddings = torch.where(inited, self.embeddings, k_init)
                 n_now = torch.where(inited, self.ema_count,
                                     torch.ones_like(self.ema_count))
                 zavg_now = torch.where(inited, self.ema_sum, k_init)
-        lookup = (nearest_code_stats_reference if self.kernel_mode == "xla"
-                  else nearest_code_stats)
-        indices, n_total, encode_sum = nearest_code_stats_sharded(
-            flat, embeddings, lookup)
+        if sharded:
+            indices, n_total, encode_sum = nearest_code_stats_tp(
+                flat, embeddings, plain=self.kernel_mode == "xla")
+        else:
+            lookup = (nearest_code_stats_reference
+                      if self.kernel_mode == "xla" else nearest_code_stats)
+            indices, n_total, encode_sum = nearest_code_stats_sharded(
+                flat, embeddings, lookup)
         encodings = indices.reshape(z.shape[:-1])
-        quantized = F.embedding(indices, embeddings).reshape(
+        quantized = F.embedding(indices, self._whole(embeddings)).reshape(
             z.shape).to(z.dtype)
         commitment_loss = self.commitment_cost * torch.mean(
             torch.square(z - quantized.detach()))
         embeddings_st = z + (quantized - z).detach()   # straight-through
-        avg_probs = n_total / torch.clamp(n_total.sum(), min=1.0)
+        every_n = self._whole(n_total)
+        avg_probs = every_n / torch.clamp(every_n.sum(), min=1.0)
         entropy = -torch.sum(avg_probs * torch.log(avg_probs + 1e-10))
         codebook_loss = torch.mean(torch.square(
             z.detach().float() - quantized.float()))
@@ -358,11 +384,12 @@ class Codebook(nn.Module):
                 new_n = self.decay * n_now + (1.0 - self.decay) * n_total
                 new_zavg = (self.decay * zavg_now
                             + (1.0 - self.decay) * encode_sum)
-                total = new_n.sum()
+                total = self._whole(new_n).sum()
                 weights = (new_n + 1e-7) / (total + k * 1e-7) * total
                 new_emb = new_zavg / weights[:, None]
                 k_rand = (self.tile_rows(rows, generator)
-                          if restart_rows is None else restart_rows.to(rows))
+                          if restart_rows is None
+                          else restart_rows.to(rows))[mine]
                 usage = (new_n[:, None] >= 1.0).float()
                 self.embeddings.copy_(usage * new_emb
                                       + (1.0 - usage) * k_rand)
@@ -374,9 +401,16 @@ class Codebook(nn.Module):
                     perplexity=torch.exp(entropy), entropy=entropy,
                     codebook_loss=codebook_loss)
 
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` over this rank's codes -> over all codes (gathered over the
+        model group where the codebook is sharded)."""
+        if getattr(self.embeddings, "tp_dim", None) is None:
+            return t
+        return all_gather(t, 0, model_group())
+
     def lookup(self, encodings: torch.Tensor) -> torch.Tensor:
         """Token ids -> embedding vectors."""
-        return F.embedding(encodings, self.embeddings)
+        return F.embedding(encodings, self._whole(self.embeddings))
 
 
 class VQVAE(nn.Module):

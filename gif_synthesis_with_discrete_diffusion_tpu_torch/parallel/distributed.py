@@ -1,4 +1,4 @@
-"""Process groups and the collectives of data-parallel runs.
+"""Process groups and the collectives of data- and tensor-parallel runs.
 
 The counterpart of ``gif_synthesis_with_discrete_diffusion_tpu/parallel/
 distributed.py``. Where the JAX package runs one program over a mesh of
@@ -14,16 +14,31 @@ few collectives the model needs itself, from here:
   how two ranks share one card (NCCL refuses two ranks on one device).
   gloo takes CUDA tensors for every collective used here (all-reduce,
   broadcast, all-gather, barrier), so none is staged through the host.
-* :func:`all_reduce_sum`, :func:`all_gather_rows`, :func:`broadcast_`,
-  :func:`broadcast_object`, :func:`barrier`; :func:`all_reduce_sum_grad`
+* :func:`set_grid` lays the ranks out on a ``(data, model)`` grid as
+  ``mesh_utils.create_device_mesh((data, model))`` lays out JAX's devices,
+  ``model`` the fast axis: rank r sits at ``(r // model, r % model)``. It
+  forms the **data group** (the ranks of one model index: the replicas of
+  one shard) and the **model group** (the ranks of one data index: the
+  shards of one replica); :func:`data_group` and :func:`model_group` name
+  them, and without a grid the data group is every rank and the model
+  group this rank alone;
+* :func:`all_reduce_sum`, :func:`all_gather_rows`, :func:`all_gather`,
+  :func:`broadcast_`, :func:`broadcast_object`, :func:`barrier`, each over
+  the ``group`` it is given (default: every rank); :func:`all_reduce_sum_grad`
   is the all-reduce autograd sees (its backward all-reduces the gradient),
   which BatchNorm's global statistics need;
+* Megatron's three autograd pairs over a model group:
+  :func:`copy_to_group` (identity forward, all-reduce backward),
+  :func:`reduce_from_group` (all-reduce forward, identity backward) and
+  :func:`gather_from_group` (all-gather along a dimension forward, this
+  rank's slice backward);
 * :func:`average_gradients`: one flat all-reduce of a model's gradients
-  after the backward, divided by the number of ranks.
+  over a group after the backward, divided by its size.
 
 Without a group every function here is the identity and
-:func:`is_distributed` is False, so a run on one device takes no collective.
-A group that fails to form raises.
+:func:`is_distributed` is False, so a run on one device takes no collective;
+a collective over a group of one rank is the identity too. A group that
+fails to form raises.
 """
 from __future__ import annotations
 
@@ -33,12 +48,18 @@ from typing import Any, Iterable
 import torch
 
 __all__ = ["initialize_distributed", "is_distributed", "is_main_process",
-           "rank", "world_size", "local_rank", "all_reduce_sum",
-           "all_reduce_sum_grad", "all_gather_rows", "broadcast_",
-           "broadcast_object", "barrier", "average_gradients",
-           "destroy_distributed", "run_ranks"]
+           "rank", "world_size", "local_rank", "set_grid", "grid",
+           "data_group", "model_group", "group_size", "group_rank",
+           "all_reduce_sum", "all_reduce_sum_grad", "all_gather_rows",
+           "all_gather", "copy_to_group", "reduce_from_group",
+           "gather_from_group", "broadcast_", "broadcast_object", "barrier",
+           "average_gradients", "destroy_distributed", "run_ranks"]
 
 _LOCAL_RANK = 0
+# (data, model, data group, model group) once set_grid has run
+_GRID: tuple | None = None
+# a group of this rank alone: every collective over it is the identity
+_SELF = "self"
 
 
 def initialize_distributed(device_type: str = "cuda",
@@ -90,7 +111,9 @@ def initialize_distributed(device_type: str = "cuda",
 
 def destroy_distributed() -> None:
     """Leave the group, if there is one."""
+    global _GRID
     import torch.distributed as dist
+    _GRID = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -121,54 +144,186 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks (a new tensor; ``t`` unchanged)."""
+def set_grid(data: int, model: int) -> None:
+    """Lay this process group's ranks out on a ``(data, model)`` grid and
+    form its data and model groups (module docstring). Every rank calls it
+    with the same sizes, whose product must be the group's size; without a
+    group only ``(1, 1)`` is taken."""
+    global _GRID
+    data, model = int(data), int(model)
+    n = world_size()
+    if data < 1 or model < 1 or data * model != n:
+        raise ValueError(f"a ({data}, {model}) grid needs {data * model} "
+                         f"ranks; there are {n}")
+    if _GRID is not None and _GRID[:2] == (data, model):
+        return
     if not is_distributed():
+        _GRID = (1, 1, None, _SELF)
+        return
+    import torch.distributed as dist
+
+    def form(groups):
+        # every rank forms every group, in the same order (new_group's rule)
+        mine = None
+        for ranks in groups:
+            if len(ranks) == 1:
+                g = _SELF
+            elif len(ranks) == n:
+                g = None
+            else:
+                g = dist.new_group(ranks)
+            if rank() in ranks:
+                mine = g
+        return mine
+    dgroup = form([list(range(m, n, model)) for m in range(model)])
+    mgroup = form([list(range(d * model, (d + 1) * model))
+                   for d in range(data)])
+    _GRID = (data, model, dgroup, mgroup)
+
+
+def grid() -> tuple[int, int]:
+    """``(data, model)``: the grid :func:`set_grid` formed, else every rank
+    along ``data``."""
+    return (_GRID[0], _GRID[1]) if _GRID is not None else (world_size(), 1)
+
+
+def data_group():
+    """The ranks that hold this rank's shard of the weights: every rank
+    without a grid."""
+    return _GRID[2] if _GRID is not None else None
+
+
+def model_group():
+    """The ranks that share this rank's rows of the batch: this rank alone
+    without a grid."""
+    return _GRID[3] if _GRID is not None else _SELF
+
+
+def group_size(group=None) -> int:
+    if group is _SELF or not is_distributed():
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def group_rank(group=None) -> int:
+    """This rank's place in ``group``."""
+    if group is _SELF or not is_distributed():
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank(group)
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (a new tensor; ``t``
+    unchanged)."""
+    if group_size(group) == 1:
         return t
     import torch.distributed as dist
     out = t.detach().clone().contiguous()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t):
-        return all_reduce_sum(t)
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_sum(t, group)
 
     @staticmethod
     def backward(ctx, grad):
         # d(sum over ranks)/d(this rank's t): every rank's upstream gradient
-        return all_reduce_sum(grad)
+        return all_reduce_sum(grad, ctx.group), None
 
 
-def all_reduce_sum_grad(t: torch.Tensor) -> torch.Tensor:
+def all_reduce_sum_grad(t: torch.Tensor, group=None) -> torch.Tensor:
     """:func:`all_reduce_sum` under autograd: the gradient of a loss that
     reads the global sum flows back to every rank's share."""
-    return _AllReduceSum.apply(t) if is_distributed() else t
+    return _AllReduceSum.apply(t, group) if group_size(group) > 1 else t
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (the same shape on each) concatenated along the
-    first axis in rank order: rank r's rows at ``[r*n, (r+1)*n)``."""
-    if not is_distributed():
+def all_gather(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` (the same shape on each) concatenated
+    along ``dim`` in rank order."""
+    n = group_size(group)
+    if n == 1:
         return t
     import torch.distributed as dist
     t = t.detach().contiguous()
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather(parts, t)
-    return torch.cat(parts, dim=0)
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
 
 
-def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Overwrite ``t`` in place with rank ``src``'s."""
-    if is_distributed():
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each) concatenated along the
+    first axis in rank order: rank r's rows at ``[r*n, (r+1)*n)``."""
+    return all_gather(t, 0, group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, t.shape[dim]
+        return all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = group_rank(ctx.group)
+        return grad.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+
+
+def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel layer: ``t`` as it is, whose gradient
+    is summed over ``group`` (each shard gives its columns' share)."""
+    return _CopyTo.apply(t, group) if group_size(group) > 1 else t
+
+
+def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
+    """The output of a row-parallel layer: the partial products summed over
+    ``group``; the gradient reaches every shard as it is."""
+    return _ReduceFrom.apply(t, group) if group_size(group) > 1 else t
+
+
+def gather_from_group(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The output of a column-parallel layer gathered along ``dim`` in rank
+    order; the backward takes this rank's slice of the gradient."""
+    return (_GatherFrom.apply(t, dim, group) if group_size(group) > 1
+            else t)
+
+
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Overwrite ``t`` in place with global rank ``src``'s (a rank of
+    ``group``)."""
+    if group_size(group) > 1:
         import torch.distributed as dist
         if t.is_contiguous():
-            dist.broadcast(t, src)
+            dist.broadcast(t, src, group=group)
         else:
             tmp = t.contiguous()
-            dist.broadcast(tmp, src)
+            dist.broadcast(tmp, src, group=group)
             t.copy_(tmp)
     return t
 
@@ -189,20 +344,24 @@ def barrier() -> None:
         dist.barrier()
 
 
-def average_gradients(params: Iterable[torch.nn.Parameter]) -> None:
-    """Replace each gradient by its mean over the ranks: one all-reduce of
-    the gradients flattened into one buffer. A parameter without a gradient
-    keeps none: every rank must have gradients for the same parameters,
-    which the step's graph fixes (it depends on the config, not the data)."""
-    if not is_distributed():
+def average_gradients(params: Iterable[torch.nn.Parameter],
+                      group=None) -> None:
+    """Replace each gradient by its mean over the ranks of ``group``: one
+    all-reduce of the gradients flattened into one buffer. A parameter
+    without a gradient keeps none: every rank must have gradients for the
+    same parameters, which the step's graph fixes (it depends on the config,
+    not the data). Under tensor parallelism the group is the data group,
+    whose ranks hold the same shard of each parameter."""
+    n = group_size(group)
+    if n == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     from torch._utils import (_flatten_dense_tensors,
                               _unflatten_dense_tensors)
-    flat = all_reduce_sum(_flatten_dense_tensors(grads))
-    flat /= world_size()
+    flat = all_reduce_sum(_flatten_dense_tensors(grads), group)
+    flat /= n
     for g, avg in zip(grads, _unflatten_dense_tensors(flat, grads)):
         g.copy_(avg)
 

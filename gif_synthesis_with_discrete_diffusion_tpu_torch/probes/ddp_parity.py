@@ -1,14 +1,23 @@
-"""Data parallel against one rank: the same global batch, N ranks and one.
+"""Data and tensor parallel against one rank: the same global batch, N
+ranks and one.
 
-The contract of ROADMAP item [16]: an N-rank step equals the one-rank step
-on the same global batch, up to the order of an f32 sum. Each case below
-runs once per rank inside a process group (:func:`run_cases`, started by
-:func:`..parallel.distributed.run_ranks`), each rank on its rows of the
-global batch, and once in a process without a group on the whole batch
-(:func:`one_rank`); :func:`compare` holds the two to the tolerances below.
+The contract of ROADMAP items [16] and [16b]: an N-rank step equals the
+one-rank step on the same global batch, up to the order of an f32 sum.
+Each case below runs once per rank inside a process group
+(:func:`run_cases`, started by :func:`..parallel.distributed.run_ranks`),
+each rank on its data index's rows of the global batch, and once in a
+process without a group on the whole batch (:func:`one_rank`);
+:func:`compare` holds the two to the tolerances below. A spec's ``mesh``
+(``{"data": d, "model": m}``, default every rank along ``data``) lays the
+ranks out: with ``model`` above 1 each case shards its modules as JAX's
+``shard_state`` places them (:func:`..parallel.mesh.shard_module_`) and
+hands back whole tensors (gradients, buffers, statistics gathered over the
+model group), so the comparison is the same on any mesh.
 
 * ``codebook_stats``: K6 on each rank's rows with its statistics summed
-  over the ranks (``nearest_code_stats_sharded``) against K6 on all rows;
+  over the ranks (``nearest_code_stats_sharded``; under ``model`` the
+  codes sharded too, ``nearest_code_stats_tp``, K6's two other entries)
+  against K6 on all rows;
 * ``codebook``: the EMA codebook alone, its first (initialising) step and a
   second, both with restarts of unused codes, from the same ``z``;
 * ``stage1``: stage-1 training steps (BatchNorm on global statistics, the
@@ -21,7 +30,12 @@ global batch, and once in a process without a group on the whole batch
   gathered tokens against one rank's, bit for bit;
 * ``dryrun``: a ``Stage2Trainer`` built and stepped once under the group
   (the counterpart of ``__graft_entry__.dryrun_multichip``): a finite loss
-  and the same weights on every rank.
+  and the same weights on every rank;
+* ``checkpoint``: a ``Stage2Trainer`` that restores the checkpoint
+  directory ``load`` (if given; its whole state after the restore comes
+  back), takes a step, saves into ``save``, takes another; and a second
+  trainer that restores ``save`` and takes that other step: both whole
+  states after it come back (a resume is bitwise where they are equal).
 
 One limit of the comparison, of f32 arithmetic and not of the port: a
 bias just before a BatchNorm has no effect on any loss, so its exact
@@ -69,10 +83,12 @@ from typing import Any, Mapping
 
 import torch
 
-from ..parallel.distributed import (all_gather_rows, all_reduce_sum,
-                                    is_distributed, local_rank, rank,
-                                    world_size)
-from ..parallel.mesh import create_mesh, shard_batch, shard_rows
+from ..parallel.distributed import (all_gather, all_gather_rows,
+                                    all_reduce_sum, data_group, group_size,
+                                    is_distributed, local_rank, model_group,
+                                    rank)
+from ..parallel.mesh import (Mesh, create_mesh, full_state_dict,
+                             shard_batch, shard_module_, shard_rows, tp_dim)
 
 __all__ = ["run_cases", "one_rank", "compare", "LOSS_RTOL", "GRAD_TOL",
            "BN_TOL", "EMA_RTOL", "launch_counts"]
@@ -85,24 +101,58 @@ EMA_RTOL = 1e-6       # encode_sum / EMA sums and embeddings, relative
 
 
 def launch_counts() -> dict[str, int]:
-    """The launches of the CUDA kernels the cases reach (K2 to K6)."""
+    """The launches of the CUDA kernels the cases reach (K2 to K6, K6's
+    three entries apart)."""
     from ..ops.attention import fused_mha, fused_mha_bwd
-    from ..ops.codebook_kernel import nearest_code_stats
+    from ..ops.codebook_kernel import (code_stats, nearest_code_dist,
+                                       nearest_code_stats)
     from ..ops.megakernel import megakernel_step
     return {"K2": fused_mha.launches, "K5": fused_mha_bwd.launches,
             "K6": nearest_code_stats.launches,
+            "K6 dist": nearest_code_dist.launches,
+            "K6 stats": code_stats.launches,
             "K3": megakernel_step.launches_k3,
             "K4": megakernel_step.launches_k4}
 
 
+# the spec's mesh, formed by _run on every rank (one rank: no group)
+_MESH = Mesh()
+
+
 def _rows(n: int) -> slice:
-    return shard_rows(n, create_mesh())
+    return shard_rows(n, _MESH)
 
 
 def _global_mean(values: Mapping[str, torch.Tensor]) -> dict[str, float]:
     stacked = torch.stack([v.detach().float() for v in values.values()])
-    return dict(zip(values, (all_reduce_sum(stacked) / world_size())
-                    .tolist()))
+    group = data_group()
+    return dict(zip(values, (all_reduce_sum(stacked, group)
+                             / group_size(group)).tolist()))
+
+
+def _whole(t: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (a gradient or a state of ``like``) whole over the model
+    group."""
+    dim = tp_dim(like)
+    return t if dim is None else all_gather(t, dim, model_group())
+
+
+def _grads(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {n: _whole(p.grad, p) for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def state_bytes(module: torch.nn.Module,
+                optimizer: torch.optim.Optimizer | None = None) -> int:
+    """The bytes this rank holds of ``module``'s parameters and buffers
+    and ``optimizer``'s moments."""
+    n = sum(t.numel() * t.element_size() for t in
+            (*module.parameters(), *module.buffers()))
+    if optimizer is not None:
+        n += sum(v.numel() * v.element_size()
+                 for st in optimizer.state.values() for v in st.values()
+                 if isinstance(v, torch.Tensor))
+    return n
 
 
 def _timed_steps(step, n: int, device) -> float | None:
@@ -128,7 +178,7 @@ def _step_draws(given: Mapping[str, Any] | None, step: int, device,
     if step >= len(draws):
         return {}
     out = {k: torch.as_tensor(v).to(device) for k, v in draws[step].items()}
-    return shard_batch(out, create_mesh()) if rows else out
+    return shard_batch(out, _MESH) if rows else out
 
 
 def _cpu(tree):
@@ -143,15 +193,29 @@ def _cpu(tree):
 
 def _case_codebook_stats(spec: Mapping[str, Any], device) -> dict:
     from ..ops.codebook_kernel import (nearest_code_stats,
-                                       nearest_code_stats_sharded)
+                                       nearest_code_stats_sharded,
+                                       nearest_code_stats_tp)
     n, k, d = spec["n"], spec["k"], spec["d"]
     g = torch.Generator().manual_seed(spec.get("seed", 0))
     x = torch.randn((n, d), generator=g).to(device)
     e = torch.randn((k, d), generator=g).to(device)
-    idx, n_total, encode_sum = nearest_code_stats_sharded(
-        x[_rows(n)].contiguous(), e, nearest_code_stats)
-    return {"indices": all_gather_rows(idx), "n_total": n_total,
-            "encode_sum": encode_sum}
+    if spec.get("repeat"):
+        # every code of the first half again in the second: each row's
+        # nearest distance is shared across the shard boundary
+        e[k // 2:] = e[:k // 2]
+    x = x[_rows(n)].contiguous()
+    if _MESH.model > 1:
+        per = k // _MESH.model
+        idx, n_total, encode_sum = nearest_code_stats_tp(
+            x, e[_MESH.model_index * per:(_MESH.model_index + 1) * per]
+            .contiguous())
+        n_total, encode_sum = (all_gather(t, 0, model_group())
+                               for t in (n_total, encode_sum))
+    else:
+        idx, n_total, encode_sum = nearest_code_stats_sharded(
+            x, e, nearest_code_stats)
+    return {"indices": all_gather_rows(idx, data_group()),
+            "n_total": n_total, "encode_sum": encode_sum}
 
 
 def _case_codebook(spec: Mapping[str, Any], device) -> dict:
@@ -173,14 +237,17 @@ def _case_codebook(spec: Mapping[str, Any], device) -> dict:
     else:
         zs = [torch.randn((b, *grid, d), generator=g).to(device)
               for _ in range(spec.get("steps", 2))]
+    shard_module_(cb, _MESH, [("embeddings", 0), ("ema_sum", 0),
+                              ("ema_count", 0)])
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
     for i, z in enumerate(zs):
         res = cb(z[_rows(b)], train=True, generator=gen,
                  **_step_draws(given, i, device))
         out.append({"perplexity": float(res["perplexity"]),
-                    "encodings": all_gather_rows(res["encodings"]),
-                    **{n: t.clone() for n, t in cb.named_buffers()}})
+                    "encodings": all_gather_rows(res["encodings"],
+                                                 data_group()),
+                    **{n: t.clone() for n, t in full_state_dict(cb).items()}})
     return {"steps": out}
 
 
@@ -196,21 +263,24 @@ def _case_stage1(spec: Mapping[str, Any], device) -> dict:
         batch = {"video": given["video"]}
     else:
         batch = stage1.synthetic_batch(config, b)
-    batch = shard_batch(batch, create_mesh())
+    batch = shard_batch(batch, _MESH)
+    stage1.shard_stage1(state, _MESH)
+    buffers = {n for n, _ in state.vqvae.named_buffers()}
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
     for i in range(spec.get("steps", 2)):
         values = stage1.train_step(state, batch, gen,
                                    **_step_draws(given, i, device))
-        out.append({
+        out.append(_cpu({
             "values": _global_mean(values),
-            "grads": {n: p.grad for n, p in state.vqvae.named_parameters()},
-            "buffers": dict(state.vqvae.named_buffers())})
-        out[-1] = _cpu(out[-1])
+            "grads": _grads(state.vqvae),
+            "buffers": {n: v for n, v in full_state_dict(state.vqvae).items()
+                        if n in buffers}}))
     step_ms = _timed_steps(lambda: stage1.train_step(state, batch, gen),
                            spec.get("timed", 0), device)
     return {"steps": out, "step_ms": step_ms,
-            "held": spec.get("held", len(out))}
+            "held": spec.get("held", len(out)),
+            "bytes": state_bytes(state.vqvae, state.optimizer)}
 
 
 def _case_stage2(spec: Mapping[str, Any], device) -> dict:
@@ -227,7 +297,8 @@ def _case_stage2(spec: Mapping[str, Any], device) -> dict:
     else:
         batch = stage2.synthetic_batch(config, b,
                                        torch.Generator().manual_seed(1))
-    batch = shard_batch(batch, create_mesh())
+    batch = shard_batch(batch, _MESH)
+    stage2.shard_stage2(state, _MESH)
     gen = torch.Generator(device=device).manual_seed(2)
     out = []
     for i in range(spec.get("steps", 2)):
@@ -236,16 +307,15 @@ def _case_stage2(spec: Mapping[str, Any], device) -> dict:
         d = state.generator.diffusion
         out.append(_cpu({
             "values": _global_mean(values),
-            "grads": {n: p.grad for n, p in
-                      state.generator.named_parameters()
-                      if p.grad is not None},
+            "grads": _grads(state.generator),
             "buffers": {n: getattr(d, n) for n in
                         ("lt_history", "lt_count", "diffusion_acc",
                          "diffusion_keep")}}))
     step_ms = _timed_steps(lambda: stage2.train_step(state, batch, gen),
                            spec.get("timed", 0), device)
     return {"steps": out, "step_ms": step_ms,
-            "held": spec.get("held", len(out))}
+            "held": spec.get("held", len(out)),
+            "bytes": state_bytes(state.generator, state.optimizer)}
 
 
 def _case_sampling(spec: Mapping[str, Any], device) -> dict:
@@ -261,7 +331,9 @@ def _case_sampling(spec: Mapping[str, Any], device) -> dict:
         models.generator.load_state_dict(given["generator"])
         models.vqvae.load_state_dict(given["vqvae"])
         labels = torch.as_tensor(given["labels"])
-    batch = shard_batch({"label": labels.to(device)}, create_mesh())
+    for module in (models.generator, models.vqvae):
+        shard_module_(module, _MESH)
+    batch = shard_batch({"label": labels.to(device)}, _MESH)
     tokens = sample_token_grid(models, batch,
                                torch.Generator().manual_seed(3),
                                sample=False, sampler=spec["sampler"])
@@ -283,6 +355,7 @@ def _case_dryrun(spec: Mapping[str, Any], device) -> dict:
         batch = next(iter(trainer.datamodule.train_batches(0)))
         trainer.build(batch)
         trainer._replicate()
+        trainer.shard()
         _, values = trainer.train_step(trainer.state,
                                        device_batch(batch, trainer.device),
                                        trainer.next_rng())
@@ -293,12 +366,61 @@ def _case_dryrun(spec: Mapping[str, Any], device) -> dict:
             "weights_spread": float(spread)}
 
 
+def _case_checkpoint(spec: Mapping[str, Any], device) -> dict:
+    import tempfile
+
+    from ..data.synthetic import SyntheticVideoDataModule
+    from ..train.loop import device_batch
+    from ..train.stage2 import Stage2Trainer
+    from ..utils.checkpoint import CheckpointManager
+    cfg = copy.deepcopy(spec["cfg"])
+    b = spec["b"]
+    dm = SyntheticVideoDataModule(batch_size=b, sequence_length=2,
+                                  resolution=16, num_train=b, num_val=b)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name, load):
+            t = Stage2Trainer(cfg, dm, Path(tmp) / name)
+            t.build(next(iter(t.datamodule.train_batches(0))))
+            t._replicate()
+            t.shard()
+            if load:
+                mgr = CheckpointManager(load, monitor=None)
+                t.load_state_dict(mgr.restore(t.state_dict()))
+                mgr.close()
+            return t
+
+        def step(t, i):
+            batch = next(iter(t.datamodule.train_batches(0)))
+            t.train_step(t.state, device_batch(batch, t.device),
+                         torch.Generator(device=t.device).manual_seed(10 + i))
+
+        first = trainer("a", spec.get("load"))
+        if spec.get("load"):
+            out["loaded"] = _cpu(first.state_dict())
+        step(first, 0)
+        mgr = CheckpointManager(spec["save"], monitor=None)
+        mgr.save(1, first.state_dict(), {})
+        mgr.close()
+        step(first, 1)
+        out["straight"] = _cpu(first.state_dict())
+        second = trainer("b", spec["save"])
+        step(second, 1)
+        out["resumed"] = _cpu(second.state_dict())
+    return out
+
+
 _CASES = {"codebook_stats": _case_codebook_stats, "codebook": _case_codebook,
           "stage1": _case_stage1, "stage2": _case_stage2,
-          "sampling": _case_sampling, "dryrun": _case_dryrun}
+          "sampling": _case_sampling, "dryrun": _case_dryrun,
+          "checkpoint": _case_checkpoint}
 
 
 def _run(spec: Mapping[str, Any]) -> dict:
+    global _MESH
+    m = spec.get("mesh") or {}
+    _MESH = (create_mesh(m.get("data"), m.get("model") or 1)
+             if is_distributed() else Mesh())
     device = torch.device(spec["device"])
     if device.type == "cuda":
         device = torch.device("cuda", local_rank())
@@ -318,8 +440,9 @@ def _run(spec: Mapping[str, Any]) -> dict:
 
 
 def run_cases(spec: Mapping[str, Any], out_dir: str) -> dict:
-    """Run the spec's cases on this rank; write the results (on the CPU) to
-    ``<out_dir>/rank<r>.pt`` and return them."""
+    """Run the spec's cases on this rank (the ranks laid out by the spec's
+    ``mesh``); write the results (on the CPU) to ``<out_dir>/rank<r>.pt``
+    and return them."""
     out = _run(spec)
     torch.save(out, Path(out_dir) / f"rank{rank()}.pt")
     return out

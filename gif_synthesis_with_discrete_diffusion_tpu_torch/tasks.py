@@ -17,9 +17,10 @@ given overrides, as ``scripts/train.py`` / ``scripts/eval.py`` do, and
 print the metrics one per line. The run is on the CUDA card unless the
 config says ``trainer.platform=cpu``.
 
-More than one device (ROADMAP item [16]): with ``trainer.mesh.data`` above
-1, or null with more than one visible GPU, :func:`train` and
-:func:`evaluate` start one process per rank themselves
+More than one device (ROADMAP items [16], [16b]): with
+``trainer.mesh.data`` x ``trainer.mesh.model`` above 1, or ``data`` null
+with more than one visible GPU, :func:`train` and :func:`evaluate` start
+one process per rank themselves
 (:func:`..parallel.distributed.run_ranks`, NCCL on the GPUs) and return
 rank 0's metrics; on the CPU ``trainer.platform=cpu
 trainer.host_device_count=N`` starts N gloo processes, the counterpart of
@@ -92,9 +93,10 @@ def _build_fvd_evaluator(cfg: Mapping[str, Any], device: torch.device):
     from .eval.evaluator import FVDEvaluator
     eval_ckpt = cfg.get("eval_ckpt")
     if eval_ckpt and Path(str(eval_ckpt)).exists():
-        raise NotImplementedError(
-            f"eval_ckpt={eval_ckpt!r}: reading a pretrained I3D checkpoint "
-            f"is ROADMAP item [1], not ported yet")
+        from .convert.torch_i3d import convert_i3d_file
+        log.info("FVDEvaluator: I3D weights from %s", eval_ckpt)
+        return FVDEvaluator(i3d_state=convert_i3d_file(str(eval_ckpt)),
+                            device=device)
     log.warning("FVDEvaluator: no pretrained I3D; random init (relative "
                 "FVD only)")
     return FVDEvaluator(generator=torch.Generator().manual_seed(0),

@@ -26,19 +26,24 @@ as in the JAX package, a resumed run starts them from ``seed`` again.
 Data parallelism (ROADMAP item [16]): inside a process group
 (:mod:`..parallel.distributed`; the entries in :mod:`..tasks` start one
 process per rank) the trainer is one replica of the JAX package's
-``pjit`` program. ``trainer.mesh.data`` (null: every rank) must be the
-group's size, and on the CPU ``trainer.host_device_count`` is the count of
-ranks; ``mesh.model > 1`` is ROADMAP item [16b] and raises. Rank 0's
-initial state is broadcast to every rank; each rank reads its rows of each
+``pjit`` program. ``trainer.mesh.data`` x ``trainer.mesh.model`` (data
+null: every rank over ``model``) must be the group's size, and on the CPU
+``trainer.host_device_count`` is the count of ranks. Rank 0's
+initial state is broadcast to every rank, then each rank keeps its shard of
+the tensors JAX's ``shard_state`` splits over ``model``
+(:meth:`Trainer.shard`; Adam's moments follow their parameters); each rank
+reads its data index's rows of each
 global batch (the datamodule's ``set_mesh``, which every datamodule
 must have in a group, slices the sample indices before the clips are
 decoded), and a global batch that does not divide over the ranks raises; the steps average their gradients over the ranks
-(:func:`..parallel.distributed.average_gradients`) and the model takes
-global statistics where the JAX package's global arrays do; the metrics
-are averaged over the ranks. Only rank 0 writes checkpoints, logs and
-renders; every rank runs the same loop, so every collective has its
-partners. Without a group (one device, ``mesh.data`` null) none of this
-runs: no collective is launched.
+(:func:`..parallel.distributed.average_gradients`, over the data group)
+and the model takes global statistics where the JAX package's global
+arrays do; the metrics are averaged over the data group. A checkpoint
+holds whole tensors, gathered over the model group, so it restores on any
+mesh, as Orbax's global arrays; a restore keeps each rank's slice. Only
+rank 0 writes checkpoints, logs and renders; every rank runs the same
+loop, so every collective has its partners. Without a group (one device,
+``mesh.data`` null) none of this runs: no collective is launched.
 
 The JAX package's process-wide cache of jitted steps (``shared_jit``,
 ``shared_module_init``) has no counterpart: eager PyTorch compiles nothing
@@ -86,18 +91,16 @@ def resolve_device(platform: str | None) -> torch.device:
 
 
 def mesh_ranks(trainer_cfg: Mapping[str, Any], device_type: str) -> int:
-    """How many ranks a run of ``trainer_cfg`` asks for: ``mesh.data``, or
-    with it null every device (on the CPU ``host_device_count``, default 1;
-    on CUDA the visible GPUs). ``mesh.model > 1`` raises (ROADMAP item
-    [16b]), as do more ranks than devices and ``host_device_count`` on
-    CUDA."""
+    """How many ranks a run of ``trainer_cfg`` asks for: ``mesh.data`` x
+    ``mesh.model``, with ``data`` null every device over ``model`` (the
+    devices: on the CPU ``host_device_count``, by default the ranks asked
+    for; on CUDA the visible GPUs). More ranks than devices raise, as does
+    ``host_device_count`` on CUDA."""
     mesh_cfg = trainer_cfg.get("mesh", {}) or {}
     model = int(mesh_cfg.get("model") or 1)
-    if model > 1:
-        create_mesh(None, model)            # raises, naming [16b]
     hdc = trainer_cfg.get("host_device_count")
     if device_type == "cpu":
-        devices = int(hdc or 1)
+        devices = int(hdc) if hdc is not None else None
     else:
         if hdc is not None and int(hdc) > 1:
             raise ValueError(
@@ -106,10 +109,13 @@ def mesh_ranks(trainer_cfg: Mapping[str, Any], device_type: str) -> int:
                 "(trainer.mesh.data)")
         devices = torch.cuda.device_count()
     data = mesh_cfg.get("data")
-    data = devices if data is None else int(data)
-    if not 0 < data <= devices:
-        raise ValueError(f"trainer.mesh.data={data}: {devices} device(s)")
-    return data
+    data = (1 if devices is None else devices // model) if data is None \
+        else int(data)
+    devices = data * model if devices is None else devices
+    if data < 1 or model < 1 or data * model > devices:
+        raise ValueError(f"trainer.mesh.data={data} x mesh.model={model} "
+                         f"ranks: {devices} device(s)")
+    return data * model
 
 
 def device_batch(batch: Mapping[str, Any], device: torch.device) -> dict:
@@ -141,9 +147,11 @@ class Trainer:
         self.device = resolve_device(tcfg.get("platform"))
         mesh_cfg = tcfg.get("mesh", {}) or {}
         data = mesh_cfg.get("data")
-        if data is None and self.device.type == "cpu":
-            data = tcfg.get("host_device_count")
-        self.mesh: Mesh = create_mesh(data, int(mesh_cfg.get("model") or 1))
+        model = int(mesh_cfg.get("model") or 1)
+        if data is None and self.device.type == "cpu" and \
+                tcfg.get("host_device_count") is not None:
+            data = int(tcfg["host_device_count"]) // model
+        self.mesh: Mesh = create_mesh(data, model)
         if is_distributed():
             datamodule.set_mesh(self.mesh)
         self.max_epochs = int(tcfg.get("max_epochs", 1))
@@ -206,8 +214,13 @@ class Trainer:
         raise NotImplementedError
 
     def state_dict(self) -> dict:
-        """What a checkpoint holds: ``step`` and the state's tensors."""
+        """What a checkpoint holds: ``step`` and the state's tensors, whole
+        (every rank of a model group calls it)."""
         return self.state
+
+    def shard(self) -> None:
+        """Keep this rank's shard of the state's tensors (a no-op at
+        ``mesh.model`` 1)."""
 
     def _replicate(self) -> None:
         """Every tensor of the state (the modules' parameters and buffers,
@@ -259,6 +272,7 @@ class Trainer:
         example = next(iter(self.datamodule.train_batches(0)))
         self.build(example)
         self._replicate()
+        self.shard()
         restored = False
         if restore_from:
             # resume from another run's checkpoints (train ckpt_path=...)
@@ -318,6 +332,7 @@ class Trainer:
             example = next(iter(self.datamodule.test_batches(0)))
             self.build(example)
             self._replicate()
+            self.shard()
             if self.ckpt.latest_step() is not None:
                 self._restore(self.ckpt)
         metrics = self._run_epoch("test", self.current_epoch)

@@ -18,7 +18,7 @@ from typing import Any, Callable, Mapping
 
 import torch
 
-from ..parallel.distributed import all_reduce_sum, world_size
+from ..parallel.distributed import all_reduce_sum, data_group, group_size
 
 __all__ = ["LOSS_REGISTRY", "register_loss", "weighted_losses",
            "MetricAccumulator", "loss_log_name"]
@@ -115,6 +115,8 @@ class MetricAccumulator:
             return {}
         device = next((s.device for s in sums if s.device.type != "cpu"),
                       torch.device("cpu"))
-        stacked = all_reduce_sum(torch.stack([s.to(device) for s in sums]))
-        means = (stacked / (c * world_size())).tolist()
+        group = data_group()
+        stacked = all_reduce_sum(torch.stack([s.to(device) for s in sums]),
+                                 group)
+        means = (stacked / (c * group_size(group))).tolist()
         return dict(zip(self.names, means))

@@ -19,7 +19,10 @@ state, reconstructions for FVD (``sample_videos``), the FVD hook and the
 two renders a render epoch. In a process group the step is one rank's
 share of the global step: its rows through the model (BatchNorm and the
 codebook on global statistics, :mod:`..models.vqvae`), the gradients
-averaged over the ranks before Adam, so every rank keeps the same weights.
+averaged over the data group before Adam, so every rank keeps the same
+weights. Under tensor parallelism (:func:`shard_stage1`) the codebook's
+codes are sharded over the model group, as JAX's ``shard_state`` places
+them; the rest is whole on every rank.
 """
 from __future__ import annotations
 
@@ -32,7 +35,11 @@ import torch
 from ..data.preprocess import preprocess_clip
 from ..data.synthetic import SyntheticVideoDataModule
 from ..models.vqvae import VQVAE, init_vqvae_, make_vqvae
-from ..parallel.distributed import all_gather_rows, average_gradients
+from ..parallel.distributed import (all_gather_rows, average_gradients,
+                                    data_group)
+from ..parallel.mesh import (Mesh, full_optimizer_state_dict,
+                             full_state_dict, load_full_optimizer_state_dict_,
+                             load_full_state_dict_, shard_module_)
 from ..utils.logging import get_logger
 from ..utils.renderer import render_animation
 from .loop import Trainer
@@ -40,8 +47,8 @@ from .metrics import weighted_losses
 
 __all__ = ["TRAIN_STEP1", "TRAIN_STEP1_BATCH", "TRAIN_STEP128",
            "TRAIN_STEP128_BATCH", "Stage1State", "make_vqvae",
-           "build_stage1", "train_step", "eval_step", "synthetic_batch",
-           "Stage1Trainer"]
+           "build_stage1", "shard_stage1", "train_step", "eval_step",
+           "synthetic_batch", "Stage1Trainer"]
 
 log = get_logger(__name__)
 
@@ -105,6 +112,14 @@ def build_stage1(config: Mapping[str, Any], device: torch.device | str,
                        resolution=vqvae.resolution, loss_dict=loss_dict)
 
 
+def shard_stage1(state: Stage1State, mesh: Mesh) -> dict[str, int]:
+    """Keep this rank's shard of the VQ-VAE's tensors over ``mesh.model``
+    (:func:`..parallel.mesh.shard_module_`, before the first step); returns
+    the sharded names (``vqvae.``-prefixed) and dimensions."""
+    return {f"vqvae.{k}": v
+            for k, v in shard_module_(state.vqvae, mesh).items()}
+
+
 def _video(state: Stage1State, batch: Mapping[str, Any]) -> torch.Tensor:
     video = torch.as_tensor(batch["video"]).to(state.device)
     return preprocess_clip(video, state.resolution)
@@ -125,7 +140,7 @@ def train_step(state: Stage1State, batch: Mapping[str, Any],
                       **draws)
     total, values = weighted_losses(state.loss_dict, out)
     total.backward()
-    average_gradients(state.vqvae.parameters())
+    average_gradients(state.vqvae.parameters(), data_group())
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in values.items()}
@@ -181,14 +196,18 @@ class Stage1Trainer(Trainer):
     def eval_step(self, state, batch, rng):
         return eval_step(state, batch)
 
+    def shard(self) -> None:
+        shard_stage1(self.state, self.mesh)
+
     def state_dict(self) -> dict:
         return {"step": self.state.step,
-                "vqvae": self.state.vqvae.state_dict(),
-                "optimizer": self.state.optimizer.state_dict()}
+                "vqvae": full_state_dict(self.state.vqvae),
+                "optimizer": full_optimizer_state_dict(self.state.optimizer)}
 
     def load_state_dict(self, state) -> None:
-        self.state.vqvae.load_state_dict(state["vqvae"])
-        self.state.optimizer.load_state_dict(state["optimizer"])
+        load_full_state_dict_(self.state.vqvae, state["vqvae"])
+        load_full_optimizer_state_dict_(self.state.optimizer,
+                                        state["optimizer"])
         self.state.step = int(state["step"])
 
     @torch.no_grad()
@@ -197,7 +216,7 @@ class Stage1Trainer(Trainer):
         process group every rank's, gathered in rank order."""
         out = self.state.vqvae({"video": _video(self.state, batch)},
                                train=False)
-        return all_gather_rows(out["pred_data"])
+        return all_gather_rows(out["pred_data"], data_group())
 
     def extra_eval_metrics(self, split: str, epoch: int) -> dict:
         if self.evaluator is None:

@@ -27,8 +27,11 @@ three render artefacts (the reverse process, the one-step x0 prediction,
 the original). In a process group the step is one rank's share of the
 global step (the loss's draws made for the global batch, :mod:`..models.
 discrete_diffusion`; the gradients averaged over the ranks before Adam),
-and sampling splits the batch over the ranks (:func:`..generate.
-sample_token_grid`).
+and sampling splits the batch over the data group (:func:`..generate.
+sample_token_grid`). Under tensor parallelism (:func:`shard_stage2`) the
+denoiser's MLPs, ``to_logits`` (and its token table where the rows divide)
+and the frozen codebook are sharded over the model group, as JAX's
+``shard_state`` places them.
 """
 from __future__ import annotations
 
@@ -45,7 +48,10 @@ from ..generate import HONEST, GenerationModels, build_models, sample_videos
 from ..models.clip_text import make_tokenizer
 from ..models.discrete_diffusion import DiscreteDiffusionModel, resolve_sampler
 from ..models.vqvae import VQVAE
-from ..parallel.distributed import average_gradients
+from ..parallel.distributed import average_gradients, data_group
+from ..parallel.mesh import (Mesh, full_optimizer_state_dict,
+                             full_state_dict, load_full_optimizer_state_dict_,
+                             load_full_state_dict_, shard_module_)
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import get_logger
 from ..utils.renderer import render_animation
@@ -53,7 +59,8 @@ from .loop import Trainer, device_batch
 from .metrics import weighted_losses
 
 __all__ = ["TRAIN_STEP2", "TRAIN_STEP2_BATCH", "TRAIN_STEP2_MSRVTT",
-           "Stage2State", "build_stage2", "prepare_batch", "on_device",
+           "Stage2State", "build_stage2", "shard_stage2", "prepare_batch",
+           "on_device",
            "encode_tokens", "train_step", "eval_step", "synthetic_batch",
            "stage2_config", "load_stage1_checkpoint", "Stage2Trainer"]
 
@@ -151,6 +158,19 @@ def build_stage2(config: Mapping[str, Any], device: torch.device | str,
                        learnable_cf=learnable_cf)
 
 
+def shard_stage2(state: Stage2State, mesh: Mesh) -> dict[str, int]:
+    """Keep this rank's shard of the generator's and the frozen VQ-VAE's
+    tensors over ``mesh.model`` (:func:`..parallel.mesh.shard_module_`,
+    before the first step); returns the sharded names (``generator.`` /
+    ``vqvae.``-prefixed) and dimensions."""
+    out = {}
+    for prefix, module in (("generator", state.generator),
+                           ("vqvae", state.vqvae)):
+        out.update({f"{prefix}.{k}": v
+                    for k, v in shard_module_(module, mesh).items()})
+    return out
+
+
 def prepare_batch(batch: Mapping[str, Any], tokenizer,
                   learnable_cf: bool = False) -> dict:
     """The JAX trainer's ``_prepare_batch``: with a ``tokenizer`` (text
@@ -211,7 +231,7 @@ def train_step(state: Stage2State, batch: Mapping[str, Any],
                           **draws)
     total, values = _values(state, out)
     total.backward()
-    average_gradients(state.generator.parameters())
+    average_gradients(state.generator.parameters(), data_group())
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in values.items()}
@@ -263,13 +283,18 @@ def stage2_config(model_cfg: Mapping[str, Any]) -> dict:
 def load_stage1_checkpoint(ckpt_dir: str, vqvae: VQVAE) -> int:
     """Load the newest checkpoint of a stage-1 run of the port (its
     ``checkpoints/`` directory) into ``vqvae``, bit for bit; returns its
-    step. A reference ``.ckpt`` file is ROADMAP item [1]."""
+    step. As the JAX package's ``load_stage1_checkpoint`` (an Orbax run
+    directory only), a file raises: a reference stage-1 ``.ckpt`` is read
+    by ``probes/parity_fvd.py --vqvae`` (:func:`..convert.torch_vqvae.
+    convert_vqvae_file`)."""
     path = Path(str(ckpt_dir))
     if path.is_file() or path.suffix == ".ckpt":
         raise NotImplementedError(
-            f"checkpoint_paths.autoencoder={ckpt_dir!r}: reading a "
-            f"reference .ckpt file is ROADMAP item [1], not ported yet; "
-            f"give a stage-1 run's checkpoints/ directory")
+            f"checkpoint_paths.autoencoder={ckpt_dir!r}: stage 2 reads a "
+            f"stage-1 run's checkpoints/ directory, as the JAX package, "
+            f"which also reads only a stage-1 run's checkpoint directory "
+            f"there; a reference stage-1 .ckpt is read by "
+            f"probes/parity_fvd.py --vqvae")
     if not path.is_dir():
         raise FileNotFoundError(f"no stage-1 checkpoints at {ckpt_dir!r}")
     mgr = CheckpointManager(path, monitor=None)
@@ -341,16 +366,20 @@ class Stage2Trainer(Trainer):
     def eval_step(self, state, batch, rng):
         return eval_step(state, batch, rng)
 
+    def shard(self) -> None:
+        shard_stage2(self.state, self.mesh)
+
     def state_dict(self) -> dict:
         return {"step": self.state.step,
-                "generator": self.state.generator.state_dict(),
-                "vqvae": self.state.vqvae.state_dict(),
-                "optimizer": self.state.optimizer.state_dict()}
+                "generator": full_state_dict(self.state.generator),
+                "vqvae": full_state_dict(self.state.vqvae),
+                "optimizer": full_optimizer_state_dict(self.state.optimizer)}
 
     def load_state_dict(self, state) -> None:
-        self.state.generator.load_state_dict(state["generator"])
-        self.state.vqvae.load_state_dict(state["vqvae"])
-        self.state.optimizer.load_state_dict(state["optimizer"])
+        load_full_state_dict_(self.state.generator, state["generator"])
+        load_full_state_dict_(self.state.vqvae, state["vqvae"])
+        load_full_optimizer_state_dict_(self.state.optimizer,
+                                        state["optimizer"])
         self.state.step = int(state["step"])
 
     def sample_videos(self, batch, rng: torch.Generator) -> torch.Tensor:

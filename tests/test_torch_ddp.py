@@ -456,16 +456,20 @@ def test_stage2_dryrun_over_two_ranks(runs):
 
 
 def test_mesh_refusals():
-    """No fallback: a batch that does not divide, mesh.model > 1, and a
-    mesh.data other than the ranks there are raise."""
+    """No fallback: a batch that does not divide, a mesh.data other than
+    the ranks there are, and more ranks than devices raise; mesh.model > 1
+    (tensor parallelism, ROADMAP item [16b]) gives a (1, 2) mesh and two
+    ranks."""
     with pytest.raises(ValueError, match="does not divide"):
         mesh.shard_rows(5, mesh.Mesh(data=2, index=0))
-    with pytest.raises(NotImplementedError, match=r"\[16b\]"):
-        mesh.create_mesh(None, 2)
+    m = mesh.create_mesh(None, 2)
+    assert (m.data, m.model) == (1, 2)
     with pytest.raises(ValueError, match="rank"):
         mesh.create_mesh(2)
-    with pytest.raises(NotImplementedError, match=r"\[16b\]"):
-        mesh_ranks({"mesh": {"model": 2}}, "cpu")
+    assert mesh_ranks({"mesh": {"model": 2}}, "cpu") == 2
+    with pytest.raises(ValueError, match="device"):
+        mesh_ranks({"host_device_count": 2,
+                    "mesh": {"data": 2, "model": 2}}, "cpu")
     with pytest.raises(ValueError, match="host_device_count"):
         mesh_ranks({"host_device_count": 2}, "cuda")
     assert mesh_ranks({"host_device_count": 3, "mesh": {"data": None}},

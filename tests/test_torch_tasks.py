@@ -4,7 +4,7 @@ as child processes, at a small size. Each run writes ``config_tree.log``
 (read back by the port's reader to the composed dict) and
 ``exec_time.log``, and ``exception.log`` on a failure; without CUDA and
 without ``trainer.platform=cpu`` a run raises; an existing ``eval_ckpt``
-raises rather than being ignored."""
+is read (and a file that is no checkpoint raises) rather than ignored."""
 import os
 import subprocess
 import sys
@@ -149,7 +149,8 @@ def test_an_existing_eval_ckpt_is_not_ignored(tmp_path):
     cfg = compose("train", STAGE1 + ["model.do_evaluation=true",
                                      f"eval_ckpt={i3d}",
                                      f"paths.output_dir={tmp_path / 'out'}"])
-    with pytest.raises(NotImplementedError, match=r"\[1\]"):
+    # read through the I3D converter: these bytes are no torch checkpoint
+    with pytest.raises(ValueError, match="not a torch checkpoint"):
         tasks.train(cfg)
 
 
