@@ -4,11 +4,12 @@
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
     python3 chip_smoke.py --profile   # and a torch.profiler table of a
-                                      # training step of each stage and
-                                      # of the text step
-    python3 chip_smoke.py --parent ROOT   # and K1, K6, P1, P2 and P3 timed
-                                          # in turns with the checkout at
-                                          # ROOT
+                                      # training step of each stage, of
+                                      # the text step, and of phase 20's
+                                      # sampling and steps
+    python3 chip_smoke.py --parent ROOT   # and K1, K6, P1, P2, P3 (and K2,
+                                          # K5 at head dim 4) timed in
+                                          # turns with the checkout at ROOT
 
 Phases:
   1. the card (nvidia-smi name and power limit), the torch / CUDA
@@ -160,7 +161,25 @@ Phases:
      (B=64), ``TRAIN_STEP2`` at ``ddiff_ucf.sh``'s (B=16) with an f32 and a
      bf16 denoiser, argmax sampling through K3 on the gathered weights
      (tokens bitwise), with the step times, the launches of K6's entries
-     and the bytes a rank holds.
+     and the bytes a rank holds;
+ 20. K2 and K5 at every head width the JAX kernels take (the wide design,
+     ``csrc/mha_tiles.cuh: WTf32, WBf16``): (a) d = 12, 16, 32, 64, 128 in
+     f32 and bf16 against their plain versions (self-attention at B=64,
+     L=1024 in 16 heads, 8 at d = 128; cross-attention over 1 and 77 keys)
+     under K2_TOL, K5_TOL and BF16_EXCESS_TOL, then timed with the bound,
+     the exponential floor and ``F.scaled_dot_product_attention``; (b) the
+     denoiser at VQ-Diffusion-B's published width (``generate.VQD_B``:
+     n_embd 1024 in 16 heads of 64, 387.4 M parameters): its logits at one
+     timestep through K2 against the plain attention on the card, then
+     ``sample_videos`` for 4 clips over 100 steps on the route ``auto``
+     takes (``model``: 38 K2 and 1 K1 a step); (c) one
+     ``TRAIN_STEP2_VQD_B`` step (f32, B=4) through K2 / K5 against the plain
+     attention, then ``tasks.train`` on ``ddiff_ucf.sh``'s line with the two
+     overrides at B=16, 4 steps in bf16 and 2 in f32 (38 K2, 38 K5 and 1 K6
+     a step), each with its s a step, peak memory and launches by head
+     dim (all at 64); (d) K2 and K5 at d = 4 timed again, in turns with
+     ``--parent ROOT`` where given; (e) with ``--profile``, (b)'s sampling
+     and the training step at B=16 in bf16 and f32 under torch.profiler.
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -172,7 +191,12 @@ serving run at 2304 tokens, P1 from the build-cache probe's children, P2
 and P3 from the depth / packing probe, and each kernel's launches in
 phase 17's runs (K2, K5 and K6 there, K3 or K1, whichever ``auto`` took,
 at least once); phase 18's checkpointed steps (K2, K5) and rank 0's launches of K2, K5,
-K6 and K3 there; ``launches_by_path`` splits the
+K6 and K3 there; phase 20's ``VQD_B`` runs (K1 and K2 sampling, K2, K5
+and K6 in both ``tasks.train`` runs), and for K2 and K5 the launches of
+this process by head dim, as the wrappers counted them
+(``launches_by_head_dim``: every phase, the checks included), and phase
+20 (a)'s numbers at each wide head dim (``by_head_dim``);
+``launches_by_path`` splits the
 count by the run it came from, each run's counts set to 0 just before it
 and read just after), and the last line ``{"ok": true, "device": {...}}``.
 Any failure raises: there is no CPU run.
@@ -180,6 +204,7 @@ Any failure raises: there is no CPU run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import importlib
@@ -193,8 +218,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from gif_synthesis_with_discrete_diffusion_tpu_torch.roofline import (
-    PEAK_BF16, PEAK_BYTES, PEAK_F32, PEAK_TF32, bound as _bound, card,
-    megakernel_work as _megakernel_work)
+    PEAK_BF16, PEAK_BYTES, PEAK_F32, PEAK_TF32, attention_work,
+    bound as _bound, card, megakernel_work as _megakernel_work)
 
 ROOT = Path(__file__).resolve().parent
 PKG = "gif_synthesis_with_discrete_diffusion_tpu_torch"
@@ -634,11 +659,13 @@ def _sdpa_backend(torch, *args) -> str:
 
 def _attention_bound(dtype, flops: float, nbytes_f32: float
                      ) -> tuple[float, str]:
-    """The least time of an attention call: its products at the peak of
-    the operands' type (f32: the CUDA cores' 67 TFLOP/s; bf16: the tensor
-    cores' 989), its tensors at their element size."""
+    """The least time of an attention call: its products at the tensor
+    cores' peak for the operands' type (f32: three TF32 products a product,
+    hi hi + hi lo + lo hi, at 495 TFLOP/s, as the kernels compute them and
+    as K6 is bounded; bf16: 989 TFLOP/s), its tensors at their element
+    size."""
     if str(dtype) == "torch.float32":
-        return _bound(nbytes_f32, flops)
+        return _bound(nbytes_f32, 0.0, flops_tf32=3.0 * flops)
     return _bound(nbytes_f32 / 2, 0.0, flops)
 
 
@@ -745,13 +772,11 @@ def phase_k2(torch, smi: str) -> dict:
             lib_ms = _time_ms(
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
             backend = _sdpa_backend(torch, qh, kh, vh)
-            # bound: 4 B H Lq Lk d operations (QK^T and PV) against q, k, v
-            # read and o written once; beside it the exponentials, one a
-            # (query, key, head)
-            flops = 4.0 * 64 * 16 * 1024 * lk * 4
-            nbytes = 4.0 * (2 * q.numel() + 2 * k.numel())
+            # bound: QK^T and PV against q, k, v read and o written once;
+            # beside it the exponentials, one a (query, key, head)
+            nbytes, flops, exps = attention_work(64, 1024, lk, 16, 4)
             bound_ms, bound_by = _attention_bound(dtype, flops, nbytes)
-            exp_ms = 64 * 16 * 1024 * lk / exp_rate * 1e3
+            exp_ms = exps / exp_rate * 1e3
             times[shape] = (ms, plain_ms, lib_ms, bound_ms, bound_by,
                             exp_ms)
             print(f"phase 3: K2 {name} {shape} (B=64, Lq=1024, Lk={lk}) "
@@ -936,14 +961,14 @@ def phase_k5(torch, smi: str) -> dict:
                 oh, (qh, kh, vh), doh, retain_graph=True), 10)
             backend = _sdpa_backend(torch, qh.detach(), kh.detach(),
                                     vh.detach())
-            # bound: five products of 2 B H Lq Lk d operations (S, dV, dP,
-            # dQ, dK) against q, k, v, o, do read and dq, dk, dv written
-            # once; beside it the exponentials, one a (query, key, head) in
-            # each of the two kernels
-            flops = 10.0 * 16 * 16 * 1024 * lk * 4
-            nbytes = 4.0 * (4 * q.numel() + 4 * k.numel())
+            # bound: five products (S, dV, dP, dQ, dK) against q, k, v, o,
+            # do read and dq, dk, dv written once; beside it the
+            # exponentials, one a (query, key, head) in each of the two
+            # kernels
+            nbytes, flops, exps = attention_work(16, 1024, lk, 16, 4,
+                                                 backward=True)
             bound_ms, bound_by = _attention_bound(dtype, flops, nbytes)
-            exp_ms = 2 * 16 * 16 * 1024 * lk / exp_rate * 1e3
+            exp_ms = exps / exp_rate * 1e3
             times[shape] = (ms, plain_ms, lib_ms, bound_ms, bound_by,
                             exp_ms)
             print(f"phase 5: K5 {name} {shape} (B=16, Lq=1024, Lk={lk}) "
@@ -3769,14 +3794,504 @@ def phase_tp(torch, smi: str) -> dict:
     return {"entries": entries, "ranks": _phase19_ranks(torch, smi)}
 
 
+# phase 20: K2 and K5 at every head width the JAX kernels take, and the
+# denoiser at VQ-Diffusion-B's published width (generate.VQD_B: n_embd 1024
+# in 16 heads of 64) sampled and trained through the port's entries
+WIDE_HEAD_DIMS = (12, 16, 32, 64, 128)
+WIDE_B, WIDE_L = 64, 1024        # 2B=64 rows of 1024 tokens, as phase 3
+WIDE_ITERS = 5
+VQD_B_CLIPS = 4
+# the training step held against the plain attention: B=4 (the plain
+# attention keeps 19 layers' (B, 16, 1024, 1024) f32 probabilities)
+VQD_B_CMP_BATCH = 4
+VQD_B_STEPS = {"bfloat16": 4, "float32": 2}
+
+
+def _by_head_dim(counts: dict) -> str:
+    """``{(head dim, dtype): launches}`` as text."""
+    return ", ".join(f"d={d} {str(t)[6:]} {n}"
+                     for (d, t), n in sorted(counts.items(), key=str))
+
+
+def _head_dim_launches(counts: dict, dtype: str, name: str) -> dict:
+    """``{str(head dim): launches}`` of one dtype (``"float32"``,
+    ``"bfloat16"``) in a wrapper's ``by_head_dim``; raises where a head dim
+    the phases run (4 and 8 in phases 3 and 5, phase 20's) has none."""
+    by_d = {d: n for (d, t), n in counts.items() if str(t) == f"torch.{dtype}"}
+    missing = {4, 8, *WIDE_HEAD_DIMS} - set(by_d)
+    if missing:
+        raise AssertionError(f"{name} launched at no head dim "
+                             f"{sorted(missing)}")
+    return {str(d): by_d[d] for d in sorted(by_d)}
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The denoiser's attention as the plain version (``sdpa_reference``,
+    differentiated by autograd) on the same tensors inside the block."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models import (
+        denoiser)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        sdpa_reference)
+    saved = denoiser.fused_mha
+    denoiser.fused_mha = lambda q, k, v, *, n_head: sdpa_reference(
+        q, k, v, n_head)
+    try:
+        yield
+    finally:
+        denoiser.fused_mha = saved
+
+
+def _f32_attention_case(torch, B, Lq, Lk, C, H) -> dict:
+    """K2 and K5 in f32 at one case against their plain versions: the
+    largest errors, whether each lies within K2_TOL / K5_TOL (rtol = atol),
+    and whether two backward launches gave the same bits."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        _fwd_kernel, fused_mha, fused_mha_bwd, fused_mha_bwd_reference,
+        sdpa_reference)
+    g = torch.Generator(device="cuda").manual_seed(Lq + 7 * Lk + C)
+    q, k, v, do = (torch.randn((B, n, C), generator=g, device="cuda")
+                   for n in (Lq, Lk, Lk, Lq))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    o = fused_mha(qg, kg, vg, n_head=H)
+    o.backward(do)
+    _, lse, o32 = _fwd_kernel(q, k, v, H, with_lse=True)
+    again = fused_mha_bwd(q, k, v, o32, lse, do, n_head=H)
+    got = (o.detach(), qg.grad, kg.grad, vg.grad)
+    want = (sdpa_reference(q, k, v, H), *fused_mha_bwd_reference(q, k, v,
+                                                                 do, H))
+    out = {n: (x - w).abs().max().item()
+           for n, x, w in zip(("o", "dq", "dk", "dv"), got, want)}
+    out["ok"] = all(bool(((x - w).abs() <= t + t * w.abs()).all())
+                    for x, w, t in zip(got, want,
+                                       (K2_TOL, K5_TOL, K5_TOL, K5_TOL)))
+    out["same"] = all(torch.equal(x, y) for x, y in zip(got[1:], again))
+    return out
+
+
+def _phase20_kernels(torch, smi: str) -> dict:
+    """(a) K2 and K5 at every listed head width, f32 and bf16, against
+    their plain versions (self-attention at B=64, L=1024, 16 heads or 8 at
+    d = 128; cross-attention over 1 and 77 keys), then timed there with
+    the bound, the exponential floor and the library call. Returns the
+    numbers by (d, dtype)."""
+    import torch.nn.functional as F
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        BF16_EXCESS_TOL, _fwd_kernel, fused_mha, fused_mha_bwd,
+        fused_mha_bwd_reference, kernel_head_dim, sdpa_reference)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes.\
+        attention_variants import heads
+
+    exp_rate = _exp_rate(torch)
+    rows = {}
+    for d in WIDE_HEAD_DIMS:
+        H = heads(d)
+        C = H * d
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            worst = 0.0
+            for lk in (WIDE_L, 1, 77):
+                case = (f"phase 20: d={d} (instantiation "
+                        f"{kernel_head_dim(d)}) {name} B={WIDE_B} "
+                        f"Lq={WIDE_L} Lk={lk} H={H}")
+                if dtype == torch.float32:
+                    r = _f32_attention_case(torch, WIDE_B, WIDE_L, lk, C, H)
+                    print(f"{case}: max-abs o {r['o']:.3e} (tol {K2_TOL} + "
+                          f"{K2_TOL} |x|), dq {r['dq']:.3e}, dk {r['dk']:.3e},"
+                          f" dv {r['dv']:.3e} (tol {K5_TOL} + {K5_TOL} |x|); "
+                          f"two K5 launches bitwise equal: {r['same']}")
+                    if not (r["ok"] and r["same"]):
+                        raise AssertionError("K2 / K5 f32 disagree with their "
+                                             "plain versions")
+                    worst = max(worst, *(r[n] for n in ("o", "dq", "dk",
+                                                        "dv")))
+                    continue
+                r = _bf16_attention_case(torch, WIDE_B, WIDE_L, lk, C, H)
+                names = ("o", "dq", "dk", "dv")
+                ctl = [r["control"][n] for n in names]
+                print(f"{case}: o32 (f32) max-abs {r['o32']:.3e} (tol "
+                      f"{K2_TOL} + {K2_TOL} |x|); beyond their rounding "
+                      + ", ".join(f"{n} {r[n]:.3e}" for n in names)
+                      + " of their magnitude, P and dS rounded to bf16 "
+                      + ", ".join(f"{x:.3e}" for x in ctl)
+                      + f" (tol {BF16_EXCESS_TOL}); two K5 launches bitwise "
+                      f"equal: {r['same']}")
+                if not (r["o32_ok"] and r["same"] and all(
+                        r[n] <= BF16_EXCESS_TOL for n in names)) or (
+                        lk > 1 and not min(ctl) > BF16_EXCESS_TOL):
+                    raise AssertionError("K2 / K5 bf16 disagree with their "
+                                         "plain versions, or the check "
+                                         "cannot tell")
+                worst = max(worst, *(r["abs"][n] for n in names))
+            torch.cuda.empty_cache()
+
+            # timed at B=64 rows of 1024 queries: self-attention, and
+            # cross-attention over one key
+            g = torch.Generator(device="cuda").manual_seed(d)
+            out = {"max_abs_err": worst}
+            for shape, lk in (("self", WIDE_L), ("cross", 1)):
+                q, do = (torch.randn((WIDE_B, WIDE_L, C), generator=g,
+                                     device="cuda").to(dtype)
+                         for _ in range(2))
+                k, v = (torch.randn((WIDE_B, lk, C), generator=g,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                ms, plain_ms = _ab_ms(lambda: sdpa_reference(q, k, v, H),
+                                      lambda: fused_mha(q, k, v, n_head=H),
+                                      WIDE_ITERS)
+                _, lse, o32 = _fwd_kernel(q, k, v, H, with_lse=True)
+                bms, bplain_ms = _ab_ms(
+                    lambda: fused_mha_bwd_reference(q, k, v, do, H),
+                    lambda: fused_mha_bwd(q, k, v, o32, lse, do, n_head=H),
+                    WIDE_ITERS)
+                qh, kh, vh = (x.reshape(WIDE_B, -1, H, d).transpose(1, 2)
+                              .contiguous().requires_grad_()
+                              for x in (q, k, v))
+                doh = do.reshape(WIDE_B, -1, H, d).transpose(1, 2).contiguous()
+                with torch.no_grad():
+                    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh), WIDE_ITERS)
+                oh = F.scaled_dot_product_attention(qh, kh, vh)
+                blib_ms = _time_ms(lambda: torch.autograd.grad(
+                    oh, (qh, kh, vh), doh, retain_graph=True), WIDE_ITERS)
+                backend = _sdpa_backend(torch, qh.detach(), kh.detach(),
+                                        vh.detach())
+                del oh
+                for kernel, t, p, lib, bwd in (("K2", ms, plain_ms, lib_ms,
+                                                False),
+                                               ("K5", bms, bplain_ms,
+                                                blib_ms, True)):
+                    nbytes, flops, exps = attention_work(
+                        WIDE_B, WIDE_L, lk, H, d, backward=bwd)
+                    bound_ms, bound_by = _attention_bound(dtype, flops,
+                                                          nbytes)
+                    exp_ms = exps / exp_rate * 1e3
+                    out[f"{kernel} {shape}"] = dict(
+                        ms=t, plain_ms=p, library_ms=lib, bound_ms=bound_ms,
+                        bound_by=bound_by, exp_floor_ms=exp_ms)
+                    print(f"phase 20: {kernel} d={d} {name} {shape} "
+                          f"(B={WIDE_B}, Lq={WIDE_L}, Lk={lk}, H={H}) kernel "
+                          f"{t:.4f} ms, plain {p:.4f} ms, sdpa ({backend}) "
+                          f"{'autograd backward ' if bwd else ''}{lib:.4f} "
+                          f"ms, bound {bound_ms:.4f} ms by {bound_by} "
+                          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB "
+                          f"in f32), exponential floor {exp_ms:.4f} ms "
+                          f"({smi})")
+                del q, k, v, do, qh, kh, vh, doh, lse, o32
+                torch.cuda.empty_cache()
+            rows[(d, name)] = out
+    return rows
+
+
+def _phase20_sampling(torch, smi: str) -> dict:
+    """(b) ``VQD_B``: the denoiser's logits at one timestep (B=4 under CFG,
+    8 rows) through K2 against the plain attention on the same card
+    tensors, then ``sample_videos`` for 4 clips over 100 steps on the route
+    ``auto`` takes (the ``model`` route: 38 K2 and 1 K1 a step)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        VQD_B, build_models, sample_videos)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
+        _cfg_batch)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models import (
+        discrete_diffusion)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        fused_mha)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import fused_sample_step
+
+    t0 = time.perf_counter()
+    models = build_models(VQD_B, "cuda", torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    diff = models.generator.diffusion
+    tr = diff.transformer
+    n_params = sum(p.numel() for p in tr.parameters())
+    cfg = VQD_B["generator"]["diffusion_model"]
+    n_layer = cfg["transformer"]["n_layer"]
+    steps = cfg["diffusion_step"]
+    route = discrete_diffusion.resolve_sampler(
+        "auto", diff.lt_history.device, diff.content_seq_len, tr, True)
+    print(f"phase 20: VQD_B built in {time.perf_counter() - t0:.2f} s: "
+          f"{n_layer} layers, n_embd {cfg['transformer']['n_embd']}, "
+          f"{cfg['transformer']['n_head']} heads of "
+          f"{cfg['transformer']['n_embd'] // cfg['transformer']['n_head']}, "
+          f"{n_params} denoiser parameters, {diff.content_seq_len} tokens "
+          f"over {diff.num_classes - 1} codes; route auto -> {route}")
+    if route != "model":
+        raise AssertionError("auto does not take the model route at VQD_B")
+
+    g = torch.Generator().manual_seed(20)
+    n_classes = VQD_B["generator"]["textencoder"]["n_classes"]
+    batch = {"label": torch.randint(0, n_classes, (VQD_B_CLIPS,),
+                                    generator=g)}
+    with torch.no_grad():
+        cond, cf = models.generator.conditioner_embeddings(batch,
+                                                           VQD_B_CLIPS)
+        cond2 = _cfg_batch(cond, cf, True)
+        tokens = torch.randint(0, diff.num_classes,
+                               (VQD_B_CLIPS, diff.content_seq_len),
+                               generator=g).cuda()
+        x2 = torch.cat([tokens, tokens])
+        t2 = torch.full((2 * VQD_B_CLIPS,), steps // 2, device="cuda")
+        fused_mha.launches = 0
+        got = tr(x2, cond2, t2)
+        k2 = fused_mha.launches
+        with _plain_attention():
+            want = tr(x2, cond2, t2)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"phase 20: VQD_B logits (B={VQD_B_CLIPS} under CFG, t="
+          f"{steps // 2}) through K2 ({k2} launches) against the plain "
+          f"attention on the card: max-abs {err:.3e} of their magnitude "
+          f"(tol {DENOISER_TOL})")
+    if k2 != 2 * n_layer or not err <= DENOISER_TOL:
+        raise AssertionError("VQD_B's logits through K2 disagree with the "
+                             "plain attention")
+    del got, want
+
+    batch = {"label": torch.randint(0, n_classes, (VQD_B_CLIPS,),
+                                    generator=g)}
+    fused_sample_step.launches = fused_mha.launches = 0
+    widths = fused_mha.by_head_dim.copy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    video = sample_videos(models, batch, g, sampler="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"K1": fused_sample_step.launches, "K2": fused_mha.launches}
+    widths = dict(fused_mha.by_head_dim - widths)
+    shape = (VQD_B_CLIPS, 16, 64, 64, 3)
+    print(f"phase 20: VQD_B sample_videos, {VQD_B_CLIPS} clips, {steps} "
+          f"steps, route {route}: {wall:.3f} s = {VQD_B_CLIPS / wall:.3f} "
+          f"clips/s, {wall / steps * 1e3:.2f} ms a step (the decode "
+          f"included); launches K2 {launches['K2']} "
+          f"({launches['K2'] / steps:.0f} a step), K1 {launches['K1']} "
+          f"({launches['K1'] / steps:.0f} a step), K2 by (head dim, dtype) "
+          f"{_by_head_dim(widths)}; peak memory {peak:.2f} GiB ({smi})")
+    if launches != {"K1": steps, "K2": 2 * n_layer * steps} or widths != {
+            (64, torch.float32): launches["K2"]}:
+        raise AssertionError("VQD_B sampling did not launch K2 / K1 as "
+                             "expected")
+    if tuple(video.shape) != shape or not bool(video.isfinite().all()):
+        raise AssertionError(f"video {tuple(video.shape)} is not a finite "
+                             f"{shape}")
+    del models, video
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _phase20_step_compare(torch, smi: str) -> None:
+    """(c) one ``TRAIN_STEP2_VQD_B`` step in f32 (B=4, injected draws)
+    through K2 and K5 against the same step with the plain attention on
+    the card, from the same weights: the loss relative and every gradient
+    against the largest gradient."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train import stage2
+
+    config = copy.deepcopy(stage2.TRAIN_STEP2_VQD_B)
+    config["generator"]["diffusion_model"]["transformer"]["dtype"] = "float32"
+    state = stage2.build_stage2(config, "cuda",
+                                torch.Generator().manual_seed(0))
+    b = VQD_B_CMP_BATCH
+    batch = stage2.synthetic_batch(config, b,
+                                   torch.Generator().manual_seed(1))
+    gen = state.generator
+    k = gen.diffusion.num_classes
+    L = gen.diffusion.content_seq_len
+    g = torch.Generator().manual_seed(2)
+    draws = dict(t=torch.tensor([3, 40, 71, 99][:b]),
+                 pt=torch.full((b,), 0.01),
+                 noise=torch.rand((b, k, L), generator=g))
+    saved = {n: x.detach().clone() for n, x in gen.state_dict().items()}
+
+    def step():
+        with torch.no_grad():
+            for n, x in gen.state_dict().items():
+                x.copy_(saved[n])
+        _reset_counts()
+        loss = float(stage2.train_step(state, batch, **draws)["total"])
+        grads = {n: p.grad.detach().clone()
+                 for n, p in gen.named_parameters() if p.grad is not None}
+        return loss, grads, _counts()
+
+    loss, grads, counts = step()
+    with _plain_attention():
+        loss_p, grads_p, counts_p = step()
+    top = max(float(w.abs().max()) for w in grads_p.values())
+    lerr = abs(loss - loss_p) / abs(loss_p)
+    gerr = max(float((grads[n] - w).abs().max())
+               for n, w in grads_p.items()) / top
+    print(f"phase 20: a TRAIN_STEP2_VQD_B step (f32, B={b}) through K2 / K5 "
+          f"({counts[0]} / {counts[1]} launches) against the plain attention"
+          f" on the card ({counts_p[0]} / {counts_p[1]}): loss {loss:.6f} vs "
+          f"{loss_p:.6f}, relative {lerr:.3e} (tol {TRAIN_LOSS_RTOL}); "
+          f"gradients {gerr:.3e} of the largest (tol {TRAIN_GRAD_TOL})")
+    if counts[:2] != (38, 38) or counts_p[:2] != (0, 0) or not (
+            lerr <= TRAIN_LOSS_RTOL and gerr <= TRAIN_GRAD_TOL):
+        raise AssertionError("the VQD_B step through K2 / K5 disagrees with "
+                             "the plain attention")
+    del state, grads, grads_p, saved
+    torch.cuda.empty_cache()
+
+
+def _phase20_train(torch, smi: str) -> dict:
+    """(c) ``python -m ..._torch.tasks train``'s function on
+    ``ddiff_ucf.sh``'s line with the synthetic datamodule, CSV logging and
+    ``VQD_B_OVERRIDES``, at B=16, in bf16 and f32 compute, no validation:
+    the s a step, the launches a step, the peak memory. Returns the
+    launches by dtype."""
+    import shutil
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch import tasks
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        VQD_B_OVERRIDES)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        fused_mha, fused_mha_bwd)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        Stage2Trainer)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.utils.config import (
+        compose)
+
+    out = {}
+    for dtype, steps in VQD_B_STEPS.items():
+        run_dir = ROOT / "logs" / "chip_smoke_vqd_b" / f"{time.time_ns()}"
+        overrides = (_job_overrides("ddiff_ucf.sh") + list(HARNESS_BASE)
+                     + list(VQD_B_OVERRIDES) + [
+                         f"model.generator.diffusion_model.transformer."
+                         f"dtype={dtype}", "model.do_evaluation=false",
+                         "trainer.max_epochs=1", f"trainer.max_steps={steps}",
+                         "trainer.check_val_every_n_epoch=2",
+                         f"datamodule.num_train={16 * steps}",
+                         f"paths.output_dir={run_dir}"])
+        cfg = compose("train", overrides)
+        tr = cfg["model"]["generator"]["diffusion_model"]["transformer"]
+        checkpointed = bool(tr.get("checkpoint", False))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_harness_counts()
+        widths = [f.by_head_dim.copy() for f in (fused_mha, fused_mha_bwd)]
+        probe = _StepProbe(torch, Stage2Trainer)
+        t0 = time.perf_counter()
+        with probe:
+            tasks.train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = _harness_counts()
+        widths = [dict(f.by_head_dim - w)
+                  for f, w in zip((fused_mha, fused_mha_bwd), widths)]
+        step, span, _, issue = probe.timing(2)
+        per = {kid: counts[kid] / steps for kid in ("K2", "K5", "K6")}
+        print(f"phase 20: tasks.train, ddiff_ucf.sh + VQD_B (n_embd "
+              f"{tr['n_embd']}, {tr['n_head']} heads, {tr['n_layer']} "
+              f"layers), {dtype} denoiser, B={cfg['batch_size']}, {steps} "
+              f"steps, transformer.checkpoint {checkpointed}: wall "
+              f"{wall:.2f} s; steps 2-{steps} {step:.4f} s a step in the "
+              f"loop, {span:.4f} s inside each step (CUDA events), "
+              f"{issue:.4f} s to issue one (host clock); launches a step K2 "
+              f"{per['K2']:.0f}, K5 {per['K5']:.0f}, K6 {per['K6']:.0f}; "
+              f"K2 / K5 by (head dim, dtype) {_by_head_dim(widths[0])} / "
+              f"{_by_head_dim(widths[1])}; peak memory {peak:.2f} GiB "
+              f"({smi})")
+        at_64 = {(64, getattr(torch, dtype)): counts["K5"]}
+        if (probe.trainer.global_step != steps
+                or counts["K5"] != steps * 2 * tr["n_layer"]
+                or counts["K2"] != counts["K5"] or counts["K6"] != steps
+                or widths != [at_64, at_64]):
+            raise AssertionError(f"the VQD_B training run did not launch its "
+                                 f"kernels as expected: {counts}")
+        out[dtype] = counts
+        del probe
+        shutil.rmtree(run_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase20_profile(torch, smi: str) -> None:
+    """(e) with ``--profile``: torch.profiler over (b)'s sampling (one
+    ``sample_videos`` call, 4 clips, 100 steps, f32 denoiser, the route
+    ``auto`` takes) and over two ``TRAIN_STEP2_VQD_B`` steps at B=16 in
+    bf16 and in f32 (after three steps, one untimed, timed on the host
+    clock): device time by kernel, and the device's busy share of the
+    profiled wall time."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        VQD_B, build_models, sample_videos)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        TRAIN_STEP2_VQD_B)
+
+    models = build_models(VQD_B, "cuda", torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(21)
+    n_classes = VQD_B["generator"]["textencoder"]["n_classes"]
+    batch = {"label": torch.randint(0, n_classes, (VQD_B_CLIPS,),
+                                    generator=g)}
+    _profile_kernels(torch, "phase 20 profile, VQD_B sample_videos (4 "
+                     "clips, 100 steps: a 'step' below is the call)",
+                     lambda: sample_videos(models, batch, g, sampler="auto"),
+                     steps=1)
+    del models
+    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        config = copy.deepcopy(TRAIN_STEP2_VQD_B)
+        config["generator"]["diffusion_model"]["transformer"]["dtype"] = dtype
+        state, batch, g, _ = _timed_train2(torch, smi, config, 16, 3, 1,
+                                           "phase 20", "TRAIN_STEP2_VQD_B")
+        _profile_step(torch, state, batch, g,
+                      phase=f"phase 20 profile, TRAIN_STEP2_VQD_B {dtype}")
+        del state, batch
+        torch.cuda.empty_cache()
+
+
+def _phase20_old_widths(torch, smi: str, parent: str | None) -> None:
+    """(d) K2 and K5 at d = 4 (the main path's shapes of phases 3 and 5),
+    f32, in turns with ``--parent ROOT`` where given
+    (``probes/attention_variants.py``: compare)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        attention_variants)
+    if parent is None:
+        from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+            attention)
+        ms = attention_variants.time_build(attention, (torch.float32,
+                                                       torch.bfloat16))
+        print("phase 20: d = 4, this checkout: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items()) + f" ({smi})")
+        return
+    res = attention_variants.compare(parent, rounds=1, log=lambda line: None)
+    for side, runs in res["ms"].items():
+        print(f"phase 20: d = 4 in turns, {side}: " + "; ".join(
+            ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) for ms in runs)
+            + f" ms ({res['card']})")
+
+
+def phase_widths(torch, smi: str, parent: str | None = None,
+                 profile: bool = False) -> dict:
+    """Phase 20: (a) the kernels at every head width, (b) VQD_B sampled,
+    (c) VQD_B trained, (d) the old widths' times, (e) with ``profile`` (b)
+    and (c) by kernel."""
+    t0 = time.perf_counter()
+    kernels = _phase20_kernels(torch, smi)
+    t1 = time.perf_counter()
+    sampling = _phase20_sampling(torch, smi)
+    t2 = time.perf_counter()
+    _phase20_step_compare(torch, smi)
+    train = _phase20_train(torch, smi)
+    t3 = time.perf_counter()
+    _phase20_old_widths(torch, smi, parent)
+    t4 = time.perf_counter()
+    if profile:
+        _phase20_profile(torch, smi)
+    print(f"phase 20: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s, (e) "
+          f"{time.perf_counter() - t4:.1f} s")
+    return {"kernels": kernels, "sampling": sampling, "train": train}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path on "
                                  "one CUDA card.")
     ap.add_argument("--profile", action="store_true",
                     help="time each training step by kernel")
     ap.add_argument("--parent", metavar="ROOT",
-                    help="also time K1, K6, P1, P2 and P3 in turns with the "
-                         "checkout at ROOT")
+                    help="also time K1, K6, P1, P2, P3, and K2 and K5 at "
+                         "head dim 4, in turns with the checkout at ROOT")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3822,6 +4337,8 @@ def main() -> int:
     ddp = phase_ddp(torch, smi)
     t_phase19 = time.perf_counter()
     tp = phase_tp(torch, smi)
+    t_phase20 = time.perf_counter()
+    widths = phase_widths(torch, smi, args.parent, profile)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -3978,6 +4495,48 @@ def main() -> int:
             replaces=tpu + "ops/codebook_kernel.py:95",
             launches=sum(by_path.values()), launches_by_path=by_path,
             **tp["entries"][name]))
+    # phase 20's paths: VQ-Diffusion-B's width sampled (f32 denoiser) and
+    # trained through tasks.train (bf16 and f32); and the head widths each
+    # attention kernel took at its launches in this process (every phase,
+    # the checks against the plain versions included)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        fused_mha, fused_mha_bwd)
+    vqd_sample = ("phase 20: VQD_B (n_embd 1024, heads of 64) sampled, "
+                  "model route, 4 clips, 100 steps")
+    vqd_train = ("phase 20: tasks.train at ddiff_ucf.sh + VQD_B, B=16, {} "
+                 "denoiser")
+    vqd_runs = {
+        "fused_sample_step": [(vqd_sample, widths["sampling"]["K1"])],
+        "fused_mha_fwd": [(vqd_sample, widths["sampling"]["K2"]),
+                          (vqd_train.format("f32"),
+                           widths["train"]["float32"]["K2"])],
+        "fused_mha_fwd_bf16": [(vqd_train.format("bf16"),
+                                widths["train"]["bfloat16"]["K2"])],
+        "fused_mha_bwd": [(vqd_train.format("f32"),
+                           widths["train"]["float32"]["K5"])],
+        "fused_mha_bwd_bf16": [(vqd_train.format("bf16"),
+                                widths["train"]["bfloat16"]["K5"])],
+        "nearest_code_stats": [
+            (vqd_train.format(n), widths["train"][dt]["K6"])
+            for n, dt in (("f32", "float32"), ("bf16", "bfloat16"))]}
+    for kernel in kernels:
+        for path, n in vqd_runs.get(kernel["name"], ()):
+            kernel["launches_by_path"][path] = n
+            kernel["launches"] += n
+        for kid, base in (("K2", "fused_mha_fwd"), ("K5", "fused_mha_bwd")):
+            for dt in ("float32", "bfloat16"):
+                suffix = "" if dt == "float32" else "_bf16"
+                if kernel["name"] != base + suffix:
+                    continue
+                kernel["launches_by_head_dim"] = _head_dim_launches(
+                    (fused_mha_bwd if kid == "K5" else fused_mha)
+                    .by_head_dim, dt, kernel["name"])
+                kernel["by_head_dim"] = {
+                    str(d): dict(row[f"{kid} self"],
+                                 max_abs_err=row["max_abs_err"],
+                                 cross_ms=row[f"{kid} cross"]["ms"])
+                    for (d, name), row in widths["kernels"].items()
+                    if name == dt}
     on_harness = {kid: sum(r[kid] for r in harness.values())
                   for kid in by_kernel.values()}
     if not (on_harness["K2"] and on_harness["K5"] and on_harness["K6"]
@@ -3995,7 +4554,8 @@ def main() -> int:
           f"harness) {t_phase18 - t_phase17:.1f} s, phase 18 (checkpointing,"
           f" two ranks, NCCL, the sweep) {t_phase19 - t_phase18:.1f} s, "
           f"phase 19 (the reference's checkpoints, tensor parallelism) "
-          f"{t_end - t_phase19:.1f} s")
+          f"{t_phase20 - t_phase19:.1f} s, phase 20 (every head width, "
+          f"VQ-Diffusion-B's width) {t_end - t_phase20:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@
 // custom VJP around fused_mha).
 //
 // q, dout, dq: (B, Lq, C); k, v, dk, dv: (B, Lk, C); all of one type (f32
-// or bf16) and contiguous, C = H * D. o: (B, Lq, C) f32, the forward's
+// or bf16) and contiguous, C = H * D, any head dim up to 128 (below, the
+// design for D = 4 and 8; the wide design for the others at the end). o:
+// (B, Lq, C) f32, the forward's
 // output; lse: (B, H, Lq) f32, its per-row log-sum-exp of the scores in
 // base 2 (csrc/fused_mha_fwd.cu). With s = q k^T / sqrt(D) and P = softmax(s):
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Dr),  Dr = rowsum(dO * O),
@@ -39,6 +41,22 @@
 //    B * H * ceil(Lk / 128) blocks, each looping over every query: the query
 //    range is then cut into `splits` chunks, each chunk writes its partial
 //    sums (f32), and a third kernel adds the chunks in a fixed order.
+//
+// Head dims other than 4 and 8 take the wide design (csrc/mha_tiles.cuh:
+// WTf32, WBf16; see csrc/fused_mha_fwd.cu) at the next of D = 16, 32, 64,
+// 128: the same two kernels and the same split of the queries, with every
+// operand in shared memory as it is in device memory (the block's own 64
+// rows of q and dO, or of k and v, and the other side's tiles of 64,
+// double-buffered by cp.async), a warp's 16 rows' fragments loaded once a
+// tile and head-dim chunk, the scores of half a tile at a time at D = 128
+// (registers). The dq kernel also writes Dr = rowsum(dO * O) of its rows to
+// `dr` (B, H, Lq), which the dk/dv kernel reads beside lse: O is read once.
+// Where every key fits in one group of scores (at most 64 keys, 32 at D =
+// 128), the dq kernel takes the TPU kernel's own Dr = rowsum(dP * P) with P
+// divided by its row sum from its registers instead: over one key (the
+// label's cross-attention) P = 1 and dS = 0 exactly, as in the TPU kernel,
+// where dO * O, summed in another order than dP, leaves dS a rounding
+// noise that dK adds up over every query.
 #include "mha_tiles.cuh"
 
 namespace {
@@ -272,6 +290,375 @@ __global__ void sum_splits_kernel(const float* __restrict__ dk_part,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the wide design
+// ---------------------------------------------------------------------------
+// grid (ceil(Lq / kWRowsBlock), H, B), kThreads threads; dynamic shared
+// memory of 6 tiles (q, dO, then keys and values twice)
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+mha_bwd_dq_wide_kernel(const typename Op::T* __restrict__ q,
+                       const typename Op::T* __restrict__ k,
+                       const typename Op::T* __restrict__ v,
+                       const float* __restrict__ o,
+                       const float* __restrict__ lse,
+                       const typename Op::T* __restrict__ dout,
+                       typename Op::T* __restrict__ dq, float* __restrict__ dr,
+                       int Lq, int Lk, int C, int d, int vec, float scale,
+                       float c) {
+  using T = typename Op::T;
+  constexpr int D = Op::D_, S = Op::S, kTileElems = kWTile * S;
+  // 8-column blocks of scores a warp holds at once: a tile, half at D = 128
+  constexpr int kG = D >= 128 ? kWNB / 2 : kWNB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + kTileElems;
+  T* kv = dos + kTileElems;   // buffer i: keys at 2 i, values at 2 i + 1
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const int blk0 = blockIdx.x * kWRowsBlock;
+  const int r0 = warp * kWRows;
+  const int row0 = blk0 + r0;
+  const bool busy = row0 < Lq;
+  const size_t qoff = b * Lq * C + h * d;
+  const T* kh = k + b * Lk * C + h * d;
+  const T* vh = v + b * Lk * C + h * d;
+
+  stage<T, D, S>(qs, q + qoff, blk0, Lq, C, d, vec);
+  stage<T, D, S>(dos, dout + qoff, blk0, Lq, C, d, vec);
+  stage<T, D, S>(kv, kh, 0, Lk, C, d, vec);
+  stage<T, D, S>(kv + kTileElems, vh, 0, Lk, C, d, vec);
+  cp_async_commit();
+
+  // lse and Dr of the lane's rows g, g + 8. With every key in one group of
+  // scores (one_group: cross-attention over few keys), the TPU kernel's own
+  // formulas from the group's registers: P divided by its row sum, Dr =
+  // rowsum(dP * P), so that over one key P = 1 and dS = 0 exactly (Dr =
+  // dO * O, summed in another order than dP, would leave dS a rounding
+  // noise that dK sums over every query). Else Dr = rowsum(dO * O) from
+  // device memory (dO in the input type, O in f32), the lane's columns
+  // tig, tig + 4, ...
+  const bool one_group = Lk <= 8 * kG;
+  float l2[2], drr[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + g + 8 * hf;
+    float x = 0.f;
+    if (row < Lq && !one_group) {
+      const size_t off = qoff + static_cast<size_t>(row) * C;
+      for (int j = tig; j < d; j += 4) {
+        float w;
+        if constexpr (std::is_same_v<T, float>)
+          w = dout[off + j];
+        else
+          w = __bfloat162float(dout[off + j]);
+        x = fmaf(w, o[off + j], x);
+      }
+    }
+    drr[hf] = quad_sum(x);
+    l2[hf] = row < Lq ? lse[(b * gridDim.y + h) * Lq + row] : 0.f;
+    if (row < Lq && tig == 0 && !one_group)
+      dr[(b * gridDim.y + h) * Lq + row] = drr[hf];
+  }
+  const float fq = Op::kScaledQ ? scale : 1.f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dc = 0; dc < D / 8; ++dc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[dc][j] = 0.f;
+
+  const int ntiles = (Lk + kWTile - 1) / kWTile;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kWTile;
+    if (t + 1 < ntiles) {
+      T* nxt = kv + ((t + 1) & 1) * 2 * kTileElems;
+      stage<T, D, S>(nxt, kh, k0 + kWTile, Lk, C, d, vec);
+      stage<T, D, S>(nxt + kTileElems, vh, k0 + kWTile, Lk, C, d, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (busy) {
+      const T* ks = kv + (t & 1) * 2 * kTileElems;
+      const T* vs = ks + kTileElems;
+      const int nbv = (min(kWTile, Lk - k0) + 7) >> 3;
+#pragma unroll 1
+      for (int nb0 = 0; nb0 < nbv; nb0 += kG) {
+        float sc[kG][4], dp[kG][4];
+#pragma unroll
+        for (int i = 0; i < kG; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 1
+        for (int kc = 0; kc < D / Op::kK; ++kc) {
+          typename Op::Frag aq, ad;
+          Op::load_a(aq, qs, r0, kc, fq, g, tig);
+          Op::load_a(ad, dos, r0, kc, 1.f, g, tig);
+#pragma unroll
+          for (int i = 0; i < kG; ++i) {
+            if (nb0 + i >= nbv) continue;
+            Op::dot(sc[i], aq, ks, nb0 + i, kc, 1.f, g, tig);
+            Op::dot(dp[i], ad, vs, nb0 + i, kc, 1.f, g, tig);
+          }
+        }
+        // P in place of the scores (0 past the keys)
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          const int key = k0 + 8 * (nb0 + i) + 2 * tig;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sc[i][j] = nb0 + i < nbv && key + (j & 1) < Lk
+                ? ex2(fmaf(sc[i][j], c, -l2[j >> 1])) : 0.f;
+        }
+        if (one_group) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float l = 0.f;
+#pragma unroll
+            for (int i = 0; i < kG; ++i) l += sc[i][2 * hf] + sc[i][2 * hf + 1];
+            l = quad_sum(l);
+            float x = 0.f;
+#pragma unroll
+            for (int i = 0; i < kG; ++i)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                sc[i][2 * hf + e] = __fdiv_rn(sc[i][2 * hf + e], l);
+                x = fmaf(sc[i][2 * hf + e], dp[i][2 * hf + e], x);
+              }
+            drr[hf] = quad_sum(x);
+            const int row = row0 + g + 8 * hf;
+            if (row < Lq && tig == 0)
+              dr[(b * gridDim.y + h) * Lq + row] = drr[hf];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          if (nb0 + i >= nbv) continue;
+          float ds[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            ds[j] = sc[i][j] * (dp[i][j] - drr[j >> 1]);
+          typename Op::Frag pa;
+          Op::make_p(pa, ds);
+          Op::pair(acc, pa, ks, nb0 + i, 1.f, g, tig);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!busy) return;
+  const float f[2] = {scale, scale};
+  store_wide<D>(dq + qoff, acc, f, row0, Lq, C, d, g, tig);
+}
+
+// grid (ceil(Lk / kWRowsBlock), H, B * splits), kThreads threads; dynamic
+// shared memory of 6 tiles (k, v, then q and dO twice) and the (lse, Dr)
+// of each staged query twice; chunk s of the queries writes its partial
+// sums dk_part / dv_part[s] (B, Lk, C) of type OutT, as
+// mha_bwd_dkdv_kernel
+template <class Op, typename OutT>
+__global__ void __launch_bounds__(kThreads)
+mha_bwd_dkdv_wide_kernel(const typename Op::T* __restrict__ q,
+                         const typename Op::T* __restrict__ k,
+                         const typename Op::T* __restrict__ v,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dr,
+                         const typename Op::T* __restrict__ dout,
+                         OutT* __restrict__ dk_part,
+                         OutT* __restrict__ dv_part, int B, int Lq, int Lk,
+                         int C, int q_chunk, int d, int vec, float scale,
+                         float c) {
+  using T = typename Op::T;
+  constexpr int D = Op::D_, S = Op::S, kTileElems = kWTile * S;
+  // 8-column blocks of scores a warp holds at once: a tile, half at D = 128
+  constexpr int kG = D >= 128 ? kWNB / 2 : kWNB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kTileElems;
+  T* qd = vs + kTileElems;   // buffer i: q at 2 i, dO at 2 i + 1
+  // (lse, Dr) of each staged query, [2][kWTile]
+  float2* stat = reinterpret_cast<float2*>(qd + 4 * kTileElems);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.y;
+  const int H = gridDim.y;
+  const size_t b = blockIdx.z % B;
+  const size_t split = blockIdx.z / B;
+  const int blk0 = blockIdx.x * kWRowsBlock;
+  const int r0 = warp * kWRows;
+  const int row0 = blk0 + r0;
+  const bool busy = row0 < Lk;
+  const int q_begin = split * q_chunk;
+  const int q_end = min(Lq, q_begin + q_chunk);
+  const size_t koff = b * Lk * C + h * d;
+  const T* qh = q + b * Lq * C + h * d;
+  const T* dh = dout + b * Lq * C + h * d;
+  const float* lseh = lse + (b * H + h) * Lq;
+  const float* drh = dr + (b * H + h) * Lq;
+
+  // threads 0 .. kWTile - 1: the lse of query i0 + col (+inf past the
+  // chunk, so that P = 0), the others its Dr
+  const int col = threadIdx.x % kWTile;
+  auto put_stat = [&](int buf, int i0) {
+    const int qi = q_begin + i0 + col;
+    float* dst = reinterpret_cast<float*>(&stat[buf * kWTile + col]);
+    if (threadIdx.x < kWTile)
+      dst[0] = qi < q_end ? lseh[qi] : INFINITY;
+    else
+      dst[1] = qi < q_end ? drh[qi] : 0.f;
+  };
+  stage<T, D, S>(ks, k + koff, blk0, Lk, C, d, vec);
+  stage<T, D, S>(vs, v + koff, blk0, Lk, C, d, vec);
+  stage<T, D, S>(qd, qh, q_begin, q_end, C, d, vec);
+  stage<T, D, S>(qd + kTileElems, dh, q_begin, q_end, C, d, vec);
+  cp_async_commit();
+  put_stat(0, 0);
+
+  const float fq = Op::kScaledQ ? scale : 1.f;
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dc = 0; dc < D / 8; ++dc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[dc][j] = dv[dc][j] = 0.f;
+
+  const int ntiles = (q_end - q_begin + kWTile - 1) / kWTile;
+  for (int t = 0; t < ntiles; ++t) {
+    const int i0 = t * kWTile;
+    if (t + 1 < ntiles) {
+      const int nb = (t + 1) & 1;
+      T* nxt = qd + nb * 2 * kTileElems;
+      stage<T, D, S>(nxt, qh, q_begin + i0 + kWTile, q_end, C, d, vec);
+      stage<T, D, S>(nxt + kTileElems, dh, q_begin + i0 + kWTile, q_end, C, d,
+                     vec);
+      cp_async_commit();
+      put_stat(nb, i0 + kWTile);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (busy) {
+      const T* qt = qd + (t & 1) * 2 * kTileElems;
+      const T* dt = qt + kTileElems;
+      const float2* st = stat + (t & 1) * kWTile;
+      const int nbv = (min(kWTile, q_end - q_begin - i0) + 7) >> 3;
+#pragma unroll 1
+      for (int nb0 = 0; nb0 < nbv; nb0 += kG) {
+        float p[kG][4], ds[kG][4];
+#pragma unroll
+        for (int i = 0; i < kG; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
+#pragma unroll 1
+        for (int kc = 0; kc < D / Op::kK; ++kc) {
+          typename Op::Frag ak, av;
+          Op::load_a(ak, ks, r0, kc, 1.f, g, tig);
+          Op::load_a(av, vs, r0, kc, 1.f, g, tig);
+#pragma unroll
+          for (int i = 0; i < kG; ++i) {
+            if (nb0 + i >= nbv) continue;
+            Op::dot(p[i], ak, qt, nb0 + i, kc, fq, g, tig);    // S^T
+            Op::dot(ds[i], av, dt, nb0 + i, kc, 1.f, g, tig);  // dP^T
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          if (nb0 + i >= nbv) continue;
+          // (lse, Dr) of the lane's queries 8 nb + 2 tig, 8 nb + 2 tig + 1
+          const float4 sd =
+              *reinterpret_cast<const float4*>(&st[8 * (nb0 + i) + 2 * tig]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float ls = (j & 1) ? sd.z : sd.x;
+            const float dd = (j & 1) ? sd.w : sd.y;
+            p[i][j] = ex2(fmaf(p[i][j], c, -ls));
+            ds[i][j] = p[i][j] * (ds[i][j] - dd);
+          }
+          typename Op::Frag pa, da;
+          Op::make_p(pa, p[i]);
+          Op::pair(dv, pa, dt, nb0 + i, 1.f, g, tig);
+          Op::make_p(da, ds[i]);
+          Op::pair(dk, da, qt, nb0 + i, fq, g, tig);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!busy) return;
+  const size_t off = split * B * Lk * C + koff;
+  const float fk = Op::kScaledQ ? 1.f : scale;
+  const float f_k[2] = {fk, fk}, f_v[2] = {1.f, 1.f};
+  store_wide<D>(dk_part + off, dk, f_k, row0, Lk, C, d, g, tig);
+  store_wide<D>(dv_part + off, dv, f_v, row0, Lk, C, d, g, tig);
+}
+
+template <class Op>
+cudaError_t launch_wide(const void* q_, const void* k_, const void* v_,
+                        const float* o, const float* lse, const void* dout_,
+                        void* dq_, void* dk_, void* dv_, float* scratch,
+                        float* dr, int B, int Lq, int Lk, int C, int H,
+                        int splits, int d, cudaStream_t stream) {
+  using T = typename Op::T;
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* dout = static_cast<const T*>(dout_);
+  T* dk = static_cast<T*>(dk_);
+  T* dv = static_cast<T*>(dv_);
+  const size_t tile = static_cast<size_t>(kWTile) * Op::S * sizeof(T);
+  const size_t smem_dq = 6 * tile;
+  const size_t smem_kv = 6 * tile + 2 * kWTile * sizeof(float2);
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const float c = Op::kScaledQ ? kLog2e : kLog2e * scale;
+  const int vec = copy_bytes(d * static_cast<int>(sizeof(T)));
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_bwd_dq_wide_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_dq));
+  if (err != cudaSuccess) return err;
+  mha_bwd_dq_wide_kernel<Op>
+      <<<dim3((Lq + kWRowsBlock - 1) / kWRowsBlock, H, B), kThreads, smem_dq,
+         stream>>>(q, k, v, o, lse, dout, static_cast<T*>(dq_), dr, Lq, Lk,
+                   C, d, vec, scale, c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int q_chunk = (Lq + splits - 1) / splits;
+  const size_t n = static_cast<size_t>(B) * Lk * C;
+  float* dk_part = scratch;
+  float* dv_part = scratch + splits * n;
+  const dim3 grid((Lk + kWRowsBlock - 1) / kWRowsBlock, H, B * splits);
+  if (splits == 1) {
+    err = cudaFuncSetAttribute(mha_bwd_dkdv_wide_kernel<Op, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_kv));
+    if (err != cudaSuccess) return err;
+    mha_bwd_dkdv_wide_kernel<Op, T><<<grid, kThreads, smem_kv, stream>>>(
+        q, k, v, lse, dr, dout, dk, dv, B, Lq, Lk, C, q_chunk, d, vec, scale,
+        c);
+  } else {
+    err = cudaFuncSetAttribute(mha_bwd_dkdv_wide_kernel<Op, float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_kv));
+    if (err != cudaSuccess) return err;
+    mha_bwd_dkdv_wide_kernel<Op, float><<<grid, kThreads, smem_kv, stream>>>(
+        q, k, v, lse, dr, dout, dk_part, dv_part, B, Lq, Lk, C, q_chunk, d,
+        vec, scale, c);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t want = (n + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  sum_splits_kernel<T><<<blocks, 256, 0, stream>>>(dk_part, dv_part, dk, dv,
+                                                   n, splits);
+  return cudaGetLastError();
+}
+
 template <class Op, int D>
 cudaError_t launch(const void* q_, const void* k_, const void* v_,
                    const float* o, const float* lse, const void* dout_,
@@ -317,22 +704,33 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_,
 
 }  // namespace
 
-// Returns a cudaError_t: cudaErrorInvalidValue for a head dim other than 4
-// or 8 or a bad shape, else the first failed launch's status. bf16 selects
-// the input type (0: f32, 1: bf16); o is the forward's output in f32. With
+// Returns a cudaError_t: cudaErrorInvalidValue for a head dim above 128 or
+// a bad shape, else the first failed launch's status. bf16 selects the
+// input type (0: f32, 1: bf16); o is the forward's output in f32. With
 // splits > 1, scratch holds 2 * splits * B * Lk * C floats; with splits ==
-// 1 it may be null.
+// 1 it may be null. dr: (B, H, Lq) f32 scratch for head dims other than 4
+// and 8 (else it may be null).
 extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
                              const float* o, const float* lse,
                              const void* dout, void* dq, void* dk, void* dv,
-                             float* scratch, int B, int Lq, int Lk, int C,
-                             int H, int splits, int bf16, void* stream) {
+                             float* scratch, float* dr, int B, int Lq, int Lk,
+                             int C, int H, int splits, int bf16,
+                             void* stream) {
   if (H <= 0 || C % H != 0 || Lq <= 0 || Lk <= 0 || B <= 0 || H > 65535 ||
       splits <= 0 || splits > Lq || static_cast<long long>(B) * splits > 65535
-      || (splits > 1 && scratch == nullptr))
+      || (splits > 1 && scratch == nullptr) || C / H > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = C / H;
+  if (d != 4 && d != 8) {
+    if (dr == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    auto run = [&](auto op) {
+      return launch_wide<decltype(op)>(q, k, v, o, lse, dout, dq, dk, dv,
+                                       scratch, dr, B, Lq, Lk, C, H, splits,
+                                       d, s);
+    };
+    return static_cast<int>(bf16 ? wide<WBf16>(d, run) : wide<WTf32>(d, run));
+  }
   cudaError_t err = cudaErrorInvalidValue;
   if (d == 4 && !bf16)
     err = launch<Tf32<4>, 4>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B,

@@ -5,8 +5,9 @@
 // attention.py: _kernel (via _fused_mha_fwd_impl / fused_mha).
 //
 // q: (B, Lq, C), k/v: (B, Lk, C), o: (B, Lq, C), all of one type (f32 or
-// bf16) and contiguous; C = H * D, D = 4 or 8. Per (batch row, head): o =
-// softmax(q k^T / sqrt(D)) v over the Lk keys, as the TPU kernel computes
+// bf16) and contiguous; C = H * d, any head dim d up to 128. Per (batch row,
+// head): o = softmax(q k^T / sqrt(d)) v over the Lk keys, as the TPU kernel
+// computes
 // it: the inputs taken to f32, the softmax and P V in f32, o rounded to the
 // input type once. When lse is not null it also receives each (batch row,
 // head, query)'s log-sum-exp of the scores in base 2, (B, H, Lq) f32, which
@@ -44,6 +45,20 @@
 // For bf16 inputs with lse asked for (training), o32 also receives o in f32:
 // the backward's Dr = rowsum(dO * O) must see O before its rounding (with
 // the bf16 O it misses by more than a bf16 step of dQ).
+//
+// Head dims other than 4 and 8 (VQ-Diffusion-B's 64, 12, 16, 32, 128) take
+// the wide design (csrc/mha_tiles.cuh: WTf32, WBf16) at the next of D = 16,
+// 32, 64, 128, with the same online softmax over tiles of 64 keys, for any
+// number of keys: at d = 64 a query-key pair costs 128 multiply-adds
+// against its one exponential, so the products bound it (f32: 3 TF32
+// products each; bf16: one, and P V's hi + lo pair). One block of 4 warps
+// per (64 queries, head, batch row): the block's q rows and the keys and
+// values, 64 at a time (double-buffered, the next tile's cp.async in
+// flight while the warps work on this one), stay in shared memory as they
+// are in device memory; a warp takes 16 queries. Its registers hold o's
+// accumulator (D / 2 a thread) and a tile's scores; the fragments of q are
+// loaded once a tile and head-dim chunk. A few keys (cross-attention over 1
+// or 77 tokens) take the same kernel, the tile's missing keys masked.
 #include "mha_tiles.cuh"
 
 namespace {
@@ -310,6 +325,167 @@ fused_mha_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The wide design: grid (ceil(Lq / kWRowsBlock), H, B), kThreads threads,
+// dynamic shared memory of 5 tiles (q, then keys and values twice). d: the
+// head dim (<= D), vec: the bytes of a copy into shared memory; scale = 1 /
+// sqrt(d); c: the base-2 factor of the scores (log2(e), times scale where q
+// is not scaled).
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+fused_mha_fwd_wide_kernel(const typename Op::T* __restrict__ q,
+                          const typename Op::T* __restrict__ k,
+                          const typename Op::T* __restrict__ v,
+                          typename Op::T* __restrict__ o,
+                          float* __restrict__ o32, float* __restrict__ lse,
+                          int Lq, int Lk, int C, int d, int vec, float scale,
+                          float c) {
+  using T = typename Op::T;
+  constexpr int D = Op::D_, S = Op::S, kTileElems = kWTile * S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* kv = qs + kTileElems;   // buffer i: keys at 2 i, values at 2 i + 1
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const int blk0 = blockIdx.x * kWRowsBlock;
+  const int r0 = warp * kWRows;               // the warp's rows in qs
+  const bool busy = blk0 + r0 < Lq;           // warp-uniform
+  const T* qh = q + b * Lq * C + h * d;
+  const T* kh = k + b * Lk * C + h * d;
+  const T* vh = v + b * Lk * C + h * d;
+
+  stage<T, D, S>(qs, qh, blk0, Lq, C, d, vec);
+  stage<T, D, S>(kv, kh, 0, Lk, C, d, vec);
+  stage<T, D, S>(kv + kTileElems, vh, 0, Lk, C, d, vec);
+  cp_async_commit();
+
+  const float fq = Op::kScaledQ ? scale : 1.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dc = 0; dc < D / 8; ++dc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[dc][j] = 0.f;
+
+  const int ntiles = (Lk + kWTile - 1) / kWTile;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kWTile;
+    if (t + 1 < ntiles) {
+      T* nxt = kv + ((t + 1) & 1) * 2 * kTileElems;
+      stage<T, D, S>(nxt, kh, k0 + kWTile, Lk, C, d, vec);
+      stage<T, D, S>(nxt + kTileElems, vh, k0 + kWTile, Lk, C, d, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (busy) {
+      const T* ks = kv + (t & 1) * 2 * kTileElems;
+      const T* vs = ks + kTileElems;
+      const int n = min(kWTile, Lk - k0);
+      const int nbv = (n + 7) >> 3;
+      float s[kWNB][4];
+#pragma unroll
+      for (int nb = 0; nb < kWNB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[nb][j] = 0.f;
+#pragma unroll 1
+      for (int kc = 0; kc < D / Op::kK; ++kc) {
+        typename Op::Frag a;
+        Op::load_a(a, qs, r0, kc, fq, g, tig);
+#pragma unroll
+        for (int nb = 0; nb < kWNB; ++nb)
+          if (nb < nbv) Op::dot(s[nb], a, ks, nb, kc, 1.f, g, tig);
+      }
+#pragma unroll
+      for (int nb = 0; nb < kWNB; ++nb) {
+        const int key = 8 * nb + 2 * tig;
+        if (key >= n) s[nb][0] = s[nb][2] = -INFINITY;
+        if (key + 1 >= n) s[nb][1] = s[nb][3] = -INFINITY;
+      }
+      float mc[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float x = -INFINITY;
+#pragma unroll
+        for (int nb = 0; nb < kWNB; ++nb)
+          x = fmaxf(x, fmaxf(s[nb][2 * hf], s[nb][2 * hf + 1]));
+        // the tile holds a key, so the new maximum is finite
+        const float mn = fmaxf(m[hf], quad_max(x));
+        const float corr = ex2((m[hf] - mn) * c);   // 0 on the first tile
+        m[hf] = mn;
+        mc[hf] = mn * c;
+        l[hf] *= corr;
+#pragma unroll
+        for (int dc = 0; dc < D / 8; ++dc) {
+          acc[dc][2 * hf] *= corr;
+          acc[dc][2 * hf + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < kWNB; ++nb) {
+        if (nb >= nbv) continue;
+        float p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          p[j] = ex2(fmaf(s[nb][j], c, -mc[j >> 1]));
+        typename Op::Frag pa;
+        Op::make_p(pa, p);
+        Op::pair(acc, pa, vs, nb, 1.f, g, tig);
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+      }
+    }
+    // the buffer staged next was read in this tile
+    __syncthreads();
+  }
+  if (!busy) return;
+
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] = quad_sum(l[hf]);
+    inv[hf] = 1.f / l[hf];
+  }
+  const int row0 = blk0 + r0;
+  const size_t qoff = b * Lq * C + h * d;
+  store_wide<D>(o + qoff, acc, inv, row0, Lq, C, d, g, tig);
+  if (o32 != nullptr)
+    store_wide<D>(o32 + qoff, acc, inv, row0, Lq, C, d, g, tig);
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = row0 + g + 8 * hf;
+      if (row < Lq) lse[(b * gridDim.y + h) * Lq + row] =
+          m[hf] * c + log2f(l[hf]);
+    }
+  }
+}
+
+template <class Op>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        float* o32, float* lse, int B, int Lq, int Lk, int C,
+                        int H, int d, cudaStream_t stream) {
+  using T = typename Op::T;
+  const size_t smem = 5 * static_cast<size_t>(kWTile) * Op::S * sizeof(T);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      fused_mha_fwd_wide_kernel<Op>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const float c = Op::kScaledQ ? kLog2e : kLog2e * scale;
+  fused_mha_fwd_wide_kernel<Op>
+      <<<dim3((Lq + kWRowsBlock - 1) / kWRowsBlock, H, B), kThreads, smem,
+         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<T*>(o), o32, lse, Lq,
+                   Lk, C, d, copy_bytes(d * static_cast<int>(sizeof(T))),
+                   scale, c);
+  return cudaGetLastError();
+}
+
 template <class Op, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* o32, float* lse, int B, int Lq, int Lk, int C,
@@ -333,14 +509,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Returns a cudaError_t: cudaErrorInvalidValue for a head dim other than
-// 4 or 8 or a bad shape, else the launch's status. bf16 selects the input
-// type (0: f32, 1: bf16); lse and o32 (f32, o's shape) may be null.
+// Returns a cudaError_t: cudaErrorInvalidValue for a head dim above 128 or
+// a bad shape, else the launch's status. bf16 selects the input type (0:
+// f32, 1: bf16); lse and o32 (f32, o's shape) may be null.
 extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
                              void* o, float* o32, float* lse, int B, int Lq,
                              int Lk, int C, int H, int bf16, void* stream) {
   if (H <= 0 || C % H != 0 || Lq <= 0 || Lk <= 0 || B <= 0 || B > 65535 ||
-      H > 65535)
+      H > 65535 || C / H > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = C / H;
@@ -353,5 +529,15 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
     err = launch<Bf16<4>, 4>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
   else if (d == 8)
     err = launch<Bf16<8>, 8>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
+  else if (!bf16)
+    err = wide<WTf32>(d, [&](auto op) {
+      return launch_wide<decltype(op)>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
+                                       d, s);
+    });
+  else
+    err = wide<WBf16>(d, [&](auto op) {
+      return launch_wide<decltype(op)>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
+                                       d, s);
+    });
   return static_cast<int>(err);
 }

@@ -41,7 +41,8 @@ from .models.vqvae import VQVAE, init_vqvae_, make_vqvae
 from .parallel.distributed import all_gather_rows, data_group, is_distributed
 from .parallel.mesh import rank_generator
 
-__all__ = ["HONEST", "MSRVTT_GRID", "GenerationModels", "build_models",
+__all__ = ["HONEST", "MSRVTT_GRID", "VQD_B", "VQD_B_OVERRIDES",
+           "GenerationModels", "build_models",
            "sample_token_grid", "sample_videos", "main"]
 
 # bench.py's honest configuration: 16-frame 64px clips -> a (16, 8, 8) grid
@@ -79,6 +80,29 @@ MSRVTT_GRID: dict[str, Any] = {
                 HONEST["generator"]["diffusion_model"]["transformer"],
                 content_spatial_size=(48, 48)),
         },
+        "textencoder": HONEST["generator"]["textencoder"],
+    },
+}
+
+
+# VQ-Diffusion-B's published width (Gu et al., "Vector Quantized Diffusion
+# Model for Text-to-Image Synthesis", CVPR 2022, section 4;
+# microsoft/VQ-Diffusion configs/coco.yaml: n_embd 1024 in 16 heads of 64)
+# on the honest configuration, which keeps the family's 19 layers,
+# condition_dim 512, mlp_hidden_times 4, GELU2 and AdaLN: the two
+# overrides below on the YAML tree, 387.4 M denoiser parameters. The
+# whole-step kernels do not take this width (kernels_fit is false), so
+# ``auto`` takes the model route: K2 at heads of 64, then K1.
+VQD_B_OVERRIDES = ("model.generator.diffusion_model.transformer.n_embd=1024",
+                   "model.generator.diffusion_model.transformer.n_head=16")
+VQD_B: dict[str, Any] = {
+    "vqvae": HONEST["vqvae"],
+    "generator": {
+        "diffusion_model": dict(
+            HONEST["generator"]["diffusion_model"],
+            transformer=dict(
+                HONEST["generator"]["diffusion_model"]["transformer"],
+                n_embd=1024, n_head=16)),
         "textencoder": HONEST["generator"]["textencoder"],
     },
 }

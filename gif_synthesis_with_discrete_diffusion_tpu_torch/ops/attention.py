@@ -6,8 +6,11 @@ discrete_diffusion_tpu/ops/attention.py: fused_mha``. Its forward is
 ``csrc/fused_mha_fwd.cu`` (the TPU's ``_kernel``); its backward, through a
 ``torch.autograd.Function``, is ``csrc/fused_mha_bwd.cu`` (the TPU's
 ``_bwd_kernel``), reached by :func:`fused_mha_bwd`. Both run on the tensor
-cores (``csrc/mha_tiles.cuh``) for f32 or bf16 inputs, are built by nvcc for
-``sm_90a`` at first use and bound through ctypes. CPU tensors take the same
+cores (``csrc/mha_tiles.cuh``) for f32 or bf16 inputs at any head dim up to
+128 (:data:`MAX_HEAD_DIM`; heads of 4 and 8 in their own design, every other
+width in the wide design at the next of :data:`WIDE_HEAD_DIMS`, the columns
+beyond the head masked), are built by nvcc for ``sm_90a`` at first use and
+bound through ctypes. CPU tensors take the same
 Function with the plain versions, :func:`sdpa_reference` forward and
 :func:`fused_mha_bwd_reference` backward. Like the TPU kernels, both compute
 in f32 whatever the input type and round only their outputs to it. The
@@ -16,6 +19,7 @@ answers that.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -29,9 +33,16 @@ __all__ = ["fused_mha", "fused_mha_bwd", "fused_mha_bwd_reference",
            "BF16_EXCESS_TOL", "bf16_rounded_p_reference",
            "attention_kernel_arithmetic",
            "attention_bwd_kernel_arithmetic", "bf16_hi_lo", "split_fed_back",
-           "PAIR_SLOTS"]
+           "PAIR_SLOTS", "MAX_HEAD_DIM", "TILE_HEAD_DIMS", "WIDE_HEAD_DIMS",
+           "kernel_head_dim", "check_head_dim"]
 
-_HEAD_DIMS = (4, 8)   # the kernels' instantiations (csrc/fused_mha_*.cu)
+# the kernels' instantiations (csrc/fused_mha_*.cu): heads of 4 and 8 in
+# the first design (csrc/mha_tiles.cuh: Tf32, Bf16), every other head dim d
+# up to MAX_HEAD_DIM in the wide design (WTf32, WBf16) at the smallest of
+# WIDE_HEAD_DIMS that holds it, its columns d .. D - 1 read as zero
+TILE_HEAD_DIMS = (4, 8)
+WIDE_HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = WIDE_HEAD_DIMS[-1]
 # the dK/dV kernel cuts the queries into chunks of this many rows when there
 # are too few keys to fill the card (csrc/fused_mha_bwd.cu)
 _KV_SPLIT_ROWS = 64
@@ -112,6 +123,32 @@ def bf16_excess(got: torch.Tensor, want: torch.Tensor,
     return excess / scale if scale > 0 else excess
 
 
+def check_head_dim(c: int, n_head: int) -> int:
+    """The kernels' contract on the width: C a multiple of n_head and a
+    head dim C // n_head of at most :data:`MAX_HEAD_DIM`. Returns the head
+    dim; raises ``ValueError`` (naming the limit) on anything else."""
+    if n_head <= 0 or c % n_head:
+        raise ValueError(f"fused_mha: C = {c} is no multiple of n_head = "
+                         f"{n_head}")
+    d = c // n_head
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"fused_mha: head dim {d} = {c} / {n_head} above "
+                         f"the kernels' limit of {MAX_HEAD_DIM}")
+    return d
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiation that takes head dim ``d``: d itself for 4 and 8,
+    else the smallest of :data:`WIDE_HEAD_DIMS` at least d."""
+    if d in TILE_HEAD_DIMS:
+        return d
+    for w in WIDE_HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"fused_mha: head dim {d} above the kernels' limit of "
+                     f"{MAX_HEAD_DIM}")
+
+
 def kv_splits(lq: int, lk: int) -> int:
     """How many query chunks the dK/dV kernel sums apart: 1 with enough
     keys to fill the card, else one chunk per 64 queries (cross-attention
@@ -133,7 +170,7 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_mha_bwd.cu")
-    lib.fused_mha_bwd.argtypes = ([ctypes.c_void_p] * 10
+    lib.fused_mha_bwd.argtypes = ([ctypes.c_void_p] * 11
                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.fused_mha_bwd.restype = ctypes.c_int
     return lib
@@ -145,8 +182,9 @@ _DTYPES = (torch.float32, torch.bfloat16)   # the kernels' input types
 def _check_cuda(name: str, q: torch.Tensor, kvs: tuple, n_head: int
                 ) -> None:
     """The kernels' contract: contiguous, 16-byte aligned tensors of one
-    type, f32 or bf16, on the current device, head dim C // n_head of 4 or
-    8."""
+    type, f32 or bf16, on the current device, a head dim C // n_head of at
+    most :data:`MAX_HEAD_DIM` (:func:`check_head_dim`). Heads need not start
+    on 16 bytes: a head of 12 bf16 values takes 8-byte copies."""
     if q.device.type != "cuda" or \
             q.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: no kernel for {q.device} (the current "
@@ -156,9 +194,7 @@ def _check_cuda(name: str, q: torch.Tensor, kvs: tuple, n_head: int
     if k.ndim != 3 or k.shape[0] != B or k.shape[2] != C or k.shape[1] < 1:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    if C % n_head or C // n_head not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {C}/{n_head} not in "
-                         f"{_HEAD_DIMS}")
+    check_head_dim(C, n_head)
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: no kernel for {q.dtype}")
     for i, x in enumerate((q, *kvs)):
@@ -198,6 +234,7 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"fused_mha_fwd launch failed: cudaError {err}")
     fused_mha.launches += 1
+    fused_mha.by_head_dim[C // n_head, q.dtype] += 1
     return o, lse, o32
 
 
@@ -212,7 +249,8 @@ def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     not read). CUDA tensors launch ``csrc/fused_mha_bwd.cu`` with the
     forward's output in f32 as ``o`` and its ``lse`` (``_fwd_kernel``'s o32
     and lse); q, k, v, do must meet the forward's contract. Each launch adds
-    one to ``fused_mha_bwd.launches``."""
+    one to ``fused_mha_bwd.launches`` and to
+    ``fused_mha_bwd.by_head_dim[(head dim, dtype)]``."""
     if q.device.type == "cpu":
         return fused_mha_bwd_reference(q, k, v, do, n_head)
     return _bwd_kernel(q, k, v, o, lse, do, n_head)
@@ -242,19 +280,25 @@ def _bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     splits = kv_splits(Lq, Lk)
     scratch = (torch.empty((2, splits, B, Lk, C), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
+    # the wide design's dq kernel writes each row's Dr for the dk/dv kernel
+    dr = (None if C // n_head in TILE_HEAD_DIMS else
+          torch.empty((B, n_head, Lq), dtype=torch.float32, device=q.device))
     err = _bwd_library().fused_mha_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        dr.data_ptr() if dr is not None else None,
         B, Lq, Lk, C, n_head, splits, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_mha_bwd launch failed: cudaError {err}")
     fused_mha_bwd.launches += 1
+    fused_mha_bwd.by_head_dim[C // n_head, q.dtype] += 1
     return dq, dk, dv
 
 
 fused_mha_bwd.launches = 0
+fused_mha_bwd.by_head_dim = collections.Counter()
 
 
 class _FusedMHA(torch.autograd.Function):
@@ -286,9 +330,12 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Differentiable: with gradients on, the backward is K5 (or its plain
     version on the CPU). CUDA tensors must be all f32 or all bf16,
-    contiguous, on the current device, with head dim C // n_head of 4 or 8;
-    any other CUDA input raises (nothing falls back). Each forward launch
-    adds one to ``fused_mha.launches``."""
+    contiguous, 16-byte aligned, on the current device, with a head dim
+    C // n_head of at most 128 (:func:`check_head_dim`; 4 and 8 in their own
+    design, any other in the wide one); any other CUDA input raises
+    (nothing falls back). Each forward launch adds one to
+    ``fused_mha.launches`` and to ``fused_mha.by_head_dim[(head dim,
+    dtype)]``."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
         return _FusedMHA.apply(q, k, v, n_head)
@@ -298,6 +345,7 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 fused_mha.launches = 0
+fused_mha.by_head_dim = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +420,14 @@ def _mm(eq: str, a: tuple, b: tuple) -> torch.Tensor:
     return sum(torch.einsum(eq, x, y) for x in a for y in b)
 
 
+def _mm3(eq: str, a: tuple, b: tuple) -> torch.Tensor:
+    """The wide design's products: hi hi + hi lo + lo hi of two split
+    operands (the lo lo term left out); with a one-part operand (bf16) every
+    product, as :func:`_mm`."""
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(a)
+               for j, y in enumerate(b) if i + j < 2)
+
+
 def _fed_back(p: torch.Tensor, dtype: torch.dtype) -> tuple[torch.Tensor,
                                                             ...]:
     return split_fed_back(p) if dtype == torch.float32 else bf16_hi_lo(p)
@@ -382,33 +438,75 @@ def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
     return x.reshape(B, L, n_head, C // n_head)
 
 
+class _Design:
+    """How the kernels take a head dim ``d``: the instantiation ``width``
+    (the heads read with columns d .. width - 1 zero), the products
+    (``mm``), whether q is scaled in f32 before them (the wide f32 design,
+    as the JAX kernel), the base-2 factor ``c`` of the products' scores,
+    the factors of dQ and dK, and up to how many keys the dq kernel holds
+    every score at once (``one_group_keys``: 0 in the first design; 64, or
+    32 at D = 128, in the wide one)."""
+
+    def __init__(self, d: int, dtype: torch.dtype):
+        self.d = d
+        self.scale = 1.0 / math.sqrt(d)
+        wide = d not in TILE_HEAD_DIMS
+        self.width = kernel_head_dim(d) if wide else d
+        self.mm = _mm3 if wide else _mm
+        self.one_group_keys = (0 if not wide else KERNEL_TILE // 2
+                               if self.width >= 128 else KERNEL_TILE)
+        self.scaled_q = wide and dtype == torch.float32
+        self.c = _LOG2E if self.scaled_q else _LOG2E / math.sqrt(d)
+        if not wide:       # the first design: dQ, dK divided by sqrt(d)
+            self.dq = self.dk = lambda x: x / math.sqrt(d)
+        else:
+            self.dq = lambda x: x * self.scale
+            self.dk = (lambda x: x) if self.scaled_q else self.dq
+
+    def heads(self, x: torch.Tensor, n_head: int) -> torch.Tensor:
+        h = _heads(x, n_head)
+        return torch.nn.functional.pad(h, (0, self.width - self.d))
+
+    def q_heads(self, q: torch.Tensor, n_head: int) -> torch.Tensor:
+        h = self.heads(q, n_head)
+        return h.float() * self.scale if self.scaled_q else h
+
+
 def attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, n_head: int
                                 ) -> tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
-    """K2's tensor-core design as a plain function: QK^T and P V on the
+    """K2's tensor-core designs as a plain function: QK^T and P V on the
     split (f32) or exact (bf16) operands, an online softmax over tiles of
     ``KERNEL_TILE`` keys (the tile's maximum, one exponential a score), P
     fed back split, the row sum divided once; o rounded to the input type.
-    Returns (o, lse (B, H, Lq) in base 2, o in f32)."""
+    Heads of 4 and 8 (the first design): every partial product of the
+    split operands, the scale on the scores. Any other head dim d (the wide
+    design, at the instantiation :func:`kernel_head_dim` gives, columns
+    d .. D - 1 zero): three partial products (:func:`_mm3`), and in f32 q
+    times 1/sqrt(d) before them. Returns (o, lse (B, H, Lq) in base 2, o in
+    f32)."""
     d = q.shape[2] // n_head
-    c = _LOG2E / math.sqrt(d)
-    qs, ks, vs = (_operands(_heads(x, n_head)) for x in (q, k, v))
-    s = _mm("bqhd,bkhd->bhqk", qs, ks)
+    dz = _Design(d, q.dtype)
+    qs = _operands(dz.q_heads(q, n_head))
+    ks, vs = (_operands(dz.heads(x, n_head)) for x in (k, v))
+    s = dz.mm("bqhd,bkhd->bhqk", qs, ks)
     B, H, Lq, Lk = s.shape
+    c = dz.c
     m = torch.full((B, H, Lq, 1), -math.inf)
     l = torch.zeros((B, H, Lq, 1))
-    acc = torch.zeros((B, H, Lq, d))
+    acc = torch.zeros((B, H, Lq, dz.width))
     for k0 in range(0, Lk, KERNEL_TILE):
         st = s[..., k0:k0 + KERNEL_TILE]
         mn = torch.maximum(m, st.amax(dim=-1, keepdim=True))
         corr = torch.exp2((m - mn) * c)
         p = torch.exp2(st * c - mn * c)
         vt = tuple(x[:, k0:k0 + KERNEL_TILE] for x in vs)
-        acc = acc * corr + _mm("bhqk,bkhd->bhqd", _fed_back(p, q.dtype), vt)
+        acc = acc * corr + dz.mm("bhqk,bkhd->bhqd", _fed_back(p, q.dtype),
+                                 vt)
         l = l * corr + p.sum(dim=-1, keepdim=True)
         m = mn
-    o32 = (acc / l).permute(0, 2, 1, 3).reshape(q.shape)
+    o32 = (acc / l)[..., :d].permute(0, 2, 1, 3).reshape(q.shape)
     return o32.to(q.dtype), (m * c + torch.log2(l))[..., 0], o32
 
 
@@ -421,17 +519,29 @@ def attention_bwd_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
     """K5 as a plain function: P recomputed from the split (f32) or exact
     (bf16) operands and the forward's base-2 ``lse``; Dr = rowsum(dO O)
     from the f32 output ``o32``; the four products S, dP, and dQ, dK, dV
-    with P or dS fed back split; the gradients rounded to the input type."""
+    with P or dS fed back split; the gradients rounded to the input type.
+    The designs by head dim as :func:`attention_kernel_arithmetic`'s (the
+    wide f32 design's dK from the scaled q, as the JAX kernel's). Over at
+    most ``one_group_keys`` keys the wide dq kernel takes the TPU kernel's
+    Dr = rowsum(dP P) with P divided by its row sum (its dS from that P);
+    the dk/dv kernel reads that Dr beside its own P."""
     d = q.shape[2] // n_head
-    c = _LOG2E / math.sqrt(d)
-    qs, ks, vs, dos = (_operands(_heads(x, n_head))
-                       for x in (q, k, v, do))
-    p = torch.exp2(_mm("bqhd,bkhd->bhqk", qs, ks) * c - lse[..., None])
-    dp = _mm("bqhd,bkhd->bhqk", dos, vs)
-    dr = (_heads(do, n_head).float() * _heads(o32, n_head)).sum(-1)
-    ds = p * (dp - dr.permute(0, 2, 1)[..., None])
-    dq = _mm("bhqk,bkhd->bqhd", _fed_back(ds, q.dtype), ks) / math.sqrt(d)
-    dk = _mm("bhqk,bqhd->bkhd", _fed_back(ds, q.dtype), qs) / math.sqrt(d)
-    dv = _mm("bhqk,bqhd->bkhd", _fed_back(p, q.dtype), dos)
-    return tuple(x.reshape(y.shape).to(y.dtype)
+    dz = _Design(d, q.dtype)
+    qs = _operands(dz.q_heads(q, n_head))
+    ks, vs, dos = (_operands(dz.heads(x, n_head)) for x in (k, v, do))
+    p = torch.exp2(dz.mm("bqhd,bkhd->bhqk", qs, ks) * dz.c - lse[..., None])
+    dp = dz.mm("bqhd,bkhd->bhqk", dos, vs)
+    if k.shape[1] <= dz.one_group_keys:
+        pn = p / p.sum(dim=-1, keepdim=True)
+        dr = (pn * dp).sum(dim=-1, keepdim=True)
+        ds_q = pn * (dp - dr)
+    else:
+        dr = (_heads(do, n_head).float() * _heads(o32, n_head)).sum(-1)
+        dr = dr.permute(0, 2, 1)[..., None]
+        ds_q = p * (dp - dr)
+    ds = p * (dp - dr)
+    dq = dz.dq(dz.mm("bhqk,bkhd->bqhd", _fed_back(ds_q, q.dtype), ks))
+    dk = dz.dk(dz.mm("bhqk,bqhd->bkhd", _fed_back(ds, q.dtype), qs))
+    dv = dz.mm("bhqk,bqhd->bkhd", _fed_back(p, q.dtype), dos)
+    return tuple(x[..., :d].reshape(y.shape).to(y.dtype)
                  for x, y in ((dq, q), (dk, k), (dv, v)))

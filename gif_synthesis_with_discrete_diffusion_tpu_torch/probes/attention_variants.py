@@ -4,7 +4,8 @@ design variant, and against the kernels of other checkouts, in turns on one
 card.
 
     python -m gif_synthesis_with_discrete_diffusion_tpu_torch.probes.attention_variants \\
-        [--variant NAME ...] [--parent ROOT] [--rounds N] [--out FILE.json]
+        [--variant NAME ...] [--parent ROOT] [--rounds N] [--head-dim D] \\
+        [--out FILE.json]
 
 The shipped build is ``plain``. A variant (``VARIANTS``: the designs that
 were tried and lost) is a copy of the three sources with the variant's text
@@ -12,11 +13,16 @@ replacements, built by nvcc beside the plain build; the shipped sources
 carry no switch for it. Each build is first held against the plain versions
 (``sdpa_reference``, ``fused_mha_bwd_reference``) in f32 and bf16 at
 ``CASES``: the largest error of each. Then every build is timed in turns,
-``rounds`` times over (the order of the builds reversed every other round):
+``rounds`` times over (each round the builds and the same in reverse,
+:func:`turn_order`):
 K2 at (64, 1024, 1024) and (64, 1024, 1), K5 at (16, 1024, 1024) and (16,
-1024, 1), 16 heads of 4, each dtype. ``--parent ROOT`` adds the kernels of
-the checkout at ROOT (f32 only: its ``ops/attention.py`` loaded in a child
-process per round, parent first and last). Needs a CUDA device.
+1024, 1), 16 heads of ``--head-dim`` (default 4; 8 heads at 128), each
+dtype. ``--parent ROOT`` adds the kernels of the checkout at ROOT (f32
+only: its ``ops/attention.py`` loaded in a child process, first and last
+in each round; a checkout without the wide design takes head dims 4 and
+8 only).
+:func:`compare` is the same for this checkout alone, for ``chip_smoke.py``.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -146,31 +152,39 @@ def _ms(fn) -> float:
     return start.elapsed_time(end) / _ITERS
 
 
-def _inputs(kind: str, b: int, lk: int, dtype: torch.dtype, attn) -> tuple:
+def heads(head_dim: int) -> int:
+    """The timed shapes' heads: 16, or 8 at a head dim of 128."""
+    return 8 if head_dim >= 128 else 16
+
+
+def _inputs(kind: str, b: int, lk: int, dtype: torch.dtype, attn,
+            head_dim: int = 4) -> tuple:
     g = torch.Generator(device="cuda").manual_seed(6 + lk)
-    q = torch.randn((b, 1024, 64), generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn((b, lk, 64), generator=g, device="cuda").to(dtype)
+    c = heads(head_dim) * head_dim
+    q = torch.randn((b, 1024, c), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, lk, c), generator=g, device="cuda").to(dtype)
             for _ in range(2))
     if kind == "fwd":
         return q, k, v
-    do = torch.randn((b, 1024, 64), generator=g, device="cuda").to(dtype)
-    out = attn._fwd_kernel(q, k, v, 16, True)
+    do = torch.randn((b, 1024, c), generator=g, device="cuda").to(dtype)
+    out = attn._fwd_kernel(q, k, v, heads(head_dim), True)
     # a checkout before the bf16 entry points returns (o, lse)
     o32, lse = (out[2], out[1]) if len(out) == 3 else (out[0], out[1])
     return q, k, v, o32, lse, do
 
 
-def time_build(attn, dtypes) -> dict:
+def time_build(attn, dtypes, head_dim: int = 4) -> dict:
     """{shape name + dtype: ms} of the kernels ``attn`` launches (through
     the calls every checkout has)."""
     out = {}
+    h = heads(head_dim)
     for dtype in dtypes:
         for name, kind, b, lk in SHAPES:
-            x = _inputs(kind, b, lk, dtype, attn)
+            x = _inputs(kind, b, lk, dtype, attn, head_dim)
             if kind == "fwd":
-                fn = lambda: attn._fwd_kernel(*x, 16, False)  # noqa
+                fn = lambda: attn._fwd_kernel(*x, h, False)  # noqa
             else:
-                fn = lambda: attn.fused_mha_bwd(*x, n_head=16)  # noqa
+                fn = lambda: attn.fused_mha_bwd(*x, n_head=h)  # noqa
             out[f"{name} {str(dtype)[6:]}"] = _ms(fn)
     return out
 
@@ -206,12 +220,69 @@ def check_build(attn) -> dict:
     return worst
 
 
-def _child() -> None:
+def _child(head_dim: int = 4) -> None:
     """Time the f32 kernels of the checkout in the working directory (run
     there by main, this file loaded by path); print JSON."""
     sys.path.insert(0, os.getcwd())
     attn = __import__(PKG + ".ops.attention", fromlist=["attention"])
-    print(json.dumps(time_build(attn, (torch.float32,))))
+    print(json.dumps(time_build(attn, (torch.float32,), head_dim)))
+
+
+def run_in(root: str, head_dim: int = 4) -> dict:
+    """The f32 times of the kernels of the checkout at ``root``, measured in
+    a child process there."""
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "import importlib.util as u; s = u.spec_from_file_"
+         f"location('probe', {os.path.abspath(__file__)!r}); "
+         "m = u.module_from_spec(s); s.loader.exec_module(m); "
+         f"m._child({int(head_dim)})"], cwd=root, capture_output=True,
+        text=True, check=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def turn_order(names: list[str], parent: bool) -> list[str]:
+    """One round's timed runs: the builds, then the same in reverse, between
+    two runs of the parent's kernels where there is one (parent, change,
+    change, parent for a single build)."""
+    ends = ["parent"] if parent else []
+    return ends + list(names) + list(names)[::-1] + ends
+
+
+def in_turns(builds: dict, rounds: int, parent: str | None = None,
+             head_dim: int = 4, dtypes=(torch.float32,), log=print) -> dict:
+    """{name: [ms of each run]}: every build (name -> (fwd, bwd) libraries)
+    at ``dtypes`` and, with ``parent``, the f32 kernels of the checkout at
+    that root, timed ``rounds`` times in :func:`turn_order`."""
+    from ..ops import attention as attn
+    out: dict[str, list] = {}
+    for r in range(rounds):
+        for name in turn_order(list(builds), parent is not None):
+            if name == "parent":
+                ms = run_in(parent, head_dim)
+            else:
+                with launching(attn, builds[name]):
+                    ms = time_build(attn, dtypes, head_dim)
+            out.setdefault(name, []).append(ms)
+            log(f"round {r} {name}: " + " ".join(
+                f"{k} {v:.4f}" for k, v in ms.items()))
+    return out
+
+
+def compare(parent: str, rounds: int = 1, head_dim: int = 4,
+            log=print) -> dict:
+    """The f32 kernels of this checkout (``change``) and of ``parent`` in
+    turns at ``head_dim``: each side's readings and the card."""
+    from ..ops import attention as attn
+    change = {"change": (attn._library(), attn._bwd_library())}
+    return {"card": _card(), "head_dim": head_dim,
+            "ms": in_turns(change, rounds, parent, head_dim, log=log)}
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
 
 
 def main() -> int:
@@ -220,6 +291,7 @@ def main() -> int:
                    choices=sorted(VARIANTS))
     p.add_argument("--parent", default=None, metavar="ROOT")
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--head-dim", type=int, default=4)
     p.add_argument("--out", default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -230,10 +302,8 @@ def main() -> int:
         builds = {"plain": plain,
                   **dict(zip(args.variant, pool.map(build_variant,
                                                     args.variant)))}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    result = {"card": card, "errors": {}, "ms": {}}
+    result = {"card": _card(), "head_dim": args.head_dim, "errors": {},
+              "ms": {}}
     for name, libs in builds.items():
         with launching(attn, libs):
             result["errors"][name] = check_build(attn)
@@ -242,29 +312,9 @@ def main() -> int:
             if "registers" in x), flush=True)
         print(f"{name} errors: " + json.dumps(result["errors"][name]),
               flush=True)
-    here = [(n, "change") for n in builds]
-    for r in range(args.rounds):
-        order = here if r % 2 == 0 else here[::-1]
-        if args.parent:
-            order = [(args.parent, "parent")] + order + [(args.parent,
-                                                          "parent")]
-        for name, side in order:
-            if side == "parent":
-                run = subprocess.run(
-                    [sys.executable, "-c",
-                     "import importlib.util as u; s = u.spec_from_file_"
-                     f"location('probe', {os.path.abspath(__file__)!r}); "
-                     "m = u.module_from_spec(s); s.loader.exec_module(m); "
-                     "m._child()"], cwd=name, capture_output=True, text=True,
-                    check=True)
-                ms = json.loads(run.stdout.strip().splitlines()[-1])
-                name = "parent"
-            else:
-                with launching(attn, builds[name]):
-                    ms = time_build(attn, (torch.float32, torch.bfloat16))
-            result["ms"].setdefault(name, []).append(ms)
-            print(f"round {r} {name}: " + " ".join(
-                f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+    result["ms"] = in_turns(builds, args.rounds, args.parent, args.head_dim,
+                            (torch.float32, torch.bfloat16),
+                            log=lambda line: print(line, flush=True))
     print(json.dumps(result))
     if args.out:
         with open(args.out, "w") as f:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import subprocess
 
 __all__ = ["PEAK_BYTES", "PEAK_F32", "PEAK_BF16", "PEAK_TF32", "bound",
-           "megakernel_work", "card"]
+           "attention_work", "megakernel_work", "card"]
 
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -32,6 +32,22 @@ def bound(nbytes: float, flops_f32: float, flops_bf16: float = 0.0,
     t_ops = (flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16
              + flops_tf32 / PEAK_TF32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_work(b: int, lq: int, lk: int, n_head: int, d: int,
+                   backward: bool = False) -> tuple[float, float, float]:
+    """(bytes in f32, FLOP, exponentials) of one attention call at any head
+    dim ``d``: K2 (``backward`` False) reads q, k, v and writes o once, and
+    does QK^T and PV, 4 b H Lq Lk d operations, with one exponential a
+    (query, key, head); K5 reads q, k, v, o, dO and writes dq, dk, dv once,
+    and does five products (S, dP, dV, dQ, dK), 10 b H Lq Lk d operations,
+    with one exponential a pair in each of its two kernels. Bytes halve for
+    bf16 tensors."""
+    c = n_head * d
+    pairs = float(b) * n_head * lq * lk
+    if backward:
+        return 4.0 * 4 * b * (lq + lk) * c, 10.0 * pairs * d, 2.0 * pairs
+    return 4.0 * 2 * b * (lq + lk) * c, 4.0 * pairs * d, pairs
 
 
 def megakernel_work(b: int, n_br: int, L: int, n_layer: int, hidden: int,

@@ -59,6 +59,7 @@ from .loop import Trainer, device_batch
 from .metrics import weighted_losses
 
 __all__ = ["TRAIN_STEP2", "TRAIN_STEP2_BATCH", "TRAIN_STEP2_MSRVTT",
+           "TRAIN_STEP2_VQD_B",
            "Stage2State", "build_stage2", "shard_stage2", "prepare_batch",
            "on_device",
            "encode_tokens", "train_step", "eval_step", "synthetic_batch",
@@ -107,6 +108,23 @@ TRAIN_STEP2_MSRVTT: dict[str, Any] = {
         },
         "textencoder": {"mode": "text", "dim": 512,
                         "allow_hash_tokenizer": True},
+    },
+}
+
+
+# TRAIN_STEP2 at VQ-Diffusion-B's published width (generate.VQD_B: n_embd
+# 1024 in 16 heads of 64, 387.4 M denoiser parameters); bf16 compute as
+# TRAIN_STEP2, f32 with "dtype": "float32". Batch 16.
+TRAIN_STEP2_VQD_B: dict[str, Any] = {
+    **TRAIN_STEP2,
+    "generator": {
+        **TRAIN_STEP2["generator"],
+        "diffusion_model": {
+            **TRAIN_STEP2["generator"]["diffusion_model"],
+            "transformer": dict(
+                TRAIN_STEP2["generator"]["diffusion_model"]["transformer"],
+                n_embd=1024, n_head=16),
+        },
     },
 }
 

@@ -120,25 +120,45 @@ def test_sampler_step_kernel_samples_in_range_and_by_seed(cuda):
     assert draw[0].min() >= 0 and draw[0].max() < k
 
 
+# the wide design's cases: each head width of chip_smoke.py's phase 20 (12
+# in the instantiation 16, heads of 12 bf16 starting on 8 bytes), widths
+# no instantiation's (6, 20, 100; 3 and 5: bf16 rows on 2 bytes), over
+# lengths no multiple of a tile, one key, 33 and 77 keys (one group of
+# scores at D <= 64, two at D = 128) and a long self-attention
+WIDE_CASES = [(2, 300, 300, 2 * d, 2) for d in (12, 16, 32, 64, 128)] + [
+    (2, 257, 77, 4 * d, 4) for d in (12, 64, 128)] + [
+    (3, 100, 1, 2 * d, 2) for d in (12, 64, 128)] + [
+    (2, 100, 33, 2 * d, 2) for d in (20, 64, 128)] + [
+    (1, 130, 1100, 16 * 64, 16), (2, 64, 70, 3 * 6, 3),
+    (2, 90, 90, 2 * 100, 2), (2, 50, 50, 3 * 3, 3), (1, 40, 9, 5 * 5, 5)]
+
+
 @pytest.mark.parametrize("B,Lq,Lk,C,H", [
     (2, 16, 16, 64, 16), (2, 16, 1, 64, 16), (1, 24, 77, 64, 8),
     (2, 16, 16, 32, 4), (2, 300, 300, 64, 16), (3, 257, 77, 64, 16),
-    (2, 100, 33, 64, 16), (1, 100, 2304, 64, 16), (2, 300, 300, 64, 8)])
+    (2, 100, 33, 64, 16), (1, 100, 2304, 64, 16), (2, 300, 300, 64, 8),
+    *WIDE_CASES])
 def test_attention_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
     g = torch.Generator(device=cuda).manual_seed(Lq * Lk)
     q, k, v = (torch.randn((B, n, C), generator=g, device=cuda)
                for n in (Lq, Lk, Lk))
     before = fused_mha.launches
+    at_d = fused_mha.by_head_dim[C // H, q.dtype]
     got = fused_mha(q, k, v, n_head=H)
     assert fused_mha.launches == before + 1
+    assert fused_mha.by_head_dim[C // H, q.dtype] == at_d + 1
     torch.testing.assert_close(got, sdpa_reference(q, k, v, H), rtol=K2_TOL,
                                atol=K2_TOL)
 
 
 def test_attention_kernel_refuses_other_head_dims(cuda):
-    q = torch.randn((1, 8, 64), device=cuda)
+    """Every head dim up to 128 is taken; above it the kernels raise, and
+    so do widths no multiple of the heads."""
+    q = torch.randn((1, 8, 2 * 129), device=cuda)
+    with pytest.raises(ValueError, match="128"):
+        fused_mha(q, q, q, n_head=2)                 # head dim 129
     with pytest.raises(ValueError):
-        fused_mha(q, q, q, n_head=4)                 # head dim 16
+        fused_mha(q, q, q, n_head=4)                 # 258 / 4
 
 
 def test_small_slice_on_the_card_matches_the_cpu(cuda):
@@ -174,16 +194,18 @@ def test_small_slice_on_the_card_matches_the_cpu(cuda):
     (2, 16, 16, 64, 16), (2, 300, 300, 64, 16), (3, 257, 77, 64, 16),
     (1, 24, 77, 64, 8), (8, 1024, 1024, 64, 16), (8, 1024, 1, 64, 16),
     (8, 1024, 77, 64, 16), (2, 2304, 2304, 64, 16), (2, 100, 33, 64, 16),
-    (1, 100, 2304, 64, 16), (2, 300, 300, 64, 8)])
+    (1, 100, 2304, 64, 16), (2, 300, 300, 64, 8), *WIDE_CASES])
 def test_attention_backward_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
     g = torch.Generator(device=cuda).manual_seed(Lq + 7 * Lk)
     q, k, v = (torch.randn((B, n, C), generator=g, device=cuda)
                .requires_grad_() for n in (Lq, Lk, Lk))
     do = torch.randn((B, Lq, C), generator=g, device=cuda)
     before = (fused_mha.launches, fused_mha_bwd.launches)
+    at_d = fused_mha_bwd.by_head_dim[C // H, q.dtype]
     (fused_mha(q, k, v, n_head=H) * do).sum().backward()
     assert (fused_mha.launches, fused_mha_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+    assert fused_mha_bwd.by_head_dim[C // H, q.dtype] == at_d + 1
     want = fused_mha_bwd_reference(q.detach(), k.detach(), v.detach(), do, H)
     torch.cuda.synchronize()
     for name, got, wnt in zip("qkv", (q.grad, k.grad, v.grad), want):
@@ -191,7 +213,8 @@ def test_attention_backward_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
                                    msg=f"d{name}")
 
 
-@pytest.mark.parametrize("B,Lq,Lk,C,H", chip_smoke.ATTN_CASES)
+@pytest.mark.parametrize("B,Lq,Lk,C,H", [*chip_smoke.ATTN_CASES,
+                                         *WIDE_CASES])
 def test_attention_kernels_bf16_within_a_bf16_step(cuda, B, Lq, Lk, C, H):
     """K2 and K5 with bf16 inputs: f32 inside, outputs rounded once. K2's
     f32 output within K2_TOL of the plain version in f32 of the same
@@ -212,13 +235,14 @@ def test_attention_kernels_bf16_within_a_bf16_step(cuda, B, Lq, Lk, C, H):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("Lk", [1, 77, 1024])
-def test_attention_backward_is_deterministic(cuda, dtype, Lk):
+@pytest.mark.parametrize("d", [4, 64])
+def test_attention_backward_is_deterministic(cuda, dtype, Lk, d):
     """No float atomics: two launches on the same inputs give the same
-    bits."""
+    bits, in both designs."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention \
         import _fwd_kernel
     g = torch.Generator(device=cuda).manual_seed(Lk)
-    q, k, v, do = (torch.randn((4, n, 64), generator=g, device=cuda)
+    q, k, v, do = (torch.randn((4, n, 16 * d), generator=g, device=cuda)
                    .to(dtype) for n in (1024, Lk, Lk, 1024))
     o, lse, o32 = _fwd_kernel(q, k, v, 16, with_lse=True)
     first = fused_mha_bwd(q, k, v, o32, lse, do, n_head=16)
@@ -542,6 +566,29 @@ def test_auto_serves_a_width_the_kernels_are_not_built_for(cuda):
     want = sample_token_grid(models, batch, torch.Generator().manual_seed(12),
                              sampler="model")
     assert torch.equal(tok, want)
+    with pytest.raises(ValueError):
+        sample_token_grid(models, batch, torch.Generator().manual_seed(12),
+                          sampler="megakernel")
+
+
+def test_explicit_megakernel_refuses_heads_of_64(cuda):
+    """F5: the whole-step kernels take n_embd 64 in heads of 4 only; at
+    VQ-Diffusion-B's head width ``auto`` takes the model route (K2 in the
+    wide design, then K1) and an explicit 'megakernel' raises."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        build_models, sample_token_grid)
+    cfg = chip_smoke._small_train_config()
+    cfg["generator"]["diffusion_model"]["transformer"].update(
+        n_embd=128, n_head=2)
+    models = build_models(cfg, "cuda", torch.Generator().manual_seed(11))
+    batch = {"label": torch.tensor([0, 3, 4])}
+    before = (fused_mha.launches, fused_sample_step.launches,
+              mk.megakernel_step.launches_k3)
+    sample_token_grid(models, batch, torch.Generator().manual_seed(12))
+    steps = cfg["generator"]["diffusion_model"]["diffusion_step"]
+    assert (fused_mha.launches - before[0],
+            fused_sample_step.launches - before[1],
+            mk.megakernel_step.launches_k3) == (4 * steps, steps, before[2])
     with pytest.raises(ValueError):
         sample_token_grid(models, batch, torch.Generator().manual_seed(12),
                           sampler="megakernel")
