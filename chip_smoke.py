@@ -179,7 +179,24 @@ Phases:
      a step), each with its s a step, peak memory and launches by head
      dim (all at 64); (d) K2 and K5 at d = 4 timed again, in turns with
      ``--parent ROOT`` where given; (e) with ``--profile``, (b)'s sampling
-     and the training step at B=16 in bf16 and f32 under torch.profiler.
+     and the training step at B=16 in bf16 and f32 under torch.profiler;
+ 21. K3 and K4 at every width the JAX megakernel takes (n_embd 32-512 in
+     heads of 4-128: ``csrc/megakernel_step.cu``, one library per width,
+     built in the background from phase 1 on): (a) against their plain
+     versions at ``MK_WIDTHS`` (2 layers; general and one-token
+     conditions, f32 and bf16 weights, ragged tiles) and where a head's
+     keys are streamed (heads of 32 at 2304 tokens, 64 and 128 at 1024) or
+     only just staged whole (heads of 16 at 2304), each with the plain
+     version's own distances its tolerance is read against; (b) the
+     honest configuration (K3, B=32) and the MSRVTT grid (K4, B=8) at
+     n_embd 64 in heads of 8 and 256 in heads of 16, against the plain
+     version at that shape, then timed against it, with the bound and by
+     phase; (c) ``auto`` at n_embd 64 in heads of 8: the small config
+     against the CPU's plain run, the honest configuration for 4 clips
+     over 100 steps (100 K3 launches); (d) with ``--parent ROOT``, K3 and
+     K4 at the serving width in turns with ROOT's kernels and with the
+     general code built at that width (``MK_GENERAL=1``, first checked
+     against the plain version).
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -195,7 +212,9 @@ K6 and K3 there; phase 20's ``VQD_B`` runs (K1 and K2 sampling, K2, K5
 and K6 in both ``tasks.train`` runs), and for K2 and K5 the launches of
 this process by head dim, as the wrappers counted them
 (``launches_by_head_dim``: every phase, the checks included), and phase
-20 (a)'s numbers at each wide head dim (``by_head_dim``);
+20 (a)'s numbers at each wide head dim (``by_head_dim``); for K3 and K4
+the launches of this process by width (``launches_by_width``), phase 21
+(b)'s numbers at each full width (``by_width``) and the route run of (c);
 ``launches_by_path`` splits the
 count by the run it came from, each run's counts set to 0 just before it
 and read just after), and the last line ``{"ok": true, "device": {...}}``.
@@ -206,6 +225,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import functools
 import importlib
 import json
@@ -219,7 +239,8 @@ from pathlib import Path
 
 from gif_synthesis_with_discrete_diffusion_tpu_torch.roofline import (
     PEAK_BF16, PEAK_BYTES, PEAK_F32, PEAK_TF32, attention_work,
-    bound as _bound, card, megakernel_work as _megakernel_work)
+    bound as _bound, card, megakernel_bound as _megakernel_bound,
+    megakernel_work as _megakernel_work)
 
 ROOT = Path(__file__).resolve().parent
 PKG = "gif_synthesis_with_discrete_diffusion_tpu_torch"
@@ -267,6 +288,15 @@ BF16_STAGE1_GRAD_SHARE = 0.5
 # tokens wherever the plain log-posterior's top-two margin exceeds MK_MARGIN
 MK_HIDDEN_TOL = 2e-3
 MK_MARGIN = 1e-2
+# K3 / K4's precision. Their f32 products take two TF32 products each (the
+# activations' hi and lo halves); a kernel that took one (hi only) is the
+# control. The max-abs above cannot tell them apart at these sizes (a bf16
+# flip of q, k, v or a probability moves single elements more than the lo
+# half does: PERF.md), the root mean square of the whole state can: the
+# kernels' RMS distance from the plain version must stay under this share
+# of the one-TF32 control's in the same case (two products, not one: the
+# dropped half is all of the control's error and none of the kernels')
+MK_RMS_SHARE = 0.5
 # sampled classes against the plain posterior at K = 17: total variation of
 # 25600 draws (sampling noise ~0.01)
 MK_TV_TOL = 0.03
@@ -1337,8 +1367,9 @@ def _profile_kernels(torch, phase: str, step, steps: int = 2) -> None:
 
 def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
                      dtype, seed, t=50, force_general=False,
-                     logit_scale=1.0, score_scale=1.0):
-    """A denoiser at the kernels' width (n_embd 64, 16 heads) with every
+                     logit_scale=1.0, score_scale=1.0, n_embd=64, n_head=16):
+    """A denoiser at ``n_embd`` in ``n_head`` heads (the serving width, 64
+    in 16, by default; MLP 4 n_embd) with every
     parameter drawn from N(0, 0.1) (LayerNorm scales around 1), and one
     step's arguments on the card: tokens half MASK, half data.
     ``force_general`` sends a one-token condition through the general
@@ -1359,7 +1390,7 @@ def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
 
     g = torch.Generator().manual_seed(seed)
     tr = DenoiserTransformer(num_embed=k - 1, spatial_size=spatial,
-                             n_layer=n_layer, n_embd=64, n_head=16,
+                             n_layer=n_layer, n_embd=n_embd, n_head=n_head,
                              condition_dim=32, diffusion_step=100)
     with torch.no_grad():
         for name, p in tr.named_parameters():
@@ -1379,28 +1410,80 @@ def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
     tokens = torch.where(torch.rand((B, L), generator=g) < 0.5, k - 1,
                          tokens).to("cuda")
     row = schedule_rows(make_schedule(100, k, device="cuda"))[t]
-    args = (packed, tokens, mk._adaln_table(packed, torch.tensor(t), 100, 64),
-            kc, vc, mk.positions(packed, L), row, 11)
-    kw = dict(n_layer=n_layer, n_head=16, n_embd=64, num_classes=k,
+    args = (packed, tokens,
+            mk._adaln_table(packed, torch.tensor(t), 100, n_embd), kc, vc,
+            mk.positions(packed, L), row, 11)
+    kw = dict(n_layer=n_layer, n_head=n_head, n_embd=n_embd, num_classes=k,
               guidance=2.0 if use_cfg else 1.0, use_cfg=use_cfg,
               s_valid=s_len, cross_as_bias=as_bias)
     return args, kw
 
 
+def _distance(x, want_x) -> tuple[float, float]:
+    """(max-abs, root mean square) of ``x - want_x``, each relative to the
+    same statistic of ``want_x``."""
+    d = x - want_x
+    return ((d.abs().max() / want_x.abs().max()).item(),
+            (d.square().mean().sqrt()
+             / want_x.square().mean().sqrt()).item())
+
+
+def _hidden_witness(torch, args, hidden_kw, want_x) -> dict:
+    """What the hidden state's tolerances are read against: the plain
+    version with its products summed in f64 (how far its own f32 sums move
+    it) and with the kernels' arithmetic (split products, phase S's
+    exponentials and shift: what K3 and K4 compute up to the order of their
+    sums), the witnesses; and two kernels of lower precision, the
+    controls: each product's activations taken as their high TF32 half
+    only (one TF32 product where the kernels take two), and rounded to
+    bf16. Returns {name: :func:`_distance` from the plain version's state
+    ``want_x``}."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    def f64_sums(a, w):
+        return (a.double() @ w.double()).float()
+
+    def hi_only(a, w):
+        return mk.split_tf32(a)[0] @ w.to(torch.float32)
+
+    def bf16_acts(a, w):
+        return mk._bf16(a) @ w.to(torch.float32)
+
+    out = {}
+    for name, mm, attention in (
+            ("f64 sums", f64_sums, mk._attention_reference),
+            ("kernel arithmetic", mk.split_matmul,
+             mk._attention_kernel_arithmetic),
+            ("one TF32", hi_only, mk._attention_reference),
+            ("bf16", bf16_acts, mk._attention_reference)):
+        x = mk._hidden(*args[:6], **hidden_kw, mm=mm,
+                       self_attention=attention)
+        out[name] = _distance(x, want_x)
+        del x
+    return out
+
+
 def _check_megakernel(torch, phase: str, label: str, args, kw,
-                      pack_cfg: bool):
+                      pack_cfg: bool, tol: float = MK_HIDDEN_TOL,
+                      witness: bool = False):
     """One argmax step of K3 / K4 against the plain version on the card: the
-    final hidden state the kernel leaves in its scratch, then the tokens
-    (int64, in range, equal wherever the plain log-posterior's top-two
-    margin exceeds MK_MARGIN), and one launch counted for the kernel asked
-    for. Returns (tokens, hidden max-abs error)."""
+    final hidden state the kernel leaves in its scratch (within ``tol`` of
+    its max-abs), then the tokens (int64, in range, equal wherever the plain
+    log-posterior's top-two margin exceeds MK_MARGIN), and one launch
+    counted for the kernel asked for. With ``witness``, also the distances
+    of the plain version's other forms (:func:`_hidden_witness`), and the
+    kernel's RMS distance within MK_RMS_SHARE of the one-TF32 control's.
+    Returns (tokens, hidden max-abs error, {name: (max-abs, RMS)} relative
+    distances with the kernel's, or None)."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
 
     tokens = args[1]
     b, L = tokens.shape
     scratch = mk.alloc_scratch(b, 2 if kw["use_cfg"] else 1, L,
-                               tokens.device)
+                               tokens.device, n_embd=kw["n_embd"],
+                               n_head=kw["n_head"])
     before = _megakernel_counts()
     got = mk.megakernel_step(*args, sample=False, pack_cfg=pack_cfg,
                              scratch=scratch, **kw)
@@ -1411,6 +1494,14 @@ def _check_megakernel(torch, phase: str, label: str, args, kw,
     want_x = mk.megakernel_hidden_reference(*args[:6], **hidden_kw)
     err = (scratch["x"] - want_x).abs().max().item()
     scale = want_x.abs().max().item()
+    rel = None
+    if witness:
+        rel = {"kernel": _distance(scratch["x"], want_x),
+               **_hidden_witness(torch, args, hidden_kw, want_x)}
+        print(f"{phase}: {label}: (max-abs, RMS) relative: " + "; ".join(
+            f"{name} {m:.3e}, {r:.3e}" for name, (m, r) in rel.items())
+            + f"; max-abs tol {tol:.3g}, RMS tol {MK_RMS_SHARE} x one "
+            f"TF32's")
     del want_x
     want, post = mk.megakernel_step_reference(
         *args, sample=False, return_posterior=True, **kw)
@@ -1418,7 +1509,7 @@ def _check_megakernel(torch, phase: str, label: str, args, kw,
     decided = (top2[:, 0] - top2[:, 1]) > MK_MARGIN
     wrong = int(((got != want) & decided).sum())
     print(f"{phase}: {label}: hidden state max-abs {err:.3e} of {scale:.3e} "
-          f"(tol {MK_HIDDEN_TOL} relative); {int((~decided).sum())} of "
+          f"(tol {tol:.3g} relative); {int((~decided).sum())} of "
           f"{got.numel()} positions under the margin {MK_MARGIN}, {wrong} "
           f"real token mismatches, {int((got != want).sum())} in all")
     if counted != (int(pack_cfg), int(not pack_cfg)):
@@ -1426,9 +1517,14 @@ def _check_megakernel(torch, phase: str, label: str, args, kw,
     if got.dtype != torch.int64 or int(got.min()) < 0 or \
             int(got.max()) >= kw["num_classes"]:
         raise AssertionError(f"{label}: tokens out of range")
-    if not err <= MK_HIDDEN_TOL * scale or wrong:
+    if not err <= tol * scale or wrong:
         raise AssertionError(f"{label} disagrees with its plain version")
-    return got, err
+    if rel is not None and \
+            not rel["kernel"][1] <= MK_RMS_SHARE * rel["one TF32"][1]:
+        raise AssertionError(f"{label}: the hidden state's RMS distance "
+                             f"{rel['kernel'][1]:.3e} is not within "
+                             f"{MK_RMS_SHARE} of one TF32 product's")
+    return got, err, rel
 
 
 def _check_softmax_shift(torch, phase: str, pack_cfg: bool) -> float:
@@ -1454,7 +1550,8 @@ def _check_softmax_shift(torch, phase: str, pack_cfg: bool) -> float:
             score_scale=scale)
         out = []
         for defines in ((), mk.EXACT_MAX):
-            scratch = mk.alloc_scratch(3, 2 if pack_cfg else 1, 200, "cuda")
+            scratch = mk.alloc_scratch(3, 2 if pack_cfg else 1, 200, "cuda",
+                                       n_embd=64, n_head=16)
             tok = mk.megakernel_step(*args, sample=False, pack_cfg=pack_cfg,
                                      scratch=scratch, defines=defines, **kw)
             torch.cuda.synchronize()
@@ -1477,10 +1574,12 @@ def _check_softmax_shift(torch, phase: str, pack_cfg: bool) -> float:
 
 
 def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
-                     defines=()):
-    """Plain, kernel, kernel, plain at a serving configuration: one sampled
-    step from all-MASK tokens with the models' own weights and a label
-    condition. Returns (ms, plain ms, bound ms, bound by, tables, kw)."""
+                     defines=(), iters: int = 10, tol: float | None = None):
+    """Plain, kernel, kernel, plain at a serving configuration (``iters``
+    launches each): one sampled step from all-MASK tokens with the models'
+    own weights and a label condition; with ``tol``, first the same step in
+    argmax mode against the plain version (:func:`_check_megakernel`).
+    Returns (ms, plain ms, bound ms, bound by, tables, kw)."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
 
@@ -1498,21 +1597,38 @@ def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
     args = (tab["packed"], tokens, tab["adaln_all"][0], tab["kc"], tab["vc"],
             tab["pos"], tab["rows"][99], 5)
     ref_kw = {n: v for n, v in kw.items() if n != "pack_cfg"}
+    if tol is not None:
+        _check_megakernel(torch, phase, f"{label} B={b} L={L} "
+                          f"{kw['n_layer']} layers K={kw['num_classes']} "
+                          f"(the timed step, argmax)", args, ref_kw,
+                          kw["pack_cfg"], tol)
+        torch.cuda.empty_cache()
     ms, plain_ms = _ab_ms(
         lambda: mk.megakernel_step_reference(*args, **ref_kw),
         lambda: mk.megakernel_step(*args, scratch=tab["scratch"],
-                                   defines=defines, **kw), 10)
+                                   defines=defines, **kw), iters)
     n_br = 2 if kw["use_cfg"] else 1
     nbytes, f32, bf16 = _megakernel_work(
         b, n_br, L, kw["n_layer"], tab["packed"]["wfc"].shape[2],
-        kw["num_classes"] - 1, kw["s_valid"], kw["cross_as_bias"])
-    bound_ms, bound_by = _bound(nbytes, f32, bf16)
-    print(f"{phase}: {label} (B={b}, L={L}, {kw['n_layer']} layers, K="
-          f"{kw['num_classes']}, bf16 weights, sampled) kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({f32 / 1e9:.1f} GFLOP at {PEAK_F32 / 1e12} TFLOP/s f32 + "
-          f"{bf16 / 1e9:.1f} GFLOP of bf16 operands at {PEAK_BF16 / 1e12} "
-          f"TFLOP/s; {nbytes / 1e6:.1f} MB); no single library call ({smi})")
+        kw["num_classes"] - 1, kw["s_valid"], kw["cross_as_bias"],
+        n_embd=kw["n_embd"], n_head=kw["n_head"])
+    w_bf16 = tab["packed"]["wfc"].dtype == torch.bfloat16
+    wname, per_product = ("bf16", 2) if w_bf16 else ("f32", 3)
+    bound_ms, bound_by = _megakernel_bound(nbytes, f32, bf16,
+                                           weights_bf16=w_bf16)
+    cuda_cores_ms = _bound(nbytes, f32, bf16)[0]
+    print(f"{phase}: {label} (n_embd {kw['n_embd']} in {kw['n_head']} "
+          f"heads, B={b}, L={L}, {kw['n_layer']} layers, K="
+          f"{kw['num_classes']}, {wname} weights, sampled) kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({f32 / 1e9:.1f} GFLOP of f32 products as "
+          f"{per_product} TF32 products each at {PEAK_TF32 / 1e12} TFLOP/s "
+          f"+ {bf16 / 1e9:.1f} GFLOP of bf16 "
+          f"operands at {PEAK_BF16 / 1e12} TFLOP/s; {nbytes / 1e6:.1f} MB): "
+          f"{bound_ms / ms:.1%} of it (against the f32 products at "
+          f"{PEAK_F32 / 1e12} TFLOP/s, the CUDA cores' rate: "
+          f"{cuda_cores_ms:.4f} ms, {cuda_cores_ms / ms:.1%});"
+          f" no single library call ({smi})")
     return ms, plain_ms, bound_ms, bound_by, (args, tab, kw)
 
 
@@ -2555,9 +2671,9 @@ def phase_text(torch, smi: str, profile: bool) -> dict:
         args = (tab["packed"], tokens, tab["adaln_all"][i], tab["kc"],
                 tab["vc"], tab["pos"], tab["rows"][T - 1 - i], 11 + i)
         if i in (0, T // 2, T - 1):
-            tokens, _ = _check_megakernel(
+            tokens = _check_megakernel(
                 torch, "phase 15", f"K3 text-conditioned step t={T - 1 - i} "
-                f"(B={b}, L={L}, 19 layers)", args, kw, pack_cfg)
+                f"(B={b}, L={L}, 19 layers)", args, kw, pack_cfg)[0]
         else:
             tokens = mk.megakernel_step(*args, sample=False,
                                         pack_cfg=pack_cfg,
@@ -4284,14 +4400,369 @@ def phase_widths(torch, smi: str, parent: str | None = None,
     return {"kernels": kernels, "sampling": sampling, "train": train}
 
 
+# phase 21: K3 and K4 at every width the JAX megakernel takes (the CUDA
+# kernels take n_embd a multiple of 32 up to 512 in heads of a dim that is a
+# multiple of 4 up to 128, one library per (n_embd, head dim)): the widths
+# of the CPU tests (head dims 4, 16, 32, 64, 128), the two full-width
+# configurations (heads of 8 and of 16), n_embd 96 (a half-padded last
+# chunk of 64 columns; heads of 12 and of 24: a 16-deep and an 8-deep QK^T
+# step, an odd count of 8-dim PV tiles) and the top of the domain
+MK_WIDTHS = ((32, 8), (64, 4), (64, 2), (128, 2), (128, 1), (64, 8), (96, 8),
+             (96, 4), (256, 16), (512, 8))
+# the honest configuration and the MSRVTT grid at these widths, timed
+MK_FULL_WIDTHS = ((64, 8), (256, 16))
+MK_WIDTH_ITERS = 3
+# the serving widths' runs of phase 21 (c): clips and steps of the honest
+# configuration at n_embd 64 in heads of 8 on the route auto takes
+MK_ROUTE_CLIPS = 4
+
+
+def mk_hidden_tol(n_embd: int, head_dim: int, hidden: int) -> float:
+    """K3 / K4's hidden-state tolerance at a width. MK_HIDDEN_TOL holds at
+    n_embd 64 in heads of 4 with an MLP of 256: sums of 64 terms in the
+    products, 4 in the scores, 256 in the MLP's projection. The error is
+    that of values that land on the other side of a bf16 rounding boundary
+    (q, k, v, the probabilities) where the f32 sums before them differ, by
+    their order or by the kernels' TF32 split and exponentials: in a sum of
+    n such rounded terms the flips number n times their chance, and that
+    chance grows as sqrt(n) (a sum's f32 error against the bf16 spacing);
+    flips of one sign move the sum by n sqrt(n) bf16 steps of a term, n
+    times the share they move it at n = 1 against the sum's sqrt(n) scale.
+    So the tolerance scales with the longest of the three lengths against
+    256 (never below MK_HIDDEN_TOL). It bounds the flips, not the
+    precision: the one-TF32 control reads under it at every width, so
+    precision is held by the RMS check (MK_RMS_SHARE; readings of both at
+    every width in PERF.md)."""
+    return MK_HIDDEN_TOL * max(1.0, max(n_embd, head_dim, hidden) / 256)
+
+
+# the serving width built from the code of every other width (phase 21 (d),
+# with --parent: checked, then timed beside the serving width's own code)
+GENERAL_SERVING = "the general code at 64x16"
+MK_GENERAL = ("MK_GENERAL=1",)
+
+
+def start_width_builds(general: bool = False) -> dict:
+    """Phase 21's libraries, one a width of MK_WIDTHS (and with ``general``
+    the serving width built from the general code), one nvcc each, all
+    started together in the background, so that they build while the
+    earlier phases run: {(n_embd, n_head) or GENERAL_SERVING: future}."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    pool = ThreadPoolExecutor(len(MK_WIDTHS) + 1)
+    futures = {w: pool.submit(mk._library, (), (w[0], w[0] // w[1]))
+               for w in MK_WIDTHS}
+    if general:
+        futures[GENERAL_SERVING] = pool.submit(mk._library, MK_GENERAL,
+                                               (64, 4))
+    pool.shutdown(wait=False)
+    return futures
+
+
+@contextlib.contextmanager
+def _megakernel_library(lib):
+    """Every launch of ``megakernel_step`` goes to ``lib`` (the C interface
+    is the same at every width, and in a parent's)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    own = mk._library
+    mk._library = lambda defines=(), widths=(64, 4): lib
+    try:
+        yield
+    finally:
+        mk._library = own
+
+
+def _phase21_builds(futures: dict) -> None:
+    """Waits for the width libraries; prints each one's nvcc seconds, its
+    registers and spills, the query scale it multiplies by, and whether a
+    head's keys are staged whole at 1024 and 2304 tokens."""
+    import numpy as np
+    t0 = time.perf_counter()
+    for key, fut in futures.items():
+        lib = fut.result()
+        n_embd, d = lib.megakernel_width(0), lib.megakernel_width(1)
+        label = (key if key == GENERAL_SERVING else
+                 f"n_embd {n_embd} in {key[1]} heads of {d}")
+        scale = lib.megakernel_qscale()
+        want = float(np.float32(1.0 / math.sqrt(d)))
+        whole = {L: bool(lib.megakernel_keys_whole(L)) for L in (1024, 2304)}
+        print(f"phase 21: {label}: nvcc {lib.build_seconds:.2f} s; "
+              + "; ".join(_ptxas_by_kernel(lib.build_log))
+              + f"; q scale {scale!r} (fl32(1/sqrt({d})) {want!r}); keys "
+              + ", ".join(f"{'whole' if w else 'streamed'} at L={L}"
+                          for L, w in whole.items())
+              + f"; {lib.megakernel_grid_blocks(1)} blocks (K3)")
+        if scale != want:
+            raise AssertionError(f"the kernels at head dim {d} scale the "
+                                 f"queries by {scale!r}, not {want!r}")
+    print(f"phase 21: waited {time.perf_counter() - t0:.2f} s for the width "
+          f"libraries (built in the background since phase 1)")
+
+
+def _mk_width_cases(torch) -> tuple:
+    """Phase 21 (a)'s cases at every width: (label, pack_cfg, case)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return (
+        ("K3 bf16 weights B=2 L=96 K=200 2 layers S=3 (general cross)", True,
+         dict(L=96, spatial=(12, 8), k=200, n_layer=2, s_len=3, B=2,
+              use_cfg=True, dtype=bf16)),
+        ("K3 f32 weights B=2 L=64 K=17 2 layers S=1", True,
+         dict(L=64, spatial=(8, 8), k=17, n_layer=2, s_len=1, B=2,
+              use_cfg=True, dtype=f32)),
+        ("K4 guidance 1 B=2 L=96 K=200 2 layers S=3 (general cross)", False,
+         dict(L=96, spatial=(12, 8), k=200, n_layer=2, s_len=3, B=2,
+              use_cfg=False, dtype=bf16)),
+        ("K4 CFG B=3 L=200 K=17 2 layers S=1 (ragged tiles)", False,
+         dict(L=200, spatial=(20, 10), k=17, n_layer=2, s_len=1, B=3,
+              use_cfg=True, dtype=bf16)))
+
+
+def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
+    """(a) K3 and K4 against the plain version at every width of MK_WIDTHS
+    at small depth, and where a head's keys cannot be staged whole (4 d L
+    bytes over a block's 227 KB: head dim 32 at 2304 tokens, 64 and 128 at
+    1024) or only just can (heads of 16 at 2304 tokens); each case with the
+    plain version's own distances (:func:`_hidden_witness`). Returns the
+    worst hidden-state max-abs error and, by width, the largest relative
+    distance of the kernel and of the witness and the smallest of each
+    control."""
+    bf16 = torch.bfloat16
+    long_grid = {
+        (64, 2): ("K4 CFG B=1 L=2304 K=17 2 layers S=1 (keys streamed)",
+                  False, dict(L=2304, spatial=(48, 48), k=17, n_layer=2,
+                              s_len=1, B=1, use_cfg=True, dtype=bf16)),
+        (128, 2): ("K3 B=1 L=1024 K=17 2 layers S=3 (keys streamed)", True,
+                   dict(L=1024, spatial=(32, 32), k=17, n_layer=2, s_len=3,
+                        B=1, use_cfg=True, dtype=bf16)),
+        (128, 1): ("K3 B=1 L=1024 K=17 2 layers S=1 (keys streamed)", True,
+                   dict(L=1024, spatial=(32, 32), k=17, n_layer=2, s_len=1,
+                        B=1, use_cfg=True, dtype=bf16)),
+        (256, 16): ("K4 CFG B=1 L=2304 K=17 2 layers S=1 (keys whole, 221 "
+                    "KB)", False, dict(L=2304, spatial=(48, 48), k=17,
+                                       n_layer=2, s_len=1, B=1, use_cfg=True,
+                                       dtype=bf16))}
+    worst, readings = 0.0, {}
+    for n_embd, n_head in MK_WIDTHS:
+        d = n_embd // n_head
+        tol = mk_hidden_tol(n_embd, d, 4 * n_embd)
+        cases = list(_mk_width_cases(torch))
+        if (n_embd, n_head) in long_grid:
+            cases.append(long_grid[n_embd, n_head])
+        rels = []
+        for label, pack_cfg, case in cases:
+            args, kw = _megakernel_case(torch, **case, seed=n_embd + d,
+                                        n_embd=n_embd, n_head=n_head)
+            _, err, rel = _check_megakernel(
+                torch, "phase 21", f"n_embd {n_embd} in {n_head} heads of "
+                f"{d}: {label}", args, kw, pack_cfg, tol, witness=True)
+            worst = max(worst, err)
+            rels.append(rel)
+            del args
+            torch.cuda.empty_cache()
+        row = {"max-abs tol": tol,
+               **{f"{name} max-abs": max(r[name][0] for r in rels)
+                  for name in ("kernel", "f64 sums", "kernel arithmetic")},
+               **{f"{name} RMS": max(r[name][1] for r in rels)
+                  for name in ("kernel", "f64 sums", "kernel arithmetic")},
+               **{f"{name} {stat}": min(r[name][i] for r in rels)
+                  for name in ("one TF32", "bf16")
+                  for i, stat in enumerate(("max-abs", "RMS"))},
+               "RMS share": max(r["kernel"][1] / r["one TF32"][1]
+                                for r in rels)}
+        readings[f"{n_embd}x{n_head}"] = row
+        print(f"phase 21: n_embd {n_embd} in heads of {d} over {len(rels)} "
+              f"cases, relative (largest of the kernel and the witnesses, "
+              f"smallest of the controls): " + "; ".join(
+                  f"{name} {v:.3e}" for name, v in row.items()))
+    return worst, readings
+
+
+def _phase21_full(torch, smi: str) -> dict:
+    """(b) The honest configuration (K3, B=32, L=1024) and the MSRVTT grid
+    (K4, B=8, L=2304) at MK_FULL_WIDTHS: the step against the plain version
+    at that shape (every block loops over several work items), then kernel
+    and plain timed in turns, the bound and the share, where a step's time
+    goes. {"CxH": {"K3": ..., "K4": ...}}."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST, MSRVTT_GRID, at_width, build_models)
+    out = {}
+    for n_embd, n_head in MK_FULL_WIDTHS:
+        key = f"{n_embd}x{n_head}"
+        out[key] = {}
+        for kid, grid, b, pack in (("K3", HONEST, 32, True),
+                                   ("K4", MSRVTT_GRID, 8, None)):
+            models = build_models(at_width(grid, n_embd, n_head), "cuda",
+                                  torch.Generator().manual_seed(0))
+            label = f"{kid} n_embd {n_embd} in {n_head} heads"
+            ms, plain_ms, bound_ms, bound_by, step = _time_megakernel(
+                torch, "phase 21", smi, label, models, b, pack,
+                iters=MK_WIDTH_ITERS,
+                tol=mk_hidden_tol(n_embd, n_embd // n_head, 4 * n_embd))
+            _phase_times(torch, "phase 21", f"{label} B={b}", *step)
+            out[key][kid] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, share=bound_ms / ms)
+            del models, step
+            torch.cuda.empty_cache()
+    return out
+
+
+def _phase21_route(torch, smi: str) -> dict:
+    """(c) The route at n_embd 64 in heads of 8: phase 10's small config on
+    ``auto`` (the megakernel route on the card, a K3 launch a step) in argmax
+    mode against the CPU's plain run of the same route; then
+    ``sample_token_grid`` on ``auto`` at the honest configuration, 4 clips,
+    100 steps: 100 K3 launches, tokens in range, no MASK left."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST, at_width, build_models, sample_token_grid)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.\
+        discrete_diffusion import resolve_sampler
+
+    small = at_width(_small_train_config(), 64, 8)
+    small["generator"]["diffusion_model"]["guidance_scale"] = 2.0
+    out = {}
+    for dev, sampler in (("cuda", "auto"), ("cpu", "megakernel")):
+        models = build_models(small, dev, torch.Generator().manual_seed(11))
+        d3pm = models.generator.diffusion
+        route = resolve_sampler("auto", torch.device(dev),
+                                d3pm.content_seq_len, d3pm.transformer, True)
+        batch = {"label": torch.tensor([0, 3, 4])}
+        _reset_megakernel_counts()
+        tok = sample_token_grid(models, batch, torch.Generator().manual_seed(
+            12), sample=False, sampler=sampler)
+        with torch.no_grad():
+            out[dev] = (tok.cpu(), models.vqvae.decode(tok).cpu(), route,
+                        _megakernel_counts())
+    same = torch.equal(out["cuda"][0], out["cpu"][0])
+    verr = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    steps_small = small["generator"]["diffusion_model"]["diffusion_step"]
+    print(f"phase 21: small slice (T=8, K=17, L=32) at n_embd 64 in heads of "
+          f"8: 'auto' on the card takes {out['cuda'][2]!r} (launches K3 "
+          f"{out['cuda'][3][0]}, K4 {out['cuda'][3][1]}), argmax, against "
+          f"the CPU's plain run of that route: tokens equal {same}, video "
+          f"max-abs {verr:.3e} (tol {VIDEO_TOL})")
+    if out["cuda"][2] != "megakernel" or \
+            out["cuda"][3] != (steps_small, 0) or not same or \
+            not verr <= VIDEO_TOL:
+        raise AssertionError("the megakernel route at n_embd 64 in heads of "
+                             "8 disagrees with the CPU")
+    models = build_models(at_width(HONEST, 64, 8), "cuda",
+                          torch.Generator().manual_seed(0))
+    steps = HONEST["generator"]["diffusion_model"]["diffusion_step"]
+    mask_id = HONEST["vqvae"]["n_codes"]
+    g = torch.Generator().manual_seed(21)
+    batch = {"label": torch.randint(0, 101, (MK_ROUTE_CLIPS,), generator=g)}
+    _reset_megakernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = sample_token_grid(models, batch, g, sampler="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _megakernel_counts()
+    print(f"phase 21: HONEST at n_embd 64 in heads of 8, {MK_ROUTE_CLIPS} "
+          f"clips, {steps} steps on 'auto': {wall:.3f} s, launches K3 "
+          f"{counts[0]}, K4 {counts[1]} (expected {steps}, 0); tokens in "
+          f"[{int(tokens.min())}, {int(tokens.max())}], MASK left "
+          f"{int((tokens == mask_id).sum())}; {smi}")
+    if counts != (steps, 0) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= mask_id:
+        raise AssertionError("the honest configuration at n_embd 64 in "
+                             "heads of 8 did not sample through K3")
+    return {"K3": counts[0]}
+
+
+def _phase21_parent_turns(torch, smi: str, parent: str, future,
+                          builds: dict) -> None:
+    """(d) K3 (HONEST, B=32) and K4 (MSRVTT_GRID, B=8) at n_embd 64 in heads
+    of 4: ROOT's kernels (its megakernel_step.cu, built in the background,
+    launched through this checkout's wrapper: the C interface is the same),
+    this checkout's (``change``) and the general code built at the same
+    width (``general``, first held to the plain version on phase 21 (a)'s
+    cases) in turns: parent, change, general, general, change, parent, 10
+    launches each."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST, MSRVTT_GRID, build_models)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    parent_lib = future.result()
+    parent_lib.megakernel_step.argtypes = [ctypes.c_void_p] * 4
+    parent_lib.megakernel_step.restype = ctypes.c_int
+    general = builds[GENERAL_SERVING].result()
+    for label, pack_cfg, case in _mk_width_cases(torch):
+        args, kw = _megakernel_case(torch, **case, seed=68)
+        with _megakernel_library(general):
+            _check_megakernel(torch, "phase 21", f"{GENERAL_SERVING}: "
+                              f"{label}", args, kw, pack_cfg)
+        del args
+    libs = {"parent": parent_lib, "change": mk._library(),
+            "general": general}
+    for kid, grid, b, pack in (("K3", HONEST, 32, True),
+                               ("K4", MSRVTT_GRID, 8, None)):
+        models = build_models(grid, "cuda", torch.Generator().manual_seed(0))
+        args, tab, kw = _time_megakernel(torch, "phase 21", smi,
+                                         f"{kid} warm-up", models, b, pack,
+                                         iters=2)[4]
+        readings = {side: [] for side in libs}
+        for side in ("parent", "change", "general", "general", "change",
+                     "parent"):
+            with _megakernel_library(libs[side]):
+                readings[side].append(_time_ms(
+                    lambda: mk.megakernel_step(*args, scratch=tab["scratch"],
+                                               **kw), 10))
+        slowest = max(readings["parent"])
+        print(f"phase 21: {kid} n_embd 64 in heads of 4 (B={b}) in turns "
+              f"with {parent}: " + "; ".join(
+                  f"{side} " + ", ".join(f"{v:.4f}" for v in ms)
+                  for side, ms in readings.items())
+              + f" ms; the change no slower than the parent's slowest "
+              f"reading: {max(readings['change']) <= slowest} ({smi})")
+        del models, args, tab
+        torch.cuda.empty_cache()
+
+
+def start_parent_build(parent: str):
+    """ROOT's megakernel_step.cu built in the background (phase 21 (d))."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        cuda_build)
+    src = Path(parent).resolve() / PKG / "csrc" / "megakernel_step.cu"
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(cuda_build.load, str(src),
+                      cuda_build.BUILD_DIR / "parent")
+    pool.shutdown(wait=False)
+    return fut
+
+
+def phase_mk_widths(torch, smi: str, builds: dict,
+                    parent: str | None = None, parent_build=None) -> dict:
+    """Phase 21: the width libraries, (a) the kernels at every width, (b)
+    the full-width configurations timed, (c) the route at n_embd 64 in
+    heads of 8, (d) with ``parent``, the serving width in turns."""
+    t0 = time.perf_counter()
+    _phase21_builds(builds)
+    worst, tolerance = _phase21_kernels(torch, smi)
+    t1 = time.perf_counter()
+    full = _phase21_full(torch, smi)
+    t2 = time.perf_counter()
+    route = _phase21_route(torch, smi)
+    t3 = time.perf_counter()
+    if parent is not None:
+        _phase21_parent_turns(torch, smi, parent, parent_build, builds)
+    print(f"phase 21: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
+    return {"worst": worst, "tolerance": tolerance, "full": full,
+            "route": route}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path on "
                                  "one CUDA card.")
     ap.add_argument("--profile", action="store_true",
                     help="time each training step by kernel")
     ap.add_argument("--parent", metavar="ROOT",
-                    help="also time K1, K6, P1, P2, P3, and K2 and K5 at "
-                         "head dim 4, in turns with the checkout at ROOT")
+                    help="also time K1, K6, P1, P2, P3, K2 and K5 at head "
+                         "dim 4, and K3 and K4 at n_embd 64 in heads of 4, "
+                         "in turns with the checkout at ROOT")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4300,6 +4771,9 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     smi = phase_environment(torch)
+    width_builds = start_width_builds(general=args.parent is not None)
+    parent_build = (start_parent_build(args.parent)
+                    if args.parent is not None else None)
     k1 = phase_k1(torch, smi, args.parent)
     k2 = phase_k2(torch, smi)
     launches = phase_slice(torch, smi)
@@ -4339,6 +4813,9 @@ def main() -> int:
     tp = phase_tp(torch, smi)
     t_phase20 = time.perf_counter()
     widths = phase_widths(torch, smi, args.parent, profile)
+    t_phase21 = time.perf_counter()
+    mk_widths = phase_mk_widths(torch, smi, width_builds, args.parent,
+                                parent_build)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -4537,6 +5014,31 @@ def main() -> int:
                                  cross_ms=row[f"{kid} cross"]["ms"])
                     for (d, name), row in widths["kernels"].items()
                     if name == dt}
+    # phase 21's paths: the honest configuration at n_embd 64 in heads of 8
+    # on the route auto takes; the launches of this process by width (every
+    # phase, the checks included); phase 21 (b)'s numbers at each
+    # full-width configuration
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.megakernel import (
+        megakernel_step)
+    d8_route = ("phase 21: HONEST at n_embd 64 in heads of 8, auto route, "
+                f"{MK_ROUTE_CLIPS} clips, 100 steps")
+    for kernel in kernels:
+        kid = by_kernel.get(kernel["name"])
+        if kid not in ("K3", "K4"):
+            continue
+        if kid == "K3":
+            kernel["launches_by_path"][d8_route] = mk_widths["route"]["K3"]
+            kernel["launches"] += mk_widths["route"]["K3"]
+        kernel["launches_by_width"] = {
+            f"{c}x{c // d}": n for (c, d, k), n in sorted(
+                megakernel_step.launches_by_width.items()) if k == kid}
+        kernel["by_width"] = {w: row[kid]
+                              for w, row in mk_widths["full"].items()}
+        missing = {f"{c}x{h}" for c, h in MK_WIDTHS} - set(
+            kernel["launches_by_width"])
+        if missing:
+            raise AssertionError(f"{kid} launched at no width "
+                                 f"{sorted(missing)}")
     on_harness = {kid: sum(r[kid] for r in harness.values())
                   for kid in by_kernel.values()}
     if not (on_harness["K2"] and on_harness["K5"] and on_harness["K6"]
@@ -4555,7 +5057,9 @@ def main() -> int:
           f" two ranks, NCCL, the sweep) {t_phase19 - t_phase18:.1f} s, "
           f"phase 19 (the reference's checkpoints, tensor parallelism) "
           f"{t_phase20 - t_phase19:.1f} s, phase 20 (every head width, "
-          f"VQ-Diffusion-B's width) {t_end - t_phase20:.1f} s")
+          f"VQ-Diffusion-B's width) {t_phase21 - t_phase20:.1f} s, phase 21 "
+          f"(the whole-step kernels at every width) "
+          f"{t_end - t_phase21:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

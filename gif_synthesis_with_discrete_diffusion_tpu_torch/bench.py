@@ -55,7 +55,8 @@ from .eval.evaluator import FVDEvaluator
 from .generate import HONEST, MSRVTT_GRID, build_models
 from .models.discrete_diffusion import resolve_sampler
 from .models.vqvae import init_vqvae_
-from .roofline import PEAK_BF16, bound, card, megakernel_work
+from .roofline import (PEAK_BF16, bound, card, megakernel_bound,
+                       megakernel_work)
 from .train import stage1, stage2
 
 __all__ = ["BenchConfig", "CONFIGS", "measured_lookup", "bench_sampling",
@@ -194,9 +195,13 @@ def bench_sampling(device: torch.device | str, config: BenchConfig,
     use_cfg = abs(d3pm.guidance_scale - 1.0) >= 1e-3
     nbytes, f32, bf16 = megakernel_work(
         b, 2 if use_cfg else 1, L, tr.n_layer, tr.block0.mlp_fc.out_features,
-        d3pm.num_embed, 1, True)
+        d3pm.num_embed, 1, True, n_embd=tr.ln_out.normalized_shape[0],
+        n_head=tr.block0.attn1.n_head)
     ms_per_step = statistics.median(seconds) * 1e3 / steps
-    bound_ms, bound_by = bound(nbytes, f32, bf16)
+    # the megakernel route packs bf16 weights: two TF32 products a product
+    bound_ms, bound_by = (
+        megakernel_bound(nbytes, f32, bf16, weights_bf16=True)
+        if route == "megakernel" else bound(nbytes, f32, bf16))
     vq = config.models["vqvae"]
     compute = ("bf16 weights" if route == "megakernel" else
                f"{str(tr.compute_dtype).removeprefix('torch.')} compute")

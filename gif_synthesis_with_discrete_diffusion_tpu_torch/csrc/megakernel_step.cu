@@ -37,7 +37,7 @@
 //    every 16; 1.75 special-function exponentials per (query, key, head) are
 //    left); the sweep for the row maximum is replaced by an upper bound of a
 //    query's scores wherever that provably lies near the maximum, and kept
-//    where not (softmax_shift); P V takes the packed bf16 probabilities as
+//    where not (shift_by_bound); P V takes the packed bf16 probabilities as
 //    they leave the rounding (no unpack); a head's keys and values are
 //    staged once for all its queries.
 //  - Every other product (phases A and B, the logits) has f32 activations.
@@ -47,19 +47,41 @@
 //    These phases are bound by mma issue and by what surrounds a product
 //    (a block-wide barrier each, the epilogues).
 //
-// Layout. The TPU keeps a row's (L, 64) state in fast memory; a block here
-// has 227 KB, and the state of all rows (16 MB at the serving shape) fits
-// the 50 MB L2 instead. So the step is one cooperative launch of a
-// persistent grid (as many 256-thread blocks as can be co-resident), and per
-// layer three phases separated by grid-wide barriers:
+// Widths. One library is built per (n_embd, head dim): MK_C and MK_D, by
+// default 64 and 4. The kernels take n_embd a multiple of 32 from 32 to 512
+// and a head dim a multiple of 4 from 4 to 128 that divides it, any MLP
+// width that is a multiple of 32, any depth. A row of n_embd is walked in
+// chunks of 64 columns (kNCH of them; at n_embd = 32 mod 64 the last chunk
+// is half zero padding), a contraction in 64-deep weight tiles, the MLP in
+// chunks of 64 hidden units (the last one ragged).
+//
+// The serving width (n_embd 64 in 16 heads of 4) keeps the code written for
+// it (MK_SERVING: the units under "#if MK_SERVING" below), which this
+// source generalises: the general code compiled at that width (MK_GENERAL=1
+// forces it) ran 6-10 % slower on an H100, every phase slower, with phase
+// S's own code the same and with the phases compiled as functions of their
+// own (MK_NOINLINE) too (PERF.md). Every unit outside those blocks, the
+// tables, the small helpers, the sampler's tail helpers, the launch and the
+// C interface, is the same code at every width.
+//
+// Layout. The TPU keeps a row's (L, C) state in fast memory; a block here
+// has 227 KB, and the state of all rows goes to device memory instead: at
+// the serving shape (16 MB) it fits the 50 MB L2, at n_embd 256 and B = 32
+// under CFG (64 MB for x alone) it does not, and moves through HBM. So the
+// step is one cooperative launch of a persistent grid (as many 256-thread
+// blocks as can be co-resident: two an SM at n_embd 64, one from 96 on),
+// and per layer three phases separated by grid-wide barriers:
 //   A  per tile of 64 rows: (layer 0: gather the embedding) AdaLN-LN -> QKV
-//      -> q/k/v through bf16 into head-major scratch (R, 16, L, 4), and the
-//      largest |k| per (row-branch, head, dim);
-//   S  per (row-branch, head): the head's keys and values staged once in
-//      shared memory as bf16, then 256 queries at a time, a warp per 32:
-//      the softmax shift, then two sweeps (row sum, then exp / sum -> bf16 ->
-//      PV: an online rescale would round the probabilities elsewhere),
-//      output to scratch;
+//      -> q/k/v through bf16 into head-major scratch (R, H, L, DS), DS the
+//      head dim padded to a multiple of 8 (4 at head dim 4) with zeros, and
+//      the largest |k| per (row-branch, head, dim);
+//   S  per (row-branch, head): the head's keys and values staged in shared
+//      memory as bf16, whole where they fit (every head dim 4 grid, and the
+//      wider heads up to the block's shared memory), else streamed in tiles
+//      of 64 keys through two cp.async buffers; 256 queries at a time, a
+//      warp per 32: the softmax shift, then two sweeps (row sum, then exp /
+//      sum -> bf16 -> PV: an online rescale would round the probabilities
+//      elsewhere), output to scratch;
 //   B  per tile of 64 rows: proj + residual -> cross-attention or bias ->
 //      LN -> MLP (hidden chunk by hidden chunk) + residual -> hidden state.
 // Then the tail per tile. Every small product is one primitive (mma_tile): a
@@ -87,26 +109,118 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef MK_C
+#define MK_C 64
+#endif
+#ifndef MK_D
+#define MK_D 4
+#endif
+#if MK_C == 64 && MK_D == 4 && !defined(MK_GENERAL)
+#define MK_SERVING 1
+#else
+#define MK_SERVING 0
+#endif
+
 namespace cg = cooperative_groups;
 
 namespace {
+#if MK_SERVING
 
 constexpr int kC = 64;          // n_embd
 constexpr int kH = 16;          // heads (of dim 4)
+#else   // MK_SERVING
+
+constexpr int kC = MK_C;        // n_embd
+constexpr int kD = MK_D;        // head dim
+constexpr int kH = kC / kD;     // heads
+static_assert(kC % 32 == 0 && kC >= 32 && kC <= 512, "n_embd");
+static_assert(kD % 4 == 0 && kD >= 4 && kD <= 128 && kC % kD == 0,
+              "head dim");
+#endif  // MK_SERVING
 constexpr int kThreads = 256;
 constexpr int kRows = 64;       // rows of a tile work item
+#if MK_SERVING
 constexpr int kLda = 72;        // row stride of an activation tile (8 mod 32)
+#else   // MK_SERVING
+constexpr int kNCH = (kC + 63) / 64;   // 64-column chunks of a row
+constexpr int kLda = 64 * kNCH + 8;    // row stride of the activation tile
+constexpr int kLdh = 72;               // row stride of the 64-wide tile Hs
+#endif  // MK_SERVING
 constexpr int kTileBytes = kRows * kLda * 4;
 // a staged weight tile of 64 x NB, as 32 rows of NB (k, k + 1) pairs
 constexpr int kWBytes = 32 * (2 * 64 + 8) * 4 * 2;   // two of NB = 64
+#if MK_SERVING
 constexpr int kSmemBytes = 2 * kTileBytes + 2 * kWBytes;
 constexpr int kMaxSeq = kSmemBytes / 16;   // phase S holds a head's K and V
+#else   // MK_SERVING
+constexpr int kStepBytes = kTileBytes + kRows * kLdh * 4 + 2 * kWBytes;
+// two blocks an SM where both fit the SM's 228 KB (1 KB a block reserved),
+// else one, which may as well take all the 227 KB a block can have (phase S
+// stages more keys whole)
+constexpr int kMinBlocks = 2 * (kStepBytes + 1024) <= 233472 ? 2 : 1;
+constexpr int kSmemBytes = kMinBlocks == 2 ? kStepBytes : 232448;
+static_assert(kStepBytes <= kSmemBytes, "the tiles fit a block");
+#endif  // MK_SERVING
 constexpr float kNeg30 = -69.07755278982137f;   // log(1e-30)
 constexpr float kClamp = -70.f;
 constexpr float kLnEps = 1e-6f;
 constexpr float kNegBig = -3.0e38f;
+#if MK_SERVING
 constexpr float kQScale = 0.5f;                 // 1 / sqrt(head dim)
+#endif  // MK_SERVING
 static_assert(32 * (2 * 128 + 8) * 4 <= kWBytes, "a 128-column tile fits");
+#if !MK_SERVING
+// Phase S. A head's dims in the q/k/v scratch (zero padded); in shared
+// memory a key's (or value's) row of kRowS bf16, an odd number of 16-byte
+// units, so that 8 rows of a fragment load or an ldmatrix hit distinct
+// banks. Head dim 4 keeps its own layout (16 bytes a key, K as [key][4], V
+// as pairs of keys), staged whole up to kMaxSeq keys; the wider heads have
+// no limit (streamed where they do not fit).
+constexpr int kDS = kD == 4 ? 4 : (kD + 7) / 8 * 8;
+constexpr int kRowS = kD == 4 ? 4 : 8 * ((kDS / 8) | 1);
+constexpr int kKeyBytes = 4 * kRowS;          // K and V of a key
+constexpr int kQ16 = kD == 4 ? 0 : kDS / 16;  // 16-deep QK^T steps
+constexpr int kQ8 = kD == 4 ? 1 : (kDS % 16) / 8;   // and 8-deep ones
+constexpr int kQA = 4 * kQ16 + 2 * kQ8;       // A registers of a 16-query tile
+constexpr int kNTV = kD == 4 ? 1 : kDS / 8;   // PV's 8-dim output tiles
+constexpr int kSKT = 64;                      // keys of a streamed tile
+constexpr int kMaxSeq = kD == 4 ? kSmemBytes / 16 : 1 << 16;
+static_assert(kD == 4 || 2 * kSKT * kKeyBytes <= kSmemBytes,
+              "two streamed tiles fit");
+
+// MK_NOINLINE: the phases compiled as functions of their own, each with its
+// own register allocation (bit 0 phase A, 1 phase S, 2 phase B, 3 the
+// tail); the kernels' parameters then stay in parameter space
+// (__grid_constant__), read through the reference the phases take
+#ifndef MK_NOINLINE
+#define MK_NOINLINE 0
+#endif
+#if MK_NOINLINE & 1
+#define MK_PHASE_A __noinline__
+#else
+#define MK_PHASE_A
+#endif
+#if MK_NOINLINE & 2
+#define MK_PHASE_S __noinline__
+#else
+#define MK_PHASE_S
+#endif
+#if MK_NOINLINE & 4
+#define MK_PHASE_B __noinline__
+#else
+#define MK_PHASE_B
+#endif
+#if MK_NOINLINE & 8
+#define MK_PHASE_T __noinline__
+#else
+#define MK_PHASE_T
+#endif
+#if MK_NOINLINE
+#define MK_KERNEL_PARAMS const __grid_constant__ Params
+#else
+#define MK_KERNEL_PARAMS const Params
+#endif
+#endif  // !MK_SERVING
 
 // the pointer and integer tables of the C interface (ops/megakernel.py)
 enum Ptr {
@@ -119,6 +233,7 @@ enum Int {
   I_B, I_L, I_NBR, I_NLAYER, I_KV, I_SP, I_SVALID, I_HIDDEN, I_WBF16,
   I_SAMPLE, I_CROSSBIAS, I_PACKED, I_SEEDLO, I_SEEDHI, I_GRID
 };
+#if MK_SERVING
 
 struct Params {
   const float* sched;
@@ -138,6 +253,29 @@ struct Params {
   unsigned seed_lo, seed_hi;
   float guidance;
 };
+#else   // MK_SERVING
+
+struct Params {
+  const float* sched;
+  const long long* tokens;
+  long long* out;
+  const float *adaln, *kc, *vc, *emb, *pos;
+  const void *wqkv, *wproj, *wq_c, *wproj_c, *wfc, *wpj, *wlog;
+  const float *bqkv, *bproj, *bq_c, *bproj_c, *ln2_s, *ln2_b, *bfc, *bpj,
+      *lno_s, *lno_b, *blog;
+  float* x;
+  __nv_bfloat16 *q, *k, *v;
+  float* o;
+  unsigned* kmax;   // (R, H, D) bit patterns of max over keys |k|, per layer
+  unsigned long long* stamps;
+  int B, L, n_br, n_layer, kv, sp, s_valid, hidden;
+  int w_bf16, sample, cross_bias;
+  unsigned seed_lo, seed_hi;
+  float guidance;
+  float qscale;     // fl32(1 / sqrt(head dim)), rounded once from double
+  int keys_whole;   // phase S stages a head's keys whole (else streams them)
+};
+#endif  // MK_SERVING
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -270,6 +408,7 @@ __device__ __forceinline__ void split_tf32(float v, unsigned& hi,
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(v - __uint_as_float(hi)) & 0xffffe000u;
 }
+#if MK_SERVING
 
 // Stage rows 0..63, columns col0 .. col0 + NB - 1 (of which the first ncol
 // exist) of a row-major weight (row stride ld, first element at base).
@@ -311,6 +450,56 @@ __device__ __forceinline__ void stage_w(float* Ws, const void* w, int bf16,
     }
   }
 }
+#else   // MK_SERVING
+
+// Stage rows 0..63 (of which the first nrow exist; the rest are zero),
+// columns col0 .. col0 + NB - 1 (of which the first ncol exist) of a
+// row-major weight (row stride ld, first element at base).
+// bf16 weights land as they are, [k][NB + 8] bf16, by 16-byte cp.async
+// (scalar stores where a row is not 16-byte aligned or the tile is ragged):
+// the copy is in flight while the block multiplies the tile before, and
+// sync_staged() publishes it. f32 weights land as f32 in the pair layout.
+template <int NB>
+__device__ __forceinline__ void stage_w(float* Ws, const void* w, int bf16,
+                                        size_t base, int ld, int col0,
+                                        int ncol, int nrow = 64) {
+  if (bf16) {
+    constexpr int ldw = NB + 8;
+    const unsigned short* wb =
+        static_cast<const unsigned short*>(w) + base + col0;
+    unsigned short* W16 = reinterpret_cast<unsigned short*>(Ws);
+    if (ncol == NB && ((ld | col0) & 7) == 0) {
+      for (int u = threadIdx.x; u < 64 * (NB / 8); u += kThreads) {
+        const int n8 = u % (NB / 8), k = u / (NB / 8);
+        if (k < nrow) {
+          const unsigned dst = static_cast<unsigned>(
+              __cvta_generic_to_shared(W16 + k * ldw + n8 * 8));
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                       ::"r"(dst),
+                       "l"(wb + static_cast<size_t>(k) * ld + n8 * 8));
+        } else {
+          *reinterpret_cast<uint4*>(W16 + k * ldw + n8 * 8) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < 64 * NB; e += kThreads) {
+        const int k = e / NB, c = e % NB;
+        W16[k * ldw + c] =
+            c < ncol && k < nrow ? wb[static_cast<size_t>(k) * ld + c] : 0;
+      }
+    }
+  } else {
+    constexpr int ldp = 2 * NB + 8;
+    const float* wf = static_cast<const float*>(w) + base + col0;
+    for (int e = threadIdx.x; e < 64 * NB; e += kThreads) {
+      const int k = e / NB, c = e % NB;
+      Ws[(k >> 1) * ldp + 2 * c + (k & 1)] =
+          c < ncol && k < nrow ? wf[static_cast<size_t>(k) * ld + c] : 0.f;
+    }
+  }
+}
+#endif  // MK_SERVING
 
 // the staged tile (and whatever the block wrote to shared memory) is whole
 __device__ __forceinline__ void sync_staged() {
@@ -336,6 +525,7 @@ __device__ __forceinline__ void ldmatrix_trans(unsigned (&r)[NT],
         : "=r"(r[0]), "=r"(r[1])
         : "r"(addr));
 }
+#if MK_SERVING
 
 // acc[mt][nt][2 hf + j] += sum_k As[32 wm + 16 mt + 8 hf + g][k] *
 //                                 W[k][8 (NT wn + nt) + 2 tig + j]
@@ -396,6 +586,69 @@ __device__ __forceinline__ void mma_tile(const float* As, const float* Ws,
     }
   }
 }
+#else   // MK_SERVING
+
+// acc[mt][nt][2 hf + j] += sum_k As[32 wm + 16 mt + 8 hf + g][k] *
+//                                 W[k][8 (NT wn + nt) + 2 tig + j],
+// k = 0 .. 63 (As: row stride LDA)
+template <int NT, int LDA = kLda>
+__device__ __forceinline__ void mma_tile(const float* As, const float* Ws,
+                                         int w_bf16, float (&acc)[2][NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const float* ap = As + (32 * (warp & 1) + g) * LDA + 2 * tig;
+  // bf16: the lane's row of the 8 x 8 tiles of an 8-deep step
+  const unsigned short* bp16 = reinterpret_cast<const unsigned short*>(Ws) +
+                               (lane & 7) * (32 * NT + 8) +
+                               8 * NT * (warp >> 1) + 8 * ((lane >> 3) % NT);
+  constexpr int ldp = 64 * NT + 8;
+  const float* bp = Ws + tig * ldp + (8 * NT * (warp >> 1) + g) * 2;
+#pragma unroll 2
+  for (int ks = 0; ks < 8; ++ks) {
+    unsigned ah[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float2 v = ld2(ap + (16 * mt + 8 * hf) * LDA + 8 * ks);
+        split_tf32(v.x, ah[mt][hf], al[mt][hf]);
+        split_tf32(v.y, ah[mt][hf + 2], al[mt][hf + 2]);
+      }
+    if (w_bf16) {
+      unsigned r[NT];
+      ldmatrix_trans<NT>(r, bp16 + 8 * ks * (32 * NT + 8));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const unsigned b0 = r[nt] << 16, b1 = r[nt] & 0xffff0000u;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][nt], al[mt][0], al[mt][1], al[mt][2], al[mt][3],
+                   b0, b1);
+          mma_tf32(acc[mt][nt], ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3],
+                   b0, b1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 w = ld2(bp + 4 * ks * ldp + 16 * nt);
+        unsigned b0, b1, l0, l1;
+        split_tf32(w.x, b0, l0);
+        split_tf32(w.y, b1, l1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][nt], ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3],
+                   l0, l1);
+          mma_tf32(acc[mt][nt], al[mt][0], al[mt][1], al[mt][2], al[mt][3],
+                   b0, b1);
+          mma_tf32(acc[mt][nt], ah[mt][0], ah[mt][1], ah[mt][2], ah[mt][3],
+                   b0, b1);
+        }
+      }
+    }
+  }
+}
+#endif  // MK_SERVING
 
 template <int NT>
 __device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
@@ -406,6 +659,7 @@ __device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 }
+#if MK_SERVING
 
 // (x - mean) * rsqrt(var + eps) of a 64-wide row spread over 16 lanes
 __device__ __forceinline__ float4 ln_row(float4 x) {
@@ -571,6 +825,293 @@ __device__ __forceinline__ void mma_qk(float (&d)[4], unsigned a0, unsigned a1,
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a0), "r"(a1), "r"(b0), "f"(0.f));
 }
+#else   // MK_SERVING
+
+// A weight product's tiles: the rows 0 .. krows - 1 of a row-major weight
+// (row stride ld, first element at base), columns col0 .. col0 + ncol - 1
+// (ncol <= 64 or 128), in 64-deep tiles: tile i holds rows 64 i .. 64 i +
+// 63. w == nullptr: no product.
+struct WTile {
+  const void* w;
+  size_t base;
+  int ld, col0, ncol, krows;
+};
+
+template <int NB>
+__device__ __forceinline__ void stage_tile(float* Ws, const WTile& t, int i,
+                                           int wb) {
+  stage_w<NB>(Ws, t.w, wb, t.base + static_cast<size_t>(64 * i) * t.ld,
+              t.ld, t.col0, t.ncol, min(64, t.krows - 64 * i));
+}
+
+// acc += A[:, 0 .. krows) x W over the tiles of t (A's columns 64 i .. 64 i
+// + 63 against tile i). On entry tile 0 is staged in the buffer cur names
+// and published; each tile's successor (the next tile of t, else `next`'s
+// first) is staged into the other buffer while it is multiplied. On return
+// the last tile was multiplied and `next` is in flight: the caller runs its
+// epilogue, then sync_staged() and flips cur.
+#define WB(i) ((i) ? W1 : W0)
+template <int NB, int NT, int LDA = kLda>
+__device__ __forceinline__ void chunk_product(const float* A, float* W0,
+                                              float* W1, int& cur, int wb,
+                                              const WTile& t,
+                                              const WTile& next,
+                                              float (&acc)[2][NT][4]) {
+  const int nk = (t.krows + 63) / 64;
+  for (int i = 0; i < nk; ++i) {
+    if (i + 1 < nk)
+      stage_tile<NB>(WB(cur ^ 1), t, i + 1, wb);
+    else if (next.w != nullptr)
+      stage_tile<NB>(WB(cur ^ 1), next, 0, wb);
+    mma_tile<NT, LDA>(A + 64 * i, WB(cur), wb, acc);
+    if (i + 1 < nk) {
+      sync_staged();
+      cur ^= 1;
+    }
+  }
+}
+
+// whether column 4 tx .. 4 tx + 3 of chunk j of a row lies inside n_embd
+__device__ __forceinline__ bool col_in(int j, int tx) {
+  return 64 * j + 4 * tx < kC;
+}
+
+// (x - mean) * rsqrt(var + eps) of a row spread over 16 lanes, a float4 a
+// lane in each 64-column chunk (the padding columns are zero in and out)
+__device__ __forceinline__ void ln_row(float4 (&x)[kNCH], int tx) {
+  float s = x[0].x + x[0].y + x[0].z + x[0].w;
+#pragma unroll
+  for (int j = 1; j < kNCH; ++j) s += x[j].x + x[j].y + x[j].z + x[j].w;
+  const float mu = sum16(s) / static_cast<float>(kC);
+  float v = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNCH; ++j) {
+    if (col_in(j, tx)) {
+      x[j] = make_float4(x[j].x - mu, x[j].y - mu, x[j].z - mu, x[j].w - mu);
+      const float vj =
+          x[j].x * x[j].x + x[j].y * x[j].y + x[j].z * x[j].z + x[j].w * x[j].w;
+      v = j == 0 ? vj : v + vj;
+    }
+  }
+  const float var = sum16(v) / static_cast<float>(kC);
+  const float r = rsqrtf(var + kLnEps);
+#pragma unroll
+  for (int j = 0; j < kNCH; ++j)
+    x[j] = make_float4(x[j].x * r, x[j].y * r, x[j].z * r, x[j].w * r);
+}
+
+// a lane's float4 of each chunk of an n_embd-wide row (zero in the padding)
+__device__ __forceinline__ void load_row(const float* src, int tx,
+                                         float4 (&v)[kNCH]) {
+#pragma unroll
+  for (int j = 0; j < kNCH; ++j)
+    v[j] = col_in(j, tx) ? ld4(src + 64 * j + tx * 4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// LN(x) * scale + shift into the thread's slots of row `row` of an
+// activation tile (sc, sh: the lane's float4s of the scale and shift rows);
+// plus1: the AdaLN form LN(x) * (1 + scale) + shift
+__device__ __forceinline__ void store_norm(float* As, int row, int tx,
+                                           float4 (&x)[kNCH],
+                                           const float4 (&sc)[kNCH],
+                                           const float4 (&sh)[kNCH],
+                                           bool plus1) {
+  ln_row(x, tx);
+  const float o = plus1 ? 1.f : 0.f;
+#pragma unroll
+  for (int j = 0; j < kNCH; ++j)
+    *reinterpret_cast<float4*>(As + row * kLda + 64 * j + tx * 4) =
+        make_float4(x[j].x * (o + sc[j].x) + sh[j].x,
+                    x[j].y * (o + sc[j].y) + sh[j].y,
+                    x[j].z * (o + sc[j].z) + sh[j].z,
+                    x[j].w * (o + sc[j].w) + sh[j].w);
+}
+
+// rows ty + 16 i of Src (a tile of row stride LDS in the accumulator
+// layout's own row order) through LN into As, all 64 rows (Src may be As)
+template <int LDS>
+__device__ __forceinline__ void norm_tile(float* As, const float* Src, int ty,
+                                          int tx, const float* scale,
+                                          const float* shift, bool plus1) {
+  float4 sc[kNCH], sh[kNCH];
+  load_row(scale, tx, sc);
+  load_row(shift, tx, sh);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4 x[kNCH];
+#pragma unroll
+    for (int j = 0; j < kNCH; ++j)
+      x[j] = ld4(Src + (ty + 16 * i) * LDS + 64 * j + tx * 4);
+    store_norm(As, ty + 16 * i, tx, x, sc, sh, plus1);
+  }
+}
+
+// the thread's accumulator-layout values into a tile (row stride LDT): row
+// 32 wm + 8 i + g, columns 8 (NT wn + nt) + 2 tig, + 1
+template <int LDT, int NT>
+__device__ __forceinline__ void store_acc(float* T, const float (&v)[2][NT][4],
+                                          int wm, int wn, int g, int tig) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(T + (32 * wm + 16 * mt + 8 * hf + g) * LDT +
+                                   8 * (NT * wn + nt) + 2 * tig) =
+            make_float2(v[mt][nt][2 * hf], v[mt][nt][2 * hf + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// phase A: (embedding) -> AdaLN-LN -> QKV -> q/k/v scratch
+// ---------------------------------------------------------------------------
+template <bool PACKED>
+__device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, float* W0,
+                          float* W1) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
+  const int n_items = tile_items<PACKED>(p);
+  const float* ada = p.adaln + static_cast<size_t>(layer) * 4 * kC;
+  float4 sc[kNCH], sh[kNCH];
+  load_row(ada, tx, sc);
+  load_row(ada + kC, tx, sh);
+  const size_t wbase = static_cast<size_t>(layer) * kC * 3 * kC;
+  // output chunk j of section sec (q, k, v) of the QKV product
+  auto qkv = [&](int sec, int j) {
+    return WTile{p.wqkv, wbase, 3 * kC, sec * kC + 64 * j,
+                 min(64, kC - 64 * j), kC};
+  };
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    float4 prev[kNCH];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+      float4 xr[kNCH];
+#pragma unroll
+      for (int j = 0; j < kNCH; ++j) xr[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (tok < p.L) {
+        float* xp = p.x + (static_cast<size_t>(rb) * p.L + tok) * kC;
+        if (layer != 0) {
+          load_row(xp, tx, xr);
+        } else {
+          if (PACKED && (i & 1)) {   // the other branch of the same token
+#pragma unroll
+            for (int j = 0; j < kNCH; ++j) xr[j] = prev[j];
+          } else {
+            const long long t = p.tokens[static_cast<size_t>(b) * p.L + tok];
+            float4 e[kNCH], ps[kNCH];
+            load_row(p.emb + static_cast<size_t>(t) * kC, tx, e);
+            load_row(p.pos + static_cast<size_t>(tok) * kC, tx, ps);
+#pragma unroll
+            for (int j = 0; j < kNCH; ++j) xr[j] = add4(e[j], ps[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < kNCH; ++j)
+            if (col_in(j, tx))
+              *reinterpret_cast<float4*>(xp + 64 * j + tx * 4) = xr[j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNCH; ++j) prev[j] = xr[j];
+      store_norm(As, ty + 16 * i, tx, xr, sc, sh, true);
+    }
+    int cur = 0;
+    stage_tile<64>(W0, qkv(0, 0), 0, p.w_bf16);
+    sync_staged();
+    const RowMap m = map_rows<PACKED>(p, item, wm, g);
+    for (int c = 0; c < 3 * kNCH; ++c) {
+      const int sec = c / kNCH, j = c % kNCH;
+      // the next tile lands in the other buffer during this product
+      const WTile none{nullptr, 0, 0, 0, 0, 0};
+      float acc[2][2][4];
+      zero<2>(acc);
+      chunk_product<64, 2>(As, W0, W1, cur, p.w_bf16, qkv(sec, j),
+                           c + 1 < 3 * kNCH
+                               ? qkv((c + 1) / kNCH, (c + 1) % kNCH)
+                               : none,
+                           acc);
+      __nv_bfloat16* dst = sec == 0 ? p.q : (sec == 1 ? p.k : p.v);
+      const float s = sec == 0 ? p.qscale : 1.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        // a column of this section and its head: a pair (col, col + 1)
+        // never straddles two heads (the head dim is a multiple of 4)
+        const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+        if (col >= kC) continue;
+        const int head = col / kD, dim = col % kD;
+        const float2 bias =
+            ld2(p.bqkv + static_cast<size_t>(layer) * 3 * kC + sec * kC + col);
+        float kmx[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // [mt][column]
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (m.ok[i]) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                (acc[i >> 1][nt][2 * (i & 1)] + bias.x) * s,
+                (acc[i >> 1][nt][2 * (i & 1) + 1] + bias.y) * s);
+            *reinterpret_cast<__nv_bfloat162*>(
+                dst + ((static_cast<size_t>(m.rb[i]) * kH + head) * p.L +
+                       m.tok[i]) * kDS + dim) = v;
+            kmx[i >> 1][0] = fmaxf(kmx[i >> 1][0], fabsf(__low2float(v)));
+            kmx[i >> 1][1] = fmaxf(kmx[i >> 1][1], fabsf(__high2float(v)));
+          }
+        if (sec == 1) {
+          // max over a head's keys of |k| per dim, which bounds a query's
+          // scores from above (phase S): the 16 rows of a warp's tile are
+          // one row-branch; |x| orders like its bit pattern. The table is
+          // (R, H, D): (row-branch, column).
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              float v = kmx[mt][jj];
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1)
+                v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+              if (g == 0 && v > 0.f)
+                atomicMax(p.kmax + static_cast<size_t>(m.rb[2 * mt]) * kC +
+                              col + jj,
+                          __float_as_uint(v));
+            }
+        }
+      }
+      sync_staged();
+      cur ^= 1;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phase S: self-attention on the tensor cores, one warp per 32 queries
+// ---------------------------------------------------------------------------
+// q / sqrt(d), k, v and the probabilities are bf16 values and a product of
+// two of them is exact in f32, so a bf16 mma with f32 accumulation computes
+// what f32 FMAs on the rounded operands would. QK^T is mma.m16n8k16 (16
+// queries x 8 keys x 16 dims) over the head's dims in steps of 16, then
+// one mma.m16n8k8 where 8 dims are left; at head dim 4 that one k8 step
+// alone, its upper half of A zero. Its accumulator layout (keys 2 tig, 2 tig
+// + 1 of rows g and g + 8) is, packed to bf16 pairs, the A layout of
+// mma.m16n8k16, so the probabilities of two key blocks feed P V without a
+// shuffle or an unpack; P V writes the head's dims 8 at a time (at head dim
+// 4, V fills 4 of its 8 output columns).
+__device__ __forceinline__ void mma_qk(float (&d)[4], unsigned a0, unsigned a1,
+                                       unsigned b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "f"(0.f));
+}
+
+__device__ __forceinline__ void mma_k8(float (&c)[4], unsigned a0, unsigned a1,
+                                       unsigned b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+#endif  // MK_SERVING
 
 __device__ __forceinline__ void mma_pv(float (&c)[4], unsigned a0, unsigned a1,
                                        unsigned a2, unsigned a3, unsigned b0,
@@ -631,6 +1172,7 @@ __device__ __forceinline__ float ex2_poly(float x) {
 // load over more queries and measured slower: 15.1 and 14.1 ms against 13.1)
 constexpr int kMT = 2;
 constexpr int kQTile = 8 * 16 * kMT;   // queries a block works on at once
+#if MK_SERVING
 
 // a warp's running softmax state for its kMT tiles of 16 queries: rows g and
 // g + 8 of each tile
@@ -729,6 +1271,171 @@ __device__ __forceinline__ void attn_sweep(const unsigned* ks,
   if (nfull < L && kb0 <= nfull)
     attn_block<SWEEP, true>(ks, vs, nfull, L, g, tig, qa, st);
 }
+#else   // MK_SERVING
+
+// a warp's running softmax state for its kMT tiles of 16 queries: rows g and
+// g + 8 of each tile
+struct AttnState {
+  float ml[kMT][2];          // the shift of the scores x log2(e); sweep 0: max
+  float l[kMT][2];           // row sum, then its reciprocal
+  float acc[kMT][kNTV][4];   // P V
+};
+
+// exp / sum -> bf16 -> P V (SWEEP 2), the row sum (1) or the maximum (0) of
+// one 16-query tile's scores s over 16 keys; kPoly of the thread's 16
+// exponentials go to the polynomial (mt: the tile's index)
+template <int SWEEP>
+__device__ __forceinline__ void attn_scores(float (&s)[2][4], int mt,
+                                            const unsigned (&vf)[kNTV][2],
+                                            AttnState& st) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int kPoly = SWEEP == 1 ? MK_POLY1 : MK_POLY2;
+  if constexpr (SWEEP == 0) {
+#pragma unroll
+    for (int sb = 0; sb < 2; ++sb) {
+      st.ml[mt][0] = fmaxf(st.ml[mt][0], fmaxf(s[sb][0], s[sb][1]));
+      st.ml[mt][1] = fmaxf(st.ml[mt][1], fmaxf(s[sb][2], s[sb][3]));
+    }
+  } else {
+    float e[2][4];
+#pragma unroll
+    for (int sb = 0; sb < 2; ++sb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float x = fmaf(s[sb][c], kLog2e, -st.ml[mt][c >> 1]);
+        // the thread's 16 exponentials of this block in a fixed order, of
+        // which kPoly, evenly spread, go to the FMA pipe
+        const bool poly =
+            ((mt & 1) * 8 + sb * 4 + c) * kPoly % 16 + kPoly > 15;
+        e[sb][c] = (MK_ABLATE & 4) ? x + 1.f
+                   : poly          ? ex2_poly<SWEEP == 1 ? 3 : 6>(x)
+                                   : ex2(x);
+      }
+    if constexpr (SWEEP == 1) {
+      st.l[mt][0] += (e[0][0] + e[0][1]) + (e[1][0] + e[1][1]);
+      st.l[mt][1] += (e[0][2] + e[0][3]) + (e[1][2] + e[1][3]);
+    } else {
+      unsigned a[4];
+#pragma unroll
+      for (int sb = 0; sb < 2; ++sb)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          // exp / sum -> bf16, two keys a register
+          const __nv_bfloat162 pk = __floats2bfloat162_rn(
+              e[sb][2 * hf] * st.l[mt][hf], e[sb][2 * hf + 1] * st.l[mt][hf]);
+          a[2 * sb + hf] = *reinterpret_cast<const unsigned*>(&pk);
+        }
+#pragma unroll
+      for (int nt = 0; nt < kNTV; ++nt)
+        mma_pv(st.acc[mt][nt], a[0], a[1], a[2], a[3], vf[nt][0], vf[nt][1]);
+    }
+  }
+}
+
+// One block of 16 keys for the warp's 16 kMT queries. SWEEP 0: row maximum
+// (into ml); 1: row sum of exp(s - shift); 2: exp(s - shift) / sum -> bf16 ->
+// P V. MASKED: the last block, of which only the keys below n exist.
+// Head dim 4: ks [key][4] bf16, vs [key / 2][dim] pairs (V[key][dim],
+// V[key + 1][dim]). Wider heads: ks and vs [key][kRowS] bf16, V's fragments
+// by ldmatrix.trans. qa: the queries' A registers (load_queries).
+template <int SWEEP, bool MASKED>
+__device__ __forceinline__ void attn_block(const unsigned* ks,
+                                           const unsigned* vs, int kb, int n,
+                                           int g, int tig,
+                                           const unsigned (&qa)[kMT][kQA],
+                                           AttnState& st) {
+  constexpr int kQB = 2 * kQ16 + kQ8;   // B registers of 8 keys
+  unsigned kf[2][kQB];
+  unsigned vf[kNTV][2];
+#pragma unroll
+  for (int sb = 0; sb < 2; ++sb) {
+    if constexpr (kD == 4) {
+      kf[sb][0] = ks[(kb + 8 * sb + g) * 2 + (tig & 1)];
+    } else {
+      const unsigned* kr = ks + (kb + 8 * sb + g) * (kRowS / 2);
+#pragma unroll
+      for (int q = 0; q < kQ16; ++q) {
+        kf[sb][2 * q] = kr[8 * q + tig];
+        kf[sb][2 * q + 1] = kr[8 * q + 4 + tig];
+      }
+      if (kQ8) kf[sb][2 * kQ16] = kr[8 * kQ16 + tig];
+    }
+  }
+  if constexpr (SWEEP == 2) {
+    if constexpr (kD == 4) {
+      vf[0][0] = vf[0][1] = 0u;
+      if (g < 4) {
+        vf[0][0] = vs[((kb >> 1) + tig) * 4 + g];
+        vf[0][1] = vs[((kb >> 1) + 4 + tig) * 4 + g];
+      }
+    } else {
+      // keys kb + (lane & 15), dims 8 (nt + (lane >> 4)): matrices (keys
+      // 0-7 | 8-15) x (this | the next 8 dims), transposed
+      const int lane = threadIdx.x & 31;
+      const unsigned short* vr = reinterpret_cast<const unsigned short*>(vs) +
+                                 (kb + (lane & 15)) * kRowS + 8 * (lane >> 4);
+#pragma unroll
+      for (int nt = 0; nt < kNTV; nt += 2) {
+        const unsigned addr =
+            static_cast<unsigned>(__cvta_generic_to_shared(vr + 8 * nt));
+        if (nt + 1 < kNTV)
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+              "{%0, %1, %2, %3}, [%4];\n"
+              : "=r"(vf[nt][0]), "=r"(vf[nt][1]), "=r"(vf[nt + 1][0]),
+                "=r"(vf[nt + 1][1])
+              : "r"(addr));
+        else
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, "
+              "[%2];\n"
+              : "=r"(vf[nt][0]), "=r"(vf[nt][1])
+              : "r"(addr));
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    float s[2][4];
+#pragma unroll
+    for (int sb = 0; sb < 2; ++sb) {
+      if constexpr (kQ16 == 0) {
+        mma_qk(s[sb], qa[mt][0], qa[mt][1], kf[sb][0]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[sb][c] = 0.f;
+#pragma unroll
+        for (int q = 0; q < kQ16; ++q)
+          mma_pv(s[sb], qa[mt][4 * q], qa[mt][4 * q + 1], qa[mt][4 * q + 2],
+                 qa[mt][4 * q + 3], kf[sb][2 * q], kf[sb][2 * q + 1]);
+        if (kQ8)
+          mma_k8(s[sb], qa[mt][4 * kQ16], qa[mt][4 * kQ16 + 1],
+                 kf[sb][2 * kQ16]);
+      }
+      if (MASKED) {
+        if (kb + 8 * sb + 2 * tig >= n) s[sb][0] = s[sb][2] = -INFINITY;
+        if (kb + 8 * sb + 2 * tig + 1 >= n) s[sb][1] = s[sb][3] = -INFINITY;
+      }
+    }
+    attn_scores<SWEEP>(s, mt, vf, st);
+  }
+}
+
+// One sweep over the keys kb0 .. L - 1 of the staged keys.
+template <int SWEEP>
+__device__ __forceinline__ void attn_sweep(const unsigned* ks,
+                                           const unsigned* vs, int kb0, int L,
+                                           int g, int tig,
+                                           const unsigned (&qa)[kMT][kQA],
+                                           AttnState& st) {
+  const int nfull = L & ~15;
+#pragma unroll 2
+  for (int kb = kb0; kb < nfull; kb += 16)
+    attn_block<SWEEP, false>(ks, vs, kb, L, g, tig, qa, st);
+  if (nfull < L && kb0 <= nfull)
+    attn_block<SWEEP, true>(ks, vs, nfull, L, g, tig, qa, st);
+}
+#endif  // MK_SERVING
 
 // The softmax shift of the warp's queries, x log2(e), into st.ml. Softmax
 // does not change under a shift of the scores, so the exact row maximum (a
@@ -741,6 +1448,7 @@ __device__ __forceinline__ void attn_sweep(const unsigned* ks,
 // would keep falls under f32's range. If any query of the warp fails that
 // test, the warp sweeps all keys for the exact maxima.
 constexpr float kShiftSlack = 40.f;
+#if MK_SERVING
 
 __device__ __forceinline__ void softmax_shift(const unsigned* ks,
                                               const unsigned* vs, int L, int g,
@@ -1125,6 +1833,717 @@ __device__ void phase_mlp(const Params& p, int layer, float* As, float* Hs,
     }
   }
 }
+#else   // MK_SERVING
+
+// The bound of each of the warp's queries (into st.ml, x log2(e)), and
+// the maximum of the first 16 keys' scores (st.ml before that): whether the
+// bound may serve for every query of the warp. km: max |k| of the dims the
+// thread holds in qa (zero past the head dim).
+__device__ __forceinline__ bool shift_by_bound(const unsigned* ks,
+                                               const unsigned* vs, int L,
+                                               int g, int tig,
+                                               const float (&km)[kQA],
+                                               const unsigned (&qa)[kMT][kQA],
+                                               AttnState& st) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  float bound[kMT][2];
+  bool safe = true;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      // the thread holds q's dims 2 tig, 2 tig + 1 (+ 8, + 16 ...) as bf16
+      // pairs: register 4 q + hf (+ 2) of each 16-dim step, 4 kQ16 + hf of
+      // the 8-dim one
+      float b = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2 * kQ16 + kQ8; ++r) {
+        const int reg = r < 2 * kQ16 ? 4 * (r >> 1) + 2 * (r & 1) + hf
+                                     : 4 * kQ16 + hf;
+        const int kmi = r < 2 * kQ16 ? 2 * r : 4 * kQ16;
+        const float q0 = __uint_as_float(qa[mt][reg] << 16);
+        const float q1 = __uint_as_float(qa[mt][reg] & 0xffff0000u);
+        const float t = fabsf(q0) * km[kmi] + fabsf(q1) * km[kmi + 1];
+        b = r == 0 ? t : b + t;
+      }
+      bound[mt][hf] = quad_sum(b);
+      st.ml[mt][hf] = -INFINITY;
+    }
+  if (L >= 16)
+    attn_block<0, false>(ks, vs, 0, L, g, tig, qa, st);
+  else
+    attn_block<0, true>(ks, vs, 0, L, g, tig, qa, st);
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float lower = quad_max(st.ml[mt][hf]);   // every lane shuffles
+      safe = safe && bound[mt][hf] - lower <= kShiftSlack;
+      st.ml[mt][hf] = bound[mt][hf] * kLog2e;
+    }
+  return __all_sync(0xffffffffu, safe) && !(MK_ABLATE & 8);
+}
+
+// the exact row maxima from st.ml's running maxima, x log2(e)
+__device__ __forceinline__ void shift_by_max(AttnState& st) {
+  constexpr float kLog2e = 1.4426950408889634f;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      st.ml[mt][hf] = quad_max(st.ml[mt][hf]) * kLog2e;
+}
+
+__device__ __forceinline__ void start_max(AttnState& st) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) st.ml[mt][0] = st.ml[mt][1] = -INFINITY;
+}
+
+// the warp's queries from row q0 on, rows q0 + 16 mt + 8 hf + g: per
+// 16-dim step, registers (g, dims 2 tig, + 1), (g + 8, ...), (g, dims 2 tig
+// + 8, + 9), (g + 8, ...); then the 8-dim step's (g, dims 2 tig, + 1), (g +
+// 8, ...) (at head dim 4 the dims past 3 are zero). qg: the head's (L, DS)
+// rows as bf16 pairs.
+__device__ __forceinline__ void load_queries(const unsigned* qg, int q0, int L,
+                                             int g, int tig,
+                                             unsigned (&qa)[kMT][kQA]) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + 16 * mt + g + 8 * hf;
+      const unsigned* qr = qg + static_cast<size_t>(row) * (kDS / 2);
+      const bool ok = row < L;
+#pragma unroll
+      for (int q = 0; q < kQ16; ++q) {
+        qa[mt][4 * q + hf] = ok ? qr[8 * q + tig] : 0u;
+        qa[mt][4 * q + 2 + hf] = ok ? qr[8 * q + 4 + tig] : 0u;
+      }
+      if (kQ8)
+        qa[mt][4 * kQ16 + hf] =
+            (ok && 16 * kQ16 + 2 * tig < kDS) ? qr[8 * kQ16 + tig] : 0u;
+    }
+}
+
+// max |k| over the head's keys of the dims the thread holds in qa
+__device__ __forceinline__ void load_kmax(const Params& p, int rh, int tig,
+                                          float (&km)[kQA]) {
+  const unsigned* kt = p.kmax + static_cast<size_t>(rh) * kD;
+#pragma unroll
+  for (int r = 0; r < 2 * kQ16 + kQ8; ++r) {
+    const int dim = r < 2 * kQ16 ? 16 * (r >> 1) + 8 * (r & 1) + 2 * tig
+                                 : 16 * kQ16 + 2 * tig;
+    const int kmi = r < 2 * kQ16 ? 2 * r : 4 * kQ16;
+    km[kmi] = dim < kD ? __uint_as_float(__ldcg(kt + dim)) : 0.f;
+    km[kmi + 1] = dim + 1 < kD ? __uint_as_float(__ldcg(kt + dim + 1)) : 0.f;
+  }
+}
+
+// P V of the warp's queries into the attention output, rows q0 + 16 mt + g
+// (+ 8), the head's dims 8 nt + 2 tig, + 1
+__device__ __forceinline__ void store_attention(const Params& p, int r, int h,
+                                                int q0, int g, int tig,
+                                                const AttnState& st) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + 16 * mt + g + 8 * hf;
+      if (row >= p.L) continue;
+#pragma unroll
+      for (int nt = 0; nt < kNTV; ++nt) {
+        const int dim = 8 * nt + 2 * tig;
+        if (dim < kD)
+          *reinterpret_cast<float2*>(
+              p.o + (static_cast<size_t>(r) * p.L + row) * kC + h * kD +
+              dim) = make_float2(st.acc[mt][nt][2 * hf],
+                                 st.acc[mt][nt][2 * hf + 1]);
+      }
+    }
+}
+
+__device__ __forceinline__ void clear_sums(AttnState& st) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    st.l[mt][0] = st.l[mt][1] = (MK_ABLATE & 2) ? 1.f : 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kNTV; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st.acc[mt][nt][c] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void invert_sums(AttnState& st) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) st.l[mt][hf] = 1.f / quad_sum(st.l[mt][hf]);
+}
+
+// a head's nq query tiles are split over n_split items where that shortens
+// the longest block's share (rounds of items x tiles an item)
+__device__ __forceinline__ int query_splits(const Params& p, int nq) {
+  const int n_heads = p.B * p.n_br * kH;
+  const int grid = static_cast<int>(gridDim.x);
+  int n_split = 1, best = ((n_heads + grid - 1) / grid) * nq;
+  for (int sp = 2; sp <= nq; ++sp) {
+    const int span = ((n_heads * sp + grid - 1) / grid) * ((nq + sp - 1) / sp);
+    if (span < best) {
+      best = span;
+      n_split = sp;
+    }
+  }
+  return n_split;
+}
+
+// stage keys k0 .. k0 + n - 1 (zero past L) of a head's K and V rows (bf16,
+// DS wide in device memory) as rows of kRowS, by 16-byte cp.async (wider
+// heads)
+__device__ __forceinline__ void stage_keys(unsigned short* ks,
+                                           unsigned short* vs,
+                                           const __nv_bfloat16* kg,
+                                           const __nv_bfloat16* vg, int k0,
+                                           int n, int L) {
+  constexpr int kU = kDS >= 8 ? kDS / 8 : 1;   // 16-byte units of a row
+  for (int u = threadIdx.x; u < 2 * n * kU; u += kThreads) {
+    const int which = u / (n * kU), rem = u % (n * kU);
+    const int j = rem / kU, c = rem % kU;
+    const bool in = k0 + j < L;
+    const __nv_bfloat16* src = (which ? vg : kg) +
+        static_cast<size_t>(in ? k0 + j : 0) * kDS + 8 * c;
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+        (which ? vs : ks) + j * kRowS + 8 * c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(in ? 16 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// A work item is one (row-branch, head), or a part of its queries. Its keys
+// and values are staged once as they are, bf16 (head dim 4: 16 bytes a key,
+// K as [key][4], V transposed to pairs of keys; wider heads: rows of kRowS),
+// where the whole head fits the block's shared memory; the block then walks
+// the head's queries kQTile at a time, a warp per 16 kMT, without a
+// block-wide barrier. Per query the shift (shift_by_bound), then two sweeps
+// over the keys: the row sum, then exp / sum -> bf16 -> P V. Two, because
+// the probabilities are rounded to bf16 after the division by their row sum
+// (an online rescale would round them elsewhere). Where a head does not fit
+// (wider heads over long grids), phase_attention_streamed.
+__device__ MK_PHASE_S void phase_attention_whole(const Params& p, unsigned char* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int L16 = (p.L + 15) & ~15;
+  const unsigned* ksw = reinterpret_cast<const unsigned*>(smem);
+  unsigned char* vsp = smem + static_cast<size_t>(L16) * 2 * kRowS;
+  const unsigned* vsw = reinterpret_cast<const unsigned*>(vsp);
+  const int nq = (p.L + kQTile - 1) / kQTile;
+  const int n_split = query_splits(p, nq);
+  const int n_items = p.B * p.n_br * kH * n_split;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int rh = item / n_split, part = item % n_split;
+    const int qt0 = part * nq / n_split, qt1 = (part + 1) * nq / n_split;
+    const int h = rh % kH;
+    const int r = rh / kH;
+    const size_t base = static_cast<size_t>(rh) * p.L;
+    if constexpr (kD == 4) {
+      uint2* ks = reinterpret_cast<uint2*>(smem);
+      uint4* vs = reinterpret_cast<uint4*>(vsp);
+      const uint2* kg = reinterpret_cast<const uint2*>(p.k) + base;
+      const uint2* vg = reinterpret_cast<const uint2*>(p.v) + base;
+      const uint2 z2 = make_uint2(0u, 0u);
+      for (int j = threadIdx.x; j < L16; j += kThreads)
+        ks[j] = j < p.L ? kg[j] : z2;
+      for (int j = threadIdx.x; j < L16 / 2; j += kThreads) {
+        const uint2 a = 2 * j < p.L ? vg[2 * j] : z2;
+        const uint2 b = 2 * j + 1 < p.L ? vg[2 * j + 1] : z2;
+        vs[j] = make_uint4(__byte_perm(a.x, b.x, 0x5410),
+                           __byte_perm(a.x, b.x, 0x7632),
+                           __byte_perm(a.y, b.y, 0x5410),
+                           __byte_perm(a.y, b.y, 0x7632));
+      }
+    } else {
+      stage_keys(reinterpret_cast<unsigned short*>(smem),
+                 reinterpret_cast<unsigned short*>(vsp), p.k + base * kDS,
+                 p.v + base * kDS, 0, L16, p.L);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    float km[kQA];
+    load_kmax(p, rh, tig, km);
+    const unsigned* qg =
+        reinterpret_cast<const unsigned*>(p.q) + base * (kDS / 2);
+    __syncthreads();
+    // (a warp whose queries lie past the end has nothing to do: no barrier
+    // is met before the item ends)
+    for (int qt = qt0; qt < qt1; ++qt) {
+      const int q0 = qt * kQTile + warp * 16 * kMT;
+      if (q0 >= p.L) break;
+      unsigned qa[kMT][kQA];
+      AttnState st;
+      load_queries(qg, q0, p.L, g, tig, qa);
+      if (MK_ABLATE & 1) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) st.ml[mt][0] = st.ml[mt][1] = 0.f;
+      } else if (!shift_by_bound(ksw, vsw, p.L, g, tig, km, qa, st)) {
+        start_max(st);
+        attn_sweep<0>(ksw, vsw, 0, p.L, g, tig, qa, st);
+        shift_by_max(st);
+      }
+      clear_sums(st);
+      if (!(MK_ABLATE & 2)) attn_sweep<1>(ksw, vsw, 0, p.L, g, tig, qa, st);
+      invert_sums(st);
+      attn_sweep<2>(ksw, vsw, 0, p.L, g, tig, qa, st);
+      store_attention(p, r, h, q0, g, tig, st);
+    }
+    __syncthreads();   // every warp has read the staged keys and values
+  }
+}
+
+// One sweep over all keys of a head that does not fit shared memory: tiles
+// of kSKT keys through two buffers (the next tile's copy in flight while
+// this one is read), the whole block in step. active: whether this warp
+// computes (every warp meets the barriers).
+template <int SWEEP>
+__device__ __forceinline__ void stream_sweep(const Params& p,
+                                             unsigned char* smem,
+                                             const __nv_bfloat16* kg,
+                                             const __nv_bfloat16* vg,
+                                             bool active, int g, int tig,
+                                             const unsigned (&qa)[kMT][kQA],
+                                             AttnState& st) {
+  constexpr int kTile = kSKT * kRowS;   // bf16 of a K (or V) tile
+  unsigned short* buf = reinterpret_cast<unsigned short*>(smem);
+  const int nt = (p.L + kSKT - 1) / kSKT;
+  stage_keys(buf, buf + 2 * kTile, kg, vg, 0, kSKT, p.L);
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) {
+      const int o = ((t + 1) & 1) * kTile;
+      stage_keys(buf + o, buf + 2 * kTile + o, kg, vg, (t + 1) * kSKT, kSKT,
+                 p.L);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (active) {
+      const int o = (t & 1) * kTile;
+      attn_sweep<SWEEP>(reinterpret_cast<const unsigned*>(buf + o),
+                        reinterpret_cast<const unsigned*>(buf + 2 * kTile + o),
+                        0, min(kSKT, p.L - t * kSKT), g, tig, qa, st);
+    }
+    __syncthreads();   // the tile is read: its buffer may be refilled
+  }
+}
+
+// Phase S where a head's keys and values do not fit a block's shared
+// memory: per query tile, the block streams the keys once for the shift's
+// check (the first tile), once more for the exact maxima if a warp needs
+// them, then for the row sum and for P V.
+__device__ MK_PHASE_S void phase_attention_streamed(
+    const Params& p, unsigned char* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int nq = (p.L + kQTile - 1) / kQTile;
+  const int n_split = query_splits(p, nq);
+  const int n_items = p.B * p.n_br * kH * n_split;
+  unsigned short* buf = reinterpret_cast<unsigned short*>(smem);
+  const unsigned* ksw = reinterpret_cast<const unsigned*>(buf);
+  const unsigned* vsw =
+      reinterpret_cast<const unsigned*>(buf + 2 * kSKT * kRowS);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int rh = item / n_split, part = item % n_split;
+    const int qt0 = part * nq / n_split, qt1 = (part + 1) * nq / n_split;
+    const int h = rh % kH;
+    const int r = rh / kH;
+    const size_t base = static_cast<size_t>(rh) * p.L;
+    const __nv_bfloat16* kg = p.k + base * kDS;
+    const __nv_bfloat16* vg = p.v + base * kDS;
+    const unsigned* qg =
+        reinterpret_cast<const unsigned*>(p.q) + base * (kDS / 2);
+    float km[kQA];
+    load_kmax(p, rh, tig, km);
+    for (int qt = qt0; qt < qt1; ++qt) {
+      const int q0 = qt * kQTile + warp * 16 * kMT;
+      unsigned qa[kMT][kQA];
+      AttnState st;
+      load_queries(qg, q0, p.L, g, tig, qa);
+      // the first tile, for the shift's check against the first 16 keys
+      stage_keys(buf, buf + 2 * kSKT * kRowS, kg, vg, 0, kSKT, p.L);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      bool by_bound = true;
+      if (MK_ABLATE & 1) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) st.ml[mt][0] = st.ml[mt][1] = 0.f;
+      } else {
+        by_bound = shift_by_bound(ksw, vsw, min(p.L, kSKT), g, tig, km, qa,
+                                  st);
+      }
+      // (a barrier: the first tile is read)
+      if (__syncthreads_or(!by_bound)) {
+        if (!by_bound) start_max(st);
+        stream_sweep<0>(p, smem, kg, vg, !by_bound, g, tig, qa, st);
+        if (!by_bound) shift_by_max(st);
+      }
+      clear_sums(st);
+      if (!(MK_ABLATE & 2))
+        stream_sweep<1>(p, smem, kg, vg, true, g, tig, qa, st);
+      invert_sums(st);
+      stream_sweep<2>(p, smem, kg, vg, true, g, tig, qa, st);
+      store_attention(p, r, h, q0, g, tig, st);
+    }
+  }
+}
+
+__device__ __forceinline__ void phase_self_attention(const Params& p,
+                                                     unsigned char* smem) {
+  if (kD == 4 || p.keys_whole)
+    phase_attention_whole(p, smem);
+  else
+    phase_attention_streamed(p, smem);
+}
+
+// q . bf16(k) over a head's dims, summed dim after dim
+__device__ __forceinline__ float cross_score(const float (&q)[kD],
+                                             const float* k) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < kD; d += 4) {
+    const float4 kv = __ldg(reinterpret_cast<const float4*>(k + d));
+    s = d == 0 ? q[0] * bf16r(kv.x) : fmaf(q[d], bf16r(kv.x), s);
+    s = fmaf(q[d + 1], bf16r(kv.y), s);
+    s = fmaf(q[d + 2], bf16r(kv.z), s);
+    s = fmaf(q[d + 3], bf16r(kv.w), s);
+  }
+  return s;
+}
+
+// cross-attention of one (row, head) over the first s_valid of the
+// condition's keys, read from device memory: q, the head's dims (rounded
+// already); kc, vc: the (row-branch, layer)'s first key and value at this
+// head's columns (row stride n_embd); o: the head's dims of the output
+__device__ __forceinline__ void cross_attend(const Params& p,
+                                             const float* kc,
+                                             const float* vc,
+                                             const float* q, float* o) {
+  float qv[kD];
+#pragma unroll
+  for (int d = 0; d < kD; d += 4) {
+    const float4 v = ld4(q + d);
+    qv[d] = v.x;
+    qv[d + 1] = v.y;
+    qv[d + 2] = v.z;
+    qv[d + 3] = v.w;
+  }
+  float mx = -INFINITY;
+  for (int j = 0; j < p.s_valid; ++j)
+    mx = fmaxf(mx, cross_score(qv, kc + j * kC));
+  float l = 0.f;
+  for (int j = 0; j < p.s_valid; ++j)
+    l += expf(cross_score(qv, kc + j * kC) - mx);
+  float ov[kD];
+#pragma unroll
+  for (int d = 0; d < kD; ++d) ov[d] = 0.f;
+  for (int j = 0; j < p.s_valid; ++j) {
+    const float pj = bf16r(expf(cross_score(qv, kc + j * kC) - mx) / l);
+#pragma unroll
+    for (int d = 0; d < kD; d += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(vc + j * kC + d));
+      ov[d] = fmaf(pj, bf16r(v.x), ov[d]);
+      ov[d + 1] = fmaf(pj, bf16r(v.y), ov[d + 1]);
+      ov[d + 2] = fmaf(pj, bf16r(v.z), ov[d + 2]);
+      ov[d + 3] = fmaf(pj, bf16r(v.w), ov[d + 3]);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < kD; d += 4)
+    *reinterpret_cast<float4*>(o + d) =
+        make_float4(ov[d], ov[d + 1], ov[d + 2], ov[d + 3]);
+}
+
+// ---------------------------------------------------------------------------
+// phase B: proj + residual -> cross -> LN -> MLP + residual
+// ---------------------------------------------------------------------------
+// The weight tiles of an item come in a fixed order and alternate between
+// two buffers: each tile's product stages its successor before its own mma,
+// and one block-wide barrier a tile publishes both that successor and the
+// product's epilogue. The residual stream stays in registers, in the
+// accumulator layout (past n_embd 256 it waits in the hidden state's
+// scratch during the MLP, whose output chunks take the registers); it passes
+// through shared memory only to be normalised row by row: through Hs where
+// one chunk is the whole row, else through As in place.
+constexpr bool kResidualOut = kNCH > 4;
+
+// output chunk j of layer's (C, C) weight w
+__device__ __forceinline__ WTile layer_tile(const void* w, int layer, int j) {
+  return WTile{w, static_cast<size_t>(layer) * kC * kC, kC, 64 * j,
+               min(64, kC - 64 * j), kC};
+}
+
+// xr += As x w + bias (+ the cross-attention bias) over the output chunks
+// of layer's (C, C) weight w, then xr -> Xs, the tile LN reads; next: the
+// tile after the product
+template <bool PACKED>
+__device__ __forceinline__ void residual_product(
+    const Params& p, int layer, const RowMap& m, const float* As, float* Xs,
+    float* W0, float* W1, int& cur, const void* w, const float* bias,
+    bool cross_bias, const WTile& next, float (&xr)[kNCH][2][2][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
+  const size_t lb = static_cast<size_t>(layer) * kC;
+#pragma unroll
+  for (int j = 0; j < kNCH; ++j) {
+    float acc[2][2][4];
+    zero<2>(acc);
+    chunk_product<64, 2>(As, W0, W1, cur, p.w_bf16, layer_tile(w, layer, j),
+                         j + 1 < kNCH ? layer_tile(w, layer, j + 1) : next,
+                         acc);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+      if (col >= kC) continue;
+      const float2 bv = ld2(bias + lb + col);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float2 add = bv;
+        if (cross_bias) {
+          const float2 cb = ld2(p.kc + (static_cast<size_t>(m.rb[i]) *
+                                        p.n_layer + layer) * p.sp * kC + col);
+          add.x += cb.x;
+          add.y += cb.y;
+        }
+        xr[j][i >> 1][nt][2 * (i & 1)] += acc[i >> 1][nt][2 * (i & 1)] + add.x;
+        xr[j][i >> 1][nt][2 * (i & 1) + 1] +=
+            acc[i >> 1][nt][2 * (i & 1) + 1] + add.y;
+      }
+    }
+    if (j + 1 < kNCH) {
+      sync_staged();
+      cur ^= 1;
+    }
+  }
+  if (kNCH > 1) __syncthreads();   // every warp has read As
+#pragma unroll
+  for (int j = 0; j < kNCH; ++j)
+    store_acc<kLda, 2>(Xs + 64 * j, xr[j], wm, wn, g, tig);
+  sync_staged();
+  cur ^= 1;
+}
+
+template <bool PACKED>
+__device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As, float* Hs,
+                          float* W0, float* W1) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
+  const int n_items = tile_items<PACKED>(p);
+  const int wb = p.w_bf16;
+  const size_t lb = static_cast<size_t>(layer) * kC;
+  const size_t lfc = static_cast<size_t>(layer) * kC * p.hidden;
+  const int nhc = (p.hidden + 63) / 64;
+  float* Xs = kNCH == 1 ? Hs : As;
+  const WTile none{nullptr, 0, 0, 0, 0, 0};
+  // output chunk j of a (C, C) weight; MLP chunk hc of wfc; its rows of wpj
+  auto cw = [&](const void* w, int j) { return layer_tile(w, layer, j); };
+  auto fc = [&](int hc) {
+    return WTile{p.wfc, lfc, p.hidden, 64 * hc, min(64, p.hidden - 64 * hc),
+                 kC};
+  };
+  auto pj = [&](int hc, int j) {
+    return WTile{p.wpj, lfc + static_cast<size_t>(64 * hc) * kC, kC, 64 * j,
+                 min(64, kC - 64 * j), min(64, p.hidden - 64 * hc)};
+  };
+  // phase S has read this layer's key maxima: clear them for the next
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kC;
+       i += gridDim.x * kThreads)
+    p.kmax[i] = 0u;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const RowMap m = map_rows<PACKED>(p, item, wm, g);
+    int cur = 0;   // the buffer that holds the next product's weights
+    float xr[kNCH][2][2][4], acc[2][2][4];
+    // the residual stream (accumulator layout); the attention output -> As
+#pragma unroll
+    for (int j = 0; j < kNCH; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+          float2 v = make_float2(0.f, 0.f);
+          if (m.ok[i] && col < kC)
+            v = ld2(p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) *
+                              kC + col);
+          xr[j][i >> 1][nt][2 * (i & 1)] = v.x;
+          xr[j][i >> 1][nt][2 * (i & 1) + 1] = v.y;
+        }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+      float4 o[kNCH];
+      if (tok < p.L) {
+        load_row(p.o + (static_cast<size_t>(rb) * p.L + tok) * kC, tx, o);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNCH; ++j) o[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kNCH; ++j)
+        *reinterpret_cast<float4*>(As + (ty + 16 * i) * kLda + 64 * j +
+                                   tx * 4) = o[j];
+    }
+    stage_tile<64>(WB(cur), cw(p.wproj, 0), 0, wb);
+    sync_staged();
+    // proj + residual (+ the cross-attention bias)
+    residual_product<PACKED>(p, layer, m, As, Xs, W0, W1, cur, p.wproj,
+                             p.bproj, p.cross_bias,
+                             p.cross_bias ? fc(0) : cw(p.wq_c, 0), xr);
+    if (!p.cross_bias) {
+      const float* ada =
+          p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
+      norm_tile<kLda>(As, Xs, ty, tx, ada, ada + kC, true);
+      sync_staged();
+      // the cross-attention's queries, through bf16: into Hs where one
+      // chunk is the whole row, else into this item's rows of the attention
+      // output in device memory (read already)
+      for (int j = 0; j < kNCH; ++j) {
+        zero<2>(acc);
+        chunk_product<64, 2>(As, W0, W1, cur, wb, cw(p.wq_c, j),
+                             j + 1 < kNCH ? cw(p.wq_c, j + 1)
+                                          : cw(p.wproj_c, 0),
+                             acc);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+          const float2 bq =
+              col < kC ? ld2(p.bq_c + lb + col) : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              acc[mt][nt][2 * hf] =
+                  bf16r((acc[mt][nt][2 * hf] + bq.x) * p.qscale);
+              acc[mt][nt][2 * hf + 1] =
+                  bf16r((acc[mt][nt][2 * hf + 1] + bq.y) * p.qscale);
+            }
+          if (kNCH > 1 && col < kC) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (m.ok[i])
+                *reinterpret_cast<float2*>(
+                    p.o + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) *
+                              kC + col) =
+                    make_float2(acc[i >> 1][nt][2 * (i & 1)],
+                                acc[i >> 1][nt][2 * (i & 1) + 1]);
+          }
+        }
+        if (kNCH == 1) store_acc<kLda, 2>(Hs, acc, wm, wn, g, tig);
+        sync_staged();
+        cur ^= 1;
+      }
+      // a (row, head) a thread: the queries -> attention -> As
+      for (int it = threadIdx.x; it < kRows * kH; it += kThreads) {
+        const int r = it / kH, h = it % kH;
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, r, b, rb, tok);
+        float* o = As + r * kLda + h * kD;
+        if (tok < p.L) {
+          const float* q = kNCH == 1
+              ? Hs + r * kLda + h * kD
+              : p.o + (static_cast<size_t>(rb) * p.L + tok) * kC + h * kD;
+          const size_t off = (static_cast<size_t>(rb) * p.n_layer + layer) *
+                                 p.sp * kC + h * kD;
+          cross_attend(p, p.kc + off, p.vc + off, q, o);
+        } else {
+#pragma unroll
+          for (int d = 0; d < kD; d += 4)
+            *reinterpret_cast<float4*>(o + d) =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      sync_staged();
+      residual_product<PACKED>(p, layer, m, As, Xs, W0, W1, cur, p.wproj_c,
+                               p.bproj_c, false, fc(0), xr);
+    }
+    // LN -> MLP, one chunk of 64 hidden units at a time; WB(cur) holds wfc's
+    // first chunk
+    norm_tile<kLda>(As, Xs, ty, tx, p.ln2_s + lb, p.ln2_b + lb, false);
+    sync_staged();
+    if (kResidualOut) {
+#pragma unroll
+      for (int j = 0; j < kNCH; ++j)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (m.ok[i] && col < kC)
+              *reinterpret_cast<float2*>(
+                  p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) *
+                            kC + col) =
+                  make_float2(xr[j][i >> 1][nt][2 * (i & 1)],
+                              xr[j][i >> 1][nt][2 * (i & 1) + 1]);
+        }
+    }
+    float out[kNCH][2][2][4];
+#pragma unroll
+    for (int j = 0; j < kNCH; ++j) zero<2>(out[j]);
+    for (int hc = 0; hc < nhc; ++hc) {
+      zero<2>(acc);
+      chunk_product<64, 2>(As, W0, W1, cur, wb, fc(hc), pj(hc, 0), acc);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = 64 * hc + 8 * (2 * wn + nt) + 2 * tig;
+        const float2 bias =
+            col < p.hidden
+                ? ld2(p.bfc + static_cast<size_t>(layer) * p.hidden + col)
+                : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {   // GELU2: h * sigmoid(1.702 h)
+            const float hv = acc[mt][nt][e] + ((e & 1) ? bias.y : bias.x);
+            acc[mt][nt][e] = hv / (1.f + expf(-1.702f * hv));
+          }
+      }
+      store_acc<kLdh, 2>(Hs, acc, wm, wn, g, tig);
+      sync_staged();
+      cur ^= 1;
+#pragma unroll
+      for (int j = 0; j < kNCH; ++j) {
+        chunk_product<64, 2, kLdh>(Hs, W0, W1, cur, wb, pj(hc, j),
+                                   j + 1 < kNCH  ? pj(hc, j + 1)
+                                   : hc + 1 < nhc ? fc(hc + 1)
+                                                  : none,
+                                   out[j]);
+        sync_staged();
+        cur ^= 1;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kNCH; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+        if (col >= kC) continue;
+        const float2 bias = ld2(p.bpj + lb + col);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (m.ok[i]) {
+            float2* xp = reinterpret_cast<float2*>(
+                p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC +
+                col);
+            const float2 x0 = kResidualOut
+                ? *xp
+                : make_float2(xr[j][i >> 1][nt][2 * (i & 1)],
+                              xr[j][i >> 1][nt][2 * (i & 1) + 1]);
+            *xp = make_float2(x0.x + out[j][i >> 1][nt][2 * (i & 1)] + bias.x,
+                              x0.y + out[j][i >> 1][nt][2 * (i & 1) + 1] +
+                                  bias.y);
+          }
+      }
+  }
+}
+#endif  // MK_SERVING
 #undef WB
 
 // ---------------------------------------------------------------------------
@@ -1227,6 +2646,7 @@ struct TailTokens {
   float lse_g[N];    // pass 0: log-sum-exp of the guided logits
   float min_c[N], min_u[N];
 };
+#if MK_SERVING
 
 template <int PASS, bool CFG>
 __device__ void tail_pass(const Params& p, const Sched& sd, int b,
@@ -1506,6 +2926,297 @@ __device__ void phase_tail(const Params& p, float* As, float* Hs, float* W0,
     tail_pass<3, CFG>(p, sd, b, As, W0, W1, red, tt);
   }
 }
+#else   // MK_SERVING
+
+template <int PASS, bool CFG>
+__device__ void tail_pass(const Params& p, const Sched& sd, int b,
+                          const float* As, float* W0, float* W1, float2* red,
+                          TailTokens<CFG>& tt) {
+  constexpr int NTOK = CFG ? 2 : 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
+  const int kv = p.kv;
+  const int nchunk = (kv + kTailChunk - 1) / kTailChunk;
+  const float gd = p.guidance;
+  const uint2 key = make_uint2(p.seed_lo, p.seed_hi);
+  float m1[NTOK], s1[NTOK], m2[NTOK], s2[NTOK], m3[NTOK], s3[NTOK];
+  float best[NTOK];
+  int best_i[NTOK];
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) {
+    m1[t] = m2[t] = m3[t] = kNegBig;
+    s1[t] = s2[t] = s3[t] = 0.f;
+    best[t] = -INFINITY;
+    best_i[t] = 0;
+    if (PASS == 0) tt.min_c[t] = tt.min_u[t] = INFINITY;
+  }
+  // class chunk c of the logits' weight (rows: n_embd, in 64-deep tiles)
+  auto logits = [&](int c) {
+    return WTile{p.wlog, 0, kv, c * kTailChunk,
+                 min(kTailChunk, kv - c * kTailChunk), kC};
+  };
+  const WTile none{nullptr, 0, 0, 0, 0, 0};
+  int cur = 0;
+  stage_tile<kTailChunk>(W0, logits(0), 0, p.w_bf16);
+  sync_staged();   // the tile (first pass) and the chunk are whole
+  for (int c = 0; c < nchunk; ++c) {
+    const int c0 = c * kTailChunk;
+    float acc[2][4][4];
+    zero<4>(acc);
+    chunk_product<kTailChunk, 4>(As, W0, W1, cur, p.w_bf16, logits(c),
+                                 c + 1 < nchunk ? logits(c + 1) : none, acc);
+    // this thread's 8 classes of the chunk: colb + 8 (e >> 1) + (e & 1)
+    const int colb = c0 + 32 * wn + 2 * tig;
+    bool cv[8];
+    float bias[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = colb + 8 * (e >> 1) + (e & 1);
+      cv[e] = col < kv;
+      bias[e] = cv[e] ? p.blog[col] : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < NTOK; ++t) {
+      // this token's logits: cond zc, uncond zu
+      float zc[8], zu[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (CFG) {
+          zc[e] = acc[0][e >> 1][2 * t + (e & 1)] + bias[e];
+          zu[e] = acc[1][e >> 1][2 * t + (e & 1)] + bias[e];
+        } else {
+          zc[e] = acc[t >> 1][e >> 1][2 * (t & 1) + (e & 1)] + bias[e];
+          zu[e] = 0.f;
+        }
+      }
+      if constexpr (PASS == 0) {
+        lse_update(m1[t], s1[t], zc, cv);
+        if (CFG) {
+          lse_update(m2[t], s2[t], zu, cv);
+          float zg[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            zg[e] = zu[e] + gd * (zc[e] - zu[e]);
+            if (cv[e]) {
+              tt.min_c[t] = fminf(tt.min_c[t], zc[e]);
+              tt.min_u[t] = fminf(tt.min_u[t], zu[e]);
+            }
+          }
+          lse_update(m3[t], s3[t], zg, cv);
+        }
+      } else {
+        // the guided log-probabilities before their normaliser
+        float r[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float lc = fmaxf(zc[e] - tt.lse_c[t], kClamp);
+          if (CFG) {
+            const float lu = fmaxf(zu[e] - tt.lse_u[t], kClamp);
+            r[e] = lu + gd * (lc - lu);
+          } else {
+            r[e] = lc;
+          }
+        }
+        if constexpr (PASS == 1) {
+          lse_update(m1[t], s1[t], r, cv);
+        } else {
+          const bool is_mask = tt.cur[t] == kv;
+          float q[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (CFG) r[e] = fmaxf(r[e] - tt.lse_n[t], kClamp);
+            const bool is_v = tt.cur[t] == colb + 8 * (e >> 1) + (e & 1);
+            q[e] = r[e] - (is_mask ? sd.ct_ct : (is_v ? sd.qt_v : sd.ct_bt));
+          }
+          if constexpr (PASS == 2) {
+            lse_update(m1[t], s1[t], q, cv);
+          } else {
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              // The noise of a class is word (class & 3) of the Philox
+              // block (class / 4, position, batch row), whichever thread
+              // draws it. The two lanes that share a block of 4 classes
+              // (tig even: words 0, 1; odd: 2, 3) draw one block each of
+              // this pair of 8-class tiles and hand the other lane the
+              // words it needs.
+              unsigned bits[2][2] = {{0u, 0u}, {0u, 0u}};
+              if (p.sample) {
+                const int odd = tig & 1;
+                const uint4 rnd = philox4x32_10(
+                    make_uint4(
+                        static_cast<unsigned>((colb + 8 * (2 * np + odd)) >> 2),
+                        static_cast<unsigned>(tt.tok[t]),
+                        static_cast<unsigned>(b), 0u), key);
+                const unsigned o0 =
+                    __shfl_xor_sync(0xffffffffu, odd ? rnd.x : rnd.z, 1);
+                const unsigned o1 =
+                    __shfl_xor_sync(0xffffffffu, odd ? rnd.y : rnd.w, 1);
+                const unsigned w0 = odd ? rnd.z : rnd.x;
+                const unsigned w1 = odd ? rnd.w : rnd.y;
+                bits[0][0] = odd ? o0 : w0;
+                bits[0][1] = odd ? o1 : w1;
+                bits[1][0] = odd ? w0 : o0;
+                bits[1][1] = odd ? w1 : o1;
+              }
+#pragma unroll
+              for (int e2 = 0; e2 < 4; ++e2) {
+                const int e = 4 * np + e2;
+                const int col = colb + 8 * (e >> 1) + (e & 1);
+                const bool is_v = tt.cur[t] == col;
+                const float qt1 = is_mask ? sd.ct : (is_v ? sd.qt1_v : sd.bt);
+                float post = laddexp_fast(q[e] - tt.lse_q[t] + sd.ct_at_p,
+                                          sd.ct_bt_p) + qt1 + tt.lse_q[t];
+                post = fminf(fmaxf(post, kClamp), 0.f);
+                if (p.sample) post += gumbel_of(bits[e2 >> 1][e2 & 1]);
+                if (cv[e] && post > best[t]) {
+                  best[t] = post;
+                  best_i[t] = col;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    sync_staged();   // the next chunk is whole, this one is read
+    cur ^= 1;
+  }
+  // close the pass: combine the quad and the 4 warps of each token
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) {
+    const int slot = (CFG ? 16 : 32) * wm + 8 * t + g;
+    if (PASS == 0) {
+      tt.lse_c[t] = lse_finish(m1[t], s1[t], kNegBig, 0.f, red, slot, wn, tig);
+      if (CFG) {
+        tt.lse_u[t] =
+            lse_finish(m2[t], s2[t], kNegBig, 0.f, red, slot, wn, tig);
+        tt.lse_g[t] =
+            lse_finish(m3[t], s3[t], kNegBig, 0.f, red, slot, wn, tig);
+      }
+    } else if (PASS == 1) {
+      tt.lse_n[t] = lse_finish(m1[t], s1[t], kNegBig, 0.f, red, slot, wn, tig);
+    } else if (PASS == 2) {
+      // the MASK class's log(1e-30) term joins the sum once
+      tt.lse_q[t] = lse_finish(m1[t], s1[t], kNeg30, 1.f, red, slot, wn, tig);
+    } else {
+      // ties go to the lowest class index, in the quad and across warps
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best[t], off);
+        const int oi = __shfl_xor_sync(0xffffffffu, best_i[t], off);
+        if (ob > best[t] || (ob == best[t] && oi < best_i[t])) {
+          best[t] = ob;
+          best_i[t] = oi;
+        }
+      }
+      if (tig == 0)
+        red[slot * 4 + wn] = make_float2(best[t], __int_as_float(best_i[t]));
+      sync_staged();
+      if (wn == 0 && tig == 0 && tt.ok[t]) {
+        float bb = -INFINITY;
+        int bi = 0;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 v = red[slot * 4 + w];
+          const int oi = __float_as_int(v.y);
+          if (v.x > bb || (v.x == bb && oi < bi)) {
+            bb = v.x;
+            bi = oi;
+          }
+        }
+        const bool is_mask = tt.cur[t] == kv;
+        float pm = laddexp(kNeg30 - tt.lse_q[t] + sd.om_ct_ct_p, sd.ct_ct_p) +
+                   (is_mask ? 0.f : kNeg30) + tt.lse_q[t];
+        pm = fminf(fmaxf(pm, kClamp), 0.f);
+        if (p.sample)
+          pm += gumbel_of(philox4x32_10(
+              make_uint4(0xFFFFFFFFu, static_cast<unsigned>(tt.tok[t]),
+                         static_cast<unsigned>(b), 0u), key).x);
+        p.out[static_cast<size_t>(b) * p.L + tt.tok[t]] = pm > bb ? kv : bi;
+      }
+      sync_staged();   // red is free for the next token
+    }
+  }
+}
+
+template <bool CFG>
+__device__ MK_PHASE_T void phase_tail(const Params& p, float* As, float* Hs, float* W0,
+                           float* W1) {
+  constexpr int NTOK = CFG ? 2 : 4;
+  constexpr int TT = CFG ? 32 : kRows;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, wm = warp & 1;
+  const int ntile = (p.L + TT - 1) / TT;
+  const int n_items = p.B * ntile;
+  float4 sc[kNCH], sh[kNCH];
+  load_row(p.lno_s, tx, sc);
+  load_row(p.lno_b, tx, sh);
+  const float* s = p.sched;
+  Sched sd;
+  sd.ct_bt = s[1];
+  sd.ct_ct = s[2];
+  sd.bt = s[4];
+  sd.ct = s[5];
+  sd.ct_at_p = s[6];
+  sd.ct_bt_p = s[7];
+  sd.ct_ct_p = s[8];
+  sd.om_ct_ct_p = s[9];
+  sd.qt_v = laddexp(s[0], s[1]);
+  sd.qt1_v = laddexp(s[3], s[4]);
+  float2* red = reinterpret_cast<float2*>(Hs);
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int b = item / ntile;
+    const int t0 = (item % ntile) * TT;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int rb = CFG ? b * 2 + ((r >> 4) & 1) : b;
+      const int t = CFG ? t0 + (r >> 5) * 16 + (r & 15) : t0 + r;
+      float4 x[kNCH];
+      if (t < p.L) {
+        load_row(p.x + (static_cast<size_t>(rb) * p.L + t) * kC, tx, x);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNCH; ++j) x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      store_norm(As, r, tx, x, sc, sh, false);
+    }
+    // this thread's tokens: slot t is row 8 t + g of the warp's 32 (CFG:
+    // of its first 16, both branches)
+    TailTokens<CFG> tt;
+#pragma unroll
+    for (int t = 0; t < NTOK; ++t) {
+      tt.tok[t] = t0 + (CFG ? 16 : 32) * wm + 8 * t + g;
+      tt.ok[t] = tt.tok[t] < p.L;
+      tt.cur[t] = tt.ok[t]
+          ? static_cast<int>(p.tokens[static_cast<size_t>(b) * p.L + tt.tok[t]])
+          : 0;
+      tt.lse_u[t] = tt.lse_n[t] = tt.lse_g[t] = 0.f;
+    }
+    tail_pass<0, CFG>(p, sd, b, As, W0, W1, red, tt);
+    if (CFG) {
+      // no class of these tokens under the clamp in either branch?
+      bool free_of_clamp = true;
+#pragma unroll
+      for (int t = 0; t < NTOK; ++t) {
+        // a token's classes are spread over a quad and 4 warps: every one of
+        // them votes on its own classes' minimum
+        free_of_clamp = free_of_clamp &&
+                        tt.min_c[t] - tt.lse_c[t] >= kClamp &&
+                        tt.min_u[t] - tt.lse_u[t] >= kClamp;
+        tt.lse_n[t] = tt.lse_g[t] -
+                      (tt.lse_u[t] + p.guidance * (tt.lse_c[t] - tt.lse_u[t]));
+      }
+      if (!__syncthreads_and(free_of_clamp))
+        tail_pass<1, CFG>(p, sd, b, As, W0, W1, red, tt);
+    }
+    tail_pass<2, CFG>(p, sd, b, As, W0, W1, red, tt);
+    tail_pass<3, CFG>(p, sd, b, As, W0, W1, red, tt);
+  }
+}
+#endif  // MK_SERVING
 
 __device__ __forceinline__ void stamp(const Params& p, int& i) {
   if (p.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
@@ -1515,6 +3226,7 @@ __device__ __forceinline__ void stamp(const Params& p, int& i) {
   }
   ++i;
 }
+#if MK_SERVING
 
 template <bool PACKED>
 __device__ void step_body(const Params& p) {
@@ -1552,6 +3264,45 @@ megakernel_step_packed_kernel(const Params p) { step_body<true>(p); }
 
 __global__ void __launch_bounds__(kThreads, 2)
 megakernel_step_branch_kernel(const Params p) { step_body<false>(p); }
+#else   // MK_SERVING
+
+template <bool PACKED>
+__device__ void step_body(const Params& p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Hs = As + kRows * kLda;
+  float* W0 = Hs + kRows * kLdh;
+  float* W1 = W0 + kWBytes / 4;
+  cg::grid_group grid = cg::this_grid();
+  int si = 0;
+  stamp(p, si);
+  for (int layer = 0; layer < p.n_layer; ++layer) {
+    phase_qkv<PACKED>(p, layer, As, W0, W1);
+    grid.sync();
+    stamp(p, si);
+    phase_self_attention(p, smem);
+    grid.sync();
+    stamp(p, si);
+    phase_mlp<PACKED>(p, layer, As, Hs, W0, W1);
+    grid.sync();
+    stamp(p, si);
+  }
+  if (p.n_br == 2)
+    phase_tail<true>(p, As, Hs, W0, W1);
+  else
+    phase_tail<false>(p, As, Hs, W0, W1);
+  if (p.stamps != nullptr) {   // uniform over the grid
+    grid.sync();
+    stamp(p, si);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+megakernel_step_packed_kernel(MK_KERNEL_PARAMS p) { step_body<true>(p); }
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+megakernel_step_branch_kernel(MK_KERNEL_PARAMS p) { step_body<false>(p); }
+#endif  // MK_SERVING
 
 // blocks that can be co-resident, per device and kernel; 0 until asked (which
 // also raises that device's dynamic shared memory limit for the kernel),
@@ -1591,10 +3342,20 @@ int grid_cap(int packed) {
 // The persistent grid's size on the current device (blocks per SM x SMs),
 // or a negative cudaError_t.
 extern "C" int megakernel_grid_blocks(int packed) { return grid_cap(packed); }
+#if MK_SERVING
 
 // The longest sequence the kernels take (a head's keys and values must fit a
 // block's shared memory).
 extern "C" int megakernel_max_seq() { return kMaxSeq; }
+
+// The widths this library was built for: n_embd (0) and head dim (1).
+extern "C" int megakernel_width(int which) { return which ? 4 : kC; }
+
+// The factor the queries take before their rounding to bf16.
+extern "C" float megakernel_qscale() { return kQScale; }
+
+// Whether phase S stages a head's keys and values whole at L tokens.
+extern "C" int megakernel_keys_whole(int L) { return L <= kMaxSeq; }
 
 // One reverse step on `stream`. ptrs, ints and floats are host tables in the
 // order of enum Ptr, enum Int and {guidance}. Returns a cudaError_t: a grid
@@ -1677,3 +3438,110 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
       fn, dim3(grid), dim3(kThreads), args, kSmemBytes,
       static_cast<cudaStream_t>(stream)));
 }
+#else   // MK_SERVING
+
+// The longest sequence the kernels take (at head dim 4 a head's keys and
+// values must fit a block's shared memory; wider heads stream them).
+extern "C" int megakernel_max_seq() { return kMaxSeq; }
+
+// The widths this library was built for: n_embd (0) and head dim (1).
+extern "C" int megakernel_width(int which) { return which ? kD : kC; }
+
+// The factor the queries take before their rounding to bf16: 1 / sqrt(d)
+// in double, rounded once to f32, as the TPU kernels and the plain version
+// take it (a division, or rsqrtf, would round elsewhere).
+extern "C" float megakernel_qscale() {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
+}
+
+// Whether phase S stages a head's keys and values whole at L tokens (else
+// it streams them in tiles).
+extern "C" int megakernel_keys_whole(int L) {
+  return kD == 4 ||
+         static_cast<long long>((L + 15) & ~15) * kKeyBytes <= kSmemBytes;
+}
+
+// One reverse step on `stream`. ptrs, ints and floats are host tables in the
+// order of enum Ptr, enum Int and {guidance}. Returns a cudaError_t: a grid
+// that cannot be co-resident is refused (a grid-wide barrier would hang).
+// ints[I_GRID], when not 0, caps the number of blocks below what fits.
+extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
+                               const float* floats, void* stream) {
+  Params p;
+  p.sched = static_cast<const float*>(ptrs[P_SCHED]);
+  p.tokens = static_cast<const long long*>(ptrs[P_TOKENS]);
+  p.out = static_cast<long long*>(const_cast<void*>(ptrs[P_OUT]));
+  p.adaln = static_cast<const float*>(ptrs[P_ADALN]);
+  p.kc = static_cast<const float*>(ptrs[P_KC]);
+  p.vc = static_cast<const float*>(ptrs[P_VC]);
+  p.emb = static_cast<const float*>(ptrs[P_EMB]);
+  p.pos = static_cast<const float*>(ptrs[P_POS]);
+  p.wqkv = ptrs[P_WQKV];
+  p.bqkv = static_cast<const float*>(ptrs[P_BQKV]);
+  p.wproj = ptrs[P_WPROJ];
+  p.bproj = static_cast<const float*>(ptrs[P_BPROJ]);
+  p.wq_c = ptrs[P_WQC];
+  p.bq_c = static_cast<const float*>(ptrs[P_BQC]);
+  p.wproj_c = ptrs[P_WPROJC];
+  p.bproj_c = static_cast<const float*>(ptrs[P_BPROJC]);
+  p.ln2_s = static_cast<const float*>(ptrs[P_LN2S]);
+  p.ln2_b = static_cast<const float*>(ptrs[P_LN2B]);
+  p.wfc = ptrs[P_WFC];
+  p.bfc = static_cast<const float*>(ptrs[P_BFC]);
+  p.wpj = ptrs[P_WPJ];
+  p.bpj = static_cast<const float*>(ptrs[P_BPJ]);
+  p.lno_s = static_cast<const float*>(ptrs[P_LNOS]);
+  p.lno_b = static_cast<const float*>(ptrs[P_LNOB]);
+  p.wlog = ptrs[P_WLOG];
+  p.blog = static_cast<const float*>(ptrs[P_BLOG]);
+  p.x = static_cast<float*>(const_cast<void*>(ptrs[P_X]));
+  p.q = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[P_Q]));
+  p.k = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[P_K]));
+  p.v = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[P_V]));
+  p.o = static_cast<float*>(const_cast<void*>(ptrs[P_O]));
+  p.kmax = static_cast<unsigned*>(const_cast<void*>(ptrs[P_KMAX]));
+  p.stamps =
+      static_cast<unsigned long long*>(const_cast<void*>(ptrs[P_STAMPS]));
+  p.B = static_cast<int>(ints[I_B]);
+  p.L = static_cast<int>(ints[I_L]);
+  p.n_br = static_cast<int>(ints[I_NBR]);
+  p.n_layer = static_cast<int>(ints[I_NLAYER]);
+  p.kv = static_cast<int>(ints[I_KV]);
+  p.sp = static_cast<int>(ints[I_SP]);
+  p.s_valid = static_cast<int>(ints[I_SVALID]);
+  p.hidden = static_cast<int>(ints[I_HIDDEN]);
+  p.w_bf16 = static_cast<int>(ints[I_WBF16]);
+  p.sample = static_cast<int>(ints[I_SAMPLE]);
+  p.cross_bias = static_cast<int>(ints[I_CROSSBIAS]);
+  p.seed_lo = ints[I_SEEDLO];
+  p.seed_hi = ints[I_SEEDHI];
+  p.guidance = floats[0];
+  p.qscale = megakernel_qscale();
+  p.keys_whole = megakernel_keys_whole(p.L);
+  const bool packed = ints[I_PACKED] != 0;
+  if (p.B < 1 || p.L < 1 || p.L > kMaxSeq || p.n_layer < 1 || p.kv < 1 ||
+      p.hidden < 32 || p.hidden % 32 != 0 || p.s_valid < 1 ||
+      p.s_valid > p.sp || (p.n_br != 1 && p.n_br != 2) ||
+      (packed && p.n_br != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int cap = grid_cap(packed ? 1 : 0);
+  if (cap < 0) return -cap;
+  if (ints[I_GRID] != 0 && static_cast<int>(ints[I_GRID]) < cap)
+    cap = static_cast<int>(ints[I_GRID]);
+  const long long tiles =
+      packed ? static_cast<long long>(p.B) * ((p.L + 31) / 32)
+             : static_cast<long long>(p.B) * p.n_br *
+                   ((p.L + kRows - 1) / kRows);
+  const long long attn = static_cast<long long>(p.B) * p.n_br * kH *
+                         ((p.L + kQTile - 1) / kQTile);
+  const long long items = tiles > attn ? tiles : attn;
+  const int grid = static_cast<int>(items < cap ? items : cap);
+  const void* fn = packed
+      ? reinterpret_cast<const void*>(megakernel_step_packed_kernel)
+      : reinterpret_cast<const void*>(megakernel_step_branch_kernel);
+  void* args[] = {&p};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(kThreads), args, kSmemBytes,
+      static_cast<cudaStream_t>(stream)));
+}
+#endif  // MK_SERVING

@@ -42,7 +42,7 @@ from .parallel.distributed import all_gather_rows, data_group, is_distributed
 from .parallel.mesh import rank_generator
 
 __all__ = ["HONEST", "MSRVTT_GRID", "VQD_B", "VQD_B_OVERRIDES",
-           "GenerationModels", "build_models",
+           "width_overrides", "at_width", "GenerationModels", "build_models",
            "sample_token_grid", "sample_videos", "main"]
 
 # bench.py's honest configuration: 16-frame 64px clips -> a (16, 8, 8) grid
@@ -85,27 +85,37 @@ MSRVTT_GRID: dict[str, Any] = {
 }
 
 
+def width_overrides(n_embd: int, n_head: int) -> tuple[str, str]:
+    """The overrides on the YAML tree that set the denoiser's width
+    (:data:`VQD_B_OVERRIDES` at VQ-Diffusion-B's)."""
+    return (f"model.generator.diffusion_model.transformer.n_embd={n_embd}",
+            f"model.generator.diffusion_model.transformer.n_head={n_head}")
+
+
+def at_width(config: Mapping[str, Any], n_embd: int,
+             n_head: int) -> dict[str, Any]:
+    """``config`` (shaped like :data:`HONEST`) with the denoiser at
+    ``n_embd`` in ``n_head`` heads, everything else as it is: what
+    :func:`width_overrides` does to the YAML tree."""
+    gen = config["generator"]
+    dm = gen["diffusion_model"]
+    return dict(config, generator=dict(gen, diffusion_model=dict(
+        dm, transformer=dict(dm["transformer"], n_embd=n_embd,
+                             n_head=n_head))))
+
+
 # VQ-Diffusion-B's published width (Gu et al., "Vector Quantized Diffusion
 # Model for Text-to-Image Synthesis", CVPR 2022, section 4;
 # microsoft/VQ-Diffusion configs/coco.yaml: n_embd 1024 in 16 heads of 64)
 # on the honest configuration, which keeps the family's 19 layers,
 # condition_dim 512, mlp_hidden_times 4, GELU2 and AdaLN: the two
 # overrides below on the YAML tree, 387.4 M denoiser parameters. The
-# whole-step kernels do not take this width (kernels_fit is false), so
-# ``auto`` takes the model route: K2 at heads of 64, then K1.
-VQD_B_OVERRIDES = ("model.generator.diffusion_model.transformer.n_embd=1024",
-                   "model.generator.diffusion_model.transformer.n_head=16")
-VQD_B: dict[str, Any] = {
-    "vqvae": HONEST["vqvae"],
-    "generator": {
-        "diffusion_model": dict(
-            HONEST["generator"]["diffusion_model"],
-            transformer=dict(
-                HONEST["generator"]["diffusion_model"]["transformer"],
-                n_embd=1024, n_head=16)),
-        "textencoder": HONEST["generator"]["textencoder"],
-    },
-}
+# whole-step kernels take n_embd up to 512 (the JAX megakernel's, which
+# holds every layer's weights in its 100 MiB of VMEM, ends near 444 at 19
+# layers): kernels_fit is false at 1024, so ``auto`` takes the model route:
+# K2 at heads of 64, then K1.
+VQD_B_OVERRIDES = width_overrides(1024, 16)
+VQD_B: dict[str, Any] = at_width(HONEST, 1024, 16)
 
 
 @dataclass

@@ -14,8 +14,10 @@ branch); guidance 1, and CFG on grids over 1024 tokens), both reached through
 and reads the packed weights, the tables and the (B, L) tokens and writes
 the (B, L) tokens: the (2B, K-1, L) logits and the (B, K, L) posterior never
 reach device memory. The CUDA source is ``csrc/megakernel_step.cu`` (its
-header says what bounds it on Hopper and how it is laid out); it is built by
-nvcc at the first launch and bound through ctypes. What the TPU package
+header says what bounds it on Hopper, how it is laid out, and which of its
+code is the serving width's own: n_embd 64 in heads of 4); nvcc builds one
+library per n_embd and head dim from it at the first launch, bound through
+ctypes. What the TPU package
 computes outside its kernel stays plain torch here too:
 :func:`pack_denoiser_params`, the AdaLN tables, the cross-attention K/V (or
 bias) of the condition, the positions.
@@ -39,6 +41,7 @@ distribution only; ``sample=False`` (argmax) is what is compared exactly.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -57,8 +60,9 @@ __all__ = ["MEGAKERNEL_MAX_SEQ", "pack_denoiser_params", "cross_tables",
            "positions", "megakernel_step", "megakernel_step_reference",
            "megakernel_hidden_reference", "kernels_fit",
            "megakernel_sample_tokens", "prepare_sampling", "alloc_scratch",
+           "scratch_head_dim",
            "stamp_count", "split_tf32", "split_matmul", "exp2_poly",
-           "poly_exp_mask", "softmax_shift",
+           "poly_exp_mask", "softmax_shift", "widths_fit",
            "megakernel_step_kernel_arithmetic", "KERNEL_POLY_SHARE",
            "KERNEL_SHIFT_SLACK", "EXACT_MAX"]
 
@@ -68,13 +72,16 @@ MEGAKERNEL_MAX_SEQ = 2304
 # (row, branch) grid
 _PACK_CFG_MAX_SEQ = 1024
 _LN_EPS = 1e-6
-# the kernels' fixed widths (csrc/megakernel_step.cu)
-_KERNEL_EMBD = 64
-_KERNEL_HEAD_DIM = 4
-_KERNEL_HIDDEN_CHUNK = 64
-# the longest grid a launch takes: phase S holds a head's keys and values
-# (16 bytes a key) in a block's shared memory (csrc: kMaxSeq)
-_KERNEL_MAX_SEQ = 6656
+# the widths the CUDA kernels take (one library per n_embd and head dim):
+# n_embd a multiple of 32 up to 512, a head dim a multiple of 4 up to 128,
+# an MLP width a multiple of 32
+_KERNEL_EMBD_STEP, _KERNEL_EMBD_MAX = 32, 512
+_KERNEL_HEAD_STEP, _KERNEL_HEAD_MAX = 4, 128
+_KERNEL_HIDDEN_STEP = 32
+_KERNEL_DOMAIN = (f"n_embd a multiple of {_KERNEL_EMBD_STEP} up to "
+                  f"{_KERNEL_EMBD_MAX}, a head dim a multiple of "
+                  f"{_KERNEL_HEAD_STEP} up to {_KERNEL_HEAD_MAX}, an MLP "
+                  f"width a multiple of {_KERNEL_HIDDEN_STEP}")
 
 _WEIGHT_NAMES = ("wqkv", "wproj", "wq_c", "wproj_c", "wfc", "wpj", "wlog")
 # the order of the pointer table handed to the launcher (csrc: enum Ptr)
@@ -89,15 +96,25 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def widths_fit(n_embd: int, n_head: int, hidden: int) -> bool:
+    """Whether the CUDA kernels take these widths: n_embd a multiple of 32
+    from 32 to 512, split into heads of a dim that is a multiple of 4 from
+    4 to 128, and an MLP width that is a multiple of 32."""
+    d = n_embd // n_head if n_head > 0 else 0
+    return (0 < n_embd <= _KERNEL_EMBD_MAX
+            and n_embd % _KERNEL_EMBD_STEP == 0
+            and n_head * d == n_embd
+            and 0 < d <= _KERNEL_HEAD_MAX and d % _KERNEL_HEAD_STEP == 0
+            and hidden > 0 and hidden % _KERNEL_HIDDEN_STEP == 0)
+
+
 def kernels_fit(transformer: nn.Module) -> bool:
-    """Whether the CUDA kernels are built for this denoiser's widths
-    (n_embd 64 in heads of 4, an MLP width in chunks of 64): what 'auto'
-    route selection reads. :func:`megakernel_step` raises for the rest."""
+    """Whether the CUDA kernels take this denoiser's widths
+    (:func:`widths_fit`): what 'auto' route selection reads.
+    :func:`megakernel_step` raises for the rest."""
     block = transformer.block0
-    n_embd = transformer.ln_out.normalized_shape[0]
-    return (n_embd == _KERNEL_EMBD
-            and n_embd // block.attn1.n_head == _KERNEL_HEAD_DIM
-            and block.mlp_fc.out_features % _KERNEL_HIDDEN_CHUNK == 0)
+    return widths_fit(transformer.ln_out.normalized_shape[0],
+                      block.attn1.n_head, block.mlp_fc.out_features)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +254,14 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a @ w.to(torch.float32)
 
 
+def _scale_queries(q: torch.Tensor, d: int) -> torch.Tensor:
+    """q / sqrt(d) through bf16 as the TPU kernels and K3 / K4 take it: q
+    times fl32(1 / sqrt(d)) (1 / sqrt(d) in double, rounded once to f32) in
+    f32, then rounded to bf16. Not a division: at d = 8 or 12 the two land
+    on different bf16 values for a few q in a million."""
+    return _bf16(q * (1.0 / math.sqrt(d)))
+
+
 def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          n_head: int, valid: int) -> torch.Tensor:
     """q: (R, Lq, C); k, v: (R, Lk, C), the first ``valid`` keys real.
@@ -244,7 +269,7 @@ def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the division by their row sum."""
     R, Lq, C = q.shape
     d = C // n_head
-    qs = _bf16(q * (1.0 / math.sqrt(d))).reshape(R, Lq, n_head, d)
+    qs = _scale_queries(q, d).reshape(R, Lq, n_head, d)
     kb = _bf16(k[:, :valid]).reshape(R, valid, n_head, d)
     vb = _bf16(v[:, :valid]).reshape(R, valid, n_head, d)
     s = torch.einsum("rqhd,rkhd->rhqk", qs, kb)
@@ -450,7 +475,7 @@ def _attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
     the roundings to bf16 are where the plain version has them."""
     R, Lq, C = q.shape
     d = C // n_head
-    qs = _bf16(q * (1.0 / math.sqrt(d))).reshape(R, Lq, n_head, d)
+    qs = _scale_queries(q, d).reshape(R, Lq, n_head, d)
     kb = _bf16(k[:, :valid]).reshape(R, valid, n_head, d)
     vb = _bf16(v[:, :valid]).reshape(R, valid, n_head, d)
     s = torch.einsum("rqhd,rkhd->rhqk", qs, kb)
@@ -494,12 +519,25 @@ EXACT_MAX = ("MK_ABLATE=8",)
 
 
 @functools.cache
-def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = cuda_build.load("megakernel_step.cu", defines=defines)
+def _library(defines: tuple[str, ...] = (),
+             widths: tuple[int, int] = (64, 4)) -> ctypes.CDLL:
+    """The kernels at ``widths`` (n_embd, head dim) with ``defines``: one
+    nvcc run of ``csrc/megakernel_step.cu`` (``MK_C``, ``MK_D``) and one
+    library for each, at first use. ``MK_GENERAL=1`` builds the serving
+    width (n_embd 64 in heads of 4) from the code of every other width
+    (``chip_smoke.py --parent`` times it)."""
+    lib = cuda_build.load(
+        "megakernel_step.cu",
+        defines=(f"MK_C={widths[0]}", f"MK_D={widths[1]}") + tuple(defines))
     lib.megakernel_step.argtypes = [ctypes.c_void_p] * 4
     lib.megakernel_step.restype = ctypes.c_int
     lib.megakernel_grid_blocks.argtypes = [ctypes.c_int]
     lib.megakernel_grid_blocks.restype = ctypes.c_int
+    lib.megakernel_qscale.restype = ctypes.c_float
+    built = (lib.megakernel_width(0), lib.megakernel_width(1))
+    if built != tuple(widths):
+        raise RuntimeError(f"megakernel_step: the library built for "
+                           f"{widths} reports widths {built}")
     return lib
 
 
@@ -509,26 +547,31 @@ def stamp_count(n_layer: int) -> int:
     return 3 * n_layer + 2
 
 
+def scratch_head_dim(head_dim: int) -> int:
+    """A head's dims in the kernels' q/k/v scratch: the head dim padded with
+    zeros to a multiple of 8 (4 stays 4; csrc: kDS)."""
+    return head_dim if head_dim == 4 else _round_up(head_dim, 8)
+
+
 def alloc_scratch(batch: int, n_br: int, seq_len: int,
-                  device: torch.device) -> dict[str, torch.Tensor]:
+                  device: torch.device, *, n_embd: int, n_head: int
+                  ) -> dict[str, torch.Tensor]:
     """The kernels' scratch in device memory: the hidden state, the
-    rounded q/k/v (head-major), the attention output, and per (row-branch,
-    head, dim) the largest |k| over the keys (zero between launches: a step
-    clears what it has used). Allocated once per sampling call."""
+    rounded q/k/v (head-major, (R, H, L, DS) with DS =
+    :func:`scratch_head_dim`; the padding stays zero), the attention
+    output, and per (row-branch, head, dim) the largest |k| over the keys
+    (zero between launches: a step clears what it has used). Allocated once
+    per sampling call."""
     r = batch * n_br
-    c = _KERNEL_EMBD
+    c, d = n_embd, n_embd // n_head
     bf = dict(dtype=torch.bfloat16, device=device)
     f32 = dict(dtype=torch.float32, device=device)
+    qkv = (r, n_head, seq_len, scratch_head_dim(d))
     return {"x": torch.empty((r, seq_len, c), **f32),
-            "q": torch.empty((r, c // _KERNEL_HEAD_DIM, seq_len,
-                              _KERNEL_HEAD_DIM), **bf),
-            "k": torch.empty((r, c // _KERNEL_HEAD_DIM, seq_len,
-                              _KERNEL_HEAD_DIM), **bf),
-            "v": torch.empty((r, c // _KERNEL_HEAD_DIM, seq_len,
-                              _KERNEL_HEAD_DIM), **bf),
+            "q": torch.zeros(qkv, **bf), "k": torch.zeros(qkv, **bf),
+            "v": torch.zeros(qkv, **bf),
             "o": torch.empty((r, seq_len, c), **f32),
-            "kmax": torch.zeros((r, c // _KERNEL_HEAD_DIM, _KERNEL_HEAD_DIM),
-                                **f32)}
+            "kmax": torch.zeros((r, n_head, d), **f32)}
 
 
 def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
@@ -541,20 +584,14 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
                          f"device is cuda:{torch.cuda.current_device()}")
     b, L = tokens.shape
     n_br = 2 if use_cfg else 1
-    if L > _KERNEL_MAX_SEQ:
-        raise ValueError(f"megakernel_step: {L} tokens, the kernels take "
-                         f"at most {_KERNEL_MAX_SEQ}")
     if pack_cfg and not use_cfg:
         raise ValueError("megakernel_step: pack_cfg is the CFG kernel")
-    if n_embd != _KERNEL_EMBD or n_embd // n_head != _KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"megakernel_step: the kernels are built for n_embd "
-            f"{_KERNEL_EMBD} and head dim {_KERNEL_HEAD_DIM}, not "
-            f"{n_embd} / {n_head} heads")
     hidden = packed["wfc"].shape[2]
-    if hidden % _KERNEL_HIDDEN_CHUNK:
-        raise ValueError(f"megakernel_step: MLP width {hidden} is not a "
-                         f"multiple of {_KERNEL_HIDDEN_CHUNK}")
+    if not widths_fit(n_embd, n_head, hidden):
+        raise ValueError(
+            f"megakernel_step: the kernels take {_KERNEL_DOMAIN}; not "
+            f"n_embd {n_embd} in {n_head} heads, MLP width {hidden}")
+    head_dim = n_embd // n_head
     kv = num_classes - 1
     sp = kc.shape[3]
     if tokens.dtype != torch.int64 or not tokens.is_contiguous():
@@ -572,10 +609,18 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
         raise ValueError("megakernel_step: shapes of the tables do not fit "
                          f"tokens {tuple(tokens.shape)}, K={num_classes}")
     if scratch is None:
-        scratch = alloc_scratch(b, n_br, L, dev)
-    if scratch["x"].shape != (b * n_br, L, n_embd) or "kmax" not in scratch:
+        scratch = alloc_scratch(b, n_br, L, dev, n_embd=n_embd,
+                                n_head=n_head)
+    if scratch["x"].shape != (b * n_br, L, n_embd) or \
+            "kmax" not in scratch or scratch["q"].shape != (
+                b * n_br, n_head, L, scratch_head_dim(head_dim)):
         raise ValueError("megakernel_step: scratch of another shape (take "
                          "it from alloc_scratch)")
+    lib = _library(tuple(defines), (n_embd, head_dim))
+    max_seq = lib.megakernel_max_seq()
+    if L > max_seq:
+        raise ValueError(f"megakernel_step: {L} tokens, the kernels take "
+                         f"at most {max_seq} at head dim {head_dim}")
     out = torch.empty_like(tokens)
     tensors = dict(packed, sched=sched_row, tokens=tokens, out=out,
                    adaln=adaln, kc=kc, vc=vc, pos=pos, **scratch)
@@ -614,7 +659,7 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_uint32 * len(ints))(*ints)
     c_floats = (ctypes.c_float * 1)(float(guidance))
-    err = _library(tuple(defines)).megakernel_step(
+    err = lib.megakernel_step(
         c_ptrs, c_ints, c_floats, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"megakernel_step launch failed: cudaError {err}")
@@ -622,6 +667,8 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
         megakernel_step.launches_k3 += 1
     else:
         megakernel_step.launches_k4 += 1
+    megakernel_step.launches_by_width[
+        n_embd, head_dim, "K3" if pack_cfg else "K4"] += 1
     return out
 
 
@@ -644,7 +691,10 @@ def megakernel_step(
     kernel on the current stream: K3 (``pack_cfg``: a work item owns a tile
     of a row for both CFG branches) or K4 (a work item owns a tile of one
     (row, branch)); each launch adds one to ``megakernel_step.launches_k3``
-    or ``.launches_k4``. ``scratch`` (:func:`alloc_scratch`) is allocated
+    or ``.launches_k4``, and to ``megakernel_step.launches_by_width[(n_embd,
+    head dim, "K3" or "K4")]`` (never reset). The kernels take the widths of
+    :func:`widths_fit` and raise for the rest; each (n_embd, head dim) is
+    built at its first launch. ``scratch`` (:func:`alloc_scratch`) is allocated
     per call unless given; ``stamps`` (int64, :func:`stamp_count` long)
     receives the device's ns clock at each phase boundary; ``grid_blocks``
     caps the persistent grid below what the card holds (the result does not
@@ -666,6 +716,7 @@ def megakernel_step(
 
 megakernel_step.launches_k3 = 0
 megakernel_step.launches_k4 = 0
+megakernel_step.launches_by_width = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -694,6 +745,7 @@ def prepare_sampling(sched: D3PMSchedule, transformer: nn.Module,
     T = sched.num_timesteps
     device = sched.device
     n_embd = transformer.ln_out.normalized_shape[0]
+    n_head = transformer.block0.attn1.n_head
     packed = pack_denoiser_params(transformer, weights_dtype)
     use_cfg = abs(guidance_scale - 1.0) >= 1e-3
     s_valid = cond_emb.shape[1]
@@ -709,9 +761,9 @@ def prepare_sampling(sched: D3PMSchedule, transformer: nn.Module,
                                transformer.block0.ln1.emb.num_steps, n_embd),
         rows=schedule_rows(sched),
         scratch=(alloc_scratch(batch_size, 2 if use_cfg else 1, seq_len,
-                               device) if device.type == "cuda" else None))
-    kw = dict(n_layer=transformer.n_layer,
-              n_head=transformer.block0.attn1.n_head, n_embd=n_embd,
+                               device, n_embd=n_embd, n_head=n_head)
+                 if device.type == "cuda" else None))
+    kw = dict(n_layer=transformer.n_layer, n_head=n_head, n_embd=n_embd,
               num_classes=sched.num_classes, guidance=guidance_scale,
               use_cfg=use_cfg, s_valid=s_valid, cross_as_bias=cross_as_bias,
               pack_cfg=bool(pack_cfg) and use_cfg)

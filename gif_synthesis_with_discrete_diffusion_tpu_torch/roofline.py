@@ -14,7 +14,7 @@ from __future__ import annotations
 import subprocess
 
 __all__ = ["PEAK_BYTES", "PEAK_F32", "PEAK_BF16", "PEAK_TF32", "bound",
-           "attention_work", "megakernel_work", "card"]
+           "attention_work", "megakernel_work", "megakernel_bound", "card"]
 
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -51,29 +51,43 @@ def attention_work(b: int, lq: int, lk: int, n_head: int, d: int,
 
 
 def megakernel_work(b: int, n_br: int, L: int, n_layer: int, hidden: int,
-                    kv: int, s_len: int, as_bias: bool
-                    ) -> tuple[float, float, float]:
-    """(bytes, f32 FLOP, bf16 FLOP) one reverse step needs at the whole-step
-    kernels' width (n_embd 64): ``b`` rows, ``n_br`` branches (2 under
-    CFG), ``L`` tokens, an MLP of ``hidden``, ``kv`` = K - 1 logits, a
-    condition of ``s_len`` tokens (``as_bias``: one token, a per-layer
-    bias). QK^T and PV take operands rounded to bf16 (tensor-core rate),
-    the other products f32 activations (QKV, proj, the MLP, the
+                    kv: int, s_len: int, as_bias: bool, n_embd: int = 64,
+                    n_head: int = 16) -> tuple[float, float, float]:
+    """(bytes, f32 FLOP, bf16 FLOP) one reverse step needs at ``n_embd`` in
+    ``n_head`` heads (the serving width, 64 in 16, by default): ``b`` rows,
+    ``n_br`` branches (2 under CFG), ``L`` tokens, an MLP of ``hidden``,
+    ``kv`` = K - 1 logits, a condition of ``s_len`` tokens (``as_bias``: one
+    token, a per-layer bias). QK^T and PV take operands rounded to bf16
+    (tensor-core rate), 2 d multiply-adds each per (query, key, head); the
+    other products f32 activations (QKV, proj, the MLP, the
     cross-attention's query and proj when it is not a bias, the logits,
     each once). Bytes: the bf16 weights, the f32 tables and the tokens in
     and out."""
-    c, rows = 64, b * n_br * L
+    c, rows = n_embd, b * n_br * L
+    d = n_embd // n_head
     per_layer = 2 * c * 3 * c + 2 * c * c + 4 * c * hidden
-    f_bf16 = 4.0 * L * c * rows * n_layer
+    f_bf16 = 4.0 * L * n_head * d * rows * n_layer
     if not as_bias:
         per_layer += 4 * c * c
-        f_bf16 += 4.0 * s_len * c * rows * n_layer
+        f_bf16 += 4.0 * s_len * n_head * d * rows * n_layer
     f_f32 = float(per_layer) * rows * n_layer + 2.0 * c * kv * rows
     sp = 8 if as_bias else -(-s_len // 8) * 8
     nbytes = (2.0 * n_layer * (4 * c * c + c * 3 * c + 2 * c * hidden)
               + 2.0 * c * kv + 4.0 * (kv + 1) * c + 4.0 * L * c
               + 4.0 * 2 * b * n_br * n_layer * sp * c + 16.0 * b * L)
     return nbytes, f_f32, f_bf16
+
+
+def megakernel_bound(nbytes: float, flops_f32: float, flops_bf16: float, *,
+                     weights_bf16: bool) -> tuple[float, str]:
+    """:func:`bound` of a whole step (:func:`megakernel_work`) as K3 and K4
+    compute it: each f32 product on the tensor cores in TF32 at 495
+    TFLOP/s, the activations split in two TF32 halves (hi, lo): two TF32
+    products with bf16 weights (a bf16 weight is a TF32 value: lo w + hi
+    w), three with f32 weights (the weight split too: hi hi + hi lo + lo
+    hi); the bf16 products at 989 TFLOP/s."""
+    per_product = 2.0 if weights_bf16 else 3.0
+    return bound(nbytes, 0.0, flops_bf16, flops_tf32=per_product * flops_f32)
 
 
 def card() -> str:

@@ -405,16 +405,20 @@ def _meta_generator(n_embd, n_head):
 
 @pytest.mark.parametrize("n_embd,n_head", [(1024, 16), (128, 2), (48, 4)])
 def test_auto_takes_the_model_route_at_wide_heads(n_embd, n_head):
-    """The whole-step kernels take n_embd 64 in heads of 4 only (F5): at
-    these widths ``kernels_fit`` is false, so ``auto`` takes the model
-    route on the card too, and an explicit 'megakernel' is not turned into
-    another route (``megakernel_step`` refuses the width on the card:
-    tests/test_torch_gpu_kernels.py)."""
+    """The whole-step kernels take n_embd a multiple of 32 up to 512 in
+    heads of a multiple of 4 up to 128: VQ-Diffusion-B's n_embd 1024 and
+    n_embd 48 lie outside, so ``kernels_fit`` is false there and ``auto``
+    takes the model route on the card too; heads of 64 at n_embd 128 lie
+    inside, and ``auto`` takes the megakernel route. An explicit
+    'megakernel' is never turned into another route (``megakernel_step``
+    refuses a width outside on the card: tests/test_torch_gpu_kernels.py)."""
     gen = _meta_generator(n_embd, n_head)
     tr = gen.diffusion.transformer
-    assert not kernels_fit(tr)
+    inside = (n_embd, n_head) == (128, 2)
+    assert kernels_fit(tr) == inside
     cuda = torch.device("cuda")
-    assert resolve_sampler("auto", cuda, 1024, tr, True) == "model"
+    assert resolve_sampler("auto", cuda, 1024, tr, True) == (
+        "megakernel" if inside else "model")
     assert resolve_sampler("megakernel", cuda, 1024, tr, True) == \
         "megakernel"
 

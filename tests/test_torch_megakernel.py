@@ -7,6 +7,8 @@ carried over by ``convert/from_flax.py``, through the port's
 ``ops/megakernel.py``, whose CPU tensors take the plain version of the step.
 Sizes are those of ``tests/test_megakernel.py``.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,30 +48,47 @@ ADALN_TOL = 1e-4
 BF16_MARGIN = 1e-3
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """One flax tree with every leaf drawn (biases and LayerNorm parameters
-    included), the same weights in the port's module, and the JAX and torch
-    schedules."""
+def _make_setup(n_embd, n_head, std=0.3):
+    """One flax tree with every leaf drawn from N(0, std) (biases and
+    LayerNorm parameters included), the same weights in the port's module,
+    and the JAX and torch schedules."""
     rng = np.random.default_rng(0)
     model = JaxDenoiser(num_embed=K_CODES, spatial_size=SPATIAL,
-                        n_layer=N_LAYER, n_embd=N_EMBD, n_head=N_HEAD,
+                        n_layer=N_LAYER, n_embd=n_embd, n_head=n_head,
                         content_seq_len=L, condition_dim=COND_DIM,
                         diffusion_step=T)
     params = jax.jit(model.init)(
         jax.random.key(0), jnp.zeros((B, L), jnp.int32),
         jnp.zeros((B, 1, COND_DIM)), jnp.zeros((B,), jnp.int32))["params"]
     params = jax.tree.map(
-        lambda a: (0.3 * rng.standard_normal(a.shape)).astype(np.float32),
+        lambda a: (std * rng.standard_normal(a.shape)).astype(np.float32),
         jax.device_get(params))
     transformer = DenoiserTransformer(
         num_embed=K_CODES, spatial_size=SPATIAL, n_layer=N_LAYER,
-        n_embd=N_EMBD, n_head=N_HEAD, condition_dim=COND_DIM,
+        n_embd=n_embd, n_head=n_head, condition_dim=COND_DIM,
         diffusion_step=T)
     transformer.load_state_dict(flax_to_state_dict(params))
     return dict(params=params, transformer=transformer.eval(),
                 jsched=jd3pm.make_schedule(T, K),
-                sched=d3pm.make_schedule(T, K))
+                sched=d3pm.make_schedule(T, K), n_embd=n_embd,
+                n_head=n_head)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The tree at N_EMBD in N_HEAD heads (heads of 8)."""
+    return _make_setup(N_EMBD, N_HEAD)
+
+
+# (n_embd, n_head) across the whole-step kernels' domain: head dims 4, 16,
+# 32, 64 and 128 (the setup above is head dim 8)
+WIDTHS = [(32, 8), (64, 4), (64, 2), (128, 2), (128, 1)]
+
+
+@pytest.fixture(scope="module", params=WIDTHS,
+                ids=lambda w: f"{w[0]}x{w[1]}")
+def wsetup(request):
+    return _make_setup(*request.param)
 
 
 def _jax_kw(**extra):
@@ -114,6 +133,7 @@ def _step_inputs(setup, rng, s_len, use_cfg, force_general, dtype, t):
     """The arguments of one step on both sides, from the same numpy draws.
     The JAX tables follow ``megakernel_sample_tokens``'s own preparation."""
     params = setup["params"]
+    n_embd, n_head = setup["n_embd"], setup["n_head"]
     tokens = rng.integers(0, K, (B, L))
     cond = rng.standard_normal((B, s_len, COND_DIM)).astype(np.float32)
     cf = rng.standard_normal((1, s_len, COND_DIM)).astype(np.float32)
@@ -149,9 +169,9 @@ def _step_inputs(setup, rng, s_len, use_cfg, force_general, dtype, t):
         jkc = jnp.pad(jnp.stack([k for k, _ in kvs], axis=1), pad)
         jvc = jnp.pad(jnp.stack([v for _, v in kvs], axis=1), pad)
     jpos = (jp["height"][:, None, :] + jp["width"][None, :, :]).reshape(
-        SPATIAL[0] * SPATIAL[1], N_EMBD)[:L]
+        SPATIAL[0] * SPATIAL[1], n_embd)[:L]
     jax_args = (jp, jnp.asarray(tokens, jnp.int32),
-                jmk._adaln_table(jp, jnp.asarray(t), T, N_EMBD), jkc, jvc,
+                jmk._adaln_table(jp, jnp.asarray(t), T, n_embd), jkc, jvc,
                 jpos, jax_rows(setup["jsched"])[t], jnp.int32(0))
 
     packed = mk.pack_denoiser_params(setup["transformer"],
@@ -159,9 +179,9 @@ def _step_inputs(setup, rng, s_len, use_cfg, force_general, dtype, t):
     kc, vc = mk.cross_tables(packed, torch.from_numpy(cond),
                              torch.from_numpy(cf), use_cfg, as_bias)
     args = (packed, torch.from_numpy(tokens),
-            mk._adaln_table(packed, torch.tensor(t), T, N_EMBD), kc, vc,
+            mk._adaln_table(packed, torch.tensor(t), T, n_embd), kc, vc,
             mk.positions(packed, L), schedule_rows(setup["sched"])[t], 0)
-    kw = dict(n_layer=N_LAYER, n_head=N_HEAD, n_embd=N_EMBD, num_classes=K,
+    kw = dict(n_layer=N_LAYER, n_head=n_head, n_embd=n_embd, num_classes=K,
               guidance=2.0 if use_cfg else 1.0, use_cfg=use_cfg,
               s_valid=s_len, cross_as_bias=as_bias)
     return jax_args, args, kw
@@ -201,6 +221,94 @@ def test_step_tokens_equal_jax_kernels_f32(setup, use_cfg, pack_cfg, s_len,
     got = mk.megakernel_step(*args, sample=False, pack_cfg=pack_cfg, **kw)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# at every width: K3 (packed) and K4 (the (row, branch) grid) under CFG,
+# with a general and a one-token condition, at the last timestep
+WIDTH_CASES = pytest.mark.parametrize(
+    "pack_cfg,s_len", [(True, 3), (True, 1), (False, 3), (False, 1)],
+    ids=["packed-general", "packed-bias", "two_branch-general",
+         "two_branch-bias"])
+_JAX_TOKENS = {}
+
+
+def _jax_width_step(wsetup, pack_cfg, s_len):
+    """The JAX kernels' argmax tokens at a width (interpret mode), and the
+    port's arguments of the same step; the JAX side computed once a case."""
+    rng = np.random.default_rng(200 + 7 * s_len)
+    jax_args, args, kw = _step_inputs(wsetup, rng, s_len, True, False,
+                                      "float32", T - 1)
+    key = (wsetup["n_embd"], wsetup["n_head"], pack_cfg, s_len)
+    if key not in _JAX_TOKENS:
+        _JAX_TOKENS[key] = np.asarray(jmk._megakernel_step(
+            *jax_args, n_layer=N_LAYER, n_head=wsetup["n_head"],
+            n_embd=wsetup["n_embd"], num_classes=K, guidance=2.0,
+            use_cfg=True, s_valid=s_len, sample_mode=False, interpret=True,
+            cross_as_bias=kw["cross_as_bias"], pack_cfg=pack_cfg))
+    return _JAX_TOKENS[key], args, kw
+
+
+@WIDTH_CASES
+def test_step_tokens_equal_jax_kernels_at_every_width(wsetup, pack_cfg,
+                                                       s_len):
+    """The plain step against the JAX kernels across the kernels' domain of
+    head dims (4 to 128), token for token in argmax mode."""
+    want, args, kw = _jax_width_step(wsetup, pack_cfg, s_len)
+    got = mk.megakernel_step(*args, sample=False, pack_cfg=pack_cfg, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@WIDTH_CASES
+def test_kernel_arithmetic_tokens_equal_jax_kernels_at_every_width(
+        wsetup, pack_cfg, s_len):
+    """The step with the kernels' arithmetic (split products, the
+    polynomial share of the exponentials, the softmax shift) against the
+    JAX kernels at every head dim of the domain: the same tokens."""
+    want, args, kw = _jax_width_step(wsetup, pack_cfg, s_len)
+    got = mk.megakernel_step_kernel_arithmetic(*args, sample=False, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _queries_that_round_apart(d, n):
+    """n f32 values q (the few found among 400 000 draws, repeated) whose q
+    * fl32(1 / sqrt(d)) and q / sqrt(d) (f32 division) land on different
+    bf16 values."""
+    rng = np.random.default_rng(61)
+    q = torch.from_numpy(rng.standard_normal(400_000).astype(np.float32))
+    by_product = (q * np.float32(1.0 / math.sqrt(d))).to(torch.bfloat16)
+    by_division = (q / np.float32(math.sqrt(d))).to(torch.bfloat16)
+    apart = q[by_product != by_division]
+    assert apart.numel() > 0
+    return apart[torch.arange(n) % apart.numel()]
+
+
+@pytest.mark.parametrize("d", [8, 12])
+def test_query_scale_rounds_where_jax_rounds(d, monkeypatch):
+    """q is scaled by fl32(1 / sqrt(d)) before its rounding to bf16, as the
+    JAX kernels do (``(q * scale).astype(bf16)``), not divided by sqrt(d):
+    on queries where the two round apart, the port's rounding equals JAX's
+    bit for bit and not the division's, and both the plain self-attention
+    and the kernels' arithmetic take their queries from it. (K3 / K4 take
+    the same factor: ``megakernel_qscale``, held to fl32(1 / sqrt(d)) on the
+    card.)"""
+    n_head = 2
+    q = _queries_that_round_apart(d, 3 * n_head * d).reshape(1, 3,
+                                                             n_head * d)
+    want = np.asarray((jnp.asarray(q.numpy()) * (1.0 / math.sqrt(d))
+                       ).astype(jnp.bfloat16).astype(jnp.float32))
+    got = mk._scale_queries(q, d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    division = mk._bf16(q / math.sqrt(d))
+    assert bool((got != division).all())
+    seen = []
+    real = mk._scale_queries
+    monkeypatch.setattr(mk, "_scale_queries",
+                        lambda x, dd: seen.append(dd) or real(x, dd))
+    g = torch.Generator().manual_seed(3)
+    k, v = (torch.randn((1, 5, n_head * d), generator=g) for _ in range(2))
+    for fn in (mk._attention_reference, mk._attention_kernel_arithmetic):
+        fn(q, k, v, n_head, 5)
+    assert seen == [d, d]
 
 
 @pytest.mark.parametrize("s_len", [3, 1], ids=["general", "bias"])
@@ -343,14 +451,24 @@ def test_d3pm_sample_modes(setup, monkeypatch):
     (64, 16, 4, mk.MEGAKERNEL_MAX_SEQ + 1, True, "cuda", "model"),
     (64, 16, 4, 1024, True, "cpu", "model"),
     (64, 16, 4, 1024, False, "cuda", "model"),      # no condition sequence
-    (32, 4, 4, 1024, True, "cuda", "model"),        # another width
-    (64, 8, 4, 1024, True, "cuda", "model"),        # another head dim
+    (32, 4, 4, 1024, True, "cuda", "megakernel"),   # another width
+    (64, 8, 4, 1024, True, "cuda", "megakernel"),   # another head dim
     (64, 16, 2, 1024, True, "cuda", "megakernel"),  # MLP width 128
+    (128, 2, 4, 1024, True, "cuda", "megakernel"),  # heads of 64
+    (512, 8, 4, mk.MEGAKERNEL_MAX_SEQ, True, "cuda", "megakernel"),
+    (48, 4, 4, 1024, True, "cuda", "model"),        # n_embd = 16 mod 32
+    (1024, 16, 4, 1024, True, "cuda", "model"),     # n_embd above 512
+    (64, 32, 4, 1024, True, "cuda", "model"),       # heads of 2
+    (256, 1, 4, 1024, True, "cuda", "model"),       # heads of 256
+    (96, 16, 4, 1024, True, "cuda", "model"),       # heads of 6
 ], ids=str)
 def test_auto_route_is_a_rule_over_the_configuration(n_embd, n_head, mlp, seq,
                                                      cond, device, want):
-    """'auto' takes the whole-step kernels only for a model they are built
-    for, so the default entry point serves every width and no condition."""
+    """'auto' takes the whole-step kernels for every model in their domain
+    (n_embd a multiple of 32 up to 512, heads of a multiple of 4 up to 128,
+    an MLP width a multiple of 32) on the card, up to 2304 tokens and with
+    a condition; the model route for the rest, so the default entry point
+    serves every width and no condition."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models import (
         discrete_diffusion as dd)
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models.denoiser \
@@ -359,7 +477,9 @@ def test_auto_route_is_a_rule_over_the_configuration(n_embd, n_head, mlp, seq,
                              n_layer=1, n_embd=n_embd, n_head=n_head,
                              condition_dim=COND_DIM, diffusion_step=T,
                              mlp_hidden_times=mlp)
-    fits = n_embd == 64 and n_head == 16 and (mlp * n_embd) % 64 == 0
+    d = n_embd // n_head
+    fits = (n_embd % 32 == 0 and n_embd <= 512 and d % 4 == 0 and d <= 128
+            and (mlp * n_embd) % 32 == 0)
     assert mk.kernels_fit(tr) == fits
     assert dd.resolve_sampler("auto", torch.device(device), seq, tr,
                               cond) == want
@@ -525,18 +645,23 @@ def test_kernel_arithmetic_tokens_equal_jax_kernels_f32(setup, use_cfg,
     assert torch.equal(got, plain)
 
 
-def test_softmax_shift_is_safe_for_any_scores():
+@pytest.mark.parametrize("d", [4, 8, 16, 32, 64, 128])
+def test_softmax_shift_is_safe_for_any_scores(d):
     """The shift of phase S against the exact row maximum, for small scores,
     scores 80 and more apart, a dominant key inside and outside the first 16,
-    and large and tiny operands: it never lies under the maximum by more
-    than the rounding of a 4-term f32 sum, never more than
-    KERNEL_SHIFT_SLACK above it (so the largest exponential of a row is at
-    least exp(-40), far inside f32's range, and a row sum cannot vanish),
-    and both branches (the bound, the exact maximum) are taken."""
+    and large and tiny operands, at every head dim of the kernels: it never
+    lies under the maximum by more than the rounding of a d-term f32 sum,
+    never more than KERNEL_SHIFT_SLACK above it (so the largest exponential
+    of a row is at least exp(-40), far inside f32's range, and a row sum
+    cannot vanish), and both branches (the bound, the exact maximum) are
+    taken."""
     rng = np.random.default_rng(54)
-    R, Lq, Lk, H, d = 2, 96, 80, 4, 4
+    R, Lq, Lk, H = 2, 96, 80, 4
     q = rng.standard_normal((R, Lq, H, d)).astype(np.float32)
     k = rng.standard_normal((R, Lk, H, d)).astype(np.float32)
+    # scores of unit spread at every d (the bound grows as d, the maximum
+    # as sqrt(d): at d = 128 ordinary queries are not all within the slack)
+    q /= np.float32(math.sqrt(d / 4))
     q[0, :32] *= 0.05          # small scores: the bound serves
     q[0, 32:64] *= 60.0        # scores far apart: the exact maximum
     k[1, 40, 0] *= 30.0        # a dominant key outside the first 16
@@ -550,7 +675,7 @@ def test_softmax_shift_is_safe_for_any_scores():
     assert tuple(shift.shape) == (R, H, Lq, 1)
     scale = torch.einsum("rqhd,rhd->rhq", qs.abs(),
                          kb.abs().amax(dim=1))[..., None]
-    assert bool((shift >= exact - 4 * 2.0 ** -24 * scale).all())
+    assert bool((shift >= exact - d * 2.0 ** -24 * scale).all())
     assert bool((shift - exact <= mk.KERNEL_SHIFT_SLACK).all())
     took_exact = shift == exact
     assert bool(took_exact[0, :, 32:64].all())      # the scaled queries
@@ -561,3 +686,23 @@ def test_softmax_shift_is_safe_for_any_scores():
     want = torch.softmax(s.double(), dim=-1)
     assert bool(torch.isfinite(p).all())
     assert float((p.double() - want).abs().max()) <= 1e-5
+
+
+def test_hidden_witness_sits_below_its_control(setup):
+    """The yardsticks chip_smoke.py reads the kernels' hidden state against,
+    on the CPU: the plain version with the kernels' arithmetic (split TF32
+    products, phase S's exponentials), which K3 / K4 compute up to the
+    order of their sums, stays within MK_RMS_SHARE of the RMS distance of
+    the one-TF32 control, and both controls (one TF32 product, bf16
+    activations) lie further off than the f64-summed witness."""
+    import chip_smoke
+    _, args, kw = _step_inputs(setup, np.random.default_rng(5), 3, True,
+                               False, "bfloat16", 3)
+    hidden_kw = {n: v for n, v in kw.items()
+                 if n not in ("num_classes", "guidance")}
+    want = mk.megakernel_hidden_reference(*args[:6], **hidden_kw)
+    got = chip_smoke._hidden_witness(torch, args, hidden_kw, want)
+    assert got["kernel arithmetic"][1] <= \
+        chip_smoke.MK_RMS_SHARE * got["one TF32"][1]
+    for control in ("one TF32", "bf16"):
+        assert got["f64 sums"][1] < got[control][1] / 4
