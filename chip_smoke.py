@@ -196,7 +196,27 @@ Phases:
      over 100 steps (100 K3 launches); (d) with ``--parent ROOT``, K3 and
      K4 at the serving width in turns with ROOT's kernels and with the
      general code built at that width (``MK_GENERAL=1``, first checked
-     against the plain version).
+     against the plain version);
+ 22. the rest of K1, K2, K5 and K6's domain: (a) K1 at K-1 = 8193-32769
+     (rows in shared memory, and at 32768 classes under guidance from
+     device memory), K6 at D = 385-1024 and K = 512-16384 through its three
+     entries (against the f64 distances, rows decided by ``k6_margin(D)``;
+     two shards' nearest equal to the unsharded index), K2 / K5 at head
+     dims 144-512 (the split design) in f32 and bf16, self-attention at
+     B=16, L=1024 in 2 heads and cross-attention over 1 and 77 keys,
+     against their plain versions; (b) each timed there beside its plain
+     version, its bound (the function's work: the split design's
+     recomputed scores are not counted) and the library call (sdpa; for K6
+     ``torch.cdist`` + ``argmin``, two calls); (c) ``WIDE_DOMAIN``:
+     ``tasks.train`` for stage 1 at ``vqvae_ucf.sh``'s widths over 16384
+     codes of dim 512 and stage 2 over its checkpoint (n_embd 512 in heads
+     of 256, bf16, B=16), ``generate`` over stage 2's checkpoint (8 clips,
+     100 steps on ``auto``: the model route, exactly 100 K1 launches at
+     K-1 = 16384 and 3800 K2 at d = 256), then K3 at the honest width with
+     K = 16385 against its plain version and the honest configuration over
+     those codes on ``auto`` (exactly 100 K3 launches); (d) with ``--parent
+     ROOT``, K1's register design bitwise against ROOT's and K2 / K5 at
+     d = 64 in turns.
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -215,6 +235,12 @@ this process by head dim, as the wrappers counted them
 20 (a)'s numbers at each wide head dim (``by_head_dim``); for K3 and K4
 the launches of this process by width (``launches_by_width``), phase 21
 (b)'s numbers at each full width (``by_width``) and the route run of (c);
+phase 22's ``WIDE_DOMAIN`` runs (K6 in both stages, K2 and K5 in bf16 in
+stage 2, K1 and K2 in its sampling, K3 over the large codebook), K1's
+launches by K-1 (``launches_by_classes``) and its new shapes' numbers
+(``by_classes``), K6's entries' launches by D (``launches_by_dim``) and
+its new shapes' numbers (``by_shape``), and phase 22 (b)'s rows in K2 and
+K5's ``by_head_dim``;
 ``launches_by_path`` splits the
 count by the run it came from, each run's counts set to 0 just before it
 and read just after), and the last line ``{"ok": true, "device": {...}}``.
@@ -239,8 +265,8 @@ from pathlib import Path
 
 from gif_synthesis_with_discrete_diffusion_tpu_torch.roofline import (
     PEAK_BF16, PEAK_BYTES, PEAK_F32, PEAK_TF32, attention_work,
-    bound as _bound, card, megakernel_bound as _megakernel_bound,
-    megakernel_work as _megakernel_work)
+    bound as _bound, card, codebook_work, megakernel_bound as
+    _megakernel_bound, megakernel_work as _megakernel_work, sample_step_work)
 
 ROOT = Path(__file__).resolve().parent
 PKG = "gif_synthesis_with_discrete_diffusion_tpu_torch"
@@ -488,7 +514,7 @@ def phase_k1(torch, smi: str, parent: str | None = None) -> dict:
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
         make_schedule)
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
-        import (MAX_CLASSES, fused_sample_step, fused_sample_step_reference,
+        import (fused_sample_step, fused_sample_step_reference,
                 fused_sample_step_kernel_arithmetic, schedule_rows)
 
     worst = 0.0
@@ -539,16 +565,14 @@ def phase_k1(torch, smi: str, parent: str | None = None) -> dict:
             raise AssertionError("K1 disagrees with its plain version")
         worst = max(worst, err)
     del logits2, post_k, post_p
-    # what the kernel does not take raises, with no copy of the logits
+    # what the kernel does not take raises, with no copy of the logits (any
+    # K-1 is taken: above 8192 phase 22 checks it)
     K = 4097
     rows = schedule_rows(make_schedule(100, K, device="cuda"))
     refused = []
     for name, logits2, k in (
             ("a class axis that is not contiguous",
-             torch.zeros((8, K - 1, 64), device="cuda"), K),
-            (f"K-1 = {MAX_CLASSES + 1}",
-             torch.zeros((8, 64, MAX_CLASSES + 1),
-                         device="cuda").transpose(1, 2), MAX_CLASSES + 2)):
+             torch.zeros((8, K - 1, 64), device="cuda"), K),):
         try:
             fused_sample_step(logits2, torch.zeros((4, 64), dtype=torch.int64,
                                                    device="cuda"), rows[3], 1,
@@ -556,8 +580,8 @@ def phase_k1(torch, smi: str, parent: str | None = None) -> dict:
         except ValueError:
             refused.append(name)
     print(f"phase 2: K1 refuses {'; '.join(refused)}")
-    if len(refused) != 2:
-        raise AssertionError("K1 took a layout or size it does not hold")
+    if len(refused) != 1:
+        raise AssertionError("K1 took a layout it does not hold")
 
     # past 2^31 (B K L) Philox counters: B=228 at the 2304-token grid,
     # guidance 1; the plain version row by row in chunks (its temporaries
@@ -3991,27 +4015,38 @@ def _phase20_kernels(torch, smi: str) -> dict:
     d = 128; cross-attention over 1 and 77 keys), then timed there with
     the bound, the exponential floor and the library call. Returns the
     numbers by (d, dtype)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes.\
+        attention_variants import heads
+    return _attention_widths(torch, smi, "phase 20", WIDE_HEAD_DIMS, WIDE_B,
+                             heads)
+
+
+def _attention_widths(torch, smi: str, phase: str, dims, b: int,
+                      heads) -> dict:
+    """K2 and K5 at head dims ``dims`` in ``heads(d)`` heads, f32 and bf16,
+    against their plain versions (self-attention at B=``b``, L=1024;
+    cross-attention over 1 and 77 keys), then timed there with the bound
+    (the function's work), the exponential floor and the library call.
+    Returns the numbers by (d, dtype)."""
     import torch.nn.functional as F
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
         BF16_EXCESS_TOL, _fwd_kernel, fused_mha, fused_mha_bwd,
         fused_mha_bwd_reference, kernel_head_dim, sdpa_reference)
-    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes.\
-        attention_variants import heads
 
     exp_rate = _exp_rate(torch)
     rows = {}
-    for d in WIDE_HEAD_DIMS:
+    for d in dims:
         H = heads(d)
         C = H * d
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
             worst = 0.0
             for lk in (WIDE_L, 1, 77):
-                case = (f"phase 20: d={d} (instantiation "
-                        f"{kernel_head_dim(d)}) {name} B={WIDE_B} "
+                case = (f"{phase}: d={d} (instantiation "
+                        f"{kernel_head_dim(d)}) {name} B={b} "
                         f"Lq={WIDE_L} Lk={lk} H={H}")
                 if dtype == torch.float32:
-                    r = _f32_attention_case(torch, WIDE_B, WIDE_L, lk, C, H)
+                    r = _f32_attention_case(torch, b, WIDE_L, lk, C, H)
                     print(f"{case}: max-abs o {r['o']:.3e} (tol {K2_TOL} + "
                           f"{K2_TOL} |x|), dq {r['dq']:.3e}, dk {r['dk']:.3e},"
                           f" dv {r['dv']:.3e} (tol {K5_TOL} + {K5_TOL} |x|); "
@@ -4022,7 +4057,7 @@ def _phase20_kernels(torch, smi: str) -> dict:
                     worst = max(worst, *(r[n] for n in ("o", "dq", "dk",
                                                         "dv")))
                     continue
-                r = _bf16_attention_case(torch, WIDE_B, WIDE_L, lk, C, H)
+                r = _bf16_attention_case(torch, b, WIDE_L, lk, C, H)
                 names = ("o", "dq", "dk", "dv")
                 ctl = [r["control"][n] for n in names]
                 print(f"{case}: o32 (f32) max-abs {r['o32']:.3e} (tol "
@@ -4046,10 +4081,10 @@ def _phase20_kernels(torch, smi: str) -> dict:
             g = torch.Generator(device="cuda").manual_seed(d)
             out = {"max_abs_err": worst}
             for shape, lk in (("self", WIDE_L), ("cross", 1)):
-                q, do = (torch.randn((WIDE_B, WIDE_L, C), generator=g,
+                q, do = (torch.randn((b, WIDE_L, C), generator=g,
                                      device="cuda").to(dtype)
                          for _ in range(2))
-                k, v = (torch.randn((WIDE_B, lk, C), generator=g,
+                k, v = (torch.randn((b, lk, C), generator=g,
                                     device="cuda").to(dtype)
                         for _ in range(2))
                 ms, plain_ms = _ab_ms(lambda: sdpa_reference(q, k, v, H),
@@ -4060,10 +4095,10 @@ def _phase20_kernels(torch, smi: str) -> dict:
                     lambda: fused_mha_bwd_reference(q, k, v, do, H),
                     lambda: fused_mha_bwd(q, k, v, o32, lse, do, n_head=H),
                     WIDE_ITERS)
-                qh, kh, vh = (x.reshape(WIDE_B, -1, H, d).transpose(1, 2)
+                qh, kh, vh = (x.reshape(b, -1, H, d).transpose(1, 2)
                               .contiguous().requires_grad_()
                               for x in (q, k, v))
-                doh = do.reshape(WIDE_B, -1, H, d).transpose(1, 2).contiguous()
+                doh = do.reshape(b, -1, H, d).transpose(1, 2).contiguous()
                 with torch.no_grad():
                     lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                         qh, kh, vh), WIDE_ITERS)
@@ -4078,21 +4113,22 @@ def _phase20_kernels(torch, smi: str) -> dict:
                                                ("K5", bms, bplain_ms,
                                                 blib_ms, True)):
                     nbytes, flops, exps = attention_work(
-                        WIDE_B, WIDE_L, lk, H, d, backward=bwd)
+                        b, WIDE_L, lk, H, d, backward=bwd)
                     bound_ms, bound_by = _attention_bound(dtype, flops,
                                                           nbytes)
                     exp_ms = exps / exp_rate * 1e3
                     out[f"{kernel} {shape}"] = dict(
                         ms=t, plain_ms=p, library_ms=lib, bound_ms=bound_ms,
-                        bound_by=bound_by, exp_floor_ms=exp_ms)
-                    print(f"phase 20: {kernel} d={d} {name} {shape} "
-                          f"(B={WIDE_B}, Lq={WIDE_L}, Lk={lk}, H={H}) kernel "
+                        bound_by=bound_by, share=bound_ms / t,
+                        exp_floor_ms=exp_ms)
+                    print(f"{phase}: {kernel} d={d} {name} {shape} "
+                          f"(B={b}, Lq={WIDE_L}, Lk={lk}, H={H}) kernel "
                           f"{t:.4f} ms, plain {p:.4f} ms, sdpa ({backend}) "
                           f"{'autograd backward ' if bwd else ''}{lib:.4f} "
                           f"ms, bound {bound_ms:.4f} ms by {bound_by} "
                           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB "
-                          f"in f32), exponential floor {exp_ms:.4f} ms "
-                          f"({smi})")
+                          f"in f32; {bound_ms / t:.3f} of it), exponential "
+                          f"floor {exp_ms:.4f} ms ({smi})")
                 del q, k, v, do, qh, kh, vh, doh, lse, o32
                 torch.cuda.empty_cache()
             rows[(d, name)] = out
@@ -4754,6 +4790,548 @@ def phase_mk_widths(torch, smi: str, builds: dict,
             "route": route}
 
 
+# phase 22: the rest of K1, K2, K5 and K6's domain. K1 above the register
+# design's 8192 classes (in shared memory, and past it from device memory:
+# 32768 classes under guidance), K6 above code dim 384 (x streamed beside E)
+# through its three entries, K2 / K5 above head dim 128 (the split design),
+# then WIDE_DOMAIN, a configuration that needs all four, through the
+# entries users run
+P22_K1_CASES = ((8193, 2.0, 3.0), (10240, 2.0, 3.0), (10241, 2.0, 3.0),
+                (16384, 2.0, 3.0), (16384, 1.0, 3.0), (16384, 2.0, 30.0),
+                (32768, 2.0, 3.0), (32768, 1.0, 3.0), (32769, 2.0, 3.0))
+P22_K1_TIMED = (8193, 10240, 16384, 32768)
+P22_K6_DIMS = (385, 512, 768, 1024)
+P22_K6_CODES = (512, 4096, 16384)
+P22_HEAD_DIMS = (144, 192, 256, 512)
+P22_B, P22_L = 16, 1024    # WIDE_DOMAIN's training batch, 1024 tokens
+P22_ITERS = 3
+
+
+def _phase22_k1(torch, smi: str) -> dict:
+    """K1 at K-1 = 8193-32769 (B=4 under guidance and without, L=1024)
+    against its plain version: posterior within K1_TOL, argmax tokens equal
+    at decided positions, sampled tokens in [0, K) and as often on the
+    posterior's argmax as the plain version's draws; then timed at 2B=16
+    (WIDE_DOMAIN's sampling batch) at each of P22_K1_TIMED."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
+        make_schedule)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import (fused_sample_step, fused_sample_step_reference,
+                sample_step_design, schedule_rows)
+
+    worst = 0.0
+    B, L = 4, 1024
+    for kv, guidance, scale in P22_K1_CASES:
+        K = kv + 1
+        rows = schedule_rows(make_schedule(100, K, device="cuda"))
+        g = torch.Generator(device="cuda").manual_seed(kv + int(scale))
+        nb = 2 * B if guidance != 1.0 else B
+        logits2 = (scale * torch.randn((nb, L, kv), generator=g,
+                                       device="cuda")).transpose(1, 2)
+        tokens = torch.randint(0, kv, (B, L), generator=g, device="cuda")
+        tokens = torch.where(torch.rand((B, L), generator=g, device="cuda")
+                             < 0.5, kv, tokens)
+        args = (logits2, tokens, rows[50], 7)
+        kw = dict(guidance=guidance, num_classes=K, return_posterior=True)
+        tok_k, post_k = fused_sample_step(*args, sample=False, **kw)
+        tok_p, post_p = fused_sample_step_reference(*args, sample=False, **kw)
+        err = (post_k - post_p).abs().max().item()
+        top2 = post_p.topk(2, dim=1).values
+        decided = (top2[:, 0] - top2[:, 1]) > K1_TOL
+        wrong = ((tok_k != tok_p) & decided).sum().item()
+        del post_k, post_p, top2
+        drawn = fused_sample_step(*args, sample=True, **kw)[0]
+        in_range = bool(((drawn >= 0) & (drawn < K)).all())
+        rate_k = (drawn == tok_p).float().mean().item()
+        rate_p = (fused_sample_step_reference(*args, sample=True, **kw)[0]
+                  == tok_p).float().mean().item()
+        design = sample_step_design(kv, nb == 2 * B)
+        print(f"phase 22: K1 B={B} L={L} K-1={kv} guidance={guidance} "
+              f"logits x {scale} (rows in {design}): posterior max-abs "
+              f"{err:.3e} (tol {K1_TOL}), {wrong} token mismatches of "
+              f"{int(decided.sum())} decided positions; sampled tokens in "
+              f"[0, K): {in_range}, = argmax at {rate_k:.4f} (kernel) vs "
+              f"{rate_p:.4f} (plain)")
+        if not err <= K1_TOL or wrong or not in_range or \
+                not abs(rate_k - rate_p) < 0.05:
+            raise AssertionError("K1 disagrees with its plain version")
+        worst = max(worst, err)
+        del logits2, tokens, drawn, tok_k, tok_p
+        torch.cuda.empty_cache()
+
+    timed = {}
+    B = 8
+    for kv in P22_K1_TIMED:
+        K = kv + 1
+        rows = schedule_rows(make_schedule(100, K, device="cuda"))
+        g = torch.Generator(device="cuda").manual_seed(5 + kv)
+        logits2 = torch.randn((2 * B, L, kv), generator=g,
+                              device="cuda").transpose(1, 2)
+        tokens = torch.full((B, L), kv, dtype=torch.int64, device="cuda")
+        kw = dict(guidance=2.0, num_classes=K, sample=True)
+        ms, plain_ms = _ab_ms(
+            lambda: fused_sample_step_reference(logits2, tokens, rows[50], 3,
+                                                **kw),
+            lambda: fused_sample_step(logits2, tokens, rows[50], 3, **kw),
+            P22_ITERS)
+        nbytes, flops = sample_step_work(B, 2 * B, kv, L)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        timed[str(kv)] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              rows_in=sample_step_design(kv, True))
+        print(f"phase 22: K1 (2B={2 * B}, K-1={kv}, L={L}, rows in "
+              f"{timed[str(kv)]['rows_in']}) kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12} TB/s), "
+              f"{bound_ms / ms:.3f} of it; no single library call ({smi})")
+        del logits2, tokens
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "by_classes": timed}
+
+
+def k6_margin(d: int) -> float:
+    """K6_MARGIN (set at D <= 128) at code dim ``d``: the f32 sums of a
+    distance (||e||^2, of size ~D, and x.e) err by ~sqrt(D) roundings of
+    an ulp that grows with D, so the margin that decides a row grows as
+    (D / 128)^1.5 above 128."""
+    return K6_MARGIN * max(1.0, d / 128) ** 1.5
+
+
+def _phase22_k6(torch, smi: str) -> dict:
+    """K6 at D = 385-1024 and K = 512, 4096, 16384 (N = 4096 rows, 16384
+    at WIDE_DOMAIN's K = 16384, D = 512) through its three entries against
+    the distances in f64: the statistics entry's indices at the rows whose
+    top-two margin exceeds ``k6_margin(D)``, its statistics from its own
+    indices; the distance entry's indices equal to the statistics entry's,
+    its distances within ``k6_margin(D) / 4`` of the f64 ones at those
+    indices; the statistics entry over a range of codes equal to the plain
+    one; and the codebook cut into two shards, the nearest over the shards
+    (ties to the lower) equal to the unsharded index. Then timed at
+    N=16384, K=4096 at each D and at WIDE_DOMAIN's shape, with torch.cdist
+    + argmin (two library calls) beside it."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import (code_stats, code_stats_range_reference, code_stats_reference,
+                nearest_code_dist, nearest_code_stats,
+                nearest_code_stats_reference)
+
+    worst = 0.0
+    for d in P22_K6_DIMS:
+        for k in P22_K6_CODES:
+            n = 16384 if (k, d) == (16384, 512) else 4096
+            g = torch.Generator(device="cuda").manual_seed(n + k + d)
+            x = torch.randn((n, d), generator=g, device="cuda")
+            emb = torch.randn((k, d), generator=g, device="cuda")
+            margin = k6_margin(d)
+            idx, n_total, encode_sum = nearest_code_stats(x, emb)
+            xd, ed = x.double(), emb.double()
+            dist = -2.0 * (xd @ ed.t()) + (ed * ed).sum(dim=-1)[None, :]
+            ref_idx = dist.argmin(dim=1).to(torch.int32)
+            top2 = (-dist).topk(2, dim=1).values
+            decided = (top2[:, 0] - top2[:, 1]) > margin
+            want_n, want_sum = code_stats_reference(x, idx, k)
+            wrong = int(((idx != ref_idx) & decided).sum())
+            err = max((n_total - want_n).abs().max().item(),
+                      (encode_sum - want_sum).abs().max().item())
+            d_idx, d_dist = nearest_code_dist(x, emb)
+            want_dist = dist.gather(1, d_idx.long()[:, None])[:, 0]
+            dist_err = (d_dist - want_dist).abs().max().item()
+            half = k // 2
+            lo_i, lo_d = nearest_code_dist(x, emb[:half].contiguous())
+            hi_i, hi_d = nearest_code_dist(x, emb[half:].contiguous())
+            sharded = torch.where(hi_d < lo_d, hi_i + half, lo_i)
+            lo = k // 4
+            r_n, r_sum = code_stats(x, idx, lo, half)
+            w_n, w_sum = code_stats_range_reference(x, idx, lo, half)
+            stats_err = max((r_n - w_n).abs().max().item(),
+                            (r_sum - w_sum).abs().max().item())
+            ok = (not wrong and err <= K6_TOL and torch.equal(d_idx, idx)
+                  and dist_err <= margin / 4 and torch.equal(sharded, idx)
+                  and stats_err <= K6_TOL and torch.equal(n_total, want_n))
+            print(f"phase 22: K6 N={n} K={k} D={d}: {wrong} index mismatches "
+                  f"with the f64 argmin of {int(decided.sum())} rows decided "
+                  f"by {margin:.4f}, statistics max-abs "
+                  f"{err:.3e} (tol {K6_TOL}); nearest_code_dist: indices "
+                  f"equal {torch.equal(d_idx, idx)}, distances max-abs "
+                  f"{dist_err:.3e} (tol {margin / 4:.3e}), two shards' nearest"
+                  f" = unsharded {torch.equal(sharded, idx)}; code_stats "
+                  f"[{lo}, {lo + half}) max-abs {stats_err:.3e}")
+            if not ok:
+                raise AssertionError("K6 disagrees with its plain version")
+            worst = max(worst, err, stats_err)
+            del x, emb, xd, ed, dist, top2
+            torch.cuda.empty_cache()
+
+    timed = {}
+    for n, k, d in [(16384, 4096, dd) for dd in P22_K6_DIMS] + [
+            (16384, 16384, 512)]:
+        g = torch.Generator(device="cuda").manual_seed(9 + d)
+        x = torch.randn((n, d), generator=g, device="cuda")
+        emb = torch.randn((k, d), generator=g, device="cuda")
+        ms, plain_ms = _ab_ms(lambda: nearest_code_stats_reference(x, emb),
+                              lambda: nearest_code_stats(x, emb), P22_ITERS)
+        lib_ms = _time_ms(lambda: torch.cdist(x, emb).argmin(dim=1),
+                          P22_ITERS)
+        nbytes, flops = codebook_work(n, k, d)
+        bound_ms, bound_by = _bound(nbytes, 0.0, flops_tf32=3.0 * flops)
+        timed[f"{n}x{k}x{d}"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library="torch.cdist + argmin (two calls, no statistics)",
+            bound_ms=bound_ms, bound_by=bound_by)
+        print(f"phase 22: K6 (N={n}, K={k}, D={d}) kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.cdist + argmin (two calls, no "
+              f"statistics) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} (3 x {flops / 1e9:.1f} GFLOP at "
+              f"{PEAK_TF32 / 1e12} TFLOP/s TF32), {bound_ms / ms:.3f} of it "
+              f"({smi})")
+        del x, emb
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "by_shape": timed}
+
+
+def _phase22_attention(torch, smi: str) -> dict:
+    """K2 and K5 at head dims 144-512 in 2 heads, f32 and bf16, against the
+    plain versions (self at B=16, L=1024; cross over 1 and 77 keys), timed
+    at B=16 with sdpa beside them; the share of the split design's products
+    that recompute the scores."""
+    rows = _attention_widths(torch, smi, "phase 22", P22_HEAD_DIMS, P22_B,
+                             lambda d: 2)
+    for d in P22_HEAD_DIMS:
+        w = split_products(d)
+        print(f"phase 22: d={d}: {w['chunks']} column chunks; a (query, key)"
+              f" pair costs K2 {w['fwd']} FLOP ({w['fwd_function']} the "
+              f"function's; {w['fwd_recompute']:.3f} of them recompute the "
+              f"scores) and K5 {w['bwd']} ({w['bwd_function']}; "
+              f"{w['bwd_recompute']:.3f}); the bound counts the function's")
+        for (dd, name), row in rows.items():
+            if dd == d:
+                row["split_products"] = w
+    return rows
+
+
+def split_products(d: int) -> dict:
+    """FLOP a (query, key, head) pair of the split design (head dim ``d``
+    above 128) runs: K2 recomputes the scores (over d padded to a multiple
+    of SPLIT_CHUNK) once for each of its ``chunks`` column chunks of
+    SPLIT_OUT and runs P V over SPLIT_OUT columns a chunk; K5 does so in both its kernels (S and dP), and runs dQ, dK, dV
+    over 128 columns a chunk. Beside them the function's work (K2 4 d, K5
+    10 d, as ``roofline.attention_work``) and the share of the kernels'
+    products that the column split recomputes."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        SPLIT_OUT, kernel_head_dim)
+    chunks, dp = -(-d // SPLIT_OUT), kernel_head_dim(d)
+    fwd = chunks * (2 * dp + 2 * SPLIT_OUT)
+    bwd = chunks * (2 * 4 * dp + 6 * SPLIT_OUT)
+    return dict(chunks=chunks, fwd=fwd, bwd=bwd, fwd_function=4 * d,
+                bwd_function=10 * d,
+                fwd_recompute=(chunks - 1) * 2 * dp / fwd,
+                bwd_recompute=(chunks - 1) * 2 * 4 * dp / bwd)
+
+
+# WIDE_DOMAIN: a configuration that needs all four kernels past their old
+# domain, through the existing overrides. Stage 1 at vqvae_ucf.sh's widths
+# with the 16384 codes of TATS' 3D VQGAN (Ge et al., ECCV 2022) at code dim
+# 512 (K6 at K = 16384, D = 512); stage 2 at ddiff_ucf.sh's honest
+# configuration (19 layers, 1024 tokens, CFG 2, a label condition) over
+# that codebook, the denoiser at n_embd 512 in 2 heads of 256 (K2 / K5 at
+# d = 256, K1 at K - 1 = 16384), bf16 compute
+WIDE_DOMAIN = {
+    "stage1": ("model.generator.n_codes=16384",
+               "model.generator.embedding_dim=512"),
+    "stage2": ("model.autoencoder.n_codes=16384",
+               "model.autoencoder.embedding_dim=512",
+               "model.generator.diffusion_model.transformer.n_embd=512",
+               "model.generator.diffusion_model.transformer.n_head=2",
+               "model.generator.diffusion_model.transformer.dtype=bfloat16"),
+}
+WIDE_DOMAIN_STEPS = {"stage1": 2, "stage2": 3}
+WIDE_DOMAIN_CLIPS = 8           # sampled on auto: 2B = 16 logits rows
+WIDE_DOMAIN_K3_CLIPS = 32       # the honest width over the 16384 codes
+
+
+def _phase22_train(torch, smi: str, base: Path) -> dict:
+    """(c) WIDE_DOMAIN trained: stage 1 (2 steps of B=64, then its
+    checkpoint) and stage 2 over that checkpoint (3 bf16 steps of B=16)
+    through ``tasks.train``'s function in this process (phase 17's way, so
+    that the launches are counted here). Returns each stage's launches and
+    run directory."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch import tasks
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        fused_mha, fused_mha_bwd)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import nearest_code_stats
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage1 import (
+        Stage1Trainer)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        Stage2Trainer)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.utils.config import (
+        compose)
+
+    out = {}
+    quiet = ["model.do_evaluation=false", "trainer.max_epochs=1",
+             "trainer.check_val_every_n_epoch=2", "extras.print_config=false"]
+    for stage, script, trainer_cls, b in (
+            ("stage1", "vqvae_ucf.sh", Stage1Trainer, 64),
+            ("stage2", "ddiff_ucf.sh", Stage2Trainer, 16)):
+        steps = WIDE_DOMAIN_STEPS[stage]
+        extra = ([] if stage == "stage1" else [
+            f"model.checkpoint_paths.autoencoder="
+            f"{out['stage1']['run'] / 'checkpoints'}"])
+        cfg = compose("train", _job_overrides(script) + list(HARNESS_BASE)
+                      + list(WIDE_DOMAIN[stage]) + quiet + extra + [
+                          f"trainer.max_steps={steps}",
+                          f"datamodule.num_train={b * steps}",
+                          f"paths.output_dir={base / stage}"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_harness_counts()
+        widths = [f.by_head_dim.copy() for f in (fused_mha, fused_mha_bwd)]
+        dims = nearest_code_stats.by_dim.copy()
+        probe = _StepProbe(torch, trainer_cls)
+        t0 = time.perf_counter()
+        with probe:
+            tasks.train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = _harness_counts()
+        widths = [dict(f.by_head_dim - w)
+                  for f, w in zip((fused_mha, fused_mha_bwd), widths)]
+        dims = dict(nearest_code_stats.by_dim - dims)
+        step, span, _, issue = probe.timing(2)
+        model = cfg["model"]
+        if stage == "stage1":
+            g = model["generator"]
+            what = (f"stage 1 at vqvae_ucf.sh's widths, {g['n_codes']} codes "
+                    f"of dim {g['embedding_dim']}")
+            ok = counts["K6"] >= steps and set(dims) == {g["embedding_dim"]}
+        else:
+            tr = model["generator"]["diffusion_model"]["transformer"]
+            ae = model["autoencoder"]
+            what = (f"stage 2 at ddiff_ucf.sh, {tr['n_layer']} layers, n_embd "
+                    f"{tr['n_embd']} in {tr['n_head']} heads of "
+                    f"{tr['n_embd'] // tr['n_head']}, {tr['dtype']}, over "
+                    f"{ae['n_codes']} codes of dim {ae['embedding_dim']}")
+            at_256 = {(256, torch.bfloat16): steps * 2 * tr["n_layer"]}
+            ok = (counts["K5"] == steps * 2 * tr["n_layer"]
+                  and counts["K2"] == counts["K5"] and counts["K6"] == steps
+                  and widths == [at_256, at_256]
+                  and set(dims) == {ae["embedding_dim"]})
+        print(f"phase 22: WIDE_DOMAIN {what}: tasks.train, B={cfg['batch_size']}"
+              f", {steps} steps: wall {wall:.2f} s; steps 2-{steps} "
+              f"{step:.4f} s a step in the loop, {span:.4f} s inside each "
+              f"step (CUDA events), {issue:.4f} s to issue one (host clock); "
+              f"launches " + ", ".join(f"{k} {v}" for k, v in counts.items())
+              + f"; K2 / K5 by (head dim, dtype) {_by_head_dim(widths[0])} / "
+              f"{_by_head_dim(widths[1])}; K6 by D {dims}; peak memory "
+              f"{peak:.2f} GiB ({smi})")
+        if probe.trainer.global_step != steps or not ok:
+            raise AssertionError(f"WIDE_DOMAIN {stage} did not launch its "
+                                 f"kernels as expected: {counts}")
+        out[stage] = dict(counts, run=_run_dir(base / stage), s_step=step)
+        del probe
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase22_sample(torch, smi: str, base: Path, ckpt: Path) -> dict:
+    """(c) WIDE_DOMAIN sampled: ``python -m ..._torch.generate``'s function
+    over stage 2's checkpoint, 8 clips, 100 steps on ``auto`` (the model
+    route: K2 at d = 256 and K1 at K-1 = 16384 each step), then the decode;
+    the ms a step. Returns the launches."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch import generate
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        fused_mha)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import fused_sample_step
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        Stage2Trainer)
+
+    argv = (_job_overrides("ddiff_ucf.sh") + list(HARNESS_BASE)
+            + list(WIDE_DOMAIN["stage2"]) + [
+                "extras.print_config=false", f"ckpt_path={ckpt}",
+                f"+num_samples={WIDE_DOMAIN_CLIPS}",
+                f"+out_dir={base / 'samples'}"])
+    seen = {}
+    saved = Stage2Trainer.sample_videos
+
+    def sample_videos(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        videos = saved(self, *args, **kw)
+        torch.cuda.synchronize()
+        seen.update(wall=time.perf_counter() - t0, shape=tuple(videos.shape),
+                    finite=bool(torch.isfinite(videos).all()),
+                    route=self.sampler)
+        return videos
+
+    _reset_harness_counts()
+    k1 = fused_sample_step.by_classes.copy()
+    k2 = fused_mha.by_head_dim.copy()
+    Stage2Trainer.sample_videos = sample_videos
+    try:
+        rc = generate.main(argv)
+    finally:
+        Stage2Trainer.sample_videos = saved
+    torch.cuda.synchronize()
+    counts = _harness_counts()
+    k1 = dict(fused_sample_step.by_classes - k1)
+    k2 = dict(fused_mha.by_head_dim - k2)
+    steps = 100
+    ms = 1e3 * seen["wall"] / steps
+    print(f"phase 22: WIDE_DOMAIN sampled through generate over stage 2's "
+          f"checkpoint: {seen['shape'][0]} clips, {steps} steps on 'auto' "
+          f"(route {seen['route']!r}) and the decode: {seen['wall']:.3f} s, "
+          f"{ms:.3f} ms a step with the decode; launches K1 {counts['K1']} "
+          f"(by K-1 {k1}), K2 {counts['K2']} (by (head dim, dtype) "
+          f"{_by_head_dim(k2)}), K3 {counts['K3']}; videos {seen['shape']}, "
+          f"finite {seen['finite']} ({smi})")
+    n2 = sum(n for (d, _), n in k2.items() if d == 256)
+    if (rc != 0 or seen["route"] != "model" or k1 != {16384: steps}
+            or counts["K1"] != steps or n2 != 38 * steps
+            or counts["K2"] != n2 or counts["K3"] or not seen["finite"]
+            or seen["shape"][0] != WIDE_DOMAIN_CLIPS):
+        raise AssertionError(f"WIDE_DOMAIN's sampling did not take the model"
+                             f" route with its launches: {counts}")
+    return dict(counts, ms_step=ms)
+
+
+def _phase22_k3(torch, smi: str) -> dict:
+    """(c) The main path over the large codebook: K3 at the honest width
+    (n_embd 64 in heads of 4, 19 layers, 1024 tokens) with K = 16385,
+    against the plain version (B=2, bf16 weights); then HONEST over 16384
+    codes on ``auto``: 32 clips, 100 steps, 100 K3 launches, tokens in
+    range, no MASK left."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        HONEST, build_models, sample_token_grid)
+
+    k = 16385
+    args, kw = _megakernel_case(
+        torch, L=1024, spatial=(32, 32), k=k, n_layer=19, s_len=1, B=2,
+        use_cfg=True, dtype=torch.bfloat16, seed=k)
+    err = _check_megakernel(torch, "phase 22", "K3 bf16 weights B=2 L=1024 "
+                            "K=16385 19 layers S=1 (the honest width over "
+                            "16384 codes)", args, kw, True)[1]
+    del args
+    torch.cuda.empty_cache()
+    config = dict(HONEST, vqvae=dict(HONEST["vqvae"], n_codes=k - 1,
+                                     embedding_dim=512))
+    models = build_models(config, "cuda", torch.Generator().manual_seed(0))
+    steps = config["generator"]["diffusion_model"]["diffusion_step"]
+    g = torch.Generator().manual_seed(22)
+    batch = {"label": torch.randint(0, 101, (WIDE_DOMAIN_K3_CLIPS,),
+                                    generator=g)}
+    _reset_megakernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = sample_token_grid(models, batch, g, sampler="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _megakernel_counts()
+    print(f"phase 22: HONEST over {k - 1} codes of dim 512, "
+          f"{WIDE_DOMAIN_K3_CLIPS} clips, {steps} steps on 'auto': "
+          f"{wall:.3f} s ({1e3 * wall / steps:.3f} ms a step), launches K3 "
+          f"{counts[0]}, K4 {counts[1]} (expected {steps}, 0); tokens in "
+          f"[{int(tokens.min())}, {int(tokens.max())}], MASK left "
+          f"{int((tokens == k - 1).sum())} ({smi})")
+    if counts != (steps, 0) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= k - 1:
+        raise AssertionError("HONEST over 16384 codes did not sample "
+                             "through K3")
+    del models
+    torch.cuda.empty_cache()
+    return {"K3": counts[0], "max_abs_err": err,
+            "ms_step": 1e3 * wall / steps}
+
+
+def _phase22_parent_k1(torch, parent: str) -> None:
+    """(d) K1 at K-1 = 4096 and 8192 (the register design, whose code the
+    wide kernel left as it was), sampled: ROOT's kernel (its ``sample_step.cu``
+    built into ``_build/parent`` and launched through this wrapper) and this
+    checkout's give the same tokens bit for bit."""
+    import ctypes
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
+        make_schedule)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        cuda_build, sampler_kernel)
+    lib = cuda_build.load(
+        str(Path(parent).resolve() / PKG / "csrc" / "sample_step.cu"),
+        cuda_build.BUILD_DIR / "parent")
+    lib.fused_sample_step.argtypes = (
+        sampler_kernel._library().fused_sample_step.argtypes)
+    lib.fused_sample_step.restype = ctypes.c_int
+    B, L = 8, 1024
+    for kv in (4096, 8192):
+        rows = sampler_kernel.schedule_rows(make_schedule(100, kv + 1,
+                                                          device="cuda"))
+        g = torch.Generator(device="cuda").manual_seed(kv)
+        logits2 = torch.randn((2 * B, L, kv), generator=g,
+                              device="cuda").transpose(1, 2)
+        tokens = torch.full((B, L), kv, dtype=torch.int64, device="cuda")
+        args = (logits2, tokens, rows[50], 3)
+        kw = dict(guidance=2.0, num_classes=kv + 1, sample=True)
+        own = sampler_kernel.fused_sample_step(*args, **kw)
+        saved = sampler_kernel._library
+        sampler_kernel._library = lambda: lib
+        try:
+            theirs = sampler_kernel.fused_sample_step(*args, **kw)
+        finally:
+            sampler_kernel._library = saved
+        same = torch.equal(own, theirs)
+        print(f"phase 22: K1 2B={2 * B} K-1={kv} L={L}, sampled: this "
+              f"checkout's tokens and {parent}'s bitwise equal: {same}")
+        if not same:
+            raise AssertionError("K1's register design moved from the "
+                                 "parent's")
+
+
+def _phase22_parent_turns(torch, smi: str, parent: str | None) -> None:
+    """(d) With ``--parent ROOT``: K1's register design against ROOT's bit
+    for bit, and K2 and K5 at d = 64 (VQ-Diffusion-B's heads), f32, in
+    turns (``probes/attention_variants.py``: compare); K1 and K6 at today's
+    shapes are timed in turns in phases 2 and 6, and K2 / K5 at d = 4 in
+    phase 20 (d)."""
+    if parent is None:
+        return
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        attention_variants)
+    _phase22_parent_k1(torch, parent)
+    res = attention_variants.compare(parent, rounds=1, head_dim=64,
+                                     log=lambda line: None)
+    for side, runs in res["ms"].items():
+        print(f"phase 22: d = 64 in turns, {side}: " + "; ".join(
+            ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) for ms in runs)
+            + f" ms ({res['card']})")
+
+
+def phase_wide_domain(torch, smi: str, parent: str | None = None) -> dict:
+    """Phase 22: (a) K1, K6, K2 / K5 at their new shapes against the plain
+    versions, (b) timed there, (c) WIDE_DOMAIN through the entries, and
+    the honest width over its codebook through K3, (d) with ``--parent``,
+    today's d = 64 in turns."""
+    import shutil
+
+    t0 = time.perf_counter()
+    k1 = _phase22_k1(torch, smi)
+    k6 = _phase22_k6(torch, smi)
+    attention = _phase22_attention(torch, smi)
+    t1 = time.perf_counter()
+    base = ROOT / "logs" / "chip_smoke_wide_domain" / f"{time.time_ns()}"
+    try:
+        train = _phase22_train(torch, smi, base)
+        sampling = _phase22_sample(torch, smi, base,
+                                   train["stage2"]["run"] / "checkpoints")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    k3 = _phase22_k3(torch, smi)
+    t2 = time.perf_counter()
+    _phase22_parent_turns(torch, smi, parent)
+    print(f"phase 22: (a, b) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, (d) "
+          f"{time.perf_counter() - t2:.1f} s")
+    return {"k1": k1, "k6": k6, "attention": attention, "train": train,
+            "sampling": sampling, "k3": k3}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path on "
                                  "one CUDA card.")
@@ -4761,8 +5339,8 @@ def main() -> int:
                     help="time each training step by kernel")
     ap.add_argument("--parent", metavar="ROOT",
                     help="also time K1, K6, P1, P2, P3, K2 and K5 at head "
-                         "dim 4, and K3 and K4 at n_embd 64 in heads of 4, "
-                         "in turns with the checkout at ROOT")
+                         "dims 4 and 64, and K3 and K4 at n_embd 64 in heads "
+                         "of 4, in turns with the checkout at ROOT")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4816,6 +5394,8 @@ def main() -> int:
     t_phase21 = time.perf_counter()
     mk_widths = phase_mk_widths(torch, smi, width_builds, args.parent,
                                 parent_build)
+    t_phase22 = time.perf_counter()
+    wide = phase_wide_domain(torch, smi, args.parent)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -5012,8 +5592,13 @@ def main() -> int:
                     str(d): dict(row[f"{kid} self"],
                                  max_abs_err=row["max_abs_err"],
                                  cross_ms=row[f"{kid} cross"]["ms"])
-                    for (d, name), row in widths["kernels"].items()
-                    if name == dt}
+                    for rows in (widths["kernels"], wide["attention"])
+                    for (d, name), row in rows.items() if name == dt}
+                missing = {str(d) for d in P22_HEAD_DIMS} - set(
+                    kernel["launches_by_head_dim"])
+                if missing:
+                    raise AssertionError(f"{kernel['name']} launched at no "
+                                         f"head dim {sorted(missing)}")
     # phase 21's paths: the honest configuration at n_embd 64 in heads of 8
     # on the route auto takes; the launches of this process by width (every
     # phase, the checks included); phase 21 (b)'s numbers at each
@@ -5039,6 +5624,48 @@ def main() -> int:
         if missing:
             raise AssertionError(f"{kid} launched at no width "
                                  f"{sorted(missing)}")
+    # phase 22's paths: WIDE_DOMAIN trained and sampled, the honest width
+    # over its 16384 codes; each kernel's launches by its new shape axis in
+    # this process (every phase, the checks included) and phase 22 (b)'s
+    # numbers at the new shapes
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import code_stats, nearest_code_dist, nearest_code_stats
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
+        import fused_sample_step
+    wd_train = ("phase 22: WIDE_DOMAIN {} through tasks.train ({} at B={}, "
+                "16384 codes of dim 512)")
+    wd1 = wd_train.format("stage 1", "vqvae_ucf.sh", 64)
+    wd2 = wd_train.format("stage 2", "ddiff_ucf.sh, n_embd 512 in heads of "
+                          "256, bf16", 16)
+    wd_sample = ("phase 22: WIDE_DOMAIN sampled through generate, auto "
+                 "(model route), 8 clips, 100 steps")
+    wd_k3 = ("phase 22: HONEST over 16384 codes, auto route, "
+             f"{WIDE_DOMAIN_K3_CLIPS} clips, 100 steps")
+    tw = wide["train"]
+    wide_runs = {
+        "fused_sample_step": [(wd_sample, wide["sampling"]["K1"])],
+        "fused_mha_fwd_bf16": [(wd2, tw["stage2"]["K2"]),
+                               (wd_sample, wide["sampling"]["K2"])],
+        "fused_mha_bwd_bf16": [(wd2, tw["stage2"]["K5"])],
+        "nearest_code_stats": [(wd1, tw["stage1"]["K6"]),
+                               (wd2, tw["stage2"]["K6"])],
+        "megakernel_step_packed": [(wd_k3, wide["k3"]["K3"])]}
+    for kernel in kernels:
+        name = kernel["name"]
+        for path, n in wide_runs.get(name, ()):
+            kernel["launches_by_path"][path] = n
+            kernel["launches"] += n
+        if name == "fused_sample_step":
+            kernel["launches_by_classes"] = {
+                str(kv): n for kv, n in sorted(
+                    fused_sample_step.by_classes.items())}
+            kernel["by_classes"] = wide["k1"]["by_classes"]
+        for fn in (nearest_code_stats, nearest_code_dist, code_stats):
+            if name == fn.__name__:
+                kernel["launches_by_dim"] = {
+                    str(d): n for d, n in sorted(fn.by_dim.items())}
+        if name == "nearest_code_stats":
+            kernel["by_shape"] = wide["k6"]["by_shape"]
     on_harness = {kid: sum(r[kid] for r in harness.values())
                   for kid in by_kernel.values()}
     if not (on_harness["K2"] and on_harness["K5"] and on_harness["K6"]
@@ -5059,7 +5686,8 @@ def main() -> int:
           f"{t_phase20 - t_phase19:.1f} s, phase 20 (every head width, "
           f"VQ-Diffusion-B's width) {t_phase21 - t_phase20:.1f} s, phase 21 "
           f"(the whole-step kernels at every width) "
-          f"{t_end - t_phase21:.1f} s")
+          f"{t_phase22 - t_phase21:.1f} s, phase 22 (the rest of K1, K2, K5 "
+          f"and K6's domain) {t_end - t_phase22:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@
 // attention.py: _kernel (via _fused_mha_fwd_impl / fused_mha).
 //
 // q: (B, Lq, C), k/v: (B, Lk, C), o: (B, Lq, C), all of one type (f32 or
-// bf16) and contiguous; C = H * d, any head dim d up to 128. Per (batch row,
+// bf16) and contiguous; C = H * d, any head dim d. Per (batch row,
 // head): o = softmax(q k^T / sqrt(d)) v over the Lk keys, as the TPU kernel
 // computes
 // it: the inputs taken to f32, the softmax and P V in f32, o rounded to the
@@ -59,6 +59,17 @@
 // accumulator (D / 2 a thread) and a tile's scores; the fragments of q are
 // loaded once a tile and head-dim chunk. A few keys (cross-attention over 1
 // or 77 tokens) take the same kernel, the tile's missing keys masked.
+//
+// Head dims above 128 take the split design (csrc/mha_tiles.cuh: kSplitOut,
+// kSplitChunk): a block of 4 warps per (64 queries, 128 output columns,
+// head, batch row); per tile of 64 keys the ring brings the queries' and
+// keys' dims 64 at a time (the scores summed over the whole head dim in the
+// warp's registers), then the values' 128 columns of the block, and the
+// online softmax and P V run as in the wide design. Every column chunk
+// recomputes the same scores (the same products in the same order, so the
+// same values): at d = 256 a third of the products the kernel runs are that
+// recompute, which the function's bound does not count. The chunk of
+// columns 0 .. 127 writes lse.
 #include "mha_tiles.cuh"
 
 namespace {
@@ -465,6 +476,191 @@ fused_mha_fwd_wide_kernel(const typename Op::T* __restrict__ q,
   }
 }
 
+// The split design (head dims above 128): grid (ceil(Lq / kWRowsBlock),
+// H * n_oc, B), n_oc = ceil(d / kSplitOut) column chunks (blockIdx.y = h
+// n_oc + chunk), kThreads threads, dynamic shared memory of two ring slots
+// (the larger of a contraction stage, q and k at kSplitChunk dims, and a
+// value stage, kSplitOut columns). Arguments as the wide kernel's.
+template <template <int> class W>
+__global__ void __launch_bounds__(kThreads)
+fused_mha_fwd_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
+                           const typename W<kSplitChunk>::T* __restrict__ k,
+                           const typename W<kSplitChunk>::T* __restrict__ v,
+                           typename W<kSplitChunk>::T* __restrict__ o,
+                           float* __restrict__ o32, float* __restrict__ lse,
+                           int Lq, int Lk, int C, int d, int vec,
+                           float scale, float c) {
+  using OpC = W<kSplitChunk>;
+  using OpO = W<kSplitOut>;
+  using T = typename OpC::T;
+  constexpr int SC = OpC::S, SO = OpO::S, kTileC = kWTile * SC;
+  constexpr int kSlot =
+      2 * kTileC > kWTile * SO ? 2 * kTileC : kWTile * SO;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int n_ic = (d + kSplitChunk - 1) / kSplitChunk;
+  const int n_oc = (d + kSplitOut - 1) / kSplitOut;
+  const int h = blockIdx.y / n_oc, oc = blockIdx.y % n_oc;
+  const int H = gridDim.y / n_oc;
+  const size_t b = blockIdx.z;
+  const int blk0 = blockIdx.x * kWRowsBlock;
+  const int r0 = warp * kWRows;
+  const bool busy = blk0 + r0 < Lq;
+  const T* qh = q + b * Lq * C + h * d;
+  const T* kh = k + b * Lk * C + h * d;
+  const T* vh = v + b * Lk * C + h * d;
+  const int dout = min(kSplitOut, d - oc * kSplitOut);
+
+  // stage u of tile t = u / per: contraction chunk j = u % per of q and k,
+  // or (j = n_ic) the tile's values at the block's columns
+  const int per = n_ic + 1;
+  const int ntiles = (Lk + kWTile - 1) / kWTile;
+  const int n_st = ntiles * per;
+  auto issue = [&](int u) {
+    T* slot = ring + (u & 1) * kSlot;
+    const int t = u / per, j = u % per;
+    if (j < n_ic) {
+      const int dj = min(kSplitChunk, d - j * kSplitChunk);
+      stage<T, kSplitChunk, SC>(slot, qh + j * kSplitChunk, blk0, Lq, C, dj,
+                                vec);
+      stage<T, kSplitChunk, SC>(slot + kTileC, kh + j * kSplitChunk,
+                                t * kWTile, Lk, C, dj, vec);
+    } else {
+      stage<T, kSplitOut, SO>(slot, vh + oc * kSplitOut, t * kWTile, Lk, C,
+                              dout, vec);
+    }
+    cp_async_commit();
+  };
+
+  const float fq = OpC::kScaledQ ? scale : 1.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kSplitOut / 8][4], s[kWNB][4];
+#pragma unroll
+  for (int dc = 0; dc < kSplitOut / 8; ++dc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[dc][j] = 0.f;
+
+  issue(0);
+  for (int u = 0; u < n_st; ++u) {
+    if (u + 1 < n_st) {
+      issue(u + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* slot = ring + (u & 1) * kSlot;
+    const int t = u / per, j = u % per;
+    const int n = min(kWTile, Lk - t * kWTile);
+    const int nbv = (n + 7) >> 3;
+    if (busy && j < n_ic) {
+      if (j == 0) {
+#pragma unroll
+        for (int nb = 0; nb < kWNB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+      }
+#pragma unroll 1
+      for (int kc = 0; kc < kSplitChunk / OpC::kK; ++kc) {
+        typename OpC::Frag a;
+        OpC::load_a(a, slot, r0, kc, fq, g, tig);
+#pragma unroll
+        for (int nb = 0; nb < kWNB; ++nb)
+          if (nb < nbv) OpC::dot(s[nb], a, slot + kTileC, nb, kc, 1.f, g, tig);
+      }
+    } else if (busy) {
+#pragma unroll
+      for (int nb = 0; nb < kWNB; ++nb) {
+        const int key = 8 * nb + 2 * tig;
+        if (key >= n) s[nb][0] = s[nb][2] = -INFINITY;
+        if (key + 1 >= n) s[nb][1] = s[nb][3] = -INFINITY;
+      }
+      float mc[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float x = -INFINITY;
+#pragma unroll
+        for (int nb = 0; nb < kWNB; ++nb)
+          x = fmaxf(x, fmaxf(s[nb][2 * hf], s[nb][2 * hf + 1]));
+        const float mn = fmaxf(m[hf], quad_max(x));
+        const float corr = ex2((m[hf] - mn) * c);   // 0 on the first tile
+        m[hf] = mn;
+        mc[hf] = mn * c;
+        l[hf] *= corr;
+#pragma unroll
+        for (int dc = 0; dc < kSplitOut / 8; ++dc) {
+          acc[dc][2 * hf] *= corr;
+          acc[dc][2 * hf + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < kWNB; ++nb) {
+        if (nb >= nbv) continue;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = ex2(fmaf(s[nb][e], c, -mc[e >> 1]));
+        typename OpO::Frag pa;
+        OpO::make_p(pa, p);
+        OpO::pair(acc, pa, slot, nb, 1.f, g, tig);
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+      }
+    }
+    // the slot staged next was read in this stage
+    __syncthreads();
+  }
+  if (!busy) return;
+
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] = quad_sum(l[hf]);
+    inv[hf] = 1.f / l[hf];
+  }
+  const int row0 = blk0 + r0;
+  const size_t ooff = b * Lq * C + h * d + oc * kSplitOut;
+  store_wide<kSplitOut>(o + ooff, acc, inv, row0, Lq, C, dout, g, tig);
+  if (o32 != nullptr)
+    store_wide<kSplitOut>(o32 + ooff, acc, inv, row0, Lq, C, dout, g, tig);
+  if (lse != nullptr && oc == 0 && tig == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = row0 + g + 8 * hf;
+      if (row < Lq) lse[(b * H + h) * Lq + row] = m[hf] * c + log2f(l[hf]);
+    }
+  }
+}
+
+template <template <int> class W>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         void* o, float* o32, float* lse, int B, int Lq,
+                         int Lk, int C, int H, int d, cudaStream_t stream) {
+  using T = typename W<kSplitChunk>::T;
+  const int n_oc = (d + kSplitOut - 1) / kSplitOut;
+  if (static_cast<long long>(H) * n_oc > 65535) return cudaErrorInvalidValue;
+  const size_t tc = 2 * static_cast<size_t>(kWTile) * W<kSplitChunk>::S;
+  const size_t to = static_cast<size_t>(kWTile) * W<kSplitOut>::S;
+  const size_t smem = 2 * (tc > to ? tc : to) * sizeof(T);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      fused_mha_fwd_split_kernel<W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const float c = W<kSplitChunk>::kScaledQ ? kLog2e : kLog2e * scale;
+  fused_mha_fwd_split_kernel<W>
+      <<<dim3((Lq + kWRowsBlock - 1) / kWRowsBlock, H * n_oc, B), kThreads,
+         smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                         static_cast<const T*>(v), static_cast<T*>(o), o32,
+                         lse, Lq, Lk, C, d,
+                         copy_bytes(d * static_cast<int>(sizeof(T))), scale,
+                         c);
+  return cudaGetLastError();
+}
+
 template <class Op>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
                         float* o32, float* lse, int B, int Lq, int Lk, int C,
@@ -509,19 +705,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Returns a cudaError_t: cudaErrorInvalidValue for a head dim above 128 or
-// a bad shape, else the launch's status. bf16 selects the input type (0:
-// f32, 1: bf16); lse and o32 (f32, o's shape) may be null.
+// Returns a cudaError_t: cudaErrorInvalidValue for a bad shape, else the
+// launch's status. Any head dim: 4 and 8, the wide design up to 128, the
+// split design above. bf16 selects the input type (0: f32, 1: bf16); lse
+// and o32 (f32, o's shape) may be null.
 extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
                              void* o, float* o32, float* lse, int B, int Lq,
                              int Lk, int C, int H, int bf16, void* stream) {
   if (H <= 0 || C % H != 0 || Lq <= 0 || Lk <= 0 || B <= 0 || B > 65535 ||
-      H > 65535 || C / H > kMaxHeadDim)
+      H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = C / H;
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 4 && !bf16)
+  if (d > kMaxHeadDim)
+    err = bf16 ? launch_split<WBf16>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
+                                     d, s)
+               : launch_split<WTf32>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
+                                     d, s);
+  else if (d == 4 && !bf16)
     err = launch<Tf32<4>, 4>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
   else if (d == 8 && !bf16)
     err = launch<Tf32<8>, 8>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);

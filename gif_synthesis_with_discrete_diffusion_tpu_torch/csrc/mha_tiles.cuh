@@ -562,7 +562,7 @@ struct Bf16 {
 //     pair product as the bf16 tiles above (P as a bf16 hi + lo pair in one
 //     16-deep contraction, the keys in their own order), X's columns read
 //     by ldmatrix.trans; the scale on the f32 scores.
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 128;   // the wide design's largest D
 constexpr int kWTile = 64;                      // rows a staged tile
 constexpr int kWNB = kWTile / 8;                // 8-row blocks a tile
 constexpr int kWRows = 16;                      // rows a warp
@@ -593,15 +593,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows r0 .. r0 + kWTile - 1 (zero from nrows on) of a head whose row r
-// starts at src + r * ld, columns 0 .. d - 1 (zero from d to D - 1), into
-// dst, row stride S elements; V bytes a copy (V divides d * sizeof(T))
-template <typename T, int D, int S, int V>
+// rows r0 .. r0 + R - 1 (zero from nrows on) of a head whose row r starts
+// at src + r * ld, columns 0 .. d - 1 (zero from d to D - 1), into dst, row
+// stride S elements; V bytes a copy (V divides d * sizeof(T))
+template <typename T, int D, int S, int V, int R = kWTile>
 __device__ __forceinline__ void stage_v(T* dst, const T* src, int r0,
                                         int nrows, int ld, int d) {
   constexpr int kPer = V / static_cast<int>(sizeof(T));
   constexpr int kChunks = D / kPer;
-  for (int i = threadIdx.x; i < kWTile * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
     const int r = i / kChunks, col = (i % kChunks) * kPer;
     const bool valid = r0 + r < nrows && col < d;
     const T* s = valid ? src + static_cast<size_t>(r0 + r) * ld + col : src;
@@ -616,18 +616,18 @@ __device__ __forceinline__ void stage_v(T* dst, const T* src, int r0,
   }
 }
 
-template <typename T, int D, int S>
+template <typename T, int D, int S, int R = kWTile>
 __device__ __forceinline__ void stage(T* dst, const T* src, int r0,
                                       int nrows, int ld, int d, int vec) {
   if (vec == 16) {
-    stage_v<T, D, S, 16>(dst, src, r0, nrows, ld, d);
+    stage_v<T, D, S, 16, R>(dst, src, r0, nrows, ld, d);
   } else if (vec == 8) {
-    stage_v<T, D, S, 8>(dst, src, r0, nrows, ld, d);
+    stage_v<T, D, S, 8, R>(dst, src, r0, nrows, ld, d);
   } else if (vec == 4) {
-    stage_v<T, D, S, 4>(dst, src, r0, nrows, ld, d);
+    stage_v<T, D, S, 4, R>(dst, src, r0, nrows, ld, d);
   } else {
-    if constexpr (sizeof(T) == 2) stage_v<T, D, S, 2>(dst, src, r0, nrows,
-                                                      ld, d);
+    if constexpr (sizeof(T) == 2) stage_v<T, D, S, 2, R>(dst, src, r0, nrows,
+                                                         ld, d);
   }
 }
 
@@ -801,6 +801,25 @@ cudaError_t wide(int d, F&& f) {
   if (d <= 64) return f(Op<64>{});
   return f(Op<128>{});
 }
+
+// ---------------------------------------------------------------------------
+// head dims above 128: the split design
+// ---------------------------------------------------------------------------
+// Past D = 128 the wide design's accumulators (D / 2 a thread, two of them
+// in K5's dK / dV kernel) and its resident tiles no longer fit. The split
+// design cuts the head's output columns into chunks of kSplitOut (a grid
+// axis: a block writes one chunk of o, dQ, or dK and dV) and stages the
+// contraction of the scores (q k^T, dO v^T) in chunks of kSplitChunk dims:
+// every block recomputes the scores over the whole head dim, and a stage of
+// the ring holds either the next contraction chunk of both operands or the
+// tile of the pair product's output chunk. The products are the wide
+// design's (W<kSplitChunk> for the scores, W<kSplitOut> for the pair
+// products, the same fragments and the same split of f32 values), so every
+// score adds its 8- or 16-deep steps in increasing order of the dims, as
+// the wide design does. Columns past d are zero-filled by the copies.
+constexpr int kSplitChunk = 64;   // dims a staged chunk of the contraction
+constexpr int kSplitOut = 128;    // output columns a block
+constexpr int kSplitKeys = 32;    // K5: the other side's rows a tile
 
 // the bytes of one copy into shared memory: the largest of 16, 8, 4, 2 that
 // divides a head row's bytes (the tensors start on 16 bytes)

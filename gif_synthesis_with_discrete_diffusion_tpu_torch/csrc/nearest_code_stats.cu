@@ -25,7 +25,7 @@
 //     call, split once into hi and lo and laid out in the mma's A-fragment
 //     order (a lane reads its four hi and four lo words as two 16-byte
 //     loads, conflict-free); the contraction is padded with zeros to a
-//     multiple of a stage's depth, so every D up to 384 is taken;
+//     multiple of a stage's depth (so up to D = 384 x stays resident);
 //   * E streams through shared memory in stages of BN codes x CH dims by
 //     cp.async, in a ring of ST, so the next stage lands under this one's
 //     mma; a lane splits the E values of its B fragments as it reads them
@@ -42,8 +42,19 @@
 //     tile) and stages of 64 dims in a ring of two (a block barrier every
 //     16 mma k-steps; 32 dims in a ring of three or four, a warp on 32 rows
 //     x 64 codes, measured slower: probes/sampler_codebook_variants.py,
-//     VARIANTS); else BM = 32 (MT = 2, 1 x 8 warps, 256 codes a tile),
-//     stages of 32 dims in a ring of three.
+//     VARIANTS); up to D = 384, BM = 32 (MT = 2, 1 x 8 warps, 256 codes a
+//     tile), stages of 32 dims in a ring of three;
+//   * above D = 384 x no longer fits beside the ring, and the block streams
+//     it (XS): a stage holds the tile's BN codes and the block's BM rows of
+//     x, both CH dims deep, as they are in device memory (rows padded to
+//     CH + 4 floats: the A-fragment reads are conflict-free too), and a
+//     lane splits its x values as it reads them, as it splits E's. The
+//     D <= 128 block shape (BM = 128, 128 codes a tile, 64 dims a stage in
+//     a ring of two), so x is read once per tile of 128 codes (from L2). A
+//     plain tiled product with the argmin epilogue; every D runs.
+// The order of the sums does not depend on the block shape, the tile or the
+// shard: a code's ||e||^2 and each (row, code) product add the same 8-deep
+// mma steps in increasing order of the dims, the stages of a tile in order.
 //
 // The statistics: each block adds its own rows into n_total and encode_sum
 // with float atomics (the wrapper zeroes both), the rows read again from x.
@@ -73,11 +84,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kNt = 4;             // 8-code n-tiles a warp: 32 codes
-constexpr int kMaxD = 384;
 
 // MT m-tiles a warp, WR warps along the rows, stages of CH dims of E in a
-// ring of ST
-template <int MT, int WR, int CH, int ST>
+// ring of ST; XS: x streamed beside E (else resident)
+template <int MT, int WR, int CH, int ST, bool XS = false>
 struct Shape {
   static constexpr int kWc = 8 / WR;          // warps along the codes
   static constexpr int kBm = 16 * MT * WR;    // rows a block
@@ -88,7 +98,7 @@ struct Shape {
                                               // (g, tig) read banks 4 g +
                                               // tig, all distinct
   static constexpr int kStages = ST;
-  static constexpr int kStageFloats = kBn * kEs;
+  static constexpr int kStageFloats = (kBn + (XS ? kBm : 0)) * kEs;
   static_assert(CH % 32 == 0 && ST >= 2, "stage shape");
 };
 
@@ -135,22 +145,23 @@ __device__ __forceinline__ bool better(float d, int i, float bd, int bi) {
   return d < bd || (d == bd && i < bi);
 }
 
-template <int MT, int WR, int CH, int ST>
+// vec: bit 0, e's rows start on 16 bytes; bit 1, x's do
+template <int MT, int WR, int CH, int ST, bool XS = false>
 __global__ void __launch_bounds__(kThreads, 1)
 nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
                     int N, int K, int D, int vec, int* __restrict__ idx_out,
                     float* __restrict__ dist_out, float* __restrict__ n_total,
                     float* __restrict__ encode_sum) {
-  using S = Shape<MT, WR, CH, ST>;
+  using S = Shape<MT, WR, CH, ST, XS>;
   constexpr int kBm = S::kBm, kBn = S::kBn, kWc = S::kWc;
   constexpr int kChunk = S::kChunk, kKs = S::kKs, kEs = S::kEs,
                 kStages = S::kStages;
   extern __shared__ uint4 smem4[];
   const int dc = (D + kChunk - 1) / kChunk * kChunk;   // padded contraction
   const int ks_all = dc / 8;
-  // x: [m-tile][k-step][hi, lo][lane][4 registers]
+  // x (resident): [m-tile][k-step][hi, lo][lane][4 registers]
   unsigned* xs = reinterpret_cast<unsigned*>(smem4);
-  float* ring = reinterpret_cast<float*>(xs + kBm * dc * 2);
+  float* ring = reinterpret_cast<float*>(xs + (XS ? 0 : kBm * dc * 2));
   __shared__ float red_d[kWc][kBm];
   __shared__ int red_i[kWc][kBm];
   __shared__ int rows_idx[kBm];
@@ -164,11 +175,30 @@ nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
   const int n_stages = n_tiles * nch;
 
   // stage t: codes of tile t / nch, dims of chunk t % nch, into ring slot
-  // t % kStages; padded codes and dims land as zeros
+  // t % kStages (XS: then the block's rows of x); padded codes, rows and
+  // dims land as zeros
   auto copy_stage = [&](int t) {
     float* buf = ring + (t % kStages) * S::kStageFloats;
     const int c0 = (t / nch) * kBn, d0 = (t % nch) * kChunk;
-    if (vec) {
+    if constexpr (XS) {
+      float* xb = buf + kBn * kEs;
+      if (vec & 2) {
+        for (int i = tid; i < kBm * (kChunk / 4); i += kThreads) {
+          const int r = i / (kChunk / 4), d = d0 + 4 * (i % (kChunk / 4));
+          const bool ok = row0 + r < N && d < D;
+          cp_async16(xb + r * kEs + (d - d0),
+                     ok ? x + static_cast<size_t>(row0 + r) * D + d : x, ok);
+        }
+      } else {
+        for (int i = tid; i < kBm * kChunk; i += kThreads) {
+          const int r = i / kChunk, d = d0 + i % kChunk;
+          const bool ok = row0 + r < N && d < D;
+          cp_async4(xb + r * kEs + (d - d0),
+                    ok ? x + static_cast<size_t>(row0 + r) * D + d : x, ok);
+        }
+      }
+    }
+    if (vec & 1) {
       for (int i = tid; i < kBn * (kChunk / 4); i += kThreads) {
         const int c = i / (kChunk / 4), d = d0 + 4 * (i % (kChunk / 4));
         const bool ok = c0 + c < K && d < D;
@@ -193,7 +223,7 @@ nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
 
   // x, split once, in the A-fragment order of mma.m16n8k8: register
   // (r >= 8) + 2 (k >= 4) of lane (r % 8) * 4 + k % 4 holds (r, k)
-  for (int i = tid; i < kBm * dc; i += kThreads) {
+  if constexpr (!XS) for (int i = tid; i < kBm * dc; i += kThreads) {
     const int r = i / dc, d = i % dc;
     const int row = row0 + r;
     const float v = row < N && d < D ? x[static_cast<size_t>(row) * D + d]
@@ -247,10 +277,21 @@ nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
       uint4 ah[MT], al[MT];
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const uint4* a = reinterpret_cast<const uint4*>(
-            xs + (((wr * MT + m) * ks_all + kstep) * 2) * 128) + lane;
-        ah[m] = a[0];
-        al[m] = a[32];
+        if constexpr (XS) {
+          // rows g, g + 8 of the m-tile at dims tig, tig + 4 of the k-step
+          const float* a = ring + (t % kStages) * S::kStageFloats +
+                           (kBn + (wr * MT + m) * 16 + g) * kEs + ks * 8 +
+                           tig;
+          split_tf32(a[0], ah[m].x, al[m].x);
+          split_tf32(a[8 * kEs], ah[m].y, al[m].y);
+          split_tf32(a[4], ah[m].z, al[m].z);
+          split_tf32(a[8 * kEs + 4], ah[m].w, al[m].w);
+        } else {
+          const uint4* a = reinterpret_cast<const uint4*>(
+              xs + (((wr * MT + m) * ks_all + kstep) * 2) * 128) + lane;
+          ah[m] = a[0];
+          al[m] = a[32];
+        }
       }
       // hi.lo, lo.hi, then hi.hi, each over all MT x kNt tiles, so that
       // no mma waits on the one before it
@@ -352,30 +393,34 @@ nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,
   }
 }
 
-template <int MT, int WR, int CH, int ST>
+template <int MT, int WR, int CH, int ST, bool XS = false>
 cudaError_t launch(const float* x, const float* e, int N, int K, int D,
                    int vec, int* idx, float* dist, float* n_total,
                    float* encode_sum, cudaStream_t stream) {
-  using S = Shape<MT, WR, CH, ST>;
+  using S = Shape<MT, WR, CH, ST, XS>;
   const int dc = (D + CH - 1) / CH * CH;
-  const size_t smem = static_cast<size_t>(S::kBm) * dc * 2 * sizeof(unsigned)
+  const size_t smem = (XS ? 0 : static_cast<size_t>(S::kBm) * dc * 2 *
+                                    sizeof(unsigned))
                       + static_cast<size_t>(ST) * S::kStageFloats
                       * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      nearest_code_kernel<MT, WR, CH, ST>,
+      nearest_code_kernel<MT, WR, CH, ST, XS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  nearest_code_kernel<MT, WR, CH, ST><<<(N + S::kBm - 1) / S::kBm, kThreads, smem,
-                                stream>>>(x, e, N, K, D, vec, idx, dist,
-                                          n_total, encode_sum);
+  nearest_code_kernel<MT, WR, CH, ST, XS><<<(N + S::kBm - 1) / S::kBm,
+                                            kThreads, smem, stream>>>(
+      x, e, N, K, D, vec, idx, dist, n_total, encode_sum);
   return cudaGetLastError();
 }
 
 cudaError_t launch_by_dim(const float* x, const float* e, int N, int K,
                           int D, int vec, int* idx, float* dist,
                           float* n_total, float* encode_sum, void* stream) {
-  if (N <= 0 || K <= 0 || D <= 0 || D > kMaxD) return cudaErrorInvalidValue;
+  if (N <= 0 || K <= 0 || D <= 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
+  if (D > 384)
+    return launch<4, 2, 64, 2, true>(x, e, N, K, D, vec, idx, dist, n_total,
+                                     encode_sum, s);
   return D <= 128 ? launch<4, 2, 64, 2>(x, e, N, K, D, vec, idx, dist,
                                         n_total, encode_sum, s)
                   : launch<2, 1, 32, 3>(x, e, N, K, D, vec, idx, dist,
@@ -399,10 +444,10 @@ code_stats_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 
 }  // namespace
 
-// Returns a cudaError_t: cudaErrorInvalidValue for a bad shape (D above
-// 384), else the launch's status. vec: e's address and row length are
-// multiples of 16 bytes. n_total (K) and encode_sum (K, D) must be zero on
-// entry.
+// Returns a cudaError_t: cudaErrorInvalidValue for a bad shape (N, K or D
+// not positive), else the launch's status. vec: bit 0, e's address and row
+// length are multiples of 16 bytes; bit 1, x's. n_total (K) and encode_sum
+// (K, D) must be zero on entry. Any D.
 extern "C" int nearest_code_stats(const float* x, const float* e, int N,
                                   int K, int D, int vec, int* idx,
                                   float* n_total, float* encode_sum,

@@ -6,11 +6,12 @@ discrete_diffusion_tpu/ops/attention.py: fused_mha``. Its forward is
 ``csrc/fused_mha_fwd.cu`` (the TPU's ``_kernel``); its backward, through a
 ``torch.autograd.Function``, is ``csrc/fused_mha_bwd.cu`` (the TPU's
 ``_bwd_kernel``), reached by :func:`fused_mha_bwd`. Both run on the tensor
-cores (``csrc/mha_tiles.cuh``) for f32 or bf16 inputs at any head dim up to
-128 (:data:`MAX_HEAD_DIM`; heads of 4 and 8 in their own design, every other
-width in the wide design at the next of :data:`WIDE_HEAD_DIMS`, the columns
-beyond the head masked), are built by nvcc for ``sm_90a`` at first use and
-bound through ctypes. CPU tensors take the same
+cores (``csrc/mha_tiles.cuh``) for f32 or bf16 inputs at any head dim (heads
+of 4 and 8 in their own design, every other width up to 128 in the wide
+design at the next of :data:`WIDE_HEAD_DIMS`, the columns beyond the head
+masked, and wider heads in the split design, :data:`SPLIT_OUT` output
+columns a block), are built by nvcc for ``sm_90a`` at first use and bound
+through ctypes. CPU tensors take the same
 Function with the plain versions, :func:`sdpa_reference` forward and
 :func:`fused_mha_bwd_reference` backward. Like the TPU kernels, both compute
 in f32 whatever the input type and round only their outputs to it. The
@@ -33,16 +34,20 @@ __all__ = ["fused_mha", "fused_mha_bwd", "fused_mha_bwd_reference",
            "BF16_EXCESS_TOL", "bf16_rounded_p_reference",
            "attention_kernel_arithmetic",
            "attention_bwd_kernel_arithmetic", "bf16_hi_lo", "split_fed_back",
-           "PAIR_SLOTS", "MAX_HEAD_DIM", "TILE_HEAD_DIMS", "WIDE_HEAD_DIMS",
-           "kernel_head_dim", "check_head_dim"]
+           "PAIR_SLOTS", "TILE_HEAD_DIMS", "WIDE_HEAD_DIMS", "SPLIT_CHUNK",
+           "SPLIT_OUT", "kernel_head_dim", "check_head_dim"]
 
 # the kernels' instantiations (csrc/fused_mha_*.cu): heads of 4 and 8 in
 # the first design (csrc/mha_tiles.cuh: Tf32, Bf16), every other head dim d
-# up to MAX_HEAD_DIM in the wide design (WTf32, WBf16) at the smallest of
-# WIDE_HEAD_DIMS that holds it, its columns d .. D - 1 read as zero
+# up to WIDE_HEAD_DIMS[-1] in the wide design (WTf32, WBf16) at the smallest
+# of WIDE_HEAD_DIMS that holds it, its columns d .. D - 1 read as zero, and
+# wider heads in the split design: blocks of SPLIT_OUT output columns, the
+# scores' contraction staged SPLIT_CHUNK dims at a time (columns past d
+# zero)
 TILE_HEAD_DIMS = (4, 8)
 WIDE_HEAD_DIMS = (16, 32, 64, 128)
-MAX_HEAD_DIM = WIDE_HEAD_DIMS[-1]
+SPLIT_CHUNK = 64
+SPLIT_OUT = 128
 # the dK/dV kernel cuts the queries into chunks of this many rows when there
 # are too few keys to fill the card (csrc/fused_mha_bwd.cu)
 _KV_SPLIT_ROWS = 64
@@ -124,29 +129,28 @@ def bf16_excess(got: torch.Tensor, want: torch.Tensor,
 
 
 def check_head_dim(c: int, n_head: int) -> int:
-    """The kernels' contract on the width: C a multiple of n_head and a
-    head dim C // n_head of at most :data:`MAX_HEAD_DIM`. Returns the head
-    dim; raises ``ValueError`` (naming the limit) on anything else."""
+    """The kernels' contract on the width: C a multiple of n_head (any head
+    dim C // n_head). Returns the head dim; raises ``ValueError`` on
+    anything else."""
     if n_head <= 0 or c % n_head:
         raise ValueError(f"fused_mha: C = {c} is no multiple of n_head = "
                          f"{n_head}")
-    d = c // n_head
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"fused_mha: head dim {d} = {c} / {n_head} above "
-                         f"the kernels' limit of {MAX_HEAD_DIM}")
-    return d
+    return c // n_head
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instantiation that takes head dim ``d``: d itself for 4 and 8,
-    else the smallest of :data:`WIDE_HEAD_DIMS` at least d."""
+    """The width the kernels compute head dim ``d`` at: d itself for 4 and
+    8, the smallest of :data:`WIDE_HEAD_DIMS` at least d up to 128 (the wide
+    design), and above 128 d rounded up to a multiple of
+    :data:`SPLIT_CHUNK` (the split design's contraction)."""
+    if d < 1:
+        raise ValueError(f"fused_mha: head dim {d}")
     if d in TILE_HEAD_DIMS:
         return d
     for w in WIDE_HEAD_DIMS:
         if d <= w:
             return w
-    raise ValueError(f"fused_mha: head dim {d} above the kernels' limit of "
-                     f"{MAX_HEAD_DIM}")
+    return -(-d // SPLIT_CHUNK) * SPLIT_CHUNK
 
 
 def kv_splits(lq: int, lk: int) -> int:
@@ -182,9 +186,9 @@ _DTYPES = (torch.float32, torch.bfloat16)   # the kernels' input types
 def _check_cuda(name: str, q: torch.Tensor, kvs: tuple, n_head: int
                 ) -> None:
     """The kernels' contract: contiguous, 16-byte aligned tensors of one
-    type, f32 or bf16, on the current device, a head dim C // n_head of at
-    most :data:`MAX_HEAD_DIM` (:func:`check_head_dim`). Heads need not start
-    on 16 bytes: a head of 12 bf16 values takes 8-byte copies."""
+    type, f32 or bf16, on the current device, C a multiple of n_head
+    (:func:`check_head_dim`). Heads need not start on 16 bytes: a head of 12
+    bf16 values takes 8-byte copies."""
     if q.device.type != "cuda" or \
             q.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: no kernel for {q.device} (the current "
@@ -330,9 +334,10 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Differentiable: with gradients on, the backward is K5 (or its plain
     version on the CPU). CUDA tensors must be all f32 or all bf16,
-    contiguous, 16-byte aligned, on the current device, with a head dim
-    C // n_head of at most 128 (:func:`check_head_dim`; 4 and 8 in their own
-    design, any other in the wide one); any other CUDA input raises
+    contiguous, 16-byte aligned, on the current device, with C a multiple of
+    n_head (:func:`check_head_dim`; heads of 4 and 8 in their own design, up
+    to 128 in the wide one, wider in the split one); any other CUDA input
+    raises
     (nothing falls back). Each forward launch adds one to
     ``fused_mha.launches`` and to ``fused_mha.by_head_dim[(head dim,
     dtype)]``."""
@@ -440,7 +445,9 @@ def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
 
 class _Design:
     """How the kernels take a head dim ``d``: the instantiation ``width``
-    (the heads read with columns d .. width - 1 zero), the products
+    (the heads read with columns d .. width - 1 zero; above 128 the split
+    design, whose products and groups of keys are the wide design's at
+    width 128), the products
     (``mm``), whether q is scaled in f32 before them (the wide f32 design,
     as the JAX kernel), the base-2 factor ``c`` of the products' scores,
     the factors of dQ and dK, and up to how many keys the dq kernel holds
@@ -476,7 +483,8 @@ def attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, n_head: int
                                 ) -> tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
-    """K2's tensor-core designs as a plain function: QK^T and P V on the
+    """K2's tensor-core designs as a plain function (the split design above
+    head dim 128 computes as the wide one): QK^T and P V on the
     split (f32) or exact (bf16) operands, an online softmax over tiles of
     ``KERNEL_TILE`` keys (the tile's maximum, one exponential a score), P
     fed back split, the row sum divided once; o rounded to the input type.

@@ -34,6 +34,7 @@ kernel. Each entry has its plain version beside it, which CPU tensors take.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -52,7 +53,6 @@ __all__ = ["nearest_code_stats", "nearest_code_stats_sharded",
            "nearest_code_stats_kernel_arithmetic", "kernel_distances",
            "code_stats_reference"]
 
-_MAX_DIM = 384   # csrc/nearest_code_stats.cu: kMaxD
 
 
 def code_stats_range_reference(x: torch.Tensor, indices: torch.Tensor,
@@ -153,7 +153,7 @@ def _check_lookup(name: str, x: torch.Tensor, embeddings: torch.Tensor
                   ) -> None:
     n, d = x.shape
     k, d2 = embeddings.shape
-    if d != d2 or not 0 < d <= _MAX_DIM or n < 1 or k < 1:
+    if d != d2 or d < 1 or n < 1 or k < 1:
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, "
                          f"embeddings {tuple(embeddings.shape)}")
     for what, t in (("x", x), ("embeddings", embeddings)):
@@ -161,12 +161,21 @@ def _check_lookup(name: str, x: torch.Tensor, embeddings: torch.Tensor
             raise TypeError(f"{name}: {what} must be f32 and contiguous")
 
 
+def _vec(x: torch.Tensor, embeddings: torch.Tensor) -> int:
+    """The kernel's copy widths: bit 0, E's rows start on 16 bytes (16-byte
+    copies of E); bit 1, x's do (16-byte copies of x where it streams)."""
+    d = x.shape[1]
+    return (int(embeddings.data_ptr() % 16 == 0 and d % 4 == 0)
+            | 2 * int(x.data_ptr() % 16 == 0 and d % 4 == 0))
+
+
 def nearest_code_stats(x: torch.Tensor, embeddings: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest code per row of ``x`` (N, D) among ``embeddings`` (K, D), with
     the usage statistics. CPU tensors take the plain version. CUDA tensors
-    must be f32, contiguous, on the current device, D <= 384; each launch
-    adds one to ``nearest_code_stats.launches``."""
+    must be f32, contiguous, on the current device (any D); each launch adds
+    one to ``nearest_code_stats.launches`` and to
+    ``nearest_code_stats.by_dim[D]``."""
     x = x.detach()
     embeddings = embeddings.detach()
     if x.device.type == "cpu":
@@ -178,10 +187,8 @@ def nearest_code_stats(x: torch.Tensor, embeddings: torch.Tensor
     indices = torch.empty((n,), dtype=torch.int32, device=x.device)
     n_total = torch.zeros((k,), dtype=torch.float32, device=x.device)
     encode_sum = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    # 16-byte copies of E where its rows start on 16 bytes
-    vec = embeddings.data_ptr() % 16 == 0 and d % 4 == 0
     err = _library().nearest_code_stats(
-        x.data_ptr(), embeddings.data_ptr(), n, k, d, int(vec),
+        x.data_ptr(), embeddings.data_ptr(), n, k, d, _vec(x, embeddings),
         indices.data_ptr(),
         n_total.data_ptr(), encode_sum.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
@@ -189,10 +196,12 @@ def nearest_code_stats(x: torch.Tensor, embeddings: torch.Tensor
         raise RuntimeError(f"nearest_code_stats launch failed: cudaError "
                            f"{err}")
     nearest_code_stats.launches += 1
+    nearest_code_stats.by_dim[d] += 1
     return indices, n_total, encode_sum
 
 
 nearest_code_stats.launches = 0
+nearest_code_stats.by_dim = collections.Counter()
 
 
 def nearest_code_dist(x: torch.Tensor, embeddings: torch.Tensor
@@ -202,7 +211,7 @@ def nearest_code_dist(x: torch.Tensor, embeddings: torch.Tensor
     kernel's split-TF32 ``||e||^2 - 2 x.e``). CPU tensors take
     :func:`nearest_code_dist_reference`; CUDA tensors as
     :func:`nearest_code_stats`'s; each launch adds one to
-    ``nearest_code_dist.launches``."""
+    ``nearest_code_dist.launches`` and to ``nearest_code_dist.by_dim[D]``."""
     x = x.detach()
     embeddings = embeddings.detach()
     if x.device.type == "cpu":
@@ -213,19 +222,20 @@ def nearest_code_dist(x: torch.Tensor, embeddings: torch.Tensor
     k = embeddings.shape[0]
     indices = torch.empty((n,), dtype=torch.int32, device=x.device)
     dist = torch.empty((n,), dtype=torch.float32, device=x.device)
-    vec = embeddings.data_ptr() % 16 == 0 and d % 4 == 0
     err = _library().nearest_code_dist(
-        x.data_ptr(), embeddings.data_ptr(), n, k, d, int(vec),
+        x.data_ptr(), embeddings.data_ptr(), n, k, d, _vec(x, embeddings),
         indices.data_ptr(), dist.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"nearest_code_dist launch failed: cudaError "
                            f"{err}")
     nearest_code_dist.launches += 1
+    nearest_code_dist.by_dim[d] += 1
     return indices, dist
 
 
 nearest_code_dist.launches = 0
+nearest_code_dist.by_dim = collections.Counter()
 
 
 def code_stats(x: torch.Tensor, indices: torch.Tensor, lo: int, k: int
@@ -234,7 +244,8 @@ def code_stats(x: torch.Tensor, indices: torch.Tensor, lo: int, k: int
     rows ``x`` (N, D) f32 and their global ``indices`` (N,) int32; rows of
     other codes count nowhere. CPU tensors take
     :func:`code_stats_range_reference`; CUDA tensors launch K6's statistics
-    entry (each launch adds one to ``code_stats.launches``)."""
+    entry (each launch adds one to ``code_stats.launches`` and to
+    ``code_stats.by_dim[D]``)."""
     x = x.detach()
     if x.device.type == "cpu":
         return code_stats_range_reference(x, indices, lo, k)
@@ -254,10 +265,12 @@ def code_stats(x: torch.Tensor, indices: torch.Tensor, lo: int, k: int
     if err:
         raise RuntimeError(f"code_stats launch failed: cudaError {err}")
     code_stats.launches += 1
+    code_stats.by_dim[d] += 1
     return n_total, encode_sum
 
 
 code_stats.launches = 0
+code_stats.by_dim = collections.Counter()
 
 
 def nearest_code_stats_sharded(x: torch.Tensor, embeddings: torch.Tensor,

@@ -10,8 +10,10 @@ handled apart -> Gumbel-max over all K classes (the MASK row wins only if
 strictly greater). For CUDA tensors it launches ``csrc/sample_step.cu``
 (nvcc for ``sm_90a`` at first use, bound through ctypes), which reads the
 logits from device memory once: a block holds one position's two class rows
-in registers (the design and its arithmetic: the source's header). For CPU
-tensors it runs :func:`fused_sample_step_reference`.
+in registers up to :data:`REGISTER_CLASSES` classes, and above that in
+shared memory, or re-reads them from device memory where they do not fit
+(the designs and their arithmetic: the source's header). Any K-1 runs. For
+CPU tensors it runs :func:`fused_sample_step_reference`.
 
 The wrapper takes the denoiser's ``(2B, L, K-1)`` output through its
 transposed ``(2B, K-1, L)`` view with strides: the kernel needs the class
@@ -26,6 +28,7 @@ argmax of the posterior; that is what the tests compare exactly.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -38,12 +41,16 @@ from ..models.d3pm import (LOG_CLAMP, D3PMSchedule, DenoiseFn, _cfg_batch,
 
 __all__ = ["fused_sample_step", "fused_sample_step_reference",
            "fused_sample_step_kernel_arithmetic", "sample_tokens",
-           "schedule_rows", "MAX_CLASSES"]
+           "sample_step_design",
+           "schedule_rows", "REGISTER_CLASSES", "K1_DESIGNS"]
 
 _NEG30 = -69.07755278982137  # log(1e-30)
-# the largest K-1 the kernel takes: its rows live in registers, 256 threads
-# x 8 float4 a branch (csrc/sample_step.cu: sample_step_max_classes)
-MAX_CLASSES = 8192
+# the largest K-1 of the register design, 256 threads x 8 float4 a branch
+# (csrc/sample_step.cu: sample_step_register_classes); above it the wide
+# kernel
+REGISTER_CLASSES = 8192
+# where a launch keeps its rows (csrc/sample_step.cu: sample_step_design)
+K1_DESIGNS = ("registers", "shared memory", "device memory")
 
 
 def schedule_rows(sched: D3PMSchedule) -> torch.Tensor:
@@ -173,15 +180,26 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
     lib.fused_sample_step.restype = ctypes.c_int
-    lib.sample_step_max_classes.argtypes = []
-    lib.sample_step_max_classes.restype = ctypes.c_int
+    lib.sample_step_register_classes.argtypes = []
+    lib.sample_step_register_classes.restype = ctypes.c_int
     lib.sample_step_blocks_per_sm.argtypes = [ctypes.c_int]
     lib.sample_step_blocks_per_sm.restype = ctypes.c_int
-    if lib.sample_step_max_classes() != MAX_CLASSES:
-        raise RuntimeError("csrc/sample_step.cu takes another K-1 than "
-                           "MAX_CLASSES")
+    lib.sample_step_design.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sample_step_design.restype = ctypes.c_int
+    if lib.sample_step_register_classes() != REGISTER_CLASSES:
+        raise RuntimeError("csrc/sample_step.cu holds another K-1 in "
+                           "registers than REGISTER_CLASSES")
     return lib
 
+
+def sample_step_design(kv: int, guided: bool) -> str:
+    """Where the card's kernel keeps rows of ``kv`` = K-1 classes: one of
+    :data:`K1_DESIGNS` (the wide kernel's choice depends on the card's
+    shared memory, so the library answers)."""
+    design = _library().sample_step_design(int(kv), int(bool(guided)))
+    if design < 0:
+        raise RuntimeError("sample_step_design failed")
+    return K1_DESIGNS[design]
 
 
 def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
@@ -196,8 +214,10 @@ def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
     x_t; sched_row: (10,) f32 row of :func:`schedule_rows`; seed: int.
     Returns new tokens (B, L) int64 (+ the (B, K, L) posterior if asked).
     CPU tensors take the plain version; CUDA tensors launch the kernel and
-    count the launch in ``fused_sample_step.launches``, and raise on a layout
-    or size the kernel does not take (K-1 above :data:`MAX_CLASSES`)."""
+    count the launch in ``fused_sample_step.launches`` and in
+    ``fused_sample_step.by_classes[K-1]``, and raise on a layout or size the
+    kernel does not take (a class axis that is not contiguous, B above
+    65535). Any K-1 runs."""
     if logits2.device.type == "cpu":
         return fused_sample_step_reference(
             logits2, tokens, sched_row, seed, guidance=guidance,
@@ -225,9 +245,8 @@ def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
     if logits2.stride(1) != 1:
         raise ValueError(f"fused_sample_step: the class axis of logits2 must "
                          f"be contiguous (strides {logits2.stride()})")
-    if kv > MAX_CLASSES or b > 65535:
-        raise ValueError(f"fused_sample_step: K-1 = {kv} (at most "
-                         f"{MAX_CLASSES}) or B = {b} (at most 65535) is "
+    if b > 65535:
+        raise ValueError(f"fused_sample_step: B = {b} (at most 65535) is "
                          f"beyond the kernel")
     out = torch.empty((b, L), dtype=torch.int64, device=logits2.device)
     post = (torch.empty((b, num_classes, L), dtype=torch.float32,
@@ -247,10 +266,12 @@ def fused_sample_step(logits2: torch.Tensor, tokens: torch.Tensor,
         raise RuntimeError(f"fused_sample_step launch failed: cudaError "
                            f"{err}")
     fused_sample_step.launches += 1
+    fused_sample_step.by_classes[kv] += 1
     return (out, post) if return_posterior else out
 
 
 fused_sample_step.launches = 0
+fused_sample_step.by_classes = collections.Counter()
 
 
 @torch.no_grad()

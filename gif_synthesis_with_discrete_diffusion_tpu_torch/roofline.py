@@ -14,7 +14,8 @@ from __future__ import annotations
 import subprocess
 
 __all__ = ["PEAK_BYTES", "PEAK_F32", "PEAK_BF16", "PEAK_TF32", "bound",
-           "attention_work", "megakernel_work", "megakernel_bound", "card"]
+           "attention_work", "sample_step_work", "codebook_work",
+           "megakernel_work", "megakernel_bound", "card"]
 
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -48,6 +49,25 @@ def attention_work(b: int, lq: int, lk: int, n_head: int, d: int,
     if backward:
         return 4.0 * 4 * b * (lq + lk) * c, 10.0 * pairs * d, 2.0 * pairs
     return 4.0 * 2 * b * (lq + lk) * c, 4.0 * pairs * d, pairs
+
+
+def sample_step_work(b: int, nb: int, kv: int, L: int
+                     ) -> tuple[float, float]:
+    """(bytes, f32 operations) of one sampler step (K1) at any class count:
+    ``nb`` rows of logits (2 ``b`` under CFG) of ``kv`` = K - 1 classes at
+    ``L`` positions read once in f32, ``b`` x ``L`` int64 tokens read and
+    written once; no matrix product, ~60 f32 operations a logit (the
+    reductions and the posterior)."""
+    return 4.0 * nb * kv * L + 16.0 * b * L, 60.0 * nb * kv * L
+
+
+def codebook_work(n: int, k: int, d: int) -> tuple[float, float]:
+    """(bytes, FLOP) of one codebook lookup with its statistics (K6) at any
+    code dim: x (``n``, ``d``) and the codebook (``k``, ``d``) read once,
+    ``encode_sum`` (k, d), ``n_total`` (k) and the indices written once; the
+    distances' product 2 n k d (K6 computes it as three TF32 products, so
+    its bound is :func:`bound` with ``flops_tf32`` three times this)."""
+    return 4.0 * (n * d + 2 * k * d + k) + 8.0 * n, 2.0 * n * k * d
 
 
 def megakernel_work(b: int, n_br: int, L: int, n_layer: int, hidden: int,

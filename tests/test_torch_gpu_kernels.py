@@ -90,21 +90,64 @@ def test_sampler_step_kernel_matches_plain(cuda, k, L, guidance, t, scale):
 
 
 def test_sampler_step_kernel_refuses_what_it_does_not_take(cuda):
-    """A class axis that is not contiguous, and K-1 above the rows the
-    kernel holds in registers, raise: the wrapper never copies the
-    logits."""
+    """A class axis that is not contiguous raises: the wrapper never copies
+    the logits. K-1 above the rows the kernel holds in registers no longer
+    does: it takes the wide kernel and equals the plain version."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
-        import MAX_CLASSES
+        import REGISTER_CLASSES
     row = schedule_rows(make_schedule(100, 17, device=cuda))[3]
     tokens = torch.zeros((2, 8), dtype=torch.int64, device=cuda)
     strided = torch.randn((4, 16, 8), device=cuda)   # (nb, K-1, L) contiguous
     with pytest.raises(ValueError, match="contiguous"):
         fused_sample_step(strided, tokens, row, 1, guidance=2.0,
                           num_classes=17)
-    k = MAX_CLASSES + 2
+    k = REGISTER_CLASSES + 2
+    row = schedule_rows(make_schedule(100, k, device=cuda))[3]
     big = torch.randn((2, 8, k - 1), device=cuda).transpose(1, 2)
-    with pytest.raises(ValueError, match="beyond the kernel"):
-        fused_sample_step(big, tokens, row, 1, guidance=1.0, num_classes=k)
+    tokens = torch.full((2, 8), k - 1, dtype=torch.int64, device=cuda)
+    kw = dict(guidance=1.0, num_classes=k, sample=False,
+              return_posterior=True)
+    before = fused_sample_step.launches
+    tok_k, post_k = fused_sample_step(big, tokens, row, 1, **kw)
+    assert fused_sample_step.launches == before + 1
+    tok_p, post_p = fused_sample_step_reference(big, tokens, row, 1, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(post_k, post_p, rtol=0, atol=K1_TOL)
+    top2 = post_p.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > K1_TOL
+    assert not ((tok_k != tok_p) & decided).any()
+
+
+@pytest.mark.parametrize("kv,guidance", [
+    (8193, 2.0), (10241, 2.0), (16384, 2.0), (16384, 1.0), (32768, 2.0),
+    (32769, 1.0)])
+def test_sampler_step_kernel_matches_plain_past_8192_classes(cuda, kv,
+                                                             guidance):
+    """The wide kernel (rows in shared memory, and at 32768 classes under
+    guidance from device memory; 10241: element loads) against the plain
+    version: the posterior within K1_TOL, argmax tokens equal where
+    decided, sampled tokens in range and repeatable by seed."""
+    k, B, L = kv + 1, 2, 96
+    g = torch.Generator(device=cuda).manual_seed(kv)
+    nb = 2 * B if guidance != 1.0 else B
+    logits2 = (3.0 * torch.randn((nb, L, kv), generator=g, device=cuda)
+               ).transpose(1, 2)
+    tokens = torch.randint(0, k, (B, L), generator=g, device=cuda)
+    row = schedule_rows(make_schedule(100, k, device=cuda))[40]
+    kw = dict(guidance=guidance, num_classes=k)
+    tok_k, post_k = fused_sample_step(logits2, tokens, row, 5, sample=False,
+                                      return_posterior=True, **kw)
+    tok_p, post_p = fused_sample_step_reference(
+        logits2, tokens, row, 5, sample=False, return_posterior=True, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(post_k, post_p, rtol=0, atol=K1_TOL)
+    top2 = post_p.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > K1_TOL
+    assert not ((tok_k != tok_p) & decided).any()
+    draw = [fused_sample_step(logits2, tokens, row, s, **kw)
+            for s in (1, 1, 2)]
+    assert torch.equal(draw[0], draw[1]) and not torch.equal(draw[0], draw[2])
+    assert draw[0].min() >= 0 and draw[0].max() < k
 
 
 def test_sampler_step_kernel_samples_in_range_and_by_seed(cuda):
@@ -151,14 +194,27 @@ def test_attention_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
                                atol=K2_TOL)
 
 
-def test_attention_kernel_refuses_other_head_dims(cuda):
-    """Every head dim up to 128 is taken; above it the kernels raise, and
-    so do widths no multiple of the heads."""
-    q = torch.randn((1, 8, 2 * 129), device=cuda)
-    with pytest.raises(ValueError, match="128"):
-        fused_mha(q, q, q, n_head=2)                 # head dim 129
+@pytest.mark.parametrize("d", [129, 256])
+def test_attention_kernel_refuses_other_head_dims(cuda, d):
+    """Every head dim is taken: above 128 the split design, forward and
+    backward equal to the plain versions; widths no multiple of the heads
+    still raise."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do = (torch.randn((2, n, 2 * d), generator=g, device=cuda)
+                   for n in (70, 90, 90, 70))
+    before = fused_mha.by_head_dim[d, q.dtype], fused_mha_bwd.launches
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    got = fused_mha(qg, kg, vg, n_head=2)
+    got.backward(do)
+    assert (fused_mha.by_head_dim[d, q.dtype], fused_mha_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, sdpa_reference(q, k, v, 2), rtol=K2_TOL,
+                               atol=K2_TOL)
+    for x, w in zip((qg.grad, kg.grad, vg.grad),
+                    fused_mha_bwd_reference(q, k, v, do, 2)):
+        torch.testing.assert_close(x, w, rtol=K5_TOL, atol=K5_TOL)
     with pytest.raises(ValueError):
-        fused_mha(q, q, q, n_head=4)                 # 258 / 4
+        fused_mha(q, q, q, n_head=5)       # 2 d is no multiple of 5
 
 
 def test_small_slice_on_the_card_matches_the_cpu(cuda):
@@ -345,6 +401,42 @@ def test_codebook_kernel_matches_plain(cuda, n, k, d):
     want_n, want_sum = code_stats_reference(x, idx, k)
     torch.testing.assert_close(n_total, want_n, rtol=0, atol=0)
     torch.testing.assert_close(encode_sum, want_sum, rtol=K6_TOL, atol=K6_TOL)
+
+
+@pytest.mark.parametrize("n,k,d", [
+    (500, 512, 385), (4096, 4096, 512), (300, 700, 1024),
+    (16384, 16384, 512)])
+def test_codebook_kernel_matches_plain_past_dim_384(cuda, n, k, d):
+    """x streamed beside E (D above 384) through K6's three entries: the
+    indices equal to the f64 argmin wherever its top-two margin exceeds
+    ``chip_smoke.k6_margin(D)``, the statistics of its own indices, the
+    distance entry's indices the same and its distances within a quarter
+    of that margin, and two shards' nearest the unsharded index."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.codebook_kernel \
+        import nearest_code_dist
+    g = torch.Generator(device=cuda).manual_seed(n + k + d)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    emb = torch.randn((k, d), generator=g, device=cuda)
+    margin = chip_smoke.k6_margin(d)
+    before = nearest_code_stats.by_dim[d]
+    idx, n_total, encode_sum = nearest_code_stats(x, emb)
+    assert nearest_code_stats.by_dim[d] == before + 1
+    xd, ed = x.double(), emb.double()
+    dist = -2.0 * (xd @ ed.t()) + (ed * ed).sum(dim=-1)[None, :]
+    top2 = (-dist).topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > margin
+    assert not ((idx != dist.argmin(dim=1)) & decided).any()
+    want_n, want_sum = code_stats_reference(x, idx, k)
+    torch.testing.assert_close(n_total, want_n, rtol=0, atol=0)
+    torch.testing.assert_close(encode_sum, want_sum, rtol=K6_TOL, atol=K6_TOL)
+    d_idx, d_dist = nearest_code_dist(x, emb)
+    assert torch.equal(d_idx, idx)
+    want_dist = dist.gather(1, idx.long()[:, None])[:, 0]
+    assert float((d_dist.double() - want_dist).abs().max()) <= margin / 4
+    half = k // 2
+    lo_i, lo_d = nearest_code_dist(x, emb[:half].contiguous())
+    hi_i, hi_d = nearest_code_dist(x, emb[half:].contiguous())
+    assert torch.equal(torch.where(hi_d < lo_d, hi_i + half, lo_i), idx)
 
 
 @pytest.mark.parametrize("d", [128, 130])

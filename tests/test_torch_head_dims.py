@@ -82,6 +82,12 @@ def test_plain_attention_and_gradients_match_pallas(d, case):
     design: ``d`` in the instantiation ``kernel_head_dim(d)``, its columns
     beyond d zero; f32 q scaled before its three TF32 partial products)
     against the Pallas kernel and its VJP in interpret mode, within TOL."""
+    check_plain_attention(d, case)
+
+
+def check_plain_attention(d, case):
+    """:func:`test_plain_attention_and_gradients_match_pallas` at head dim
+    ``d`` (tests/test_torch_wide_domain.py runs it above 128)."""
     B, Lq, Lk = CASES[case]
     q, k, v, w = _inputs(d + Lk, B, Lq, Lk, H * d)
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
@@ -126,6 +132,12 @@ def test_bf16_kernel_arithmetic_within_the_bf16_bound(d, case):
     the same inputs: every output within BF16_EXCESS_TOL of its magnitude
     beyond its rounding (the gradients' scale floored at 1e-3 of the
     largest, as dq and dk vanish over one key)."""
+    check_bf16_arithmetic(d, case)
+
+
+def check_bf16_arithmetic(d, case):
+    """:func:`test_bf16_kernel_arithmetic_within_the_bf16_bound` at head
+    dim ``d``."""
     B, Lq, Lk = CASES[case]
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
                    for x in _inputs(d + 7 * Lk, B, Lq, Lk, H * d))
@@ -157,22 +169,29 @@ def test_one_key_gives_zero_dq_and_dk_in_the_arithmetic():
 
 @pytest.mark.parametrize("d,width", [
     (1, 16), (3, 16), (4, 4), (6, 16), (8, 8), (12, 16), (16, 16), (17, 32),
-    (32, 32), (48, 64), (64, 64), (65, 128), (100, 128), (128, 128)])
+    (32, 32), (48, 64), (64, 64), (65, 128), (100, 128), (128, 128),
+    (129, 192), (144, 192), (192, 192), (193, 256), (256, 256), (512, 512),
+    (1000, 1024)])
 def test_kernel_head_dim_takes_the_next_instantiation(d, width):
+    """The wide design's next D up to 128; above it the split design, its
+    contraction padded to a multiple of SPLIT_CHUNK."""
     assert attn.kernel_head_dim(d) == width
     assert attn.check_head_dim(3 * d, 3) == d
 
 
 @pytest.mark.parametrize("c,n_head", [(2 * 129, 2), (256, 1), (1024, 4)])
 def test_head_dims_above_128_are_refused_by_the_contract(c, n_head):
-    """The one width the kernels leave out: the contract raises before any
-    device is touched, naming the limit."""
-    with pytest.raises(ValueError, match="128"):
-        attn.check_head_dim(c, n_head)
-    with pytest.raises(ValueError, match="128"):
-        attn.kernel_head_dim(c // n_head)
+    """Head dims above 128 are no longer refused: the contract takes them
+    (the split design, at the instantiation ``kernel_head_dim`` gives), and
+    what it still refuses is a width that is no multiple of n_head."""
+    d = attn.check_head_dim(c, n_head)
+    assert d == c // n_head > 128
+    assert attn.kernel_head_dim(d) == -(-d // attn.SPLIT_CHUNK) * \
+        attn.SPLIT_CHUNK
     with pytest.raises(ValueError, match="multiple"):
         attn.check_head_dim(130, 4)
+    with pytest.raises(ValueError, match="multiple"):
+        attn.check_head_dim(c + 1, n_head if n_head > 1 else 3)
 
 
 @pytest.mark.parametrize("d", [12, 64])
