@@ -162,12 +162,15 @@ Phases:
      bf16 denoiser, argmax sampling through K3 on the gathered weights
      (tokens bitwise), with the step times, the launches of K6's entries
      and the bytes a rank holds;
- 20. K2 and K5 at every head width the JAX kernels take (the wide design,
-     ``csrc/mha_tiles.cuh: WTf32, WBf16``): (a) d = 12, 16, 32, 64, 128 in
+ 20. K2 and K5 at every head width the JAX kernels take (the wg design,
+     ``csrc/mha_wg.cuh``: wgmma fed by TMA): (a) d = 12, 16, 32, 64, 128 in
      f32 and bf16 against their plain versions (self-attention at B=64,
      L=1024 in 16 heads, 8 at d = 128; cross-attention over 1 and 77 keys)
-     under K2_TOL, K5_TOL and BF16_EXCESS_TOL, then timed with the bound,
-     the exponential floor and ``F.scaled_dot_product_attention``; (b) the
+     under K2_TOL, K5_TOL and BF16_EXCESS_TOL, then timed there (self,
+     one key, 77 keys) with the bound, the exponential floor and
+     ``F.scaled_dot_product_attention`` (the ratio to it), and with
+     ``--parent`` in turns with the parent's kernels at the same shapes
+     (``probes/attention_variants.py: compare_widths``); (b) the
      denoiser at VQ-Diffusion-B's published width (``generate.VQD_B``:
      n_embd 1024 in 16 heads of 64, 387.4 M parameters): its logits at one
      timestep through K2 against the plain attention on the card, then
@@ -231,8 +234,10 @@ at least once); phase 18's checkpointed steps (K2, K5) and rank 0's launches of 
 K6 and K3 there; phase 20's ``VQD_B`` runs (K1 and K2 sampling, K2, K5
 and K6 in both ``tasks.train`` runs), and for K2 and K5 the launches of
 this process by head dim, as the wrappers counted them
-(``launches_by_head_dim``: every phase, the checks included), and phase
-20 (a)'s numbers at each wide head dim (``by_head_dim``); for K3 and K4
+(``launches_by_head_dim``: every phase, the checks included; summed by
+the design each head dim takes in ``launches_by_design``: ``tiles`` at 4
+and 8, ``wg`` up to 128, ``split`` above), and phase 20 (a)'s numbers at
+each head dim of the wg design (``by_head_dim``); for K3 and K4
 the launches of this process by width (``launches_by_width``), phase 21
 (b)'s numbers at each full width (``by_width``) and the route run of (c);
 phase 22's ``WIDE_DOMAIN`` runs (K6 in both stages, K2 and K5 in bf16 in
@@ -249,6 +254,7 @@ Any failure raises: there is no CPU run.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import ctypes
@@ -1222,6 +1228,7 @@ def phase_train(torch, smi: str, profile: bool) -> dict:
 
     state, batch, g, bf16 = _timed_train2(torch, smi, TRAIN_STEP2,
                                           TRAIN_STEP2_BATCH, 7, 2)
+    _f11_cost(torch, smi, state, batch, g)
     b = TRAIN_STEP2_BATCH
     # what D3PM.forward's "logits" (the JAX key) adds to a step: the exp of
     # the (B, K, L) log posterior, outside the autograd graph
@@ -1241,6 +1248,80 @@ def phase_train(torch, smi: str, profile: bool) -> dict:
         "float32"
     f32 = _timed_train2(torch, smi, f32_config, TRAIN_STEP2_BATCH, 7, 2)[3]
     return {"bf16": bf16, "f32": f32}
+
+
+@contextlib.contextmanager
+def _f11_roundings(torch, model, before: bool):
+    """Inside the block, with ``before``, the bf16 denoiser rounds as it did
+    before F11's repair: every op's output to bf16 (GELU2 as x *
+    sigmoid(1.702 x) on the bf16 tensor, the AdaLN's 1 + scale in bf16,
+    every Dense's bias added in bf16, its gradient summed in bf16); else as
+    it does now."""
+    import torch.nn.functional as F
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.models import (
+        denoiser, layers)
+    saved = []
+
+    def patch(m, name, value):
+        saved.append((m, name, m.__dict__.get(name)))
+        setattr(m, name, value)
+
+    if before:
+        for m in model.modules():
+            if isinstance(m, layers.Dense):
+                patch(m, "add_bias", lambda y, m=m: y if m.bias is None else
+                      y + m.bias.to(m.compute_dtype))
+            elif isinstance(m, denoiser.Block):
+                patch(m, "act", lambda x: x * torch.sigmoid(1.702 * x))
+            elif isinstance(m, denoiser.AdaLayerNorm):
+                def forward(x, timestep, m=m):
+                    emb = m.linear(F.silu(m.emb(timestep)))[:, None, :]
+                    scale, shift = emb.chunk(2, dim=2)
+                    return m.norm(x) * (1 + scale) + shift
+                patch(m, "forward", forward)
+    try:
+        yield
+    finally:
+        for m, name, old in reversed(saved):
+            if old is None:
+                delattr(m, name)
+            else:
+                setattr(m, name, old)
+
+
+def _f11_cost(torch, smi: str, state, batch, g) -> None:
+    """What F11's repair costs the host-bound bf16 ``TRAIN_STEP2`` step:
+    the device kernels a step launches (torch.profiler over one step) and
+    the step's time (host clock ending in ``synchronize()``, 3 steps), the
+    denoiser rounding as before the repair and as now, in turns (before,
+    now, now, before)."""
+    from torch.profiler import ProfilerActivity, profile
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
+        train_step)
+    model = state.generator.diffusion.transformer
+    read = {True: [], False: []}
+    for before in (True, False, False, True):
+        with _f11_roundings(torch, model, before):
+            train_step(state, batch, g)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                train_step(state, batch, g)
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in prof.key_averages()
+                          if e.device_time_total > 0)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(state, batch, g)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        read[before].append((kernels, min(times)))
+    for before, label in ((True, "as before F11's repair"),
+                          (False, "now")):
+        print(f"phase 7: TRAIN_STEP2 (bfloat16 denoiser) rounding {label}: "
+              + "; ".join(f"{k} device operations, {t:.4f} s a step"
+                          for k, t in read[before]) + f" ({smi})")
 
 
 def _timed_train2(torch, smi: str, config: dict, b: int, steps: int,
@@ -3965,6 +4046,18 @@ def _head_dim_launches(counts: dict, dtype: str, name: str) -> dict:
     return {str(d): by_d[d] for d in sorted(by_d)}
 
 
+def _design_launches(by_head_dim: dict) -> dict:
+    """``{design: launches}`` of a kernel's ``launches_by_head_dim``: the
+    design the kernels take each head dim in (``ops/attention.py:
+    design``; the launchers dispatch on the head dim alone)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        design)
+    out = collections.Counter()
+    for d, n in by_head_dim.items():
+        out[design(int(d))] += n
+    return dict(sorted(out.items()))
+
+
 @contextlib.contextmanager
 def _plain_attention():
     """The denoiser's attention as the plain version (``sdpa_reference``,
@@ -4009,16 +4102,45 @@ def _f32_attention_case(torch, B, Lq, Lk, C, H) -> dict:
     return out
 
 
-def _phase20_kernels(torch, smi: str) -> dict:
+def _phase20_kernels(torch, smi: str, parent: str | None = None) -> dict:
     """(a) K2 and K5 at every listed head width, f32 and bf16, against
     their plain versions (self-attention at B=64, L=1024, 16 heads or 8 at
     d = 128; cross-attention over 1 and 77 keys), then timed there with
-    the bound, the exponential floor and the library call. Returns the
-    numbers by (d, dtype)."""
-    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes.\
-        attention_variants import heads
-    return _attention_widths(torch, smi, "phase 20", WIDE_HEAD_DIMS, WIDE_B,
-                             heads)
+    the bound, the exponential floor and the library call; with ``parent``
+    (a checkout's root), the same shapes timed in turns with that
+    checkout's kernels (``probes/attention_variants.py``:
+    compare_widths). Returns the numbers by (d, dtype)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        attention_variants)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        tma_refused)
+    rows = _attention_widths(torch, smi, "phase 20", WIDE_HEAD_DIMS, WIDE_B,
+                             attention_variants.heads)
+    print("phase 20: the wg design's launches that copied by cp.async for a "
+          "tensor map cuTensorMapEncodeTiled refused, (launches, last CUresult): "
+          + ", ".join(f"{k} {v}" for k, v in tma_refused().items()))
+    if parent is None:
+        return rows
+    res = attention_variants.compare_widths(parent, WIDE_HEAD_DIMS,
+                                            log=lambda line: None)
+    for d in WIDE_HEAD_DIMS:
+        for dtype in ("float32", "bfloat16"):
+            for kind in ("K2", "K5"):
+                for shape in ("self", "cross", "cross77"):
+                    key = f"{d} {kind} {shape} {dtype}"
+                    read = {side: [r[key] for r in runs]
+                            for side, runs in res["ms"].items()}
+                    best = {side: min(v) for side, v in read.items()}
+                    rows[(d, dtype)][f"{kind} {shape}"]["parent_ms"] = (
+                        best["parent"])
+                    print(f"phase 20: {kind} d={d} {dtype} {shape} in turns "
+                          f"with {parent}: this checkout "
+                          + " ".join(f"{x:.4f}" for x in read["change"])
+                          + f" ms, {parent} "
+                          + " ".join(f"{x:.4f}" for x in read["parent"])
+                          + f" ms; {best['change'] / best['parent']:.3f} of "
+                          f"its time ({res['card']})")
+    return rows
 
 
 def _attention_widths(torch, smi: str, phase: str, dims, b: int,
@@ -4030,7 +4152,7 @@ def _attention_widths(torch, smi: str, phase: str, dims, b: int,
     Returns the numbers by (d, dtype)."""
     import torch.nn.functional as F
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
-        BF16_EXCESS_TOL, _fwd_kernel, fused_mha, fused_mha_bwd,
+        BF16_EXCESS_TOL, _fwd_kernel, design, fused_mha, fused_mha_bwd,
         fused_mha_bwd_reference, kernel_head_dim, sdpa_reference)
 
     exp_rate = _exp_rate(torch)
@@ -4080,7 +4202,8 @@ def _attention_widths(torch, smi: str, phase: str, dims, b: int,
             # cross-attention over one key
             g = torch.Generator(device="cuda").manual_seed(d)
             out = {"max_abs_err": worst}
-            for shape, lk in (("self", WIDE_L), ("cross", 1)):
+            for shape, lk in (("self", WIDE_L), ("cross", 1),
+                              ("cross77", 77)):
                 q, do = (torch.randn((b, WIDE_L, C), generator=g,
                                      device="cuda").to(dtype)
                          for _ in range(2))
@@ -4120,12 +4243,15 @@ def _attention_widths(torch, smi: str, phase: str, dims, b: int,
                     out[f"{kernel} {shape}"] = dict(
                         ms=t, plain_ms=p, library_ms=lib, bound_ms=bound_ms,
                         bound_by=bound_by, share=bound_ms / t,
-                        exp_floor_ms=exp_ms)
+                        library_ratio=t / lib, exp_floor_ms=exp_ms,
+                        design=design(d))
                     print(f"{phase}: {kernel} d={d} {name} {shape} "
-                          f"(B={b}, Lq={WIDE_L}, Lk={lk}, H={H}) kernel "
+                          f"(B={b}, Lq={WIDE_L}, Lk={lk}, H={H}; the "
+                          f"{design(d)} design) kernel "
                           f"{t:.4f} ms, plain {p:.4f} ms, sdpa ({backend}) "
                           f"{'autograd backward ' if bwd else ''}{lib:.4f} "
-                          f"ms, bound {bound_ms:.4f} ms by {bound_by} "
+                          f"ms ({t / lib:.3f} of it), bound {bound_ms:.4f} "
+                          f"ms by {bound_by} "
                           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB "
                           f"in f32; {bound_ms / t:.3f} of it), exponential "
                           f"floor {exp_ms:.4f} ms ({smi})")
@@ -4419,7 +4545,7 @@ def phase_widths(torch, smi: str, parent: str | None = None,
     (c) VQD_B trained, (d) the old widths' times, (e) with ``profile`` (b)
     and (c) by kernel."""
     t0 = time.perf_counter()
-    kernels = _phase20_kernels(torch, smi)
+    kernels = _phase20_kernels(torch, smi, parent)
     t1 = time.perf_counter()
     sampling = _phase20_sampling(torch, smi)
     t2 = time.perf_counter()
@@ -5576,6 +5702,8 @@ def main() -> int:
         "nearest_code_stats": [
             (vqd_train.format(n), widths["train"][dt]["K6"])
             for n, dt in (("f32", "float32"), ("bf16", "bfloat16"))]}
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
+        tma_refused)
     for kernel in kernels:
         for path, n in vqd_runs.get(kernel["name"], ()):
             kernel["launches_by_path"][path] = n
@@ -5588,10 +5716,14 @@ def main() -> int:
                 kernel["launches_by_head_dim"] = _head_dim_launches(
                     (fused_mha_bwd if kid == "K5" else fused_mha)
                     .by_head_dim, dt, kernel["name"])
+                kernel["launches_by_design"] = _design_launches(
+                    kernel["launches_by_head_dim"])
+                kernel["tma_refused"] = tma_refused()[kid][0]
                 kernel["by_head_dim"] = {
                     str(d): dict(row[f"{kid} self"],
                                  max_abs_err=row["max_abs_err"],
-                                 cross_ms=row[f"{kid} cross"]["ms"])
+                                 cross_ms=row[f"{kid} cross"]["ms"],
+                                 cross77_ms=row[f"{kid} cross77"]["ms"])
                     for rows in (widths["kernels"], wide["attention"])
                     for (d, name), row in rows.items() if name == dt}
                 missing = {str(d) for d in P22_HEAD_DIMS} - set(

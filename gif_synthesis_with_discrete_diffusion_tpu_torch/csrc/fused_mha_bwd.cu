@@ -7,7 +7,7 @@
 //
 // q, dout, dq: (B, Lq, C); k, v, dk, dv: (B, Lk, C); all of one type (f32
 // or bf16) and contiguous, C = H * D, any head dim (below, the design for
-// D = 4 and 8; the wide design up to 128 and the split design above it at
+// D = 4 and 8; the wg design up to 128 and the split design above it at
 // the end). o:
 // (B, Lq, C) f32, the forward's
 // output; lse: (B, H, Lq) f32, its per-row log-sum-exp of the scores in
@@ -43,21 +43,26 @@
 //    range is then cut into `splits` chunks, each chunk writes its partial
 //    sums (f32), and a third kernel adds the chunks in a fixed order.
 //
-// Head dims other than 4 and 8 take the wide design (csrc/mha_tiles.cuh:
-// WTf32, WBf16; see csrc/fused_mha_fwd.cu) at the next of D = 16, 32, 64,
-// 128: the same two kernels and the same split of the queries, with every
-// operand in shared memory as it is in device memory (the block's own 64
-// rows of q and dO, or of k and v, and the other side's tiles of 64,
-// double-buffered by cp.async), a warp's 16 rows' fragments loaded once a
-// tile and head-dim chunk, the scores of half a tile at a time at D = 128
-// (registers). The dq kernel also writes Dr = rowsum(dO * O) of its rows to
+// Head dims other than 4 and 8 up to 128 take the wg design
+// (csrc/mha_wg.cuh) at the next of D = 16, 32, 64, 128: the same two
+// kernels and the same split of the queries on wgmma, each with a producer
+// warp that brings the block's own rows (q and dO, or k and v) once and the
+// other side's tiles into a ring of two slots by TMA, and one or two
+// consumer warpgroups of 64 own rows. Per tile the dq kernel computes S = q
+// K^T and dP = dO V^T (both operands in shared memory), P and dS in
+// registers, and dQ += dS K with dS fed back from the registers; the dk/dv
+// kernel computes S^T = K q^T and dP^T = V dO^T with the keys as rows, so
+// that P^T and dS^T come out as the A operand of dV += P^T dO and dK +=
+// dS^T q. In f32 each tile is split into TF32 hi + lo after it lands, the
+// operands contracted over their rows (k in dq; q and dO in dk/dv) also
+// transposed. The dq kernel also writes Dr = rowsum(dO * O) of its rows to
 // `dr` (B, H, Lq), which the dk/dv kernel reads beside lse: O is read once.
-// Where every key fits in one group of scores (at most 64 keys, 32 at D =
-// 128), the dq kernel takes the TPU kernel's own Dr = rowsum(dP * P) with P
-// divided by its row sum from its registers instead: over one key (the
-// label's cross-attention) P = 1 and dS = 0 exactly, as in the TPU kernel,
-// where dO * O, summed in another order than dP, leaves dS a rounding
-// noise that dK adds up over every query.
+// Where every key fits in the dq kernel's one tile (at most 64 keys, 32 at
+// D = 128 and at f32 D = 64), it takes the TPU kernel's own Dr = rowsum(dP
+// * P) with P divided by its row sum from its registers instead: over one
+// key (the label's cross-attention) P = 1 and dS = 0 exactly, as in the
+// TPU kernel, where dO * O, summed in another order than dP, leaves dS a
+// rounding noise that dK adds up over every query.
 //
 // Head dims above 128 take the split design (csrc/mha_tiles.cuh:
 // kSplitOut, kSplitChunk, kSplitKeys): the same two kernels, each block on
@@ -67,10 +72,11 @@
 // side), then the tile's pair products against the other side's 128
 // columns of the chunk. Every chunk recomputes S and dP (at d = 256 half of
 // the dot products the kernels run). Dr = rowsum(dO * O) spans the head:
-// the dq blocks of chunk 0 write it, as the wide design's dq kernel does,
+// the dq blocks of chunk 0 write it, as the wg design's dq kernel does,
 // before the dk/dv kernel reads it; over at most 32 keys every chunk takes
 // the TPU kernel's rowsum(dP * P) from the same registers.
 #include "mha_tiles.cuh"
+#include "mha_wg.cuh"
 
 namespace {
 
@@ -304,311 +310,476 @@ __global__ void sum_splits_kernel(const float* __restrict__ dk_part,
 }
 
 // ---------------------------------------------------------------------------
-// the wide design
+// the wg design (csrc/mha_wg.cuh)
 // ---------------------------------------------------------------------------
-// grid (ceil(Lq / kWRowsBlock), H, B), kThreads threads; dynamic shared
-// memory of 6 tiles (q, dO, then keys and values twice)
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dq_wide_kernel(const typename Op::T* __restrict__ q,
-                       const typename Op::T* __restrict__ k,
-                       const typename Op::T* __restrict__ v,
-                       const float* __restrict__ o,
-                       const float* __restrict__ lse,
-                       const typename Op::T* __restrict__ dout,
-                       typename Op::T* __restrict__ dq, float* __restrict__ dr,
-                       int Lq, int Lk, int C, int d, int vec, float scale,
-                       float c) {
-  using T = typename Op::T;
-  constexpr int D = Op::D_, S = Op::S, kTileElems = kWTile * S;
-  // 8-column blocks of scores a warp holds at once: a tile, half at D = 128
-  constexpr int kG = D >= 128 ? kWNB / 2 : kWNB;
-  extern __shared__ __align__(16) unsigned char smem[];
+// dq: grid (ceil(Lq / own rows), H, B), a producer warp and one or two
+// consumer warpgroups of 64 queries; maps (d, L, H, B) of q and dO (boxes of
+// the own rows), k and v (boxes of a slot's keys), read when vec is 0
+// (csrc/mha_wg.cuh: load_tile).
+// Writes dQ and each row's Dr to `dr` (B, H, Lq).
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * (4 * wg::Cfg<T, D>::kDqWG + 1), 1)
+mha_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mdo,
+                     const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ o,
+                     const float* __restrict__ lse,
+                     const T* __restrict__ dout, T* __restrict__ dq,
+                     float* __restrict__ dr, int Lq, int Lk, int C, int d,
+                     int vec, float scale, float c) {
+  using G = wg::Cfg<T, D>;
+  constexpr bool F32 = G::kF32;
+  constexpr int NW = G::kDqWG, KT = G::kDqKT, NS = G::kDqSlots;
+  constexpr int R0 = 64 * NW, NC = 128 * NW;
+  constexpr int KE = KT * D, QE = R0 * D;
+  extern __shared__ __align__(1024) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kTileElems;
-  T* kv = dos + kTileElems;   // buffer i: keys at 2 i, values at 2 i + 1
+  T* dos = qs + QE;
+  T* qlo = dos + QE;                       // f32: q's and dO's lo
+  T* dolo = qlo + QE;
+  T* ring = qs + (F32 ? 4 : 2) * QE;       // slot i: k at 2 i, v at 2 i + 1
+  float* work = reinterpret_cast<float*>(ring + NS * 2 * KE);
+  constexpr int WE = G::work(KT);           // floats a work tile
+  float* klo = work;                       // f32: k's lo, v's lo, k^T hi, lo
+  float* vlo = work + WE;
+  float* kth = work + 2 * WE;
+  float* ktl = work + 3 * WE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(ring + NS * 2 * KE) +
+      (F32 ? 4 * WE * sizeof(float) : 0));
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + NS;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int blk0 = blockIdx.x * R0;
+  const int ntiles = (Lk + KT - 1) / KT;
+  const size_t qoff = static_cast<size_t>(b) * Lq * C + h * d;
+  if (threadIdx.x == 0) {
+    wg::mbar_init(qbar, wg::arrivals(vec));
+    for (int i = 0; i < NS; ++i) {
+      wg::mbar_init(&full[i], wg::arrivals(vec));
+      wg::mbar_init(&empty[i], NC);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NW) {   // the producer
+    const T* kh = k + static_cast<size_t>(b) * Lk * C + h * d;
+    const T* vh = v + static_cast<size_t>(b) * Lk * C + h * d;
+    if (vec == 0 && lane == 0) wg::mbar_expect(qbar, 2 * QE * sizeof(T));
+    wg::load_tile<T, D, R0>(qs, &mq, qbar, q + qoff, blk0, Lq, h, b, C, d,
+                            vec, lane);
+    wg::load_tile<T, D, R0>(dos, &mdo, qbar, dout + qoff, blk0, Lq, h, b, C,
+                            d, vec, lane);
+    wg::loaded(qbar, vec);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % NS;
+      if (t >= NS) wg::mbar_wait(&empty[s], (t / NS - 1) & 1);
+      T* kt = ring + 2 * s * KE;
+      if (vec == 0 && lane == 0) wg::mbar_expect(&full[s], 2 * KE * sizeof(T));
+      wg::load_tile<T, D, KT>(kt, &mk, &full[s], kh, t * KT, Lk, h, b, C, d,
+                              vec, lane);
+      wg::load_tile<T, D, KT>(kt + KE, &mv, &full[s], vh, t * KT, Lk, h, b, C,
+                              d, vec, lane);
+      wg::loaded(&full[s], vec);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, w = warp >> 2;
   const int g = lane >> 2, tig = lane & 3;
-  const int h = blockIdx.y;
-  const size_t b = blockIdx.z;
-  const int blk0 = blockIdx.x * kWRowsBlock;
-  const int r0 = warp * kWRows;
-  const int row0 = blk0 + r0;
-  const bool busy = row0 < Lq;
-  const size_t qoff = b * Lq * C + h * d;
-  const T* kh = k + b * Lk * C + h * d;
-  const T* vh = v + b * Lk * C + h * d;
-
-  stage<T, D, S>(qs, q + qoff, blk0, Lq, C, d, vec);
-  stage<T, D, S>(dos, dout + qoff, blk0, Lq, C, d, vec);
-  stage<T, D, S>(kv, kh, 0, Lk, C, d, vec);
-  stage<T, D, S>(kv + kTileElems, vh, 0, Lk, C, d, vec);
-  cp_async_commit();
-
-  // lse and Dr of the lane's rows g, g + 8. With every key in one group of
-  // scores (one_group: cross-attention over few keys), the TPU kernel's own
-  // formulas from the group's registers: P divided by its row sum, Dr =
-  // rowsum(dP * P), so that over one key P = 1 and dS = 0 exactly (Dr =
-  // dO * O, summed in another order than dP, would leave dS a rounding
-  // noise that dK sums over every query). Else Dr = rowsum(dO * O) from
+  const int row = blk0 + 64 * w + 16 * (warp & 3) + g;   // and row + 8
+  // lse and Dr of the rows. With every key in one tile (one_group:
+  // cross-attention over few keys), the TPU kernel's own formulas from the
+  // registers below: P divided by its row sum, Dr = rowsum(dP * P), so that
+  // over one key P = 1 and dS = 0 exactly. Else Dr = rowsum(dO * O) from
   // device memory (dO in the input type, O in f32), the lane's columns
   // tig, tig + 4, ...
-  const bool one_group = Lk <= 8 * kG;
+  const bool one_group = Lk <= KT;
   float l2[2], drr[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int row = row0 + g + 8 * hf;
+    const int r = row + 8 * hf;
     float x = 0.f;
-    if (row < Lq && !one_group) {
-      const size_t off = qoff + static_cast<size_t>(row) * C;
+    if (r < Lq && !one_group) {
+      const size_t off = qoff + static_cast<size_t>(r) * C;
       for (int j = tig; j < d; j += 4) {
-        float w;
-        if constexpr (std::is_same_v<T, float>)
-          w = dout[off + j];
+        float u;
+        if constexpr (F32)
+          u = dout[off + j];
         else
-          w = __bfloat162float(dout[off + j]);
-        x = fmaf(w, o[off + j], x);
+          u = __bfloat162float(dout[off + j]);
+        x = fmaf(u, o[off + j], x);
       }
     }
     drr[hf] = quad_sum(x);
-    l2[hf] = row < Lq ? lse[(b * gridDim.y + h) * Lq + row] : 0.f;
-    if (row < Lq && tig == 0 && !one_group)
-      dr[(b * gridDim.y + h) * Lq + row] = drr[hf];
+    l2[hf] = r < Lq ? lse[(static_cast<size_t>(b) * H + h) * Lq + r] : 0.f;
+    if (r < Lq && tig == 0 && !one_group)
+      dr[(static_cast<size_t>(b) * H + h) * Lq + r] = drr[hf];
   }
-  const float fq = Op::kScaledQ ? scale : 1.f;
-  float acc[D / 8][4];
+  wg::landed(qbar, 0, vec);
+  if constexpr (F32) {
+    wg::split_tile<R0, D, true, false>(reinterpret_cast<float*>(qs),
+                                       reinterpret_cast<float*>(qlo), nullptr,
+                                       nullptr, scale, tid, NC);
+    wg::split_tile<R0, D, true, false>(reinterpret_cast<float*>(dos),
+                                       reinterpret_cast<float*>(dolo),
+                                       nullptr, nullptr, 1.f, tid, NC);
+    wg::fence_async();
+    wg::consumers_sync(NC);
+  }
+  float acc[D / 2];
 #pragma unroll
-  for (int dc = 0; dc < D / 8; ++dc)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dc][j] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  const int ntiles = (Lk + kWTile - 1) / kWTile;
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kWTile;
-    if (t + 1 < ntiles) {
-      T* nxt = kv + ((t + 1) & 1) * 2 * kTileElems;
-      stage<T, D, S>(nxt, kh, k0 + kWTile, Lk, C, d, vec);
-      stage<T, D, S>(nxt + kTileElems, vh, k0 + kWTile, Lk, C, d, vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int s = t % NS;
+    wg::landed(&full[s], (t / NS) & 1, vec);
+    T* kt = ring + 2 * s * KE;
+    T* vt = kt + KE;
+    if constexpr (F32) {
+      wg::split_tile<KT, D, true, true>(reinterpret_cast<float*>(kt), klo,
+                                        kth, ktl, 1.f, tid, NC);
+      wg::split_tile<KT, D, true, false>(reinterpret_cast<float*>(vt), vlo,
+                                         nullptr, nullptr, 1.f, tid, NC);
+      wg::fence_async();
+      wg::consumers_sync(NC);
     }
-    __syncthreads();
-    if (busy) {
-      const T* ks = kv + (t & 1) * 2 * kTileElems;
-      const T* vs = ks + kTileElems;
-      const int nbv = (min(kWTile, Lk - k0) + 7) >> 3;
-#pragma unroll 1
-      for (int nb0 = 0; nb0 < nbv; nb0 += kG) {
-        float sc[kG][4], dp[kG][4];
+    // S = q k^T and dP = dO v^T over the head dim
+    float sc[KT / 2], dp[KT / 2];
 #pragma unroll
-        for (int i = 0; i < kG; ++i)
+    for (int i = 0; i < KT / 2; ++i) sc[i] = dp[i] = 0.f;
+    wg::hold(sc);
+    wg::hold(dp);
+    wg::wg_fence();
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 1
-        for (int kc = 0; kc < D / Op::kK; ++kc) {
-          typename Op::Frag aq, ad;
-          Op::load_a(aq, qs, r0, kc, fq, g, tig);
-          Op::load_a(ad, dos, r0, kc, 1.f, g, tig);
-#pragma unroll
-          for (int i = 0; i < kG; ++i) {
-            if (nb0 + i >= nbv) continue;
-            Op::dot(sc[i], aq, ks, nb0 + i, kc, 1.f, g, tig);
-            Op::dot(dp[i], ad, vs, nb0 + i, kc, 1.f, g, tig);
-          }
-        }
-        // P in place of the scores (0 past the keys)
-#pragma unroll
-        for (int i = 0; i < kG; ++i) {
-          const int key = k0 + 8 * (nb0 + i) + 2 * tig;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            sc[i][j] = nb0 + i < nbv && key + (j & 1) < Lk
-                ? ex2(fmaf(sc[i][j], c, -l2[j >> 1])) : 0.f;
-        }
-        if (one_group) {
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            float l = 0.f;
-#pragma unroll
-            for (int i = 0; i < kG; ++i) l += sc[i][2 * hf] + sc[i][2 * hf + 1];
-            l = quad_sum(l);
-            float x = 0.f;
-#pragma unroll
-            for (int i = 0; i < kG; ++i)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                sc[i][2 * hf + e] = __fdiv_rn(sc[i][2 * hf + e], l);
-                x = fmaf(sc[i][2 * hf + e], dp[i][2 * hf + e], x);
-              }
-            drr[hf] = quad_sum(x);
-            const int row = row0 + g + 8 * hf;
-            if (row < Lq && tig == 0)
-              dr[(b * gridDim.y + h) * Lq + row] = drr[hf];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kG; ++i) {
-          if (nb0 + i >= nbv) continue;
-          float ds[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            ds[j] = sc[i][j] * (dp[i][j] - drr[j >> 1]);
-          typename Op::Frag pa;
-          Op::make_p(pa, ds);
-          Op::pair(acc, pa, ks, nb0 + i, 1.f, g, tig);
-        }
+    for (int ks = 0; ks < D / G::kK; ++ks) {
+      const uint64_t aq = wg::desc_k<R0>(qs, ks, 64 * w);
+      const uint64_t ad = wg::desc_k<R0>(dos, ks, 64 * w);
+      const uint64_t bk = wg::desc_k<KT>(kt, ks);
+      const uint64_t bv = wg::desc_k<KT>(vt, ks);
+      if constexpr (F32) {
+        wg::wg_ss_tf32<KT>(sc, aq, bk, 1);
+        wg::wg_ss_tf32<KT>(sc, aq, wg::desc_k<KT>(klo, ks), 1);
+        wg::wg_ss_tf32<KT>(sc, wg::desc_k<R0>(qlo, ks, 64 * w), bk, 1);
+        wg::wg_ss_tf32<KT>(dp, ad, bv, 1);
+        wg::wg_ss_tf32<KT>(dp, ad, wg::desc_k<KT>(vlo, ks), 1);
+        wg::wg_ss_tf32<KT>(dp, wg::desc_k<R0>(dolo, ks, 64 * w), bv, 1);
+      } else {
+        wg::wg_ss_bf16<KT>(sc, aq, bk, 1);
+        wg::wg_ss_bf16<KT>(dp, ad, bv, 1);
       }
     }
-    __syncthreads();
+    wg::wg_commit();
+    wg::wg_wait();
+    wg::hold(sc);
+    wg::hold(dp);
+
+    // P in place of the scores (0 past the keys), then dS
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = t * KT + 8 * j + 2 * tig + (i & 1);
+        sc[4 * j + i] =
+            key < Lk ? ex2(fmaf(sc[4 * j + i], c, -l2[i >> 1])) : 0.f;
+      }
+    if (one_group) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+          sum += sc[4 * j + 2 * hf] + sc[4 * j + 2 * hf + 1];
+        sum = quad_sum(sum);
+        float x = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& p = sc[4 * j + 2 * hf + e];
+            p = __fdiv_rn(p, sum);
+            x = fmaf(p, dp[4 * j + 2 * hf + e], x);
+          }
+        drr[hf] = quad_sum(x);
+        const int r = row + 8 * hf;
+        if (r < Lq && tig == 0)
+          dr[(static_cast<size_t>(b) * H + h) * Lq + r] = drr[hf];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i)
+      sc[i] = sc[i] * (dp[i] - drr[(i >> 1) & 1]);
+    // acc += dS k, dS fed back from the registers
+    if constexpr (F32) {
+      unsigned fh[KT / 8][4], fl[KT / 8][4];
+      wg::feed_tf32<KT>(fh, fl, sc);
+      wg::hold(acc);
+      wg::wg_fence();
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+        wg::wg_rs_tf32<D>(acc, fh[j], wg::desc_t<D>(kth, j), 1);
+        wg::wg_rs_tf32<D>(acc, fh[j], wg::desc_t<D>(ktl, j), 1);
+        wg::wg_rs_tf32<D>(acc, fl[j], wg::desc_t<D>(kth, j), 1);
+      }
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(acc);
+      wg::hold(fh);
+      wg::hold(fl);
+    } else {
+      unsigned fh[KT / 16][4], fl[KT / 16][4];
+      wg::feed_bf16<KT>(fh, fl, sc);
+      wg::hold(acc);
+      wg::wg_fence();
+#pragma unroll
+      for (int j = 0; j < KT / 16; ++j) {
+        wg::wg_rs_bf16<D>(acc, fh[j], wg::desc_mn<KT>(kt, j), 1);
+        wg::wg_rs_bf16<D>(acc, fl[j], wg::desc_mn<KT>(kt, j), 1);
+      }
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(acc);
+      wg::hold(fh);
+      wg::hold(fl);
+    }
+    wg::mbar_arrive(&empty[s]);
+    if constexpr (F32) wg::consumers_sync(NC);   // the work tiles are free
   }
-  if (!busy) return;
   const float f[2] = {scale, scale};
-  store_wide<D>(dq + qoff, acc, f, row0, Lq, C, d, g, tig);
+  wg::store_rows<D>(dq + qoff, acc, f, row, Lq, C, d, tig);
 }
 
-// grid (ceil(Lk / kWRowsBlock), H, B * splits), kThreads threads; dynamic
-// shared memory of 6 tiles (k, v, then q and dO twice) and the (lse, Dr)
-// of each staged query twice; chunk s of the queries writes its partial
-// sums dk_part / dv_part[s] (B, Lk, C) of type OutT, as
-// mha_bwd_dkdv_kernel
-template <class Op, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dkdv_wide_kernel(const typename Op::T* __restrict__ q,
-                         const typename Op::T* __restrict__ k,
-                         const typename Op::T* __restrict__ v,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dr,
-                         const typename Op::T* __restrict__ dout,
-                         OutT* __restrict__ dk_part,
-                         OutT* __restrict__ dv_part, int B, int Lq, int Lk,
-                         int C, int q_chunk, int d, int vec, float scale,
-                         float c) {
-  using T = typename Op::T;
-  constexpr int D = Op::D_, S = Op::S, kTileElems = kWTile * S;
-  // 8-column blocks of scores a warp holds at once: a tile, half at D = 128
-  constexpr int kG = D >= 128 ? kWNB / 2 : kWNB;
-  extern __shared__ __align__(16) unsigned char smem[];
+// dk/dv: grid (ceil(Lk / own rows), H, B * splits), a producer warp and one
+// or two consumer warpgroups of 64 keys; maps of k and v (boxes of the own
+// rows), q and dO (boxes of a slot's queries). Chunk s of the queries
+// writes its partial sums dk_part / dv_part[s] (B, Lk, C) of type OutT, as
+// mha_bwd_dkdv_kernel; lse and Dr of a slot's queries are read from device
+// memory (past the chunk lse = +inf, so that P = 0).
+template <typename T, int D, typename OutT>
+__global__ void __launch_bounds__(32 * (4 * wg::Cfg<T, D>::kKvWG + 1), 1)
+mha_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mdo,
+                       const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dr,
+                       const T* __restrict__ dout,
+                       OutT* __restrict__ dk_part, OutT* __restrict__ dv_part,
+                       int B, int Lq, int Lk, int C, int q_chunk, int d,
+                       int vec, float scale, float c) {
+  using G = wg::Cfg<T, D>;
+  constexpr bool F32 = G::kF32;
+  constexpr int NW = G::kKvWG, KT = G::kKvKT, NS = G::kKvSlots;
+  constexpr int R0 = 64 * NW, NC = 128 * NW;
+  constexpr int KE = KT * D, OE = R0 * D;
+  extern __shared__ __align__(1024) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kTileElems;
-  T* qd = vs + kTileElems;   // buffer i: q at 2 i, dO at 2 i + 1
-  // (lse, Dr) of each staged query, [2][kWTile]
-  float2* stat = reinterpret_cast<float2*>(qd + 4 * kTileElems);
+  T* vs = ks + OE;
+  T* klo = vs + OE;                        // f32: k's and v's lo
+  T* vlo = klo + OE;
+  T* ring = ks + (F32 ? 4 : 2) * OE;       // slot i: q at 2 i, dO at 2 i + 1
+  float* work = reinterpret_cast<float*>(ring + NS * 2 * KE);
+  constexpr int WE = G::work(KT);           // floats a work tile
+  float* qlo = work;                       // f32: lo of q, dO; q^T, dO^T
+  float* dolo = work + WE;
+  float* qth = work + 2 * WE;
+  float* qtl = work + 3 * WE;
+  float* doth = work + 4 * WE;
+  float* dotl = work + 5 * WE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(ring + NS * 2 * KE) +
+      (F32 ? 6 * WE * sizeof(float) : 0));
+  uint64_t* kbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + NS;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int h = blockIdx.y;
-  const int H = gridDim.y;
-  const size_t b = blockIdx.z % B;
-  const size_t split = blockIdx.z / B;
-  const int blk0 = blockIdx.x * kWRowsBlock;
-  const int r0 = warp * kWRows;
-  const int row0 = blk0 + r0;
-  const bool busy = row0 < Lk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, H = gridDim.y;
+  const int b = blockIdx.z % B, split = blockIdx.z / B;
+  const int blk0 = blockIdx.x * R0;
   const int q_begin = split * q_chunk;
   const int q_end = min(Lq, q_begin + q_chunk);
-  const size_t koff = b * Lk * C + h * d;
-  const T* qh = q + b * Lq * C + h * d;
-  const T* dh = dout + b * Lq * C + h * d;
-  const float* lseh = lse + (b * H + h) * Lq;
-  const float* drh = dr + (b * H + h) * Lq;
-
-  // threads 0 .. kWTile - 1: the lse of query i0 + col (+inf past the
-  // chunk, so that P = 0), the others its Dr
-  const int col = threadIdx.x % kWTile;
-  auto put_stat = [&](int buf, int i0) {
-    const int qi = q_begin + i0 + col;
-    float* dst = reinterpret_cast<float*>(&stat[buf * kWTile + col]);
-    if (threadIdx.x < kWTile)
-      dst[0] = qi < q_end ? lseh[qi] : INFINITY;
-    else
-      dst[1] = qi < q_end ? drh[qi] : 0.f;
-  };
-  stage<T, D, S>(ks, k + koff, blk0, Lk, C, d, vec);
-  stage<T, D, S>(vs, v + koff, blk0, Lk, C, d, vec);
-  stage<T, D, S>(qd, qh, q_begin, q_end, C, d, vec);
-  stage<T, D, S>(qd + kTileElems, dh, q_begin, q_end, C, d, vec);
-  cp_async_commit();
-  put_stat(0, 0);
-
-  const float fq = Op::kScaledQ ? scale : 1.f;
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dc = 0; dc < D / 8; ++dc)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[dc][j] = dv[dc][j] = 0.f;
-
-  const int ntiles = (q_end - q_begin + kWTile - 1) / kWTile;
-  for (int t = 0; t < ntiles; ++t) {
-    const int i0 = t * kWTile;
-    if (t + 1 < ntiles) {
-      const int nb = (t + 1) & 1;
-      T* nxt = qd + nb * 2 * kTileElems;
-      stage<T, D, S>(nxt, qh, q_begin + i0 + kWTile, q_end, C, d, vec);
-      stage<T, D, S>(nxt + kTileElems, dh, q_begin + i0 + kWTile, q_end, C, d,
-                     vec);
-      cp_async_commit();
-      put_stat(nb, i0 + kWTile);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int ntiles = (q_end - q_begin + KT - 1) / KT;
+  const size_t koff = static_cast<size_t>(b) * Lk * C + h * d;
+  if (threadIdx.x == 0) {
+    wg::mbar_init(kbar, wg::arrivals(vec));
+    for (int i = 0; i < NS; ++i) {
+      wg::mbar_init(&full[i], wg::arrivals(vec));
+      wg::mbar_init(&empty[i], NC);
     }
-    __syncthreads();
-    if (busy) {
-      const T* qt = qd + (t & 1) * 2 * kTileElems;
-      const T* dt = qt + kTileElems;
-      const float2* st = stat + (t & 1) * kWTile;
-      const int nbv = (min(kWTile, q_end - q_begin - i0) + 7) >> 3;
-#pragma unroll 1
-      for (int nb0 = 0; nb0 < nbv; nb0 += kG) {
-        float p[kG][4], ds[kG][4];
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NW) {   // the producer
+    const T* qh = q + static_cast<size_t>(b) * Lq * C + h * d;
+    const T* dh = dout + static_cast<size_t>(b) * Lq * C + h * d;
+    if (vec == 0 && lane == 0) wg::mbar_expect(kbar, 2 * OE * sizeof(T));
+    wg::load_tile<T, D, R0>(ks, &mk, kbar, k + koff, blk0, Lk, h, b, C, d,
+                            vec, lane);
+    wg::load_tile<T, D, R0>(vs, &mv, kbar, v + koff, blk0, Lk, h, b, C, d,
+                            vec, lane);
+    wg::loaded(kbar, vec);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % NS;
+      if (t >= NS) wg::mbar_wait(&empty[s], (t / NS - 1) & 1);
+      T* qt = ring + 2 * s * KE;
+      const int r0 = q_begin + t * KT;
+      if (vec == 0 && lane == 0) wg::mbar_expect(&full[s], 2 * KE * sizeof(T));
+      wg::load_tile<T, D, KT>(qt, &mq, &full[s], qh, r0, q_end, h, b, C, d,
+                              vec, lane);
+      wg::load_tile<T, D, KT>(qt + KE, &mdo, &full[s], dh, r0, q_end, h, b, C,
+                              d, vec, lane);
+      wg::loaded(&full[s], vec);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, w = warp >> 2;
+  const int g = lane >> 2, tig = lane & 3;
+  const int row = blk0 + 64 * w + 16 * (warp & 3) + g;   // keys row, row + 8
+  const float* lseh = lse + (static_cast<size_t>(b) * H + h) * Lq;
+  const float* drh = dr + (static_cast<size_t>(b) * H + h) * Lq;
+  wg::landed(kbar, 0, vec);
+  if constexpr (F32) {
+    wg::split_tile<R0, D, true, false>(reinterpret_cast<float*>(ks),
+                                       reinterpret_cast<float*>(klo), nullptr,
+                                       nullptr, 1.f, tid, NC);
+    wg::split_tile<R0, D, true, false>(reinterpret_cast<float*>(vs),
+                                       reinterpret_cast<float*>(vlo), nullptr,
+                                       nullptr, 1.f, tid, NC);
+    wg::fence_async();
+    wg::consumers_sync(NC);
+  }
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-        for (int i = 0; i < kG; ++i)
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % NS;
+    wg::landed(&full[s], (t / NS) & 1, vec);
+    T* qt = ring + 2 * s * KE;
+    T* dt = qt + KE;
+    if constexpr (F32) {
+      wg::split_tile<KT, D, true, true>(reinterpret_cast<float*>(qt), qlo, qth,
+                                        qtl, scale, tid, NC);
+      wg::split_tile<KT, D, true, true>(reinterpret_cast<float*>(dt), dolo,
+                                        doth, dotl, 1.f, tid, NC);
+      wg::fence_async();
+      wg::consumers_sync(NC);
+    }
+    // S^T = k q^T and dP^T = v dO^T over the head dim, keys as rows
+    float st[KT / 2], dpt[KT / 2];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
-#pragma unroll 1
-        for (int kc = 0; kc < D / Op::kK; ++kc) {
-          typename Op::Frag ak, av;
-          Op::load_a(ak, ks, r0, kc, 1.f, g, tig);
-          Op::load_a(av, vs, r0, kc, 1.f, g, tig);
+    for (int i = 0; i < KT / 2; ++i) st[i] = dpt[i] = 0.f;
+    wg::hold(st);
+    wg::hold(dpt);
+    wg::wg_fence();
 #pragma unroll
-          for (int i = 0; i < kG; ++i) {
-            if (nb0 + i >= nbv) continue;
-            Op::dot(p[i], ak, qt, nb0 + i, kc, fq, g, tig);    // S^T
-            Op::dot(ds[i], av, dt, nb0 + i, kc, 1.f, g, tig);  // dP^T
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kG; ++i) {
-          if (nb0 + i >= nbv) continue;
-          // (lse, Dr) of the lane's queries 8 nb + 2 tig, 8 nb + 2 tig + 1
-          const float4 sd =
-              *reinterpret_cast<const float4*>(&st[8 * (nb0 + i) + 2 * tig]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float ls = (j & 1) ? sd.z : sd.x;
-            const float dd = (j & 1) ? sd.w : sd.y;
-            p[i][j] = ex2(fmaf(p[i][j], c, -ls));
-            ds[i][j] = p[i][j] * (ds[i][j] - dd);
-          }
-          typename Op::Frag pa, da;
-          Op::make_p(pa, p[i]);
-          Op::pair(dv, pa, dt, nb0 + i, 1.f, g, tig);
-          Op::make_p(da, ds[i]);
-          Op::pair(dk, da, qt, nb0 + i, fq, g, tig);
-        }
+    for (int kc = 0; kc < D / G::kK; ++kc) {
+      const uint64_t ak = wg::desc_k<R0>(ks, kc, 64 * w);
+      const uint64_t av = wg::desc_k<R0>(vs, kc, 64 * w);
+      const uint64_t bq = wg::desc_k<KT>(qt, kc);
+      const uint64_t bd = wg::desc_k<KT>(dt, kc);
+      if constexpr (F32) {
+        wg::wg_ss_tf32<KT>(st, ak, bq, 1);
+        wg::wg_ss_tf32<KT>(st, ak, wg::desc_k<KT>(qlo, kc), 1);
+        wg::wg_ss_tf32<KT>(st, wg::desc_k<R0>(klo, kc, 64 * w), bq, 1);
+        wg::wg_ss_tf32<KT>(dpt, av, bd, 1);
+        wg::wg_ss_tf32<KT>(dpt, av, wg::desc_k<KT>(dolo, kc), 1);
+        wg::wg_ss_tf32<KT>(dpt, wg::desc_k<R0>(vlo, kc, 64 * w), bd, 1);
+      } else {
+        wg::wg_ss_bf16<KT>(st, ak, bq, 1);
+        wg::wg_ss_bf16<KT>(dpt, av, bd, 1);
       }
     }
-    __syncthreads();
+    wg::wg_commit();
+    wg::wg_wait();
+    wg::hold(st);
+    wg::hold(dpt);
+
+    // P^T and dS^T in place, from each query's lse and Dr (past the chunk
+    // lse = +inf, so that P = 0)
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = q_begin + t * KT + 8 * j + 2 * tig + e;
+        const bool valid = qi < q_end;
+        const float ls = valid ? lseh[qi] : INFINITY;
+        const float dd = valid ? drh[qi] : 0.f;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * j + 2 * hf + e;
+          st[i] = ex2(fmaf(st[i], c, -ls));
+          dpt[i] = st[i] * (dpt[i] - dd);
+        }
+      }
+    // dv += P^T dO, dk += dS^T q, fed back from the registers (every step:
+    // skipping the steps past the chunk's queries measured slower)
+    if constexpr (F32) {
+      unsigned ph[KT / 8][4], pl[KT / 8][4], sh[KT / 8][4], sl[KT / 8][4];
+      wg::feed_tf32<KT>(ph, pl, st);
+      wg::feed_tf32<KT>(sh, sl, dpt);
+      wg::hold(dk);
+      wg::hold(dv);
+      wg::wg_fence();
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+        wg::wg_rs_tf32<D>(dv, ph[j], wg::desc_t<D>(doth, j), 1);
+        wg::wg_rs_tf32<D>(dv, ph[j], wg::desc_t<D>(dotl, j), 1);
+        wg::wg_rs_tf32<D>(dv, pl[j], wg::desc_t<D>(doth, j), 1);
+        wg::wg_rs_tf32<D>(dk, sh[j], wg::desc_t<D>(qth, j), 1);
+        wg::wg_rs_tf32<D>(dk, sh[j], wg::desc_t<D>(qtl, j), 1);
+        wg::wg_rs_tf32<D>(dk, sl[j], wg::desc_t<D>(qth, j), 1);
+      }
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(dk);
+      wg::hold(dv);
+      wg::hold(ph);
+      wg::hold(pl);
+      wg::hold(sh);
+      wg::hold(sl);
+    } else {
+      unsigned ph[KT / 16][4], pl[KT / 16][4], sh[KT / 16][4], sl[KT / 16][4];
+      wg::feed_bf16<KT>(ph, pl, st);
+      wg::feed_bf16<KT>(sh, sl, dpt);
+      wg::hold(dk);
+      wg::hold(dv);
+      wg::wg_fence();
+#pragma unroll
+      for (int j = 0; j < KT / 16; ++j) {
+        wg::wg_rs_bf16<D>(dv, ph[j], wg::desc_mn<KT>(dt, j), 1);
+        wg::wg_rs_bf16<D>(dv, pl[j], wg::desc_mn<KT>(dt, j), 1);
+        wg::wg_rs_bf16<D>(dk, sh[j], wg::desc_mn<KT>(qt, j), 1);
+        wg::wg_rs_bf16<D>(dk, sl[j], wg::desc_mn<KT>(qt, j), 1);
+      }
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(dk);
+      wg::hold(dv);
+      wg::hold(ph);
+      wg::hold(pl);
+      wg::hold(sh);
+      wg::hold(sl);
+    }
+    wg::mbar_arrive(&empty[s]);
+    if constexpr (F32) wg::consumers_sync(NC);   // the work tiles are free
   }
-  if (!busy) return;
-  const size_t off = split * B * Lk * C + koff;
-  const float fk = Op::kScaledQ ? 1.f : scale;
+  const size_t off = static_cast<size_t>(split) * B * Lk * C + koff;
+  const float fk = F32 ? 1.f : scale;
   const float f_k[2] = {fk, fk}, f_v[2] = {1.f, 1.f};
-  store_wide<D>(dk_part + off, dk, f_k, row0, Lk, C, d, g, tig);
-  store_wide<D>(dv_part + off, dv, f_v, row0, Lk, C, d, g, tig);
+  wg::store_rows<D>(dk_part + off, dk, f_k, row, Lk, C, d, tig);
+  wg::store_rows<D>(dv_part + off, dv, f_v, row, Lk, C, d, tig);
 }
 
 // ---------------------------------------------------------------------------
@@ -681,7 +852,7 @@ mha_bwd_dq_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
   };
   issue(0);
 
-  // lse and Dr of the lane's rows g, g + 8, as the wide dq kernel takes
+  // lse and Dr of the lane's rows g, g + 8, as the wg dq kernel takes
   // them; chunk 0 writes Dr for the dk/dv kernel
   const bool one_group = Lk <= kSplitKeys;
   float l2[2], drr[2];
@@ -798,7 +969,7 @@ mha_bwd_dq_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
 // the dq kernel's with the sides swapped (the block's 64 keys' k and v, a
 // tile of kSplitKeys queries' q and dO; the pair stage: the tile's q and dO
 // at the block's columns) and each slot's (lse, Dr) of its queries; chunk
-// s of the queries writes its partial sums as mha_bwd_dkdv_wide_kernel
+// s of the queries writes its partial sums as mha_bwd_dkdv_wg_kernel
 template <template <int> class W, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 mha_bwd_dkdv_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
@@ -1020,33 +1191,47 @@ cudaError_t launch_split(const void* q_, const void* k_, const void* v_,
   return cudaGetLastError();
 }
 
-template <class Op>
-cudaError_t launch_wide(const void* q_, const void* k_, const void* v_,
-                        const float* o, const float* lse, const void* dout_,
-                        void* dq_, void* dk_, void* dv_, float* scratch,
-                        float* dr, int B, int Lq, int Lk, int C, int H,
-                        int splits, int d, cudaStream_t stream) {
-  using T = typename Op::T;
+template <typename T, int D>
+cudaError_t launch_wg(const void* q_, const void* k_, const void* v_,
+                      const float* o, const float* lse, const void* dout_,
+                      void* dq_, void* dk_, void* dv_, float* scratch,
+                      float* dr, int B, int Lq, int Lk, int C, int H,
+                      int splits, int d, cudaStream_t stream) {
+  using G = wg::Cfg<T, D>;
+  constexpr bool bf16 = !G::kF32;
+  constexpr int NQ = G::kDqWG, NK = G::kKvWG, RQ = 64 * NQ, RK = 64 * NK;
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
   const T* dout = static_cast<const T*>(dout_);
   T* dk = static_cast<T*>(dk_);
   T* dv = static_cast<T*>(dv_);
-  const size_t tile = static_cast<size_t>(kWTile) * Op::S * sizeof(T);
-  const size_t smem_dq = 6 * tile;
-  const size_t smem_kv = 6 * tile + 2 * kWTile * sizeof(float2);
+  int vec = wg::copy_mode(d, static_cast<int>(sizeof(T)));
+  // the dq kernel's maps (own q and dO, slots of k and v), then the dk/dv
+  // kernel's (own k and v, slots of q and dO)
+  CUtensorMap mq{}, mk{}, mv{}, mdo{}, nq{}, nk{}, nv{}, ndo{};
+  if (!(wg::make_map(&mq, q, bf16, B, Lq, H, d, RQ, vec) &&
+        wg::make_map(&mdo, dout, bf16, B, Lq, H, d, RQ, vec) &&
+        wg::make_map(&mk, k, bf16, B, Lk, H, d, G::kDqKT, vec) &&
+        wg::make_map(&mv, v, bf16, B, Lk, H, d, G::kDqKT, vec) &&
+        wg::make_map(&nk, k, bf16, B, Lk, H, d, RK, vec) &&
+        wg::make_map(&nv, v, bf16, B, Lk, H, d, RK, vec) &&
+        wg::make_map(&nq, q, bf16, B, Lq, H, d, G::kKvKT, vec) &&
+        wg::make_map(&ndo, dout, bf16, B, Lq, H, d, G::kKvKT, vec))) {
+    ++wg::tma_refused();   // the map was refused: copy by cp.async
+    vec = copy_bytes(d * static_cast<int>(sizeof(T)));
+  }
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  const float c = Op::kScaledQ ? kLog2e : kLog2e * scale;
-  const int vec = copy_bytes(d * static_cast<int>(sizeof(T)));
+  const float c = bf16 ? kLog2e * scale : kLog2e;
+  constexpr size_t smem_dq = G::dq_smem(), smem_kv = G::kv_smem();
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_dq_wide_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_dq));
+      mha_bwd_dq_wg_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_dq));
   if (err != cudaSuccess) return err;
-  mha_bwd_dq_wide_kernel<Op>
-      <<<dim3((Lq + kWRowsBlock - 1) / kWRowsBlock, H, B), kThreads, smem_dq,
-         stream>>>(q, k, v, o, lse, dout, static_cast<T*>(dq_), dr, Lq, Lk,
-                   C, d, vec, scale, c);
+  mha_bwd_dq_wg_kernel<T, D>
+      <<<dim3((Lq + RQ - 1) / RQ, H, B), 32 * (4 * NQ + 1), smem_dq,
+         stream>>>(mq, mk, mv, mdo, q, k, v, o, lse, dout,
+                   static_cast<T*>(dq_), dr, Lq, Lk, C, d, vec, scale, c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1054,23 +1239,25 @@ cudaError_t launch_wide(const void* q_, const void* k_, const void* v_,
   const size_t n = static_cast<size_t>(B) * Lk * C;
   float* dk_part = scratch;
   float* dv_part = scratch + splits * n;
-  const dim3 grid((Lk + kWRowsBlock - 1) / kWRowsBlock, H, B * splits);
+  const dim3 grid((Lk + RK - 1) / RK, H, B * splits);
+  const int threads = 32 * (4 * NK + 1);
   if (splits == 1) {
-    err = cudaFuncSetAttribute(mha_bwd_dkdv_wide_kernel<Op, T>,
+    err = cudaFuncSetAttribute(mha_bwd_dkdv_wg_kernel<T, D, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_kv));
     if (err != cudaSuccess) return err;
-    mha_bwd_dkdv_wide_kernel<Op, T><<<grid, kThreads, smem_kv, stream>>>(
-        q, k, v, lse, dr, dout, dk, dv, B, Lq, Lk, C, q_chunk, d, vec, scale,
-        c);
+    mha_bwd_dkdv_wg_kernel<T, D, T><<<grid, threads, smem_kv, stream>>>(
+        nq, nk, nv, ndo, q, k, v, lse, dr, dout, dk, dv, B, Lq, Lk, C,
+        q_chunk, d, vec, scale, c);
   } else {
-    err = cudaFuncSetAttribute(mha_bwd_dkdv_wide_kernel<Op, float>,
+    err = cudaFuncSetAttribute(mha_bwd_dkdv_wg_kernel<T, D, float>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_kv));
     if (err != cudaSuccess) return err;
-    mha_bwd_dkdv_wide_kernel<Op, float><<<grid, kThreads, smem_kv, stream>>>(
-        q, k, v, lse, dr, dout, dk_part, dv_part, B, Lq, Lk, C, q_chunk, d,
-        vec, scale, c);
+    mha_bwd_dkdv_wg_kernel<T, D, float>
+        <<<grid, threads, smem_kv, stream>>>(
+            nq, nk, nv, ndo, q, k, v, lse, dr, dout, dk_part, dv_part, B, Lq,
+            Lk, C, q_chunk, d, vec, scale, c);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -1154,12 +1341,15 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
   }
   if (d != 4 && d != 8) {
     if (dr == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    auto run = [&](auto op) {
-      return launch_wide<decltype(op)>(q, k, v, o, lse, dout, dq, dk, dv,
-                                       scratch, dr, B, Lq, Lk, C, H, splits,
-                                       d, s);
-    };
-    return static_cast<int>(bf16 ? wide<WBf16>(d, run) : wide<WTf32>(d, run));
+    return static_cast<int>(wg::at_width(d, [&](auto w) {
+      constexpr int D = decltype(w)::value;
+      return bf16 ? launch_wg<__nv_bfloat16, D>(q, k, v, o, lse, dout, dq, dk,
+                                                dv, scratch, dr, B, Lq, Lk, C,
+                                                H, splits, d, s)
+                  : launch_wg<float, D>(q, k, v, o, lse, dout, dq, dk, dv,
+                                        scratch, dr, B, Lq, Lk, C, H, splits,
+                                        d, s);
+    }));
   }
   cudaError_t err = cudaErrorInvalidValue;
   if (d == 4 && !bf16)
@@ -1175,4 +1365,12 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
     err = launch<Bf16<8>, 8>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B,
                              Lq, Lk, C, H, splits, s);
   return static_cast<int>(err);
+}
+
+// Launches of this library that took cp.async because a tensor map was
+// refused, and the last refusal's CUresult (-1: no entry point), for the
+// wrapper's reports.
+extern "C" int fused_mha_bwd_tma_refused(int* error) {
+  *error = mha::wg::tma_error();
+  return mha::wg::tma_refused();
 }

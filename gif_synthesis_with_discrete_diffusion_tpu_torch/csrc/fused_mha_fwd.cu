@@ -46,31 +46,36 @@
 // the backward's Dr = rowsum(dO * O) must see O before its rounding (with
 // the bf16 O it misses by more than a bf16 step of dQ).
 //
-// Head dims other than 4 and 8 (VQ-Diffusion-B's 64, 12, 16, 32, 128) take
-// the wide design (csrc/mha_tiles.cuh: WTf32, WBf16) at the next of D = 16,
-// 32, 64, 128, with the same online softmax over tiles of 64 keys, for any
-// number of keys: at d = 64 a query-key pair costs 128 multiply-adds
-// against its one exponential, so the products bound it (f32: 3 TF32
-// products each; bf16: one, and P V's hi + lo pair). One block of 4 warps
-// per (64 queries, head, batch row): the block's q rows and the keys and
-// values, 64 at a time (double-buffered, the next tile's cp.async in
-// flight while the warps work on this one), stay in shared memory as they
-// are in device memory; a warp takes 16 queries. Its registers hold o's
-// accumulator (D / 2 a thread) and a tile's scores; the fragments of q are
-// loaded once a tile and head-dim chunk. A few keys (cross-attention over 1
-// or 77 tokens) take the same kernel, the tile's missing keys masked.
+// Head dims other than 4 and 8 up to 128 (VQ-Diffusion-B's 64, 12, 16, 32,
+// 128) take the wg design (csrc/mha_wg.cuh) at the next of D = 16, 32, 64,
+// 128, with the same online softmax over tiles of keys, for any number of
+// keys: at d = 64 a query-key pair costs 128 multiply-adds against its one
+// exponential, so the products bound it (f32: 3 TF32 products each; bf16:
+// one, and P V's hi + lo pair). One block per (64 or 128 queries, head,
+// batch row): a producer warp brings the block's q rows once and the keys
+// and values a tile at a time (64 keys; 32 at f32 D = 128) by TMA into two
+// slots; each consumer warpgroup takes 64 queries, computes a tile's scores
+// with wgmma from shared memory into registers, takes the tile's row
+// maximum there, rescales its running sum and o's accumulator, and feeds
+// the exponentials back as the A operand of the P V wgmma. In f32 the
+// consumers split each tile into TF32 hi + lo after it lands (q scaled
+// first), v also transposed, since .tf32 takes no transposed operand. A few
+// keys (cross-attention over 1 or 77 tokens) take the same kernel, the
+// tile's missing keys masked.
 //
 // Head dims above 128 take the split design (csrc/mha_tiles.cuh: kSplitOut,
 // kSplitChunk): a block of 4 warps per (64 queries, 128 output columns,
 // head, batch row); per tile of 64 keys the ring brings the queries' and
 // keys' dims 64 at a time (the scores summed over the whole head dim in the
 // warp's registers), then the values' 128 columns of the block, and the
-// online softmax and P V run as in the wide design. Every column chunk
+// online softmax and P V run as the mma.sync wide tiles (csrc/mha_tiles.cuh:
+// WTf32, WBf16) compute them. Every column chunk
 // recomputes the same scores (the same products in the same order, so the
 // same values): at d = 256 a third of the products the kernel runs are that
 // recompute, which the function's bound does not count. The chunk of
 // columns 0 .. 127 writes lse.
 #include "mha_tiles.cuh"
+#include "mha_wg.cuh"
 
 namespace {
 
@@ -336,124 +341,207 @@ fused_mha_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The wide design: grid (ceil(Lq / kWRowsBlock), H, B), kThreads threads,
-// dynamic shared memory of 5 tiles (q, then keys and values twice). d: the
-// head dim (<= D), vec: the bytes of a copy into shared memory; scale = 1 /
-// sqrt(d); c: the base-2 factor of the scores (log2(e), times scale where q
-// is not scaled).
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-fused_mha_fwd_wide_kernel(const typename Op::T* __restrict__ q,
-                          const typename Op::T* __restrict__ k,
-                          const typename Op::T* __restrict__ v,
-                          typename Op::T* __restrict__ o,
-                          float* __restrict__ o32, float* __restrict__ lse,
-                          int Lq, int Lk, int C, int d, int vec, float scale,
-                          float c) {
-  using T = typename Op::T;
-  constexpr int D = Op::D_, S = Op::S, kTileElems = kWTile * S;
-  extern __shared__ __align__(16) unsigned char smem[];
+// The wg design (csrc/mha_wg.cuh): grid (ceil(Lq / own rows), H, B),
+// 128 threads a consumer warpgroup and a producer warp. Maps (d, L, H, B) of
+// q, k, v with boxes of the own rows (q) and of a slot's rows (k, v), read
+// when vec is 0; else the producer copies with cp.async, vec bytes a copy
+// (csrc/mha_wg.cuh: load_tile).
+// scale = 1 / sqrt(d); c: the base-2 factor of the scores (log2(e), times
+// scale in bf16, where q is not scaled).
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * (4 * wg::Cfg<T, D>::kFwdWG + 1), 1)
+fused_mha_fwd_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ o32, float* __restrict__ lse,
+                        int Lq, int Lk, int C, int d, int vec, float scale,
+                        float c) {
+  using G = wg::Cfg<T, D>;
+  constexpr bool F32 = G::kF32;
+  constexpr int NW = G::kFwdWG, KT = G::kFwdKT, NS = G::kFwdSlots;
+  constexpr int R0 = 64 * NW, NC = 128 * NW;
+  constexpr int KE = KT * D, QE = R0 * D;   // elements of a tile
+  extern __shared__ __align__(1024) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* kv = qs + kTileElems;   // buffer i: keys at 2 i, values at 2 i + 1
+  T* qlo = qs + QE;                              // f32: q's lo
+  T* ring = qs + (F32 ? 2 : 1) * QE;             // slot i: k at 2 i, v 2 i + 1
+  float* work = reinterpret_cast<float*>(ring + NS * 2 * KE);
+  constexpr int WE = G::work(KT);                 // floats a work tile
+  float* klo = work;                             // f32: k's lo, v^T hi, lo
+  float* vth = work + WE;
+  float* vtl = work + 2 * WE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(ring + NS * 2 * KE) +
+      (F32 ? 3 * WE * sizeof(float) : 0));
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + NS;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int h = blockIdx.y;
-  const size_t b = blockIdx.z;
-  const int blk0 = blockIdx.x * kWRowsBlock;
-  const int r0 = warp * kWRows;               // the warp's rows in qs
-  const bool busy = blk0 + r0 < Lq;           // warp-uniform
-  const T* qh = q + b * Lq * C + h * d;
-  const T* kh = k + b * Lk * C + h * d;
-  const T* vh = v + b * Lk * C + h * d;
-
-  stage<T, D, S>(qs, qh, blk0, Lq, C, d, vec);
-  stage<T, D, S>(kv, kh, 0, Lk, C, d, vec);
-  stage<T, D, S>(kv + kTileElems, vh, 0, Lk, C, d, vec);
-  cp_async_commit();
-
-  const float fq = Op::kScaledQ ? scale : 1.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dc = 0; dc < D / 8; ++dc)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dc][j] = 0.f;
-
-  const int ntiles = (Lk + kWTile - 1) / kWTile;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kWTile;
-    if (t + 1 < ntiles) {
-      T* nxt = kv + ((t + 1) & 1) * 2 * kTileElems;
-      stage<T, D, S>(nxt, kh, k0 + kWTile, Lk, C, d, vec);
-      stage<T, D, S>(nxt + kTileElems, vh, k0 + kWTile, Lk, C, d, vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int blk0 = blockIdx.x * R0;
+  const int ntiles = (Lk + KT - 1) / KT;
+  if (threadIdx.x == 0) {
+    wg::mbar_init(qbar, wg::arrivals(vec));
+    for (int i = 0; i < NS; ++i) {
+      wg::mbar_init(&full[i], wg::arrivals(vec));
+      wg::mbar_init(&empty[i], NC);
     }
-    __syncthreads();
-    if (busy) {
-      const T* ks = kv + (t & 1) * 2 * kTileElems;
-      const T* vs = ks + kTileElems;
-      const int n = min(kWTile, Lk - k0);
-      const int nbv = (n + 7) >> 3;
-      float s[kWNB][4];
-#pragma unroll
-      for (int nb = 0; nb < kWNB; ++nb)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[nb][j] = 0.f;
-#pragma unroll 1
-      for (int kc = 0; kc < D / Op::kK; ++kc) {
-        typename Op::Frag a;
-        Op::load_a(a, qs, r0, kc, fq, g, tig);
-#pragma unroll
-        for (int nb = 0; nb < kWNB; ++nb)
-          if (nb < nbv) Op::dot(s[nb], a, ks, nb, kc, 1.f, g, tig);
-      }
-#pragma unroll
-      for (int nb = 0; nb < kWNB; ++nb) {
-        const int key = 8 * nb + 2 * tig;
-        if (key >= n) s[nb][0] = s[nb][2] = -INFINITY;
-        if (key + 1 >= n) s[nb][1] = s[nb][3] = -INFINITY;
-      }
-      float mc[2];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float x = -INFINITY;
-#pragma unroll
-        for (int nb = 0; nb < kWNB; ++nb)
-          x = fmaxf(x, fmaxf(s[nb][2 * hf], s[nb][2 * hf + 1]));
-        // the tile holds a key, so the new maximum is finite
-        const float mn = fmaxf(m[hf], quad_max(x));
-        const float corr = ex2((m[hf] - mn) * c);   // 0 on the first tile
-        m[hf] = mn;
-        mc[hf] = mn * c;
-        l[hf] *= corr;
-#pragma unroll
-        for (int dc = 0; dc < D / 8; ++dc) {
-          acc[dc][2 * hf] *= corr;
-          acc[dc][2 * hf + 1] *= corr;
-        }
-      }
-#pragma unroll
-      for (int nb = 0; nb < kWNB; ++nb) {
-        if (nb >= nbv) continue;
-        float p[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          p[j] = ex2(fmaf(s[nb][j], c, -mc[j >> 1]));
-        typename Op::Frag pa;
-        Op::make_p(pa, p);
-        Op::pair(acc, pa, vs, nb, 1.f, g, tig);
-        l[0] += p[0] + p[1];
-        l[1] += p[2] + p[3];
-      }
-    }
-    // the buffer staged next was read in this tile
-    __syncthreads();
+    wg::mbar_init_fence();
   }
-  if (!busy) return;
+  __syncthreads();
+
+  if (warp == 4 * NW) {   // the producer
+    const T* kh = k + static_cast<size_t>(b) * Lk * C + h * d;
+    const T* vh = v + static_cast<size_t>(b) * Lk * C + h * d;
+    if (vec == 0 && lane == 0) wg::mbar_expect(qbar, QE * sizeof(T));
+    wg::load_tile<T, D, R0>(qs, &mq, qbar,
+                            q + static_cast<size_t>(b) * Lq * C + h * d, blk0,
+                            Lq, h, b, C, d, vec, lane);
+    wg::loaded(qbar, vec);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % NS;
+      if (t >= NS) wg::mbar_wait(&empty[s], (t / NS - 1) & 1);
+      T* kt = ring + 2 * s * KE;
+      if (vec == 0 && lane == 0) wg::mbar_expect(&full[s], 2 * KE * sizeof(T));
+      wg::load_tile<T, D, KT>(kt, &mk, &full[s], kh, t * KT, Lk, h, b, C, d,
+                              vec, lane);
+      wg::load_tile<T, D, KT>(kt + KE, &mv, &full[s], vh, t * KT, Lk, h, b, C,
+                              d, vec, lane);
+      wg::loaded(&full[s], vec);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup w takes own rows 64 w ..
+  const int tid = threadIdx.x, w = warp >> 2;
+  const int g = lane >> 2, tig = lane & 3;
+  const int row = blk0 + 64 * w + 16 * (warp & 3) + g;   // and row + 8
+  wg::landed(qbar, 0, vec);
+  if constexpr (F32) {
+    wg::split_tile<R0, D, true, false>(reinterpret_cast<float*>(qs),
+                                       reinterpret_cast<float*>(qlo), nullptr,
+                                       nullptr, scale, tid, NC);
+    wg::fence_async();
+    wg::consumers_sync(NC);
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % NS;
+    wg::landed(&full[s], (t / NS) & 1, vec);
+    T* kt = ring + 2 * s * KE;
+    T* vt = kt + KE;
+    if constexpr (F32) {
+      wg::split_tile<KT, D, true, false>(reinterpret_cast<float*>(kt), klo,
+                                         nullptr, nullptr, 1.f, tid, NC);
+      wg::split_tile<KT, D, false, true>(reinterpret_cast<float*>(vt),
+                                         nullptr, vth, vtl, 1.f, tid, NC);
+      wg::fence_async();
+      wg::consumers_sync(NC);
+    }
+    // S = q k^T over the head dim
+    float sc[KT / 2];
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) sc[i] = 0.f;
+    wg::hold(sc);
+    wg::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / G::kK; ++ks) {
+      const uint64_t aq = wg::desc_k<R0>(qs, ks, 64 * w);
+      const uint64_t bk = wg::desc_k<KT>(kt, ks);
+      if constexpr (F32) {
+        wg::wg_ss_tf32<KT>(sc, aq, bk, 1);
+        wg::wg_ss_tf32<KT>(sc, aq, wg::desc_k<KT>(klo, ks), 1);
+        wg::wg_ss_tf32<KT>(sc, wg::desc_k<R0>(qlo, ks, 64 * w), bk, 1);
+      } else {
+        wg::wg_ss_bf16<KT>(sc, aq, bk, 1);
+      }
+    }
+    wg::wg_commit();
+    wg::wg_wait();
+    wg::hold(sc);
+
+    const int n = min(KT, Lk - t * KT);
+    if (n < KT) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+        const int key = 8 * j + 2 * tig;
+        if (key >= n) sc[4 * j] = sc[4 * j + 2] = -INFINITY;
+        if (key + 1 >= n) sc[4 * j + 1] = sc[4 * j + 3] = -INFINITY;
+      }
+    }
+    // online softmax: the tile's row maximum, the running sums rescaled
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+        x = fmaxf(x, fmaxf(sc[4 * j + 2 * hf], sc[4 * j + 2 * hf + 1]));
+      const float mn = fmaxf(m[hf], quad_max(x));   // finite: a key a tile
+      const float corr = ex2((m[hf] - mn) * c);      // 0 on the first tile
+      m[hf] = mn;
+      l[hf] *= corr;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * hf] *= corr;
+        acc[4 * j + 2 * hf + 1] *= corr;
+      }
+      const float mc = mn * c;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(fmaf(sc[4 * j + 2 * hf + e], c, -mc));
+          sc[4 * j + 2 * hf + e] = p;
+          l[hf] += p;
+        }
+    }
+    // acc += P v, P fed back from the registers, over the tile's steps
+    // that hold a key
+    const int steps = (n + G::kK - 1) / G::kK;
+    if constexpr (F32) {
+      unsigned ph[KT / 8][4], pl[KT / 8][4];
+      wg::feed_tf32<KT>(ph, pl, sc);
+      wg::hold(acc);
+      wg::wg_fence();
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+        if (j >= steps) break;
+        wg::wg_rs_tf32<D>(acc, ph[j], wg::desc_t<D>(vth, j), 1);
+        wg::wg_rs_tf32<D>(acc, ph[j], wg::desc_t<D>(vtl, j), 1);
+        wg::wg_rs_tf32<D>(acc, pl[j], wg::desc_t<D>(vth, j), 1);
+      }
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(acc);
+      wg::hold(ph);
+      wg::hold(pl);
+    } else {
+      unsigned ph[KT / 16][4], pl[KT / 16][4];
+      wg::feed_bf16<KT>(ph, pl, sc);
+      wg::hold(acc);
+      wg::wg_fence();
+#pragma unroll
+      for (int j = 0; j < KT / 16; ++j) {
+        if (j >= steps) break;
+        wg::wg_rs_bf16<D>(acc, ph[j], wg::desc_mn<KT>(vt, j), 1);
+        wg::wg_rs_bf16<D>(acc, pl[j], wg::desc_mn<KT>(vt, j), 1);
+      }
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(acc);
+      wg::hold(ph);
+      wg::hold(pl);
+    }
+    wg::mbar_arrive(&empty[s]);
+    if constexpr (F32) wg::consumers_sync(NC);   // the work tiles are free
+  }
 
   float inv[2];
 #pragma unroll
@@ -461,18 +549,16 @@ fused_mha_fwd_wide_kernel(const typename Op::T* __restrict__ q,
     l[hf] = quad_sum(l[hf]);
     inv[hf] = 1.f / l[hf];
   }
-  const int row0 = blk0 + r0;
-  const size_t qoff = b * Lq * C + h * d;
-  store_wide<D>(o + qoff, acc, inv, row0, Lq, C, d, g, tig);
-  if (o32 != nullptr)
-    store_wide<D>(o32 + qoff, acc, inv, row0, Lq, C, d, g, tig);
+  const size_t qoff = static_cast<size_t>(b) * Lq * C + h * d;
+  wg::store_rows<D>(o + qoff, acc, inv, row, Lq, C, d, tig);
+  if (o32 != nullptr) wg::store_rows<D>(o32 + qoff, acc, inv, row, Lq, C, d,
+                                        tig);
   if (lse != nullptr && tig == 0) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = row0 + g + 8 * hf;
-      if (row < Lq) lse[(b * gridDim.y + h) * Lq + row] =
-          m[hf] * c + log2f(l[hf]);
-    }
+    for (int hf = 0; hf < 2; ++hf)
+      if (row + 8 * hf < Lq)
+        lse[(static_cast<size_t>(b) * gridDim.y + h) * Lq + row + 8 * hf] =
+            m[hf] * c + log2f(l[hf]);
   }
 }
 
@@ -480,7 +566,8 @@ fused_mha_fwd_wide_kernel(const typename Op::T* __restrict__ q,
 // H * n_oc, B), n_oc = ceil(d / kSplitOut) column chunks (blockIdx.y = h
 // n_oc + chunk), kThreads threads, dynamic shared memory of two ring slots
 // (the larger of a contraction stage, q and k at kSplitChunk dims, and a
-// value stage, kSplitOut columns). Arguments as the wide kernel's.
+// value stage, kSplitOut columns). vec: the bytes of a copy into shared
+// memory; other arguments as the wg kernel's.
 template <template <int> class W>
 __global__ void __launch_bounds__(kThreads)
 fused_mha_fwd_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
@@ -661,24 +748,33 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <class Op>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
-                        float* o32, float* lse, int B, int Lq, int Lk, int C,
-                        int H, int d, cudaStream_t stream) {
-  using T = typename Op::T;
-  const size_t smem = 5 * static_cast<size_t>(kWTile) * Op::S * sizeof(T);
+template <typename T, int D>
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
+                      float* o32, float* lse, int B, int Lq, int Lk, int C,
+                      int H, int d, cudaStream_t stream) {
+  using G = wg::Cfg<T, D>;
+  constexpr int NW = G::kFwdWG, R0 = 64 * NW;
+  constexpr bool bf16 = !G::kF32;
+  int vec = wg::copy_mode(d, static_cast<int>(sizeof(T)));
+  CUtensorMap mq{}, mk{}, mv{};
+  if (!(wg::make_map(&mq, q, bf16, B, Lq, H, d, R0, vec) &&
+        wg::make_map(&mk, k, bf16, B, Lk, H, d, G::kFwdKT, vec) &&
+        wg::make_map(&mv, v, bf16, B, Lk, H, d, G::kFwdKT, vec))) {
+    ++wg::tma_refused();   // the map was refused: copy by cp.async
+    vec = copy_bytes(d * static_cast<int>(sizeof(T)));
+  }
+  constexpr size_t smem = G::fwd_smem();
   const cudaError_t attr = cudaFuncSetAttribute(
-      fused_mha_fwd_wide_kernel<Op>,
+      fused_mha_fwd_wg_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  const float c = Op::kScaledQ ? kLog2e : kLog2e * scale;
-  fused_mha_fwd_wide_kernel<Op>
-      <<<dim3((Lq + kWRowsBlock - 1) / kWRowsBlock, H, B), kThreads, smem,
-         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                   static_cast<const T*>(v), static_cast<T*>(o), o32, lse, Lq,
-                   Lk, C, d, copy_bytes(d * static_cast<int>(sizeof(T))),
-                   scale, c);
+  const float c = bf16 ? kLog2e * scale : kLog2e;
+  fused_mha_fwd_wg_kernel<T, D>
+      <<<dim3((Lq + R0 - 1) / R0, H, B), 32 * (4 * NW + 1), smem, stream>>>(
+          mq, mk, mv, static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), o32, lse, Lq, Lk, C,
+          d, vec, scale, c);
   return cudaGetLastError();
 }
 
@@ -706,7 +802,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a bad shape, else the
-// launch's status. Any head dim: 4 and 8, the wide design up to 128, the
+// launch's status. Any head dim: 4 and 8, the wg design up to 128, the
 // split design above. bf16 selects the input type (0: f32, 1: bf16); lse
 // and o32 (f32, o's shape) may be null.
 extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
@@ -732,14 +828,45 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
   else if (d == 8)
     err = launch<Bf16<8>, 8>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
   else if (!bf16)
-    err = wide<WTf32>(d, [&](auto op) {
-      return launch_wide<decltype(op)>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
-                                       d, s);
+    err = wg::at_width(d, [&](auto w) {
+      return launch_wg<float, decltype(w)::value>(q, k, v, o, o32, lse, B, Lq,
+                                                  Lk, C, H, d, s);
     });
   else
-    err = wide<WBf16>(d, [&](auto op) {
-      return launch_wide<decltype(op)>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
-                                       d, s);
+    err = wg::at_width(d, [&](auto w) {
+      return launch_wg<__nv_bfloat16, decltype(w)::value>(
+          q, k, v, o, o32, lse, B, Lq, Lk, C, H, d, s);
     });
   return static_cast<int>(err);
+}
+
+// The wg design's sizes at instantiation D (16, 32, 64, 128), f32 (bf16 =
+// 0) or bf16: out[0 .. 5] = K2's consumer warpgroups and keys a tile, the
+// dq kernel's, the dk/dv kernel's (ops/attention.py: wg_tiles). Returns 0,
+// or cudaErrorInvalidValue for another D.
+extern "C" int fused_mha_wg_tiles(int D, int bf16, int* out) {
+  if (D != 16 && D != 32 && D != 64 && D != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(wg::at_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    auto put = [&](auto cfg) {
+      using G = decltype(cfg);
+      const int v[6] = {G::kFwdWG, G::kFwdKT, G::kDqWG,
+                        G::kDqKT,  G::kKvWG,  G::kKvKT};
+      for (int i = 0; i < 6; ++i) out[i] = v[i];
+    };
+    if (bf16)
+      put(wg::Cfg<__nv_bfloat16, W>{});
+    else
+      put(wg::Cfg<float, W>{});
+    return cudaSuccess;
+  }));
+}
+
+// Launches of this library that took cp.async because a tensor map was
+// refused, and the last refusal's CUresult (-1: no entry point), for the
+// wrapper's reports.
+extern "C" int fused_mha_tma_refused(int* error) {
+  *error = mha::wg::tma_error();
+  return mha::wg::tma_refused();
 }

@@ -536,12 +536,12 @@ struct Bf16 {
 };
 
 // ---------------------------------------------------------------------------
-// head dims 16 to 128: the wide design (any head dim d <= D, the columns
-// from d to D - 1 read as zero)
+// the wide tiles (the split design's fragments, below; head dims up to 128
+// take the wg design, csrc/mha_wg.cuh)
 // ---------------------------------------------------------------------------
 // The tiles above hold a warp's 32 rows in registers, split, and stage one
 // row a thread: at D = 64 the f32 A operand alone is 128 registers a
-// thread. The wide design keeps every operand in shared memory as it lies
+// thread. The wide tiles keep every operand in shared memory as it lies
 // in device memory (f32 or bf16; rows padded by 16 bytes, so that the
 // fragment loads below meet no bank conflict), copied there by cp.async:
 // columns d .. D - 1 and rows past the end zero-filled by the copy itself
@@ -562,7 +562,7 @@ struct Bf16 {
 //     pair product as the bf16 tiles above (P as a bf16 hi + lo pair in one
 //     16-deep contraction, the keys in their own order), X's columns read
 //     by ldmatrix.trans; the scale on the f32 scores.
-constexpr int kMaxHeadDim = 128;   // the wide design's largest D
+constexpr int kMaxHeadDim = 128;   // the wg design's largest D
 constexpr int kWTile = 64;                      // rows a staged tile
 constexpr int kWNB = kWTile / 8;                // 8-row blocks a tile
 constexpr int kWRows = 16;                      // rows a warp
@@ -793,30 +793,20 @@ struct WBf16 {
   }
 };
 
-// f(Op<D>{}) at the smallest D of 16, 32, 64, 128 that holds head dim d
-template <template <int> class Op, class F>
-cudaError_t wide(int d, F&& f) {
-  if (d <= 16) return f(Op<16>{});
-  if (d <= 32) return f(Op<32>{});
-  if (d <= 64) return f(Op<64>{});
-  return f(Op<128>{});
-}
-
 // ---------------------------------------------------------------------------
 // head dims above 128: the split design
 // ---------------------------------------------------------------------------
-// Past D = 128 the wide design's accumulators (D / 2 a thread, two of them
-// in K5's dK / dV kernel) and its resident tiles no longer fit. The split
+// Past D = 128 a block's accumulators (D / 2 a thread, two of them in K5's
+// dK / dV kernel) and its resident tiles no longer fit. The split
 // design cuts the head's output columns into chunks of kSplitOut (a grid
 // axis: a block writes one chunk of o, dQ, or dK and dV) and stages the
 // contraction of the scores (q k^T, dO v^T) in chunks of kSplitChunk dims:
 // every block recomputes the scores over the whole head dim, and a stage of
 // the ring holds either the next contraction chunk of both operands or the
 // tile of the pair product's output chunk. The products are the wide
-// design's (W<kSplitChunk> for the scores, W<kSplitOut> for the pair
+// tiles' (W<kSplitChunk> for the scores, W<kSplitOut> for the pair
 // products, the same fragments and the same split of f32 values), so every
-// score adds its 8- or 16-deep steps in increasing order of the dims, as
-// the wide design does. Columns past d are zero-filled by the copies.
+// score adds its 8- or 16-deep steps in increasing order of the dims. Columns past d are zero-filled by the copies.
 constexpr int kSplitChunk = 64;   // dims a staged chunk of the contraction
 constexpr int kSplitOut = 128;    // output columns a block
 constexpr int kSplitKeys = 32;    // K5: the other side's rows a tile

@@ -36,7 +36,11 @@ MLP's collectives, in the same order on every rank.
 parameters (:class:`.layers.Dense`), so under bf16 both attentions get bf16
 q, k and v (the bf16 entry points of K2 and K5). The token embedding, the
 condition, every LayerNorm and ``to_logits`` stay f32, and each residual
-add ``x + a`` promotes the stream back to f32, as in the JAX package.
+add ``x + a`` promotes the stream back to f32, as in the JAX package. bf16
+rounds where JAX's jitted step rounds (its compiled HLO's fusions): the
+products and the Dense outputs that feed the next product, every op of
+GELU2, and not the AdaLN's ``1 + scale`` or the bias add of the layers
+that feed a residual add (``Dense(rounded=False)``).
 """
 from __future__ import annotations
 
@@ -61,8 +65,34 @@ _LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
 def gelu2(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(1.702 x) (the reference's GELU2)."""
+    """x * sigmoid(1.702 x) (the reference's GELU2); in bf16 as JAX's jitted
+    step computes it (:class:`_Gelu2Bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _Gelu2Bf16.apply(x)
     return x * torch.sigmoid(1.702 * x)
+
+
+class _Gelu2Bf16(torch.autograd.Function):
+    """GELU2 of a bf16 tensor with the roundings of JAX's jitted bf16 step
+    (the fusions of its compiled HLO): 1.702 taken to bf16 (1.703125), the
+    logistic as 1 / (1 + exp(-a)) and its derivative as s (1 - s), every
+    op's output rounded to bf16, forward and backward."""
+
+    C = 1.703125   # 1.702 in bf16, exact in f32
+
+    @staticmethod
+    def forward(ctx, x):
+        # -(x C) rounds as x C does
+        s = (1 + torch.exp(x * -_Gelu2Bf16.C)).reciprocal()
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        ds = (x * g) * (s * (1 - s))
+        return g * s + ds * _Gelu2Bf16.C
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +133,8 @@ class AdaLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor, timestep: torch.Tensor) -> torch.Tensor:
         emb = self.linear(F.silu(self.emb(timestep)))[:, None, :]
         scale, shift = emb.chunk(2, dim=2)
-        return self.norm(x) * (1 + scale) + shift
+        # 1 + scale in f32 (XLA fuses it into the f32 chain, rounding once)
+        return self.norm(x) * (1 + scale.float()) + shift
 
 
 class SelfAttention(nn.Module):
@@ -116,7 +147,7 @@ class SelfAttention(nn.Module):
         self.key = Dense(n_embd, n_embd, dtype=dtype)
         self.query = Dense(n_embd, n_embd, dtype=dtype)
         self.value = Dense(n_embd, n_embd, dtype=dtype)
-        self.proj = Dense(n_embd, n_embd, dtype=dtype)
+        self.proj = Dense(n_embd, n_embd, dtype=dtype, rounded=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = fused_mha(self.query(x), self.key(x), self.value(x),
@@ -134,7 +165,7 @@ class CrossAttention(nn.Module):
         self.key = Dense(condition_dim, n_embd, dtype=dtype)
         self.value = Dense(condition_dim, n_embd, dtype=dtype)
         self.query = Dense(n_embd, n_embd, dtype=dtype)
-        self.proj = Dense(n_embd, n_embd, dtype=dtype)
+        self.proj = Dense(n_embd, n_embd, dtype=dtype, rounded=False)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         y = fused_mha(self.query(x), self.key(cond), self.value(cond),
@@ -156,7 +187,8 @@ class Block(nn.Module):
         self.attn2 = CrossAttention(n_embd, n_head, condition_dim, dtype)
         self.ln2 = nn.LayerNorm(n_embd, eps=_LN_EPS)
         self.mlp_fc = Dense(n_embd, mlp_hidden_times * n_embd, dtype=dtype)
-        self.mlp_proj = Dense(mlp_hidden_times * n_embd, n_embd, dtype=dtype)
+        self.mlp_proj = Dense(mlp_hidden_times * n_embd, n_embd, dtype=dtype,
+                              rounded=False)
         self.act = gelu2 if activate == "GELU2" else _gelu_tanh
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,

@@ -37,19 +37,40 @@ def compute_dtype(name) -> torch.dtype:
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` on f32 parameters, as flax's
     ``nn.Dense(dtype=...)``: the output is in ``dtype``; gradients reach the
-    f32 parameters through the casts."""
+    f32 parameters through the casts.
+
+    The bias add runs as XLA runs flax's under ``jit`` (:meth:`add_bias`):
+    the product rounded to ``dtype``, the bias added in f32 and the sum
+    rounded to ``dtype`` once; ``rounded=False``, for a layer whose output
+    goes straight into an f32 residual add, leaves the sum in f32, as XLA
+    fuses that bias add into the residual add's f32 chain. Backward, the
+    bias's gradient sums the ``dtype`` cotangents in f32."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, dtype: torch.dtype = torch.float32):
+                 bias: bool = True, dtype: torch.dtype = torch.float32,
+                 rounded: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.rounded = rounded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x)
-        y = F.linear(x.to(dt), self.weight.to(dt))
-        return y if self.bias is None else y + self.bias.to(dt)
+        return self.add_bias(F.linear(x.to(dt), self.weight.to(dt)))
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` (the product in the compute dtype) plus the bias: rounded
+        to the compute dtype, or left in f32 where not ``rounded``. The bias
+        is expanded to ``y``'s shape before its casts, so that autograd
+        takes each cotangent element to the compute dtype first and sums
+        the bias's gradient in f32 after, as XLA does (and no Python-level
+        Function adds to the host's time a step)."""
+        if self.bias is None:
+            return y
+        b = self.bias.expand_as(y).to(self.compute_dtype)
+        # a 16-bit add computes in f32 and rounds once
+        return y + b if self.rounded else y.float() + b.float()
 
 
 class FrozenBatchNorm(nn.Module):
@@ -88,4 +109,6 @@ def parallel_mlp(x: torch.Tensor, fc: nn.Linear, proj: nn.Linear,
     dt = getattr(proj, "compute_dtype", torch.float32)
     part = F.linear(h.to(dt).float(), proj.weight.to(dt).float())
     y = reduce_from_group(part, group).to(dt)
+    if isinstance(proj, Dense):
+        return proj.add_bias(y)
     return y if proj.bias is None else y + proj.bias.to(dt)

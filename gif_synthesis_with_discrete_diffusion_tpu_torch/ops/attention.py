@@ -6,12 +6,12 @@ discrete_diffusion_tpu/ops/attention.py: fused_mha``. Its forward is
 ``csrc/fused_mha_fwd.cu`` (the TPU's ``_kernel``); its backward, through a
 ``torch.autograd.Function``, is ``csrc/fused_mha_bwd.cu`` (the TPU's
 ``_bwd_kernel``), reached by :func:`fused_mha_bwd`. Both run on the tensor
-cores (``csrc/mha_tiles.cuh``) for f32 or bf16 inputs at any head dim (heads
-of 4 and 8 in their own design, every other width up to 128 in the wide
-design at the next of :data:`WIDE_HEAD_DIMS`, the columns beyond the head
-masked, and wider heads in the split design, :data:`SPLIT_OUT` output
-columns a block), are built by nvcc for ``sm_90a`` at first use and bound
-through ctypes. CPU tensors take the same
+cores for f32 or bf16 inputs at any head dim (heads of 4 and 8 in their
+own design, ``csrc/mha_tiles.cuh``; every other width up to 128 in the wg
+design, ``csrc/mha_wg.cuh``, wgmma fed by TMA, at the next of
+:data:`WIDE_HEAD_DIMS`, the columns beyond the head masked; wider heads in
+the split design, :data:`SPLIT_OUT` output columns a block), are built by
+nvcc for ``sm_90a`` at first use and bound through ctypes. CPU tensors take the same
 Function with the plain versions, :func:`sdpa_reference` forward and
 :func:`fused_mha_bwd_reference` backward. Like the TPU kernels, both compute
 in f32 whatever the input type and round only their outputs to it. The
@@ -35,22 +35,25 @@ __all__ = ["fused_mha", "fused_mha_bwd", "fused_mha_bwd_reference",
            "attention_kernel_arithmetic",
            "attention_bwd_kernel_arithmetic", "bf16_hi_lo", "split_fed_back",
            "PAIR_SLOTS", "TILE_HEAD_DIMS", "WIDE_HEAD_DIMS", "SPLIT_CHUNK",
-           "SPLIT_OUT", "kernel_head_dim", "check_head_dim"]
+           "SPLIT_OUT", "kernel_head_dim", "check_head_dim", "design",
+           "wg_tiles", "wg_operand", "wg_fed_back", "tma_refused"]
 
 # the kernels' instantiations (csrc/fused_mha_*.cu): heads of 4 and 8 in
 # the first design (csrc/mha_tiles.cuh: Tf32, Bf16), every other head dim d
-# up to WIDE_HEAD_DIMS[-1] in the wide design (WTf32, WBf16) at the smallest
-# of WIDE_HEAD_DIMS that holds it, its columns d .. D - 1 read as zero, and
-# wider heads in the split design: blocks of SPLIT_OUT output columns, the
-# scores' contraction staged SPLIT_CHUNK dims at a time (columns past d
-# zero)
+# up to WIDE_HEAD_DIMS[-1] in the wg design (csrc/mha_wg.cuh) at the
+# smallest of WIDE_HEAD_DIMS that holds it, its columns d .. D - 1 read as
+# zero, and wider heads in the split design (the mma.sync wide tiles WTf32,
+# WBf16): blocks of SPLIT_OUT output columns, the scores' contraction
+# staged SPLIT_CHUNK dims at a time (columns past d zero)
 TILE_HEAD_DIMS = (4, 8)
 WIDE_HEAD_DIMS = (16, 32, 64, 128)
 SPLIT_CHUNK = 64
 SPLIT_OUT = 128
 # the dK/dV kernel cuts the queries into chunks of this many rows when there
-# are too few keys to fill the card (csrc/fused_mha_bwd.cu)
+# are too few keys to fill the card (csrc/fused_mha_bwd.cu); the wg design
+# streams a block's queries through its ring, and splits only past 1024
 _KV_SPLIT_ROWS = 64
+_WG_KV_SPLIT_ROWS = 1024
 _KV_SPLIT_MIN_KEYS = 256
 
 
@@ -153,13 +156,40 @@ def kernel_head_dim(d: int) -> int:
     return -(-d // SPLIT_CHUNK) * SPLIT_CHUNK
 
 
-def kv_splits(lq: int, lk: int) -> int:
-    """How many query chunks the dK/dV kernel sums apart: 1 with enough
-    keys to fill the card, else one chunk per 64 queries (cross-attention
-    over 1 or 77 condition tokens)."""
+def design(d: int) -> str:
+    """Which design the kernels take head dim ``d`` in: ``"tiles"`` (4 and
+    8), ``"wg"`` (every other d up to 128) or ``"split"`` (above)."""
+    if d in TILE_HEAD_DIMS:
+        return "tiles"
+    return "wg" if d <= WIDE_HEAD_DIMS[-1] else "split"
+
+
+def wg_tiles(width: int, dtype: torch.dtype) -> dict:
+    """The wg design's sizes at instantiation ``width`` (csrc/mha_wg.cuh:
+    Cfg): for K2 (``fwd``), K5's dq kernel (``dq``) and its dk/dv kernel
+    (``kv``), the consumer warpgroups of 64 own rows each and the other
+    side's rows a tile (``(warpgroups, rows)``). f32 tiles take their split
+    copies beside them in shared memory, so the widest f32 heads take one
+    warpgroup and shorter tiles."""
+    f32 = dtype == torch.float32
+    return {"fwd": (1, 32) if f32 and width == 128 else (2, 64),
+            "dq": (1 if f32 and width == 128 else 2,
+                   32 if (width >= 64 if f32 else width == 128) else 64),
+            "kv": (1 if width == 128 else 2,
+                   (16 if f32 else 32) if width == 128
+                   else 32 if width == 64 and f32 else 64)}
+
+
+def kv_splits(lq: int, lk: int, d: int = 4) -> int:
+    """How many query chunks the dK/dV kernel sums apart at head dim ``d``:
+    1 with enough keys to fill the card, else one chunk per 64 queries
+    (cross-attention over 1 or 77 condition tokens), per 1024 in the wg
+    design (whose blocks stream their queries through a ring of tiles:
+    fewer, longer blocks measured faster there)."""
     if lk >= _KV_SPLIT_MIN_KEYS:
         return 1
-    return max(1, -(-lq // _KV_SPLIT_ROWS))
+    rows = _WG_KV_SPLIT_ROWS if design(d) == "wg" else _KV_SPLIT_ROWS
+    return max(1, -(-lq // rows))
 
 
 @functools.cache
@@ -178,6 +208,25 @@ def _bwd_library() -> ctypes.CDLL:
                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.fused_mha_bwd.restype = ctypes.c_int
     return lib
+
+
+def tma_refused() -> dict:
+    """``{"K2": (launches, last CUresult), "K5": ...}``: the wg design's
+    launches of this process that copied their tiles by cp.async because
+    cuTensorMapEncodeTiled refused a tensor map (``csrc/mha_wg.cuh:
+    make_map``), and the last refusal's CUresult; (0, 0) for a library not
+    loaded."""
+    out = {}
+    for name, lib, fn in (("K2", _library, "fused_mha_tma_refused"),
+                          ("K5", _bwd_library, "fused_mha_bwd_tma_refused")):
+        if not lib.cache_info().currsize:
+            out[name] = (0, 0)
+            continue
+        f = getattr(lib(), fn)
+        f.argtypes = [ctypes.c_void_p]
+        err = ctypes.c_int(0)
+        out[name] = (f(ctypes.byref(err)), err.value)
+    return out
 
 
 _DTYPES = (torch.float32, torch.bfloat16)   # the kernels' input types
@@ -281,10 +330,11 @@ def _bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    splits = kv_splits(Lq, Lk)
+    splits = kv_splits(Lq, Lk, C // n_head)
     scratch = (torch.empty((2, splits, B, Lk, C), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
-    # the wide design's dq kernel writes each row's Dr for the dk/dv kernel
+    # the wg and split designs' dq kernel writes each row's Dr for the dk/dv
+    # kernel
     dr = (None if C // n_head in TILE_HEAD_DIMS else
           torch.empty((B, n_head, Lq), dtype=torch.float32, device=q.device))
     err = _bwd_library().fused_mha_bwd(
@@ -358,7 +408,8 @@ fused_mha.by_head_dim = collections.Counter()
 # than the order of a sum, as plain functions (the CPU tests bound each)
 # ---------------------------------------------------------------------------
 
-# keys a staged tile of the tensor-core design (csrc/mha_tiles.cuh: kTile)
+# keys a staged tile of the mma.sync designs (csrc/mha_tiles.cuh: kTile,
+# kWTile)
 KERNEL_TILE = 64
 # the k-slots of an 8-column block in the TF32 pair product: slot t holds
 # column PAIR_SLOTS[t], the accumulator's columns 2t (slots 0-3) and 2t + 1
@@ -426,7 +477,7 @@ def _mm(eq: str, a: tuple, b: tuple) -> torch.Tensor:
 
 
 def _mm3(eq: str, a: tuple, b: tuple) -> torch.Tensor:
-    """The wide design's products: hi hi + hi lo + lo hi of two split
+    """The wg and split designs' products: hi hi + hi lo + lo hi of two split
     operands (the lo lo term left out); with a one-part operand (bf16) every
     product, as :func:`_mm`."""
     return sum(torch.einsum(eq, x, y) for i, x in enumerate(a)
@@ -446,13 +497,14 @@ def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
 class _Design:
     """How the kernels take a head dim ``d``: the instantiation ``width``
     (the heads read with columns d .. width - 1 zero; above 128 the split
-    design, whose products and groups of keys are the wide design's at
-    width 128), the products
-    (``mm``), whether q is scaled in f32 before them (the wide f32 design,
-    as the JAX kernel), the base-2 factor ``c`` of the products' scores,
-    the factors of dQ and dK, and up to how many keys the dq kernel holds
-    every score at once (``one_group_keys``: 0 in the first design; 64, or
-    32 at D = 128, in the wide one)."""
+    design, whose products and groups of keys are the wide tiles' at width
+    128), the products (``mm``), whether q is scaled in f32 before them
+    (every f32 design but the first, as the JAX kernel), the base-2 factor
+    ``c`` of the products' scores, the factors of dQ and dK, K2's tile of
+    keys for the online softmax (``tile``: the wg design's at its width,
+    :func:`wg_tiles`; 64 elsewhere) and up to how many keys the dq kernel
+    holds every score at once (``one_group_keys``: 0 in the first design;
+    the wg design's dq tile; 32 in the split design)."""
 
     def __init__(self, d: int, dtype: torch.dtype):
         self.d = d
@@ -460,8 +512,12 @@ class _Design:
         wide = d not in TILE_HEAD_DIMS
         self.width = kernel_head_dim(d) if wide else d
         self.mm = _mm3 if wide else _mm
-        self.one_group_keys = (0 if not wide else KERNEL_TILE // 2
-                               if self.width >= 128 else KERNEL_TILE)
+        self.tile = KERNEL_TILE
+        self.one_group_keys = KERNEL_TILE // 2 if wide else 0
+        if design(d) == "wg":
+            tiles = wg_tiles(self.width, dtype)
+            self.tile = tiles["fwd"][1]
+            self.one_group_keys = tiles["dq"][1]
         self.scaled_q = wide and dtype == torch.float32
         self.c = _LOG2E if self.scaled_q else _LOG2E / math.sqrt(d)
         if not wide:       # the first design: dQ, dK divided by sqrt(d)
@@ -483,16 +539,16 @@ def attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, n_head: int
                                 ) -> tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
-    """K2's tensor-core designs as a plain function (the split design above
-    head dim 128 computes as the wide one): QK^T and P V on the
+    """K2's tensor-core designs as a plain function: QK^T and P V on the
     split (f32) or exact (bf16) operands, an online softmax over tiles of
-    ``KERNEL_TILE`` keys (the tile's maximum, one exponential a score), P
-    fed back split, the row sum divided once; o rounded to the input type.
-    Heads of 4 and 8 (the first design): every partial product of the
-    split operands, the scale on the scores. Any other head dim d (the wide
-    design, at the instantiation :func:`kernel_head_dim` gives, columns
-    d .. D - 1 zero): three partial products (:func:`_mm3`), and in f32 q
-    times 1/sqrt(d) before them. Returns (o, lse (B, H, Lq) in base 2, o in
+    the design's keys (``_Design.tile``: the tile's maximum, one
+    exponential a score), P fed back split, the row sum divided once; o
+    rounded to the input type. Heads of 4 and 8 (the first design): every
+    partial product of the split operands, the scale on the scores. Any
+    other head dim d (the wg design up to 128 and the split design above,
+    at the instantiation :func:`kernel_head_dim` gives, columns d .. D - 1
+    zero): three partial products (:func:`_mm3`), and in f32 q times
+    1/sqrt(d) before them. Returns (o, lse (B, H, Lq) in base 2, o in
     f32)."""
     d = q.shape[2] // n_head
     dz = _Design(d, q.dtype)
@@ -504,12 +560,12 @@ def attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
     m = torch.full((B, H, Lq, 1), -math.inf)
     l = torch.zeros((B, H, Lq, 1))
     acc = torch.zeros((B, H, Lq, dz.width))
-    for k0 in range(0, Lk, KERNEL_TILE):
-        st = s[..., k0:k0 + KERNEL_TILE]
+    for k0 in range(0, Lk, dz.tile):
+        st = s[..., k0:k0 + dz.tile]
         mn = torch.maximum(m, st.amax(dim=-1, keepdim=True))
         corr = torch.exp2((m - mn) * c)
         p = torch.exp2(st * c - mn * c)
-        vt = tuple(x[:, k0:k0 + KERNEL_TILE] for x in vs)
+        vt = tuple(x[:, k0:k0 + dz.tile] for x in vs)
         acc = acc * corr + dz.mm("bhqk,bkhd->bhqd", _fed_back(p, q.dtype),
                                  vt)
         l = l * corr + p.sum(dim=-1, keepdim=True)
@@ -529,10 +585,10 @@ def attention_bwd_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
     from the f32 output ``o32``; the four products S, dP, and dQ, dK, dV
     with P or dS fed back split; the gradients rounded to the input type.
     The designs by head dim as :func:`attention_kernel_arithmetic`'s (the
-    wide f32 design's dK from the scaled q, as the JAX kernel's). Over at
-    most ``one_group_keys`` keys the wide dq kernel takes the TPU kernel's
-    Dr = rowsum(dP P) with P divided by its row sum (its dS from that P);
-    the dk/dv kernel reads that Dr beside its own P."""
+    f32 dK of the wg and split designs from the scaled q, as the JAX
+    kernel's). Over at most ``one_group_keys`` keys the dq kernel takes the
+    TPU kernel's Dr = rowsum(dP P) with P divided by its row sum (its dS
+    from that P); the dk/dv kernel reads that Dr beside its own P."""
     d = q.shape[2] // n_head
     dz = _Design(d, q.dtype)
     qs = _operands(dz.q_heads(q, n_head))
@@ -553,3 +609,45 @@ def attention_bwd_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
     dv = dz.mm("bhqk,bqhd->bkhd", _fed_back(p, q.dtype), dos)
     return tuple(x[..., :d].reshape(y.shape).to(y.dtype)
                  for x, y in ((dq, q), (dk, k), (dv, v)))
+
+
+# floats after each 4-row chunk of a transposed f32 tile in shared memory
+# (csrc/mha_wg.cuh: kTPad; never written, zero here)
+WG_TPAD = 4
+
+
+def wg_operand(x: torch.Tensor, transposed: bool = False, f: float = 1.0
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """An f32 tile (R rows, D) as the wg design's f32 kernels hold it in
+    shared memory once it has landed (csrc/mha_wg.cuh: split_tile): x times
+    ``f`` split into hi (rounded to TF32) and lo (the rest, cut), each laid
+    out flat as [16-byte chunk][row][4]; ``transposed``: as
+    [4-row chunk][column][4 rows] with :data:`WG_TPAD` floats after each
+    chunk, the rows of each 8 in :data:`PAIR_SLOTS` order (what a product
+    contracted over the rows reads). Returns (hi, lo), flat."""
+    from .megakernel import split_tf32
+    R, D = x.shape
+    hi, lo = split_tf32(x.float() * f)
+
+    def lay(t):
+        if not transposed:
+            return t.reshape(R, D // 4, 4).permute(1, 0, 2).reshape(-1)
+        rows = [8 * (k // 8) + PAIR_SLOTS[k % 8] for k in range(R)]
+        t = t[rows].reshape(R // 4, 4, D).permute(0, 2, 1).reshape(R // 4, -1)
+        return torch.nn.functional.pad(t, (0, WG_TPAD)).reshape(-1)
+    return lay(hi), lay(lo)
+
+
+def wg_fed_back(p: torch.Tensor, dtype: torch.dtype
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A tile of scores (64 rows, N columns) fed back as the wg design's A
+    operand (csrc/mha_wg.cuh: feed_tf32, feed_bf16), as the values of each
+    contraction step's slots: f32, steps of 8 columns with slot t holding
+    column PAIR_SLOTS[t] (hi cut to TF32, lo the rest as TF32 reads it);
+    bf16, steps of 16 columns in their own order (a bf16 hi + lo pair).
+    Returns (hi, lo), each (64, N) in slot order."""
+    hi, lo = _fed_back(p, dtype)
+    if dtype != torch.float32:
+        return hi, lo
+    cols = [8 * (k // 8) + PAIR_SLOTS[k % 8] for k in range(p.shape[1])]
+    return hi[:, cols], lo[:, cols]

@@ -20,7 +20,9 @@ K2 at (64, 1024, 1024) and (64, 1024, 1), K5 at (16, 1024, 1024) and (16,
 dtype. ``--parent ROOT`` adds the kernels of the checkout at ROOT (f32
 only: its ``ops/attention.py`` loaded in a child process, first and last
 in each round; a checkout without the wide design takes head dims 4 and
-8 only).
+8 only). :func:`compare_widths` times chip_smoke.py phase 20 (a)'s shapes
+(``WIDTH_SHAPES``) at every head dim against another checkout's, f32 and
+bf16.
 :func:`compare` is the same for this checkout alone, for ``chip_smoke.py``.
 Needs a CUDA device.
 """
@@ -76,6 +78,7 @@ _P_ROUNDED = """      unsigned hi[4];
       for (int c = 0; c < NC; ++c) mma_tf32(acc.c[mt][c], hi, x[c].x, x[c].y);
 """
 _TILES = "mha_tiles.cuh"
+_WG = "mha_wg.cuh"
 # name -> ((file, old text, new text), ...): each old text occurs once
 VARIANTS = {
     # the f32 pair products' fed-back operand (P, dS) rounded to TF32
@@ -94,7 +97,12 @@ VARIANTS = {
     "tc_all": (("fused_mha_fwd.cu", "constexpr int kFewKeys = 256;",
                 "constexpr int kFewKeys = 0;"),),
 }
-_SOURCES = ("fused_mha_fwd.cu", "fused_mha_bwd.cu", _TILES)
+_SOURCES = ("fused_mha_fwd.cu", "fused_mha_bwd.cu", _TILES, _WG)
+# chip_smoke.py phase 20 (a)'s timed shapes at every head dim: 64 rows of
+# 1024 queries over 1024 keys (self-attention), one key and 77 keys
+WIDTH_SHAPES = (("K2 self", "fwd", 64, 1024), ("K2 cross", "fwd", 64, 1),
+                ("K2 cross77", "fwd", 64, 77), ("K5 self", "bwd", 64, 1024),
+                ("K5 cross", "bwd", 64, 1), ("K5 cross77", "bwd", 64, 77))
 
 
 def build_variant(name: str) -> tuple:
@@ -189,6 +197,25 @@ def time_build(attn, dtypes, head_dim: int = 4) -> dict:
     return out
 
 
+def time_widths(attn, dims, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """{"d shape dtype": ms} of the kernels ``attn`` launches at
+    WIDTH_SHAPES, for each head dim of ``dims`` in ``heads(d)`` heads."""
+    out = {}
+    for d in dims:
+        h = heads(d)
+        for dtype in dtypes:
+            for name, kind, b, lk in WIDTH_SHAPES:
+                x = _inputs(kind, b, lk, dtype, attn, d)
+                if kind == "fwd":
+                    fn = lambda: attn._fwd_kernel(*x, h, False)  # noqa
+                else:
+                    fn = lambda: attn.fused_mha_bwd(*x, n_head=h)  # noqa
+                out[f"{d} {name} {str(dtype)[6:]}"] = _ms(fn)
+                del x
+            torch.cuda.empty_cache()
+    return out
+
+
 def check_build(attn) -> dict:
     """The largest error against the plain versions over CASES: f32
     absolute; bf16 against the plain versions in f32 of the same inputs,
@@ -228,17 +255,45 @@ def _child(head_dim: int = 4) -> None:
     print(json.dumps(time_build(attn, (torch.float32,), head_dim)))
 
 
-def run_in(root: str, head_dim: int = 4) -> dict:
-    """The f32 times of the kernels of the checkout at ``root``, measured in
-    a child process there."""
+def _child_widths(dims) -> None:
+    """:func:`time_widths` for the checkout in the working directory (run
+    there by :func:`compare_widths`); print JSON."""
+    sys.path.insert(0, os.getcwd())
+    attn = __import__(PKG + ".ops.attention", fromlist=["attention"])
+    print(json.dumps(time_widths(attn, dims)))
+
+
+def _run_child(root: str, call: str) -> dict:
     run = subprocess.run(
         [sys.executable, "-c",
          "import importlib.util as u; s = u.spec_from_file_"
          f"location('probe', {os.path.abspath(__file__)!r}); "
          "m = u.module_from_spec(s); s.loader.exec_module(m); "
-         f"m._child({int(head_dim)})"], cwd=root, capture_output=True,
-        text=True, check=True)
+         f"m.{call}"], cwd=root, capture_output=True, text=True, check=True)
     return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def run_in(root: str, head_dim: int = 4) -> dict:
+    """The f32 times of the kernels of the checkout at ``root``, measured in
+    a child process there."""
+    return _run_child(root, f"_child({int(head_dim)})")
+
+
+def compare_widths(parent: str, dims, rounds: int = 1, log=print) -> dict:
+    """The kernels of this checkout (``change``) and of ``parent`` at
+    WIDTH_SHAPES for each head dim of ``dims``, f32 and bf16, in turns
+    (:func:`turn_order`: parent, change, change, parent; the parent's in a
+    child process there): each side's readings and the card."""
+    from ..ops import attention as attn
+    out: dict[str, list] = {}
+    for r in range(rounds):
+        for name in turn_order(["change"], True):
+            ms = (_run_child(parent, f"_child_widths({list(dims)!r})")
+                  if name == "parent" else time_widths(attn, dims))
+            out.setdefault(name, []).append(ms)
+            log(f"round {r} {name}: " + " ".join(
+                f"{k} {v:.4f}" for k, v in ms.items()))
+    return {"card": _card(), "dims": list(dims), "ms": out}
 
 
 def turn_order(names: list[str], parent: bool) -> list[str]:

@@ -163,11 +163,11 @@ def test_sampler_step_kernel_samples_in_range_and_by_seed(cuda):
     assert draw[0].min() >= 0 and draw[0].max() < k
 
 
-# the wide design's cases: each head width of chip_smoke.py's phase 20 (12
-# in the instantiation 16, heads of 12 bf16 starting on 8 bytes), widths
-# no instantiation's (6, 20, 100; 3 and 5: bf16 rows on 2 bytes), over
-# lengths no multiple of a tile, one key, 33 and 77 keys (one group of
-# scores at D <= 64, two at D = 128) and a long self-attention
+# the wg design's cases: each head width of chip_smoke.py's phase 20 (12
+# in the instantiation 16, heads of 12 bf16 starting on 8 bytes: copied by
+# cp.async, not TMA), widths no instantiation's (6, 20, 100; 3 and 5: bf16
+# rows on 2 bytes), over lengths no multiple of a tile, one key, 33 and 77
+# keys (one tile of the dq kernel or two) and a long self-attention
 WIDE_CASES = [(2, 300, 300, 2 * d, 2) for d in (12, 16, 32, 64, 128)] + [
     (2, 257, 77, 4 * d, 4) for d in (12, 64, 128)] + [
     (3, 100, 1, 2 * d, 2) for d in (12, 64, 128)] + [
@@ -192,6 +192,23 @@ def test_attention_kernel_matches_plain(cuda, B, Lq, Lk, C, H):
     assert fused_mha.by_head_dim[C // H, q.dtype] == at_d + 1
     torch.testing.assert_close(got, sdpa_reference(q, k, v, H), rtol=K2_TOL,
                                atol=K2_TOL)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wg_tiles_are_the_kernels(cuda, dtype, D):
+    """The wg design's sizes the plain arithmetic mirrors
+    (``ops/attention.py: wg_tiles``) are those the kernels were built with
+    (``csrc/mha_wg.cuh: Cfg``, reported by ``fused_mha_wg_tiles``)."""
+    import ctypes
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import attention
+    lib = attention._library()
+    lib.fused_mha_wg_tiles.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+    out = (ctypes.c_int * 6)()
+    assert lib.fused_mha_wg_tiles(D, int(dtype == torch.bfloat16), out) == 0
+    assert {"fwd": tuple(out[0:2]), "dq": tuple(out[2:4]),
+            "kv": tuple(out[4:6])} == attention.wg_tiles(D, dtype)
 
 
 @pytest.mark.parametrize("d", [129, 256])

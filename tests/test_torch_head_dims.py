@@ -4,8 +4,8 @@ the JAX package (CPU).
 
 The JAX attention (``ops/attention.py: fused_mha``) takes any head dim
 d = C // n_head; the port's kernels take d up to 128 (heads of 4 and 8 in
-their own design, every other width in the wide design, ``csrc/
-mha_tiles.cuh: WTf32, WBf16``). Here the port's plain versions and the wide
+their own design, every other width in the wg design, ``csrc/
+mha_wg.cuh``). Here the port's plain versions and the wg
 design's arithmetic (``attention_kernel_arithmetic``,
 ``attention_bwd_kernel_arithmetic``) are held to the Pallas kernel in
 interpret mode and its ``jax.grad``; the denoiser at n_embd 128 in 2 heads
@@ -78,7 +78,7 @@ def _inputs(seed, B, Lq, Lk, C):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_plain_attention_and_gradients_match_pallas(d, case):
     """The port's plain forward (through the autograd Function), its plain
-    backward and the kernels' arithmetic at head dim ``d`` (the wide
+    backward and the kernels' arithmetic at head dim ``d`` (the wg
     design: ``d`` in the instantiation ``kernel_head_dim(d)``, its columns
     beyond d zero; f32 q scaled before its three TF32 partial products)
     against the Pallas kernel and its VJP in interpret mode, within TOL."""
@@ -126,7 +126,7 @@ def check_plain_attention(d, case):
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_bf16_kernel_arithmetic_within_the_bf16_bound(d, case):
-    """The wide design's bf16 arithmetic (one bf16 product of the inputs,
+    """The wg design's bf16 arithmetic (one bf16 product of the inputs,
     P and dS fed back as a bf16 hi + lo pair, the scale on the f32 scores,
     over one key the TPU kernel's Dr) against the plain versions in f32 of
     the same inputs: every output within BF16_EXCESS_TOL of its magnitude
@@ -156,7 +156,7 @@ def check_bf16_arithmetic(d, case):
 
 
 def test_one_key_gives_zero_dq_and_dk_in_the_arithmetic():
-    """Over one key the wide design's Dr is the TPU kernel's rowsum(dP P)
+    """Over one key the wg design's Dr is the TPU kernel's rowsum(dP P)
     with P divided by its row sum: P = 1, so dS and with it dq and dk are
     exactly 0, as the JAX kernel's."""
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
@@ -173,7 +173,7 @@ def test_one_key_gives_zero_dq_and_dk_in_the_arithmetic():
     (129, 192), (144, 192), (192, 192), (193, 256), (256, 256), (512, 512),
     (1000, 1024)])
 def test_kernel_head_dim_takes_the_next_instantiation(d, width):
-    """The wide design's next D up to 128; above it the split design, its
+    """The wg design's next D up to 128; above it the split design, its
     contraction padded to a multiple of SPLIT_CHUNK."""
     assert attn.kernel_head_dim(d) == width
     assert attn.check_head_dim(3 * d, 3) == d
@@ -311,13 +311,12 @@ def test_bf16_denoiser_matches_flax_bf16_at_wide_heads(monkeypatch, n_embd,
                                                        n_head):
     """bf16 compute, the flax side's attention the Pallas kernel in
     interpret mode: logits and every gradient within the bound of
-    tests/test_torch_denoiser.py's bf16 test. The JAX side runs op by op,
-    as the port does (under ``jit`` XLA keeps fused elementwise chains in
-    f32 and moves its own logits by up to 0.015 at n_embd 48)."""
-    # the kernel compiled alone (f32 inside, its output rounded once, as
-    # in the module's own jit)
-    monkeypatch.setattr(jden, "fused_mha", jax.jit(functools.partial(
-        jax_fused_mha, interpret=True), static_argnames="n_head"))
+    tests/test_torch_denoiser.py's bf16 test. The JAX side is its step
+    under ``jit``, whose roundings to bf16 the port follows
+    (``models/denoiser.py``; op by op JAX rounds every op's output and
+    moves its logits by up to 0.015 at n_embd 48)."""
+    monkeypatch.setattr(jden, "fused_mha", functools.partial(
+        jax_fused_mha, interpret=True))
     kw, flax_model, args, params, (tokens, cond, t) = _denoiser_case(
         n_embd, n_head, jnp.bfloat16)
 
@@ -325,7 +324,8 @@ def test_bf16_denoiser_matches_flax_bf16_at_wide_heads(monkeypatch, n_embd,
         y = flax_model.apply({"params": p}, *args, fused_attention=True)
         return jnp.mean(y ** 2), y
 
-    (_, want), grads = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, want), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        params)
     model = tden.DenoiserTransformer(dtype=torch.bfloat16, **kw)
     model.load_state_dict(flax_to_state_dict(params))
     got = model(torch.from_numpy(tokens).long(), torch.from_numpy(cond),

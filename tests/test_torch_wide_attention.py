@@ -3,7 +3,7 @@
 The JAX attention takes any head dim; the port's kernels now do too: above
 128 the split design (``csrc/mha_tiles.cuh``: blocks of 128 output columns,
 the scores' contraction staged 64 dims at a time), whose products are the
-wide design's. Here tests/test_torch_head_dims.py's checks run at head dims
+mma.sync wide tiles' (``WTf32``, ``WBf16``). Here tests/test_torch_head_dims.py's checks run at head dims
 144, 192, 256 and 512 (the plain versions and the kernels' arithmetic
 against the Pallas kernel and its VJP in interpret mode, the bf16
 arithmetic within its bound), and the bf16 plain versions against the
@@ -32,8 +32,8 @@ SPLIT_HEAD_DIMS = (144, 192, 256, 512)
 @pytest.mark.parametrize("d", SPLIT_HEAD_DIMS)
 def test_plain_attention_and_gradients_match_pallas_above_128(d, case):
     """tests/test_torch_head_dims.py's check at head dims above 128: the
-    plain forward and backward and the split design's arithmetic (the wide
-    design's, whose products it runs) against the Pallas kernel and its VJP
+    plain forward and backward and the split design's arithmetic (that of
+    the wide tiles, whose products it runs) against the Pallas kernel and its VJP
     in interpret mode."""
     check_plain_attention(d, case)
 

@@ -253,14 +253,13 @@ def test_bf16_denoiser_within_jax_jitted_bf16_drift(monkeypatch, n_embd,
     ``jit`` (the Pallas attention in interpret mode, as the module's jit
     runs it), logits and every gradient of mean(y^2): the port's largest
     error over the largest JAX value, as a share of JAX's own bf16-vs-f32
-    drift (the f32 step under ``jit`` on the same weights and inputs). The
-    gradients: at most DRIFT_SHARE. The logits are bf16 outputs, so their
-    max-abs differences come in bf16 steps: at most DRIFT_SHARE of the
-    drift plus one bf16 step at the largest logit (a rounding boundary
-    crossed apart, the allowance of every bf16 output check here). Without
-    that step the logits' share is 1.113 (heads of 64) and 1.183 (heads of
-    256), where JAX's own bf16 step run op by op scores 0.986 and 1.107
-    against its jit (the fault recorded as F11)."""
+    drift (the f32 step under ``jit`` on the same weights and inputs), at
+    most DRIFT_SHARE for both. The port rounds to bf16 where the jitted
+    step's compiled HLO rounds (``models/denoiser.py``: GELU2 op by op with
+    1.702 in bf16, the AdaLN's 1 + scale and the bias add before a
+    residual add in f32, the bias gradients summed in f32); rounding every
+    op's output instead, the logits' share was 1.113 (heads of 64) and
+    1.183 (heads of 256), the fault recorded as F11."""
     monkeypatch.setattr(jden, "fused_mha", functools.partial(
         jax_fused_mha, interpret=True))
     kw = dict(num_embed=D_EMBED, spatial_size=(4, 4), n_layer=2,
@@ -302,14 +301,12 @@ def test_bf16_denoiser_within_jax_jitted_bf16_drift(monkeypatch, n_embd,
         w = {n: want[n] for n in names}
         drift, drift_at = _share({n: want32[n] for n in names}, w, scale)
         err, err_at = _share({n: got[n] for n in names}, w, scale)
-        step_share = attn.bf16_step(scale) / scale if part == "logits" else 0
         print(f"heads of {n_embd // n_head}, bf16 {part}: port vs JAX jit "
               f"{err:.4e} ({err_at}), JAX bf16 vs f32 {drift:.4e} "
-              f"({drift_at}), share {err / drift:.3f}; one bf16 step "
-              f"{step_share:.4e}")
+              f"({drift_at}), share {err / drift:.3f}")
         assert drift > 0
-        assert err <= DRIFT_SHARE * drift + step_share, (
-            part, err / drift, err_at, drift_at)
+        assert err <= DRIFT_SHARE * drift, (part, err / drift, err_at,
+                                            drift_at)
 
 
 def test_wide_domain_composes_to_the_jax_tree_and_takes_its_routes():
