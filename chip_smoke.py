@@ -181,7 +181,7 @@ Phases:
      overrides at B=16, 4 steps in bf16 and 2 in f32 (38 K2, 38 K5 and 1 K6
      a step), each with its s a step, peak memory and launches by head
      dim (all at 64); (d) K2 and K5 at d = 4 timed again, in turns with
-     ``--parent ROOT`` where given; (e) with ``--profile``, (b)'s sampling
+     ``--parent ROOT`` where given (three rounds); (e) with ``--profile``, (b)'s sampling
      and the training step at B=16 in bf16 and f32 under torch.profiler;
  21. K3 and K4 at every width the JAX megakernel takes (n_embd 32-512 in
      heads of 4-128: ``csrc/megakernel_step.cu``, one library per width,
@@ -205,21 +205,26 @@ Phases:
      device memory), K6 at D = 385-1024 and K = 512-16384 through its three
      entries (against the f64 distances, rows decided by ``k6_margin(D)``;
      two shards' nearest equal to the unsharded index), K2 / K5 at head
-     dims 144-512 (the split design) in f32 and bf16, self-attention at
+     dims 144-512 (the stream design) in f32 and bf16, self-attention at
      B=16, L=1024 in 2 heads and cross-attention over 1 and 77 keys,
      against their plain versions; (b) each timed there beside its plain
-     version, its bound (the function's work: the split design's
-     recomputed scores are not counted) and the library call (sdpa; for K6
-     ``torch.cdist`` + ``argmin``, two calls); (c) ``WIDE_DOMAIN``:
+     version, its bound (the function's work: the scores the stream design
+     computes again past d = 256 are not counted; ``stream_products``
+     counts them) and the library call (sdpa; for K6 ``torch.cdist`` +
+     ``argmin``, two calls), and with ``--parent ROOT`` K2 / K5 there in
+     turns with ROOT's kernels; (c) ``WIDE_DOMAIN``:
      ``tasks.train`` for stage 1 at ``vqvae_ucf.sh``'s widths over 16384
      codes of dim 512 and stage 2 over its checkpoint (n_embd 512 in heads
      of 256, bf16, B=16), ``generate`` over stage 2's checkpoint (8 clips,
      100 steps on ``auto``: the model route, exactly 100 K1 launches at
-     K-1 = 16384 and 3800 K2 at d = 256), then K3 at the honest width with
+     K-1 = 16384 and 3800 K2 at d = 256; its ms a step and K2's share of
+     it from (b)'s times; with ``--profile`` the same call again under
+     torch.profiler: the device's busy share of a step and K2's traced
+     device time a step), then K3 at the honest width with
      K = 16385 against its plain version and the honest configuration over
      those codes on ``auto`` (exactly 100 K3 launches); (d) with ``--parent
      ROOT``, K1's register design bitwise against ROOT's and K2 / K5 at
-     d = 64 in turns.
+     d = 64 in turns (three rounds).
 Then the run's wall time, one JSON line of the kernels (``launches``: K1
 from the ``model`` serving run and the build-cache probe's children, K2
 from that serving run and the f32 stage-2 steps, K5 from those steps, K2
@@ -236,7 +241,9 @@ and K6 in both ``tasks.train`` runs), and for K2 and K5 the launches of
 this process by head dim, as the wrappers counted them
 (``launches_by_head_dim``: every phase, the checks included; summed by
 the design each head dim takes in ``launches_by_design``: ``tiles`` at 4
-and 8, ``wg`` up to 128, ``split`` above), and phase 20 (a)'s numbers at
+and 8, ``wg`` up to 128, ``stream`` above; K5's entries name the
+second translation unit of their library, ``units``), and phase 20
+(a)'s numbers at
 each head dim of the wg design (``by_head_dim``); for K3 and K4
 the launches of this process by width (``launches_by_width``), phase 21
 (b)'s numbers at each full width (``by_width``) and the route run of (c);
@@ -1439,15 +1446,20 @@ def _profile_step(torch, state, batch, generator,
                      lambda: stage2.train_step(state, batch, generator))
 
 
-def _profile_kernels(torch, phase: str, step, steps: int = 2) -> None:
+def _profile_kernels(torch, phase: str, step, steps: int = 2,
+                     cpu: bool = True) -> dict:
     """torch.profiler over ``steps`` calls of ``step``: device time by
-    kernel, and the device's busy share of the (profiled) wall time."""
+    kernel, and the device's busy share of the (profiled) wall time.
+    ``cpu=False`` traces the device alone (a long call's host ops would
+    cost the trace more than the call). Returns ``wall`` (s),
+    ``device_us`` and ``kernels`` ({name: [us, calls]}) over the steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -1468,6 +1480,7 @@ def _profile_kernels(torch, phase: str, step, steps: int = 2) -> None:
         print(f"{phase} profile: {us / 1e3 / steps:8.3f} ms/step "
               f"{100 * us / device_us:5.1f} % {n // steps:5d} calls/step  "
               f"{name[:90]}")
+    return dict(wall=wall, device_us=device_us, kernels=kernels)
 
 
 def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
@@ -4532,7 +4545,7 @@ def _phase20_old_widths(torch, smi: str, parent: str | None) -> None:
         print("phase 20: d = 4, this checkout: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in ms.items()) + f" ({smi})")
         return
-    res = attention_variants.compare(parent, rounds=1, log=lambda line: None)
+    res = attention_variants.compare(parent, rounds=3, log=lambda line: None)
     for side, runs in res["ms"].items():
         print(f"phase 20: d = 4 in turns, {side}: " + "; ".join(
             ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) for ms in runs)
@@ -4919,7 +4932,7 @@ def phase_mk_widths(torch, smi: str, builds: dict,
 # phase 22: the rest of K1, K2, K5 and K6's domain. K1 above the register
 # design's 8192 classes (in shared memory, and past it from device memory:
 # 32768 classes under guidance), K6 above code dim 384 (x streamed beside E)
-# through its three entries, K2 / K5 above head dim 128 (the split design),
+# through its three entries, K2 / K5 above head dim 128 (the stream design),
 # then WIDE_DOMAIN, a configuration that needs all four, through the
 # entries users run
 P22_K1_CASES = ((8193, 2.0, 3.0), (10240, 2.0, 3.0), (10241, 2.0, 3.0),
@@ -5114,41 +5127,73 @@ def _phase22_k6(torch, smi: str) -> dict:
     return {"max_abs_err": worst, "by_shape": timed}
 
 
-def _phase22_attention(torch, smi: str) -> dict:
-    """K2 and K5 at head dims 144-512 in 2 heads, f32 and bf16, against the
-    plain versions (self at B=16, L=1024; cross over 1 and 77 keys), timed
-    at B=16 with sdpa beside them; the share of the split design's products
-    that recompute the scores."""
+def _phase22_attention(torch, smi: str, parent: str | None = None) -> dict:
+    """(a, b) K2 and K5 at head dims 144-512 in 2 heads, f32 and bf16,
+    against the plain versions (self at B=16, L=1024; cross over 1 and 77
+    keys), timed at B=16 with sdpa beside them; the products the stream
+    design runs and the share of them that recompute the scores; with
+    ``parent`` (a checkout's root), the same shapes timed in turns with
+    that checkout's kernels (``probes/attention_variants.py:
+    compare_widths``)."""
     rows = _attention_widths(torch, smi, "phase 22", P22_HEAD_DIMS, P22_B,
                              lambda d: 2)
     for d in P22_HEAD_DIMS:
-        w = split_products(d)
-        print(f"phase 22: d={d}: {w['chunks']} column chunks; a (query, key)"
-              f" pair costs K2 {w['fwd']} FLOP ({w['fwd_function']} the "
-              f"function's; {w['fwd_recompute']:.3f} of them recompute the "
-              f"scores) and K5 {w['bwd']} ({w['bwd_function']}; "
-              f"{w['bwd_recompute']:.3f}); the bound counts the function's")
+        w = stream_products(d)
+        print(f"phase 22: d={d}: {w['chunks']} column chunk(s) of "
+              f"{w['out']}; a (query, key) pair costs K2 {w['fwd']} FLOP "
+              f"({w['fwd_function']} the function's; {w['fwd_recompute']:.3f}"
+              f" of them recompute the scores) and K5 {w['bwd']} "
+              f"({w['bwd_function']}; {w['bwd_recompute']:.3f}); the bound "
+              f"counts the function's")
         for (dd, name), row in rows.items():
             if dd == d:
-                row["split_products"] = w
+                row["stream_products"] = w
+    if parent is None:
+        return rows
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
+        attention_variants)
+    res = attention_variants.compare_widths(parent, P22_HEAD_DIMS,
+                                            log=lambda line: None,
+                                            batch=P22_B, n_head=2)
+    for d in P22_HEAD_DIMS:
+        for dtype in ("float32", "bfloat16"):
+            for kind in ("K2", "K5"):
+                for shape in ("self", "cross", "cross77"):
+                    key = f"{d} {kind} {shape} {dtype}"
+                    read = {side: [r[key] for r in runs]
+                            for side, runs in res["ms"].items()}
+                    best = {side: min(v) for side, v in read.items()}
+                    rows[(d, dtype)][f"{kind} {shape}"]["parent_ms"] = (
+                        best["parent"])
+                    print(f"phase 22: {kind} d={d} {dtype} {shape} (B="
+                          f"{P22_B}, 2 heads) in turns with {parent}: this "
+                          f"checkout " + " ".join(f"{x:.4f}" for x in
+                                                  read["change"])
+                          + f" ms, {parent} " + " ".join(
+                              f"{x:.4f}" for x in read["parent"])
+                          + f" ms; {best['change'] / best['parent']:.3f} of "
+                          f"its time ({res['card']})")
     return rows
 
 
-def split_products(d: int) -> dict:
-    """FLOP a (query, key, head) pair of the split design (head dim ``d``
-    above 128) runs: K2 recomputes the scores (over d padded to a multiple
-    of SPLIT_CHUNK) once for each of its ``chunks`` column chunks of
-    SPLIT_OUT and runs P V over SPLIT_OUT columns a chunk; K5 does so in both its kernels (S and dP), and runs dQ, dK, dV
-    over 128 columns a chunk. Beside them the function's work (K2 4 d, K5
-    10 d, as ``roofline.attention_work``) and the share of the kernels'
-    products that the column split recomputes."""
+def stream_products(d: int) -> dict:
+    """FLOP a (query, key, head) pair of the stream design (head dim ``d``
+    above 128) runs: each of its ``chunks`` column chunks of ``out``
+    columns (``ops/attention.py: stream_out``; one chunk up to
+    STREAM_ONE_PASS) computes the scores over d padded to STREAM_CHUNK and
+    K2's P V over its columns; K5's dq kernel S and dP and its dk/dv kernel
+    S^T and dP^T, each once a chunk, and dQ, dK, dV over its columns.
+    Beside them the function's work (K2 4 d, K5 10 d, as
+    ``roofline.attention_work``) and the share of the kernels' products that
+    the column chunks recompute (0 up to STREAM_ONE_PASS)."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
-        SPLIT_OUT, kernel_head_dim)
-    chunks, dp = -(-d // SPLIT_OUT), kernel_head_dim(d)
-    fwd = chunks * (2 * dp + 2 * SPLIT_OUT)
-    bwd = chunks * (2 * 4 * dp + 6 * SPLIT_OUT)
-    return dict(chunks=chunks, fwd=fwd, bwd=bwd, fwd_function=4 * d,
-                bwd_function=10 * d,
+        kernel_head_dim, stream_out)
+    out, chunks = stream_out(d)
+    dp = kernel_head_dim(d)
+    fwd = chunks * (2 * dp + 2 * out)
+    bwd = chunks * (2 * 4 * dp + 6 * out)
+    return dict(out=out, chunks=chunks, fwd=fwd, bwd=bwd,
+                fwd_function=4 * d, bwd_function=10 * d,
                 fwd_recompute=(chunks - 1) * 2 * dp / fwd,
                 bwd_recompute=(chunks - 1) * 2 * 4 * dp / bwd)
 
@@ -5259,11 +5304,13 @@ def _phase22_train(torch, smi: str, base: Path) -> dict:
     return out
 
 
-def _phase22_sample(torch, smi: str, base: Path, ckpt: Path) -> dict:
+def _phase22_sample(torch, smi: str, base: Path, ckpt: Path,
+                    profile: bool = False) -> dict:
     """(c) WIDE_DOMAIN sampled: ``python -m ..._torch.generate``'s function
     over stage 2's checkpoint, 8 clips, 100 steps on ``auto`` (the model
     route: K2 at d = 256 and K1 at K-1 = 16384 each step), then the decode;
-    the ms a step. Returns the launches."""
+    the ms a step; with ``profile``, the same call again under
+    torch.profiler (``traced``). Returns the launches."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch import generate
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
         fused_mha)
@@ -5287,7 +5334,7 @@ def _phase22_sample(torch, smi: str, base: Path, ckpt: Path) -> dict:
         torch.cuda.synchronize()
         seen.update(wall=time.perf_counter() - t0, shape=tuple(videos.shape),
                     finite=bool(torch.isfinite(videos).all()),
-                    route=self.sampler)
+                    route=self.sampler, call=(self, args, kw))
         return videos
 
     _reset_harness_counts()
@@ -5318,7 +5365,26 @@ def _phase22_sample(torch, smi: str, base: Path, ckpt: Path) -> dict:
             or seen["shape"][0] != WIDE_DOMAIN_CLIPS):
         raise AssertionError(f"WIDE_DOMAIN's sampling did not take the model"
                              f" route with its launches: {counts}")
-    return dict(counts, ms_step=ms)
+    if not profile:
+        return dict(counts, ms_step=ms, traced=None)
+    # the same call again under torch.profiler (after the counts): the
+    # device's busy share of a step and K2's device time a step
+    me, args, kw = seen.pop("call")
+    prof = _profile_kernels(
+        torch, "phase 22: WIDE_DOMAIN sample_videos (8 clips, 100 steps; a "
+        "'step' below is the call)", lambda: saved(me, *args, **kw), steps=1,
+        cpu=False)
+    k2_us = sum(us for name, (us, _) in prof["kernels"].items()
+                if "fused_mha_fwd" in name)
+    traced = dict(busy=prof["device_us"] / 1e6 / prof["wall"],
+                  device_ms_step=prof["device_us"] / 1e3 / steps,
+                  wall_ms_step=prof["wall"] * 1e3 / steps,
+                  k2_ms_step=k2_us / 1e3 / steps)
+    print(f"phase 22: WIDE_DOMAIN sampling traced: {traced['wall_ms_step']:.3f}"
+          f" ms a step on the host's clock (profiled), the device busy "
+          f"{traced['device_ms_step']:.3f} ms of it ({traced['busy']:.3f}), "
+          f"K2 {traced['k2_ms_step']:.3f} ms a step ({smi})")
+    return dict(counts, ms_step=ms, traced=traced)
 
 
 def _phase22_k3(torch, smi: str) -> dict:
@@ -5422,7 +5488,7 @@ def _phase22_parent_turns(torch, smi: str, parent: str | None) -> None:
     from gif_synthesis_with_discrete_diffusion_tpu_torch.probes import (
         attention_variants)
     _phase22_parent_k1(torch, parent)
-    res = attention_variants.compare(parent, rounds=1, head_dim=64,
+    res = attention_variants.compare(parent, rounds=3, head_dim=64,
                                      log=lambda line: None)
     for side, runs in res["ms"].items():
         print(f"phase 22: d = 64 in turns, {side}: " + "; ".join(
@@ -5430,25 +5496,46 @@ def _phase22_parent_turns(torch, smi: str, parent: str | None) -> None:
             + f" ms ({res['card']})")
 
 
-def phase_wide_domain(torch, smi: str, parent: str | None = None) -> dict:
+def phase_wide_domain(torch, smi: str, parent: str | None = None,
+                      profile: bool = False) -> dict:
     """Phase 22: (a) K1, K6, K2 / K5 at their new shapes against the plain
-    versions, (b) timed there, (c) WIDE_DOMAIN through the entries, and
-    the honest width over its codebook through K3, (d) with ``--parent``,
-    today's d = 64 in turns."""
+    versions, (b) timed there (with ``--parent``, K2 / K5 in turns with the
+    parent's kernels), (c) WIDE_DOMAIN through the entries, its sampling
+    step and K2's share of it, and the honest width over its codebook
+    through K3, (d) with ``--parent``, today's d = 64 in turns."""
     import shutil
 
     t0 = time.perf_counter()
     k1 = _phase22_k1(torch, smi)
     k6 = _phase22_k6(torch, smi)
-    attention = _phase22_attention(torch, smi)
+    attention = _phase22_attention(torch, smi, parent)
     t1 = time.perf_counter()
     base = ROOT / "logs" / "chip_smoke_wide_domain" / f"{time.time_ns()}"
     try:
         train = _phase22_train(torch, smi, base)
         sampling = _phase22_sample(torch, smi, base,
-                                   train["stage2"]["run"] / "checkpoints")
+                                   train["stage2"]["run"] / "checkpoints",
+                                   profile)
     finally:
         shutil.rmtree(base, ignore_errors=True)
+    # K2's share of a sampling step: (b)'s times at the same shape (2B = 16
+    # rows of 1024 queries, 2 heads of 256, bf16: 19 launches over the 1024
+    # tokens and 19 over the label's one key a step), and with --profile
+    # its traced device time a step
+    row = attention[(256, "bfloat16")]
+    k2_ms = 19 * (row["K2 self"]["ms"] + row["K2 cross"]["ms"])
+    traced = sampling["traced"]
+    k2_step = traced["k2_ms_step"] if traced else k2_ms
+    sampling["k2_share"] = k2_step / sampling["ms_step"]
+    print(f"phase 22: WIDE_DOMAIN sampling {sampling['ms_step']:.3f} ms a "
+          f"step; K2 {k2_step:.3f} ms of it "
+          + (f"traced ({sampling['k2_share']:.3f}; (b)'s times give "
+             f"{k2_ms:.3f}" if traced else
+             f"from (b)'s times ({sampling['k2_share']:.3f}")
+          + f": 19 x {row['K2 self']['ms']:.4f} + 19 x "
+          f"{row['K2 cross']['ms']:.4f})"
+          + (f"; the device busy {traced['busy']:.3f} of the traced step"
+             if traced else "; --profile traces it") + f" ({smi})")
     k3 = _phase22_k3(torch, smi)
     t2 = time.perf_counter()
     _phase22_parent_turns(torch, smi, parent)
@@ -5521,7 +5608,7 @@ def main() -> int:
     mk_widths = phase_mk_widths(torch, smi, width_builds, args.parent,
                                 parent_build)
     t_phase22 = time.perf_counter()
-    wide = phase_wide_domain(torch, smi, args.parent)
+    wide = phase_wide_domain(torch, smi, args.parent, profile)
     t_end = time.perf_counter()
     tpu = "gif_synthesis_with_discrete_diffusion_tpu/"
     serve_model = "serving, model route, B=32, 100 steps"
@@ -5572,12 +5659,14 @@ def main() -> int:
              **k4),
         dict(name="fused_mha_bwd", route="cuda",
              source=f"{PKG}/csrc/fused_mha_bwd.cu",
+             units=[f"{PKG}/csrc/fused_mha_bwd_stream.cu"],
              replaces=tpu + "ops/attention.py:114",
              launches=train["f32"]["K5"],
              launches_by_path={training_f32: train["f32"]["K5"]},
              **k5["float32"]),
         dict(name="fused_mha_bwd_bf16", route="cuda",
              source=f"{PKG}/csrc/fused_mha_bwd.cu",
+             units=[f"{PKG}/csrc/fused_mha_bwd_stream.cu"],
              replaces=tpu + "ops/attention.py:114",
              launches=train["bf16"]["K5"] + text["K5"],
              launches_by_path={training: train["bf16"]["K5"],

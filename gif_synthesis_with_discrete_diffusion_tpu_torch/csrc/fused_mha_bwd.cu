@@ -7,8 +7,8 @@
 //
 // q, dout, dq: (B, Lq, C); k, v, dk, dv: (B, Lk, C); all of one type (f32
 // or bf16) and contiguous, C = H * D, any head dim (below, the design for
-// D = 4 and 8; the wg design up to 128 and the split design above it at
-// the end). o:
+// D = 4 and 8; the wg design up to 128 at the end; above 128 the stream
+// design, csrc/fused_mha_bwd_stream.cu). o:
 // (B, Lq, C) f32, the forward's
 // output; lse: (B, H, Lq) f32, its per-row log-sum-exp of the scores in
 // base 2 (csrc/fused_mha_fwd.cu). With s = q k^T / sqrt(D) and P = softmax(s):
@@ -64,19 +64,20 @@
 // TPU kernel, where dO * O, summed in another order than dP, leaves dS a
 // rounding noise that dK adds up over every query.
 //
-// Head dims above 128 take the split design (csrc/mha_tiles.cuh:
-// kSplitOut, kSplitChunk, kSplitKeys): the same two kernels, each block on
-// one chunk of 128 output columns (dQ's, or dK's and dV's), the scores S
-// and dP summed over the whole head dim from 64-dim chunks of both sides
-// staged in turn (the block's 64 own rows and a tile of 32 of the other
-// side), then the tile's pair products against the other side's 128
-// columns of the chunk. Every chunk recomputes S and dP (at d = 256 half of
-// the dot products the kernels run). Dr = rowsum(dO * O) spans the head:
-// the dq blocks of chunk 0 write it, as the wg design's dq kernel does,
-// before the dk/dv kernel reads it; over at most 32 keys every chunk takes
-// the TPU kernel's rowsum(dP * P) from the same registers.
+// Head dims above 128 take the stream design, csrc/fused_mha_bwd_stream.cu:
+// a translation unit of its own, compiled in parallel with this one and
+// linked into the same library (ops/cuda_build.py), which fused_mha_bwd
+// below calls there.
 #include "mha_tiles.cuh"
 #include "mha_wg.cuh"
+
+// csrc/fused_mha_bwd_stream.cu: fused_mha_bwd's arguments at a head dim
+// above 128
+int mha_bwd_stream(const void* q, const void* k, const void* v,
+                   const float* o, const float* lse, const void* dout,
+                   void* dq, void* dk, void* dv, float* scratch, float* dr,
+                   int B, int Lq, int Lk, int C, int H, int splits, int bf16,
+                   float* prep, cudaStream_t stream);
 
 namespace {
 
@@ -283,30 +284,6 @@ mha_bwd_dkdv_kernel(const typename Op::T* __restrict__ q,
   }
   Op::store(dk_part + off, dk, fk, row0, Lk, C, g, tig);
   Op::store(dv_part + off, dv, fv, row0, Lk, C, g, tig);
-}
-
-// out[i] = sum over s of part[s * n + i], in order s = 0, 1, ...
-template <typename OutT>
-__global__ void sum_splits_kernel(const float* __restrict__ dk_part,
-                                  const float* __restrict__ dv_part,
-                                  OutT* __restrict__ dk,
-                                  OutT* __restrict__ dv, size_t n,
-                                  int splits) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float a = 0.f, e = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      a += dk_part[s * n + i];
-      e += dv_part[s * n + i];
-    }
-    if constexpr (std::is_same_v<OutT, float>) {
-      dk[i] = a;
-      dv[i] = e;
-    } else {
-      dk[i] = __float2bfloat16_rn(a);
-      dv[i] = __float2bfloat16_rn(e);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -782,415 +759,6 @@ mha_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap mq,
   wg::store_rows<D>(dv_part + off, dv, f_v, row, Lk, C, d, tig);
 }
 
-// ---------------------------------------------------------------------------
-// the split design (head dims above 128)
-// ---------------------------------------------------------------------------
-// grid (ceil(Lq / kWRowsBlock), H * n_oc, B), blockIdx.y = h n_oc + chunk;
-// kThreads threads; dynamic shared memory of two ring slots, each the
-// larger of a contraction stage (q, dO of the block's 64 rows and k, v of a
-// tile of kSplitKeys keys, kSplitChunk dims each) and a pair stage (the
-// tile's keys at the block's kSplitOut columns)
-template <template <int> class W>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dq_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
-                        const typename W<kSplitChunk>::T* __restrict__ k,
-                        const typename W<kSplitChunk>::T* __restrict__ v,
-                        const float* __restrict__ o,
-                        const float* __restrict__ lse,
-                        const typename W<kSplitChunk>::T* __restrict__ dout,
-                        typename W<kSplitChunk>::T* __restrict__ dq,
-                        float* __restrict__ dr, int Lq, int Lk, int C, int d,
-                        int vec, float scale, float c) {
-  using OpC = W<kSplitChunk>;
-  using OpO = W<kSplitOut>;
-  using T = typename OpC::T;
-  constexpr int SC = OpC::S, SO = OpO::S;
-  constexpr int kOwn = kWTile * SC, kOther = kSplitKeys * SC;
-  constexpr int kNBk = kSplitKeys / 8;   // 8-key blocks a tile
-  constexpr int kSlotC = 2 * kOwn + 2 * kOther, kSlotO = kSplitKeys * SO;
-  constexpr int kSlot = kSlotC > kSlotO ? kSlotC : kSlotO;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int n_ic = (d + kSplitChunk - 1) / kSplitChunk;
-  const int n_oc = (d + kSplitOut - 1) / kSplitOut;
-  const int h = blockIdx.y / n_oc, oc = blockIdx.y % n_oc;
-  const int H = gridDim.y / n_oc;
-  const size_t b = blockIdx.z;
-  const int blk0 = blockIdx.x * kWRowsBlock;
-  const int r0 = warp * kWRows;
-  const int row0 = blk0 + r0;
-  const bool busy = row0 < Lq;
-  const size_t qoff = b * Lq * C + h * d;
-  const T* kh = k + b * Lk * C + h * d;
-  const T* vh = v + b * Lk * C + h * d;
-  const int dcols = min(kSplitOut, d - oc * kSplitOut);
-
-  const int per = n_ic + 1;
-  const int ntiles = (Lk + kSplitKeys - 1) / kSplitKeys;
-  const int n_st = ntiles * per;
-  auto issue = [&](int u) {
-    T* slot = ring + (u & 1) * kSlot;
-    const int t = u / per, j = u % per;
-    const int k0 = t * kSplitKeys;
-    if (j < n_ic) {
-      const int c0 = j * kSplitChunk, dj = min(kSplitChunk, d - c0);
-      stage<T, kSplitChunk, SC>(slot, q + qoff + c0, blk0, Lq, C, dj, vec);
-      stage<T, kSplitChunk, SC>(slot + kOwn, dout + qoff + c0, blk0, Lq, C,
-                                dj, vec);
-      stage<T, kSplitChunk, SC, kSplitKeys>(slot + 2 * kOwn, kh + c0, k0, Lk,
-                                            C, dj, vec);
-      stage<T, kSplitChunk, SC, kSplitKeys>(slot + 2 * kOwn + kOther,
-                                            vh + c0, k0, Lk, C, dj, vec);
-    } else {
-      stage<T, kSplitOut, SO, kSplitKeys>(slot, kh + oc * kSplitOut, k0, Lk,
-                                          C, dcols, vec);
-    }
-    cp_async_commit();
-  };
-  issue(0);
-
-  // lse and Dr of the lane's rows g, g + 8, as the wg dq kernel takes
-  // them; chunk 0 writes Dr for the dk/dv kernel
-  const bool one_group = Lk <= kSplitKeys;
-  float l2[2], drr[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = row0 + g + 8 * hf;
-    float x = 0.f;
-    if (row < Lq && !one_group) {
-      const size_t off = qoff + static_cast<size_t>(row) * C;
-      for (int j = tig; j < d; j += 4) {
-        float w;
-        if constexpr (std::is_same_v<T, float>)
-          w = dout[off + j];
-        else
-          w = __bfloat162float(dout[off + j]);
-        x = fmaf(w, o[off + j], x);
-      }
-    }
-    drr[hf] = quad_sum(x);
-    l2[hf] = row < Lq ? lse[(b * H + h) * Lq + row] : 0.f;
-    if (row < Lq && tig == 0 && !one_group && oc == 0)
-      dr[(b * H + h) * Lq + row] = drr[hf];
-  }
-  const float fq = OpC::kScaledQ ? scale : 1.f;
-  float acc[kSplitOut / 8][4], sc[kNBk][4], dp[kNBk][4];
-#pragma unroll
-  for (int dc = 0; dc < kSplitOut / 8; ++dc)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dc][j] = 0.f;
-
-  for (int u = 0; u < n_st; ++u) {
-    if (u + 1 < n_st) {
-      issue(u + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* slot = ring + (u & 1) * kSlot;
-    const int t = u / per, j = u % per;
-    const int k0 = t * kSplitKeys;
-    const int nbv = (min(kSplitKeys, Lk - k0) + 7) >> 3;
-    if (busy && j < n_ic) {
-      if (j == 0) {
-#pragma unroll
-        for (int i = 0; i < kNBk; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
-      }
-#pragma unroll 1
-      for (int kc = 0; kc < kSplitChunk / OpC::kK; ++kc) {
-        typename OpC::Frag aq, ad;
-        OpC::load_a(aq, slot, r0, kc, fq, g, tig);
-        OpC::load_a(ad, slot + kOwn, r0, kc, 1.f, g, tig);
-#pragma unroll
-        for (int i = 0; i < kNBk; ++i) {
-          if (i >= nbv) continue;
-          OpC::dot(sc[i], aq, slot + 2 * kOwn, i, kc, 1.f, g, tig);
-          OpC::dot(dp[i], ad, slot + 2 * kOwn + kOther, i, kc, 1.f, g, tig);
-        }
-      }
-    } else if (busy) {
-      // P in place of the scores (0 past the keys)
-#pragma unroll
-      for (int i = 0; i < kNBk; ++i) {
-        const int key = k0 + 8 * i + 2 * tig;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[i][e] = i < nbv && key + (e & 1) < Lk
-              ? ex2(fmaf(sc[i][e], c, -l2[e >> 1])) : 0.f;
-      }
-      if (one_group) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          float l = 0.f;
-#pragma unroll
-          for (int i = 0; i < kNBk; ++i) l += sc[i][2 * hf] + sc[i][2 * hf + 1];
-          l = quad_sum(l);
-          float x = 0.f;
-#pragma unroll
-          for (int i = 0; i < kNBk; ++i)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              sc[i][2 * hf + e] = __fdiv_rn(sc[i][2 * hf + e], l);
-              x = fmaf(sc[i][2 * hf + e], dp[i][2 * hf + e], x);
-            }
-          drr[hf] = quad_sum(x);
-          const int row = row0 + g + 8 * hf;
-          if (row < Lq && tig == 0 && oc == 0)
-            dr[(b * H + h) * Lq + row] = drr[hf];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kNBk; ++i) {
-        if (i >= nbv) continue;
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[e] = sc[i][e] * (dp[i][e] - drr[e >> 1]);
-        typename OpO::Frag pa;
-        OpO::make_p(pa, ds);
-        OpO::pair(acc, pa, slot, i, 1.f, g, tig);
-      }
-    }
-    __syncthreads();
-  }
-  if (!busy) return;
-  const float f[2] = {scale, scale};
-  store_wide<kSplitOut>(dq + qoff + oc * kSplitOut, acc, f, row0, Lq, C,
-                        dcols, g, tig);
-}
-
-// grid (ceil(Lk / kWRowsBlock), H * n_oc, B * splits); shared memory as
-// the dq kernel's with the sides swapped (the block's 64 keys' k and v, a
-// tile of kSplitKeys queries' q and dO; the pair stage: the tile's q and dO
-// at the block's columns) and each slot's (lse, Dr) of its queries; chunk
-// s of the queries writes its partial sums as mha_bwd_dkdv_wg_kernel
-template <template <int> class W, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dkdv_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
-                          const typename W<kSplitChunk>::T* __restrict__ k,
-                          const typename W<kSplitChunk>::T* __restrict__ v,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dr,
-                          const typename W<kSplitChunk>::T* __restrict__ dout,
-                          OutT* __restrict__ dk_part,
-                          OutT* __restrict__ dv_part, int B, int Lq, int Lk,
-                          int C, int q_chunk, int d, int vec, float scale,
-                          float c) {
-  using OpC = W<kSplitChunk>;
-  using OpO = W<kSplitOut>;
-  using T = typename OpC::T;
-  constexpr int SC = OpC::S, SO = OpO::S;
-  constexpr int kOwn = kWTile * SC, kOther = kSplitKeys * SC;
-  constexpr int kNBq = kSplitKeys / 8;   // 8-query blocks a tile
-  constexpr int kSlotC = 2 * kOwn + 2 * kOther, kSlotO = 2 * kSplitKeys * SO;
-  constexpr int kSlot = kSlotC > kSlotO ? kSlotC : kSlotO;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-  // (lse, Dr) of each staged query, [2][kSplitKeys]
-  float2* stat = reinterpret_cast<float2*>(ring + 2 * kSlot);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int n_ic = (d + kSplitChunk - 1) / kSplitChunk;
-  const int n_oc = (d + kSplitOut - 1) / kSplitOut;
-  const int h = blockIdx.y / n_oc, oc = blockIdx.y % n_oc;
-  const int H = gridDim.y / n_oc;
-  const size_t b = blockIdx.z % B;
-  const size_t split = blockIdx.z / B;
-  const int blk0 = blockIdx.x * kWRowsBlock;
-  const int r0 = warp * kWRows;
-  const int row0 = blk0 + r0;
-  const bool busy = row0 < Lk;
-  const int q_begin = split * q_chunk;
-  const int q_end = min(Lq, q_begin + q_chunk);
-  const size_t koff = b * Lk * C + h * d;
-  const T* qh = q + b * Lq * C + h * d;
-  const T* dh = dout + b * Lq * C + h * d;
-  const float* lseh = lse + (b * H + h) * Lq;
-  const float* drh = dr + (b * H + h) * Lq;
-  const int dcols = min(kSplitOut, d - oc * kSplitOut);
-
-  const int per = n_ic + 1;
-  const int ntiles = (q_end - q_begin + kSplitKeys - 1) / kSplitKeys;
-  const int n_st = ntiles * per;
-  auto issue = [&](int u) {
-    T* slot = ring + (u & 1) * kSlot;
-    const int t = u / per, j = u % per;
-    const int i0 = q_begin + t * kSplitKeys;
-    if (j < n_ic) {
-      const int c0 = j * kSplitChunk, dj = min(kSplitChunk, d - c0);
-      stage<T, kSplitChunk, SC>(slot, k + koff + c0, blk0, Lk, C, dj, vec);
-      stage<T, kSplitChunk, SC>(slot + kOwn, v + koff + c0, blk0, Lk, C, dj,
-                                vec);
-      stage<T, kSplitChunk, SC, kSplitKeys>(slot + 2 * kOwn, qh + c0, i0,
-                                            q_end, C, dj, vec);
-      stage<T, kSplitChunk, SC, kSplitKeys>(slot + 2 * kOwn + kOther,
-                                            dh + c0, i0, q_end, C, dj, vec);
-    } else {
-      const int col0 = oc * kSplitOut;
-      stage<T, kSplitOut, SO, kSplitKeys>(slot, qh + col0, i0, q_end, C,
-                                          dcols, vec);
-      stage<T, kSplitOut, SO, kSplitKeys>(slot + kSplitKeys * SO, dh + col0,
-                                          i0, q_end, C, dcols, vec);
-      // threads 0 .. kSplitKeys - 1: the lse of query i0 + col (+inf past
-      // the chunk, so that P = 0), the next kSplitKeys its Dr
-      const int col = threadIdx.x % kSplitKeys, qi = i0 + col;
-      float* dst = reinterpret_cast<float*>(&stat[(u & 1) * kSplitKeys + col]);
-      if (threadIdx.x < kSplitKeys)
-        dst[0] = qi < q_end ? lseh[qi] : INFINITY;
-      else if (threadIdx.x < 2 * kSplitKeys)
-        dst[1] = qi < q_end ? drh[qi] : 0.f;
-    }
-    cp_async_commit();
-  };
-  issue(0);
-
-  const float fq = OpC::kScaledQ ? scale : 1.f;
-  float dk[kSplitOut / 8][4], dv[kSplitOut / 8][4], p[kNBq][4], ds[kNBq][4];
-#pragma unroll
-  for (int dc = 0; dc < kSplitOut / 8; ++dc)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[dc][j] = dv[dc][j] = 0.f;
-
-  for (int u = 0; u < n_st; ++u) {
-    if (u + 1 < n_st) {
-      issue(u + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* slot = ring + (u & 1) * kSlot;
-    const int t = u / per, j = u % per;
-    const int nbv =
-        (min(kSplitKeys, q_end - q_begin - t * kSplitKeys) + 7) >> 3;
-    if (busy && j < n_ic) {
-      if (j == 0) {
-#pragma unroll
-        for (int i = 0; i < kNBq; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p[i][e] = ds[i][e] = 0.f;
-      }
-#pragma unroll 1
-      for (int kc = 0; kc < kSplitChunk / OpC::kK; ++kc) {
-        typename OpC::Frag ak, av;
-        OpC::load_a(ak, slot, r0, kc, 1.f, g, tig);
-        OpC::load_a(av, slot + kOwn, r0, kc, 1.f, g, tig);
-#pragma unroll
-        for (int i = 0; i < kNBq; ++i) {
-          if (i >= nbv) continue;
-          OpC::dot(p[i], ak, slot + 2 * kOwn, i, kc, fq, g, tig);    // S^T
-          OpC::dot(ds[i], av, slot + 2 * kOwn + kOther, i, kc, 1.f, g,
-                   tig);                                            // dP^T
-        }
-      }
-    } else if (busy) {
-      const float2* st = stat + (u & 1) * kSplitKeys;
-#pragma unroll
-      for (int i = 0; i < kNBq; ++i) {
-        if (i >= nbv) continue;
-        // (lse, Dr) of the lane's queries 8 i + 2 tig, 8 i + 2 tig + 1
-        const float4 sd =
-            *reinterpret_cast<const float4*>(&st[8 * i + 2 * tig]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float ls = (e & 1) ? sd.z : sd.x;
-          const float dd = (e & 1) ? sd.w : sd.y;
-          p[i][e] = ex2(fmaf(p[i][e], c, -ls));
-          ds[i][e] = p[i][e] * (ds[i][e] - dd);
-        }
-        typename OpO::Frag pa, da;
-        OpO::make_p(pa, p[i]);
-        OpO::pair(dv, pa, slot + kSplitKeys * SO, i, 1.f, g, tig);
-        OpO::make_p(da, ds[i]);
-        OpO::pair(dk, da, slot, i, fq, g, tig);
-      }
-    }
-    __syncthreads();
-  }
-  if (!busy) return;
-  const size_t off = split * B * Lk * C + koff + oc * kSplitOut;
-  const float fk = OpC::kScaledQ ? 1.f : scale;
-  const float f_k[2] = {fk, fk}, f_v[2] = {1.f, 1.f};
-  store_wide<kSplitOut>(dk_part + off, dk, f_k, row0, Lk, C, dcols, g, tig);
-  store_wide<kSplitOut>(dv_part + off, dv, f_v, row0, Lk, C, dcols, g, tig);
-}
-
-template <template <int> class W>
-cudaError_t launch_split(const void* q_, const void* k_, const void* v_,
-                         const float* o, const float* lse, const void* dout_,
-                         void* dq_, void* dk_, void* dv_, float* scratch,
-                         float* dr, int B, int Lq, int Lk, int C, int H,
-                         int splits, int d, cudaStream_t stream) {
-  using T = typename W<kSplitChunk>::T;
-  const T* q = static_cast<const T*>(q_);
-  const T* k = static_cast<const T*>(k_);
-  const T* v = static_cast<const T*>(v_);
-  const T* dout = static_cast<const T*>(dout_);
-  T* dk = static_cast<T*>(dk_);
-  T* dv = static_cast<T*>(dv_);
-  const int n_oc = (d + kSplitOut - 1) / kSplitOut;
-  if (static_cast<long long>(H) * n_oc > 65535) return cudaErrorInvalidValue;
-  constexpr size_t SC = W<kSplitChunk>::S, SO = W<kSplitOut>::S;
-  const size_t slot_c = (2 * kWTile + 2 * kSplitKeys) * SC;
-  const size_t smem_dq =
-      2 * (slot_c > kSplitKeys * SO ? slot_c : kSplitKeys * SO) * sizeof(T);
-  const size_t smem_kv =
-      2 * (slot_c > 2 * kSplitKeys * SO ? slot_c : 2 * kSplitKeys * SO) *
-          sizeof(T) +
-      2 * kSplitKeys * sizeof(float2);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  const float c = W<kSplitChunk>::kScaledQ ? kLog2e : kLog2e * scale;
-  const int vec = copy_bytes(d * static_cast<int>(sizeof(T)));
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_dq_split_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_dq));
-  if (err != cudaSuccess) return err;
-  mha_bwd_dq_split_kernel<W>
-      <<<dim3((Lq + kWRowsBlock - 1) / kWRowsBlock, H * n_oc, B), kThreads,
-         smem_dq, stream>>>(q, k, v, o, lse, dout, static_cast<T*>(dq_), dr,
-                            Lq, Lk, C, d, vec, scale, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int q_chunk = (Lq + splits - 1) / splits;
-  const size_t n = static_cast<size_t>(B) * Lk * C;
-  float* dk_part = scratch;
-  float* dv_part = scratch + splits * n;
-  const dim3 grid((Lk + kWRowsBlock - 1) / kWRowsBlock, H * n_oc,
-                  B * splits);
-  if (splits == 1) {
-    err = cudaFuncSetAttribute(mha_bwd_dkdv_split_kernel<W, T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_kv));
-    if (err != cudaSuccess) return err;
-    mha_bwd_dkdv_split_kernel<W, T><<<grid, kThreads, smem_kv, stream>>>(
-        q, k, v, lse, dr, dout, dk, dv, B, Lq, Lk, C, q_chunk, d, vec, scale,
-        c);
-  } else {
-    err = cudaFuncSetAttribute(mha_bwd_dkdv_split_kernel<W, float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_kv));
-    if (err != cudaSuccess) return err;
-    mha_bwd_dkdv_split_kernel<W, float><<<grid, kThreads, smem_kv, stream>>>(
-        q, k, v, lse, dr, dout, dk_part, dv_part, B, Lq, Lk, C, q_chunk, d,
-        vec, scale, c);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const size_t want = (n + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  sum_splits_kernel<T><<<blocks, 256, 0, stream>>>(dk_part, dv_part, dk, dv,
-                                                   n, splits);
-  return cudaGetLastError();
-}
-
 template <typename T, int D>
 cudaError_t launch_wg(const void* q_, const void* k_, const void* v_,
                       const float* o, const float* lse, const void* dout_,
@@ -1314,16 +882,19 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_,
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a bad shape, else the
-// first failed launch's status. Any head dim. bf16 selects the
+// first failed launch's status. bf16 selects the
 // input type (0: f32, 1: bf16); o is the forward's output in f32. With
 // splits > 1, scratch holds 2 * splits * B * Lk * C floats; with splits ==
 // 1 it may be null. dr: (B, H, Lq) f32 scratch for head dims other than 4
-// and 8 (else it may be null).
+// and 8 (else it may be null). prep: above head dim 128 in f32, the stream
+// design's prepared operands (ops/attention.py: stream_prep_floats floats;
+// else it may be null); with a tensor map refused there, f32 returns
+// cudaErrorNotSupported (its prepared operands have no cp.async path).
 extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
                              const float* o, const float* lse,
                              const void* dout, void* dq, void* dk, void* dv,
                              float* scratch, float* dr, int B, int Lq, int Lk,
-                             int C, int H, int splits, int bf16,
+                             int C, int H, int splits, int bf16, float* prep,
                              void* stream) {
   if (H <= 0 || C % H != 0 || Lq <= 0 || Lk <= 0 || B <= 0 || H > 65535 ||
       splits <= 0 || splits > Lq || static_cast<long long>(B) * splits > 65535
@@ -1331,14 +902,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = C / H;
-  if (d > kMaxHeadDim) {
-    if (dr == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        bf16 ? launch_split<WBf16>(q, k, v, o, lse, dout, dq, dk, dv, scratch,
-                                   dr, B, Lq, Lk, C, H, splits, d, s)
-             : launch_split<WTf32>(q, k, v, o, lse, dout, dq, dk, dv, scratch,
-                                   dr, B, Lq, Lk, C, H, splits, d, s));
-  }
+  if (d > kMaxHeadDim)   // the stream design
+    return mha_bwd_stream(q, k, v, o, lse, dout, dq, dk, dv, scratch, dr, B,
+                          Lq, Lk, C, H, splits, bf16, prep, s);
   if (d != 4 && d != 8) {
     if (dr == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(wg::at_width(d, [&](auto w) {

@@ -63,17 +63,31 @@
 // keys (cross-attention over 1 or 77 tokens) take the same kernel, the
 // tile's missing keys masked.
 //
-// Head dims above 128 take the split design (csrc/mha_tiles.cuh: kSplitOut,
-// kSplitChunk): a block of 4 warps per (64 queries, 128 output columns,
-// head, batch row); per tile of 64 keys the ring brings the queries' and
-// keys' dims 64 at a time (the scores summed over the whole head dim in the
-// warp's registers), then the values' 128 columns of the block, and the
-// online softmax and P V run as the mma.sync wide tiles (csrc/mha_tiles.cuh:
-// WTf32, WBf16) compute them. Every column chunk
-// recomputes the same scores (the same products in the same order, so the
-// same values): at d = 256 a third of the products the kernel runs are that
-// recompute, which the function's bound does not count. The chunk of
-// columns 0 .. 127 writes lse.
+// Head dims above 128 take the stream design (csrc/mha_wg.cuh: Stream) on
+// the same wgmma and TMA. What bounds it there: at d = 256 a pair costs 512
+// multiply-adds against one exponential, and the rows that feed them are
+// long (512 bytes of bf16, 1 KB of f32 split into hi + lo a row), so the
+// bytes each product reads into shared memory decide the time. A block of
+// two consumer warpgroups (64 queries each; registers moved to them from
+// the producer warpgroup by setmaxnreg: an OC-column accumulator is 128
+// registers a thread at OC = 256) owns 128 queries and OC output columns
+// (192 for d up to 192, 256 up to 256). Every score is computed once: each
+// warpgroup sums a tile's S over the whole head dim in increasing order of
+// the dims into one set of registers, runs the online softmax once and
+// feeds the same P to every output column it owns. bf16 heads up to 256
+// keep q resident (64 KB); the keys and values come by tile through a ring
+// of four slots, one TMA copy a tile (a 5-d map whose box lands the
+// no-swizzle core-matrix layout). f32 cannot hold its q's hi and lo (256
+// KB at d = 256): a pass before the kernel splits q (times 1 / sqrt(d)),
+// k and v once into TF32 hi and lo in device memory (v transposed, since
+// .tf32 takes no transposed operand), and score stages stream 16 dims of
+// both sides' hi and lo at a time, value stages 64 of the block's columns
+// of v^T, in TMA's swizzled layouts (a row's 64 or 128 bytes one piece of
+// a copy, where the core-matrix layout takes 16 bytes a piece). One group
+// of wgmma stays in flight across stages. Wider heads run
+// in column chunks of 192 or 256 (a grid axis), each chunk's blocks
+// computing the scores again (at d = 512 a third of K2's products). The
+// chunk of columns 0 .. OC - 1 writes lse.
 #include "mha_tiles.cuh"
 #include "mha_wg.cuh"
 
@@ -562,145 +576,233 @@ fused_mha_fwd_wg_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-// The split design (head dims above 128): grid (ceil(Lq / kWRowsBlock),
-// H * n_oc, B), n_oc = ceil(d / kSplitOut) column chunks (blockIdx.y = h
-// n_oc + chunk), kThreads threads, dynamic shared memory of two ring slots
-// (the larger of a contraction stage, q and k at kSplitChunk dims, and a
-// value stage, kSplitOut columns). vec: the bytes of a copy into shared
-// memory; other arguments as the wg kernel's.
-template <template <int> class W>
-__global__ void __launch_bounds__(kThreads)
-fused_mha_fwd_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
-                           const typename W<kSplitChunk>::T* __restrict__ k,
-                           const typename W<kSplitChunk>::T* __restrict__ v,
-                           typename W<kSplitChunk>::T* __restrict__ o,
-                           float* __restrict__ o32, float* __restrict__ lse,
-                           int Lq, int Lk, int C, int d, int vec,
-                           float scale, float c) {
-  using OpC = W<kSplitChunk>;
-  using OpO = W<kSplitOut>;
-  using T = typename OpC::T;
-  constexpr int SC = OpC::S, SO = OpO::S, kTileC = kWTile * SC;
-  constexpr int kSlot =
-      2 * kTileC > kWTile * SO ? 2 * kTileC : kWTile * SO;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
+// The stream design (head dims above 128, csrc/mha_wg.cuh: Stream): grid
+// (ceil(Lq / 128), H * n_oc, B), blockIdx.y = h n_oc + oc, the head's
+// output columns in n_oc chunks of OC; two consumer warpgroups of 64
+// queries and a producer warpgroup (384 threads), RES: q resident. Maps
+// (csrc/mha_wg.cuh: StreamMaps, a tile a box; bf16 5-d, f32 swizzled) of
+// q, k and v: bf16 the
+// inputs', read when vec is 0 (else the producer copies by cp.async,
+// load_tile); f32 the prepared hi and lo of q (times scale) and k,
+// head-major, and of v transposed. Arguments otherwise as the wg kernel's.
+template <typename T, int OC, bool RES>
+__global__ void __launch_bounds__(128 * 3, 1)
+fused_mha_fwd_stream_kernel(const __grid_constant__ wg::StreamMaps maps,
+                            const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ o32, float* __restrict__ lse,
+                            int Lq, int Lk, int C, int d, int vec,
+                            float c) {
+  using G = wg::Stream<T, OC, RES>;
+  constexpr bool F32 = G::kF32;
+  constexpr int NP = G::kNP, R0 = G::kFwdRows, KT = G::kFwdKT;
+  constexpr int SC = G::kSCW, VC = G::kFwdVC, NV = OC / VC;
+  constexpr int NS = G::kFwdSlots, NC = 128 * G::kWG, SE = G::fwd_slot();
+  // elements of a score stage's own rows, before its tile of keys
+  constexpr int OWN = RES ? 0 : NP * R0 * SC;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  T* own = reinterpret_cast<T*>(wg::stream_base<T>(smem));   // RES: q, resident
+  T* ring = own + G::fwd_own();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NS * SE);
+  uint64_t* empty = full + NS;
+  uint64_t* obar = empty + NS;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int n_ic = (d + kSplitChunk - 1) / kSplitChunk;
-  const int n_oc = (d + kSplitOut - 1) / kSplitOut;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_oc = (d + OC - 1) / OC;
   const int h = blockIdx.y / n_oc, oc = blockIdx.y % n_oc;
-  const int H = gridDim.y / n_oc;
-  const size_t b = blockIdx.z;
-  const int blk0 = blockIdx.x * kWRowsBlock;
-  const int r0 = warp * kWRows;
-  const bool busy = blk0 + r0 < Lq;
-  const T* qh = q + b * Lq * C + h * d;
-  const T* kh = k + b * Lk * C + h * d;
-  const T* vh = v + b * Lk * C + h * d;
-  const int dout = min(kSplitOut, d - oc * kSplitOut);
-
-  // stage u of tile t = u / per: contraction chunk j = u % per of q and k,
-  // or (j = n_ic) the tile's values at the block's columns
-  const int per = n_ic + 1;
-  const int ntiles = (Lk + kWTile - 1) / kWTile;
-  const int n_st = ntiles * per;
-  auto issue = [&](int u) {
-    T* slot = ring + (u & 1) * kSlot;
-    const int t = u / per, j = u % per;
-    if (j < n_ic) {
-      const int dj = min(kSplitChunk, d - j * kSplitChunk);
-      stage<T, kSplitChunk, SC>(slot, qh + j * kSplitChunk, blk0, Lq, C, dj,
-                                vec);
-      stage<T, kSplitChunk, SC>(slot + kTileC, kh + j * kSplitChunk,
-                                t * kWTile, Lk, C, dj, vec);
-    } else {
-      stage<T, kSplitOut, SO>(slot, vh + oc * kSplitOut, t * kWTile, Lk, C,
-                              dout, vec);
+  const int H = gridDim.y / n_oc, b = blockIdx.z;
+  const int blk0 = blockIdx.x * R0, col0 = oc * OC;
+  // stage j of tile t: j < n_sc the scores' dims j SC .., else the values'
+  // columns col0 + (j - n_sc) VC ..
+  const int n_sc = RES ? 1 : (d + SC - 1) / SC, per = n_sc + NV;
+  const int ntiles = (Lk + KT - 1) / KT;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      wg::mbar_init(&full[i], wg::arrivals(vec));
+      wg::mbar_init(&empty[i], NC);
     }
-    cp_async_commit();
-  };
+    wg::mbar_init(obar, wg::arrivals(vec));
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
 
-  const float fq = OpC::kScaledQ ? scale : 1.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[kSplitOut / 8][4], s[kWNB][4];
-#pragma unroll
-  for (int dc = 0; dc < kSplitOut / 8; ++dc)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dc][j] = 0.f;
-
-  issue(0);
-  for (int u = 0; u < n_st; ++u) {
-    if (u + 1 < n_st) {
-      issue(u + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (warp >= 4 * G::kWG) {   // the producer warpgroup: one warp loads
+    wg::producer_regs();
+    if (warp != 4 * G::kWG) return;
+    const T* qh = q + static_cast<size_t>(b) * Lq * C + h * d;
+    const T* kh = k + static_cast<size_t>(b) * Lk * C + h * d;
+    const T* vh = v + static_cast<size_t>(b) * Lk * C + h * d;
+    if constexpr (RES) {
+      if (vec == 0 && lane == 0) wg::mbar_expect(obar, R0 * OC * sizeof(T));
+      wg::stream_tile<T, OC, R0>(own, &maps.m[0], obar, qh, blk0, Lq, h, b,
+                                 C, d, vec, lane, 0);
+      wg::loaded(obar, vec);
     }
-    __syncthreads();
-    const T* slot = ring + (u & 1) * kSlot;
-    const int t = u / per, j = u % per;
-    const int n = min(kWTile, Lk - t * kWTile);
-    const int nbv = (n + 7) >> 3;
-    if (busy && j < n_ic) {
-      if (j == 0) {
+    for (int u = 0; u < ntiles * per; ++u) {
+      const int s = u % NS, t = u / per, j = u % per;
+      if (u >= NS) wg::mbar_wait(&empty[s], (u / NS - 1) & 1);
+      T* slot = ring + s * SE;
+      if (j < n_sc) {
+        if (vec == 0 && lane == 0)
+          wg::mbar_expect(&full[s], (OWN + NP * KT * SC) * sizeof(T));
 #pragma unroll
-        for (int nb = 0; nb < kWNB; ++nb)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-      }
-#pragma unroll 1
-      for (int kc = 0; kc < kSplitChunk / OpC::kK; ++kc) {
-        typename OpC::Frag a;
-        OpC::load_a(a, slot, r0, kc, fq, g, tig);
-#pragma unroll
-        for (int nb = 0; nb < kWNB; ++nb)
-          if (nb < nbv) OpC::dot(s[nb], a, slot + kTileC, nb, kc, 1.f, g, tig);
-      }
-    } else if (busy) {
-#pragma unroll
-      for (int nb = 0; nb < kWNB; ++nb) {
-        const int key = 8 * nb + 2 * tig;
-        if (key >= n) s[nb][0] = s[nb][2] = -INFINITY;
-        if (key + 1 >= n) s[nb][1] = s[nb][3] = -INFINITY;
-      }
-      float mc[2];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float x = -INFINITY;
-#pragma unroll
-        for (int nb = 0; nb < kWNB; ++nb)
-          x = fmaxf(x, fmaxf(s[nb][2 * hf], s[nb][2 * hf + 1]));
-        const float mn = fmaxf(m[hf], quad_max(x));
-        const float corr = ex2((m[hf] - mn) * c);   // 0 on the first tile
-        m[hf] = mn;
-        mc[hf] = mn * c;
-        l[hf] *= corr;
-#pragma unroll
-        for (int dc = 0; dc < kSplitOut / 8; ++dc) {
-          acc[dc][2 * hf] *= corr;
-          acc[dc][2 * hf + 1] *= corr;
+        for (int p = 0; p < NP; ++p) {
+          if constexpr (!RES)
+            wg::stream_tile<T, SC, R0>(slot + p * R0 * SC, &maps.m[p],
+                                       &full[s], qh, blk0, Lq, h, b, C, d,
+                                       vec, lane, j * SC);
+          wg::stream_tile<T, SC, KT>(slot + OWN + p * KT * SC,
+                                     &maps.m[NP + p], &full[s], kh, t * KT,
+                                     Lk, h, b, C, d, vec, lane, j * SC);
+        }
+      } else {
+        const int c0 = col0 + (j - n_sc) * VC;
+        if (vec == 0 && lane == 0)
+          wg::mbar_expect(&full[s], NP * KT * VC * sizeof(T));
+        if constexpr (F32) {
+          wg::stream_tile_t<VC>(slot, &maps.m[4], &full[s], t * KT, c0, h,
+                                b, lane);
+          wg::stream_tile_t<VC>(slot + KT * VC, &maps.m[5], &full[s], t * KT,
+                                c0, h, b, lane);
+        } else {
+          wg::stream_tile<T, VC, KT>(slot, &maps.m[2], &full[s], vh, t * KT,
+                                     Lk, h, b, C, d, vec, lane, c0);
         }
       }
-#pragma unroll
-      for (int nb = 0; nb < kWNB; ++nb) {
-        if (nb >= nbv) continue;
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[e] = ex2(fmaf(s[nb][e], c, -mc[e >> 1]));
-        typename OpO::Frag pa;
-        OpO::make_p(pa, p);
-        OpO::pair(acc, pa, slot, nb, 1.f, g, tig);
-        l[0] += p[0] + p[1];
-        l[1] += p[2] + p[3];
-      }
+      wg::loaded(&full[s], vec);
     }
-    // the slot staged next was read in this stage
-    __syncthreads();
+    return;
   }
-  if (!busy) return;
+
+  // the consumers: warpgroup w takes queries 64 w ..; one group of wgmma
+  // stays in flight across stages (its slot released when the next group
+  // has been issued)
+  wg::consumer_regs();
+  const int w = warp >> 2, g = lane >> 2, tig = lane & 3;
+  const int row = blk0 + 64 * w + 16 * (warp & 3) + g;   // and row + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NV][VC / 2];
+#pragma unroll
+  for (int cc = 0; cc < NV; ++cc)
+#pragma unroll
+    for (int i = 0; i < VC / 2; ++i) acc[cc][i] = 0.f;
+  if constexpr (RES) wg::landed(obar, 0, vec);
+  int pend = -1;   // the slot the group in flight reads
+  auto next_group = [&](int s) {
+    wg::wg_commit();
+    wg::wg_wait1();
+    if (pend >= 0) wg::mbar_arrive(&empty[pend]);
+    pend = s;
+  };
+  auto all_groups = [&]() {
+    wg::wg_wait();
+    wg::mbar_arrive(&empty[pend]);
+    pend = -1;
+  };
+
+  for (int t = 0; t < ntiles; ++t) {
+    // S = q k^T over the head dim, a score stage at a time
+    float sc[KT / 2];
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) sc[i] = 0.f;
+    wg::hold(sc);
+    for (int j = 0; j < n_sc; ++j) {
+      const int u = t * per + j, s = u % NS;
+      wg::landed(&full[s], (u / NS) & 1, vec);
+      const T* qt = RES ? own : ring + s * SE;
+      const T* kt = ring + s * SE + OWN;
+      wg::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < SC / G::kK; ++ks) {
+        const uint64_t aq = wg::desc_score<T, R0>(qt, ks, 64 * w);
+        const uint64_t bk = wg::desc_score<T, KT>(kt, ks);
+        if constexpr (F32) {   // hi hi, hi lo, lo hi
+          const uint64_t bl = wg::desc_score<T, KT>(kt + KT * SC, ks);
+          const uint64_t al = wg::desc_score<T, R0>(qt + R0 * SC, ks, 64 * w);
+          wg::wg_ss_tf32<KT>(sc, aq, bk, 1);
+          wg::wg_ss_tf32<KT>(sc, aq, bl, 1);
+          wg::wg_ss_tf32<KT>(sc, al, bk, 1);
+        } else {
+          wg::wg_ss_bf16<KT>(sc, aq, bk, 1);
+        }
+      }
+      next_group(s);
+    }
+    all_groups();
+    wg::hold(sc);
+
+    // the tile's keys past Lk masked (selects: no branch around the
+    // registers the products feed from)
+    const int n = Lk - t * KT;
+#pragma unroll
+    for (int j = 0; j < KT / 2; ++j) {
+      const int key = 8 * (j >> 2) + 2 * tig + (j & 1);
+      sc[j] = key < n ? sc[j] : -INFINITY;
+    }
+    // online softmax: the tile's row maximum, the running sums rescaled
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+        x = fmaxf(x, fmaxf(sc[4 * j + 2 * hf], sc[4 * j + 2 * hf + 1]));
+      const float mn = fmaxf(m[hf], quad_max(x));   // finite: a key a tile
+      const float corr = ex2((m[hf] - mn) * c);      // 0 on the first tile
+      m[hf] = mn;
+      l[hf] *= corr;
+#pragma unroll
+      for (int cc = 0; cc < NV; ++cc)
+#pragma unroll
+        for (int j = 0; j < VC / 8; ++j) {
+          acc[cc][4 * j + 2 * hf] *= corr;
+          acc[cc][4 * j + 2 * hf + 1] *= corr;
+        }
+      const float mc = mn * c;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(fmaf(sc[4 * j + 2 * hf + e], c, -mc));
+          sc[4 * j + 2 * hf + e] = p;
+          l[hf] += p;
+        }
+    }
+    // acc += P v, a value stage (VC of the block's columns) at a time, P fed
+    // back from the registers (every step: P is 0 past the keys)
+    constexpr int NJ = KT / G::kK;
+    unsigned ph[NJ][4], pl[NJ][4];
+    if constexpr (F32)
+      wg::feed_tf32<KT>(ph, pl, sc);
+    else
+      wg::feed_bf16<KT>(ph, pl, sc);
+#pragma unroll
+    for (int cc = 0; cc < NV; ++cc) wg::hold(acc[cc]);
+#pragma unroll
+    for (int cc = 0; cc < NV; ++cc) {
+      const int u = t * per + n_sc + cc, s = u % NS;
+      wg::landed(&full[s], (u / NS) & 1, vec);
+      const T* vt = ring + s * SE;
+      wg::wg_fence();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if constexpr (F32) {
+          wg::wg_rs_tf32<VC>(acc[cc], ph[j], wg::desc_v128<VC>(vt, j), 1);
+          wg::wg_rs_tf32<VC>(acc[cc], ph[j],
+                             wg::desc_v128<VC>(vt + KT * VC, j), 1);
+          wg::wg_rs_tf32<VC>(acc[cc], pl[j], wg::desc_v128<VC>(vt, j), 1);
+        } else {
+          wg::wg_rs_bf16<VC>(acc[cc], ph[j], wg::desc_mn<KT>(vt, j), 1);
+          wg::wg_rs_bf16<VC>(acc[cc], pl[j], wg::desc_mn<KT>(vt, j), 1);
+        }
+      }
+      next_group(s);
+    }
+    all_groups();
+#pragma unroll
+    for (int cc = 0; cc < NV; ++cc) wg::hold(acc[cc]);
+    wg::hold(ph);
+    wg::hold(pl);
+  }
 
   float inv[2];
 #pragma unroll
@@ -708,43 +810,89 @@ fused_mha_fwd_split_kernel(const typename W<kSplitChunk>::T* __restrict__ q,
     l[hf] = quad_sum(l[hf]);
     inv[hf] = 1.f / l[hf];
   }
-  const int row0 = blk0 + r0;
-  const size_t ooff = b * Lq * C + h * d + oc * kSplitOut;
-  store_wide<kSplitOut>(o + ooff, acc, inv, row0, Lq, C, dout, g, tig);
-  if (o32 != nullptr)
-    store_wide<kSplitOut>(o32 + ooff, acc, inv, row0, Lq, C, dout, g, tig);
+  const size_t qoff = static_cast<size_t>(b) * Lq * C + h * d;
+#pragma unroll
+  for (int cc = 0; cc < NV; ++cc) {
+    const int c0 = col0 + cc * VC;
+    wg::store_rows<VC>(o + qoff + c0, acc[cc], inv, row, Lq, C, d - c0, tig);
+    if (o32 != nullptr)
+      wg::store_rows<VC>(o32 + qoff + c0, acc[cc], inv, row, Lq, C, d - c0,
+                         tig);
+  }
   if (lse != nullptr && oc == 0 && tig == 0) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = row0 + g + 8 * hf;
-      if (row < Lq) lse[(b * H + h) * Lq + row] = m[hf] * c + log2f(l[hf]);
-    }
+    for (int hf = 0; hf < 2; ++hf)
+      if (row + 8 * hf < Lq)
+        lse[(static_cast<size_t>(b) * H + h) * Lq + row + 8 * hf] =
+            m[hf] * c + log2f(l[hf]);
   }
 }
 
-template <template <int> class W>
-cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         void* o, float* o32, float* lse, int B, int Lq,
-                         int Lk, int C, int H, int d, cudaStream_t stream) {
-  using T = typename W<kSplitChunk>::T;
-  const int n_oc = (d + kSplitOut - 1) / kSplitOut;
+// the f32 stream design's prepared operands in `prep` (floats; the
+// wrapper's ops/attention.py: stream_prep_floats): q times 1 / sqrt(d) and
+// k head-major, hi then lo, then v transposed, hi then lo
+template <typename T, int OC, bool RES>
+cudaError_t launch_stream(const void* q, const void* k, const void* v,
+                          void* o, float* o32, float* lse, int B, int Lq,
+                          int Lk, int C, int H, int d, float* prep,
+                          cudaStream_t stream) {
+  using G = wg::Stream<T, OC, RES>;
+  constexpr bool bf16 = !G::kF32;
+  const int n_oc = (d + OC - 1) / OC;
   if (static_cast<long long>(H) * n_oc > 65535) return cudaErrorInvalidValue;
-  const size_t tc = 2 * static_cast<size_t>(kWTile) * W<kSplitChunk>::S;
-  const size_t to = static_cast<size_t>(kWTile) * W<kSplitOut>::S;
-  const size_t smem = 2 * (tc > to ? tc : to) * sizeof(T);
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  int vec = 0;
+  wg::StreamMaps maps{};
+  if constexpr (bf16) {
+    vec = wg::copy_mode(d, 2);
+    constexpr int SC = G::kSCW, KT = G::kFwdKT;
+    if (vec == 0 &&
+        !(wg::map_in(&maps.m[0], q, B, Lq, H, d, G::kFwdRows,
+                     RES ? OC : SC) &&
+          wg::map_in(&maps.m[1], k, B, Lk, H, d, KT, SC) &&
+          wg::map_in(&maps.m[2], v, B, Lk, H, d, KT, G::kFwdVC))) {
+      ++wg::tma_refused();   // the map was refused: copy by cp.async
+      vec = copy_bytes(d * 2);
+    }
+  } else {
+    if (prep == nullptr) return cudaErrorInvalidValue;
+    const size_t nq = static_cast<size_t>(B) * H * Lq * wg::stream_dp(d);
+    const size_t nk = static_cast<size_t>(B) * H * Lk * wg::stream_dp(d);
+    const size_t nt = static_cast<size_t>(B) * H * d * wg::stream_l8(Lk);
+    float* p[6] = {prep, prep + nq, prep + 2 * nq, prep + 2 * nq + nk,
+                   prep + 2 * (nq + nk), prep + 2 * (nq + nk) + nt};
+    cudaError_t err = wg::stream_prep(q, p[0], p[1], nullptr, nullptr, B, Lq,
+                                      H, d, scale, stream);
+    if (err == cudaSuccess)
+      err = wg::stream_prep(k, p[2], p[3], nullptr, nullptr, B, Lk, H, d,
+                            1.f, stream);
+    if (err == cudaSuccess)
+      err = wg::stream_prep(v, nullptr, nullptr, p[4], p[5], B, Lk, H, d,
+                            1.f, stream);
+    if (err != cudaSuccess) return err;
+    constexpr int R0 = G::kFwdRows, KT = G::kFwdKT;
+    if (!(wg::map_prep(&maps.m[0], p[0], B, Lq, H, d, R0) &&
+          wg::map_prep(&maps.m[1], p[1], B, Lq, H, d, R0) &&
+          wg::map_prep(&maps.m[2], p[2], B, Lk, H, d, KT) &&
+          wg::map_prep(&maps.m[3], p[3], B, Lk, H, d, KT) &&
+          wg::map_prep_t(&maps.m[4], p[4], B, Lk, H, d, G::kFwdVC) &&
+          wg::map_prep_t(&maps.m[5], p[5], B, Lk, H, d, G::kFwdVC))) {
+      ++wg::tma_refused();   // no cp.async path for the prepared operands
+      return cudaErrorNotSupported;
+    }
+  }
+  constexpr size_t smem = G::fwd_smem();
   const cudaError_t attr = cudaFuncSetAttribute(
-      fused_mha_fwd_split_kernel<W>,
+      fused_mha_fwd_stream_kernel<T, OC, RES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  const float c = W<kSplitChunk>::kScaledQ ? kLog2e : kLog2e * scale;
-  fused_mha_fwd_split_kernel<W>
-      <<<dim3((Lq + kWRowsBlock - 1) / kWRowsBlock, H * n_oc, B), kThreads,
-         smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                         static_cast<const T*>(v), static_cast<T*>(o), o32,
-                         lse, Lq, Lk, C, d,
-                         copy_bytes(d * static_cast<int>(sizeof(T))), scale,
-                         c);
+  const float c = bf16 ? kLog2e * scale : kLog2e;
+  fused_mha_fwd_stream_kernel<T, OC, RES>
+      <<<dim3((Lq + G::kFwdRows - 1) / G::kFwdRows, H * n_oc, B),
+         128 * (G::kWG + 1), smem, stream>>>(
+          maps, static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), o32, lse, Lq, Lk, C,
+          d, vec, c);
   return cudaGetLastError();
 }
 
@@ -803,11 +951,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // Returns a cudaError_t: cudaErrorInvalidValue for a bad shape, else the
 // launch's status. Any head dim: 4 and 8, the wg design up to 128, the
-// split design above. bf16 selects the input type (0: f32, 1: bf16); lse
-// and o32 (f32, o's shape) may be null.
+// stream design above. bf16 selects the input type (0: f32, 1: bf16); lse
+// and o32 (f32, o's shape) may be null. prep: the f32 stream design's
+// prepared operands (launch_stream), else it may be null.
 extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
                              void* o, float* o32, float* lse, int B, int Lq,
-                             int Lk, int C, int H, int bf16, void* stream) {
+                             int Lk, int C, int H, int bf16, float* prep,
+                             void* stream) {
   if (H <= 0 || C % H != 0 || Lq <= 0 || Lk <= 0 || B <= 0 || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -815,10 +965,17 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
   const int d = C / H;
   cudaError_t err = cudaErrorInvalidValue;
   if (d > kMaxHeadDim)
-    err = bf16 ? launch_split<WBf16>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
-                                     d, s)
-               : launch_split<WTf32>(q, k, v, o, o32, lse, B, Lq, Lk, C, H,
-                                     d, s);
+    err = wg::at_stream_width(wg::stream_out(d), [&](auto w) {
+      constexpr int OC = decltype(w)::value;
+      if (!bf16)
+        return launch_stream<float, OC, false>(q, k, v, o, o32, lse, B, Lq,
+                                               Lk, C, H, d, prep, s);
+      return wg::stream_resident(d, true)
+                 ? launch_stream<__nv_bfloat16, OC, true>(
+                       q, k, v, o, o32, lse, B, Lq, Lk, C, H, d, prep, s)
+                 : launch_stream<__nv_bfloat16, OC, false>(
+                       q, k, v, o, o32, lse, B, Lq, Lk, C, H, d, prep, s);
+    });
   else if (d == 4 && !bf16)
     err = launch<Tf32<4>, 4>(q, k, v, o, o32, lse, B, Lq, Lk, C, H, s);
   else if (d == 8 && !bf16)
@@ -859,6 +1016,35 @@ extern "C" int fused_mha_wg_tiles(int D, int bf16, int* out) {
       put(wg::Cfg<__nv_bfloat16, W>{});
     else
       put(wg::Cfg<float, W>{});
+    return cudaSuccess;
+  }));
+}
+
+// The stream design's sizes at head dim d (above 128), f32 (bf16 = 0) or
+// bf16: out[4 i .. 4 i + 3] = consumer warpgroups, the other side's rows a
+// tile, slots and shared-memory bytes of K2 (i = 0), the dq kernel (1) and
+// the dk/dv kernel (2) (ops/attention.py: stream_tiles). Returns 0, or
+// cudaErrorInvalidValue for a head dim of another design.
+extern "C" int fused_mha_stream_tiles(int d, int bf16, int* out) {
+  if (d <= kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(wg::at_stream_width(wg::stream_out(d), [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    auto put = [&](auto cfg) {
+      using G = decltype(cfg);
+      const int v[12] = {G::kWG, G::kFwdKT, G::kFwdSlots,
+                         static_cast<int>(G::fwd_smem()),
+                         G::kWG, G::kDqKT, G::kDqSlots,
+                         static_cast<int>(G::dq_smem()),
+                         G::kWG, G::kKvKT, G::kKvSlots,
+                         static_cast<int>(G::kv_smem())};
+      for (int i = 0; i < 12; ++i) out[i] = v[i];
+    };
+    if (!bf16)
+      put(wg::Stream<float, W>{});
+    else if (wg::stream_resident(d, true))
+      put(wg::Stream<__nv_bfloat16, W, true>{});
+    else
+      put(wg::Stream<__nv_bfloat16, W>{});
     return cudaSuccess;
   }));
 }

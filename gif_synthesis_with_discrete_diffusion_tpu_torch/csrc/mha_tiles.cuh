@@ -536,38 +536,9 @@ struct Bf16 {
 };
 
 // ---------------------------------------------------------------------------
-// the wide tiles (the split design's fragments, below; head dims up to 128
-// take the wg design, csrc/mha_wg.cuh)
+// what the wg and stream designs (csrc/mha_wg.cuh) share with the tiles above
 // ---------------------------------------------------------------------------
-// The tiles above hold a warp's 32 rows in registers, split, and stage one
-// row a thread: at D = 64 the f32 A operand alone is 128 registers a
-// thread. The wide tiles keep every operand in shared memory as it lies
-// in device memory (f32 or bf16; rows padded by 16 bytes, so that the
-// fragment loads below meet no bank conflict), copied there by cp.async:
-// columns d .. D - 1 and rows past the end zero-filled by the copy itself
-// (no padded copy in device memory), with copies of 16 bytes where the
-// head's rows allow it, else 8 or 4 (a bf16 head of 12 starts on 8 bytes),
-// else 2 through registers (bf16 heads of odd width). A warp takes 16 rows
-// and, per staged tile, loads the mma fragment of its rows once per chunk
-// of the head dim (8 deep in TF32, 16 in bf16), so its registers hold only
-// the accumulators (D / 2 a thread) and one tile's scores.
-//   * f32 (WTf32): operands split into TF32 hi + lo, three products hi hi +
-//     hi lo + lo hi over a full 8-deep contraction (the lo lo term, below
-//     2^-22 of the product, is left out); the fed-back P or dS split as the
-//     f32 tiles above split it, in the same slot order (PAIR_SLOTS), its
-//     products with X's 8 columns of each 8-dim chunk of the output. q is
-//     multiplied by 1/sqrt(d) in f32 before its products, where the JAX
-//     kernel puts that rounding.
-//   * bf16 (WBf16): one mma.m16n8k16 per 16 dims of the dot product; the
-//     pair product as the bf16 tiles above (P as a bf16 hi + lo pair in one
-//     16-deep contraction, the keys in their own order), X's columns read
-//     by ldmatrix.trans; the scale on the f32 scores.
 constexpr int kMaxHeadDim = 128;   // the wg design's largest D
-constexpr int kWTile = 64;                      // rows a staged tile
-constexpr int kWNB = kWTile / 8;                // 8-row blocks a tile
-constexpr int kWRows = 16;                      // rows a warp
-constexpr int kWRowsBlock = kWRows * kWarps;    // rows a block: one tile
-static_assert(kWRowsBlock == kWTile, "a block's rows are staged as a tile");
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -585,231 +556,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
                      smem_addr(dst)), "l"(src), "n"(N), "r"(n) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows r0 .. r0 + R - 1 (zero from nrows on) of a head whose row r starts
-// at src + r * ld, columns 0 .. d - 1 (zero from d to D - 1), into dst, row
-// stride S elements; V bytes a copy (V divides d * sizeof(T))
-template <typename T, int D, int S, int V, int R = kWTile>
-__device__ __forceinline__ void stage_v(T* dst, const T* src, int r0,
-                                        int nrows, int ld, int d) {
-  constexpr int kPer = V / static_cast<int>(sizeof(T));
-  constexpr int kChunks = D / kPer;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, col = (i % kChunks) * kPer;
-    const bool valid = r0 + r < nrows && col < d;
-    const T* s = valid ? src + static_cast<size_t>(r0 + r) * ld + col : src;
-    T* t = dst + r * S + col;
-    if constexpr (V >= 4) {
-      cp_async<V>(t, s, valid);
-    } else {
-      *reinterpret_cast<unsigned short*>(t) =
-          valid ? *reinterpret_cast<const unsigned short*>(s)
-                : static_cast<unsigned short>(0);
-    }
-  }
-}
-
-template <typename T, int D, int S, int R = kWTile>
-__device__ __forceinline__ void stage(T* dst, const T* src, int r0,
-                                      int nrows, int ld, int d, int vec) {
-  if (vec == 16) {
-    stage_v<T, D, S, 16, R>(dst, src, r0, nrows, ld, d);
-  } else if (vec == 8) {
-    stage_v<T, D, S, 8, R>(dst, src, r0, nrows, ld, d);
-  } else if (vec == 4) {
-    stage_v<T, D, S, 4, R>(dst, src, r0, nrows, ld, d);
-  } else {
-    if constexpr (sizeof(T) == 2) stage_v<T, D, S, 2, R>(dst, src, r0, nrows,
-                                                         ld, d);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-template <int D>
-struct WTf32 {
-  using T = float;
-  static constexpr int D_ = D;
-  static constexpr int S = D + 4;        // row stride in shared memory
-  static constexpr int kK = 8;           // head dims a dot chunk
-  static constexpr bool kScaledQ = true; // q times 1/sqrt(d) before products
-  struct Frag {                          // an A operand, split
-    unsigned hi[4], lo[4];
-  };
-
-  // A: rows r0 + g, r0 + g + 8 of x (row stride S) at dims 8 kc + tig,
-  // 8 kc + tig + 4, times f
-  static __device__ __forceinline__ void load_a(Frag& a, const float* x,
-                                                int r0, int kc, float f,
-                                                int g, int tig) {
-    const float* p = x + (r0 + g) * S + 8 * kc + tig;
-    const float v[4] = {p[0] * f, p[8 * S] * f, p[4] * f, p[8 * S + 4] * f};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(v[i], a.hi[i], a.lo[i]);
-  }
-
-  // s += A X^T over dims 8 kc .. 8 kc + 7 for X's rows 8 nb .. 8 nb + 7
-  // (times f)
-  static __device__ __forceinline__ void dot(float (&s)[4], const Frag& a,
-                                             const float* x, int nb, int kc,
-                                             float f, int g, int tig) {
-    const float* p = x + (8 * nb + g) * S + 8 * kc + tig;
-    unsigned h0, l0, h1, l1;
-    split_tf32(p[0] * f, h0, l0);
-    split_tf32(p[4] * f, h1, l1);
-    mma_tf32(s, a.lo, h0, h1);
-    mma_tf32(s, a.hi, l0, l1);
-    mma_tf32(s, a.hi, h0, h1);
-  }
-
-  // P (an accumulator of dot) as the A operand of a pair product: slot tig
-  // holds column 2 tig, slot tig + 4 column 2 tig + 1; hi cut to TF32, lo
-  // the rest (read by the tensor cores as TF32)
-  static __device__ __forceinline__ void make_p(Frag& a,
-                                                const float (&p)[4]) {
-    const int order[4] = {0, 2, 1, 3};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = p[order[i]];
-      a.hi[i] = __float_as_uint(v) & 0xffffe000u;
-      a.lo[i] = __float_as_uint(v - __uint_as_float(a.hi[i]));
-    }
-  }
-
-  // acc[dc] += P X[8 nb .. 8 nb + 7][8 dc .. 8 dc + 7] (X times f), every dc
-  static __device__ __forceinline__ void pair(float (&acc)[D / 8][4],
-                                              const Frag& a, const float* x,
-                                              int nb, float f, int g,
-                                              int tig) {
-    const float* p = x + (8 * nb + 2 * tig) * S + g;
-#pragma unroll
-    for (int dc = 0; dc < D / 8; ++dc) {
-      unsigned h0, l0, h1, l1;
-      split_tf32(p[8 * dc] * f, h0, l0);       // key 2 tig: slot tig
-      split_tf32(p[S + 8 * dc] * f, h1, l1);   // key 2 tig + 1: slot tig + 4
-      mma_tf32(acc[dc], a.lo, h0, h1);
-      mma_tf32(acc[dc], a.hi, l0, l1);
-      mma_tf32(acc[dc], a.hi, h0, h1);
-    }
-  }
-};
-
-template <int D>
-struct WBf16 {
-  using T = __nv_bfloat16;
-  static constexpr int D_ = D;
-  static constexpr int S = D + 8;          // row stride in shared memory
-  static constexpr int kK = 16;            // head dims a dot chunk
-  static constexpr bool kScaledQ = false;  // the scale is on the scores
-  struct Frag {
-    unsigned a[4];
-  };
-
-  // A: rows r0 + g, r0 + g + 8, dims 16 kc + 2 tig (+1), + 8 (+9); f unused
-  static __device__ __forceinline__ void load_a(Frag& a, const T* x, int r0,
-                                                int kc, float, int g,
-                                                int tig) {
-    const unsigned* p =
-        reinterpret_cast<const unsigned*>(x + (r0 + g) * S + 16 * kc) + tig;
-    a.a[0] = p[0];
-    a.a[1] = p[4 * S];
-    a.a[2] = p[4];
-    a.a[3] = p[4 * S + 4];
-  }
-
-  static __device__ __forceinline__ void dot(float (&s)[4], const Frag& a,
-                                             const T* x, int nb, int kc,
-                                             float, int g, int tig) {
-    const unsigned* p =
-        reinterpret_cast<const unsigned*>(x + (8 * nb + g) * S + 16 * kc) +
-        tig;
-    mma_bf16_k16(s, a.a, p[0], p[4]);
-  }
-
-  // slots k 0..7: bf16 hi of the 8 columns in their own order (the lane's
-  // columns 2 tig, 2 tig + 1), slots 8..15: their lo
-  static __device__ __forceinline__ void make_p(Frag& a,
-                                                const float (&p)[4]) {
-    unsigned hi[4];
-    float lo[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      hi[j] = __float_as_uint(p[j]) & 0xffff0000u;
-      lo[j] = p[j] - __uint_as_float(hi[j]);
-    }
-    const __nv_bfloat162 l01 = __floats2bfloat162_rn(lo[0], lo[1]);
-    const __nv_bfloat162 l23 = __floats2bfloat162_rn(lo[2], lo[3]);
-    a.a[0] = __byte_perm(hi[0], hi[1], 0x7632);
-    a.a[1] = __byte_perm(hi[2], hi[3], 0x7632);
-    a.a[2] = *reinterpret_cast<const unsigned*>(&l01);
-    a.a[3] = *reinterpret_cast<const unsigned*>(&l23);
-  }
-
-  // acc[dc] += P X[8 nb ..][8 dc ..]: B (keys 2 tig, 2 tig + 1 at dim g)
-  // by ldmatrix.trans, the same 8 keys in both halves of the contraction
-  static __device__ __forceinline__ void pair(float (&acc)[D / 8][4],
-                                              const Frag& a, const T* x,
-                                              int nb, float, int g,
-                                              int tig) {
-    const int lane = 4 * g + tig;
-    const T* row = x + (8 * nb + (lane & 7)) * S + 8 * (lane >> 3);
-    if constexpr (D / 8 >= 4) {
-#pragma unroll
-      for (int dc = 0; dc < D / 8; dc += 4) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, row + 8 * dc);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_k16(acc[dc + j], a.a, b[j], b[j]);
-      }
-    } else {
-      unsigned b[2];
-      ldmatrix_x2_trans(b, row);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma_bf16_k16(acc[j], a.a, b[j], b[j]);
-    }
-  }
-};
-
-// ---------------------------------------------------------------------------
-// head dims above 128: the split design
-// ---------------------------------------------------------------------------
-// Past D = 128 a block's accumulators (D / 2 a thread, two of them in K5's
-// dK / dV kernel) and its resident tiles no longer fit. The split
-// design cuts the head's output columns into chunks of kSplitOut (a grid
-// axis: a block writes one chunk of o, dQ, or dK and dV) and stages the
-// contraction of the scores (q k^T, dO v^T) in chunks of kSplitChunk dims:
-// every block recomputes the scores over the whole head dim, and a stage of
-// the ring holds either the next contraction chunk of both operands or the
-// tile of the pair product's output chunk. The products are the wide
-// tiles' (W<kSplitChunk> for the scores, W<kSplitOut> for the pair
-// products, the same fragments and the same split of f32 values), so every
-// score adds its 8- or 16-deep steps in increasing order of the dims. Columns past d are zero-filled by the copies.
-constexpr int kSplitChunk = 64;   // dims a staged chunk of the contraction
-constexpr int kSplitOut = 128;    // output columns a block
-constexpr int kSplitKeys = 32;    // K5: the other side's rows a tile
 
 // the bytes of one copy into shared memory: the largest of 16, 8, 4, 2 that
 // divides a head row's bytes (the tensors start on 16 bytes)
@@ -818,31 +564,27 @@ inline int copy_bytes(int row_bytes) {
                                     : row_bytes % 4 == 0 ? 4 : 2;
 }
 
-// rows row0 + g, row0 + g + 8 (below nrows) of out = acc x f[hf], columns
-// below d only; out is a head's first column, row stride ld
-template <int D, typename OutT>
-__device__ __forceinline__ void store_wide(OutT* out,
-                                           const float (&acc)[D / 8][4],
-                                           const float (&f)[2], int row0,
-                                           int nrows, int ld, int d, int g,
-                                           int tig) {
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = row0 + g + 8 * hf;
-    if (row >= nrows) continue;
-    OutT* p = out + static_cast<size_t>(row) * ld;
-#pragma unroll
-    for (int dc = 0; dc < D / 8; ++dc) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * dc + 2 * tig + e;
-        if (col >= d) continue;
-        const float x = acc[dc][2 * hf + e] * f[hf];
-        if constexpr (std::is_same_v<OutT, float>)
-          p[col] = x;
-        else
-          p[col] = __float2bfloat16_rn(x);
-      }
+// K5's dk/dv partial sums over query chunks (csrc/fused_mha_bwd*.cu):
+// out[i] = sum over s of part[s * n + i], in order s = 0, 1, ...
+template <typename OutT>
+__global__ void sum_splits_kernel(const float* __restrict__ dk_part,
+                                  const float* __restrict__ dv_part,
+                                  OutT* __restrict__ dk,
+                                  OutT* __restrict__ dv, size_t n,
+                                  int splits) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float a = 0.f, e = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      a += dk_part[s * n + i];
+      e += dv_part[s * n + i];
+    }
+    if constexpr (std::is_same_v<OutT, float>) {
+      dk[i] = a;
+      dv[i] = e;
+    } else {
+      dk[i] = __float2bfloat16_rn(a);
+      dv[i] = __float2bfloat16_rn(e);
     }
   }
 }

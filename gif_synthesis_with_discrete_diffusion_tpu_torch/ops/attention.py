@@ -4,15 +4,17 @@ and the backward, and their plain versions.
 ``fused_mha`` replaces the TPU's differentiable ``gif_synthesis_with_
 discrete_diffusion_tpu/ops/attention.py: fused_mha``. Its forward is
 ``csrc/fused_mha_fwd.cu`` (the TPU's ``_kernel``); its backward, through a
-``torch.autograd.Function``, is ``csrc/fused_mha_bwd.cu`` (the TPU's
-``_bwd_kernel``), reached by :func:`fused_mha_bwd`. Both run on the tensor
+``torch.autograd.Function``, is ``csrc/fused_mha_bwd.cu`` and, above head
+dim 128, ``csrc/fused_mha_bwd_stream.cu`` (the TPU's ``_bwd_kernel``),
+reached by :func:`fused_mha_bwd`. Both run on the tensor
 cores for f32 or bf16 inputs at any head dim (heads of 4 and 8 in their
 own design, ``csrc/mha_tiles.cuh``; every other width up to 128 in the wg
 design, ``csrc/mha_wg.cuh``, wgmma fed by TMA, at the next of
 :data:`WIDE_HEAD_DIMS`, the columns beyond the head masked; wider heads in
-the split design, :data:`SPLIT_OUT` output columns a block), are built by
-nvcc for ``sm_90a`` at first use and bound through ctypes. CPU tensors take the same
-Function with the plain versions, :func:`sdpa_reference` forward and
+the stream design, the same wgmma and TMA with every operand streamed
+through a ring, :func:`stream_out` output columns a block), are built by
+nvcc for ``sm_90a`` at first use and bound through ctypes. CPU tensors take
+the same Function with the plain versions, :func:`sdpa_reference` forward and
 :func:`fused_mha_bwd_reference` backward. Like the TPU kernels, both compute
 in f32 whatever the input type and round only their outputs to it. The
 source files say what bounds each kernel on Hopper and how its design
@@ -34,26 +36,34 @@ __all__ = ["fused_mha", "fused_mha_bwd", "fused_mha_bwd_reference",
            "BF16_EXCESS_TOL", "bf16_rounded_p_reference",
            "attention_kernel_arithmetic",
            "attention_bwd_kernel_arithmetic", "bf16_hi_lo", "split_fed_back",
-           "PAIR_SLOTS", "TILE_HEAD_DIMS", "WIDE_HEAD_DIMS", "SPLIT_CHUNK",
-           "SPLIT_OUT", "kernel_head_dim", "check_head_dim", "design",
-           "wg_tiles", "wg_operand", "wg_fed_back", "tma_refused"]
+           "PAIR_SLOTS", "TILE_HEAD_DIMS", "WIDE_HEAD_DIMS", "STREAM_CHUNK",
+           "STREAM_OUT", "STREAM_ONE_PASS", "kernel_head_dim",
+           "check_head_dim", "design", "wg_tiles", "stream_out",
+           "stream_tiles", "stream_prep_floats", "wg_operand", "wg_fed_back",
+           "tma_refused"]
 
 # the kernels' instantiations (csrc/fused_mha_*.cu): heads of 4 and 8 in
 # the first design (csrc/mha_tiles.cuh: Tf32, Bf16), every other head dim d
 # up to WIDE_HEAD_DIMS[-1] in the wg design (csrc/mha_wg.cuh) at the
 # smallest of WIDE_HEAD_DIMS that holds it, its columns d .. D - 1 read as
-# zero, and wider heads in the split design (the mma.sync wide tiles WTf32,
-# WBf16): blocks of SPLIT_OUT output columns, the scores' contraction
-# staged SPLIT_CHUNK dims at a time (columns past d zero)
+# zero, and wider heads in the stream design (csrc/mha_wg.cuh: Stream):
+# blocks of one of STREAM_OUT output columns, the scores' contraction
+# streamed 128 bytes of each row at a time (columns past d zero; counted
+# here as d padded to STREAM_CHUNK)
 TILE_HEAD_DIMS = (4, 8)
 WIDE_HEAD_DIMS = (16, 32, 64, 128)
-SPLIT_CHUNK = 64
-SPLIT_OUT = 128
+STREAM_CHUNK = 64
+STREAM_OUT = (192, 256)
+# the widest head the stream design computes every score of once: wider
+# heads run in column chunks of STREAM_OUT, each computing the scores again
+STREAM_ONE_PASS = STREAM_OUT[-1]
 # the dK/dV kernel cuts the queries into chunks of this many rows when there
-# are too few keys to fill the card (csrc/fused_mha_bwd.cu); the wg design
-# streams a block's queries through its ring, and splits only past 1024
-_KV_SPLIT_ROWS = 64
-_WG_KV_SPLIT_ROWS = 1024
+# are too few keys to fill the card (csrc/fused_mha_bwd.cu); the wg and
+# stream designs stream a block's queries through a ring of tiles, and split
+# only past 1024 and 256 queries (over 1 and 77 keys at d = 144-512, 256
+# measured within 0-15 % of the best of 64-1024 at each shape, 1024 up to
+# 2.6 x slower in f32)
+_KV_SPLIT_ROWS = {"tiles": 64, "wg": 1024, "stream": 256}
 _KV_SPLIT_MIN_KEYS = 256
 
 
@@ -143,9 +153,10 @@ def check_head_dim(c: int, n_head: int) -> int:
 
 def kernel_head_dim(d: int) -> int:
     """The width the kernels compute head dim ``d`` at: d itself for 4 and
-    8, the smallest of :data:`WIDE_HEAD_DIMS` at least d up to 128 (the wide
+    8, the smallest of :data:`WIDE_HEAD_DIMS` at least d up to 128 (the wg
     design), and above 128 d rounded up to a multiple of
-    :data:`SPLIT_CHUNK` (the split design's contraction)."""
+    :data:`STREAM_CHUNK` (the stream design's contraction; its columns past
+    d are zero)."""
     if d < 1:
         raise ValueError(f"fused_mha: head dim {d}")
     if d in TILE_HEAD_DIMS:
@@ -153,15 +164,15 @@ def kernel_head_dim(d: int) -> int:
     for w in WIDE_HEAD_DIMS:
         if d <= w:
             return w
-    return -(-d // SPLIT_CHUNK) * SPLIT_CHUNK
+    return -(-d // STREAM_CHUNK) * STREAM_CHUNK
 
 
 def design(d: int) -> str:
     """Which design the kernels take head dim ``d`` in: ``"tiles"`` (4 and
-    8), ``"wg"`` (every other d up to 128) or ``"split"`` (above)."""
+    8), ``"wg"`` (every other d up to 128) or ``"stream"`` (above)."""
     if d in TILE_HEAD_DIMS:
         return "tiles"
-    return "wg" if d <= WIDE_HEAD_DIMS[-1] else "split"
+    return "wg" if d <= WIDE_HEAD_DIMS[-1] else "stream"
 
 
 def wg_tiles(width: int, dtype: torch.dtype) -> dict:
@@ -180,42 +191,99 @@ def wg_tiles(width: int, dtype: torch.dtype) -> dict:
                    else 32 if width == 64 and f32 else 64)}
 
 
+def stream_out(d: int) -> tuple[int, int]:
+    """The stream design's output columns a block at head dim ``d`` (above
+    128) and the column chunks of the head (csrc/mha_wg.cuh: stream_out):
+    192 up to 192, 256 up to :data:`STREAM_ONE_PASS`, one chunk; wider heads
+    in chunks of whichever of :data:`STREAM_OUT` pads d the least (256 on a
+    tie), each chunk's blocks computing the scores again."""
+    if d <= STREAM_ONE_PASS:
+        oc = next(w for w in STREAM_OUT if d <= w)
+    else:
+        oc = min(STREAM_OUT[::-1], key=lambda w: -(-d // w) * w)
+    return oc, -(-d // oc)
+
+
+def stream_tiles(d: int, dtype: torch.dtype) -> dict:
+    """The stream design's sizes at head dim ``d`` (csrc/mha_wg.cuh:
+    Stream, at the output columns :func:`stream_out` gives): for K2
+    (``fwd``), K5's dq kernel (``dq``) and its dk/dv kernel (``kv``), the
+    consumer warpgroups, the other side's rows a tile, the ring's slots and
+    the shared memory in bytes (``(warpgroups, rows, slots, smem)``). bf16
+    heads up to 256 keep a block's own rows resident and a score stage holds
+    the other side's whole tile (the dq and dk/dv kernels' fed-back products
+    read it again); else a score stage holds 128 bytes of each row of both
+    sides (f32: hi and lo of 16 dims, bf16 64 dims) and a value stage a tile
+    at some of the block's columns. f32 rounds the block's shared memory
+    up to 1024 bytes first (its swizzled tiles)."""
+    f32 = dtype == torch.float32
+    oc, _ = stream_out(d)
+    res = not f32 and d <= STREAM_ONE_PASS
+    size, parts = (4, 2) if f32 else (2, 1)
+    sc = oc if res else 128 // size // parts
+    kt = {"fwd": 64, "dq": 64 if f32 else 32, "kv": 64 if f32 else 32}
+    vc = {"fwd": 64 if f32 else oc, "dq": 64 if f32 else oc,
+          "kv": 32 if f32 else oc}
+    slots = ({"fwd": 4, "dq": 3, "kv": 4} if res
+             else {"fwd": 6, "dq": 4 if f32 else 5, "kv": 6})
+    rows = {"fwd": 128, "dq": 128, "kv": 64}       # a block's own rows
+    n_own = {"fwd": 1, "dq": 2, "kv": 2}           # (q; q, dO; k, v)
+    out = {}
+    for name in ("fwd", "dq", "kv"):
+        n_other = 1 if name == "fwd" else 2
+        own = n_own[name] * rows[name] * oc if res else 0
+        score = n_other * kt[name] * sc + (
+            0 if res else n_own[name] * rows[name] * sc)
+        values = (0 if res and name != "fwd" else
+                  (2 if name == "kv" else 1) * kt[name] * vc[name])
+        slot = parts * max(score, values)
+        pbuf = 2 * 64 * kt[name] if name == "kv" else 0
+        smem = ((1024 if f32 else 0) + (own + slots[name] * slot) * size
+                + pbuf * 4 + 256)
+        out[name] = (2, kt[name], slots[name], smem)
+    return out
+
+
 def kv_splits(lq: int, lk: int, d: int = 4) -> int:
     """How many query chunks the dK/dV kernel sums apart at head dim ``d``:
-    1 with enough keys to fill the card, else one chunk per 64 queries
-    (cross-attention over 1 or 77 condition tokens), per 1024 in the wg
-    design (whose blocks stream their queries through a ring of tiles:
-    fewer, longer blocks measured faster there)."""
+    1 with enough keys to fill the card, else (cross-attention over 1 or 77
+    condition tokens) one chunk per 64 queries in the first design, per
+    1024 in the wg design and per 256 in the stream design (both stream a
+    block's queries through a ring of tiles: fewer, longer blocks measured
+    faster there)."""
     if lk >= _KV_SPLIT_MIN_KEYS:
         return 1
-    rows = _WG_KV_SPLIT_ROWS if design(d) == "wg" else _KV_SPLIT_ROWS
-    return max(1, -(-lq // rows))
+    return max(1, -(-lq // _KV_SPLIT_ROWS[design(d)]))
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_mha_fwd.cu")
     lib.fused_mha_fwd.argtypes = ([ctypes.c_void_p] * 6
-                                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     lib.fused_mha_fwd.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    lib = cuda_build.load("fused_mha_bwd.cu")
+    # the stream design (above head dim 128) a translation unit of its own,
+    # compiled in parallel and linked in; the C entry chooses by head dim
+    lib = cuda_build.load("fused_mha_bwd.cu",
+                          units=("fused_mha_bwd_stream.cu",))
     lib.fused_mha_bwd.argtypes = ([ctypes.c_void_p] * 11
-                                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 7
+                                  + [ctypes.c_void_p] * 2)
     lib.fused_mha_bwd.restype = ctypes.c_int
     return lib
 
 
 def tma_refused() -> dict:
-    """``{"K2": (launches, last CUresult), "K5": ...}``: the wg design's
-    launches of this process that copied their tiles by cp.async because
-    cuTensorMapEncodeTiled refused a tensor map (``csrc/mha_wg.cuh:
-    make_map``), and the last refusal's CUresult; (0, 0) for a library not
-    loaded."""
+    """``{"K2": (launches, last CUresult), "K5": ...}``: the wg and stream
+    designs' launches of this process that copied their tiles by cp.async
+    because cuTensorMapEncodeTiled refused a tensor map (``csrc/mha_wg.cuh:
+    make_map``, ``make_map5``; an f32 stream launch raises instead), and the
+    last refusal's CUresult; (0, 0) for a library not loaded."""
     out = {}
     for name, lib, fn in (("K2", _library, "fused_mha_tma_refused"),
                           ("K5", _bwd_library, "fused_mha_bwd_tma_refused")):
@@ -230,6 +298,34 @@ def tma_refused() -> dict:
 
 
 _DTYPES = (torch.float32, torch.bfloat16)   # the kernels' input types
+
+
+def stream_prep_floats(B: int, lq: int, lk: int, n_head: int, d: int,
+                       backward: bool) -> int:
+    """The floats of the f32 stream design's prepared operands
+    (csrc/mha_wg.cuh: stream_prep_kernel; the layouts the launchers carve
+    out of the wrapper's scratch): each operand split once into TF32 hi and
+    lo, head-major (B, H, L, d padded to 16) and, for the operands a
+    product contracts over their rows, transposed (B, H, d, L padded to 8).
+    K2: q and k head-major, v transposed; K5: q, dO, k, v head-major, k, q
+    and dO transposed."""
+    dp = -(-d // 16) * 16
+    nq, nk = B * n_head * lq * dp, B * n_head * lk * dp
+    l8q, l8k = -(-lq // 8) * 8, -(-lk // 8) * 8
+    tq, tk = B * n_head * d * l8q, B * n_head * d * l8k
+    if not backward:
+        return 2 * nq + 2 * nk + 2 * tk
+    return 4 * nq + 4 * nk + 2 * tk + 4 * tq
+
+
+def _prep(q: torch.Tensor, B: int, lq: int, lk: int, n_head: int, d: int,
+          backward: bool) -> torch.Tensor | None:
+    """Scratch for the f32 stream design's prepared operands; None at any
+    other head dim or type."""
+    if d <= WIDE_HEAD_DIMS[-1] or q.dtype != torch.float32:
+        return None
+    return torch.empty(stream_prep_floats(B, lq, lk, n_head, d, backward),
+                       dtype=torch.float32, device=q.device)
 
 
 def _check_cuda(name: str, q: torch.Tensor, kvs: tuple, n_head: int
@@ -278,11 +374,13 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device)
         o32 = (o if q.dtype == torch.float32 else
                torch.empty(q.shape, dtype=torch.float32, device=q.device))
+    prep = _prep(q, B, Lq, k.shape[1], n_head, C // n_head, False)
     err = _library().fused_mha_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         o32.data_ptr() if o32 is not None and o32 is not o else None,
         lse.data_ptr() if lse is not None else None, B, Lq, k.shape[1], C,
         n_head, int(q.dtype == torch.bfloat16),
+        prep.data_ptr() if prep is not None else None,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_mha_fwd launch failed: cudaError {err}")
@@ -299,7 +397,8 @@ def fused_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient ``do``.
 
     CPU tensors take :func:`fused_mha_bwd_reference` (``o`` and ``lse`` are
-    not read). CUDA tensors launch ``csrc/fused_mha_bwd.cu`` with the
+    not read). CUDA tensors launch ``csrc/fused_mha_bwd.cu`` (above head
+    dim 128 its second unit, ``csrc/fused_mha_bwd_stream.cu``) with the
     forward's output in f32 as ``o`` and its ``lse`` (``_fwd_kernel``'s o32
     and lse); q, k, v, do must meet the forward's contract. Each launch adds
     one to ``fused_mha_bwd.launches`` and to
@@ -333,16 +432,18 @@ def _bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     splits = kv_splits(Lq, Lk, C // n_head)
     scratch = (torch.empty((2, splits, B, Lk, C), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
-    # the wg and split designs' dq kernel writes each row's Dr for the dk/dv
+    # the wg and stream designs' dq kernel writes each row's Dr for the dk/dv
     # kernel
     dr = (None if C // n_head in TILE_HEAD_DIMS else
           torch.empty((B, n_head, Lq), dtype=torch.float32, device=q.device))
+    prep = _prep(q, B, Lq, Lk, n_head, C // n_head, True)
     err = _bwd_library().fused_mha_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), scratch.data_ptr() if scratch is not None else None,
         dr.data_ptr() if dr is not None else None,
         B, Lq, Lk, C, n_head, splits, int(q.dtype == torch.bfloat16),
+        prep.data_ptr() if prep is not None else None,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_mha_bwd launch failed: cudaError {err}")
@@ -386,7 +487,7 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version on the CPU). CUDA tensors must be all f32 or all bf16,
     contiguous, 16-byte aligned, on the current device, with C a multiple of
     n_head (:func:`check_head_dim`; heads of 4 and 8 in their own design, up
-    to 128 in the wide one, wider in the split one); any other CUDA input
+    to 128 in the wg one, wider in the stream one); any other CUDA input
     raises
     (nothing falls back). Each forward launch adds one to
     ``fused_mha.launches`` and to ``fused_mha.by_head_dim[(head dim,
@@ -408,8 +509,7 @@ fused_mha.by_head_dim = collections.Counter()
 # than the order of a sum, as plain functions (the CPU tests bound each)
 # ---------------------------------------------------------------------------
 
-# keys a staged tile of the mma.sync designs (csrc/mha_tiles.cuh: kTile,
-# kWTile)
+# keys a staged tile of the first design (csrc/mha_tiles.cuh: kTile)
 KERNEL_TILE = 64
 # the k-slots of an 8-column block in the TF32 pair product: slot t holds
 # column PAIR_SLOTS[t], the accumulator's columns 2t (slots 0-3) and 2t + 1
@@ -477,7 +577,7 @@ def _mm(eq: str, a: tuple, b: tuple) -> torch.Tensor:
 
 
 def _mm3(eq: str, a: tuple, b: tuple) -> torch.Tensor:
-    """The wg and split designs' products: hi hi + hi lo + lo hi of two split
+    """The wg and stream designs' products: hi hi + hi lo + lo hi of two split
     operands (the lo lo term left out); with a one-part operand (bf16) every
     product, as :func:`_mm`."""
     return sum(torch.einsum(eq, x, y) for i, x in enumerate(a)
@@ -496,15 +596,15 @@ def _heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
 
 class _Design:
     """How the kernels take a head dim ``d``: the instantiation ``width``
-    (the heads read with columns d .. width - 1 zero; above 128 the split
-    design, whose products and groups of keys are the wide tiles' at width
-    128), the products (``mm``), whether q is scaled in f32 before them
-    (every f32 design but the first, as the JAX kernel), the base-2 factor
-    ``c`` of the products' scores, the factors of dQ and dK, K2's tile of
-    keys for the online softmax (``tile``: the wg design's at its width,
-    :func:`wg_tiles`; 64 elsewhere) and up to how many keys the dq kernel
-    holds every score at once (``one_group_keys``: 0 in the first design;
-    the wg design's dq tile; 32 in the split design)."""
+    (the heads read with columns d .. width - 1 zero; above 128 the stream
+    design's contraction, :func:`kernel_head_dim`), the products (``mm``),
+    whether q is scaled in f32 before them (every f32 design but the first,
+    as the JAX kernel), the base-2 factor ``c`` of the products' scores, the
+    factors of dQ and dK, K2's tile of keys for the online softmax
+    (``tile``: the wg or stream design's, :func:`wg_tiles`,
+    :func:`stream_tiles`; 64 in the first design) and up to how many keys
+    the dq kernel holds every score at once (``one_group_keys``: 0 in the
+    first design; the wg or stream design's dq tile)."""
 
     def __init__(self, d: int, dtype: torch.dtype):
         self.d = d
@@ -513,9 +613,10 @@ class _Design:
         self.width = kernel_head_dim(d) if wide else d
         self.mm = _mm3 if wide else _mm
         self.tile = KERNEL_TILE
-        self.one_group_keys = KERNEL_TILE // 2 if wide else 0
-        if design(d) == "wg":
-            tiles = wg_tiles(self.width, dtype)
+        self.one_group_keys = 0
+        if wide:
+            tiles = (wg_tiles(self.width, dtype) if design(d) == "wg"
+                     else stream_tiles(d, dtype))
             self.tile = tiles["fwd"][1]
             self.one_group_keys = tiles["dq"][1]
         self.scaled_q = wide and dtype == torch.float32
@@ -545,7 +646,7 @@ def attention_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
     exponential a score), P fed back split, the row sum divided once; o
     rounded to the input type. Heads of 4 and 8 (the first design): every
     partial product of the split operands, the scale on the scores. Any
-    other head dim d (the wg design up to 128 and the split design above,
+    other head dim d (the wg design up to 128 and the stream design above,
     at the instantiation :func:`kernel_head_dim` gives, columns d .. D - 1
     zero): three partial products (:func:`_mm3`), and in f32 q times
     1/sqrt(d) before them. Returns (o, lse (B, H, Lq) in base 2, o in
@@ -585,7 +686,7 @@ def attention_bwd_kernel_arithmetic(q: torch.Tensor, k: torch.Tensor,
     from the f32 output ``o32``; the four products S, dP, and dQ, dK, dV
     with P or dS fed back split; the gradients rounded to the input type.
     The designs by head dim as :func:`attention_kernel_arithmetic`'s (the
-    f32 dK of the wg and split designs from the scaled q, as the JAX
+    f32 dK of the wg and stream designs from the scaled q, as the JAX
     kernel's). Over at most ``one_group_keys`` keys the dq kernel takes the
     TPU kernel's Dr = rowsum(dP P) with P divided by its row sum (its dS
     from that P); the dk/dv kernel reads that Dr beside its own P."""

@@ -21,8 +21,8 @@ dtype. ``--parent ROOT`` adds the kernels of the checkout at ROOT (f32
 only: its ``ops/attention.py`` loaded in a child process, first and last
 in each round; a checkout without the wide design takes head dims 4 and
 8 only). :func:`compare_widths` times chip_smoke.py phase 20 (a)'s shapes
-(``WIDTH_SHAPES``) at every head dim against another checkout's, f32 and
-bf16.
+(``WIDTH_SHAPES``; phase 22 (b)'s at B=16 in 2 heads) at every head dim
+against another checkout's, f32 and bf16.
 :func:`compare` is the same for this checkout alone, for ``chip_smoke.py``.
 Needs a CUDA device.
 """
@@ -97,7 +97,8 @@ VARIANTS = {
     "tc_all": (("fused_mha_fwd.cu", "constexpr int kFewKeys = 256;",
                 "constexpr int kFewKeys = 0;"),),
 }
-_SOURCES = ("fused_mha_fwd.cu", "fused_mha_bwd.cu", _TILES, _WG)
+_SOURCES = ("fused_mha_fwd.cu", "fused_mha_bwd.cu", "fused_mha_bwd_stream.cu",
+            _TILES, _WG)
 # chip_smoke.py phase 20 (a)'s timed shapes at every head dim: 64 rows of
 # 1024 queries over 1024 keys (self-attention), one key and 77 keys
 WIDTH_SHAPES = (("K2 self", "fwd", 64, 1024), ("K2 cross", "fwd", 64, 1),
@@ -120,15 +121,15 @@ def build_variant(name: str) -> tuple:
     for f, t in text.items():
         (out / f).write_text(t)
     libs = []
-    for src in _SOURCES[:2]:
-        so = out / (src[:-3] + ".so")
-        proc = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
-                               "-o", str(so), str(out / src)],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name} {src}:\n{proc.stderr}")
+    # K2's source; K5's two units, linked as ops/attention.py links them
+    for srcs in (_SOURCES[:1], _SOURCES[1:3]):
+        so = out / (srcs[0][:-3] + ".so")
+        try:
+            log = cuda_build.build([out / f for f in srcs], so)
+        except RuntimeError as err:
+            raise RuntimeError(f"variant {name}: {err}") from None
         lib = ctypes.CDLL(str(so))
-        lib.build_log = proc.stdout + proc.stderr
+        lib.build_log = log
         libs.append(lib)
     return tuple(libs)
 
@@ -166,16 +167,17 @@ def heads(head_dim: int) -> int:
 
 
 def _inputs(kind: str, b: int, lk: int, dtype: torch.dtype, attn,
-            head_dim: int = 4) -> tuple:
+            head_dim: int = 4, n_head: int | None = None) -> tuple:
     g = torch.Generator(device="cuda").manual_seed(6 + lk)
-    c = heads(head_dim) * head_dim
+    n_head = heads(head_dim) if n_head is None else n_head
+    c = n_head * head_dim
     q = torch.randn((b, 1024, c), generator=g, device="cuda").to(dtype)
     k, v = (torch.randn((b, lk, c), generator=g, device="cuda").to(dtype)
             for _ in range(2))
     if kind == "fwd":
         return q, k, v
     do = torch.randn((b, 1024, c), generator=g, device="cuda").to(dtype)
-    out = attn._fwd_kernel(q, k, v, heads(head_dim), True)
+    out = attn._fwd_kernel(q, k, v, n_head, True)
     # a checkout before the bf16 entry points returns (o, lse)
     o32, lse = (out[2], out[1]) if len(out) == 3 else (out[0], out[1])
     return q, k, v, o32, lse, do
@@ -197,15 +199,18 @@ def time_build(attn, dtypes, head_dim: int = 4) -> dict:
     return out
 
 
-def time_widths(attn, dims, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+def time_widths(attn, dims, dtypes=(torch.float32, torch.bfloat16),
+                batch: int | None = None, n_head: int | None = None) -> dict:
     """{"d shape dtype": ms} of the kernels ``attn`` launches at
-    WIDTH_SHAPES, for each head dim of ``dims`` in ``heads(d)`` heads."""
+    WIDTH_SHAPES (or at ``batch`` rows), for each head dim of ``dims`` in
+    ``heads(d)`` heads (or ``n_head``)."""
     out = {}
     for d in dims:
-        h = heads(d)
+        h = heads(d) if n_head is None else n_head
         for dtype in dtypes:
             for name, kind, b, lk in WIDTH_SHAPES:
-                x = _inputs(kind, b, lk, dtype, attn, d)
+                b = b if batch is None else batch
+                x = _inputs(kind, b, lk, dtype, attn, d, h)
                 if kind == "fwd":
                     fn = lambda: attn._fwd_kernel(*x, h, False)  # noqa
                 else:
@@ -255,12 +260,13 @@ def _child(head_dim: int = 4) -> None:
     print(json.dumps(time_build(attn, (torch.float32,), head_dim)))
 
 
-def _child_widths(dims) -> None:
+def _child_widths(dims, batch: int | None = None,
+                  n_head: int | None = None) -> None:
     """:func:`time_widths` for the checkout in the working directory (run
     there by :func:`compare_widths`); print JSON."""
     sys.path.insert(0, os.getcwd())
     attn = __import__(PKG + ".ops.attention", fromlist=["attention"])
-    print(json.dumps(time_widths(attn, dims)))
+    print(json.dumps(time_widths(attn, dims, batch=batch, n_head=n_head)))
 
 
 def _run_child(root: str, call: str) -> dict:
@@ -279,17 +285,21 @@ def run_in(root: str, head_dim: int = 4) -> dict:
     return _run_child(root, f"_child({int(head_dim)})")
 
 
-def compare_widths(parent: str, dims, rounds: int = 1, log=print) -> dict:
+def compare_widths(parent: str, dims, rounds: int = 1, log=print,
+                   batch: int | None = None,
+                   n_head: int | None = None) -> dict:
     """The kernels of this checkout (``change``) and of ``parent`` at
-    WIDTH_SHAPES for each head dim of ``dims``, f32 and bf16, in turns
-    (:func:`turn_order`: parent, change, change, parent; the parent's in a
-    child process there): each side's readings and the card."""
+    WIDTH_SHAPES (or at ``batch`` rows in ``n_head`` heads) for each head
+    dim of ``dims``, f32 and bf16, in turns (:func:`turn_order`: parent,
+    change, change, parent; the parent's in a child process there): each
+    side's readings and the card."""
     from ..ops import attention as attn
     out: dict[str, list] = {}
+    call = f"_child_widths({list(dims)!r}, {batch!r}, {n_head!r})"
     for r in range(rounds):
         for name in turn_order(["change"], True):
-            ms = (_run_child(parent, f"_child_widths({list(dims)!r})")
-                  if name == "parent" else time_widths(attn, dims))
+            ms = (_run_child(parent, call) if name == "parent" else
+                  time_widths(attn, dims, batch=batch, n_head=n_head))
             out.setdefault(name, []).append(ms)
             log(f"round {r} {name}: " + " ".join(
                 f"{k} {v:.4f}" for k, v in ms.items()))

@@ -211,11 +211,30 @@ def test_wg_tiles_are_the_kernels(cuda, dtype, D):
             "kv": tuple(out[4:6])} == attention.wg_tiles(D, dtype)
 
 
-@pytest.mark.parametrize("d", [129, 256])
+@pytest.mark.parametrize("D", [144, 200, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_tiles_are_the_kernels(cuda, dtype, D):
+    """The stream design's sizes the plain arithmetic and the shared-memory
+    test mirror (``ops/attention.py: stream_tiles``) are those the kernels
+    were built with (``csrc/mha_wg.cuh: Stream``, reported by
+    ``fused_mha_stream_tiles``)."""
+    import ctypes
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import attention
+    lib = attention._library()
+    lib.fused_mha_stream_tiles.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    out = (ctypes.c_int * 12)()
+    assert lib.fused_mha_stream_tiles(D, int(dtype == torch.bfloat16),
+                                      out) == 0
+    assert {"fwd": tuple(out[0:4]), "dq": tuple(out[4:8]),
+            "kv": tuple(out[8:12])} == attention.stream_tiles(D, dtype)
+
+
+@pytest.mark.parametrize("d", [129, 256, 641])
 def test_attention_kernel_refuses_other_head_dims(cuda, d):
-    """Every head dim is taken: above 128 the split design, forward and
-    backward equal to the plain versions; widths no multiple of the heads
-    still raise."""
+    """Every head dim is taken: above 128 the stream design (at 641 in
+    three column chunks), forward and backward equal to the plain versions;
+    widths no multiple of the heads still raise."""
     g = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do = (torch.randn((2, n, 2 * d), generator=g, device=cuda)
                    for n in (70, 90, 90, 70))
@@ -232,6 +251,19 @@ def test_attention_kernel_refuses_other_head_dims(cuda, d):
         torch.testing.assert_close(x, w, rtol=K5_TOL, atol=K5_TOL)
     with pytest.raises(ValueError):
         fused_mha(q, q, q, n_head=5)       # 2 d is no multiple of 5
+
+
+@pytest.mark.parametrize("d", [129, 130, 200, 640])
+def test_stream_bf16_at_every_copy_mode(cuda, d):
+    """The stream design in bf16 where a head's row is no multiple of 16
+    bytes (129, 130: the producer copies by cp.async, 2 and 4 bytes a
+    copy), where the head is no multiple of 64 (200) and in three column
+    chunks (640): K2 and K5 against the plain versions in f32 of the same
+    inputs within BF16_EXCESS_TOL beyond the rounding, o32 within K2_TOL,
+    two K5 launches bitwise equal."""
+    r = chip_smoke._bf16_attention_case(torch, 2, 70, 90, 2 * d, 2)
+    assert r["o32_ok"] and r["same"], r
+    assert max(r[n] for n in ("o", "dq", "dk", "dv")) <= BF16_EXCESS_TOL, r
 
 
 def test_small_slice_on_the_card_matches_the_cpu(cuda):

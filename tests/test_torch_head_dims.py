@@ -173,8 +173,8 @@ def test_one_key_gives_zero_dq_and_dk_in_the_arithmetic():
     (129, 192), (144, 192), (192, 192), (193, 256), (256, 256), (512, 512),
     (1000, 1024)])
 def test_kernel_head_dim_takes_the_next_instantiation(d, width):
-    """The wg design's next D up to 128; above it the split design, its
-    contraction padded to a multiple of SPLIT_CHUNK."""
+    """The wg design's next D up to 128; above it the stream design, its
+    contraction padded to a multiple of STREAM_CHUNK."""
     assert attn.kernel_head_dim(d) == width
     assert attn.check_head_dim(3 * d, 3) == d
 
@@ -182,12 +182,12 @@ def test_kernel_head_dim_takes_the_next_instantiation(d, width):
 @pytest.mark.parametrize("c,n_head", [(2 * 129, 2), (256, 1), (1024, 4)])
 def test_head_dims_above_128_are_refused_by_the_contract(c, n_head):
     """Head dims above 128 are no longer refused: the contract takes them
-    (the split design, at the instantiation ``kernel_head_dim`` gives), and
+    (the stream design, at the instantiation ``kernel_head_dim`` gives), and
     what it still refuses is a width that is no multiple of n_head."""
     d = attn.check_head_dim(c, n_head)
     assert d == c // n_head > 128
-    assert attn.kernel_head_dim(d) == -(-d // attn.SPLIT_CHUNK) * \
-        attn.SPLIT_CHUNK
+    assert attn.kernel_head_dim(d) == -(-d // attn.STREAM_CHUNK) * \
+        attn.STREAM_CHUNK
     with pytest.raises(ValueError, match="multiple"):
         attn.check_head_dim(130, 4)
     with pytest.raises(ValueError, match="multiple"):

@@ -229,6 +229,40 @@ def test_cuda_build_takes_a_build_directory(tmp_path, monkeypatch):
     assert again.build_seconds == 0.0 and seen[-1] == seen[-2]
 
 
+def test_cuda_build_links_a_library_of_several_units(tmp_path, monkeypatch):
+    """``load(source, units=...)`` compiles every source as a translation
+    unit of its own (``-c``, one nvcc each) and links the objects into one
+    library, whose name hashes every source: K5's two units
+    (``ops/attention.py: _bwd_library``)."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f'#!/bin/sh\necho "$@" >> {calls}\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo fake > "$2"\necho "ptxas info: 0 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: str(nvcc))
+    seen = []
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL",
+                        lambda path: seen.append(path) or type(
+                            "Lib", (), {})())
+    lib = cuda_build.load("fused_mha_bwd.cu", tmp_path,
+                          units=("fused_mha_bwd_stream.cu",))
+    lines = calls.read_text().splitlines()
+    compiles = [x for x in lines if " -c " in x]
+    links = [x for x in lines if " -c " not in x]
+    assert len(compiles) == 2 and len(links) == 1
+    assert all("-shared" not in x for x in compiles) and "-shared" in links[0]
+    assert {x.split()[-1].rsplit("/", 1)[-1] for x in compiles} == {
+        "fused_mha_bwd.cu", "fused_mha_bwd_stream.cu"}
+    objects = [x.split()[x.split().index("-o") + 1] for x in compiles]
+    assert all(o in links[0] for o in objects)
+    assert not any(Path(o).exists() for o in objects)
+    assert lib.build_log.count("registers") == 3
+    alone = cuda_build.load("fused_mha_bwd.cu", tmp_path)
+    assert Path(seen[-1]).name != Path(seen[-2]).name
+    assert alone.build_seconds > 0
+
+
 def test_wrappers_refuse_what_is_neither_cpu_nor_cuda():
     x = torch.ones((32, 16), dtype=torch.bfloat16, device="meta")
     w = torch.ones((16, 48), dtype=torch.bfloat16, device="meta")

@@ -103,10 +103,10 @@ def test_wg_softmax_tile_is_the_designs(d, dtype):
 
 @pytest.mark.parametrize("d,want", [(1, "wg"), (3, "wg"), (4, "tiles"),
                                     (8, "tiles"), (12, "wg"), (128, "wg"),
-                                    (129, "split"), (256, "split")])
+                                    (129, "stream"), (256, "stream")])
 def test_design_by_head_dim(d, want):
     """Heads of 4 and 8 keep their own design, every other head dim up to
-    128 takes the wg design, wider heads the split design."""
+    128 takes the wg design, wider heads the stream design."""
     assert attn.design(d) == want
 
 
@@ -171,18 +171,18 @@ def test_wg_fed_back_is_split_fed_back_in_slot_order(dtype, n):
 def test_kernels_line_counts_the_launches_by_design():
     """``chip_smoke.py``'s kernels line counts each K2 / K5 launch under the
     design its head dim takes: 4 and 8 the first design, every other head
-    dim up to 128 the wg design, wider heads the split design."""
+    dim up to 128 the wg design, wider heads the stream design."""
     import chip_smoke
     by_d = {"4": 3, "8": 5, "12": 7, "64": 11, "128": 13, "256": 17}
-    assert chip_smoke._design_launches(by_d) == {"split": 17, "tiles": 8,
+    assert chip_smoke._design_launches(by_d) == {"stream": 17, "tiles": 8,
                                                  "wg": 31}
 
 
 @pytest.mark.parametrize("lq,lk,d,splits", [
     (1024, 1, 64, 1), (1024, 77, 12, 1), (2304, 77, 64, 3),
-    (1024, 256, 64, 1), (1024, 1, 4, 16), (1024, 77, 256, 16)])
+    (1024, 256, 64, 1), (1024, 1, 4, 16), (1024, 77, 256, 4)])
 def test_kv_splits_by_design(lq, lk, d, splits):
     """The dK/dV kernel's query chunks over a few keys: one per 1024
-    queries in the wg design, per 64 in the others (their code as it
-    was); none with 256 keys or more."""
+    queries in the wg design, per 256 in the stream design, per 64 in the
+    first (its code as it was); none with 256 keys or more."""
     assert attn.kv_splits(lq, lk, d) == splits

@@ -177,8 +177,9 @@ def test_bounds_count_the_functions_work_at_wide_domain():
     256) does 34.4 GFLOP, its bf16 bound at 989 TFLOP/s and its f32 bound
     as three TF32 products; K6 at N = K = 16384, D = 512 does 825 GFLOP as
     the kernel counts it (three TF32 products); K1 at 2B = 16, K-1 = 16384,
-    L = 1024 reads 1.07 GB of logits. The split design's recompute is not
-    in them."""
+    L = 1024 reads 1.07 GB of logits. The scores the stream design
+    computes again past d = 256 are not in them (stream_products counts
+    them: none at d = 256, a third of K2's products at d = 512)."""
     nbytes, flops, _ = roofline.attention_work(16, 1024, 1024, 2, 256)
     assert flops == pytest.approx(34.36e9, rel=1e-3)
     ms, by = chip_smoke._attention_bound(torch.bfloat16, flops, nbytes)
@@ -187,9 +188,16 @@ def test_bounds_count_the_functions_work_at_wide_domain():
     ms32, _ = chip_smoke._attention_bound(torch.float32, flops, nbytes)
     assert ms32 == pytest.approx(3 * flops / roofline.PEAK_TF32 * 1e3)
     assert 0.20 < ms32 < 0.22 and 0.034 < ms < 0.036
-    w = chip_smoke.split_products(256)
+    w = chip_smoke.stream_products(256)
     assert (w["fwd_function"], w["bwd_function"]) == (4 * 256, 10 * 256)
+    assert (w["chunks"], w["fwd_recompute"], w["bwd_recompute"]) == (1, 0, 0)
+    # K2 runs the function's products; K5's two kernels each compute S and
+    # dP (no float atomics), at every width
+    assert (w["fwd"], w["bwd"]) == (4 * 256, 14 * 256)
+    w = chip_smoke.stream_products(512)
+    assert (w["out"], w["chunks"]) == (256, 2)
     assert w["fwd_recompute"] == pytest.approx(1 / 3)
+    assert w["bwd_recompute"] == pytest.approx(4096 / (2 * 8 * 512 + 6 * 512))
 
     nbytes, flops = roofline.codebook_work(16384, 16384, 512)
     ms, by = roofline.bound(nbytes, 0.0, flops_tf32=3.0 * flops)
