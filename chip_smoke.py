@@ -87,10 +87,11 @@ Phases:
      synchronisation forbidden, and where a step's time goes (CUDA events);
  14. the log-onehot samplers (reference, with filter_ratio, fast, token
      budget) at a small size on the card against the CPU in argmax mode;
-     then each of the nine rows of the package's bench entry as a child
-     process (``python -m ..._torch.bench``: sampling honest / msrvtt /
-     half, vqvae, train_step, train_step128, train_step2 honest and msrvtt
-     (text conditioning), fvd_pipeline), its JSON line parsed and printed;
+     then each of the nine rows of the package's bench entry (sampling
+     honest / msrvtt / half, vqvae, train_step, train_step128, train_step2
+     honest and msrvtt (text conditioning), fvd_pipeline): the first as a
+     child process (``python -m ..._torch.bench``), the rest through the
+     same ``main`` in this process, each JSON line parsed and printed;
  15. text conditioning: the CLIP text tower (512 wide, 12 layers) on the
      card against the CPU; ``HONEST`` with text conditioning sampled at
      B=4 in argmax mode on the route ``auto`` takes (K3 a step, counted),
@@ -1485,9 +1486,10 @@ def _profile_kernels(torch, phase: str, step, steps: int = 2,
 
 def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
                      dtype, seed, t=50, force_general=False,
-                     logit_scale=1.0, score_scale=1.0, n_embd=64, n_head=16):
+                     logit_scale=1.0, score_scale=1.0, n_embd=64, n_head=16,
+                     mlp=4):
     """A denoiser at ``n_embd`` in ``n_head`` heads (the serving width, 64
-    in 16, by default; MLP 4 n_embd) with every
+    in 16, by default; MLP ``mlp`` n_embd) with every
     parameter drawn from N(0, 0.1) (LayerNorm scales around 1), and one
     step's arguments on the card: tokens half MASK, half data.
     ``force_general`` sends a one-token condition through the general
@@ -1509,7 +1511,8 @@ def _megakernel_case(torch, *, L, spatial, k, n_layer, s_len, B, use_cfg,
     g = torch.Generator().manual_seed(seed)
     tr = DenoiserTransformer(num_embed=k - 1, spatial_size=spatial,
                              n_layer=n_layer, n_embd=n_embd, n_head=n_head,
-                             condition_dim=32, diffusion_step=100)
+                             condition_dim=32, diffusion_step=100,
+                             mlp_hidden_times=mlp)
     with torch.no_grad():
         for name, p in tr.named_parameters():
             p.normal_(0.0, 0.1, generator=g)
@@ -1610,11 +1613,17 @@ def _check_megakernel(torch, phase: str, label: str, args, kw,
     hidden_kw = {n: v for n, v in kw.items()
                  if n not in ("num_classes", "guidance")}
     want_x = mk.megakernel_hidden_reference(*args[:6], **hidden_kw)
-    err = (scratch["x"] - want_x).abs().max().item()
+    # the state in the storage layout, whose padding past n_embd every
+    # phase must leave exactly zero
+    x = scratch["x"]
+    if bool(x[..., kw["n_embd"]:].ne(0).any()):
+        raise AssertionError(f"{label}: the padding columns past n_embd "
+                             f"are not zero")
+    err = (x - want_x).abs().max().item()
     scale = want_x.abs().max().item()
     rel = None
     if witness:
-        rel = {"kernel": _distance(scratch["x"], want_x),
+        rel = {"kernel": _distance(x, want_x),
                **_hidden_witness(torch, args, hidden_kw, want_x)}
         print(f"{phase}: {label}: (max-abs, RMS) relative: " + "; ".join(
             f"{name} {m:.3e}, {r:.3e}" for name, (m, r) in rel.items())
@@ -1727,7 +1736,8 @@ def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
                                    defines=defines, **kw), iters)
     n_br = 2 if kw["use_cfg"] else 1
     nbytes, f32, bf16 = _megakernel_work(
-        b, n_br, L, kw["n_layer"], tab["packed"]["wfc"].shape[2],
+        b, n_br, L, kw["n_layer"],
+        d3pm.transformer.block0.mlp_fc.out_features,
         kw["num_classes"] - 1, kw["s_valid"], kw["cross_as_bias"],
         n_embd=kw["n_embd"], n_head=kw["n_head"])
     w_bf16 = tab["packed"]["wfc"].dtype == torch.bfloat16
@@ -2996,23 +3006,44 @@ def phase_samplers(torch) -> None:
                                  f"with the CPU")
 
 
+def _bench_row(torch, argv: list[str], child: bool
+               ) -> tuple[int, str, str]:
+    """One row of the package's bench entry: as ``python -m ..._torch.bench``
+    in a child process, or through its ``main`` in this one (a child's
+    start, imports and CUDA context cost ~15 s a row on the H100 machine's
+    host). (exit code, stdout, stderr)."""
+    import io
+
+    from gif_synthesis_with_discrete_diffusion_tpu_torch import bench
+    if child:
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench", *argv],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=BENCH_ROW_TIMEOUT)
+        return proc.returncode, proc.stdout, proc.stderr
+    torch.cuda.empty_cache()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bench.main(argv)
+    torch.cuda.empty_cache()
+    return rc, out.getvalue(), err.getvalue()
+
+
 def phase_bench(torch) -> dict:
-    """Each bench row as a child process of the package's bench entry, its
-    one JSON line parsed and printed."""
+    """Each bench row through the package's bench entry, the first in a
+    child process and the rest in this one, its one JSON line parsed and
+    printed."""
     rows = {}
-    for metric, config in BENCH_ROWS:
+    for i, (metric, config) in enumerate(BENCH_ROWS):
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", f"{PKG}.bench", "--metric", metric,
-             "--config", config], cwd=ROOT, capture_output=True, text=True,
-            timeout=BENCH_ROW_TIMEOUT)
-        lines = proc.stdout.strip().splitlines()
+        rc, stdout, stderr = _bench_row(
+            torch, ["--metric", metric, "--config", config], child=i == 0)
+        lines = stdout.strip().splitlines()
         row = json.loads(lines[-1]) if lines else {}
         print(f"phase 14: bench --metric {metric} --config {config} (exit "
-              f"{proc.returncode}, {time.perf_counter() - t0:.1f} s): "
-              + json.dumps(row))
-        if proc.returncode != 0 or len(lines) != 1:
-            print(proc.stderr[-4000:], file=sys.stderr)
+              f"{rc}, {'a child process' if i == 0 else 'in this process'}, "
+              f"{time.perf_counter() - t0:.1f} s): " + json.dumps(row))
+        if rc != 0 or len(lines) != 1:
+            print(stderr[-4000:], file=sys.stderr)
             raise AssertionError(f"bench row {metric} --config {config} "
                                  f"failed")
         need = {"value", "spread", "device", "vs_baseline", "metric"}
@@ -4575,17 +4606,19 @@ def phase_widths(torch, smi: str, parent: str | None = None,
     return {"kernels": kernels, "sampling": sampling, "train": train}
 
 
-# phase 21: K3 and K4 at every width the JAX megakernel takes (the CUDA
-# kernels take n_embd a multiple of 32 up to 512 in heads of a dim that is a
-# multiple of 4 up to 128, one library per (n_embd, head dim)): the widths
-# of the CPU tests (head dims 4, 16, 32, 64, 128), the two full-width
-# configurations (heads of 8 and of 16), n_embd 96 (a half-padded last
-# chunk of 64 columns; heads of 12 and of 24: a 16-deep and an 8-deep QK^T
-# step, an odd count of 8-dim PV tiles) and the top of the domain
+# phase 21: K3 and K4 at every width the JAX megakernel takes up to n_embd
+# 512 (the CUDA kernels take every n_embd up to 512 in any heads that divide
+# it, one library per (n_embd, head dim)): the widths of the CPU tests (head
+# dims 4, 16, 32, 64, 128; n_embd 24, 48, 80 and 100 in heads of 3, 12, 5
+# and 25, heads of 144, 256 and 512), the full-width configurations (heads
+# of 8 and of 16), n_embd 96 (a half-padded last chunk of 64 columns; heads
+# of 12 and of 24: a 16-deep and an 8-deep QK^T step, an odd count of 8-dim
+# PV tiles) and the top of the domain
 MK_WIDTHS = ((32, 8), (64, 4), (64, 2), (128, 2), (128, 1), (64, 8), (96, 8),
-             (96, 4), (256, 16), (512, 8))
+             (96, 4), (256, 16), (512, 8), (24, 8), (48, 4), (80, 16),
+             (100, 4), (144, 1), (512, 2), (512, 1))
 # the honest configuration and the MSRVTT grid at these widths, timed
-MK_FULL_WIDTHS = ((64, 8), (256, 16))
+MK_FULL_WIDTHS = ((64, 8), (256, 16), (512, 2))
 MK_WIDTH_ITERS = 3
 # the serving widths' runs of phase 21 (c): clips and steps of the honest
 # configuration at n_embd 64 in heads of 8 on the route auto takes
@@ -4617,16 +4650,34 @@ GENERAL_SERVING = "the general code at 64x16"
 MK_GENERAL = ("MK_GENERAL=1",)
 
 
+def _tile_padding(n_embd: int, hidden: int) -> float:
+    """The share of a layer's f32 multiply-adds (QKV, proj, the general
+    cross-attention's query and proj, the MLP) that the kernels' 64 x 64
+    tiles spend on padding: n_embd and the MLP width rounded up to 64."""
+    def macs(c, h):
+        return 6 * c * c + 2 * c * h
+    cp, hp = -(-n_embd // 64) * 64, -(-hidden // 64) * 64
+    return 1 - macs(n_embd, hidden) / macs(cp, hp)
+
+
+# nvcc runs building phase 21's libraries at once: the H100 machine's host
+# has 8 cores, and seventeen builds at once slowed phases 1-14's host work
+# there (the bench rows' child processes among it) by ~100 s
+MK_BUILD_WORKERS = 4
+
+
 def start_width_builds(general: bool = False) -> dict:
     """Phase 21's libraries, one a width of MK_WIDTHS (and with ``general``
-    the serving width built from the general code), one nvcc each, all
-    started together in the background, so that they build while the
-    earlier phases run: {(n_embd, n_head) or GENERAL_SERVING: future}."""
+    the serving width built from the general code), one nvcc each,
+    MK_BUILD_WORKERS at a time, the widest first, in the background, so
+    that they build while the earlier phases run: {(n_embd, n_head) or
+    GENERAL_SERVING: future}."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
-    pool = ThreadPoolExecutor(len(MK_WIDTHS) + 1)
+    pool = ThreadPoolExecutor(MK_BUILD_WORKERS)
     futures = {w: pool.submit(mk._library, (), (w[0], w[0] // w[1]))
-               for w in MK_WIDTHS}
+               for w in sorted(MK_WIDTHS, key=lambda w: -w[0])}
+    futures = {w: futures[w] for w in MK_WIDTHS}
     if general:
         futures[GENERAL_SERVING] = pool.submit(mk._library, MK_GENERAL,
                                                (64, 4))
@@ -4716,16 +4767,48 @@ def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
         (256, 16): ("K4 CFG B=1 L=2304 K=17 2 layers S=1 (keys whole, 221 "
                     "KB)", False, dict(L=2304, spatial=(48, 48), k=17,
                                        n_layer=2, s_len=1, B=1, use_cfg=True,
-                                       dtype=bf16))}
+                                       dtype=bf16)),
+        (512, 2): ("K3 B=1 L=1024 K=17 2 layers S=3 (keys streamed, two "
+                   "output chunks)", True,
+                   dict(L=1024, spatial=(32, 32), k=17, n_layer=2, s_len=3,
+                        B=1, use_cfg=True, dtype=bf16)),
+        (512, 1): ("K4 CFG B=1 L=2304 K=17 2 layers S=1 (keys streamed in "
+                   "tiles of 32, four output chunks)", False,
+                   dict(L=2304, spatial=(48, 48), k=17, n_layer=2, s_len=1,
+                        B=1, use_cfg=True, dtype=bf16))}
+    # an MLP width of 16 mod 32 (3 x 80 = 240), and one that is no multiple
+    # of 8 beside an n_embd that is none (3 x 100 = 300: 304 and 104 wide
+    # in the tables)
+    mlp_case = {(80, 16): ("K3 MLP 240 B=2 L=96 K=200 2 layers S=3 (general "
+                           "cross)", True,
+                           dict(L=96, spatial=(12, 8), k=200, n_layer=2,
+                                s_len=3, B=2, use_cfg=True, dtype=bf16,
+                                mlp=3)),
+                (100, 4): ("K3 MLP 300 B=2 L=96 K=200 2 layers S=3 (general "
+                           "cross; n_embd and MLP padded)", True,
+                           dict(L=96, spatial=(12, 8), k=200, n_layer=2,
+                                s_len=3, B=2, use_cfg=True, dtype=bf16,
+                                mlp=3))}
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
     worst, readings = 0.0, {}
     for n_embd, n_head in MK_WIDTHS:
         d = n_embd // n_head
-        tol = mk_hidden_tol(n_embd, d, 4 * n_embd)
+        ps = mk.phase_s_products(d)
+        print(f"phase 21: n_embd {n_embd} in heads of {d}: phase S runs "
+              f"{ps['kernel']} FLOP a (query, key, head) where the function "
+              f"needs {ps['function']} ({ps['chunks']} output chunks): "
+              f"{ps['recompute']:.3f} of them recompute scores for the "
+              f"chunks after the first, {ps['padding']:.3f} of the head's "
+              f"dims are padding; the f32 products' 64 x 64 tiles hold "
+              f"{_tile_padding(n_embd, 4 * n_embd):.3f} padding")
         cases = list(_mk_width_cases(torch))
-        if (n_embd, n_head) in long_grid:
-            cases.append(long_grid[n_embd, n_head])
+        for extra in (long_grid, mlp_case):
+            if (n_embd, n_head) in extra:
+                cases.append(extra[n_embd, n_head])
         rels = []
         for label, pack_cfg, case in cases:
+            tol = mk_hidden_tol(n_embd, d, case.get("mlp", 4) * n_embd)
             args, kw = _megakernel_case(torch, **case, seed=n_embd + d,
                                         n_embd=n_embd, n_head=n_head)
             _, err, rel = _check_megakernel(
@@ -4735,7 +4818,7 @@ def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
             rels.append(rel)
             del args
             torch.cuda.empty_cache()
-        row = {"max-abs tol": tol,
+        row = {"max-abs tol": mk_hidden_tol(n_embd, d, 4 * n_embd),
                **{f"{name} max-abs": max(r[name][0] for r in rels)
                   for name in ("kernel", "f64 sums", "kernel arithmetic")},
                **{f"{name} RMS": max(r[name][1] for r in rels)
@@ -5304,26 +5387,22 @@ def _phase22_train(torch, smi: str, base: Path) -> dict:
     return out
 
 
-def _phase22_sample(torch, smi: str, base: Path, ckpt: Path,
-                    profile: bool = False) -> dict:
-    """(c) WIDE_DOMAIN sampled: ``python -m ..._torch.generate``'s function
-    over stage 2's checkpoint, 8 clips, 100 steps on ``auto`` (the model
-    route: K2 at d = 256 and K1 at K-1 = 16384 each step), then the decode;
-    the ms a step; with ``profile``, the same call again under
-    torch.profiler (``traced``). Returns the launches."""
+
+
+def _generate_wide(torch, argv: list[str]) -> dict:
+    """``python -m ..._torch.generate``'s function over WIDE_DOMAIN's stage
+    2 checkpoint: the sampling call's wall time, videos, route and the call
+    itself (for the turns), and the launches of the run."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch import generate
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
         fused_mha)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.megakernel import (
+        megakernel_step)
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.sampler_kernel \
         import fused_sample_step
     from gif_synthesis_with_discrete_diffusion_tpu_torch.train.stage2 import (
         Stage2Trainer)
 
-    argv = (_job_overrides("ddiff_ucf.sh") + list(HARNESS_BASE)
-            + list(WIDE_DOMAIN["stage2"]) + [
-                "extras.print_config=false", f"ckpt_path={ckpt}",
-                f"+num_samples={WIDE_DOMAIN_CLIPS}",
-                f"+out_dir={base / 'samples'}"])
     seen = {}
     saved = Stage2Trainer.sample_videos
 
@@ -5338,42 +5417,104 @@ def _phase22_sample(torch, smi: str, base: Path, ckpt: Path,
         return videos
 
     _reset_harness_counts()
-    k1 = fused_sample_step.by_classes.copy()
-    k2 = fused_mha.by_head_dim.copy()
+    counters = (fused_sample_step.by_classes, fused_mha.by_head_dim,
+                megakernel_step.launches_by_width)
+    before = [c.copy() for c in counters]
     Stage2Trainer.sample_videos = sample_videos
     try:
         rc = generate.main(argv)
     finally:
         Stage2Trainer.sample_videos = saved
     torch.cuda.synchronize()
-    counts = _harness_counts()
-    k1 = dict(fused_sample_step.by_classes - k1)
-    k2 = dict(fused_mha.by_head_dim - k2)
+    k1, k2, mk = (dict(c - b) for c, b in zip(counters, before))
+    return dict(seen, rc=rc, counts=_harness_counts(), k1=k1, k2=k2, mk=mk,
+                saved=saved)
+
+
+def _phase22_sample(torch, smi: str, base: Path, ckpt: Path,
+                    profile: bool = False) -> dict:
+    """(c) WIDE_DOMAIN sampled through ``python -m ..._torch.generate``'s
+    function over stage 2's checkpoint, 8 clips, 100 steps, then the
+    decode: on ``auto`` (the megakernel route, as JAX's rule: K3 at n_embd
+    512 in heads of 256 each step) and with ``trainer.sampler=model`` (K2 at
+    d = 256 and K1 at K-1 = 16384 each step); then both routes on that
+    trainer's models and batch in argmax mode, in turns (megakernel, model,
+    model, megakernel; the token grids, without the decode): their ms a
+    step and how many tokens agree; with ``profile``, the model route's
+    sampling call again under torch.profiler (``traced``). Returns each
+    route's launches and ms a step."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
+        GenerationModels, sample_token_grid)
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.train.loop import (
+        device_batch)
+
+    argv = (_job_overrides("ddiff_ucf.sh") + list(HARNESS_BASE)
+            + list(WIDE_DOMAIN["stage2"]) + [
+                "extras.print_config=false", f"ckpt_path={ckpt}",
+                f"+num_samples={WIDE_DOMAIN_CLIPS}",
+                f"+out_dir={base / 'samples'}"])
     steps = 100
-    ms = 1e3 * seen["wall"] / steps
-    print(f"phase 22: WIDE_DOMAIN sampled through generate over stage 2's "
-          f"checkpoint: {seen['shape'][0]} clips, {steps} steps on 'auto' "
-          f"(route {seen['route']!r}) and the decode: {seen['wall']:.3f} s, "
-          f"{ms:.3f} ms a step with the decode; launches K1 {counts['K1']} "
-          f"(by K-1 {k1}), K2 {counts['K2']} (by (head dim, dtype) "
-          f"{_by_head_dim(k2)}), K3 {counts['K3']}; videos {seen['shape']}, "
-          f"finite {seen['finite']} ({smi})")
-    n2 = sum(n for (d, _), n in k2.items() if d == 256)
-    if (rc != 0 or seen["route"] != "model" or k1 != {16384: steps}
-            or counts["K1"] != steps or n2 != 38 * steps
-            or counts["K2"] != n2 or counts["K3"] or not seen["finite"]
-            or seen["shape"][0] != WIDE_DOMAIN_CLIPS):
-        raise AssertionError(f"WIDE_DOMAIN's sampling did not take the model"
-                             f" route with its launches: {counts}")
+    runs = {"megakernel": _generate_wide(torch, argv),
+            "model": _generate_wide(torch, argv + ["+trainer.sampler=model"])}
+    out = {}
+    for route, r in runs.items():
+        ms = 1e3 * r["wall"] / steps
+        counts = r["counts"]
+        print(f"phase 22: WIDE_DOMAIN sampled through generate over stage "
+              f"2's checkpoint: {r['shape'][0]} clips, {steps} steps (route "
+              f"{r['route']!r}) and the decode: {r['wall']:.3f} s, {ms:.3f} "
+              f"ms a step with the decode; launches K1 {counts['K1']} (by "
+              f"K-1 {r['k1']}), K2 {counts['K2']} (by (head dim, dtype) "
+              f"{_by_head_dim(r['k2'])}), K3 {counts['K3']} (by (n_embd, "
+              f"head dim) {r['mk']}); videos {r['shape']}, finite "
+              f"{r['finite']} ({smi})")
+        n2 = sum(n for (d, _), n in r["k2"].items() if d == 256)
+        if route == "megakernel":
+            ok = (r["mk"] == {(512, 256, "K3"): steps}
+                  and counts["K3"] == steps and not counts["K1"]
+                  and not counts["K2"])
+        else:
+            ok = (r["k1"] == {16384: steps} and counts["K1"] == steps
+                  and n2 == 38 * steps and counts["K2"] == n2
+                  and not counts["K3"])
+        if (r["rc"] != 0 or r["route"] != route or not ok or not r["finite"]
+                or r["shape"][0] != WIDE_DOMAIN_CLIPS):
+            raise AssertionError(f"WIDE_DOMAIN's sampling did not take the "
+                                 f"{route} route with its launches: {counts}")
+        out[route] = dict(counts, ms_step=ms, traced=None)
+    # both routes on the same trainer, models and batch, argmax, in turns
+    me, args, kw = runs["model"]["call"]
+    models = GenerationModels(me.state.generator, me.state.vqvae)
+    db = device_batch(me._prepare_batch(args[0]), me.device)
+    readings, tokens = {route: [] for route in runs}, {}
+    for route in ("megakernel", "model", "model", "megakernel"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens[route] = sample_token_grid(
+            models, db, torch.Generator().manual_seed(5), sample=False,
+            sampler=route)
+        torch.cuda.synchronize()
+        readings[route].append(1e3 * (time.perf_counter() - t0) / steps)
+    for route, ms in readings.items():
+        out[route]["turns_ms_step"] = ms
+    agree = float((tokens["megakernel"] == tokens["model"]).double().mean())
+    out["argmax_agreement"] = agree
+    print(f"phase 22: WIDE_DOMAIN's two routes on one trainer and batch, "
+          f"argmax: tokens agree at {agree:.4f} of "
+          f"{tokens['model'].numel()} positions; ms a step of the token "
+          f"grid in turns: " + "; ".join(
+              f"{route} " + ", ".join(f"{v:.3f}" for v in ms)
+              for route, ms in readings.items()) + f" ({smi})")
+    del tokens
     if not profile:
-        return dict(counts, ms_step=ms, traced=None)
-    # the same call again under torch.profiler (after the counts): the
-    # device's busy share of a step and K2's device time a step
-    me, args, kw = seen.pop("call")
+        return out
+    # the model route's call again under torch.profiler (after the counts):
+    # the device's busy share of a step and K2's device time a step
+    saved = runs["model"]["saved"]
     prof = _profile_kernels(
-        torch, "phase 22: WIDE_DOMAIN sample_videos (8 clips, 100 steps; a "
-        "'step' below is the call)", lambda: saved(me, *args, **kw), steps=1,
-        cpu=False)
+        torch, "phase 22: WIDE_DOMAIN sample_videos on the model route (8 "
+        "clips, 100 steps; a 'step' below is the call)",
+        lambda: saved(me, *args, **kw), steps=1, cpu=False)
     k2_us = sum(us for name, (us, _) in prof["kernels"].items()
                 if "fused_mha_fwd" in name)
     traced = dict(busy=prof["device_us"] / 1e6 / prof["wall"],
@@ -5384,7 +5525,29 @@ def _phase22_sample(torch, smi: str, base: Path, ckpt: Path,
           f" ms a step on the host's clock (profiled), the device busy "
           f"{traced['device_ms_step']:.3f} ms of it ({traced['busy']:.3f}), "
           f"K2 {traced['k2_ms_step']:.3f} ms a step ({smi})")
-    return dict(counts, ms_step=ms, traced=traced)
+    out["model"]["traced"] = traced
+    return out
+
+
+def _phase22_wide_k3(torch) -> float:
+    """(c) K3 at WIDE_DOMAIN's sampling shape (n_embd 512 in 2 heads of
+    256, 19 layers, 1024 tokens, K = 16385, a label's one-token condition,
+    bf16 weights, WIDE_DOMAIN_CLIPS rows) against the plain version, its
+    hidden state under mk_hidden_tol and MK_RMS_SHARE, before the route is
+    timed. Returns the hidden state's max-abs error."""
+    k = 16385
+    args, kw = _megakernel_case(
+        torch, L=1024, spatial=(32, 32), k=k, n_layer=19, s_len=1,
+        B=WIDE_DOMAIN_CLIPS, use_cfg=True, dtype=torch.bfloat16, seed=k + 1,
+        n_embd=512, n_head=2)
+    err = _check_megakernel(
+        torch, "phase 22", f"K3 n_embd 512 in 2 heads of 256, bf16 weights "
+        f"B={WIDE_DOMAIN_CLIPS} L=1024 K={k} 19 layers S=1 (WIDE_DOMAIN's "
+        f"sampling step)", args, kw, True, mk_hidden_tol(512, 256, 2048),
+        witness=True)[1]
+    del args
+    torch.cuda.empty_cache()
+    return err
 
 
 def _phase22_k3(torch, smi: str) -> dict:
@@ -5513,6 +5676,7 @@ def phase_wide_domain(torch, smi: str, parent: str | None = None,
     base = ROOT / "logs" / "chip_smoke_wide_domain" / f"{time.time_ns()}"
     try:
         train = _phase22_train(torch, smi, base)
+        wide_k3_err = _phase22_wide_k3(torch)
         sampling = _phase22_sample(torch, smi, base,
                                    train["stage2"]["run"] / "checkpoints",
                                    profile)
@@ -5524,14 +5688,15 @@ def phase_wide_domain(torch, smi: str, parent: str | None = None,
     # its traced device time a step
     row = attention[(256, "bfloat16")]
     k2_ms = 19 * (row["K2 self"]["ms"] + row["K2 cross"]["ms"])
-    traced = sampling["traced"]
+    model = sampling["model"]
+    traced = model["traced"]
     k2_step = traced["k2_ms_step"] if traced else k2_ms
-    sampling["k2_share"] = k2_step / sampling["ms_step"]
-    print(f"phase 22: WIDE_DOMAIN sampling {sampling['ms_step']:.3f} ms a "
-          f"step; K2 {k2_step:.3f} ms of it "
-          + (f"traced ({sampling['k2_share']:.3f}; (b)'s times give "
+    model["k2_share"] = k2_step / model["ms_step"]
+    print(f"phase 22: WIDE_DOMAIN sampling on the model route "
+          f"{model['ms_step']:.3f} ms a step; K2 {k2_step:.3f} ms of it "
+          + (f"traced ({model['k2_share']:.3f}; (b)'s times give "
              f"{k2_ms:.3f}" if traced else
-             f"from (b)'s times ({sampling['k2_share']:.3f}")
+             f"from (b)'s times ({model['k2_share']:.3f}")
           + f": 19 x {row['K2 self']['ms']:.4f} + 19 x "
           f"{row['K2 cross']['ms']:.4f})"
           + (f"; the device busy {traced['busy']:.3f} of the traced step"
@@ -5542,7 +5707,7 @@ def phase_wide_domain(torch, smi: str, parent: str | None = None,
     print(f"phase 22: (a, b) {t1 - t0:.1f} s, (c) {t2 - t1:.1f} s, (d) "
           f"{time.perf_counter() - t2:.1f} s")
     return {"k1": k1, "k6": k6, "attention": attention, "train": train,
-            "sampling": sampling, "k3": k3}
+            "sampling": sampling, "k3": k3, "wide_k3_err": wide_k3_err}
 
 
 def main() -> int:
@@ -5858,19 +6023,24 @@ def main() -> int:
     wd1 = wd_train.format("stage 1", "vqvae_ucf.sh", 64)
     wd2 = wd_train.format("stage 2", "ddiff_ucf.sh, n_embd 512 in heads of "
                           "256, bf16", 16)
-    wd_sample = ("phase 22: WIDE_DOMAIN sampled through generate, auto "
-                 "(model route), 8 clips, 100 steps")
+    wd_sample = ("phase 22: WIDE_DOMAIN sampled through generate, "
+                 "trainer.sampler=model, 8 clips, 100 steps")
+    wd_auto = ("phase 22: WIDE_DOMAIN sampled through generate, auto "
+               "(megakernel route, n_embd 512 in heads of 256), 8 clips, "
+               "100 steps")
     wd_k3 = ("phase 22: HONEST over 16384 codes, auto route, "
              f"{WIDE_DOMAIN_K3_CLIPS} clips, 100 steps")
     tw = wide["train"]
     wide_runs = {
-        "fused_sample_step": [(wd_sample, wide["sampling"]["K1"])],
+        "fused_sample_step": [(wd_sample, wide["sampling"]["model"]["K1"])],
         "fused_mha_fwd_bf16": [(wd2, tw["stage2"]["K2"]),
-                               (wd_sample, wide["sampling"]["K2"])],
+                               (wd_sample, wide["sampling"]["model"]["K2"])],
         "fused_mha_bwd_bf16": [(wd2, tw["stage2"]["K5"])],
         "nearest_code_stats": [(wd1, tw["stage1"]["K6"]),
                                (wd2, tw["stage2"]["K6"])],
-        "megakernel_step_packed": [(wd_k3, wide["k3"]["K3"])]}
+        "megakernel_step_packed": [
+            (wd_k3, wide["k3"]["K3"]),
+            (wd_auto, wide["sampling"]["megakernel"]["K3"])]}
     for kernel in kernels:
         name = kernel["name"]
         for path, n in wide_runs.get(name, ()):

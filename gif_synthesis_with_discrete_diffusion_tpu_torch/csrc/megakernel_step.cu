@@ -47,13 +47,23 @@
 //    These phases are bound by mma issue and by what surrounds a product
 //    (a block-wide barrier each, the epilogues).
 //
-// Widths. One library is built per (n_embd, head dim): MK_C and MK_D, by
-// default 64 and 4. The kernels take n_embd a multiple of 32 from 32 to 512
-// and a head dim a multiple of 4 from 4 to 128 that divides it, any MLP
-// width that is a multiple of 32, any depth. A row of n_embd is walked in
-// chunks of 64 columns (kNCH of them; at n_embd = 32 mod 64 the last chunk
-// is half zero padding), a contraction in 64-deep weight tiles, the MLP in
-// chunks of 64 hidden units (the last one ragged).
+// Widths. One library is built per exact (n_embd, head dim): MK_C and MK_D,
+// by default 64 and 4. The kernels take every n_embd from 1 to 512, every
+// head dim that divides it, any MLP width, any depth. In device memory an
+// n_embd-wide row (every table, weight and the x / o scratch) and an MLP
+// row are padded with zero columns to a multiple of 8 (kC; the tables are
+// made so, ops/megakernel.py: storage_width), so that every load stays
+// aligned; the padded columns stay exactly zero through every phase (zero
+// weights and biases in and out), LayerNorm takes its mean and variance
+// over the true n_embd (kCT), and phase A scatters only the true columns
+// into the heads.
+// A row is walked in chunks of 64 columns (kNCH of them; the last one may
+// be part padding), a contraction in 64-deep weight tiles, the MLP in
+// chunks of 64 hidden units (the last one ragged). A head's q / k / v are
+// padded with zero dims to a multiple of 8 (heads of 1-4: to 4, on the
+// head-dim-4 layout); heads wider than 128 walk the output dims of P V in
+// chunks of at most 128 (kNOC), each recomputing the scores from the same
+// shift and row sum, so every chunk rounds the same bf16 probabilities.
 //
 // The serving width (n_embd 64 in 16 heads of 4) keeps the code written for
 // it (MK_SERVING: the units under "#if MK_SERVING" below), which this
@@ -109,6 +119,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #ifndef MK_C
 #define MK_C 64
 #endif
@@ -130,12 +142,14 @@ constexpr int kC = 64;          // n_embd
 constexpr int kH = 16;          // heads (of dim 4)
 #else   // MK_SERVING
 
-constexpr int kC = MK_C;        // n_embd
+constexpr int kCT = MK_C;       // n_embd
 constexpr int kD = MK_D;        // head dim
-constexpr int kH = kC / kD;     // heads
-static_assert(kC % 32 == 0 && kC >= 32 && kC <= 512, "n_embd");
-static_assert(kD % 4 == 0 && kD >= 4 && kD <= 128 && kC % kD == 0,
-              "head dim");
+constexpr int kH = kCT / kD;    // heads
+// the row stride of every n_embd-wide table and scratch: n_embd padded
+// with zero columns to a multiple of 8
+constexpr int kC = (kCT + 7) / 8 * 8;
+static_assert(kCT >= 1 && kCT <= 512, "n_embd");
+static_assert(kD >= 1 && kCT % kD == 0, "head dim");
 #endif  // MK_SERVING
 constexpr int kThreads = 256;
 constexpr int kRows = 64;       // rows of a tile work item
@@ -173,19 +187,27 @@ static_assert(32 * (2 * 128 + 8) * 4 <= kWBytes, "a 128-column tile fits");
 // Phase S. A head's dims in the q/k/v scratch (zero padded); in shared
 // memory a key's (or value's) row of kRowS bf16, an odd number of 16-byte
 // units, so that 8 rows of a fragment load or an ldmatrix hit distinct
-// banks. Head dim 4 keeps its own layout (16 bytes a key, K as [key][4], V
-// as pairs of keys), staged whole up to kMaxSeq keys; the wider heads have
-// no limit (streamed where they do not fit).
-constexpr int kDS = kD == 4 ? 4 : (kD + 7) / 8 * 8;
-constexpr int kRowS = kD == 4 ? 4 : 8 * ((kDS / 8) | 1);
+// banks. Heads of 1-4 dims take the head-dim-4 layout (16 bytes a key, K as
+// [key][4], V as pairs of keys), staged whole up to kMaxSeq keys; the wider
+// heads have no limit (streamed where they do not fit).
+constexpr int kDS = kD <= 4 ? 4 : (kD + 7) / 8 * 8;
+constexpr int kRowS = kDS == 4 ? 4 : 8 * ((kDS / 8) | 1);
 constexpr int kKeyBytes = 4 * kRowS;          // K and V of a key
-constexpr int kQ16 = kD == 4 ? 0 : kDS / 16;  // 16-deep QK^T steps
-constexpr int kQ8 = kD == 4 ? 1 : (kDS % 16) / 8;   // and 8-deep ones
+constexpr int kQ16 = kDS == 4 ? 0 : kDS / 16;  // 16-deep QK^T steps
+constexpr int kQ8 = kDS == 4 ? 1 : (kDS % 16) / 8;   // and 8-deep ones
 constexpr int kQA = 4 * kQ16 + 2 * kQ8;       // A registers of a 16-query tile
-constexpr int kNTV = kD == 4 ? 1 : kDS / 8;   // PV's 8-dim output tiles
-constexpr int kSKT = 64;                      // keys of a streamed tile
-constexpr int kMaxSeq = kD == 4 ? kSmemBytes / 16 : 1 << 16;
-static_assert(kD == 4 || 2 * kSKT * kKeyBytes <= kSmemBytes,
+constexpr int kNTV = kDS == 4 ? 1 : kDS / 8;  // PV's 8-dim output tiles
+// Heads wider than 128 (kWide) hold neither their queries' A fragments nor
+// all of P V's output in registers: the queries are read from the q scratch
+// step by step, and P V's output tiles are taken kNTA at a time, in kNOC
+// chunks of at most 128 dims, each from a sweep of its own over the keys
+constexpr bool kWide = kDS > 128;
+constexpr int kNOC = kWide ? (kNTV + 15) / 16 : 1;
+constexpr int kNTA = (kNTV + kNOC - 1) / kNOC;
+// keys of a streamed tile: 64, or 32 where two tiles of 64 do not fit
+constexpr int kSKT = 2 * 64 * kKeyBytes <= kSmemBytes ? 64 : 32;
+constexpr int kMaxSeq = kDS == 4 ? kSmemBytes / 16 : 1 << 16;
+static_assert(kDS == 4 || 2 * kSKT * kKeyBytes <= kSmemBytes,
               "two streamed tiles fit");
 
 // MK_NOINLINE: the phases compiled as functions of their own, each with its
@@ -877,23 +899,31 @@ __device__ __forceinline__ bool col_in(int j, int tx) {
 }
 
 // (x - mean) * rsqrt(var + eps) of a row spread over 16 lanes, a float4 a
-// lane in each 64-column chunk (the padding columns are zero in and out)
+// lane in each 64-column chunk, over the true n_embd (the padding columns
+// are zero in and out)
 __device__ __forceinline__ void ln_row(float4 (&x)[kNCH], int tx) {
   float s = x[0].x + x[0].y + x[0].z + x[0].w;
 #pragma unroll
   for (int j = 1; j < kNCH; ++j) s += x[j].x + x[j].y + x[j].z + x[j].w;
-  const float mu = sum16(s) / static_cast<float>(kC);
+  const float mu = sum16(s) / static_cast<float>(kCT);
   float v = 0.f;
 #pragma unroll
   for (int j = 0; j < kNCH; ++j) {
     if (col_in(j, tx)) {
       x[j] = make_float4(x[j].x - mu, x[j].y - mu, x[j].z - mu, x[j].w - mu);
+      if constexpr (kCT != kC) {   // the padding columns back to zero
+        const int c0 = 64 * j + 4 * tx;
+        if (c0 >= kCT) x[j].x = 0.f;
+        if (c0 + 1 >= kCT) x[j].y = 0.f;
+        if (c0 + 2 >= kCT) x[j].z = 0.f;
+        if (c0 + 3 >= kCT) x[j].w = 0.f;
+      }
       const float vj =
           x[j].x * x[j].x + x[j].y * x[j].y + x[j].z * x[j].z + x[j].w * x[j].w;
       v = j == 0 ? vj : v + vj;
     }
   }
-  const float var = sum16(v) / static_cast<float>(kC);
+  const float var = sum16(v) / static_cast<float>(kCT);
   const float r = rsqrtf(var + kLnEps);
 #pragma unroll
   for (int j = 0; j < kNCH; ++j)
@@ -1037,10 +1067,14 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
       const float s = sec == 0 ? p.qscale : 1.f;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        // a column of this section and its head: a pair (col, col + 1)
-        // never straddles two heads (the head dim is a multiple of 4)
+        // a column of this section and its head: with an even head dim a
+        // pair (col, col + 1) never straddles two heads; with an odd one
+        // each column goes to its own head and dim. A warp's 8-column group
+        // lies inside the padded row or outside it as a whole (the shuffles
+        // below need every lane); the padding columns store nothing.
         const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
         if (col >= kC) continue;
+        const bool in = col < kCT;
         const int head = col / kD, dim = col % kD;
         const float2 bias =
             ld2(p.bqkv + static_cast<size_t>(layer) * 3 * kC + sec * kC + col);
@@ -1051,9 +1085,19 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
             const __nv_bfloat162 v = __floats2bfloat162_rn(
                 (acc[i >> 1][nt][2 * (i & 1)] + bias.x) * s,
                 (acc[i >> 1][nt][2 * (i & 1) + 1] + bias.y) * s);
-            *reinterpret_cast<__nv_bfloat162*>(
-                dst + ((static_cast<size_t>(m.rb[i]) * kH + head) * p.L +
-                       m.tok[i]) * kDS + dim) = v;
+            const size_t row = static_cast<size_t>(m.rb[i]) * kH;
+            if (in) {
+              if constexpr (kD % 2 == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(
+                    dst + ((row + head) * p.L + m.tok[i]) * kDS + dim) = v;
+              } else {
+                dst[((row + head) * p.L + m.tok[i]) * kDS + dim] =
+                    __low2bfloat16(v);
+                if (col + 1 < kCT)
+                  dst[((row + (col + 1) / kD) * p.L + m.tok[i]) * kDS +
+                      (col + 1) % kD] = __high2bfloat16(v);
+              }
+            }
             kmx[i >> 1][0] = fmaxf(kmx[i >> 1][0], fabsf(__low2float(v)));
             kmx[i >> 1][1] = fmaxf(kmx[i >> 1][1], fabsf(__high2float(v)));
           }
@@ -1061,7 +1105,7 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
           // max over a head's keys of |k| per dim, which bounds a query's
           // scores from above (phase S): the 16 rows of a warp's tile are
           // one row-branch; |x| orders like its bit pattern. The table is
-          // (R, H, D): (row-branch, column).
+          // (R, H, D): (row-branch, true column).
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -1070,8 +1114,8 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
 #pragma unroll
               for (int off = 4; off < 32; off <<= 1)
                 v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-              if (g == 0 && v > 0.f)
-                atomicMax(p.kmax + static_cast<size_t>(m.rb[2 * mt]) * kC +
+              if (g == 0 && v > 0.f && col + jj < kCT)
+                atomicMax(p.kmax + static_cast<size_t>(m.rb[2 * mt]) * kCT +
                               col + jj,
                           __float_as_uint(v));
             }
@@ -1278,16 +1322,24 @@ __device__ __forceinline__ void attn_sweep(const unsigned* ks,
 struct AttnState {
   float ml[kMT][2];          // the shift of the scores x log2(e); sweep 0: max
   float l[kMT][2];           // row sum, then its reciprocal
-  float acc[kMT][kNTV][4];   // P V
+  float acc[kMT][kNTA][4];   // P V (wide heads: one chunk of output dims)
 };
 
-// exp / sum -> bf16 -> P V (SWEEP 2), the row sum (1) or the maximum (0) of
-// one 16-query tile's scores s over 16 keys; kPoly of the thread's 16
+// The warp's queries: the A fragments of its kMT tiles in registers
+// (load_queries), or, for wide heads, its 2 kMT query rows in the q scratch
+// (rows past the end read the last row; their results are not stored)
+struct QRows {
+  const unsigned* r[kMT][2];   // rows 16 mt + 8 hf + g, as bf16 pairs
+};
+using Queries = std::conditional<kWide, QRows, unsigned[kMT][kQA]>::type;
+
+// the row maximum (SWEEP 0) or the row sum (1) of one 16-query tile's
+// scores s over 16 keys, or (2) its probabilities exp / sum -> bf16, two
+// keys a register, into a (the A fragment of P V); kPoly of the thread's 16
 // exponentials go to the polynomial (mt: the tile's index)
 template <int SWEEP>
-__device__ __forceinline__ void attn_scores(float (&s)[2][4], int mt,
-                                            const unsigned (&vf)[kNTV][2],
-                                            AttnState& st) {
+__device__ __forceinline__ void attn_probs(float (&s)[2][4], int mt,
+                                           AttnState& st, unsigned (&a)[4]) {
   constexpr float kLog2e = 1.4426950408889634f;
   constexpr int kPoly = SWEEP == 1 ? MK_POLY1 : MK_POLY2;
   if constexpr (SWEEP == 0) {
@@ -1315,27 +1367,36 @@ __device__ __forceinline__ void attn_scores(float (&s)[2][4], int mt,
       st.l[mt][0] += (e[0][0] + e[0][1]) + (e[1][0] + e[1][1]);
       st.l[mt][1] += (e[0][2] + e[0][3]) + (e[1][2] + e[1][3]);
     } else {
-      unsigned a[4];
 #pragma unroll
       for (int sb = 0; sb < 2; ++sb)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          // exp / sum -> bf16, two keys a register
           const __nv_bfloat162 pk = __floats2bfloat162_rn(
               e[sb][2 * hf] * st.l[mt][hf], e[sb][2 * hf + 1] * st.l[mt][hf]);
           a[2 * sb + hf] = *reinterpret_cast<const unsigned*>(&pk);
         }
-#pragma unroll
-      for (int nt = 0; nt < kNTV; ++nt)
-        mma_pv(st.acc[mt][nt], a[0], a[1], a[2], a[3], vf[nt][0], vf[nt][1]);
     }
+  }
+}
+
+// attn_probs, then (SWEEP 2) P V into the tile's output
+template <int SWEEP>
+__device__ __forceinline__ void attn_scores(float (&s)[2][4], int mt,
+                                            const unsigned (&vf)[kNTA][2],
+                                            AttnState& st) {
+  unsigned a[4];
+  attn_probs<SWEEP>(s, mt, st, a);
+  if constexpr (SWEEP == 2) {
+#pragma unroll
+    for (int nt = 0; nt < kNTA; ++nt)
+      mma_pv(st.acc[mt][nt], a[0], a[1], a[2], a[3], vf[nt][0], vf[nt][1]);
   }
 }
 
 // One block of 16 keys for the warp's 16 kMT queries. SWEEP 0: row maximum
 // (into ml); 1: row sum of exp(s - shift); 2: exp(s - shift) / sum -> bf16 ->
 // P V. MASKED: the last block, of which only the keys below n exist.
-// Head dim 4: ks [key][4] bf16, vs [key / 2][dim] pairs (V[key][dim],
+// Heads of 1-4 dims: ks [key][4] bf16, vs [key / 2][dim] pairs (V[key][dim],
 // V[key + 1][dim]). Wider heads: ks and vs [key][kRowS] bf16, V's fragments
 // by ldmatrix.trans. qa: the queries' A registers (load_queries).
 template <int SWEEP, bool MASKED>
@@ -1343,13 +1404,13 @@ __device__ __forceinline__ void attn_block(const unsigned* ks,
                                            const unsigned* vs, int kb, int n,
                                            int g, int tig,
                                            const unsigned (&qa)[kMT][kQA],
-                                           AttnState& st) {
+                                           AttnState& st, int /*oc*/) {
   constexpr int kQB = 2 * kQ16 + kQ8;   // B registers of 8 keys
   unsigned kf[2][kQB];
   unsigned vf[kNTV][2];
 #pragma unroll
   for (int sb = 0; sb < 2; ++sb) {
-    if constexpr (kD == 4) {
+    if constexpr (kDS == 4) {
       kf[sb][0] = ks[(kb + 8 * sb + g) * 2 + (tig & 1)];
     } else {
       const unsigned* kr = ks + (kb + 8 * sb + g) * (kRowS / 2);
@@ -1362,7 +1423,7 @@ __device__ __forceinline__ void attn_block(const unsigned* ks,
     }
   }
   if constexpr (SWEEP == 2) {
-    if constexpr (kD == 4) {
+    if constexpr (kDS == 4) {
       vf[0][0] = vf[0][1] = 0u;
       if (g < 4) {
         vf[0][0] = vs[((kb >> 1) + tig) * 4 + g];
@@ -1421,19 +1482,110 @@ __device__ __forceinline__ void attn_block(const unsigned* ks,
   }
 }
 
-// One sweep over the keys kb0 .. L - 1 of the staged keys.
-template <int SWEEP>
+// attn_block for wide heads: QK^T a 16-dim step at a time, the step's query
+// fragments read from the q scratch and its key fragments from shared
+// memory, so that neither is held whole; SWEEP 2 adds the probabilities'
+// product with output chunk oc of V (tiles kNTA oc ..), V's fragments taken
+// two tiles at a time. The scores' sums run in the same order in every
+// sweep and chunk.
+template <int SWEEP, bool MASKED>
+__device__ __forceinline__ void attn_block(const unsigned* ks,
+                                           const unsigned* vs, int kb, int n,
+                                           int g, int tig, const QRows& qa,
+                                           AttnState& st, int oc) {
+  float s[kMT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int sb = 0; sb < 2; ++sb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[mt][sb][c] = 0.f;
+  const unsigned* kr0 = ks + (kb + g) * (kRowS / 2);
+  const unsigned* kr1 = kr0 + 8 * (kRowS / 2);
+#pragma unroll 4
+  for (int q = 0; q < kQ16; ++q) {
+    const unsigned k00 = kr0[8 * q + tig], k01 = kr0[8 * q + 4 + tig];
+    const unsigned k10 = kr1[8 * q + tig], k11 = kr1[8 * q + 4 + tig];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const unsigned a0 = qa.r[mt][0][8 * q + tig];
+      const unsigned a1 = qa.r[mt][1][8 * q + tig];
+      const unsigned a2 = qa.r[mt][0][8 * q + 4 + tig];
+      const unsigned a3 = qa.r[mt][1][8 * q + 4 + tig];
+      mma_pv(s[mt][0], a0, a1, a2, a3, k00, k01);
+      mma_pv(s[mt][1], a0, a1, a2, a3, k10, k11);
+    }
+  }
+  if constexpr (kQ8 != 0) {
+    const unsigned k0 = kr0[8 * kQ16 + tig], k1 = kr1[8 * kQ16 + tig];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const unsigned a0 = qa.r[mt][0][8 * kQ16 + tig];
+      const unsigned a1 = qa.r[mt][1][8 * kQ16 + tig];
+      mma_k8(s[mt][0], a0, a1, k0);
+      mma_k8(s[mt][1], a0, a1, k1);
+    }
+  }
+  unsigned a[kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    if (MASKED) {
+#pragma unroll
+      for (int sb = 0; sb < 2; ++sb) {
+        if (kb + 8 * sb + 2 * tig >= n) s[mt][sb][0] = s[mt][sb][2] = -INFINITY;
+        if (kb + 8 * sb + 2 * tig + 1 >= n)
+          s[mt][sb][1] = s[mt][sb][3] = -INFINITY;
+      }
+    }
+    attn_probs<SWEEP>(s[mt], mt, st, a[mt]);
+  }
+  if constexpr (SWEEP == 2) {
+    const int lane = threadIdx.x & 31;
+    const unsigned short* vr = reinterpret_cast<const unsigned short*>(vs) +
+                               (kb + (lane & 15)) * kRowS + 8 * (lane >> 4);
+#pragma unroll
+    for (int nt = 0; nt < kNTA; nt += 2) {
+      const int t = kNTA * oc + nt;   // the tile of the head's dims
+      const unsigned addr =
+          static_cast<unsigned>(__cvta_generic_to_shared(vr + 8 * t));
+      unsigned v[2][2] = {{0u, 0u}, {0u, 0u}};
+      if (nt + 1 < kNTA && t + 1 < kNTV)
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+            "{%0, %1, %2, %3}, [%4];\n"
+            : "=r"(v[0][0]), "=r"(v[0][1]), "=r"(v[1][0]), "=r"(v[1][1])
+            : "r"(addr));
+      else if (t < kNTV)
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, "
+            "[%2];\n"
+            : "=r"(v[0][0]), "=r"(v[0][1])
+            : "r"(addr));
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        mma_pv(st.acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3],
+               v[0][0], v[0][1]);
+        if (nt + 1 < kNTA)
+          mma_pv(st.acc[mt][nt + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3],
+                 v[1][0], v[1][1]);
+      }
+    }
+  }
+}
+
+// One sweep over the keys kb0 .. L - 1 of the staged keys (SWEEP 2: into
+// output chunk oc).
+template <int SWEEP, class Q>
 __device__ __forceinline__ void attn_sweep(const unsigned* ks,
                                            const unsigned* vs, int kb0, int L,
-                                           int g, int tig,
-                                           const unsigned (&qa)[kMT][kQA],
-                                           AttnState& st) {
+                                           int g, int tig, const Q& qa,
+                                           AttnState& st, int oc = 0) {
   const int nfull = L & ~15;
 #pragma unroll 2
   for (int kb = kb0; kb < nfull; kb += 16)
-    attn_block<SWEEP, false>(ks, vs, kb, L, g, tig, qa, st);
+    attn_block<SWEEP, false>(ks, vs, kb, L, g, tig, qa, st, oc);
   if (nfull < L && kb0 <= nfull)
-    attn_block<SWEEP, true>(ks, vs, nfull, L, g, tig, qa, st);
+    attn_block<SWEEP, true>(ks, vs, nfull, L, g, tig, qa, st, oc);
 }
 #endif  // MK_SERVING
 
@@ -1835,19 +1987,13 @@ __device__ void phase_mlp(const Params& p, int layer, float* As, float* Hs,
 }
 #else   // MK_SERVING
 
-// The bound of each of the warp's queries (into st.ml, x log2(e)), and
-// the maximum of the first 16 keys' scores (st.ml before that): whether the
-// bound may serve for every query of the warp. km: max |k| of the dims the
-// thread holds in qa (zero past the head dim).
-__device__ __forceinline__ bool shift_by_bound(const unsigned* ks,
-                                               const unsigned* vs, int L,
-                                               int g, int tig,
-                                               const float (&km)[kQA],
-                                               const unsigned (&qa)[kMT][kQA],
-                                               AttnState& st) {
-  constexpr float kLog2e = 1.4426950408889634f;
-  float bound[kMT][2];
-  bool safe = true;
+// The bound sum_d |q_d| max_keys |k_d| of each of the warp's queries (over
+// the head's true dims). km: max |k| of the dims the thread holds in qa
+// (zero past the head dim).
+__device__ __forceinline__ void query_bounds(const float (&km)[kQA],
+                                             const unsigned (&qa)[kMT][kQA],
+                                             int tig,
+                                             float (&bound)[kMT][2]) {
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -1867,12 +2013,52 @@ __device__ __forceinline__ bool shift_by_bound(const unsigned* ks,
         b = r == 0 ? t : b + t;
       }
       bound[mt][hf] = quad_sum(b);
-      st.ml[mt][hf] = -INFINITY;
     }
+}
+
+// the same for wide heads: kt, the head's row of the key maxima in device
+// memory; q's dims 8 r + 2 tig, + 1 read from the rows
+__device__ __forceinline__ void query_bounds(const unsigned* kt,
+                                             const QRows& qa, int tig,
+                                             float (&bound)[kMT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float b = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < kDS / 8; ++r) {
+        const int dim = 8 * r + 2 * tig;
+        const unsigned v = qa.r[mt][hf][4 * r + tig];
+        const float k0 = dim < kD ? __uint_as_float(__ldcg(kt + dim)) : 0.f;
+        const float k1 =
+            dim + 1 < kD ? __uint_as_float(__ldcg(kt + dim + 1)) : 0.f;
+        const float t = fabsf(__uint_as_float(v << 16)) * k0 +
+                        fabsf(__uint_as_float(v & 0xffff0000u)) * k1;
+        b = r == 0 ? t : b + t;
+      }
+      bound[mt][hf] = quad_sum(b);
+    }
+}
+
+// The bound of each of the warp's queries (into st.ml, x log2(e)), and
+// the maximum of the first 16 keys' scores (st.ml before that): whether the
+// bound may serve for every query of the warp. km: load_kmax's.
+template <class KM, class Q>
+__device__ __forceinline__ bool shift_by_bound(const unsigned* ks,
+                                               const unsigned* vs, int L,
+                                               int g, int tig, const KM& km,
+                                               const Q& qa, AttnState& st) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  float bound[kMT][2];
+  bool safe = true;
+  query_bounds(km, qa, tig, bound);
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) st.ml[mt][0] = st.ml[mt][1] = -INFINITY;
   if (L >= 16)
-    attn_block<0, false>(ks, vs, 0, L, g, tig, qa, st);
+    attn_block<0, false>(ks, vs, 0, L, g, tig, qa, st, 0);
   else
-    attn_block<0, true>(ks, vs, 0, L, g, tig, qa, st);
+    attn_block<0, true>(ks, vs, 0, L, g, tig, qa, st, 0);
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -1925,6 +2111,18 @@ __device__ __forceinline__ void load_queries(const unsigned* qg, int q0, int L,
     }
 }
 
+// wide heads: the rows themselves (past L: the last row)
+__device__ __forceinline__ void load_queries(const unsigned* qg, int q0, int L,
+                                             int g, int /*tig*/,
+                                             QRows& qa) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      qa.r[mt][hf] = qg + static_cast<size_t>(min(q0 + 16 * mt + g + 8 * hf,
+                                                   L - 1)) * (kDS / 2);
+}
+
 // max |k| over the head's keys of the dims the thread holds in qa
 __device__ __forceinline__ void load_kmax(const Params& p, int rh, int tig,
                                           float (&km)[kQA]) {
@@ -1939,38 +2137,58 @@ __device__ __forceinline__ void load_kmax(const Params& p, int rh, int tig,
   }
 }
 
+// wide heads: where the head's maxima lie (read as the bound needs them)
+__device__ __forceinline__ void load_kmax(const Params& p, int rh, int /*tig*/,
+                                          const unsigned*& kt) {
+  kt = p.kmax + static_cast<size_t>(rh) * kD;
+}
+
+// what load_kmax fills
+using KMax = std::conditional<kWide, const unsigned*, float[kQA]>::type;
+
 // P V of the warp's queries into the attention output, rows q0 + 16 mt + g
-// (+ 8), the head's dims 8 nt + 2 tig, + 1
+// (+ 8), the head's dims 8 (kNTA oc + nt) + 2 tig, + 1
 __device__ __forceinline__ void store_attention(const Params& p, int r, int h,
                                                 int q0, int g, int tig,
-                                                const AttnState& st) {
+                                                const AttnState& st,
+                                                int oc = 0) {
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int row = q0 + 16 * mt + g + 8 * hf;
       if (row >= p.L) continue;
+      float* o = p.o + (static_cast<size_t>(r) * p.L + row) * kC + h * kD;
 #pragma unroll
-      for (int nt = 0; nt < kNTV; ++nt) {
-        const int dim = 8 * nt + 2 * tig;
-        if (dim < kD)
-          *reinterpret_cast<float2*>(
-              p.o + (static_cast<size_t>(r) * p.L + row) * kC + h * kD +
-              dim) = make_float2(st.acc[mt][nt][2 * hf],
-                                 st.acc[mt][nt][2 * hf + 1]);
+      for (int nt = 0; nt < kNTA; ++nt) {
+        const int dim = 8 * (kNTA * oc + nt) + 2 * tig;
+        if constexpr (kD % 2 == 0) {
+          if (dim < kD)
+            *reinterpret_cast<float2*>(o + dim) = make_float2(
+                st.acc[mt][nt][2 * hf], st.acc[mt][nt][2 * hf + 1]);
+        } else {
+          if (dim < kD) o[dim] = st.acc[mt][nt][2 * hf];
+          if (dim + 1 < kD) o[dim + 1] = st.acc[mt][nt][2 * hf + 1];
+        }
       }
     }
 }
 
-__device__ __forceinline__ void clear_sums(AttnState& st) {
+// P V's sums back to zero (the next output chunk)
+__device__ __forceinline__ void clear_acc(AttnState& st) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    st.l[mt][0] = st.l[mt][1] = (MK_ABLATE & 2) ? 1.f : 0.f;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < kNTV; ++nt)
+    for (int nt = 0; nt < kNTA; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) st.acc[mt][nt][c] = 0.f;
-  }
+}
+
+__device__ __forceinline__ void clear_sums(AttnState& st) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+    st.l[mt][0] = st.l[mt][1] = (MK_ABLATE & 2) ? 1.f : 0.f;
+  clear_acc(st);
 }
 
 __device__ __forceinline__ void invert_sums(AttnState& st) {
@@ -2045,7 +2263,7 @@ __device__ MK_PHASE_S void phase_attention_whole(const Params& p, unsigned char*
     const int h = rh % kH;
     const int r = rh / kH;
     const size_t base = static_cast<size_t>(rh) * p.L;
-    if constexpr (kD == 4) {
+    if constexpr (kDS == 4) {
       uint2* ks = reinterpret_cast<uint2*>(smem);
       uint4* vs = reinterpret_cast<uint4*>(vsp);
       const uint2* kg = reinterpret_cast<const uint2*>(p.k) + base;
@@ -2067,7 +2285,7 @@ __device__ MK_PHASE_S void phase_attention_whole(const Params& p, unsigned char*
                  p.v + base * kDS, 0, L16, p.L);
       asm volatile("cp.async.wait_all;\n" ::: "memory");
     }
-    float km[kQA];
+    KMax km;
     load_kmax(p, rh, tig, km);
     const unsigned* qg =
         reinterpret_cast<const unsigned*>(p.q) + base * (kDS / 2);
@@ -2077,7 +2295,7 @@ __device__ MK_PHASE_S void phase_attention_whole(const Params& p, unsigned char*
     for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * kQTile + warp * 16 * kMT;
       if (q0 >= p.L) break;
-      unsigned qa[kMT][kQA];
+      Queries qa;
       AttnState st;
       load_queries(qg, q0, p.L, g, tig, qa);
       if (MK_ABLATE & 1) {
@@ -2091,8 +2309,11 @@ __device__ MK_PHASE_S void phase_attention_whole(const Params& p, unsigned char*
       clear_sums(st);
       if (!(MK_ABLATE & 2)) attn_sweep<1>(ksw, vsw, 0, p.L, g, tig, qa, st);
       invert_sums(st);
-      attn_sweep<2>(ksw, vsw, 0, p.L, g, tig, qa, st);
-      store_attention(p, r, h, q0, g, tig, st);
+      for (int oc = 0; oc < kNOC; ++oc) {   // (one chunk unless wide)
+        if (oc) clear_acc(st);
+        attn_sweep<2>(ksw, vsw, 0, p.L, g, tig, qa, st, oc);
+        store_attention(p, r, h, q0, g, tig, st, oc);
+      }
     }
     __syncthreads();   // every warp has read the staged keys and values
   }
@@ -2101,15 +2322,15 @@ __device__ MK_PHASE_S void phase_attention_whole(const Params& p, unsigned char*
 // One sweep over all keys of a head that does not fit shared memory: tiles
 // of kSKT keys through two buffers (the next tile's copy in flight while
 // this one is read), the whole block in step. active: whether this warp
-// computes (every warp meets the barriers).
-template <int SWEEP>
+// computes (every warp meets the barriers); oc: SWEEP 2's output chunk.
+template <int SWEEP, class Q>
 __device__ __forceinline__ void stream_sweep(const Params& p,
                                              unsigned char* smem,
                                              const __nv_bfloat16* kg,
                                              const __nv_bfloat16* vg,
                                              bool active, int g, int tig,
-                                             const unsigned (&qa)[kMT][kQA],
-                                             AttnState& st) {
+                                             const Q& qa, AttnState& st,
+                                             int oc = 0) {
   constexpr int kTile = kSKT * kRowS;   // bf16 of a K (or V) tile
   unsigned short* buf = reinterpret_cast<unsigned short*>(smem);
   const int nt = (p.L + kSKT - 1) / kSKT;
@@ -2128,7 +2349,7 @@ __device__ __forceinline__ void stream_sweep(const Params& p,
       const int o = (t & 1) * kTile;
       attn_sweep<SWEEP>(reinterpret_cast<const unsigned*>(buf + o),
                         reinterpret_cast<const unsigned*>(buf + 2 * kTile + o),
-                        0, min(kSKT, p.L - t * kSKT), g, tig, qa, st);
+                        0, min(kSKT, p.L - t * kSKT), g, tig, qa, st, oc);
     }
     __syncthreads();   // the tile is read: its buffer may be refilled
   }
@@ -2159,11 +2380,11 @@ __device__ MK_PHASE_S void phase_attention_streamed(
     const __nv_bfloat16* vg = p.v + base * kDS;
     const unsigned* qg =
         reinterpret_cast<const unsigned*>(p.q) + base * (kDS / 2);
-    float km[kQA];
+    KMax km;
     load_kmax(p, rh, tig, km);
     for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * kQTile + warp * 16 * kMT;
-      unsigned qa[kMT][kQA];
+      Queries qa;
       AttnState st;
       load_queries(qg, q0, p.L, g, tig, qa);
       // the first tile, for the shift's check against the first 16 keys
@@ -2188,15 +2409,18 @@ __device__ MK_PHASE_S void phase_attention_streamed(
       if (!(MK_ABLATE & 2))
         stream_sweep<1>(p, smem, kg, vg, true, g, tig, qa, st);
       invert_sums(st);
-      stream_sweep<2>(p, smem, kg, vg, true, g, tig, qa, st);
-      store_attention(p, r, h, q0, g, tig, st);
+      for (int oc = 0; oc < kNOC; ++oc) {   // (one chunk unless wide)
+        if (oc) clear_acc(st);
+        stream_sweep<2>(p, smem, kg, vg, true, g, tig, qa, st, oc);
+        store_attention(p, r, h, q0, g, tig, st, oc);
+      }
     }
   }
 }
 
 __device__ __forceinline__ void phase_self_attention(const Params& p,
                                                      unsigned char* smem) {
-  if (kD == 4 || p.keys_whole)
+  if (kDS == 4 || p.keys_whole)
     phase_attention_whole(p, smem);
   else
     phase_attention_streamed(p, smem);
@@ -2258,6 +2482,48 @@ __device__ __forceinline__ void cross_attend(const Params& p,
   for (int d = 0; d < kD; d += 4)
     *reinterpret_cast<float4*>(o + d) =
         make_float4(ov[d], ov[d + 1], ov[d + 2], ov[d + 3]);
+}
+
+// cross_attend for heads whose dim is no multiple of 4 or wider than 128:
+// q is read where it lies, dim by dim (no float4 fits its columns, or the
+// registers would not hold it), and the scores, summed in cross_score's
+// order, are recomputed for each chunk of kCrossOD output dims
+constexpr bool kCrossVec = kD % 4 == 0 && kD <= 128;
+constexpr int kCrossOD = 32;
+
+__device__ __forceinline__ float cross_score_any(const float* q,
+                                                 const float* k) {
+  float s = q[0] * bf16r(__ldg(k));
+  for (int d = 1; d < kD; ++d) s = fmaf(q[d], bf16r(__ldg(k + d)), s);
+  return s;
+}
+
+__device__ __forceinline__ void cross_attend_any(const Params& p,
+                                                 const float* kc,
+                                                 const float* vc,
+                                                 const float* q, float* o) {
+  float mx = -INFINITY;
+  for (int j = 0; j < p.s_valid; ++j)
+    mx = fmaxf(mx, cross_score_any(q, kc + j * kC));
+  float l = 0.f;
+  for (int j = 0; j < p.s_valid; ++j)
+    l += expf(cross_score_any(q, kc + j * kC) - mx);
+  for (int d0 = 0; d0 < kD; d0 += kCrossOD) {
+    float ov[kCrossOD];
+#pragma unroll
+    for (int d = 0; d < kCrossOD; ++d) ov[d] = 0.f;
+    for (int j = 0; j < p.s_valid; ++j) {
+      const float pj =
+          bf16r(expf(cross_score_any(q, kc + j * kC) - mx) / l);
+#pragma unroll
+      for (int d = 0; d < kCrossOD; ++d)
+        if (d0 + d < kD)
+          ov[d] = fmaf(pj, bf16r(__ldg(vc + j * kC + d0 + d)), ov[d]);
+    }
+#pragma unroll
+    for (int d = 0; d < kCrossOD; ++d)
+      if (d0 + d < kD) o[d0 + d] = ov[d];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2353,7 +2619,7 @@ __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As, floa
                  min(64, kC - 64 * j), min(64, p.hidden - 64 * hc)};
   };
   // phase S has read this layer's key maxima: clear them for the next
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kC;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kCT;
        i += gridDim.x * kThreads)
     p.kmax[i] = 0u;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
@@ -2452,12 +2718,17 @@ __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As, floa
               : p.o + (static_cast<size_t>(rb) * p.L + tok) * kC + h * kD;
           const size_t off = (static_cast<size_t>(rb) * p.n_layer + layer) *
                                  p.sp * kC + h * kD;
-          cross_attend(p, p.kc + off, p.vc + off, q, o);
-        } else {
+          if constexpr (kCrossVec)
+            cross_attend(p, p.kc + off, p.vc + off, q, o);
+          else
+            cross_attend_any(p, p.kc + off, p.vc + off, q, o);
+        } else if constexpr (kCrossVec) {
 #pragma unroll
           for (int d = 0; d < kD; d += 4)
             *reinterpret_cast<float4*>(o + d) =
                 make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          for (int d = 0; d < kD; ++d) o[d] = 0.f;
         }
       }
       sync_staged();
@@ -3445,7 +3716,7 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
 extern "C" int megakernel_max_seq() { return kMaxSeq; }
 
 // The widths this library was built for: n_embd (0) and head dim (1).
-extern "C" int megakernel_width(int which) { return which ? kD : kC; }
+extern "C" int megakernel_width(int which) { return which ? kD : kCT; }
 
 // The factor the queries take before their rounding to bf16: 1 / sqrt(d)
 // in double, rounded once to f32, as the TPU kernels and the plain version
@@ -3457,7 +3728,7 @@ extern "C" float megakernel_qscale() {
 // Whether phase S stages a head's keys and values whole at L tokens (else
 // it streams them in tiles).
 extern "C" int megakernel_keys_whole(int L) {
-  return kD == 4 ||
+  return kDS == 4 ||
          static_cast<long long>((L + 15) & ~15) * kKeyBytes <= kSmemBytes;
 }
 
@@ -3520,7 +3791,7 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
   p.keys_whole = megakernel_keys_whole(p.L);
   const bool packed = ints[I_PACKED] != 0;
   if (p.B < 1 || p.L < 1 || p.L > kMaxSeq || p.n_layer < 1 || p.kv < 1 ||
-      p.hidden < 32 || p.hidden % 32 != 0 || p.s_valid < 1 ||
+      p.hidden < 8 || p.hidden % 8 != 0 || p.s_valid < 1 ||
       p.s_valid > p.sp || (p.n_br != 1 && p.n_br != 2) ||
       (packed && p.n_br != 2))
     return static_cast<int>(cudaErrorInvalidValue);

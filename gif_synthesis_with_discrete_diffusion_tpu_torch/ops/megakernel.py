@@ -28,6 +28,16 @@ softmax probabilities, after the division by their row sum, go through
 bf16; every sum is f32), so K3, K4 and the TPU kernels all compute its
 function. CPU tensors take it; CUDA tensors launch K3 or K4 or raise.
 
+The kernels take every n_embd up to 512 in any number of heads that divides
+it, with any MLP width (:func:`widths_fit`, the JAX kernels' domain up to
+512). The tables are made in the kernels' layout: every n_embd-wide or
+MLP-wide axis padded with zero columns to a multiple of 8
+(:func:`storage_width`; a no-op at every configuration of the repo), once,
+by :func:`pack_denoiser_params` (and so by :func:`positions`,
+:func:`cross_tables` and the AdaLN table). The plain version reads the same
+layout: its LayerNorm takes the true n_embd and its attention each head's
+true columns, and every padded column stays zero.
+
 Where the kernels' arithmetic departs from the plain version's by more than
 the order of a sum, it is stated here as a plain function that the CPU
 tests bound: the TF32 split of the f32 products (:func:`split_matmul`), the
@@ -60,7 +70,7 @@ __all__ = ["MEGAKERNEL_MAX_SEQ", "pack_denoiser_params", "cross_tables",
            "positions", "megakernel_step", "megakernel_step_reference",
            "megakernel_hidden_reference", "kernels_fit",
            "megakernel_sample_tokens", "prepare_sampling", "alloc_scratch",
-           "scratch_head_dim",
+           "scratch_head_dim", "storage_width", "phase_s_products",
            "stamp_count", "split_tf32", "split_matmul", "exp2_poly",
            "poly_exp_mask", "softmax_shift", "widths_fit",
            "megakernel_step_kernel_arithmetic", "KERNEL_POLY_SHARE",
@@ -73,15 +83,16 @@ MEGAKERNEL_MAX_SEQ = 2304
 _PACK_CFG_MAX_SEQ = 1024
 _LN_EPS = 1e-6
 # the widths the CUDA kernels take (one library per n_embd and head dim):
-# n_embd a multiple of 32 up to 512, a head dim a multiple of 4 up to 128,
-# an MLP width a multiple of 32
-_KERNEL_EMBD_STEP, _KERNEL_EMBD_MAX = 32, 512
-_KERNEL_HEAD_STEP, _KERNEL_HEAD_MAX = 4, 128
-_KERNEL_HIDDEN_STEP = 32
-_KERNEL_DOMAIN = (f"n_embd a multiple of {_KERNEL_EMBD_STEP} up to "
-                  f"{_KERNEL_EMBD_MAX}, a head dim a multiple of "
-                  f"{_KERNEL_HEAD_STEP} up to {_KERNEL_HEAD_MAX}, an MLP "
-                  f"width a multiple of {_KERNEL_HIDDEN_STEP}")
+# every n_embd up to 512 (above it a block's 227 KB no longer holds the
+# 64-row activation tile beside the weight tiles), any head dim that divides
+# it, any MLP width
+_KERNEL_EMBD_MAX = 512
+_KERNEL_DOMAIN = (f"n_embd from 1 to {_KERNEL_EMBD_MAX} in heads that divide "
+                  f"it, any MLP width")
+# a row's padding in device memory (csrc: kC) and phase S's widest chunk of
+# P V output dims (csrc: kNOC, 16 tiles of 8)
+_STORAGE_STEP = 8
+_OUTPUT_CHUNK = 128
 
 _WEIGHT_NAMES = ("wqkv", "wproj", "wq_c", "wproj_c", "wfc", "wpj", "wlog")
 # the order of the pointer table handed to the launcher (csrc: enum Ptr)
@@ -97,15 +108,17 @@ def _round_up(x: int, m: int) -> int:
 
 
 def widths_fit(n_embd: int, n_head: int, hidden: int) -> bool:
-    """Whether the CUDA kernels take these widths: n_embd a multiple of 32
-    from 32 to 512, split into heads of a dim that is a multiple of 4 from
-    4 to 128, and an MLP width that is a multiple of 32."""
-    d = n_embd // n_head if n_head > 0 else 0
-    return (0 < n_embd <= _KERNEL_EMBD_MAX
-            and n_embd % _KERNEL_EMBD_STEP == 0
-            and n_head * d == n_embd
-            and 0 < d <= _KERNEL_HEAD_MAX and d % _KERNEL_HEAD_STEP == 0
-            and hidden > 0 and hidden % _KERNEL_HIDDEN_STEP == 0)
+    """Whether the CUDA kernels take these widths: every n_embd from 1 to
+    512, in any number of heads that divides it (head dims 1 to 512), with
+    any MLP width; the JAX megakernel's domain up to n_embd 512."""
+    return (0 < n_embd <= _KERNEL_EMBD_MAX and n_head > 0
+            and n_embd % n_head == 0 and hidden > 0)
+
+
+def storage_width(n: int) -> int:
+    """An n_embd- or MLP-wide row as the kernels lay it out in device
+    memory: padded with zero columns to a multiple of 8 (csrc: kC)."""
+    return _round_up(n, _STORAGE_STEP)
 
 
 def kernels_fit(transformer: nn.Module) -> bool:
@@ -121,6 +134,18 @@ def kernels_fit(transformer: nn.Module) -> bool:
 # what stays outside the kernel: packing, tables, the condition's K/V
 # ---------------------------------------------------------------------------
 
+def _pad(x: torch.Tensor, groups: int = 1, axis: int = -1) -> torch.Tensor:
+    """``x`` with ``axis`` cut in ``groups`` equal runs of n, each padded
+    with zeros to :func:`storage_width` (n)."""
+    x = x.movedim(axis, -1)
+    n = x.shape[-1] // groups
+    ns = storage_width(n)
+    if ns != n:
+        x = F.pad(x.reshape(*x.shape[:-1], groups, n), (0, ns - n)).reshape(
+            *x.shape[:-1], groups * ns)
+    return x.movedim(-1, axis)
+
+
 def pack_denoiser_params(transformer: nn.Module,
                          weights_dtype: torch.dtype = torch.bfloat16
                          ) -> dict[str, torch.Tensor]:
@@ -129,7 +154,10 @@ def pack_denoiser_params(transformer: nn.Module,
     kernel multiplies by (``wqkv``, ``wproj``, ``wq_c``, ``wproj_c``,
     ``wfc``, ``wpj``, ``wlog``) take ``weights_dtype``; biases, LayerNorm
     and AdaLN parameters, the condition's K/V projections and the embedding
-    tables stay f32."""
+    tables stay f32. Every n_embd-wide and MLP-wide axis is padded with zero
+    columns to :func:`storage_width` (each of q | k | v and scale | shift on
+    its own); the AdaLN linears' input (the timestep's sinusoid), the
+    condition's width and the classes are not."""
     blocks = [getattr(transformer, f"block{i}")
               for i in range(transformer.n_layer)]
     f32 = torch.float32
@@ -138,44 +166,50 @@ def pack_denoiser_params(transformer: nn.Module,
         return torch.stack([fn(b).detach() for b in blocks]).to(
             dtype).contiguous()
 
-    def w(lin):      # (out, in) -> (in, out)
-        return lin.weight.t()
+    def w(lin, groups=1, rows=True, cols=True):   # (out, in) -> (in, out)
+        x = _pad(lin.weight.t(), groups) if cols else lin.weight.t()
+        return _pad(x, axis=0) if rows else x
+
+    def table(x, groups=1):
+        return _pad(x.detach().to(f32), groups).contiguous()
 
     wd = weights_dtype
     ce = transformer.content_emb
     return {
         "wqkv": stack(lambda b: torch.cat(
             [w(b.attn1.query), w(b.attn1.key), w(b.attn1.value)], dim=1), wd),
-        "bqkv": stack(lambda b: torch.cat(
-            [b.attn1.query.bias, b.attn1.key.bias, b.attn1.value.bias])),
+        "bqkv": stack(lambda b: _pad(torch.cat(
+            [b.attn1.query.bias, b.attn1.key.bias, b.attn1.value.bias]), 3)),
         "wproj": stack(lambda b: w(b.attn1.proj), wd),
-        "bproj": stack(lambda b: b.attn1.proj.bias),
+        "bproj": stack(lambda b: _pad(b.attn1.proj.bias)),
         "wq_c": stack(lambda b: w(b.attn2.query), wd),
-        "bq_c": stack(lambda b: b.attn2.query.bias),
+        "bq_c": stack(lambda b: _pad(b.attn2.query.bias)),
         "wproj_c": stack(lambda b: w(b.attn2.proj), wd),
-        "bproj_c": stack(lambda b: b.attn2.proj.bias),
-        "ln2_s": stack(lambda b: b.ln2.weight),
-        "ln2_b": stack(lambda b: b.ln2.bias),
+        "bproj_c": stack(lambda b: _pad(b.attn2.proj.bias)),
+        "ln2_s": stack(lambda b: _pad(b.ln2.weight)),
+        "ln2_b": stack(lambda b: _pad(b.ln2.bias)),
         "wfc": stack(lambda b: w(b.mlp_fc), wd),
-        "bfc": stack(lambda b: b.mlp_fc.bias),
+        "bfc": stack(lambda b: _pad(b.mlp_fc.bias)),
         "wpj": stack(lambda b: w(b.mlp_proj), wd),
-        "bpj": stack(lambda b: b.mlp_proj.bias),
+        "bpj": stack(lambda b: _pad(b.mlp_proj.bias)),
         # AdaLN linears, applied per timestep outside the kernel
         "ada_w": stack(lambda b: torch.stack(
-            [w(b.ln1.linear), w(b.ln1_1.linear)])),
+            [w(b.ln1.linear, 2, rows=False),
+             w(b.ln1_1.linear, 2, rows=False)])),
         "ada_b": stack(lambda b: torch.stack(
-            [b.ln1.linear.bias, b.ln1_1.linear.bias])),
+            [_pad(b.ln1.linear.bias, 2), _pad(b.ln1_1.linear.bias, 2)])),
         # the condition's K/V projections, applied once per sampling call
-        "wk_c": stack(lambda b: w(b.attn2.key)),
-        "bk_c": stack(lambda b: b.attn2.key.bias),
-        "wv_c": stack(lambda b: w(b.attn2.value)),
-        "bv_c": stack(lambda b: b.attn2.value.bias),
-        "emb": ce.emb.weight.detach().to(f32).contiguous(),
-        "height": ce.height_emb.weight.detach().to(f32).contiguous(),
-        "width": ce.width_emb.weight.detach().to(f32).contiguous(),
-        "lno_s": transformer.ln_out.weight.detach().to(f32).contiguous(),
-        "lno_b": transformer.ln_out.bias.detach().to(f32).contiguous(),
-        "wlog": w(transformer.to_logits).detach().to(wd).contiguous(),
+        "wk_c": stack(lambda b: w(b.attn2.key, rows=False)),
+        "bk_c": stack(lambda b: _pad(b.attn2.key.bias)),
+        "wv_c": stack(lambda b: w(b.attn2.value, rows=False)),
+        "bv_c": stack(lambda b: _pad(b.attn2.value.bias)),
+        "emb": table(ce.emb.weight),
+        "height": table(ce.height_emb.weight),
+        "width": table(ce.width_emb.weight),
+        "lno_s": table(transformer.ln_out.weight),
+        "lno_b": table(transformer.ln_out.bias),
+        "wlog": w(transformer.to_logits, cols=False).detach().to(
+            wd).contiguous(),
         "blog": transformer.to_logits.bias.detach().to(f32).contiguous(),
     }
 
@@ -183,7 +217,8 @@ def pack_denoiser_params(transformer: nn.Module,
 def _adaln_table(packed: dict, t: torch.Tensor, num_steps: int,
                  n_embd: int) -> torch.Tensor:
     """AdaLN scale||shift rows for timestep(s) ``t``: () -> (n_layer, 2,
-    2C), (T,) -> (T, n_layer, 2, 2C); [..., :C] scales, [..., C:] shifts."""
+    2Cs), (T,) -> (T, n_layer, 2, 2Cs) with Cs = storage_width(n_embd);
+    [..., :Cs] scales, [..., Cs:] shifts."""
     t = torch.as_tensor(t, device=packed["ada_w"].device)
     emb = F.silu(SinusoidalPosEmb(num_steps, n_embd)(t.reshape(-1)))
     out = torch.einsum("td,lade->tlae", emb, packed["ada_w"]) \
@@ -192,7 +227,7 @@ def _adaln_table(packed: dict, t: torch.Tensor, num_steps: int,
 
 
 def positions(packed: dict, seq_len: int) -> torch.Tensor:
-    """(seq_len, C) factorised height + width position embeddings."""
+    """(seq_len, Cs) factorised height + width position embeddings."""
     pos = packed["height"][:, None, :] + packed["width"][None, :, :]
     return pos.reshape(-1, pos.shape[-1])[:seq_len].contiguous()
 
@@ -201,7 +236,7 @@ def cross_tables(packed: dict, cond_emb: torch.Tensor,
                  cf_cond_emb: Optional[torch.Tensor], use_cfg: bool,
                  cross_as_bias: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The condition's side of cross-attention, per row, branch and layer:
-    (kc, vc), each (B, n_br, n_layer, sp, C) f32 with the condition length
+    (kc, vc), each (B, n_br, n_layer, sp, Cs) f32 with the condition length
     padded to a multiple of 8. With ``cross_as_bias`` (a one-token
     condition: softmax over one key is 1) row 0 of ``kc`` holds the whole
     cross-attention output ``v @ wproj_c + bproj_c`` and ``vc`` is ``kc``.
@@ -244,10 +279,13 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _ln(x: torch.Tensor) -> torch.Tensor:
-    mu = x.mean(dim=-1, keepdim=True)
-    var = (x - mu).square().mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + _LN_EPS)
+def _ln(x: torch.Tensor, n: int) -> torch.Tensor:
+    """LayerNorm's normalisation of x's first ``n`` columns (the true
+    n_embd), the columns past them zero."""
+    t = x[..., :n]
+    mu = t.mean(dim=-1, keepdim=True)
+    var = (t - mu).square().mean(dim=-1, keepdim=True)
+    return F.pad((t - mu) * torch.rsqrt(var + _LN_EPS), (0, x.shape[-1] - n))
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -281,30 +319,35 @@ def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _hidden(packed, tokens, adaln, kc, vc, pos, *, n_layer, n_head, n_embd,
             use_cfg, s_valid, cross_as_bias, mm, self_attention):
     """The denoiser's part of a step over a product ``mm(a, w)`` and a
-    self-attention ``self_attention(q, k, v, n_head, valid)``."""
+    self-attention ``self_attention(q, k, v, n_head, valid)``, on the tables'
+    layout: rows of Cs = storage_width(n_embd), the padding zero."""
     b, L = tokens.shape
     n_br = 2 if use_cfg else 1
-    C = n_embd
-    x = packed["emb"][tokens] + pos                        # (B, L, C)
-    x = x[:, None].expand(b, n_br, L, C).reshape(b * n_br, L, C)
-    kc = kc.reshape(b * n_br, n_layer, -1, C)
-    vc = vc.reshape(b * n_br, n_layer, -1, C)
+    C, Cs = n_embd, storage_width(n_embd)
+
+    def heads(fn, q, k, v, valid):      # the true columns, then the padding
+        return F.pad(fn(q[..., :C], k[..., :C], v[..., :C], n_head, valid),
+                     (0, Cs - C))
+
+    x = packed["emb"][tokens] + pos                        # (B, L, Cs)
+    x = x[:, None].expand(b, n_br, L, Cs).reshape(b * n_br, L, Cs)
+    kc = kc.reshape(b * n_br, n_layer, -1, Cs)
+    vc = vc.reshape(b * n_br, n_layer, -1, Cs)
     for i in range(n_layer):
         ada = adaln[i]
-        h = _ln(x) * (1.0 + ada[0, :C]) + ada[0, C:]
+        h = _ln(x, C) * (1.0 + ada[0, :Cs]) + ada[0, Cs:]
         qkv = mm(h, packed["wqkv"][i]) + packed["bqkv"][i]
-        o = self_attention(qkv[..., :C], qkv[..., C:2 * C],
-                           qkv[..., 2 * C:], n_head, L)
+        o = heads(self_attention, qkv[..., :Cs], qkv[..., Cs:2 * Cs],
+                  qkv[..., 2 * Cs:], L)
         x = x + mm(o, packed["wproj"][i]) + packed["bproj"][i]
         if cross_as_bias:
             x = x + kc[:, i, 0:1, :]
         else:
-            h = _ln(x) * (1.0 + ada[1, :C]) + ada[1, C:]
+            h = _ln(x, C) * (1.0 + ada[1, :Cs]) + ada[1, Cs:]
             qc = mm(h, packed["wq_c"][i]) + packed["bq_c"][i]
-            oc = _attention_reference(qc, kc[:, i], vc[:, i], n_head,
-                                      s_valid)
+            oc = heads(_attention_reference, qc, kc[:, i], vc[:, i], s_valid)
             x = x + mm(oc, packed["wproj_c"][i]) + packed["bproj_c"][i]
-        h = _ln(x) * packed["ln2_s"][i] + packed["ln2_b"][i]
+        h = _ln(x, C) * packed["ln2_s"][i] + packed["ln2_b"][i]
         h = mm(h, packed["wfc"][i]) + packed["bfc"][i]
         h = h * torch.sigmoid(1.702 * h)                   # GELU2
         x = x + mm(h, packed["wpj"][i]) + packed["bpj"][i]
@@ -317,8 +360,9 @@ def megakernel_hidden_reference(
         n_layer: int, n_head: int, n_embd: int, use_cfg: bool, s_valid: int,
         cross_as_bias: bool = False) -> torch.Tensor:
     """The denoiser's part of the plain step: the final hidden state before
-    the output LayerNorm, (B * n_br, L, C) with rows ordered (row, branch),
-    which the kernels leave in their ``x`` scratch."""
+    the output LayerNorm, (B * n_br, L, storage_width(C)) with rows ordered
+    (row, branch), zero past C, which the kernels leave in their ``x``
+    scratch."""
     return _hidden(packed, tokens, adaln, kc, vc, pos, n_layer=n_layer,
                    n_head=n_head, n_embd=n_embd, use_cfg=use_cfg,
                    s_valid=s_valid, cross_as_bias=cross_as_bias, mm=_mm,
@@ -353,7 +397,7 @@ def _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
                 n_head=n_head, n_embd=n_embd, use_cfg=use_cfg,
                 s_valid=s_valid, cross_as_bias=cross_as_bias, mm=mm,
                 self_attention=self_attention)
-    h = _ln(x) * packed["lno_s"] + packed["lno_b"]
+    h = _ln(x, n_embd) * packed["lno_s"] + packed["lno_b"]
     z = (mm(h, packed["wlog"]) + packed["blog"]).reshape(b, n_br, L, -1)
     logits2 = torch.cat([z[:, j] for j in range(n_br)], dim=0)
     return fused_sample_step_reference(
@@ -549,8 +593,27 @@ def stamp_count(n_layer: int) -> int:
 
 def scratch_head_dim(head_dim: int) -> int:
     """A head's dims in the kernels' q/k/v scratch: the head dim padded with
-    zeros to a multiple of 8 (4 stays 4; csrc: kDS)."""
-    return head_dim if head_dim == 4 else _round_up(head_dim, 8)
+    zeros to a multiple of 8 (heads of 1 to 4 dims to 4; csrc: kDS)."""
+    return 4 if head_dim <= 4 else _round_up(head_dim, 8)
+
+
+def phase_s_products(head_dim: int) -> dict:
+    """FLOP phase S runs per (query, key, head) against the function's 4 d
+    (QK^T and P V once each): QK^T once for the row sum and once for each
+    output chunk of the probabilities' sweep (``chunks``: heads wider than
+    128 take P V's output 128 dims or fewer at a time, each chunk from a
+    sweep of its own over the keys; csrc: kNOC), P V once, all over the
+    head's dims as the tensor cores take them (the scratch's padding; the
+    mma is 8 deep at least). Not counted: the first 16 keys' scores of the
+    shift's check, and the exact maxima's sweep where a warp needs it (the
+    data decides). ``recompute``: the share of the kernel's FLOP that the
+    chunks after the first add; ``padding``: the share of zero dims."""
+    ds = max(scratch_head_dim(head_dim), 8)
+    chunks = -(-ds // _OUTPUT_CHUNK)
+    kernel = 2 * ds * (2 + chunks)
+    return dict(chunks=chunks, function=4 * head_dim, kernel=kernel,
+                recompute=(chunks - 1) * 2 * ds / kernel,
+                padding=1 - head_dim / ds)
 
 
 def alloc_scratch(batch: int, n_br: int, seq_len: int,
@@ -560,17 +623,20 @@ def alloc_scratch(batch: int, n_br: int, seq_len: int,
     rounded q/k/v (head-major, (R, H, L, DS) with DS =
     :func:`scratch_head_dim`; the padding stays zero), the attention
     output, and per (row-branch, head, dim) the largest |k| over the keys
-    (zero between launches: a step clears what it has used). Allocated once
-    per sampling call."""
+    (zero between launches: a step clears what it has used). The hidden
+    state and the attention output are :func:`storage_width` wide, their
+    padding zero (the output's from here on, the state's from a step's
+    first phase; x[..., :n_embd] is the state).
+    Allocated once per sampling call."""
     r = batch * n_br
-    c, d = n_embd, n_embd // n_head
+    cs, d = storage_width(n_embd), n_embd // n_head
     bf = dict(dtype=torch.bfloat16, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     qkv = (r, n_head, seq_len, scratch_head_dim(d))
-    return {"x": torch.empty((r, seq_len, c), **f32),
+    return {"x": torch.empty((r, seq_len, cs), **f32),
             "q": torch.zeros(qkv, **bf), "k": torch.zeros(qkv, **bf),
             "v": torch.zeros(qkv, **bf),
-            "o": torch.empty((r, seq_len, c), **f32),
+            "o": torch.zeros((r, seq_len, cs), **f32),
             "kmax": torch.zeros((r, n_head, d), **f32)}
 
 
@@ -586,7 +652,7 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     n_br = 2 if use_cfg else 1
     if pack_cfg and not use_cfg:
         raise ValueError("megakernel_step: pack_cfg is the CFG kernel")
-    hidden = packed["wfc"].shape[2]
+    hidden = packed["wfc"].shape[2]        # the MLP's storage width
     if not widths_fit(n_embd, n_head, hidden):
         raise ValueError(
             f"megakernel_step: the kernels take {_KERNEL_DOMAIN}; not "
@@ -599,11 +665,13 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     wd = packed["wqkv"].dtype
     if wd not in (torch.float32, torch.bfloat16):
         raise TypeError(f"megakernel_step: weights of {wd}")
-    if tuple(packed["wlog"].shape) != (n_embd, kv) or \
+    cs = storage_width(n_embd)
+    if tuple(packed["wlog"].shape) != (cs, kv) or \
             packed["emb"].shape[0] != num_classes or \
-            tuple(pos.shape) != (L, n_embd) or \
-            tuple(adaln.shape) != (n_layer, 2, 2 * n_embd) or \
-            tuple(kc.shape) != (b, n_br, n_layer, sp, n_embd) or \
+            tuple(pos.shape) != (L, cs) or \
+            tuple(adaln.shape) != (n_layer, 2, 2 * cs) or \
+            tuple(kc.shape) != (b, n_br, n_layer, sp, cs) or \
+            hidden != storage_width(hidden) or \
             kc.shape != vc.shape or sched_row.numel() != 10 or \
             not 1 <= s_valid <= sp:
         raise ValueError("megakernel_step: shapes of the tables do not fit "
@@ -611,7 +679,7 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     if scratch is None:
         scratch = alloc_scratch(b, n_br, L, dev, n_embd=n_embd,
                                 n_head=n_head)
-    if scratch["x"].shape != (b * n_br, L, n_embd) or \
+    if scratch["x"].shape != (b * n_br, L, cs) or \
             "kmax" not in scratch or scratch["q"].shape != (
                 b * n_br, n_head, L, scratch_head_dim(head_dim)):
         raise ValueError("megakernel_step: scratch of another shape (take "
@@ -694,8 +762,10 @@ def megakernel_step(
     or ``.launches_k4``, and to ``megakernel_step.launches_by_width[(n_embd,
     head dim, "K3" or "K4")]`` (never reset). The kernels take the widths of
     :func:`widths_fit` and raise for the rest; each (n_embd, head dim) is
-    built at its first launch. ``scratch`` (:func:`alloc_scratch`) is allocated
-    per call unless given; ``stamps`` (int64, :func:`stamp_count` long)
+    built at its first launch. The hidden state the kernels leave in
+    ``scratch["x"]`` is :func:`storage_width` wide, zero past n_embd.
+    ``scratch`` (:func:`alloc_scratch`) is allocated per call unless given;
+    ``stamps`` (int64, :func:`stamp_count` long)
     receives the device's ns clock at each phase boundary; ``grid_blocks``
     caps the persistent grid below what the card holds (the result does not
     depend on it); ``defines`` launches a variant of the source built with

@@ -525,7 +525,7 @@ def _check_megakernel(args, kw, pack_cfg, witness=False):
 
 
 # K3 and K4 at every width of chip_smoke.MK_WIDTHS (n_embd, n_head): head
-# dims 4 to 128, n_embd 32 to 512; small depth, a general and a one-token
+# dims 3 to 512, n_embd 24 to 512; small depth, a general and a one-token
 # condition, f32 and bf16 weights, ragged tiles
 WIDTH_CASES = [
     ("K3-general", True, dict(L=96, spatial=(12, 8), k=200, n_layer=2,
@@ -565,12 +565,18 @@ def test_megakernels_match_plain_at_every_width(cuda, n_embd, n_head, name,
     (128, 2, 1024, (32, 32), True, False),     # heads of 64: 262 KB
     (128, 1, 1024, (32, 32), True, False),     # heads of 128: 524 KB
     (256, 16, 2304, (48, 48), False, True),    # heads of 16: 221 KB, whole
-], ids=["d32-L2304", "d64-L1024", "d128-L1024", "d16-L2304"])
+    (512, 2, 1024, (32, 32), True, False),     # heads of 256: 1 MB
+    (512, 1, 2304, (48, 48), False, False),    # heads of 512: 4.7 MB
+    (512, 1, 96, (12, 8), True, True),         # heads of 512: 195 KB, whole
+], ids=["d32-L2304", "d64-L1024", "d128-L1024", "d16-L2304", "d256-L1024",
+        "d512-L2304", "d512-L96"])
 def test_megakernels_stream_keys_that_do_not_fit(cuda, n_embd, n_head, L,
                                                  spatial, pack_cfg, whole):
     """Where a head's keys and values (4 d L bytes) exceed a block's 227 KB,
-    phase S streams them through two buffers of 64 keys; where they just
-    fit, it stages them whole. Both against the plain version."""
+    phase S streams them through two buffers of 64 keys (32 at heads of
+    512); where they just fit, it stages them whole. Heads wider than 128
+    take their output in chunks of 128 dims, each a sweep of its own. All
+    against the plain version."""
     lib = mk._library((), (n_embd, n_embd // n_head))
     assert bool(lib.megakernel_keys_whole(L)) == whole
     args, kw = _megakernel_case(cuda, L=L, spatial=spatial, k=17, n_layer=2,
@@ -819,12 +825,12 @@ def test_explicit_megakernel_refuses_heads_of_64(cuda):
     assert torch.equal(got["auto"], got["megakernel"])
 
 
-@pytest.mark.parametrize("n_embd,n_head", [(48, 4), (1024, 16), (256, 1)],
-                         ids=["n_embd48", "n_embd1024", "heads_of_256"])
+@pytest.mark.parametrize("n_embd,n_head", [(520, 4), (1024, 16), (640, 1)],
+                         ids=["n_embd520", "n_embd1024", "heads_of_640"])
 def test_megakernel_refuses_other_widths(cuda, n_embd, n_head):
-    """Outside the domain (n_embd = 16 mod 32, n_embd above 512, heads above
-    128) the kernels raise: no library is built, nothing is launched, no
-    route is taken in their place."""
+    """Outside the domain (n_embd above 512, whatever its heads) the
+    kernels raise: no library is built, nothing is launched, no route is
+    taken in their place."""
     args, kw = _megakernel_case(cuda, L=40, spatial=(8, 8), k=17, n_layer=2,
                                 s_len=1, B=2, use_cfg=True,
                                 dtype=torch.bfloat16, seed=1, n_embd=n_embd,

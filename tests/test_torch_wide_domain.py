@@ -313,10 +313,10 @@ def test_wide_domain_composes_to_the_jax_tree_and_takes_its_routes():
     """chip_smoke.py's WIDE_DOMAIN overrides on the job scripts' lines
     compose to the JAX package's tree: stage 1 over 16384 codes of dim 512,
     stage 2 (19 layers, n_embd 512 in 2 heads of 256, bf16, 100 steps at
-    guidance 2) over the same codebook. At that width ``kernels_fit`` is
-    false and ``auto`` takes the model route on the card; the honest width
-    (n_embd 64 in heads of 4) over the same 16385 classes takes the
-    megakernel."""
+    guidance 2) over the same codebook. That width lies in the whole-step
+    kernels' domain (every n_embd up to 512), so ``auto`` takes the
+    megakernel route on the card, as JAX's rule does, and so does the
+    honest width (n_embd 64 in heads of 4) over the same 16385 classes."""
     from gif_synthesis_with_discrete_diffusion_tpu.utils import config as jcfg
     from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
         HONEST, at_width)
@@ -346,7 +346,7 @@ def test_wide_domain_composes_to_the_jax_tree_and_takes_its_routes():
     assert (dm["diffusion_step"], dm["guidance_scale"]) == (100, 2)
 
     cuda = torch.device("cuda")
-    for (n_embd, n_head), route in (((512, 2), "model"),
+    for (n_embd, n_head), route in (((512, 2), "megakernel"),
                                     ((64, 16), "megakernel")):
         cfg = at_width(dict(HONEST, vqvae=dict(HONEST["vqvae"],
                                                n_codes=16384,
