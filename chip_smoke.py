@@ -174,9 +174,13 @@ Phases:
      (``probes/attention_variants.py: compare_widths``); (b) the
      denoiser at VQ-Diffusion-B's published width (``generate.VQD_B``:
      n_embd 1024 in 16 heads of 64, 387.4 M parameters): its logits at one
-     timestep through K2 against the plain attention on the card, then
-     ``sample_videos`` for 4 clips over 100 steps on the route ``auto``
-     takes (``model``: 38 K2 and 1 K1 a step); (c) one
+     timestep through K2 against the plain attention on the card; ``auto``
+     takes the megakernel route there, as JAX's rule does; K3 at that
+     sampling shape (B=4 under CFG, 19 layers, bf16 weights) against the
+     plain version; then ``sample_videos`` for 4 clips over 100 steps on
+     ``sampler="auto"`` (the megakernel route, a K3 a step) and on
+     ``sampler="model"`` (38 K2 and 1 K1 a step), in turns, with each
+     route's ms a step; (c) one
      ``TRAIN_STEP2_VQD_B`` step (f32, B=4) through K2 / K5 against the plain
      attention, then ``tasks.train`` on ``ddiff_ucf.sh``'s line with the two
      overrides at B=16, 4 steps in bf16 and 2 in f32 (38 K2, 38 K5 and 1 K6
@@ -184,16 +188,19 @@ Phases:
      dim (all at 64); (d) K2 and K5 at d = 4 timed again, in turns with
      ``--parent ROOT`` where given (three rounds); (e) with ``--profile``, (b)'s sampling
      and the training step at B=16 in bf16 and f32 under torch.profiler;
- 21. K3 and K4 at every width the JAX megakernel takes (n_embd 32-512 in
-     heads of 4-128: ``csrc/megakernel_step.cu``, one library per width,
-     built in the background from phase 1 on): (a) against their plain
-     versions at ``MK_WIDTHS`` (2 layers; general and one-token
-     conditions, f32 and bf16 weights, ragged tiles) and where a head's
-     keys are streamed (heads of 32 at 2304 tokens, 64 and 128 at 1024) or
+ 21. K3 and K4 at every width the JAX megakernel takes (n_embd 24-2048 in
+     heads of 1-1024: ``csrc/megakernel_step.cu``, one library per width,
+     built in the background from phase 1 on; above 512 the activations
+     in device memory): (a) against their plain
+     versions at ``MK_WIDTHS`` (2 layers, 1 above n_embd 512; general and
+     one-token conditions, f32 and bf16 weights, ragged tiles) and where a head's
+     keys are streamed (heads of 32 at 2304 tokens, 64 and 128 at 1024,
+     1024 at 1024 in tiles of 16) or
      only just staged whole (heads of 16 at 2304), each with the plain
      version's own distances its tolerance is read against; (b) the
      honest configuration (K3, B=32) and the MSRVTT grid (K4, B=8) at
-     n_embd 64 in heads of 8 and 256 in heads of 16, against the plain
+     n_embd 64 in heads of 8, 256 in heads of 16, 512 in heads of 256 and
+     VQ-Diffusion-B's 1024 in heads of 64, against the plain
      version at that shape, then timed against it, with the bound and by
      phase; (c) ``auto`` at n_embd 64 in heads of 8: the small config
      against the CPU's plain run, the honest configuration for 4 clips
@@ -238,7 +245,8 @@ and P3 from the depth / packing probe, and each kernel's launches in
 phase 17's runs (K2, K5 and K6 there, K3 or K1, whichever ``auto`` took,
 at least once); phase 18's checkpointed steps (K2, K5) and rank 0's launches of K2, K5,
 K6 and K3 there; phase 20's ``VQD_B`` runs (K1 and K2 sampling, K2, K5
-and K6 in both ``tasks.train`` runs), and for K2 and K5 the launches of
+and K6 in both ``tasks.train`` runs, K3 in its megakernel sampling), and
+for K2 and K5 the launches of
 this process by head dim, as the wrappers counted them
 (``launches_by_head_dim``: every phase, the checks included; summed by
 the design each head dim takes in ``launches_by_design``: ``tiles`` at 4
@@ -1700,13 +1708,11 @@ def _check_softmax_shift(torch, phase: str, pack_cfg: bool) -> float:
     return worst
 
 
-def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
-                     defines=(), iters: int = 10, tol: float | None = None):
-    """Plain, kernel, kernel, plain at a serving configuration (``iters``
-    launches each): one sampled step from all-MASK tokens with the models'
-    own weights and a label condition; with ``tol``, first the same step in
-    argmax mode against the plain version (:func:`_check_megakernel`).
-    Returns (ms, plain ms, bound ms, bound by, tables, kw)."""
+def _serving_step(torch, models, b, pack_cfg):
+    """One sampling step's arguments for K3 / K4 at a serving configuration:
+    the models' own weights packed as the megakernel route packs them, a
+    label condition, all-MASK tokens, the first reverse step. Returns
+    (args, tables, kw, the plain version's kw)."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
 
@@ -1724,6 +1730,22 @@ def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
     args = (tab["packed"], tokens, tab["adaln_all"][0], tab["kc"], tab["vc"],
             tab["pos"], tab["rows"][99], 5)
     ref_kw = {n: v for n, v in kw.items() if n != "pack_cfg"}
+    return args, tab, kw, ref_kw
+
+
+def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
+                     defines=(), iters: int = 10, tol: float | None = None):
+    """Plain, kernel, kernel, plain at a serving configuration (``iters``
+    launches each): one sampled step from all-MASK tokens with the models'
+    own weights and a label condition; with ``tol``, first the same step in
+    argmax mode against the plain version (:func:`_check_megakernel`).
+    Returns (ms, plain ms, bound ms, bound by, tables, kw)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+
+    d3pm = models.generator.diffusion
+    L = d3pm.content_seq_len
+    args, tab, kw, ref_kw = _serving_step(torch, models, b, pack_cfg)
     if tol is not None:
         _check_megakernel(torch, phase, f"{label} B={b} L={L} "
                           f"{kw['n_layer']} layers K={kw['num_classes']} "
@@ -4308,8 +4330,13 @@ def _attention_widths(torch, smi: str, phase: str, dims, b: int,
 def _phase20_sampling(torch, smi: str) -> dict:
     """(b) ``VQD_B``: the denoiser's logits at one timestep (B=4 under CFG,
     8 rows) through K2 against the plain attention on the same card
-    tensors, then ``sample_videos`` for 4 clips over 100 steps on the route
-    ``auto`` takes (the ``model`` route: 38 K2 and 1 K1 a step)."""
+    tensors; ``auto`` takes the megakernel route there (n_embd 1024 lies in
+    the whole-step kernels' domain, as in JAX's rule); K3 at that sampling
+    shape against the plain version (:func:`_phase20_vqd_b_k3`); then
+    ``sample_videos`` for the same 4 clips over 100 steps on
+    ``sampler="auto"`` (the megakernel route, a K3 launch a step) and on an
+    explicit ``sampler="model"`` (38 K2 and 1 K1 a step), in turns: auto,
+    model, model, auto; the launches of each route's first run."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
         VQD_B, build_models, sample_videos)
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models.d3pm import (
@@ -4338,8 +4365,9 @@ def _phase20_sampling(torch, smi: str) -> dict:
           f"{cfg['transformer']['n_embd'] // cfg['transformer']['n_head']}, "
           f"{n_params} denoiser parameters, {diff.content_seq_len} tokens "
           f"over {diff.num_classes - 1} codes; route auto -> {route}")
-    if route != "model":
-        raise AssertionError("auto does not take the model route at VQD_B")
+    if route != "megakernel":
+        raise AssertionError("auto does not take the megakernel route at "
+                             "VQD_B")
 
     g = torch.Generator().manual_seed(20)
     n_classes = VQD_B["generator"]["textencoder"]["n_classes"]
@@ -4369,37 +4397,84 @@ def _phase20_sampling(torch, smi: str) -> dict:
                              "plain attention")
     del got, want
 
+    k3_err = _phase20_vqd_b_k3(torch, models)
     batch = {"label": torch.randint(0, n_classes, (VQD_B_CLIPS,),
                                     generator=g)}
-    fused_sample_step.launches = fused_mha.launches = 0
-    widths = fused_mha.by_head_dim.copy()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    video = sample_videos(models, batch, g, sampler="auto")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {"K1": fused_sample_step.launches, "K2": fused_mha.launches}
-    widths = dict(fused_mha.by_head_dim - widths)
     shape = (VQD_B_CLIPS, 16, 64, 64, 3)
-    print(f"phase 20: VQD_B sample_videos, {VQD_B_CLIPS} clips, {steps} "
-          f"steps, route {route}: {wall:.3f} s = {VQD_B_CLIPS / wall:.3f} "
-          f"clips/s, {wall / steps * 1e3:.2f} ms a step (the decode "
-          f"included); launches K2 {launches['K2']} "
-          f"({launches['K2'] / steps:.0f} a step), K1 {launches['K1']} "
-          f"({launches['K1'] / steps:.0f} a step), K2 by (head dim, dtype) "
-          f"{_by_head_dim(widths)}; peak memory {peak:.2f} GiB ({smi})")
-    if launches != {"K1": steps, "K2": 2 * n_layer * steps} or widths != {
-            (64, torch.float32): launches["K2"]}:
-        raise AssertionError("VQD_B sampling did not launch K2 / K1 as "
-                             "expected")
-    if tuple(video.shape) != shape or not bool(video.isfinite().all()):
-        raise AssertionError(f"video {tuple(video.shape)} is not a finite "
-                             f"{shape}")
-    del models, video
+    launches, ms = {}, {"megakernel": [], "model": []}
+    for sampler in ("auto", "model", "model", "auto"):
+        route = "megakernel" if sampler == "auto" else "model"
+        fused_sample_step.launches = fused_mha.launches = 0
+        _reset_megakernel_counts()
+        widths = fused_mha.by_head_dim.copy()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        video = sample_videos(models, batch,
+                              torch.Generator().manual_seed(202),
+                              sampler=sampler)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = {"K1": fused_sample_step.launches,
+                  "K2": fused_mha.launches,
+                  "K3": _megakernel_counts()[0],
+                  "K4": _megakernel_counts()[1]}
+        widths = dict(fused_mha.by_head_dim - widths)
+        ms[route].append(wall / steps * 1e3)
+        print(f"phase 20: VQD_B sample_videos, {VQD_B_CLIPS} clips, {steps} "
+              f"steps, sampler {sampler!r} ({route} route): {wall:.3f} s = "
+              f"{VQD_B_CLIPS / wall:.3f} clips/s, {wall / steps * 1e3:.2f} "
+              f"ms a step (the decode included); launches K1 "
+              f"{counts['K1']}, K2 {counts['K2']} (by (head dim, dtype) "
+              f"{_by_head_dim(widths)}), K3 {counts['K3']}, K4 "
+              f"{counts['K4']}; peak memory {peak:.2f} GiB ({smi})")
+        want = ({"K1": 0, "K2": 0, "K3": steps, "K4": 0}
+                if route == "megakernel" else
+                {"K1": steps, "K2": 2 * n_layer * steps, "K3": 0, "K4": 0})
+        if counts != want or (route == "model" and widths != {
+                (64, torch.float32): counts["K2"]}):
+            raise AssertionError(f"VQD_B sampling on {sampler!r} did not "
+                                 f"launch its kernels as expected")
+        if tuple(video.shape) != shape or not bool(video.isfinite().all()):
+            raise AssertionError(f"video {tuple(video.shape)} is not a "
+                                 f"finite {shape}")
+        launches.setdefault(route, counts)
+        del video
+    print(f"phase 20: VQD_B in turns, ms a step (the decode included): "
+          + "; ".join(f"{'auto (megakernel)' if k == 'megakernel' else k} "
+                      + ", ".join(f"{v:.2f}" for v in vals)
+                      for k, vals in ms.items())
+          + f"; megakernel / model "
+          f"{min(ms['megakernel']) / min(ms['model']):.3f} ({smi})")
+    del models
     torch.cuda.empty_cache()
-    return launches
+    return {"K1": launches["model"]["K1"], "K2": launches["model"]["K2"],
+            "K3": launches["megakernel"]["K3"], "K3 max-abs": k3_err,
+            "ms": ms}
+
+
+def _phase20_vqd_b_k3(torch, models) -> float:
+    """K3 at ``VQD_B``'s own sampling step (its models' weights packed as
+    the megakernel route packs them, bf16; n_embd 1024 in 16 heads of 64,
+    19 layers, 1024 tokens, K = 4097, a label condition, VQD_B_CLIPS rows
+    under CFG: fewer packed tiles than blocks, one work item a block)
+    against the plain version, its hidden state under mk_hidden_tol and
+    MK_RMS_SHARE, before the route is timed. Returns the hidden state's
+    max-abs error."""
+    args, tab, kw, ref_kw = _serving_step(torch, models, VQD_B_CLIPS, None)
+    if not kw["pack_cfg"]:
+        raise AssertionError("VQD_B's sampling step does not pack into K3")
+    err = _check_megakernel(
+        torch, "phase 20", f"K3 n_embd {kw['n_embd']} in {kw['n_head']} "
+        f"heads, bf16 weights B={VQD_B_CLIPS} L={args[1].shape[1]} "
+        f"K={kw['num_classes']} {kw['n_layer']} layers (VQD_B's own "
+        f"sampling step, argmax)", args, ref_kw, True,
+        mk_hidden_tol(kw["n_embd"], kw["n_embd"] // kw["n_head"],
+                      4 * kw["n_embd"]), witness=True)[1]
+    del args, tab
+    torch.cuda.empty_cache()
+    return err
 
 
 def _phase20_step_compare(torch, smi: str) -> None:
@@ -4606,19 +4681,25 @@ def phase_widths(torch, smi: str, parent: str | None = None,
     return {"kernels": kernels, "sampling": sampling, "train": train}
 
 
-# phase 21: K3 and K4 at every width the JAX megakernel takes up to n_embd
-# 512 (the CUDA kernels take every n_embd up to 512 in any heads that divide
-# it, one library per (n_embd, head dim)): the widths of the CPU tests (head
-# dims 4, 16, 32, 64, 128; n_embd 24, 48, 80 and 100 in heads of 3, 12, 5
-# and 25, heads of 144, 256 and 512), the full-width configurations (heads
-# of 8 and of 16), n_embd 96 (a half-padded last chunk of 64 columns; heads
-# of 12 and of 24: a 16-deep and an 8-deep QK^T step, an odd count of 8-dim
-# PV tiles) and the top of the domain
+# phase 21: K3 and K4 at every width the JAX megakernel takes (the CUDA
+# kernels take every n_embd up to 2048 in any heads that divide it, one
+# library per (n_embd, head dim); above 512 a tile's activations live in
+# device memory): the widths of the CPU tests (head dims 4, 16, 32, 64,
+# 128; n_embd 24, 48, 80 and 100 in heads of 3, 12, 5 and 25, heads of 144,
+# 256 and 512), the full-width configurations (heads of 8 and of 16), n_embd
+# 96 (a half-padded last chunk of 64 columns; heads of 12 and of 24: a
+# 16-deep and an 8-deep QK^T step, an odd count of 8-dim PV tiles), the top
+# of the first domain, and above it: n_embd 520 (a last chunk of 8
+# columns), 640 in heads of 128, 768 in heads of 256, 1000 in heads of 125
+# (no multiple of 64 or 8), VQ-Diffusion-B's 1024 in heads of 64, 1536 in
+# heads of 128 and the top, 2048, in heads of 1024 (keys streamed 16 at a
+# time)
 MK_WIDTHS = ((32, 8), (64, 4), (64, 2), (128, 2), (128, 1), (64, 8), (96, 8),
              (96, 4), (256, 16), (512, 8), (24, 8), (48, 4), (80, 16),
-             (100, 4), (144, 1), (512, 2), (512, 1))
+             (100, 4), (144, 1), (512, 2), (512, 1), (520, 4), (640, 5),
+             (768, 3), (1000, 8), (1024, 16), (1536, 12), (2048, 2))
 # the honest configuration and the MSRVTT grid at these widths, timed
-MK_FULL_WIDTHS = ((64, 8), (256, 16), (512, 2))
+MK_FULL_WIDTHS = ((64, 8), (256, 16), (512, 2), (1024, 16))
 MK_WIDTH_ITERS = 3
 # the serving widths' runs of phase 21 (c): clips and steps of the honest
 # configuration at n_embd 64 in heads of 8 on the route auto takes
@@ -4748,7 +4829,8 @@ def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
     """(a) K3 and K4 against the plain version at every width of MK_WIDTHS
     at small depth, and where a head's keys cannot be staged whole (4 d L
     bytes over a block's 227 KB: head dim 32 at 2304 tokens, 64 and 128 at
-    1024) or only just can (heads of 16 at 2304 tokens); each case with the
+    1024, 1024 at 1024 in tiles of 16 keys) or only just can (heads of 16
+    at 2304 tokens); each case with the
     plain version's own distances (:func:`_hidden_witness`). Returns the
     worst hidden-state max-abs error and, by width, the largest relative
     distance of the kernel and of the witness and the smallest of each
@@ -4775,7 +4857,11 @@ def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
         (512, 1): ("K4 CFG B=1 L=2304 K=17 2 layers S=1 (keys streamed in "
                    "tiles of 32, four output chunks)", False,
                    dict(L=2304, spatial=(48, 48), k=17, n_layer=2, s_len=1,
-                        B=1, use_cfg=True, dtype=bf16))}
+                        B=1, use_cfg=True, dtype=bf16)),
+        (2048, 2): ("K3 B=1 L=1024 K=17 2 layers S=3 (keys streamed in "
+                    "tiles of 16, eight output chunks)", True,
+                    dict(L=1024, spatial=(32, 32), k=17, n_layer=2, s_len=3,
+                         B=1, use_cfg=True, dtype=bf16))}
     # an MLP width of 16 mod 32 (3 x 80 = 240), and one that is no multiple
     # of 8 beside an n_embd that is none (3 x 100 = 300: 304 and 104 wide
     # in the tables)
@@ -4803,6 +4889,9 @@ def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
               f"dims are padding; the f32 products' 64 x 64 tiles hold "
               f"{_tile_padding(n_embd, 4 * n_embd):.3f} padding")
         cases = list(_mk_width_cases(torch))
+        if n_embd > 512:   # one layer there: the run's 1200 s
+            cases = [(label.replace("2 layers", "1 layer"), pack,
+                      dict(case, n_layer=1)) for label, pack, case in cases]
         for extra in (long_grid, mlp_case):
             if (n_embd, n_head) in extra:
                 cases.append(extra[n_embd, n_head])
@@ -5940,6 +6029,8 @@ def main() -> int:
         fused_mha, fused_mha_bwd)
     vqd_sample = ("phase 20: VQD_B (n_embd 1024, heads of 64) sampled, "
                   "model route, 4 clips, 100 steps")
+    vqd_sample_mk = ("phase 20: VQD_B (n_embd 1024, heads of 64) sampled "
+                     "on auto (the megakernel route), 4 clips, 100 steps")
     vqd_train = ("phase 20: tasks.train at ddiff_ucf.sh + VQD_B, B=16, {} "
                  "denoiser")
     vqd_runs = {
@@ -5955,7 +6046,9 @@ def main() -> int:
                                 widths["train"]["bfloat16"]["K5"])],
         "nearest_code_stats": [
             (vqd_train.format(n), widths["train"][dt]["K6"])
-            for n, dt in (("f32", "float32"), ("bf16", "bfloat16"))]}
+            for n, dt in (("f32", "float32"), ("bf16", "bfloat16"))],
+        "megakernel_step_packed": [(vqd_sample_mk,
+                                    widths["sampling"]["K3"])]}
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.attention import (
         tma_refused)
     for kernel in kernels:

@@ -48,15 +48,17 @@
 //    (a block-wide barrier each, the epilogues).
 //
 // Widths. One library is built per exact (n_embd, head dim): MK_C and MK_D,
-// by default 64 and 4. The kernels take every n_embd from 1 to 512, every
-// head dim that divides it, any MLP width, any depth. In device memory an
-// n_embd-wide row (every table, weight and the x / o scratch) and an MLP
-// row are padded with zero columns to a multiple of 8 (kC; the tables are
-// made so, ops/megakernel.py: storage_width), so that every load stays
-// aligned; the padded columns stay exactly zero through every phase (zero
-// weights and biases in and out), LayerNorm takes its mean and variance
-// over the true n_embd (kCT), and phase A scatters only the true columns
-// into the heads.
+// by default 64 and 4. The kernels take every n_embd from 1 to 2048 (the
+// JAX kernels' reach: one layer's bf16 weights, 28 n_embd^2 bytes, fill
+// their 100 MiB of VMEM near 1935), every head dim that divides it, any MLP
+// width, any depth (the weights stream from device memory). In device
+// memory an n_embd-wide row (every table, weight and the x / o scratch)
+// and an MLP row are padded with zero columns to a multiple of 8 (kC; the
+// tables are made so, ops/megakernel.py: storage_width), so that every
+// load stays aligned; the padded columns stay exactly zero through every
+// phase (zero weights and biases in and out), LayerNorm takes its mean and
+// variance over the true n_embd (kCT), and phase A scatters only the true
+// columns into the heads.
 // A row is walked in chunks of 64 columns (kNCH of them; the last one may
 // be part padding), a contraction in 64-deep weight tiles, the MLP in
 // chunks of 64 hidden units (the last one ragged). A head's q / k / v are
@@ -64,6 +66,33 @@
 // head-dim-4 layout); heads wider than 128 walk the output dims of P V in
 // chunks of at most 128 (kNOC), each recomputing the scores from the same
 // shift and row sum, so every chunk rounds the same bf16 probabilities.
+//
+// Above n_embd 512 (MK_WIDE; the units under "#if MK_WIDE") a tile's 64
+// rows no longer fit the block beside the weight tiles (237,568 B at 520
+// against 232,448), and a row no longer fits a thread's registers for its
+// LayerNorm. The tile keeps its 64 rows, so that every epilogue, the
+// packed row order and the tail are the narrower widths' own, and the
+// activations move to device memory: each block owns two slabs (the
+// scratch's act and hact, chunk-major: 64 rows x 64 columns a chunk), and
+// every product stages its A operand's 64-column chunk by cp.async into a
+// 64 x 72 buffer beside the weight tile it meets (chunk_product), the first
+// on entry (the caller has just written the slab), the next during this
+// one's mma. LayerNorm reads a row three times from device memory (sum,
+// squares about the mean, output; ln_row's arithmetic, a float4 a lane in
+// registers). The residual stream is the hidden state x itself: each
+// product's epilogue adds its chunk there, as the registers' copy did. The
+// MLP's hidden units go whole to hact before its projection sums over them
+// in the order a chunk at a time would; the cross-attention's output waits
+// there too. Each 64-row tile so re-reads its activations once per 64
+// output columns (from L2: ~49 MB a layer at n_embd 1024 and 64 rows,
+// beside 25 MB of bf16 weights); fewer rows a tile would cut nothing of
+// the weights' traffic, which every tile reads once. A product's 64-deep
+// tiles are each summed from zero and added in f32 (the tensor cores'
+// accumulation truncates, and a 2048-deep chain lost the lo half's
+// precision). Phase S streams keys 16 a tile where two tiles of
+// 32 do not fit (heads over ~900 dims), and through one buffer where two
+// of 16 do not (heads over ~1800). Up to 512 the code is as it was (its
+// SASS unchanged).
 //
 // The serving width (n_embd 64 in 16 heads of 4) keeps the code written for
 // it (MK_SERVING: the units under "#if MK_SERVING" below), which this
@@ -132,6 +161,13 @@
 #else
 #define MK_SERVING 0
 #endif
+// n_embd above 512: the activations live in device memory (the units under
+// "#if MK_WIDE"; the header's "Widths" paragraph)
+#if MK_C > 512
+#define MK_WIDE 1
+#else
+#define MK_WIDE 0
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -148,13 +184,25 @@ constexpr int kH = kCT / kD;    // heads
 // the row stride of every n_embd-wide table and scratch: n_embd padded
 // with zero columns to a multiple of 8
 constexpr int kC = (kCT + 7) / 8 * 8;
+#if MK_WIDE
+static_assert(kCT <= 2048, "n_embd");
+#else
 static_assert(kCT >= 1 && kCT <= 512, "n_embd");
+#endif
 static_assert(kD >= 1 && kCT % kD == 0, "head dim");
 #endif  // MK_SERVING
 constexpr int kThreads = 256;
 constexpr int kRows = 64;       // rows of a tile work item
 #if MK_SERVING
 constexpr int kLda = 72;        // row stride of an activation tile (8 mod 32)
+#elif MK_WIDE
+constexpr int kNCH = (kC + 63) / 64;   // 64-column chunks of a row
+constexpr int kLdh = 72;               // row stride of a staged 64-wide tile
+// the activation tiles are slabs in device memory, 64 rows x kNCH chunks,
+// chunk-major (element (r, c) at 4096 (c / 64) + 64 r + c % 64); a product
+// stages a slab's 64-column chunk beside each weight tile, row stride kLda
+constexpr int kLda = kLdh;
+constexpr int kSlabChunk = kRows * 64;
 #else   // MK_SERVING
 constexpr int kNCH = (kC + 63) / 64;   // 64-column chunks of a row
 constexpr int kLda = 64 * kNCH + 8;    // row stride of the activation tile
@@ -166,6 +214,14 @@ constexpr int kWBytes = 32 * (2 * 64 + 8) * 4 * 2;   // two of NB = 64
 #if MK_SERVING
 constexpr int kSmemBytes = 2 * kTileBytes + 2 * kWBytes;
 constexpr int kMaxSeq = kSmemBytes / 16;   // phase S holds a head's K and V
+#elif MK_WIDE
+// two weight tiles, the two staged activation chunks beside them, and the
+// tail's table of partial sums (64 rows x 4 warps of float2); one block an
+// SM, which takes all of a block's 227 KB for phase S
+constexpr int kStepBytes = 2 * kWBytes + 2 * kTileBytes + kRows * 4 * 8;
+constexpr int kMinBlocks = 1;
+constexpr int kSmemBytes = 232448;
+static_assert(kStepBytes <= kSmemBytes, "the tiles fit a block");
 #else   // MK_SERVING
 constexpr int kStepBytes = kTileBytes + kRows * kLdh * 4 + 2 * kWBytes;
 // two blocks an SM where both fit the SM's 228 KB (1 KB a block reserved),
@@ -204,11 +260,23 @@ constexpr int kNTV = kDS == 4 ? 1 : kDS / 8;  // PV's 8-dim output tiles
 constexpr bool kWide = kDS > 128;
 constexpr int kNOC = kWide ? (kNTV + 15) / 16 : 1;
 constexpr int kNTA = (kNTV + kNOC - 1) / kNOC;
+#if MK_WIDE
+// keys of a streamed tile: 64, 32 or 16, the most of which two tiles fit,
+// through two buffers (the next tile's copy in flight while this one is
+// read); heads wider than ~1800 dims, where two tiles of 16 keys do not
+// fit, stream tiles of 16 through one buffer (kSBuf)
+constexpr int kSKT = 2 * 64 * kKeyBytes <= kSmemBytes   ? 64
+                     : 2 * 32 * kKeyBytes <= kSmemBytes ? 32
+                                                        : 16;
+constexpr int kSBuf = 2 * kSKT * kKeyBytes <= kSmemBytes ? 2 : 1;
+#else
 // keys of a streamed tile: 64, or 32 where two tiles of 64 do not fit
 constexpr int kSKT = 2 * 64 * kKeyBytes <= kSmemBytes ? 64 : 32;
+constexpr int kSBuf = 2;
+#endif
 constexpr int kMaxSeq = kDS == 4 ? kSmemBytes / 16 : 1 << 16;
-static_assert(kDS == 4 || 2 * kSKT * kKeyBytes <= kSmemBytes,
-              "two streamed tiles fit");
+static_assert(kDS == 4 || kSBuf * kSKT * kKeyBytes <= kSmemBytes,
+              "the streamed tiles fit");
 
 // MK_NOINLINE: the phases compiled as functions of their own, each with its
 // own register allocation (bit 0 phase A, 1 phase S, 2 phase B, 3 the
@@ -249,7 +317,7 @@ enum Ptr {
   P_SCHED, P_TOKENS, P_OUT, P_ADALN, P_KC, P_VC, P_EMB, P_POS, P_WQKV,
   P_BQKV, P_WPROJ, P_BPROJ, P_WQC, P_BQC, P_WPROJC, P_BPROJC, P_LN2S,
   P_LN2B, P_WFC, P_BFC, P_WPJ, P_BPJ, P_LNOS, P_LNOB, P_WLOG, P_BLOG, P_X,
-  P_Q, P_K, P_V, P_O, P_KMAX, P_STAMPS
+  P_Q, P_K, P_V, P_O, P_KMAX, P_STAMPS, P_ACT, P_HACT
 };
 enum Int {
   I_B, I_L, I_NBR, I_NLAYER, I_KV, I_SP, I_SVALID, I_HIDDEN, I_WBF16,
@@ -296,6 +364,11 @@ struct Params {
   float guidance;
   float qscale;     // fl32(1 / sqrt(head dim)), rounded once from double
   int keys_whole;   // phase S stages a head's keys whole (else streams them)
+#if MK_WIDE
+  // per block: the activation slab (kNCH chunks) and the MLP's (the larger
+  // of its chunks and kNCH), megakernel_slab_floats apiece
+  float *act, *hact;
+#endif
 };
 #endif  // MK_SERVING
 
@@ -873,6 +946,69 @@ __device__ __forceinline__ void stage_tile(float* Ws, const WTile& t, int i,
 // the last tile was multiplied and `next` is in flight: the caller runs its
 // epilogue, then sync_staged() and flips cur.
 #define WB(i) ((i) ? W1 : W0)
+#if MK_WIDE
+// The tensor cores' f32 accumulation truncates toward zero: a chain of
+// mma into one sum drifts by up to an ulp of it a step, and a product
+// 2048 deep chains 512 (the MLP's projection up to 2048). So each 64-deep
+// tile of a product is summed from zero and added to the product's sum in
+// f32, rounded to nearest: at n_embd 2048 the hidden state's RMS distance
+// from the plain version fell from 0.18-0.59 of the one-TF32 control's to
+// 0.05-0.15 (PERF.md).
+
+// Stage chunk `src` of a slab (64 rows of 64 columns, of which the first
+// ncol exist; the rest land as zeros) into a tile of row stride kLdh.
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src,
+                                            int ncol) {
+  for (int u = threadIdx.x; u < kRows * 16; u += kThreads) {
+    const int r = u >> 4, c4 = u & 15;
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + r * kLdh + 4 * c4));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(d), "l"(src + r * 64 + 4 * c4),
+                 "r"(4 * c4 < ncol ? 16 : 0));
+  }
+}
+
+// The same product where A is a slab in device memory: its chunk i is
+// staged beside weight tile i, in the staged-A buffer that goes with the
+// weight buffer (two of kRows x kLdh floats after W1). The slab is written
+// by the product's caller, so its first chunk is staged on entry (the
+// previous product prefetched only the weights) and published with the
+// others.
+template <int NB, int NT, int LDA = kLda>
+__device__ __forceinline__ void chunk_product(const float* A, float* W0,
+                                              float* W1, int& cur, int wb,
+                                              const WTile& t,
+                                              const WTile& next,
+                                              float (&acc)[2][NT][4]) {
+  float* ab = W1 + kWBytes / 4;
+  const int nk = (t.krows + 63) / 64;
+  stage_chunk(ab + cur * kRows * kLdh, A, min(64, t.krows));
+  sync_staged();
+  for (int i = 0; i < nk; ++i) {
+    if (i + 1 < nk) {
+      stage_tile<NB>(WB(cur ^ 1), t, i + 1, wb);
+      stage_chunk(ab + (cur ^ 1) * kRows * kLdh, A + kSlabChunk * (i + 1),
+                  min(64, t.krows - 64 * (i + 1)));
+    } else if (next.w != nullptr) {
+      stage_tile<NB>(WB(cur ^ 1), next, 0, wb);
+    }
+    float part[2][NT][4];
+    zero<NT>(part);
+    mma_tile<NT, kLdh>(ab + cur * kRows * kLdh, WB(cur), wb, part);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][nt][c] += part[mt][nt][c];
+    if (i + 1 < nk) {
+      sync_staged();
+      cur ^= 1;
+    }
+  }
+}
+#else
 template <int NB, int NT, int LDA = kLda>
 __device__ __forceinline__ void chunk_product(const float* A, float* W0,
                                               float* W1, int& cur, int wb,
@@ -892,6 +1028,7 @@ __device__ __forceinline__ void chunk_product(const float* A, float* W0,
     }
   }
 }
+#endif
 
 // whether column 4 tx .. 4 tx + 3 of chunk j of a row lies inside n_embd
 __device__ __forceinline__ bool col_in(int j, int tx) {
@@ -992,6 +1129,80 @@ __device__ __forceinline__ void store_acc(float* T, const float (&v)[2][NT][4],
                                    8 * (NT * wn + nt) + 2 * tig) =
             make_float2(v[mt][nt][2 * hf], v[mt][nt][2 * hf + 1]);
 }
+#if MK_WIDE
+
+// LN(src) * scale + shift (plus1: the AdaLN form LN(src) * (1 + scale) +
+// shift) of an n_embd-wide row into row r of a slab, the columns past
+// n_embd zero; src == nullptr: a row of zeros. The row is read three times
+// (the sum, the squares about the mean, the output), a float4 a lane in
+// each chunk, so that no register holds more than a float4 of it; the
+// arithmetic is ln_row's.
+__device__ __forceinline__ void norm_row(float* slab, int r, int tx,
+                                         const float* src,
+                                         const float* scale,
+                                         const float* shift, bool plus1) {
+  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto x_at = [&](int j) {
+    return src != nullptr && col_in(j, tx) ? ld4(src + 64 * j + tx * 4) : z4;
+  };
+  // (x - mean), the padding columns zero
+  auto centred = [&](int j, float mu) {
+    float4 x = x_at(j);
+    if (col_in(j, tx)) {
+      x = make_float4(x.x - mu, x.y - mu, x.z - mu, x.w - mu);
+      if constexpr (kCT != kC) {
+        const int c0 = 64 * j + 4 * tx;
+        if (c0 >= kCT) x.x = 0.f;
+        if (c0 + 1 >= kCT) x.y = 0.f;
+        if (c0 + 2 >= kCT) x.z = 0.f;
+        if (c0 + 3 >= kCT) x.w = 0.f;
+      }
+    }
+    return x;
+  };
+  float s = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < kNCH; ++j) {
+    const float4 x = x_at(j);
+    const float t = x.x + x.y + x.z + x.w;
+    s = j == 0 ? t : s + t;
+  }
+  const float mu = sum16(s) / static_cast<float>(kCT);
+  float v = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < kNCH; ++j) {
+    if (col_in(j, tx)) {
+      const float4 x = centred(j, mu);
+      const float vj = x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+      v = j == 0 ? vj : v + vj;
+    }
+  }
+  const float var = sum16(v) / static_cast<float>(kCT);
+  const float rs = rsqrtf(var + kLnEps);
+  const float o = plus1 ? 1.f : 0.f;
+#pragma unroll 4
+  for (int j = 0; j < kNCH; ++j) {
+    float4 x = centred(j, mu);
+    x = make_float4(x.x * rs, x.y * rs, x.z * rs, x.w * rs);
+    const float4 sc = col_in(j, tx) ? ld4(scale + 64 * j + tx * 4) : z4;
+    const float4 sh = col_in(j, tx) ? ld4(shift + 64 * j + tx * 4) : z4;
+    *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
+        make_float4(x.x * (o + sc.x) + sh.x, x.y * (o + sc.y) + sh.y,
+                    x.z * (o + sc.z) + sh.z, x.w * (o + sc.w) + sh.w);
+  }
+}
+
+// an n_embd-wide row (row stride kC; nullptr: zeros) into row r of a slab,
+// the columns past n_embd zero
+__device__ __forceinline__ void copy_row(float* slab, int r, int tx,
+                                         const float* src) {
+#pragma unroll 4
+  for (int j = 0; j < kNCH; ++j)
+    *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
+        src != nullptr && col_in(j, tx) ? ld4(src + 64 * j + tx * 4)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // phase A: (embedding) -> AdaLN-LN -> QKV -> q/k/v scratch
@@ -1004,9 +1215,11 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
   const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
   const int n_items = tile_items<PACKED>(p);
   const float* ada = p.adaln + static_cast<size_t>(layer) * 4 * kC;
+#if !MK_WIDE
   float4 sc[kNCH], sh[kNCH];
   load_row(ada, tx, sc);
   load_row(ada + kC, tx, sh);
+#endif
   const size_t wbase = static_cast<size_t>(layer) * kC * 3 * kC;
   // output chunk j of section sec (q, k, v) of the QKV product
   auto qkv = [&](int sec, int j) {
@@ -1014,6 +1227,28 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
                  min(64, kC - 64 * j), kC};
   };
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+#if MK_WIDE
+    // (layer 0) the embedding into the hidden state, both branches of a
+    // token alike; then AdaLN-LN of the tile's rows into the slab As (a
+    // thread reads back only what it wrote)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+      float* xp = p.x + (static_cast<size_t>(rb) * p.L + tok) * kC;
+      if (tok < p.L && layer == 0) {
+        const long long t = p.tokens[static_cast<size_t>(b) * p.L + tok];
+        const float* e = p.emb + static_cast<size_t>(t) * kC;
+        const float* ps = p.pos + static_cast<size_t>(tok) * kC;
+        for (int j = 0; j < kNCH; ++j)
+          if (col_in(j, tx))
+            *reinterpret_cast<float4*>(xp + 64 * j + tx * 4) =
+                add4(ld4(e + 64 * j + tx * 4), ld4(ps + 64 * j + tx * 4));
+      }
+      norm_row(As, ty + 16 * i, tx, tok < p.L ? xp : nullptr, ada, ada + kC,
+               true);
+    }
+#else
     float4 prev[kNCH];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -1048,6 +1283,7 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
       for (int j = 0; j < kNCH; ++j) prev[j] = xr[j];
       store_norm(As, ty + 16 * i, tx, xr, sc, sh, true);
     }
+#endif
     int cur = 0;
     stage_tile<64>(W0, qkv(0, 0), 0, p.w_bf16);
     sync_staged();
@@ -2320,9 +2556,10 @@ __device__ MK_PHASE_S void phase_attention_whole(const Params& p, unsigned char*
 }
 
 // One sweep over all keys of a head that does not fit shared memory: tiles
-// of kSKT keys through two buffers (the next tile's copy in flight while
-// this one is read), the whole block in step. active: whether this warp
-// computes (every warp meets the barriers); oc: SWEEP 2's output chunk.
+// of kSKT keys through kSBuf buffers (with two, the next tile's copy in
+// flight while this one is read), the whole block in step. active: whether
+// this warp computes (every warp meets the barriers); oc: SWEEP 2's output
+// chunk.
 template <int SWEEP, class Q>
 __device__ __forceinline__ void stream_sweep(const Params& p,
                                              unsigned char* smem,
@@ -2334,9 +2571,9 @@ __device__ __forceinline__ void stream_sweep(const Params& p,
   constexpr int kTile = kSKT * kRowS;   // bf16 of a K (or V) tile
   unsigned short* buf = reinterpret_cast<unsigned short*>(smem);
   const int nt = (p.L + kSKT - 1) / kSKT;
-  stage_keys(buf, buf + 2 * kTile, kg, vg, 0, kSKT, p.L);
+  stage_keys(buf, buf + kSBuf * kTile, kg, vg, 0, kSKT, p.L);
   for (int t = 0; t < nt; ++t) {
-    if (t + 1 < nt) {
+    if (kSBuf == 2 && t + 1 < nt) {
       const int o = ((t + 1) & 1) * kTile;
       stage_keys(buf + o, buf + 2 * kTile + o, kg, vg, (t + 1) * kSKT, kSKT,
                  p.L);
@@ -2346,12 +2583,15 @@ __device__ __forceinline__ void stream_sweep(const Params& p,
     }
     __syncthreads();
     if (active) {
-      const int o = (t & 1) * kTile;
-      attn_sweep<SWEEP>(reinterpret_cast<const unsigned*>(buf + o),
-                        reinterpret_cast<const unsigned*>(buf + 2 * kTile + o),
-                        0, min(kSKT, p.L - t * kSKT), g, tig, qa, st, oc);
+      const int o = kSBuf == 2 ? (t & 1) * kTile : 0;
+      attn_sweep<SWEEP>(
+          reinterpret_cast<const unsigned*>(buf + o),
+          reinterpret_cast<const unsigned*>(buf + kSBuf * kTile + o), 0,
+          min(kSKT, p.L - t * kSKT), g, tig, qa, st, oc);
     }
     __syncthreads();   // the tile is read: its buffer may be refilled
+    if (kSBuf == 1 && t + 1 < nt)
+      stage_keys(buf, buf + kTile, kg, vg, (t + 1) * kSKT, kSKT, p.L);
   }
 }
 
@@ -2369,7 +2609,7 @@ __device__ MK_PHASE_S void phase_attention_streamed(
   unsigned short* buf = reinterpret_cast<unsigned short*>(smem);
   const unsigned* ksw = reinterpret_cast<const unsigned*>(buf);
   const unsigned* vsw =
-      reinterpret_cast<const unsigned*>(buf + 2 * kSKT * kRowS);
+      reinterpret_cast<const unsigned*>(buf + kSBuf * kSKT * kRowS);
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int rh = item / n_split, part = item % n_split;
     const int qt0 = part * nq / n_split, qt1 = (part + 1) * nq / n_split;
@@ -2388,7 +2628,7 @@ __device__ MK_PHASE_S void phase_attention_streamed(
       AttnState st;
       load_queries(qg, q0, p.L, g, tig, qa);
       // the first tile, for the shift's check against the first 16 keys
-      stage_keys(buf, buf + 2 * kSKT * kRowS, kg, vg, 0, kSKT, p.L);
+      stage_keys(buf, buf + kSBuf * kSKT * kRowS, kg, vg, 0, kSKT, p.L);
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       __syncthreads();
       bool by_bound = true;
@@ -2537,13 +2777,248 @@ __device__ __forceinline__ void cross_attend_any(const Params& p,
 // scratch during the MLP, whose output chunks take the registers); it passes
 // through shared memory only to be normalised row by row: through Hs where
 // one chunk is the whole row, else through As in place.
+#if !MK_WIDE
 constexpr bool kResidualOut = kNCH > 4;
+#endif
 
 // output chunk j of layer's (C, C) weight w
 __device__ __forceinline__ WTile layer_tile(const void* w, int layer, int j) {
   return WTile{w, static_cast<size_t>(layer) * kC * kC, kC, 64 * j,
                min(64, kC - 64 * j), kC};
 }
+#if MK_WIDE
+
+// Phase B above n_embd 512, where neither a row of the tile nor the
+// residual stream's chunks fit the block: the residual stream is the
+// hidden state itself (each product's epilogue adds its chunk there, in
+// the accumulator layout, as the registers' copy would), LayerNorm reads
+// its rows back from there into the slab As, and the MLP's hidden units go
+// whole to the slab Hs (its output sums over them in the same order as
+// a chunk at a time would). The cross-attention's output waits in Hs (row
+// stride kC) before it is copied into As.
+
+// x += As x w + bias (+ the cross-attention bias) over the output chunks of
+// layer's (C, C) weight w; next: the tile after the product
+template <bool PACKED>
+__device__ __forceinline__ void residual_product(
+    const Params& p, int layer, const RowMap& m, const float* As, float* W0,
+    float* W1, int& cur, const void* w, const float* bias, bool cross_bias,
+    const WTile& next) {
+  const int tig = threadIdx.x & 3, wn = (threadIdx.x >> 5) >> 1;
+  const size_t lb = static_cast<size_t>(layer) * kC;
+  for (int j = 0; j < kNCH; ++j) {
+    float acc[2][2][4];
+    zero<2>(acc);
+    chunk_product<64, 2>(As, W0, W1, cur, p.w_bf16, layer_tile(w, layer, j),
+                         j + 1 < kNCH ? layer_tile(w, layer, j + 1) : next,
+                         acc);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+      if (col >= kC) continue;
+      const float2 bv = ld2(bias + lb + col);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!m.ok[i]) continue;
+        float2 add = bv;
+        if (cross_bias) {
+          const float2 cb = ld2(p.kc + (static_cast<size_t>(m.rb[i]) *
+                                        p.n_layer + layer) * p.sp * kC + col);
+          add.x += cb.x;
+          add.y += cb.y;
+        }
+        float2* xp = reinterpret_cast<float2*>(
+            p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC + col);
+        float2 x = *xp;
+        x.x += acc[i >> 1][nt][2 * (i & 1)] + add.x;
+        x.y += acc[i >> 1][nt][2 * (i & 1) + 1] + add.y;
+        *xp = x;
+      }
+    }
+    sync_staged();
+    cur ^= 1;
+  }
+}
+
+// LN of the tile's rows of the hidden state into the slab As (plus1: the
+// AdaLN form), then the barrier that publishes it
+template <bool PACKED>
+__device__ __forceinline__ void norm_tile_rows(const Params& p, int item,
+                                               float* As, const float* scale,
+                                               const float* shift,
+                                               bool plus1) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int b, rb, tok;
+    tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+    norm_row(As, ty + 16 * i, tx,
+             tok < p.L ? p.x + (static_cast<size_t>(rb) * p.L + tok) * kC
+                       : nullptr,
+             scale, shift, plus1);
+  }
+  sync_staged();
+}
+
+template <bool PACKED>
+__device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As,
+                                     float* Hs, float* W0, float* W1) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
+  const int n_items = tile_items<PACKED>(p);
+  const int wb = p.w_bf16;
+  const size_t lb = static_cast<size_t>(layer) * kC;
+  const size_t lfc = static_cast<size_t>(layer) * kC * p.hidden;
+  const int nhc = (p.hidden + 63) / 64;
+  const WTile none{nullptr, 0, 0, 0, 0, 0};
+  // output chunk j of a (C, C) weight; MLP chunk hc of wfc; output chunk j
+  // of wpj over all the hidden units
+  auto cw = [&](const void* w, int j) { return layer_tile(w, layer, j); };
+  auto fc = [&](int hc) {
+    return WTile{p.wfc, lfc, p.hidden, 64 * hc, min(64, p.hidden - 64 * hc),
+                 kC};
+  };
+  auto pj = [&](int j) {
+    return WTile{p.wpj, lfc, kC, 64 * j, min(64, kC - 64 * j), p.hidden};
+  };
+  // phase S has read this layer's key maxima: clear them for the next
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kCT;
+       i += gridDim.x * kThreads)
+    p.kmax[i] = 0u;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const RowMap m = map_rows<PACKED>(p, item, wm, g);
+    int cur = 0;   // the buffer that holds the next product's weights
+    float acc[2][2][4];
+    // the attention output -> As
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+      copy_row(As, ty + 16 * i, tx,
+               tok < p.L ? p.o + (static_cast<size_t>(rb) * p.L + tok) * kC
+                         : nullptr);
+    }
+    stage_tile<64>(WB(cur), cw(p.wproj, 0), 0, wb);
+    sync_staged();
+    // proj + residual (+ the cross-attention bias)
+    residual_product<PACKED>(p, layer, m, As, W0, W1, cur, p.wproj, p.bproj,
+                             p.cross_bias,
+                             p.cross_bias ? fc(0) : cw(p.wq_c, 0));
+    if (!p.cross_bias) {
+      const float* ada =
+          p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
+      norm_tile_rows<PACKED>(p, item, As, ada, ada + kC, true);
+      // the cross-attention's queries, through bf16, into this item's rows
+      // of the attention output in device memory (read already)
+      for (int j = 0; j < kNCH; ++j) {
+        zero<2>(acc);
+        chunk_product<64, 2>(As, W0, W1, cur, wb, cw(p.wq_c, j),
+                             j + 1 < kNCH ? cw(p.wq_c, j + 1)
+                                          : cw(p.wproj_c, 0),
+                             acc);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+          if (col >= kC) continue;
+          const float2 bq = ld2(p.bq_c + lb + col);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (m.ok[i])
+              *reinterpret_cast<float2*>(
+                  p.o + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC +
+                  col) =
+                  make_float2(
+                      bf16r((acc[i >> 1][nt][2 * (i & 1)] + bq.x) * p.qscale),
+                      bf16r((acc[i >> 1][nt][2 * (i & 1) + 1] + bq.y) *
+                            p.qscale));
+        }
+        sync_staged();
+        cur ^= 1;
+      }
+      // a (row, head) a thread: the queries -> attention -> Hs -> As
+      for (int it = threadIdx.x; it < kRows * kH; it += kThreads) {
+        const int r = it / kH, h = it % kH;
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, r, b, rb, tok);
+        float* o = Hs + r * kC + h * kD;
+        if (tok < p.L) {
+          const float* q =
+              p.o + (static_cast<size_t>(rb) * p.L + tok) * kC + h * kD;
+          const size_t off = (static_cast<size_t>(rb) * p.n_layer + layer) *
+                                 p.sp * kC + h * kD;
+          if constexpr (kCrossVec)
+            cross_attend(p, p.kc + off, p.vc + off, q, o);
+          else
+            cross_attend_any(p, p.kc + off, p.vc + off, q, o);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+        copy_row(As, ty + 16 * i, tx,
+                 tok < p.L ? Hs + (ty + 16 * i) * kC : nullptr);
+      }
+      sync_staged();
+      residual_product<PACKED>(p, layer, m, As, W0, W1, cur, p.wproj_c,
+                               p.bproj_c, false, fc(0));
+    }
+    // LN -> the MLP's hidden units, a chunk of 64 at a time, into Hs;
+    // WB(cur) holds wfc's first chunk
+    norm_tile_rows<PACKED>(p, item, As, p.ln2_s + lb, p.ln2_b + lb, false);
+    for (int hc = 0; hc < nhc; ++hc) {
+      zero<2>(acc);
+      chunk_product<64, 2>(As, W0, W1, cur, wb, fc(hc),
+                           hc + 1 < nhc ? fc(hc + 1) : pj(0), acc);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = 64 * hc + 8 * (2 * wn + nt) + 2 * tig;
+        const float2 bias =
+            col < p.hidden
+                ? ld2(p.bfc + static_cast<size_t>(layer) * p.hidden + col)
+                : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {   // GELU2: h * sigmoid(1.702 h)
+            const float hv = acc[mt][nt][e] + ((e & 1) ? bias.y : bias.x);
+            acc[mt][nt][e] = hv / (1.f + expf(-1.702f * hv));
+          }
+      }
+      store_acc<64, 2>(Hs + kSlabChunk * hc, acc, wm, wn, g, tig);
+      sync_staged();
+      cur ^= 1;
+    }
+    // x += Hs x wpj + bias, an output chunk at a time
+    for (int j = 0; j < kNCH; ++j) {
+      zero<2>(acc);
+      chunk_product<64, 2>(Hs, W0, W1, cur, wb, pj(j),
+                           j + 1 < kNCH ? pj(j + 1) : none, acc);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = 64 * j + 8 * (2 * wn + nt) + 2 * tig;
+        if (col >= kC) continue;
+        const float2 bias = ld2(p.bpj + lb + col);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (m.ok[i]) {
+            float2* xp = reinterpret_cast<float2*>(
+                p.x + (static_cast<size_t>(m.rb[i]) * p.L + m.tok[i]) * kC +
+                col);
+            const float2 x0 = *xp;
+            *xp = make_float2(x0.x + acc[i >> 1][nt][2 * (i & 1)] + bias.x,
+                              x0.y + acc[i >> 1][nt][2 * (i & 1) + 1] +
+                                  bias.y);
+          }
+      }
+      sync_staged();
+      cur ^= 1;
+    }
+  }
+}
+#else
 
 // xr += As x w + bias (+ the cross-attention bias) over the output chunks
 // of layer's (C, C) weight w, then xr -> Xs, the tile LN reads; next: the
@@ -2814,6 +3289,7 @@ __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As, floa
       }
   }
 }
+#endif  // MK_WIDE
 #endif  // MK_SERVING
 #undef WB
 
@@ -3420,9 +3896,11 @@ __device__ MK_PHASE_T void phase_tail(const Params& p, float* As, float* Hs, flo
   const int g = lane >> 2, wm = warp & 1;
   const int ntile = (p.L + TT - 1) / TT;
   const int n_items = p.B * ntile;
+#if !MK_WIDE
   float4 sc[kNCH], sh[kNCH];
   load_row(p.lno_s, tx, sc);
   load_row(p.lno_b, tx, sh);
+#endif
   const float* s = p.sched;
   Sched sd;
   sd.ct_bt = s[1];
@@ -3445,6 +3923,12 @@ __device__ MK_PHASE_T void phase_tail(const Params& p, float* As, float* Hs, flo
       const int r = ty + 16 * i;
       const int rb = CFG ? b * 2 + ((r >> 4) & 1) : b;
       const int t = CFG ? t0 + (r >> 5) * 16 + (r & 15) : t0 + r;
+#if MK_WIDE
+      norm_row(As, r, tx,
+               t < p.L ? p.x + (static_cast<size_t>(rb) * p.L + t) * kC
+                       : nullptr,
+               p.lno_s, p.lno_b, false);
+#else
       float4 x[kNCH];
       if (t < p.L) {
         load_row(p.x + (static_cast<size_t>(rb) * p.L + t) * kC, tx, x);
@@ -3453,6 +3937,7 @@ __device__ MK_PHASE_T void phase_tail(const Params& p, float* As, float* Hs, flo
         for (int j = 0; j < kNCH; ++j) x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
       store_norm(As, r, tx, x, sc, sh, false);
+#endif
     }
     // this thread's tokens: slot t is row 8 t + g of the warp's 32 (CFG:
     // of its first 16, both branches)
@@ -3537,13 +4022,34 @@ __global__ void __launch_bounds__(kThreads, 2)
 megakernel_step_branch_kernel(const Params p) { step_body<false>(p); }
 #else   // MK_SERVING
 
+#if MK_WIDE
+// floats of a block's slab: the activations' (0) and the MLP's (1), which
+// also holds the cross-attention's output (n_embd wide)
+__host__ __device__ __forceinline__ long long slab_floats(int which,
+                                                          int hidden) {
+  const int chunks = (hidden + 63) / 64;
+  return static_cast<long long>(kSlabChunk) *
+         (which == 0 ? kNCH : (chunks > kNCH ? chunks : kNCH));
+}
+#endif
+
 template <bool PACKED>
 __device__ void step_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
+#if MK_WIDE
+  // shared: the two weight buffers, the two staged activation chunks
+  // (chunk_product), the tail's partial sums; the slabs in device memory
+  float* W0 = reinterpret_cast<float*>(smem);
+  float* W1 = W0 + kWBytes / 4;
+  float* red = W1 + kWBytes / 4 + 2 * kRows * kLdh;
+  float* As = p.act + blockIdx.x * slab_floats(0, p.hidden);
+  float* Hs = p.hact + blockIdx.x * slab_floats(1, p.hidden);
+#else
   float* As = reinterpret_cast<float*>(smem);
   float* Hs = As + kRows * kLda;
   float* W0 = Hs + kRows * kLdh;
   float* W1 = W0 + kWBytes / 4;
+#endif
   cg::grid_group grid = cg::this_grid();
   int si = 0;
   stamp(p, si);
@@ -3558,10 +4064,17 @@ __device__ void step_body(const Params& p) {
     grid.sync();
     stamp(p, si);
   }
+#if MK_WIDE
+  if (p.n_br == 2)
+    phase_tail<true>(p, As, red, W0, W1);
+  else
+    phase_tail<false>(p, As, red, W0, W1);
+#else
   if (p.n_br == 2)
     phase_tail<true>(p, As, Hs, W0, W1);
   else
     phase_tail<false>(p, As, Hs, W0, W1);
+#endif
   if (p.stamps != nullptr) {   // uniform over the grid
     grid.sync();
     stamp(p, si);
@@ -3731,6 +4244,15 @@ extern "C" int megakernel_keys_whole(int L) {
   return kDS == 4 ||
          static_cast<long long>((L + 15) & ~15) * kKeyBytes <= kSmemBytes;
 }
+#if MK_WIDE
+
+// The floats a block's slab takes at this MLP width (hidden, its storage
+// width): the activations' (which 0) and the MLP's (1). The launch reads
+// ptrs[P_ACT] and ptrs[P_HACT], each megakernel_grid_blocks of them.
+extern "C" long long megakernel_slab_floats(int which, int hidden) {
+  return slab_floats(which, hidden);
+}
+#endif
 
 // One reverse step on `stream`. ptrs, ints and floats are host tables in the
 // order of enum Ptr, enum Int and {guidance}. Returns a cudaError_t: a grid
@@ -3795,6 +4317,12 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
       p.s_valid > p.sp || (p.n_br != 1 && p.n_br != 2) ||
       (packed && p.n_br != 2))
     return static_cast<int>(cudaErrorInvalidValue);
+#if MK_WIDE
+  p.act = static_cast<float*>(const_cast<void*>(ptrs[P_ACT]));
+  p.hact = static_cast<float*>(const_cast<void*>(ptrs[P_HACT]));
+  if (p.act == nullptr || p.hact == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+#endif
   int cap = grid_cap(packed ? 1 : 0);
   if (cap < 0) return -cap;
   if (ints[I_GRID] != 0 && static_cast<int>(ints[I_GRID]) < cap)

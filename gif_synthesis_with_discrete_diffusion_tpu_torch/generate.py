@@ -110,12 +110,12 @@ def at_width(config: Mapping[str, Any], n_embd: int,
 # on the honest configuration, which keeps the family's 19 layers,
 # condition_dim 512, mlp_hidden_times 4, GELU2 and AdaLN: the two
 # overrides below on the YAML tree, 387.4 M denoiser parameters. The
-# whole-step kernels take every n_embd up to 512 in any heads that divide it
-# (above 512 the 64-row activation tile no longer fits a block's shared
-# memory beside the weight tiles; the JAX megakernel, which holds every
-# layer's weights in its 100 MiB of VMEM, ends near 444 at 19 layers):
-# kernels_fit is false at 1024, so ``auto`` takes the model route: K2 at
-# heads of 64, then K1.
+# whole-step kernels take every n_embd up to 2048 in any heads that divide
+# it (above 512 they keep a tile's activations in device memory; the JAX
+# megakernel, which holds every layer's weights in its 100 MiB of VMEM,
+# ends near 444 at 19 layers and near 1935 at one): kernels_fit is true at
+# 1024, so ``auto`` takes the megakernel route, as JAX's rule does: a K3
+# launch a step.
 VQD_B_OVERRIDES = width_overrides(1024, 16)
 VQD_B: dict[str, Any] = at_width(HONEST, 1024, 16)
 

@@ -82,9 +82,10 @@ def resolve_sampler(mode: str, device: torch.device, seq_len: int,
     ``MEGAKERNEL_MAX_SEQ`` tokens, else the denoiser followed by the fused
     sampler step ('model'). The JAX package's rule with the card in the
     TPU's place, and, since the CUDA kernels cross-attend to a condition
-    and end at n_embd 512, only for a denoiser they fit
-    (:func:`..ops.megakernel.kernels_fit`: every n_embd up to 512 in any
-    heads that divide it) that is given a condition sequence. A rule over the configuration, decided before anything is
+    and end at n_embd 2048, only for a denoiser they fit
+    (:func:`..ops.megakernel.kernels_fit`: every n_embd up to 2048 in any
+    heads that divide it, the JAX kernels' whole reach) that is given a
+    condition sequence. A rule over the configuration, decided before anything is
     launched; an explicit 'megakernel' on another model raises. Other modes
     pass through."""
     if mode != "auto":

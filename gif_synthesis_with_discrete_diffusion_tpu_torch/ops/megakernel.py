@@ -28,10 +28,15 @@ softmax probabilities, after the division by their row sum, go through
 bf16; every sum is f32), so K3, K4 and the TPU kernels all compute its
 function. CPU tensors take it; CUDA tensors launch K3 or K4 or raise.
 
-The kernels take every n_embd up to 512 in any number of heads that divides
-it, with any MLP width (:func:`widths_fit`, the JAX kernels' domain up to
-512). The tables are made in the kernels' layout: every n_embd-wide or
-MLP-wide axis padded with zero columns to a multiple of 8
+The kernels take every n_embd up to 2048 in any number of heads that
+divides it, with any MLP width (:func:`widths_fit`: the JAX kernels' whole
+domain, whose one layer of bf16 weights, 28 n_embd^2 bytes, no longer fits
+their 100 MiB of VMEM past n_embd ~1935). Above n_embd 512 a tile's
+activations no longer fit a block's shared memory beside the weight tiles:
+they live in per-block slabs in device memory (the scratch's ``act`` and
+``hact``, allocated at the first such launch), streamed in 64-column chunks
+beside the weight tiles. The tables are made in the kernels' layout: every
+n_embd-wide or MLP-wide axis padded with zero columns to a multiple of 8
 (:func:`storage_width`; a no-op at every configuration of the repo), once,
 by :func:`pack_denoiser_params` (and so by :func:`positions`,
 :func:`cross_tables` and the AdaLN table). The plain version reads the same
@@ -83,10 +88,14 @@ MEGAKERNEL_MAX_SEQ = 2304
 _PACK_CFG_MAX_SEQ = 1024
 _LN_EPS = 1e-6
 # the widths the CUDA kernels take (one library per n_embd and head dim):
-# every n_embd up to 512 (above it a block's 227 KB no longer holds the
-# 64-row activation tile beside the weight tiles), any head dim that divides
-# it, any MLP width
-_KERNEL_EMBD_MAX = 512
+# every n_embd up to 2048 (the JAX kernels' reach: one layer's bf16 weights
+# fill their 100 MiB of VMEM at ~1935), any head dim that divides it, any
+# MLP width
+_KERNEL_EMBD_MAX = 2048
+# above this n_embd the 64-row activation tile no longer fits a block's
+# 227 KB beside the weight tiles: the kernels keep it in slabs in device
+# memory (csrc: MK_WIDE)
+_SLAB_EMBD = 512
 _KERNEL_DOMAIN = (f"n_embd from 1 to {_KERNEL_EMBD_MAX} in heads that divide "
                   f"it, any MLP width")
 # a row's padding in device memory (csrc: kC) and phase S's widest chunk of
@@ -100,7 +109,7 @@ _PTR_NAMES = ("sched", "tokens", "out", "adaln", "kc", "vc", "emb", "pos",
               "wqkv", "bqkv", "wproj", "bproj", "wq_c", "bq_c", "wproj_c",
               "bproj_c", "ln2_s", "ln2_b", "wfc", "bfc", "wpj", "bpj",
               "lno_s", "lno_b", "wlog", "blog", "x", "q", "k", "v", "o",
-              "kmax", "stamps")
+              "kmax", "stamps", "act", "hact")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -109,8 +118,8 @@ def _round_up(x: int, m: int) -> int:
 
 def widths_fit(n_embd: int, n_head: int, hidden: int) -> bool:
     """Whether the CUDA kernels take these widths: every n_embd from 1 to
-    512, in any number of heads that divides it (head dims 1 to 512), with
-    any MLP width; the JAX megakernel's domain up to n_embd 512."""
+    2048, in any number of heads that divides it (head dims 1 to 2048),
+    with any MLP width; the JAX megakernel's whole domain."""
     return (0 < n_embd <= _KERNEL_EMBD_MAX and n_head > 0
             and n_embd % n_head == 0 and hidden > 0)
 
@@ -626,7 +635,8 @@ def alloc_scratch(batch: int, n_br: int, seq_len: int,
     (zero between launches: a step clears what it has used). The hidden
     state and the attention output are :func:`storage_width` wide, their
     padding zero (the output's from here on, the state's from a step's
-    first phase; x[..., :n_embd] is the state).
+    first phase; x[..., :n_embd] is the state). Above n_embd 512 the first
+    launch adds the kernels' per-block slabs (``act``, ``hact``).
     Allocated once per sampling call."""
     r = batch * n_br
     cs, d = storage_width(n_embd), n_embd // n_head
@@ -638,6 +648,26 @@ def alloc_scratch(batch: int, n_br: int, seq_len: int,
             "v": torch.zeros(qkv, **bf),
             "o": torch.zeros((r, seq_len, cs), **f32),
             "kmax": torch.zeros((r, n_head, d), **f32)}
+
+
+def _alloc_slabs(scratch: dict, lib: ctypes.CDLL, hidden: int,
+                 device: torch.device) -> None:
+    """The per-block slabs of the kernels above n_embd 512 into ``scratch``
+    (``act``: a tile's activations; ``hact``: its MLP hidden units), each
+    ``megakernel_slab_floats`` floats for every block the card holds at
+    once; made at the first launch that needs them, kept for the next."""
+    lib.megakernel_slab_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.megakernel_slab_floats.restype = ctypes.c_longlong
+    blocks = max(lib.megakernel_grid_blocks(0), lib.megakernel_grid_blocks(1))
+    if blocks < 1:
+        raise RuntimeError(f"megakernel_step: the card holds no grid "
+                           f"(cudaError {-blocks})")
+    for which, name in enumerate(("act", "hact")):
+        n = blocks * lib.megakernel_slab_floats(which, hidden)
+        have = scratch.get(name)
+        if have is None or have.numel() < n or have.device != device:
+            scratch[name] = torch.empty(n, dtype=torch.float32,
+                                        device=device)
 
 
 def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
@@ -689,11 +719,16 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     if L > max_seq:
         raise ValueError(f"megakernel_step: {L} tokens, the kernels take "
                          f"at most {max_seq} at head dim {head_dim}")
+    if n_embd > _SLAB_EMBD:
+        _alloc_slabs(scratch, lib, hidden, dev)
     out = torch.empty_like(tokens)
     tensors = dict(packed, sched=sched_row, tokens=tokens, out=out,
                    adaln=adaln, kc=kc, vc=vc, pos=pos, **scratch)
     ptrs = []
     for name in _PTR_NAMES:
+        if name in ("act", "hact") and n_embd <= _SLAB_EMBD:
+            ptrs.append(None)     # (the narrower kernels have no slabs)
+            continue
         if name == "stamps":
             if stamps is not None and (
                     stamps.dtype != torch.int64 or stamps.device != dev

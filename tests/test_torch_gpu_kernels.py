@@ -524,8 +524,30 @@ def _check_megakernel(args, kw, pack_cfg, witness=False):
                                         pack_cfg, tol, witness)[0]
 
 
+# the widths of the streamed-key cases below, beside chip_smoke.MK_WIDTHS
+STREAM_WIDTHS = ((64, 2), (128, 2), (128, 1), (256, 16), (512, 2), (512, 1),
+                 (2048, 2))
+
+
+@pytest.fixture(scope="session")
+def mk_libraries():
+    """Every whole-step library the width tests launch, built before the
+    first of them, chip_smoke.MK_BUILD_WORKERS nvcc at a time, the widest
+    first (one after another, a cold run of ``-k megakernel`` spent its time
+    limit building); {(n_embd, head dim): library}."""
+    from concurrent.futures import ThreadPoolExecutor
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    widths = sorted({(c, c // h) for c, h in
+                     chip_smoke.MK_WIDTHS + STREAM_WIDTHS},
+                    key=lambda w: -w[0])
+    with ThreadPoolExecutor(chip_smoke.MK_BUILD_WORKERS) as pool:
+        libs = list(pool.map(lambda w: mk._library((), w), widths))
+    return dict(zip(widths, libs))
+
+
 # K3 and K4 at every width of chip_smoke.MK_WIDTHS (n_embd, n_head): head
-# dims 3 to 512, n_embd 24 to 512; small depth, a general and a one-token
+# dims 3 to 1024, n_embd 24 to 2048; small depth, a general and a one-token
 # condition, f32 and bf16 weights, ragged tiles
 WIDTH_CASES = [
     ("K3-general", True, dict(L=96, spatial=(12, 8), k=200, n_layer=2,
@@ -548,8 +570,8 @@ WIDTH_CASES = [
                          ids=[c[0] for c in WIDTH_CASES])
 @pytest.mark.parametrize("n_embd,n_head", chip_smoke.MK_WIDTHS,
                          ids=[f"{c}x{h}" for c, h in chip_smoke.MK_WIDTHS])
-def test_megakernels_match_plain_at_every_width(cuda, n_embd, n_head, name,
-                                                pack_cfg, case):
+def test_megakernels_match_plain_at_every_width(cuda, mk_libraries, n_embd,
+                                                n_head, name, pack_cfg, case):
     """K3 / K4 against the plain version: the hidden state's max-abs within
     the width's tolerance, its RMS within MK_RMS_SHARE of the one-TF32
     control's, the tokens, and the launch counted at this width."""
@@ -568,15 +590,18 @@ def test_megakernels_match_plain_at_every_width(cuda, n_embd, n_head, name,
     (512, 2, 1024, (32, 32), True, False),     # heads of 256: 1 MB
     (512, 1, 2304, (48, 48), False, False),    # heads of 512: 4.7 MB
     (512, 1, 96, (12, 8), True, True),         # heads of 512: 195 KB, whole
+    (2048, 2, 1024, (32, 32), True, False),    # heads of 1024: 4 MB
+    (2048, 2, 48, (8, 6), False, True),        # heads of 1024: 198 KB, whole
 ], ids=["d32-L2304", "d64-L1024", "d128-L1024", "d16-L2304", "d256-L1024",
-        "d512-L2304", "d512-L96"])
-def test_megakernels_stream_keys_that_do_not_fit(cuda, n_embd, n_head, L,
-                                                 spatial, pack_cfg, whole):
+        "d512-L2304", "d512-L96", "d1024-L1024", "d1024-L48"])
+def test_megakernels_stream_keys_that_do_not_fit(cuda, mk_libraries, n_embd,
+                                                 n_head, L, spatial, pack_cfg,
+                                                 whole):
     """Where a head's keys and values (4 d L bytes) exceed a block's 227 KB,
     phase S streams them through two buffers of 64 keys (32 at heads of
-    512); where they just fit, it stages them whole. Heads wider than 128
-    take their output in chunks of 128 dims, each a sweep of its own. All
-    against the plain version."""
+    512, 16 at heads of 1024); where they just fit, it stages them whole.
+    Heads wider than 128 take their output in chunks of 128 dims, each a
+    sweep of its own. All against the plain version."""
     lib = mk._library((), (n_embd, n_embd // n_head))
     assert bool(lib.megakernel_keys_whole(L)) == whole
     args, kw = _megakernel_case(cuda, L=L, spatial=spatial, k=17, n_layer=2,
@@ -587,9 +612,22 @@ def test_megakernels_stream_keys_that_do_not_fit(cuda, n_embd, n_head, L,
     _check_megakernel(args, kw, pack_cfg=pack_cfg)
 
 
+def test_megakernels_at_one_head_of_2048(cuda):
+    """A single head of 2048 dims (keys through one buffer of 16 keys,
+    sixteen output chunks) against the plain version in every width case.
+    Its scores reach ~700 with top-two gaps of ~1e-3: where the products
+    were one chain of mma the truncated sums moved queries to other keys,
+    0.98 of the one-TF32 control's RMS distance (PERF.md)."""
+    for name, pack_cfg, case in WIDTH_CASES:
+        args, kw = _megakernel_case(cuda, **case, seed=4096, n_embd=2048,
+                                    n_head=1)
+        _check_megakernel(args, kw, pack_cfg=pack_cfg, witness=True)
+
+
 @pytest.mark.parametrize("n_embd,n_head", chip_smoke.MK_WIDTHS,
                          ids=[f"{c}x{h}" for c, h in chip_smoke.MK_WIDTHS])
-def test_megakernels_scale_queries_as_jax(cuda, n_embd, n_head):
+def test_megakernels_scale_queries_as_jax(cuda, mk_libraries, n_embd,
+                                          n_head):
     """Every width's kernels multiply the queries by fl32(1 / sqrt(d)), the
     factor of the JAX kernels and of the plain version (where q times it and
     q / sqrt(d) round to different bf16 values, the CPU tests show the plain
@@ -825,13 +863,13 @@ def test_explicit_megakernel_refuses_heads_of_64(cuda):
     assert torch.equal(got["auto"], got["megakernel"])
 
 
-@pytest.mark.parametrize("n_embd,n_head", [(520, 4), (1024, 16), (640, 1)],
-                         ids=["n_embd520", "n_embd1024", "heads_of_640"])
+@pytest.mark.parametrize("n_embd,n_head", [(2056, 8), (2304, 16), (4096, 1)],
+                         ids=["n_embd2056", "n_embd2304", "heads_of_4096"])
 def test_megakernel_refuses_other_widths(cuda, n_embd, n_head):
-    """Outside the domain (n_embd above 512, whatever its heads) the
+    """Outside the domain (n_embd above 2048, whatever its heads) the
     kernels raise: no library is built, nothing is launched, no route is
     taken in their place."""
-    args, kw = _megakernel_case(cuda, L=40, spatial=(8, 8), k=17, n_layer=2,
+    args, kw = _megakernel_case(cuda, L=40, spatial=(8, 8), k=17, n_layer=1,
                                 s_len=1, B=2, use_cfg=True,
                                 dtype=torch.bfloat16, seed=1, n_embd=n_embd,
                                 n_head=n_head)

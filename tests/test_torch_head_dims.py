@@ -422,18 +422,20 @@ def _meta_generator(n_embd, n_head):
                                        vq.latent_shape)
 
 
-@pytest.mark.parametrize("n_embd,n_head", [(1024, 16), (128, 2), (48, 4)])
-def test_auto_takes_the_model_route_at_wide_heads(n_embd, n_head):
-    """The whole-step kernels take every n_embd up to 512 in any heads that
-    divide it: VQ-Diffusion-B's n_embd 1024 lies outside, so
-    ``kernels_fit`` is false there and ``auto`` takes the model route on
-    the card too; heads of 64 at n_embd 128 and heads of 12 at n_embd 48
-    lie inside, and ``auto`` takes the megakernel route. An explicit
-    'megakernel' is never turned into another route (``megakernel_step``
-    refuses a width outside on the card: tests/test_torch_gpu_kernels.py)."""
+@pytest.mark.parametrize("n_embd,n_head", [(1024, 16), (128, 2), (48, 4),
+                                           (2304, 16)])
+def test_auto_takes_the_megakernel_route_up_to_n_embd_2048(n_embd, n_head):
+    """The whole-step kernels take every n_embd up to 2048 in any heads
+    that divide it: VQ-Diffusion-B's n_embd 1024 in heads of 64 lies inside,
+    so ``kernels_fit`` is true there and ``auto`` takes the megakernel route
+    on the card, as JAX's rule does, and so do heads of 64 at n_embd 128
+    and heads of 12 at n_embd 48; n_embd 2304 lies outside, and ``auto``
+    takes the model route. An explicit 'megakernel' is never turned into
+    another route (``megakernel_step`` refuses a width outside on the card:
+    tests/test_torch_gpu_kernels.py)."""
     gen = _meta_generator(n_embd, n_head)
     tr = gen.diffusion.transformer
-    inside = n_embd <= 512
+    inside = n_embd <= 2048
     assert kernels_fit(tr) == inside
     cuda = torch.device("cuda")
     assert resolve_sampler("auto", cuda, 1024, tr, True) == (

@@ -666,7 +666,8 @@ def test_d3pm_sample_modes(setup, monkeypatch):
     (128, 2, 4, 1024, True, "cuda", "megakernel"),  # heads of 64
     (512, 8, 4, mk.MEGAKERNEL_MAX_SEQ, True, "cuda", "megakernel"),
     (48, 4, 4, 1024, True, "cuda", "megakernel"),   # n_embd = 16 mod 32
-    (1024, 16, 4, 1024, True, "cuda", "model"),     # n_embd above 512
+    (1024, 16, 4, 1024, True, "cuda", "megakernel"),  # VQ-Diffusion-B's
+    (2056, 8, 4, 1024, True, "cuda", "model"),      # n_embd above 2048
     (64, 32, 4, 1024, True, "cuda", "megakernel"),  # heads of 2
     (256, 1, 4, 1024, True, "cuda", "megakernel"),  # heads of 256
     (96, 16, 4, 1024, True, "cuda", "megakernel"),  # heads of 6
@@ -674,8 +675,8 @@ def test_d3pm_sample_modes(setup, monkeypatch):
 def test_auto_route_is_a_rule_over_the_configuration(n_embd, n_head, mlp, seq,
                                                      cond, device, want):
     """'auto' takes the whole-step kernels for every model in their domain
-    (every n_embd up to 512 in heads that divide it, any MLP width: JAX's
-    rule up to 512) on the card, up to 2304 tokens and with a condition;
+    (every n_embd up to 2048 in heads that divide it, any MLP width: JAX's
+    rule) on the card, up to 2304 tokens and with a condition;
     the model route for the rest, so the default entry point serves every
     width and no condition."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.models import (
@@ -686,7 +687,7 @@ def test_auto_route_is_a_rule_over_the_configuration(n_embd, n_head, mlp, seq,
                              n_layer=1, n_embd=n_embd, n_head=n_head,
                              condition_dim=COND_DIM, diffusion_step=T,
                              mlp_hidden_times=mlp)
-    fits = n_embd <= 512 and n_embd % n_head == 0
+    fits = n_embd <= 2048 and n_embd % n_head == 0
     assert mk.kernels_fit(tr) == fits
     assert dd.resolve_sampler("auto", torch.device(device), seq, tr,
                               cond) == want

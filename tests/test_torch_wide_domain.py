@@ -314,7 +314,7 @@ def test_wide_domain_composes_to_the_jax_tree_and_takes_its_routes():
     compose to the JAX package's tree: stage 1 over 16384 codes of dim 512,
     stage 2 (19 layers, n_embd 512 in 2 heads of 256, bf16, 100 steps at
     guidance 2) over the same codebook. That width lies in the whole-step
-    kernels' domain (every n_embd up to 512), so ``auto`` takes the
+    kernels' domain (every n_embd up to 2048), so ``auto`` takes the
     megakernel route on the card, as JAX's rule does, and so does the
     honest width (n_embd 64 in heads of 4) over the same 16385 classes."""
     from gif_synthesis_with_discrete_diffusion_tpu.utils import config as jcfg
