@@ -1560,9 +1560,10 @@ def _distance(x, want_x) -> tuple[float, float]:
 def _hidden_witness(torch, args, hidden_kw, want_x) -> dict:
     """What the hidden state's tolerances are read against: the plain
     version with its products summed in f64 (how far its own f32 sums move
-    it) and with the kernels' arithmetic (split products, phase S's
-    exponentials and shift: what K3 and K4 compute up to the order of their
-    sums), the witnesses; and two kernels of lower precision, the
+    it) and with the kernels' arithmetic (split products as the width
+    takes them, ``mk.kernel_matmul``; phase S's exponentials and shift:
+    what K3 and K4 compute up to the order of their sums), the witnesses;
+    and two kernels of lower precision, the
     controls: each product's activations taken as their high TF32 half
     only (one TF32 product where the kernels take two), and rounded to
     bf16. Returns {name: :func:`_distance` from the plain version's state
@@ -1582,7 +1583,7 @@ def _hidden_witness(torch, args, hidden_kw, want_x) -> dict:
     out = {}
     for name, mm, attention in (
             ("f64 sums", f64_sums, mk._attention_reference),
-            ("kernel arithmetic", mk.split_matmul,
+            ("kernel arithmetic", mk.kernel_matmul(hidden_kw["n_embd"]),
              mk._attention_kernel_arithmetic),
             ("one TF32", hi_only, mk._attention_reference),
             ("bf16", bf16_acts, mk._attention_reference)):
@@ -1763,7 +1764,11 @@ def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
         kw["num_classes"] - 1, kw["s_valid"], kw["cross_as_bias"],
         n_embd=kw["n_embd"], n_head=kw["n_head"])
     w_bf16 = tab["packed"]["wfc"].dtype == torch.bfloat16
-    wname, per_product = ("bf16", 2) if w_bf16 else ("f32", 3)
+    wname, route = (("bf16", f"3 bf16 products each at {PEAK_BF16 / 1e12} "
+                     f"TFLOP/s, the cheaper exact route (2 TF32 at "
+                     f"{PEAK_TF32 / 1e12})") if w_bf16 else
+                    ("f32", f"3 TF32 products each at {PEAK_TF32 / 1e12} "
+                     f"TFLOP/s"))
     bound_ms, bound_by = _megakernel_bound(nbytes, f32, bf16,
                                            weights_bf16=w_bf16)
     cuda_cores_ms = _bound(nbytes, f32, bf16)[0]
@@ -1772,8 +1777,7 @@ def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
           f"{kw['num_classes']}, {wname} weights, sampled) kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"by {bound_by} ({f32 / 1e9:.1f} GFLOP of f32 products as "
-          f"{per_product} TF32 products each at {PEAK_TF32 / 1e12} TFLOP/s "
-          f"+ {bf16 / 1e9:.1f} GFLOP of bf16 "
+          f"{route} + {bf16 / 1e9:.1f} GFLOP of bf16 "
           f"operands at {PEAK_BF16 / 1e12} TFLOP/s; {nbytes / 1e6:.1f} MB): "
           f"{bound_ms / ms:.1%} of it (against the f32 products at "
           f"{PEAK_F32 / 1e12} TFLOP/s, the CUDA cores' rate: "
@@ -1782,9 +1786,11 @@ def _time_megakernel(torch, phase, smi, label, models, b, pack_cfg,
     return ms, plain_ms, bound_ms, bound_by, (args, tab, kw)
 
 
-def _phase_times(torch, phase, label, args, tab, kw) -> None:
+def _phase_parts(torch, args, tab, kw, warm: int = 3,
+                 runs: int = 5) -> dict:
     """Where one step's time goes: the device's ns clock at every grid
-    barrier, read by block 0 (3 warm launches, then the mean of 5)."""
+    barrier, read by block 0 (``warm`` launches, then the mean of
+    ``runs``): {phase: ms}."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
 
@@ -1794,19 +1800,25 @@ def _phase_times(torch, phase, label, args, tab, kw) -> None:
     parts = dict.fromkeys(("A: AdaLN-LN + QKV", "S: self-attention",
                            "B: proj + cross + MLP", "tail"), 0.0)
     names = list(parts)
-    runs = 5
-    for i in range(3 + runs):
+    for i in range(warm + runs):
         mk.megakernel_step(*args, scratch=tab["scratch"], stamps=stamps,
                            **kw)
         torch.cuda.synchronize()
-        if i < 3:
+        if i < warm:
             continue
         d = (stamps[1:] - stamps[:-1]).double().cpu() / 1e6 / runs
         for j in range(3):
             parts[names[j]] += float(d[j:3 * n_layer:3].sum())
         parts["tail"] += float(d[3 * n_layer])
+    return parts
+
+
+def _phase_times(torch, phase, label, args, tab, kw) -> None:
+    """Prints :func:`_phase_parts` of one step (3 warm launches, then the
+    mean of 5)."""
+    parts = _phase_parts(torch, args, tab, kw)
     print(f"{phase}: {label} ms/step by phase (device clock at the grid "
-          f"barriers, mean of {runs}): "
+          f"barriers, mean of 5): "
           + ", ".join(f"{n} {t:.3f}" for n, t in parts.items())
           + f"; sum {sum(parts.values()):.3f}")
 
@@ -4745,17 +4757,27 @@ def _tile_padding(n_embd: int, hidden: int) -> float:
 # has 8 cores, and seventeen builds at once slowed phases 1-14's host work
 # there (the bench rows' child processes among it) by ~100 s
 MK_BUILD_WORKERS = 4
+# the niceness of the background builds' nvcc: the phases before 21 (host
+# work, the plain versions' CPU threads) come first on the 8 cores
+MK_BUILD_NICE = 10
+
+
+def _nice_thread() -> None:
+    """This pool thread, and the nvcc it starts, at MK_BUILD_NICE (on Linux
+    a thread's own nice value; the main thread keeps its own)."""
+    import os
+    os.nice(MK_BUILD_NICE)
 
 
 def start_width_builds(general: bool = False) -> dict:
     """Phase 21's libraries, one a width of MK_WIDTHS (and with ``general``
     the serving width built from the general code), one nvcc each,
-    MK_BUILD_WORKERS at a time, the widest first, in the background, so
-    that they build while the earlier phases run: {(n_embd, n_head) or
-    GENERAL_SERVING: future}."""
+    MK_BUILD_WORKERS at a time (each at MK_BUILD_NICE), the widest first,
+    in the background, so that they build while the earlier phases run:
+    {(n_embd, n_head) or GENERAL_SERVING: future}."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
-    pool = ThreadPoolExecutor(MK_BUILD_WORKERS)
+    pool = ThreadPoolExecutor(MK_BUILD_WORKERS, initializer=_nice_thread)
     futures = {w: pool.submit(mk._library, (), (w[0], w[0] // w[1]))
                for w in sorted(MK_WIDTHS, key=lambda w: -w[0])}
     futures = {w: futures[w] for w in MK_WIDTHS}
@@ -4803,8 +4825,28 @@ def _phase21_builds(futures: dict) -> None:
         if scale != want:
             raise AssertionError(f"the kernels at head dim {d} scale the "
                                  f"queries by {scale!r}, not {want!r}")
+        if key == MK_PARENT_WIDTH:
+            counts = _sass_counts(lib._name, ("HGMMA", "HMMA"))
+            print(f"phase 21: {label}: the library's SASS holds "
+                  + ", ".join(f"{n} {op}" for op, n in counts.items())
+                  + " instructions (the products of phases A and B on "
+                  "wgmma with bf16 weights, mma.sync with f32 weights, "
+                  "phase S and the tail)")
+            if not counts["HGMMA"]:
+                raise AssertionError(f"{label}: no wgmma in the library")
     print(f"phase 21: waited {time.perf_counter() - t0:.2f} s for the width "
           f"libraries (built in the background since phase 1)")
+
+
+def _sass_counts(lib_path: str, ops: tuple[str, ...]) -> dict:
+    """The lines of ``cuobjdump -sass`` of a library that issue each of
+    ``ops`` (an opcode, its suffixes aside)."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.cuda_build import (
+        find_nvcc)
+    sass = subprocess.run(
+        [str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", lib_path],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
 def _mk_width_cases(torch) -> tuple:
@@ -4925,12 +4967,58 @@ def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
     return worst, readings
 
 
-def _phase21_full(torch, smi: str) -> dict:
+# the whole-step kernels' designs by width (the kernels line names them)
+MK_DESIGNS = {
+    "n_embd 64 in heads of 4": "the serving width's own units (MK_SERVING): "
+                               "mma.sync, f32 activations as TF32 hi + lo",
+    "n_embd up to 512": "the general code: the tile's activations in shared "
+                        "memory, mma.sync, TF32 hi + lo",
+    "n_embd 513-2048, bf16 weights": "activations in per-block slabs as "
+                                     "three bf16 planes; phases A and B's "
+                                     "products on wgmma.mma_async "
+                                     "(m64n128k16, two warpgroups, 256 "
+                                     "columns a pass), operands by TMA "
+                                     "through a 4-stage mbarrier ring; the "
+                                     "tail's logits on mma.sync",
+    "n_embd 513-2048, f32 weights": "activations in per-block f32 slabs, "
+                                    "64-column chunks staged by cp.async, "
+                                    "mma.sync, TF32 hi + lo"}
+# the width whose K3 / K4 phase 21 (b) times by phase in turns with a
+# parent checkout's (--parent): VQ-Diffusion-B's, the wide products' design
+MK_PARENT_WIDTH = (1024, 16)
+
+
+def _wide_parent_turns(torch, phase, smi, label, parent_lib,
+                       step) -> dict:
+    """K3 or K4 at one configuration in turns with a parent's library (its
+    megakernel_step.cu built at the same width, launched through this
+    wrapper: the C interface is the same): parent, change, change, parent,
+    each one warm launch and the mean of two by phase (:func:`_phase_parts`).
+    Returns {"parent": [parts, ...], "change": [...]}."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    change = mk._library((), (step[2]["n_embd"],
+                              step[2]["n_embd"] // step[2]["n_head"]))
+    out = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent"):
+        with _megakernel_library(parent_lib if side == "parent" else change):
+            parts = _phase_parts(torch, *step, warm=1, runs=2)
+        out[side].append(parts)
+        print(f"{phase}: {label} in turns with the parent, {side}: "
+              + ", ".join(f"{n} {t:.3f}" for n, t in parts.items())
+              + f"; sum {sum(parts.values()):.3f} ms ({smi})")
+    return out
+
+
+def _phase21_full(torch, smi: str, parent_build=None) -> dict:
     """(b) The honest configuration (K3, B=32, L=1024) and the MSRVTT grid
     (K4, B=8, L=2304) at MK_FULL_WIDTHS: the step against the plain version
     at that shape (every block loops over several work items), then kernel
     and plain timed in turns, the bound and the share, where a step's time
-    goes. {"CxH": {"K3": ..., "K4": ...}}."""
+    goes; with ``parent_build`` (a future of the parent's library at
+    MK_PARENT_WIDTH), that width's K3 and K4 by phase in turns with the
+    parent's (:func:`_wide_parent_turns`). {"CxH": {"K3": ..., "K4":
+    ...}}."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
         HONEST, MSRVTT_GRID, at_width, build_models)
     out = {}
@@ -4949,6 +5037,11 @@ def _phase21_full(torch, smi: str) -> dict:
             _phase_times(torch, "phase 21", f"{label} B={b}", *step)
             out[key][kid] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, share=bound_ms / ms)
+            if parent_build is not None and \
+                    (n_embd, n_head) == MK_PARENT_WIDTH:
+                out[key][kid]["parent_turns"] = _wide_parent_turns(
+                    torch, "phase 21", smi, f"{label} B={b}",
+                    parent_build.result(), step)
             del models, step
             torch.cuda.empty_cache()
     return out
@@ -5018,7 +5111,7 @@ def _phase21_route(torch, smi: str) -> dict:
     return {"K3": counts[0]}
 
 
-def _phase21_parent_turns(torch, smi: str, parent: str, future,
+def _phase21_parent_turns(torch, smi: str, parent: str, parent_builds,
                           builds: dict) -> None:
     """(d) K3 (HONEST, B=32) and K4 (MSRVTT_GRID, B=8) at n_embd 64 in heads
     of 4: ROOT's kernels (its megakernel_step.cu, built in the background,
@@ -5032,9 +5125,7 @@ def _phase21_parent_turns(torch, smi: str, parent: str, future,
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         megakernel as mk)
 
-    parent_lib = future.result()
-    parent_lib.megakernel_step.argtypes = [ctypes.c_void_p] * 4
-    parent_lib.megakernel_step.restype = ctypes.c_int
+    parent_lib = parent_builds[64, 4].result()
     general = builds[GENERAL_SERVING].result()
     for label, pack_cfg, case in _mk_width_cases(torch):
         args, kw = _megakernel_case(torch, **case, seed=68)
@@ -5068,16 +5159,26 @@ def _phase21_parent_turns(torch, smi: str, parent: str, future,
         torch.cuda.empty_cache()
 
 
-def start_parent_build(parent: str):
-    """ROOT's megakernel_step.cu built in the background (phase 21 (d))."""
+def start_parent_build(parent: str) -> dict:
+    """ROOT's megakernel_step.cu built in the background at the serving
+    width (phase 21 (d)) and at MK_PARENT_WIDTH (phase 21 (b)), one nvcc
+    each: {(n_embd, head dim): future of the library, its C entry bound}."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         cuda_build)
     src = Path(parent).resolve() / PKG / "csrc" / "megakernel_step.cu"
-    pool = ThreadPoolExecutor(1)
-    fut = pool.submit(cuda_build.load, str(src),
-                      cuda_build.BUILD_DIR / "parent")
+
+    def build(n_embd, d):
+        lib = cuda_build.load(str(src), cuda_build.BUILD_DIR / "parent",
+                              defines=(f"MK_C={n_embd}", f"MK_D={d}"))
+        lib.megakernel_step.argtypes = [ctypes.c_void_p] * 4
+        lib.megakernel_step.restype = ctypes.c_int
+        return lib
+
+    wide = (MK_PARENT_WIDTH[0], MK_PARENT_WIDTH[0] // MK_PARENT_WIDTH[1])
+    pool = ThreadPoolExecutor(2)
+    futs = {w: pool.submit(build, *w) for w in ((64, 4), wide)}
     pool.shutdown(wait=False)
-    return fut
+    return futs
 
 
 def phase_mk_widths(torch, smi: str, builds: dict,
@@ -5089,7 +5190,10 @@ def phase_mk_widths(torch, smi: str, builds: dict,
     _phase21_builds(builds)
     worst, tolerance = _phase21_kernels(torch, smi)
     t1 = time.perf_counter()
-    full = _phase21_full(torch, smi)
+    full = _phase21_full(torch, smi, None if parent_build is None else
+                         parent_build[MK_PARENT_WIDTH[0],
+                                      MK_PARENT_WIDTH[0]
+                                      // MK_PARENT_WIDTH[1]])
     t2 = time.perf_counter()
     route = _phase21_route(torch, smi)
     t3 = time.perf_counter()
@@ -5807,7 +5911,8 @@ def main() -> int:
     ap.add_argument("--parent", metavar="ROOT",
                     help="also time K1, K6, P1, P2, P3, K2 and K5 at head "
                          "dims 4 and 64, and K3 and K4 at n_embd 64 in heads "
-                         "of 4, in turns with the checkout at ROOT")
+                         "of 4 and (by phase) at 1024 in heads of 16, in "
+                         "turns with the checkout at ROOT")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5904,13 +6009,13 @@ def main() -> int:
              launches=route["K3"] + text["K3"] + fvd["K3"],
              launches_by_path={serve_mk + ", B=32, L=1024": route["K3"],
                                serve_text: text["K3"], fvd_path: fvd["K3"]},
-             **k3),
+             designs=MK_DESIGNS, **k3),
         dict(name="megakernel_step_branch", route="cuda",
              source=f"{PKG}/csrc/megakernel_step.cu",
              replaces=tpu + "ops/megakernel.py:298",
              launches=route["K4"],
              launches_by_path={serve_mk + ", B=8, L=2304": route["K4"]},
-             **k4),
+             designs=MK_DESIGNS, **k4),
         dict(name="fused_mha_bwd", route="cuda",
              source=f"{PKG}/csrc/fused_mha_bwd.cu",
              units=[f"{PKG}/csrc/fused_mha_bwd_stream.cu"],

@@ -198,7 +198,8 @@ def bench_sampling(device: torch.device | str, config: BenchConfig,
         d3pm.num_embed, 1, True, n_embd=tr.ln_out.normalized_shape[0],
         n_head=tr.block0.attn1.n_head)
     ms_per_step = statistics.median(seconds) * 1e3 / steps
-    # the megakernel route packs bf16 weights: two TF32 products a product
+    # the megakernel route packs bf16 weights: each f32 product by its
+    # cheapest exact route (three bf16 products)
     bound_ms, bound_by = (
         megakernel_bound(nbytes, f32, bf16, weights_bf16=True)
         if route == "megakernel" else bound(nbytes, f32, bf16))

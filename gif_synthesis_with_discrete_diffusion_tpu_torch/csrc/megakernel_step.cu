@@ -45,7 +45,8 @@
 //    are multiplied by the weight tile (bf16 weights are TF32 values; f32
 //    weights are split too), summed in the f32 accumulator: see mma_tile.
 //    These phases are bound by mma issue and by what surrounds a product
-//    (a block-wide barrier each, the epilogues).
+//    (a block-wide barrier each, the epilogues). Above n_embd 512 with
+//    bf16 weights phases A and B take wgmma instead (below).
 //
 // Widths. One library is built per exact (n_embd, head dim): MK_C and MK_D,
 // by default 64 and 4. The kernels take every n_embd from 1 to 2048 (the
@@ -73,26 +74,27 @@
 // LayerNorm. The tile keeps its 64 rows, so that every epilogue, the
 // packed row order and the tail are the narrower widths' own, and the
 // activations move to device memory: each block owns two slabs (the
-// scratch's act and hact, chunk-major: 64 rows x 64 columns a chunk), and
-// every product stages its A operand's 64-column chunk by cp.async into a
-// 64 x 72 buffer beside the weight tile it meets (chunk_product), the first
-// on entry (the caller has just written the slab), the next during this
-// one's mma. LayerNorm reads a row three times from device memory (sum,
-// squares about the mean, output; ln_row's arithmetic, a float4 a lane in
-// registers). The residual stream is the hidden state x itself: each
-// product's epilogue adds its chunk there, as the registers' copy did. The
-// MLP's hidden units go whole to hact before its projection sums over them
-// in the order a chunk at a time would; the cross-attention's output waits
-// there too. Each 64-row tile so re-reads its activations once per 64
-// output columns (from L2: ~49 MB a layer at n_embd 1024 and 64 rows,
-// beside 25 MB of bf16 weights); fewer rows a tile would cut nothing of
-// the weights' traffic, which every tile reads once. A product's 64-deep
-// tiles are each summed from zero and added in f32 (the tensor cores'
-// accumulation truncates, and a 2048-deep chain lost the lo half's
-// precision). Phase S streams keys 16 a tile where two tiles of
-// 32 do not fit (heads over ~900 dims), and through one buffer where two
-// of 16 do not (heads over ~1800). Up to 512 the code is as it was (its
-// SASS unchanged).
+// scratch's act and hact). LayerNorm reads a row three times from device
+// memory (sum, squares about the mean, output; ln_row's arithmetic, a
+// float4 a lane in registers). The residual stream is the hidden state x
+// itself: each product's epilogue adds its columns there, as the
+// registers' copy did. The MLP's hidden units go whole to hact before its
+// projection sums over them; the cross-attention's output waits there
+// too. A product's 64-deep tiles are each summed from zero and added in
+// f32 (the tensor cores' accumulation truncates, and a 2048-deep chain
+// lost the lo half's precision). With bf16 weights (what the route packs)
+// every product of phases A and B runs on wgmma (wg_product, the units
+// after chunk_product): the slabs hold each activation once split into
+// three bf16 planes, and TMA brings them and the weights through a
+// four-stage mbarrier ring, 256 output columns a pass, so that a tile
+// re-reads its activations once per 256 output columns. With f32 weights
+// the slabs hold f32 chunks (64 rows x 64 columns), and every product
+// stages its A operand's 64-column chunk by cp.async into a 64 x 72 buffer
+// beside the weight tile it meets (chunk_product), once per 64 output
+// columns, on mma.sync, as the tail's logits are at either type. Phase S
+// streams keys 16 a tile where two tiles of 32 do not fit (heads over
+// ~900 dims), and through one buffer where two of 16 do not (heads over
+// ~1800). Up to 512 the code is as it was (its SASS unchanged).
 //
 // The serving width (n_embd 64 in 16 heads of 4) keeps the code written for
 // it (MK_SERVING: the units under "#if MK_SERVING" below), which this
@@ -167,6 +169,11 @@
 #define MK_WIDE 1
 #else
 #define MK_WIDE 0
+#endif
+#if MK_WIDE
+// the wide products with bf16 weights take the attention kernels' wgmma,
+// TMA and mbarrier helpers (mha::wg)
+#include "mha_wg.cuh"
 #endif
 
 namespace cg = cooperative_groups;
@@ -305,7 +312,8 @@ static_assert(kDS == 4 || kSBuf * kSKT * kKeyBytes <= kSmemBytes,
 #else
 #define MK_PHASE_T
 #endif
-#if MK_NOINLINE
+// (above n_embd 512 too: the TMA copies read the tensor maps there)
+#if MK_NOINLINE || MK_WIDE
 #define MK_KERNEL_PARAMS const __grid_constant__ Params
 #else
 #define MK_KERNEL_PARAMS const Params
@@ -323,6 +331,13 @@ enum Int {
   I_B, I_L, I_NBR, I_NLAYER, I_KV, I_SP, I_SVALID, I_HIDDEN, I_WBF16,
   I_SAMPLE, I_CROSSBIAS, I_PACKED, I_SEEDLO, I_SEEDHI, I_GRID
 };
+#if MK_WIDE
+// the tensor maps of the wide products with bf16 weights (wide_maps): the
+// two slabs' bf16 planes and the six weights of phases A and B
+enum Map {
+  M_ACT, M_HACT, M_WQKV, M_WPROJ, M_WQC, M_WPROJC, M_WFC, M_WPJ, kMaps
+};
+#endif
 #if MK_SERVING
 
 struct Params {
@@ -365,9 +380,11 @@ struct Params {
   float qscale;     // fl32(1 / sqrt(head dim)), rounded once from double
   int keys_whole;   // phase S stages a head's keys whole (else streams them)
 #if MK_WIDE
-  // per block: the activation slab (kNCH chunks) and the MLP's (the larger
-  // of its chunks and kNCH), megakernel_slab_floats apiece
+  // per block: the activation slab and the MLP's, megakernel_slab_floats
+  // apiece (slab_floats)
   float *act, *hact;
+  // bf16 weights: the TMA copies' tensor maps (enum Map)
+  CUtensorMap maps[kMaps];
 #endif
 };
 #endif  // MK_SERVING
@@ -1030,6 +1047,247 @@ __device__ __forceinline__ void chunk_product(const float* A, float* W0,
 }
 #endif
 
+#if MK_WIDE
+
+// ---------------------------------------------------------------------------
+// the wide products with bf16 weights: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+// Every product of phases A and B runs on wgmma.mma_async: the block's two
+// warpgroups take the tile's 64 rows x 128 columns each of a pass of 256
+// output columns, the sums in registers, both operands in shared memory.
+// The f32 activations are split once, where their slab is written, into
+// three bf16 planes: hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi -
+// mid) (each difference exact in f32), which hold a exactly wherever |a|
+// >= 2^-109 (ops/megakernel.py: split3_bf16). A bf16 x bf16
+// product is exact in f32, so lo w + mid w + hi w is a w up to the order of
+// the sums, three products at the bf16 rate where the TF32 split took two
+// at half of it. The weights stay as packed, row-major (k, n): wgmma reads
+// them as an MN-major B operand. A plane of a slab of k8 columns (a
+// multiple of 8) lies as [column / 8][row][column % 8]
+// (ops/megakernel.py: slab_plane_offset), the planes one after another:
+// each 64-deep chunk of a plane is 8 KB, already wgmma's K-major core
+// matrices (8 rows x 16 bytes; 128 bytes apart along the rows, 1024 along
+// the contraction), which one TMA box copies as it lies, in 128-byte
+// lines, the three planes at once. A weight tile of 64 rows x 256 columns
+// comes as four boxes of 64 x 64 in TMA's 128-byte swizzle (a row's 128
+// bytes a line), the layout wgmma reads as an MN-major operand with that
+// swizzle. (Boxes 16 bytes wide, the core matrices' own width, held the
+// first build to about half this speed: PERF.md.) Both come through a ring
+// of kRingStages slots, a stage each (the three planes' chunk and the
+// weight tile beside it), filled by TMA on an mbarrier, thread 0 issuing
+// the copies kRingStages - 1 stages ahead; a warp frees a slot once its
+// warpgroup's wgmmas on it have retired. Each stage is summed from zero
+// and added to the pass's sum in f32 (the split sums above). TMA fills
+// what lies past a slab's columns or a weight's rows and columns with
+// zeros: the ragged last chunks of n_embd 1000 or of an MLP width.
+// ptxas issues a stage's 12 wgmmas one after another, each waited for
+// (warning C7510: the step's body, which holds them, is a function the
+// kernel calls). Inlining the body into the kernel lifted that and gained
+// 7 %, but took nvcc 636-820 s a width and spilled (PERF.md): not kept.
+
+// a into its three bf16 planes
+__device__ __forceinline__ void split3(float a, __nv_bfloat16 (&s)[3]) {
+  s[0] = __float2bfloat16_rn(a);
+  const float r = a - __bfloat162float(s[0]);
+  s[1] = __float2bfloat16_rn(r);
+  s[2] = __float2bfloat16_rn(r - __bfloat162float(s[1]));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// columns c .. c + N - 1 (N = 2 or 4, c a multiple of N) of row r, split,
+// into the three planes of a slab of k8 columns
+template <int N>
+__device__ __forceinline__ void store_planes(__nv_bfloat16* slab, int k8,
+                                             int r, int c,
+                                             const float (&v)[N]) {
+  __nv_bfloat16 s[N][3];
+#pragma unroll
+  for (int i = 0; i < N; ++i) split3(v[i], s[i]);
+  const size_t at = (static_cast<size_t>(c >> 3) * kRows + r) * 8 + (c & 7);
+  const size_t plane = static_cast<size_t>(k8) * kRows;
+#pragma unroll
+  for (int pl = 0; pl < 3; ++pl) {
+    if constexpr (N == 4)
+      *reinterpret_cast<uint2*>(slab + pl * plane + at) =
+          make_uint2(pack_bf16(s[0][pl], s[1][pl]),
+                     pack_bf16(s[2][pl], s[3][pl]));
+    else
+      *reinterpret_cast<unsigned*>(slab + pl * plane + at) =
+          pack_bf16(s[0][pl], s[1][pl]);
+  }
+}
+
+constexpr int kRingStages = 4;
+constexpr int kPassCols = 256;                    // output columns of a pass
+constexpr int kPlaneBytes = kRows * 64 * 2;       // a plane's 64-deep chunk
+constexpr int kAStage = 3 * kPlaneBytes;
+constexpr int kStage = kAStage + 64 * kPassCols * 2;
+// (the slots start on a 1024-byte boundary of the block's shared memory)
+static_assert(1023 + kRingStages * (kStage + 16) <= kSmemBytes,
+              "the ring fits");
+
+struct Ring {
+  unsigned char* base;   // the slots
+  uint64_t* full;        // a slot's copies have landed
+  uint64_t* empty;       // the block's warps are done with a slot
+  int n;                 // stages taken since the ring began
+};
+
+// At the start of a phase (its shared memory held phase S's tiles): the
+// barriers made anew.
+__device__ __forceinline__ Ring ring_begin(unsigned char* smem) {
+  smem += (1024 - (mha::smem_addr(smem) & 1023)) & 1023;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kRingStages * kStage);
+  const Ring rg{smem, bars, bars + kRingStages, 0};
+  mha::wg::fence_async();   // the phase before's stores, then TMA's
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingStages; ++i) {
+      mha::wg::mbar_init(rg.full + i, 1);
+      mha::wg::mbar_init(rg.empty + i, kThreads / 32);
+    }
+    mha::wg::mbar_init_fence();
+  }
+  __syncthreads();
+  return rg;
+}
+
+// At the end of the phase: every stage taken, the barriers given up.
+__device__ __forceinline__ void ring_end(const Ring& rg) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2 * kRingStages; ++i)
+      asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(
+                       mha::smem_addr(rg.full + i)) : "memory");
+}
+
+// the block's stores to a slab (and to x), seen by the TMA copies that read
+// it next
+__device__ __forceinline__ void slab_written() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  __syncthreads();
+}
+
+// d (+)= a b, m64n128k16, bf16 from shared memory: a K-major, b MN-major
+__device__ __forceinline__ void wg_mma128(float (&d)[64], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// The block's slab (map amap: its planes, krows columns) times layer's
+// weight (map wmap: krows x ncols, row-major bf16) in passes of kPassCols
+// output columns; epi(pass, acc) takes each pass's sums in the wgmma
+// accumulator layout: warp w of warpgroup wg holds rows 16 w + g and 16 w
+// + g + 8, columns kPassCols pass + 128 wg + 8 nt + 2 tig and + 1, as
+// acc[4 nt + 2 hf + j] (hf: the row, j: the column). The block has written
+// the slab (slab_written) before.
+template <class Epi>
+__device__ __forceinline__ void wg_product(const Params& p, Ring& rg,
+                                           int amap, int wmap, int layer,
+                                           int krows, int ncols, Epi&& epi) {
+  namespace wg = mha::wg;
+  const int nk = (krows + 63) / 64, np = (ncols + kPassCols - 1) / kPassCols;
+  const int total = nk * np, j0 = rg.n;
+  const int half = threadIdx.x >> 7;
+  // stage t of this product (pass t / nk, rows 64 (t % nk) ..): into its
+  // slot once the warps are done with the stage that held it before
+  auto issue = [&](int t) {
+    const int j = j0 + t, slot = j % kRingStages, use = j / kRingStages;
+    if (use > 0) wg::mbar_wait(rg.empty + slot, (use - 1) & 1);
+    unsigned char* st = rg.base + slot * kStage;
+    wg::mbar_expect(rg.full + slot, kStage);
+    const int ks = t % nk, pass = t / nk;
+    wg::tma_load(st, &p.maps[amap], rg.full + slot, 0, 64 * ks, 0,
+                 blockIdx.x);
+#pragma unroll
+    for (int q = 0; q < kPassCols / 64; ++q)
+      wg::tma_load(st + kAStage + q * 64 * 128, &p.maps[wmap],
+                   rg.full + slot, kPassCols * pass + 64 * q, 64 * ks,
+                   layer, 0);
+  };
+  if (threadIdx.x == 0)
+    for (int t = 0; t < min(kRingStages - 1, total); ++t) issue(t);
+  __syncwarp();
+  for (int pass = 0; pass < np; ++pass) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks) {
+      const int t = pass * nk + ks;
+      if (threadIdx.x == 0 && t + kRingStages - 1 < total)
+        issue(t + kRingStages - 1);
+      const int j = j0 + t, slot = j % kRingStages;
+      wg::mbar_wait(rg.full + slot, (j / kRingStages) & 1);
+      __syncwarp();
+      const unsigned char* st = rg.base + slot * kStage;
+      // this warpgroup's 128 columns of the weight tile: two swizzled
+      // boxes of 64 columns (8 KB apart), 16-row steps 2 KB apart, 8-row
+      // groups 1 KB
+      const unsigned char* wt = st + kAStage + half * 2 * 64 * 128;
+      // the stage's own sum, from zero (ptxas folds the zeros into the
+      // first wgmma)
+      float part[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) part[i] = 0.f;
+      wg::wg_fence();
+#pragma unroll
+      for (int pl = 2; pl >= 0; --pl)    // lo, mid, hi
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wg_mma128(part, wg::desc_k<kRows>(st + pl * kPlaneBytes, s),
+                    wg::desc(wt + s * 2048, 64 * 128, 1024) | (1ull << 62),
+                    1);
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) wg::mbar_arrive(rg.empty + slot);
+    }
+    epi(pass, acc);
+  }
+  rg.n = j0 + total;
+}
+
+// the two rows of a tile a thread holds in the wgmma accumulator: 16 w +
+// 8 hf + g (one row-branch a warp: 16 tokens of one branch, K3; of one
+// (row, branch), K4)
+struct WgRows {
+  int rb[2], tok[2];
+  bool ok[2];
+};
+
+template <bool PACKED>
+__device__ __forceinline__ WgRows wg_rows(const Params& p, int item) {
+  const int w = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
+  WgRows m;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    int b;
+    tile_row<PACKED>(p, item, 16 * w + 8 * hf + g, b, m.rb[hf], m.tok[hf]);
+    m.ok[hf] = m.tok[hf] < p.L;
+  }
+  return m;
+}
+
+// the first column of accumulator group nt of a pass
+__device__ __forceinline__ int wg_col(int pass, int nt) {
+  return kPassCols * pass + 128 * (threadIdx.x >> 7) + 8 * nt +
+         2 * (threadIdx.x & 3);
+}
+#endif
+
 // whether column 4 tx .. 4 tx + 3 of chunk j of a row lies inside n_embd
 __device__ __forceinline__ bool col_in(int j, int tx) {
   return 64 * j + 4 * tx < kC;
@@ -1136,11 +1394,13 @@ __device__ __forceinline__ void store_acc(float* T, const float (&v)[2][NT][4],
 // n_embd zero; src == nullptr: a row of zeros. The row is read three times
 // (the sum, the squares about the mean, the output), a float4 a lane in
 // each chunk, so that no register holds more than a float4 of it; the
-// arithmetic is ln_row's.
+// arithmetic is ln_row's. planes: the slab takes the row as the wgmma
+// products read it (store_planes, kC columns), else in f32 chunks.
 __device__ __forceinline__ void norm_row(float* slab, int r, int tx,
                                          const float* src,
                                          const float* scale,
-                                         const float* shift, bool plus1) {
+                                         const float* shift, bool plus1,
+                                         bool planes) {
   const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
   auto x_at = [&](int j) {
     return src != nullptr && col_in(j, tx) ? ld4(src + 64 * j + tx * 4) : z4;
@@ -1186,36 +1446,155 @@ __device__ __forceinline__ void norm_row(float* slab, int r, int tx,
     x = make_float4(x.x * rs, x.y * rs, x.z * rs, x.w * rs);
     const float4 sc = col_in(j, tx) ? ld4(scale + 64 * j + tx * 4) : z4;
     const float4 sh = col_in(j, tx) ? ld4(shift + 64 * j + tx * 4) : z4;
-    *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
-        make_float4(x.x * (o + sc.x) + sh.x, x.y * (o + sc.y) + sh.y,
-                    x.z * (o + sc.z) + sh.z, x.w * (o + sc.w) + sh.w);
+    const float v[4] = {x.x * (o + sc.x) + sh.x, x.y * (o + sc.y) + sh.y,
+                        x.z * (o + sc.z) + sh.z, x.w * (o + sc.w) + sh.w};
+    if (!planes)
+      *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    else if (col_in(j, tx))
+      store_planes<4>(reinterpret_cast<__nv_bfloat16*>(slab), kC, r,
+                      64 * j + tx * 4, v);
   }
 }
 
 // an n_embd-wide row (row stride kC; nullptr: zeros) into row r of a slab,
-// the columns past n_embd zero
+// the columns past n_embd zero; planes as norm_row's
 __device__ __forceinline__ void copy_row(float* slab, int r, int tx,
-                                         const float* src) {
+                                         const float* src, bool planes) {
 #pragma unroll 4
-  for (int j = 0; j < kNCH; ++j)
-    *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
-        src != nullptr && col_in(j, tx) ? ld4(src + 64 * j + tx * 4)
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = 0; j < kNCH; ++j) {
+    const float4 x = src != nullptr && col_in(j, tx)
+                         ? ld4(src + 64 * j + tx * 4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float v[4] = {x.x, x.y, x.z, x.w};
+    if (!planes)
+      *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
+          x;
+    else if (col_in(j, tx))
+      store_planes<4>(reinterpret_cast<__nv_bfloat16*>(slab), kC, r,
+                      64 * j + tx * 4, v);
+  }
 }
 #endif
 
 // ---------------------------------------------------------------------------
 // phase A: (embedding) -> AdaLN-LN -> QKV -> q/k/v scratch
 // ---------------------------------------------------------------------------
+#if MK_WIDE
+// (layer 0) the embedding into the hidden state, both branches of a token
+// alike; then AdaLN-LN of the tile's rows into the slab As (a thread reads
+// back only what it wrote; planes: as norm_row's)
+template <bool PACKED>
+__device__ __forceinline__ void embed_norm_rows(const Params& p, int layer,
+                                                int item, float* As,
+                                                bool planes) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* ada = p.adaln + static_cast<size_t>(layer) * 4 * kC;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int b, rb, tok;
+    tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+    float* xp = p.x + (static_cast<size_t>(rb) * p.L + tok) * kC;
+    if (tok < p.L && layer == 0) {
+      const long long t = p.tokens[static_cast<size_t>(b) * p.L + tok];
+      const float* e = p.emb + static_cast<size_t>(t) * kC;
+      const float* ps = p.pos + static_cast<size_t>(tok) * kC;
+      for (int j = 0; j < kNCH; ++j)
+        if (col_in(j, tx))
+          *reinterpret_cast<float4*>(xp + 64 * j + tx * 4) =
+              add4(ld4(e + 64 * j + tx * 4), ld4(ps + 64 * j + tx * 4));
+    }
+    norm_row(As, ty + 16 * i, tx, tok < p.L ? xp : nullptr, ada, ada + kC,
+             true, planes);
+  }
+}
+
+// Phase A with bf16 weights above n_embd 512: QKV on wgmma (wg_product),
+// the epilogue phase_qkv's per element: bias, q's scale, bf16, the
+// head-major scratch, the largest |k| (a warp's 16 rows are one
+// row-branch).
+template <bool PACKED>
+__device__ void phase_qkv_wg(const Params& p, int layer, float* As,
+                             unsigned char* smem) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int n_items = tile_items<PACKED>(p);
+  Ring rg = ring_begin(smem);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    embed_norm_rows<PACKED>(p, layer, item, As, true);
+    slab_written();
+    const WgRows m = wg_rows<PACKED>(p, item);
+    wg_product(p, rg, M_ACT, M_WQKV, layer, kC, 3 * kC,
+               [&](int pass, const float (&acc)[64]) {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        // a warp's 8-column group lies inside the product or past it as a
+        // whole, and inside one section (kC is a multiple of 8)
+        const int col = wg_col(pass, nt);
+        if (col >= 3 * kC) break;
+        const int sec = col / kC, c = col - sec * kC;
+        const bool in = c < kCT;
+        const int head = c / kD, dim = c % kD;
+        __nv_bfloat16* dst = sec == 0 ? p.q : (sec == 1 ? p.k : p.v);
+        const float s = sec == 0 ? p.qscale : 1.f;
+        const float2 bias =
+            ld2(p.bqkv + static_cast<size_t>(layer) * 3 * kC + col);
+        float kmx[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          if (m.ok[hf]) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                (acc[4 * nt + 2 * hf] + bias.x) * s,
+                (acc[4 * nt + 2 * hf + 1] + bias.y) * s);
+            const size_t row = static_cast<size_t>(m.rb[hf]) * kH;
+            if (in) {
+              if constexpr (kD % 2 == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(
+                    dst + ((row + head) * p.L + m.tok[hf]) * kDS + dim) = v;
+              } else {
+                dst[((row + head) * p.L + m.tok[hf]) * kDS + dim] =
+                    __low2bfloat16(v);
+                if (c + 1 < kCT)
+                  dst[((row + (c + 1) / kD) * p.L + m.tok[hf]) * kDS +
+                      (c + 1) % kD] = __high2bfloat16(v);
+              }
+            }
+            kmx[0] = fmaxf(kmx[0], fabsf(__low2float(v)));
+            kmx[1] = fmaxf(kmx[1], fabsf(__high2float(v)));
+          }
+        if (sec == 1) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            float v = kmx[jj];
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1)
+              v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+            if (g == 0 && v > 0.f && c + jj < kCT)
+              atomicMax(p.kmax + static_cast<size_t>(m.rb[0]) * kCT + c + jj,
+                        __float_as_uint(v));
+          }
+        }
+      }
+    });
+  }
+  ring_end(rg);
+}
+#endif
+
 template <bool PACKED>
 __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, float* W0,
                           float* W1) {
+#if MK_WIDE
+  if (p.w_bf16) {
+    phase_qkv_wg<PACKED>(p, layer, As, reinterpret_cast<unsigned char*>(W0));
+    return;
+  }
+#endif
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
   const int n_items = tile_items<PACKED>(p);
-  const float* ada = p.adaln + static_cast<size_t>(layer) * 4 * kC;
 #if !MK_WIDE
+  const float* ada = p.adaln + static_cast<size_t>(layer) * 4 * kC;
   float4 sc[kNCH], sh[kNCH];
   load_row(ada, tx, sc);
   load_row(ada + kC, tx, sh);
@@ -1228,26 +1607,7 @@ __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, floa
   };
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
 #if MK_WIDE
-    // (layer 0) the embedding into the hidden state, both branches of a
-    // token alike; then AdaLN-LN of the tile's rows into the slab As (a
-    // thread reads back only what it wrote)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int b, rb, tok;
-      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
-      float* xp = p.x + (static_cast<size_t>(rb) * p.L + tok) * kC;
-      if (tok < p.L && layer == 0) {
-        const long long t = p.tokens[static_cast<size_t>(b) * p.L + tok];
-        const float* e = p.emb + static_cast<size_t>(t) * kC;
-        const float* ps = p.pos + static_cast<size_t>(tok) * kC;
-        for (int j = 0; j < kNCH; ++j)
-          if (col_in(j, tx))
-            *reinterpret_cast<float4*>(xp + 64 * j + tx * 4) =
-                add4(ld4(e + 64 * j + tx * 4), ld4(ps + 64 * j + tx * 4));
-      }
-      norm_row(As, ty + 16 * i, tx, tok < p.L ? xp : nullptr, ada, ada + kC,
-               true);
-    }
+    embed_norm_rows<PACKED>(p, layer, item, As, false);
 #else
     float4 prev[kNCH];
 #pragma unroll
@@ -2841,12 +3201,12 @@ __device__ __forceinline__ void residual_product(
 }
 
 // LN of the tile's rows of the hidden state into the slab As (plus1: the
-// AdaLN form), then the barrier that publishes it
+// AdaLN form; planes: as norm_row's), then the barrier that publishes it
 template <bool PACKED>
 __device__ __forceinline__ void norm_tile_rows(const Params& p, int item,
                                                float* As, const float* scale,
                                                const float* shift,
-                                               bool plus1) {
+                                               bool plus1, bool planes) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -2855,14 +3215,189 @@ __device__ __forceinline__ void norm_tile_rows(const Params& p, int item,
     norm_row(As, ty + 16 * i, tx,
              tok < p.L ? p.x + (static_cast<size_t>(rb) * p.L + tok) * kC
                        : nullptr,
-             scale, shift, plus1);
+             scale, shift, plus1, planes);
   }
-  sync_staged();
+  if (planes)
+    slab_written();
+  else
+    sync_staged();
+}
+
+// Phase B with bf16 weights: every product on wgmma (wg_product), each
+// epilogue its chunk_product counterpart's per element. The slabs hold
+// bf16 planes: As the product's input rows, Hs the MLP's hidden units
+// (p.hidden columns); the cross-attention's output waits in Hs in f32
+// before it is split into As.
+template <bool PACKED>
+__device__ void phase_mlp_wg(const Params& p, int layer, float* As,
+                             float* Hs, unsigned char* smem) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int w = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
+  const int n_items = tile_items<PACKED>(p);
+  const size_t lb = static_cast<size_t>(layer) * kC;
+  // phase S has read this layer's key maxima: clear them for the next
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kCT;
+       i += gridDim.x * kThreads)
+    p.kmax[i] = 0u;
+  Ring rg = ring_begin(smem);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const WgRows m = wg_rows<PACKED>(p, item);
+    // x += acc + bias (+ the cross-attention bias), as residual_product
+    auto residual = [&](const float* bias, bool cross_bias) {
+      return [&, bias, cross_bias](int pass, const float (&acc)[64]) {
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const int col = wg_col(pass, nt);
+          if (col >= kC) break;
+          const float2 bv = ld2(bias + lb + col);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            if (!m.ok[hf]) continue;
+            float2 add = bv;
+            if (cross_bias) {
+              const float2 cb = ld2(p.kc + (static_cast<size_t>(m.rb[hf]) *
+                                            p.n_layer + layer) * p.sp * kC +
+                                    col);
+              add.x += cb.x;
+              add.y += cb.y;
+            }
+            float2* xp = reinterpret_cast<float2*>(
+                p.x + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) * kC +
+                col);
+            float2 x = *xp;
+            x.x += acc[4 * nt + 2 * hf] + add.x;
+            x.y += acc[4 * nt + 2 * hf + 1] + add.y;
+            *xp = x;
+          }
+        }
+      };
+    };
+    // the attention output -> As
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+      copy_row(As, ty + 16 * i, tx,
+               tok < p.L ? p.o + (static_cast<size_t>(rb) * p.L + tok) * kC
+                         : nullptr, true);
+    }
+    slab_written();
+    // proj + residual (+ the cross-attention bias)
+    wg_product(p, rg, M_ACT, M_WPROJ, layer, kC, kC,
+               residual(p.bproj, p.cross_bias));
+    __syncthreads();
+    if (!p.cross_bias) {
+      const float* ada =
+          p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
+      norm_tile_rows<PACKED>(p, item, As, ada, ada + kC, true, true);
+      // the cross-attention's queries, through bf16, into this item's rows
+      // of the attention output in device memory (read already)
+      wg_product(p, rg, M_ACT, M_WQC, layer, kC, kC,
+                 [&](int pass, const float (&acc)[64]) {
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const int col = wg_col(pass, nt);
+          if (col >= kC) break;
+          const float2 bq = ld2(p.bq_c + lb + col);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            if (m.ok[hf])
+              *reinterpret_cast<float2*>(
+                  p.o + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) *
+                            kC + col) =
+                  make_float2(
+                      bf16r((acc[4 * nt + 2 * hf] + bq.x) * p.qscale),
+                      bf16r((acc[4 * nt + 2 * hf + 1] + bq.y) * p.qscale));
+        }
+      });
+      __syncthreads();
+      // a (row, head) a thread: the queries -> attention -> Hs -> As
+      for (int it = threadIdx.x; it < kRows * kH; it += kThreads) {
+        const int r = it / kH, h = it % kH;
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, r, b, rb, tok);
+        float* o = Hs + r * kC + h * kD;
+        if (tok < p.L) {
+          const float* q =
+              p.o + (static_cast<size_t>(rb) * p.L + tok) * kC + h * kD;
+          const size_t off = (static_cast<size_t>(rb) * p.n_layer + layer) *
+                                 p.sp * kC + h * kD;
+          if constexpr (kCrossVec)
+            cross_attend(p, p.kc + off, p.vc + off, q, o);
+          else
+            cross_attend_any(p, p.kc + off, p.vc + off, q, o);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+        copy_row(As, ty + 16 * i, tx,
+                 tok < p.L ? Hs + (ty + 16 * i) * kC : nullptr, true);
+      }
+      slab_written();
+      wg_product(p, rg, M_ACT, M_WPROJC, layer, kC, kC,
+                 residual(p.bproj_c, false));
+      __syncthreads();
+    }
+    // LN -> the MLP's hidden units through GELU2 into Hs
+    norm_tile_rows<PACKED>(p, item, As, p.ln2_s + lb, p.ln2_b + lb, false,
+                           true);
+    wg_product(p, rg, M_ACT, M_WFC, layer, kC, p.hidden,
+               [&](int pass, const float (&acc)[64]) {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const int col = wg_col(pass, nt);
+        if (col >= p.hidden) break;
+        const float2 bias =
+            ld2(p.bfc + static_cast<size_t>(layer) * p.hidden + col);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {   // GELU2: h * sigmoid(1.702 h)
+            const float hv = acc[4 * nt + 2 * hf + e] + (e ? bias.y : bias.x);
+            v[e] = hv / (1.f + expf(-1.702f * hv));
+          }
+          store_planes<2>(reinterpret_cast<__nv_bfloat16*>(Hs), p.hidden,
+                          16 * w + 8 * hf + g, col, v);
+        }
+      }
+    });
+    slab_written();
+    // x += Hs x wpj + bias
+    wg_product(p, rg, M_HACT, M_WPJ, layer, p.hidden, kC,
+               [&](int pass, const float (&acc)[64]) {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const int col = wg_col(pass, nt);
+        if (col >= kC) break;
+        const float2 bias = ld2(p.bpj + lb + col);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          if (m.ok[hf]) {
+            float2* xp = reinterpret_cast<float2*>(
+                p.x + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) * kC +
+                col);
+            const float2 x0 = *xp;
+            *xp = make_float2(x0.x + acc[4 * nt + 2 * hf] + bias.x,
+                              x0.y + acc[4 * nt + 2 * hf + 1] + bias.y);
+          }
+      }
+    });
+  }
+  ring_end(rg);
 }
 
 template <bool PACKED>
 __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As,
                                      float* Hs, float* W0, float* W1) {
+  if (p.w_bf16) {
+    phase_mlp_wg<PACKED>(p, layer, As, Hs,
+                         reinterpret_cast<unsigned char*>(W0));
+    return;
+  }
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
@@ -2897,7 +3432,7 @@ __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As,
       tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
       copy_row(As, ty + 16 * i, tx,
                tok < p.L ? p.o + (static_cast<size_t>(rb) * p.L + tok) * kC
-                         : nullptr);
+                         : nullptr, false);
     }
     stage_tile<64>(WB(cur), cw(p.wproj, 0), 0, wb);
     sync_staged();
@@ -2908,7 +3443,7 @@ __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As,
     if (!p.cross_bias) {
       const float* ada =
           p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
-      norm_tile_rows<PACKED>(p, item, As, ada, ada + kC, true);
+      norm_tile_rows<PACKED>(p, item, As, ada, ada + kC, true, false);
       // the cross-attention's queries, through bf16, into this item's rows
       // of the attention output in device memory (read already)
       for (int j = 0; j < kNCH; ++j) {
@@ -2959,7 +3494,7 @@ __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As,
         int b, rb, tok;
         tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
         copy_row(As, ty + 16 * i, tx,
-                 tok < p.L ? Hs + (ty + 16 * i) * kC : nullptr);
+                 tok < p.L ? Hs + (ty + 16 * i) * kC : nullptr, false);
       }
       sync_staged();
       residual_product<PACKED>(p, layer, m, As, W0, W1, cur, p.wproj_c,
@@ -2967,7 +3502,8 @@ __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As,
     }
     // LN -> the MLP's hidden units, a chunk of 64 at a time, into Hs;
     // WB(cur) holds wfc's first chunk
-    norm_tile_rows<PACKED>(p, item, As, p.ln2_s + lb, p.ln2_b + lb, false);
+    norm_tile_rows<PACKED>(p, item, As, p.ln2_s + lb, p.ln2_b + lb, false,
+                           false);
     for (int hc = 0; hc < nhc; ++hc) {
       zero<2>(acc);
       chunk_product<64, 2>(As, W0, W1, cur, wb, fc(hc),
@@ -3927,7 +4463,7 @@ __device__ MK_PHASE_T void phase_tail(const Params& p, float* As, float* Hs, flo
       norm_row(As, r, tx,
                t < p.L ? p.x + (static_cast<size_t>(rb) * p.L + t) * kC
                        : nullptr,
-               p.lno_s, p.lno_b, false);
+               p.lno_s, p.lno_b, false, false);
 #else
       float4 x[kNCH];
       if (t < p.L) {
@@ -4024,12 +4560,65 @@ megakernel_step_branch_kernel(const Params p) { step_body<false>(p); }
 
 #if MK_WIDE
 // floats of a block's slab: the activations' (0) and the MLP's (1), which
-// also holds the cross-attention's output (n_embd wide)
+// also holds the cross-attention's output (n_embd wide): in f32 chunks
+// (f32 weights, and the tail), or as three bf16 planes (bf16 weights)
 __host__ __device__ __forceinline__ long long slab_floats(int which,
                                                           int hidden) {
   const int chunks = (hidden + 63) / 64;
-  return static_cast<long long>(kSlabChunk) *
-         (which == 0 ? kNCH : (chunks > kNCH ? chunks : kNCH));
+  const long long f32 = static_cast<long long>(kSlabChunk) *
+                        (which == 0 ? kNCH : (chunks > kNCH ? chunks : kNCH));
+  const long long planes = 3LL * kRows * (which == 0 ? kC : hidden) / 2;
+  return f32 > planes ? f32 : planes;
+}
+
+// a 4-d bf16 tensor map (dims innermost first, strides of dims 1-3 in
+// bytes) with boxes `box` in TMA's swizzle `sw`; false if refused (its
+// CUresult in mha::wg::tma_error())
+bool map_bf16(CUtensorMap* map, const void* base,
+              const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+              const cuuint32_t (&box)[4], CUtensorMapSwizzle sw) {
+  const mha::wg::EncodeTiled encode = mha::wg::encode_tiled();
+  if (encode == nullptr) {
+    mha::wg::tma_error() = -1;
+    return false;
+  }
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) mha::wg::tma_error() = static_cast<int>(r);
+  return r == CUDA_SUCCESS;
+}
+
+// The tensor maps of the wide products with bf16 weights (wg_product) for
+// a grid of `grid` blocks: each slab's planes as (64 elements: a 128-byte
+// line, 8 rows of 8 columns; line, plane, block), boxes of (64, 64, 3)
+// (the three planes' 64-deep chunks, 24 KB, as they lie; lines past the
+// slab's columns read zero); each weight (k rows, n columns, row-major, by
+// layer) as (n, k, layer), boxes of (64, 64) in the 128-byte swizzle.
+// False if cuTensorMapEncodeTiled refused one (its CUresult in
+// mha::wg::tma_error()).
+bool wide_maps(Params& p, int grid) {
+  using cu64 = cuuint64_t;
+  auto slab = [&](Map m, const float* base, cu64 cols, int which) {
+    const cu64 block = static_cast<cu64>(slab_floats(which, p.hidden)) * 4;
+    return map_bf16(&p.maps[m], base,
+                    {64, cols, 3, static_cast<cu64>(grid)},
+                    {128, cols * 128, block}, {64, 64, 3, 1},
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  };
+  auto weight = [&](Map m, const void* base, cu64 k, cu64 n) {
+    return map_bf16(&p.maps[m], base,
+                    {n, k, static_cast<cu64>(p.n_layer), 1},
+                    {n * 2, k * n * 2, k * n * 2 * p.n_layer},
+                    {64, 64, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  const cu64 c = kC, h = p.hidden;
+  return slab(M_ACT, p.act, c, 0) && slab(M_HACT, p.hact, h, 1) &&
+         weight(M_WQKV, p.wqkv, c, 3 * c) && weight(M_WPROJ, p.wproj, c, c) &&
+         weight(M_WQC, p.wq_c, c, c) && weight(M_WPROJC, p.wproj_c, c, c) &&
+         weight(M_WFC, p.wfc, c, h) && weight(M_WPJ, p.wpj, h, c);
 }
 #endif
 
@@ -4252,6 +4841,11 @@ extern "C" int megakernel_keys_whole(int L) {
 extern "C" long long megakernel_slab_floats(int which, int hidden) {
   return slab_floats(which, hidden);
 }
+
+// The CUresult with which cuTensorMapEncodeTiled refused a tensor map of
+// the last launch with bf16 weights (which then returned
+// cudaErrorNotSupported), or 0.
+extern "C" int megakernel_tma_error() { return mha::wg::tma_error(); }
 #endif
 
 // One reverse step on `stream`. ptrs, ints and floats are host tables in the
@@ -4335,6 +4929,11 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
                          ((p.L + kQTile - 1) / kQTile);
   const long long items = tiles > attn ? tiles : attn;
   const int grid = static_cast<int>(items < cap ? items : cap);
+#if MK_WIDE
+  mha::wg::tma_error() = 0;
+  if (p.w_bf16 && !wide_maps(p, grid))
+    return static_cast<int>(cudaErrorNotSupported);
+#endif
   const void* fn = packed
       ? reinterpret_cast<const void*>(megakernel_step_packed_kernel)
       : reinterpret_cast<const void*>(megakernel_step_branch_kernel);

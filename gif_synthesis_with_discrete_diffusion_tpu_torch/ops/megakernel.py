@@ -34,8 +34,11 @@ domain, whose one layer of bf16 weights, 28 n_embd^2 bytes, no longer fits
 their 100 MiB of VMEM past n_embd ~1935). Above n_embd 512 a tile's
 activations no longer fit a block's shared memory beside the weight tiles:
 they live in per-block slabs in device memory (the scratch's ``act`` and
-``hact``, allocated at the first such launch), streamed in 64-column chunks
-beside the weight tiles. The tables are made in the kernels' layout: every
+``hact``, allocated at the first such launch), streamed beside the weight
+tiles; with bf16 weights as three bf16 planes (:func:`split3_bf16`,
+:func:`slab_plane_offset`) that TMA copies land for ``wgmma`` (the C entry
+encodes the tensor maps and the wrapper raises if one is refused). The
+tables are made in the kernels' layout: every
 n_embd-wide or MLP-wide axis padded with zero columns to a multiple of 8
 (:func:`storage_width`; a no-op at every configuration of the repo), once,
 by :func:`pack_denoiser_params` (and so by :func:`positions`,
@@ -45,10 +48,12 @@ true columns, and every padded column stays zero.
 
 Where the kernels' arithmetic departs from the plain version's by more than
 the order of a sum, it is stated here as a plain function that the CPU
-tests bound: the TF32 split of the f32 products (:func:`split_matmul`), the
-polynomial share of the exponentials (:func:`exp2_poly`), the shift of the
-scores (:func:`softmax_shift`); :func:`megakernel_step_kernel_arithmetic`
-is the step computed with all three.
+tests bound: the TF32 split of the f32 products (:func:`split_matmul`; above
+n_embd 512 with bf16 weights the three bf16 planes, :func:`planes_matmul`;
+:func:`kernel_matmul` says which), the polynomial share of the
+exponentials (:func:`exp2_poly`), the shift of the scores
+(:func:`softmax_shift`); :func:`megakernel_step_kernel_arithmetic` is the
+step computed with all three.
 
 Gumbel noise comes from Philox keyed by (seed, row, position, class): the
 sampled tokens agree with the TPU kernels and the plain version in
@@ -76,7 +81,8 @@ __all__ = ["MEGAKERNEL_MAX_SEQ", "pack_denoiser_params", "cross_tables",
            "megakernel_hidden_reference", "kernels_fit",
            "megakernel_sample_tokens", "prepare_sampling", "alloc_scratch",
            "scratch_head_dim", "storage_width", "phase_s_products",
-           "stamp_count", "split_tf32", "split_matmul", "exp2_poly",
+           "stamp_count", "split_tf32", "split_matmul", "split3_bf16",
+           "planes_matmul", "kernel_matmul", "slab_plane_offset", "exp2_poly",
            "poly_exp_mask", "softmax_shift", "widths_fit",
            "megakernel_step_kernel_arithmetic", "KERNEL_POLY_SHARE",
            "KERNEL_SHIFT_SLACK", "EXACT_MAX"]
@@ -399,7 +405,10 @@ def megakernel_step_reference(
 
 def _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
           n_head, n_embd, num_classes, guidance, use_cfg, s_valid, sample,
-          cross_as_bias, return_posterior, mm, self_attention):
+          cross_as_bias, return_posterior, mm, self_attention,
+          mm_logits=None):
+    """The step over ``mm`` for the denoiser's products and ``mm_logits``
+    (default ``mm``) for the logits'."""
     b, L = tokens.shape
     n_br = 2 if use_cfg else 1
     x = _hidden(packed, tokens, adaln, kc, vc, pos, n_layer=n_layer,
@@ -407,7 +416,8 @@ def _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
                 s_valid=s_valid, cross_as_bias=cross_as_bias, mm=mm,
                 self_attention=self_attention)
     h = _ln(x, n_embd) * packed["lno_s"] + packed["lno_b"]
-    z = (mm(h, packed["wlog"]) + packed["blog"]).reshape(b, n_br, L, -1)
+    z = ((mm_logits or mm)(h, packed["wlog"]) + packed["blog"]).reshape(
+        b, n_br, L, -1)
     logits2 = torch.cat([z[:, j] for j in range(n_br)], dim=0)
     return fused_sample_step_reference(
         logits2.transpose(1, 2), tokens, sched_row, seed, guidance=guidance,
@@ -465,6 +475,58 @@ def split_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return lo @ w32 + hi @ w32
     wh, wl = split_tf32(w32)
     return hi @ wl + lo @ wh + hi @ wh
+
+
+def split3_bf16(a: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``a = hi + mid + lo``, three bf16 values (as f32 tensors), each the
+    bf16 rounding (to nearest) of what the ones before leave: ``hi`` of
+    ``a``, ``mid`` of ``a - hi``, ``lo`` of ``a - hi - mid`` (each
+    difference exact in f32). They hold an f32 ``a`` exactly wherever
+    |a| >= 2^-109 (every bit of ``a`` then lies at or above bf16's
+    smallest spacing, 2^-133; below, to within 2^-134) and ``hi`` is
+    finite (|a| < 2^128 (1 - 2^-9), bf16's largest): what the wide kernels
+    write where an activation slab is written (csrc: split3)."""
+    a = a.to(torch.float32)
+    hi = _bf16(a)
+    r = a - hi
+    mid = _bf16(r)
+    return hi, mid, _bf16(r - mid)
+
+
+def planes_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` as the kernels above n_embd 512 take it with bf16 weights
+    (csrc: wg_product): the f32 activations as their three bf16 planes
+    (:func:`split3_bf16`), each multiplied by the bf16 weights (a product
+    of two bf16 values is exact in f32) and summed in f32, lo first."""
+    hi, mid, lo = split3_bf16(a)
+    w32 = w.to(torch.float32)
+    return lo @ w32 + mid @ w32 + hi @ w32
+
+
+def kernel_matmul(n_embd: int):
+    """The product K3 / K4 take for the denoiser's layers at ``n_embd``, as
+    ``mm(a, w)``: :func:`planes_matmul` above n_embd 512 with bf16 weights
+    (``w``'s dtype), else :func:`split_matmul`. The logits' product is
+    :func:`split_matmul` at every width."""
+    def mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if n_embd > _SLAB_EMBD and w.dtype == torch.bfloat16:
+            return planes_matmul(a, w)
+        return split_matmul(a, w)
+    return mm
+
+
+def slab_plane_offset(row, col, cols: int, plane=0):
+    """Where element (``row``, ``col``) of a 64-row tile lies in bf16
+    plane ``plane`` (0 hi, 1 mid, 2 lo) of a slab of ``cols`` columns (a
+    multiple of 8) above n_embd 512 (csrc: store_planes), an element
+    index: the planes one after another, 64 ``cols`` elements each, each
+    ``[col // 8][row][col % 8]``. A plane's 64-deep chunk (columns 64 i ..)
+    is the 8 KB from ``slab_plane_offset(0, 64 i, cols, plane)`` on: in
+    that order wgmma's K-major core matrices (8 rows x 8 columns, 128
+    bytes), 128 bytes apart along the rows and 1024 along the columns, as
+    one TMA box copies them."""
+    return plane * 64 * cols + ((col // 8) * 64 + row) * 8 + col % 8
 
 
 def exp2_poly(x: torch.Tensor, degree: int) -> torch.Tensor:
@@ -549,15 +611,18 @@ def megakernel_step_kernel_arithmetic(
         n_embd: int, num_classes: int, guidance: float, use_cfg: bool,
         s_valid: int, sample: bool = True, cross_as_bias: bool = False,
         return_posterior: bool = False):
-    """:func:`megakernel_step_reference` with every product taken by
-    :func:`split_matmul` and self-attention by the kernels' exponentials:
-    what K3 and K4 compute up to the order of their sums. For the tests; no
-    path of the port runs it."""
+    """:func:`megakernel_step_reference` with the denoiser's products taken
+    as the kernels take them at this width (:func:`kernel_matmul`: above
+    n_embd 512 with bf16 weights the three bf16 planes, else the TF32
+    split), the logits' by :func:`split_matmul` and self-attention by the
+    kernels' exponentials: what K3 and K4 compute up to the order of their
+    sums. For the tests; no path of the port runs it."""
     return _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed,
                  n_layer=n_layer, n_head=n_head, n_embd=n_embd,
                  num_classes=num_classes, guidance=guidance, use_cfg=use_cfg,
                  s_valid=s_valid, sample=sample, cross_as_bias=cross_as_bias,
-                 return_posterior=return_posterior, mm=split_matmul,
+                 return_posterior=return_posterior,
+                 mm=kernel_matmul(n_embd), mm_logits=split_matmul,
                  self_attention=_attention_kernel_arithmetic)
 
 
@@ -765,6 +830,15 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     err = lib.megakernel_step(
         c_ptrs, c_ints, c_floats, torch.cuda.current_stream().cuda_stream)
     if err:
+        # above n_embd 512 with bf16 weights the products' operands come by
+        # TMA: a refused tensor map fails the launch (no other path)
+        refused = (lib.megakernel_tma_error()
+                   if n_embd > _SLAB_EMBD and hasattr(
+                       lib, "megakernel_tma_error") else 0)
+        if refused:
+            raise RuntimeError(
+                f"megakernel_step: cuTensorMapEncodeTiled refused a tensor "
+                f"map of the wide products (CUresult {refused})")
         raise RuntimeError(f"megakernel_step launch failed: cudaError {err}")
     if pack_cfg:
         megakernel_step.launches_k3 += 1

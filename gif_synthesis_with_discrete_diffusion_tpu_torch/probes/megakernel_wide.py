@@ -17,7 +17,8 @@ the plain version's (given the plain state before that layer) and phase S
 alone is held to the plain attention of the kernels' own q, k, v (the bias
 path: the attention output stays in the ``o`` scratch), at 1 and 2
 layers; ``--sass W --parent ROOT``: ``cuobjdump -sass`` of ROOT's library
-and this checkout's at W, compared line by line. Then K3 at
+and this checkout's at W, compared line by line, with each side's count
+of wgmma (``HGMMA``) and mma.sync (``HMMA``) lines. Then K3 at
 VQ-Diffusion-B's width (B=4 under CFG, L=1024, 19 layers, K=4097) timed in
 each variant, in turns. Run from the root of the checkout (it drives
 ``chip_smoke.py``'s case builder and checks); needs a CUDA device.
@@ -202,11 +203,15 @@ def main() -> int:
     for w in sass:
         lines = [_sass(libs[w, side]._name) for side in ("parent", "this")]
         differ = [(x, y) for x, y in zip(*lines) if x != y]
+        ops = {op: [sum(f" {op}." in x or f" {op} " in x for x in side)
+                    for side in lines] for op in ("HGMMA", "HMMA")}
         result["sass"][f"{w[0]}x{w[1]}"] = {
             "lines": [len(x) for x in lines], "differing": len(differ),
-            "first": differ[:4]}
+            "first": differ[:4], **ops}
         print(f"SASS {w}: {len(lines[0])} / {len(lines[1])} lines, "
-              f"{len(differ)} differ: {differ[:4]}", flush=True)
+              f"{len(differ)} differ: {differ[:4]}; parent / this: "
+              + ", ".join(f"{op} {a} / {b}" for op, (a, b) in ops.items()),
+              flush=True)
     for w in widths:
         result["distances"][f"{w[0]}x{w[1]}"] = _distances(
             cs, libs, variants, *w)

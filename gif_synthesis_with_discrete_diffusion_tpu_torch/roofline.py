@@ -100,14 +100,19 @@ def megakernel_work(b: int, n_br: int, L: int, n_layer: int, hidden: int,
 
 def megakernel_bound(nbytes: float, flops_f32: float, flops_bf16: float, *,
                      weights_bf16: bool) -> tuple[float, str]:
-    """:func:`bound` of a whole step (:func:`megakernel_work`) as K3 and K4
-    compute it: each f32 product on the tensor cores in TF32 at 495
-    TFLOP/s, the activations split in two TF32 halves (hi, lo): two TF32
-    products with bf16 weights (a bf16 weight is a TF32 value: lo w + hi
-    w), three with f32 weights (the weight split too: hi hi + hi lo + lo
-    hi); the bf16 products at 989 TFLOP/s."""
-    per_product = 2.0 if weights_bf16 else 3.0
-    return bound(nbytes, 0.0, flops_bf16, flops_tf32=per_product * flops_f32)
+    """:func:`bound` of a whole step (:func:`megakernel_work`) with each f32
+    product on the tensor cores by its cheapest exact route: with bf16
+    weights the lesser of two TF32 products at 495 TFLOP/s (the
+    activations split in TF32 halves, hi and lo; a bf16 weight is a TF32
+    value) and three bf16 products at 989 (the activations in three bf16
+    planes: 3 / 989 < 2 / 495), at every width, since the bound is the
+    work's and not a kernel's; with f32 weights three TF32 products (the
+    weight split too: hi hi + hi lo + lo hi). The bf16 products at 989
+    TFLOP/s."""
+    if weights_bf16:
+        return min(bound(nbytes, 0.0, flops_bf16, flops_tf32=2.0 * flops_f32),
+                   bound(nbytes, 0.0, flops_bf16 + 3.0 * flops_f32))
+    return bound(nbytes, 0.0, flops_bf16, flops_tf32=3.0 * flops_f32)
 
 
 def card() -> str:

@@ -214,15 +214,17 @@ def test_work_count_scales_with_the_width():
     n_embd 256 in heads of 16 with an MLP of 1024 the f32 products as
     written (QKV 6 C^2, proj 2 C^2, MLP 4 C hidden a row and layer, the
     logits 2 C (K - 1) a row) and QK^T + PV at 4 L C a row and layer; the
-    bound takes each f32 product as the kernels do on the tensor cores at
-    495 TFLOP/s: two TF32 products with bf16 weights (0.96 ms at n_embd 64,
-    9.79 ms at 256), three with f32 weights (1.28 ms, 14.0 ms)."""
+    bound takes each f32 product by its cheapest exact route on the tensor
+    cores: with bf16 weights three bf16 products at 989 TFLOP/s (the
+    activations in three bf16 planes; two TF32 products at 495 would take
+    longer), 0.81 ms at n_embd 64, 7.68 ms at 256; with f32 weights three
+    TF32 products (1.28 ms, 14.0 ms)."""
     rows, L, layers, kv = 32 * 2 * 1024, 1024, 19, 4096
     for n_head in (16, 8):
         nbytes, f32, bf16 = roofline.megakernel_work(
             32, 2, L, layers, 256, kv, 1, True, n_embd=64, n_head=n_head)
         assert (round(f32 / 1e9, 1), round(bf16 / 1e9, 1)) == (156.8, 326.4)
-        for w_bf16, want in ((True, 0.96), (False, 1.28)):
+        for w_bf16, want in ((True, 0.81), (False, 1.28)):
             ms, by = roofline.megakernel_bound(nbytes, f32, bf16,
                                                weights_bf16=w_bf16)
             assert by == "operations" and round(ms, 2) == want
@@ -232,9 +234,12 @@ def test_work_count_scales_with_the_width():
     assert f32 == float(6 * c * c + 2 * c * c + 4 * c * hidden) * rows * \
         layers + 2.0 * c * kv * rows
     assert bf16 == 4.0 * L * c * rows * layers
-    for w_bf16, per_product, want in ((True, 2, 9.79), (False, 3, 14.02)):
+    for w_bf16, want_ms, want in (
+            (True, (3 * f32 + bf16) / 989e12 * 1e3, 7.68),
+            (False, (3 * f32 / 495e12 + bf16 / 989e12) * 1e3, 14.02)):
         ms, by = roofline.megakernel_bound(nbytes, f32, bf16,
                                            weights_bf16=w_bf16)
-        assert by == "operations" and math.isclose(
-            ms, (per_product * f32 / 495e12 + bf16 / 989e12) * 1e3)
+        assert by == "operations" and math.isclose(ms, want_ms)
         assert round(ms, 2) == want
+    # the two TF32 halves would be the dearer route with bf16 weights
+    assert 2 / 495e12 > 3 / 989e12
