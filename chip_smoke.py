@@ -190,8 +190,12 @@ Phases:
      and the training step at B=16 in bf16 and f32 under torch.profiler;
  21. K3 and K4 at every width the JAX megakernel takes (n_embd 24-2048 in
      heads of 1-1024: ``csrc/megakernel_step.cu``, one library per width,
-     built in the background from phase 1 on; above 512 the activations
-     in device memory): (a) against their plain
+     built in the background from phase 1 on; with bf16 weights phases A
+     and B's products on wgmma, the activations in device memory, at
+     every width but the serving one, and so with f32 weights above 512;
+     each library's nvcc seconds on one line, the widths of
+     MK_WGMMA_WIDTHS held to hold wgmma in their SASS, the serving width
+     none (with ``--parent``, its SASS the parent's)): (a) against their plain
      versions at ``MK_WIDTHS`` (2 layers, 1 above n_embd 512; general and
      one-token conditions, f32 and bf16 weights, ragged tiles) and where a head's
      keys are streamed (heads of 32 at 2304 tokens, 64 and 128 at 1024,
@@ -202,7 +206,8 @@ Phases:
      n_embd 64 in heads of 8, 256 in heads of 16, 512 in heads of 256 and
      VQ-Diffusion-B's 1024 in heads of 64, against the plain
      version at that shape, then timed against it, with the bound and by
-     phase; (c) ``auto`` at n_embd 64 in heads of 8: the small config
+     phase (with ``--parent ROOT``, each by phase in turns with ROOT's
+     kernels); (c) ``auto`` at n_embd 64 in heads of 8: the small config
      against the CPU's plain run, the honest configuration for 4 clips
      over 100 steps (100 K3 launches); (d) with ``--parent ROOT``, K3 and
      K4 at the serving width in turns with ROOT's kernels and with the
@@ -1583,7 +1588,9 @@ def _hidden_witness(torch, args, hidden_kw, want_x) -> dict:
     out = {}
     for name, mm, attention in (
             ("f64 sums", f64_sums, mk._attention_reference),
-            ("kernel arithmetic", mk.kernel_matmul(hidden_kw["n_embd"]),
+            ("kernel arithmetic",
+             mk.kernel_matmul(hidden_kw["n_embd"],
+                              hidden_kw["n_embd"] // hidden_kw["n_head"]),
              mk._attention_kernel_arithmetic),
             ("one TF32", hi_only, mk._attention_reference),
             ("bf16", bf16_acts, mk._attention_reference)):
@@ -4695,8 +4702,9 @@ def phase_widths(torch, smi: str, parent: str | None = None,
 
 # phase 21: K3 and K4 at every width the JAX megakernel takes (the CUDA
 # kernels take every n_embd up to 2048 in any heads that divide it, one
-# library per (n_embd, head dim); above 512 a tile's activations live in
-# device memory): the widths of the CPU tests (head dims 4, 16, 32, 64,
+# library per (n_embd, head dim); with bf16 weights a tile's activations
+# live in device memory at every width but the serving one, with f32
+# weights above 512): the widths of the CPU tests (head dims 4, 16, 32, 64,
 # 128; n_embd 24, 48, 80 and 100 in heads of 3, 12, 5 and 25, heads of 144,
 # 256 and 512), the full-width configurations (heads of 8 and of 16), n_embd
 # 96 (a half-padded last chunk of 64 columns; heads of 12 and of 24: a
@@ -4802,12 +4810,18 @@ def _megakernel_library(lib):
         mk._library = own
 
 
-def _phase21_builds(futures: dict) -> None:
+def _phase21_builds(futures: dict, parent_builds=None) -> dict:
     """Waits for the width libraries; prints each one's nvcc seconds, its
     registers and spills, the query scale it multiplies by, and whether a
-    head's keys are staged whole at 1024 and 2304 tokens."""
+    head's keys are staged whole at 1024 and 2304 tokens; then the nvcc
+    seconds of every width on one line. Fails if a width of MK_WGMMA_WIDTHS
+    has no ``HGMMA`` in its SASS, or the serving width any; with
+    ``parent_builds`` (:func:`start_parent_build`), if the serving width's
+    SASS differs from the parent's but for the anonymous namespace's hash.
+    Returns {"CxH": nvcc seconds}."""
     import numpy as np
     t0 = time.perf_counter()
+    nvcc = {}
     for key, fut in futures.items():
         lib = fut.result()
         n_embd, d = lib.megakernel_width(0), lib.megakernel_width(1)
@@ -4825,27 +4839,62 @@ def _phase21_builds(futures: dict) -> None:
         if scale != want:
             raise AssertionError(f"the kernels at head dim {d} scale the "
                                  f"queries by {scale!r}, not {want!r}")
-        if key == MK_PARENT_WIDTH:
+        if key != GENERAL_SERVING:
+            nvcc[f"{key[0]}x{key[1]}"] = round(lib.build_seconds, 2)
+        if key in MK_WGMMA_WIDTHS:
             counts = _sass_counts(lib._name, ("HGMMA", "HMMA"))
             print(f"phase 21: {label}: the library's SASS holds "
                   + ", ".join(f"{n} {op}" for op, n in counts.items())
-                  + " instructions (the products of phases A and B on "
-                  "wgmma with bf16 weights, mma.sync with f32 weights, "
-                  "phase S and the tail)")
+                  + " instructions (the products of phases A and B on wgmma "
+                  "with bf16 weights, mma.sync with f32 weights, phase S and "
+                  "the tail)")
             if not counts["HGMMA"]:
                 raise AssertionError(f"{label}: no wgmma in the library")
     print(f"phase 21: waited {time.perf_counter() - t0:.2f} s for the width "
           f"libraries (built in the background since phase 1)")
+    print(f"phase 21: nvcc seconds by width (n_embd x heads, built "
+          f"{MK_BUILD_WORKERS} at a time at nice {MK_BUILD_NICE}): "
+          + json.dumps(nvcc))
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        megakernel as mk)
+    serving = mk._library()
+    counts = _sass_counts(serving._name, ("HGMMA", "HMMA"))
+    print(f"phase 21: the serving width (n_embd 64 in heads of 4): its SASS "
+          f"holds " + ", ".join(f"{n} {op}" for op, n in counts.items())
+          + " instructions (its own code: mma.sync only)")
+    if counts["HGMMA"]:
+        raise AssertionError("wgmma in the serving width's library")
+    if parent_builds is not None:
+        lines = [_sass_lines(lib._name) for lib in (
+            parent_builds[64, 4].result(), serving)]
+        differ = [(x, y) for x, y in zip(*lines)
+                  if x != y and not ("_GLOBAL__N__" in x
+                                     and "_GLOBAL__N__" in y)]
+        print(f"phase 21: the serving width's SASS against the parent's: "
+              f"{len(lines[0])} / {len(lines[1])} lines, {len(differ)} "
+              f"differ other than by the anonymous namespace's hash"
+              + (f": {differ[:4]}" if differ else ""))
+        if differ or len(lines[0]) != len(lines[1]):
+            raise AssertionError("the serving width's SASS differs from the "
+                                 "parent's")
+    return nvcc
+
+
+def _sass_lines(lib_path: str) -> list[str]:
+    """``cuobjdump -sass`` of a library, line by line."""
+    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
+        cuda_build)
+    find_nvcc = cuda_build.find_nvcc
+    return subprocess.run(
+        [str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", lib_path],
+        capture_output=True, text=True, check=True,
+        timeout=300).stdout.splitlines()
 
 
 def _sass_counts(lib_path: str, ops: tuple[str, ...]) -> dict:
     """The lines of ``cuobjdump -sass`` of a library that issue each of
     ``ops`` (an opcode, its suffixes aside)."""
-    from gif_synthesis_with_discrete_diffusion_tpu_torch.ops.cuda_build import (
-        find_nvcc)
-    sass = subprocess.run(
-        [str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", lib_path],
-        capture_output=True, text=True, check=True, timeout=300).stdout
+    sass = "\n".join(_sass_lines(lib_path))
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
@@ -4971,21 +5020,30 @@ def _phase21_kernels(torch, smi: str) -> tuple[float, dict]:
 MK_DESIGNS = {
     "n_embd 64 in heads of 4": "the serving width's own units (MK_SERVING): "
                                "mma.sync, f32 activations as TF32 hi + lo",
-    "n_embd up to 512": "the general code: the tile's activations in shared "
-                        "memory, mma.sync, TF32 hi + lo",
-    "n_embd 513-2048, bf16 weights": "activations in per-block slabs as "
-                                     "three bf16 planes; phases A and B's "
-                                     "products on wgmma.mma_async "
-                                     "(m64n128k16, two warpgroups, 256 "
-                                     "columns a pass), operands by TMA "
-                                     "through a 4-stage mbarrier ring; the "
-                                     "tail's logits on mma.sync",
+    "n_embd 1-64 (but 64 in heads of 4), bf16 weights":
+        "activations as three bf16 planes, a tile's in shared memory, the "
+        "MLP's hidden units in a per-block slab; phases A and B's products "
+        "on wgmma.mma_async (m64n64k16, two warpgroups, 128 columns a pass: "
+        "two blocks an SM), the weights (and the hidden units) by TMA "
+        "through a 2-stage mbarrier ring, a product's weights copied while "
+        "its activations are written; phase S and the tail's logits on "
+        "mma.sync",
+    "n_embd 65-2048, bf16 weights":
+        "activations in per-block slabs as three bf16 planes, phases A and "
+        "B's products on wgmma.mma_async m64n128k16, 256 columns a pass, "
+        "operands by TMA through a 4-stage ring (one block an SM)",
+    "n_embd up to 512, f32 weights": "the general code: the tile's "
+                                     "activations in shared memory, "
+                                     "mma.sync, TF32 hi + lo",
     "n_embd 513-2048, f32 weights": "activations in per-block f32 slabs, "
                                     "64-column chunks staged by cp.async, "
                                     "mma.sync, TF32 hi + lo"}
-# the width whose K3 / K4 phase 21 (b) times by phase in turns with a
-# parent checkout's (--parent): VQ-Diffusion-B's, the wide products' design
-MK_PARENT_WIDTH = (1024, 16)
+# the widths whose libraries must hold wgmma (phase 21 fails otherwise)
+MK_WGMMA_WIDTHS = ((64, 8), (256, 16), (512, 2), (1024, 16))
+# the widths whose K3 / K4 phase 21 (b) times by phase in turns with a
+# parent checkout's (--parent): VQ-Diffusion-B's, WIDE_DOMAIN's and the
+# full-width configurations at 256 and 64
+MK_PARENT_WIDTHS = ((1024, 16), (512, 2), (256, 16), (64, 8))
 
 
 def _wide_parent_turns(torch, phase, smi, label, parent_lib,
@@ -5010,14 +5068,14 @@ def _wide_parent_turns(torch, phase, smi, label, parent_lib,
     return out
 
 
-def _phase21_full(torch, smi: str, parent_build=None) -> dict:
+def _phase21_full(torch, smi: str, parent_builds=None) -> dict:
     """(b) The honest configuration (K3, B=32, L=1024) and the MSRVTT grid
     (K4, B=8, L=2304) at MK_FULL_WIDTHS: the step against the plain version
     at that shape (every block loops over several work items), then kernel
     and plain timed in turns, the bound and the share, where a step's time
-    goes; with ``parent_build`` (a future of the parent's library at
-    MK_PARENT_WIDTH), that width's K3 and K4 by phase in turns with the
-    parent's (:func:`_wide_parent_turns`). {"CxH": {"K3": ..., "K4":
+    goes; with ``parent_builds`` (:func:`start_parent_build`), K3 and K4 at
+    MK_PARENT_WIDTHS by phase in turns with the parent's
+    (:func:`_wide_parent_turns`). {"CxH": {"K3": ..., "K4":
     ...}}."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.generate import (
         HONEST, MSRVTT_GRID, at_width, build_models)
@@ -5037,11 +5095,11 @@ def _phase21_full(torch, smi: str, parent_build=None) -> dict:
             _phase_times(torch, "phase 21", f"{label} B={b}", *step)
             out[key][kid] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, share=bound_ms / ms)
-            if parent_build is not None and \
-                    (n_embd, n_head) == MK_PARENT_WIDTH:
+            if parent_builds is not None and \
+                    (n_embd, n_head) in MK_PARENT_WIDTHS:
                 out[key][kid]["parent_turns"] = _wide_parent_turns(
                     torch, "phase 21", smi, f"{label} B={b}",
-                    parent_build.result(), step)
+                    parent_builds[n_embd, n_embd // n_head].result(), step)
             del models, step
             torch.cuda.empty_cache()
     return out
@@ -5161,7 +5219,7 @@ def _phase21_parent_turns(torch, smi: str, parent: str, parent_builds,
 
 def start_parent_build(parent: str) -> dict:
     """ROOT's megakernel_step.cu built in the background at the serving
-    width (phase 21 (d)) and at MK_PARENT_WIDTH (phase 21 (b)), one nvcc
+    width (phase 21 (d)) and at MK_PARENT_WIDTHS (phase 21 (b)), one nvcc
     each: {(n_embd, head dim): future of the library, its C entry bound}."""
     from gif_synthesis_with_discrete_diffusion_tpu_torch.ops import (
         cuda_build)
@@ -5174,9 +5232,9 @@ def start_parent_build(parent: str) -> dict:
         lib.megakernel_step.restype = ctypes.c_int
         return lib
 
-    wide = (MK_PARENT_WIDTH[0], MK_PARENT_WIDTH[0] // MK_PARENT_WIDTH[1])
-    pool = ThreadPoolExecutor(2)
-    futs = {w: pool.submit(build, *w) for w in ((64, 4), wide)}
+    widths = [(64, 4)] + [(c, c // h) for c, h in MK_PARENT_WIDTHS]
+    pool = ThreadPoolExecutor(len(widths))
+    futs = {w: pool.submit(build, *w) for w in widths}
     pool.shutdown(wait=False)
     return futs
 
@@ -5187,13 +5245,10 @@ def phase_mk_widths(torch, smi: str, builds: dict,
     the full-width configurations timed, (c) the route at n_embd 64 in
     heads of 8, (d) with ``parent``, the serving width in turns."""
     t0 = time.perf_counter()
-    _phase21_builds(builds)
+    nvcc = _phase21_builds(builds, parent_build)
     worst, tolerance = _phase21_kernels(torch, smi)
     t1 = time.perf_counter()
-    full = _phase21_full(torch, smi, None if parent_build is None else
-                         parent_build[MK_PARENT_WIDTH[0],
-                                      MK_PARENT_WIDTH[0]
-                                      // MK_PARENT_WIDTH[1]])
+    full = _phase21_full(torch, smi, parent_build)
     t2 = time.perf_counter()
     route = _phase21_route(torch, smi)
     t3 = time.perf_counter()
@@ -5202,7 +5257,7 @@ def phase_mk_widths(torch, smi: str, builds: dict,
     print(f"phase 21: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
           f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
     return {"worst": worst, "tolerance": tolerance, "full": full,
-            "route": route}
+            "route": route, "nvcc": nvcc}
 
 
 # phase 22: the rest of K1, K2, K5 and K6's domain. K1 above the register

@@ -45,8 +45,8 @@
 //    are multiplied by the weight tile (bf16 weights are TF32 values; f32
 //    weights are split too), summed in the f32 accumulator: see mma_tile.
 //    These phases are bound by mma issue and by what surrounds a product
-//    (a block-wide barrier each, the epilogues). Above n_embd 512 with
-//    bf16 weights phases A and B take wgmma instead (below).
+//    (a block-wide barrier each, the epilogues). With bf16 weights phases A
+//    and B take wgmma instead at every width but the serving one (below).
 //
 // Widths. One library is built per exact (n_embd, head dim): MK_C and MK_D,
 // by default 64 and 4. The kernels take every n_embd from 1 to 2048 (the
@@ -68,33 +68,38 @@
 // chunks of at most 128 (kNOC), each recomputing the scores from the same
 // shift and row sum, so every chunk rounds the same bf16 probabilities.
 //
-// Above n_embd 512 (MK_WIDE; the units under "#if MK_WIDE") a tile's 64
-// rows no longer fit the block beside the weight tiles (237,568 B at 520
-// against 232,448), and a row no longer fits a thread's registers for its
-// LayerNorm. The tile keeps its 64 rows, so that every epilogue, the
-// packed row order and the tail are the narrower widths' own, and the
-// activations move to device memory: each block owns two slabs (the
-// scratch's act and hact). LayerNorm reads a row three times from device
+// With bf16 weights (what the route packs), at every width but the serving
+// one (MK_WG; the units under "#if MK_WG"), every product of phases A and
+// B runs on wgmma (wg_product, the units after chunk_product), and a
+// tile's activations live in device memory: each block owns two slabs
+// (the scratch's act and hact), which hold each activation once split into
+// three bf16 planes; TMA brings them and the weights through an mbarrier
+// ring, 256 output columns a pass, so that a tile re-reads its activations
+// once per pass. Where two blocks share an SM (n_embd up to 64) a pass is
+// 128 columns and the tile's planes stay in shared memory (kActShared),
+// the MLP's hidden units in hact. The tile keeps its
+// 64 rows, so that every epilogue, the packed row order and the tail are
+// the shared tile's own. LayerNorm reads a row three times from device
 // memory (sum, squares about the mean, output; ln_row's arithmetic, a
 // float4 a lane in registers). The residual stream is the hidden state x
 // itself: each product's epilogue adds its columns there, as the
-// registers' copy did. The MLP's hidden units go whole to hact before its
+// registers' copy does. The MLP's hidden units go whole to hact before its
 // projection sums over them; the cross-attention's output waits there
-// too. A product's 64-deep tiles are each summed from zero and added in
+// too. A product's 64-deep stages are each summed from zero and added in
 // f32 (the tensor cores' accumulation truncates, and a 2048-deep chain
-// lost the lo half's precision). With bf16 weights (what the route packs)
-// every product of phases A and B runs on wgmma (wg_product, the units
-// after chunk_product): the slabs hold each activation once split into
-// three bf16 planes, and TMA brings them and the weights through a
-// four-stage mbarrier ring, 256 output columns a pass, so that a tile
-// re-reads its activations once per 256 output columns. With f32 weights
-// the slabs hold f32 chunks (64 rows x 64 columns), and every product
-// stages its A operand's 64-column chunk by cp.async into a 64 x 72 buffer
-// beside the weight tile it meets (chunk_product), once per 64 output
-// columns, on mma.sync, as the tail's logits are at either type. Phase S
-// streams keys 16 a tile where two tiles of 32 do not fit (heads over
-// ~900 dims), and through one buffer where two of 16 do not (heads over
-// ~1800). Up to 512 the code is as it was (its SASS unchanged).
+// lost the lo half's precision).
+// With f32 weights the activations stay in shared memory up to n_embd 512
+// (the tile As, the code above, on mma.sync). Above it (MK_WIDE; the units
+// under "#if MK_WIDE") a tile's 64 rows no longer fit the block beside the
+// weight tiles (237,568 B at 520 against 232,448), and a row no longer fits
+// a thread's registers for its LayerNorm: the slabs hold f32 chunks (64
+// rows x 64 columns), and every product stages its A operand's 64-column
+// chunk by cp.async into a 64 x 72 buffer beside the weight tile it meets
+// (chunk_product), once per 64 output columns, on mma.sync, as the tail's
+// logits are at either type and width (up to 512 from the shared tile).
+// Phase S streams keys 16 a tile where two tiles of 32 do not fit (heads
+// over ~900 dims), and through one buffer where two of 16 do not (heads
+// over ~1800).
 //
 // The serving width (n_embd 64 in 16 heads of 4) keeps the code written for
 // it (MK_SERVING: the units under "#if MK_SERVING" below), which this
@@ -163,16 +168,19 @@
 #else
 #define MK_SERVING 0
 #endif
-// n_embd above 512: the activations live in device memory (the units under
-// "#if MK_WIDE"; the header's "Widths" paragraph)
+// n_embd above 512: the activations of the products with f32 weights live
+// in device memory too (the units under "#if MK_WIDE"; the header's
+// "Widths" paragraph)
 #if MK_C > 512
 #define MK_WIDE 1
 #else
 #define MK_WIDE 0
 #endif
-#if MK_WIDE
-// the wide products with bf16 weights take the attention kernels' wgmma,
-// TMA and mbarrier helpers (mha::wg)
+// every width but the serving one: the products of phases A and B with
+// bf16 weights run on wgmma (the units under "#if MK_WG"), with the
+// attention kernels' wgmma, TMA and mbarrier helpers (mha::wg)
+#define MK_WG (!MK_SERVING)
+#if MK_WG
 #include "mha_wg.cuh"
 #endif
 
@@ -214,6 +222,7 @@ constexpr int kSlabChunk = kRows * 64;
 constexpr int kNCH = (kC + 63) / 64;   // 64-column chunks of a row
 constexpr int kLda = 64 * kNCH + 8;    // row stride of the activation tile
 constexpr int kLdh = 72;               // row stride of the 64-wide tile Hs
+constexpr int kSlabChunk = kRows * 64;
 #endif  // MK_SERVING
 constexpr int kTileBytes = kRows * kLda * 4;
 // a staged weight tile of 64 x NB, as 32 rows of NB (k, k + 1) pairs
@@ -233,10 +242,18 @@ static_assert(kStepBytes <= kSmemBytes, "the tiles fit a block");
 constexpr int kStepBytes = kTileBytes + kRows * kLdh * 4 + 2 * kWBytes;
 // two blocks an SM where both fit the SM's 228 KB (1 KB a block reserved),
 // else one, which may as well take all the 227 KB a block can have (phase S
-// stages more keys whole)
+// stages more keys whole); two blocks take what the wgmma products need
+// where that is more: 106 KB (1023 B of alignment, the activations' planes,
+// 24 KB, and a ring of two 40 KB stages with their barriers: kActShared,
+// kRingStages)
 constexpr int kMinBlocks = 2 * (kStepBytes + 1024) <= 233472 ? 2 : 1;
-constexpr int kSmemBytes = kMinBlocks == 2 ? kStepBytes : 232448;
+constexpr int kWgPairBytes = 106 * 1024;
+constexpr int kSmemBytes =
+    kMinBlocks == 1 ? 232448
+                    : (kStepBytes > kWgPairBytes ? kStepBytes : kWgPairBytes);
 static_assert(kStepBytes <= kSmemBytes, "the tiles fit a block");
+static_assert(kMinBlocks == 1 || 2 * (kSmemBytes + 1024) <= 233472,
+              "two blocks an SM");
 #endif  // MK_SERVING
 constexpr float kNeg30 = -69.07755278982137f;   // log(1e-30)
 constexpr float kClamp = -70.f;
@@ -312,8 +329,9 @@ static_assert(kDS == 4 || kSBuf * kSKT * kKeyBytes <= kSmemBytes,
 #else
 #define MK_PHASE_T
 #endif
-// (above n_embd 512 too: the TMA copies read the tensor maps there)
-#if MK_NOINLINE || MK_WIDE
+// (and wherever bf16 weights take wgmma: the TMA copies read the tensor
+// maps there)
+#if MK_NOINLINE || MK_WG
 #define MK_KERNEL_PARAMS const __grid_constant__ Params
 #else
 #define MK_KERNEL_PARAMS const Params
@@ -331,9 +349,9 @@ enum Int {
   I_B, I_L, I_NBR, I_NLAYER, I_KV, I_SP, I_SVALID, I_HIDDEN, I_WBF16,
   I_SAMPLE, I_CROSSBIAS, I_PACKED, I_SEEDLO, I_SEEDHI, I_GRID
 };
-#if MK_WIDE
-// the tensor maps of the wide products with bf16 weights (wide_maps): the
-// two slabs' bf16 planes and the six weights of phases A and B
+#if MK_WG
+// the tensor maps of the products with bf16 weights (wg_maps): the two
+// slabs' bf16 planes and the six weights of phases A and B
 enum Map {
   M_ACT, M_HACT, M_WQKV, M_WPROJ, M_WQC, M_WPROJC, M_WFC, M_WPJ, kMaps
 };
@@ -379,7 +397,7 @@ struct Params {
   float guidance;
   float qscale;     // fl32(1 / sqrt(head dim)), rounded once from double
   int keys_whole;   // phase S stages a head's keys whole (else streams them)
-#if MK_WIDE
+#if MK_WG
   // per block: the activation slab and the MLP's, megakernel_slab_floats
   // apiece (slab_floats)
   float *act, *hact;
@@ -1047,14 +1065,16 @@ __device__ __forceinline__ void chunk_product(const float* A, float* W0,
 }
 #endif
 
-#if MK_WIDE
+#if MK_WG
 
 // ---------------------------------------------------------------------------
-// the wide products with bf16 weights: wgmma fed by TMA
+// the products with bf16 weights: wgmma fed by TMA
 // ---------------------------------------------------------------------------
-// Every product of phases A and B runs on wgmma.mma_async: the block's two
-// warpgroups take the tile's 64 rows x 128 columns each of a pass of 256
-// output columns, the sums in registers, both operands in shared memory.
+// At every width but the serving one, every product of phases A and B runs
+// on wgmma.mma_async: the block's two warpgroups take the tile's 64 rows x
+// kWgN columns each of a pass of kPassCols output columns (256; 128 where
+// two blocks share an SM), the sums in registers, both operands in shared
+// memory.
 // The f32 activations are split once, where their slab is written, into
 // three bf16 planes: hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi -
 // mid) (each difference exact in f32), which hold a exactly wherever |a|
@@ -1068,8 +1088,8 @@ __device__ __forceinline__ void chunk_product(const float* A, float* W0,
 // each 64-deep chunk of a plane is 8 KB, already wgmma's K-major core
 // matrices (8 rows x 16 bytes; 128 bytes apart along the rows, 1024 along
 // the contraction), which one TMA box copies as it lies, in 128-byte
-// lines, the three planes at once. A weight tile of 64 rows x 256 columns
-// comes as four boxes of 64 x 64 in TMA's 128-byte swizzle (a row's 128
+// lines, the three planes at once. A weight tile of 64 rows x kPassCols
+// columns comes as boxes of 64 x 64 in TMA's 128-byte swizzle (a row's 128
 // bytes a line), the layout wgmma reads as an MN-major operand with that
 // swizzle. (Boxes 16 bytes wide, the core matrices' own width, held the
 // first build to about half this speed: PERF.md.) Both come through a ring
@@ -1084,6 +1104,9 @@ __device__ __forceinline__ void chunk_product(const float* A, float* W0,
 // (warning C7510: the step's body, which holds them, is a function the
 // kernel calls). Inlining the body into the kernel lifted that and gained
 // 7 %, but took nvcc 636-820 s a width and spilled (PERF.md): not kept.
+// One product function (wg_product) serves every product, its epilogues
+// one switch over what a pass's sums go to (WgOut); as a function of its
+// own, not inlined, it ran 2-3 % slower at n_embd 1024 (PERF.md).
 
 // a into its three bf16 planes
 __device__ __forceinline__ void split3(float a, __nv_bfloat16 (&s)[3]) {
@@ -1122,16 +1145,34 @@ __device__ __forceinline__ void store_planes(__nv_bfloat16* slab, int k8,
   }
 }
 
-constexpr int kRingStages = 4;
-constexpr int kPassCols = 256;                    // output columns of a pass
+// A pass of kPassCols output columns, kWgN a warpgroup: 128 (m64n128k16)
+// where a block has the SM to itself; 64 (m64n64k16) where two blocks share
+// it (n_embd up to 64, kMinBlocks), so that a ring of two stages fits each
+// block's half of the shared memory and a thread's sums its 128 registers.
+constexpr int kWgN = kMinBlocks == 2 ? 64 : 128;
+constexpr int kPassCols = 2 * kWgN;               // output columns of a pass
 constexpr int kPlaneBytes = kRows * 64 * 2;       // a plane's 64-deep chunk
 constexpr int kAStage = 3 * kPlaneBytes;
 constexpr int kStage = kAStage + 64 * kPassCols * 2;
-// (the slots start on a 1024-byte boundary of the block's shared memory)
-static_assert(1023 + kRingStages * (kStage + 16) <= kSmemBytes,
-              "the ring fits");
+// Where two blocks share an SM (n_embd up to 64: one 64-deep chunk), the
+// tile's activations' planes live in the block's shared memory, not in its
+// slab: written there (norm_row, copy_row; 64 columns a plane, those past
+// n_embd zero), read there by the products' wgmma, so that neither a round
+// trip through device memory nor a TMA copy stands between them, and each
+// product's weights are copied before its activations are written
+// (wg_prefetch). The MLP's hidden units stay in the slab.
+constexpr bool kActShared = kMinBlocks == 2;
+constexpr int kActBytes = kActShared ? kAStage : 0;
+constexpr int kActK8 = kActShared ? 64 : kC;      // a plane's columns
+// the ring's slots: four, or as many as fit (the slots start on a
+// 1024-byte boundary of the block's shared memory, after the activations'
+// planes; two barriers a slot)
+constexpr int kRingFit = (kSmemBytes - 1023 - kActBytes) / (kStage + 16);
+constexpr int kRingStages = kRingFit < 4 ? kRingFit : 4;
+static_assert(kRingStages >= 2, "the ring fits");
 
 struct Ring {
+  unsigned char* act;    // the activations' planes (kActShared)
   unsigned char* base;   // the slots
   uint64_t* full;        // a slot's copies have landed
   uint64_t* empty;       // the block's warps are done with a slot
@@ -1139,11 +1180,21 @@ struct Ring {
 };
 
 // At the start of a phase (its shared memory held phase S's tiles): the
-// barriers made anew.
+// barriers made anew, and the activations' planes' columns past n_embd
+// zeroed (kActShared: their rows of the weights are TMA's zeros, and a
+// stale value may be no finite number).
 __device__ __forceinline__ Ring ring_begin(unsigned char* smem) {
   smem += (1024 - (mha::smem_addr(smem) & 1023)) & 1023;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kRingStages * kStage);
-  const Ring rg{smem, bars, bars + kRingStages, 0};
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kActBytes +
+                                               kRingStages * kStage);
+  const Ring rg{smem, smem + kActBytes, bars, bars + kRingStages, 0};
+  if constexpr (kActShared && kC < 64) {
+    // plane pl's columns kC .. 63: its elements from kC * kRows on
+    constexpr int pad = (64 - kC) * kRows / 2;    // bf16 pairs a plane
+    for (int i = threadIdx.x; i < 3 * pad; i += kThreads)
+      reinterpret_cast<unsigned*>(smem)[(i / pad) * (kPlaneBytes / 4) +
+                                        kC * kRows / 2 + i % pad] = 0u;
+  }
   mha::wg::fence_async();   // the phase before's stores, then TMA's
   if (threadIdx.x == 0) {
     for (int i = 0; i < kRingStages; ++i) {
@@ -1173,8 +1224,8 @@ __device__ __forceinline__ void slab_written() {
 }
 
 // d (+)= a b, m64n128k16, bf16 from shared memory: a K-major, b MN-major
-__device__ __forceinline__ void wg_mma128(float (&d)[64], uint64_t a,
-                                          uint64_t b, int acc) {
+__device__ __forceinline__ void wg_mma(float (&d)[64], uint64_t a,
+                                       uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -1184,80 +1235,16 @@ __device__ __forceinline__ void wg_mma128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
-// The block's slab (map amap: its planes, krows columns) times layer's
-// weight (map wmap: krows x ncols, row-major bf16) in passes of kPassCols
-// output columns; epi(pass, acc) takes each pass's sums in the wgmma
-// accumulator layout: warp w of warpgroup wg holds rows 16 w + g and 16 w
-// + g + 8, columns kPassCols pass + 128 wg + 8 nt + 2 tig and + 1, as
-// acc[4 nt + 2 hf + j] (hf: the row, j: the column). The block has written
-// the slab (slab_written) before.
-template <class Epi>
-__device__ __forceinline__ void wg_product(const Params& p, Ring& rg,
-                                           int amap, int wmap, int layer,
-                                           int krows, int ncols, Epi&& epi) {
-  namespace wg = mha::wg;
-  const int nk = (krows + 63) / 64, np = (ncols + kPassCols - 1) / kPassCols;
-  const int total = nk * np, j0 = rg.n;
-  const int half = threadIdx.x >> 7;
-  // stage t of this product (pass t / nk, rows 64 (t % nk) ..): into its
-  // slot once the warps are done with the stage that held it before
-  auto issue = [&](int t) {
-    const int j = j0 + t, slot = j % kRingStages, use = j / kRingStages;
-    if (use > 0) wg::mbar_wait(rg.empty + slot, (use - 1) & 1);
-    unsigned char* st = rg.base + slot * kStage;
-    wg::mbar_expect(rg.full + slot, kStage);
-    const int ks = t % nk, pass = t / nk;
-    wg::tma_load(st, &p.maps[amap], rg.full + slot, 0, 64 * ks, 0,
-                 blockIdx.x);
-#pragma unroll
-    for (int q = 0; q < kPassCols / 64; ++q)
-      wg::tma_load(st + kAStage + q * 64 * 128, &p.maps[wmap],
-                   rg.full + slot, kPassCols * pass + 64 * q, 64 * ks,
-                   layer, 0);
-  };
-  if (threadIdx.x == 0)
-    for (int t = 0; t < min(kRingStages - 1, total); ++t) issue(t);
-  __syncwarp();
-  for (int pass = 0; pass < np; ++pass) {
-    float acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    for (int ks = 0; ks < nk; ++ks) {
-      const int t = pass * nk + ks;
-      if (threadIdx.x == 0 && t + kRingStages - 1 < total)
-        issue(t + kRingStages - 1);
-      const int j = j0 + t, slot = j % kRingStages;
-      wg::mbar_wait(rg.full + slot, (j / kRingStages) & 1);
-      __syncwarp();
-      const unsigned char* st = rg.base + slot * kStage;
-      // this warpgroup's 128 columns of the weight tile: two swizzled
-      // boxes of 64 columns (8 KB apart), 16-row steps 2 KB apart, 8-row
-      // groups 1 KB
-      const unsigned char* wt = st + kAStage + half * 2 * 64 * 128;
-      // the stage's own sum, from zero (ptxas folds the zeros into the
-      // first wgmma)
-      float part[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) part[i] = 0.f;
-      wg::wg_fence();
-#pragma unroll
-      for (int pl = 2; pl >= 0; --pl)    // lo, mid, hi
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          wg_mma128(part, wg::desc_k<kRows>(st + pl * kPlaneBytes, s),
-                    wg::desc(wt + s * 2048, 64 * 128, 1024) | (1ull << 62),
-                    1);
-      wg::wg_commit();
-      wg::wg_wait();
-      wg::hold(part);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] += part[i];
-      __syncwarp();
-      if ((threadIdx.x & 31) == 0) wg::mbar_arrive(rg.empty + slot);
-    }
-    epi(pass, acc);
-  }
-  rg.n = j0 + total;
+// the same, m64n64k16
+__device__ __forceinline__ void wg_mma(float (&d)[32], uint64_t a,
+                                       uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
 }
 
 // the two rows of a tile a thread holds in the wgmma accumulator: 16 w +
@@ -1283,8 +1270,250 @@ __device__ __forceinline__ WgRows wg_rows(const Params& p, int item) {
 
 // the first column of accumulator group nt of a pass
 __device__ __forceinline__ int wg_col(int pass, int nt) {
-  return kPassCols * pass + 128 * (threadIdx.x >> 7) + 8 * nt +
+  return kPassCols * pass + kWgN * (threadIdx.x >> 7) + 8 * nt +
          2 * (threadIdx.x & 3);
+}
+
+// What a product's sums go to (wg_product's epilogue), element by element
+// as the shared tile's epilogues (phase_qkv, phase_mlp):
+//   E_QKV       + bias, q's scale, bf16 -> the head-major q / k / v scratch,
+//               and the largest |k| (a warp's 16 rows are one row-branch);
+//   E_RESIDUAL  x += sums + bias (+ the cross-attention bias);
+//   E_QUERY     the cross-attention's queries, bf16((sums + bias) q scale),
+//               into the tile's rows of the attention output;
+//   E_GELU      GELU2(sums + bias) as three planes into the MLP's slab.
+enum WgKind { E_QKV, E_RESIDUAL, E_QUERY, E_GELU };
+struct WgOut {
+  int kind;
+  const float* bias;     // E_RESIDUAL: n_embd wide a layer
+  int cross_bias;        // E_RESIDUAL: the cross-attention bias too
+  float* hact;           // E_GELU: the MLP's slab (p.hidden columns)
+};
+
+__device__ __forceinline__ void wg_epilogue(const Params& p, int layer,
+                                            const WgRows& m, const WgOut& e,
+                                            int pass,
+                                            const float (&acc)[kWgN / 2]) {
+  const int w = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
+  const size_t lb = static_cast<size_t>(layer) * kC;
+  if (e.kind == E_QKV) {
+#pragma unroll
+    for (int nt = 0; nt < kWgN / 8; ++nt) {
+      // a warp's 8-column group lies inside the product or past it as a
+      // whole, and inside one section (kC is a multiple of 8)
+      const int col = wg_col(pass, nt);
+      if (col >= 3 * kC) break;
+      const int sec = col / kC, c = col - sec * kC;
+      const bool in = c < kCT;
+      const int head = c / kD, dim = c % kD;
+      __nv_bfloat16* dst = sec == 0 ? p.q : (sec == 1 ? p.k : p.v);
+      const float s = sec == 0 ? p.qscale : 1.f;
+      const float2 bias =
+          ld2(p.bqkv + static_cast<size_t>(layer) * 3 * kC + col);
+      float kmx[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (m.ok[hf]) {
+          const __nv_bfloat162 v = __floats2bfloat162_rn(
+              (acc[4 * nt + 2 * hf] + bias.x) * s,
+              (acc[4 * nt + 2 * hf + 1] + bias.y) * s);
+          const size_t row = static_cast<size_t>(m.rb[hf]) * kH;
+          if (in) {
+            if constexpr (kD % 2 == 0) {
+              *reinterpret_cast<__nv_bfloat162*>(
+                  dst + ((row + head) * p.L + m.tok[hf]) * kDS + dim) = v;
+            } else {
+              dst[((row + head) * p.L + m.tok[hf]) * kDS + dim] =
+                  __low2bfloat16(v);
+              if (c + 1 < kCT)
+                dst[((row + (c + 1) / kD) * p.L + m.tok[hf]) * kDS +
+                    (c + 1) % kD] = __high2bfloat16(v);
+            }
+          }
+          kmx[0] = fmaxf(kmx[0], fabsf(__low2float(v)));
+          kmx[1] = fmaxf(kmx[1], fabsf(__high2float(v)));
+        }
+      if (sec == 1) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float v = kmx[jj];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+          if (g == 0 && v > 0.f && c + jj < kCT)
+            atomicMax(p.kmax + static_cast<size_t>(m.rb[0]) * kCT + c + jj,
+                      __float_as_uint(v));
+        }
+      }
+    }
+  } else if (e.kind == E_RESIDUAL) {
+#pragma unroll
+    for (int nt = 0; nt < kWgN / 8; ++nt) {
+      const int col = wg_col(pass, nt);
+      if (col >= kC) break;
+      const float2 bv = ld2(e.bias + lb + col);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (!m.ok[hf]) continue;
+        float2 add = bv;
+        if (e.cross_bias) {
+          const float2 cb = ld2(p.kc + (static_cast<size_t>(m.rb[hf]) *
+                                        p.n_layer + layer) * p.sp * kC +
+                                col);
+          add.x += cb.x;
+          add.y += cb.y;
+        }
+        float2* xp = reinterpret_cast<float2*>(
+            p.x + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) * kC +
+            col);
+        float2 x = *xp;
+        x.x += acc[4 * nt + 2 * hf] + add.x;
+        x.y += acc[4 * nt + 2 * hf + 1] + add.y;
+        *xp = x;
+      }
+    }
+  } else if (e.kind == E_QUERY) {
+#pragma unroll
+    for (int nt = 0; nt < kWgN / 8; ++nt) {
+      const int col = wg_col(pass, nt);
+      if (col >= kC) break;
+      const float2 bq = ld2(p.bq_c + lb + col);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (m.ok[hf])
+          *reinterpret_cast<float2*>(
+              p.o + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) * kC +
+              col) =
+              make_float2(bf16r((acc[4 * nt + 2 * hf] + bq.x) * p.qscale),
+                          bf16r((acc[4 * nt + 2 * hf + 1] + bq.y) *
+                                p.qscale));
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < kWgN / 8; ++nt) {
+      const int col = wg_col(pass, nt);
+      if (col >= p.hidden) break;
+      const float2 bias =
+          ld2(p.bfc + static_cast<size_t>(layer) * p.hidden + col);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {   // GELU2: h * sigmoid(1.702 h)
+          const float hv = acc[4 * nt + 2 * hf + j] + (j ? bias.y : bias.x);
+          v[j] = hv / (1.f + expf(-1.702f * hv));
+        }
+        store_planes<2>(reinterpret_cast<__nv_bfloat16*>(e.hact), p.hidden,
+                        16 * w + 8 * hf + g, col, v);
+      }
+    }
+  }
+}
+
+// (thread 0) stage t of a product whose stages start at the ring's stage
+// j0 (pass t / nk, rows 64 (t % nk) ..): into its slot once the warps are
+// done with the stage that held it before; the activations' chunk by TMA
+// unless it lies in shared memory (kActShared), the weight tile's
+// kPassCols / 64 boxes beside it
+__device__ __forceinline__ void wg_issue(const Params& p, const Ring& rg,
+                                         int amap, int wmap, int layer,
+                                         int nk, int j0, int t) {
+  namespace wg = mha::wg;
+  const int j = j0 + t, slot = j % kRingStages, use = j / kRingStages;
+  const bool a_shared = kActShared && amap == M_ACT;
+  if (use > 0) wg::mbar_wait(rg.empty + slot, (use - 1) & 1);
+  unsigned char* st = rg.base + slot * kStage;
+  wg::mbar_expect(rg.full + slot, a_shared ? kStage - kAStage : kStage);
+  const int ks = t % nk, pass = t / nk;
+  if (!a_shared)
+    wg::tma_load(st, &p.maps[amap], rg.full + slot, 0, 64 * ks, 0,
+                 blockIdx.x);
+#pragma unroll
+  for (int q = 0; q < kPassCols / 64; ++q)
+    wg::tma_load(st + kAStage + q * 64 * 128, &p.maps[wmap], rg.full + slot,
+                 kPassCols * pass + 64 * q, 64 * ks, layer, 0);
+}
+
+// The first stages of the product wg_product takes next, before the block
+// writes its activations, where they lie in shared memory (kActShared, map
+// M_ACT): a stage holds only weights, and their copies overlap that
+// writing. Elsewhere nothing: the stages carry the activations.
+__device__ __forceinline__ void wg_prefetch(const Params& p, const Ring& rg,
+                                            int amap, int wmap, int layer,
+                                            int krows, int ncols) {
+  if (!kActShared || amap != M_ACT || threadIdx.x != 0) return;
+  const int nk = (krows + 63) / 64, np = (ncols + kPassCols - 1) / kPassCols;
+  for (int t = 0; t < min(kRingStages - 1, nk * np); ++t)
+    wg_issue(p, rg, amap, wmap, layer, nk, rg.n, t);
+}
+
+// The block's activations (map amap: its planes, krows columns; M_ACT
+// where kActShared: the planes in shared memory) times layer's weight (map
+// wmap: krows x ncols, row-major bf16) in passes of kPassCols output
+// columns, each pass's sums to wg_epilogue: warp w of warpgroup wg holds
+// rows 16 w + g and 16 w + g + 8 (m), columns kPassCols pass + kWgN wg + 8
+// nt + 2 tig and + 1, as acc[4 nt + 2 hf + j] (hf: the row, j: the
+// column). The block has written the activations (slab_written) before;
+// prefetched: wg_prefetch came first (and issued the first stages where
+// the activations lie in shared memory). Returns the count of stages the
+// ring has taken.
+__device__ __forceinline__ int wg_product(const Params& p, Ring rg, int amap,
+                                          int wmap, int layer, int krows,
+                                          int ncols, WgRows m, WgOut e,
+                                          bool prefetched = false) {
+  namespace wg = mha::wg;
+  const int nk = (krows + 63) / 64, np = (ncols + kPassCols - 1) / kPassCols;
+  const int total = nk * np, j0 = rg.n;
+  const int half = threadIdx.x >> 7;
+  const bool a_shared = kActShared && amap == M_ACT;
+  if (threadIdx.x == 0 && !(prefetched && a_shared))
+    for (int t = 0; t < min(kRingStages - 1, total); ++t)
+      wg_issue(p, rg, amap, wmap, layer, nk, j0, t);
+  __syncwarp();
+  for (int pass = 0; pass < np; ++pass) {
+    float acc[kWgN / 2];
+#pragma unroll
+    for (int i = 0; i < kWgN / 2; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks) {
+      const int t = pass * nk + ks;
+      if (threadIdx.x == 0 && t + kRingStages - 1 < total)
+        wg_issue(p, rg, amap, wmap, layer, nk, j0, t + kRingStages - 1);
+      const int j = j0 + t, slot = j % kRingStages;
+      wg::mbar_wait(rg.full + slot, (j / kRingStages) & 1);
+      __syncwarp();
+      const unsigned char* st = rg.base + slot * kStage;
+      // the activations' chunk: the stage's, or (one chunk) shared memory's
+      const unsigned char* at = a_shared ? rg.act : st;
+      // this warpgroup's kWgN columns of the weight tile: swizzled boxes
+      // of 64 columns (8 KB apart), 16-row steps 2 KB apart, 8-row groups
+      // 1 KB
+      const unsigned char* wt = st + kAStage + half * kWgN * 128;
+      // the stage's own sum, from zero (ptxas folds the zeros into the
+      // first wgmma)
+      float part[kWgN / 2];
+#pragma unroll
+      for (int i = 0; i < kWgN / 2; ++i) part[i] = 0.f;
+      wg::wg_fence();
+#pragma unroll
+      for (int pl = 2; pl >= 0; --pl)    // lo, mid, hi
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint64_t a = wg::desc_k<kRows>(at + pl * kPlaneBytes, s);
+          const uint64_t b =
+              wg::desc(wt + s * 2048, 64 * 128, 1024) | (1ull << 62);
+          wg_mma(part, a, b, 1);   // m64n128k16 or m64n64k16
+        }
+      wg::wg_commit();
+      wg::wg_wait();
+      wg::hold(part);
+#pragma unroll
+      for (int i = 0; i < kWgN / 2; ++i) acc[i] += part[i];
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) wg::mbar_arrive(rg.empty + slot);
+    }
+    wg_epilogue(p, layer, m, e, pass, acc);
+  }
+  return j0 + total;
 }
 #endif
 
@@ -1387,7 +1616,7 @@ __device__ __forceinline__ void store_acc(float* T, const float (&v)[2][NT][4],
                                    8 * (NT * wn + nt) + 2 * tig) =
             make_float2(v[mt][nt][2 * hf], v[mt][nt][2 * hf + 1]);
 }
-#if MK_WIDE
+#if MK_WG
 
 // LN(src) * scale + shift (plus1: the AdaLN form LN(src) * (1 + scale) +
 // shift) of an n_embd-wide row into row r of a slab, the columns past
@@ -1452,7 +1681,7 @@ __device__ __forceinline__ void norm_row(float* slab, int r, int tx,
       *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
           make_float4(v[0], v[1], v[2], v[3]);
     else if (col_in(j, tx))
-      store_planes<4>(reinterpret_cast<__nv_bfloat16*>(slab), kC, r,
+      store_planes<4>(reinterpret_cast<__nv_bfloat16*>(slab), kActK8, r,
                       64 * j + tx * 4, v);
   }
 }
@@ -1471,7 +1700,7 @@ __device__ __forceinline__ void copy_row(float* slab, int r, int tx,
       *reinterpret_cast<float4*>(slab + kSlabChunk * j + 64 * r + tx * 4) =
           x;
     else if (col_in(j, tx))
-      store_planes<4>(reinterpret_cast<__nv_bfloat16*>(slab), kC, r,
+      store_planes<4>(reinterpret_cast<__nv_bfloat16*>(slab), kActK8, r,
                       64 * j + tx * 4, v);
   }
 }
@@ -1480,7 +1709,7 @@ __device__ __forceinline__ void copy_row(float* slab, int r, int tx,
 // ---------------------------------------------------------------------------
 // phase A: (embedding) -> AdaLN-LN -> QKV -> q/k/v scratch
 // ---------------------------------------------------------------------------
-#if MK_WIDE
+#if MK_WG
 // (layer 0) the embedding into the hidden state, both branches of a token
 // alike; then AdaLN-LN of the tile's rows into the slab As (a thread reads
 // back only what it wrote; planes: as norm_row's)
@@ -1509,72 +1738,53 @@ __device__ __forceinline__ void embed_norm_rows(const Params& p, int layer,
   }
 }
 
-// Phase A with bf16 weights above n_embd 512: QKV on wgmma (wg_product),
-// the epilogue phase_qkv's per element: bias, q's scale, bf16, the
-// head-major scratch, the largest |k| (a warp's 16 rows are one
-// row-branch).
+// floats of a block's slab: the activations' (0) and the MLP's (1), which
+// also holds the cross-attention's output (n_embd wide): as three bf16
+// planes (bf16 weights); above n_embd 512 in f32 chunks too (f32 weights,
+// and the tail)
+__host__ __device__ __forceinline__ long long slab_floats(int which,
+                                                          int hidden) {
+  const long long planes = 3LL * kRows * (which == 0 ? kC : hidden) / 2;
+#if MK_WIDE
+  const int chunks = (hidden + 63) / 64;
+  const long long f32 = static_cast<long long>(kSlabChunk) *
+                        (which == 0 ? kNCH : (chunks > kNCH ? chunks : kNCH));
+#else
+  const long long f32 = which == 0 ? 0 : static_cast<long long>(kRows) * kC;
+#endif
+  return f32 > planes ? f32 : planes;
+}
+
+// the block's slab in device memory (which: as slab_floats')
+__device__ __forceinline__ float* block_slab(const Params& p, int which) {
+  return (which ? p.hact : p.act) +
+         blockIdx.x * slab_floats(which, p.hidden);
+}
+
+// the block's dynamic shared memory from its start (the ring's, in phases
+// A and B with bf16 weights)
+__device__ __forceinline__ unsigned char* block_smem() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return smem;
+}
+
+// Phase A with bf16 weights: QKV on wgmma (wg_product, E_QKV), the tile's
+// rows normalised into the block's slab as three planes.
 template <bool PACKED>
-__device__ void phase_qkv_wg(const Params& p, int layer, float* As,
-                             unsigned char* smem) {
-  const int g = (threadIdx.x & 31) >> 2;
+__device__ void phase_qkv_wg(const Params& p, int layer) {
   const int n_items = tile_items<PACKED>(p);
-  Ring rg = ring_begin(smem);
+  Ring rg = ring_begin(block_smem());
+  float* As = kActShared ? reinterpret_cast<float*>(rg.act)
+                         : block_slab(p, 0);
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    // (the warps are done with the planes of the item before)
+    if (kActShared) __syncthreads();
+    wg_prefetch(p, rg, M_ACT, M_WQKV, layer, kC, 3 * kC);
     embed_norm_rows<PACKED>(p, layer, item, As, true);
     slab_written();
-    const WgRows m = wg_rows<PACKED>(p, item);
-    wg_product(p, rg, M_ACT, M_WQKV, layer, kC, 3 * kC,
-               [&](int pass, const float (&acc)[64]) {
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        // a warp's 8-column group lies inside the product or past it as a
-        // whole, and inside one section (kC is a multiple of 8)
-        const int col = wg_col(pass, nt);
-        if (col >= 3 * kC) break;
-        const int sec = col / kC, c = col - sec * kC;
-        const bool in = c < kCT;
-        const int head = c / kD, dim = c % kD;
-        __nv_bfloat16* dst = sec == 0 ? p.q : (sec == 1 ? p.k : p.v);
-        const float s = sec == 0 ? p.qscale : 1.f;
-        const float2 bias =
-            ld2(p.bqkv + static_cast<size_t>(layer) * 3 * kC + col);
-        float kmx[2] = {0.f, 0.f};
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-          if (m.ok[hf]) {
-            const __nv_bfloat162 v = __floats2bfloat162_rn(
-                (acc[4 * nt + 2 * hf] + bias.x) * s,
-                (acc[4 * nt + 2 * hf + 1] + bias.y) * s);
-            const size_t row = static_cast<size_t>(m.rb[hf]) * kH;
-            if (in) {
-              if constexpr (kD % 2 == 0) {
-                *reinterpret_cast<__nv_bfloat162*>(
-                    dst + ((row + head) * p.L + m.tok[hf]) * kDS + dim) = v;
-              } else {
-                dst[((row + head) * p.L + m.tok[hf]) * kDS + dim] =
-                    __low2bfloat16(v);
-                if (c + 1 < kCT)
-                  dst[((row + (c + 1) / kD) * p.L + m.tok[hf]) * kDS +
-                      (c + 1) % kD] = __high2bfloat16(v);
-              }
-            }
-            kmx[0] = fmaxf(kmx[0], fabsf(__low2float(v)));
-            kmx[1] = fmaxf(kmx[1], fabsf(__high2float(v)));
-          }
-        if (sec == 1) {
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            float v = kmx[jj];
-#pragma unroll
-            for (int off = 4; off < 32; off <<= 1)
-              v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-            if (g == 0 && v > 0.f && c + jj < kCT)
-              atomicMax(p.kmax + static_cast<size_t>(m.rb[0]) * kCT + c + jj,
-                        __float_as_uint(v));
-          }
-        }
-      }
-    });
+    rg.n = wg_product(p, rg, M_ACT, M_WQKV, layer, kC, 3 * kC,
+                      wg_rows<PACKED>(p, item),
+                      WgOut{E_QKV, nullptr, 0, nullptr}, true);
   }
   ring_end(rg);
 }
@@ -1583,9 +1793,9 @@ __device__ void phase_qkv_wg(const Params& p, int layer, float* As,
 template <bool PACKED>
 __device__ MK_PHASE_A void phase_qkv(const Params& p, int layer, float* As, float* W0,
                           float* W1) {
-#if MK_WIDE
+#if MK_WG
   if (p.w_bf16) {
-    phase_qkv_wg<PACKED>(p, layer, As, reinterpret_cast<unsigned char*>(W0));
+    phase_qkv_wg<PACKED>(p, layer);
     return;
   }
 #endif
@@ -3146,16 +3356,135 @@ __device__ __forceinline__ WTile layer_tile(const void* w, int layer, int j) {
   return WTile{w, static_cast<size_t>(layer) * kC * kC, kC, 64 * j,
                min(64, kC - 64 * j), kC};
 }
+#if MK_WG
+
+// LN of the tile's rows of the hidden state into the slab As (plus1: the
+// AdaLN form; planes: as norm_row's), then the barrier that publishes it
+template <bool PACKED>
+__device__ __forceinline__ void norm_tile_rows(const Params& p, int item,
+                                               float* As, const float* scale,
+                                               const float* shift,
+                                               bool plus1, bool planes) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int b, rb, tok;
+    tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+    norm_row(As, ty + 16 * i, tx,
+             tok < p.L ? p.x + (static_cast<size_t>(rb) * p.L + tok) * kC
+                       : nullptr,
+             scale, shift, plus1, planes);
+  }
+  if (planes)
+    slab_written();
+  else
+    sync_staged();
+}
+
+// Phase B with bf16 weights: every product on wgmma (wg_product), each
+// epilogue the shared tile's per element. The slabs hold bf16 planes: As
+// the product's input rows, Hs the MLP's hidden units (p.hidden columns);
+// the residual stream is the hidden state x itself (each product's
+// epilogue adds its columns there), LayerNorm reads its rows back from
+// there; the cross-attention's output waits in Hs in f32 (row stride kC)
+// before it is split into As.
+template <bool PACKED>
+__device__ void phase_mlp_wg(const Params& p, int layer) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n_items = tile_items<PACKED>(p);
+  const size_t lb = static_cast<size_t>(layer) * kC;
+  float* Hs = block_slab(p, 1);
+  // phase S has read this layer's key maxima: clear them for the next
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kCT;
+       i += gridDim.x * kThreads)
+    p.kmax[i] = 0u;
+  Ring rg = ring_begin(block_smem());
+  float* As = kActShared ? reinterpret_cast<float*>(rg.act)
+                         : block_slab(p, 0);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const WgRows m = wg_rows<PACKED>(p, item);
+    wg_prefetch(p, rg, M_ACT, M_WPROJ, layer, kC, kC);
+    // the attention output -> As
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int b, rb, tok;
+      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+      copy_row(As, ty + 16 * i, tx,
+               tok < p.L ? p.o + (static_cast<size_t>(rb) * p.L + tok) * kC
+                         : nullptr, true);
+    }
+    slab_written();
+    // proj + residual (+ the cross-attention bias)
+    rg.n = wg_product(p, rg, M_ACT, M_WPROJ, layer, kC, kC, m,
+                      WgOut{E_RESIDUAL, p.bproj, p.cross_bias, nullptr},
+                      true);
+    __syncthreads();
+    if (!p.cross_bias) {
+      const float* ada =
+          p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
+      wg_prefetch(p, rg, M_ACT, M_WQC, layer, kC, kC);
+      norm_tile_rows<PACKED>(p, item, As, ada, ada + kC, true, true);
+      // the cross-attention's queries, through bf16, into this item's rows
+      // of the attention output in device memory (read already)
+      rg.n = wg_product(p, rg, M_ACT, M_WQC, layer, kC, kC, m,
+                        WgOut{E_QUERY, nullptr, 0, nullptr}, true);
+      __syncthreads();
+      // a (row, head) a thread: the queries -> attention -> Hs -> As
+      for (int it = threadIdx.x; it < kRows * kH; it += kThreads) {
+        const int r = it / kH, h = it % kH;
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, r, b, rb, tok);
+        float* o = Hs + r * kC + h * kD;
+        if (tok < p.L) {
+          const float* q =
+              p.o + (static_cast<size_t>(rb) * p.L + tok) * kC + h * kD;
+          const size_t off = (static_cast<size_t>(rb) * p.n_layer + layer) *
+                                 p.sp * kC + h * kD;
+          if constexpr (kCrossVec)
+            cross_attend(p, p.kc + off, p.vc + off, q, o);
+          else
+            cross_attend_any(p, p.kc + off, p.vc + off, q, o);
+        }
+      }
+      __syncthreads();
+      wg_prefetch(p, rg, M_ACT, M_WPROJC, layer, kC, kC);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int b, rb, tok;
+        tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
+        copy_row(As, ty + 16 * i, tx,
+                 tok < p.L ? Hs + (ty + 16 * i) * kC : nullptr, true);
+      }
+      slab_written();
+      rg.n = wg_product(p, rg, M_ACT, M_WPROJC, layer, kC, kC, m,
+                        WgOut{E_RESIDUAL, p.bproj_c, 0, nullptr}, true);
+      __syncthreads();
+    }
+    // LN -> the MLP's hidden units through GELU2 into Hs
+    wg_prefetch(p, rg, M_ACT, M_WFC, layer, kC, p.hidden);
+    norm_tile_rows<PACKED>(p, item, As, p.ln2_s + lb, p.ln2_b + lb, false,
+                           true);
+    rg.n = wg_product(p, rg, M_ACT, M_WFC, layer, kC, p.hidden, m,
+                      WgOut{E_GELU, nullptr, 0, Hs}, true);
+    slab_written();
+    // x += Hs x wpj + bias
+    rg.n = wg_product(p, rg, M_HACT, M_WPJ, layer, p.hidden, kC, m,
+                      WgOut{E_RESIDUAL, p.bpj, 0, nullptr});
+  }
+  ring_end(rg);
+}
+#endif
+
 #if MK_WIDE
 
-// Phase B above n_embd 512, where neither a row of the tile nor the
-// residual stream's chunks fit the block: the residual stream is the
-// hidden state itself (each product's epilogue adds its chunk there, in
-// the accumulator layout, as the registers' copy would), LayerNorm reads
-// its rows back from there into the slab As, and the MLP's hidden units go
-// whole to the slab Hs (its output sums over them in the same order as
-// a chunk at a time would). The cross-attention's output waits in Hs (row
-// stride kC) before it is copied into As.
+// Phase B with f32 weights above n_embd 512, where neither a row of the
+// tile nor the residual stream's chunks fit the block: the residual stream
+// is the hidden state itself (each product's epilogue adds its chunk
+// there, in the accumulator layout, as the registers' copy would),
+// LayerNorm reads its rows back from there into the slab As, and the MLP's
+// hidden units go whole to the slab Hs (its output sums over them in the
+// same order as a chunk at a time would). The cross-attention's output
+// waits in Hs (row stride kC) before it is copied into As.
 
 // x += As x w + bias (+ the cross-attention bias) over the output chunks of
 // layer's (C, C) weight w; next: the tile after the product
@@ -3200,202 +3529,11 @@ __device__ __forceinline__ void residual_product(
   }
 }
 
-// LN of the tile's rows of the hidden state into the slab As (plus1: the
-// AdaLN form; planes: as norm_row's), then the barrier that publishes it
-template <bool PACKED>
-__device__ __forceinline__ void norm_tile_rows(const Params& p, int item,
-                                               float* As, const float* scale,
-                                               const float* shift,
-                                               bool plus1, bool planes) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int b, rb, tok;
-    tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
-    norm_row(As, ty + 16 * i, tx,
-             tok < p.L ? p.x + (static_cast<size_t>(rb) * p.L + tok) * kC
-                       : nullptr,
-             scale, shift, plus1, planes);
-  }
-  if (planes)
-    slab_written();
-  else
-    sync_staged();
-}
-
-// Phase B with bf16 weights: every product on wgmma (wg_product), each
-// epilogue its chunk_product counterpart's per element. The slabs hold
-// bf16 planes: As the product's input rows, Hs the MLP's hidden units
-// (p.hidden columns); the cross-attention's output waits in Hs in f32
-// before it is split into As.
-template <bool PACKED>
-__device__ void phase_mlp_wg(const Params& p, int layer, float* As,
-                             float* Hs, unsigned char* smem) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int w = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
-  const int n_items = tile_items<PACKED>(p);
-  const size_t lb = static_cast<size_t>(layer) * kC;
-  // phase S has read this layer's key maxima: clear them for the next
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.B * p.n_br * kCT;
-       i += gridDim.x * kThreads)
-    p.kmax[i] = 0u;
-  Ring rg = ring_begin(smem);
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const WgRows m = wg_rows<PACKED>(p, item);
-    // x += acc + bias (+ the cross-attention bias), as residual_product
-    auto residual = [&](const float* bias, bool cross_bias) {
-      return [&, bias, cross_bias](int pass, const float (&acc)[64]) {
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
-          const int col = wg_col(pass, nt);
-          if (col >= kC) break;
-          const float2 bv = ld2(bias + lb + col);
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            if (!m.ok[hf]) continue;
-            float2 add = bv;
-            if (cross_bias) {
-              const float2 cb = ld2(p.kc + (static_cast<size_t>(m.rb[hf]) *
-                                            p.n_layer + layer) * p.sp * kC +
-                                    col);
-              add.x += cb.x;
-              add.y += cb.y;
-            }
-            float2* xp = reinterpret_cast<float2*>(
-                p.x + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) * kC +
-                col);
-            float2 x = *xp;
-            x.x += acc[4 * nt + 2 * hf] + add.x;
-            x.y += acc[4 * nt + 2 * hf + 1] + add.y;
-            *xp = x;
-          }
-        }
-      };
-    };
-    // the attention output -> As
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int b, rb, tok;
-      tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
-      copy_row(As, ty + 16 * i, tx,
-               tok < p.L ? p.o + (static_cast<size_t>(rb) * p.L + tok) * kC
-                         : nullptr, true);
-    }
-    slab_written();
-    // proj + residual (+ the cross-attention bias)
-    wg_product(p, rg, M_ACT, M_WPROJ, layer, kC, kC,
-               residual(p.bproj, p.cross_bias));
-    __syncthreads();
-    if (!p.cross_bias) {
-      const float* ada =
-          p.adaln + (static_cast<size_t>(layer) * 2 + 1) * 2 * kC;
-      norm_tile_rows<PACKED>(p, item, As, ada, ada + kC, true, true);
-      // the cross-attention's queries, through bf16, into this item's rows
-      // of the attention output in device memory (read already)
-      wg_product(p, rg, M_ACT, M_WQC, layer, kC, kC,
-                 [&](int pass, const float (&acc)[64]) {
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
-          const int col = wg_col(pass, nt);
-          if (col >= kC) break;
-          const float2 bq = ld2(p.bq_c + lb + col);
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-            if (m.ok[hf])
-              *reinterpret_cast<float2*>(
-                  p.o + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) *
-                            kC + col) =
-                  make_float2(
-                      bf16r((acc[4 * nt + 2 * hf] + bq.x) * p.qscale),
-                      bf16r((acc[4 * nt + 2 * hf + 1] + bq.y) * p.qscale));
-        }
-      });
-      __syncthreads();
-      // a (row, head) a thread: the queries -> attention -> Hs -> As
-      for (int it = threadIdx.x; it < kRows * kH; it += kThreads) {
-        const int r = it / kH, h = it % kH;
-        int b, rb, tok;
-        tile_row<PACKED>(p, item, r, b, rb, tok);
-        float* o = Hs + r * kC + h * kD;
-        if (tok < p.L) {
-          const float* q =
-              p.o + (static_cast<size_t>(rb) * p.L + tok) * kC + h * kD;
-          const size_t off = (static_cast<size_t>(rb) * p.n_layer + layer) *
-                                 p.sp * kC + h * kD;
-          if constexpr (kCrossVec)
-            cross_attend(p, p.kc + off, p.vc + off, q, o);
-          else
-            cross_attend_any(p, p.kc + off, p.vc + off, q, o);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int b, rb, tok;
-        tile_row<PACKED>(p, item, ty + 16 * i, b, rb, tok);
-        copy_row(As, ty + 16 * i, tx,
-                 tok < p.L ? Hs + (ty + 16 * i) * kC : nullptr, true);
-      }
-      slab_written();
-      wg_product(p, rg, M_ACT, M_WPROJC, layer, kC, kC,
-                 residual(p.bproj_c, false));
-      __syncthreads();
-    }
-    // LN -> the MLP's hidden units through GELU2 into Hs
-    norm_tile_rows<PACKED>(p, item, As, p.ln2_s + lb, p.ln2_b + lb, false,
-                           true);
-    wg_product(p, rg, M_ACT, M_WFC, layer, kC, p.hidden,
-               [&](int pass, const float (&acc)[64]) {
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const int col = wg_col(pass, nt);
-        if (col >= p.hidden) break;
-        const float2 bias =
-            ld2(p.bfc + static_cast<size_t>(layer) * p.hidden + col);
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          float v[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {   // GELU2: h * sigmoid(1.702 h)
-            const float hv = acc[4 * nt + 2 * hf + e] + (e ? bias.y : bias.x);
-            v[e] = hv / (1.f + expf(-1.702f * hv));
-          }
-          store_planes<2>(reinterpret_cast<__nv_bfloat16*>(Hs), p.hidden,
-                          16 * w + 8 * hf + g, col, v);
-        }
-      }
-    });
-    slab_written();
-    // x += Hs x wpj + bias
-    wg_product(p, rg, M_HACT, M_WPJ, layer, p.hidden, kC,
-               [&](int pass, const float (&acc)[64]) {
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const int col = wg_col(pass, nt);
-        if (col >= kC) break;
-        const float2 bias = ld2(p.bpj + lb + col);
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-          if (m.ok[hf]) {
-            float2* xp = reinterpret_cast<float2*>(
-                p.x + (static_cast<size_t>(m.rb[hf]) * p.L + m.tok[hf]) * kC +
-                col);
-            const float2 x0 = *xp;
-            *xp = make_float2(x0.x + acc[4 * nt + 2 * hf] + bias.x,
-                              x0.y + acc[4 * nt + 2 * hf + 1] + bias.y);
-          }
-      }
-    });
-  }
-  ring_end(rg);
-}
-
 template <bool PACKED>
 __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As,
                                      float* Hs, float* W0, float* W1) {
   if (p.w_bf16) {
-    phase_mlp_wg<PACKED>(p, layer, As, Hs,
-                         reinterpret_cast<unsigned char*>(W0));
+    phase_mlp_wg<PACKED>(p, layer);
     return;
   }
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -3609,6 +3747,10 @@ __device__ __forceinline__ void residual_product(
 template <bool PACKED>
 __device__ MK_PHASE_B void phase_mlp(const Params& p, int layer, float* As, float* Hs,
                           float* W0, float* W1) {
+  if (p.w_bf16) {
+    phase_mlp_wg<PACKED>(p, layer);
+    return;
+  }
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3, wm = warp & 1, wn = warp >> 1;
@@ -4558,19 +4700,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 megakernel_step_branch_kernel(const Params p) { step_body<false>(p); }
 #else   // MK_SERVING
 
-#if MK_WIDE
-// floats of a block's slab: the activations' (0) and the MLP's (1), which
-// also holds the cross-attention's output (n_embd wide): in f32 chunks
-// (f32 weights, and the tail), or as three bf16 planes (bf16 weights)
-__host__ __device__ __forceinline__ long long slab_floats(int which,
-                                                          int hidden) {
-  const int chunks = (hidden + 63) / 64;
-  const long long f32 = static_cast<long long>(kSlabChunk) *
-                        (which == 0 ? kNCH : (chunks > kNCH ? chunks : kNCH));
-  const long long planes = 3LL * kRows * (which == 0 ? kC : hidden) / 2;
-  return f32 > planes ? f32 : planes;
-}
-
+#if MK_WG
 // a 4-d bf16 tensor map (dims innermost first, strides of dims 1-3 in
 // bytes) with boxes `box` in TMA's swizzle `sw`; false if refused (its
 // CUresult in mha::wg::tma_error())
@@ -4591,15 +4721,15 @@ bool map_bf16(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS;
 }
 
-// The tensor maps of the wide products with bf16 weights (wg_product) for
-// a grid of `grid` blocks: each slab's planes as (64 elements: a 128-byte
+// The tensor maps of the products with bf16 weights (wg_product) for a
+// grid of `grid` blocks: each slab's planes as (64 elements: a 128-byte
 // line, 8 rows of 8 columns; line, plane, block), boxes of (64, 64, 3)
 // (the three planes' 64-deep chunks, 24 KB, as they lie; lines past the
 // slab's columns read zero); each weight (k rows, n columns, row-major, by
 // layer) as (n, k, layer), boxes of (64, 64) in the 128-byte swizzle.
 // False if cuTensorMapEncodeTiled refused one (its CUresult in
 // mha::wg::tma_error()).
-bool wide_maps(Params& p, int grid) {
+bool wg_maps(Params& p, int grid) {
   using cu64 = cuuint64_t;
   auto slab = [&](Map m, const float* base, cu64 cols, int which) {
     const cu64 block = static_cast<cu64>(slab_floats(which, p.hidden)) * 4;
@@ -4833,11 +4963,12 @@ extern "C" int megakernel_keys_whole(int L) {
   return kDS == 4 ||
          static_cast<long long>((L + 15) & ~15) * kKeyBytes <= kSmemBytes;
 }
-#if MK_WIDE
+#if MK_WG
 
 // The floats a block's slab takes at this MLP width (hidden, its storage
 // width): the activations' (which 0) and the MLP's (1). The launch reads
-// ptrs[P_ACT] and ptrs[P_HACT], each megakernel_grid_blocks of them.
+// ptrs[P_ACT] and ptrs[P_HACT], each megakernel_grid_blocks of them (above
+// n_embd 512 at either weight type, below with bf16 weights).
 extern "C" long long megakernel_slab_floats(int which, int hidden) {
   return slab_floats(which, hidden);
 }
@@ -4911,10 +5042,12 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
       p.s_valid > p.sp || (p.n_br != 1 && p.n_br != 2) ||
       (packed && p.n_br != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-#if MK_WIDE
+#if MK_WG
+  // the slabs: above n_embd 512 at either weight type, below with bf16
+  // weights (the f32 weights' products keep the tile in shared memory)
   p.act = static_cast<float*>(const_cast<void*>(ptrs[P_ACT]));
   p.hact = static_cast<float*>(const_cast<void*>(ptrs[P_HACT]));
-  if (p.act == nullptr || p.hact == nullptr)
+  if ((MK_WIDE || p.w_bf16) && (p.act == nullptr || p.hact == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
 #endif
   int cap = grid_cap(packed ? 1 : 0);
@@ -4929,9 +5062,9 @@ extern "C" int megakernel_step(const void* const* ptrs, const unsigned* ints,
                          ((p.L + kQTile - 1) / kQTile);
   const long long items = tiles > attn ? tiles : attn;
   const int grid = static_cast<int>(items < cap ? items : cap);
-#if MK_WIDE
+#if MK_WG
   mha::wg::tma_error() = 0;
-  if (p.w_bf16 && !wide_maps(p, grid))
+  if (p.w_bf16 && !wg_maps(p, grid))
     return static_cast<int>(cudaErrorNotSupported);
 #endif
   const void* fn = packed

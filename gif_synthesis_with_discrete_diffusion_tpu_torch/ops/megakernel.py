@@ -31,13 +31,16 @@ function. CPU tensors take it; CUDA tensors launch K3 or K4 or raise.
 The kernels take every n_embd up to 2048 in any number of heads that
 divides it, with any MLP width (:func:`widths_fit`: the JAX kernels' whole
 domain, whose one layer of bf16 weights, 28 n_embd^2 bytes, no longer fits
-their 100 MiB of VMEM past n_embd ~1935). Above n_embd 512 a tile's
-activations no longer fit a block's shared memory beside the weight tiles:
-they live in per-block slabs in device memory (the scratch's ``act`` and
-``hact``, allocated at the first such launch), streamed beside the weight
-tiles; with bf16 weights as three bf16 planes (:func:`split3_bf16`,
-:func:`slab_plane_offset`) that TMA copies land for ``wgmma`` (the C entry
-encodes the tensor maps and the wrapper raises if one is refused). The
+their 100 MiB of VMEM past n_embd ~1935). With bf16 weights, at every
+width but the serving one (:func:`takes_wgmma`), a tile's activations live
+in per-block slabs in device memory (the scratch's ``act`` and ``hact``,
+allocated at the first such launch) as three bf16 planes
+(:func:`split3_bf16`, :func:`slab_plane_offset`) that TMA copies land for
+``wgmma`` (the C entry encodes the tensor maps and the wrapper raises if one
+is refused); up to n_embd 64 the tile's own planes stay in the block's
+shared memory. With f32 weights they stay in shared memory up to n_embd 512;
+above it they no longer fit a block beside the weight tiles and go to the
+slabs too, streamed beside the weight tiles. The
 tables are made in the kernels' layout: every
 n_embd-wide or MLP-wide axis padded with zero columns to a multiple of 8
 (:func:`storage_width`; a no-op at every configuration of the repo), once,
@@ -48,12 +51,12 @@ true columns, and every padded column stays zero.
 
 Where the kernels' arithmetic departs from the plain version's by more than
 the order of a sum, it is stated here as a plain function that the CPU
-tests bound: the TF32 split of the f32 products (:func:`split_matmul`; above
-n_embd 512 with bf16 weights the three bf16 planes, :func:`planes_matmul`;
-:func:`kernel_matmul` says which), the polynomial share of the
-exponentials (:func:`exp2_poly`), the shift of the scores
-(:func:`softmax_shift`); :func:`megakernel_step_kernel_arithmetic` is the
-step computed with all three.
+tests bound: the TF32 split of the f32 products (:func:`split_matmul`;
+with bf16 weights the three bf16 planes, :func:`planes_matmul`, at every
+width but the serving one; :func:`kernel_matmul` says which), the
+polynomial share of the exponentials (:func:`exp2_poly`), the shift of the
+scores (:func:`softmax_shift`); :func:`megakernel_step_kernel_arithmetic`
+is the step computed with all three.
 
 Gumbel noise comes from Philox keyed by (seed, row, position, class): the
 sampled tokens agree with the TPU kernels and the plain version in
@@ -82,7 +85,8 @@ __all__ = ["MEGAKERNEL_MAX_SEQ", "pack_denoiser_params", "cross_tables",
            "megakernel_sample_tokens", "prepare_sampling", "alloc_scratch",
            "scratch_head_dim", "storage_width", "phase_s_products",
            "stamp_count", "split_tf32", "split_matmul", "split3_bf16",
-           "planes_matmul", "kernel_matmul", "slab_plane_offset", "exp2_poly",
+           "planes_matmul", "kernel_matmul", "takes_wgmma",
+           "slab_plane_offset", "exp2_poly",
            "poly_exp_mask", "softmax_shift", "widths_fit",
            "megakernel_step_kernel_arithmetic", "KERNEL_POLY_SHARE",
            "KERNEL_SHIFT_SLACK", "EXACT_MAX"]
@@ -100,8 +104,13 @@ _LN_EPS = 1e-6
 _KERNEL_EMBD_MAX = 2048
 # above this n_embd the 64-row activation tile no longer fits a block's
 # 227 KB beside the weight tiles: the kernels keep it in slabs in device
-# memory (csrc: MK_WIDE)
+# memory at either weight type (csrc: MK_WIDE)
 _SLAB_EMBD = 512
+# the serving width (n_embd, head dim), whose own code (csrc: MK_SERVING)
+# keeps every product on mma.sync; MK_GENERAL=1 builds it from the general
+# code instead
+_SERVING_WIDTHS = (64, 4)
+_GENERAL = "MK_GENERAL=1"
 _KERNEL_DOMAIN = (f"n_embd from 1 to {_KERNEL_EMBD_MAX} in heads that divide "
                   f"it, any MLP width")
 # a row's padding in device memory (csrc: kC) and phase S's widest chunk of
@@ -495,22 +504,36 @@ def split3_bf16(a: torch.Tensor
 
 
 def planes_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``a @ w`` as the kernels above n_embd 512 take it with bf16 weights
-    (csrc: wg_product): the f32 activations as their three bf16 planes
-    (:func:`split3_bf16`), each multiplied by the bf16 weights (a product
-    of two bf16 values is exact in f32) and summed in f32, lo first."""
+    """``a @ w`` as the kernels take it with bf16 weights wherever
+    :func:`takes_wgmma` (csrc: wg_product): the f32 activations as their
+    three bf16 planes (:func:`split3_bf16`), each multiplied by the bf16
+    weights (a product of two bf16 values is exact in f32) and summed in
+    f32, lo first."""
     hi, mid, lo = split3_bf16(a)
     w32 = w.to(torch.float32)
     return lo @ w32 + mid @ w32 + hi @ w32
 
 
-def kernel_matmul(n_embd: int):
-    """The product K3 / K4 take for the denoiser's layers at ``n_embd``, as
-    ``mm(a, w)``: :func:`planes_matmul` above n_embd 512 with bf16 weights
-    (``w``'s dtype), else :func:`split_matmul`. The logits' product is
+def takes_wgmma(n_embd: int, head_dim: int, weights_dtype: torch.dtype,
+                defines: tuple[str, ...] = ()) -> bool:
+    """Whether K3 / K4 at n_embd in heads of ``head_dim`` run phases A and
+    B's products on ``wgmma``, their activations as three bf16 planes in
+    the per-block slabs (csrc: MK_WG): with bf16 weights at every width but
+    the serving one (n_embd 64 in heads of 4, whose own code keeps
+    ``mma.sync``; the ``MK_GENERAL=1`` build of it takes ``wgmma`` too)."""
+    return weights_dtype == torch.bfloat16 and (
+        (n_embd, head_dim) != _SERVING_WIDTHS or _GENERAL in defines)
+
+
+def kernel_matmul(n_embd: int, head_dim: int,
+                  defines: tuple[str, ...] = ()):
+    """The product K3 / K4 take for the denoiser's layers at n_embd in
+    heads of ``head_dim``, as ``mm(a, w)``: :func:`planes_matmul` wherever
+    :func:`takes_wgmma` with ``w``'s dtype (bf16 weights at every width but
+    the serving one), else :func:`split_matmul`. The logits' product is
     :func:`split_matmul` at every width."""
     def mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        if n_embd > _SLAB_EMBD and w.dtype == torch.bfloat16:
+        if takes_wgmma(n_embd, head_dim, w.dtype, defines):
             return planes_matmul(a, w)
         return split_matmul(a, w)
     return mm
@@ -519,7 +542,8 @@ def kernel_matmul(n_embd: int):
 def slab_plane_offset(row, col, cols: int, plane=0):
     """Where element (``row``, ``col``) of a 64-row tile lies in bf16
     plane ``plane`` (0 hi, 1 mid, 2 lo) of a slab of ``cols`` columns (a
-    multiple of 8) above n_embd 512 (csrc: store_planes), an element
+    multiple of 8) wherever :func:`takes_wgmma` (csrc: store_planes; up to
+    n_embd 64 the tile's planes in shared memory, 64 columns), an element
     index: the planes one after another, 64 ``cols`` elements each, each
     ``[col // 8][row][col % 8]``. A plane's 64-deep chunk (columns 64 i ..)
     is the 8 KB from ``slab_plane_offset(0, 64 i, cols, plane)`` on: in
@@ -612,17 +636,19 @@ def megakernel_step_kernel_arithmetic(
         s_valid: int, sample: bool = True, cross_as_bias: bool = False,
         return_posterior: bool = False):
     """:func:`megakernel_step_reference` with the denoiser's products taken
-    as the kernels take them at this width (:func:`kernel_matmul`: above
-    n_embd 512 with bf16 weights the three bf16 planes, else the TF32
-    split), the logits' by :func:`split_matmul` and self-attention by the
-    kernels' exponentials: what K3 and K4 compute up to the order of their
-    sums. For the tests; no path of the port runs it."""
+    as the kernels take them at this width (:func:`kernel_matmul`: with
+    bf16 weights the three bf16 planes at every width but the serving one,
+    else the TF32 split), the logits' by :func:`split_matmul` and
+    self-attention by the kernels' exponentials: what K3 and K4 compute up
+    to the order of their sums. For the tests; no path of the port runs
+    it."""
     return _step(packed, tokens, adaln, kc, vc, pos, sched_row, seed,
                  n_layer=n_layer, n_head=n_head, n_embd=n_embd,
                  num_classes=num_classes, guidance=guidance, use_cfg=use_cfg,
                  s_valid=s_valid, sample=sample, cross_as_bias=cross_as_bias,
                  return_posterior=return_posterior,
-                 mm=kernel_matmul(n_embd), mm_logits=split_matmul,
+                 mm=kernel_matmul(n_embd, n_embd // n_head),
+                 mm_logits=split_matmul,
                  self_attention=_attention_kernel_arithmetic)
 
 
@@ -700,8 +726,10 @@ def alloc_scratch(batch: int, n_br: int, seq_len: int,
     (zero between launches: a step clears what it has used). The hidden
     state and the attention output are :func:`storage_width` wide, their
     padding zero (the output's from here on, the state's from a step's
-    first phase; x[..., :n_embd] is the state). Above n_embd 512 the first
-    launch adds the kernels' per-block slabs (``act``, ``hact``).
+    first phase; x[..., :n_embd] is the state). The first launch that needs
+    them (bf16 weights wherever :func:`takes_wgmma`; above n_embd 512 at
+    either weight type) adds the kernels' per-block slabs (``act``,
+    ``hact``).
     Allocated once per sampling call."""
     r = batch * n_br
     cs, d = storage_width(n_embd), n_embd // n_head
@@ -717,7 +745,7 @@ def alloc_scratch(batch: int, n_br: int, seq_len: int,
 
 def _alloc_slabs(scratch: dict, lib: ctypes.CDLL, hidden: int,
                  device: torch.device) -> None:
-    """The per-block slabs of the kernels above n_embd 512 into ``scratch``
+    """The kernels' per-block slabs into ``scratch``
     (``act``: a tile's activations; ``hact``: its MLP hidden units), each
     ``megakernel_slab_floats`` floats for every block the card holds at
     once; made at the first launch that needs them, kept for the next."""
@@ -784,15 +812,22 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     if L > max_seq:
         raise ValueError(f"megakernel_step: {L} tokens, the kernels take "
                          f"at most {max_seq} at head dim {head_dim}")
-    if n_embd > _SLAB_EMBD:
+    # the library says whether it runs the products on wgmma: it has the
+    # slabs' entry exactly where it does (csrc: MK_WG; takes_wgmma's rule,
+    # the MK_GENERAL=1 build at the serving width too), and an older build
+    # of the source, which chip_smoke.py launches in turns with this one,
+    # only above 512
+    wgmma = wd == torch.bfloat16 and hasattr(lib, "megakernel_slab_floats")
+    slabs = wgmma or n_embd > _SLAB_EMBD
+    if slabs:
         _alloc_slabs(scratch, lib, hidden, dev)
     out = torch.empty_like(tokens)
     tensors = dict(packed, sched=sched_row, tokens=tokens, out=out,
                    adaln=adaln, kc=kc, vc=vc, pos=pos, **scratch)
     ptrs = []
     for name in _PTR_NAMES:
-        if name in ("act", "hact") and n_embd <= _SLAB_EMBD:
-            ptrs.append(None)     # (the narrower kernels have no slabs)
+        if name in ("act", "hact") and not slabs:
+            ptrs.append(None)     # (f32 weights up to 512: no slabs)
             continue
         if name == "stamps":
             if stamps is not None and (
@@ -830,15 +865,13 @@ def _launch(packed, tokens, adaln, kc, vc, pos, sched_row, seed, *, n_layer,
     err = lib.megakernel_step(
         c_ptrs, c_ints, c_floats, torch.cuda.current_stream().cuda_stream)
     if err:
-        # above n_embd 512 with bf16 weights the products' operands come by
-        # TMA: a refused tensor map fails the launch (no other path)
-        refused = (lib.megakernel_tma_error()
-                   if n_embd > _SLAB_EMBD and hasattr(
-                       lib, "megakernel_tma_error") else 0)
+        # the wgmma products' operands come by TMA: a refused tensor map
+        # fails the launch (no other path)
+        refused = lib.megakernel_tma_error() if wgmma else 0
         if refused:
             raise RuntimeError(
                 f"megakernel_step: cuTensorMapEncodeTiled refused a tensor "
-                f"map of the wide products (CUresult {refused})")
+                f"map of the wgmma products (CUresult {refused})")
         raise RuntimeError(f"megakernel_step launch failed: cudaError {err}")
     if pack_cfg:
         megakernel_step.launches_k3 += 1

@@ -624,16 +624,18 @@ def test_megakernels_at_one_head_of_2048(cuda):
         _check_megakernel(args, kw, pack_cfg=pack_cfg, witness=True)
 
 
-@pytest.mark.parametrize("n_embd,d", [(64, 4), (512, 256), (520, 130),
-                                       (1000, 125), (1024, 64)])
+@pytest.mark.parametrize("n_embd,d", [(64, 4), (64, 8), (256, 16),
+                                       (512, 256), (520, 130), (1000, 125),
+                                       (1024, 64)])
 def test_wide_megakernel_products_run_on_wgmma(cuda, n_embd, d):
-    """Above n_embd 512 the library's SASS issues wgmma (``HGMMA``: the
-    bf16-weight products of phases A and B) beside ``mma.sync`` (``HMMA``:
-    f32 weights, phase S, the tail); at 512 and below only ``mma.sync``."""
+    """At every width but the serving one (n_embd 64 in heads of 4) the
+    library's SASS issues wgmma (``HGMMA``: the bf16-weight products of
+    phases A and B) beside ``mma.sync`` (``HMMA``: f32 weights, phase S,
+    the tail); the serving width's own code only ``mma.sync``."""
     lib = mk._library((), (n_embd, d))
     counts = chip_smoke._sass_counts(lib._name, ("HGMMA", "HMMA"))
     assert counts["HMMA"] > 0, counts
-    assert (counts["HGMMA"] > 0) == (n_embd > 512), counts
+    assert (counts["HGMMA"] > 0) == ((n_embd, d) != (64, 4)), counts
 
 
 @pytest.mark.parametrize("n_embd,n_head", chip_smoke.MK_WIDTHS,

@@ -350,9 +350,10 @@ def new_wsetup(request):
 def test_step_tokens_bf16_weights_at_every_width(new_wsetup, pack_cfg, s_len):
     """bf16 weights at the widths past the first domain: K3 with a general
     condition and K4 with a one-token one. The plain step equals the JAX
-    kernels token for token; the step with the kernels' arithmetic (its
-    polynomial row sums move a bf16 probability now and then) wherever the
-    plain log-posterior's top two classes lie BF16_MARGIN apart."""
+    kernels token for token; the step with the kernels' arithmetic (the
+    three bf16 planes of the wgmma products; its polynomial row sums move a
+    bf16 probability now and then) wherever the plain log-posterior's top
+    two classes lie BF16_MARGIN apart."""
     want, args, kw = _jax_width_step(new_wsetup, pack_cfg, s_len, "bfloat16")
     got, post = mk.megakernel_step_reference(*args, sample=False,
                                              return_posterior=True, **kw)
@@ -360,6 +361,37 @@ def test_step_tokens_bf16_weights_at_every_width(new_wsetup, pack_cfg, s_len):
     top2 = post.topk(2, dim=1).values
     decided = ((top2[:, 0] - top2[:, 1]) > BF16_MARGIN).numpy()
     assert decided.mean() > 0.9
+    got = mk.megakernel_step_kernel_arithmetic(*args, sample=False, **kw)
+    np.testing.assert_array_equal(got.numpy()[decided], want[decided])
+
+
+@pytest.fixture(scope="module", params=OLD_WIDTHS, ids=_width_id)
+def old_wsetup(request):
+    n_embd, n_head = request.param
+    return dict(_make_setup(n_embd, n_head), width=request.param)
+
+
+@pytest.mark.parametrize("pack_cfg,s_len", [(True, 3), (False, 1)],
+                         ids=["packed-general", "two_branch-bias"])
+def test_step_tokens_bf16_weights_at_the_first_widths(old_wsetup, pack_cfg,
+                                                      s_len):
+    """bf16 weights at the widths the kernels took first (none of them the
+    serving width, so the kernels take the three bf16 planes of the wgmma
+    products there too): K3 with a general condition and K4 with a
+    one-token one. The plain step and the step with the kernels' arithmetic
+    equal the JAX kernels wherever the plain log-posterior's top two
+    classes lie BF16_MARGIN apart, at least 0.9 of the tokens, as in
+    test_step_tokens_bf16_weights (at n_embd 32 in heads of 4 one token of
+    32 lies 4.4e-4 from its runner-up, and XLA's bf16 sums and torch's
+    take either)."""
+    want, args, kw = _jax_width_step(old_wsetup, pack_cfg, s_len,
+                                     "bfloat16")
+    got, post = mk.megakernel_step_reference(*args, sample=False,
+                                             return_posterior=True, **kw)
+    top2 = post.topk(2, dim=1).values
+    decided = ((top2[:, 0] - top2[:, 1]) > BF16_MARGIN).numpy()
+    assert decided.mean() > 0.9
+    np.testing.assert_array_equal(got.numpy()[decided], want[decided])
     got = mk.megakernel_step_kernel_arithmetic(*args, sample=False, **kw)
     np.testing.assert_array_equal(got.numpy()[decided], want[decided])
 

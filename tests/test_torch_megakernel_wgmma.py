@@ -1,7 +1,7 @@
-"""The wide whole-step kernels' products with bf16 weights (CPU).
+"""The whole-step kernels' products with bf16 weights (CPU).
 
-Above n_embd 512 with bf16 weights K3 / K4 take every product of phases A
-and B on ``wgmma``: the f32 activations are written once as three bf16
+With bf16 weights K3 / K4 take every product of phases A and B on
+``wgmma`` at every width but the serving one (n_embd 64 in heads of 4): the f32 activations are written once as three bf16
 planes (``csrc/megakernel_step.cu: split3``, ``store_planes``), which TMA
 copies land as wgmma's K-major core matrices. Here the plain statements of
 that arithmetic and layout in ``ops/megakernel.py``: the split holds every
@@ -10,8 +10,9 @@ a bijection whose 64-deep chunks are the TMA boxes the kernels copy, laid
 out as the core matrices their descriptors read, and the product is the
 f32 product up to its sums' rounding. The step with this arithmetic is
 held to JAX's interpret-mode kernels token for token in
-``tests/test_torch_megakernel_wide.py`` (its bf16 cases at 640 to 2048
-take :func:`kernel_matmul`'s planes).
+``tests/test_torch_megakernel_wide.py`` (its bf16 cases at 640 to 2048)
+and ``tests/test_torch_megakernel.py`` (at 24 to 512), both on
+:func:`kernel_matmul`'s planes.
 """
 import numpy as np
 import pytest
@@ -70,10 +71,13 @@ def test_three_planes_of_the_same_value_on_both_sides_of_zero():
         assert torch.equal(p, -q)
 
 
-@pytest.mark.parametrize("cols", [1000, 1024, 1536, 4096, 8192])
+@pytest.mark.parametrize("cols", [24, 104, 256, 400, 512, 1000, 1024, 1536,
+                                  4096, 8192])
 def test_slab_planes_are_tma_boxes_of_core_matrices(cols):
-    """The three planes of a slab of ``cols`` columns (n_embd 1000, 1024,
-    1536, an MLP of 4096 and 8192): every (plane, row, column) of the
+    """The three planes of a slab of ``cols`` columns (n_embd 24, 100 (104
+    wide), 256, 512, 1000, 1024, 1536, an MLP of 4 x 100 and of 4096 and
+    8192; the narrow slabs' only chunk, or their last, part zero fill):
+    every (plane, row, column) of the
     64-row tile has its own element, all 3 x 64 ``cols`` of them used; the
     slab as the kernels' tensor map reads it (128-byte lines: 64
     elements, line, plane; a line 8 rows of 8 columns) addresses each
@@ -123,16 +127,35 @@ def test_planes_product_is_the_f32_product(k):
     assert float(err.max()) < float(one_tf32.max())
 
 
-def test_kernel_matmul_takes_the_planes_above_512_with_bf16_weights():
-    """What the kernels' arithmetic multiplies by: the three planes above
-    n_embd 512 with bf16 weights, the TF32 split at 512 and below and with
-    f32 weights at every width."""
+# (n_embd, head dim, weights, defines, whether the kernels take the planes):
+# bf16 weights at every width but the serving one (n_embd 64 in heads of
+# 4, unless built from the general code), f32 weights nowhere
+KERNEL_MATMUL_CASES = [
+    (1024, 64, "bfloat16", (), True), (513, 27, "bfloat16", (), True),
+    (512, 256, "bfloat16", (), True), (256, 16, "bfloat16", (), True),
+    (64, 8, "bfloat16", (), True), (24, 3, "bfloat16", (), True),
+    (64, 4, "bfloat16", (), False),
+    (64, 4, "bfloat16", ("MK_GENERAL=1",), True),
+    (1024, 64, "float32", (), False), (512, 256, "float32", (), False),
+    (64, 4, "float32", (), False)]
+
+
+@pytest.mark.parametrize("n_embd,head_dim,wdtype,defines,planes",
+                         KERNEL_MATMUL_CASES,
+                         ids=[f"{c}x{d}-{w}{'-general' if f else ''}"
+                              for c, d, w, f, _ in KERNEL_MATMUL_CASES])
+def test_kernel_matmul_takes_the_planes_above_512_with_bf16_weights(
+        n_embd, head_dim, wdtype, defines, planes):
+    """What the kernels' arithmetic multiplies by: the three planes with
+    bf16 weights at every width (above n_embd 512 and below), but the
+    serving width's own code, which keeps the TF32 split, as f32 weights do
+    at every width; :func:`takes_wgmma` says the same."""
     g = torch.Generator().manual_seed(3)
     a = torch.randn(8, 640, generator=g)
-    wb = torch.randn(640, 24, generator=g).to(torch.bfloat16)
-    wf = torch.randn(640, 24, generator=g)
-    assert torch.equal(mk.kernel_matmul(1024)(a, wb), mk.planes_matmul(a, wb))
-    assert torch.equal(mk.kernel_matmul(513)(a, wb), mk.planes_matmul(a, wb))
-    assert torch.equal(mk.kernel_matmul(512)(a, wb), mk.split_matmul(a, wb))
-    assert torch.equal(mk.kernel_matmul(1024)(a, wf), mk.split_matmul(a, wf))
-    assert not torch.equal(mk.planes_matmul(a, wb), mk.split_matmul(a, wb))
+    w = torch.randn(640, 24, generator=g).to(getattr(torch, wdtype))
+    want = (mk.planes_matmul if planes else mk.split_matmul)(a, w)
+    assert torch.equal(mk.kernel_matmul(n_embd, head_dim, defines)(a, w),
+                       want)
+    assert mk.takes_wgmma(n_embd, head_dim, w.dtype, defines) == planes
+    if wdtype == "bfloat16":
+        assert not torch.equal(mk.planes_matmul(a, w), mk.split_matmul(a, w))
